@@ -2,9 +2,10 @@
 
 Counterpart of ``attendance_tpu/cli.py:cmd_fused``: a hermetic run of the
 hot path in one process — bulk binary load generator -> in-process
-broker -> FusedPipeline (roster preload, one fused kernel per frame) ->
-PFCOUNT of every lecture day. Runs on the CUDA card unless ``--device
-cpu`` is given.
+broker -> FusedPipeline (roster preload, one fused kernel per frame,
+and with ``--temporal-period-s > 0`` the temporal plane) -> PFCOUNT of
+every lecture day. Runs on the CUDA card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ def run_fused(config: Config, num_events: int, frame_size: int,
             "unique_attendees": {str(day): n for day, n
                                  in sorted(pipe.count_all().items())},
         }
+        if pipe.temporal_stats() is not None:
+            summary["temporal"] = pipe.temporal_stats()
     except BaseException:
         pipe.cleanup()
         raise
@@ -57,7 +60,13 @@ def run_fused(config: Config, num_events: int, frame_size: int,
 
 
 def cmd_fused(args) -> None:
-    pipe, summary = run_fused(Config(), args.num_events, args.frame_size,
+    config = Config(temporal_period_s=args.temporal_period_s,
+                    allowed_lateness_s=args.allowed_lateness_s,
+                    watermark_idle_s=args.watermark_idle_s,
+                    temporal_ring_banks=args.temporal_ring_banks,
+                    cms_depth=args.cms_depth, cms_width=args.cms_width,
+                    cms_topk=args.cms_topk)
+    pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
     pipe.cleanup()
     for day, n in summary.pop("unique_attendees").items():
@@ -77,6 +86,32 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                    "the kernels' plain PyTorch versions)")
+    d = Config()
+    f.add_argument("--temporal-period-s", type=float,
+                   default=d.temporal_period_s,
+                   help="bucket width of the temporal sketch plane in "
+                   "seconds (>= 1; 0 = temporal plane off): windowed "
+                   "HLL banks per (lecture day, period), watermarked "
+                   "reorder, CMS gate-fraud detector")
+    f.add_argument("--allowed-lateness-s", "--allowed-lateness",
+                   type=float, default=d.allowed_lateness_s,
+                   dest="allowed_lateness_s", metavar="SECONDS",
+                   help="event-time lateness budget: the watermark "
+                   "trails the stream head by this much")
+    f.add_argument("--watermark-idle-s", type=float,
+                   default=d.watermark_idle_s,
+                   help="wall-clock silence after which the watermark "
+                   "advances to the stream head (0 = only end-of-run)")
+    f.add_argument("--temporal-ring-banks", type=int,
+                   default=d.temporal_ring_banks,
+                   help="bucket rows the temporal ring retains; "
+                   "pressure evicts the oldest CLOSED bucket")
+    f.add_argument("--cms-depth", type=int, default=d.cms_depth,
+                   help="Count-Min rows (fraud detector)")
+    f.add_argument("--cms-width", type=int, default=d.cms_width,
+                   help="Count-Min buckets per row")
+    f.add_argument("--cms-topk", type=int, default=d.cms_topk,
+                   help="heavy-hitter candidates tracked")
     f.set_defaults(fn=cmd_fused)
     return p
 

@@ -1,14 +1,16 @@
 """Configuration of the port's fused path.
 
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
-path reads, with the JAX package's defaults (reference README: a
-100k-student roster at a 1% false-positive rate; Redis dense HLL
-precision 14).
+path and its temporal plane read, with the JAX package's defaults and
+checks (reference README: a 100k-student roster at a 1% false-positive
+rate; Redis dense HLL precision 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from attendance_tpu_torch.temporal.buckets import period_micros
 
 PULSAR_TOPIC = "attendance-events"
 BLOOM_FILTER_ERROR_RATE = 0.01
@@ -30,6 +32,30 @@ class Config:
     # back to the (4 + w)-byte bytes wire when key and bank bits do not
     # fit one word; "word" and "bytes" force one.
     wire_format: str = "auto"
+    # Full-population exact shadow of the temporal plane's windows
+    # (>= 1.0 keeps per-bucket sets of valid students: the window audit
+    # oracle); the JAX package's telemetry auditor is not ported.
+    audit_sample: float = 0.0
+    # Temporal sketch plane (attendance_tpu_torch/temporal): when
+    # temporal_period_s > 0 the fused pipeline grows a windowed-HLL
+    # bucket ring (one bank row per (lecture day, period) bucket in the
+    # SAME register tensor and bank_of map as the per-day banks), a
+    # watermarked reorder stage and a Count-Min + top-K fraud detector.
+    temporal_period_s: float = 0.0
+    # Event-time lateness budget: the watermark trails the stream head
+    # by this much; events behind a rotated bucket are counted and
+    # side-channeled instead of misbucketed.
+    allowed_lateness_s: float = 5.0
+    # Wall-clock silence after which the watermark advances to the
+    # stream head. 0 = only end-of-run flushes.
+    watermark_idle_s: float = 2.0
+    # Bucket rows the ring retains; pressure evicts the oldest CLOSED
+    # bucket, zeroing and recycling its bank row.
+    temporal_ring_banks: int = 256
+    # Count-Min geometry + heavy-hitter set size.
+    cms_depth: int = 4
+    cms_width: int = 1 << 14
+    cms_topk: int = 16
 
     def __post_init__(self):
         if not (4 <= self.hll_precision <= 18):
@@ -42,3 +68,24 @@ class Config:
                 "host pack)")
         if self.wire_format not in ("auto", "word", "bytes"):
             raise ValueError(f"unknown wire format: {self.wire_format}")
+        if not (0.0 <= self.audit_sample <= 1.0):
+            raise ValueError(
+                f"audit_sample out of range: {self.audit_sample} "
+                "(a fraction in [0, 1])")
+        if self.temporal_period_s < 0:
+            raise ValueError("temporal_period_s must be >= 0 (0 = off)")
+        if self.temporal_period_s:
+            period_micros(self.temporal_period_s)  # >= 1s, loud
+        if self.allowed_lateness_s < 0:
+            raise ValueError("allowed_lateness_s must be >= 0")
+        if self.watermark_idle_s < 0:
+            raise ValueError(
+                "watermark_idle_s must be >= 0 (0 = only end-of-run "
+                "flushes advance an idle watermark)")
+        if self.temporal_ring_banks < 2:
+            raise ValueError("temporal_ring_banks must be >= 2")
+        if self.cms_depth < 1 or self.cms_width < 1:
+            raise ValueError(
+                f"bad CMS geometry {self.cms_depth}x{self.cms_width}")
+        if self.cms_topk < 1:
+            raise ValueError("cms_topk must be >= 1")

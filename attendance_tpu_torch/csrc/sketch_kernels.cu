@@ -1,6 +1,6 @@
 // Hand-written Hopper kernels for the fused attendance hot path.
 //
-// Three kernels, each bound through a plain C entry point (ctypes, see
+// Six kernels, each bound through a plain C entry point (ctypes, see
 // ops/build.py and ops/kernels.py). Every entry point launches on the
 // stream it is given, allocates nothing, and returns cudaGetLastError()
 // so a refused launch is reported to the caller.
@@ -15,6 +15,17 @@
 //   K3 atp_bloom_add      packed Bloom preload by atomicOr
 //                         (replaces bloom_add_packed / packed_or_scatter,
 //                         attendance_tpu/models/bloom.py:223-271)
+//   K4 atp_bloom_contains blocked BF.EXISTS straight from the packed words
+//                         (replaces the Pallas bloom_contains_packed and
+//                         bloom_contains_hbm, attendance_tpu/ops/
+//                         pallas_kernels.py:197,340, and the XLA probe of
+//                         the temporal plane's window add)
+//   K5 atp_hll_add        windowed PFADD: masked register max per lane
+//                         (replaces the hll_add half of the XLA program
+//                         _t_add, attendance_tpu/pipeline/fast_path.py:991)
+//   K6 atp_cms_step       Count-Min update, then query, two launches
+//                         (replaces the XLA cms_step,
+//                         attendance_tpu/models/cms.py:116)
 //
 // The hash is MurmurHash3_x86_32 of each key's 4 little-endian bytes,
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
@@ -30,6 +41,9 @@ constexpr uint32_t kSeedBloomB = 0x85EBCA6Bu;
 constexpr uint32_t kSeedBlock = 0x27D4EB2Fu;
 constexpr uint32_t kSeedHllLo = 0xADC83B19u;
 constexpr uint32_t kSeedHllHi = 0x2545F491u;
+// Count-Min row r hashes with kSeedCmsBase + r * kSeedCmsStep (mod 2^32).
+constexpr uint32_t kSeedCmsBase = 0x7F4A7C15u;
+constexpr uint32_t kSeedCmsStep = 0x9E3779B9u;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -70,6 +84,23 @@ __device__ __forceinline__ bool bloom_probe(const uint32_t* __restrict__ words,
     hit &= ((__ldg(blk + (off >> 5)) >> (off & 31u)) & 1u) != 0u;
   }
   return hit;
+}
+
+// Redis dense-HLL (bucket, rank) of a key: bucket = low p bits of h1,
+// rank = 1 + count-trailing-zeros of the (64-p)-bit pattern (bits p..31
+// of h1, then h2), capped at 65 - p. Shared by K2 and K5.
+__device__ __forceinline__ void hll_bucket_rank(uint32_t key, int precision,
+                                                uint32_t* bucket,
+                                                uint32_t* rank) {
+  const uint32_t h1 = murmur3_u32(key, kSeedHllLo);
+  const uint32_t h2 = murmur3_u32(key, kSeedHllHi);
+  *bucket = h1 & ((1u << precision) - 1u);
+  const uint32_t lo = (h1 >> precision) | (h2 << (32 - precision));
+  const uint32_t hi = h2 >> precision;
+  // __ffs is 1 + count-trailing-zeros (0 for a zero word).
+  *rank = lo != 0u ? static_cast<uint32_t>(__ffs(lo))
+        : hi != 0u ? 32u + static_cast<uint32_t>(__ffs(hi))
+                   : static_cast<uint32_t>(64 - precision + 1);
 }
 
 // Byte-wide atomic max: CUDA has no 8-bit atomics, so CAS the aligned
@@ -180,17 +211,10 @@ fused_step_kernel(const uint8_t* __restrict__ wire, int bank_bytes,
     valid[i] = hit ? 1 : 0;
     real = bank >= 0;
     if (hit && real && bank < num_banks) {
-      const uint32_t h1 = murmur3_u32(key, kSeedHllLo);
-      const uint32_t h2 = murmur3_u32(key, kSeedHllHi);
-      const uint32_t m = 1u << precision;
-      const uint32_t bucket = h1 & (m - 1u);
-      const uint32_t lo = (h1 >> precision) | (h2 << (32 - precision));
-      const uint32_t hi = h2 >> precision;
-      // __ffs is 1 + count-trailing-zeros (0 for a zero word).
-      const uint32_t rank = lo != 0u ? static_cast<uint32_t>(__ffs(lo))
-                          : hi != 0u ? 32u + static_cast<uint32_t>(__ffs(hi))
-                                     : static_cast<uint32_t>(64 - precision + 1);
-      atomic_max_u8(regs + static_cast<size_t>(bank) * m + bucket, rank);
+      uint32_t bucket, rank;
+      hll_bucket_rank(key, precision, &bucket, &rank);
+      atomic_max_u8(regs + (static_cast<size_t>(bank) << precision) + bucket,
+                    rank);
     }
   }
   __shared__ unsigned int warp_valid[kWarps];
@@ -235,6 +259,89 @@ bloom_add_kernel(uint32_t* words, const uint32_t* __restrict__ keys, int n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: one thread per key; the same bloom_probe as K2 reads the key's one
+// 64-byte block of the packed words (blocks are contiguous there, so no
+// transposed or row table as on the TPU) and resolves the k probes in
+// registers. Any batch length; no padding.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+bloom_contains_kernel(const uint32_t* __restrict__ words, uint32_t num_blocks,
+                      int k, const uint32_t* __restrict__ keys, int n,
+                      uint8_t* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  out[i] = bloom_probe(words, num_blocks, k, keys[i]) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// K5: one thread per lane. A lane is dropped when its valid byte is 0
+// (valid may be null: every lane counts) or its bank is < 0 or past the
+// array; otherwise its rank is maxed into its register with the same
+// 32-bit CAS loop as K2.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+hll_add_kernel(uint8_t* regs, int num_banks, int precision,
+               const int32_t* __restrict__ bank,
+               const uint32_t* __restrict__ keys,
+               const uint8_t* __restrict__ valid, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  if (valid != nullptr && valid[i] == 0) return;
+  const int32_t b = bank[i];
+  if (b < 0 || b >= num_banks) return;
+  uint32_t bucket, rank;
+  hll_bucket_rank(keys[i], precision, &bucket, &rank);
+  atomic_max_u8(regs + (static_cast<size_t>(b) << precision) + bucket, rank);
+}
+
+// ---------------------------------------------------------------------------
+// K6: Count-Min over uint32[depth, width] counters. The update adds one
+// per (row, bucket) of every unmasked lane with a 32-bit atomicAdd
+// (wraps at 2^32 exactly like XLA's uint32 scatter-add; duplicates each
+// count). The query, a second launch in stream order so it sees the
+// whole batch, takes the min over rows; masked lanes read 0. mask may
+// be null: every lane counts.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cms_bucket(uint32_t key, int row,
+                                               uint32_t width) {
+  return murmur3_u32(key, kSeedCmsBase + static_cast<uint32_t>(row) *
+                                             kSeedCmsStep) % width;
+}
+
+__global__ void __launch_bounds__(kThreads)
+cms_update_kernel(uint32_t* counts, int depth, uint32_t width,
+                  const uint32_t* __restrict__ keys,
+                  const uint8_t* __restrict__ mask, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  if (mask != nullptr && mask[i] == 0) return;
+  const uint32_t key = keys[i];
+  for (int r = 0; r < depth; ++r) {
+    atomicAdd(counts + static_cast<size_t>(r) * width + cms_bucket(key, r, width),
+              1u);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
+                 uint32_t width, const uint32_t* __restrict__ keys,
+                 const uint8_t* __restrict__ mask, int n,
+                 uint32_t* __restrict__ est) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  if (mask != nullptr && mask[i] == 0) {
+    est[i] = 0u;
+    return;
+  }
+  const uint32_t key = keys[i];
+  uint32_t m = 0xFFFFFFFFu;
+  for (int r = 0; r < depth; ++r) {
+    m = min(m, counts[static_cast<size_t>(r) * width + cms_bucket(key, r, width)]);
+  }
+  est[i] = m;
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -275,6 +382,48 @@ int atp_bloom_add(void* words, const void* keys, int n,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint32_t*>(words), static_cast<const uint32_t*>(keys), n,
         num_blocks, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int atp_bloom_contains(const void* words, unsigned int num_blocks, int k,
+                       const void* keys, int n, void* out, void* stream) {
+  if (n > 0) {
+    bloom_contains_kernel<<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(words), num_blocks, k,
+        static_cast<const uint32_t*>(keys), n, static_cast<uint8_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int atp_hll_add(void* regs, int num_banks, int precision, const void* bank,
+                const void* keys, const void* valid, int n, void* stream) {
+  if (n > 0) {
+    hll_add_kernel<<<blocks_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint8_t*>(regs), num_banks, precision,
+        static_cast<const int32_t*>(bank), static_cast<const uint32_t*>(keys),
+        static_cast<const uint8_t*>(valid), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int atp_cms_step(void* counts, int depth, unsigned int width,
+                 const void* keys, const void* mask, int n, void* est,
+                 void* stream) {
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cms_update_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<uint32_t*>(counts), depth, width,
+        static_cast<const uint32_t*>(keys),
+        static_cast<const uint8_t*>(mask), n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cms_query_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(counts), depth, width,
+        static_cast<const uint32_t*>(keys),
+        static_cast<const uint8_t*>(mask), n, static_cast<uint32_t*>(est));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ device they raise: the port never drops to the CPU quietly.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -29,3 +30,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available")
     return dev
+
+
+def to_device(arr: np.ndarray, device: torch.device
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(tensor on ``device``, pinned host copy or None) of a host array.
+    On the card the copy is asynchronous from pinned memory; the pinned
+    tensor must stay referenced until the work reading it is done. A
+    read-only array (a view of a frame's bytes) is copied first: torch
+    does not wrap read-only memory."""
+    host = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    if device.type == "cpu":
+        return host, None
+    pinned = host.pin_memory()
+    return pinned.to(device, non_blocking=True), pinned

@@ -13,7 +13,9 @@ and its k probes land inside it at ``(h2 + j*h3) & 511``.
 
 The roster preload (:func:`bloom_add_packed`) runs the K3 kernel on a
 CUDA tensor (``ops/kernels.py``); :func:`bloom_add_packed_plain` is its
-plain PyTorch version.
+plain PyTorch version. The standalone blocked probe
+(:func:`bloom_contains_packed`) runs the K4 kernel on a CUDA tensor;
+:func:`bloom_contains_words` is its plain version.
 """
 
 from __future__ import annotations
@@ -134,10 +136,21 @@ def bloom_add_packed(words: torch.Tensor, keys: torch.Tensor,
 
 def bloom_contains_words(words: torch.Tensor, keys: torch.Tensor,
                          params: BloomParams) -> torch.Tensor:
-    """Membership test against a packed filter: bool[B]."""
+    """Membership test against a packed filter: bool[B]. Any layout;
+    the plain version of the K4 probe for the blocked one."""
     pos = bloom_positions(keys, params)
     probes = as_u32(words[pos >> 5])               # gather: [B, k]
     return torch.all(((probes >> (pos & 31)) & 1) == 1, dim=1)
+
+
+def bloom_contains_packed(words: torch.Tensor, keys: torch.Tensor,
+                          params: BloomParams) -> torch.Tensor:
+    """Blocked BF.EXISTS against the packed filter, bool[B]: the K4
+    kernel on a CUDA tensor, :func:`bloom_contains_words` on a CPU one.
+    Raises on the flat layout, as the Pallas probes did."""
+    # Imported here: ops.kernels builds its plain versions on this module.
+    from attendance_tpu_torch.ops import kernels
+    return kernels.bloom_contains(words, keys, params)
 
 
 # Set-bit count of every byte value, for the popcount below.

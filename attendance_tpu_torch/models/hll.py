@@ -6,9 +6,11 @@ domain of Redis dense HLL is assembled from two murmur3 lanes: bucket =
 low p bits of h1; rank = 1 + count-trailing-zeros of the (64-p)-bit
 pattern (bits p..31 of h1, then h2), capped at q + 1 = 65 - p.
 
-PFCOUNT is a register-value histogram per bank (the K1 kernel on a CUDA
-tensor, :func:`hll_histogram` on a CPU one) followed by Ertl's improved
-raw estimator on the host.
+PFADD outside the fused step (the temporal plane's window add) is the K5
+kernel on a CUDA tensor, :func:`hll_add_plain` on a CPU one. PFCOUNT is
+a register-value histogram per bank (the K1 kernel on a CUDA tensor,
+:func:`hll_histogram` on a CPU one) followed by Ertl's improved raw
+estimator on the host.
 """
 
 from __future__ import annotations
@@ -58,13 +60,13 @@ def hll_bucket_rank(keys: torch.Tensor,
     return bucket, rank
 
 
-def hll_add(regs: torch.Tensor, bank_idx: torch.Tensor, keys: torch.Tensor,
-            mask: Optional[torch.Tensor] = None,
-            precision: int = 14) -> None:
-    """Batched PFADD: max-merge each key's rank into its bank register,
-    in place (the JAX function returned new registers from a donated
-    buffer). Lanes with ``bank_idx < 0``, a bank past the array, or a
-    False ``mask`` are dropped."""
+def hll_add_plain(regs: torch.Tensor, bank_idx: torch.Tensor,
+                  keys: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                  precision: int = 14) -> None:
+    """Plain version of the K5 windowed PFADD: max-merge each key's rank
+    into its bank register, in place (the JAX function returned new
+    registers from a donated buffer). Lanes with ``bank_idx < 0``, a
+    bank past the array, or a False ``mask`` are dropped."""
     num_banks, m = regs.shape
     bucket, rank = hll_bucket_rank(keys, precision)
     bank = bank_idx.to(torch.int64)
@@ -77,6 +79,18 @@ def hll_add(regs: torch.Tensor, bank_idx: torch.Tensor, keys: torch.Tensor,
     cur = regs.view(-1).to(torch.int32)
     cur.scatter_reduce_(0, flat, rank[keep].to(torch.int32), reduce="amax")
     regs.view(-1).copy_(cur.to(torch.uint8))
+
+
+def hll_add(regs: torch.Tensor, bank_idx: torch.Tensor, keys: torch.Tensor,
+            mask: Optional[torch.Tensor] = None,
+            precision: int = 14) -> None:
+    """Batched PFADD into ``regs``, in place: the K5 kernel on a CUDA
+    tensor, :func:`hll_add_plain` on a CPU one. ``bank_idx`` and
+    ``keys`` are int32[B] (keys as uint32 bit patterns), ``mask`` an
+    optional bool[B]."""
+    # Imported here: ops.kernels builds its plain versions on this module.
+    from attendance_tpu_torch.ops import kernels
+    kernels.hll_add(regs, bank_idx, keys, mask, precision)
 
 
 def hll_histogram(regs: torch.Tensor, precision: int = 14) -> torch.Tensor:

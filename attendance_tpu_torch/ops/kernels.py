@@ -13,16 +13,19 @@ Bounds below are for one H100 SXM (3.35 TB/s device memory).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from attendance_tpu_torch.models.bloom import (
     BLOCK_BITS, BloomParams, bloom_add_packed_plain, bloom_contains_words)
-from attendance_tpu_torch.models import hll
+from attendance_tpu_torch.models import cms, hll
 from attendance_tpu_torch.ops.build import library
 from attendance_tpu_torch.ops.murmur3 import MASK32, as_u32, to_i32
 
 # Kernel launches since the last reset_launches(), by wrapper name.
-launches = {"hll_histogram": 0, "fused_step": 0, "bloom_add": 0}
+launches = {"hll_histogram": 0, "fused_step": 0, "bloom_add": 0,
+            "bloom_contains": 0, "hll_add": 0, "cms_step": 0}
 
 
 def reset_launches() -> None:
@@ -177,8 +180,8 @@ def fused_step_plain(bloom: torch.Tensor, regs: torch.Tensor,
     returns valid: bool[lanes]."""
     keys, bank = _unpack_lanes(wire, bank_bytes, key_bits)
     valid = bloom_contains_words(bloom, keys, params)
-    hll.hll_add(regs, torch.where(valid, bank, -1), keys,
-                precision=precision)
+    hll.hll_add_plain(regs, torch.where(valid, bank, -1), keys,
+                      precision=precision)
     real = bank >= 0
     nv = (valid & real).sum()
     _bump_counts(counts, nv, real.sum() - nv)
@@ -247,3 +250,150 @@ def fused_step(bloom: torch.Tensor, regs: torch.Tensor,
     _check_launch(rc, "atp_fused_step")
     launches["fused_step"] += 1
     return valid
+
+
+# ---------------------------------------------------------------------------
+# K4: blocked BF.EXISTS from the packed words
+# ---------------------------------------------------------------------------
+
+def bloom_contains(words: torch.Tensor, keys: torch.Tensor,
+                   params: BloomParams) -> torch.Tensor:
+    """Blocked-layout BF.EXISTS of int32[B] keys (uint32 bit patterns)
+    against the packed int32[m_bits // 32] filter: bool[B], any B.
+
+    Replaces both Pallas probes, ``bloom_contains_packed``
+    (attendance_tpu/ops/pallas_kernels.py:197), which read a transposed
+    uint32[16, nb->128k] VMEM table with tiled lane-gathers, and
+    ``bloom_contains_hbm`` (:340), which DMAed a 128-lane row of 8
+    blocks per key from an HBM uint32[ceil(nb/8), 128] table; and the
+    XLA probe of the temporal window add (fast_path.py:999). Those
+    tables were TPU layouts (a one-tile lane-gather limit, 128-lane DMA
+    alignment); the packed words already hold each block's 16 words
+    contiguously, so the kernel reads them in place. Bound: bytes, at
+    4B in, B out and 64 bytes per distinct block touched (a 131,072-key
+    batch against the 100k-roster filter's 138 KB: about 0.24 us at
+    3.35 TB/s), or operations, about B x (3 x 20 + 5k) integer ops
+    (0.20 us at 67 TOP/s). Design: one thread per key hashes it three
+    ways and resolves the k probes from its one block through the same
+    ``bloom_probe`` device function as K2, so the two cannot disagree.
+    """
+    _require(params.layout == "blocked",
+             "the blocked probe requires the blocked layout (as the Pallas "
+             "probes did); use models.bloom.bloom_contains_words for flat")
+    _require(words.dtype == torch.int32
+             and words.shape == (params.m_bits // 32,),
+             f"words must be int32[{params.m_bits // 32}]")
+    _require(keys.dtype == torch.int32 and keys.dim() == 1,
+             "keys must be int32[B] (uint32 bit patterns)")
+    if words.device.type == "cpu" and keys.device.type == "cpu":
+        return bloom_contains_words(words, keys, params)
+    _require_cuda(words, keys)
+    out = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
+    if keys.shape[0] == 0:
+        return out
+    with torch.cuda.device(words.device):
+        rc = library().atp_bloom_contains(
+            words.data_ptr(), params.m_bits // BLOCK_BITS, params.k,
+            keys.data_ptr(), keys.shape[0], out.data_ptr(), _stream(words))
+    _check_launch(rc, "atp_bloom_contains")
+    launches["bloom_contains"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: windowed PFADD
+# ---------------------------------------------------------------------------
+
+def hll_add(regs: torch.Tensor, bank: torch.Tensor, keys: torch.Tensor,
+            valid: Optional[torch.Tensor] = None,
+            precision: int = 14) -> None:
+    """Max each lane's HLL rank into ``regs[bank, bucket]``, in place
+    (JAX donated the registers). ``bank`` int32[B]: -1 or a bank past
+    the array drops the lane; ``keys`` int32[B] (uint32 bit patterns);
+    ``valid`` an optional bool[B] that masks lanes (K4's answer on the
+    window add).
+
+    Replaces the ``hll_add`` half of the XLA program ``_t_add``
+    (attendance_tpu/pipeline/fast_path.py:991-1004), an XLA scatter-max
+    into the shared register array. Bound: bytes, at 9B in plus one
+    read and one write of each distinct register a kept lane touches
+    (a 131,072-lane window add: about 0.4 us at 3.35 TB/s), or
+    operations, about B x 5 + kept x 50 (two murmur3 lanes and the rank
+    per kept lane). Design: one thread per lane does the hashing in
+    registers and maxes the byte with the 32-bit ``atomicCAS`` loop of
+    K2 (CUDA has no 8-bit atomic max); the loop stops without a write
+    when the register already holds the rank.
+    """
+    _require(regs.dtype == torch.uint8 and regs.dim() == 2
+             and 4 <= precision <= 18 and regs.shape[1] == 1 << precision,
+             f"regs must be uint8[num_banks, 2^{precision}]")
+    _require(bank.dtype == torch.int32 and keys.dtype == torch.int32
+             and bank.dim() == keys.dim() == 1
+             and bank.shape == keys.shape,
+             "bank and keys must be int32[B]")
+    _require(valid is None or (valid.dtype == torch.bool
+                               and valid.shape == keys.shape),
+             "valid must be bool[B]")
+    tensors = (regs, bank, keys) + (() if valid is None else (valid,))
+    if all(t.device.type == "cpu" for t in tensors):
+        hll.hll_add_plain(regs, bank, keys, valid, precision)
+        return
+    _require_cuda(*tensors)
+    _require(regs.data_ptr() % 4 == 0, "regs must be 4-byte aligned")
+    if keys.shape[0] == 0:
+        return
+    with torch.cuda.device(regs.device):
+        rc = library().atp_hll_add(
+            regs.data_ptr(), regs.shape[0], precision, bank.data_ptr(),
+            keys.data_ptr(), None if valid is None else valid.data_ptr(),
+            keys.shape[0], _stream(regs))
+    _check_launch(rc, "atp_hll_add")
+    launches["hll_add"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K6: Count-Min update, then query
+# ---------------------------------------------------------------------------
+
+def cms_step(counts: torch.Tensor, keys: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Count-Min update of ``counts`` int32[depth, width] (uint32 bits)
+    in place with every unmasked lane of ``keys`` int32[B], then each
+    lane's estimate against the updated counts: est int32[B] (uint32
+    bits), masked lanes 0.
+
+    Replaces the XLA program ``cms_step`` (attendance_tpu/models/
+    cms.py:116: ``cms_update`` :91, a uint32 scatter-add, then
+    ``cms_query`` :107, a gather and a min over rows). Bound: bytes, at
+    9B in, 4B out and one read and one write of each distinct counter
+    touched (131,072 keys into 4 x 16384 counters: about 0.7 us at
+    3.35 TB/s), or operations, about B x depth x 25. Design: one thread per
+    lane hashes it per row; the update adds with a 32-bit
+    ``atomicAdd`` (wraps at 2^32 as XLA does; duplicates each count);
+    the query must see the whole batch, so it is a second launch in
+    stream order from the same C entry point. One wrapper call counts
+    one launch.
+    """
+    _require(counts.dtype == torch.int32 and counts.dim() == 2
+             and counts.shape[0] >= 1 and counts.shape[1] >= 1,
+             "counts must be int32[depth, width]")
+    _require(keys.dtype == torch.int32 and keys.dim() == 1,
+             "keys must be int32[B] (uint32 bit patterns)")
+    _require(mask is None or (mask.dtype == torch.bool
+                              and mask.shape == keys.shape),
+             "mask must be bool[B]")
+    tensors = (counts, keys) + (() if mask is None else (mask,))
+    if all(t.device.type == "cpu" for t in tensors):
+        return cms.cms_step_plain(counts, keys, mask)
+    _require_cuda(*tensors)
+    est = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
+    if keys.shape[0] == 0:
+        return est
+    with torch.cuda.device(counts.device):
+        rc = library().atp_cms_step(
+            counts.data_ptr(), counts.shape[0], counts.shape[1],
+            keys.data_ptr(), None if mask is None else mask.data_ptr(),
+            keys.shape[0], est.data_ptr(), _stream(counts))
+    _check_launch(rc, "atp_cms_step")
+    launches["cms_step"] += 1
+    return est

@@ -4,15 +4,18 @@ Counterpart of ``attendance_tpu/pipeline/fast_path.py:FusedPipeline``,
 single-chip branch, numpy pack path. Per frame: one planar binary frame
 from the broker -> zero-copy columnar decode -> day->bank map -> host
 pack of the word (or bytes) wire -> ONE fused kernel launch (Bloom
-validate + HLL count, K2) -> columnar side-store append -> ack.
+validate + HLL count, K2) -> with ``temporal_period_s > 0``, the
+temporal plane's per-frame hook (window add: K4 probe + K5 register
+max; the CMS step K6 on released events; evicted rows zeroed) ->
+columnar side-store append -> ack.
 
 Ack ordering: launches are asynchronous, so the host decodes and packs
 frame N+1 while the card runs frame N; a frame is acknowledged only
 after its step completed. Each dispatch records a ``torch.cuda.Event``;
 the in-flight deque acks frames in order as their events complete, and
 blocks on the oldest when it is ``_INFLIGHT_DEPTH`` deep. The pinned
-host buffer of a frame's wire stays referenced until its event
-completes, so the asynchronous copy never reads a recycled buffer.
+host buffers of a frame's copies stay referenced until its event
+completes, so an asynchronous copy never reads a recycled buffer.
 Replays after a crash are harmless: OR/max sketches and the read-time
 dedup store are idempotent.
 """
@@ -28,25 +31,29 @@ import numpy as np
 import torch
 
 from attendance_tpu_torch.config import Config
-from attendance_tpu_torch.device import resolve_device
+from attendance_tpu_torch.device import resolve_device, to_device
 from attendance_tpu_torch.models.bloom import (
-    bloom_add_packed, bloom_packed_fill_fraction)
+    bloom_add_packed, bloom_contains_packed, bloom_packed_fill_fraction)
 from attendance_tpu_torch.models.fused import (
     bank_wire_dtype, decode_counts, fused_step_bytes, fused_step_words,
     init_state, pack_bytes, pack_words)
 from attendance_tpu_torch.models.hll import (
-    best_histogram, estimate_from_histogram)
+    best_histogram, estimate_from_histogram, hll_add)
 from attendance_tpu_torch.pipeline.codec import decode_frame
 from attendance_tpu_torch.pipeline.events import lecture_to_day
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
+from attendance_tpu_torch.temporal.buckets import is_bucket_key
+from attendance_tpu_torch.temporal.plane import TemporalPlane
 from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryClient, ReceiveTimeout)
 
 _INFLIGHT_DEPTH = 8  # dispatched-but-unacked frames before blocking
 # Host stages of the run loop, in frame order; "dispatch" is the H2D copy
-# enqueue plus the kernel launch, "ack_wait" the time blocked on the card.
-STAGES = ("receive", "decode", "bank_map", "pack", "dispatch", "store",
-          "ack_wait")
+# enqueue plus the kernel launch, "temporal" the temporal plane's host
+# passes and launches (0 when the plane is off), "ack_wait" the time
+# blocked on the card.
+STAGES = ("receive", "decode", "bank_map", "pack", "dispatch", "temporal",
+          "store", "ack_wait")
 
 
 @dataclasses.dataclass
@@ -93,16 +100,31 @@ class FusedPipeline:
         self._bank_dtype = bank_wire_dtype(num_banks)
         # Monotonic key-width hint of the word wire.
         self._kw_hint = 1
-        # Bank allocation: a monotonic counter (the free list of the JAX
-        # package serves the temporal plane, a later slice).
+        # Bank allocation: days AND temporal buckets share one map and
+        # one register tensor. The allocator is a monotonic counter plus
+        # a free list: the temporal ring's evictions recycle bank rows.
         self._bank_of: Dict[int, int] = {}
         self._next_bank = 0
+        self._free_banks: list = []
         # Dense day->bank lookup: days in [base, base + LUT) map with one
         # fancy-index instead of an np.unique per frame.
         self._day_base: Optional[int] = None
         self._day_lut = np.full(self._LUT_SIZE, -1, np.int32)
-        # (message, completion event or None, pinned wire or None)
+        # (message, completion event or None, pinned host buffers)
         self._inflight: deque = deque()
+        # Pinned host buffers of the frame being dispatched.
+        self._frame_pinned: list = []
+        # Temporal sketch plane: windowed HLL bucket ring + watermarked
+        # reorder + CMS fraud detector; one `is not None` branch per
+        # frame when off.
+        self._temporal: Optional[TemporalPlane] = None
+        if self.config.temporal_period_s > 0:
+            self._temporal = TemporalPlane(
+                self.config, device=self.device,
+                alloc_bank=self._register_temporal_bucket,
+                free_buckets=self._free_temporal_buckets,
+                mark_dirty=self._mark_temporal_dirty,
+                dispatch_add=self._temporal_dispatch)
 
     # -- roster -------------------------------------------------------------
     def preload(self, keys) -> None:
@@ -112,6 +134,9 @@ class FusedPipeline:
                          torch.from_numpy(keys.view(np.int32)).to(
                              self.device),
                          self.params)
+        if self._temporal is not None:
+            # The window shadow classifies validity by roster membership.
+            self._temporal.record_roster(keys)
 
     # -- bank mapping -------------------------------------------------------
     def _num_banks(self) -> int:
@@ -126,6 +151,11 @@ class FusedPipeline:
         self._bank_dtype = bank_wire_dtype(grown.shape[0])
 
     def _alloc_bank(self) -> int:
+        """Next free HLL bank row: the free list (rows recycled by
+        temporal-ring evictions, popped from its end) first, else the
+        monotonic counter, growing the register tensor on demand."""
+        if self._free_banks:
+            return self._free_banks.pop()
         bank = self._next_bank
         while bank >= self._num_banks():
             self._grow_banks()  # double the bank array (rare)
@@ -191,6 +221,63 @@ class FusedPipeline:
             banks[misses] = fixed
         return banks.astype(np.int32, copy=False)
 
+    # -- temporal plane hooks ------------------------------------------------
+    def _register_temporal_bucket(self, key: int) -> int:
+        """Allocate one bank row for a temporal bucket key (the ring's
+        alloc callback), from the same allocator as days."""
+        bank = self._alloc_bank()
+        self._bank_of[key] = bank
+        return bank
+
+    def _free_temporal_buckets(self, keys, banks) -> None:
+        """Evict rotated buckets (the ring's eviction callback): drop
+        their keys from the bank map, zero their register rows and
+        recycle the rows through the free list. The zeroing is one
+        ``index_fill_``: a memset of whole rows, as the JAX scatter-set
+        ``_t_clear`` was."""
+        for key in keys:
+            self._bank_of.pop(key, None)
+        if not banks:
+            return
+        rows = torch.tensor(banks, dtype=torch.int64, device=self.device)
+        self.state.hll_regs.index_fill_(0, rows, 0)
+        self._free_banks.extend(int(b) for b in banks)
+
+    def _mark_temporal_dirty(self, keys) -> None:
+        """Dirty-bucket hook of the delta snapshot chain: a no-op, as
+        the port has no snapshots yet."""
+
+    def _temporal_dispatch(self, keys: np.ndarray,
+                           banks: np.ndarray) -> None:
+        """The window add into the SHARED register tensor: K4 probes the
+        frame's keys against the filter, then K5 maxes the valid lanes
+        into their bucket rows (bank -1 lanes drop). Launched on the
+        current ``state.hll_regs`` after the frame's step, so it is
+        acknowledged with the frame."""
+        keys_t = self._to_device(
+            np.ascontiguousarray(keys, np.uint32).view(np.int32))
+        banks_t = self._to_device(np.ascontiguousarray(banks, np.int32))
+        valid = bloom_contains_packed(self.state.bloom_bits, keys_t,
+                                      self.params)
+        hll_add(self.state.hll_regs, banks_t, keys_t, valid,
+                self.config.hll_precision)
+
+    def temporal_stats(self) -> Optional[Dict]:
+        """The temporal plane's live counters (None when off)."""
+        return (self._temporal.stats() if self._temporal is not None
+                else None)
+
+    def window_counts(self) -> Dict[int, int]:
+        """PFCOUNT of every live temporal bucket from ONE histogram
+        launch: {bucket key: unique-valid-student estimate}."""
+        keys = {k: b for k, b in self._bank_of.items() if is_bucket_key(k)}
+        if not keys:
+            return {}
+        prec = self.config.hll_precision
+        hists = best_histogram(self.state.hll_regs, prec).cpu().numpy()
+        return {k: int(round(estimate_from_histogram(hists[b], prec)))
+                for k, b in keys.items()}
+
     # -- hot loop -----------------------------------------------------------
     def _lap(self, stage: str, since: float) -> float:
         """Charge the time since ``since`` to ``stage``; returns now."""
@@ -198,35 +285,39 @@ class FusedPipeline:
         self.metrics.stage_seconds[stage] += now - since
         return now
 
-    def _to_device(self, arr: np.ndarray
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(device tensor, pinned host copy or None) of a host array. On
-        the card the copy is asynchronous from pinned memory; the pinned
-        tensor must stay referenced until the work reading it is done."""
-        host = torch.from_numpy(arr)
-        if self.device.type == "cpu":
-            return host, None
-        pinned = host.pin_memory()
-        return pinned.to(self.device, non_blocking=True), pinned
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the device; its pinned host copy (on the
+        card) is kept with the frame until the frame's event completes."""
+        tensor, pinned = to_device(arr, self.device)
+        if pinned is not None:
+            self._frame_pinned.append(pinned)
+        return tensor
 
     def process_frame(self, data: bytes):
         """Dispatch one planar frame; returns (valid[:n] on the device,
-        completion event or None, pinned wire or None)."""
+        completion event or None, pinned host buffers of its copies)."""
         t = time.perf_counter()
         cols = decode_frame(data, include_truth=False)
         t = self._lap("decode", t)
         n = len(cols["student_id"])
         if n == 0:
-            return None, None, None
+            return None, None, []
         padded = 256
         while padded < n:
             padded *= 2
-        valid, pinned = self._dispatch_single(cols, padded)
+        valid = self._dispatch_single(cols, padded)
         valid_n = valid[:n]
+        if self._temporal is not None:
+            # After the day map and the step, as in the JAX package: days
+            # take their banks first, then new buckets take theirs.
+            t = time.perf_counter()
+            self._temporal.observe_frame(cols)
+            self._lap("temporal", t)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
+        pinned, self._frame_pinned = self._frame_pinned, []
         t = time.perf_counter()
         self.store.insert_columns({**cols, "is_valid": valid_n})
         self._lap("store", t)
@@ -248,10 +339,10 @@ class FusedPipeline:
 
     def _dispatch_single(self, cols: Dict[str, np.ndarray], padded: int):
         """Pack one frame's (key, bank) lanes and launch the fused step;
-        returns (valid[padded], pinned wire or None). The word wire (4
-        bytes/event, bank folded into the key's spare high bits) carries
-        every frame whose key and bank bits fit one word; otherwise the
-        (4 + w)-byte bytes wire does."""
+        returns valid[padded]. The word wire (4 bytes/event, bank folded
+        into the key's spare high bits) carries every frame whose key and
+        bank bits fit one word; otherwise the (4 + w)-byte bytes wire
+        does."""
         sid, days = cols["student_id"], cols["lecture_day"]
         t = time.perf_counter()
         banks = self._banks_for(days)
@@ -265,19 +356,18 @@ class FusedPipeline:
             self._count_wire("word")
             words = pack_words(sid, banks, kw, padded).view(np.int32)
             t = self._lap("pack", t)
-            words, pinned = self._to_device(words)
-            valid = fused_step_words(self.state, words, self.params, kw,
-                                     prec)
+            valid = fused_step_words(self.state, self._to_device(words),
+                                     self.params, kw, prec)
         else:
             self._count_wire("bytes")
             buf = pack_bytes(sid, banks, self._bank_dtype, padded)
             t = self._lap("pack", t)
-            buf, pinned = self._to_device(buf)
-            valid = fused_step_bytes(self.state, buf, self.params,
+            valid = fused_step_bytes(self.state, self._to_device(buf),
+                                     self.params,
                                      np.dtype(self._bank_dtype).itemsize,
                                      prec)
         self._lap("dispatch", t)
-        return valid, pinned
+        return valid
 
     # -- ack draining -------------------------------------------------------
     def _drain_inflight(self, block: int = 0) -> None:
@@ -307,7 +397,12 @@ class FusedPipeline:
             try:
                 msg = self.consumer.receive(timeout_millis=50)
             except ReceiveTimeout:
-                self._lap("receive", t)
+                t = self._lap("receive", t)
+                if self._temporal is not None:
+                    # Watermark idle advancement: a silent stream must
+                    # not pin the reorder buffer or final buckets open.
+                    self._temporal.maybe_idle_flush()
+                    self._lap("temporal", t)
                 self._drain_inflight(block=-1)
                 if time.monotonic() - idle_since > idle_timeout_s:
                     break
@@ -320,13 +415,20 @@ class FusedPipeline:
                 block=1 if len(self._inflight) >= _INFLIGHT_DEPTH else 0)
             if max_events is not None and self.metrics.events >= max_events:
                 break
+        if self._temporal is not None:
+            # End of run: release the reorder buffer, rotate the final
+            # buckets, fold the staged CMS estimates.
+            t = time.perf_counter()
+            self._temporal.flush()
+            self._lap("temporal", t)
         self._drain_inflight(block=-1)
         self.metrics.wall_seconds = time.perf_counter() - t_start
 
     # -- queries ------------------------------------------------------------
     def lecture_days(self):
-        """Sorted lecture days with an HLL bank."""
-        return sorted(self._bank_of)
+        """Sorted lecture days with an HLL bank (temporal bucket keys
+        share the map but are served by :meth:`window_counts`)."""
+        return sorted(d for d in self._bank_of if not is_bucket_key(d))
 
     def validity_counts(self) -> Tuple[int, int]:
         """(valid, invalid) totals accumulated on the device since
@@ -359,12 +461,14 @@ class FusedPipeline:
     def count_all(self) -> Dict[int, int]:
         """PFCOUNT of every registered lecture day from ONE histogram
         launch over all banks."""
-        if not self._bank_of:
+        days = {d: b for d, b in self._bank_of.items()
+                if not is_bucket_key(d)}
+        if not days:
             return {}
         prec = self.config.hll_precision
         hists = best_histogram(self.state.hll_regs, prec).cpu().numpy()
         return {day: int(round(estimate_from_histogram(hists[bank], prec)))
-                for day, bank in self._bank_of.items()}
+                for day, bank in days.items()}
 
     def cleanup(self) -> None:
         self.client.close()

@@ -13,12 +13,14 @@ import pytest
 import torch
 
 from attendance_tpu_torch.config import Config
-from attendance_tpu_torch.models import bloom, fused, hll
+from attendance_tpu_torch.models import bloom, cms, fused, hll
 from attendance_tpu_torch.ops import kernels
 from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
 
 pytestmark = pytest.mark.gpu
+
+LANES = 131_072  # one frame of the main path
 
 
 @pytest.fixture
@@ -112,9 +114,15 @@ def test_empty_inputs_launch_nothing(cuda):
                                                    device=cuda),
                                params, bank_bytes=0, key_bits=20)
     hist = kernels.hll_histogram(state.hll_regs[:0], 14)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    hit = kernels.bloom_contains(state.bloom_bits, empty, params)
+    kernels.hll_add(state.hll_regs, empty, empty)
+    est = kernels.cms_step(cms.cms_init(4, 64, cuda), empty)
     assert valid.shape == (0,) and hist.shape == (0, 52)
+    assert hit.shape == (0,) and est.shape == (0,)
     assert kernels.launches == {"hll_histogram": 0, "fused_step": 0,
-                                "bloom_add": 0}
+                                "bloom_add": 0, "bloom_contains": 0,
+                                "hll_add": 0, "cms_step": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -130,6 +138,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                           params)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.hll_histogram(hll.hll_init(4, 14, cuda)[::2], 14)
+    keys = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.hll_add(state.hll_regs, keys.cpu(), keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.bloom_contains(state.bloom_bits, keys[::2], params)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.cms_step(cms.cms_init(4, 64, cuda), keys,
+                         torch.ones(8, dtype=torch.bool))
 
 
 def test_pipeline_on_card_equals_cpu(cuda):
@@ -158,5 +174,108 @@ def test_pipeline_on_card_equals_cpu(cuda):
         np.testing.assert_array_equal(a, b)
     assert card[1:3] == cpu[1:3]
     np.testing.assert_array_equal(card[3], cpu[3])
-    assert card[4] == {"bloom_add": 1, "fused_step": 5, "hll_histogram": 1}
-    assert cpu[4] == {"bloom_add": 0, "fused_step": 0, "hll_histogram": 0}
+    assert card[4] == {"bloom_add": 1, "fused_step": 5, "hll_histogram": 1,
+                       "bloom_contains": 0, "hll_add": 0, "cms_step": 0}
+    assert not any(cpu[4].values())
+
+
+@pytest.mark.parametrize("capacity", [100_000, 10_000_000])
+def test_bloom_contains_kernel_matches_plain(capacity, cuda):
+    """K4 at a frame's width; half the keys are members."""
+    params = bloom.derive_bloom_params(capacity, 0.01, "blocked")
+    rng = np.random.default_rng(capacity + 1)
+    roster = rng.choice(4 * capacity, capacity, replace=False).astype(
+        np.uint32)
+    words = bloom.bloom_packed_init(params, cuda)
+    kernels.bloom_add(words, torch.from_numpy(roster.view(np.int32)).to(cuda),
+                      params)
+    keys = np.where(rng.random(LANES) < 0.5, rng.choice(roster, LANES),
+                    rng.integers(4 * capacity, 1 << 31, LANES)
+                    ).astype(np.uint32)
+    keys = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    before = kernels.launches["bloom_contains"]
+    got = kernels.bloom_contains(words, keys, params)
+    want = bloom.bloom_contains_words(words, keys, params)
+    torch.cuda.synchronize()
+    assert kernels.launches["bloom_contains"] == before + 1
+    assert torch.equal(got, want)
+    assert 0.49 < float(got.float().mean()) < 0.52
+    # An odd length: no padding needed.
+    assert torch.equal(kernels.bloom_contains(words, keys[:1001], params),
+                       want[:1001])
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_hll_add_kernel_matches_plain(masked, cuda):
+    """K5 at a frame's width into 512 banks, with -1 and out-of-range
+    banks and about 10% of the lanes masked invalid."""
+    rng = np.random.default_rng(int(masked))
+    regs = _regs(512, cuda, events=1 << 18, seed=3)
+    twin = regs.clone()
+    bank = torch.from_numpy(rng.integers(-1, 514, LANES).astype(
+        np.int32)).to(cuda)
+    keys = _keys(rng, LANES).to(cuda)
+    valid = (torch.from_numpy(rng.random(LANES) >= 0.1).to(cuda)
+             if masked else None)
+    kernels.hll_add(regs, bank, keys, valid, 14)
+    hll.hll_add_plain(twin, bank, keys, valid, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(regs, twin)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_cms_step_kernel_matches_plain(masked, cuda):
+    """K6 at a frame's width into 4 x 16384 counters, with duplicate keys
+    and counters one step from wrapping past 2^32 - 1."""
+    rng = np.random.default_rng(10 + int(masked))
+    start = rng.integers(0, 2 ** 32, (4, 16384), dtype=np.uint64).astype(
+        np.uint32)
+    start[:, ::2] = 0xFFFFFFFF
+    counts = cms.cms_from_numpy(start, cuda)
+    twin = counts.clone()
+    keys = torch.from_numpy(rng.choice(_keys(rng, 20_000).numpy(), LANES)
+                            ).to(cuda)
+    mask = (torch.from_numpy(rng.random(LANES) >= 0.1).to(cuda)
+            if masked else None)
+    est = kernels.cms_step(counts, keys, mask)
+    want = cms.cms_step_plain(twin, keys, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, twin)
+    assert torch.equal(est, want)
+    assert (cms.cms_to_numpy(counts) < start).any()  # wrapped
+
+
+def test_temporal_pipeline_on_card_equals_cpu(cuda):
+    """The temporal slice on the card equals its plain run on the CPU,
+    evicting ring rows, and the card's run launched K1 and K4-K6."""
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        kernels.reset_launches()
+        pipe = FusedPipeline(Config(
+            bloom_filter_capacity=20_000, temporal_period_s=1.0,
+            allowed_lateness_s=0.6, temporal_ring_banks=16, cms_topk=4,
+            audit_sample=1.0), num_banks=8, device=device)
+        roster, frames = generate_frames(
+            60_000, 8192, roster_size=20_000, num_lectures=4, seed=2,
+            disorder_frac=0.25, late_max_s=1.0)
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(pipe.config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=60_000, idle_timeout_s=0.3)
+        results.append((fused.state_to_numpy(pipe.state),
+                        pipe.window_counts(), pipe.temporal_stats(),
+                        cms.cms_to_numpy(pipe._temporal.cms_counts),
+                        dict(pipe._bank_of), list(pipe._free_banks),
+                        dict(kernels.launches)))
+        pipe.cleanup()
+    card, cpu = results
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(card[3], cpu[3])
+    assert card[1] == cpu[1] and card[1]
+    assert card[2] == cpu[2] and card[2]["evictions"] > 0
+    assert card[4:6] == cpu[4:6]
+    assert all(card[6][k] > 0 for k in ("hll_histogram", "bloom_contains",
+                                        "hll_add", "cms_step"))
+    assert not any(cpu[6].values())

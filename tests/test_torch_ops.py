@@ -117,8 +117,20 @@ _ISOLATION_PROBE = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted({m for m in sys.modules if forbidden(m)} - before)
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
+
+# Modules that must be among those the probe imported.
+_PORT_MODULES = {
+    "attendance_tpu_torch.cli", "attendance_tpu_torch.config",
+    "attendance_tpu_torch.models.bloom", "attendance_tpu_torch.models.cms",
+    "attendance_tpu_torch.models.fused", "attendance_tpu_torch.models.hll",
+    "attendance_tpu_torch.ops.kernels",
+    "attendance_tpu_torch.pipeline.fast_path",
+    "attendance_tpu_torch.temporal", "attendance_tpu_torch.temporal.buckets",
+    "attendance_tpu_torch.temporal.plane",
+    "attendance_tpu_torch.temporal.reorder",
+    "attendance_tpu_torch.temporal.windows"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -128,4 +140,6 @@ def test_port_imports_no_jax_and_no_jax_package():
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 21  # every module was imported
+    assert _PORT_MODULES <= names, _PORT_MODULES - names
