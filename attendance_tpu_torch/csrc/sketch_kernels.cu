@@ -9,7 +9,9 @@
 //                         (replaces the Pallas hll_histogram_pallas,
 //                         attendance_tpu/ops/pallas_kernels.py:373-406)
 //   K2 atp_fused_step     Bloom probe + HLL register max + validity
-//                         counters over one frame, word or bytes wire
+//                         counters over one frame, word or bytes wire;
+//                         each key's 64-byte Bloom block is read once,
+//                         by four lanes together, into shared memory
 //                         (replaces the XLA programs fused_step_words /
 //                         fused_step_bytes, attendance_tpu/models/fused.py)
 //   K3 atp_bloom_add      packed Bloom preload by atomicOr
@@ -31,6 +33,7 @@
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
 // is uint32, so results are bit-identical to the plain PyTorch versions.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,19 +72,53 @@ __device__ __forceinline__ uint32_t murmur3_u32(uint32_t key, uint32_t seed) {
   return h;
 }
 
-// Blocked Bloom probe: every probe of a key lands in one 512-bit block
-// (16 words) chosen by h1 % num_blocks, at offsets (h2 + j*h3) & 511.
-__device__ __forceinline__ bool bloom_probe(const uint32_t* __restrict__ words,
-                                            uint32_t num_blocks, int k,
-                                            uint32_t key) {
-  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
+// x % d for uint32 x and d >= 1 without a division (Lemire, Kaser and
+// Kurz, "Faster remainder by direct computation", 2019): magic is 2^64 / d
+// rounded up (mod 2^64), from fastmod_magic on the host. Exact for every
+// 32-bit x and d.
+__device__ __forceinline__ uint32_t fastmod(uint32_t x, uint64_t magic,
+                                            uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(magic * x, d));
+}
+
+uint64_t fastmod_magic(uint32_t d) { return ~uint64_t{0} / d + 1; }
+
+// Blocked Bloom probe of one key per lane, called by all 32 lanes of a
+// warp together (present = false for a lane with no key). Every probe of
+// a key lands in one 512-bit block (16 words) chosen by h1 % num_blocks,
+// at offsets (h2 + j*h3) & 511. The four lanes of a quad read one key's
+// whole block with one 16-byte load each, so each warp-wide load
+// instruction brings in 8 blocks (8 cache lines, where a scalar probe
+// touches 32 lines per instruction, k times over); four such loads stage
+// the warp's 32 blocks in ``stage`` (128 uint4 of shared memory, the
+// warp's own), and each lane tests its k bits there. The wrapper checks
+// that the words start 64-byte aligned, so a block is one aligned 64-byte
+// segment.
+__device__ __forceinline__ bool warp_bloom_probe(
+    const uint32_t* __restrict__ words, uint32_t num_blocks, uint64_t magic,
+    int k, uint32_t key, bool present, uint4* stage) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const uint32_t block =
+      present ? fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) : 0u;
+  const uint4* words4 = reinterpret_cast<const uint4*>(words);
+  uint4 quarter[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // Round r: lanes 4q..4q+3 read the block of lane 8r + q.
+    const uint32_t b = __shfl_sync(0xFFFFFFFFu, block, r * 8 + (lane >> 2));
+    quarter[r] = __ldg(words4 + static_cast<size_t>(b) * 4u + (lane & 3));
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) stage[r * 32 + lane] = quarter[r];
+  __syncwarp();
+  const uint32_t* mine = reinterpret_cast<const uint32_t*>(stage) + lane * 16;
   const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
   const uint32_t h3 = murmur3_u32(key, kSeedBlock) | 1u;
-  const uint32_t* blk = words + static_cast<size_t>(h1 % num_blocks) * 16u;
-  bool hit = true;
+  bool hit = present;
+#pragma unroll 4
   for (int j = 0; j < k; ++j) {
     const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
-    hit &= ((__ldg(blk + (off >> 5)) >> (off & 31u)) & 1u) != 0u;
+    hit &= ((mine[off >> 5] >> (off & 31u)) & 1u) != 0u;
   }
   return hit;
 }
@@ -160,12 +197,12 @@ hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
 }
 
 // ---------------------------------------------------------------------------
-// K2: one thread per lane. Unpack (key, bank) from the wire, probe the
-// Bloom filter, and for valid real lanes max the HLL rank into its
-// register. Valid/invalid counts are reduced per warp with ballots and
-// per CTA in shared memory, then added with one 64-bit atomic per CTA
-// per counter: the uint32[2, 2] (lo, hi) counters, read little-endian,
-// are exactly two uint64 totals.
+// K2: one lane per thread, one pass over a full grid. Unpack (key, bank)
+// from the wire, probe the Bloom filter warp-wide (warp_bloom_probe), and
+// for valid real lanes max the HLL rank into its register. Valid/invalid
+// counts are reduced per warp with ballots and per CTA in shared memory,
+// then added with one 64-bit atomic per CTA per counter: the uint32[2, 2]
+// (lo, hi) counters, read little-endian, are exactly two uint64 totals.
 // bank_bytes == 0: word wire, uint32[lanes] of bank << key_bits | key,
 //                  all-ones bank field = padding.
 // bank_bytes in {1, 2, 4}: bytes wire, uint32 keys[lanes] then
@@ -175,14 +212,15 @@ __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const uint8_t* __restrict__ wire, int bank_bytes,
                   int key_bits, int lanes,
                   const uint32_t* __restrict__ bloom, uint32_t num_blocks,
-                  int k, uint8_t* regs, int num_banks, int precision,
-                  unsigned long long* counts, uint8_t* __restrict__ valid) {
+                  uint64_t magic, int k, uint8_t* regs, int num_banks,
+                  int precision, unsigned long long* counts,
+                  uint8_t* __restrict__ valid) {
+  __shared__ uint4 stage[kWarps * 128];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  bool hit = false;
-  bool real = false;
-  if (i < lanes) {
-    uint32_t key;
-    int32_t bank;
+  const bool present = i < lanes;
+  uint32_t key = 0u;
+  int32_t bank = -1;
+  if (present) {
     const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wire);
     if (bank_bytes == 0) {
       const uint32_t w = w32[i];
@@ -207,9 +245,12 @@ fused_step_kernel(const uint8_t* __restrict__ wire, int bank_bytes,
       }
       bank = field == sentinel ? -1 : static_cast<int32_t>(field);
     }
-    hit = bloom_probe(bloom, num_blocks, k, key);
+  }
+  const bool hit = warp_bloom_probe(bloom, num_blocks, magic, k, key, present,
+                                    stage + (threadIdx.x >> 5) * 128);
+  const bool real = bank >= 0;
+  if (present) {
     valid[i] = hit ? 1 : 0;
-    real = bank >= 0;
     if (hit && real && bank < num_banks) {
       uint32_t bucket, rank;
       hll_bucket_rank(key, precision, &bucket, &rank);
@@ -260,18 +301,21 @@ bloom_add_kernel(uint32_t* words, const uint32_t* __restrict__ keys, int n,
 }
 
 // ---------------------------------------------------------------------------
-// K4: one thread per key; the same bloom_probe as K2 reads the key's one
-// 64-byte block of the packed words (blocks are contiguous there, so no
-// transposed or row table as on the TPU) and resolves the k probes in
-// registers. Any batch length; no padding.
+// K4: one thread per key through K2's warp_bloom_probe, which reads the
+// key's one 64-byte block of the packed words (blocks are contiguous
+// there, so no transposed or row table as on the TPU). Any batch length;
+// no padding (lanes past the batch take part in the warp's loads only).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 bloom_contains_kernel(const uint32_t* __restrict__ words, uint32_t num_blocks,
-                      int k, const uint32_t* __restrict__ keys, int n,
-                      uint8_t* __restrict__ out) {
+                      uint64_t magic, int k, const uint32_t* __restrict__ keys,
+                      int n, uint8_t* __restrict__ out) {
+  __shared__ uint4 stage[kWarps * 128];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  out[i] = bloom_probe(words, num_blocks, k, keys[i]) ? 1 : 0;
+  const bool hit = warp_bloom_probe(words, num_blocks, magic, k,
+                                    i < n ? keys[i] : 0u, i < n,
+                                    stage + (threadIdx.x >> 5) * 128);
+  if (i < n) out[i] = hit ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -344,6 +388,307 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// ===========================================================================
+// Comparison only: the PR 2 designs of K2 and K4, and two other designs
+// of K6 (one cooperative launch; a programmatic-dependent-launch pair),
+// timed beside the kernels above by chip_smoke.py. Removed once measured.
+// ===========================================================================
+// Blocked Bloom probe: every probe of a key lands in one 512-bit block
+// (16 words) chosen by h1 % num_blocks, at offsets (h2 + j*h3) & 511.
+__device__ __forceinline__ bool bloom_probe_pr2(const uint32_t* __restrict__ words,
+                                            uint32_t num_blocks, int k,
+                                            uint32_t key) {
+  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
+  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
+  const uint32_t h3 = murmur3_u32(key, kSeedBlock) | 1u;
+  const uint32_t* blk = words + static_cast<size_t>(h1 % num_blocks) * 16u;
+  bool hit = true;
+  for (int j = 0; j < k; ++j) {
+    const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
+    hit &= ((__ldg(blk + (off >> 5)) >> (off & 31u)) & 1u) != 0u;
+  }
+  return hit;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_step_kernel_pr2(const uint8_t* __restrict__ wire, int bank_bytes,
+                  int key_bits, int lanes,
+                  const uint32_t* __restrict__ bloom, uint32_t num_blocks,
+                  int k, uint8_t* regs, int num_banks, int precision,
+                  unsigned long long* counts, uint8_t* __restrict__ valid) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool hit = false;
+  bool real = false;
+  if (i < lanes) {
+    uint32_t key;
+    int32_t bank;
+    const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wire);
+    if (bank_bytes == 0) {
+      const uint32_t w = w32[i];
+      key = w & ((1u << key_bits) - 1u);
+      const uint32_t field = w >> key_bits;
+      bank = field == (1u << (32 - key_bits)) - 1u
+                 ? -1 : static_cast<int32_t>(field);
+    } else {
+      key = w32[i];
+      const uint8_t* banks = wire + 4 * static_cast<size_t>(lanes);
+      uint32_t field;
+      uint32_t sentinel;
+      if (bank_bytes == 1) {
+        field = banks[i];
+        sentinel = 0xFFu;
+      } else if (bank_bytes == 2) {
+        field = reinterpret_cast<const uint16_t*>(banks)[i];
+        sentinel = 0xFFFFu;
+      } else {
+        field = reinterpret_cast<const uint32_t*>(banks)[i];
+        sentinel = 0xFFFFFFFFu;
+      }
+      bank = field == sentinel ? -1 : static_cast<int32_t>(field);
+    }
+    hit = bloom_probe_pr2(bloom, num_blocks, k, key);
+    valid[i] = hit ? 1 : 0;
+    real = bank >= 0;
+    if (hit && real && bank < num_banks) {
+      uint32_t bucket, rank;
+      hll_bucket_rank(key, precision, &bucket, &rank);
+      atomic_max_u8(regs + (static_cast<size_t>(bank) << precision) + bucket,
+                    rank);
+    }
+  }
+  __shared__ unsigned int warp_valid[kWarps];
+  __shared__ unsigned int warp_invalid[kWarps];
+  const unsigned int nv = __popc(__ballot_sync(0xFFFFFFFFu, hit && real));
+  const unsigned int ni = __popc(__ballot_sync(0xFFFFFFFFu, !hit && real));
+  if ((threadIdx.x & 31) == 0) {
+    warp_valid[threadIdx.x >> 5] = nv;
+    warp_invalid[threadIdx.x >> 5] = ni;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sv = 0, si = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      sv += warp_valid[w];
+      si += warp_invalid[w];
+    }
+    if (sv) atomicAdd(counts, sv);
+    if (si) atomicAdd(counts + 1, si);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_contains_kernel_pr2(const uint32_t* __restrict__ words, uint32_t num_blocks,
+                      int k, const uint32_t* __restrict__ keys, int n,
+                      uint8_t* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  out[i] = bloom_probe_pr2(words, num_blocks, k, keys[i]) ? 1 : 0;
+}
+
+constexpr int kCmsLanes = 4;
+constexpr int kCmsRows = 4;
+constexpr uint32_t kNoCounter = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint32_t cms_index_coop(uint32_t key, int row,
+                                              uint32_t width, uint64_t magic) {
+  return static_cast<uint32_t>(row) * width +
+         fastmod(murmur3_u32(key, kSeedCmsBase +
+                                      static_cast<uint32_t>(row) * kSeedCmsStep),
+                 magic, width);
+}
+
+// Called by all 32 lanes of a warp together; idx is kNoCounter for a
+// lane that adds nothing.
+template <bool kCombine>
+__device__ __forceinline__ void cms_add(uint32_t* counts, uint32_t idx) {
+  if (kCombine) {
+    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, idx);
+    if (idx != kNoCounter &&
+        static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
+      atomicAdd(counts + idx, static_cast<unsigned int>(__popc(peers)));
+    }
+  } else if (idx != kNoCounter) {
+    atomicAdd(counts + idx, 1u);
+  }
+}
+
+__device__ __forceinline__ bool cms_live(const uint8_t* __restrict__ mask,
+                                         int n, int i) {
+  return i < n && (mask == nullptr || mask[i] != 0);
+}
+
+template <bool kCombine>
+__global__ void __launch_bounds__(kThreads)
+cms_step_kernel(uint32_t* counts, int depth, uint32_t width, uint64_t magic,
+                const uint32_t* __restrict__ keys,
+                const uint8_t* __restrict__ mask, int n,
+                uint32_t* __restrict__ est) {
+  const int stride = gridDim.x * kThreads;  // a multiple of 32
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int warp0 = tid & ~31;  // the warp's first thread: uniform tests
+  uint32_t idx[kCmsLanes][kCmsRows];
+#pragma unroll
+  for (int s = 0; s < kCmsLanes; ++s) {
+    if (warp0 + s * stride >= n) break;
+    const int i = tid + s * stride;
+    const bool live = cms_live(mask, n, i);
+    const uint32_t key = i < n ? keys[i] : 0u;
+#pragma unroll
+    for (int r = 0; r < kCmsRows; ++r) {
+      if (r < depth) {
+        idx[s][r] = cms_index_coop(key, r, width, magic);
+        cms_add<kCombine>(counts, live ? idx[s][r] : kNoCounter);
+      }
+    }
+    for (int r = kCmsRows; r < depth; ++r) {
+      cms_add<kCombine>(counts,
+                        live ? cms_index_coop(key, r, width, magic) : kNoCounter);
+    }
+  }
+  for (int w0 = warp0 + kCmsLanes * stride; w0 < n; w0 += stride) {
+    const int i = w0 + static_cast<int>(threadIdx.x & 31);
+    const bool live = cms_live(mask, n, i);
+    const uint32_t key = i < n ? keys[i] : 0u;
+    for (int r = 0; r < depth; ++r) {
+      cms_add<kCombine>(counts,
+                        live ? cms_index_coop(key, r, width, magic) : kNoCounter);
+    }
+  }
+
+  cooperative_groups::this_grid().sync();
+
+  // Counters were written by atomics in L2 during this launch: read them
+  // through L2 (ld.global.cg), never the read-only path.
+#pragma unroll
+  for (int s = 0; s < kCmsLanes; ++s) {
+    const int i = tid + s * stride;
+    if (i >= n) break;
+    uint32_t m = 0u;
+    if (mask == nullptr || mask[i] != 0) {
+      m = 0xFFFFFFFFu;
+#pragma unroll
+      for (int r = 0; r < kCmsRows; ++r) {
+        if (r < depth) m = min(m, __ldcg(counts + idx[s][r]));
+      }
+      if (depth > kCmsRows) {
+        const uint32_t key = keys[i];
+        for (int r = kCmsRows; r < depth; ++r) {
+          m = min(m, __ldcg(counts + cms_index_coop(key, r, width, magic)));
+        }
+      }
+    }
+    est[i] = m;
+  }
+  for (int i = tid + kCmsLanes * stride; i < n; i += stride) {
+    uint32_t m = 0u;
+    if (mask == nullptr || mask[i] != 0) {
+      const uint32_t key = keys[i];
+      m = 0xFFFFFFFFu;
+      for (int r = 0; r < depth; ++r) {
+        m = min(m, __ldcg(counts + cms_index_coop(key, r, width, magic)));
+      }
+    }
+    est[i] = m;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cms_update_kernel_pdl(uint32_t* counts, int depth, uint32_t width,
+                      const uint32_t* __restrict__ keys,
+                      const uint8_t* __restrict__ mask, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n && (mask == nullptr || mask[i] != 0)) {
+    const uint32_t key = keys[i];
+    for (int r = 0; r < depth; ++r) {
+      atomicAdd(counts + static_cast<size_t>(r) * width +
+                    cms_bucket(key, r, width),
+                1u);
+    }
+  }
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+cms_query_kernel_pdl(const uint32_t* __restrict__ counts, int depth,
+                     uint32_t width, const uint32_t* __restrict__ keys,
+                     const uint8_t* __restrict__ mask, int n,
+                     uint32_t* __restrict__ est) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t pos[kCmsRows];
+  const bool live = i < n && (mask == nullptr || mask[i] != 0);
+  const uint32_t key = live ? keys[i] : 0u;
+#pragma unroll
+  for (int r = 0; r < kCmsRows; ++r) {
+    if (r < depth) pos[r] = r * width + cms_bucket(key, r, width);
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (i >= n) return;
+  if (!live) {
+    est[i] = 0u;
+    return;
+  }
+  uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+  for (int r = 0; r < kCmsRows; ++r) {
+    if (r < depth) m = min(m, __ldcg(counts + pos[r]));
+  }
+  for (int r = kCmsRows; r < depth; ++r) {
+    m = min(m, __ldcg(counts + r * width + cms_bucket(key, r, width)));
+  }
+  est[i] = m;
+}
+
+// CTAs of ``kernel`` (kThreads threads, no dynamic shared memory) that
+// the current device holds at once: SMs x CTAs per SM. Cached per
+// device and kernel after the first call, so a launch captured into a
+// CUDA graph asks the driver nothing.
+template <typename Kernel>
+int resident_ctas(Kernel kernel, int* cache) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) return 0;
+  if (cache[dev] == 0) {
+    int sms = 0;
+    int per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    cache[dev] = sms * per_sm;
+  }
+  return cache[dev];
+}
+
+template <bool kCombine>
+int launch_cms_step(void* counts, int depth, unsigned int width,
+                    const void* keys, const void* mask, int n, void* est,
+                    void* stream, int lanes_target) {
+  static int resident[16];
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int cap = resident_ctas(cms_step_kernel<kCombine>, resident);
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int want = (n + kThreads * lanes_target - 1) / (kThreads * lanes_target);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(want < cap ? want : cap);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, cms_step_kernel<kCombine>, static_cast<uint32_t*>(counts), depth,
+      static_cast<uint32_t>(width), fastmod_magic(width),
+      static_cast<const uint32_t*>(keys), static_cast<const uint8_t*>(mask),
+      n, static_cast<uint32_t*>(est));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+
 }  // namespace
 
 extern "C" {
@@ -367,8 +712,9 @@ int atp_fused_step(const void* wire, int bank_bytes, int key_bits, int lanes,
     fused_step_kernel<<<blocks_for(lanes), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(wire), bank_bytes, key_bits, lanes,
-        static_cast<const uint32_t*>(bloom), num_blocks, k,
-        static_cast<uint8_t*>(regs), num_banks, precision,
+        static_cast<const uint32_t*>(bloom), num_blocks,
+        fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
+        precision,
         static_cast<unsigned long long*>(counts),
         static_cast<uint8_t*>(valid));
   }
@@ -391,8 +737,9 @@ int atp_bloom_contains(const void* words, unsigned int num_blocks, int k,
   if (n > 0) {
     bloom_contains_kernel<<<blocks_for(n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(words), num_blocks, k,
-        static_cast<const uint32_t*>(keys), n, static_cast<uint8_t*>(out));
+        static_cast<const uint32_t*>(words), num_blocks,
+        fastmod_magic(num_blocks), k, static_cast<const uint32_t*>(keys), n,
+        static_cast<uint8_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -425,6 +772,75 @@ int atp_cms_step(void* counts, int depth, unsigned int width,
         static_cast<const uint32_t*>(keys),
         static_cast<const uint8_t*>(mask), n, static_cast<uint32_t*>(est));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- comparison entries (removed once measured) -----------------------------
+
+int atp_cmp_fused_step(const void* wire, int bank_bytes, int key_bits,
+                       int lanes, const void* bloom, unsigned int num_blocks,
+                       int k, void* regs, int num_banks, int precision,
+                       void* counts, void* valid, void* stream) {
+  if (lanes > 0) {
+    fused_step_kernel_pr2<<<blocks_for(lanes), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(wire), bank_bytes, key_bits, lanes,
+        static_cast<const uint32_t*>(bloom), num_blocks, k,
+        static_cast<uint8_t*>(regs), num_banks, precision,
+        static_cast<unsigned long long*>(counts),
+        static_cast<uint8_t*>(valid));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int atp_cmp_bloom_contains(const void* words, unsigned int num_blocks, int k,
+                           const void* keys, int n, void* out, void* stream) {
+  if (n > 0) {
+    bloom_contains_kernel_pr2<<<blocks_for(n), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(words), num_blocks, k,
+        static_cast<const uint32_t*>(keys), n, static_cast<uint8_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// variant 1: cooperative, warp-combined adds; 2: cooperative, one add per
+// lane (lanes_target lanes per thread sizes the grid, capped at the
+// resident grid); 3: programmatic-dependent-launch pair.
+int atp_cmp_cms_step(void* counts, int depth, unsigned int width,
+                     const void* keys, const void* mask, int n, void* est,
+                     void* stream, int variant, int lanes_target) {
+  if (variant == 1) {
+    return launch_cms_step<true>(counts, depth, width, keys, mask, n, est,
+                                 stream, lanes_target);
+  }
+  if (variant == 2) {
+    return launch_cms_step<false>(counts, depth, width, keys, mask, n, est,
+                                  stream, lanes_target);
+  }
+  if (variant != 3 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* c = static_cast<uint32_t*>(counts);
+  const uint32_t* k = static_cast<const uint32_t*>(keys);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  uint32_t* e = static_cast<uint32_t*>(est);
+  cms_update_kernel_pdl<<<blocks_for(n), kThreads, 0, s>>>(c, depth, width,
+                                                          k, m, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks_for(n));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cms_query_kernel_pdl,
+                           static_cast<const uint32_t*>(c), depth,
+                           static_cast<uint32_t>(width), k, m, n, e);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

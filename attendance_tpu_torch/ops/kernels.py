@@ -205,10 +205,15 @@ def fused_step(bloom: torch.Tensor, regs: torch.Tensor,
     bytes at the frame's scale — the wire is read once, the k probes of
     a lane share one 64-byte filter block (the 100k-roster filter, 138
     KB, stays in L2) and a valid lane touches one register. Design: one
-    thread per lane does the whole chain in registers; the register max
-    is a 32-bit ``atomicCAS`` loop on the word holding the byte (CUDA has
-    no 8-bit atomic max); counts are warp ballots summed per CTA and
-    added with one 64-bit atomic per CTA.
+    thread per lane over a full grid. Each key's 64-byte filter block is
+    read once: the four lanes of a quad load one block together (16
+    bytes each, so the filter must start 64-byte aligned), a warp stages
+    its 32 blocks in shared memory, and each lane tests its k bits there
+    (a scalar probe reads k words, each warp-wide load touching 32 cache
+    lines). The register max is a 32-bit ``atomicCAS`` loop on the word
+    holding the byte (CUDA has no 8-bit atomic max) that writes nothing
+    when the register already holds the rank; counts are warp ballots
+    summed per CTA and added with one 64-bit atomic per CTA.
     """
     _require(bank_bytes in (0, 1, 2, 4), f"bank_bytes {bank_bytes}")
     if bank_bytes == 0:
@@ -238,6 +243,7 @@ def fused_step(bloom: torch.Tensor, regs: torch.Tensor,
     _require(wire.data_ptr() % 4 == 0 and regs.data_ptr() % 4 == 0
              and counts.data_ptr() % 8 == 0,
              "wire and regs must be 4-byte and counts 8-byte aligned")
+    _require(bloom.data_ptr() % 64 == 0, "bloom must be 64-byte aligned")
     valid = torch.empty(lanes, dtype=torch.bool, device=wire.device)
     if lanes == 0:
         return valid
@@ -273,9 +279,10 @@ def bloom_contains(words: torch.Tensor, keys: torch.Tensor,
     4B in, B out and 64 bytes per distinct block touched (a 131,072-key
     batch against the 100k-roster filter's 138 KB: about 0.24 us at
     3.35 TB/s), or operations, about B x (3 x 20 + 5k) integer ops
-    (0.20 us at 67 TOP/s). Design: one thread per key hashes it three
-    ways and resolves the k probes from its one block through the same
-    ``bloom_probe`` device function as K2, so the two cannot disagree.
+    (0.20 us at 67 TOP/s). Design: one thread per key, through K2's
+    warp-wide probe (each block read once, by the four lanes of a quad,
+    into shared memory; so the words must start 64-byte aligned): the
+    two cannot disagree.
     """
     _require(params.layout == "blocked",
              "the blocked probe requires the blocked layout (as the Pallas "
@@ -288,6 +295,7 @@ def bloom_contains(words: torch.Tensor, keys: torch.Tensor,
     if words.device.type == "cpu" and keys.device.type == "cpu":
         return bloom_contains_words(words, keys, params)
     _require_cuda(words, keys)
+    _require(words.data_ptr() % 64 == 0, "words must be 64-byte aligned")
     out = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
     if keys.shape[0] == 0:
         return out
@@ -372,7 +380,9 @@ def cms_step(counts: torch.Tensor, keys: torch.Tensor,
     ``atomicAdd`` (wraps at 2^32 as XLA does; duplicates each count);
     the query must see the whole batch, so it is a second launch in
     stream order from the same C entry point. One wrapper call counts
-    one launch.
+    one launch. The update is bound by L2 atomic throughput: one
+    cooperative launch with a grid barrier, and a programmatic-dependent
+    launch pair, both measured slower on an H100 (PERF.md).
     """
     _require(counts.dtype == torch.int32 and counts.dim() == 2
              and counts.shape[0] >= 1 and counts.shape[1] >= 1,

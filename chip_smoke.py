@@ -128,6 +128,23 @@ def temporal_frames(num_events: int, batch: int, num_lectures: int,
     return roster, hot, frames
 
 
+def wire_of(cols, bank_bytes: int, lanes: int, dev):
+    """(wire tensor, key bits) of a decoded frame on ``dev``: the word
+    wire for bank_bytes 0, else the bytes wire with bank_bytes-wide
+    banks; padded to ``lanes``."""
+    from attendance_tpu_torch.models import fused
+
+    sid = cols["student_id"]
+    banks = (cols["lecture_day"] - 20_260_701).astype(np.int32)
+    kw = int(sid.max()).bit_length()
+    if bank_bytes == 0:
+        return torch.from_numpy(fused.pack_words(
+            sid, banks, kw, lanes).view(np.int32)).to(dev), kw
+    dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32}[bank_bytes]
+    return torch.from_numpy(fused.pack_bytes(
+        sid, banks, dtype, lanes)).to(dev), kw
+
+
 def drive(config, roster, frames, num_events: int):
     """One run through the entry points a user calls, on the card."""
     from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
@@ -258,6 +275,129 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     return launches
 
 
+def compare_designs(dev, floor_ms: float) -> None:
+    """Phase 2e: the PR 2 designs of K2 and K4, and two other designs of
+    K6, against the kernels the wrappers launch, in turns (old, new, new,
+    old), each held equal to its plain version first."""
+    import ctypes
+
+    from attendance_tpu_torch.models import bloom, cms, fused
+    from attendance_tpu_torch.models.bloom import BLOCK_BITS
+    from attendance_tpu_torch.ops import build, kernels
+    from attendance_tpu_torch.pipeline.events import decode_planar_batch
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib = build.library()
+    for name, argtypes in {
+            "atp_cmp_fused_step": (P, I, I, I, P, U, I, P, I, I, P, P, P),
+            "atp_cmp_bloom_contains": (P, U, I, P, I, P, P),
+            "atp_cmp_cms_step": (P, I, U, P, P, I, P, P, I, I)}.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def turns(label, fns):
+        """fns: {name: fn}; times in the order a, b, ..., ..., b, a."""
+        order = list(fns) + list(fns)[::-1]
+        got = {}
+        for name in order:
+            got.setdefault(name, []).append(kernel_ms(fns[name]))
+        print(f"compare {label} (ms, in turns {order}): {got}; floor "
+              f"{floor_ms}")
+
+    params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
+    nb = params.m_bits // BLOCK_BITS
+    rng = np.random.default_rng(7)
+    for lanes in (131_072, 1_048_576):
+        roster_np, frames = generate_frames(
+            2 * lanes, lanes, roster_size=100_000, num_lectures=16, seed=0)
+        warm, frame = (decode_planar_batch(f) for f in frames)
+        start, _ = fused.init_state(100_000, 0.01, "blocked", 256, 14, dev)
+        kernels.bloom_add(start.bloom_bits,
+                          torch.from_numpy(roster_np.view(np.int32)).to(dev),
+                          params)
+        w0, kw0 = wire_of(warm, 0, lanes, dev)
+        kernels.fused_step(*start, w0, params, bank_bytes=0, key_bits=kw0)
+        for bank_bytes in (0, 1, 2, 4):
+            wire, kw = wire_of(frame, bank_bytes, lanes, dev)
+            a = fused.SketchState(*(t.clone() for t in start))
+            b = fused.SketchState(*(t.clone() for t in start))
+            old_valid = torch.empty(lanes, dtype=torch.bool, device=dev)
+
+            def old():
+                return lib.atp_cmp_fused_step(
+                    wire.data_ptr(), bank_bytes, kw, lanes,
+                    b.bloom_bits.data_ptr(), nb, params.k,
+                    b.hll_regs.data_ptr(), 256, 14, b.counts.data_ptr(),
+                    old_valid.data_ptr(), stream())
+
+            def new():
+                return kernels.fused_step(*a, wire, params,
+                                          bank_bytes=bank_bytes, key_bits=kw)
+
+            check(old() == 0, "PR 2 K2 launch")
+            valid = new()
+            torch.cuda.synchronize()
+            check(torch.equal(valid, old_valid)
+                  and torch.equal(a.hll_regs, b.hll_regs)
+                  and torch.equal(a.counts, b.counts),
+                  f"K2 PR 2 vs new w={bank_bytes} lanes={lanes}")
+            turns(f"K2 w={bank_bytes} lanes={lanes}",
+                  {"pr2": old, "new": new})
+        keys = torch.from_numpy(
+            np.array(frame["student_id"]).view(np.int32)).to(dev)
+        out = torch.empty(lanes, dtype=torch.bool, device=dev)
+
+        def old4():
+            return lib.atp_cmp_bloom_contains(
+                start.bloom_bits.data_ptr(), nb, params.k, keys.data_ptr(),
+                lanes, out.data_ptr(), stream())
+
+        def new4():
+            return kernels.bloom_contains(start.bloom_bits, keys, params)
+
+        check(old4() == 0, "PR 2 K4 launch")
+        check(torch.equal(new4(), out), f"K4 PR 2 vs new lanes={lanes}")
+        turns(f"K4 roster=100000 keys={lanes}", {"pr2": old4, "new": new4})
+
+        hot = rng.choice(roster_np, 8, replace=False)
+        ids = frame["student_id"]
+        for mix, mix_ids in (("roster", ids), ("hot", np.where(
+                rng.random(lanes) < 0.15, hot[rng.integers(0, 8, lanes)],
+                ids).astype(np.uint32))):
+            keys6 = torch.from_numpy(np.array(mix_ids).view(np.int32)).to(dev)
+            base = cms.cms_init(4, 16384, dev)
+            cms.cms_update(base, keys6)
+            twin = base.clone()
+            want = cms.cms_step_plain(twin, keys6)
+            fns = {}
+            for label, variant, target in (
+                    ("pr2_pair", None, 0), ("coop_lanes2", 2, 2),
+                    ("coop_match_lanes2", 1, 2), ("coop_lanes4", 2, 4),
+                    ("pdl_pair", 3, 0)):
+                c = base.clone()
+                est = torch.empty(lanes, dtype=torch.int32, device=dev)
+                if variant is None:
+                    def fn(c=c):
+                        return kernels.cms_step(c, keys6)
+                    got = fn()
+                else:
+                    def fn(c=c, est=est, variant=variant, target=target):
+                        return lib.atp_cmp_cms_step(
+                            c.data_ptr(), 4, 16384, keys6.data_ptr(), None,
+                            lanes, est.data_ptr(), stream(), variant, target)
+                    check(fn() == 0, f"K6 {label} launch")
+                    got = est
+                torch.cuda.synchronize()
+                check(torch.equal(c, twin) and torch.equal(got, want),
+                      f"K6 {label} {mix} lanes={lanes}")
+                fns[label] = fn
+            turns(f"K6 mix={mix} keys={lanes}", fns)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -285,6 +425,12 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.exists():
         print(log.read_text().strip())
+
+    # The launch floor: one fill_ of a one-element int32 tensor, timed as
+    # every kernel below is (CUDA-graph replays).
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = kernel_ms(lambda: one.fill_(1))
+    print(f"launch floor: fill_ of one int32 ms={floor_ms}")
 
     rows = {}
     filters = {}  # capacity -> (params, roster, words), for K4 below
@@ -320,7 +466,8 @@ def main() -> int:
         b_ms, b_by = bound_ms(4 * capacity + 8 * touched,
                               capacity * (3 * 20 + params.k * 5))
         print(f"K3 bloom_add keys={capacity} m_bits={params.m_bits} "
-              f"ms={ms} plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
+              f"ms={ms} above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+              f"bound_ms={b_ms} ({b_by}) "
               f"fpr={fpr} max_abs_err=0")
         if capacity == 100_000:
             rows["bloom_add"] = dict(
@@ -356,6 +503,7 @@ def main() -> int:
             lambda: torch.bincount(offsets, minlength=num_banks * bins), 20)
         b_ms, b_by = bound_ms(regs.numel() + got.numel() * 4, regs.numel())
         print(f"K1 hll_histogram banks={num_banks} ms={ms} "
+              f"above_floor_ms={ms - floor_ms} "
               f"plain_ms={plain_ms} bincount_ms={library_ms} "
               f"bound_ms={b_ms} ({b_by}) max_abs_err={err}")
         if num_banks == 256:
@@ -365,49 +513,21 @@ def main() -> int:
                 bound_by=b_by, library_ms=library_ms)
 
     # -- 2c. K2: fused step, word and bytes wires -----------------------------
-    # The main path's first two frames; the state is preloaded with their
-    # roster and has taken the first frame.
+    # The main path's frame (131,072 lanes) and a frame 8x as long, more
+    # than one resident wave of the card: the state is preloaded with the
+    # frames' roster and has taken the first frame.
     params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
-    roster_np, frames = generate_frames(
-        2 * 131_072, 131_072, roster_size=100_000, num_lectures=16, seed=0)
-    warm, frame = (decode_planar_batch(f) for f in frames)
-    start, _ = fused.init_state(100_000, 0.01, "blocked", 256, 14, dev)
-    kernels.bloom_add(start.bloom_bits,
-                      torch.from_numpy(roster_np.view(np.int32)).to(dev),
-                      params)
-    lanes = 131_072
-
-    def wire_of(cols, bank_bytes):
-        sid = cols["student_id"]
-        banks = (cols["lecture_day"] - 20_260_701).astype(np.int32)
-        kw = int(sid.max()).bit_length()
-        if bank_bytes == 0:
-            return torch.from_numpy(fused.pack_words(
-                sid, banks, kw, lanes).view(np.int32)).to(dev), kw
-        dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32}[bank_bytes]
-        return torch.from_numpy(fused.pack_bytes(
-            sid, banks, dtype, lanes)).to(dev), kw
-
-    w0, kw0 = wire_of(warm, 0)
-    kernels.fused_step(*start, w0, params, bank_bytes=0, key_bits=kw0)
-    n = len(frame["student_id"])
-    for bank_bytes in (0, 1, 2, 4):
-        wire, kw = wire_of(frame, bank_bytes)
-        a = fused.SketchState(*(t.clone() for t in start))
-        b = fused.SketchState(*(t.clone() for t in start))
-        valid = kernels.fused_step(*a, wire, params, bank_bytes=bank_bytes,
-                                   key_bits=kw)
-        want = kernels.fused_step_plain(*b, wire, params, bank_bytes, kw, 14)
-        torch.cuda.synchronize()
-        check(torch.equal(valid[:n], want[:n]), f"K2 w={bank_bytes} valid")
-        err = int((a.hll_regs.to(torch.int32)
-                   - b.hll_regs.to(torch.int32)).abs().max())
-        check(err == 0, f"K2 w={bank_bytes}: register max abs err {err}")
-        check(torch.equal(a.counts, b.counts), f"K2 w={bank_bytes} counts")
-        ms = kernel_ms(lambda: kernels.fused_step(
-            *a, wire, params, bank_bytes=bank_bytes, key_bits=kw))
-        plain_ms = eager_ms(lambda: kernels.fused_step_plain(
-            *b, wire, params, bank_bytes, kw, 14))
+    for lanes in (131_072, 1_048_576):
+        roster_np, frames = generate_frames(
+            2 * lanes, lanes, roster_size=100_000, num_lectures=16, seed=0)
+        warm, frame = (decode_planar_batch(f) for f in frames)
+        start, _ = fused.init_state(100_000, 0.01, "blocked", 256, 14, dev)
+        kernels.bloom_add(start.bloom_bits,
+                          torch.from_numpy(roster_np.view(np.int32)).to(dev),
+                          params)
+        w0, kw0 = wire_of(warm, 0, lanes, dev)
+        kernels.fused_step(*start, w0, params, bank_bytes=0, key_bits=kw0)
+        n = len(frame["student_id"])
         keys = torch.from_numpy(
             np.array(frame["student_id"]).view(np.int32)).to(dev)
         hit = bloom.bloom_contains_words(start.bloom_bits, keys, params)
@@ -418,18 +538,43 @@ def main() -> int:
         regs_touched = int(torch.unique(
             (day[hit] - 20_260_701) * 16384 + bucket).numel())
         nvalid = int(hit.sum())
-        b_ms, b_by = bound_ms(
-            wire.numel() * wire.element_size() + lanes + 64 * blocks
-            + 2 * regs_touched + 32,
-            lanes * (3 * 20 + params.k * 5 + 5) + nvalid * (2 * 20 + 10))
-        print(f"K2 fused_step bank_bytes={bank_bytes} lanes={lanes} "
-              f"ms={ms} plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
-              f"max_abs_err={err}")
-        if bank_bytes == 0:
-            rows["fused_step"] = dict(
-                replaces="attendance_tpu/models/fused.py:175",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+        for bank_bytes in (0, 1, 2, 4):
+            wire, kw = wire_of(frame, bank_bytes, lanes, dev)
+            a = fused.SketchState(*(t.clone() for t in start))
+            b = fused.SketchState(*(t.clone() for t in start))
+            valid = kernels.fused_step(*a, wire, params,
+                                       bank_bytes=bank_bytes, key_bits=kw)
+            want = kernels.fused_step_plain(*b, wire, params, bank_bytes, kw,
+                                            14)
+            torch.cuda.synchronize()
+            check(torch.equal(valid[:n], want[:n]),
+                  f"K2 w={bank_bytes} lanes={lanes} valid")
+            err = int((a.hll_regs.to(torch.int32)
+                       - b.hll_regs.to(torch.int32)).abs().max())
+            check(err == 0, f"K2 w={bank_bytes} lanes={lanes}: register max "
+                  f"abs err {err}")
+            check(torch.equal(a.counts, b.counts),
+                  f"K2 w={bank_bytes} lanes={lanes} counts")
+            ms = kernel_ms(lambda: kernels.fused_step(
+                *a, wire, params, bank_bytes=bank_bytes, key_bits=kw))
+            plain_ms = eager_ms(lambda: kernels.fused_step_plain(
+                *b, wire, params, bank_bytes, kw, 14))
+            b_ms, b_by = bound_ms(
+                wire.numel() * wire.element_size() + lanes + 64 * blocks
+                + 2 * regs_touched + 32,
+                lanes * (3 * 20 + params.k * 5 + 5) + nvalid * (2 * 20 + 10))
+            print(f"K2 fused_step bank_bytes={bank_bytes} lanes={lanes} "
+                  f"ms={ms} above_floor_ms={ms - floor_ms} "
+                  f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
+                  f"max_abs_err={err}")
+            if bank_bytes == 0 and lanes == 131_072:
+                rows["fused_step"] = dict(
+                    replaces="attendance_tpu/models/fused.py:175",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+                k2_inputs = (start, frame, keys)
+    start, frame, keys = k2_inputs
+    lanes = 131_072
 
     # -- 2d. K4 blocked probe, K5 window PFADD, K6 Count-Min step -------------
     # Exact equality with the plain versions at the temporal path's
@@ -455,7 +600,8 @@ def main() -> int:
         b_ms, b_by = bound_ms(5 * lanes + 64 * blocks,
                               lanes * (3 * 20 + f_params.k * 5))
         print(f"K4 bloom_contains keys={lanes} roster={capacity} "
-              f"m_bits={f_params.m_bits} ms={ms} plain_ms={plain_ms} "
+              f"m_bits={f_params.m_bits} ms={ms} "
+              f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
               f"bound_ms={b_ms} ({b_by}) library_ms=None max_abs_err={err}")
         if capacity == 100_000:
             rows["bloom_contains"] = dict(
@@ -496,6 +642,7 @@ def main() -> int:
     b_ms, b_by = bound_ms(9 * lanes + 2 * int(torch.unique(flat_idx).numel()),
                           lanes * 5 + kept * (2 * 20 + 10))
     print(f"K5 hll_add lanes={lanes} banks=512 kept={kept} ms={ms} "
+          f"above_floor_ms={ms - floor_ms} "
           f"plain_ms={plain_ms} scatter_reduce_amax_uint8_ms={library_ms} "
           f"bound_ms={b_ms} ({b_by}) max_abs_err={err}")
     rows["hll_add"] = dict(
@@ -511,32 +658,57 @@ def main() -> int:
     print(f"B11b index_fill_ rows=1 banks=512 ms={clear_ms} "
           f"bound_ms={c_ms} ({c_by})")
 
-    # K6: the frame's student ids (duplicates included) into 4 x 16384.
-    counts = cms.cms_init(4, 16384, dev)
-    cms.cms_update(counts, keys)  # a non-empty start
-    a, b = counts.clone(), counts.clone()
-    est = kernels.cms_step(a, keys)
-    want = cms.cms_step_plain(b, keys)
-    torch.cuda.synchronize()
-    err = max(int((a != b).sum()), int((est != want).sum()))
-    check(err == 0, f"K6: {err} counters or estimates differ")
-    ms = kernel_ms(lambda: kernels.cms_step(a, keys))
-    plain_ms = eager_ms(lambda: cms.cms_step_plain(b, keys))
-    flat_pos = (cms.cms_positions(keys, 4, 16384)
-                + torch.arange(4, device=dev)[:, None] * 16384).view(-1)
-    ones = torch.ones(flat_pos.numel(), dtype=torch.int32, device=dev)
-    lib_counts = counts.clone().view(-1)
-    library_ms = eager_ms(lambda: lib_counts.index_add_(0, flat_pos, ones),
-                          20)
-    b_ms, b_by = bound_ms(8 * lanes + 8 * int(torch.unique(flat_pos).numel()),
-                          lanes * 4 * 25)
-    print(f"K6 cms_step keys={lanes} depth=4 width=16384 ms={ms} "
-          f"plain_ms={plain_ms} index_add_update_only_ms={library_ms} "
-          f"bound_ms={b_ms} ({b_by}) max_abs_err={err}")
-    rows["cms_step"] = dict(
-        replaces="attendance_tpu/models/cms.py:116", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms)
+    # K6: student ids (duplicates included) into 4 x 16384, at the frame's
+    # 131,072 and at 1,048,576 lanes, as the frames give them ("roster")
+    # and with the temporal traffic's 8 hot keys over 15% of the lanes.
+    for n6 in (131_072, 1_048_576):
+        roster6, frames6 = generate_frames(n6, n6, roster_size=100_000,
+                                           num_lectures=16, seed=1)
+        ids = decode_planar_batch(next(iter(frames6)))["student_id"]
+        hot6 = rng.choice(roster6, 8, replace=False)
+        mixes = {"roster": ids, "hot": np.where(
+            rng.random(n6) < 0.15, hot6[rng.integers(0, 8, n6)],
+            ids).astype(np.uint32)}
+        for mix, mix_ids in mixes.items():
+            keys6 = torch.from_numpy(np.array(mix_ids).view(np.int32)).to(dev)
+            counts = cms.cms_init(4, 16384, dev)
+            cms.cms_update(counts, keys6)  # a non-empty start
+            a, b = counts.clone(), counts.clone()
+            est = kernels.cms_step(a, keys6)
+            want = cms.cms_step_plain(b, keys6)
+            torch.cuda.synchronize()
+            err = max(int((a != b).sum()), int((est != want).sum()))
+            check(err == 0, f"K6 {mix} n={n6}: {err} counters or estimates "
+                  "differ")
+            ms = kernel_ms(lambda: kernels.cms_step(a, keys6))
+            plain_ms = eager_ms(lambda: cms.cms_step_plain(b, keys6))
+            flat_pos = (cms.cms_positions(keys6, 4, 16384)
+                        + torch.arange(4, device=dev)[:, None] * 16384
+                        ).view(-1)
+            b_ms, b_by = bound_ms(
+                8 * n6 + 8 * int(torch.unique(flat_pos).numel()),
+                n6 * 4 * 25)
+            print(f"K6 cms_step keys={n6} mix={mix} depth=4 width=16384 "
+                  f"ms={ms} above_floor_ms={ms - floor_ms} "
+                  f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
+                  f"max_abs_err={err}")
+            if n6 == 131_072 and mix == "roster":
+                # The update half alone as one library call: not K6's
+                # function (no query), so not K6's library_ms.
+                ones = torch.ones(flat_pos.numel(), dtype=torch.int32,
+                                  device=dev)
+                lib_counts = counts.clone().view(-1)
+                update_ms = eager_ms(
+                    lambda: lib_counts.index_add_(0, flat_pos, ones), 20)
+                print(f"K6 update half alone: index_add_ keys={n6} "
+                      f"ms={update_ms} (eager; not the same function)")
+                rows["cms_step"] = dict(
+                    replaces="attendance_tpu/models/cms.py:116",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+    # -- 2e. the PR 2 designs beside the new ones -------------------------------
+    compare_designs(dev, floor_ms)
 
     # -- 3. main path ---------------------------------------------------------
     num_events, frame_size, num_lectures = 1 << 20, 1 << 17, 16

@@ -64,14 +64,28 @@ _jax_step = jax.jit(jcms.cms_step)
 
 
 @pytest.mark.parametrize("with_mask", [False, True])
-@pytest.mark.parametrize("depth,width", [(4, 16384), (3, 97)])
-def test_cms_step_matches_jax(with_mask, depth, width):
+@pytest.mark.parametrize("depth,width,batch", [
+    pytest.param(4, 16384, "pool", id="4-16384"),
+    pytest.param(3, 97, "pool", id="3-97"),
+    # Every lane one key, every counter within n of 2^32: the batch's
+    # adds to each of the key's counters cross the wrap.
+    pytest.param(4, 16384, "one_key", id="4-16384-one_key"),
+    # The temporal traffic's mix: 8 hot keys on 15% of the lanes.
+    pytest.param(4, 16384, "hot", id="4-16384-hot")])
+def test_cms_step_matches_jax(with_mask, depth, width, batch):
     rng = np.random.default_rng(depth + width)
     n = 6000
     # Duplicates: a small key pool, so keys repeat within the batch.
     keys = rng.choice(_keys(width, 800), n)
     mask = rng.random(n) < 0.7 if with_mask else None
     start = _start_counts(depth, width, width)
+    if batch == "one_key":
+        keys = np.full(n, keys[0], np.uint32)
+        start = np.full((depth, width), 2 ** 32 - n // 2, np.uint32)
+    elif batch == "hot":
+        hot = _keys(width + 1, 8)
+        keys = np.where(rng.random(n) < 0.15, hot[rng.integers(0, 8, n)],
+                        keys).astype(np.uint32)
     jcounts, jest = _jax_step(jnp.asarray(start), jnp.asarray(keys),
                               None if mask is None else jnp.asarray(mask))
     counts = tcms.cms_from_numpy(start, CPU)

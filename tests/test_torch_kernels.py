@@ -279,3 +279,134 @@ def test_temporal_pipeline_on_card_equals_cpu(cuda):
     assert all(card[6][k] > 0 for k in ("hll_histogram", "bloom_contains",
                                         "hll_add", "cms_step"))
     assert not any(cpu[6].values())
+
+
+# Lane counts: one lane, either side of a 256-thread CTA, one short of the
+# main path's frame, and a frame longer than the card's resident wave.
+LANE_COUNTS = [1, 255, 257, 131_071, 1_048_576]
+
+
+def _wire(keys, banks, bank_bytes, lanes, key_bits=20):
+    if bank_bytes == 0:
+        return torch.from_numpy(
+            fused.pack_words(keys, banks, key_bits, lanes).view(np.int32))
+    dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32}[bank_bytes]
+    return torch.from_numpy(fused.pack_bytes(keys, banks, dtype, lanes))
+
+
+def _preloaded(cuda, num_banks=200, seed=0):
+    state, params = fused.init_state(100_000, 0.01, "blocked", num_banks, 14,
+                                     cuda)
+    roster = np.random.default_rng(seed).choice(
+        400_000, 100_000, replace=False).astype(np.uint32)
+    kernels.bloom_add(state.bloom_bits,
+                      torch.from_numpy(roster.view(np.int32)).to(cuda),
+                      params)
+    return state, params, roster
+
+
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
+@pytest.mark.parametrize("bank_bytes", [0, 1, 2, 4])
+def test_fused_step_kernel_lane_counts(bank_bytes, lanes, cuda):
+    """K2 at ragged and long frames, every wire; the last 10% of the
+    lanes are padding."""
+    state, params, roster = _preloaded(cuda)
+    rng = np.random.default_rng(lanes + bank_bytes)
+    n = max(1, lanes - lanes // 10)
+    keys = np.where(rng.random(n) < 0.9, rng.choice(roster, n),
+                    rng.integers(500_000, 900_000, n)).astype(np.uint32)
+    banks = rng.integers(0, 200, n).astype(np.int32)
+    wire = _wire(keys, banks, bank_bytes, lanes).to(cuda)
+    twin = fused.SketchState(*(t.clone() for t in state))
+    before = kernels.launches["fused_step"]
+    valid = kernels.fused_step(*state, wire, params, bank_bytes=bank_bytes,
+                               key_bits=20)
+    want = kernels.fused_step_plain(*twin, wire, params, bank_bytes, 20, 14)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_step"] == before + 1
+    assert torch.equal(valid, want)
+    assert torch.equal(state.hll_regs, twin.hll_regs)
+    assert torch.equal(state.counts, twin.counts)
+    assert sum(fused.decode_counts(state.counts)) == n
+
+
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
+def test_cms_step_kernel_lane_counts(lanes, cuda):
+    rng = np.random.default_rng(lanes)
+    counts = cms.cms_from_numpy(rng.integers(
+        0, 1000, (4, 16384), dtype=np.uint64).astype(np.uint32), cuda)
+    twin = counts.clone()
+    keys = torch.from_numpy(rng.choice(_keys(rng, 50_000).numpy(), lanes)
+                            ).to(cuda)
+    before = kernels.launches["cms_step"]
+    est = kernels.cms_step(counts, keys)
+    want = cms.cms_step_plain(twin, keys)
+    torch.cuda.synchronize()
+    assert kernels.launches["cms_step"] == before + 1
+    assert torch.equal(counts, twin)
+    assert torch.equal(est, want)
+
+
+def test_fused_step_kernel_one_key_batch(cuda):
+    """Every lane holds one roster key in one bank: exactly one register
+    rises, and every lane reads valid."""
+    state, params, roster = _preloaded(cuda)
+    lanes = 131_072
+    wire = _wire(np.full(lanes, roster[5], np.uint32),
+                 np.full(lanes, 7, np.int32), 0, lanes).to(cuda)
+    twin = fused.SketchState(*(t.clone() for t in state))
+    valid = kernels.fused_step(*state, wire, params, bank_bytes=0,
+                               key_bits=20)
+    want = kernels.fused_step_plain(*twin, wire, params, 0, 20, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, want) and bool(valid.all())
+    assert torch.equal(state.hll_regs, twin.hll_regs)
+    assert int((state.hll_regs != 0).sum()) == 1
+    assert fused.decode_counts(state.counts) == (lanes, 0)
+
+
+@pytest.mark.parametrize("start", [5, 2 ** 32 - 100_000])
+def test_cms_step_kernel_one_key_batch(start, cuda):
+    """Every lane holds one key: each row's counter for it reads
+    start + n (mod 2^32; from 2^32 - 100,000 the adds cross the wrap),
+    and every estimate is that value."""
+    lanes = 131_072
+    counts = cms.cms_from_numpy(np.full((4, 16384), start, np.uint32), cuda)
+    twin = counts.clone()
+    key = 123_457
+    keys = torch.full((lanes,), key, dtype=torch.int32, device=cuda)
+    est = kernels.cms_step(counts, keys)
+    want = cms.cms_step_plain(twin, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, twin) and torch.equal(est, want)
+    total = (start + lanes) % 2 ** 32
+    got = cms.cms_to_numpy(counts)
+    pos = cms.cms_positions_np(np.array([key], np.uint32), 4, 16384)[:, 0]
+    assert got[np.arange(4), pos].tolist() == [total] * 4
+    assert (est.cpu().numpy().view(np.uint32) == total).all()
+    assert int((got != start).sum()) == 4
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_cms_step_kernel_hot_mix(masked, cuda):
+    """The temporal traffic's mix: 8 hot keys on 15% of a frame's lanes,
+    the rest drawn from a 100k roster."""
+    rng = np.random.default_rng(20 + int(masked))
+    roster = rng.choice(400_000, 100_000, replace=False).astype(np.uint32)
+    hot = rng.choice(roster, 8, replace=False)
+    keys = np.where(rng.random(LANES) < 0.15, hot[rng.integers(0, 8, LANES)],
+                    rng.choice(roster, LANES)).astype(np.uint32)
+    keys = torch.from_numpy(keys.view(np.int32)).to(cuda)
+    mask = (torch.from_numpy(rng.random(LANES) >= 0.1).to(cuda)
+            if masked else None)
+    counts = cms.cms_init(4, 16384, cuda)
+    twin = counts.clone()
+    est = kernels.cms_step(counts, keys, mask)
+    want = cms.cms_step_plain(twin, keys, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, twin)
+    assert torch.equal(est, want)
+    if mask is None:  # an estimate never undercounts
+        for h in hot.view(np.int32).tolist():
+            lanes_h = keys == h
+            assert int(est[lanes_h].min()) >= int(lanes_h.sum()) > 0

@@ -210,11 +210,18 @@ def _assert_same(jstate, jvalid, tstate, tvalid):
         jfused.decode_counts(jstate.counts)
 
 
-@pytest.mark.parametrize("key_bits", [21, 24])
-def test_fused_step_words_matches_jax(key_bits):
+@pytest.mark.parametrize("key_bits,batch", [
+    pytest.param(21, "mixed", id="21"), pytest.param(24, "mixed", id="24"),
+    # One roster key in every real lane, one bank, 1096 padding lanes:
+    # exactly one register may rise.
+    pytest.param(22, "one_key", id="one_key-22")])
+def test_fused_step_words_matches_jax(key_bits, batch):
     num_banks, n, padded = 12, 3000, 4096
     params, jparams, roster, bits, regs, counts = _start_state(num_banks, 3)
     keys, banks = _lanes(roster, num_banks, n, 4)
+    if batch == "one_key":
+        keys = np.full(n, roster[17], np.uint32)
+        banks = np.full(n, 5, np.int32)
     words = tfused.pack_words(keys, banks, key_bits, padded)
     np.testing.assert_array_equal(
         words, jfused.pack_words(keys, banks, key_bits, padded))
@@ -226,6 +233,9 @@ def test_fused_step_words_matches_jax(key_bits):
     _assert_same(jstate, jvalid, tstate, tvalid)
     valid, invalid = tfused.decode_counts(tstate.counts)
     assert valid > 0xFFFFFFFF  # the lo lane carried into hi
+    if batch == "one_key":
+        assert tvalid[:n].all() and not tvalid[n:].any()
+        assert int((tfused.state_to_numpy(tstate)[1] != regs).sum()) <= 1
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
