@@ -345,7 +345,10 @@ hll_add_kernel(uint8_t* regs, int num_banks, int precision,
 // (wraps at 2^32 exactly like XLA's uint32 scatter-add; duplicates each
 // count). The query, a second launch in stream order so it sees the
 // whole batch, takes the min over rows; masked lanes read 0. mask may
-// be null: every lane counts.
+// be null: every lane counts. The update is bound by L2 atomic
+// throughput (one add per (key, row)); one cooperative launch with a
+// grid barrier, and a programmatic-dependent-launch pair, were both
+// slower on an H100 than these two launches (PERF.md).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t cms_bucket(uint32_t key, int row,
                                                uint32_t width) {
@@ -389,103 +392,11 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // ===========================================================================
-// Comparison only: the PR 2 designs of K2 and K4, and two other designs
-// of K6 (one cooperative launch; a programmatic-dependent-launch pair),
-// timed beside the kernels above by chip_smoke.py. Removed once measured.
+// Comparison only: K6 as one cooperative launch (update, grid barrier,
+// query, indices held in registers across the barrier; counters read
+// through L1 after the barrier), timed beside the two-launch K6 by
+// chip_smoke.py phase 2e.
 // ===========================================================================
-// Blocked Bloom probe: every probe of a key lands in one 512-bit block
-// (16 words) chosen by h1 % num_blocks, at offsets (h2 + j*h3) & 511.
-__device__ __forceinline__ bool bloom_probe_pr2(const uint32_t* __restrict__ words,
-                                            uint32_t num_blocks, int k,
-                                            uint32_t key) {
-  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
-  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
-  const uint32_t h3 = murmur3_u32(key, kSeedBlock) | 1u;
-  const uint32_t* blk = words + static_cast<size_t>(h1 % num_blocks) * 16u;
-  bool hit = true;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
-    hit &= ((__ldg(blk + (off >> 5)) >> (off & 31u)) & 1u) != 0u;
-  }
-  return hit;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_step_kernel_pr2(const uint8_t* __restrict__ wire, int bank_bytes,
-                  int key_bits, int lanes,
-                  const uint32_t* __restrict__ bloom, uint32_t num_blocks,
-                  int k, uint8_t* regs, int num_banks, int precision,
-                  unsigned long long* counts, uint8_t* __restrict__ valid) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  bool hit = false;
-  bool real = false;
-  if (i < lanes) {
-    uint32_t key;
-    int32_t bank;
-    const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wire);
-    if (bank_bytes == 0) {
-      const uint32_t w = w32[i];
-      key = w & ((1u << key_bits) - 1u);
-      const uint32_t field = w >> key_bits;
-      bank = field == (1u << (32 - key_bits)) - 1u
-                 ? -1 : static_cast<int32_t>(field);
-    } else {
-      key = w32[i];
-      const uint8_t* banks = wire + 4 * static_cast<size_t>(lanes);
-      uint32_t field;
-      uint32_t sentinel;
-      if (bank_bytes == 1) {
-        field = banks[i];
-        sentinel = 0xFFu;
-      } else if (bank_bytes == 2) {
-        field = reinterpret_cast<const uint16_t*>(banks)[i];
-        sentinel = 0xFFFFu;
-      } else {
-        field = reinterpret_cast<const uint32_t*>(banks)[i];
-        sentinel = 0xFFFFFFFFu;
-      }
-      bank = field == sentinel ? -1 : static_cast<int32_t>(field);
-    }
-    hit = bloom_probe_pr2(bloom, num_blocks, k, key);
-    valid[i] = hit ? 1 : 0;
-    real = bank >= 0;
-    if (hit && real && bank < num_banks) {
-      uint32_t bucket, rank;
-      hll_bucket_rank(key, precision, &bucket, &rank);
-      atomic_max_u8(regs + (static_cast<size_t>(bank) << precision) + bucket,
-                    rank);
-    }
-  }
-  __shared__ unsigned int warp_valid[kWarps];
-  __shared__ unsigned int warp_invalid[kWarps];
-  const unsigned int nv = __popc(__ballot_sync(0xFFFFFFFFu, hit && real));
-  const unsigned int ni = __popc(__ballot_sync(0xFFFFFFFFu, !hit && real));
-  if ((threadIdx.x & 31) == 0) {
-    warp_valid[threadIdx.x >> 5] = nv;
-    warp_invalid[threadIdx.x >> 5] = ni;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long sv = 0, si = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      sv += warp_valid[w];
-      si += warp_invalid[w];
-    }
-    if (sv) atomicAdd(counts, sv);
-    if (si) atomicAdd(counts + 1, si);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-bloom_contains_kernel_pr2(const uint32_t* __restrict__ words, uint32_t num_blocks,
-                      int k, const uint32_t* __restrict__ keys, int n,
-                      uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  out[i] = bloom_probe_pr2(words, num_blocks, k, keys[i]) ? 1 : 0;
-}
-
 constexpr int kCmsLanes = 4;
 constexpr int kCmsRows = 4;
 constexpr uint32_t kNoCounter = 0xFFFFFFFFu;
@@ -558,8 +469,10 @@ cms_step_kernel(uint32_t* counts, int depth, uint32_t width, uint64_t magic,
 
   cooperative_groups::this_grid().sync();
 
-  // Counters were written by atomics in L2 during this launch: read them
-  // through L2 (ld.global.cg), never the read-only path.
+  // Counters were written by atomics in L2 during this launch, and no
+  // thread read one before the barrier, so no L1 holds a stale line:
+  // plain loads (cached in L1 from here on) see the whole batch. The
+  // read-only path would not be safe.
 #pragma unroll
   for (int s = 0; s < kCmsLanes; ++s) {
     const int i = tid + s * stride;
@@ -569,12 +482,12 @@ cms_step_kernel(uint32_t* counts, int depth, uint32_t width, uint64_t magic,
       m = 0xFFFFFFFFu;
 #pragma unroll
       for (int r = 0; r < kCmsRows; ++r) {
-        if (r < depth) m = min(m, __ldcg(counts + idx[s][r]));
+        if (r < depth) m = min(m, counts[idx[s][r]]);
       }
       if (depth > kCmsRows) {
         const uint32_t key = keys[i];
         for (int r = kCmsRows; r < depth; ++r) {
-          m = min(m, __ldcg(counts + cms_index_coop(key, r, width, magic)));
+          m = min(m, counts[cms_index_coop(key, r, width, magic)]);
         }
       }
     }
@@ -586,57 +499,11 @@ cms_step_kernel(uint32_t* counts, int depth, uint32_t width, uint64_t magic,
       const uint32_t key = keys[i];
       m = 0xFFFFFFFFu;
       for (int r = 0; r < depth; ++r) {
-        m = min(m, __ldcg(counts + cms_index_coop(key, r, width, magic)));
+        m = min(m, counts[cms_index_coop(key, r, width, magic)]);
       }
     }
     est[i] = m;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-cms_update_kernel_pdl(uint32_t* counts, int depth, uint32_t width,
-                      const uint32_t* __restrict__ keys,
-                      const uint8_t* __restrict__ mask, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n && (mask == nullptr || mask[i] != 0)) {
-    const uint32_t key = keys[i];
-    for (int r = 0; r < depth; ++r) {
-      atomicAdd(counts + static_cast<size_t>(r) * width +
-                    cms_bucket(key, r, width),
-                1u);
-    }
-  }
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
-__global__ void __launch_bounds__(kThreads)
-cms_query_kernel_pdl(const uint32_t* __restrict__ counts, int depth,
-                     uint32_t width, const uint32_t* __restrict__ keys,
-                     const uint8_t* __restrict__ mask, int n,
-                     uint32_t* __restrict__ est) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  uint32_t pos[kCmsRows];
-  const bool live = i < n && (mask == nullptr || mask[i] != 0);
-  const uint32_t key = live ? keys[i] : 0u;
-#pragma unroll
-  for (int r = 0; r < kCmsRows; ++r) {
-    if (r < depth) pos[r] = r * width + cms_bucket(key, r, width);
-  }
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  if (i >= n) return;
-  if (!live) {
-    est[i] = 0u;
-    return;
-  }
-  uint32_t m = 0xFFFFFFFFu;
-#pragma unroll
-  for (int r = 0; r < kCmsRows; ++r) {
-    if (r < depth) m = min(m, __ldcg(counts + pos[r]));
-  }
-  for (int r = kCmsRows; r < depth; ++r) {
-    m = min(m, __ldcg(counts + r * width + cms_bucket(key, r, width)));
-  }
-  est[i] = m;
 }
 
 // CTAs of ``kernel`` (kThreads threads, no dynamic shared memory) that
@@ -686,8 +553,6 @@ int launch_cms_step(void* counts, int depth, unsigned int width,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
-
-
 
 }  // namespace
 
@@ -775,73 +640,15 @@ int atp_cms_step(void* counts, int depth, unsigned int width,
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- comparison entries (removed once measured) -----------------------------
+// -- comparison entry (removed once measured) -------------------------------
 
-int atp_cmp_fused_step(const void* wire, int bank_bytes, int key_bits,
-                       int lanes, const void* bloom, unsigned int num_blocks,
-                       int k, void* regs, int num_banks, int precision,
-                       void* counts, void* valid, void* stream) {
-  if (lanes > 0) {
-    fused_step_kernel_pr2<<<blocks_for(lanes), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(wire), bank_bytes, key_bits, lanes,
-        static_cast<const uint32_t*>(bloom), num_blocks, k,
-        static_cast<uint8_t*>(regs), num_banks, precision,
-        static_cast<unsigned long long*>(counts),
-        static_cast<uint8_t*>(valid));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int atp_cmp_bloom_contains(const void* words, unsigned int num_blocks, int k,
-                           const void* keys, int n, void* out, void* stream) {
-  if (n > 0) {
-    bloom_contains_kernel_pr2<<<blocks_for(n), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(words), num_blocks, k,
-        static_cast<const uint32_t*>(keys), n, static_cast<uint8_t*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// variant 1: cooperative, warp-combined adds; 2: cooperative, one add per
-// lane (lanes_target lanes per thread sizes the grid, capped at the
-// resident grid); 3: programmatic-dependent-launch pair.
 int atp_cmp_cms_step(void* counts, int depth, unsigned int width,
                      const void* keys, const void* mask, int n, void* est,
-                     void* stream, int variant, int lanes_target) {
-  if (variant == 1) {
-    return launch_cms_step<true>(counts, depth, width, keys, mask, n, est,
-                                 stream, lanes_target);
-  }
-  if (variant == 2) {
-    return launch_cms_step<false>(counts, depth, width, keys, mask, n, est,
-                                  stream, lanes_target);
-  }
-  if (variant != 3 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* c = static_cast<uint32_t*>(counts);
-  const uint32_t* k = static_cast<const uint32_t*>(keys);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  uint32_t* e = static_cast<uint32_t*>(est);
-  cms_update_kernel_pdl<<<blocks_for(n), kThreads, 0, s>>>(c, depth, width,
-                                                          k, m, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks_for(n));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, cms_query_kernel_pdl,
-                           static_cast<const uint32_t*>(c), depth,
-                           static_cast<uint32_t>(width), k, m, n, e);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+                     void* stream, int combine, int lanes_target) {
+  return combine ? launch_cms_step<true>(counts, depth, width, keys, mask, n,
+                                         est, stream, lanes_target)
+                 : launch_cms_step<false>(counts, depth, width, keys, mask, n,
+                                          est, stream, lanes_target);
 }
 
 }  // extern "C"

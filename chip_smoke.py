@@ -7,11 +7,15 @@ Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit, then the kernels
      built from ``attendance_tpu_torch/csrc`` with nvcc (time and the
      compiler's per-kernel resource report);
-  2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, with exact equality (integer sketches), plus
-     CUDA-event timings of the kernel, the plain version and, where one
-     exists, a single PyTorch library call computing the same function;
-     (2a-2c: K1-K3 of the fused path; 2d: K4-K6 of the temporal plane);
+  2. the launch floor (a ``fill_`` of one int32, timed as the kernels
+     are), then each kernel against its plain PyTorch version on the
+     card, at the main path's shapes, with exact equality (integer
+     sketches), plus CUDA-event timings of the kernel (also printed above
+     the floor), the plain version and, where one exists, a single
+     PyTorch library call computing the same function (2a-2c: K1-K3 of
+     the fused path, K2 on all four wires at 131,072 and at 1,048,576
+     lanes; 2d: K4-K6 of the temporal plane, K6 at both sizes on the
+     frames' roster ids and on the temporal traffic's hot-key mix);
   3. the main path: the ``fused`` verb's flow at its defaults (1,048,576
      events in 131,072-event frames, a 100k roster, 16 lectures, seed 0)
      with launch counters reset just before and read just after, checked
@@ -275,127 +279,67 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     return launches
 
 
-def compare_designs(dev, floor_ms: float) -> None:
-    """Phase 2e: the PR 2 designs of K2 and K4, and two other designs of
-    K6, against the kernels the wrappers launch, in turns (old, new, new,
-    old), each held equal to its plain version first."""
+def compare_cms_designs(dev, floor_ms: float) -> None:
+    """Phase 2e: K6 as one cooperative launch (with and without the warp
+    match, 2 and 4 lanes per thread) beside the two-launch kernel the
+    wrapper launches, in turns, three rounds forward and back, each held
+    equal to the plain version first."""
     import ctypes
 
-    from attendance_tpu_torch.models import bloom, cms, fused
-    from attendance_tpu_torch.models.bloom import BLOCK_BITS
+    from attendance_tpu_torch.models import cms
     from attendance_tpu_torch.ops import build, kernels
     from attendance_tpu_torch.pipeline.events import decode_planar_batch
     from attendance_tpu_torch.pipeline.loadgen import generate_frames
 
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib = build.library()
-    for name, argtypes in {
-            "atp_cmp_fused_step": (P, I, I, I, P, U, I, P, I, I, P, P, P),
-            "atp_cmp_bloom_contains": (P, U, I, P, I, P, P),
-            "atp_cmp_cms_step": (P, I, U, P, P, I, P, P, I, I)}.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def turns(label, fns):
-        """fns: {name: fn}; times in the order a, b, ..., ..., b, a."""
-        order = list(fns) + list(fns)[::-1]
-        got = {}
-        for name in order:
-            got.setdefault(name, []).append(kernel_ms(fns[name]))
-        print(f"compare {label} (ms, in turns {order}): {got}; floor "
-              f"{floor_ms}")
-
-    params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
-    nb = params.m_bits // BLOCK_BITS
-    rng = np.random.default_rng(7)
-    for lanes in (131_072, 1_048_576):
-        roster_np, frames = generate_frames(
-            2 * lanes, lanes, roster_size=100_000, num_lectures=16, seed=0)
-        warm, frame = (decode_planar_batch(f) for f in frames)
-        start, _ = fused.init_state(100_000, 0.01, "blocked", 256, 14, dev)
-        kernels.bloom_add(start.bloom_bits,
-                          torch.from_numpy(roster_np.view(np.int32)).to(dev),
-                          params)
-        w0, kw0 = wire_of(warm, 0, lanes, dev)
-        kernels.fused_step(*start, w0, params, bank_bytes=0, key_bits=kw0)
-        for bank_bytes in (0, 1, 2, 4):
-            wire, kw = wire_of(frame, bank_bytes, lanes, dev)
-            a = fused.SketchState(*(t.clone() for t in start))
-            b = fused.SketchState(*(t.clone() for t in start))
-            old_valid = torch.empty(lanes, dtype=torch.bool, device=dev)
-
-            def old():
-                return lib.atp_cmp_fused_step(
-                    wire.data_ptr(), bank_bytes, kw, lanes,
-                    b.bloom_bits.data_ptr(), nb, params.k,
-                    b.hll_regs.data_ptr(), 256, 14, b.counts.data_ptr(),
-                    old_valid.data_ptr(), stream())
-
-            def new():
-                return kernels.fused_step(*a, wire, params,
-                                          bank_bytes=bank_bytes, key_bits=kw)
-
-            check(old() == 0, "PR 2 K2 launch")
-            valid = new()
-            torch.cuda.synchronize()
-            check(torch.equal(valid, old_valid)
-                  and torch.equal(a.hll_regs, b.hll_regs)
-                  and torch.equal(a.counts, b.counts),
-                  f"K2 PR 2 vs new w={bank_bytes} lanes={lanes}")
-            turns(f"K2 w={bank_bytes} lanes={lanes}",
-                  {"pr2": old, "new": new})
-        keys = torch.from_numpy(
-            np.array(frame["student_id"]).view(np.int32)).to(dev)
-        out = torch.empty(lanes, dtype=torch.bool, device=dev)
-
-        def old4():
-            return lib.atp_cmp_bloom_contains(
-                start.bloom_bits.data_ptr(), nb, params.k, keys.data_ptr(),
-                lanes, out.data_ptr(), stream())
-
-        def new4():
-            return kernels.bloom_contains(start.bloom_bits, keys, params)
-
-        check(old4() == 0, "PR 2 K4 launch")
-        check(torch.equal(new4(), out), f"K4 PR 2 vs new lanes={lanes}")
-        turns(f"K4 roster=100000 keys={lanes}", {"pr2": old4, "new": new4})
-
-        hot = rng.choice(roster_np, 8, replace=False)
-        ids = frame["student_id"]
+    lib.atp_cmp_cms_step.argtypes = (P, I, U, P, P, I, P, P, I, I)
+    lib.atp_cmp_cms_step.restype = ctypes.c_int
+    rng = np.random.default_rng(11)
+    for n in (131_072, 1_048_576):
+        roster, frames = generate_frames(n, n, roster_size=100_000,
+                                         num_lectures=16, seed=1)
+        ids = decode_planar_batch(next(iter(frames)))["student_id"]
+        hot = rng.choice(roster, 8, replace=False)
         for mix, mix_ids in (("roster", ids), ("hot", np.where(
-                rng.random(lanes) < 0.15, hot[rng.integers(0, 8, lanes)],
+                rng.random(n) < 0.15, hot[rng.integers(0, 8, n)],
                 ids).astype(np.uint32))):
-            keys6 = torch.from_numpy(np.array(mix_ids).view(np.int32)).to(dev)
+            keys = torch.from_numpy(np.array(mix_ids).view(np.int32)).to(dev)
             base = cms.cms_init(4, 16384, dev)
-            cms.cms_update(base, keys6)
+            cms.cms_update(base, keys)
             twin = base.clone()
-            want = cms.cms_step_plain(twin, keys6)
+            want = cms.cms_step_plain(twin, keys)
             fns = {}
-            for label, variant, target in (
-                    ("pr2_pair", None, 0), ("coop_lanes2", 2, 2),
-                    ("coop_match_lanes2", 1, 2), ("coop_lanes4", 2, 4),
-                    ("pdl_pair", 3, 0)):
+            for label, combine, lanes in (
+                    ("pair", None, 0), ("coop_l4", 0, 4), ("coop_l2", 0, 2),
+                    ("coop_match_l4", 1, 4), ("coop_match_l2", 1, 2)):
                 c = base.clone()
-                est = torch.empty(lanes, dtype=torch.int32, device=dev)
-                if variant is None:
+                est = torch.empty(n, dtype=torch.int32, device=dev)
+                if combine is None:
                     def fn(c=c):
-                        return kernels.cms_step(c, keys6)
+                        return kernels.cms_step(c, keys)
                     got = fn()
                 else:
-                    def fn(c=c, est=est, variant=variant, target=target):
+                    def fn(c=c, est=est, combine=combine, lanes=lanes):
                         return lib.atp_cmp_cms_step(
-                            c.data_ptr(), 4, 16384, keys6.data_ptr(), None,
-                            lanes, est.data_ptr(), stream(), variant, target)
+                            c.data_ptr(), 4, 16384, keys.data_ptr(), None, n,
+                            est.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream,
+                            combine, lanes)
                     check(fn() == 0, f"K6 {label} launch")
                     got = est
                 torch.cuda.synchronize()
                 check(torch.equal(c, twin) and torch.equal(got, want),
-                      f"K6 {label} {mix} lanes={lanes}")
+                      f"K6 {label} {mix} n={n}")
                 fns[label] = fn
-            turns(f"K6 mix={mix} keys={lanes}", fns)
+            order = (list(fns) + list(fns)[::-1]) * 3
+            got_ms = {}
+            for label in order:
+                got_ms.setdefault(label, []).append(kernel_ms(fns[label]))
+            print(f"compare K6 mix={mix} keys={n} (ms, in turns {order}): "
+                  f"{got_ms}; medians "
+                  f"{ {k: float(np.median(v)) for k, v in got_ms.items()} }; "
+                  f"floor {floor_ms}")
 
 
 def main() -> int:
@@ -572,8 +516,8 @@ def main() -> int:
                     replaces="attendance_tpu/models/fused.py:175",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
-                k2_inputs = (start, frame, keys)
-    start, frame, keys = k2_inputs
+                k2_inputs = (start, frame)
+    start, frame = k2_inputs
     lanes = 131_072
 
     # -- 2d. K4 blocked probe, K5 window PFADD, K6 Count-Min step -------------
@@ -707,8 +651,8 @@ def main() -> int:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
 
-    # -- 2e. the PR 2 designs beside the new ones -------------------------------
-    compare_designs(dev, floor_ms)
+    # -- 2e. K6: one cooperative launch beside the two launches ----------------
+    compare_cms_designs(dev, floor_ms)
 
     # -- 3. main path ---------------------------------------------------------
     num_events, frame_size, num_lectures = 1 << 20, 1 << 17, 16
