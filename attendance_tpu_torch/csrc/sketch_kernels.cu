@@ -33,7 +33,6 @@
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
 // is uint32, so results are bit-identical to the plain PyTorch versions.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -347,8 +346,9 @@ hll_add_kernel(uint8_t* regs, int num_banks, int precision,
 // whole batch, takes the min over rows; masked lanes read 0. mask may
 // be null: every lane counts. The update is bound by L2 atomic
 // throughput (one add per (key, row)); one cooperative launch with a
-// grid barrier, and a programmatic-dependent-launch pair, were both
-// slower on an H100 than these two launches (PERF.md).
+// grid barrier, and a programmatic-dependent-launch pair, were measured
+// on an H100 and neither beat these two launches in every case
+// (PERF.md).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t cms_bucket(uint32_t key, int row,
                                                uint32_t width) {
@@ -390,169 +390,6 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-// ===========================================================================
-// Comparison only: K6 as one cooperative launch (update, grid barrier,
-// query, indices held in registers across the barrier; counters read
-// through L1 after the barrier), timed beside the two-launch K6 by
-// chip_smoke.py phase 2e.
-// ===========================================================================
-constexpr int kCmsLanes = 4;
-constexpr int kCmsRows = 4;
-constexpr uint32_t kNoCounter = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t cms_index_coop(uint32_t key, int row,
-                                              uint32_t width, uint64_t magic) {
-  return static_cast<uint32_t>(row) * width +
-         fastmod(murmur3_u32(key, kSeedCmsBase +
-                                      static_cast<uint32_t>(row) * kSeedCmsStep),
-                 magic, width);
-}
-
-// Called by all 32 lanes of a warp together; idx is kNoCounter for a
-// lane that adds nothing.
-template <bool kCombine>
-__device__ __forceinline__ void cms_add(uint32_t* counts, uint32_t idx) {
-  if (kCombine) {
-    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, idx);
-    if (idx != kNoCounter &&
-        static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
-      atomicAdd(counts + idx, static_cast<unsigned int>(__popc(peers)));
-    }
-  } else if (idx != kNoCounter) {
-    atomicAdd(counts + idx, 1u);
-  }
-}
-
-__device__ __forceinline__ bool cms_live(const uint8_t* __restrict__ mask,
-                                         int n, int i) {
-  return i < n && (mask == nullptr || mask[i] != 0);
-}
-
-template <bool kCombine>
-__global__ void __launch_bounds__(kThreads)
-cms_step_kernel(uint32_t* counts, int depth, uint32_t width, uint64_t magic,
-                const uint32_t* __restrict__ keys,
-                const uint8_t* __restrict__ mask, int n,
-                uint32_t* __restrict__ est) {
-  const int stride = gridDim.x * kThreads;  // a multiple of 32
-  const int tid = blockIdx.x * kThreads + threadIdx.x;
-  const int warp0 = tid & ~31;  // the warp's first thread: uniform tests
-  uint32_t idx[kCmsLanes][kCmsRows];
-#pragma unroll
-  for (int s = 0; s < kCmsLanes; ++s) {
-    if (warp0 + s * stride >= n) break;
-    const int i = tid + s * stride;
-    const bool live = cms_live(mask, n, i);
-    const uint32_t key = i < n ? keys[i] : 0u;
-#pragma unroll
-    for (int r = 0; r < kCmsRows; ++r) {
-      if (r < depth) {
-        idx[s][r] = cms_index_coop(key, r, width, magic);
-        cms_add<kCombine>(counts, live ? idx[s][r] : kNoCounter);
-      }
-    }
-    for (int r = kCmsRows; r < depth; ++r) {
-      cms_add<kCombine>(counts,
-                        live ? cms_index_coop(key, r, width, magic) : kNoCounter);
-    }
-  }
-  for (int w0 = warp0 + kCmsLanes * stride; w0 < n; w0 += stride) {
-    const int i = w0 + static_cast<int>(threadIdx.x & 31);
-    const bool live = cms_live(mask, n, i);
-    const uint32_t key = i < n ? keys[i] : 0u;
-    for (int r = 0; r < depth; ++r) {
-      cms_add<kCombine>(counts,
-                        live ? cms_index_coop(key, r, width, magic) : kNoCounter);
-    }
-  }
-
-  cooperative_groups::this_grid().sync();
-
-  // Counters were written by atomics in L2 during this launch, and no
-  // thread read one before the barrier, so no L1 holds a stale line:
-  // plain loads (cached in L1 from here on) see the whole batch. The
-  // read-only path would not be safe.
-#pragma unroll
-  for (int s = 0; s < kCmsLanes; ++s) {
-    const int i = tid + s * stride;
-    if (i >= n) break;
-    uint32_t m = 0u;
-    if (mask == nullptr || mask[i] != 0) {
-      m = 0xFFFFFFFFu;
-#pragma unroll
-      for (int r = 0; r < kCmsRows; ++r) {
-        if (r < depth) m = min(m, counts[idx[s][r]]);
-      }
-      if (depth > kCmsRows) {
-        const uint32_t key = keys[i];
-        for (int r = kCmsRows; r < depth; ++r) {
-          m = min(m, counts[cms_index_coop(key, r, width, magic)]);
-        }
-      }
-    }
-    est[i] = m;
-  }
-  for (int i = tid + kCmsLanes * stride; i < n; i += stride) {
-    uint32_t m = 0u;
-    if (mask == nullptr || mask[i] != 0) {
-      const uint32_t key = keys[i];
-      m = 0xFFFFFFFFu;
-      for (int r = 0; r < depth; ++r) {
-        m = min(m, counts[cms_index_coop(key, r, width, magic)]);
-      }
-    }
-    est[i] = m;
-  }
-}
-
-// CTAs of ``kernel`` (kThreads threads, no dynamic shared memory) that
-// the current device holds at once: SMs x CTAs per SM. Cached per
-// device and kernel after the first call, so a launch captured into a
-// CUDA graph asks the driver nothing.
-template <typename Kernel>
-int resident_ctas(Kernel kernel, int* cache) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 16) return 0;
-  if (cache[dev] == 0) {
-    int sms = 0;
-    int per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  0);
-    cache[dev] = sms * per_sm;
-  }
-  return cache[dev];
-}
-
-template <bool kCombine>
-int launch_cms_step(void* counts, int depth, unsigned int width,
-                    const void* keys, const void* mask, int n, void* est,
-                    void* stream, int lanes_target) {
-  static int resident[16];
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int cap = resident_ctas(cms_step_kernel<kCombine>, resident);
-  if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int want = (n + kThreads * lanes_target - 1) / (kThreads * lanes_target);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(want < cap ? want : cap);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, cms_step_kernel<kCombine>, static_cast<uint32_t*>(counts), depth,
-      static_cast<uint32_t>(width), fastmod_magic(width),
-      static_cast<const uint32_t*>(keys), static_cast<const uint8_t*>(mask),
-      n, static_cast<uint32_t*>(est));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -638,17 +475,6 @@ int atp_cms_step(void* counts, int depth, unsigned int width,
         static_cast<const uint8_t*>(mask), n, static_cast<uint32_t*>(est));
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// -- comparison entry (removed once measured) -------------------------------
-
-int atp_cmp_cms_step(void* counts, int depth, unsigned int width,
-                     const void* keys, const void* mask, int n, void* est,
-                     void* stream, int combine, int lanes_target) {
-  return combine ? launch_cms_step<true>(counts, depth, width, keys, mask, n,
-                                         est, stream, lanes_target)
-                 : launch_cms_step<false>(counts, depth, width, keys, mask, n,
-                                          est, stream, lanes_target);
 }
 
 }  // extern "C"

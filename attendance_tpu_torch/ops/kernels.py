@@ -382,7 +382,8 @@ def cms_step(counts: torch.Tensor, keys: torch.Tensor,
     stream order from the same C entry point. One wrapper call counts
     one launch. The update is bound by L2 atomic throughput: one
     cooperative launch with a grid barrier, and a programmatic-dependent
-    launch pair, both measured slower on an H100 (PERF.md).
+    launch pair, were measured on an H100 and neither beat this pair in
+    every case (PERF.md).
     """
     _require(counts.dtype == torch.int32 and counts.dim() == 2
              and counts.shape[0] >= 1 and counts.shape[1] >= 1,

@@ -279,69 +279,6 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     return launches
 
 
-def compare_cms_designs(dev, floor_ms: float) -> None:
-    """Phase 2e: K6 as one cooperative launch (with and without the warp
-    match, 2 and 4 lanes per thread) beside the two-launch kernel the
-    wrapper launches, in turns, three rounds forward and back, each held
-    equal to the plain version first."""
-    import ctypes
-
-    from attendance_tpu_torch.models import cms
-    from attendance_tpu_torch.ops import build, kernels
-    from attendance_tpu_torch.pipeline.events import decode_planar_batch
-    from attendance_tpu_torch.pipeline.loadgen import generate_frames
-
-    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib = build.library()
-    lib.atp_cmp_cms_step.argtypes = (P, I, U, P, P, I, P, P, I, I)
-    lib.atp_cmp_cms_step.restype = ctypes.c_int
-    rng = np.random.default_rng(11)
-    for n in (131_072, 1_048_576):
-        roster, frames = generate_frames(n, n, roster_size=100_000,
-                                         num_lectures=16, seed=1)
-        ids = decode_planar_batch(next(iter(frames)))["student_id"]
-        hot = rng.choice(roster, 8, replace=False)
-        for mix, mix_ids in (("roster", ids), ("hot", np.where(
-                rng.random(n) < 0.15, hot[rng.integers(0, 8, n)],
-                ids).astype(np.uint32))):
-            keys = torch.from_numpy(np.array(mix_ids).view(np.int32)).to(dev)
-            base = cms.cms_init(4, 16384, dev)
-            cms.cms_update(base, keys)
-            twin = base.clone()
-            want = cms.cms_step_plain(twin, keys)
-            fns = {}
-            for label, combine, lanes in (
-                    ("pair", None, 0), ("coop_l4", 0, 4), ("coop_l2", 0, 2),
-                    ("coop_match_l4", 1, 4), ("coop_match_l2", 1, 2)):
-                c = base.clone()
-                est = torch.empty(n, dtype=torch.int32, device=dev)
-                if combine is None:
-                    def fn(c=c):
-                        return kernels.cms_step(c, keys)
-                    got = fn()
-                else:
-                    def fn(c=c, est=est, combine=combine, lanes=lanes):
-                        return lib.atp_cmp_cms_step(
-                            c.data_ptr(), 4, 16384, keys.data_ptr(), None, n,
-                            est.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream,
-                            combine, lanes)
-                    check(fn() == 0, f"K6 {label} launch")
-                    got = est
-                torch.cuda.synchronize()
-                check(torch.equal(c, twin) and torch.equal(got, want),
-                      f"K6 {label} {mix} n={n}")
-                fns[label] = fn
-            order = (list(fns) + list(fns)[::-1]) * 3
-            got_ms = {}
-            for label in order:
-                got_ms.setdefault(label, []).append(kernel_ms(fns[label]))
-            print(f"compare K6 mix={mix} keys={n} (ms, in turns {order}): "
-                  f"{got_ms}; medians "
-                  f"{ {k: float(np.median(v)) for k, v in got_ms.items()} }; "
-                  f"floor {floor_ms}")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -650,9 +587,6 @@ def main() -> int:
                     replaces="attendance_tpu/models/cms.py:116",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
-
-    # -- 2e. K6: one cooperative launch beside the two launches ----------------
-    compare_cms_designs(dev, floor_ms)
 
     # -- 3. main path ---------------------------------------------------------
     num_events, frame_size, num_lectures = 1 << 20, 1 << 17, 16
