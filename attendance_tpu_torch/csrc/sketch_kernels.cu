@@ -14,7 +14,10 @@
 //                         by four lanes together, into shared memory
 //                         (replaces the XLA programs fused_step_words /
 //                         fused_step_bytes, attendance_tpu/models/fused.py)
-//   K3 atp_bloom_add      packed Bloom preload by atomicOr
+//   K3 atp_bloom_add      packed Bloom preload: a large batch binned by
+//                         filter tile and ORed in shared memory (a memset
+//                         and three kernels), a small one by one thread
+//                         per key with global atomicOr
 //                         (replaces bloom_add_packed / packed_or_scatter,
 //                         attendance_tpu/models/bloom.py:223-271)
 //   K4 atp_bloom_contains blocked BF.EXISTS straight from the packed words
@@ -279,24 +282,254 @@ fused_step_kernel(const uint8_t* __restrict__ wire, int bank_bytes,
 }
 
 // ---------------------------------------------------------------------------
-// K3: one thread per key; OR each of the k probe bits into its packed
-// word. OR is order-free, so the words equal those of the JAX
-// sort/segmented-OR scatter exactly.
+// K3: the roster preload, binned by filter tile. The filter is cut into
+// tiles of 2^log2_bpt whole 64-byte blocks (at most 512: 32 KB of shared
+// memory). Three kernels after a memset of the per-tile totals:
+//   count   each CTA hashes its chunk of keys and counts them per tile in
+//           shared memory; it keeps the counts per (CTA, tile) and
+//           reserves its range in every non-empty tile with one global
+//           atomicAdd (the returned offset is kept per (CTA, tile) too);
+//   scatter each CTA scans the tile totals into tile starts and its own
+//           counts into a local order, sorts its chunk by tile in shared
+//           memory (each key as a 27-bit payload: the block within the
+//           tile, h2 & 511 and h3 & 511; the probe offsets need no more),
+//           and writes each tile's run to its reserved range whole, so
+//           the writes coalesce;
+//   or      one CTA per tile loads its slice of the filter into shared
+//           memory with 16-byte loads, ORs every key's k probe bits there
+//           with shared atomicOr, and writes the slice back with 16-byte
+//           stores.
+// Global atomics fall from k per key to one per (CTA, non-empty tile), and
+// each filter word is read and written once. OR is order-free, so the
+// words equal those of the JAX sort/segmented-OR scatter exactly, onto
+// whatever the filter already holds.
+// Scratch (uint32): totals[tiles], starts[tiles + 1],
+// counts[ctas * tiles], offsets[ctas * tiles], payload[n].
 // ---------------------------------------------------------------------------
+constexpr int kPayloadBlockBits = 9;  // log2 of the most blocks in a tile
+
+// Exclusive prefix sum over t in [0, count) of in(t) into out[0, count)
+// (shared memory), and the total into out[count], by one whole CTA; each
+// thread reads its in(t) once.
+template <typename In>
+__device__ void cta_exclusive_scan(In in, int count, uint32_t* out) {
+  __shared__ uint32_t warp_sums[kWarps];
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int per = (count + kThreads - 1) / kThreads;
+  const int lo = min(count, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(count, lo + per);
+  uint32_t sum = 0u;
+  for (int t = lo; t < hi; ++t) {
+    out[t] = in(t);
+    sum += out[t];
+  }
+  uint32_t incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  uint32_t base = 0u;
+  for (int w = 0; w < warp; ++w) base += warp_sums[w];
+  uint32_t run = base + incl - sum;
+  for (int t = lo; t < hi; ++t) {
+    const uint32_t v = out[t];
+    out[t] = run;
+    run += v;
+  }
+  if (threadIdx.x == kThreads - 1) out[count] = base + incl;
+  __syncthreads();  // out is whole and warp_sums free for the next scan
+}
+
+// Keys a thread loads before it uses any, in the preload's key loops.
+constexpr int kKeyUnroll = 4;
+
 __global__ void __launch_bounds__(kThreads)
-bloom_add_kernel(uint32_t* words, const uint32_t* __restrict__ keys, int n,
-                 uint32_t num_blocks, int k) {
+bloom_tile_count_kernel(const uint32_t* __restrict__ keys, int n, int chunk,
+                        uint32_t num_blocks, uint64_t magic, int log2_bpt,
+                        int tiles, uint32_t* totals,
+                        uint32_t* __restrict__ counts,
+                        uint32_t* __restrict__ offsets) {
+  extern __shared__ uint32_t hist[];
+  for (int t = threadIdx.x; t < tiles; t += kThreads) hist[t] = 0u;
+  __syncthreads();
+  const int begin = blockIdx.x * chunk;
+  const int end = min(n, begin + chunk);
+  for (int i0 = begin + threadIdx.x; i0 < end;
+       i0 += kThreads * kKeyUnroll) {
+    uint32_t key[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      key[u] = i < end ? keys[i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      if (i0 + u * kThreads < end) {
+        const uint32_t block =
+            fastmod(murmur3_u32(key[u], kSeedBloomA), magic, num_blocks);
+        atomicAdd(hist + (block >> log2_bpt), 1u);
+      }
+    }
+  }
+  __syncthreads();
+  const size_t row = static_cast<size_t>(blockIdx.x) * tiles;
+  for (int t = threadIdx.x; t < tiles; t += kThreads) {
+    const uint32_t c = hist[t];
+    counts[row + t] = c;
+    if (c != 0u) offsets[row + t] = atomicAdd(totals + t, c);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_tile_scatter_kernel(const uint32_t* __restrict__ keys, int n,
+                          int chunk, uint32_t num_blocks, uint64_t magic,
+                          int log2_bpt, int tiles,
+                          const uint32_t* __restrict__ totals,
+                          const uint32_t* __restrict__ counts,
+                          const uint32_t* __restrict__ offsets,
+                          uint32_t* __restrict__ starts,
+                          uint32_t* __restrict__ payload) {
+  // Shared memory: base[tiles + 1] (first the tiles' global starts, then
+  // where this CTA's run of each tile goes), local[tiles + 1] (where each
+  // tile's run begins in this CTA's sorted chunk), cursor[tiles] (the next
+  // free place of each run), sorted[chunk].
+  extern __shared__ uint32_t smem[];
+  uint32_t* base = smem;
+  uint32_t* local = base + tiles + 1;
+  uint32_t* cursor = local + tiles + 1;
+  uint32_t* sorted = cursor + tiles;
+  const size_t row = static_cast<size_t>(blockIdx.x) * tiles;
+  cta_exclusive_scan([=](int t) { return totals[t]; }, tiles, base);
+  cta_exclusive_scan([=](int t) { return counts[row + t]; }, tiles, local);
+  for (int t = threadIdx.x; t <= tiles; t += kThreads) {
+    if (blockIdx.x == 0) starts[t] = base[t];
+    if (t < tiles) {
+      cursor[t] = local[t];
+      if (local[t + 1] != local[t]) base[t] += offsets[row + t];
+    }
+  }
+  __syncthreads();
+  const uint32_t tile_mask = (1u << log2_bpt) - 1u;
+  const int begin = blockIdx.x * chunk;
+  const int end = min(n, begin + chunk);
+  for (int i0 = begin + threadIdx.x; i0 < end;
+       i0 += kThreads * kKeyUnroll) {
+    uint32_t key[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      key[u] = i < end ? keys[i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      if (i0 + u * kThreads < end) {
+        const uint32_t block =
+            fastmod(murmur3_u32(key[u], kSeedBloomA), magic, num_blocks);
+        const uint32_t h2 = (murmur3_u32(key[u], kSeedBloomB) | 1u) & 511u;
+        const uint32_t h3 = (murmur3_u32(key[u], kSeedBlock) | 1u) & 511u;
+        sorted[atomicAdd(cursor + (block >> log2_bpt), 1u)] =
+            (block & tile_mask) | (h2 << kPayloadBlockBits) |
+            (h3 << (kPayloadBlockBits + 9));
+      }
+    }
+  }
+  __syncthreads();
+  // Each warp writes whole runs: tile t's run goes to its range reserved
+  // by the count pass.
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  for (int t = threadIdx.x >> 5; t < tiles; t += kWarps) {
+    const uint32_t lo = local[t];
+    const uint32_t hi = local[t + 1];
+    uint32_t* out = payload + base[t];
+    for (uint32_t i = lo + lane; i < hi; i += 32) out[i - lo] = sorted[i];
+  }
+}
+
+// OR one key's k probe bits into its 16-word block ``blk`` (shared
+// memory), with one atomicOr per distinct word: the mask of word w
+// gathers every probe that lands in w.
+__device__ __forceinline__ void or_block_probes(uint32_t* blk, uint32_t h2,
+                                                uint32_t h3, int k) {
+  uint32_t seen = 0u;
+  for (int j = 0; j < k; ++j) {
+    const uint32_t w = ((h2 + static_cast<uint32_t>(j) * h3) & 511u) >> 5;
+    if ((seen >> w) & 1u) continue;
+    seen |= 1u << w;
+    uint32_t mask = 0u;
+    for (int j2 = j; j2 < k; ++j2) {
+      const uint32_t off = (h2 + static_cast<uint32_t>(j2) * h3) & 511u;
+      if ((off >> 5) == w) mask |= 1u << (off & 31u);
+    }
+    atomicOr(blk + w, mask);
+  }
+}
+
+// K3 for a small batch (the wrapper picks it below 2^18 keys, where the
+// binned passes' fixed cost of chained launches and scans is more than
+// the atomics they save): one thread per key, a division-free block
+// index, and one global atomicOr per distinct word of the key.
+__global__ void __launch_bounds__(kThreads)
+bloom_add_keys_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
+                       int n, uint32_t num_blocks, uint64_t magic, int k) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const uint32_t key = keys[i];
-  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
-  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
-  const uint32_t h3 = murmur3_u32(key, kSeedBlock) | 1u;
-  uint32_t* blk = words + static_cast<size_t>(h1 % num_blocks) * 16u;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
-    atomicOr(blk + (off >> 5), 1u << (off & 31u));
+  const uint32_t block =
+      fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks);
+  or_block_probes(words + static_cast<size_t>(block) * 16u,
+                  (murmur3_u32(key, kSeedBloomB) | 1u) & 511u,
+                  (murmur3_u32(key, kSeedBlock) | 1u) & 511u, k);
+}
+
+// Payloads a thread loads before it uses any, in the OR pass.
+constexpr int kPayloadUnroll = 8;
+
+template <bool kMasks>
+__global__ void __launch_bounds__(kThreads)
+bloom_tile_or_kernel(uint32_t* words, uint32_t num_blocks, int log2_bpt,
+                     int k, const uint32_t* __restrict__ starts,
+                     const uint32_t* __restrict__ payload) {
+  extern __shared__ uint4 tile[];
+  const uint32_t first = static_cast<uint32_t>(blockIdx.x) << log2_bpt;
+  const int nvec = static_cast<int>(
+      min(1u << log2_bpt, num_blocks - first) * 4u);
+  uint4* slice = reinterpret_cast<uint4*>(words) + static_cast<size_t>(first) * 4u;
+  for (int v = threadIdx.x; v < nvec; v += kThreads) tile[v] = slice[v];
+  __syncthreads();
+  uint32_t* tile32 = reinterpret_cast<uint32_t*>(tile);
+  const uint32_t s = starts[blockIdx.x];
+  const uint32_t e = starts[blockIdx.x + 1];
+  for (uint32_t i0 = s + threadIdx.x; i0 < e;
+       i0 += kThreads * kPayloadUnroll) {
+    uint32_t p[kPayloadUnroll];
+#pragma unroll
+    for (int u = 0; u < kPayloadUnroll; ++u) {
+      const uint32_t i = i0 + u * kThreads;
+      p[u] = i < e ? __ldcs(payload + i) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kPayloadUnroll; ++u) {
+      if (i0 + u * kThreads < e) {
+        const uint32_t local = p[u] & ((1u << kPayloadBlockBits) - 1u);
+        const uint32_t h2 = (p[u] >> kPayloadBlockBits) & 511u;
+        const uint32_t h3 = (p[u] >> (kPayloadBlockBits + 9)) & 511u;
+        if (kMasks) {
+          or_block_probes(tile32 + local * 16u, h2, h3, k);
+        } else {
+          for (int j = 0; j < k; ++j) {
+            const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
+            atomicOr(tile32 + local * 16u + (off >> 5), 1u << (off & 31u));
+          }
+        }
+      }
+    }
   }
+  __syncthreads();
+  for (int v = threadIdx.x; v < nvec; v += kThreads) slice[v] = tile[v];
 }
 
 // ---------------------------------------------------------------------------
@@ -318,24 +551,119 @@ bloom_contains_kernel(const uint32_t* __restrict__ words, uint32_t num_blocks,
 }
 
 // ---------------------------------------------------------------------------
-// K5: one thread per lane. A lane is dropped when its valid byte is 0
+// K5: kLanes lanes per thread. A lane is dropped when its valid byte is 0
 // (valid may be null: every lane counts) or its bank is < 0 or past the
-// array; otherwise its rank is maxed into its register with the same
-// 32-bit CAS loop as K2.
+// array; otherwise its rank is maxed into its register with a 32-bit CAS
+// loop. The valid byte, the bank and the key are loaded together and
+// before any of them is looked at, so they cost one memory trip; then the
+// register word is read and, only if the rank is higher, swapped. With
+// kMatch, lanes of a warp that hit one register word first fold their
+// per-byte maxima by shuffles (one CAS loop per distinct word); with
+// kGuess the first CAS assumes a zero word instead of reading it.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void atomic_max_bytes(uint32_t* word, uint32_t val,
+                                                 uint32_t old) {
+  for (;;) {
+    const uint32_t next = __vmaxu4(old, val);
+    if (next == old) return;
+    const uint32_t seen = atomicCAS(word, old, next);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+// Per-byte max of ``x`` over the lanes in ``peers`` (lanes that share a
+// register word), left in the lowest of them; every lane of the warp
+// calls it. Log-step fold over the peers in lane order.
+__device__ __forceinline__ uint32_t fold_peers(uint32_t peers, uint32_t x) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  uint32_t rel = __popc(peers & ((1u << lane) - 1u));
+  peers &= 0xFFFFFFFEu << lane;
+  while (__any_sync(0xFFFFFFFFu, peers != 0u)) {
+    const int next = __ffs(peers);
+    const uint32_t y = __shfl_sync(0xFFFFFFFFu, x, (next - 1) & 31);
+    if (next) x = __vmaxu4(x, y);
+    peers &= ~__ballot_sync(0xFFFFFFFFu, rel & 1u);
+    rel >>= 1;
+  }
+  return x;
+}
+
+template <int kLanes, bool kMatch, bool kGuess>
 __global__ void __launch_bounds__(kThreads)
 hll_add_kernel(uint8_t* regs, int num_banks, int precision,
                const int32_t* __restrict__ bank,
                const uint32_t* __restrict__ keys,
                const uint8_t* __restrict__ valid, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (valid != nullptr && valid[i] == 0) return;
-  const int32_t b = bank[i];
-  if (b < 0 || b >= num_banks) return;
-  uint32_t bucket, rank;
-  hll_bucket_rank(keys[i], precision, &bucket, &rank);
-  atomic_max_u8(regs + (static_cast<size_t>(b) << precision) + bucket, rank);
+  const int first = (blockIdx.x * kThreads + threadIdx.x) * kLanes;
+  uint32_t key[kLanes];
+  int32_t b[kLanes];
+  uint32_t ok[kLanes];
+  bool whole = false;
+  if constexpr (kLanes == 2) {
+    whole = first + 2 <= n;
+    if (whole) {
+      const uint2 k2 = *reinterpret_cast<const uint2*>(keys + first);
+      const int2 b2 = *reinterpret_cast<const int2*>(bank + first);
+      const uint32_t v2 = valid != nullptr
+          ? *reinterpret_cast<const uint16_t*>(valid + first) : 0x0101u;
+      key[0] = k2.x;
+      key[1] = k2.y;
+      b[0] = b2.x;
+      b[1] = b2.y;
+      ok[0] = v2 & 0xFFu;
+      ok[1] = v2 >> 8;
+    }
+  } else if constexpr (kLanes == 4) {
+    whole = first + 4 <= n;
+    if (whole) {
+      const uint4 k4 = *reinterpret_cast<const uint4*>(keys + first);
+      const int4 b4 = *reinterpret_cast<const int4*>(bank + first);
+      const uint32_t v4 = valid != nullptr
+          ? *reinterpret_cast<const uint32_t*>(valid + first) : 0x01010101u;
+      key[0] = k4.x;
+      key[1] = k4.y;
+      key[2] = k4.z;
+      key[3] = k4.w;
+      b[0] = b4.x;
+      b[1] = b4.y;
+      b[2] = b4.z;
+      b[3] = b4.w;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) ok[l] = (v4 >> (8 * l)) & 0xFFu;
+    }
+  }
+  if (!whole) {
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) {
+      const int i = first + l;
+      key[l] = i < n ? keys[i] : 0u;
+      b[l] = i < n ? bank[i] : -1;
+      ok[l] = i < n && (valid == nullptr || valid[i] != 0) ? 1u : 0u;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    const bool keep = ok[l] != 0u && b[l] >= 0 && b[l] < num_banks;
+    uint32_t bucket, rank;
+    hll_bucket_rank(key[l], precision, &bucket, &rank);
+    const size_t at = (static_cast<size_t>(keep ? b[l] : 0) << precision) +
+                      bucket;
+    uint32_t* word = reinterpret_cast<uint32_t*>(regs + (at & ~size_t{3}));
+    uint32_t val = rank << (8u * static_cast<uint32_t>(at & 3u));
+    if (kMatch) {
+      const uint32_t peers = __match_any_sync(
+          0xFFFFFFFFu, keep ? static_cast<unsigned long long>(at >> 2)
+                            : ~0ull);
+      val = fold_peers(peers, val);
+      if (!keep || static_cast<int>(threadIdx.x & 31) != __ffs(peers) - 1) {
+        continue;
+      }
+    }
+    if (!keep) continue;
+    atomic_max_bytes(word, val,
+                     kGuess ? 0u : *reinterpret_cast<volatile uint32_t*>(word));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -391,6 +719,91 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// K3's four steps on one stream (see above). stages < 3 stops early (for
+// timing the steps apart).
+template <bool kMasks>
+int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
+                     uint32_t num_blocks, int k, int log2_bpt, int chunk,
+                     uint32_t* scratch, cudaStream_t s, int stages = 3) {
+  const int tiles =
+      static_cast<int>((num_blocks + (1u << log2_bpt) - 1u) >> log2_bpt);
+  const int ctas = (n + chunk - 1) / chunk;
+  uint32_t* totals = scratch;
+  uint32_t* starts = totals + tiles;
+  uint32_t* counts = starts + tiles + 1;
+  uint32_t* offsets = counts + static_cast<size_t>(ctas) * tiles;
+  uint32_t* payload = offsets + static_cast<size_t>(ctas) * tiles;
+  const uint64_t magic = fastmod_magic(num_blocks);
+  const size_t tile_bytes = sizeof(uint32_t) * static_cast<size_t>(tiles);
+  cudaError_t err = cudaMemsetAsync(totals, 0, tile_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bloom_tile_count_kernel<<<ctas, kThreads, tile_bytes, s>>>(
+      keys, n, chunk, num_blocks, magic, log2_bpt, tiles, totals, counts,
+      offsets);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || stages < 2) return static_cast<int>(err);
+  const size_t scatter_bytes =
+      sizeof(uint32_t) * (3 * static_cast<size_t>(tiles) + 2 + chunk);
+  if (scatter_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(bloom_tile_scatter_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(scatter_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  bloom_tile_scatter_kernel<<<ctas, kThreads, scatter_bytes, s>>>(
+      keys, n, chunk, num_blocks, magic, log2_bpt, tiles, totals, counts,
+      offsets, starts, payload);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || stages < 3) return static_cast<int>(err);
+  bloom_tile_or_kernel<kMasks><<<tiles, kThreads, size_t{64} << log2_bpt, s>>>(
+      words, num_blocks, log2_bpt, k, starts, payload);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// For comparison only (chip_smoke.py phase 2e): the PR 3 designs of K3 and
+// K5, and other designs of both.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+bloom_add_pr3_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
+                     int n, uint32_t num_blocks, int k) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t key = keys[i];
+  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
+  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
+  const uint32_t h3 = murmur3_u32(key, kSeedBlock) | 1u;
+  uint32_t* blk = words + static_cast<size_t>(h1 % num_blocks) * 16u;
+  for (int j = 0; j < k; ++j) {
+    const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
+    atomicOr(blk + (off >> 5), 1u << (off & 31u));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+hll_add_pr3_kernel(uint8_t* regs, int num_banks, int precision,
+                   const int32_t* __restrict__ bank,
+                   const uint32_t* __restrict__ keys,
+                   const uint8_t* __restrict__ valid, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  if (valid != nullptr && valid[i] == 0) return;
+  const int32_t b = bank[i];
+  if (b < 0 || b >= num_banks) return;
+  uint32_t bucket, rank;
+  hll_bucket_rank(keys[i], precision, &bucket, &rank);
+  atomic_max_u8(regs + (static_cast<size_t>(b) << precision) + bucket, rank);
+}
+
+template <int kLanes, bool kMatch, bool kGuess>
+void launch_hll_add(uint8_t* regs, int num_banks, int precision,
+                    const int32_t* bank, const uint32_t* keys,
+                    const uint8_t* valid, int n, cudaStream_t s) {
+  hll_add_kernel<kLanes, kMatch, kGuess>
+      <<<blocks_for((n + kLanes - 1) / kLanes), kThreads, 0, s>>>(
+          regs, num_banks, precision, bank, keys, valid, n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -423,13 +836,19 @@ int atp_fused_step(const void* wire, int bank_bytes, int key_bits, int lanes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch == nullptr: one thread per key; else the binned passes.
 int atp_bloom_add(void* words, const void* keys, int n,
-                  unsigned int num_blocks, int k, void* stream) {
-  if (n > 0) {
-    bloom_add_kernel<<<blocks_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint32_t*>(words), static_cast<const uint32_t*>(keys), n,
-        num_blocks, k);
+                  unsigned int num_blocks, int k, int log2_bpt, int chunk,
+                  void* scratch, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* w = static_cast<uint32_t*>(words);
+  const uint32_t* kk = static_cast<const uint32_t*>(keys);
+  if (n > 0 && scratch == nullptr) {
+    bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        w, kk, n, num_blocks, fastmod_magic(num_blocks), k);
+  } else if (n > 0) {
+    return launch_bloom_add<false>(w, kk, n, num_blocks, k, log2_bpt, chunk,
+                                   static_cast<uint32_t*>(scratch), s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -449,11 +868,11 @@ int atp_bloom_contains(const void* words, unsigned int num_blocks, int k,
 int atp_hll_add(void* regs, int num_banks, int precision, const void* bank,
                 const void* keys, const void* valid, int n, void* stream) {
   if (n > 0) {
-    hll_add_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+    launch_hll_add<1, false, false>(
         static_cast<uint8_t*>(regs), num_banks, precision,
         static_cast<const int32_t*>(bank), static_cast<const uint32_t*>(keys),
-        static_cast<const uint8_t*>(valid), n);
+        static_cast<const uint8_t*>(valid), n,
+        static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -473,6 +892,56 @@ int atp_cms_step(void* counts, int depth, unsigned int width,
         static_cast<const uint32_t*>(counts), depth, width,
         static_cast<const uint32_t*>(keys),
         static_cast<const uint8_t*>(mask), n, static_cast<uint32_t*>(est));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For comparison only: variant 0 = PR 3's K3; 2 = binned with one shared
+// atomicOr per distinct word of a key in the OR pass; 3 = the binned
+// memset and count only; 4 = the binned passes without the OR pass.
+int atp_cmp_bloom_add(void* words, const void* keys, int n,
+                      unsigned int num_blocks, int k, int log2_bpt, int chunk,
+                      void* scratch, void* stream, int variant) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* w = static_cast<uint32_t*>(words);
+  const uint32_t* kk = static_cast<const uint32_t*>(keys);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (variant == 0) {
+    bloom_add_pr3_kernel<<<blocks_for(n), kThreads, 0, s>>>(w, kk, n,
+                                                            num_blocks, k);
+  } else if (variant == 2) {
+    return launch_bloom_add<true>(w, kk, n, num_blocks, k, log2_bpt, chunk,
+                                  static_cast<uint32_t*>(scratch), s);
+  } else {
+    return launch_bloom_add<false>(w, kk, n, num_blocks, k, log2_bpt, chunk,
+                                   static_cast<uint32_t*>(scratch), s,
+                                   variant == 3 ? 1 : 2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For comparison only: variant 0 = PR 3's K5; 1-3 = loads hoisted, 1, 2
+// and 4 lanes per thread; 4 = 1 lane with the warp match; 5 = 1 lane whose
+// first CAS assumes a zero word.
+int atp_cmp_hll_add(void* regs, int num_banks, int precision,
+                    const void* bank, const void* keys, const void* valid,
+                    int n, void* stream, int variant) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* r = static_cast<uint8_t*>(regs);
+  const int32_t* b = static_cast<const int32_t*>(bank);
+  const uint32_t* kk = static_cast<const uint32_t*>(keys);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  switch (variant) {
+    case 0:
+      hll_add_pr3_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+          r, num_banks, precision, b, kk, v, n);
+      break;
+    case 1: launch_hll_add<1, false, false>(r, num_banks, precision, b, kk, v, n, s); break;
+    case 2: launch_hll_add<2, false, false>(r, num_banks, precision, b, kk, v, n, s); break;
+    case 3: launch_hll_add<4, false, false>(r, num_banks, precision, b, kk, v, n, s); break;
+    case 4: launch_hll_add<1, true, false>(r, num_banks, precision, b, kk, v, n, s); break;
+    default: launch_hll_add<1, false, true>(r, num_banks, precision, b, kk, v, n, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -100,18 +100,58 @@ def hll_histogram(regs: torch.Tensor, precision: int = 14) -> torch.Tensor:
 # K3: packed Bloom preload
 # ---------------------------------------------------------------------------
 
+# K3 cuts the filter into about this many tiles (4 per SM of an H100), of
+# at most 2^9 blocks (32 KB of shared memory) each, and hands each CTA of
+# its count and scatter passes between _K3_MIN_CHUNK and _K3_MAX_CHUNK
+# keys, in about _K3_CTAS CTAs (8 per SM) where that allows.
+_K3_TILES = 528
+_K3_MAX_LOG2_BLOCKS = 9
+_K3_MIN_CHUNK = 2048
+_K3_MAX_CHUNK = 8192
+_K3_CTAS = 1056
+# Below this many keys K3 runs one thread per key (see bloom_add).
+K3_BINNED_MIN_KEYS = 1 << 18
+
+
+def bloom_add_plan(n: int, num_blocks: int):
+    """(log2 blocks per tile, keys per CTA, scratch int32 words) of K3
+    for ``n`` keys into ``num_blocks`` 64-byte blocks."""
+    per_tile = -(-num_blocks // _K3_TILES)
+    log2_bpt = min(_K3_MAX_LOG2_BLOCKS, (per_tile - 1).bit_length())
+    tiles = -(-num_blocks // (1 << log2_bpt))
+    chunk = min(_K3_MAX_CHUNK, max(_K3_MIN_CHUNK, -(-n // _K3_CTAS)))
+    ctas = -(-n // chunk)
+    # totals[tiles], starts[tiles + 1], counts[ctas * tiles],
+    # offsets[ctas * tiles], payload[n] (csrc/sketch_kernels.cu, K3).
+    return log2_bpt, chunk, 2 * tiles + 1 + 2 * ctas * tiles + n
+
+
 def bloom_add(words: torch.Tensor, keys: torch.Tensor,
-              params: BloomParams) -> None:
+              params: BloomParams, *, binned: Optional[bool] = None) -> None:
     """OR every key's k probe bits into the packed filter, in place.
 
     Replaces the XLA program of ``bloom_add_packed`` /
     ``packed_or_scatter`` (attendance_tpu/models/bloom.py:223-271): XLA
     has no OR-scatter, so JAX sorted the probe words, OR-scanned runs of
     equal words and scattered each run once. Bound: bytes — read the
-    keys once and write the touched words (100k roster: 0.4 MB of keys,
-    138 KB of filter). Design: one thread per key hashes it three ways
-    and issues k ``atomicOr``s into one 64-byte block; OR is order-free,
-    so the words equal the sort/segment scheme's exactly.
+    keys once and read and write the touched words (100k roster: 0.4 MB
+    of keys, 138 KB of filter; 10M: 40 MB and 13.8 MB). Design: k global
+    ``atomicOr``s per key run at the card's L2 atomic rate, so a large
+    batch is binned by filter tile (``bloom_add_plan``): a count pass
+    reserves each CTA's range per tile with one global atomic per (CTA,
+    tile), a scatter pass sorts each CTA's keys by tile in shared memory
+    and writes each tile's run (the key's block and probe offsets) to
+    its range of a scratch buffer, and one CTA per tile ORs its keys'
+    bits into a shared-memory copy of the tile and writes the tile back
+    with 16-byte stores: a memset and three kernels. Those passes cost a
+    fixed chain of launches and scans that a small batch does not repay,
+    so the wrapper picks by batch size: below ``K3_BINNED_MIN_KEYS``
+    (2^18) keys one thread per key issues one global ``atomicOr`` per
+    distinct word of its block (about 6.5 of k = 8); ``binned`` forces
+    one path. Either is one launch in :data:`launches`. OR is
+    order-free, so the words equal the sort/segment scheme's exactly,
+    onto whatever the filter already holds. The filter must start
+    64-byte aligned.
     """
     _require(words.dtype == torch.int32 and words.dim() == 1
              and words.shape[0] == params.m_bits // 32,
@@ -124,12 +164,21 @@ def bloom_add(words: torch.Tensor, keys: torch.Tensor,
     _require_cuda(words, keys)
     _require(params.layout == "blocked",
              "the preload kernel implements the blocked layout only")
-    if keys.shape[0] == 0:
+    _require(words.data_ptr() % 64 == 0, "words must be 64-byte aligned")
+    n = keys.shape[0]
+    if n == 0:
         return
+    num_blocks = params.m_bits // BLOCK_BITS
+    if binned is None:
+        binned = n >= K3_BINNED_MIN_KEYS
+    log2_bpt, chunk, scratch_words = bloom_add_plan(n, num_blocks)
+    scratch = (torch.empty(scratch_words, dtype=torch.int32,
+                           device=words.device) if binned else None)
     with torch.cuda.device(words.device):
         rc = library().atp_bloom_add(
-            words.data_ptr(), keys.data_ptr(), keys.shape[0],
-            params.m_bits // BLOCK_BITS, params.k, _stream(words))
+            words.data_ptr(), keys.data_ptr(), n, num_blocks, params.k,
+            log2_bpt, chunk, None if scratch is None else scratch.data_ptr(),
+            _stream(words))
     _check_launch(rc, "atp_bloom_add")
     launches["bloom_add"] += 1
 

@@ -14,8 +14,16 @@ Phases (any failure exits non-zero):
      the floor), the plain version and, where one exists, a single
      PyTorch library call computing the same function (2a-2c: K1-K3 of
      the fused path, K2 on all four wires at 131,072 and at 1,048,576
-     lanes; 2d: K4-K6 of the temporal plane, K6 at both sizes on the
-     frames' roster ids and on the temporal traffic's hot-key mix);
+     lanes; 2a: K3 at the 100k and 10M rosters by both of its paths, one
+     thread per key and binned, each also onto a filter already holding
+     half the roster, timed into a zeroed filter (zero_ timed alone and
+     subtracted), with the 10M time's distance from its bound; 2d: K4-K6
+     of the temporal plane, K5 at a uniform shape and at the temporal
+     path's first window add (48 bucket rows, 8 hot keys), each timed
+     replayed and from its starting registers, K6 at both sizes on the
+     frames' roster ids and on the temporal traffic's hot-key mix; 2e:
+     PR 3's K3 and K5 and other designs of both, timed in turns beside
+     the kernels the wrappers launch);
   3. the main path: the ``fused`` verb's flow at its defaults (1,048,576
      events in 131,072-event frames, a 100k roster, 16 lectures, seed 0)
      with launch counters reset just before and read just after, checked
@@ -130,6 +138,35 @@ def temporal_frames(num_events: int, batch: int, num_lectures: int,
             cols["student_id"]).astype(np.uint32)
         frames.append(encode_planar_batch(cols))
     return roster, hot, frames
+
+
+def temporal_window_add(dev, num_lectures: int = 16):
+    """(bank, keys, valid) of the temporal path's first window add: the
+    131,072 keys of ``temporal_frames``' first frame (8 hot keys on 15%
+    of the lanes), their bank rows as a fresh 60 s ring assigns them
+    after the day rows, and K4's answer against the frames' roster."""
+    from attendance_tpu_torch.models import bloom
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.events import decode_planar_batch
+    from attendance_tpu_torch.temporal.buckets import period_micros
+    from attendance_tpu_torch.temporal.windows import BucketRing
+
+    roster, _, frames = temporal_frames(131_072, 131_072, num_lectures)
+    cols = decode_planar_batch(frames[0])
+    rows = iter(range(num_lectures, 1 << 20))
+    ring = BucketRing(period_micros(60), 256, lambda key: next(rows),
+                      lambda keys, banks: None)
+    banks, dropped, _ = ring.assign(cols["lecture_day"], cols["micros"])
+    check(dropped == 0, "temporal window add: a dropped lane")
+    params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
+    words = bloom.bloom_packed_init(params, dev)
+    kernels.bloom_add(words, torch.from_numpy(roster.view(np.int32)).to(dev),
+                      params)
+    keys = torch.from_numpy(
+        np.array(cols["student_id"], np.uint32).view(np.int32)).to(dev)
+    valid = kernels.bloom_contains(words, keys, params)
+    return (torch.from_numpy(np.ascontiguousarray(banks, np.int32)).to(dev),
+            keys, valid)
 
 
 def wire_of(cols, bank_bytes: int, lanes: int, dev):
@@ -279,6 +316,97 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     return launches
 
 
+def compare_designs(filters: dict, k5_shapes: dict, floor_ms: float) -> None:
+    """Phase 2e: the PR 3 designs of K3 and K5, and other designs of both,
+    against the kernels the wrappers launch, in turns (three rounds of a,
+    b, ..., ..., b, a), each held equal to its plain version first."""
+    import ctypes
+
+    from attendance_tpu_torch.models import hll
+    from attendance_tpu_torch.models.bloom import BLOCK_BITS
+    from attendance_tpu_torch.ops import build, kernels
+
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib = build.library()
+    for name, argtypes in {
+            "atp_cmp_bloom_add": (P, P, I, U, I, I, I, P, P, I),
+            "atp_cmp_hll_add": (P, I, I, P, P, P, I, P, I)}.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def turns(label, fns, minus_ms=0.0):
+        order = (list(fns) + list(fns)[::-1]) * 3
+        got = {}
+        for name in order:
+            got.setdefault(name, []).append(kernel_ms(fns[name]) - minus_ms)
+        print(f"compare {label} (ms, {len(order) // len(fns)} samples each "
+              f"in turns {list(fns)} forward and back; floor {floor_ms}): "
+              + "; ".join(f"{k} {min(v)}-{max(v)} {v}"
+                          for k, v in got.items()))
+
+    for capacity, (params, roster, want) in filters.items():
+        nb = params.m_bits // BLOCK_BITS
+        n = roster.shape[0]
+        log2_bpt, chunk, scratch_words = kernels.bloom_add_plan(n, nb)
+        words = torch.zeros_like(want)
+        fns = {}
+        for label, variant in (("pr3", 0), ("per_key", False),
+                               ("binned", True), ("binned_masks", 2),
+                               ("binned_count_only", 3),
+                               ("binned_no_or_pass", 4)):
+            if isinstance(variant, bool):
+                def fn(binned=variant):
+                    words.zero_()
+                    kernels.bloom_add(words, roster, params, binned=binned)
+            else:
+                def fn(variant=variant, label=label):
+                    words.zero_()
+                    scratch = torch.empty(scratch_words, dtype=torch.int32,
+                                          device=words.device)
+                    check(lib.atp_cmp_bloom_add(
+                        words.data_ptr(), roster.data_ptr(), n, nb, params.k,
+                        log2_bpt, chunk, scratch.data_ptr(), stream(),
+                        variant) == 0, f"K3 {label} launch")
+            fn()
+            torch.cuda.synchronize()
+            check(variant in (3, 4) or torch.equal(words, want),
+                  f"K3 {label} at {capacity}")
+            fns[label] = fn
+        zero_ms = kernel_ms(lambda: words.zero_())
+        turns(f"K3 into a zeroed filter keys={capacity} (zero_ {zero_ms} "
+              "subtracted)", fns, zero_ms)
+
+    for shape, (bank, keys, valid, start) in k5_shapes.items():
+        want = start.clone()
+        hll.hll_add_plain(want, bank, keys, valid, 14)
+        regs = start.clone()
+        replay, fresh = {}, {}
+        for label, variant in (("pr3", 0), ("new", None), ("lanes2", 2),
+                               ("lanes4", 3), ("match", 4), ("guess", 5)):
+            if variant is None:
+                def fn():
+                    kernels.hll_add(regs, bank, keys, valid, 14)
+            else:
+                def fn(variant=variant, label=label):
+                    check(lib.atp_cmp_hll_add(
+                        regs.data_ptr(), 512, 14, bank.data_ptr(),
+                        keys.data_ptr(), valid.data_ptr(), keys.shape[0],
+                        stream(), variant) == 0, f"K5 {label} launch")
+            regs.copy_(start)
+            fn()
+            torch.cuda.synchronize()
+            check(torch.equal(regs, want), f"K5 {label} shape={shape}")
+            replay[label] = fn
+            fresh[label] = lambda fn=fn: (regs.copy_(start), fn())
+        turns(f"K5 replayed shape={shape}", replay)
+        restore_ms = kernel_ms(lambda: regs.copy_(start))
+        turns(f"K5 from the start shape={shape} (restore {restore_ms} "
+              "subtracted)", fresh, restore_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -317,6 +445,9 @@ def main() -> int:
     filters = {}  # capacity -> (params, roster, words), for K4 below
 
     # -- 2a. K3: packed Bloom preload -----------------------------------------
+    # Timed into a zeroed filter, as a real preload runs: each replay
+    # zeroes the words and then preloads the roster; zero_() alone is
+    # timed the same way and subtracted.
     rng = np.random.default_rng(0)
     for capacity in (100_000, 10_000_000):
         params = bloom.derive_bloom_params(capacity, 0.01, "blocked")
@@ -330,6 +461,16 @@ def main() -> int:
         torch.cuda.synchronize()
         err = int((words != plain).sum())
         check(err == 0, f"K3 at {capacity} keys: {err} words differ")
+        # Onto a filter that already holds other keys, by either path: the
+        # OR keeps them.
+        half = capacity // 2
+        for binned in (False, True):
+            twice = bloom.bloom_packed_init(params, dev)
+            kernels.bloom_add(twice, roster[:half], params, binned=binned)
+            kernels.bloom_add(twice, roster[half:], params, binned=binned)
+            torch.cuda.synchronize()
+            check(torch.equal(twice, plain), f"K3 binned={binned} at "
+                  f"{capacity} keys: a preload in two halves differs")
         members = roster[torch.randperm(capacity, device=dev)[:100_000]]
         check(bool(bloom.bloom_contains_words(words, members, params).all()),
               f"K3 at {capacity} keys: a member reads absent")
@@ -339,17 +480,35 @@ def main() -> int:
             words, others, params).float().mean())
         check(fpr <= 0.01, f"K3 at {capacity} keys: FPR {fpr}")
         filters[capacity] = (params, roster, words)
-        ms = kernel_ms(lambda: kernels.bloom_add(words, roster, params))
-        plain_ms = eager_ms(
-            lambda: bloom.bloom_add_packed_plain(plain, roster, params), 3)
         touched = int(torch.unique(bloom.bloom_positions(
             roster, params) >> 5).numel())
         b_ms, b_by = bound_ms(4 * capacity + 8 * touched,
                               capacity * (3 * 20 + params.k * 5))
-        print(f"K3 bloom_add keys={capacity} m_bits={params.m_bits} "
-              f"ms={ms} above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
-              f"bound_ms={b_ms} ({b_by}) "
-              f"fpr={fpr} max_abs_err=0")
+        zero_ms = kernel_ms(lambda: words.zero_())
+        # Both paths (one thread per key, binned), each held against the
+        # plain version; the wrapper's pick by batch size is the row's.
+        picked = capacity >= kernels.K3_BINNED_MIN_KEYS
+        for binned in (False, True):
+            both_ms = kernel_ms(lambda: (
+                words.zero_(),
+                kernels.bloom_add(words, roster, params, binned=binned)))
+            torch.cuda.synchronize()
+            check(torch.equal(words, plain), f"K3 binned={binned} at "
+                  f"{capacity} keys: the timed preloads differ")
+            if binned == picked:
+                ms = both_ms - zero_ms
+            print(f"K3 bloom_add keys={capacity} m_bits={params.m_bits} "
+                  f"binned={binned} (picked: {binned == picked}) into a "
+                  f"zeroed filter ms={both_ms - zero_ms} (zero_ and K3 "
+                  f"{both_ms}, zero_ alone {zero_ms}) above_floor_ms="
+                  f"{both_ms - zero_ms - floor_ms} bound_ms={b_ms} ({b_by}) "
+                  f"over_bound_ms={both_ms - zero_ms - b_ms} times_bound="
+                  f"{(both_ms - zero_ms) / b_ms} max_abs_err=0")
+        plain_ms = eager_ms(
+            lambda: bloom.bloom_add_packed_plain(plain, roster, params), 3)
+        print(f"K3 bloom_add keys={capacity} picked path ms={ms} "
+              f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
+              f"over_bound_ms={ms - b_ms} times_bound={ms / b_ms} fpr={fpr}")
         if capacity == 100_000:
             rows["bloom_add"] = dict(
                 replaces="attendance_tpu/models/bloom.py:260", max_abs_err=0,
@@ -490,51 +649,78 @@ def main() -> int:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
-    # K5: the frame's keys into 512 banks at p=14 (8 MiB), masked by
-    # their Bloom answer (about 10% of the lanes invalid).
+    # K5 at two shapes into 512 banks at p=14 (8 MiB), each lane masked
+    # by its Bloom answer. "uniform": the frame's keys (about 10% invalid)
+    # on banks drawn uniformly over the 512 rows of registers already
+    # holding 1M keys. "temporal": the temporal path's first window add
+    # (temporal_window_add: about 48 bucket rows, 8 hot keys on 15% of
+    # the lanes) into zeroed rows. Timed twice: replayed on the registers
+    # the first launch left (no register rises: what PR 2-3 timed), and
+    # from the starting registers (each replay restores them first; the
+    # restore alone is timed the same way and subtracted).
     keys = torch.from_numpy(
         np.array(frame["student_id"]).view(np.int32)).to(dev)
-    valid = kernels.bloom_contains(start.bloom_bits, keys, params)
-    bank = torch.from_numpy(rng.integers(0, 512, lanes).astype(
-        np.int32)).to(dev)
-    regs = hll.hll_init(512, 14, dev)
-    hll.hll_add(regs, torch.from_numpy(rng.integers(
+    uniform_regs = hll.hll_init(512, 14, dev)
+    hll.hll_add(uniform_regs, torch.from_numpy(rng.integers(
         0, 512, 1 << 20, dtype=np.int32)).to(dev),
         torch.from_numpy(rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64)
                          .astype(np.uint32).view(np.int32)).to(dev), None, 14)
-    a, b = regs.clone(), regs.clone()
-    kernels.hll_add(a, bank, keys, valid, 14)
-    hll.hll_add_plain(b, bank, keys, valid, 14)
-    torch.cuda.synchronize()
-    err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-    check(err == 0, f"K5: register max abs err {err}")
-    check(not torch.equal(a, regs), "K5 changed no register")
-    ms = kernel_ms(lambda: kernels.hll_add(a, bank, keys, valid, 14))
-    plain_ms = eager_ms(lambda: hll.hll_add_plain(b, bank, keys, valid, 14))
-    bucket, rank = hll.hll_bucket_rank(keys, 14)
-    flat_idx = (bank.to(torch.int64) * 16384 + bucket)[valid]
-    flat_rank = rank[valid].to(torch.uint8)
-    lib_regs = regs.clone().view(-1)
-    library_ms = eager_ms(lambda: lib_regs.scatter_reduce_(
-        0, flat_idx, flat_rank, reduce="amax"), 20)
-    check(torch.equal(lib_regs.view(512, 16384), a),
-          "K5 disagrees with scatter_reduce_(amax)")
-    kept = int(valid.sum())
-    b_ms, b_by = bound_ms(9 * lanes + 2 * int(torch.unique(flat_idx).numel()),
-                          lanes * 5 + kept * (2 * 20 + 10))
-    print(f"K5 hll_add lanes={lanes} banks=512 kept={kept} ms={ms} "
-          f"above_floor_ms={ms - floor_ms} "
-          f"plain_ms={plain_ms} scatter_reduce_amax_uint8_ms={library_ms} "
-          f"bound_ms={b_ms} ({b_by}) max_abs_err={err}")
-    rows["hll_add"] = dict(
-        replaces="attendance_tpu/pipeline/fast_path.py:991",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms)
+    k5_shapes = {
+        "uniform": (torch.from_numpy(rng.integers(0, 512, lanes).astype(
+            np.int32)).to(dev), keys,
+            kernels.bloom_contains(start.bloom_bits, keys, params),
+            uniform_regs),
+        "temporal": (*temporal_window_add(dev), hll.hll_init(512, 14, dev))}
+    for shape, (bank, keys5, valid, regs) in k5_shapes.items():
+        a, b = regs.clone(), regs.clone()
+        kernels.hll_add(a, bank, keys5, valid, 14)
+        hll.hll_add_plain(b, bank, keys5, valid, 14)
+        torch.cuda.synchronize()
+        err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+        check(err == 0, f"K5 {shape}: register max abs err {err}")
+        check(not torch.equal(a, regs), f"K5 {shape} changed no register")
+        ms = kernel_ms(lambda: kernels.hll_add(a, bank, keys5, valid, 14))
+        restore_ms = kernel_ms(lambda: a.copy_(regs))
+        fresh_ms = kernel_ms(lambda: (
+            a.copy_(regs), kernels.hll_add(a, bank, keys5, valid, 14)))
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"K5 {shape}: the timed adds differ")
+        plain_ms = eager_ms(
+            lambda: hll.hll_add_plain(b, bank, keys5, valid, 14))
+        bucket, rank = hll.hll_bucket_rank(keys5, 14)
+        flat_idx = (bank.to(torch.int64) * 16384 + bucket)[valid]
+        flat_rank = rank[valid].to(torch.uint8)
+        lib_regs = regs.clone().view(-1)
+        library_ms = eager_ms(lambda: lib_regs.scatter_reduce_(
+            0, flat_idx, flat_rank, reduce="amax"), 20)
+        check(torch.equal(lib_regs.view(512, 16384), a),
+              f"K5 {shape} disagrees with scatter_reduce_(amax)")
+        kept = int(valid.sum())
+        distinct = int(torch.unique(flat_idx).numel())
+        b_ms, b_by = bound_ms(9 * lanes + 2 * distinct,
+                              lanes * 5 + kept * (2 * 20 + 10))
+        print(f"K5 hll_add shape={shape} lanes={lanes} banks=512 "
+              f"rows={int(torch.unique(bank).numel())} kept={kept} "
+              f"distinct_registers={distinct} replayed ms={ms} "
+              f"above_floor_ms={ms - floor_ms} from the start ms="
+              f"{fresh_ms - restore_ms} (restore and K5 {fresh_ms}, restore "
+              f"alone {restore_ms}) plain_ms={plain_ms} "
+              f"scatter_reduce_amax_uint8_ms={library_ms} bound_ms={b_ms} "
+              f"({b_by}) max_abs_err={err}")
+        if shape == "uniform":
+            rows["hll_add"] = dict(
+                replaces="attendance_tpu/pipeline/fast_path.py:991",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+    # -- 2e. the PR 3 designs of K3 and K5 beside the new ones ---------------
+    compare_designs(filters, k5_shapes, floor_ms)
+
     # The row clear of an evicted bucket stays one index_fill_ (a memset
     # of a whole 16 KiB row, as the JAX scatter-set _t_clear was).
     row = torch.tensor([7], dtype=torch.int64, device=dev)
-    clear_ms = kernel_ms(lambda: a.index_fill_(0, row, 0))
-    check(not bool(a[7].any()), "index_fill_ left a register set")
+    check(bool(uniform_regs[7].any()), "row 7 holds no register")
+    clear_ms = kernel_ms(lambda: uniform_regs.index_fill_(0, row, 0))
+    check(not bool(uniform_regs[7].any()), "index_fill_ left a register set")
     c_ms, c_by = bound_ms(16384 + 8, 0)
     print(f"B11b index_fill_ rows=1 banks=512 ms={clear_ms} "
           f"bound_ms={c_ms} ({c_by})")

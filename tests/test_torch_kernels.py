@@ -69,6 +69,68 @@ def test_bloom_add_kernel_matches_plain(capacity, cuda):
     torch.cuda.synchronize()
     assert torch.equal(words, plain)
     assert bloom.bloom_contains_words(words, roster[:100_000], params).all()
+    # The path the wrapper did not pick gives the same words.
+    other = bloom.bloom_packed_init(params, cuda)
+    kernels.bloom_add(other, roster, params,
+                      binned=capacity < kernels.K3_BINNED_MIN_KEYS)
+    torch.cuda.synchronize()
+    assert torch.equal(other, plain)
+
+
+def _keys_in_blocks(params, blocks, n, seed):
+    """n keys (int32) whose Bloom block (h1 % num_blocks) is in
+    ``blocks``, drawn from seeded random keys."""
+    rng = np.random.default_rng(seed)
+    got = []
+    while sum(map(len, got)) < n:
+        pool = _keys(rng, 1 << 20)
+        block = bloom.bloom_positions(pool, params)[:, 0] >> 9
+        got.append(pool[torch.isin(block, torch.tensor(blocks))])
+    return torch.cat(got)[:n]
+
+
+def _bloom_add_case(case):
+    """(params, keys, keys already in the filter) of one K3 case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
+    if case == "one_block":
+        params = bloom.derive_bloom_params(10, 0.01, "blocked")
+        return params, _keys(rng, 5000), None
+    if case == "one_tile":
+        # Every key's block in tile 5 of the binned path's tiles.
+        log2_bpt, _, _ = kernels.bloom_add_plan(
+            20_000, params.m_bits // bloom.BLOCK_BITS)
+        tile = list(range(5 << log2_bpt, 6 << log2_bpt))
+        return params, _keys_in_blocks(params, tile, 20_000, 1), None
+    if case == "duplicates":
+        return params, _keys(rng, 500)[rng.integers(0, 500, 300_000)], None
+    if case.startswith("n="):
+        return params, _keys(rng, int(case[2:])), None
+    assert case == "onto_filter"
+    return params, _keys(rng, 60_000), _keys(rng, 60_000)
+
+
+@pytest.mark.parametrize("binned", [False, True])
+@pytest.mark.parametrize("case", ["one_block", "one_tile", "duplicates",
+                                  "n=1", "n=255", "n=257", "onto_filter"])
+def test_bloom_add_kernel_cases(case, binned, cuda):
+    """K3 by each path on what its structures stress: one block, every
+    key in one tile, repeated keys, batches around one CTA, and a
+    preload onto a filter that already holds other keys."""
+    params, keys, held = _bloom_add_case(case)
+    keys = keys.to(cuda)
+    words = bloom.bloom_packed_init(params, cuda)
+    if held is not None:
+        bloom.bloom_add_packed_plain(words, held.to(cuda), params)
+        assert words.any()
+    plain = words.clone()
+    before = kernels.launches["bloom_add"]
+    kernels.bloom_add(words, keys, params, binned=binned)
+    bloom.bloom_add_packed_plain(plain, keys, params)
+    torch.cuda.synchronize()
+    assert kernels.launches["bloom_add"] == before + 1
+    assert torch.equal(words, plain)
+    assert bloom.bloom_contains_words(words, keys, params).all()
 
 
 @pytest.mark.parametrize("bank_bytes", [0, 1, 2, 4])
@@ -221,6 +283,69 @@ def test_hll_add_kernel_matches_plain(masked, cuda):
     hll.hll_add_plain(twin, bank, keys, valid, 14)
     torch.cuda.synchronize()
     assert torch.equal(regs, twin)
+
+
+def _hll_add_case(case, cuda):
+    """(start registers, bank, keys, valid) of one K5 case, 512 banks."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    regs = hll.hll_init(512, 14, cuda)
+    if case == "temporal_hot_mix":
+        # The temporal window add's shape: 48 bucket rows after 16 day
+        # rows, 8 hot roster keys on 15% of the lanes, 10% invalid.
+        roster = rng.choice(400_000, 100_000, replace=False).astype(np.uint32)
+        hot = rng.choice(roster, 8, replace=False)
+        keys = np.where(rng.random(LANES) < 0.15,
+                        hot[rng.integers(0, 8, LANES)],
+                        rng.choice(roster, LANES)).astype(np.uint32)
+        keys = torch.from_numpy(keys.view(np.int32))
+        bank = torch.from_numpy(rng.integers(16, 64, LANES).astype(np.int32))
+        valid = torch.from_numpy(rng.random(LANES) >= 0.1)
+    elif case == "all_masked":
+        regs = _regs(512, cuda, events=1 << 16, seed=4)
+        keys = _keys(rng, LANES)
+        bank = torch.from_numpy(rng.integers(0, 512, LANES).astype(np.int32))
+        valid = torch.zeros(LANES, dtype=torch.bool)
+    elif case == "one_lane":
+        keys = _keys(rng, 1)
+        bank = torch.tensor([300], dtype=torch.int32)
+        valid = torch.ones(1, dtype=torch.bool)
+    else:
+        assert case == "one_word"
+        # Many lanes on one 32-bit register word (the 4 registers of
+        # buckets 4w..4w+3) of one bank, with many different ranks.
+        pool = _keys(rng, 1 << 22)
+        bucket, _ = hll.hll_bucket_rank(pool, 14)
+        keys = pool[(bucket >> 2) == 777][:4096]
+        keys = keys[torch.from_numpy(rng.integers(0, len(keys), LANES))]
+        bank = torch.full((LANES,), 9, dtype=torch.int32)
+        valid = torch.from_numpy(rng.random(LANES) >= 0.1)
+    return regs, bank.to(cuda), keys.to(cuda), valid.to(cuda)
+
+
+@pytest.mark.parametrize("case", ["temporal_hot_mix", "all_masked",
+                                  "one_lane", "one_word"])
+def test_hll_add_kernel_cases(case, cuda):
+    """K5 on what its lanes stress: the temporal hot-key mix, no lane
+    kept, one lane, and many lanes maxing into one register word."""
+    regs, bank, keys, valid = _hll_add_case(case, cuda)
+    twin = regs.clone()
+    start = regs.clone()
+    before = kernels.launches["hll_add"]
+    kernels.hll_add(regs, bank, keys, valid, 14)
+    hll.hll_add_plain(twin, bank, keys, valid, 14)
+    torch.cuda.synchronize()
+    assert kernels.launches["hll_add"] == before + 1
+    assert torch.equal(regs, twin)
+    changed = int((regs != start).sum())
+    if case == "all_masked":
+        assert changed == 0
+    elif case == "one_word":
+        assert 1 <= changed <= 4
+        _, rank = hll.hll_bucket_rank(keys[valid], 14)
+        assert int(regs.max()) == int(rank.max())
+        assert len(torch.unique(rank)) > 4
+    else:
+        assert changed >= 1
 
 
 @pytest.mark.parametrize("masked", [True, False])
