@@ -468,10 +468,10 @@ __device__ __forceinline__ void or_block_probes(uint32_t* blk, uint32_t h2,
   }
 }
 
-// K3 for a small batch (the wrapper picks it below 2^18 keys, where the
-// binned passes' fixed cost of chained launches and scans is more than
-// the atomics they save): one thread per key, a division-free block
-// index, and one global atomicOr per distinct word of the key.
+// K3 for a small batch (the wrapper picks it below K3_BINNED_MIN_KEYS,
+// where the binned passes' fixed cost of chained launches and scans is
+// more than the atomics they save): one thread per key, a division-free
+// block index, and one global atomicOr per distinct word of the key.
 __global__ void __launch_bounds__(kThreads)
 bloom_add_keys_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
                        int n, uint32_t num_blocks, uint64_t magic, int k) {
@@ -488,7 +488,6 @@ bloom_add_keys_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
 // Payloads a thread loads before it uses any, in the OR pass.
 constexpr int kPayloadUnroll = 8;
 
-template <bool kMasks>
 __global__ void __launch_bounds__(kThreads)
 bloom_tile_or_kernel(uint32_t* words, uint32_t num_blocks, int log2_bpt,
                      int k, const uint32_t* __restrict__ starts,
@@ -517,13 +516,12 @@ bloom_tile_or_kernel(uint32_t* words, uint32_t num_blocks, int log2_bpt,
         const uint32_t local = p[u] & ((1u << kPayloadBlockBits) - 1u);
         const uint32_t h2 = (p[u] >> kPayloadBlockBits) & 511u;
         const uint32_t h3 = (p[u] >> (kPayloadBlockBits + 9)) & 511u;
-        if (kMasks) {
-          or_block_probes(tile32 + local * 16u, h2, h3, k);
-        } else {
-          for (int j = 0; j < k; ++j) {
-            const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
-            atomicOr(tile32 + local * 16u + (off >> 5), 1u << (off & 31u));
-          }
+        // One shared atomicOr per probe: merging a key's probes per word
+        // first (as the per-key path does for its global atomics) costs
+        // more here than the shared atomics it saves (PERF.md).
+        for (int j = 0; j < k; ++j) {
+          const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
+          atomicOr(tile32 + local * 16u + (off >> 5), 1u << (off & 31u));
         }
       }
     }
@@ -551,119 +549,32 @@ bloom_contains_kernel(const uint32_t* __restrict__ words, uint32_t num_blocks,
 }
 
 // ---------------------------------------------------------------------------
-// K5: kLanes lanes per thread. A lane is dropped when its valid byte is 0
+// K5: one thread per lane. A lane is dropped when its valid byte is 0
 // (valid may be null: every lane counts) or its bank is < 0 or past the
 // array; otherwise its rank is maxed into its register with a 32-bit CAS
-// loop. The valid byte, the bank and the key are loaded together and
-// before any of them is looked at, so they cost one memory trip; then the
-// register word is read and, only if the rank is higher, swapped. With
-// kMatch, lanes of a warp that hit one register word first fold their
-// per-byte maxima by shuffles (one CAS loop per distinct word); with
-// kGuess the first CAS assumes a zero word instead of reading it.
+// loop (atomic_max_u8, as K2). The valid byte, the bank and the key are
+// loaded together, before any of them is looked at, so they cost one
+// memory trip; then the register word is read and, only if the rank is
+// higher, swapped. 2 or 4 lanes per thread and a warp match that folds
+// the lanes on one register word were slower at every shape measured; a
+// first CAS on an assumed zero word was faster into fresh registers but
+// slower where they already held the ranks (PERF.md).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void atomic_max_bytes(uint32_t* word, uint32_t val,
-                                                 uint32_t old) {
-  for (;;) {
-    const uint32_t next = __vmaxu4(old, val);
-    if (next == old) return;
-    const uint32_t seen = atomicCAS(word, old, next);
-    if (seen == old) return;
-    old = seen;
-  }
-}
-
-// Per-byte max of ``x`` over the lanes in ``peers`` (lanes that share a
-// register word), left in the lowest of them; every lane of the warp
-// calls it. Log-step fold over the peers in lane order.
-__device__ __forceinline__ uint32_t fold_peers(uint32_t peers, uint32_t x) {
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  uint32_t rel = __popc(peers & ((1u << lane) - 1u));
-  peers &= 0xFFFFFFFEu << lane;
-  while (__any_sync(0xFFFFFFFFu, peers != 0u)) {
-    const int next = __ffs(peers);
-    const uint32_t y = __shfl_sync(0xFFFFFFFFu, x, (next - 1) & 31);
-    if (next) x = __vmaxu4(x, y);
-    peers &= ~__ballot_sync(0xFFFFFFFFu, rel & 1u);
-    rel >>= 1;
-  }
-  return x;
-}
-
-template <int kLanes, bool kMatch, bool kGuess>
 __global__ void __launch_bounds__(kThreads)
 hll_add_kernel(uint8_t* regs, int num_banks, int precision,
                const int32_t* __restrict__ bank,
                const uint32_t* __restrict__ keys,
                const uint8_t* __restrict__ valid, int n) {
-  const int first = (blockIdx.x * kThreads + threadIdx.x) * kLanes;
-  uint32_t key[kLanes];
-  int32_t b[kLanes];
-  uint32_t ok[kLanes];
-  bool whole = false;
-  if constexpr (kLanes == 2) {
-    whole = first + 2 <= n;
-    if (whole) {
-      const uint2 k2 = *reinterpret_cast<const uint2*>(keys + first);
-      const int2 b2 = *reinterpret_cast<const int2*>(bank + first);
-      const uint32_t v2 = valid != nullptr
-          ? *reinterpret_cast<const uint16_t*>(valid + first) : 0x0101u;
-      key[0] = k2.x;
-      key[1] = k2.y;
-      b[0] = b2.x;
-      b[1] = b2.y;
-      ok[0] = v2 & 0xFFu;
-      ok[1] = v2 >> 8;
-    }
-  } else if constexpr (kLanes == 4) {
-    whole = first + 4 <= n;
-    if (whole) {
-      const uint4 k4 = *reinterpret_cast<const uint4*>(keys + first);
-      const int4 b4 = *reinterpret_cast<const int4*>(bank + first);
-      const uint32_t v4 = valid != nullptr
-          ? *reinterpret_cast<const uint32_t*>(valid + first) : 0x01010101u;
-      key[0] = k4.x;
-      key[1] = k4.y;
-      key[2] = k4.z;
-      key[3] = k4.w;
-      b[0] = b4.x;
-      b[1] = b4.y;
-      b[2] = b4.z;
-      b[3] = b4.w;
-#pragma unroll
-      for (int l = 0; l < 4; ++l) ok[l] = (v4 >> (8 * l)) & 0xFFu;
-    }
-  }
-  if (!whole) {
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) {
-      const int i = first + l;
-      key[l] = i < n ? keys[i] : 0u;
-      b[l] = i < n ? bank[i] : -1;
-      ok[l] = i < n && (valid == nullptr || valid[i] != 0) ? 1u : 0u;
-    }
-  }
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    const bool keep = ok[l] != 0u && b[l] >= 0 && b[l] < num_banks;
-    uint32_t bucket, rank;
-    hll_bucket_rank(key[l], precision, &bucket, &rank);
-    const size_t at = (static_cast<size_t>(keep ? b[l] : 0) << precision) +
-                      bucket;
-    uint32_t* word = reinterpret_cast<uint32_t*>(regs + (at & ~size_t{3}));
-    uint32_t val = rank << (8u * static_cast<uint32_t>(at & 3u));
-    if (kMatch) {
-      const uint32_t peers = __match_any_sync(
-          0xFFFFFFFFu, keep ? static_cast<unsigned long long>(at >> 2)
-                            : ~0ull);
-      val = fold_peers(peers, val);
-      if (!keep || static_cast<int>(threadIdx.x & 31) != __ffs(peers) - 1) {
-        continue;
-      }
-    }
-    if (!keep) continue;
-    atomic_max_bytes(word, val,
-                     kGuess ? 0u : *reinterpret_cast<volatile uint32_t*>(word));
-  }
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t key = i < n ? keys[i] : 0u;
+  const int32_t b = i < n ? bank[i] : -1;
+  const bool ok = i < n && (valid == nullptr || valid[i] != 0);
+  // Hashed before the lane is judged, so that the key's load is not moved
+  // below the check into a second trip.
+  uint32_t bucket, rank;
+  hll_bucket_rank(key, precision, &bucket, &rank);
+  if (!ok || b < 0 || b >= num_banks) return;
+  atomic_max_u8(regs + (static_cast<size_t>(b) << precision) + bucket, rank);
 }
 
 // ---------------------------------------------------------------------------
@@ -719,12 +630,11 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-// K3's four steps on one stream (see above). stages < 3 stops early (for
-// timing the steps apart).
-template <bool kMasks>
+// K3's binned path: the memset and three kernels on one stream (see
+// above).
 int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
                      uint32_t num_blocks, int k, int log2_bpt, int chunk,
-                     uint32_t* scratch, cudaStream_t s, int stages = 3) {
+                     uint32_t* scratch, cudaStream_t s) {
   const int tiles =
       static_cast<int>((num_blocks + (1u << log2_bpt) - 1u) >> log2_bpt);
   const int ctas = (n + chunk - 1) / chunk;
@@ -741,7 +651,7 @@ int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
       keys, n, chunk, num_blocks, magic, log2_bpt, tiles, totals, counts,
       offsets);
   err = cudaGetLastError();
-  if (err != cudaSuccess || stages < 2) return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t scatter_bytes =
       sizeof(uint32_t) * (3 * static_cast<size_t>(tiles) + 2 + chunk);
   if (scatter_bytes > 48 * 1024) {
@@ -754,54 +664,10 @@ int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
       keys, n, chunk, num_blocks, magic, log2_bpt, tiles, totals, counts,
       offsets, starts, payload);
   err = cudaGetLastError();
-  if (err != cudaSuccess || stages < 3) return static_cast<int>(err);
-  bloom_tile_or_kernel<kMasks><<<tiles, kThreads, size_t{64} << log2_bpt, s>>>(
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bloom_tile_or_kernel<<<tiles, kThreads, size_t{64} << log2_bpt, s>>>(
       words, num_blocks, log2_bpt, k, starts, payload);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// For comparison only (chip_smoke.py phase 2e): the PR 3 designs of K3 and
-// K5, and other designs of both.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-bloom_add_pr3_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
-                     int n, uint32_t num_blocks, int k) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t key = keys[i];
-  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
-  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
-  const uint32_t h3 = murmur3_u32(key, kSeedBlock) | 1u;
-  uint32_t* blk = words + static_cast<size_t>(h1 % num_blocks) * 16u;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t off = (h2 + static_cast<uint32_t>(j) * h3) & 511u;
-    atomicOr(blk + (off >> 5), 1u << (off & 31u));
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-hll_add_pr3_kernel(uint8_t* regs, int num_banks, int precision,
-                   const int32_t* __restrict__ bank,
-                   const uint32_t* __restrict__ keys,
-                   const uint8_t* __restrict__ valid, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (valid != nullptr && valid[i] == 0) return;
-  const int32_t b = bank[i];
-  if (b < 0 || b >= num_banks) return;
-  uint32_t bucket, rank;
-  hll_bucket_rank(keys[i], precision, &bucket, &rank);
-  atomic_max_u8(regs + (static_cast<size_t>(b) << precision) + bucket, rank);
-}
-
-template <int kLanes, bool kMatch, bool kGuess>
-void launch_hll_add(uint8_t* regs, int num_banks, int precision,
-                    const int32_t* bank, const uint32_t* keys,
-                    const uint8_t* valid, int n, cudaStream_t s) {
-  hll_add_kernel<kLanes, kMatch, kGuess>
-      <<<blocks_for((n + kLanes - 1) / kLanes), kThreads, 0, s>>>(
-          regs, num_banks, precision, bank, keys, valid, n);
 }
 
 }  // namespace
@@ -847,8 +713,8 @@ int atp_bloom_add(void* words, const void* keys, int n,
     bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0, s>>>(
         w, kk, n, num_blocks, fastmod_magic(num_blocks), k);
   } else if (n > 0) {
-    return launch_bloom_add<false>(w, kk, n, num_blocks, k, log2_bpt, chunk,
-                                   static_cast<uint32_t*>(scratch), s);
+    return launch_bloom_add(w, kk, n, num_blocks, k, log2_bpt, chunk,
+                            static_cast<uint32_t*>(scratch), s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -868,11 +734,11 @@ int atp_bloom_contains(const void* words, unsigned int num_blocks, int k,
 int atp_hll_add(void* regs, int num_banks, int precision, const void* bank,
                 const void* keys, const void* valid, int n, void* stream) {
   if (n > 0) {
-    launch_hll_add<1, false, false>(
+    hll_add_kernel<<<blocks_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint8_t*>(regs), num_banks, precision,
         static_cast<const int32_t*>(bank), static_cast<const uint32_t*>(keys),
-        static_cast<const uint8_t*>(valid), n,
-        static_cast<cudaStream_t>(stream));
+        static_cast<const uint8_t*>(valid), n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -892,56 +758,6 @@ int atp_cms_step(void* counts, int depth, unsigned int width,
         static_cast<const uint32_t*>(counts), depth, width,
         static_cast<const uint32_t*>(keys),
         static_cast<const uint8_t*>(mask), n, static_cast<uint32_t*>(est));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// For comparison only: variant 0 = PR 3's K3; 2 = binned with one shared
-// atomicOr per distinct word of a key in the OR pass; 3 = the binned
-// memset and count only; 4 = the binned passes without the OR pass.
-int atp_cmp_bloom_add(void* words, const void* keys, int n,
-                      unsigned int num_blocks, int k, int log2_bpt, int chunk,
-                      void* scratch, void* stream, int variant) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* w = static_cast<uint32_t*>(words);
-  const uint32_t* kk = static_cast<const uint32_t*>(keys);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (variant == 0) {
-    bloom_add_pr3_kernel<<<blocks_for(n), kThreads, 0, s>>>(w, kk, n,
-                                                            num_blocks, k);
-  } else if (variant == 2) {
-    return launch_bloom_add<true>(w, kk, n, num_blocks, k, log2_bpt, chunk,
-                                  static_cast<uint32_t*>(scratch), s);
-  } else {
-    return launch_bloom_add<false>(w, kk, n, num_blocks, k, log2_bpt, chunk,
-                                   static_cast<uint32_t*>(scratch), s,
-                                   variant == 3 ? 1 : 2);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// For comparison only: variant 0 = PR 3's K5; 1-3 = loads hoisted, 1, 2
-// and 4 lanes per thread; 4 = 1 lane with the warp match; 5 = 1 lane whose
-// first CAS assumes a zero word.
-int atp_cmp_hll_add(void* regs, int num_banks, int precision,
-                    const void* bank, const void* keys, const void* valid,
-                    int n, void* stream, int variant) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint8_t* r = static_cast<uint8_t*>(regs);
-  const int32_t* b = static_cast<const int32_t*>(bank);
-  const uint32_t* kk = static_cast<const uint32_t*>(keys);
-  const uint8_t* v = static_cast<const uint8_t*>(valid);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  switch (variant) {
-    case 0:
-      hll_add_pr3_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-          r, num_banks, precision, b, kk, v, n);
-      break;
-    case 1: launch_hll_add<1, false, false>(r, num_banks, precision, b, kk, v, n, s); break;
-    case 2: launch_hll_add<2, false, false>(r, num_banks, precision, b, kk, v, n, s); break;
-    case 3: launch_hll_add<4, false, false>(r, num_banks, precision, b, kk, v, n, s); break;
-    case 4: launch_hll_add<1, true, false>(r, num_banks, precision, b, kk, v, n, s); break;
-    default: launch_hll_add<1, false, true>(r, num_banks, precision, b, kk, v, n, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

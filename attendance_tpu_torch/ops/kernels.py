@@ -376,10 +376,14 @@ def hll_add(regs: torch.Tensor, bank: torch.Tensor, keys: torch.Tensor,
     read and one write of each distinct register a kept lane touches
     (a 131,072-lane window add: about 0.4 us at 3.35 TB/s), or
     operations, about B x 5 + kept x 50 (two murmur3 lanes and the rank
-    per kept lane). Design: one thread per lane does the hashing in
-    registers and maxes the byte with the 32-bit ``atomicCAS`` loop of
-    K2 (CUDA has no 8-bit atomic max); the loop stops without a write
-    when the register already holds the rank.
+    per kept lane). Design: all lanes fit in one wave of the card, so the
+    time is the launch and one thread's chain of memory trips: one
+    thread per lane loads its valid byte, bank and key together (one
+    trip), hashes in registers, reads the register's 32-bit word and
+    only if the rank is higher swaps it with an ``atomicCAS`` loop (CUDA
+    has no 8-bit atomic max). 2 or 4 lanes per thread, a warp match that
+    folds lanes on one word, and a first CAS on an assumed zero word were
+    measured and not kept (PERF.md).
     """
     _require(regs.dtype == torch.uint8 and regs.dim() == 2
              and 4 <= precision <= 18 and regs.shape[1] == 1 << precision,

@@ -21,9 +21,7 @@ Phases (any failure exits non-zero):
      of the temporal plane, K5 at a uniform shape and at the temporal
      path's first window add (48 bucket rows, 8 hot keys), each timed
      replayed and from its starting registers, K6 at both sizes on the
-     frames' roster ids and on the temporal traffic's hot-key mix; 2e:
-     PR 3's K3 and K5 and other designs of both, timed in turns beside
-     the kernels the wrappers launch);
+     frames' roster ids and on the temporal traffic's hot-key mix);
   3. the main path: the ``fused`` verb's flow at its defaults (1,048,576
      events in 131,072-event frames, a 100k roster, 16 lectures, seed 0)
      with launch counters reset just before and read just after, checked
@@ -316,97 +314,6 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     return launches
 
 
-def compare_designs(filters: dict, k5_shapes: dict, floor_ms: float) -> None:
-    """Phase 2e: the PR 3 designs of K3 and K5, and other designs of both,
-    against the kernels the wrappers launch, in turns (three rounds of a,
-    b, ..., ..., b, a), each held equal to its plain version first."""
-    import ctypes
-
-    from attendance_tpu_torch.models import hll
-    from attendance_tpu_torch.models.bloom import BLOCK_BITS
-    from attendance_tpu_torch.ops import build, kernels
-
-    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib = build.library()
-    for name, argtypes in {
-            "atp_cmp_bloom_add": (P, P, I, U, I, I, I, P, P, I),
-            "atp_cmp_hll_add": (P, I, I, P, P, P, I, P, I)}.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def turns(label, fns, minus_ms=0.0):
-        order = (list(fns) + list(fns)[::-1]) * 3
-        got = {}
-        for name in order:
-            got.setdefault(name, []).append(kernel_ms(fns[name]) - minus_ms)
-        print(f"compare {label} (ms, {len(order) // len(fns)} samples each "
-              f"in turns {list(fns)} forward and back; floor {floor_ms}): "
-              + "; ".join(f"{k} {min(v)}-{max(v)} {v}"
-                          for k, v in got.items()))
-
-    for capacity, (params, roster, want) in filters.items():
-        nb = params.m_bits // BLOCK_BITS
-        n = roster.shape[0]
-        log2_bpt, chunk, scratch_words = kernels.bloom_add_plan(n, nb)
-        words = torch.zeros_like(want)
-        fns = {}
-        for label, variant in (("pr3", 0), ("per_key", False),
-                               ("binned", True), ("binned_masks", 2),
-                               ("binned_count_only", 3),
-                               ("binned_no_or_pass", 4)):
-            if isinstance(variant, bool):
-                def fn(binned=variant):
-                    words.zero_()
-                    kernels.bloom_add(words, roster, params, binned=binned)
-            else:
-                def fn(variant=variant, label=label):
-                    words.zero_()
-                    scratch = torch.empty(scratch_words, dtype=torch.int32,
-                                          device=words.device)
-                    check(lib.atp_cmp_bloom_add(
-                        words.data_ptr(), roster.data_ptr(), n, nb, params.k,
-                        log2_bpt, chunk, scratch.data_ptr(), stream(),
-                        variant) == 0, f"K3 {label} launch")
-            fn()
-            torch.cuda.synchronize()
-            check(variant in (3, 4) or torch.equal(words, want),
-                  f"K3 {label} at {capacity}")
-            fns[label] = fn
-        zero_ms = kernel_ms(lambda: words.zero_())
-        turns(f"K3 into a zeroed filter keys={capacity} (zero_ {zero_ms} "
-              "subtracted)", fns, zero_ms)
-
-    for shape, (bank, keys, valid, start) in k5_shapes.items():
-        want = start.clone()
-        hll.hll_add_plain(want, bank, keys, valid, 14)
-        regs = start.clone()
-        replay, fresh = {}, {}
-        for label, variant in (("pr3", 0), ("new", None), ("lanes2", 2),
-                               ("lanes4", 3), ("match", 4), ("guess", 5)):
-            if variant is None:
-                def fn():
-                    kernels.hll_add(regs, bank, keys, valid, 14)
-            else:
-                def fn(variant=variant, label=label):
-                    check(lib.atp_cmp_hll_add(
-                        regs.data_ptr(), 512, 14, bank.data_ptr(),
-                        keys.data_ptr(), valid.data_ptr(), keys.shape[0],
-                        stream(), variant) == 0, f"K5 {label} launch")
-            regs.copy_(start)
-            fn()
-            torch.cuda.synchronize()
-            check(torch.equal(regs, want), f"K5 {label} shape={shape}")
-            replay[label] = fn
-            fresh[label] = lambda fn=fn: (regs.copy_(start), fn())
-        turns(f"K5 replayed shape={shape}", replay)
-        restore_ms = kernel_ms(lambda: regs.copy_(start))
-        turns(f"K5 from the start shape={shape} (restore {restore_ms} "
-              "subtracted)", fresh, restore_ms)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -498,8 +405,8 @@ def main() -> int:
             if binned == picked:
                 ms = both_ms - zero_ms
             print(f"K3 bloom_add keys={capacity} m_bits={params.m_bits} "
-                  f"binned={binned} (picked: {binned == picked}) into a "
-                  f"zeroed filter ms={both_ms - zero_ms} (zero_ and K3 "
+                  f"binned={binned} picked_by_wrapper={binned == picked} "
+                  f"into a zeroed filter ms={both_ms - zero_ms} (zero_ and K3 "
                   f"{both_ms}, zero_ alone {zero_ms}) above_floor_ms="
                   f"{both_ms - zero_ms - floor_ms} bound_ms={b_ms} ({b_by}) "
                   f"over_bound_ms={both_ms - zero_ms - b_ms} times_bound="
@@ -655,7 +562,7 @@ def main() -> int:
     # holding 1M keys. "temporal": the temporal path's first window add
     # (temporal_window_add: about 48 bucket rows, 8 hot keys on 15% of
     # the lanes) into zeroed rows. Timed twice: replayed on the registers
-    # the first launch left (no register rises: what PR 2-3 timed), and
+    # the first launch left (no register rises), and
     # from the starting registers (each replay restores them first; the
     # restore alone is timed the same way and subtracted).
     keys = torch.from_numpy(
@@ -712,9 +619,6 @@ def main() -> int:
                 replaces="attendance_tpu/pipeline/fast_path.py:991",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
-    # -- 2e. the PR 3 designs of K3 and K5 beside the new ones ---------------
-    compare_designs(filters, k5_shapes, floor_ms)
-
     # The row clear of an evicted bucket stays one index_fill_ (a memset
     # of a whole 16 KiB row, as the JAX scatter-set _t_clear was).
     row = torch.tensor([7], dtype=torch.int64, device=dev)
