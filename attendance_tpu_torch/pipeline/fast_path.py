@@ -267,14 +267,21 @@ class FusedPipeline:
         return (self._temporal.stats() if self._temporal is not None
                 else None)
 
+    def _live_regs(self) -> torch.Tensor:
+        """The register rows a bank was ever allocated from (rows at or
+        past ``_next_bank`` are never written): a contiguous slice, so a
+        histogram of every live bank reads only these."""
+        return self.state.hll_regs[:self._next_bank]
+
     def window_counts(self) -> Dict[int, int]:
         """PFCOUNT of every live temporal bucket from ONE histogram
-        launch: {bucket key: unique-valid-student estimate}."""
+        launch over the live rows: {bucket key: unique-valid-student
+        estimate}."""
         keys = {k: b for k, b in self._bank_of.items() if is_bucket_key(k)}
         if not keys:
             return {}
         prec = self.config.hll_precision
-        hists = best_histogram(self.state.hll_regs, prec).cpu().numpy()
+        hists = best_histogram(self._live_regs(), prec).cpu().numpy()
         return {k: int(round(estimate_from_histogram(hists[b], prec)))
                 for k, b in keys.items()}
 
@@ -460,13 +467,13 @@ class FusedPipeline:
 
     def count_all(self) -> Dict[int, int]:
         """PFCOUNT of every registered lecture day from ONE histogram
-        launch over all banks."""
+        launch over the live rows."""
         days = {d: b for d, b in self._bank_of.items()
                 if not is_bucket_key(d)}
         if not days:
             return {}
         prec = self.config.hll_precision
-        hists = best_histogram(self.state.hll_regs, prec).cpu().numpy()
+        hists = best_histogram(self._live_regs(), prec).cpu().numpy()
         return {day: int(round(estimate_from_histogram(hists[bank], prec)))
                 for day, bank in days.items()}
 

@@ -12,8 +12,8 @@ Phases (any failure exits non-zero):
      card, at the main path's shapes, with exact equality (integer
      sketches), plus CUDA-event timings of the kernel (also printed above
      the floor), the plain version and, where one exists, a single
-     PyTorch library call computing the same function (2a-2c: K1-K3 of
-     the fused path, K2 on all four wires at 131,072 and at 1,048,576
+     PyTorch library call computing the same function (2a, 2c: K3 and K2
+     of the fused path, K2 on all four wires at 131,072 and at 1,048,576
      lanes; 2a: K3 at the 100k and 10M rosters by both of its paths, one
      thread per key and binned, each also onto a filter already holding
      half the roster, timed into a zeroed filter (zero_ timed alone and
@@ -25,14 +25,23 @@ Phases (any failure exits non-zero):
   3. the main path: the ``fused`` verb's flow at its defaults (1,048,576
      events in 131,072-event frames, a 100k roster, 16 lectures, seed 0)
      with launch counters reset just before and read just after, checked
-     against the frames' ground truth;
+     against the frames' ground truth; then the PFCOUNT path timed on its
+     pipeline (``count(day)`` per lecture and ``count_all()``: host wall
+     per call, and apart the K1 launch, the D2H copy and the host
+     estimator);
+  2b. (after 3, whose registers it takes) K1 at 1, 16, 256, 512 and 1024
+     banks on two fills, 2^20 uniform keys over the banks and the main
+     path's 16 live rows repeated to the bank count, held equal to its
+     plain version and ``torch.bincount``; 2e: the previous K1 and the
+     candidate designs timed in turns beside it;
   3b. the temporal path: the same scale with the temporal plane on (60 s
      buckets, a 256-bucket ring that evicts, Count-Min + top-K) over an
      ordered, disordered stream with 8 hot keys, through
      ``FusedPipeline`` / ``preload`` / ``client`` / ``run`` /
      ``window_counts`` / ``temporal_stats``, counters reset just before
      and read just after, held against exact per-bucket uniques, the
-     plain Count-Min update and the hot keys; then the same frames with
+     plain Count-Min update and the hot keys; ``window_counts()`` timed
+     as the PFCOUNT path is; then the same frames with
      the plane off, and with it on but without the exact shadow;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
@@ -197,6 +206,162 @@ def drive(config, roster, frames, num_events: int):
     return pipe
 
 
+def pfcount_timing(card: str, what: str, cases, reps: int) -> None:
+    """Host wall per call of a PFCOUNT entry point, and apart its three
+    steps on the same registers: the K1 launch (host enqueue, and device
+    time from CUDA events), the D2H copy (``.cpu()``, which waits for K1)
+    and the host Ertl estimator over the call's banks. ``cases`` holds
+    (call, registers it histograms, rows it estimates); each runs
+    ``reps`` times from an idle card. Prints median and max in ms."""
+    from attendance_tpu_torch.models.hll import estimate_from_histogram
+    from attendance_tpu_torch.ops import kernels
+
+    samples = {k: [] for k in ("wall", "launch", "k1_device", "d2h",
+                               "estimator")}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for call, regs, banks in cases:
+        call()  # warm
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            samples["wall"].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            hist = kernels.hll_histogram(regs, 14)
+            end.record()
+            t1 = time.perf_counter()
+            host = hist.cpu().numpy()
+            t2 = time.perf_counter()
+            for b in banks:
+                estimate_from_histogram(host[b], 14)
+            t3 = time.perf_counter()
+            samples["launch"].append(t1 - t0)
+            samples["d2h"].append(t2 - t1)
+            samples["estimator"].append(t3 - t2)
+            samples["k1_device"].append(start.elapsed_time(end) / 1e3)
+    stats = " ".join(f"{k}_ms median {float(np.median(v)) * 1e3} max "
+                     f"{max(v) * 1e3};" for k, v in samples.items())
+    print(f"PFCOUNT {what}: {len(cases)} case(s) x {reps} calls, "
+          f"{len(cases[0][2])} estimate(s) from {cases[0][1].shape[0]} "
+          f"bank(s) per call: {stats} on {card}")
+
+
+K1_BANKS = (1, 16, 256, 512, 1024)
+# Phase 2e: the K1 designs timed in turns (C entry point variant, split;
+# split 0 = the entry point's own pick).
+K1_DESIGNS = {"previous": (0, 1), "rmw256": (1, 0), "atomic256": (2, 1),
+              "packed256": (3, 0), "packed128": (4, 0), "packed512": (5, 0),
+              "swar": (6, 0), "nibble": (7, 0), "warpbins": (8, 0),
+              "hot": (9, 1)}
+
+
+def k1_variant(regs: torch.Tensor, variant: int, split: int) -> torch.Tensor:
+    from attendance_tpu_torch.ops.build import library
+
+    out = torch.empty((regs.shape[0], 52), dtype=torch.int32,
+                      device=regs.device)
+    rc = library().atp_hll_histogram_variant(
+        regs.data_ptr(), out.data_ptr(), regs.shape[0], regs.shape[1], 52,
+        variant, split, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"K1 variant {variant} split {split}: CUDA error {rc}")
+    return out
+
+
+def compare_k1(regs: torch.Tensor, want: torch.Tensor, fill: str,
+               floor_ms: float) -> None:
+    """Phase 2e: the previous K1 and each candidate design, each held equal to
+    the plain version first, then timed in turns, six samples each,
+    beside the kernel the wrapper launches."""
+    from attendance_tpu_torch.ops import kernels
+
+    designs = {name: (lambda v=v, s=s: k1_variant(regs, v, s))
+               for name, (v, s) in K1_DESIGNS.items()}
+    if regs.shape[0] <= 16:
+        for name, variant in (("atomic256", 2), ("packed256", 3),
+                              ("nibble", 7), ("warpbins", 8), ("hot", 9)):
+            for split in (1, 2, 4, 8):
+                designs[f"{name}_split{split}"] = (
+                    lambda v=variant, s=split: k1_variant(regs, v, s))
+    designs["wrapper"] = lambda: kernels.hll_histogram(regs, 14)
+    for name, fn in designs.items():
+        got = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"K1 {name} fill={fill} banks={regs.shape[0]} differs")
+    times = {name: [] for name in designs}
+    for _ in range(6):
+        for name, fn in designs.items():
+            times[name].append(kernel_ms(fn))
+    for name, ts in times.items():
+        print(f"K1 compare fill={fill} banks={regs.shape[0]} {name} "
+              f"ms={min(ts)}-{max(ts)} above_floor_ms={min(ts) - floor_ms} "
+              f"samples={ts}")
+
+
+def histogram_phase(dev, floor_ms: float, live: torch.Tensor,
+                    rows: dict) -> None:
+    """Phase 2b: K1 at every bank count the PFCOUNT path launches it at,
+    on two register fills: "uniform" (2^20 uniform keys over the banks,
+    PRs 1-4's fill) and "main" (the main path's live rows after phase 3,
+    repeated to the bank count), held equal to the plain version and to
+    ``torch.bincount``, and timed beside its bound."""
+    from attendance_tpu_torch.models import hll
+    from attendance_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(5)
+    for fill in ("uniform", "main"):
+        for num_banks in K1_BANKS:
+            if fill == "main":
+                regs = live[torch.arange(num_banks, device=dev)
+                            % live.shape[0]].contiguous()
+            else:
+                regs = hll.hll_init(num_banks, 14, dev)
+                n = 1 << 20
+                hll.hll_add(regs, torch.from_numpy(rng.integers(
+                    0, num_banks, n, dtype=np.int32)).to(dev),
+                    torch.from_numpy(rng.integers(0, 1 << 32, n,
+                                                  dtype=np.uint64)
+                                     .astype(np.uint32).view(np.int32))
+                    .to(dev), precision=14)
+            got = kernels.hll_histogram(regs, 14)
+            want = hll.hll_histogram(regs, 14)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            check(err == 0, f"K1 fill={fill} banks={num_banks}: max abs err "
+                  f"{err}")
+            check(bool(got.sum(dim=1).eq(16384).all()), "K1 rows != 2^14")
+            bins = got.shape[1]
+            offsets = (regs.to(torch.int64)
+                       + torch.arange(num_banks, device=dev)[:, None] * bins
+                       ).view(-1)
+            lib = torch.bincount(offsets, minlength=num_banks * bins)
+            check(torch.equal(lib.view(num_banks, bins).to(torch.int32), got),
+                  f"K1 fill={fill} banks={num_banks} disagrees with "
+                  "torch.bincount")
+            ms = kernel_ms(lambda: kernels.hll_histogram(regs, 14))
+            plain_ms = eager_ms(lambda: hll.hll_histogram(regs, 14))
+            library_ms = eager_ms(lambda: torch.bincount(
+                offsets, minlength=num_banks * bins), 20)
+            b_ms, b_by = bound_ms(regs.numel() + got.numel() * 4,
+                                  regs.numel())
+            share = got.sum(dim=0).double() / regs.numel()
+            top = torch.topk(share, 3)
+            print(f"K1 hll_histogram fill={fill} banks={num_banks} ms={ms} "
+                  f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+                  f"bincount_ms={library_ms} bound_ms={b_ms} ({b_by}) "
+                  f"times_bound={ms / b_ms} max_abs_err={err} top values "
+                  f"{top.indices.tolist()} shares {top.values.tolist()}")
+            compare_k1(regs, want, fill, floor_ms)
+            if fill == "main" and num_banks == 16:
+                rows["hll_histogram"] = dict(
+                    replaces="attendance_tpu/ops/pallas_kernels.py:398",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=library_ms)
+
+
 def temporal_path(card: str, num_events: int, frame_size: int,
                   num_lectures: int, rows: dict) -> dict:
     """Phase 3b; returns the run's launch counts."""
@@ -204,7 +369,8 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     from attendance_tpu_torch.models import cms
     from attendance_tpu_torch.ops import kernels
     from attendance_tpu_torch.pipeline.events import decode_planar_batch
-    from attendance_tpu_torch.temporal.buckets import bucket_keys
+    from attendance_tpu_torch.temporal.buckets import (
+        bucket_keys, is_bucket_key)
 
     roster, hot, frames = temporal_frames(num_events, frame_size,
                                           num_lectures)
@@ -228,6 +394,10 @@ def temporal_path(card: str, num_events: int, frame_size: int,
         shadow = pipe._temporal.shadow_truth()
         cms_counts = pipe._temporal.cms_counts.clone()
         num_banks = pipe.state.hll_regs.shape[0]
+        pfcount_timing(card, "window_counts()", [
+            (pipe.window_counts, pipe._live_regs(),
+             [b for k, b in pipe._bank_of.items() if is_bucket_key(k)])],
+            reps=10)
     finally:
         pipe.cleanup()
 
@@ -421,43 +591,6 @@ def main() -> int:
                 replaces="attendance_tpu/models/bloom.py:260", max_abs_err=0,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
-
-    # -- 2b. K1: register histogram -------------------------------------------
-    for num_banks in (256, 1024):
-        regs = hll.hll_init(num_banks, 14, dev)
-        n = 1 << 20
-        hll.hll_add(regs, torch.from_numpy(rng.integers(
-            0, num_banks, n, dtype=np.int32)).to(dev),
-            torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
-                             .astype(np.uint32).view(np.int32)).to(dev),
-            precision=14)
-        got = kernels.hll_histogram(regs, 14)
-        want = hll.hll_histogram(regs, 14)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        check(err == 0, f"K1 at {num_banks} banks: max abs err {err}")
-        check(bool(got.sum(dim=1).eq(16384).all()), "K1 rows != 2^14")
-        bins = got.shape[1]
-        offsets = (regs.to(torch.int64)
-                   + torch.arange(num_banks, device=dev)[:, None] * bins
-                   ).view(-1)
-        lib = torch.bincount(offsets, minlength=num_banks * bins)
-        check(torch.equal(lib.view(num_banks, bins).to(torch.int32), got),
-              "K1 disagrees with torch.bincount")
-        ms = kernel_ms(lambda: kernels.hll_histogram(regs, 14))
-        plain_ms = eager_ms(lambda: hll.hll_histogram(regs, 14))
-        library_ms = eager_ms(
-            lambda: torch.bincount(offsets, minlength=num_banks * bins), 20)
-        b_ms, b_by = bound_ms(regs.numel() + got.numel() * 4, regs.numel())
-        print(f"K1 hll_histogram banks={num_banks} ms={ms} "
-              f"above_floor_ms={ms - floor_ms} "
-              f"plain_ms={plain_ms} bincount_ms={library_ms} "
-              f"bound_ms={b_ms} ({b_by}) max_abs_err={err}")
-        if num_banks == 256:
-            rows["hll_histogram"] = dict(
-                replaces="attendance_tpu/ops/pallas_kernels.py:398",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
 
     # -- 2c. K2: fused step, word and bytes wires -----------------------------
     # The main path's frame (131,072 lanes) and a frame 8x as long, more
@@ -690,6 +823,17 @@ def main() -> int:
               "path")
     try:
         stored = pipe.store.to_columns(deduplicate=False)
+        live = pipe._live_regs().clone()
+        days = pipe.lecture_days()
+        # The PFCOUNT path on this run's pipeline: one count(day) per
+        # lecture, and count_all().
+        pfcount_timing(card, "count(day)", [
+            (lambda d=d: pipe.count(d),
+             pipe.state.hll_regs[pipe._bank_of[d]:pipe._bank_of[d] + 1],
+             [0]) for d in days], reps=3)
+        pfcount_timing(card, "count_all()", [
+            (pipe.count_all, pipe._live_regs(),
+             [pipe._bank_of[d] for d in days])], reps=20)
     finally:
         pipe.cleanup()
     roster, frames = generate_frames(
@@ -735,6 +879,11 @@ def main() -> int:
           f"{again['events_per_second']} events/s (wall "
           f"{again['wall_seconds']} s) on {card}")
     print(f"second run host stages (s): {again['stage_seconds']}")
+
+    # -- 2b. K1 at the PFCOUNT path's bank counts, on two fills (the main
+    # path's registers among them, so after phase 3) --------------------------
+    check(live.shape[0] == num_lectures, f"{live.shape[0]} live banks")
+    histogram_phase(dev, floor_ms, live, rows)
 
     # -- 3b. temporal path ----------------------------------------------------
     t_launches = temporal_path(card, num_events, frame_size, num_lectures,

@@ -44,15 +44,53 @@ def _regs(num_banks, cuda, events=1 << 20, seed=0):
     return regs
 
 
-@pytest.mark.parametrize("num_banks", [1, 256, 1024])
-def test_histogram_kernel_matches_plain(num_banks, cuda):
-    regs = _regs(num_banks, cuda)
+def _filled(num_banks, precision, fill, cuda, seed=0):
+    """uint8[num_banks, 2^p] registers: all 0, all q+1 ("saturated"), or
+    each register the rank of a Poisson number of keys, 0.25 a register
+    ("sparse", mostly 0) or 4 ("dense", mostly 1-5, the main path's
+    load), drawn by inverting P(value <= v) = exp(-lambda 2^-v)."""
+    q = 64 - precision
+    shape = (num_banks, 1 << precision)
+    if fill == "zero":
+        return torch.zeros(shape, dtype=torch.uint8, device=cuda)
+    if fill == "saturated":
+        return torch.full(shape, q + 1, dtype=torch.uint8, device=cuda)
+    lam = {"sparse": 0.25, "dense": 4.0}[fill]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    u = torch.rand(shape, generator=g, device=cuda)
+    v = torch.ceil(torch.log2(lam / -torch.log(u)))
+    return v.nan_to_num(0.0).clamp(0, q + 1).to(torch.uint8)
+
+
+@pytest.mark.parametrize("fill", ["zero", "sparse", "dense", "saturated"])
+@pytest.mark.parametrize("precision", [4, 14, 18])
+@pytest.mark.parametrize("num_banks", [1, 3, 9, 16, 256, 512, 1024])
+def test_histogram_kernel_matches_plain(num_banks, precision, fill, cuda):
+    """K1 at every bank count the PFCOUNT path launches it at, counts
+    that are not a multiple of the cluster split (3, 9), the smallest
+    and largest precision, and fills whose counts pile on one value."""
+    regs = _filled(num_banks, precision, fill, cuda)
     before = kernels.launches["hll_histogram"]
-    got = kernels.hll_histogram(regs, 14)
+    got = kernels.hll_histogram(regs, precision)
     torch.cuda.synchronize()
     assert kernels.launches["hll_histogram"] == before + 1
-    assert torch.equal(got, hll.hll_histogram(regs, 14))
-    assert got.sum(dim=1).eq(16384).all()
+    assert torch.equal(got, hll.hll_histogram(regs, precision))
+    assert got.sum(dim=1).eq(1 << precision).all()
+
+
+@pytest.mark.parametrize("precision", [4, 14, 18])
+def test_histogram_kernel_row_slice_drops_values_past_q_plus_1(precision,
+                                                               cuda):
+    """One row at an offset (what count(day) passes) holding values
+    >= q+2, which are dropped."""
+    q = 64 - precision
+    regs = _filled(16, precision, "dense", cuda, seed=1)
+    regs[5, :4] = torch.tensor([q + 1, q + 2, 64, 255], dtype=torch.uint8)
+    got = kernels.hll_histogram(regs[5:6], precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hll.hll_histogram(regs[5:6], precision))
+    assert int(got.sum()) == (1 << precision) - 3
+    assert int(got[0, q + 1]) >= 1
 
 
 @pytest.mark.parametrize("capacity", [100_000, 10_000_000])

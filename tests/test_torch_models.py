@@ -169,21 +169,39 @@ def test_hll_add_matches_jax(with_mask, case):
     np.testing.assert_array_equal(regs.numpy(), want)
 
 
-def _filled_regs(num_banks: int, seed: int, n: int = 200_000):
+def _filled_regs(num_banks: int, seed: int, n: int = 200_000,
+                 precision: int = 14):
     rng = np.random.default_rng(seed)
     return np.array(jhll.hll_add(
-        jhll.hll_init(num_banks),
+        jhll.hll_init(num_banks, precision),
         jnp.asarray(rng.integers(0, num_banks, n, dtype=np.int32)),
-        jnp.asarray(rng.integers(0, 1 << 31, n).astype(np.uint32))))
+        jnp.asarray(rng.integers(0, 1 << 31, n).astype(np.uint32)),
+        precision=precision))
 
 
-@pytest.mark.parametrize("num_banks", [1, 8])
-def test_histogram_matches_pallas_kernel(num_banks):
-    regs = _filled_regs(num_banks, num_banks)
-    want = np.asarray(hll_histogram_pallas(jnp.asarray(regs)))
-    got = thll.best_histogram(torch.from_numpy(regs), 14)
+@pytest.mark.parametrize("num_banks,precision", [
+    (1, 14), (8, 14), (1, 4), (3, 4), (1, 18), (3, 18)],
+    ids=["1", "8", "1-p4", "3-p4", "1-p18", "3-p18"])
+def test_histogram_matches_pallas_kernel(num_banks, precision):
+    # p=4: 16 registers a bank, each hit many times (values near q+1);
+    # p=18: 262,144 a bank, most still 0.
+    regs = _filled_regs(num_banks, num_banks, precision=precision)
+    want = np.asarray(hll_histogram_pallas(jnp.asarray(regs), precision))
+    got = thll.best_histogram(torch.from_numpy(regs), precision)
     assert got.dtype == torch.int32
+    assert got.shape == (num_banks, 64 - precision + 2)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_histogram_of_a_row_slice_drops_values_past_q_plus_1():
+    """What count(day) passes (one row of the bank array at an offset),
+    holding a register value >= q+2, which both sides drop."""
+    regs = _filled_regs(8, 3)
+    regs[5, :3] = [62, 63, 255]  # q + 2 = 52 bins at p=14
+    want = np.asarray(hll_histogram_pallas(jnp.asarray(regs[5:6])))
+    got = kernels.hll_histogram(torch.from_numpy(regs)[5:6], 14)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.sum()) == (1 << 14) - 3
 
 
 def test_histogram_matches_xla_bincount_at_256_banks():

@@ -170,6 +170,33 @@ def test_whole_slice_equals_jax_pipeline(wire_format, monkeypatch):
         tpipe.cleanup()
 
 
+def test_count_all_histograms_only_the_live_rows(monkeypatch):
+    """count_all() histograms the rows a day was ever given (12 of the
+    16 rows the array grew to) and still equals the JAX pipeline's,
+    which histograms every row."""
+    from attendance_tpu_torch.pipeline import fast_path
+
+    jpipe, tpipe = _run_both("auto", monkeypatch)
+    seen = []
+    real = fast_path.best_histogram
+
+    def spy(regs, precision):
+        seen.append(tuple(regs.shape))
+        return real(regs, precision)
+
+    monkeypatch.setattr(fast_path, "best_histogram", spy)
+    try:
+        assert tpipe.state.hll_regs.shape[0] == 16
+        assert tpipe.count_all() == jpipe.count_all()
+        assert seen == [(12, 1 << 14)] and tpipe._next_bank == 12
+        day = tpipe.lecture_days()[-1]
+        assert tpipe.count(day) == jpipe.count(day)
+        assert seen[-1] == (1, 1 << 14)
+    finally:
+        jpipe.cleanup()
+        tpipe.cleanup()
+
+
 def test_fused_verb_meets_ground_truth_on_cpu():
     """The fused verb's flow: zero false negatives against the frames'
     ground truth, and every lecture's count near its exact uniques."""

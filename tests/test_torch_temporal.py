@@ -417,3 +417,33 @@ def test_whole_temporal_slice_equals_jax_pipeline(wire_format, monkeypatch):
         jpipe.cleanup()
         tpipe.cleanup()
         jobs.disable()
+
+
+def test_window_counts_histogram_only_the_live_rows(monkeypatch):
+    """After ring evictions have freed and recycled rows, window_counts()
+    and count_all() histogram only the rows below the allocator's
+    high-water mark and still equal the JAX pipeline's answers, which
+    histogram every row."""
+    from attendance_tpu_torch.pipeline import fast_path
+
+    jpipe, tpipe = _run_slice("auto", monkeypatch)
+    seen = []
+    real = fast_path.best_histogram
+
+    def spy(regs, precision):
+        seen.append(regs.shape[0])
+        return real(regs, precision)
+
+    monkeypatch.setattr(fast_path, "best_histogram", spy)
+    try:
+        # Evicted rows were zeroed, freed and given to newer buckets.
+        assert tpipe.temporal_stats()["evictions"] > 0
+        assert tpipe._next_bank < tpipe.state.hll_regs.shape[0]
+        wc = tpipe.window_counts()
+        assert wc == jpipe.window_counts() and wc
+        assert tpipe.count_all() == jpipe.count_all()
+        assert seen == [tpipe._next_bank] * 2
+    finally:
+        jpipe.cleanup()
+        tpipe.cleanup()
+        jobs.disable()
