@@ -5,10 +5,9 @@
 // stream it is given, allocates nothing, and returns cudaGetLastError()
 // so a refused launch is reported to the caller.
 //
-//   K1 atp_hll_histogram  register-value histogram per HLL bank, counted
-//                         in per-thread shared-memory counters; a bank is
-//                         split over a thread-block cluster when banks
-//                         are few (replaces the Pallas
+//   K1 atp_hll_histogram  register-value histogram per HLL bank, one CTA
+//                         per bank counting into per-thread shared-memory
+//                         counters (replaces the Pallas
 //                         hll_histogram_pallas,
 //                         attendance_tpu/ops/pallas_kernels.py:373-406)
 //   K2 atp_fused_step     Bloom probe + HLL register max + validity
@@ -40,12 +39,9 @@
 // is uint32, so results are bit-identical to the plain PyTorch versions.
 
 #include <cstdint>
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr uint32_t kSeedBloomA = 0x9747B28Cu;
 constexpr uint32_t kSeedBloomB = 0x85EBCA6Bu;
@@ -58,7 +54,6 @@ constexpr uint32_t kSeedCmsStep = 0x9E3779B9u;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBins = 64;  // q + 2 <= 62 for precision in [4, 18]
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -166,532 +161,98 @@ __device__ __forceinline__ void atomic_max_u8(uint8_t* addr, uint32_t val) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: register-value histogram, one output row per bank. Values >=
-// num_bins are dropped, as jnp.bincount(length=) does.
+// K1: register-value histogram, one CTA per bank. Values >= num_bins are
+// dropped, as jnp.bincount(length=) does.
 //
-// A bank is read by a cluster of `split` CTAs (split = 1 where the banks
-// alone fill the card; up to 8 where they are few: hist_split). Each CTA
-// issues all of a batch's 16-byte loads before counting any, and counts
-// its slice with no atomics: every thread owns one shared-memory counter
-// per value, laid out [value][thread] so a thread's counters all sit in
-// its own bank (kHistRows x kT uint32). The CTA then sums each value's
-// row of counters (a warp per row) into its partial bins; with split > 1
-// the CTAs of the cluster read each other's partial bins through
-// distributed shared memory, each writing its share of the output row,
-// so one launch needs no global atomics, scratch or memset.
+// Every thread owns one 32-bit shared-memory counter per value below 64,
+// laid out [value][thread] (64 KB), so all of a thread's counters sit in
+// its own shared-memory bank and no two lanes of a warp ever touch one
+// address (bins shared by a warp put most of its lanes on the same hot
+// bin, as register values are skewed). Each byte is one shared atomicAdd whose result is unused, so
+// a thread's adds do not wait on each other (a plain load-add-store
+// must: the next byte may hit the same counter). A thread issues all of
+// a batch's 16-byte loads before counting any; the first batch is in
+// flight while the counters clear. Then a warp per value sums that
+// value's row of counters and writes the output. One shared atomic per
+// byte bounds it at large bank counts; at small ones, the launch and one
+// trip to memory. Measured on an H100 and slower (PERF.md): a bank split
+// over a thread-block cluster of 2-8 CTAs (their partial bins summed
+// through distributed shared memory), 16-bit packed counters, a
+// load-add-store instead of the atomic, SWAR counting in registers, and
+// a hot value kept out of the atomics.
 // ---------------------------------------------------------------------------
-constexpr int kHistRows = 64;   // a counter row for every value < 64
-constexpr int kHistVec = 4;     // 16-byte loads a thread issues at once
-constexpr int kHistMaxSplit = 8;            // the portable cluster size
-constexpr int kHistMinVecPerCta = 128;      // 2 KB: the least a CTA reads
+constexpr int kHistRows = 64;  // a counter row for every value < 64
+constexpr int kHistVec = 4;    // 16-byte loads a thread issues at once
+constexpr size_t kHistSmem = sizeof(uint32_t) * kHistRows * kThreads;
 
-// CTAs per bank: double while the grid is under one CTA per SM and each
-// CTA keeps at least kHistMinVecPerCta vectors.
-int hist_split(int num_banks, int nvec, int sms) {
-  int split = 1;
-  while (split < kHistMaxSplit &&
-         static_cast<long long>(num_banks) * split < sms &&
-         nvec / (2 * split) >= kHistMinVecPerCta) {
-    split *= 2;
-  }
-  return split;
-}
-
-// Loads the batch of vectors v0, v0 + stride, ... (zeros past `per`).
-__device__ __forceinline__ void hist_load(const uint4* __restrict__ vec,
-                                          int v0, int stride, int per,
+// Loads the batch of vectors v0, v0 + kThreads, ... (zeros past `nvec`).
+__device__ __forceinline__ void hist_load(const uint4* __restrict__ row,
+                                          int v0, int nvec,
                                           uint4 (&x)[kHistVec]) {
 #pragma unroll
   for (int u = 0; u < kHistVec; ++u) {
-    const int v = v0 + u * stride;
-    x[u] = v < per ? __ldg(vec + v) : make_uint4(0u, 0u, 0u, 0u);
+    const int v = v0 + u * kThreads;
+    x[u] = v < nvec ? __ldg(row + v) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
-
-// Writes a bank's output row from each CTA's partial bins `part` (the
-// CTA's threads have synchronised after filling it).
-__device__ __forceinline__ void hist_write_row(uint32_t* part, int num_bins,
-                                               int split,
-                                               int32_t* __restrict__ row) {
-  if (split == 1) {
-    for (int b = threadIdx.x; b < num_bins; b += blockDim.x) {
-      row[b] = static_cast<int32_t>(part[b]);
-    }
-    return;
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every CTA's partial bins are whole
-  const int rank = static_cast<int>(cluster.block_rank());
-  for (int b = rank + split * static_cast<int>(threadIdx.x); b < num_bins;
-       b += split * static_cast<int>(blockDim.x)) {
-    uint32_t s = 0u;
-    for (int r = 0; r < split; ++r) s += *cluster.map_shared_rank(part + b, r);
-    row[b] = static_cast<int32_t>(s);
-  }
-  cluster.sync();  // no CTA leaves while another reads its bins
-}
-
-// Counter words a thread owns: one per value, or (kPacked) one per pair
-// of values, two 16-bit counters to a word (a thread counts at most 2^14
-// bytes, so a half never carries into the other).
-template <bool kPacked>
-__host__ __device__ constexpr int hist_words() {
-  return kPacked ? kHistRows / 2 : kHistRows;
-}
-
-// Adds one to value v's counter (`mine` = the thread's first counter
-// word; word j's is mine[j * kT]). kAtomic: a shared atomic whose result
-// is unused, so a thread's adds do not wait on each other (a plain
-// load-add-store must: the next byte may hit the same counter).
-template <int kT, bool kPacked, bool kAtomic>
-__device__ __forceinline__ void hist_bump(uint32_t* mine, uint32_t v) {
-  uint32_t* word = mine + (kPacked ? v >> 1 : v) * kT;
-  const uint32_t one = kPacked ? 1u << ((v & 1u) << 4) : 1u;
-  if (kAtomic) {
-    atomicAdd(word, one);
-  } else {
-    *word += one;
-  }
-}
-
-// One thread's count of the 16 bytes of x into its counters.
-template <int kT, bool kPacked, bool kAtomic>
-__device__ __forceinline__ void hist_count_private(uint32_t* mine, uint4 x) {
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-  if (((x.x | x.y | x.z | x.w) & 0xC0C0C0C0u) == 0u) {  // every byte < 64
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        hist_bump<kT, kPacked, kAtomic>(mine, (w[i] >> (8 * b)) & 0xFFu);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t v = (w[i] >> (8 * b)) & 0xFFu;
-        if (v < kHistRows) hist_bump<kT, kPacked, kAtomic>(mine, v);
-      }
-    }
-  }
-}
-
-template <int kT, bool kPacked, bool kAtomic>
-__global__ void __launch_bounds__(kT)
-hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
-                     int split, int32_t* __restrict__ out) {
-  constexpr int kWords = hist_words<kPacked>();
-  extern __shared__ uint4 hist_smem[];
-  uint32_t* counts = reinterpret_cast<uint32_t*>(hist_smem);
-  __shared__ uint32_t part[kHistRows];
-  const int tid = static_cast<int>(threadIdx.x);
-  const int bank = static_cast<int>(blockIdx.x) / split;
-  const int rank = static_cast<int>(blockIdx.x) - bank * split;
-  const int per = m / 16 / split;
-  const uint4* vec = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(bank) * static_cast<size_t>(m)) +
-      static_cast<size_t>(rank) * per;
-  uint4 x[kHistVec];
-  hist_load(vec, tid, kT, per, x);  // in flight while the counters clear
-  uint4* c4 = reinterpret_cast<uint4*>(counts);
-  for (int i = tid; i < kWords * kT / 4; i += kT) {
-    c4[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
-  uint32_t* mine = counts + tid;
-  for (int v0 = tid;;) {
-#pragma unroll
-    for (int u = 0; u < kHistVec; ++u) {
-      if (v0 + u * kT < per) {
-        hist_count_private<kT, kPacked, kAtomic>(mine, x[u]);
-      }
-    }
-    v0 += kHistVec * kT;
-    if (v0 >= per) break;
-    hist_load(vec, v0, kT, per, x);
-  }
-  __syncthreads();
-  // A warp per counter word row: each lane sums kT / 32 of the row's
-  // words (at most 8 x 2^14 per 16-bit half: no carry), then the warp.
-  const int lane = tid & 31;
-  const int rows = kPacked ? (num_bins + 1) / 2 : num_bins;
-  for (int r = tid >> 5; r < rows; r += kT / 32) {
-    const uint32_t* row = counts + r * kT;
-    uint32_t lo = 0u, hi = 0u;
-#pragma unroll
-    for (int i = lane; i < kT; i += 32) {
-      const uint32_t c = row[i];
-      lo += kPacked ? c & 0xFFFFu : c;
-      hi += kPacked ? c >> 16 : 0u;
-    }
-    lo = __reduce_add_sync(0xFFFFFFFFu, lo);
-    if (kPacked) hi = __reduce_add_sync(0xFFFFFFFFu, hi);
-    if (lane == 0) {
-      if (kPacked) {
-        part[2 * r] = lo;
-        part[2 * r + 1] = hi;
-      } else {
-        part[r] = lo;
-      }
-    }
-  }
-  __syncthreads();
-  hist_write_row(part, num_bins, split,
-                 out + static_cast<size_t>(bank) * num_bins);
-}
-
-// Register counting: each thread counts the values 0-15 in registers and
-// only the rarer bytes >= 16 with shared atomics. Values 0-7 and 8-15
-// each have eight 4-bit counters in one word (`lo`, `hi`: value v adds
-// 1 << 4 (v & 7) to one of them), folded every 8 bytes (so a nibble
-// never passes 8) into 8-bit counters a[0..3] (a[0]: values 0, 2, 4, 6
-// in its bytes; a[1]: 1, 3, 5, 7; a[2], a[3]: the same for 8-15), which
-// are folded into one 32-bit count per value after every batch of
-// kHistVec vectors (so a byte never passes 64).
-struct NibbleCounts {
-  uint32_t lo = 0u, hi = 0u;
-  uint32_t a[4] = {0u, 0u, 0u, 0u};
-  uint32_t c[16] = {};
-
-  __device__ __forceinline__ void add_word(uint32_t w) {
-    const uint32_t s4 = (w & 0x07070707u) << 2;  // 4 (v & 7) per byte
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const uint32_t inc = 1u << ((s4 >> (8 * b)) & 0xFFu);
-      if ((w >> (8 * b)) & 8u) {
-        hi += inc;
-      } else {
-        lo += inc;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void fold_nibbles() {
-    a[0] += lo & 0x0F0F0F0Fu;
-    a[1] += (lo >> 4) & 0x0F0F0F0Fu;
-    a[2] += hi & 0x0F0F0F0Fu;
-    a[3] += (hi >> 4) & 0x0F0F0F0Fu;
-    lo = hi = 0u;
-  }
-
-  __device__ __forceinline__ void fold_bytes() {
-#pragma unroll
-    for (int v = 0; v < 16; ++v) {
-      c[v] += (a[(v >> 3) * 2 + (v & 1)] >> (8 * ((v & 7) >> 1))) & 0xFFu;
-    }
-    a[0] = a[1] = a[2] = a[3] = 0u;
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
-hll_histogram_nibble_kernel(const uint8_t* __restrict__ regs, int m,
-                            int num_bins, int split,
-                            int32_t* __restrict__ out) {
-  __shared__ uint32_t bins[kHistRows];
+hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
+                     int32_t* __restrict__ out) {
+  extern __shared__ uint4 hist_smem[];
+  uint32_t* counts = reinterpret_cast<uint32_t*>(hist_smem);
   const int tid = static_cast<int>(threadIdx.x);
-  const int bank = static_cast<int>(blockIdx.x) / split;
-  const int rank = static_cast<int>(blockIdx.x) - bank * split;
-  const int per = m / 16 / split;
-  const uint4* vec = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(bank) * static_cast<size_t>(m)) +
-      static_cast<size_t>(rank) * per;
+  const int nvec = m / 16;
+  const uint4* row = reinterpret_cast<const uint4*>(
+      regs + static_cast<size_t>(blockIdx.x) * static_cast<size_t>(m));
   uint4 x[kHistVec];
-  hist_load(vec, tid, kThreads, per, x);
-  if (tid < kHistRows) bins[tid] = 0u;
+  hist_load(row, tid, nvec, x);  // in flight while the counters clear
+  for (int i = tid; i < kHistRows * kThreads / 4; i += kThreads) {
+    hist_smem[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
   __syncthreads();
-  NibbleCounts n;
+  uint32_t* mine = counts + tid;  // value v's counter: mine[v * kThreads]
   for (int v0 = tid;;) {
 #pragma unroll
     for (int u = 0; u < kHistVec; ++u) {
-      if (v0 + u * kThreads >= per) continue;
+      if (v0 + u * kThreads >= nvec) continue;
       const uint32_t w[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+      // Every byte < 64 (the usual case): 16 unconditional atomics. A
+      // condition on each atomic, even one that always holds, made the
+      // kernel markedly slower on an H100 (PERF.md).
+      if (((x[u].x | x[u].y | x[u].z | x[u].w) & 0xC0C0C0C0u) == 0u) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if ((w[i] & 0xF0F0F0F0u) == 0u) {
-          n.add_word(w[i]);
-        } else {
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            atomicAdd(mine + ((w[i] >> (8 * b)) & 0xFFu) * kThreads, 1u);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int b = 0; b < 4; ++b) {
             const uint32_t v = (w[i] >> (8 * b)) & 0xFFu;
-            if (v < 16u) {
-              n.add_word(v);  // one byte: the other three are 0 ...
-              n.lo -= 3u;     // ... and were counted as value 0
-            } else if (v < static_cast<uint32_t>(num_bins)) {
-              atomicAdd(bins + v, 1u);
-            }
-          }
-        }
-        if (i & 1) n.fold_nibbles();
-      }
-    }
-    n.fold_bytes();
-    v0 += kHistVec * kThreads;
-    if (v0 >= per) break;
-    hist_load(vec, v0, kThreads, per, x);
-  }
-  const int lane = tid & 31;
-#pragma unroll
-  for (int v = 0; v < 16; ++v) {
-    const uint32_t s = __reduce_add_sync(0xFFFFFFFFu, n.c[v]);
-    if (lane == 0 && s != 0u) atomicAdd(bins + v, s);
-  }
-  __syncthreads();
-  hist_write_row(bins, num_bins, split,
-                 out + static_cast<size_t>(bank) * num_bins);
-}
-
-// 0x80 in each byte of x that is 0, else 0.
-__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
-  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x | 0x7F7F7F7Fu);
-}
-
-// Private counters as hll_histogram_kernel<256, false, true>, but the
-// warp's hot value (the floor of the mean byte of its first vectors: 0
-// in a sparse bank, the mode's neighbourhood in a dense one) is counted
-// in a register, four bytes at a time (zero_bytes of w ^ hot), and
-// takes no atomic.
-__global__ void __launch_bounds__(kThreads)
-hll_histogram_hot_kernel(const uint8_t* __restrict__ regs, int m,
-                         int num_bins, int split, int32_t* __restrict__ out) {
-  extern __shared__ uint4 hist_smem[];
-  uint32_t* counts = reinterpret_cast<uint32_t*>(hist_smem);
-  __shared__ uint32_t part[kHistRows];
-  const int tid = static_cast<int>(threadIdx.x);
-  const int bank = static_cast<int>(blockIdx.x) / split;
-  const int rank = static_cast<int>(blockIdx.x) - bank * split;
-  const int per = m / 16 / split;
-  const uint4* vec = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(bank) * static_cast<size_t>(m)) +
-      static_cast<size_t>(rank) * per;
-  uint4 x[kHistVec];
-  hist_load(vec, tid, kThreads, per, x);
-  uint4* c4 = reinterpret_cast<uint4*>(counts);
-  for (int i = tid; i < kHistRows * kThreads / 4; i += kThreads) {
-    c4[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  const bool has = tid < per;
-  uint32_t sum = 0u;
-  if (has) {
-    sum = __dp4a(x[0].x, 0x01010101u, __dp4a(x[0].y, 0x01010101u,
-          __dp4a(x[0].z, 0x01010101u, __dp4a(x[0].w, 0x01010101u, 0u))));
-  }
-  sum = __reduce_add_sync(0xFFFFFFFFu, sum);
-  const uint32_t cnt = __reduce_add_sync(0xFFFFFFFFu, has ? 16u : 0u);
-  const uint32_t hot = cnt != 0u ? sum / cnt : 0u;
-  const uint32_t hot4 = hot * 0x01010101u;
-  __syncthreads();
-  uint32_t* mine = counts + tid;
-  uint32_t nhot = 0u;
-  for (int v0 = tid;;) {
-#pragma unroll
-    for (int u = 0; u < kHistVec; ++u) {
-      if (v0 + u * kThreads >= per) continue;
-      const bool small =
-          ((x[u].x | x[u].y | x[u].z | x[u].w) & 0xC0C0C0C0u) == 0u;
-      const uint32_t w[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t z = zero_bytes(w[i] ^ hot4);
-        nhot += __popc(z);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const uint32_t v = (w[i] >> (8 * b)) & 0xFFu;
-          if (((z >> (8 * b + 7)) & 1u) == 0u && (small || v < kHistRows)) {
-            atomicAdd(mine + v * kThreads, 1u);
+            if (v < kHistRows) atomicAdd(mine + v * kThreads, 1u);
           }
         }
       }
     }
     v0 += kHistVec * kThreads;
-    if (v0 >= per) break;
-    hist_load(vec, v0, kThreads, per, x);
+    if (v0 >= nvec) break;
+    hist_load(row, v0, nvec, x);
   }
-  if (hot < kHistRows && nhot != 0u) atomicAdd(mine + hot * kThreads, nhot);
   __syncthreads();
   const int lane = tid & 31;
+  int32_t* out_row = out + static_cast<size_t>(blockIdx.x) * num_bins;
   for (int r = tid >> 5; r < num_bins; r += kWarps) {
-    const uint32_t* row = counts + r * kThreads;
+    const uint32_t* counters = counts + r * kThreads;
     uint32_t s = 0u;
 #pragma unroll
-    for (int i = lane; i < kThreads; i += 32) s += row[i];
+    for (int i = lane; i < kThreads; i += 32) s += counters[i];
     s = __reduce_add_sync(0xFFFFFFFFu, s);
-    if (lane == 0) part[r] = s;
-  }
-  __syncthreads();
-  hist_write_row(part, num_bins, split,
-                 out + static_cast<size_t>(bank) * num_bins);
-}
-
-// Comparison only: the same loads and cluster split, each warp counting
-// into its own 64 bins with shared atomics (the previous design's counting, whose bins
-// are cheap to clear and sum when a CTA reads little).
-__global__ void __launch_bounds__(kThreads)
-hll_histogram_warpbins_kernel(const uint8_t* __restrict__ regs, int m,
-                              int num_bins, int split,
-                              int32_t* __restrict__ out) {
-  __shared__ uint32_t bins[kWarps][kHistRows];
-  __shared__ uint32_t part[kHistRows];
-  const int tid = static_cast<int>(threadIdx.x);
-  const int bank = static_cast<int>(blockIdx.x) / split;
-  const int rank = static_cast<int>(blockIdx.x) - bank * split;
-  const int per = m / 16 / split;
-  const uint4* vec = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(bank) * static_cast<size_t>(m)) +
-      static_cast<size_t>(rank) * per;
-  uint4 x[kHistVec];
-  hist_load(vec, tid, kThreads, per, x);
-  for (int t = tid; t < kWarps * kHistRows; t += kThreads) {
-    bins[t / kHistRows][t % kHistRows] = 0u;
-  }
-  __syncthreads();
-  uint32_t* mine = bins[tid >> 5];
-  for (int v0 = tid;;) {
-#pragma unroll
-    for (int u = 0; u < kHistVec; ++u) {
-      if (v0 + u * kThreads >= per) continue;
-      const uint32_t w[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const uint32_t v = (w[i] >> (8 * b)) & 0xFFu;
-          if (v < static_cast<uint32_t>(num_bins)) atomicAdd(mine + v, 1u);
-        }
-      }
-    }
-    v0 += kHistVec * kThreads;
-    if (v0 >= per) break;
-    hist_load(vec, v0, kThreads, per, x);
-  }
-  __syncthreads();
-  for (int b = tid; b < num_bins; b += kThreads) {
-    uint32_t s = 0u;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += bins[w][b];
-    part[b] = s;
-  }
-  __syncthreads();
-  hist_write_row(part, num_bins, split,
-                 out + static_cast<size_t>(bank) * num_bins);
-}
-
-// Comparison only: the same loads and cluster split, counting the warp's
-// two hottest values (picked from the mean byte of the warp's first
-// vectors) in registers with SWAR zero-byte tests, and the other bytes
-// with shared atomics into per-warp bins.
-__global__ void __launch_bounds__(kThreads)
-hll_histogram_swar_kernel(const uint8_t* __restrict__ regs, int m,
-                          int num_bins, int split,
-                          int32_t* __restrict__ out) {
-  __shared__ uint32_t bins[kWarps][kHistRows];
-  __shared__ uint32_t part[kHistRows];
-  const int tid = static_cast<int>(threadIdx.x);
-  const int lane = tid & 31;
-  const int bank = static_cast<int>(blockIdx.x) / split;
-  const int rank = static_cast<int>(blockIdx.x) - bank * split;
-  const int per = m / 16 / split;
-  const uint4* vec = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(bank) * static_cast<size_t>(m)) +
-      static_cast<size_t>(rank) * per;
-  uint4 x[kHistVec];
-  hist_load(vec, tid, kThreads, per, x);
-  for (int t = tid; t < kWarps * kHistRows; t += kThreads) {
-    bins[t / kHistRows][t % kHistRows] = 0u;
-  }
-  const bool has = tid < per;
-  uint32_t sum = 0u;
-  if (has) {
-    sum = __dp4a(x[0].x, 0x01010101u, __dp4a(x[0].y, 0x01010101u,
-          __dp4a(x[0].z, 0x01010101u, __dp4a(x[0].w, 0x01010101u, 0u))));
-  }
-  sum = __reduce_add_sync(0xFFFFFFFFu, sum);
-  const uint32_t cnt = __reduce_add_sync(0xFFFFFFFFu, has ? 16u : 0u);
-  // floor(mean - 1/2): the hot pair is (h, h + 1).
-  const uint32_t h = cnt != 0u && 2u * sum >= cnt
-                         ? (2u * sum - cnt) / (2u * cnt) : 0u;
-  const uint32_t h0 = h * 0x01010101u;
-  const uint32_t h1 = (h + 1u) * 0x01010101u;
-  __syncthreads();
-  uint32_t* mybins = bins[tid >> 5];
-  uint32_t c0 = 0u, c1 = 0u;
-  for (int v0 = tid;;) {
-#pragma unroll
-    for (int u = 0; u < kHistVec; ++u) {
-      if (v0 + u * kThreads >= per) continue;
-      const uint32_t w[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t z0 = zero_bytes(w[i] ^ h0);
-        const uint32_t z1 = zero_bytes(w[i] ^ h1);
-        c0 += __popc(z0);
-        c1 += __popc(z1);
-        uint32_t cold = ~(z0 | z1) & 0x80808080u;
-        while (cold != 0u) {
-          const int bit = __ffs(cold) - 1;
-          const uint32_t v = (w[i] >> (bit - 7)) & 0xFFu;
-          if (v < static_cast<uint32_t>(num_bins)) atomicAdd(mybins + v, 1u);
-          cold &= cold - 1u;
-        }
-      }
-    }
-    v0 += kHistVec * kThreads;
-    if (v0 >= per) break;
-    hist_load(vec, v0, kThreads, per, x);
-  }
-  c0 = __reduce_add_sync(0xFFFFFFFFu, c0);
-  c1 = __reduce_add_sync(0xFFFFFFFFu, c1);
-  if (lane == 0) {
-    if (h < kHistRows) atomicAdd(mybins + h, c0);
-    if (h + 1u < kHistRows) atomicAdd(mybins + h + 1u, c1);
-  }
-  __syncthreads();
-  for (int b = tid; b < num_bins; b += kThreads) {
-    uint32_t s = 0u;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += bins[w][b];
-    part[b] = s;
-  }
-  __syncthreads();
-  hist_write_row(part, num_bins, split,
-                 out + static_cast<size_t>(bank) * num_bins);
-}
-
-// Comparison only: the previous K1. One CTA per bank. 16-byte vector loads over
-// the bank's 2^p bytes; each warp counts into its own shared-memory bins
-// (less contention on the few hot values), then the CTA sums the warp
-// bins into the output row.
-__global__ void __launch_bounds__(kThreads)
-hll_histogram_previous_kernel(const uint8_t* __restrict__ regs, int m,
-                         int num_bins, int32_t* __restrict__ out) {
-  __shared__ int bins[kWarps][kMaxBins];
-  for (int t = threadIdx.x; t < kWarps * kMaxBins; t += kThreads) {
-    bins[t / kMaxBins][t % kMaxBins] = 0;
-  }
-  __syncthreads();
-  const uint4* row = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(blockIdx.x) * static_cast<size_t>(m));
-  int* mine = bins[threadIdx.x >> 5];
-  const int nvec = m / 16;
-  for (int v = threadIdx.x; v < nvec; v += kThreads) {
-    const uint4 x = __ldg(row + v);
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int val = static_cast<int>((w[i] >> (8 * b)) & 0xFFu);
-        if (val < num_bins) atomicAdd(mine + val, 1);
-      }
-    }
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < num_bins; b += kThreads) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += bins[w][b];
-    out[static_cast<size_t>(blockIdx.x) * num_bins + b] = s;
+    if (lane == 0) out_row[r] = static_cast<int32_t>(s);
   }
 }
 
@@ -1167,108 +728,23 @@ int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1 by design `variant` (0: the previous design; private counters 1: load-add-store,
-// 256 threads, 2: atomic, 256 threads, 3: atomic and packed, 256
-// threads, 4: the same with 128 threads, 5: with 512 threads; 6: SWAR
-// hot pair; 7: register counting of values 0-15; 8: per-warp bins; 9:
-// 2 with the warp's hot value counted in a register) with `split` CTAs per bank (<= 0: hist_split's pick; the previous design's
-// is always 1). A split of 1 launches without a cluster.
-using HistKernel = void (*)(const uint8_t*, int, int, int, int32_t*);
-
-int launch_histogram(HistKernel kernel, int threads, size_t smem,
-                     const uint8_t* r, int32_t* o, int num_banks, int m,
-                     int num_bins, int split, cudaStream_t s) {
-  if (split <= 0) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    split = hist_split(num_banks, m / 16, sms);
-  }
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (split == 1) {
-    kernel<<<num_banks, threads, smem, s>>>(r, m, num_bins, 1, o);
-    return static_cast<int>(cudaGetLastError());
-  }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(num_banks) * split);
-  config.blockDim = dim3(threads);
-  config.dynamicSmemBytes = smem;
-  config.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, r, m, num_bins, split, o);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kT, bool kPacked, bool kAtomic>
-int launch_private(const uint8_t* r, int32_t* o, int num_banks, int m,
-                   int num_bins, int split, cudaStream_t s) {
-  return launch_histogram(
-      hll_histogram_kernel<kT, kPacked, kAtomic>, kT,
-      sizeof(uint32_t) * hist_words<kPacked>() * kT, r, o, num_banks, m,
-      num_bins, split, s);
-}
-
 }  // namespace
 
 extern "C" {
 
-int atp_hll_histogram_variant(const void* regs, void* out, int num_banks,
-                              int m, int num_bins, int variant, int split,
-                              void* stream) {
-  if (num_banks <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* r = static_cast<const uint8_t*>(regs);
-  int32_t* o = static_cast<int32_t*>(out);
-  switch (variant) {
-    case 0:
-      hll_histogram_previous_kernel<<<num_banks, kThreads, 0, s>>>(r, m, num_bins,
-                                                               o);
-      return static_cast<int>(cudaGetLastError());
-    case 1: return launch_private<256, false, false>(r, o, num_banks, m,
-                                                     num_bins, split, s);
-    case 2: return launch_private<256, false, true>(r, o, num_banks, m,
-                                                    num_bins, split, s);
-    case 3: return launch_private<256, true, true>(r, o, num_banks, m,
-                                                   num_bins, split, s);
-    case 4: return launch_private<128, true, true>(r, o, num_banks, m,
-                                                   num_bins, split, s);
-    case 5: return launch_private<512, true, true>(r, o, num_banks, m,
-                                                   num_bins, split, s);
-    case 6: return launch_histogram(hll_histogram_swar_kernel, kThreads, 0,
-                                    r, o, num_banks, m, num_bins, split, s);
-    case 7: return launch_histogram(hll_histogram_nibble_kernel, kThreads,
-                                    0, r, o, num_banks, m, num_bins, split,
-                                    s);
-    case 8: return launch_histogram(hll_histogram_warpbins_kernel, kThreads,
-                                    0, r, o, num_banks, m, num_bins, split,
-                                    s);
-    default: return launch_histogram(
-        hll_histogram_hot_kernel, kThreads,
-        sizeof(uint32_t) * kHistRows * kThreads, r, o, num_banks, m,
-        num_bins, split, s);
-  }
-}
-
 int atp_hll_histogram(const void* regs, void* out, int num_banks, int m,
                       int num_bins, void* stream) {
-  return atp_hll_histogram_variant(regs, out, num_banks, m, num_bins, 3, 0,
-                                   stream);
+  if (num_banks > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hll_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kHistSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hll_histogram_kernel<<<num_banks, kThreads, kHistSmem,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(regs), m, num_bins,
+        static_cast<int32_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 int atp_fused_step(const void* wire, int bank_bytes, int key_bits, int lanes,

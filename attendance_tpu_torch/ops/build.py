@@ -32,7 +32,6 @@ _U = ctypes.c_uint
 # name -> argtypes of every C entry point (see csrc/sketch_kernels.cu).
 SIGNATURES = {
     "atp_hll_histogram": (_P, _P, _I, _I, _I, _P),
-    "atp_hll_histogram_variant": (_P, _P, _I, _I, _I, _I, _I, _P),
     "atp_fused_step": (_P, _I, _I, _I, _P, _U, _I, _P, _I, _I, _P, _P, _P),
     "atp_bloom_add": (_P, _P, _I, _U, _I, _I, _I, _P, _P),
     "atp_bloom_contains": (_P, _U, _I, _P, _I, _P, _P),

@@ -67,11 +67,18 @@ def hll_histogram(regs: torch.Tensor, precision: int = 14) -> torch.Tensor:
     (attendance_tpu/ops/pallas_kernels.py:398; ``_hist_kernel`` :373),
     which compared the whole [num_banks, 2^p] block against each of the
     q+2 values in VMEM. Bound: bytes — every register byte is read once
-    (256 banks at p=14: 4 MiB in, 53 KB out, about 1.3 us at 3.35 TB/s).
-    Design: one CTA per bank streams the row with 16-byte loads and
-    counts into per-warp shared-memory bins, so no count leaves the SM
-    until the CTA writes its output row; any bank count works (no
-    128-bank split as on the TPU).
+    (16 banks at p=14: 256 KB in, about 0.08 us at 3.35 TB/s; 1024
+    banks: 16 MiB, 5.1 us). Design: one CTA per bank issues its 16-byte
+    loads before counting; every thread counts into its own shared-memory
+    counter per value ([value][thread], 64 KB, so no two lanes of a warp
+    share an address) with shared atomics whose results it does not wait
+    for, then a warp per value sums its row of counters into the output.
+    One shared atomic per byte is what bounds it at large bank counts;
+    at small ones the launch and one trip to memory. Any bank count
+    works (no 128-bank split as on the TPU), including a row slice at a
+    16-byte-aligned offset, as ``count()`` passes. A bank split over a
+    thread-block cluster was slower at every bank count measured
+    (PERF.md).
     """
     _require(regs.dtype == torch.uint8 and regs.dim() == 2,
              f"regs must be uint8[num_banks, m], got {regs.dtype} "

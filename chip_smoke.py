@@ -32,8 +32,7 @@ Phases (any failure exits non-zero):
   2b. (after 3, whose registers it takes) K1 at 1, 16, 256, 512 and 1024
      banks on two fills, 2^20 uniform keys over the banks and the main
      path's 16 live rows repeated to the bank count, held equal to its
-     plain version and ``torch.bincount``; 2e: the previous K1 and the
-     candidate designs timed in turns beside it;
+     plain version and ``torch.bincount``;
   3b. the temporal path: the same scale with the temporal plane on (60 s
      buckets, a 256-bucket ring that evicts, Count-Min + top-K) over an
      ordered, disordered stream with 8 hot keys, through
@@ -208,15 +207,17 @@ def drive(config, roster, frames, num_events: int):
 
 def pfcount_timing(card: str, what: str, cases, reps: int) -> None:
     """Host wall per call of a PFCOUNT entry point, and apart its three
-    steps on the same registers: the K1 launch (host enqueue, and device
-    time from CUDA events), the D2H copy (``.cpu()``, which waits for K1)
-    and the host Ertl estimator over the call's banks. ``cases`` holds
-    (call, registers it histograms, rows it estimates); each runs
-    ``reps`` times from an idle card. Prints median and max in ms."""
+    steps on the same registers: the K1 launch (host enqueue; and
+    ``k1_events``, CUDA events recorded around it, a span that holds the
+    enqueue too, as the card is idle: K1's device time is phase 2b's),
+    the D2H copy (``.cpu()``, which waits for K1) and the host Ertl
+    estimator over the call's banks. ``cases`` holds (call, registers it
+    histograms, rows it estimates); each runs ``reps`` times from an idle
+    card. Prints median and max in ms."""
     from attendance_tpu_torch.models.hll import estimate_from_histogram
     from attendance_tpu_torch.ops import kernels
 
-    samples = {k: [] for k in ("wall", "launch", "k1_device", "d2h",
+    samples = {k: [] for k in ("wall", "launch", "k1_events", "d2h",
                                "estimator")}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -241,7 +242,7 @@ def pfcount_timing(card: str, what: str, cases, reps: int) -> None:
             samples["launch"].append(t1 - t0)
             samples["d2h"].append(t2 - t1)
             samples["estimator"].append(t3 - t2)
-            samples["k1_device"].append(start.elapsed_time(end) / 1e3)
+            samples["k1_events"].append(start.elapsed_time(end) / 1e3)
     stats = " ".join(f"{k}_ms median {float(np.median(v)) * 1e3} max "
                      f"{max(v) * 1e3};" for k, v in samples.items())
     print(f"PFCOUNT {what}: {len(cases)} case(s) x {reps} calls, "
@@ -250,63 +251,14 @@ def pfcount_timing(card: str, what: str, cases, reps: int) -> None:
 
 
 K1_BANKS = (1, 16, 256, 512, 1024)
-# Phase 2e: the K1 designs timed in turns (C entry point variant, split;
-# split 0 = the entry point's own pick).
-K1_DESIGNS = {"previous": (0, 1), "rmw256": (1, 0), "atomic256": (2, 1),
-              "packed256": (3, 0), "packed128": (4, 0), "packed512": (5, 0),
-              "swar": (6, 0), "nibble": (7, 0), "warpbins": (8, 0),
-              "hot": (9, 1)}
-
-
-def k1_variant(regs: torch.Tensor, variant: int, split: int) -> torch.Tensor:
-    from attendance_tpu_torch.ops.build import library
-
-    out = torch.empty((regs.shape[0], 52), dtype=torch.int32,
-                      device=regs.device)
-    rc = library().atp_hll_histogram_variant(
-        regs.data_ptr(), out.data_ptr(), regs.shape[0], regs.shape[1], 52,
-        variant, split, torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"K1 variant {variant} split {split}: CUDA error {rc}")
-    return out
-
-
-def compare_k1(regs: torch.Tensor, want: torch.Tensor, fill: str,
-               floor_ms: float) -> None:
-    """Phase 2e: the previous K1 and each candidate design, each held equal to
-    the plain version first, then timed in turns, six samples each,
-    beside the kernel the wrapper launches."""
-    from attendance_tpu_torch.ops import kernels
-
-    designs = {name: (lambda v=v, s=s: k1_variant(regs, v, s))
-               for name, (v, s) in K1_DESIGNS.items()}
-    if regs.shape[0] <= 16:
-        for name, variant in (("atomic256", 2), ("packed256", 3),
-                              ("nibble", 7), ("warpbins", 8), ("hot", 9)):
-            for split in (1, 2, 4, 8):
-                designs[f"{name}_split{split}"] = (
-                    lambda v=variant, s=split: k1_variant(regs, v, s))
-    designs["wrapper"] = lambda: kernels.hll_histogram(regs, 14)
-    for name, fn in designs.items():
-        got = fn()
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"K1 {name} fill={fill} banks={regs.shape[0]} differs")
-    times = {name: [] for name in designs}
-    for _ in range(6):
-        for name, fn in designs.items():
-            times[name].append(kernel_ms(fn))
-    for name, ts in times.items():
-        print(f"K1 compare fill={fill} banks={regs.shape[0]} {name} "
-              f"ms={min(ts)}-{max(ts)} above_floor_ms={min(ts) - floor_ms} "
-              f"samples={ts}")
 
 
 def histogram_phase(dev, floor_ms: float, live: torch.Tensor,
                     rows: dict) -> None:
     """Phase 2b: K1 at every bank count the PFCOUNT path launches it at,
-    on two register fills: "uniform" (2^20 uniform keys over the banks,
-    PRs 1-4's fill) and "main" (the main path's live rows after phase 3,
-    repeated to the bank count), held equal to the plain version and to
+    on two register fills: "uniform" (2^20 uniform keys over the banks)
+    and "main" (the main path's live rows after phase 3, repeated to the
+    bank count), held equal to the plain version and to
     ``torch.bincount``, and timed beside its bound."""
     from attendance_tpu_torch.models import hll
     from attendance_tpu_torch.ops import kernels
@@ -354,7 +306,6 @@ def histogram_phase(dev, floor_ms: float, live: torch.Tensor,
                   f"bincount_ms={library_ms} bound_ms={b_ms} ({b_by}) "
                   f"times_bound={ms / b_ms} max_abs_err={err} top values "
                   f"{top.indices.tolist()} shares {top.values.tolist()}")
-            compare_k1(regs, want, fill, floor_ms)
             if fill == "main" and num_banks == 16:
                 rows["hll_histogram"] = dict(
                     replaces="attendance_tpu/ops/pallas_kernels.py:398",
