@@ -4,8 +4,8 @@ Counterpart of ``attendance_tpu/cli.py:cmd_fused``: a hermetic run of the
 hot path in one process — bulk binary load generator -> in-process
 broker -> FusedPipeline (roster preload, one fused kernel per frame,
 and with ``--temporal-period-s > 0`` the temporal plane) -> PFCOUNT of
-every lecture day. Runs on the CUDA card unless ``--device cpu`` is
-given.
+every lecture day; ``--wire-format`` picks the host->device wire. Runs
+on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -60,7 +60,8 @@ def run_fused(config: Config, num_events: int, frame_size: int,
 
 
 def cmd_fused(args) -> None:
-    config = Config(temporal_period_s=args.temporal_period_s,
+    config = Config(wire_format=args.wire_format,
+                    temporal_period_s=args.temporal_period_s,
                     allowed_lateness_s=args.allowed_lateness_s,
                     watermark_idle_s=args.watermark_idle_s,
                     temporal_ring_banks=args.temporal_ring_banks,
@@ -87,6 +88,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: the CUDA card; 'cpu' runs "
                    "the kernels' plain PyTorch versions)")
     d = Config()
+    f.add_argument("--wire-format", default=d.wire_format,
+                   choices=("auto", "delta", "seg", "word", "bytes"),
+                   help="host->device wire of the fused step: auto adapts "
+                   "per frame (word -> seg -> delta on backpressure, with "
+                   "the native host pack); delta (db bits/event) and seg "
+                   "(kb bits/event) are the narrow wires; word packs the "
+                   "bank into the key's high bits; bytes is the (4 + w) "
+                   "byte wire. ATP_NATIVE=0 selects the numpy host pack")
     f.add_argument("--temporal-period-s", type=float,
                    default=d.temporal_period_s,
                    help="bucket width of the temporal sketch plane in "

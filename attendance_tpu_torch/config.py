@@ -16,9 +16,6 @@ PULSAR_TOPIC = "attendance-events"
 BLOOM_FILTER_ERROR_RATE = 0.01
 BLOOM_FILTER_CAPACITY = 100_000
 
-# Wires of the JAX package that the port does not carry yet.
-_LATER_WIRES = ("seg", "delta")
-
 
 @dataclasses.dataclass
 class Config:
@@ -27,10 +24,12 @@ class Config:
     bloom_filter_capacity: int = BLOOM_FILTER_CAPACITY
     # HLL precision: p=14 -> 16384 registers, matching Redis dense HLL.
     hll_precision: int = 14
-    # Host->device wire of the fused step: "auto" starts (and, without
-    # the native host pack, stays) on the 4-byte word wire and falls
-    # back to the (4 + w)-byte bytes wire when key and bank bits do not
-    # fit one word; "word" and "bytes" force one.
+    # Host->device wire of the fused step: "auto" starts on the 4-byte
+    # word wire and, with the native host pack, climbs to the narrower
+    # seg (kb bits/event) and delta (db bits/event) wires while the card
+    # or the link holds the hot loop back; the (4 + w)-byte bytes wire
+    # carries frames whose key and bank bits do not fit one word.
+    # "word", "bytes", "seg" and "delta" force one.
     wire_format: str = "auto"
     # Full-population exact shadow of the temporal plane's windows
     # (>= 1.0 keeps per-bucket sets of valid students: the window audit
@@ -61,12 +60,8 @@ class Config:
         if not (4 <= self.hll_precision <= 18):
             raise ValueError(
                 f"hll precision out of range: {self.hll_precision}")
-        if self.wire_format in _LATER_WIRES:
-            raise NotImplementedError(
-                f"wire format {self.wire_format!r} is not ported yet "
-                "(ROADMAP.md, Queue A: seg/delta wires with the native "
-                "host pack)")
-        if self.wire_format not in ("auto", "word", "bytes"):
+        if self.wire_format not in ("auto", "delta", "seg", "word",
+                                    "bytes"):
             raise ValueError(f"unknown wire format: {self.wire_format}")
         if not (0.0 <= self.audit_sample <= 1.0):
             raise ValueError(

@@ -1,9 +1,10 @@
 // Hand-written Hopper kernels for the fused attendance hot path.
 //
-// Six kernels, each bound through a plain C entry point (ctypes, see
-// ops/build.py and ops/kernels.py). Every entry point launches on the
-// stream it is given, allocates nothing, and returns cudaGetLastError()
-// so a refused launch is reported to the caller.
+// Six kernels (K2 in three wire variants), each bound through a plain C
+// entry point (ctypes, see ops/build.py and ops/kernels.py). Every entry
+// point launches on the stream it is given, allocates nothing, and
+// returns cudaGetLastError() so a refused launch is reported to the
+// caller.
 //
 //   K1 atp_hll_histogram  register-value histogram per HLL bank, one CTA
 //                         per bank counting into per-thread shared-memory
@@ -16,6 +17,12 @@
 //                         by four lanes together, into shared memory
 //                         (replaces the XLA programs fused_step_words /
 //                         fused_step_bytes, attendance_tpu/models/fused.py)
+//      atp_fused_step_seg   the same step over the seg wire, after one
+//                         scan of the per-bank counts (replaces the XLA
+//                         program fused_step_seg, models/fused.py:261)
+//      atp_fused_step_delta the same step over the delta wire, after the
+//                         frame-wide prefix sum of the deltas (three
+//                         passes; replaces fused_step_delta, :386)
 //   K3 atp_bloom_add      packed Bloom preload: a large batch binned by
 //                         filter tile and ORed in shared memory (a memset
 //                         and three kernels), a small one by one thread
@@ -257,20 +264,136 @@ hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
 }
 
 // ---------------------------------------------------------------------------
-// K2: one lane per thread, one pass over a full grid. Unpack (key, bank)
+// K2: one lane per thread, one pass over a full grid. Decode (key, bank)
 // from the wire, probe the Bloom filter warp-wide (warp_bloom_probe), and
 // for valid real lanes max the HLL rank into its register. Valid/invalid
 // counts are reduced per warp with ballots and per CTA in shared memory,
 // then added with one 64-bit atomic per CTA per counter: the uint32[2, 2]
 // (lo, hi) counters, read little-endian, are exactly two uint64 totals.
+// The decode is the kernel's template parameter, one functor per wire
+// (below); the probe-and-count tail is the same for all four wires.
+// ---------------------------------------------------------------------------
+
+// Word and bytes wires.
 // bank_bytes == 0: word wire, uint32[lanes] of bank << key_bits | key,
 //                  all-ones bank field = padding.
 // bank_bytes in {1, 2, 4}: bytes wire, uint32 keys[lanes] then
 //                  uint{8*bank_bytes} banks[lanes], dtype max = padding.
-// ---------------------------------------------------------------------------
+struct WireDecode {
+  const uint8_t* wire;
+  int bank_bytes;
+  int key_bits;
+  int lanes;
+
+  __device__ __forceinline__ void operator()(int i, uint32_t* key,
+                                             int32_t* bank) const {
+    const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wire);
+    if (bank_bytes == 0) {
+      const uint32_t w = w32[i];
+      *key = w & ((1u << key_bits) - 1u);
+      const uint32_t field = w >> key_bits;
+      *bank = field == (1u << (32 - key_bits)) - 1u
+                  ? -1 : static_cast<int32_t>(field);
+      return;
+    }
+    *key = w32[i];
+    const uint8_t* banks = wire + 4 * static_cast<size_t>(lanes);
+    uint32_t field;
+    uint32_t sentinel;
+    if (bank_bytes == 1) {
+      field = banks[i];
+      sentinel = 0xFFu;
+    } else if (bank_bytes == 2) {
+      field = reinterpret_cast<const uint16_t*>(banks)[i];
+      sentinel = 0xFFFFu;
+    } else {
+      field = reinterpret_cast<const uint32_t*>(banks)[i];
+      sentinel = 0xFFFFFFFFu;
+    }
+    *bank = field == sentinel ? -1 : static_cast<int32_t>(field);
+  }
+};
+
+// Lane i's `width`-bit field of a little-endian bitstream of uint32 words
+// (1 <= width <= 32): the bits from i * width on, spanning at most two
+// words. The second word is read only when the field starts inside a
+// word (a shift by 32 is undefined); the wire's two guard words hold the
+// last lane's second word.
+__device__ __forceinline__ uint32_t stream_field(
+    const uint32_t* __restrict__ stream, int i, int width) {
+  const uint64_t bit = static_cast<uint64_t>(i) * static_cast<uint64_t>(width);
+  const size_t w0 = static_cast<size_t>(bit >> 5);
+  const uint32_t sh = static_cast<uint32_t>(bit & 31u);
+  uint32_t v = stream[w0] >> sh;
+  if (sh != 0u) v |= stream[w0 + 1] << (32u - sh);
+  return width >= 32 ? v : v & ((1u << width) - 1u);
+}
+
+// Lane i's bank: the segment holding i, i.e. the first bank b whose
+// inclusive end starts[b + 1] exceeds i (an upper bound, so runs of empty
+// banks go to the next non-empty one, as searchsorted(side="right")
+// does). starts[0..num_banks] is the exclusive scan of the per-bank
+// counts, starts[num_banks] the frame's total; a lane at or past the
+// total is padding.
+__device__ __forceinline__ int32_t segment_of(
+    const uint32_t* __restrict__ starts, int num_banks, uint32_t i) {
+  int lo = 0;
+  int hi = num_banks;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (starts[mid + 1] > i) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+// Seg wire: [counts u32[num_banks] | kb-bit keys | guard], lanes sorted
+// by bank; starts from wire_scan_kernel. Padding lanes decode key 0.
+struct SegDecode {
+  const uint32_t* buf;
+  int num_banks;
+  int kb;
+  const uint32_t* starts;
+
+  __device__ __forceinline__ void operator()(int i, uint32_t* key,
+                                             int32_t* bank) const {
+    *key = stream_field(buf + num_banks, i, kb);
+    const uint32_t lane = static_cast<uint32_t>(i);
+    *bank = lane < starts[num_banks] ? segment_of(starts, num_banks, lane)
+                                     : -1;
+  }
+};
+
+// Delta wire: [counts | bases u32[num_banks] | db-bit deltas | guard]; c
+// is the frame-wide inclusive prefix sum of the deltas (uint32,
+// wrapping) from delta_prefix_kernel. Key = bases[b] + c[i] - c[s - 1],
+// s the segment's start (c[-1] = 0): exact under wraparound because each
+// segment's own partial sums fit 32 bits. Padding lanes take bank 0's
+// base and prefix, as the JAX decode does.
+struct DeltaDecode {
+  const uint32_t* buf;
+  int num_banks;
+  const uint32_t* starts;
+  const uint32_t* c;
+
+  __device__ __forceinline__ void operator()(int i, uint32_t* key,
+                                             int32_t* bank) const {
+    const uint32_t lane = static_cast<uint32_t>(i);
+    const bool real = lane < starts[num_banks];
+    const int32_t b = real ? segment_of(starts, num_banks, lane) : 0;
+    const uint32_t s = starts[b];
+    const uint32_t before = s == 0u ? 0u : c[s - 1u];
+    *key = buf[num_banks + b] + c[i] - before;
+    *bank = real ? b : -1;
+  }
+};
+
+template <class Decode>
 __global__ void __launch_bounds__(kThreads)
-fused_step_kernel(const uint8_t* __restrict__ wire, int bank_bytes,
-                  int key_bits, int lanes,
+fused_step_kernel(Decode decode, int lanes,
                   const uint32_t* __restrict__ bloom, uint32_t num_blocks,
                   uint64_t magic, int k, uint8_t* regs, int num_banks,
                   int precision, unsigned long long* counts,
@@ -280,32 +403,7 @@ fused_step_kernel(const uint8_t* __restrict__ wire, int bank_bytes,
   const bool present = i < lanes;
   uint32_t key = 0u;
   int32_t bank = -1;
-  if (present) {
-    const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wire);
-    if (bank_bytes == 0) {
-      const uint32_t w = w32[i];
-      key = w & ((1u << key_bits) - 1u);
-      const uint32_t field = w >> key_bits;
-      bank = field == (1u << (32 - key_bits)) - 1u
-                 ? -1 : static_cast<int32_t>(field);
-    } else {
-      key = w32[i];
-      const uint8_t* banks = wire + 4 * static_cast<size_t>(lanes);
-      uint32_t field;
-      uint32_t sentinel;
-      if (bank_bytes == 1) {
-        field = banks[i];
-        sentinel = 0xFFu;
-      } else if (bank_bytes == 2) {
-        field = reinterpret_cast<const uint16_t*>(banks)[i];
-        sentinel = 0xFFFFu;
-      } else {
-        field = reinterpret_cast<const uint32_t*>(banks)[i];
-        sentinel = 0xFFFFFFFFu;
-      }
-      bank = field == sentinel ? -1 : static_cast<int32_t>(field);
-    }
-  }
+  if (present) decode(i, &key, &bank);
   const bool hit = warp_bloom_probe(bloom, num_blocks, magic, k, key, present,
                                     stage + (threadIdx.x >> 5) * 128);
   const bool real = bank >= 0;
@@ -686,7 +784,84 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
   est[i] = m;
 }
 
+// ---------------------------------------------------------------------------
+// K2-seg and K2-delta pre-passes. A lane's bank is the segment holding it,
+// so the per-bank counts are scanned before the step; a delta lane's key
+// needs the frame-wide prefix sum of the deltas at its own lane and at
+// its segment's start, which usually lies in another CTA's tile, so that
+// prefix exists in full before the step: the tile sums, one CTA that
+// scans counts and tile sums, then each tile's inclusive scan plus its
+// offset. Sums are uint32 and wrap, as the JAX uint32 cumsum does.
+// ---------------------------------------------------------------------------
+
+// One CTA: starts[0..num_banks] = exclusive scan of the wire's counts
+// (starts[num_banks] = the frame's total); with tile_sums, also
+// tile_off[0..tiles] = exclusive scan of the per-tile delta sums.
+__global__ void __launch_bounds__(kThreads)
+wire_scan_kernel(const uint32_t* __restrict__ counts, int num_banks,
+                 uint32_t* starts, const uint32_t* __restrict__ tile_sums,
+                 int tiles, uint32_t* tile_off) {
+  cta_exclusive_scan([=](int t) { return counts[t]; }, num_banks, starts);
+  if (tile_sums != nullptr) {
+    cta_exclusive_scan([=](int t) { return tile_sums[t]; }, tiles, tile_off);
+  }
+}
+
+// One CTA per tile of kThreads lanes: the tile's delta sum.
+__global__ void __launch_bounds__(kThreads)
+delta_tile_sum_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
+                      uint32_t* __restrict__ tile_sums) {
+  __shared__ uint32_t warp_sums[kWarps];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t d = __reduce_add_sync(
+      0xFFFFFFFFu, i < lanes ? stream_field(stream, i, db) : 0u);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = d;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t s = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
+    tile_sums[blockIdx.x] = s;
+  }
+}
+
+// One CTA per tile: c[i] = tile_off[tile] + the tile's inclusive scan.
+__global__ void __launch_bounds__(kThreads)
+delta_prefix_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
+                    const uint32_t* __restrict__ tile_off,
+                    uint32_t* __restrict__ c) {
+  __shared__ uint32_t warp_sums[kWarps];
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t incl = i < lanes ? stream_field(stream, i, db) : 0u;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  uint32_t base = tile_off[blockIdx.x];
+  for (int w = 0; w < warp; ++w) base += warp_sums[w];
+  if (i < lanes) c[i] = base + incl;
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// K2 over one frame with the wire's decode.
+template <class Decode>
+int launch_fused_step(const Decode& decode, int lanes, const void* bloom,
+                      unsigned int num_blocks, int k, void* regs,
+                      int num_banks, int precision, void* counts,
+                      void* valid, cudaStream_t s) {
+  fused_step_kernel<<<blocks_for(lanes), kThreads, 0, s>>>(
+      decode, lanes, static_cast<const uint32_t*>(bloom), num_blocks,
+      fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
+      precision, static_cast<unsigned long long*>(counts),
+      static_cast<uint8_t*>(valid));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K3's binned path: the memset and three kernels on one stream (see
 // above).
@@ -752,14 +927,72 @@ int atp_fused_step(const void* wire, int bank_bytes, int key_bits, int lanes,
                    void* regs, int num_banks, int precision, void* counts,
                    void* valid, void* stream) {
   if (lanes > 0) {
-    fused_step_kernel<<<blocks_for(lanes), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(wire), bank_bytes, key_bits, lanes,
-        static_cast<const uint32_t*>(bloom), num_blocks,
-        fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
-        precision,
-        static_cast<unsigned long long*>(counts),
-        static_cast<uint8_t*>(valid));
+    return launch_fused_step(
+        WireDecode{static_cast<const uint8_t*>(wire), bank_bytes, key_bits,
+                   lanes},
+        lanes, bloom, num_blocks, k, regs, num_banks, precision, counts,
+        valid, static_cast<cudaStream_t>(stream));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2-seg: buf is [counts u32[wire_banks] | kb-bit keys | guard] for
+// `lanes` (padded) lanes; scratch holds wire_banks + 1 uint32 (the
+// counts' exclusive scan). num_banks is the register rows.
+int atp_fused_step_seg(const void* buf, int kb, int lanes, int wire_banks,
+                       void* scratch, const void* bloom,
+                       unsigned int num_blocks, int k, void* regs,
+                       int num_banks, int precision, void* counts,
+                       void* valid, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* b = static_cast<const uint32_t*>(buf);
+  uint32_t* starts = static_cast<uint32_t*>(scratch);
+  wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, nullptr, 0,
+                                          nullptr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_fused_step(SegDecode{b, wire_banks, kb, starts}, lanes, bloom,
+                           num_blocks, k, regs, num_banks, precision, counts,
+                           valid, s);
+}
+
+// K2-delta: buf is [counts | bases u32[wire_banks] | db-bit deltas |
+// guard]; scratch holds starts[wire_banks + 1], tile_sums[tiles],
+// tile_off[tiles + 1] and c[lanes] (uint32), tiles = ceil(lanes / 256).
+// passes: bit 0 runs the three pre-passes, bit 1 the step (the wrapper
+// runs both; one alone times it apart, the step reading the scratch the
+// pre-passes left).
+int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
+                         void* scratch, const void* bloom,
+                         unsigned int num_blocks, int k, void* regs,
+                         int num_banks, int precision, void* counts,
+                         void* valid, int passes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* b = static_cast<const uint32_t*>(buf);
+  const uint32_t* deltas = b + 2 * static_cast<size_t>(wire_banks);
+  const int tiles = blocks_for(lanes);
+  uint32_t* starts = static_cast<uint32_t*>(scratch);
+  uint32_t* tile_sums = starts + wire_banks + 1;
+  uint32_t* tile_off = tile_sums + tiles;
+  uint32_t* c = tile_off + tiles + 1;
+  if (passes & 1) {
+    delta_tile_sum_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes,
+                                                     tile_sums);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, tile_sums,
+                                            tiles, tile_off);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    delta_prefix_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes,
+                                                   tile_off, c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (passes & 2) {
+    return launch_fused_step(DeltaDecode{b, wire_banks, starts, c}, lanes,
+                             bloom, num_blocks, k, regs, num_banks, precision,
+                             counts, valid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

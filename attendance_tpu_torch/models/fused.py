@@ -1,9 +1,11 @@
 """The fused hot-loop step: validate (Bloom) + count (HLL) per frame.
 
-Counterpart of ``attendance_tpu/models/fused.py`` (word and bytes wires).
-The reference's per-event loop body (BF.EXISTS, then PFADD if valid) runs
-as ONE kernel launch per frame (K2, ``ops/kernels.fused_step``); the only
-host traffic is the packed wire in and the validity vector out.
+Counterpart of ``attendance_tpu/models/fused.py`` (word, bytes, seg and
+delta wires, with their numpy host packs). The reference's per-event
+loop body (BF.EXISTS, then PFADD if valid) runs as ONE kernel call per
+frame (K2, ``ops/kernels.fused_step``, ``fused_step_seg`` and
+``fused_step_delta``); the only host traffic is the packed wire in and
+the validity vector out.
 
 State is three tensors, updated in place by each step where the JAX
 step donated its input state:
@@ -141,3 +143,141 @@ def pack_bytes(keys, banks, bank_dtype, padded: int) -> np.ndarray:
     bv[:n] = banks  # caller guarantees all < num_banks <= sentinel
     bv[n:] = np.iinfo(bank_dtype).max
     return out
+
+
+# ---------------------------------------------------------------------------
+# Segmented bit-packed wire: kb bits/event, banks carried as segment counts
+# ---------------------------------------------------------------------------
+
+SEG_GUARD_WORDS = 2  # bitstream tail slack so packers may write whole words
+
+
+def seg_buf_words(num_banks: int, kb: int, padded: int) -> int:
+    """uint32 length of the segmented wire buffer:
+    [counts u32[num_banks] | bitstream ceil(padded*kb/32) | guard]."""
+    return num_banks + (padded * kb + 31) // 32 + SEG_GUARD_WORDS
+
+
+def delta_buf_words(num_banks: int, db: int, padded: int) -> int:
+    """uint32 length of the delta wire buffer:
+    [counts u32[num_banks] | base keys u32[num_banks] |
+     bitstream ceil(padded*db/32) | guard]."""
+    return 2 * num_banks + (padded * db + 31) // 32 + SEG_GUARD_WORDS
+
+
+def fused_step_seg(state: SketchState, buf: torch.Tensor,
+                   params: BloomParams, kb: int, padded: int,
+                   num_banks: int, precision: int = 14) -> torch.Tensor:
+    """The step over the segmented wire: ONE uint32 vector (int32
+    storage) of per-bank event counts, then a little-endian bitstream of
+    ``kb`` bits per event, events stably sorted by bank, zero bits on
+    padding lanes. The bank id never crosses the link: lane i's bank is
+    the segment holding i. Updates ``state``'s registers and counters in
+    place; returns valid: bool[padded], in packed (bank-sorted) order."""
+    return kernels.fused_step_seg(state.bloom_bits, state.hll_regs,
+                                  state.counts, buf, params, kb=kb,
+                                  padded=padded, num_banks=num_banks,
+                                  precision=precision)
+
+
+def fused_step_delta(state: SketchState, buf: torch.Tensor,
+                     params: BloomParams, db: int, padded: int,
+                     num_banks: int, precision: int = 14) -> torch.Tensor:
+    """The step over the delta wire: per-bank counts, per-bank base
+    (smallest) keys, then ``db``-bit gaps between consecutive keys of
+    each bank segment (events sorted by (bank, key)). A key is its
+    bank's base plus the segment's prefix sum of gaps, exact under
+    uint32 wraparound. Updates ``state`` in place; returns valid:
+    bool[padded], in packed order."""
+    return kernels.fused_step_delta(state.bloom_bits, state.hll_regs,
+                                    state.counts, buf, params, db=db,
+                                    padded=padded, num_banks=num_banks,
+                                    precision=precision)
+
+
+def _or_stream(buf: np.ndarray, vals: np.ndarray, width: int,
+               base: int) -> None:
+    """OR ``width``-bit values into ``buf``'s little-endian bitstream
+    starting at word ``base``. Adjacent lanes may share words; lanes
+    ``stride`` apart never do (stride * width >= 64 bits), so strided
+    fancy-index ORs see unique indices and vectorize."""
+    n = len(vals)
+    pos = np.arange(n, dtype=np.uint64) * np.uint64(width)
+    w0 = (pos >> np.uint64(5)).astype(np.int64) + base
+    v = vals.astype(np.uint64) << (pos & np.uint64(31))  # <= 63 bits
+    lo = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (v >> np.uint64(32)).astype(np.uint32)
+    stride = -(-64 // max(width, 1))
+    for s in range(stride):
+        buf[w0[s::stride]] |= lo[s::stride]
+        buf[w0[s::stride] + 1] |= hi[s::stride]
+
+
+def pack_seg(keys, banks, kb: int, padded: int, num_banks: int):
+    """Host-side numpy pack of the segmented wire: (buf, perm), ``perm``
+    mapping packed lane -> original event index (stable within each
+    bank, so rows with equal primary keys keep their append order). A
+    key wider than ``kb`` bits would spill into the next lane, so it
+    raises (the native packer returns -3)."""
+    n = len(keys)
+    banks = np.asarray(banks)
+    perm = np.argsort(banks, kind="stable").astype(np.uint32)
+    counts = np.bincount(banks, minlength=num_banks).astype(np.uint32)
+    buf = np.zeros(seg_buf_words(num_banks, kb, padded), np.uint32)
+    buf[:num_banks] = counts
+    if n:
+        keys_u32 = np.asarray(keys, np.uint32)
+        if kb < 32 and int(keys_u32.max()) >> kb:
+            raise ValueError(
+                f"pack_seg: key exceeds {kb}-bit width "
+                f"(max key {int(keys_u32.max())})")
+        _or_stream(buf, keys_u32[perm], kb, num_banks)
+    return buf, perm
+
+
+def pick_delta_width(hint: int, needed: int) -> int:
+    """Wire width for a frame whose widest sorted-key gap needs
+    ``needed`` bits: at least the monotonic ``hint``, rounded up to even
+    so frame-to-frame jitter of the widest gap moves the width rarely.
+    The one definition for the native and the numpy pack."""
+    return min(32, (max(hint, needed) + 1) // 2 * 2)
+
+
+def delta_scan(keys, banks, num_banks: int):
+    """Sort by (bank, key) keeping append order on ties, and compute the
+    per-event deltas the wire carries: (perm, counts, bases, deltas,
+    needed_bits). numpy version of the native ``atp_delta_scan``."""
+    n = len(keys)
+    keys = np.asarray(keys, np.uint32)
+    banks = np.asarray(banks)
+    perm = np.lexsort((np.arange(n), keys, banks)).astype(np.uint32)
+    counts = np.bincount(banks, minlength=num_banks).astype(np.uint32)
+    sk = keys[perm]
+    deltas = np.empty(n, np.uint32)
+    if n:
+        deltas[0] = 0
+        np.subtract(sk[1:], sk[:-1], out=deltas[1:])
+    starts = np.cumsum(counts) - counts
+    bases = np.zeros(num_banks, np.uint32)
+    nz = counts > 0
+    bases[nz] = sk[starts[nz]]
+    deltas[starts[nz]] = 0  # segment firsts ride in the base header
+    needed = int(deltas.max()).bit_length() if n else 1
+    return perm, counts, bases, deltas, max(needed, 1)
+
+
+def pack_delta(keys, banks, db: int, padded: int, num_banks: int,
+               scan=None):
+    """Host-side numpy pack of the delta wire: (buf, perm), or (None,
+    None) when the frame's widest delta needs more than ``db`` bits.
+    ``scan`` reuses a :func:`delta_scan` result (native or numpy)."""
+    perm, counts, bases, deltas, needed = (
+        scan if scan is not None else delta_scan(keys, banks, num_banks))
+    if needed > db:
+        return None, None
+    buf = np.zeros(delta_buf_words(num_banks, db, padded), np.uint32)
+    buf[:num_banks] = counts
+    buf[num_banks:2 * num_banks] = bases
+    if len(keys):
+        _or_stream(buf, np.asarray(deltas, np.uint32), db, 2 * num_banks)
+    return buf, perm

@@ -1,0 +1,417 @@
+/* Native host pack of the port's fused pipeline (ctypes, no Python API).
+ *
+ * The port's own copy of the pack half of the JAX package's host runtime
+ * (attendance_tpu/native/hostpipe.c): each call fuses the per-frame host
+ * work between the frame decode and the device dispatch into one pass
+ * over the frame.  It maps lecture days through the dense day->bank LUT
+ * and packs the lanes straight into the transfer buffer of one wire:
+ *
+ *   atp_max_key     the frame's max student id (the key width)
+ *   atp_pack_words  word wire: bank << kw | key, all-ones padding
+ *   atp_pack_bytes  bytes wire: u32 keys, then narrow bank ids
+ *   atp_pack_seg    seg wire: per-bank counts, then a kb-bit key stream
+ *                   stably sorted by bank, plus the lane permutation
+ *   atp_delta_scan  delta wire, scan half: counting sort by bank, radix
+ *                   sort by key inside each bank, per-lane deltas
+ *   atp_bitpack     delta wire, pack half: fixed-width bit-pack
+ *
+ * The numpy equivalent (models/fused.py) is several passes with
+ * frame-sized temporaries; this is about three loads and one store per
+ * event with no allocation in the steady state.  A LUT miss returns the
+ * missed event's index and the caller registers the day and retries; the
+ * return codes are those of the JAX package's runtime, so the two
+ * pipelines take the same path on the same frames.
+ *
+ * Plain C (c17), no dependencies; built by native/build.py with the
+ * system C compiler (`cc -O3 -std=c17 -shared -fPIC -pthread`, no
+ * -march=native: a library built on one host may be loaded on another),
+ * loaded via ctypes (native/__init__.py).  The strided key/day pointers
+ * take both planar frames (stride 4) and interleaved record frames
+ * (stride 20).
+ */
+
+#include <pthread.h>
+#include <stddef.h>
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+/* Per-thread scratch arena: the packers need several MB of working
+ * memory per frame, and a fresh malloc each call can cost more in page
+ * faults than the passes that use it.  Slots grow monotonically while a
+ * thread lives, so the bound is PER THREAD (largest frame that thread
+ * ever packs); a pthread TSD destructor frees the whole arena at thread
+ * exit, so embedders packing from short-lived worker threads do not
+ * leak.  The arena struct is heap-owned and reached through the TSD key
+ * — never through __thread storage, whose teardown order against TSD
+ * destructors is unspecified. */
+enum { SCRATCH_SLOTS = 6 };
+
+typedef struct { void *p; size_t cap; } scratch_slot;
+typedef struct { scratch_slot s[SCRATCH_SLOTS]; } scratch_arena;
+
+static pthread_key_t g_scratch_key;
+static pthread_once_t g_scratch_once = PTHREAD_ONCE_INIT;
+
+static void scratch_destroy(void *arg) {
+    scratch_arena *a = arg;
+    for (int i = 0; i < SCRATCH_SLOTS; ++i) free(a->s[i].p);
+    free(a);
+}
+
+static void scratch_key_init(void) {
+    (void)pthread_key_create(&g_scratch_key, scratch_destroy);
+}
+
+static void *scratch(int slot, size_t bytes) {
+    pthread_once(&g_scratch_once, scratch_key_init);
+    scratch_arena *a = pthread_getspecific(g_scratch_key);
+    if (!a) {
+        a = calloc(1, sizeof *a);
+        if (!a) return NULL;
+        if (pthread_setspecific(g_scratch_key, a) != 0) {
+            free(a);
+            return NULL;
+        }
+    }
+    if (a->s[slot].cap < bytes) {
+        void *np_ = realloc(a->s[slot].p, bytes);
+        if (!np_) return NULL;
+        a->s[slot].p = np_;
+        a->s[slot].cap = bytes;
+    }
+    return a->s[slot].p;
+}
+
+/* Strided uint32 load: byte base + element index * byte stride. */
+static inline uint32_t ld_u32(const uint8_t *base, size_t i, size_t stride) {
+    const uint8_t *p = base + i * stride;
+    /* Little-endian assemble; compilers fold this to one load on LE
+     * targets, and it is alignment-safe for the 20-byte ATB1 stride. */
+    return (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+           ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+}
+
+/* Max student id over the frame (picks the packed key width). */
+uint32_t atp_max_key(const uint8_t *keys, size_t n, size_t stride) {
+    uint32_t mx = 0;
+    if (stride == 4) { /* contiguous: let the compiler vectorize */
+        const uint32_t *k = (const uint32_t *)keys;
+        for (size_t i = 0; i < n; ++i)
+            if (k[i] > mx) mx = k[i];
+    } else {
+        for (size_t i = 0; i < n; ++i) {
+            uint32_t v = ld_u32(keys, i, stride);
+            if (v > mx) mx = v;
+        }
+    }
+    return mx;
+}
+
+/* Fused LUT bank-map + word pack.
+ *
+ * out[i] = lut[day[i] - day_base] << kw | key[i]   for i < n
+ * out[i] = 0xFFFFFFFF (padding sentinel)           for n <= i < padded
+ *
+ * Returns 0 on success, 1 + the index of the first event whose day
+ * fell outside the LUT window or had no registered bank (lut value
+ * < 0), or -2 when some key did not fit kw bits.  The overflow check
+ * rides the pack itself (one OR per event), so callers can try their
+ * monotonic width hint straight away and skip the separate max-key
+ * scan on every steady-state frame — the widen-and-retry only runs
+ * when the population actually grows.  On a miss the caller registers
+ * the missing day(s) in Python and calls again — out[] contents
+ * before the miss index are valid but the call must be retried in
+ * full. */
+int64_t atp_pack_words(const uint8_t *keys, size_t key_stride,
+                       const uint8_t *days, size_t day_stride,
+                       size_t n, size_t padded,
+                       const int32_t *lut, uint32_t day_base,
+                       uint32_t lut_size, uint32_t kw,
+                       uint32_t *out) {
+    uint32_t overflow = 0;
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t off = ld_u32(days, i, day_stride) - day_base;
+        if (off >= lut_size) return 1 + (int64_t)i;
+        int32_t bank = lut[off];
+        if (bank < 0) return 1 + (int64_t)i;
+        uint32_t k = ld_u32(keys, i, key_stride);
+        overflow |= kw < 32 ? (k >> kw) : 0;
+        out[i] = ((uint32_t)bank << kw) | k;
+    }
+    if (overflow) return -2;
+    for (size_t i = n; i < padded; ++i)
+        out[i] = 0xFFFFFFFFu;
+    return 0;
+}
+
+/* Same fused pass for the 5-byte fallback wire (keys u32[padded] then
+ * narrow bank ids), used when key+bank bits exceed one word.  w is the
+ * bank id byte width (1, 2 or 4); padding lanes get zero keys and the
+ * all-ones bank sentinel. */
+int64_t atp_pack_bytes(const uint8_t *keys, size_t key_stride,
+                       const uint8_t *days, size_t day_stride,
+                       size_t n, size_t padded,
+                       const int32_t *lut, uint32_t day_base,
+                       uint32_t lut_size, uint32_t w,
+                       uint8_t *out) {
+    uint32_t *kv = (uint32_t *)out;
+    uint8_t *bv = out + 4 * padded;
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t off = ld_u32(days, i, day_stride) - day_base;
+        if (off >= lut_size) return 1 + (int64_t)i;
+        int32_t bank = lut[off];
+        if (bank < 0) return 1 + (int64_t)i;
+        kv[i] = ld_u32(keys, i, key_stride);
+        if (w == 1) {
+            bv[i] = (uint8_t)bank;
+        } else if (w == 2) {
+            ((uint16_t *)bv)[i] = (uint16_t)bank;
+        } else {
+            ((uint32_t *)bv)[i] = (uint32_t)bank;
+        }
+    }
+    for (size_t i = n; i < padded; ++i) kv[i] = 0;
+    if (w == 1) {
+        for (size_t i = n; i < padded; ++i) bv[i] = 0xFFu;
+    } else if (w == 2) {
+        for (size_t i = n; i < padded; ++i)
+            ((uint16_t *)bv)[i] = 0xFFFFu;
+    } else {
+        for (size_t i = n; i < padded; ++i)
+            ((uint32_t *)bv)[i] = 0xFFFFFFFFu;
+    }
+    return 0;
+}
+
+/* Fused LUT bank-map + segmented bit-pack (the narrowest wire).
+ *
+ * Lays out ONE uint32 transfer buffer consumed by models.fused
+ * .fused_step_seg: [per-bank event counts u32[num_banks] | bitstream of
+ * kb bits per event, events stably sorted by bank | >= 2 guard words].
+ * The bank id itself never crosses the link — the device recovers it
+ * from the segment boundaries — so the wire is kb bits/event.
+ *
+ * out_perm[dst] = original index of the event packed at lane dst
+ * (counting sort, stable within each bank).  The caller permutes the
+ * store-bound columns with it so stored rows align with the device's
+ * validity vector.
+ *
+ * Returns 0 on success, 1 + i on the first LUT miss (same retry
+ * protocol as atp_pack_words), or -1 when scratch allocation fails /
+ * num_banks exceeds the u16 scratch encoding (caller falls back to the
+ * numpy packer).  buf_words is out_buf's uint32 length — the caller
+ * (native/__init__.py) sizes it with models.fused.seg_buf_words, the
+ * single definition of the wire layout; it is fully written here
+ * (counts + zeroed stream + OR-scattered key bits). */
+int64_t atp_pack_seg(const uint8_t *keys, size_t key_stride,
+                     const uint8_t *days, size_t day_stride,
+                     size_t n, size_t padded,
+                     const int32_t *lut, uint32_t day_base,
+                     uint32_t lut_size, uint32_t kb, uint32_t num_banks,
+                     uint32_t *out_buf, size_t buf_words,
+                     uint32_t *out_perm) {
+    if (num_banks > 0xFFFFu || kb == 0 || kb > 32) return -1;
+    /* The bitstream tail writes five bytes at bit (padded-1)*kb; make
+     * sure the caller's buffer really covers stream + guard. */
+    if (buf_words < num_banks + (padded * (size_t)kb + 31) / 32 + 2)
+        return -1;
+    uint16_t *bank_tmp = (uint16_t *)scratch(0, (n ? n : 1)
+                                             * sizeof(uint16_t));
+    uint32_t *offsets = (uint32_t *)scratch(1, num_banks
+                                            * sizeof(uint32_t));
+    if (!bank_tmp || !offsets)
+        return -1;
+    uint32_t *counts = out_buf;
+    memset(out_buf, 0, buf_words * sizeof(uint32_t));
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t off = ld_u32(days, i, day_stride) - day_base;
+        if (off >= lut_size || lut[off] < 0)
+            return 1 + (int64_t)i;
+        bank_tmp[i] = (uint16_t)lut[off];
+        ++counts[lut[off]];
+    }
+    uint32_t pos = 0;
+    for (uint32_t b = 0; b < num_banks; ++b) {
+        offsets[b] = pos;
+        pos += counts[b];
+    }
+    uint8_t *stream = (uint8_t *)(out_buf + num_banks);
+    uint32_t overflow = 0;
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t dst = offsets[bank_tmp[i]]++;
+        out_perm[dst] = (uint32_t)i;
+        uint64_t bit = (uint64_t)dst * kb;
+        uint32_t k = ld_u32(keys, i, key_stride);
+        /* Overflow detection rides the pack (see atp_pack_words): a
+         * key wider than kb bits would corrupt neighbouring lanes in
+         * the bitstream, so the caller retries with a wider kb. */
+        overflow |= kb < 32 ? (k >> kb) : 0;
+        uint64_t v = (uint64_t)k << (bit & 7);
+        uint8_t *p = stream + (bit >> 3);
+        /* kb + 7 <= 39 bits: one unaligned u64 read-modify-write
+         * covers any span (memcpy compiles to plain movs); the guard
+         * words absorb the tail write.  Single-threaded, so the RMW on
+         * shared boundary bytes between events is safe. */
+        uint64_t cur;
+        memcpy(&cur, p, 8);
+        cur |= v;
+        memcpy(p, &cur, 8);
+    }
+    return overflow ? -2 : 0;
+}
+
+/* Delta wire scan: sort by (bank, key) and emit the per-event deltas.
+ *
+ * Stable order: a counting sort by bank over the original order, then
+ * an LSD byte-radix by key within each bank segment — equal (bank,
+ * key) events keep append order, which is what keeps the columnar
+ * store's last-write-wins ties identical across wires.  Outputs the
+ * per-bank counts and base (first, smallest) keys, the delta stream
+ * (0 at each segment start; the base rides in the header), the packed
+ * lane -> original index permutation, and the widest delta's bit
+ * count via *out_needed (the caller picks the wire width from it and
+ * bit-packs with atp_bitpack).
+ *
+ * Returns 0 on success, 1 + i on the first LUT miss, -1 when scratch
+ * allocation fails or num_banks exceeds the u16 scratch encoding. */
+int64_t atp_delta_scan(const uint8_t *keys, size_t key_stride,
+                       const uint8_t *days, size_t day_stride,
+                       size_t n,
+                       const int32_t *lut, uint32_t day_base,
+                       uint32_t lut_size, uint32_t num_banks,
+                       uint32_t *out_counts, uint32_t *out_bases,
+                       uint32_t *out_deltas, uint32_t *out_perm,
+                       uint32_t *out_needed) {
+    if (num_banks > 0xFFFFu) return -1;
+    uint16_t *bank_tmp = (uint16_t *)scratch(0, (n ? n : 1)
+                                             * sizeof(uint16_t));
+    uint32_t *offsets = (uint32_t *)scratch(1, num_banks
+                                            * sizeof(uint32_t));
+    /* skey holds the keys in bank order, then in (bank, key) order;
+     * tkey/tidx are the radix ping-pong. */
+    uint32_t *skey = (uint32_t *)scratch(2, (n ? n : 1)
+                                         * sizeof(uint32_t));
+    uint32_t *tkey = (uint32_t *)scratch(3, (n ? n : 1)
+                                         * sizeof(uint32_t));
+    uint32_t *tidx = (uint32_t *)scratch(4, (n ? n : 1)
+                                         * sizeof(uint32_t));
+    if (!bank_tmp || !offsets || !skey || !tkey || !tidx)
+        return -1;
+    memset(out_counts, 0, num_banks * sizeof(uint32_t));
+    uint32_t maxkey = 0;
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t off = ld_u32(days, i, day_stride) - day_base;
+        if (off >= lut_size || lut[off] < 0)
+            return 1 + (int64_t)i;
+        bank_tmp[i] = (uint16_t)lut[off];
+        ++out_counts[lut[off]];
+        uint32_t k = ld_u32(keys, i, key_stride);
+        if (k > maxkey) maxkey = k;
+    }
+    uint32_t pos = 0;
+    for (uint32_t b = 0; b < num_banks; ++b) {
+        offsets[b] = pos;
+        pos += out_counts[b];
+    }
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t dst = offsets[bank_tmp[i]]++;
+        skey[dst] = ld_u32(keys, i, key_stride);
+        out_perm[dst] = (uint32_t)i;
+    }
+    /* offsets[b] is now each segment's END.  Radix-sort each segment
+     * by key: 11-bit digits (2 passes cover 22-bit ids, 3 cover u32),
+     * one combined histogram sweep for every digit, ping-pong buffers
+     * with at most one final copy.  Stable, so equal keys keep append
+     * order. */
+    enum { DBITS = 11, DSIZE = 1 << DBITS, DMASK = DSIZE - 1 };
+    int digits = 0;
+    while ((maxkey >> (DBITS * digits)) != 0 && digits < 3) ++digits;
+    uint32_t *hist = (uint32_t *)scratch(5, 3 * DSIZE * sizeof(uint32_t));
+    if (!hist)
+        return -1;
+    uint32_t seg_start = 0;
+    for (uint32_t b = 0; b < num_banks; ++b) {
+        uint32_t seg_end = offsets[b];
+        size_t m = seg_end - seg_start;
+        uint32_t *sk = skey + seg_start, *si = out_perm + seg_start;
+        if (m > 1 && digits > 0) {
+            memset(hist, 0, digits * DSIZE * sizeof(uint32_t));
+            for (size_t i = 0; i < m; ++i) {
+                uint32_t k = sk[i];
+                ++hist[k & DMASK];
+                if (digits > 1) ++hist[DSIZE + ((k >> DBITS) & DMASK)];
+                if (digits > 2) ++hist[2 * DSIZE + (k >> (2 * DBITS))];
+            }
+            uint32_t *ak = sk, *ai = si, *bk = tkey, *bi = tidx;
+            for (int d = 0; d < digits; ++d) {
+                uint32_t *h = hist + d * DSIZE;
+                int shift = DBITS * d;
+                if (h[(ak[0] >> shift) & DMASK] == m)
+                    continue; /* uniform digit: nothing to move */
+                uint32_t p = 0;
+                for (int v = 0; v < DSIZE; ++v) {
+                    uint32_t c = h[v];
+                    h[v] = p;
+                    p += c;
+                }
+                for (size_t i = 0; i < m; ++i) {
+                    uint32_t dst = h[(ak[i] >> shift) & DMASK]++;
+                    bk[dst] = ak[i];
+                    bi[dst] = ai[i];
+                }
+                uint32_t *t = ak; ak = bk; bk = t;
+                t = ai; ai = bi; bi = t;
+            }
+            if (ak != sk) {
+                memcpy(sk, ak, m * sizeof(uint32_t));
+                memcpy(si, ai, m * sizeof(uint32_t));
+            }
+        }
+        out_bases[b] = m ? sk[0] : 0;
+        seg_start = seg_end;
+    }
+    uint32_t maxd = 0;
+    seg_start = 0;
+    for (uint32_t b = 0; b < num_banks; ++b) {
+        uint32_t seg_end = offsets[b];
+        if (seg_end > seg_start) {
+            out_deltas[seg_start] = 0;
+            for (uint32_t i = seg_start + 1; i < seg_end; ++i) {
+                uint32_t d = skey[i] - skey[i - 1];
+                out_deltas[i] = d;
+                if (d > maxd) maxd = d;
+            }
+        }
+        seg_start = seg_end;
+    }
+    int bits = 0;
+    while ((maxd >> bits) != 0) ++bits;
+    *out_needed = bits ? (uint32_t)bits : 1;
+    return 0;
+}
+
+/* Sequential fixed-width bit-pack of the delta stream (zeroed padding
+ * tail).  Accumulator-based — no read-modify-writes, ~2 ops/event.
+ * stream_words must be >= (padded*db + 31)/32 + 2 guard words. */
+int64_t atp_bitpack(const uint32_t *vals, size_t n, size_t padded,
+                    uint32_t db, uint32_t *stream, size_t stream_words) {
+    if (db == 0 || db > 32) return -1;
+    if (stream_words < (padded * (size_t)db + 31) / 32 + 2) return -1;
+    uint64_t acc = 0;
+    int nbits = 0;
+    size_t w = 0;
+    for (size_t i = 0; i < n; ++i) {
+        acc |= (uint64_t)vals[i] << nbits;
+        nbits += (int)db;
+        while (nbits >= 32) {
+            stream[w++] = (uint32_t)acc;
+            acc >>= 32;
+            nbits -= 32;
+        }
+    }
+    if (nbits > 0)
+        stream[w++] = (uint32_t)acc;
+    memset(stream + w, 0, (stream_words - w) * sizeof(uint32_t));
+    return 0;
+}

@@ -33,6 +33,10 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "atp_hll_histogram": (_P, _P, _I, _I, _I, _P),
     "atp_fused_step": (_P, _I, _I, _I, _P, _U, _I, _P, _I, _I, _P, _P, _P),
+    "atp_fused_step_seg": (_P, _I, _I, _I, _P, _P, _U, _I, _P, _I, _I, _P,
+                           _P, _P),
+    "atp_fused_step_delta": (_P, _I, _I, _I, _P, _P, _U, _I, _P, _I, _I,
+                             _P, _P, _I, _P),
     "atp_bloom_add": (_P, _P, _I, _U, _I, _I, _I, _P, _P),
     "atp_bloom_contains": (_P, _U, _I, _P, _I, _P, _P),
     "atp_hll_add": (_P, _I, _I, _P, _P, _P, _I, _P),

@@ -24,8 +24,9 @@ from attendance_tpu_torch.ops.build import library
 from attendance_tpu_torch.ops.murmur3 import MASK32, as_u32, to_i32
 
 # Kernel launches since the last reset_launches(), by wrapper name.
-launches = {"hll_histogram": 0, "fused_step": 0, "bloom_add": 0,
-            "bloom_contains": 0, "hll_add": 0, "cms_step": 0}
+launches = {"hll_histogram": 0, "fused_step": 0, "fused_step_seg": 0,
+            "fused_step_delta": 0, "bloom_add": 0, "bloom_contains": 0,
+            "hll_add": 0, "cms_step": 0}
 
 
 def reset_launches() -> None:
@@ -227,6 +228,21 @@ def _bump_counts(counts: torch.Tensor, nv: torch.Tensor,
     counts.copy_(to_i32(torch.stack([lo & MASK32, hi], dim=1)))
 
 
+def _step_tail_plain(bloom: torch.Tensor, regs: torch.Tensor,
+                     counts: torch.Tensor, keys: torch.Tensor,
+                     bank: torch.Tensor, params: BloomParams,
+                     precision: int) -> torch.Tensor:
+    """What every wire's step does after its decode: Bloom probe, HLL
+    add for valid real lanes (bank >= 0), counter bump; returns valid."""
+    valid = bloom_contains_words(bloom, keys, params)
+    hll.hll_add_plain(regs, torch.where(valid, bank, -1), keys,
+                      precision=precision)
+    real = bank >= 0
+    nv = (valid & real).sum()
+    _bump_counts(counts, nv, real.sum() - nv)
+    return valid
+
+
 def fused_step_plain(bloom: torch.Tensor, regs: torch.Tensor,
                      counts: torch.Tensor, wire: torch.Tensor,
                      params: BloomParams, bank_bytes: int, key_bits: int,
@@ -235,13 +251,31 @@ def fused_step_plain(bloom: torch.Tensor, regs: torch.Tensor,
     lanes, counter bump. Updates ``regs`` and ``counts`` in place and
     returns valid: bool[lanes]."""
     keys, bank = _unpack_lanes(wire, bank_bytes, key_bits)
-    valid = bloom_contains_words(bloom, keys, params)
-    hll.hll_add_plain(regs, torch.where(valid, bank, -1), keys,
-                      precision=precision)
-    real = bank >= 0
-    nv = (valid & real).sum()
-    _bump_counts(counts, nv, real.sum() - nv)
-    return valid
+    return _step_tail_plain(bloom, regs, counts, keys, bank, params,
+                            precision)
+
+
+def _check_step_state(bloom: torch.Tensor, regs: torch.Tensor,
+                      counts: torch.Tensor, params: BloomParams,
+                      precision: int) -> None:
+    _require(bloom.dtype == torch.int32
+             and bloom.shape == (params.m_bits // 32,),
+             f"bloom must be int32[{params.m_bits // 32}]")
+    _require(regs.dtype == torch.uint8 and regs.dim() == 2
+             and regs.shape[1] == 1 << precision,
+             f"regs must be uint8[num_banks, 2^{precision}]")
+    _require(counts.dtype == torch.int32 and counts.shape == (2, 2),
+             "counts must be int32[2, 2]")
+    _require(params.layout == "blocked", "the fused step is blocked-only")
+
+
+def _require_step_cuda(wire: torch.Tensor, bloom: torch.Tensor,
+                       regs: torch.Tensor, counts: torch.Tensor) -> None:
+    _require_cuda(wire, bloom, regs, counts)
+    _require(wire.data_ptr() % 4 == 0 and regs.data_ptr() % 4 == 0
+             and counts.data_ptr() % 8 == 0,
+             "wire and regs must be 4-byte and counts 8-byte aligned")
+    _require(bloom.data_ptr() % 64 == 0, "bloom must be 64-byte aligned")
 
 
 def fused_step(bloom: torch.Tensor, regs: torch.Tensor,
@@ -282,24 +316,12 @@ def fused_step(bloom: torch.Tensor, regs: torch.Tensor,
                  f"bytes wire must be uint8[(4 + {bank_bytes}) * lanes]")
         lanes = wire.shape[0] // (4 + bank_bytes)
     _require(wire.dim() == 1, "wire must be 1-D")
-    _require(bloom.dtype == torch.int32
-             and bloom.shape == (params.m_bits // 32,),
-             f"bloom must be int32[{params.m_bits // 32}]")
-    _require(regs.dtype == torch.uint8 and regs.dim() == 2
-             and regs.shape[1] == 1 << precision,
-             f"regs must be uint8[num_banks, 2^{precision}]")
-    _require(counts.dtype == torch.int32 and counts.shape == (2, 2),
-             "counts must be int32[2, 2]")
-    _require(params.layout == "blocked", "the fused step is blocked-only")
+    _check_step_state(bloom, regs, counts, params, precision)
     tensors = (wire, bloom, regs, counts)
     if all(t.device.type == "cpu" for t in tensors):
         return fused_step_plain(bloom, regs, counts, wire, params,
                                 bank_bytes, key_bits, precision)
-    _require_cuda(*tensors)
-    _require(wire.data_ptr() % 4 == 0 and regs.data_ptr() % 4 == 0
-             and counts.data_ptr() % 8 == 0,
-             "wire and regs must be 4-byte and counts 8-byte aligned")
-    _require(bloom.data_ptr() % 64 == 0, "bloom must be 64-byte aligned")
+    _require_step_cuda(*tensors)
     valid = torch.empty(lanes, dtype=torch.bool, device=wire.device)
     if lanes == 0:
         return valid
@@ -312,6 +334,193 @@ def fused_step(bloom: torch.Tensor, regs: torch.Tensor,
     _check_launch(rc, "atp_fused_step")
     launches["fused_step"] += 1
     return valid
+
+
+# ---------------------------------------------------------------------------
+# K2-seg and K2-delta: the fused step over the narrow wires
+# ---------------------------------------------------------------------------
+
+def _stream_lanes(u: torch.Tensor, base: int, width: int, padded: int):
+    """(fields, lane index) of lanes 0..padded-1 of the ``width``-bit
+    little-endian bitstream starting at word ``base`` of ``u`` (uint32
+    values in int64 lanes). A field spans at most two words; the second
+    is masked off when the field starts a word, as in the JAX decode."""
+    lane = torch.arange(padded, dtype=torch.int64, device=u.device)
+    bit = lane * width
+    w0 = base + (bit >> 5)
+    sh = bit & 31
+    lo = u[w0] >> sh
+    hi = torch.where(sh == 0, 0, (u[w0 + 1] << ((32 - sh) & 31)) & MASK32)
+    return (lo | hi) & ((1 << width) - 1), lane
+
+
+def _segments(counts: torch.Tensor, lane: torch.Tensor):
+    """(bank with -1 on padding, bank with 0 on padding, the banks'
+    exclusive starts) of each lane, from the per-bank counts: a lane's
+    bank is ``searchsorted(ends, lane, right=True)``, so runs of empty
+    banks go to the next non-empty one; lanes at or past the total are
+    padding."""
+    ends = torch.cumsum(counts, 0)
+    bank = torch.searchsorted(ends, lane, right=True)
+    real = lane < ends[-1]
+    return (torch.where(real, bank, -1), torch.where(real, bank, 0),
+            ends - counts)
+
+
+def decode_seg_lanes_plain(buf: torch.Tensor, kb: int, padded: int,
+                           num_banks: int):
+    """Plain decode of the seg wire (JAX ``decode_seg_lanes``,
+    attendance_tpu/models/fused.py:292): (keys, bank) int64 lanes, bank
+    -1 on padding."""
+    u = as_u32(buf)
+    keys, lane = _stream_lanes(u, num_banks, kb, padded)
+    bank, _, _ = _segments(u[:num_banks], lane)
+    return keys, bank
+
+
+def decode_delta_lanes_plain(buf: torch.Tensor, db: int, padded: int,
+                             num_banks: int):
+    """Plain decode of the delta wire (JAX ``decode_delta_lanes``,
+    attendance_tpu/models/fused.py:416): key = bases[b] + c[i] - c[s-1]
+    with c the frame-wide cumsum of the deltas mod 2^32 (an int64 sum of
+    at most 2^31 values below 2^32 cannot overflow; it is masked after
+    the sum), s the segment's start and c[-1] = 0; padding lanes take
+    bank 0's base and prefix. (keys, bank) int64 lanes, bank -1 on
+    padding."""
+    u = as_u32(buf)
+    deltas, lane = _stream_lanes(u, 2 * num_banks, db, padded)
+    bank, bank_c, starts = _segments(u[:num_banks], lane)
+    c = torch.cumsum(deltas, 0) & MASK32
+    s = starts[bank_c]
+    before = torch.where(s == 0, 0, c[(s - 1).clamp(min=0)])
+    keys = (u[num_banks:2 * num_banks][bank_c] + c - before) & MASK32
+    return keys, bank
+
+
+def fused_step_seg_plain(bloom: torch.Tensor, regs: torch.Tensor,
+                         counts: torch.Tensor, buf: torch.Tensor,
+                         params: BloomParams, kb: int, padded: int,
+                         num_banks: int, precision: int) -> torch.Tensor:
+    """Plain version of K2-seg: the seg decode, then K2's plain tail."""
+    keys, bank = decode_seg_lanes_plain(buf, kb, padded, num_banks)
+    return _step_tail_plain(bloom, regs, counts, keys, bank, params,
+                            precision)
+
+
+def fused_step_delta_plain(bloom: torch.Tensor, regs: torch.Tensor,
+                           counts: torch.Tensor, buf: torch.Tensor,
+                           params: BloomParams, db: int, padded: int,
+                           num_banks: int, precision: int) -> torch.Tensor:
+    """Plain version of K2-delta: the delta decode, then K2's plain
+    tail."""
+    keys, bank = decode_delta_lanes_plain(buf, db, padded, num_banks)
+    return _step_tail_plain(bloom, regs, counts, keys, bank, params,
+                            precision)
+
+
+def delta_scratch_words(num_banks: int, padded: int) -> int:
+    """int32 scratch of K2-delta: the counts' exclusive scan
+    [num_banks + 1], the tile sums and their scan [2 * tiles + 1], the
+    deltas' prefix sum [padded] (tiles of 256 lanes)."""
+    tiles = -(-padded // 256)
+    return num_banks + 1 + 2 * tiles + 1 + padded
+
+
+def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
+                 counts: torch.Tensor, buf: torch.Tensor,
+                 params: BloomParams, width: int, padded: int,
+                 num_banks: int, precision: int) -> torch.Tensor:
+    """The shared wrapper of K2-seg (``name`` "seg") and K2-delta."""
+    # Imported here: models.fused builds its steps on this module.
+    from attendance_tpu_torch.models.fused import (
+        delta_buf_words, seg_buf_words)
+
+    words = (seg_buf_words if name == "seg" else delta_buf_words)(
+        num_banks, width, padded)
+    _require(1 <= width <= 32, f"{name} width {width} not in 1..32")
+    _require(num_banks >= 1 and 1 <= padded < 1 << 31,
+             f"{name} wire needs num_banks >= 1 and 1 <= padded < 2^31")
+    _require(buf.dtype == torch.int32 and buf.dim() == 1
+             and buf.shape[0] == words,
+             f"{name} wire must be int32[{words}] (uint32 words)")
+    _check_step_state(bloom, regs, counts, params, precision)
+    tensors = (buf, bloom, regs, counts)
+    if all(t.device.type == "cpu" for t in tensors):
+        plain = (fused_step_seg_plain if name == "seg"
+                 else fused_step_delta_plain)
+        return plain(bloom, regs, counts, buf, params, width, padded,
+                     num_banks, precision)
+    _require_step_cuda(*tensors)
+    valid = torch.empty(padded, dtype=torch.bool, device=buf.device)
+    scratch = torch.empty(
+        num_banks + 1 if name == "seg"
+        else delta_scratch_words(num_banks, padded),
+        dtype=torch.int32, device=buf.device)
+    args = (buf.data_ptr(), width, padded, num_banks, scratch.data_ptr(),
+            bloom.data_ptr(), params.m_bits // BLOCK_BITS, params.k,
+            regs.data_ptr(), regs.shape[0], precision, counts.data_ptr(),
+            valid.data_ptr())
+    with torch.cuda.device(buf.device):
+        if name == "seg":
+            rc = library().atp_fused_step_seg(*args, _stream(buf))
+        else:
+            rc = library().atp_fused_step_delta(*args, 3, _stream(buf))
+    _check_launch(rc, f"atp_fused_step_{name}")
+    launches[f"fused_step_{name}"] += 1
+    return valid
+
+
+def fused_step_seg(bloom: torch.Tensor, regs: torch.Tensor,
+                   counts: torch.Tensor, buf: torch.Tensor,
+                   params: BloomParams, *, kb: int, padded: int,
+                   num_banks: int, precision: int = 14) -> torch.Tensor:
+    """K2 over the seg wire: ``buf`` int32[seg_buf_words(num_banks, kb,
+    padded)] is [per-bank counts | kb-bit little-endian key bitstream,
+    lanes sorted by bank | 2 guard words]; ``num_banks`` is the header's
+    length (the register rows when it was packed; the registers may have
+    grown since, and a bank past ``regs`` is dropped). Updates ``regs``
+    and ``counts`` in place; returns valid: bool[padded] in packed order,
+    padding lanes (key 0) included, as the JAX step does.
+
+    Replaces the XLA program ``fused_step_seg`` with
+    ``decode_seg_lanes`` (attendance_tpu/models/fused.py:261,292). Bound:
+    K2's, with kb/8 bytes of wire per lane instead of 4 and the decode's
+    few integer operations added; at a 131,072-lane frame the operations
+    (hash and probe) outweigh the bytes (chip_smoke.py). Design:
+    one CTA scans the counts into an int32 scratch (``cta_exclusive_scan``,
+    as K3 does), then K2's body with a seg decode: two word reads and
+    shifts for the key, a binary search of the scanned counts for the
+    bank. Two launches, counted as one.
+    """
+    return _narrow_step("seg", bloom, regs, counts, buf, params, kb, padded,
+                        num_banks, precision)
+
+
+def fused_step_delta(bloom: torch.Tensor, regs: torch.Tensor,
+                     counts: torch.Tensor, buf: torch.Tensor,
+                     params: BloomParams, *, db: int, padded: int,
+                     num_banks: int, precision: int = 14) -> torch.Tensor:
+    """K2 over the delta wire: ``buf`` int32[delta_buf_words(num_banks,
+    db, padded)] is [per-bank counts | per-bank base keys | db-bit key
+    deltas, lanes sorted by (bank, key) | 2 guard words]. Updates
+    ``regs`` and ``counts`` in place; returns valid: bool[padded] in
+    packed order, padding lanes included (their key is bank 0's base
+    plus the frame's whole delta sum, as in the JAX decode).
+
+    Replaces the XLA program ``fused_step_delta`` with
+    ``decode_delta_lanes`` (attendance_tpu/models/fused.py:386,416).
+    Bound: as K2-seg's, at db/8 bytes of wire per lane. Design: a
+    lane's key needs the frame-wide prefix sum of the deltas at its own
+    lane and at its segment's start, which usually lies in another CTA's
+    tile, so the sum is made whole first: a pass of per-tile delta sums,
+    one CTA that scans the counts and the tile sums, a pass that writes
+    each tile's inclusive scan plus its offset to an int32 scratch; then
+    K2's body with a delta decode (the bank's binary search, two reads of
+    the prefix, the base). Four launches, counted as one; one pass with a
+    decoupled look-back is left for later.
+    """
+    return _narrow_step("delta", bloom, regs, counts, buf, params, db,
+                        padded, num_banks, precision)
 
 
 # ---------------------------------------------------------------------------

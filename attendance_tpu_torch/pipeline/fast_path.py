@@ -1,13 +1,15 @@
 """Fused high-rate processor: the hot path end to end on one CUDA card.
 
 Counterpart of ``attendance_tpu/pipeline/fast_path.py:FusedPipeline``,
-single-chip branch, numpy pack path. Per frame: one planar binary frame
-from the broker -> zero-copy columnar decode -> day->bank map -> host
-pack of the word (or bytes) wire -> ONE fused kernel launch (Bloom
-validate + HLL count, K2) -> with ``temporal_period_s > 0``, the
-temporal plane's per-frame hook (window add: K4 probe + K5 register
-max; the CMS step K6 on released events; evicted rows zeroed) ->
-columnar side-store append -> ack.
+single-chip branch. Per frame: one planar binary frame from the broker
+-> zero-copy columnar decode -> day->bank map and host pack of one wire
+(word, bytes, seg or delta; one fused native pass, ``native/``, or the
+numpy path with ``ATP_NATIVE=0`` and for days the dense LUT cannot
+cover) -> ONE fused kernel call (Bloom validate + HLL count: K2, or its
+seg/delta variant) -> with ``temporal_period_s > 0``, the temporal
+plane's per-frame hook (window add: K4 probe + K5 register max; the CMS
+step K6 on released events; evicted rows zeroed) -> columnar side-store
+append -> ack.
 
 Ack ordering: launches are asynchronous, so the host decodes and packs
 frame N+1 while the card runs frame N; a frame is acknowledged only
@@ -35,10 +37,12 @@ from attendance_tpu_torch.device import resolve_device, to_device
 from attendance_tpu_torch.models.bloom import (
     bloom_add_packed, bloom_contains_packed, bloom_packed_fill_fraction)
 from attendance_tpu_torch.models.fused import (
-    bank_wire_dtype, decode_counts, fused_step_bytes, fused_step_words,
-    init_state, pack_bytes, pack_words)
+    bank_wire_dtype, decode_counts, delta_scan, fused_step_bytes,
+    fused_step_delta, fused_step_seg, fused_step_words, init_state,
+    pack_bytes, pack_delta, pack_seg, pack_words, pick_delta_width)
 from attendance_tpu_torch.models.hll import (
     best_histogram, estimate_from_histogram, hll_add)
+from attendance_tpu_torch.native import load as load_native
 from attendance_tpu_torch.pipeline.codec import decode_frame
 from attendance_tpu_torch.pipeline.events import lecture_to_day
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
@@ -48,12 +52,40 @@ from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryClient, ReceiveTimeout)
 
 _INFLIGHT_DEPTH = 8  # dispatched-but-unacked frames before blocking
-# Host stages of the run loop, in frame order; "dispatch" is the H2D copy
-# enqueue plus the kernel launch, "temporal" the temporal plane's host
-# passes and launches (0 when the plane is off), "ack_wait" the time
+# Host stages of the run loop, in frame order. The native host pack fuses
+# the day map with the pack in one call, charged to "pack"; "bank_map" is
+# the numpy day map (ATP_NATIVE=0, days the dense LUT cannot cover) and
+# the registration of days a native pack missed. "dispatch" is the H2D
+# copy enqueue plus the kernel launch, "temporal" the temporal plane's
+# host passes and launches (0 when the plane is off), "ack_wait" the time
 # blocked on the card.
 STAGES = ("receive", "decode", "bank_map", "pack", "dispatch", "temporal",
           "store", "ack_wait")
+
+
+class _ScatterValidity:
+    """Lazy original-order view of the seg/delta wires' validity: the
+    step's bool[padded] in packed (bank-sorted) order and the packed
+    lane -> original index permutation. ``out[perm] = valid[:n]`` is
+    made only when a reader asks (``np.asarray``, as
+    ``ColumnarEventStore.to_columns`` does), so the hot loop neither
+    waits on the card nor scatters."""
+
+    __slots__ = ("_valid", "_perm", "_n")
+
+    def __init__(self, valid: torch.Tensor, perm: np.ndarray, n: int):
+        self._valid, self._perm, self._n = valid, perm, n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __array__(self, dtype=None, copy=None):
+        v = self._valid[:self._n].cpu().numpy()
+        out = np.empty(self._n, v.dtype)
+        out[self._perm] = v
+        if dtype is not None and np.dtype(dtype) != out.dtype:
+            out = out.astype(dtype)
+        return out
 
 
 @dataclasses.dataclass
@@ -64,7 +96,7 @@ class FusedMetrics:
     valid_events: int = 0
     invalid_events: int = 0
     wall_seconds: float = 0.0
-    # Frames dispatched per host->device wire ("word" / "bytes").
+    # Frames dispatched per host->device wire (word, bytes, seg, delta).
     wire_dwell: Dict[str, int] = dataclasses.field(default_factory=dict)
     # Host wall seconds by run-loop stage (STAGES).
     stage_seconds: Dict[str, float] = dataclasses.field(
@@ -98,8 +130,24 @@ class FusedPipeline:
             layout="blocked", num_banks=num_banks,
             precision=self.config.hll_precision, device=self.device)
         self._bank_dtype = bank_wire_dtype(num_banks)
-        # Monotonic key-width hint of the word wire.
+        # Native host pack (one fused LUT-map + pack pass per frame), or
+        # None with ATP_NATIVE=0; a failed build raises here.
+        # _native_skip bypasses it for a while after a frame whose days
+        # the dense LUT cannot cover (see _dispatch_single).
+        self._native = load_native()
+        self._native_skip = 0
+        # Wire-selection state: the monotonic key-width hint (word and
+        # seg wires), the delta-width hint with its outlier decay
+        # (_decayed_db), and the auto ladder's level (0 word, 1 seg,
+        # 2 delta) and backpressure score (_auto_wire), fed by
+        # _drain_waited.
         self._kw_hint = 1
+        self._db_hint = 1
+        self._db_slack = 0
+        self._db_seen = 1
+        self._auto_level = 0
+        self._auto_pressure = 0
+        self._drain_waited = False
         # Bank allocation: days AND temporal buckets share one map and
         # one register tensor. The allocator is a monotonic counter plus
         # a free list: the temporal ring's evictions recycle bank rows.
@@ -301,8 +349,9 @@ class FusedPipeline:
         return tensor
 
     def process_frame(self, data: bytes):
-        """Dispatch one planar frame; returns (valid[:n] on the device,
-        completion event or None, pinned host buffers of its copies)."""
+        """Dispatch one planar frame; returns (valid[:n] on the device, in
+        packed order on the seg/delta wires, completion event or None,
+        pinned host buffers of its copies)."""
         t = time.perf_counter()
         cols = decode_frame(data, include_truth=False)
         t = self._lap("decode", t)
@@ -312,8 +361,13 @@ class FusedPipeline:
         padded = 256
         while padded < n:
             padded *= 2
-        valid = self._dispatch_single(cols, padded)
+        valid, perm = self._dispatch_single(cols, padded)
         valid_n = valid[:n]
+        # The seg/delta wires answer in bank-sorted order: the store keeps
+        # rows in original order with a lazy view that scatters the
+        # validity back when read.
+        stored = valid_n if perm is None else _ScatterValidity(valid, perm,
+                                                                n)
         if self._temporal is not None:
             # After the day map and the step, as in the JAX package: days
             # take their banks first, then new buckets take theirs.
@@ -326,7 +380,7 @@ class FusedPipeline:
             done.record(torch.cuda.current_stream(self.device))
         pinned, self._frame_pinned = self._frame_pinned, []
         t = time.perf_counter()
-        self.store.insert_columns({**cols, "is_valid": valid_n})
+        self.store.insert_columns({**cols, "is_valid": stored})
         self._lap("store", t)
         self.metrics.batches += 1
         self.metrics.events += n
@@ -340,39 +394,272 @@ class FusedPipeline:
         hinted = max(kw, self._kw_hint)
         return hinted if hinted + num_banks.bit_length() <= 32 else kw
 
+    def _rescan_width(self, nat, sid: np.ndarray, num_banks: int):
+        """(frame key bits, word-wire width, word verdict) from the native
+        max-key scan. A frame that outgrows the word wire folds its width
+        into the hint, so the next frames go straight to the bytes wire
+        instead of paying a doomed hinted pack each."""
+        frame_bits = nat.max_key(sid).bit_length()
+        kw = self._pick_kw(frame_bits, num_banks)
+        use_words = kw + num_banks.bit_length() <= 32
+        if not use_words:
+            self._kw_hint = max(self._kw_hint, frame_bits)
+        return frame_bits, kw, use_words
+
+    def _decayed_db(self, width: int, needed: int) -> int:
+        """Next delta-width hint after a frame packed at ``width`` whose
+        own minimum was ``needed``: growth is immediate (``width`` has
+        it); 16 frames in a row with >= 3 bits of slack drop the hint to
+        the widest width those frames needed, so one outlier frame widens
+        the wire once, not forever."""
+        if needed <= width - 3:
+            self._db_slack += 1
+            self._db_seen = max(self._db_seen, needed)
+            if self._db_slack >= 16:
+                width = pick_delta_width(1, self._db_seen)
+                self._db_slack, self._db_seen = 0, 1
+        else:
+            self._db_slack, self._db_seen = 0, 1
+        return width
+
+    _WIRE_LADDER = ("word", "seg", "delta")
+
+    def _auto_wire(self) -> str:
+        """The auto mode's wire for this frame, from backpressure: a hot
+        loop that blocked on a full in-flight deque since the last frame
+        (``_drain_waited``) means the card or the link is behind, so the
+        ladder climbs to a narrower wire after 2 such signals; a deque of
+        at most one frame means the host is behind, and 6 such signals
+        step back down (asymmetric hysteresis). A mid-stream switch is
+        safe: every frame is a self-contained dispatch. (The JAX package
+        also freezes the level while checkpointing; the port has no
+        checkpoints yet.)"""
+        if self._drain_waited:
+            self._auto_pressure = min(self._auto_pressure + 1, 8)
+        elif len(self._inflight) <= 1:
+            self._auto_pressure = max(self._auto_pressure - 1, -8)
+        self._drain_waited = False
+        if self._auto_pressure >= 2 and self._auto_level < 2:
+            self._auto_level += 1
+            self._auto_pressure = 0
+        elif self._auto_pressure <= -6 and self._auto_level > 0:
+            self._auto_level -= 1
+            self._auto_pressure = 0
+        return self._WIRE_LADDER[self._auto_level]
+
     def _count_wire(self, key: str) -> None:
+        """One frame dispatched over ``key``: counted where the step is
+        launched, so a fallback frame counts for the wire that carried
+        it."""
         dwell = self.metrics.wire_dwell
         dwell[key] = dwell.get(key, 0) + 1
 
+    def _lut_covers(self, day) -> bool:
+        off = int(day) - self._day_base
+        return 0 <= off < self._LUT_SIZE and self._day_lut[off] >= 0
+
     def _dispatch_single(self, cols: Dict[str, np.ndarray], padded: int):
-        """Pack one frame's (key, bank) lanes and launch the fused step;
-        returns valid[padded]. The word wire (4 bytes/event, bank folded
-        into the key's spare high bits) carries every frame whose key and
-        bank bits fit one word; otherwise the (4 + w)-byte bytes wire
-        does."""
+        """Pack one frame's lanes and launch the fused step; returns
+        (valid[padded], perm), perm the packed lane -> original index
+        permutation of the seg/delta wires, None on the others.
+
+        The wires, narrowest link to cheapest host pack: delta (db bits
+        an event, sorted-key gaps per bank), seg (kb bits, the bank never
+        crosses the link), word (4 bytes: the bank folded into the key's
+        spare high bits) and bytes (4 + w bytes, when key and bank bits
+        do not fit a word). ``auto`` climbs the word/seg/delta ladder on
+        backpressure (:meth:`_auto_wire`), only with the native pack.
+
+        With the native pack one call maps the days through the dense
+        LUT and packs. On a LUT miss (a day with no bank yet) the days
+        are registered once through the numpy map, and the native pack
+        is retried only if the missed day landed in the LUT window; a day
+        outside it (a hashed non-calendar lecture id) takes the numpy
+        pack with the resolved banks, and the native pack is skipped for
+        the next 32 frames. The protocol is the JAX package's, so the
+        two number banks alike."""
         sid, days = cols["student_id"], cols["lecture_day"]
-        t = time.perf_counter()
-        banks = self._banks_for(days)
-        t = self._lap("bank_map", t)
         num_banks = self._num_banks()
-        prec = self.config.hll_precision
+        nat = self._native
+        banks = None
+        if nat is not None and self._native_skip > 0:
+            self._native_skip -= 1
+            nat = None
+        wire = self.config.wire_format
+        if wire == "auto" and nat is not None:
+            wire = self._auto_wire()
+        if wire in ("seg", "delta"):
+            valid, perm, banks = self._dispatch_narrow(
+                cols, padded, nat, wire,
+                forced=self.config.wire_format != "auto")
+            if valid is not None:
+                return valid, perm
+            # Auto mode and no native seg/delta pack for this frame: the
+            # wide wires carry it, reusing any banks already resolved.
+            nat = None
+            num_banks = self._num_banks()
+        t = time.perf_counter()
+        if nat is not None:
+            if self._day_base is None:
+                self._rebuild_lut(int(days.min()))
+            # The width is the monotonic hint, trusted without a max-key
+            # scan: the pack reports an overflow (-3), and only then is
+            # the frame's width scanned and the pack retried.
+            frame_bits = None
+            for attempt in (0, 1):
+                kw = (max(self._kw_hint, 1) if frame_bits is None
+                      else self._pick_kw(frame_bits, num_banks))
+                use_words = (kw + num_banks.bit_length() <= 32
+                             and wire != "bytes")
+                if not use_words and frame_bits is None and wire != "bytes":
+                    # The hint outgrew a word; the frame's own width may
+                    # still fit.
+                    frame_bits, kw, use_words = self._rescan_width(
+                        nat, sid, num_banks)
+                if use_words:
+                    buf, miss = nat.pack_words(sid, days, self._day_lut,
+                                               self._day_base, kw, padded)
+                    if miss == -3:
+                        frame_bits, kw, use_words = self._rescan_width(
+                            nat, sid, num_banks)
+                        if use_words:
+                            buf, miss = nat.pack_words(
+                                sid, days, self._day_lut, self._day_base,
+                                kw, padded)
+                if not use_words:
+                    buf, miss = nat.pack_bytes(
+                        sid, days, self._day_lut, self._day_base,
+                        np.dtype(self._bank_dtype).itemsize, padded)
+                t = self._lap("pack", t)
+                if miss == -1:
+                    return self._launch_wide(buf, use_words, kw, t), None
+                if attempt == 1:
+                    # Missed again after registration: a day the LUT
+                    # cannot cover.
+                    self._native_skip = 32
+                    break
+                banks = self._banks_for(days)
+                num_banks = self._num_banks()
+                t = self._lap("bank_map", t)
+                if not self._lut_covers(days[miss]):
+                    self._native_skip = 32
+                    break
+        if banks is None:
+            banks = self._banks_for(days)
+            num_banks = self._num_banks()
+            t = self._lap("bank_map", t)
         kw = self._pick_kw(int(sid.max()).bit_length(), num_banks)
-        if (kw + num_banks.bit_length() <= 32
-                and self.config.wire_format != "bytes"):
+        use_words = kw + num_banks.bit_length() <= 32 and wire != "bytes"
+        buf = (pack_words(sid, banks, kw, padded) if use_words
+               else pack_bytes(sid, banks, self._bank_dtype, padded))
+        t = self._lap("pack", t)
+        return self._launch_wide(buf, use_words, kw, t), None
+
+    def _launch_wide(self, buf: np.ndarray, use_words: bool, kw: int,
+                     t: float) -> torch.Tensor:
+        """K2 over a packed word (``use_words``) or bytes buffer."""
+        prec = self.config.hll_precision
+        if use_words:
             self._kw_hint = kw
             self._count_wire("word")
-            words = pack_words(sid, banks, kw, padded).view(np.int32)
-            t = self._lap("pack", t)
-            valid = fused_step_words(self.state, self._to_device(words),
+            valid = fused_step_words(self.state,
+                                     self._to_device(buf.view(np.int32)),
                                      self.params, kw, prec)
         else:
             self._count_wire("bytes")
-            buf = pack_bytes(sid, banks, self._bank_dtype, padded)
-            t = self._lap("pack", t)
             valid = fused_step_bytes(self.state, self._to_device(buf),
                                      self.params,
                                      np.dtype(self._bank_dtype).itemsize,
                                      prec)
+        self._lap("dispatch", t)
+        return valid
+
+    def _dispatch_narrow(self, cols: Dict[str, np.ndarray], padded: int,
+                         nat, mode: str, forced: bool):
+        """The seg or delta wire (``mode``) for one frame: (valid, perm,
+        None), or (None, None, banks or None) when auto mode should carry
+        the frame on a wide wire instead (the native pass cannot run, or
+        a day lies outside the LUT window); ``banks`` passes on any days
+        already resolved. A forced wire falls back to the numpy pack of
+        the same wire."""
+        sid, days = cols["student_id"], cols["lecture_day"]
+        num_banks = self._num_banks()
+        banks = None
+        t = time.perf_counter()
+        if nat is not None:
+            if self._day_base is None:
+                self._rebuild_lut(int(days.min()))
+            for attempt in (0, 1):
+                if mode == "seg":
+                    # The width hint again; the pack detects an overflow.
+                    width = min(max(1, self._kw_hint), 32)
+                    buf, perm, miss = nat.pack_seg(
+                        sid, days, self._day_lut, self._day_base, width,
+                        padded, num_banks)
+                    if miss == -3:
+                        width = min(max(nat.max_key(sid).bit_length(), 1,
+                                        self._kw_hint), 32)
+                        buf, perm, miss = nat.pack_seg(
+                            sid, days, self._day_lut, self._day_base,
+                            width, padded, num_banks)
+                else:
+                    buf, perm, width, needed, miss = nat.pack_delta(
+                        sid, days, self._day_lut, self._day_base,
+                        self._db_hint, padded, num_banks)
+                t = self._lap("pack", t)
+                if miss == -1:
+                    if mode == "seg":
+                        self._kw_hint = width
+                    else:
+                        self._db_hint = self._decayed_db(width, needed)
+                    return (self._launch_narrow(mode, buf, width, padded,
+                                                num_banks, t), perm, None)
+                if miss == -2:  # scratch allocation, or too many banks
+                    if not forced:
+                        return None, None, banks
+                    break
+                if attempt == 1:
+                    self._native_skip = 32
+                    if not forced:
+                        return None, None, banks
+                    break
+                banks = self._banks_for(days)
+                num_banks = self._num_banks()
+                t = self._lap("bank_map", t)
+                if not self._lut_covers(days[miss]):
+                    self._native_skip = 32
+                    if not forced:
+                        return None, None, banks
+                    break
+        # numpy pack: ATP_NATIVE=0, or a forced wire past the native pass.
+        if banks is None:
+            banks = self._banks_for(days)
+            num_banks = self._num_banks()
+            t = self._lap("bank_map", t)
+        if mode == "seg":
+            width = min(max(int(sid.max()).bit_length(), 1, self._kw_hint),
+                        32)
+            self._kw_hint = width
+            buf, perm = pack_seg(sid, banks, width, padded, num_banks)
+        else:
+            scan = delta_scan(sid, banks, num_banks)
+            width = pick_delta_width(self._db_hint, scan[-1])
+            self._db_hint = self._decayed_db(width, scan[-1])
+            buf, perm = pack_delta(sid, banks, width, padded, num_banks,
+                                   scan=scan)
+        t = self._lap("pack", t)
+        return (self._launch_narrow(mode, buf, width, padded, num_banks, t),
+                perm, None)
+
+    def _launch_narrow(self, mode: str, buf: np.ndarray, width: int,
+                       padded: int, num_banks: int, t: float
+                       ) -> torch.Tensor:
+        """K2-seg or K2-delta over a packed buffer."""
+        self._count_wire(mode)
+        step = fused_step_seg if mode == "seg" else fused_step_delta
+        valid = step(self.state, self._to_device(buf.view(np.int32)),
+                     self.params, width, padded, num_banks,
+                     self.config.hll_precision)
         self._lap("dispatch", t)
         return valid
 
@@ -385,6 +672,10 @@ class FusedPipeline:
             if done is not None and not done.query():
                 if block == 0:
                     break
+                if block > 0:
+                    # The hot loop stalls on a full deque: the card or
+                    # the link is behind (_auto_wire's climb signal).
+                    self._drain_waited = True
                 t = time.perf_counter()
                 done.synchronize()
                 self._lap("ack_wait", t)

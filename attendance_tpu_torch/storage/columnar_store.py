@@ -3,11 +3,12 @@
 Counterpart of ``attendance_tpu/storage/columnar_store.py``
 (``insert_columns``, ``to_columns``, ``scan_lecture``). Micro-batches are
 appended as column blocks with no per-event Python. A block's
-``is_valid`` may be a device tensor (the fused step's output), so an
-insert never waits for the device; it is copied to the host when first
-read. The store is append-only and deduplicates at read time, keeping
-the last row per primary key (lecture_day, micros, student_id) as
-Cassandra's upsert would.
+``is_valid`` may be a device tensor (the fused step's output) or, on
+the seg/delta wires, a lazy view of one in packed order, so an insert
+never waits for the device; it is copied to the host (and put back in
+original order) when first read. The store is append-only and
+deduplicates at read time, keeping the last row per primary key
+(lecture_day, micros, student_id) as Cassandra's upsert would.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ _COLS = ("student_id", "lecture_day", "micros", "is_valid", "event_type")
 
 
 def _host(col) -> np.ndarray:
+    """A block's column on the host: a device tensor is copied, any other
+    array-like (numpy, or the seg/delta wires' lazy validity view, which
+    scatters its packed-order answer back to original order) goes
+    through ``np.asarray``."""
     if isinstance(col, torch.Tensor):
         return col.cpu().numpy()
     return np.asarray(col)

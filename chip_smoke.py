@@ -13,9 +13,13 @@ Phases (any failure exits non-zero):
      sketches), plus CUDA-event timings of the kernel (also printed above
      the floor), the plain version and, where one exists, a single
      PyTorch library call computing the same function (2a, 2c: K3 and K2
-     of the fused path, K2 on all four wires at 131,072 and at 1,048,576
-     lanes; 2a: K3 at the 100k and 10M rosters by both of its paths, one
-     thread per key and binned, each also onto a filter already holding
+     of the fused path, K2 on the word wire and the three bytes widths,
+     K2-seg and K2-delta, at 131,072 and at 1,048,576 lanes, each beside
+     K2-word's time and its own bound, K2-delta's pre-passes and step
+     also timed apart, then both on an edge frame (empty banks, ragged,
+     seg width 32, a delta prefix that wraps); 2a: K3 at the 100k and
+     10M rosters by both of its paths, one thread per key and binned,
+     each also onto a filter already holding
      half the roster, timed into a zeroed filter (zero_ timed alone and
      subtracted), with the 10M time's distance from its bound; 2d: K4-K6
      of the temporal plane, K5 at a uniform shape and at the temporal
@@ -24,11 +28,15 @@ Phases (any failure exits non-zero):
      frames' roster ids and on the temporal traffic's hot-key mix);
   3. the main path: the ``fused`` verb's flow at its defaults (1,048,576
      events in 131,072-event frames, a 100k roster, 16 lectures, seed 0)
-     with launch counters reset just before and read just after, checked
-     against the frames' ground truth; then the PFCOUNT path timed on its
-     pipeline (``count(day)`` per lecture and ``count_all()``: host wall
-     per call, and apart the K1 launch, the D2H copy and the host
-     estimator);
+     once per wire setting (the default auto wire with the native host
+     pack, the word wire with ``ATP_NATIVE=0``, bytes, seg, delta), each
+     twice (a first and a second run, each its own pipeline), launch
+     counters reset just before and read just after each run, every run
+     checked against the frames' ground truth and equal to the default
+     run in counters, PFCOUNTs, registers and stored validity; on the
+     default run the PFCOUNT path is timed (``count(day)`` per lecture
+     and ``count_all()``: host wall per call, and apart the K1 launch,
+     the D2H copy and the host estimator);
   2b. (after 3, whose registers it takes) K1 at 1, 16, 256, 512 and 1024
      banks on two fills, 2^20 uniform keys over the banks and the main
      path's 16 live rows repeated to the bank count, held equal to its
@@ -64,6 +72,13 @@ INT_OPS_PER_S = 67e12      # H100 SXM rate outside the tensor cores
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 SOURCE = "attendance_tpu_torch/csrc/sketch_kernels.cu"
+# Phase 3's runs: (label, wire_format, native host pack).
+WIRE_RUNS = (("default", "auto", True), ("word-numpy", "word", False),
+             ("bytes", "bytes", True), ("seg", "seg", True),
+             ("delta", "delta", True))
+# The step kernel that carries each wire.
+STEP_OF_WIRE = {"word": "fused_step", "bytes": "fused_step",
+                "seg": "fused_step_seg", "delta": "fused_step_delta"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -190,6 +205,119 @@ def wire_of(cols, bank_bytes: int, lanes: int, dev):
     dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32}[bank_bytes]
     return torch.from_numpy(fused.pack_bytes(
         sid, banks, dtype, lanes)).to(dev), kw
+
+
+def narrow_wire_of(cols, mode: str, lanes: int, num_banks: int, dev):
+    """(wire tensor, width, whether the deltas' frame-wide sum wraps past
+    2^32) of a decoded frame on the seg or delta wire (numpy pack, banks
+    = day - 20260701), padded to ``lanes``, with a ``num_banks`` header;
+    the width is the frame's own, as the pipeline picks it."""
+    from attendance_tpu_torch.models import fused
+
+    sid = np.asarray(cols["student_id"], np.uint32)
+    banks = (cols["lecture_day"] - 20_260_701).astype(np.int32)
+    if mode == "seg":
+        width = max(int(sid.max()).bit_length(), 1)
+        buf, _ = fused.pack_seg(sid, banks, width, lanes, num_banks)
+        wraps = False
+    else:
+        scan = fused.delta_scan(sid, banks, num_banks)
+        width = fused.pick_delta_width(1, scan[4])
+        buf, _ = fused.pack_delta(sid, banks, width, lanes, num_banks,
+                                  scan=scan)
+        wraps = int(scan[3].astype(np.int64).sum()) >= 1 << 32
+    return torch.from_numpy(buf.view(np.int32)).to(dev), width, wraps
+
+
+def narrow_step_check(start, wire, params, mode: str, width: int,
+                      lanes: int, num_banks: int, what: str,
+                      timed: bool = True):
+    """K2-seg or K2-delta from the state ``start`` (left as it is) against
+    its plain version on the same inputs: equal valid on every lane
+    (padding included), registers and counters. Returns (kernel ms by
+    graph replays, plain ms, register max abs err); the times are None
+    when not ``timed``."""
+    from attendance_tpu_torch.models import fused
+    from attendance_tpu_torch.ops import kernels
+
+    step = kernels.fused_step_seg if mode == "seg" else \
+        kernels.fused_step_delta
+    plain = kernels.fused_step_seg_plain if mode == "seg" else \
+        kernels.fused_step_delta_plain
+    width_kw = {"kb" if mode == "seg" else "db": width}
+    a = fused.SketchState(*(t.clone() for t in start))
+    b = fused.SketchState(*(t.clone() for t in start))
+    valid = step(*a, wire, params, padded=lanes, num_banks=num_banks,
+                 **width_kw)
+    want = plain(*b, wire, params, width, lanes, num_banks, 14)
+    torch.cuda.synchronize()
+    check(torch.equal(valid, want), f"K2-{mode} {what}: valid")
+    err = int((a.hll_regs.to(torch.int32)
+               - b.hll_regs.to(torch.int32)).abs().max())
+    check(err == 0, f"K2-{mode} {what}: register max abs err {err}")
+    check(torch.equal(a.counts, b.counts), f"K2-{mode} {what}: counts")
+    if not timed:
+        return None, None, err
+    ms = kernel_ms(lambda: step(*a, wire, params, padded=lanes,
+                                num_banks=num_banks, **width_kw))
+    plain_ms = eager_ms(lambda: plain(*b, wire, params, width, lanes,
+                                      num_banks, 14))
+    return ms, plain_ms, err
+
+
+def delta_parts_timing(start, wire, params, db: int, lanes: int,
+                       num_banks: int, floor_ms: float) -> None:
+    """K2-delta's three pre-passes (tile sums, the scan of counts and tile
+    sums, the prefix) and its step, timed apart and together through the
+    C entry point's ``passes`` mask; the step alone reads the prefix the
+    pre-passes left in the scratch."""
+    from attendance_tpu_torch.models.bloom import BLOCK_BITS
+    from attendance_tpu_torch.ops import build, kernels
+
+    regs = start.hll_regs.clone()
+    counts = start.counts.clone()
+    scratch = torch.empty(kernels.delta_scratch_words(num_banks, lanes),
+                          dtype=torch.int32, device=wire.device)
+    valid = torch.empty(lanes, dtype=torch.bool, device=wire.device)
+
+    def run(passes: int) -> None:
+        rc = build.library().atp_fused_step_delta(
+            wire.data_ptr(), db, lanes, num_banks, scratch.data_ptr(),
+            start.bloom_bits.data_ptr(), params.m_bits // BLOCK_BITS,
+            params.k, regs.data_ptr(), regs.shape[0], 14, counts.data_ptr(),
+            valid.data_ptr(), passes,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"atp_fused_step_delta passes={passes}: rc {rc}")
+
+    run(3)
+    torch.cuda.synchronize()
+    times = {name: kernel_ms(lambda p=p: run(p))
+             for name, p in (("pre_passes", 1), ("step", 2), ("both", 3))}
+    print(f"K2-delta parts lanes={lanes} db={db}: "
+          + " ".join(f"{k}_ms={v} {k}_above_floor_ms={v - floor_ms}"
+                     for k, v in times.items()))
+
+
+def run_with_native(native: bool, config, num_events: int, frame_size: int,
+                    num_lectures: int):
+    """``run_fused`` on the card at seed 0, with the native host pack or,
+    with ``native`` False, the numpy pack (``ATP_NATIVE=0`` while the
+    pipeline is built, as a user would set it)."""
+    import os
+
+    from attendance_tpu_torch.cli import run_fused
+
+    before = os.environ.get("ATP_NATIVE")
+    if not native:
+        os.environ["ATP_NATIVE"] = "0"
+    try:
+        return run_fused(config, num_events, frame_size, num_lectures,
+                         seed=0)
+    finally:
+        if before is None:
+            os.environ.pop("ATP_NATIVE", None)
+        else:
+            os.environ["ATP_NATIVE"] = before
 
 
 def drive(config, roster, frames, num_events: int):
@@ -439,7 +567,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from attendance_tpu_torch.cli import run_fused
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.models import bloom, cms, fused, hll
     from attendance_tpu_torch.ops import build, kernels
@@ -598,14 +725,62 @@ def main() -> int:
                   f"ms={ms} above_floor_ms={ms - floor_ms} "
                   f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
                   f"max_abs_err={err}")
+            if bank_bytes == 0:
+                word = (ms, b_ms)
             if bank_bytes == 0 and lanes == 131_072:
                 rows["fused_step"] = dict(
                     replaces="attendance_tpu/models/fused.py:175",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
-                k2_inputs = (start, frame)
-    start, frame = k2_inputs
+                k2_inputs = (start, frame, roster_np)
+        # K2-seg and K2-delta on the same frame, the header as long as the
+        # register rows (256, as the pipeline packs it; 16 hold lanes).
+        for mode in ("seg", "delta"):
+            wire, width, _ = narrow_wire_of(frame, mode, lanes, 256, dev)
+            ms, plain_ms, err = narrow_step_check(
+                start, wire, params, mode, width, lanes, 256,
+                f"lanes={lanes}")
+            nbytes = (wire.numel() * 4 + lanes + 64 * blocks
+                      + 2 * regs_touched + 32)
+            b_ms, b_by = bound_ms(
+                nbytes, lanes * (3 * 20 + params.k * 5 + 5 + 8 * 3 + 10)
+                + nvalid * (2 * 20 + 10))
+            print(f"K2-{mode} fused_step_{mode} lanes={lanes} width={width} "
+                  f"wire_bytes={wire.numel() * 4} ms={ms} above_floor_ms="
+                  f"{ms - floor_ms} plain_ms={plain_ms} bound_ms={b_ms} "
+                  f"({b_by}) bytes_bound_ms={nbytes / HBM_BYTES_PER_S * 1e3} "
+                  f"word_ms={word[0]} word_bound_ms={word[1]} "
+                  f"times_word={ms / word[0]} max_abs_err={err}")
+            if mode == "delta":
+                delta_parts_timing(start, wire, params, width, lanes, 256,
+                                   floor_ms)
+            if lanes == 131_072:
+                rows[f"fused_step_{mode}"] = dict(
+                    replaces="attendance_tpu/models/fused.py:"
+                    + ("261" if mode == "seg" else "386"),
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+    start, frame, roster_np = k2_inputs
     lanes = 131_072
+    # The edge frame: 100,003 real lanes of 131,072, lanes in 4 of the 256
+    # header banks (empty banks before, between and after them), half the
+    # keys drawn over all of uint32: the seg wire is 32 bits wide and the
+    # delta wire's frame-wide prefix sum wraps.
+    rng_e = np.random.default_rng(6)
+    n_e = 100_003
+    keys_e = np.where(rng_e.random(n_e) < 0.5, rng_e.choice(roster_np, n_e),
+                      rng_e.integers(0, 1 << 32, n_e, dtype=np.uint64)
+                      ).astype(np.uint32)
+    edge = {"student_id": keys_e, "lecture_day": (20_260_701 + rng_e.choice(
+        [0, 5, 6, 200], n_e)).astype(np.uint32)}
+    for mode in ("seg", "delta"):
+        wire, width, wraps = narrow_wire_of(edge, mode, lanes, 256, dev)
+        check(wraps if mode == "delta" else width == 32,
+              f"edge frame: the {mode} wire is not the edge case")
+        _, _, err = narrow_step_check(start, wire, params, mode, width, lanes,
+                                      256, "edge frame", timed=False)
+        print(f"K2-{mode} edge frame lanes={lanes} real={n_e} banks 4 of "
+              f"256 width={width} max_abs_err={err}")
 
     # -- 2d. K4 blocked probe, K5 window PFADD, K6 Count-Min step -------------
     # Exact equality with the plain versions at the temporal path's
@@ -762,74 +937,95 @@ def main() -> int:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
 
-    # -- 3. main path ---------------------------------------------------------
+    # -- 3. main path, once per wire ------------------------------------------
     num_events, frame_size, num_lectures = 1 << 20, 1 << 17, 16
-    config = Config()
-    kernels.reset_launches()
-    pipe, summary = run_fused(config, num_events, frame_size, num_lectures,
-                              seed=0)
-    launches = dict(kernels.launches)
-    for name in ("hll_histogram", "fused_step", "bloom_add"):
-        check(launches[name] > 0, f"kernel {name} not launched on the main "
-              "path")
-    try:
-        stored = pipe.store.to_columns(deduplicate=False)
-        live = pipe._live_regs().clone()
-        days = pipe.lecture_days()
-        # The PFCOUNT path on this run's pipeline: one count(day) per
-        # lecture, and count_all().
-        pfcount_timing(card, "count(day)", [
-            (lambda d=d: pipe.count(d),
-             pipe.state.hll_regs[pipe._bank_of[d]:pipe._bank_of[d] + 1],
-             [0]) for d in days], reps=3)
-        pfcount_timing(card, "count_all()", [
-            (pipe.count_all, pipe._live_regs(),
-             [pipe._bank_of[d] for d in days])], reps=20)
-    finally:
-        pipe.cleanup()
     roster, frames = generate_frames(
-        num_events, frame_size, roster_size=config.bloom_filter_capacity,
+        num_events, frame_size,
+        roster_size=min(Config().bloom_filter_capacity, num_events),
         num_lectures=num_lectures, seed=0)
     cols = [decode_planar_batch(f) for f in frames]
     truth = np.concatenate([c["is_valid"] for c in cols])
     sid = np.concatenate([c["student_id"] for c in cols])
     day = np.concatenate([c["lecture_day"] for c in cols])
-    got = stored["is_valid"]
-    check(summary["valid"] + summary["invalid"] == num_events,
-          "valid + invalid != events")
-    false_neg = int((truth & ~got).sum())
-    check(false_neg == 0, f"{false_neg} false negatives")
-    fpr = float((got & ~truth).sum() / (~truth).sum())
-    check(fpr <= 0.015, f"measured FPR {fpr}")
-    worst = 0.0
-    for d, est in summary["unique_attendees"].items():
-        exact = len(np.unique(sid[(day == int(d)) & truth]))
-        worst = max(worst, abs(est - exact) / exact)
-    check(len(summary["unique_attendees"]) == num_lectures, "lecture count")
-    check(worst <= 0.03, f"PFCOUNT relative error {worst}")
-    print(f"main path: {summary['events_per_second']} events/s "
-          f"({summary['events']} events, {summary['batches']} frames, "
-          f"wall {summary['wall_seconds']} s) on {card}; valid "
-          f"{summary['valid']} invalid {summary['invalid']} fpr {fpr} "
-          f"worst_pfcount_err {worst} wires {summary['wire_dwell']} "
-          f"launches {launches}")
-    print(f"main path host stages (s): {summary['stage_seconds']}")
-    step_ms = launches["fused_step"] * rows["fused_step"]["ms"]
-    print(f"main path device share: {step_ms} ms of fused-step kernel time "
-          f"(launches x the K2 time above) in {summary['wall_seconds'] * 1e3}"
-          f" ms of run() wall")
-    # The same flow again in this process, with the host's caches warm
-    # (pinned-memory blocks, allocator pools): separates first-run costs.
-    pipe, again = run_fused(config, num_events, frame_size, num_lectures,
-                            seed=0)
-    pipe.cleanup()
-    check(again["valid"] == summary["valid"]
-          and again["unique_attendees"] == summary["unique_attendees"],
-          "second run of the main path disagrees with the first")
-    print(f"main path, second run in the same process: "
-          f"{again['events_per_second']} events/s (wall "
-          f"{again['wall_seconds']} s) on {card}")
-    print(f"second run host stages (s): {again['stage_seconds']}")
+    exact = {d: len(np.unique(sid[(day == d) & truth]))
+             for d in np.unique(day).tolist()}
+    launches = dict.fromkeys(kernels.launches, 0)
+    ref = None  # the default run's (counts, PFCOUNTs, registers, validity)
+    for label, wire, native in WIRE_RUNS:
+        for run in ("first", "second"):
+            # Counts set to 0 just before the run and read just after.
+            kernels.reset_launches()
+            pipe, summary = run_with_native(
+                native, Config(wire_format=wire), num_events, frame_size,
+                num_lectures)
+            run_launches = dict(kernels.launches)
+            try:
+                stored = pipe.store.to_columns(deduplicate=False)["is_valid"]
+                regs = pipe.state.hll_regs.clone()
+                loaded = pipe._native is not None
+                if label == "default" and run == "first":
+                    live = pipe._live_regs().clone()
+                    days = pipe.lecture_days()
+                    # The PFCOUNT path on this run's pipeline: one
+                    # count(day) per lecture, and count_all().
+                    pfcount_timing(card, "count(day)", [
+                        (lambda d=d: pipe.count(d),
+                         pipe.state.hll_regs[pipe._bank_of[d]:
+                                             pipe._bank_of[d] + 1],
+                         [0]) for d in days], reps=3)
+                    pfcount_timing(card, "count_all()", [
+                        (pipe.count_all, pipe._live_regs(),
+                         [pipe._bank_of[d] for d in days])], reps=20)
+            finally:
+                pipe.cleanup()
+            what = f"main path wire={label} run={run}"
+            check(loaded == native, f"{what}: native pack loaded={loaded}")
+            for name in ("bloom_add", "hll_histogram"):
+                check(run_launches[name] > 0, f"{what}: kernel {name} not "
+                      "launched")
+            for w in summary["wire_dwell"]:
+                name = STEP_OF_WIRE[w]
+                check(run_launches[name] > 0, f"{what}: kernel {name} not "
+                      f"launched for the {w} wire")
+            check(wire == "auto"
+                  or summary["wire_dwell"] == {wire: summary["batches"]},
+                  f"{what}: wires {summary['wire_dwell']}")
+            # The gates of PERF.md section 2.
+            check(summary["valid"] + summary["invalid"] == num_events,
+                  f"{what}: valid + invalid != events")
+            false_neg = int((truth & ~stored).sum())
+            check(false_neg == 0, f"{what}: {false_neg} false negatives")
+            fpr = float((stored & ~truth).sum() / (~truth).sum())
+            check(fpr <= 0.015, f"{what}: measured FPR {fpr}")
+            check(len(summary["unique_attendees"]) == num_lectures,
+                  f"{what}: lecture count")
+            worst = max(abs(est - exact[int(d)]) / exact[int(d)]
+                        for d, est in summary["unique_attendees"].items())
+            check(worst <= 0.03, f"{what}: PFCOUNT relative error {worst}")
+            got = ((summary["valid"], summary["invalid"]),
+                   summary["unique_attendees"], regs, stored)
+            if ref is None:
+                ref = got
+            # Every wire, and every run, equals the default run exactly.
+            check(got[:2] == ref[:2], f"{what}: counters or PFCOUNTs differ "
+                  "from the default run's")
+            check(torch.equal(got[2], ref[2]), f"{what}: registers differ "
+                  "from the default run's")
+            check(np.array_equal(got[3], ref[3]), f"{what}: stored validity "
+                  "differs from the default run's")
+            if run == "first":
+                for name, count in run_launches.items():
+                    launches[name] += count
+            device_ms = sum(run_launches[k] * rows[k]["ms"]
+                            for k in STEP_OF_WIRE.values())
+            print(f"{what}: {summary['events_per_second']} events/s "
+                  f"({summary['events']} events, {summary['batches']} "
+                  f"frames, wall {summary['wall_seconds']} s) on {card}; "
+                  f"native pack {loaded}; valid {summary['valid']} invalid "
+                  f"{summary['invalid']} fpr {fpr} worst_pfcount_err {worst} "
+                  f"wires {summary['wire_dwell']} launches {run_launches}; "
+                  f"step kernel time {device_ms} ms (launches x phase 2c)")
+            print(f"{what} host stages (s): {summary['stage_seconds']}")
 
     # -- 2b. K1 at the PFCOUNT path's bank counts, on two fills (the main
     # path's registers among them, so after phase 3) --------------------------

@@ -221,6 +221,7 @@ def test_empty_inputs_launch_nothing(cuda):
     assert valid.shape == (0,) and hist.shape == (0, 52)
     assert hit.shape == (0,) and est.shape == (0,)
     assert kernels.launches == {"hll_histogram": 0, "fused_step": 0,
+                                "fused_step_seg": 0, "fused_step_delta": 0,
                                 "bloom_add": 0, "bloom_contains": 0,
                                 "hll_add": 0, "cms_step": 0}
 
@@ -275,6 +276,7 @@ def test_pipeline_on_card_equals_cpu(cuda):
     assert card[1:3] == cpu[1:3]
     np.testing.assert_array_equal(card[3], cpu[3])
     assert card[4] == {"bloom_add": 1, "fused_step": 5, "hll_histogram": 1,
+                       "fused_step_seg": 0, "fused_step_delta": 0,
                        "bloom_contains": 0, "hll_add": 0, "cms_step": 0}
     assert not any(cpu[4].values())
 
@@ -573,3 +575,105 @@ def test_cms_step_kernel_hot_mix(masked, cuda):
         for h in hot.view(np.int32).tolist():
             lanes_h = keys == h
             assert int(est[lanes_h].min()) >= int(lanes_h.sum()) > 0
+
+
+# K2-seg and K2-delta cases: (padded lanes, real lanes, header banks, key
+# range of the non-roster lanes, empty banks). "frame" and "long" are the
+# main path's shapes; "header_past_regs" packs 300 banks against the 200
+# register rows (lanes of banks past them are counted, their registers
+# dropped); "kb32_wrap" draws keys over all of uint32, so the seg wire is
+# 32 bits wide and the delta wire's frame-wide prefix sum wraps.
+NARROW_CASES = {
+    "frame": (131_072, 120_000, 16, 1 << 21, ()),
+    "long": (1_048_576, 1_000_000, 16, 1 << 21, ()),
+    "empty_banks_ragged": (4096, 3001, 12, 1 << 20, (0, 3, 4, 11)),
+    "kb32_wrap": (8192, 8000, 64, 1 << 32, ()),
+    "one_bank": (1024, 700, 1, 1 << 20, ()),
+    "one_lane": (256, 1, 4, 1 << 20, ()),
+    "header_past_regs": (2048, 1500, 300, 1 << 20, ()),
+}
+
+
+def _narrow_case(mode, case, roster):
+    """(wire buffer, width) of one K2-seg/K2-delta case, widths taken
+    from the frame's own pack as the pipeline takes them."""
+    lanes, n, nb, key_hi, empty = NARROW_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, mode + case)))
+    keys = np.where(rng.random(n) < 0.9, rng.choice(roster, n),
+                    rng.integers(0, key_hi, n, dtype=np.uint64)
+                    ).astype(np.uint32)
+    banks = rng.choice([b for b in range(nb) if b not in empty], n).astype(
+        np.int32)
+    if mode == "seg":
+        width = max(int(keys.max()).bit_length(), 1)
+        buf, _ = fused.pack_seg(keys, banks, width, lanes, nb)
+    else:
+        scan = fused.delta_scan(keys, banks, nb)
+        width = fused.pick_delta_width(1, scan[4])
+        buf, _ = fused.pack_delta(keys, banks, width, lanes, nb, scan=scan)
+        if case == "kb32_wrap":
+            assert int(scan[3].astype(np.int64).sum()) >= 1 << 32
+    return torch.from_numpy(buf.view(np.int32)), width
+
+
+@pytest.mark.parametrize("case", list(NARROW_CASES))
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+def test_narrow_step_kernels_match_plain(mode, case, cuda):
+    """K2-seg and K2-delta against their plain versions on every lane of
+    valid (padding included), the registers and the counters."""
+    state, params, roster = _preloaded(cuda)
+    lanes, n, nb, _, empty = NARROW_CASES[case]
+    wire, width = _narrow_case(mode, case, roster)
+    wire = wire.to(cuda)
+    twin = fused.SketchState(*(t.clone() for t in state))
+    step = kernels.fused_step_seg if mode == "seg" else \
+        kernels.fused_step_delta
+    plain = kernels.fused_step_seg_plain if mode == "seg" else \
+        kernels.fused_step_delta_plain
+    name = f"fused_step_{mode}"
+    before = kernels.launches[name]
+    valid = step(*state, wire, params, padded=lanes, num_banks=nb,
+                 **{"kb" if mode == "seg" else "db": width})
+    want = plain(*twin, wire, params, width, lanes, nb, 14)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert valid.shape == (lanes,)
+    assert torch.equal(valid, want)
+    assert torch.equal(state.hll_regs, twin.hll_regs)
+    assert torch.equal(state.counts, twin.counts)
+    assert sum(fused.decode_counts(state.counts)) == n
+    for b in empty:
+        assert not state.hll_regs[b].any()
+
+
+@pytest.mark.parametrize("wire", ["seg", "delta"])
+def test_narrow_wire_pipeline_on_card_equals_cpu(wire, cuda):
+    """The slice on a narrow wire, on the card and on the CPU, with the
+    native pack, through a bank growth (8 -> 16 banks): equal state and
+    stored validity, and the card's run launched the wire's kernel."""
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        kernels.reset_launches()
+        pipe = FusedPipeline(Config(bloom_filter_capacity=20_000,
+                                    wire_format=wire),
+                             num_banks=8, device=device)
+        roster, frames = generate_frames(80_000, 16_384, roster_size=20_000,
+                                         num_lectures=12, seed=1)
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(pipe.config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=80_000, idle_timeout_s=0.3)
+        results.append((fused.state_to_numpy(pipe.state),
+                        pipe.validity_counts(), pipe.count_all(),
+                        pipe.store.to_columns(deduplicate=False)["is_valid"],
+                        dict(kernels.launches), dict(pipe.metrics.wire_dwell)))
+        pipe.cleanup()
+    card, cpu = results
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(a, b)
+    assert card[1:3] == cpu[1:3]
+    np.testing.assert_array_equal(card[3], cpu[3])
+    assert card[4][f"fused_step_{wire}"] == 5 and card[4]["fused_step"] == 0
+    assert card[5] == cpu[5] == {wire: 5}
+    assert not any(cpu[4].values())

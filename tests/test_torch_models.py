@@ -350,5 +350,6 @@ def test_kernel_wrappers_validate_inputs():
     kernels.reset_launches()
     kernels.hll_histogram(regs, 14)
     assert kernels.launches == {"hll_histogram": 0, "fused_step": 0,
+                                "fused_step_seg": 0, "fused_step_delta": 0,
                                 "bloom_add": 0, "bloom_contains": 0,
                                 "hll_add": 0, "cms_step": 0}

@@ -125,6 +125,7 @@ _PORT_MODULES = {
     "attendance_tpu_torch.cli", "attendance_tpu_torch.config",
     "attendance_tpu_torch.models.bloom", "attendance_tpu_torch.models.cms",
     "attendance_tpu_torch.models.fused", "attendance_tpu_torch.models.hll",
+    "attendance_tpu_torch.native", "attendance_tpu_torch.native.build",
     "attendance_tpu_torch.ops.kernels",
     "attendance_tpu_torch.pipeline.fast_path",
     "attendance_tpu_torch.temporal", "attendance_tpu_torch.temporal.buckets",

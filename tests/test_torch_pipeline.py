@@ -73,9 +73,9 @@ def test_lecture_to_day():
 
 def test_config_wires():
     assert Config().wire_format == "auto"
-    for later in ("seg", "delta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Config(wire_format=later)
+    for wire in ("auto", "delta", "seg", "word", "bytes"):
+        assert Config(wire_format=wire).wire_format == wire
+        assert JaxConfig(wire_format=wire).validate().wire_format == wire
     with pytest.raises(ValueError):
         Config(wire_format="json")
     with pytest.raises(ValueError):
