@@ -17,12 +17,16 @@
 //                         by four lanes together, into shared memory
 //                         (replaces the XLA programs fused_step_words /
 //                         fused_step_bytes, attendance_tpu/models/fused.py)
-//      atp_fused_step_seg   the same step over the seg wire, after one
-//                         scan of the per-bank counts (replaces the XLA
-//                         program fused_step_seg, models/fused.py:261)
-//      atp_fused_step_delta the same step over the delta wire, after the
-//                         frame-wide prefix sum of the deltas (three
-//                         passes; replaces fused_step_delta, :386)
+//      atp_fused_step_seg   the same step over the seg wire in one launch:
+//                         each CTA scans the per-bank counts in shared
+//                         memory and finds its lanes' banks there
+//                         (replaces the XLA program fused_step_seg,
+//                         models/fused.py:261)
+//      atp_fused_step_delta the same step over the delta wire in one
+//                         launch after a memset of its status words: the
+//                         keys are a single-pass segmented scan of the
+//                         deltas with decoupled look-back (replaces
+//                         fused_step_delta, :386)
 //   K3 atp_bloom_add      packed Bloom preload: a large batch binned by
 //                         filter tile and ORed in shared memory (a memset
 //                         and three kernels), a small one by one thread
@@ -271,8 +275,54 @@ hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
 // then added with one 64-bit atomic per CTA per counter: the uint32[2, 2]
 // (lo, hi) counters, read little-endian, are exactly two uint64 totals.
 // The decode is the kernel's template parameter, one functor per wire
-// (below); the probe-and-count tail is the same for all four wires.
+// (below), called once by every thread of the CTA: it returns the
+// thread's lane and, for a lane below `lanes`, decodes (key, bank). The
+// probe-and-count tail is the same for all four wires.
 // ---------------------------------------------------------------------------
+
+// Exclusive prefix sum over t in [0, count) of in(t) into out[0, count)
+// (shared memory), and the total into out[count], by one whole CTA; each
+// thread reads its in(t) once. mid() runs on every thread between the
+// scan's two barriers (the first makes what a thread wrote before the
+// scan visible to all).
+struct NoOp {
+  __device__ void operator()() const {}
+};
+
+template <typename In, typename Mid = NoOp>
+__device__ void cta_exclusive_scan(In in, int count, uint32_t* out,
+                                   Mid mid = Mid()) {
+  __shared__ uint32_t warp_sums[kWarps];
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int per = (count + kThreads - 1) / kThreads;
+  const int lo = min(count, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(count, lo + per);
+  uint32_t sum = 0u;
+  for (int t = lo; t < hi; ++t) {
+    out[t] = in(t);
+    sum += out[t];
+  }
+  uint32_t incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  mid();
+  uint32_t base = 0u;
+  for (int w = 0; w < warp; ++w) base += warp_sums[w];
+  uint32_t run = base + incl - sum;
+  for (int t = lo; t < hi; ++t) {
+    const uint32_t v = out[t];
+    out[t] = run;
+    run += v;
+  }
+  if (threadIdx.x == kThreads - 1) out[count] = base + incl;
+  __syncthreads();  // out is whole and warp_sums free for the next scan
+}
 
 // Word and bytes wires.
 // bank_bytes == 0: word wire, uint32[lanes] of bank << key_bits | key,
@@ -285,8 +335,15 @@ struct WireDecode {
   int key_bits;
   int lanes;
 
-  __device__ __forceinline__ void operator()(int i, uint32_t* key,
-                                             int32_t* bank) const {
+  __device__ __forceinline__ int operator()(uint32_t* key,
+                                            int32_t* bank) const {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < lanes) lane(i, key, bank);
+    return i;
+  }
+
+  __device__ __forceinline__ void lane(int i, uint32_t* key,
+                                       int32_t* bank) const {
     const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wire);
     if (bank_bytes == 0) {
       const uint32_t w = w32[i];
@@ -315,30 +372,34 @@ struct WireDecode {
 };
 
 // Lane i's `width`-bit field of a little-endian bitstream of uint32 words
-// (1 <= width <= 32): the bits from i * width on, spanning at most two
-// words. The second word is read only when the field starts inside a
-// word (a shift by 32 is undefined); the wire's two guard words hold the
-// last lane's second word.
-__device__ __forceinline__ uint32_t stream_field(
+// (1 <= width <= 32), in two steps so that a decode can issue the loads
+// early: field_words loads the two words that hold bits i * width on (the
+// wire's two guard words follow the last lane's), field_of cuts the field
+// with a funnel shift, which ignores the second word when the field starts
+// a word.
+struct FieldWords {
+  uint32_t lo, hi, sh;
+};
+
+__device__ __forceinline__ FieldWords field_words(
     const uint32_t* __restrict__ stream, int i, int width) {
   const uint64_t bit = static_cast<uint64_t>(i) * static_cast<uint64_t>(width);
   const size_t w0 = static_cast<size_t>(bit >> 5);
-  const uint32_t sh = static_cast<uint32_t>(bit & 31u);
-  uint32_t v = stream[w0] >> sh;
-  if (sh != 0u) v |= stream[w0 + 1] << (32u - sh);
+  return {__ldg(stream + w0), __ldg(stream + w0 + 1),
+          static_cast<uint32_t>(bit & 31u)};
+}
+
+__device__ __forceinline__ uint32_t field_of(FieldWords f, int width) {
+  const uint32_t v = __funnelshift_r(f.lo, f.hi, f.sh);
   return width >= 32 ? v : v & ((1u << width) - 1u);
 }
 
-// Lane i's bank: the segment holding i, i.e. the first bank b whose
-// inclusive end starts[b + 1] exceeds i (an upper bound, so runs of empty
-// banks go to the next non-empty one, as searchsorted(side="right")
-// does). starts[0..num_banks] is the exclusive scan of the per-bank
-// counts, starts[num_banks] the frame's total; a lane at or past the
-// total is padding.
-__device__ __forceinline__ int32_t segment_of(
-    const uint32_t* __restrict__ starts, int num_banks, uint32_t i) {
-  int lo = 0;
-  int hi = num_banks;
+// The first bank b in [lo, hi) whose end starts[b + 1] exceeds lane i,
+// else hi: an upper bound, so runs of empty banks go to the next non-empty
+// one, as searchsorted(side="right") does. starts is the exclusive scan
+// of the per-bank counts (shared memory).
+__device__ __forceinline__ int32_t upper_bank(const uint32_t* starts, int lo,
+                                              int hi, uint32_t i) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (starts[mid + 1] > i) {
@@ -350,44 +411,465 @@ __device__ __forceinline__ int32_t segment_of(
   return lo;
 }
 
+// Every CTA scans the wire's per-bank counts into starts[0..num_banks]
+// (dynamic shared memory; starts[num_banks] is the frame's total) and
+// finds the bank of each of its lanes t0 .. t0 + 255 there: -1 for a lane
+// that is not real (at or past the total). Lanes are sorted by bank, so
+// a tile's lanes cover a contiguous run of banks, usually one or two.
+// kRange: threads 0 and 32 search the banks of the tile's first and last
+// real lane, and each lane then searches only between them (no compare
+// when they are equal); else each lane searches all num_banks.
+template <bool kRange>
+__device__ __forceinline__ int32_t lane_bank(const uint32_t* starts,
+                                             int num_banks, uint32_t t0,
+                                             uint32_t total, uint32_t i,
+                                             bool real) {
+  if (!kRange) return real ? upper_bank(starts, 0, num_banks, i) : -1;
+  __shared__ int range[2];
+  if (threadIdx.x == 0 || threadIdx.x == 32) {
+    const uint32_t at = threadIdx.x == 0 ? t0 : min(t0 + kThreads, total) - 1u;
+    range[threadIdx.x >> 5] =
+        t0 < total ? upper_bank(starts, 0, num_banks, at) : 0;
+  }
+  __syncthreads();
+  return real ? upper_bank(starts, range[0], range[1], i) : -1;
+}
+
 // Seg wire: [counts u32[num_banks] | kb-bit keys | guard], lanes sorted
-// by bank; starts from wire_scan_kernel. Padding lanes decode key 0.
+// by bank. A lane's bank is the segment holding it; a padding lane (at or
+// past the counts' total) takes the key its bits hold (0 as packed) and
+// bank -1.
+template <bool kRange>
 struct SegDecode {
   const uint32_t* buf;
   int num_banks;
   int kb;
-  const uint32_t* starts;
+  int lanes;
 
-  __device__ __forceinline__ void operator()(int i, uint32_t* key,
-                                             int32_t* bank) const {
-    *key = stream_field(buf + num_banks, i, kb);
-    const uint32_t lane = static_cast<uint32_t>(i);
-    *bank = lane < starts[num_banks] ? segment_of(starts, num_banks, lane)
-                                     : -1;
+  __device__ __forceinline__ int operator()(uint32_t* key,
+                                            int32_t* bank) const {
+    extern __shared__ uint32_t starts[];
+    const uint32_t t0 = blockIdx.x * kThreads;
+    const int i = static_cast<int>(t0 + threadIdx.x);
+    const bool present = i < lanes;
+    const uint32_t* counts = buf;
+    FieldWords fw{0u, 0u, 0u};
+    if (present) fw = field_words(buf + num_banks, i, kb);  // in flight
+    cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
+                       starts);
+    const uint32_t total = starts[num_banks];
+    const uint32_t u = static_cast<uint32_t>(i);
+    *bank = lane_bank<kRange>(starts, num_banks, t0, total, u,
+                              present && u < total);
+    if (present) *key = field_of(fw, kb);
+    return i;
   }
 };
 
-// Delta wire: [counts | bases u32[num_banks] | db-bit deltas | guard]; c
-// is the frame-wide inclusive prefix sum of the deltas (uint32,
-// wrapping) from delta_prefix_kernel. Key = bases[b] + c[i] - c[s - 1],
-// s the segment's start (c[-1] = 0): exact under wraparound because each
-// segment's own partial sums fit 32 bits. Padding lanes take bank 0's
-// base and prefix, as the JAX decode does.
+// Status words of K2-delta's look-back, one uint64 per tile: the flag in
+// the high half (0 = not yet published, 1 = the tile's aggregate, 2 = its
+// inclusive value), the uint32 value in the low half, so one 64-bit store
+// publishes both.
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Polls the status word at p until it is published (flag != 0), with
+// acquire or relaxed gpu-scope loads (never cached in L1, never hoisted
+// out of the loop). A word still unpublished after 2^22 polls (seconds)
+// is a fault in the look-back: trapped, so the launch fails instead of
+// hanging the card.
+template <bool kAcquire>
+__device__ __forceinline__ unsigned long long wait_published(
+    const unsigned long long* p) {
+  for (int polls = 0;; ++polls) {
+    const unsigned long long s = kAcquire ? ld_acquire(p) : ld_relaxed(p);
+    if (s >= kAggregate) return s;
+    if (polls == (1 << 22)) __trap();
+  }
+}
+
+// Delta wire: [counts | bases u32[num_banks] | db-bit deltas | guard],
+// lanes sorted by (bank, key). The JAX decode's key is bases[b] + c[i] -
+// c[s - 1], c the frame-wide prefix sum of the deltas (mod 2^32), s the
+// segment's start: the inclusive segmented scan of the deltas, reset at
+// each segment's first lane (a head), plus the bank's base. A padding
+// lane's key is bases[0] + c[i]: the sum R of every real lane's delta
+// plus a scan that restarts at the first padding lane, so the padding
+// lanes are one more segment with base bases[0] + R.
+//
+// One pass (Merrill and Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA 2016), with the segmented operator. A CTA
+// takes its tile from a ticket (CTAs start in no order, and a tile waits
+// only on tiles with a lower ticket, which are running), scans the counts
+// for its lanes' banks and heads, and scans its tile. Warp 0 publishes the
+// tile's status: inclusive at once when the tile holds a head, else its
+// aggregate; when the tile's first lane is not a head it looks back over
+// the predecessors' statuses, 32 at a time, summing aggregates down to the
+// first inclusive value, and then publishes its own inclusive value.
+// Segments average 8,192 lanes at the main path's frame, so the look-back
+// mostly ends one tile back. R: every wholly real tile also publishes its
+// delta sum, and the tile of the first padding lane sums them all (one
+// relaxed load per tile, all in flight together) and publishes R in
+// state[1] for the later padding tiles.
+//
+// state (uint64, zeroed before every launch): [0] the ticket, [1] R,
+// [2, 2 + tiles) the segmented statuses, [2 + tiles, 2 + 2 tiles) the
+// tiles' delta sums.
+template <bool kRange, bool kAcquire = true>
 struct DeltaDecode {
   const uint32_t* buf;
   int num_banks;
-  const uint32_t* starts;
-  const uint32_t* c;
+  int db;
+  int lanes;
+  int tiles;
+  unsigned long long* state;
 
-  __device__ __forceinline__ void operator()(int i, uint32_t* key,
-                                             int32_t* bank) const {
-    const uint32_t lane = static_cast<uint32_t>(i);
-    const bool real = lane < starts[num_banks];
-    const int32_t b = real ? segment_of(starts, num_banks, lane) : 0;
-    const uint32_t s = starts[b];
-    const uint32_t before = s == 0u ? 0u : c[s - 1u];
-    *key = buf[num_banks + b] + c[i] - before;
-    *bank = real ? b : -1;
+  __device__ __forceinline__ int operator()(uint32_t* key,
+                                            int32_t* bank) const {
+    extern __shared__ uint32_t starts[];
+    __shared__ int tile_s;
+    __shared__ uint32_t warp_v[kWarps], warp_f[kWarps], warp_sum[kWarps];
+    __shared__ uint32_t pad_sum[kWarps];
+    __shared__ uint32_t carry_s, pad_s;
+    const int tid = static_cast<int>(threadIdx.x);
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    unsigned long long* seg = state + 2;
+    unsigned long long* sums = seg + tiles;
+    if (tid == 0) {
+      tile_s = static_cast<int>(
+          atomicAdd(reinterpret_cast<unsigned int*>(state), 1u));
+    }
+    int tile = 0;
+    FieldWords fw{0u, 0u, 0u};
+    const uint32_t* counts = buf;
+    const uint32_t* deltas = buf + 2 * num_banks;
+    const int n = lanes;
+    const int width = db;
+    // The ticket is visible after the scan's first barrier: the tile's
+    // deltas are loaded while the scan finishes.
+    cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
+                       starts, [&]() {
+                         tile = tile_s;
+                         const int i = tile * kThreads + tid;
+                         if (i < n) fw = field_words(deltas, i, width);
+                       });
+    const uint32_t t0 = static_cast<uint32_t>(tile) * kThreads;
+    const int i = static_cast<int>(t0) + tid;
+    const uint32_t u = static_cast<uint32_t>(i);
+    const bool present = i < lanes;
+    const uint32_t total = starts[num_banks];
+    const bool real = present && u < total;
+    const int32_t b = lane_bank<kRange>(starts, num_banks, t0, total, u, real);
+    const bool padding = total < static_cast<uint32_t>(lanes);
+    const uint32_t d = present ? field_of(fw, db) : 0u;
+
+    // The tile's inclusive segmented scan: f = a head at or before this
+    // lane within the tile, v = the deltas' sum since it (or since t0).
+    bool f = real ? starts[b] == u : present && u == total;
+    uint32_t v = d;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, v, off);
+      const int g = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(f), off);
+      if (lane >= off) {
+        if (!f) v += y;
+        f = f || g != 0;
+      }
+    }
+    const uint32_t real_sum = __reduce_add_sync(0xFFFFFFFFu, real ? d : 0u);
+    if (lane == 31) {
+      warp_v[warp] = v;
+      warp_f[warp] = f ? 1u : 0u;
+      warp_sum[warp] = real_sum;
+    }
+    __syncthreads();
+    for (int w = warp - 1; w >= 0 && !f; --w) {
+      v += warp_v[w];
+      f = warp_f[w] != 0u;
+    }
+
+    if (warp == 0) {
+      bool tile_f = false;  // the tile's aggregate (tile_f, tile_v)
+      uint32_t tile_v = 0u;
+      uint32_t tile_sum = 0u;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        tile_v = warp_f[w] != 0u ? warp_v[w] : tile_v + warp_v[w];
+        tile_f = tile_f || warp_f[w] != 0u;
+        tile_sum += warp_sum[w];
+      }
+      if (lane == 0) {
+        st_release(seg + tile, (tile_f ? kInclusive : kAggregate) | tile_v);
+        if (padding && t0 + kThreads <= total) {
+          st_release(sums + tile, kAggregate | tile_sum);
+        }
+      }
+      uint32_t carry = 0u;
+      // Lane 0 of warp 0 is the tile's first lane: no head there, so the
+      // lanes before the tile's first head continue a segment.
+      if (__shfl_sync(0xFFFFFFFFu, static_cast<int>(f), 0) == 0) {
+        for (int hi = tile - 1;; hi -= 32) {
+          const int p = hi - lane;
+          // Before tile 0, an inclusive 0 (not reached: a tile's first
+          // lane is a head).
+          const unsigned long long s =
+              p >= 0 ? wait_published<kAcquire>(seg + p) : kInclusive;
+          const unsigned int incl = __ballot_sync(0xFFFFFFFFu, s >= kInclusive);
+          const int stop = incl != 0u ? __ffs(incl) - 1 : 31;
+          carry += __reduce_add_sync(
+              0xFFFFFFFFu, lane <= stop ? static_cast<uint32_t>(s) : 0u);
+          if (incl != 0u) break;
+        }
+        if (lane == 0 && !tile_f) st_release(seg + tile, kInclusive | (carry + tile_v));
+      }
+      if (lane == 0) carry_s = carry;
+    }
+
+    if (padding && t0 + kThreads > total) {  // the tile holds padding lanes
+      if (t0 <= total) {  // ... the first: R = every real lane's delta sum
+        uint32_t r = 0u;
+        for (int p0 = tid; p0 < tile; p0 += 4 * kThreads) {
+          unsigned long long s[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int p = p0 + q * kThreads;
+            s[q] = p < tile ? ld_relaxed(sums + p) : kAggregate;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (s[q] < kAggregate) {
+              s[q] = wait_published<false>(sums + p0 + q * kThreads);
+            }
+            r += static_cast<uint32_t>(s[q]);
+          }
+        }
+        r = __reduce_add_sync(0xFFFFFFFFu, r);
+        if (lane == 0) pad_sum[warp] = r + real_sum;
+        __syncthreads();
+        if (tid == 0) {
+          uint32_t total_sum = 0u;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) total_sum += pad_sum[w];
+          pad_s = total_sum;
+          st_release(state + 1, kAggregate | total_sum);
+        }
+      } else if (tid == 0) {
+        pad_s = static_cast<uint32_t>(wait_published<kAcquire>(state + 1));
+      }
+    }
+    __syncthreads();
+    if (!f) v += carry_s;
+    if (real) {
+      *key = __ldg(buf + num_banks + b) + v;
+      *bank = b;
+    } else if (present) {
+      *key = __ldg(buf + num_banks) + pad_s + v;
+    }
+    return i;
+  }
+};
+
+// Two launches, no wait between CTAs: pass 1 (delta_sums_kernel) writes
+// every 256-lane tile's delta sum and every group's of 32 tiles; the
+// step then takes its tile from blockIdx.x and finds the carry into the
+// tile itself. A real lane's key is bases[b] + the deltas' sum from its
+// segment's head s to the lane: the tile's own segmented scan, plus, for
+// the lanes before the tile's first head, the carry over [s0, t0), s0 the
+// head of lane t0's segment: the head tile's lanes from s0 on (read from
+// the wire), then the whole tiles up to t0 from the sums, 32 at a time
+// by the groups'. A padding lane's key is bases[0] + c[i]: the sum over
+// every earlier tile, from the sums, plus the tile's plain scan. Every
+// read of the carry is one load per thread, issued together (at most
+// 31 + 31 tiles and lanes / 8,192 groups, plus 255 lanes).
+constexpr int kGroupTiles = 32;
+
+__global__ void __launch_bounds__(kThreads)
+delta_sums_kernel(const uint32_t* __restrict__ deltas, int db, int lanes,
+                  int tiles, uint32_t* __restrict__ tile_sums,
+                  uint32_t* __restrict__ group_sums) {
+  __shared__ uint32_t warp_sums[kWarps];
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  constexpr int kPerWarp = kGroupTiles / kWarps;  // tiles a warp sums
+  constexpr int kPerLane = kThreads / 32;         // lanes of a tile a lane reads
+  FieldWords f[kPerWarp][kPerLane];
+#pragma unroll
+  for (int q = 0; q < kPerWarp; ++q) {
+    const int tile = blockIdx.x * kGroupTiles + warp + q * kWarps;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int i = tile * kThreads + lane + 32 * j;
+      f[q][j] = tile < tiles && i < lanes ? field_words(deltas, i, db)
+                                          : FieldWords{0u, 0u, 0u};
+    }
+  }
+  uint32_t group = 0u;
+#pragma unroll
+  for (int q = 0; q < kPerWarp; ++q) {
+    const int tile = blockIdx.x * kGroupTiles + warp + q * kWarps;
+    uint32_t s = 0u;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) s += field_of(f[q][j], db);
+    s = __reduce_add_sync(0xFFFFFFFFu, s);
+    if (lane == 0 && tile < tiles) tile_sums[tile] = s;
+    group += s;
+  }
+  if (lane == 0) warp_sums[warp] = group;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t s = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
+    group_sums[blockIdx.x] = s;
+  }
+}
+
+// Thread k's share of the sum of tile_sums over tiles [lo, hi): the tiles
+// up to the first group boundary, the whole groups (group_sums), the
+// tiles after the last boundary; item x goes to thread x % kThreads.
+__device__ __forceinline__ uint32_t tile_range_part(
+    const uint32_t* __restrict__ tile_sums,
+    const uint32_t* __restrict__ group_sums, int lo, int hi, int k) {
+  if (lo >= hi) return 0u;
+  const int a = min(hi, (lo + kGroupTiles - 1) / kGroupTiles * kGroupTiles);
+  const int g_hi = max(a, hi / kGroupTiles * kGroupTiles);
+  const int n_lead = a - lo;
+  const int n_groups = (g_hi - a) / kGroupTiles;
+  const int n = n_lead + n_groups + hi - g_hi;
+  uint32_t sum = 0u;
+  for (int x = k; x < n; x += kThreads) {
+    sum += x < n_lead ? __ldg(tile_sums + lo + x)
+         : x < n_lead + n_groups
+             ? __ldg(group_sums + a / kGroupTiles + (x - n_lead))
+             : __ldg(tile_sums + g_hi + (x - n_lead - n_groups));
+  }
+  return sum;
+}
+
+struct DeltaDecode2 {
+  const uint32_t* buf;
+  int num_banks;
+  int db;
+  int lanes;
+  const uint32_t* tile_sums;
+  const uint32_t* group_sums;
+
+  __device__ __forceinline__ int operator()(uint32_t* key,
+                                            int32_t* bank) const {
+    extern __shared__ uint32_t starts[];
+    __shared__ int range[2];
+    __shared__ uint32_t warp_v[kWarps], warp_f[kWarps], warp_p[kWarps];
+    __shared__ uint32_t warp_cs[kWarps], warp_cp[kWarps];
+    const int tid = static_cast<int>(threadIdx.x);
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int tile = static_cast<int>(blockIdx.x);
+    const uint32_t t0 = static_cast<uint32_t>(tile) * kThreads;
+    const int i = static_cast<int>(t0) + tid;
+    const uint32_t u = static_cast<uint32_t>(i);
+    const bool present = i < lanes;
+    const uint32_t* counts = buf;
+    const uint32_t* deltas = buf + 2 * num_banks;
+    FieldWords fw{0u, 0u, 0u};
+    if (present) fw = field_words(deltas, i, db);  // in flight
+    cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
+                       starts);
+    const uint32_t total = starts[num_banks];
+    if (tid == 0 || tid == 32) {
+      const uint32_t at = tid == 0 ? t0 : min(t0 + kThreads, total) - 1u;
+      range[tid >> 5] = t0 < total ? upper_bank(starts, 0, num_banks, at) : 0;
+    }
+    __syncthreads();
+    const bool real = present && u < total;
+    const int32_t b = real ? upper_bank(starts, range[0], range[1], u) : -1;
+    // The carry's loads: the head tile's lanes [s0, end) and the whole
+    // tiles after it, for the lanes before the tile's first head; the
+    // sum over every earlier tile, for a tile with padding lanes.
+    const uint32_t s0 = t0 < total ? starts[range[0]] : total;
+    uint32_t carry_seg = 0u;
+    if (t0 < total && s0 < t0) {
+      const int h = static_cast<int>(s0 >> 8);
+      const uint32_t h_end = static_cast<uint32_t>(h + 1) * kThreads;
+      if (s0 + static_cast<uint32_t>(tid) < h_end) {
+        carry_seg = field_of(field_words(deltas, static_cast<int>(s0) + tid, db),
+                             db);
+      }
+      carry_seg += tile_range_part(tile_sums, group_sums, h + 1, tile, tid);
+    }
+    const bool padding_tile = t0 + kThreads > total;
+    const uint32_t carry_plain =
+        padding_tile ? tile_range_part(tile_sums, group_sums, 0, tile, tid)
+                     : 0u;
+    const uint32_t d = present ? field_of(fw, db) : 0u;
+
+    // The tile's inclusive segmented scan (heads: each bank's first lane
+    // and the first padding lane) and, in a padding tile, its plain one.
+    bool f = real ? starts[b] == u : present && u == total;
+    uint32_t v = d;
+    uint32_t p = d;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, v, off);
+      const int g = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(f), off);
+      const uint32_t z = __shfl_up_sync(0xFFFFFFFFu, p, off);
+      if (lane >= off) {
+        if (!f) v += y;
+        f = f || g != 0;
+        p += z;
+      }
+    }
+    const uint32_t cs = __reduce_add_sync(0xFFFFFFFFu, carry_seg);
+    const uint32_t cp = __reduce_add_sync(0xFFFFFFFFu, carry_plain);
+    if (lane == 31) {
+      warp_v[warp] = v;
+      warp_f[warp] = f ? 1u : 0u;
+      warp_p[warp] = p;
+      warp_cs[warp] = cs;
+      warp_cp[warp] = cp;
+    }
+    __syncthreads();
+    uint32_t seg_in = 0u;
+    uint32_t plain_in = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      seg_in += warp_cs[w];
+      plain_in += warp_cp[w];
+      if (w < warp) p += warp_p[w];
+    }
+    for (int w = warp - 1; w >= 0 && !f; --w) {
+      v += warp_v[w];
+      f = warp_f[w] != 0u;
+    }
+    if (real) {
+      *key = __ldg(buf + num_banks + b) + v + (f ? 0u : seg_in);
+      *bank = b;
+    } else if (present) {
+      *key = __ldg(buf + num_banks) + plain_in + p;
+    }
+    return i;
   }
 };
 
@@ -399,11 +881,10 @@ fused_step_kernel(Decode decode, int lanes,
                   int precision, unsigned long long* counts,
                   uint8_t* __restrict__ valid) {
   __shared__ uint4 stage[kWarps * 128];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool present = i < lanes;
   uint32_t key = 0u;
   int32_t bank = -1;
-  if (present) decode(i, &key, &bank);
+  const int i = decode(&key, &bank);
+  const bool present = i < lanes;
   const bool hit = warp_bloom_probe(bloom, num_blocks, magic, k, key, present,
                                     stage + (threadIdx.x >> 5) * 128);
   const bool real = bank >= 0;
@@ -463,42 +944,6 @@ fused_step_kernel(Decode decode, int lanes,
 // counts[ctas * tiles], offsets[ctas * tiles], payload[n].
 // ---------------------------------------------------------------------------
 constexpr int kPayloadBlockBits = 9;  // log2 of the most blocks in a tile
-
-// Exclusive prefix sum over t in [0, count) of in(t) into out[0, count)
-// (shared memory), and the total into out[count], by one whole CTA; each
-// thread reads its in(t) once.
-template <typename In>
-__device__ void cta_exclusive_scan(In in, int count, uint32_t* out) {
-  __shared__ uint32_t warp_sums[kWarps];
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int warp = static_cast<int>(threadIdx.x >> 5);
-  const int per = (count + kThreads - 1) / kThreads;
-  const int lo = min(count, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(count, lo + per);
-  uint32_t sum = 0u;
-  for (int t = lo; t < hi; ++t) {
-    out[t] = in(t);
-    sum += out[t];
-  }
-  uint32_t incl = sum;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  uint32_t base = 0u;
-  for (int w = 0; w < warp; ++w) base += warp_sums[w];
-  uint32_t run = base + incl - sum;
-  for (int t = lo; t < hi; ++t) {
-    const uint32_t v = out[t];
-    out[t] = run;
-    run += v;
-  }
-  if (threadIdx.x == kThreads - 1) out[count] = base + incl;
-  __syncthreads();  // out is whole and warp_sums free for the next scan
-}
 
 // Keys a thread loads before it uses any, in the preload's key loops.
 constexpr int kKeyUnroll = 4;
@@ -785,18 +1230,81 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 }
 
 // ---------------------------------------------------------------------------
-// K2-seg and K2-delta pre-passes. A lane's bank is the segment holding it,
-// so the per-bank counts are scanned before the step; a delta lane's key
-// needs the frame-wide prefix sum of the deltas at its own lane and at
-// its segment's start, which usually lies in another CTA's tile, so that
-// prefix exists in full before the step: the tile sums, one CTA that
-// scans counts and tile sums, then each tile's inclusive scan plus its
-// offset. Sums are uint32 and wrap, as the JAX uint32 cumsum does.
+// The PR 6 designs of K2-seg and K2-delta, kept only to be timed beside
+// the one-launch designs (atp_exp_fused_step_seg / _delta): a one-CTA
+// scan of the counts into global scratch, then K2 with a per-lane binary
+// search there (seg); tile sums, a one-CTA scan of counts and tile sums,
+// a per-tile prefix into a uint32[lanes] scratch c, then K2 reading c at
+// the lane and at its segment's start (delta).
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t stream_field(
+    const uint32_t* __restrict__ stream, int i, int width) {
+  const uint64_t bit = static_cast<uint64_t>(i) * static_cast<uint64_t>(width);
+  const size_t w0 = static_cast<size_t>(bit >> 5);
+  const uint32_t sh = static_cast<uint32_t>(bit & 31u);
+  uint32_t v = stream[w0] >> sh;
+  if (sh != 0u) v |= stream[w0 + 1] << (32u - sh);
+  return width >= 32 ? v : v & ((1u << width) - 1u);
+}
 
-// One CTA: starts[0..num_banks] = exclusive scan of the wire's counts
-// (starts[num_banks] = the frame's total); with tile_sums, also
-// tile_off[0..tiles] = exclusive scan of the per-tile delta sums.
+__device__ __forceinline__ int32_t segment_of(
+    const uint32_t* __restrict__ starts, int num_banks, uint32_t i) {
+  int lo = 0;
+  int hi = num_banks;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (starts[mid + 1] > i) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+struct SegDecodePr6 {
+  const uint32_t* buf;
+  int num_banks;
+  int kb;
+  int lanes;
+  const uint32_t* starts;
+
+  __device__ __forceinline__ int operator()(uint32_t* key,
+                                            int32_t* bank) const {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < lanes) {
+      *key = stream_field(buf + num_banks, i, kb);
+      const uint32_t lane = static_cast<uint32_t>(i);
+      *bank = lane < starts[num_banks] ? segment_of(starts, num_banks, lane)
+                                       : -1;
+    }
+    return i;
+  }
+};
+
+struct DeltaDecodePr6 {
+  const uint32_t* buf;
+  int num_banks;
+  int lanes;
+  const uint32_t* starts;
+  const uint32_t* c;
+
+  __device__ __forceinline__ int operator()(uint32_t* key,
+                                            int32_t* bank) const {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < lanes) {
+      const uint32_t lane = static_cast<uint32_t>(i);
+      const bool real = lane < starts[num_banks];
+      const int32_t b = real ? segment_of(starts, num_banks, lane) : 0;
+      const uint32_t s = starts[b];
+      const uint32_t before = s == 0u ? 0u : c[s - 1u];
+      *key = buf[num_banks + b] + c[i] - before;
+      *bank = real ? b : -1;
+    }
+    return i;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 wire_scan_kernel(const uint32_t* __restrict__ counts, int num_banks,
                  uint32_t* starts, const uint32_t* __restrict__ tile_sums,
@@ -807,7 +1315,6 @@ wire_scan_kernel(const uint32_t* __restrict__ counts, int num_banks,
   }
 }
 
-// One CTA per tile of kThreads lanes: the tile's delta sum.
 __global__ void __launch_bounds__(kThreads)
 delta_tile_sum_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
                       uint32_t* __restrict__ tile_sums) {
@@ -825,7 +1332,6 @@ delta_tile_sum_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
   }
 }
 
-// One CTA per tile: c[i] = tile_off[tile] + the tile's inclusive scan.
 __global__ void __launch_bounds__(kThreads)
 delta_prefix_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
                     const uint32_t* __restrict__ tile_off,
@@ -849,18 +1355,89 @@ delta_prefix_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-// K2 over one frame with the wire's decode.
+// Dynamic shared memory a kernel takes without opting in (the K2
+// kernels' static shared memory is about 17 KB of the 48 KB default).
+constexpr size_t kSmemNoOptIn = 16 * 1024;
+
+// K2 over one frame with the wire's decode, which takes `smem` bytes of
+// dynamic shared memory (the narrow wires' scan of the counts).
 template <class Decode>
-int launch_fused_step(const Decode& decode, int lanes, const void* bloom,
-                      unsigned int num_blocks, int k, void* regs,
-                      int num_banks, int precision, void* counts,
+int launch_fused_step(const Decode& decode, int lanes, size_t smem,
+                      const void* bloom, unsigned int num_blocks, int k,
+                      void* regs, int num_banks, int precision, void* counts,
                       void* valid, cudaStream_t s) {
-  fused_step_kernel<<<blocks_for(lanes), kThreads, 0, s>>>(
+  if (smem > kSmemNoOptIn) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_step_kernel<Decode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fused_step_kernel<<<blocks_for(lanes), kThreads, smem, s>>>(
       decode, lanes, static_cast<const uint32_t*>(bloom), num_blocks,
       fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
       precision, static_cast<unsigned long long*>(counts),
       static_cast<uint8_t*>(valid));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of the narrow wires' counts scan: starts[wire_banks + 1].
+inline size_t counts_smem(int wire_banks) {
+  return sizeof(uint32_t) * (static_cast<size_t>(wire_banks) + 1);
+}
+
+// The one-launch K2-seg, by bank search (kRange: see lane_bank).
+template <bool kRange>
+int launch_seg(const void* buf, int kb, int lanes, int wire_banks,
+               const void* bloom, unsigned int num_blocks, int k, void* regs,
+               int num_banks, int precision, void* counts, void* valid,
+               cudaStream_t s) {
+  return launch_fused_step(
+      SegDecode<kRange>{static_cast<const uint32_t*>(buf), wire_banks, kb,
+                        lanes},
+      lanes, counts_smem(wire_banks), bloom, num_blocks, k, regs, num_banks,
+      precision, counts, valid, s);
+}
+
+// The one-launch K2-delta after the memset of its status words (state:
+// 2 + 2 * tiles uint64, see DeltaDecode).
+template <bool kRange, bool kAcquire = true>
+int launch_delta(const void* buf, int db, int lanes, int wire_banks,
+                 void* state, const void* bloom, unsigned int num_blocks,
+                 int k, void* regs, int num_banks, int precision,
+                 void* counts, void* valid, cudaStream_t s) {
+  const int tiles = blocks_for(lanes);
+  const cudaError_t err = cudaMemsetAsync(
+      state, 0, sizeof(unsigned long long) * (2 + 2 * static_cast<size_t>(tiles)),
+      s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_fused_step(
+      DeltaDecode<kRange, kAcquire>{static_cast<const uint32_t*>(buf),
+                                    wire_banks, db, lanes, tiles,
+                                    static_cast<unsigned long long*>(state)},
+      lanes, counts_smem(wire_banks), bloom, num_blocks, k, regs, num_banks,
+      precision, counts, valid, s);
+}
+
+// The two-launch K2-delta: the tile and group sums into scratch (uint32
+// tiles + ceil(tiles / 32)), then the step.
+int launch_delta2(const void* buf, int db, int lanes, int wire_banks,
+                  void* scratch, const void* bloom, unsigned int num_blocks,
+                  int k, void* regs, int num_banks, int precision,
+                  void* counts, void* valid, cudaStream_t s) {
+  const int tiles = blocks_for(lanes);
+  const int groups = (tiles + kGroupTiles - 1) / kGroupTiles;
+  const uint32_t* b = static_cast<const uint32_t*>(buf);
+  uint32_t* tile_sums = static_cast<uint32_t*>(scratch);
+  uint32_t* group_sums = tile_sums + tiles;
+  delta_sums_kernel<<<groups, kThreads, 0, s>>>(
+      b + 2 * static_cast<size_t>(wire_banks), db, lanes, tiles, tile_sums,
+      group_sums);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_fused_step(
+      DeltaDecode2{b, wire_banks, db, lanes, tile_sums, group_sums}, lanes,
+      counts_smem(wire_banks), bloom, num_blocks, k, regs, num_banks,
+      precision, counts, valid, s);
 }
 
 // K3's binned path: the memset and three kernels on one stream (see
@@ -930,44 +1507,93 @@ int atp_fused_step(const void* wire, int bank_bytes, int key_bits, int lanes,
     return launch_fused_step(
         WireDecode{static_cast<const uint8_t*>(wire), bank_bytes, key_bits,
                    lanes},
-        lanes, bloom, num_blocks, k, regs, num_banks, precision, counts,
+        lanes, 0, bloom, num_blocks, k, regs, num_banks, precision, counts,
         valid, static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K2-seg: buf is [counts u32[wire_banks] | kb-bit keys | guard] for
-// `lanes` (padded) lanes; scratch holds wire_banks + 1 uint32 (the
-// counts' exclusive scan). num_banks is the register rows.
+// `lanes` (padded) lanes; num_banks is the register rows. One launch.
 int atp_fused_step_seg(const void* buf, int kb, int lanes, int wire_banks,
-                       void* scratch, const void* bloom,
-                       unsigned int num_blocks, int k, void* regs,
-                       int num_banks, int precision, void* counts,
+                       const void* bloom, unsigned int num_blocks, int k,
+                       void* regs, int num_banks, int precision, void* counts,
                        void* valid, void* stream) {
+  return launch_seg<true>(buf, kb, lanes, wire_banks, bloom, num_blocks, k,
+                          regs, num_banks, precision, counts, valid,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K2-delta: buf is [counts | bases u32[wire_banks] | db-bit deltas |
+// guard]; state holds 2 + 2 * ceil(lanes / 256) uint64 status words,
+// zeroed here by one memset before the one launch (captured into a CUDA
+// graph as its own node, so every replay starts from fresh words).
+int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
+                         void* state, const void* bloom,
+                         unsigned int num_blocks, int k, void* regs,
+                         int num_banks, int precision, void* counts,
+                         void* valid, void* stream) {
+  return launch_delta<true>(buf, db, lanes, wire_banks, state, bloom,
+                            num_blocks, k, regs, num_banks, precision, counts,
+                            valid, static_cast<cudaStream_t>(stream));
+}
+
+// Timing only: the designs of K2-seg (variant 0: PR 6, scratch =
+// starts[wire_banks + 1]; 1: per-lane search; 2: range search) and of
+// K2-delta (0: PR 6, scratch as its delta_scratch_words; 1 and 2: one
+// launch, scratch = the status words; 3: as 2 with relaxed loads in the
+// look-back; 4: two launches, scratch = the tile and group sums).
+int atp_exp_fused_step_seg(int variant, const void* buf, int kb, int lanes,
+                           int wire_banks, void* scratch, const void* bloom,
+                           unsigned int num_blocks, int k, void* regs,
+                           int num_banks, int precision, void* counts,
+                           void* valid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    return launch_seg<false>(buf, kb, lanes, wire_banks, bloom, num_blocks,
+                             k, regs, num_banks, precision, counts, valid, s);
+  }
+  if (variant == 2) {
+    return launch_seg<true>(buf, kb, lanes, wire_banks, bloom, num_blocks, k,
+                            regs, num_banks, precision, counts, valid, s);
+  }
   const uint32_t* b = static_cast<const uint32_t*>(buf);
   uint32_t* starts = static_cast<uint32_t*>(scratch);
   wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, nullptr, 0,
                                           nullptr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_fused_step(SegDecode{b, wire_banks, kb, starts}, lanes, bloom,
-                           num_blocks, k, regs, num_banks, precision, counts,
-                           valid, s);
+  return launch_fused_step(SegDecodePr6{b, wire_banks, kb, lanes, starts},
+                           lanes, 0, bloom, num_blocks, k, regs, num_banks,
+                           precision, counts, valid, s);
 }
 
-// K2-delta: buf is [counts | bases u32[wire_banks] | db-bit deltas |
-// guard]; scratch holds starts[wire_banks + 1], tile_sums[tiles],
-// tile_off[tiles + 1] and c[lanes] (uint32), tiles = ceil(lanes / 256).
-// passes: bit 0 runs the three pre-passes, bit 1 the step (the wrapper
-// runs both; one alone times it apart, the step reading the scratch the
-// pre-passes left).
-int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
-                         void* scratch, const void* bloom,
-                         unsigned int num_blocks, int k, void* regs,
-                         int num_banks, int precision, void* counts,
-                         void* valid, int passes, void* stream) {
+int atp_exp_fused_step_delta(int variant, const void* buf, int db, int lanes,
+                             int wire_banks, void* scratch, const void* bloom,
+                             unsigned int num_blocks, int k, void* regs,
+                             int num_banks, int precision, void* counts,
+                             void* valid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    return launch_delta<false>(buf, db, lanes, wire_banks, scratch, bloom,
+                               num_blocks, k, regs, num_banks, precision,
+                               counts, valid, s);
+  }
+  if (variant == 2) {
+    return launch_delta<true>(buf, db, lanes, wire_banks, scratch, bloom,
+                              num_blocks, k, regs, num_banks, precision,
+                              counts, valid, s);
+  }
+  if (variant == 3) {
+    return launch_delta<true, false>(buf, db, lanes, wire_banks, scratch,
+                                     bloom, num_blocks, k, regs, num_banks,
+                                     precision, counts, valid, s);
+  }
+  if (variant == 4) {
+    return launch_delta2(buf, db, lanes, wire_banks, scratch, bloom,
+                         num_blocks, k, regs, num_banks, precision, counts,
+                         valid, s);
+  }
   const uint32_t* b = static_cast<const uint32_t*>(buf);
   const uint32_t* deltas = b + 2 * static_cast<size_t>(wire_banks);
   const int tiles = blocks_for(lanes);
@@ -975,26 +1601,29 @@ int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
   uint32_t* tile_sums = starts + wire_banks + 1;
   uint32_t* tile_off = tile_sums + tiles;
   uint32_t* c = tile_off + tiles + 1;
-  if (passes & 1) {
-    delta_tile_sum_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes,
-                                                     tile_sums);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, tile_sums,
-                                            tiles, tile_off);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    delta_prefix_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes,
-                                                   tile_off, c);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (passes & 2) {
-    return launch_fused_step(DeltaDecode{b, wire_banks, starts, c}, lanes,
-                             bloom, num_blocks, k, regs, num_banks, precision,
-                             counts, valid, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  delta_tile_sum_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes,
+                                                   tile_sums);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, tile_sums,
+                                          tiles, tile_off);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  delta_prefix_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes, tile_off,
+                                                 c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_fused_step(DeltaDecodePr6{b, wire_banks, lanes, starts, c},
+                           lanes, 0, bloom, num_blocks, k, regs, num_banks,
+                           precision, counts, valid, s);
+}
+
+// Timing only: the memset K2-delta issues before its launch, alone.
+int atp_exp_memset(void* state, int lanes, void* stream) {
+  return static_cast<int>(cudaMemsetAsync(
+      state, 0,
+      sizeof(unsigned long long) * (2 + 2 * static_cast<size_t>(blocks_for(lanes))),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // scratch == nullptr: one thread per key; else the binned passes.

@@ -418,12 +418,17 @@ def fused_step_delta_plain(bloom: torch.Tensor, regs: torch.Tensor,
                             precision)
 
 
-def delta_scratch_words(num_banks: int, padded: int) -> int:
-    """int32 scratch of K2-delta: the counts' exclusive scan
-    [num_banks + 1], the tile sums and their scan [2 * tiles + 1], the
-    deltas' prefix sum [padded] (tiles of 256 lanes)."""
-    tiles = -(-padded // 256)
-    return num_banks + 1 + 2 * tiles + 1 + padded
+# The narrow wires' kernels scan the header's counts in shared memory
+# (4 bytes a bank per CTA, at most 227 KB with K2's own 17 KB).
+NARROW_MAX_BANKS = 1 << 15
+
+
+def delta_scratch_words(padded: int) -> int:
+    """int64 status words of K2-delta, zeroed by its C entry point before
+    every launch: the tile ticket, the padding lanes' delta sum, and two
+    words per tile of 256 lanes (its segmented scan status, its delta
+    sum)."""
+    return 2 + 2 * -(-padded // 256)
 
 
 def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
@@ -451,20 +456,21 @@ def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
         return plain(bloom, regs, counts, buf, params, width, padded,
                      num_banks, precision)
     _require_step_cuda(*tensors)
+    _require(num_banks <= NARROW_MAX_BANKS,
+             f"{name} kernel takes at most {NARROW_MAX_BANKS} header banks")
     valid = torch.empty(padded, dtype=torch.bool, device=buf.device)
-    scratch = torch.empty(
-        num_banks + 1 if name == "seg"
-        else delta_scratch_words(num_banks, padded),
-        dtype=torch.int32, device=buf.device)
-    args = (buf.data_ptr(), width, padded, num_banks, scratch.data_ptr(),
-            bloom.data_ptr(), params.m_bits // BLOCK_BITS, params.k,
+    head = (buf.data_ptr(), width, padded, num_banks)
+    tail = (bloom.data_ptr(), params.m_bits // BLOCK_BITS, params.k,
             regs.data_ptr(), regs.shape[0], precision, counts.data_ptr(),
-            valid.data_ptr())
+            valid.data_ptr(), _stream(buf))
     with torch.cuda.device(buf.device):
         if name == "seg":
-            rc = library().atp_fused_step_seg(*args, _stream(buf))
+            rc = library().atp_fused_step_seg(*head, *tail)
         else:
-            rc = library().atp_fused_step_delta(*args, 3, _stream(buf))
+            state = torch.empty(delta_scratch_words(padded),
+                                dtype=torch.int64, device=buf.device)
+            rc = library().atp_fused_step_delta(*head, state.data_ptr(),
+                                                *tail)
     _check_launch(rc, f"atp_fused_step_{name}")
     launches[f"fused_step_{name}"] += 1
     return valid
@@ -486,11 +492,15 @@ def fused_step_seg(bloom: torch.Tensor, regs: torch.Tensor,
     ``decode_seg_lanes`` (attendance_tpu/models/fused.py:261,292). Bound:
     K2's, with kb/8 bytes of wire per lane instead of 4 and the decode's
     few integer operations added; at a 131,072-lane frame the operations
-    (hash and probe) outweigh the bytes (chip_smoke.py). Design:
-    one CTA scans the counts into an int32 scratch (``cta_exclusive_scan``,
-    as K3 does), then K2's body with a seg decode: two word reads and
-    shifts for the key, a binary search of the scanned counts for the
-    bank. Two launches, counted as one.
+    (hash and probe) outweigh the bytes (chip_smoke.py). Design: one
+    launch, K2's body with a seg decode. Each CTA issues its lanes' key
+    loads (two words and a funnel shift per key), scans the header's
+    counts in shared memory (``cta_exclusive_scan``; 4 bytes a bank, so
+    at most ``NARROW_MAX_BANKS``) and finds its lanes' banks there:
+    lanes are sorted by bank, so two threads search the banks of the
+    tile's first and last lane and each lane searches only between them
+    (none when they are equal, as at the main path's frame, 8,192 lanes
+    a bank against 256 a CTA).
     """
     return _narrow_step("seg", bloom, regs, counts, buf, params, kb, padded,
                         num_banks, precision)
@@ -509,15 +519,18 @@ def fused_step_delta(bloom: torch.Tensor, regs: torch.Tensor,
 
     Replaces the XLA program ``fused_step_delta`` with
     ``decode_delta_lanes`` (attendance_tpu/models/fused.py:386,416).
-    Bound: as K2-seg's, at db/8 bytes of wire per lane. Design: a
-    lane's key needs the frame-wide prefix sum of the deltas at its own
-    lane and at its segment's start, which usually lies in another CTA's
-    tile, so the sum is made whole first: a pass of per-tile delta sums,
-    one CTA that scans the counts and the tile sums, a pass that writes
-    each tile's inclusive scan plus its offset to an int32 scratch; then
-    K2's body with a delta decode (the bank's binary search, two reads of
-    the prefix, the base). Four launches, counted as one; one pass with a
-    decoupled look-back is left for later.
+    Bound: as K2-seg's, at db/8 bytes of wire per lane. Design: a key is
+    its bank's base plus the inclusive segmented scan of the deltas (a
+    segment per bank, and one for the padding lanes, whose base adds the
+    real lanes' whole delta sum), computed in one pass with decoupled
+    look-back (Merrill and Garland, 2016): a CTA takes its tile of 256
+    lanes from a ticket, finds its lanes' banks and segment heads as
+    K2-seg does, scans its tile, publishes its status (inclusive at once
+    when it holds a head) and, when its first lane continues a segment,
+    sums its predecessors' statuses back to the first inclusive one.
+    The deltas are read once and no per-lane prefix is written. One
+    launch after one memset of ``delta_scratch_words(padded)`` int64
+    status words (which also keeps a replayed CUDA graph correct).
     """
     return _narrow_step("delta", bloom, regs, counts, buf, params, db,
                         padded, num_banks, precision)

@@ -108,9 +108,15 @@ def eager_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, reps: int = 20, replays: int = 5) -> float:
+REPS, REPLAYS = 20, 5  # launches captured in one graph, timed replays
+
+
+def kernel_ms(fn, reps: int = REPS, replays: int = REPLAYS) -> float:
     """Mean device ms per launch: ``reps`` launches captured in one CUDA
-    graph and replayed, so the wrapper's host overhead is not timed."""
+    graph and replayed, so the wrapper's host overhead is not timed.
+    ``fn`` runs 1 + reps * (1 + replays) times (``graph_runs``): once to
+    warm up, then each replay of the graph, the first untimed; the
+    capture itself runs nothing."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -130,6 +136,11 @@ def kernel_ms(fn, reps: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def graph_runs(reps: int = REPS, replays: int = REPLAYS) -> int:
+    """How many times ``kernel_ms`` runs its function."""
+    return 1 + reps * (1 + replays)
 
 
 def temporal_frames(num_events: int, batch: int, num_lectures: int,
@@ -215,9 +226,9 @@ def narrow_wire_of(cols, mode: str, lanes: int, num_banks: int, dev):
     from attendance_tpu_torch.models import fused
 
     sid = np.asarray(cols["student_id"], np.uint32)
-    banks = (cols["lecture_day"] - 20_260_701).astype(np.int32)
+    banks = (np.asarray(cols["lecture_day"]) - 20_260_701).astype(np.int32)
     if mode == "seg":
-        width = max(int(sid.max()).bit_length(), 1)
+        width = max(int(sid.max()).bit_length() if len(sid) else 0, 1)
         buf, _ = fused.pack_seg(sid, banks, width, lanes, num_banks)
         wraps = False
     else:
@@ -229,26 +240,33 @@ def narrow_wire_of(cols, mode: str, lanes: int, num_banks: int, dev):
     return torch.from_numpy(buf.view(np.int32)).to(dev), width, wraps
 
 
+def narrow_steps(mode: str):
+    """(K2-seg or K2-delta wrapper, its plain version, width keyword)."""
+    from attendance_tpu_torch.ops import kernels
+
+    if mode == "seg":
+        return kernels.fused_step_seg, kernels.fused_step_seg_plain, "kb"
+    return kernels.fused_step_delta, kernels.fused_step_delta_plain, "db"
+
+
 def narrow_step_check(start, wire, params, mode: str, width: int,
                       lanes: int, num_banks: int, what: str,
                       timed: bool = True):
     """K2-seg or K2-delta from the state ``start`` (left as it is) against
     its plain version on the same inputs: equal valid on every lane
-    (padding included), registers and counters. Returns (kernel ms by
-    graph replays, plain ms, register max abs err); the times are None
-    when not ``timed``."""
+    (padding included), registers and counters; when ``timed``, then
+    timed by graph replays and the end state held again: the registers
+    equal one plain step (a register max is idempotent) and the counters
+    took one frame's counts per launch that ran. Returns (kernel ms,
+    plain ms, register max abs err); the times are None when not
+    ``timed``."""
     from attendance_tpu_torch.models import fused
-    from attendance_tpu_torch.ops import kernels
 
-    step = kernels.fused_step_seg if mode == "seg" else \
-        kernels.fused_step_delta
-    plain = kernels.fused_step_seg_plain if mode == "seg" else \
-        kernels.fused_step_delta_plain
-    width_kw = {"kb" if mode == "seg" else "db": width}
+    step, plain, width_name = narrow_steps(mode)
     a = fused.SketchState(*(t.clone() for t in start))
     b = fused.SketchState(*(t.clone() for t in start))
     valid = step(*a, wire, params, padded=lanes, num_banks=num_banks,
-                 **width_kw)
+                 **{width_name: width})
     want = plain(*b, wire, params, width, lanes, num_banks, 14)
     torch.cuda.synchronize()
     check(torch.equal(valid, want), f"K2-{mode} {what}: valid")
@@ -259,43 +277,123 @@ def narrow_step_check(start, wire, params, mode: str, width: int,
     if not timed:
         return None, None, err
     ms = kernel_ms(lambda: step(*a, wire, params, padded=lanes,
-                                num_banks=num_banks, **width_kw))
+                                num_banks=num_banks, **{width_name: width}))
+    torch.cuda.synchronize()
+    check(torch.equal(a.hll_regs, b.hll_regs),
+          f"K2-{mode} {what}: registers after the graph replays")
+    runs = 1 + graph_runs()
+    s_v, s_i = fused.decode_counts(start.counts)
+    p_v, p_i = fused.decode_counts(b.counts)
+    check(fused.decode_counts(a.counts)
+          == (s_v + runs * (p_v - s_v), s_i + runs * (p_i - s_i)),
+          f"K2-{mode} {what}: counters after {runs} launches")
     plain_ms = eager_ms(lambda: plain(*b, wire, params, width, lanes,
                                       num_banks, 14))
     return ms, plain_ms, err
 
 
-def delta_parts_timing(start, wire, params, db: int, lanes: int,
-                       num_banks: int, floor_ms: float) -> None:
-    """K2-delta's three pre-passes (tile sums, the scan of counts and tile
-    sums, the prefix) and its step, timed apart and together through the
-    C entry point's ``passes`` mask; the step alone reads the prefix the
-    pre-passes left in the scratch."""
+def decode_yardstick(wire, mode: str, width: int, lanes: int,
+                     num_banks: int) -> str:
+    """The decode half's library yardstick (not K2's function, so not its
+    library time; the port never calls these): ``torch.searchsorted`` of
+    the lanes in the counts' cumsum and, on the delta wire,
+    ``torch.cumsum`` of the frame's decoded deltas (int64, as the plain
+    version takes them), each timed by graph replays."""
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.ops.murmur3 import as_u32
+
+    u = as_u32(wire)
+    base = num_banks if mode == "seg" else 2 * num_banks
+    deltas, lane = kernels._stream_lanes(u, base, width, lanes)
+    ends = torch.cumsum(u[:num_banks], 0)
+    out = {"searchsorted_ms": kernel_ms(
+        lambda: torch.searchsorted(ends, lane, right=True))}
+    if mode == "delta":
+        out["cumsum_ms"] = kernel_ms(lambda: torch.cumsum(deltas, 0))
+    return " ".join(f"{k}={v}" for k, v in out.items())
+
+
+NARROW_DESIGNS = {0: "pr6", 1: "per_lane", 2: "range", 3: "range_relaxed",
+                  4: "two_launch"}
+
+
+def exp_narrow_step(mode: str, variant: int, st, wire, params, width: int,
+                    lanes: int, num_banks: int):
+    """One launch of a K2-seg/K2-delta design through the timing-only C
+    entry points (``NARROW_DESIGNS``); returns valid."""
     from attendance_tpu_torch.models.bloom import BLOCK_BITS
     from attendance_tpu_torch.ops import build, kernels
 
-    regs = start.hll_regs.clone()
-    counts = start.counts.clone()
-    scratch = torch.empty(kernels.delta_scratch_words(num_banks, lanes),
-                          dtype=torch.int32, device=wire.device)
+    tiles = -(-lanes // 256)
+    if variant == 0:
+        scratch = torch.empty(
+            num_banks + 1 if mode == "seg"
+            else num_banks + 2 * tiles + 2 + lanes,
+            dtype=torch.int32, device=wire.device)
+    else:
+        scratch = torch.empty(kernels.delta_scratch_words(lanes),
+                              dtype=torch.int64, device=wire.device)
     valid = torch.empty(lanes, dtype=torch.bool, device=wire.device)
+    rc = getattr(build.library(), f"atp_exp_fused_step_{mode}")(
+        variant, wire.data_ptr(), width, lanes, num_banks,
+        scratch.data_ptr(), st.bloom_bits.data_ptr(),
+        params.m_bits // BLOCK_BITS, params.k, st.hll_regs.data_ptr(),
+        st.hll_regs.shape[0], 14, st.counts.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"atp_exp_fused_step_{mode} variant {variant}: rc {rc}")
+    return valid
 
-    def run(passes: int) -> None:
-        rc = build.library().atp_fused_step_delta(
-            wire.data_ptr(), db, lanes, num_banks, scratch.data_ptr(),
-            start.bloom_bits.data_ptr(), params.m_bits // BLOCK_BITS,
-            params.k, regs.data_ptr(), regs.shape[0], 14, counts.data_ptr(),
-            valid.data_ptr(), passes,
-            torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"atp_fused_step_delta passes={passes}: rc {rc}")
 
-    run(3)
-    torch.cuda.synchronize()
-    times = {name: kernel_ms(lambda p=p: run(p))
-             for name, p in (("pre_passes", 1), ("step", 2), ("both", 3))}
-    print(f"K2-delta parts lanes={lanes} db={db}: "
-          + " ".join(f"{k}_ms={v} {k}_above_floor_ms={v - floor_ms}"
-                     for k, v in times.items()))
+def narrow_designs_timing(card: str, start, params, cases) -> None:
+    """Phase 2e: PR 6's designs of K2-seg and K2-delta beside the
+    one-launch designs (per-lane and range bank search; for K2-delta also
+    relaxed look-back loads, and a two-launch design that sums tiles
+    without a look-back), each first held equal to the plain version
+    from ``start``, then timed in turns (each design, then each again in
+    reverse order) on each of ``cases``: (what, mode, wire, width,
+    lanes, header banks)."""
+    from attendance_tpu_torch.models import fused
+
+    for what, mode, wire, width, lanes, num_banks in cases:
+        _, plain, _ = narrow_steps(mode)
+        b = fused.SketchState(*(t.clone() for t in start))
+        want = plain(*b, wire, params, width, lanes, num_banks, 14)
+        variants = (0, 1, 2, 3, 4) if mode == "delta" else (0, 1, 2)
+        times = {v: [] for v in variants}
+        for variant in variants:
+            a = fused.SketchState(*(t.clone() for t in start))
+            valid = exp_narrow_step(mode, variant, a, wire, params, width,
+                                    lanes, num_banks)
+            torch.cuda.synchronize()
+            check(torch.equal(valid, want) and torch.equal(a.hll_regs,
+                                                           b.hll_regs)
+                  and torch.equal(a.counts, b.counts),
+                  f"K2-{mode} design {NARROW_DESIGNS[variant]} {what}: "
+                  "differs from the plain version")
+        a = fused.SketchState(*(t.clone() for t in start))
+        for variant in variants + variants[::-1]:
+            times[variant].append(kernel_ms(
+                lambda v=variant: exp_narrow_step(mode, v, a, wire, params,
+                                                  width, lanes, num_banks)))
+        torch.cuda.synchronize()
+        check(torch.equal(a.hll_regs, b.hll_regs),
+              f"K2-{mode} designs {what}: registers after the replays")
+        memset = ""
+        if mode == "delta":
+            from attendance_tpu_torch.ops import build, kernels
+            words = torch.empty(kernels.delta_scratch_words(lanes),
+                                dtype=torch.int64, device=wire.device)
+            memset = " memset_alone_ms=" + str(kernel_ms(
+                lambda: build.library().atp_exp_memset(
+                    words.data_ptr(), lanes,
+                    torch.cuda.current_stream().cuda_stream)))
+        print(f"K2-{mode} designs {what} width={width}: "
+              + " ".join(f"{NARROW_DESIGNS[v]}_ms={t}"
+                         for v, t in times.items())
+              + " (in turns "
+              + ", ".join(NARROW_DESIGNS[v] for v in variants + variants[::-1])
+              + ")"
+              f"{memset} on {card}")
 
 
 def run_with_native(native: bool, config, num_events: int, frame_size: int,
@@ -733,54 +831,93 @@ def main() -> int:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
                 k2_inputs = (start, frame, roster_np)
-        # K2-seg and K2-delta on the same frame, the header as long as the
-        # register rows (256, as the pipeline packs it; 16 hold lanes).
-        for mode in ("seg", "delta"):
-            wire, width, _ = narrow_wire_of(frame, mode, lanes, 256, dev)
-            ms, plain_ms, err = narrow_step_check(
-                start, wire, params, mode, width, lanes, 256,
-                f"lanes={lanes}")
-            nbytes = (wire.numel() * 4 + lanes + 64 * blocks
-                      + 2 * regs_touched + 32)
-            b_ms, b_by = bound_ms(
-                nbytes, lanes * (3 * 20 + params.k * 5 + 5 + 8 * 3 + 10)
-                + nvalid * (2 * 20 + 10))
-            print(f"K2-{mode} fused_step_{mode} lanes={lanes} width={width} "
-                  f"wire_bytes={wire.numel() * 4} ms={ms} above_floor_ms="
-                  f"{ms - floor_ms} plain_ms={plain_ms} bound_ms={b_ms} "
-                  f"({b_by}) bytes_bound_ms={nbytes / HBM_BYTES_PER_S * 1e3} "
-                  f"word_ms={word[0]} word_bound_ms={word[1]} "
-                  f"times_word={ms / word[0]} max_abs_err={err}")
-            if mode == "delta":
-                delta_parts_timing(start, wire, params, width, lanes, 256,
-                                   floor_ms)
-            if lanes == 131_072:
-                rows[f"fused_step_{mode}"] = dict(
-                    replaces="attendance_tpu/models/fused.py:"
-                    + ("261" if mode == "seg" else "386"),
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None)
+        # K2-seg and K2-delta on the same frame: the header as long as the
+        # register rows (256, as the pipeline packs it; 16 banks hold
+        # lanes) and, at 131,072 lanes, as long as the temporal plane grows
+        # them (512 and 1,024 banks); at 1,048,576 lanes also every lane in
+        # one bank (the delta look-back's longest chain, 4,096 tiles).
+        narrow = [(f"lanes={lanes} banks={nb}", frame, nb)
+                  for nb in ((256, 512, 1024) if lanes == 131_072 else (256,))]
+        if lanes == 1_048_576:
+            narrow.append((f"lanes={lanes} one bank", dict(
+                frame, lecture_day=np.full(n, 20_260_704, np.uint32)), 256))
+        designs = []
+        for what, cols, num_banks in narrow:
+            cols_day = torch.from_numpy(
+                np.asarray(cols["lecture_day"], np.int64)).to(dev)
+            touched = int(torch.unique(
+                (cols_day[hit] - 20_260_701) * 16384 + bucket).numel())
+            for mode in ("seg", "delta"):
+                wire, width, _ = narrow_wire_of(cols, mode, lanes, num_banks,
+                                                dev)
+                ms, plain_ms, err = narrow_step_check(
+                    start, wire, params, mode, width, lanes, num_banks, what)
+                nbytes = (wire.numel() * 4 + lanes + 64 * blocks
+                          + 2 * touched + 32)
+                b_ms, b_by = bound_ms(
+                    nbytes, lanes * (3 * 20 + params.k * 5 + 5 + 8 * 3 + 10)
+                    + nvalid * (2 * 20 + 10))
+                print(f"K2-{mode} fused_step_{mode} {what} width={width} "
+                      f"wire_bytes={wire.numel() * 4} ms={ms} above_floor_ms="
+                      f"{ms - floor_ms} plain_ms={plain_ms} bound_ms={b_ms} "
+                      f"({b_by}) bytes_bound_ms="
+                      f"{nbytes / HBM_BYTES_PER_S * 1e3} word_ms={word[0]} "
+                      f"word_bound_ms={word[1]} times_word={ms / word[0]} "
+                      f"times_bound={ms / b_ms} max_abs_err={err}; decode "
+                      f"half's yardstick (graph replays): "
+                      + decode_yardstick(wire, mode, width, lanes, num_banks))
+                designs.append((what, mode, wire, width, lanes, num_banks))
+                if lanes == 131_072 and num_banks == 256:
+                    rows[f"fused_step_{mode}"] = dict(
+                        replaces="attendance_tpu/models/fused.py:"
+                        + ("261" if mode == "seg" else "386"),
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        # -- 2e. the PR 6 designs beside the one-launch ones, in turns.
+        narrow_designs_timing(card, start, params, designs)
     start, frame, roster_np = k2_inputs
     lanes = 131_072
+    rng_e = np.random.default_rng(6)
     # The edge frame: 100,003 real lanes of 131,072, lanes in 4 of the 256
     # header banks (empty banks before, between and after them), half the
     # keys drawn over all of uint32: the seg wire is 32 bits wide and the
     # delta wire's frame-wide prefix sum wraps.
-    rng_e = np.random.default_rng(6)
     n_e = 100_003
     keys_e = np.where(rng_e.random(n_e) < 0.5, rng_e.choice(roster_np, n_e),
                       rng_e.integers(0, 1 << 32, n_e, dtype=np.uint64)
                       ).astype(np.uint32)
     edge = {"student_id": keys_e, "lecture_day": (20_260_701 + rng_e.choice(
         [0, 5, 6, 200], n_e)).astype(np.uint32)}
-    for mode in ("seg", "delta"):
-        wire, width, wraps = narrow_wire_of(edge, mode, lanes, 256, dev)
-        check(wraps if mode == "delta" else width == 32,
-              f"edge frame: the {mode} wire is not the edge case")
-        _, _, err = narrow_step_check(start, wire, params, mode, width, lanes,
-                                      256, "edge frame", timed=False)
-        print(f"K2-{mode} edge frame lanes={lanes} real={n_e} banks 4 of "
-              f"256 width={width} max_abs_err={err}")
+    # Segment heads on the first and the last lane of a tile: per-bank
+    # counts that are multiples of 256 and one either side, in every other
+    # bank, the total rounded up to a multiple of 256 (so the first
+    # padding lane heads a tile too).
+    counts_t = [255, 257, 256, 255, 1, 511, 513, 512, 767, 769, 1023, 1025,
+                2047, 2049, 256, 1, 255, 4096, 4097, 4095]
+    counts_t.append(-sum(counts_t) % 256 or 256)
+    n_t = sum(counts_t)
+    tiles_frame = {
+        "student_id": np.where(
+            rng_e.random(n_t) < 0.9, rng_e.choice(roster_np, n_t),
+            rng_e.integers(0, 1 << 21, n_t)).astype(np.uint32),
+        "lecture_day": (20_260_701 + np.repeat(
+            2 * np.arange(len(counts_t)), counts_t)).astype(np.uint32)}
+    # No real lane: every lane is padding.
+    empty = {"student_id": np.zeros(0, np.uint32),
+             "lecture_day": np.zeros(0, np.uint32)}
+    for what, cols in (("edge frame", edge), ("tile-edge heads", tiles_frame),
+                       ("no real lane", empty)):
+        for mode in ("seg", "delta"):
+            wire, width, wraps = narrow_wire_of(cols, mode, lanes, 256, dev)
+            if what == "edge frame":
+                check(wraps if mode == "delta" else width == 32,
+                      f"edge frame: the {mode} wire is not the edge case")
+            _, _, err = narrow_step_check(start, wire, params, mode, width,
+                                          lanes, 256, what, timed=False)
+            print(f"K2-{mode} {what} lanes={lanes} "
+                  f"real={len(cols['student_id'])} banks "
+                  f"{len(np.unique(cols['lecture_day']))} of 256 "
+                  f"width={width} max_abs_err={err}")
 
     # -- 2d. K4 blocked probe, K5 window PFADD, K6 Count-Min step -------------
     # Exact equality with the plain versions at the temporal path's

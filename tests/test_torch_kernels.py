@@ -582,7 +582,15 @@ def test_cms_step_kernel_hot_mix(masked, cuda):
 # main path's shapes; "header_past_regs" packs 300 banks against the 200
 # register rows (lanes of banks past them are counted, their registers
 # dropped); "kb32_wrap" draws keys over all of uint32, so the seg wire is
-# 32 bits wide and the delta wire's frame-wide prefix sum wraps.
+# 32 bits wide and the delta wire's frame-wide prefix sum wraps;
+# "one_bank_long" puts every lane of a long frame in one bank (the delta
+# look-back's longest chain, 4,096 tiles); "tile_edge_heads" gives the
+# banks TILE_EDGE_COUNTS, so segments start on the first and on the last
+# lane of tiles (and the padding on a tile's first lane); "no_real_lane"
+# is all padding; "header_512" and "header_1024" spread the lanes over
+# the temporal plane's grown headers (several banks in every tile).
+TILE_EDGE_COUNTS = [255, 257, 256, 255, 1, 511, 513, 512, 767, 769, 1023,
+                    1025, 2047, 2049, 256, 1, 255, 4096, 4097, 4095, 256]
 NARROW_CASES = {
     "frame": (131_072, 120_000, 16, 1 << 21, ()),
     "long": (1_048_576, 1_000_000, 16, 1 << 21, ()),
@@ -591,6 +599,12 @@ NARROW_CASES = {
     "one_bank": (1024, 700, 1, 1 << 20, ()),
     "one_lane": (256, 1, 4, 1 << 20, ()),
     "header_past_regs": (2048, 1500, 300, 1 << 20, ()),
+    "one_bank_long": (1_048_576, 1_048_576, 1, 1 << 21, ()),
+    "tile_edge_heads": (131_072, sum(TILE_EDGE_COUNTS), 64, 1 << 21,
+                        tuple(range(1, 64, 2)) + (42, 44, 46, 48)),
+    "no_real_lane": (131_072, 0, 16, 1 << 21, ()),
+    "header_512": (131_072, 120_000, 512, 1 << 21, ()),
+    "header_1024": (131_072, 120_000, 1024, 1 << 21, ()),
 }
 
 
@@ -602,10 +616,14 @@ def _narrow_case(mode, case, roster):
     keys = np.where(rng.random(n) < 0.9, rng.choice(roster, n),
                     rng.integers(0, key_hi, n, dtype=np.uint64)
                     ).astype(np.uint32)
-    banks = rng.choice([b for b in range(nb) if b not in empty], n).astype(
-        np.int32)
+    allowed = [b for b in range(nb) if b not in empty]
+    if case == "tile_edge_heads":
+        banks = np.repeat(allowed[:len(TILE_EDGE_COUNTS)],
+                          TILE_EDGE_COUNTS).astype(np.int32)
+    else:
+        banks = rng.choice(allowed, n).astype(np.int32)
     if mode == "seg":
-        width = max(int(keys.max()).bit_length(), 1)
+        width = max(int(keys.max()).bit_length() if n else 0, 1)
         buf, _ = fused.pack_seg(keys, banks, width, lanes, nb)
     else:
         scan = fused.delta_scan(keys, banks, nb)
@@ -677,3 +695,43 @@ def test_narrow_wire_pipeline_on_card_equals_cpu(wire, cuda):
     assert card[4][f"fused_step_{wire}"] == 5 and card[4]["fused_step"] == 0
     assert card[5] == cpu[5] == {wire: 5}
     assert not any(cpu[4].values())
+
+
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+def test_narrow_step_kernels_back_to_back_and_in_graph_replays(mode, cuda):
+    """Each narrow kernel launched four times back to back, then captured
+    once in a CUDA graph replayed three times: valid equals the plain
+    version's after every launch, the registers equal one plain step (a
+    register max is idempotent) and the counters took the frame's counts
+    once per launch that ran (the capture runs nothing). K2-delta's
+    ticket and status words must be fresh on every launch, replays
+    included."""
+    state, params, roster = _preloaded(cuda)
+    lanes, _, nb, _, _ = NARROW_CASES["frame"]  # with padding lanes
+    wire, width = _narrow_case(mode, "frame", roster)
+    wire = wire.to(cuda)
+    step = kernels.fused_step_seg if mode == "seg" else \
+        kernels.fused_step_delta
+    plain = kernels.fused_step_seg_plain if mode == "seg" else \
+        kernels.fused_step_delta_plain
+    kw = {"kb" if mode == "seg" else "db": width}
+    start = fused.SketchState(*(t.clone() for t in state))
+    twin = fused.SketchState(*(t.clone() for t in state))
+    want = plain(*twin, wire, params, width, lanes, nb, 14)
+    for _ in range(4):
+        valid = step(*state, wire, params, padded=lanes, num_banks=nb, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(valid, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(*state, wire, params, padded=lanes, num_banks=nb, **kw)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert torch.equal(state.hll_regs, twin.hll_regs)
+    s_v, s_i = fused.decode_counts(start.counts)
+    p_v, p_i = fused.decode_counts(twin.counts)
+    assert fused.decode_counts(state.counts) == (s_v + 7 * (p_v - s_v),
+                                                 s_i + 7 * (p_i - s_i))

@@ -328,12 +328,31 @@ def _compare_steps(jstep, tstep, buf, params, width, padded, nb, bits, regs,
     return tvalid, tregs
 
 
-# (kb, n, num_banks, padded, empty banks)
+# Per-bank counts that start segments on the first and on the last lane
+# of 256-lane tiles (the kernels' tiles), in every other bank; 7,680 lanes
+# (a multiple of 256, so the padding starts a tile too).
+TILE_EDGE_COUNTS = [255, 257, 256, 255, 1, 511, 513, 512, 767, 769, 1023,
+                    1025, 1535, 1]
+
+
+def _tile_edge_lanes(roster, seed):
+    """(keys, banks) with TILE_EDGE_COUNTS lanes in banks 0, 2, 4, ..."""
+    keys, _ = _step_lanes(roster, sum(TILE_EDGE_COUNTS), 1, seed, 1 << 20)
+    banks = np.repeat(2 * np.arange(len(TILE_EDGE_COUNTS)), TILE_EDGE_COUNTS)
+    return keys, banks.astype(np.int32)
+
+
+# (kb, n, num_banks, padded, empty banks); "tile_edge_heads" takes its
+# lanes from _tile_edge_lanes, "header_1024" spreads them over the
+# temporal plane's grown header, "no_real_lane" is all padding.
 SEG_STEP_CASES = {
     "kb17": (17, 3000, 12, 4096, ()),
     "kb22_empty_banks": (22, 3000, 12, 4096, (0, 1, 6, 11)),
     "kb32": (32, 2000, 5, 2048, ()),
     "one_bank": (21, 1000, 1, 1024, ()),
+    "tile_edge_heads": (20, sum(TILE_EDGE_COUNTS), 28, 8192, ()),
+    "header_1024": (20, 6000, 1024, 8192, ()),
+    "no_real_lane": (17, 0, 16, 4096, ()),
 }
 
 
@@ -342,30 +361,41 @@ def test_fused_step_seg_matches_jax(case):
     kb, n, nb, padded, empty = SEG_STEP_CASES[case]
     params, roster, bits, regs, counts = _start_state(
         nb, 1, min(1 << kb, 1 << 20))
-    keys, banks = _step_lanes(roster, n, nb, 2, 1 << kb, empty)
+    if case == "tile_edge_heads":
+        keys, banks = _tile_edge_lanes(roster, 2)
+    else:
+        keys, banks = _step_lanes(roster, n, nb, 2, 1 << kb, empty)
     buf, _ = tfused.pack_seg(keys, banks, kb, padded, nb)
     valid, tregs = _compare_steps(jfused.fused_step_seg, tfused.fused_step_seg,
                                   buf, params, kb, padded, nb, bits, regs,
                                   counts)
-    assert bool(valid[:n].any()) and (tregs != regs).any()
+    assert n == 0 or (bool(valid[:n].any()) and (tregs != regs).any())
     for b in empty:
         np.testing.assert_array_equal(tregs[b], regs[b])
 
 
 # (num_banks, padded, how the keys are drawn)
-DELTA_STEP_CASES = ["narrow_empty_banks", "db32", "wrap", "one_bank"]
+DELTA_STEP_CASES = ["narrow_empty_banks", "db32", "wrap", "one_bank",
+                    "tile_edge_heads", "header_1024", "no_real_lane"]
 
 
 @pytest.mark.parametrize("case", DELTA_STEP_CASES)
 def test_fused_step_delta_matches_jax(case):
     nb, padded = {"narrow_empty_banks": (12, 4096), "db32": (3, 1024),
-                  "wrap": (64, 8192), "one_bank": (1, 2048)}[case]
+                  "wrap": (64, 8192), "one_bank": (1, 2048),
+                  "tile_edge_heads": (28, 8192), "header_1024": (1024, 8192),
+                  "no_real_lane": (16, 4096)}[case]
     params, roster, bits, regs, counts = _start_state(nb, 4)
     if case == "wrap":
         keys, banks = _step_lanes(roster, 8000, nb, 5, 1 << 32)
     elif case == "db32":
         keys, banks = _step_lanes(roster, 900, nb, 6, 1 << 20)
         keys[:2], banks[:2] = [0, 0xFFFFFFFF], 1
+    elif case == "tile_edge_heads":
+        keys, banks = _tile_edge_lanes(roster, 7)
+    elif case in ("header_1024", "no_real_lane"):
+        keys, banks = _step_lanes(roster, 6000 if nb == 1024 else 0, nb, 7,
+                                  1 << 20)
     else:
         keys, banks = _step_lanes(
             roster, padded - 300, nb, 7, 1 << 20,
@@ -380,7 +410,7 @@ def test_fused_step_delta_matches_jax(case):
     valid, _ = _compare_steps(jfused.fused_step_delta,
                               tfused.fused_step_delta, buf, params, db,
                               padded, nb, bits, regs, counts)
-    assert bool(valid[:len(keys)].any())
+    assert not len(keys) or bool(valid[:len(keys)].any())
 
 
 def test_narrow_steps_drop_banks_past_the_registers():
