@@ -704,13 +704,17 @@ struct DeltaDecode {
 // every earlier tile, from the sums, plus the tile's plain scan. Every
 // read of the carry is one load per thread, issued together (at most
 // 31 + 31 tiles and lanes / 8,192 groups, plus 255 lanes).
-constexpr int kGroupTiles = 32;
-
+// kGroupTiles: the tiles of a group (a CTA of pass 1); kPdl: the step is
+// launched as a programmatic dependent of pass 1, so its CTAs scan the
+// counts and load their deltas while pass 1 runs, and wait for it
+// (griddepcontrol.wait) only before reading the sums.
+template <int kGroupTiles, bool kPdl>
 __global__ void __launch_bounds__(kThreads)
 delta_sums_kernel(const uint32_t* __restrict__ deltas, int db, int lanes,
                   int tiles, uint32_t* __restrict__ tile_sums,
                   uint32_t* __restrict__ group_sums) {
   __shared__ uint32_t warp_sums[kWarps];
+  if (kPdl) asm volatile("griddepcontrol.launch_dependents;");
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int warp = static_cast<int>(threadIdx.x >> 5);
   constexpr int kPerWarp = kGroupTiles / kWarps;  // tiles a warp sums
@@ -750,9 +754,12 @@ delta_sums_kernel(const uint32_t* __restrict__ deltas, int db, int lanes,
 // Thread k's share of the sum of tile_sums over tiles [lo, hi): the tiles
 // up to the first group boundary, the whole groups (group_sums), the
 // tiles after the last boundary; item x goes to thread x % kThreads.
+// Plain (coherent) loads: with kPdl the sums are written by a grid that
+// may still be running when this one starts.
+template <int kGroupTiles>
 __device__ __forceinline__ uint32_t tile_range_part(
-    const uint32_t* __restrict__ tile_sums,
-    const uint32_t* __restrict__ group_sums, int lo, int hi, int k) {
+    const uint32_t* tile_sums, const uint32_t* group_sums, int lo, int hi,
+    int k) {
   if (lo >= hi) return 0u;
   const int a = min(hi, (lo + kGroupTiles - 1) / kGroupTiles * kGroupTiles);
   const int g_hi = max(a, hi / kGroupTiles * kGroupTiles);
@@ -761,14 +768,15 @@ __device__ __forceinline__ uint32_t tile_range_part(
   const int n = n_lead + n_groups + hi - g_hi;
   uint32_t sum = 0u;
   for (int x = k; x < n; x += kThreads) {
-    sum += x < n_lead ? __ldg(tile_sums + lo + x)
+    sum += x < n_lead ? tile_sums[lo + x]
          : x < n_lead + n_groups
-             ? __ldg(group_sums + a / kGroupTiles + (x - n_lead))
-             : __ldg(tile_sums + g_hi + (x - n_lead - n_groups));
+             ? group_sums[a / kGroupTiles + (x - n_lead)]
+             : tile_sums[g_hi + (x - n_lead - n_groups)];
   }
   return sum;
 }
 
+template <int kGroupTiles, bool kPdl>
 struct DeltaDecode2 {
   const uint32_t* buf;
   int num_banks;
@@ -809,6 +817,7 @@ struct DeltaDecode2 {
     // tiles after it, for the lanes before the tile's first head; the
     // sum over every earlier tile, for a tile with padding lanes.
     const uint32_t s0 = t0 < total ? starts[range[0]] : total;
+    if (kPdl) asm volatile("griddepcontrol.wait;" ::: "memory");
     uint32_t carry_seg = 0u;
     if (t0 < total && s0 < t0) {
       const int h = static_cast<int>(s0 >> 8);
@@ -817,12 +826,14 @@ struct DeltaDecode2 {
         carry_seg = field_of(field_words(deltas, static_cast<int>(s0) + tid, db),
                              db);
       }
-      carry_seg += tile_range_part(tile_sums, group_sums, h + 1, tile, tid);
+      carry_seg += tile_range_part<kGroupTiles>(tile_sums, group_sums, h + 1,
+                                                tile, tid);
     }
     const bool padding_tile = t0 + kThreads > total;
     const uint32_t carry_plain =
-        padding_tile ? tile_range_part(tile_sums, group_sums, 0, tile, tid)
-                     : 0u;
+        padding_tile
+            ? tile_range_part<kGroupTiles>(tile_sums, group_sums, 0, tile, tid)
+            : 0u;
     const uint32_t d = present ? field_of(fw, db) : 0u;
 
     // The tile's inclusive segmented scan (heads: each bank's first lane
@@ -1419,7 +1430,8 @@ int launch_delta(const void* buf, int db, int lanes, int wire_banks,
 }
 
 // The two-launch K2-delta: the tile and group sums into scratch (uint32
-// tiles + ceil(tiles / 32)), then the step.
+// tiles + ceil(tiles / kGroupTiles)), then the step.
+template <int kGroupTiles, bool kPdl>
 int launch_delta2(const void* buf, int db, int lanes, int wire_banks,
                   void* scratch, const void* bloom, unsigned int num_blocks,
                   int k, void* regs, int num_banks, int precision,
@@ -1429,15 +1441,43 @@ int launch_delta2(const void* buf, int db, int lanes, int wire_banks,
   const uint32_t* b = static_cast<const uint32_t*>(buf);
   uint32_t* tile_sums = static_cast<uint32_t*>(scratch);
   uint32_t* group_sums = tile_sums + tiles;
-  delta_sums_kernel<<<groups, kThreads, 0, s>>>(
+  delta_sums_kernel<kGroupTiles, kPdl><<<groups, kThreads, 0, s>>>(
       b + 2 * static_cast<size_t>(wire_banks), db, lanes, tiles, tile_sums,
       group_sums);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_fused_step(
-      DeltaDecode2{b, wire_banks, db, lanes, tile_sums, group_sums}, lanes,
-      counts_smem(wire_banks), bloom, num_blocks, k, regs, num_banks,
-      precision, counts, valid, s);
+  const DeltaDecode2<kGroupTiles, kPdl> decode{b, wire_banks, db, lanes,
+                                               tile_sums, group_sums};
+  if (!kPdl) {
+    return launch_fused_step(decode, lanes, counts_smem(wire_banks), bloom,
+                             num_blocks, k, regs, num_banks, precision,
+                             counts, valid, s);
+  }
+  const size_t smem = counts_smem(wire_banks);
+  if (smem > kSmemNoOptIn) {
+    err = cudaFuncSetAttribute(
+        fused_step_kernel<DeltaDecode2<kGroupTiles, kPdl>>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(tiles));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, fused_step_kernel<DeltaDecode2<kGroupTiles, kPdl>>, decode, lanes,
+      static_cast<const uint32_t*>(bloom), static_cast<uint32_t>(num_blocks),
+      fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
+      precision, static_cast<unsigned long long*>(counts),
+      static_cast<uint8_t*>(valid));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K3's binned path: the memset and three kernels on one stream (see
@@ -1542,7 +1582,9 @@ int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
 // starts[wire_banks + 1]; 1: per-lane search; 2: range search) and of
 // K2-delta (0: PR 6, scratch as its delta_scratch_words; 1 and 2: one
 // launch, scratch = the status words; 3: as 2 with relaxed loads in the
-// look-back; 4: two launches, scratch = the tile and group sums).
+// look-back; 4: two launches, scratch = the tile and group sums, groups
+// of 32 tiles; 5: groups of 8; 6: as 5, the step a programmatic
+// dependent launch).
 int atp_exp_fused_step_seg(int variant, const void* buf, int kb, int lanes,
                            int wire_banks, void* scratch, const void* bloom,
                            unsigned int num_blocks, int k, void* regs,
@@ -1590,9 +1632,19 @@ int atp_exp_fused_step_delta(int variant, const void* buf, int db, int lanes,
                                      precision, counts, valid, s);
   }
   if (variant == 4) {
-    return launch_delta2(buf, db, lanes, wire_banks, scratch, bloom,
-                         num_blocks, k, regs, num_banks, precision, counts,
-                         valid, s);
+    return launch_delta2<32, false>(buf, db, lanes, wire_banks, scratch,
+                                    bloom, num_blocks, k, regs, num_banks,
+                                    precision, counts, valid, s);
+  }
+  if (variant == 5) {
+    return launch_delta2<8, false>(buf, db, lanes, wire_banks, scratch, bloom,
+                                   num_blocks, k, regs, num_banks, precision,
+                                   counts, valid, s);
+  }
+  if (variant == 6) {
+    return launch_delta2<8, true>(buf, db, lanes, wire_banks, scratch, bloom,
+                                  num_blocks, k, regs, num_banks, precision,
+                                  counts, valid, s);
   }
   const uint32_t* b = static_cast<const uint32_t*>(buf);
   const uint32_t* deltas = b + 2 * static_cast<size_t>(wire_banks);

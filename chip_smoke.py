@@ -314,7 +314,7 @@ def decode_yardstick(wire, mode: str, width: int, lanes: int,
 
 
 NARROW_DESIGNS = {0: "pr6", 1: "per_lane", 2: "range", 3: "range_relaxed",
-                  4: "two_launch"}
+                  4: "two_launch", 5: "two_launch_g8", 6: "two_launch_g8_pdl"}
 
 
 def exp_narrow_step(mode: str, variant: int, st, wire, params, width: int,
@@ -358,7 +358,7 @@ def narrow_designs_timing(card: str, start, params, cases) -> None:
         _, plain, _ = narrow_steps(mode)
         b = fused.SketchState(*(t.clone() for t in start))
         want = plain(*b, wire, params, width, lanes, num_banks, 14)
-        variants = (0, 1, 2, 3, 4) if mode == "delta" else (0, 1, 2)
+        variants = (0, 2, 4, 5, 6) if mode == "delta" else (0, 1, 2)
         times = {v: [] for v in variants}
         for variant in variants:
             a = fused.SketchState(*(t.clone() for t in start))
