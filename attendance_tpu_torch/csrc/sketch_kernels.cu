@@ -22,11 +22,11 @@
 //                         memory and finds its lanes' banks there
 //                         (replaces the XLA program fused_step_seg,
 //                         models/fused.py:261)
-//      atp_fused_step_delta the same step over the delta wire in one
-//                         launch after a memset of its status words: the
-//                         keys are a single-pass segmented scan of the
-//                         deltas with decoupled look-back (replaces
-//                         fused_step_delta, :386)
+//      atp_fused_step_delta the same step over the delta wire: a pass of
+//                         tile and group delta sums, then the step as its
+//                         programmatic dependent, each key its segment's
+//                         scan from the sums with no wait between CTAs
+//                         (replaces fused_step_delta, :386)
 //   K3 atp_bloom_add      packed Bloom preload: a large batch binned by
 //                         filter tile and ORed in shared memory (a memset
 //                         and three kernels), a small one by one thread
@@ -282,16 +282,9 @@ hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
 
 // Exclusive prefix sum over t in [0, count) of in(t) into out[0, count)
 // (shared memory), and the total into out[count], by one whole CTA; each
-// thread reads its in(t) once. mid() runs on every thread between the
-// scan's two barriers (the first makes what a thread wrote before the
-// scan visible to all).
-struct NoOp {
-  __device__ void operator()() const {}
-};
-
-template <typename In, typename Mid = NoOp>
-__device__ void cta_exclusive_scan(In in, int count, uint32_t* out,
-                                   Mid mid = Mid()) {
+// thread reads its in(t) once.
+template <typename In>
+__device__ void cta_exclusive_scan(In in, int count, uint32_t* out) {
   __shared__ uint32_t warp_sums[kWarps];
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int warp = static_cast<int>(threadIdx.x >> 5);
@@ -311,7 +304,6 @@ __device__ void cta_exclusive_scan(In in, int count, uint32_t* out,
   }
   if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
-  mid();
   uint32_t base = 0u;
   for (int w = 0; w < warp; ++w) base += warp_sums[w];
   uint32_t run = base + incl - sum;
@@ -411,35 +403,35 @@ __device__ __forceinline__ int32_t upper_bank(const uint32_t* starts, int lo,
   return lo;
 }
 
-// Every CTA scans the wire's per-bank counts into starts[0..num_banks]
-// (dynamic shared memory; starts[num_banks] is the frame's total) and
-// finds the bank of each of its lanes t0 .. t0 + 255 there: -1 for a lane
-// that is not real (at or past the total). Lanes are sorted by bank, so
-// a tile's lanes cover a contiguous run of banks, usually one or two.
-// kRange: threads 0 and 32 search the banks of the tile's first and last
-// real lane, and each lane then searches only between them (no compare
-// when they are equal); else each lane searches all num_banks.
-template <bool kRange>
-__device__ __forceinline__ int32_t lane_bank(const uint32_t* starts,
-                                             int num_banks, uint32_t t0,
-                                             uint32_t total, uint32_t i,
-                                             bool real) {
-  if (!kRange) return real ? upper_bank(starts, 0, num_banks, i) : -1;
+// The narrow wires' bank decode, by the whole CTA: scan the wire's
+// per-bank counts into starts[0..num_banks] (dynamic shared memory;
+// starts[num_banks] is the frame's total), then threads 0 and 32 search
+// the banks of the tile's first and last real lane. Lanes are sorted by
+// bank, so the tile's lanes t0 .. t0 + 255 cover a contiguous run of
+// banks, usually one (the main path's frame holds about 8,192 lanes a
+// bank), and a lane's own search between the two makes no compare when
+// they are equal. Returns (first bank, last bank); (0, 0) for a tile with
+// no real lane.
+__device__ __forceinline__ int2 tile_banks(const uint32_t* __restrict__ counts,
+                                           int num_banks, uint32_t t0,
+                                           uint32_t* starts) {
   __shared__ int range[2];
+  cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
+                     starts);
+  const uint32_t total = starts[num_banks];
   if (threadIdx.x == 0 || threadIdx.x == 32) {
     const uint32_t at = threadIdx.x == 0 ? t0 : min(t0 + kThreads, total) - 1u;
     range[threadIdx.x >> 5] =
         t0 < total ? upper_bank(starts, 0, num_banks, at) : 0;
   }
   __syncthreads();
-  return real ? upper_bank(starts, range[0], range[1], i) : -1;
+  return make_int2(range[0], range[1]);
 }
 
 // Seg wire: [counts u32[num_banks] | kb-bit keys | guard], lanes sorted
 // by bank. A lane's bank is the segment holding it; a padding lane (at or
 // past the counts' total) takes the key its bits hold (0 as packed) and
-// bank -1.
-template <bool kRange>
+// bank -1. The key loads are issued before the counts' scan.
 struct SegDecode {
   const uint32_t* buf;
   int num_banks;
@@ -451,315 +443,66 @@ struct SegDecode {
     extern __shared__ uint32_t starts[];
     const uint32_t t0 = blockIdx.x * kThreads;
     const int i = static_cast<int>(t0 + threadIdx.x);
+    const uint32_t u = static_cast<uint32_t>(i);
     const bool present = i < lanes;
-    const uint32_t* counts = buf;
     FieldWords fw{0u, 0u, 0u};
     if (present) fw = field_words(buf + num_banks, i, kb);  // in flight
-    cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
-                       starts);
-    const uint32_t total = starts[num_banks];
-    const uint32_t u = static_cast<uint32_t>(i);
-    *bank = lane_bank<kRange>(starts, num_banks, t0, total, u,
-                              present && u < total);
+    const int2 r = tile_banks(buf, num_banks, t0, starts);
+    if (present && u < starts[num_banks]) {
+      *bank = upper_bank(starts, r.x, r.y, u);
+    }
     if (present) *key = field_of(fw, kb);
     return i;
   }
 };
 
-// Status words of K2-delta's look-back, one uint64 per tile: the flag in
-// the high half (0 = not yet published, 1 = the tile's aggregate, 2 = its
-// inclusive value), the uint32 value in the low half, so one 64-bit store
-// publishes both.
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kInclusive = 2ull << 32;
+// K2-delta's pass 1: every tile's (256 lanes) delta sum and every group's
+// (kGroupTiles tiles, a CTA; a warp sums a tile, a lane 8 of its deltas).
+// It lets the step's CTAs start at once (a programmatic dependent launch,
+// see DeltaDecode).
+constexpr int kGroupTiles = kWarps;
 
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long ld_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Polls the status word at p until it is published (flag != 0), with
-// acquire or relaxed gpu-scope loads (never cached in L1, never hoisted
-// out of the loop). A word still unpublished after 2^22 polls (seconds)
-// is a fault in the look-back: trapped, so the launch fails instead of
-// hanging the card.
-template <bool kAcquire>
-__device__ __forceinline__ unsigned long long wait_published(
-    const unsigned long long* p) {
-  for (int polls = 0;; ++polls) {
-    const unsigned long long s = kAcquire ? ld_acquire(p) : ld_relaxed(p);
-    if (s >= kAggregate) return s;
-    if (polls == (1 << 22)) __trap();
-  }
-}
-
-// Delta wire: [counts | bases u32[num_banks] | db-bit deltas | guard],
-// lanes sorted by (bank, key). The JAX decode's key is bases[b] + c[i] -
-// c[s - 1], c the frame-wide prefix sum of the deltas (mod 2^32), s the
-// segment's start: the inclusive segmented scan of the deltas, reset at
-// each segment's first lane (a head), plus the bank's base. A padding
-// lane's key is bases[0] + c[i]: the sum R of every real lane's delta
-// plus a scan that restarts at the first padding lane, so the padding
-// lanes are one more segment with base bases[0] + R.
-//
-// One pass (Merrill and Garland, "Single-pass Parallel Prefix Scan with
-// Decoupled Look-back", NVIDIA 2016), with the segmented operator. A CTA
-// takes its tile from a ticket (CTAs start in no order, and a tile waits
-// only on tiles with a lower ticket, which are running), scans the counts
-// for its lanes' banks and heads, and scans its tile. Warp 0 publishes the
-// tile's status: inclusive at once when the tile holds a head, else its
-// aggregate; when the tile's first lane is not a head it looks back over
-// the predecessors' statuses, 32 at a time, summing aggregates down to the
-// first inclusive value, and then publishes its own inclusive value.
-// Segments average 8,192 lanes at the main path's frame, so the look-back
-// mostly ends one tile back. R: every wholly real tile also publishes its
-// delta sum, and the tile of the first padding lane sums them all (one
-// relaxed load per tile, all in flight together) and publishes R in
-// state[1] for the later padding tiles.
-//
-// state (uint64, zeroed before every launch): [0] the ticket, [1] R,
-// [2, 2 + tiles) the segmented statuses, [2 + tiles, 2 + 2 tiles) the
-// tiles' delta sums.
-template <bool kRange, bool kAcquire = true>
-struct DeltaDecode {
-  const uint32_t* buf;
-  int num_banks;
-  int db;
-  int lanes;
-  int tiles;
-  unsigned long long* state;
-
-  __device__ __forceinline__ int operator()(uint32_t* key,
-                                            int32_t* bank) const {
-    extern __shared__ uint32_t starts[];
-    __shared__ int tile_s;
-    __shared__ uint32_t warp_v[kWarps], warp_f[kWarps], warp_sum[kWarps];
-    __shared__ uint32_t pad_sum[kWarps];
-    __shared__ uint32_t carry_s, pad_s;
-    const int tid = static_cast<int>(threadIdx.x);
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    unsigned long long* seg = state + 2;
-    unsigned long long* sums = seg + tiles;
-    if (tid == 0) {
-      tile_s = static_cast<int>(
-          atomicAdd(reinterpret_cast<unsigned int*>(state), 1u));
-    }
-    int tile = 0;
-    FieldWords fw{0u, 0u, 0u};
-    const uint32_t* counts = buf;
-    const uint32_t* deltas = buf + 2 * num_banks;
-    const int n = lanes;
-    const int width = db;
-    // The ticket is visible after the scan's first barrier: the tile's
-    // deltas are loaded while the scan finishes.
-    cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
-                       starts, [&]() {
-                         tile = tile_s;
-                         const int i = tile * kThreads + tid;
-                         if (i < n) fw = field_words(deltas, i, width);
-                       });
-    const uint32_t t0 = static_cast<uint32_t>(tile) * kThreads;
-    const int i = static_cast<int>(t0) + tid;
-    const uint32_t u = static_cast<uint32_t>(i);
-    const bool present = i < lanes;
-    const uint32_t total = starts[num_banks];
-    const bool real = present && u < total;
-    const int32_t b = lane_bank<kRange>(starts, num_banks, t0, total, u, real);
-    const bool padding = total < static_cast<uint32_t>(lanes);
-    const uint32_t d = present ? field_of(fw, db) : 0u;
-
-    // The tile's inclusive segmented scan: f = a head at or before this
-    // lane within the tile, v = the deltas' sum since it (or since t0).
-    bool f = real ? starts[b] == u : present && u == total;
-    uint32_t v = d;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, v, off);
-      const int g = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(f), off);
-      if (lane >= off) {
-        if (!f) v += y;
-        f = f || g != 0;
-      }
-    }
-    const uint32_t real_sum = __reduce_add_sync(0xFFFFFFFFu, real ? d : 0u);
-    if (lane == 31) {
-      warp_v[warp] = v;
-      warp_f[warp] = f ? 1u : 0u;
-      warp_sum[warp] = real_sum;
-    }
-    __syncthreads();
-    for (int w = warp - 1; w >= 0 && !f; --w) {
-      v += warp_v[w];
-      f = warp_f[w] != 0u;
-    }
-
-    if (warp == 0) {
-      bool tile_f = false;  // the tile's aggregate (tile_f, tile_v)
-      uint32_t tile_v = 0u;
-      uint32_t tile_sum = 0u;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        tile_v = warp_f[w] != 0u ? warp_v[w] : tile_v + warp_v[w];
-        tile_f = tile_f || warp_f[w] != 0u;
-        tile_sum += warp_sum[w];
-      }
-      if (lane == 0) {
-        st_release(seg + tile, (tile_f ? kInclusive : kAggregate) | tile_v);
-        if (padding && t0 + kThreads <= total) {
-          st_release(sums + tile, kAggregate | tile_sum);
-        }
-      }
-      uint32_t carry = 0u;
-      // Lane 0 of warp 0 is the tile's first lane: no head there, so the
-      // lanes before the tile's first head continue a segment.
-      if (__shfl_sync(0xFFFFFFFFu, static_cast<int>(f), 0) == 0) {
-        for (int hi = tile - 1;; hi -= 32) {
-          const int p = hi - lane;
-          // Before tile 0, an inclusive 0 (not reached: a tile's first
-          // lane is a head).
-          const unsigned long long s =
-              p >= 0 ? wait_published<kAcquire>(seg + p) : kInclusive;
-          const unsigned int incl = __ballot_sync(0xFFFFFFFFu, s >= kInclusive);
-          const int stop = incl != 0u ? __ffs(incl) - 1 : 31;
-          carry += __reduce_add_sync(
-              0xFFFFFFFFu, lane <= stop ? static_cast<uint32_t>(s) : 0u);
-          if (incl != 0u) break;
-        }
-        if (lane == 0 && !tile_f) st_release(seg + tile, kInclusive | (carry + tile_v));
-      }
-      if (lane == 0) carry_s = carry;
-    }
-
-    if (padding && t0 + kThreads > total) {  // the tile holds padding lanes
-      if (t0 <= total) {  // ... the first: R = every real lane's delta sum
-        uint32_t r = 0u;
-        for (int p0 = tid; p0 < tile; p0 += 4 * kThreads) {
-          unsigned long long s[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int p = p0 + q * kThreads;
-            s[q] = p < tile ? ld_relaxed(sums + p) : kAggregate;
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (s[q] < kAggregate) {
-              s[q] = wait_published<false>(sums + p0 + q * kThreads);
-            }
-            r += static_cast<uint32_t>(s[q]);
-          }
-        }
-        r = __reduce_add_sync(0xFFFFFFFFu, r);
-        if (lane == 0) pad_sum[warp] = r + real_sum;
-        __syncthreads();
-        if (tid == 0) {
-          uint32_t total_sum = 0u;
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w) total_sum += pad_sum[w];
-          pad_s = total_sum;
-          st_release(state + 1, kAggregate | total_sum);
-        }
-      } else if (tid == 0) {
-        pad_s = static_cast<uint32_t>(wait_published<kAcquire>(state + 1));
-      }
-    }
-    __syncthreads();
-    if (!f) v += carry_s;
-    if (real) {
-      *key = __ldg(buf + num_banks + b) + v;
-      *bank = b;
-    } else if (present) {
-      *key = __ldg(buf + num_banks) + pad_s + v;
-    }
-    return i;
-  }
-};
-
-// Two launches, no wait between CTAs: pass 1 (delta_sums_kernel) writes
-// every 256-lane tile's delta sum and every group's of 32 tiles; the
-// step then takes its tile from blockIdx.x and finds the carry into the
-// tile itself. A real lane's key is bases[b] + the deltas' sum from its
-// segment's head s to the lane: the tile's own segmented scan, plus, for
-// the lanes before the tile's first head, the carry over [s0, t0), s0 the
-// head of lane t0's segment: the head tile's lanes from s0 on (read from
-// the wire), then the whole tiles up to t0 from the sums, 32 at a time
-// by the groups'. A padding lane's key is bases[0] + c[i]: the sum over
-// every earlier tile, from the sums, plus the tile's plain scan. Every
-// read of the carry is one load per thread, issued together (at most
-// 31 + 31 tiles and lanes / 8,192 groups, plus 255 lanes).
-// kGroupTiles: the tiles of a group (a CTA of pass 1); kPdl: the step is
-// launched as a programmatic dependent of pass 1, so its CTAs scan the
-// counts and load their deltas while pass 1 runs, and wait for it
-// (griddepcontrol.wait) only before reading the sums.
-template <int kGroupTiles, bool kPdl>
 __global__ void __launch_bounds__(kThreads)
 delta_sums_kernel(const uint32_t* __restrict__ deltas, int db, int lanes,
                   int tiles, uint32_t* __restrict__ tile_sums,
                   uint32_t* __restrict__ group_sums) {
+  asm volatile("griddepcontrol.launch_dependents;");
   __shared__ uint32_t warp_sums[kWarps];
-  if (kPdl) asm volatile("griddepcontrol.launch_dependents;");
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int warp = static_cast<int>(threadIdx.x >> 5);
-  constexpr int kPerWarp = kGroupTiles / kWarps;  // tiles a warp sums
-  constexpr int kPerLane = kThreads / 32;         // lanes of a tile a lane reads
-  FieldWords f[kPerWarp][kPerLane];
+  const int tile = static_cast<int>(blockIdx.x) * kGroupTiles + warp;
+  FieldWords f[kThreads / 32];
 #pragma unroll
-  for (int q = 0; q < kPerWarp; ++q) {
-    const int tile = blockIdx.x * kGroupTiles + warp + q * kWarps;
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int i = tile * kThreads + lane + 32 * j;
-      f[q][j] = tile < tiles && i < lanes ? field_words(deltas, i, db)
-                                          : FieldWords{0u, 0u, 0u};
-    }
+  for (int j = 0; j < kThreads / 32; ++j) {
+    const int i = tile * kThreads + lane + 32 * j;
+    f[j] = tile < tiles && i < lanes ? field_words(deltas, i, db)
+                                     : FieldWords{0u, 0u, 0u};
   }
-  uint32_t group = 0u;
+  uint32_t s = 0u;
 #pragma unroll
-  for (int q = 0; q < kPerWarp; ++q) {
-    const int tile = blockIdx.x * kGroupTiles + warp + q * kWarps;
-    uint32_t s = 0u;
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) s += field_of(f[q][j], db);
-    s = __reduce_add_sync(0xFFFFFFFFu, s);
-    if (lane == 0 && tile < tiles) tile_sums[tile] = s;
-    group += s;
+  for (int j = 0; j < kThreads / 32; ++j) s += field_of(f[j], db);
+  s = __reduce_add_sync(0xFFFFFFFFu, s);
+  if (lane == 0) {
+    if (tile < tiles) tile_sums[tile] = s;
+    warp_sums[warp] = s;
   }
-  if (lane == 0) warp_sums[warp] = group;
   __syncthreads();
   if (threadIdx.x == 0) {
-    uint32_t s = 0u;
+    uint32_t g = 0u;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
-    group_sums[blockIdx.x] = s;
+    for (int w = 0; w < kWarps; ++w) g += warp_sums[w];
+    group_sums[blockIdx.x] = g;
   }
 }
 
 // Thread k's share of the sum of tile_sums over tiles [lo, hi): the tiles
-// up to the first group boundary, the whole groups (group_sums), the
-// tiles after the last boundary; item x goes to thread x % kThreads.
-// Plain (coherent) loads: with kPdl the sums are written by a grid that
-// may still be running when this one starts.
-template <int kGroupTiles>
-__device__ __forceinline__ uint32_t tile_range_part(
-    const uint32_t* tile_sums, const uint32_t* group_sums, int lo, int hi,
-    int k) {
+// up to the first group boundary, the whole groups, the tiles after the
+// last boundary; item x goes to thread x % kThreads. Plain (coherent)
+// loads: the sums come from pass 1, which may still have been running
+// when this grid started.
+__device__ __forceinline__ uint32_t tile_range_part(const uint32_t* tile_sums,
+                                                    const uint32_t* group_sums,
+                                                    int lo, int hi, int k) {
   if (lo >= hi) return 0u;
   const int a = min(hi, (lo + kGroupTiles - 1) / kGroupTiles * kGroupTiles);
   const int g_hi = max(a, hi / kGroupTiles * kGroupTiles);
@@ -776,8 +519,29 @@ __device__ __forceinline__ uint32_t tile_range_part(
   return sum;
 }
 
-template <int kGroupTiles, bool kPdl>
-struct DeltaDecode2 {
+// Delta wire: [counts | bases u32[num_banks] | db-bit deltas | guard],
+// lanes sorted by (bank, key). The JAX decode's key is bases[b] + c[i] -
+// c[s - 1], c the frame-wide prefix sum of the deltas (mod 2^32), s the
+// segment's start: the deltas' inclusive segmented scan, restarted at
+// each segment's first lane (a head), plus the bank's base. A padding
+// lane's key is bases[0] + c[i].
+//
+// The step after pass 1 (delta_sums_kernel), with no wait on another
+// CTA: a tile (blockIdx.x) scans its own deltas, segmented and, when it
+// holds padding lanes, plain. The lanes before its first head continue
+// the segment of lane t0, which starts at s0 < t0; their carry is the
+// sum over [s0, t0): the head tile's lanes from s0 on (from the wire),
+// then the whole tiles after it (pass 1's sums, whole groups by the
+// group sums). A padding lane adds the sum over every earlier tile. Each
+// of these is one load per thread, all issued together: at most 255
+// lanes, 7 + 7 tiles and tiles / 8 groups (512 at 1,048,576 lanes; a
+// thread then takes 2 or 3). Everything before the sums are read (the
+// counts' scan, the bank search, the deltas' loads) overlaps pass 1:
+// the step is its programmatic dependent and waits (griddepcontrol.wait)
+// only there. A single pass with decoupled look-back and a two-launch
+// pass without the groups or the overlap were slower on an H100
+// (PERF.md).
+struct DeltaDecode {
   const uint32_t* buf;
   int num_banks;
   int db;
@@ -788,7 +552,6 @@ struct DeltaDecode2 {
   __device__ __forceinline__ int operator()(uint32_t* key,
                                             int32_t* bank) const {
     extern __shared__ uint32_t starts[];
-    __shared__ int range[2];
     __shared__ uint32_t warp_v[kWarps], warp_f[kWarps], warp_p[kWarps];
     __shared__ uint32_t warp_cs[kWarps], warp_cp[kWarps];
     const int tid = static_cast<int>(threadIdx.x);
@@ -799,45 +562,35 @@ struct DeltaDecode2 {
     const int i = static_cast<int>(t0) + tid;
     const uint32_t u = static_cast<uint32_t>(i);
     const bool present = i < lanes;
-    const uint32_t* counts = buf;
     const uint32_t* deltas = buf + 2 * num_banks;
     FieldWords fw{0u, 0u, 0u};
     if (present) fw = field_words(deltas, i, db);  // in flight
-    cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
-                       starts);
+    const int2 r = tile_banks(buf, num_banks, t0, starts);
     const uint32_t total = starts[num_banks];
-    if (tid == 0 || tid == 32) {
-      const uint32_t at = tid == 0 ? t0 : min(t0 + kThreads, total) - 1u;
-      range[tid >> 5] = t0 < total ? upper_bank(starts, 0, num_banks, at) : 0;
-    }
-    __syncthreads();
     const bool real = present && u < total;
-    const int32_t b = real ? upper_bank(starts, range[0], range[1], u) : -1;
-    // The carry's loads: the head tile's lanes [s0, end) and the whole
-    // tiles after it, for the lanes before the tile's first head; the
-    // sum over every earlier tile, for a tile with padding lanes.
-    const uint32_t s0 = t0 < total ? starts[range[0]] : total;
-    if (kPdl) asm volatile("griddepcontrol.wait;" ::: "memory");
+    const int32_t b = real ? upper_bank(starts, r.x, r.y, u) : -1;
+
+    // The carries' loads, once pass 1's sums are visible.
+    const uint32_t s0 = t0 < total ? starts[r.x] : total;
+    asm volatile("griddepcontrol.wait;" ::: "memory");
     uint32_t carry_seg = 0u;
     if (t0 < total && s0 < t0) {
       const int h = static_cast<int>(s0 >> 8);
-      const uint32_t h_end = static_cast<uint32_t>(h + 1) * kThreads;
-      if (s0 + static_cast<uint32_t>(tid) < h_end) {
-        carry_seg = field_of(field_words(deltas, static_cast<int>(s0) + tid, db),
-                             db);
+      const uint32_t head_end = static_cast<uint32_t>(h + 1) * kThreads;
+      if (s0 + static_cast<uint32_t>(tid) < head_end) {
+        carry_seg = field_of(
+            field_words(deltas, static_cast<int>(s0) + tid, db), db);
       }
-      carry_seg += tile_range_part<kGroupTiles>(tile_sums, group_sums, h + 1,
-                                                tile, tid);
+      carry_seg += tile_range_part(tile_sums, group_sums, h + 1, tile, tid);
     }
-    const bool padding_tile = t0 + kThreads > total;
     const uint32_t carry_plain =
-        padding_tile
-            ? tile_range_part<kGroupTiles>(tile_sums, group_sums, 0, tile, tid)
-            : 0u;
+        t0 + kThreads > total
+            ? tile_range_part(tile_sums, group_sums, 0, tile, tid) : 0u;
     const uint32_t d = present ? field_of(fw, db) : 0u;
 
-    // The tile's inclusive segmented scan (heads: each bank's first lane
-    // and the first padding lane) and, in a padding tile, its plain one.
+    // The tile's scans: v segmented (f: a head at or before the lane
+    // within the tile; the first padding lane heads a segment too), p
+    // plain.
     bool f = real ? starts[b] == u : present && u == total;
     uint32_t v = d;
     uint32_t p = d;
@@ -1240,242 +993,58 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
   est[i] = m;
 }
 
-// ---------------------------------------------------------------------------
-// The PR 6 designs of K2-seg and K2-delta, kept only to be timed beside
-// the one-launch designs (atp_exp_fused_step_seg / _delta): a one-CTA
-// scan of the counts into global scratch, then K2 with a per-lane binary
-// search there (seg); tile sums, a one-CTA scan of counts and tile sums,
-// a per-tile prefix into a uint32[lanes] scratch c, then K2 reading c at
-// the lane and at its segment's start (delta).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t stream_field(
-    const uint32_t* __restrict__ stream, int i, int width) {
-  const uint64_t bit = static_cast<uint64_t>(i) * static_cast<uint64_t>(width);
-  const size_t w0 = static_cast<size_t>(bit >> 5);
-  const uint32_t sh = static_cast<uint32_t>(bit & 31u);
-  uint32_t v = stream[w0] >> sh;
-  if (sh != 0u) v |= stream[w0 + 1] << (32u - sh);
-  return width >= 32 ? v : v & ((1u << width) - 1u);
-}
-
-__device__ __forceinline__ int32_t segment_of(
-    const uint32_t* __restrict__ starts, int num_banks, uint32_t i) {
-  int lo = 0;
-  int hi = num_banks;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (starts[mid + 1] > i) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo;
-}
-
-struct SegDecodePr6 {
-  const uint32_t* buf;
-  int num_banks;
-  int kb;
-  int lanes;
-  const uint32_t* starts;
-
-  __device__ __forceinline__ int operator()(uint32_t* key,
-                                            int32_t* bank) const {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i < lanes) {
-      *key = stream_field(buf + num_banks, i, kb);
-      const uint32_t lane = static_cast<uint32_t>(i);
-      *bank = lane < starts[num_banks] ? segment_of(starts, num_banks, lane)
-                                       : -1;
-    }
-    return i;
-  }
-};
-
-struct DeltaDecodePr6 {
-  const uint32_t* buf;
-  int num_banks;
-  int lanes;
-  const uint32_t* starts;
-  const uint32_t* c;
-
-  __device__ __forceinline__ int operator()(uint32_t* key,
-                                            int32_t* bank) const {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i < lanes) {
-      const uint32_t lane = static_cast<uint32_t>(i);
-      const bool real = lane < starts[num_banks];
-      const int32_t b = real ? segment_of(starts, num_banks, lane) : 0;
-      const uint32_t s = starts[b];
-      const uint32_t before = s == 0u ? 0u : c[s - 1u];
-      *key = buf[num_banks + b] + c[i] - before;
-      *bank = real ? b : -1;
-    }
-    return i;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-wire_scan_kernel(const uint32_t* __restrict__ counts, int num_banks,
-                 uint32_t* starts, const uint32_t* __restrict__ tile_sums,
-                 int tiles, uint32_t* tile_off) {
-  cta_exclusive_scan([=](int t) { return counts[t]; }, num_banks, starts);
-  if (tile_sums != nullptr) {
-    cta_exclusive_scan([=](int t) { return tile_sums[t]; }, tiles, tile_off);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-delta_tile_sum_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
-                      uint32_t* __restrict__ tile_sums) {
-  __shared__ uint32_t warp_sums[kWarps];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const uint32_t d = __reduce_add_sync(
-      0xFFFFFFFFu, i < lanes ? stream_field(stream, i, db) : 0u);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = d;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t s = 0u;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
-    tile_sums[blockIdx.x] = s;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-delta_prefix_kernel(const uint32_t* __restrict__ stream, int db, int lanes,
-                    const uint32_t* __restrict__ tile_off,
-                    uint32_t* __restrict__ c) {
-  __shared__ uint32_t warp_sums[kWarps];
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int warp = static_cast<int>(threadIdx.x >> 5);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  uint32_t incl = i < lanes ? stream_field(stream, i, db) : 0u;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  uint32_t base = tile_off[blockIdx.x];
-  for (int w = 0; w < warp; ++w) base += warp_sums[w];
-  if (i < lanes) c[i] = base + incl;
-}
-
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // Dynamic shared memory a kernel takes without opting in (the K2
 // kernels' static shared memory is about 17 KB of the 48 KB default).
 constexpr size_t kSmemNoOptIn = 16 * 1024;
 
-// K2 over one frame with the wire's decode, which takes `smem` bytes of
-// dynamic shared memory (the narrow wires' scan of the counts).
-template <class Decode>
-int launch_fused_step(const Decode& decode, int lanes, size_t smem,
-                      const void* bloom, unsigned int num_blocks, int k,
-                      void* regs, int num_banks, int precision, void* counts,
-                      void* valid, cudaStream_t s) {
-  if (smem > kSmemNoOptIn) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_step_kernel<Decode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  fused_step_kernel<<<blocks_for(lanes), kThreads, smem, s>>>(
-      decode, lanes, static_cast<const uint32_t*>(bloom), num_blocks,
-      fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
-      precision, static_cast<unsigned long long*>(counts),
-      static_cast<uint8_t*>(valid));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Shared memory of the narrow wires' counts scan: starts[wire_banks + 1].
 inline size_t counts_smem(int wire_banks) {
   return sizeof(uint32_t) * (static_cast<size_t>(wire_banks) + 1);
 }
 
-// The one-launch K2-seg, by bank search (kRange: see lane_bank).
-template <bool kRange>
-int launch_seg(const void* buf, int kb, int lanes, int wire_banks,
-               const void* bloom, unsigned int num_blocks, int k, void* regs,
-               int num_banks, int precision, void* counts, void* valid,
-               cudaStream_t s) {
-  return launch_fused_step(
-      SegDecode<kRange>{static_cast<const uint32_t*>(buf), wire_banks, kb,
-                        lanes},
-      lanes, counts_smem(wire_banks), bloom, num_blocks, k, regs, num_banks,
-      precision, counts, valid, s);
-}
-
-// The one-launch K2-delta after the memset of its status words (state:
-// 2 + 2 * tiles uint64, see DeltaDecode).
-template <bool kRange, bool kAcquire = true>
-int launch_delta(const void* buf, int db, int lanes, int wire_banks,
-                 void* state, const void* bloom, unsigned int num_blocks,
-                 int k, void* regs, int num_banks, int precision,
-                 void* counts, void* valid, cudaStream_t s) {
-  const int tiles = blocks_for(lanes);
-  const cudaError_t err = cudaMemsetAsync(
-      state, 0, sizeof(unsigned long long) * (2 + 2 * static_cast<size_t>(tiles)),
-      s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_fused_step(
-      DeltaDecode<kRange, kAcquire>{static_cast<const uint32_t*>(buf),
-                                    wire_banks, db, lanes, tiles,
-                                    static_cast<unsigned long long*>(state)},
-      lanes, counts_smem(wire_banks), bloom, num_blocks, k, regs, num_banks,
-      precision, counts, valid, s);
-}
-
-// The two-launch K2-delta: the tile and group sums into scratch (uint32
-// tiles + ceil(tiles / kGroupTiles)), then the step.
-template <int kGroupTiles, bool kPdl>
-int launch_delta2(const void* buf, int db, int lanes, int wire_banks,
-                  void* scratch, const void* bloom, unsigned int num_blocks,
-                  int k, void* regs, int num_banks, int precision,
-                  void* counts, void* valid, cudaStream_t s) {
-  const int tiles = blocks_for(lanes);
-  const int groups = (tiles + kGroupTiles - 1) / kGroupTiles;
-  const uint32_t* b = static_cast<const uint32_t*>(buf);
-  uint32_t* tile_sums = static_cast<uint32_t*>(scratch);
-  uint32_t* group_sums = tile_sums + tiles;
-  delta_sums_kernel<kGroupTiles, kPdl><<<groups, kThreads, 0, s>>>(
-      b + 2 * static_cast<size_t>(wire_banks), db, lanes, tiles, tile_sums,
-      group_sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const DeltaDecode2<kGroupTiles, kPdl> decode{b, wire_banks, db, lanes,
-                                               tile_sums, group_sums};
-  if (!kPdl) {
-    return launch_fused_step(decode, lanes, counts_smem(wire_banks), bloom,
-                             num_blocks, k, regs, num_banks, precision,
-                             counts, valid, s);
-  }
-  const size_t smem = counts_smem(wire_banks);
+// K2 over one frame with the wire's decode, which takes `smem` bytes of
+// dynamic shared memory. `dependent`: launched as a programmatic
+// dependent of the kernel before it on the stream (K2-delta's step after
+// pass 1), so that its CTAs may start while that kernel runs.
+template <class Decode>
+int launch_fused_step(const Decode& decode, int lanes, size_t smem,
+                      bool dependent, const void* bloom,
+                      unsigned int num_blocks, int k, void* regs,
+                      int num_banks, int precision, void* counts,
+                      void* valid, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
   if (smem > kSmemNoOptIn) {
-    err = cudaFuncSetAttribute(
-        fused_step_kernel<DeltaDecode2<kGroupTiles, kPdl>>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(fused_step_kernel<Decode>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const uint32_t* bloom32 = static_cast<const uint32_t*>(bloom);
+  uint8_t* regs8 = static_cast<uint8_t*>(regs);
+  unsigned long long* counts64 = static_cast<unsigned long long*>(counts);
+  uint8_t* valid8 = static_cast<uint8_t*>(valid);
+  if (!dependent) {
+    fused_step_kernel<<<blocks_for(lanes), kThreads, smem, s>>>(
+        decode, lanes, bloom32, num_blocks, fastmod_magic(num_blocks), k,
+        regs8, num_banks, precision, counts64, valid8);
+    return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(tiles));
+  cfg.gridDim = dim3(static_cast<unsigned int>(blocks_for(lanes)));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, fused_step_kernel<DeltaDecode2<kGroupTiles, kPdl>>, decode, lanes,
-      static_cast<const uint32_t*>(bloom), static_cast<uint32_t>(num_blocks),
-      fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
-      precision, static_cast<unsigned long long*>(counts),
-      static_cast<uint8_t*>(valid));
+  err = cudaLaunchKernelEx(&cfg, fused_step_kernel<Decode>, decode, lanes,
+                           bloom32, static_cast<uint32_t>(num_blocks),
+                           fastmod_magic(num_blocks), k, regs8, num_banks,
+                           precision, counts64, valid8);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1547,8 +1116,8 @@ int atp_fused_step(const void* wire, int bank_bytes, int key_bits, int lanes,
     return launch_fused_step(
         WireDecode{static_cast<const uint8_t*>(wire), bank_bytes, key_bits,
                    lanes},
-        lanes, 0, bloom, num_blocks, k, regs, num_banks, precision, counts,
-        valid, static_cast<cudaStream_t>(stream));
+        lanes, 0, false, bloom, num_blocks, k, regs, num_banks, precision,
+        counts, valid, static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1559,123 +1128,36 @@ int atp_fused_step_seg(const void* buf, int kb, int lanes, int wire_banks,
                        const void* bloom, unsigned int num_blocks, int k,
                        void* regs, int num_banks, int precision, void* counts,
                        void* valid, void* stream) {
-  return launch_seg<true>(buf, kb, lanes, wire_banks, bloom, num_blocks, k,
-                          regs, num_banks, precision, counts, valid,
-                          static_cast<cudaStream_t>(stream));
+  return launch_fused_step(
+      SegDecode{static_cast<const uint32_t*>(buf), wire_banks, kb, lanes},
+      lanes, counts_smem(wire_banks), false, bloom, num_blocks, k, regs,
+      num_banks, precision, counts, valid, static_cast<cudaStream_t>(stream));
 }
 
 // K2-delta: buf is [counts | bases u32[wire_banks] | db-bit deltas |
-// guard]; state holds 2 + 2 * ceil(lanes / 256) uint64 status words,
-// zeroed here by one memset before the one launch (captured into a CUDA
-// graph as its own node, so every replay starts from fresh words).
+// guard]; scratch holds uint32 tile_sums[tiles] then group_sums[ceil(tiles
+// / 8)], tiles = ceil(lanes / 256), which pass 1 writes whole on every
+// call. Two launches: pass 1, then the step as its programmatic
+// dependent.
 int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
-                         void* state, const void* bloom,
+                         void* scratch, const void* bloom,
                          unsigned int num_blocks, int k, void* regs,
                          int num_banks, int precision, void* counts,
                          void* valid, void* stream) {
-  return launch_delta<true>(buf, db, lanes, wire_banks, state, bloom,
-                            num_blocks, k, regs, num_banks, precision, counts,
-                            valid, static_cast<cudaStream_t>(stream));
-}
-
-// Timing only: the designs of K2-seg (variant 0: PR 6, scratch =
-// starts[wire_banks + 1]; 1: per-lane search; 2: range search) and of
-// K2-delta (0: PR 6, scratch as its delta_scratch_words; 1 and 2: one
-// launch, scratch = the status words; 3: as 2 with relaxed loads in the
-// look-back; 4: two launches, scratch = the tile and group sums, groups
-// of 32 tiles; 5: groups of 8; 6: as 5, the step a programmatic
-// dependent launch).
-int atp_exp_fused_step_seg(int variant, const void* buf, int kb, int lanes,
-                           int wire_banks, void* scratch, const void* bloom,
-                           unsigned int num_blocks, int k, void* regs,
-                           int num_banks, int precision, void* counts,
-                           void* valid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    return launch_seg<false>(buf, kb, lanes, wire_banks, bloom, num_blocks,
-                             k, regs, num_banks, precision, counts, valid, s);
-  }
-  if (variant == 2) {
-    return launch_seg<true>(buf, kb, lanes, wire_banks, bloom, num_blocks, k,
-                            regs, num_banks, precision, counts, valid, s);
-  }
   const uint32_t* b = static_cast<const uint32_t*>(buf);
-  uint32_t* starts = static_cast<uint32_t*>(scratch);
-  wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, nullptr, 0,
-                                          nullptr);
+  const int tiles = blocks_for(lanes);
+  uint32_t* tile_sums = static_cast<uint32_t*>(scratch);
+  uint32_t* group_sums = tile_sums + tiles;
+  delta_sums_kernel<<<(tiles + kGroupTiles - 1) / kGroupTiles, kThreads, 0,
+                      s>>>(b + 2 * static_cast<size_t>(wire_banks), db, lanes,
+                           tiles, tile_sums, group_sums);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_fused_step(SegDecodePr6{b, wire_banks, kb, lanes, starts},
-                           lanes, 0, bloom, num_blocks, k, regs, num_banks,
-                           precision, counts, valid, s);
-}
-
-int atp_exp_fused_step_delta(int variant, const void* buf, int db, int lanes,
-                             int wire_banks, void* scratch, const void* bloom,
-                             unsigned int num_blocks, int k, void* regs,
-                             int num_banks, int precision, void* counts,
-                             void* valid, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    return launch_delta<false>(buf, db, lanes, wire_banks, scratch, bloom,
-                               num_blocks, k, regs, num_banks, precision,
-                               counts, valid, s);
-  }
-  if (variant == 2) {
-    return launch_delta<true>(buf, db, lanes, wire_banks, scratch, bloom,
-                              num_blocks, k, regs, num_banks, precision,
-                              counts, valid, s);
-  }
-  if (variant == 3) {
-    return launch_delta<true, false>(buf, db, lanes, wire_banks, scratch,
-                                     bloom, num_blocks, k, regs, num_banks,
-                                     precision, counts, valid, s);
-  }
-  if (variant == 4) {
-    return launch_delta2<32, false>(buf, db, lanes, wire_banks, scratch,
-                                    bloom, num_blocks, k, regs, num_banks,
-                                    precision, counts, valid, s);
-  }
-  if (variant == 5) {
-    return launch_delta2<8, false>(buf, db, lanes, wire_banks, scratch, bloom,
-                                   num_blocks, k, regs, num_banks, precision,
-                                   counts, valid, s);
-  }
-  if (variant == 6) {
-    return launch_delta2<8, true>(buf, db, lanes, wire_banks, scratch, bloom,
-                                  num_blocks, k, regs, num_banks, precision,
-                                  counts, valid, s);
-  }
-  const uint32_t* b = static_cast<const uint32_t*>(buf);
-  const uint32_t* deltas = b + 2 * static_cast<size_t>(wire_banks);
-  const int tiles = blocks_for(lanes);
-  uint32_t* starts = static_cast<uint32_t*>(scratch);
-  uint32_t* tile_sums = starts + wire_banks + 1;
-  uint32_t* tile_off = tile_sums + tiles;
-  uint32_t* c = tile_off + tiles + 1;
-  delta_tile_sum_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes,
-                                                   tile_sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wire_scan_kernel<<<1, kThreads, 0, s>>>(b, wire_banks, starts, tile_sums,
-                                          tiles, tile_off);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  delta_prefix_kernel<<<tiles, kThreads, 0, s>>>(deltas, db, lanes, tile_off,
-                                                 c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_fused_step(DeltaDecodePr6{b, wire_banks, lanes, starts, c},
-                           lanes, 0, bloom, num_blocks, k, regs, num_banks,
-                           precision, counts, valid, s);
-}
-
-// Timing only: the memset K2-delta issues before its launch, alone.
-int atp_exp_memset(void* state, int lanes, void* stream) {
-  return static_cast<int>(cudaMemsetAsync(
-      state, 0,
-      sizeof(unsigned long long) * (2 + 2 * static_cast<size_t>(blocks_for(lanes))),
-      static_cast<cudaStream_t>(stream)));
+  return launch_fused_step(
+      DeltaDecode{b, wire_banks, db, lanes, tile_sums, group_sums}, lanes,
+      counts_smem(wire_banks), true, bloom, num_blocks, k, regs, num_banks,
+      precision, counts, valid, s);
 }
 
 // scratch == nullptr: one thread per key; else the binned passes.

@@ -424,11 +424,11 @@ NARROW_MAX_BANKS = 1 << 15
 
 
 def delta_scratch_words(padded: int) -> int:
-    """int64 status words of K2-delta, zeroed by its C entry point before
-    every launch: the tile ticket, the padding lanes' delta sum, and two
-    words per tile of 256 lanes (its segmented scan status, its delta
-    sum)."""
-    return 2 + 2 * -(-padded // 256)
+    """int32 scratch of K2-delta, which its first pass writes whole on
+    every call: the delta sum of each tile of 256 lanes, then of each
+    group of 8 tiles."""
+    tiles = -(-padded // 256)
+    return tiles + -(-tiles // 8)
 
 
 def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
@@ -467,9 +467,9 @@ def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
         if name == "seg":
             rc = library().atp_fused_step_seg(*head, *tail)
         else:
-            state = torch.empty(delta_scratch_words(padded),
-                                dtype=torch.int64, device=buf.device)
-            rc = library().atp_fused_step_delta(*head, state.data_ptr(),
+            sums = torch.empty(delta_scratch_words(padded),
+                               dtype=torch.int32, device=buf.device)
+            rc = library().atp_fused_step_delta(*head, sums.data_ptr(),
                                                 *tail)
     _check_launch(rc, f"atp_fused_step_{name}")
     launches[f"fused_step_{name}"] += 1
@@ -521,16 +521,20 @@ def fused_step_delta(bloom: torch.Tensor, regs: torch.Tensor,
     ``decode_delta_lanes`` (attendance_tpu/models/fused.py:386,416).
     Bound: as K2-seg's, at db/8 bytes of wire per lane. Design: a key is
     its bank's base plus the inclusive segmented scan of the deltas (a
-    segment per bank, and one for the padding lanes, whose base adds the
-    real lanes' whole delta sum), computed in one pass with decoupled
-    look-back (Merrill and Garland, 2016): a CTA takes its tile of 256
-    lanes from a ticket, finds its lanes' banks and segment heads as
-    K2-seg does, scans its tile, publishes its status (inclusive at once
-    when it holds a head) and, when its first lane continues a segment,
-    sums its predecessors' statuses back to the first inclusive one.
-    The deltas are read once and no per-lane prefix is written. One
-    launch after one memset of ``delta_scratch_words(padded)`` int64
-    status words (which also keeps a replayed CUDA graph correct).
+    segment per bank; a padding lane takes bank 0's base plus the
+    frame-wide prefix). Two launches: a pass writes every 256-lane
+    tile's delta sum and every 8-tile group's into an int32 scratch
+    (``delta_scratch_words``), then K2's body runs with a delta decode
+    that waits on no other CTA: each CTA finds its lanes' banks and
+    heads as K2-seg does, scans its tile, and adds, for the lanes before
+    its first head, the sum from its segment's head (the head tile's
+    lanes from the wire, then whole tiles and groups from the sums; one
+    load per thread, all issued together). The step is launched as a
+    programmatic dependent of the pass, so its scan of the counts and
+    its loads overlap the pass. A single pass with decoupled look-back
+    (ticket, status words, memset) was slower on an H100 at 1,048,576
+    lanes than PR 6's four launches, and this design faster than both
+    at every shape measured (PERF.md).
     """
     return _narrow_step("delta", bloom, regs, counts, buf, params, db,
                         padded, num_banks, precision)

@@ -14,10 +14,14 @@ Phases (any failure exits non-zero):
      the floor), the plain version and, where one exists, a single
      PyTorch library call computing the same function (2a, 2c: K3 and K2
      of the fused path, K2 on the word wire and the three bytes widths,
-     K2-seg and K2-delta, at 131,072 and at 1,048,576 lanes, each beside
-     K2-word's time and its own bound, K2-delta's pre-passes and step
-     also timed apart, then both on an edge frame (empty banks, ragged,
-     seg width 32, a delta prefix that wraps); 2a: K3 at the 100k and
+     K2-seg and K2-delta at 131,072 lanes with 256-, 512- and 1,024-bank
+     headers and at 1,048,576 lanes (256 banks, and every lane in one
+     bank), each beside K2-word's time, its own bound and the decode
+     half's yardstick (torch.searchsorted, torch.cumsum), the state the
+     CUDA-graph replays left held after each timing; then both on an edge
+     frame (empty banks, ragged, seg width 32, a delta prefix that
+     wraps), on segment heads at a tile's first and last lane and on a
+     frame with no real lane; 2a: K3 at the 100k and
      10M rosters by both of its paths, one thread per key and binned,
      each also onto a filter already holding
      half the roster, timed into a zeroed filter (zero_ timed alone and
@@ -311,89 +315,6 @@ def decode_yardstick(wire, mode: str, width: int, lanes: int,
     if mode == "delta":
         out["cumsum_ms"] = kernel_ms(lambda: torch.cumsum(deltas, 0))
     return " ".join(f"{k}={v}" for k, v in out.items())
-
-
-NARROW_DESIGNS = {0: "pr6", 1: "per_lane", 2: "range", 3: "range_relaxed",
-                  4: "two_launch", 5: "two_launch_g8", 6: "two_launch_g8_pdl"}
-
-
-def exp_narrow_step(mode: str, variant: int, st, wire, params, width: int,
-                    lanes: int, num_banks: int):
-    """One launch of a K2-seg/K2-delta design through the timing-only C
-    entry points (``NARROW_DESIGNS``); returns valid."""
-    from attendance_tpu_torch.models.bloom import BLOCK_BITS
-    from attendance_tpu_torch.ops import build, kernels
-
-    tiles = -(-lanes // 256)
-    if variant == 0:
-        scratch = torch.empty(
-            num_banks + 1 if mode == "seg"
-            else num_banks + 2 * tiles + 2 + lanes,
-            dtype=torch.int32, device=wire.device)
-    else:
-        scratch = torch.empty(kernels.delta_scratch_words(lanes),
-                              dtype=torch.int64, device=wire.device)
-    valid = torch.empty(lanes, dtype=torch.bool, device=wire.device)
-    rc = getattr(build.library(), f"atp_exp_fused_step_{mode}")(
-        variant, wire.data_ptr(), width, lanes, num_banks,
-        scratch.data_ptr(), st.bloom_bits.data_ptr(),
-        params.m_bits // BLOCK_BITS, params.k, st.hll_regs.data_ptr(),
-        st.hll_regs.shape[0], 14, st.counts.data_ptr(), valid.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"atp_exp_fused_step_{mode} variant {variant}: rc {rc}")
-    return valid
-
-
-def narrow_designs_timing(card: str, start, params, cases) -> None:
-    """Phase 2e: PR 6's designs of K2-seg and K2-delta beside the
-    one-launch designs (per-lane and range bank search; for K2-delta also
-    relaxed look-back loads, and a two-launch design that sums tiles
-    without a look-back), each first held equal to the plain version
-    from ``start``, then timed in turns (each design, then each again in
-    reverse order) on each of ``cases``: (what, mode, wire, width,
-    lanes, header banks)."""
-    from attendance_tpu_torch.models import fused
-
-    for what, mode, wire, width, lanes, num_banks in cases:
-        _, plain, _ = narrow_steps(mode)
-        b = fused.SketchState(*(t.clone() for t in start))
-        want = plain(*b, wire, params, width, lanes, num_banks, 14)
-        variants = (0, 2, 4, 5, 6) if mode == "delta" else (0, 1, 2)
-        times = {v: [] for v in variants}
-        for variant in variants:
-            a = fused.SketchState(*(t.clone() for t in start))
-            valid = exp_narrow_step(mode, variant, a, wire, params, width,
-                                    lanes, num_banks)
-            torch.cuda.synchronize()
-            check(torch.equal(valid, want) and torch.equal(a.hll_regs,
-                                                           b.hll_regs)
-                  and torch.equal(a.counts, b.counts),
-                  f"K2-{mode} design {NARROW_DESIGNS[variant]} {what}: "
-                  "differs from the plain version")
-        a = fused.SketchState(*(t.clone() for t in start))
-        for variant in variants + variants[::-1]:
-            times[variant].append(kernel_ms(
-                lambda v=variant: exp_narrow_step(mode, v, a, wire, params,
-                                                  width, lanes, num_banks)))
-        torch.cuda.synchronize()
-        check(torch.equal(a.hll_regs, b.hll_regs),
-              f"K2-{mode} designs {what}: registers after the replays")
-        memset = ""
-        if mode == "delta":
-            from attendance_tpu_torch.ops import build, kernels
-            words = torch.empty(kernels.delta_scratch_words(lanes),
-                                dtype=torch.int64, device=wire.device)
-            memset = " memset_alone_ms=" + str(kernel_ms(
-                lambda: build.library().atp_exp_memset(
-                    words.data_ptr(), lanes,
-                    torch.cuda.current_stream().cuda_stream)))
-        print(f"K2-{mode} designs {what} width={width}: "
-              + " ".join(f"{NARROW_DESIGNS[v]}_ms={t}"
-                         for v, t in times.items())
-              + " (in turns "
-              + ", ".join(NARROW_DESIGNS[v] for v in variants + variants[::-1])
-              + ")"
-              f"{memset} on {card}")
 
 
 def run_with_native(native: bool, config, num_events: int, frame_size: int,
@@ -835,13 +756,12 @@ def main() -> int:
         # register rows (256, as the pipeline packs it; 16 banks hold
         # lanes) and, at 131,072 lanes, as long as the temporal plane grows
         # them (512 and 1,024 banks); at 1,048,576 lanes also every lane in
-        # one bank (the delta look-back's longest chain, 4,096 tiles).
+        # one bank (a delta carry over up to 4,095 tiles).
         narrow = [(f"lanes={lanes} banks={nb}", frame, nb)
                   for nb in ((256, 512, 1024) if lanes == 131_072 else (256,))]
         if lanes == 1_048_576:
             narrow.append((f"lanes={lanes} one bank", dict(
                 frame, lecture_day=np.full(n, 20_260_704, np.uint32)), 256))
-        designs = []
         for what, cols, num_banks in narrow:
             cols_day = torch.from_numpy(
                 np.asarray(cols["lecture_day"], np.int64)).to(dev)
@@ -866,15 +786,12 @@ def main() -> int:
                       f"times_bound={ms / b_ms} max_abs_err={err}; decode "
                       f"half's yardstick (graph replays): "
                       + decode_yardstick(wire, mode, width, lanes, num_banks))
-                designs.append((what, mode, wire, width, lanes, num_banks))
                 if lanes == 131_072 and num_banks == 256:
                     rows[f"fused_step_{mode}"] = dict(
                         replaces="attendance_tpu/models/fused.py:"
                         + ("261" if mode == "seg" else "386"),
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        # -- 2e. the PR 6 designs beside the one-launch ones, in turns.
-        narrow_designs_timing(card, start, params, designs)
     start, frame, roster_np = k2_inputs
     lanes = 131_072
     rng_e = np.random.default_rng(6)

@@ -583,8 +583,8 @@ def test_cms_step_kernel_hot_mix(masked, cuda):
 # register rows (lanes of banks past them are counted, their registers
 # dropped); "kb32_wrap" draws keys over all of uint32, so the seg wire is
 # 32 bits wide and the delta wire's frame-wide prefix sum wraps;
-# "one_bank_long" puts every lane of a long frame in one bank (the delta
-# look-back's longest chain, 4,096 tiles); "tile_edge_heads" gives the
+# "one_bank_long" puts every lane of a long frame in one bank (a delta
+# carry over up to 4,095 tiles, summed by groups); "tile_edge_heads" gives the
 # banks TILE_EDGE_COUNTS, so segments start on the first and on the last
 # lane of tiles (and the padding on a tile's first lane); "no_real_lane"
 # is all padding; "header_512" and "header_1024" spread the lanes over
@@ -703,9 +703,9 @@ def test_narrow_step_kernels_back_to_back_and_in_graph_replays(mode, cuda):
     once in a CUDA graph replayed three times: valid equals the plain
     version's after every launch, the registers equal one plain step (a
     register max is idempotent) and the counters took the frame's counts
-    once per launch that ran (the capture runs nothing). K2-delta's
-    ticket and status words must be fresh on every launch, replays
-    included."""
+    once per launch that ran (the capture runs nothing). K2-delta's pass
+    rewrites its sums on every launch, replays included, and its step is
+    a programmatic dependent launch inside the graph."""
     state, params, roster = _preloaded(cuda)
     lanes, _, nb, _, _ = NARROW_CASES["frame"]  # with padding lanes
     wire, width = _narrow_case(mode, "frame", roster)
