@@ -1021,16 +1021,6 @@ int launch_fused_step(const Decode& decode, int lanes, size_t smem,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const uint32_t* bloom32 = static_cast<const uint32_t*>(bloom);
-  uint8_t* regs8 = static_cast<uint8_t*>(regs);
-  unsigned long long* counts64 = static_cast<unsigned long long*>(counts);
-  uint8_t* valid8 = static_cast<uint8_t*>(valid);
-  if (!dependent) {
-    fused_step_kernel<<<blocks_for(lanes), kThreads, smem, s>>>(
-        decode, lanes, bloom32, num_blocks, fastmod_magic(num_blocks), k,
-        regs8, num_banks, precision, counts64, valid8);
-    return static_cast<int>(cudaGetLastError());
-  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
@@ -1040,11 +1030,13 @@ int launch_fused_step(const Decode& decode, int lanes, size_t smem,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_step_kernel<Decode>, decode, lanes,
-                           bloom32, static_cast<uint32_t>(num_blocks),
-                           fastmod_magic(num_blocks), k, regs8, num_banks,
-                           precision, counts64, valid8);
+  cfg.numAttrs = dependent ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, fused_step_kernel<Decode>, decode, lanes,
+      static_cast<const uint32_t*>(bloom), static_cast<uint32_t>(num_blocks),
+      fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
+      precision, static_cast<unsigned long long*>(counts),
+      static_cast<uint8_t*>(valid));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -533,8 +533,8 @@ def fused_step_delta(bloom: torch.Tensor, regs: torch.Tensor,
     programmatic dependent of the pass, so its scan of the counts and
     its loads overlap the pass. A single pass with decoupled look-back
     (ticket, status words, memset) was slower on an H100 at 1,048,576
-    lanes than PR 6's four launches, and this design faster than both
-    at every shape measured (PERF.md).
+    lanes than a frame-wide prefix in three pre-passes, and this design
+    faster than both at every shape measured (PERF.md).
     """
     return _narrow_step("delta", bloom, regs, counts, buf, params, db,
                         padded, num_banks, precision)

@@ -244,15 +244,6 @@ def narrow_wire_of(cols, mode: str, lanes: int, num_banks: int, dev):
     return torch.from_numpy(buf.view(np.int32)).to(dev), width, wraps
 
 
-def narrow_steps(mode: str):
-    """(K2-seg or K2-delta wrapper, its plain version, width keyword)."""
-    from attendance_tpu_torch.ops import kernels
-
-    if mode == "seg":
-        return kernels.fused_step_seg, kernels.fused_step_seg_plain, "kb"
-    return kernels.fused_step_delta, kernels.fused_step_delta_plain, "db"
-
-
 def narrow_step_check(start, wire, params, mode: str, width: int,
                       lanes: int, num_banks: int, what: str,
                       timed: bool = True):
@@ -265,8 +256,13 @@ def narrow_step_check(start, wire, params, mode: str, width: int,
     plain ms, register max abs err); the times are None when not
     ``timed``."""
     from attendance_tpu_torch.models import fused
+    from attendance_tpu_torch.ops import kernels
 
-    step, plain, width_name = narrow_steps(mode)
+    step = kernels.fused_step_seg if mode == "seg" else \
+        kernels.fused_step_delta
+    plain = kernels.fused_step_seg_plain if mode == "seg" else \
+        kernels.fused_step_delta_plain
+    width_name = "kb" if mode == "seg" else "db"
     a = fused.SketchState(*(t.clone() for t in start))
     b = fused.SketchState(*(t.clone() for t in start))
     valid = step(*a, wire, params, padded=lanes, num_banks=num_banks,
