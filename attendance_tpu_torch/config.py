@@ -1,8 +1,8 @@
 """Configuration of the port's fused path.
 
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
-path and its temporal plane read, with the JAX package's defaults and
-checks (reference README: a 100k-student roster at a 1% false-positive
+path, its checkpoint chain and its temporal plane read, with the JAX
+package's defaults and checks (reference README: a 100k-student roster at a 1% false-positive
 rate; Redis dense HLL precision 14).
 """
 
@@ -55,6 +55,26 @@ class Config:
     cms_depth: int = 4
     cms_width: int = 1 << 14
     cms_topk: int = 16
+    # Checkpoint directory ("" = disabled). When set, the pipeline
+    # restores on construction and snapshots at ack barriers every
+    # snapshot_every_batches frames (<= 0 = the default cadence of
+    # fast_path.DEFAULT_SNAPSHOT_EVERY: a set dir always checkpoints,
+    # since restoring state while acking past it would lose events).
+    snapshot_dir: str = ""
+    snapshot_every_batches: int = 0
+    # "delta" (default): a barrier captures only the HLL banks touched
+    # since the last one; the background writer chains delta-NNNN.npz
+    # files off the last full base through an fsync'd CHAIN.json whose
+    # rename is the durability point, and the barrier's frames are
+    # acked when their delta is durable. "barrier": every snapshot
+    # writes the full sketch state.
+    snapshot_mode: str = "delta"
+    # Delta files per chain before the writer folds them into a base.
+    snapshot_compact_every: int = 16
+    # Record each durable chain file's sha256 in CHAIN.json (verified
+    # before restore trusts the file). False skips computing digests at
+    # the writer; verification still runs where digests exist.
+    integrity: bool = True
 
     def __post_init__(self):
         if not (4 <= self.hll_precision <= 18):
@@ -84,3 +104,10 @@ class Config:
                 f"bad CMS geometry {self.cms_depth}x{self.cms_width}")
         if self.cms_topk < 1:
             raise ValueError("cms_topk must be >= 1")
+        if self.snapshot_mode not in ("barrier", "delta"):
+            raise ValueError(
+                f"unknown snapshot mode: {self.snapshot_mode}")
+        if self.snapshot_compact_every <= 0:
+            raise ValueError(
+                "snapshot_compact_every must be positive (delta files "
+                "per chain before the writer folds a full base)")

@@ -15,9 +15,10 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """The device to run on: ``device`` if given, else the current CUDA
-    card. Raises RuntimeError when a CUDA device is asked for (or
-    defaulted to) and none is available."""
+    """The device to run on: ``device`` if given (a CUDA device without
+    an index is the current card), else the current CUDA card. Raises
+    RuntimeError when a CUDA device is asked for (or defaulted to) and
+    none is available."""
     if device is not None:
         dev = torch.device(device)
     elif torch.cuda.is_available():
@@ -29,6 +30,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available")
+    if dev.type == "cuda" and dev.index is None:
+        # The card current now: a worker thread (the snapshot writer)
+        # sets it by index before touching a stream.
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -1,8 +1,8 @@
 """ctypes binding of the port's native host pack (``hostpipe.c``).
 
 Counterpart of ``attendance_tpu/native/__init__.py`` cut to the pack
-half (the JSON scan and the dedup are not ported yet). The methods and
-return codes are the JAX package's: -1 on success, the index of the
+half and the columnar store's dedup (the JSON scan is not ported yet).
+The methods and return codes are the JAX package's: -1 on success, the index of the
 first event whose day missed the LUT, -2 when the native pass cannot run
 (scratch allocation, or more banks than its u16 scratch holds), -3 when
 a key overflowed the width tried.
@@ -49,6 +49,8 @@ SIGNATURES = {
         _u8p, _sz, _u8p, _sz, _sz, _i32p, _u32, _u32, _u32,
         _u32p, _u32p, _u32p, _u32p, _u32p)),
     "atp_bitpack": (ctypes.c_int64, (_u32p, _sz, _sz, _u32, _u32p, _sz)),
+    "atp_dedup_last": (ctypes.c_int64, (
+        _u32p, _u32p, ctypes.POINTER(ctypes.c_int64), _sz, _u32p)),
 }
 
 
@@ -207,6 +209,27 @@ class HostPipe:
         if buf is None:
             return None, None, 0, 0, -2
         return buf, scan[0], db, scan[4], -1
+
+    def dedup_last(self, day: np.ndarray, sid: np.ndarray,
+                   micros: np.ndarray) -> np.ndarray:
+        """Last-wins primary-key dedup over (day, micros, sid): the kept
+        rows' original indices in append order. Raises MemoryError when
+        the pass cannot allocate its table."""
+        n = len(day)
+        day = np.ascontiguousarray(day, np.uint32)
+        sid = np.ascontiguousarray(sid, np.uint32)
+        micros = np.ascontiguousarray(micros, np.int64)
+        if sid.shape != (n,) or micros.shape != (n,):
+            raise ValueError("dedup columns must be 1-D of one length")
+        out = np.empty(n, np.uint32)
+        kept = self._lib.atp_dedup_last(
+            _ptr(day, _u32p), _ptr(sid, _u32p),
+            micros.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+            _ptr(out, _u32p))
+        if kept < 0:
+            raise MemoryError(f"native dedup could not allocate for {n} "
+                              "rows")
+        return out[:kept]
 
 
 def load() -> Optional[HostPipe]:

@@ -14,6 +14,7 @@
  *   atp_delta_scan  delta wire, scan half: counting sort by bank, radix
  *                   sort by key inside each bank, per-lane deltas
  *   atp_bitpack     delta wire, pack half: fixed-width bit-pack
+ *   atp_dedup_last  the columnar store's read-time last-wins dedup
  *
  * The numpy equivalent (models/fused.py) is several passes with
  * frame-sized temporaries; this is about three loads and one store per
@@ -414,4 +415,124 @@ int64_t atp_bitpack(const uint32_t *vals, size_t n, size_t padded,
         stream[w++] = (uint32_t)acc;
     memset(stream + w, 0, (stream_words - w) * sizeof(uint32_t));
     return 0;
+}
+
+
+/* ------------------------------------------------------------------ */
+/* Columnar-store compaction: last-wins primary-key dedup              */
+/* ------------------------------------------------------------------ */
+
+/* The columnar store deduplicates on the Cassandra primary key
+ * (lecture_day, micros, student_id), keeping the LAST appended row
+ * (last-write-wins upsert).  The numpy path is a full lexsort; this pass
+ * is a single-scan open-addressing upsert (key -> last index) plus a
+ * radix sort of the surviving indices.
+ *
+ * Returns the number of kept rows (their original indices written to
+ * out_idx in ascending order = append order), or -1 on allocation
+ * failure. */
+
+static inline uint64_t mix64(uint64_t x) {
+    x ^= x >> 33; x *= 0xff51afd7ed558ccdULL;
+    x ^= x >> 33; x *= 0xc4ceb9fe1a85ec53ULL;
+    x ^= x >> 33;
+    return x;
+}
+
+/* LSD radix sort; returns 0, or -1 on allocation failure (unsorted
+ * indices would break the append-order contract). */
+static int radix_sort_u32(uint32_t *a, size_t n) {
+    uint32_t *tmp = (uint32_t *)malloc(n * sizeof(uint32_t));
+    if (!tmp)
+        return -1;
+    size_t count[256];
+    for (int shift = 0; shift < 32; shift += 8) {
+        memset(count, 0, sizeof(count));
+        for (size_t i = 0; i < n; ++i)
+            ++count[(a[i] >> shift) & 0xFF];
+        size_t pos = 0;
+        for (int b = 0; b < 256; ++b) {
+            size_t c = count[b];
+            count[b] = pos;
+            pos += c;
+        }
+        for (size_t i = 0; i < n; ++i)
+            tmp[count[(a[i] >> shift) & 0xFF]++] = a[i];
+        memcpy(a, tmp, n * sizeof(uint32_t));
+    }
+    free(tmp);
+    return 0;
+}
+
+typedef struct {
+    uint64_t mic;
+    uint64_t ds;  /* day << 32 | sid */
+    uint32_t idx; /* 0xFFFFFFFF = empty */
+    uint32_t pad;
+} dedup_entry;
+
+int64_t atp_dedup_last(const uint32_t *day, const uint32_t *sid,
+                       const int64_t *micros, size_t n,
+                       uint32_t *out_idx) {
+    if (n == 0) return 0;
+    if (n >= 0xFFFFFFFFu) return -1; /* idx sentinel reserves 2^32-1 */
+    size_t cap = 1;
+    while (cap < n * 2) cap <<= 1;
+    /* One interleaved 24-byte entry per slot: a probe touches ONE cache
+     * line, not three arrays — this pass is DRAM-latency-bound. */
+    dedup_entry *tab = (dedup_entry *)malloc(cap * sizeof(dedup_entry));
+    if (!tab) return -1;
+#ifdef __linux__
+    /* Transparent huge pages cut the TLB-miss-per-probe cost of the
+     * random access pattern on a large table. Advisory: failure is
+     * fine. */
+    {
+        extern int madvise(void *, size_t, int);
+        madvise(tab, cap * sizeof(dedup_entry), 14 /* MADV_HUGEPAGE */);
+    }
+#endif
+    memset(tab, 0xFF, cap * sizeof(dedup_entry));
+    uint64_t mask = (uint64_t)cap - 1;
+    /* Software-pipelined probe: hash a window ahead and prefetch its
+     * slots so the DRAM fetches overlap. */
+    enum { PF = 16 };
+    uint64_t w_mic[PF], w_ds[PF], w_h[PF];
+    for (size_t base = 0; base < n; base += PF) {
+        size_t m = n - base < PF ? n - base : PF;
+        for (size_t j = 0; j < m; ++j) {
+            uint64_t mic = (uint64_t)micros[base + j];
+            uint64_t ds = ((uint64_t)day[base + j] << 32)
+                          | (uint64_t)sid[base + j];
+            uint64_t h = mix64(mic ^ mix64(ds)) & mask;
+            w_mic[j] = mic;
+            w_ds[j] = ds;
+            w_h[j] = h;
+            __builtin_prefetch(&tab[h], 1, 1);
+        }
+        for (size_t j = 0; j < m; ++j) {
+            uint64_t mic = w_mic[j], ds = w_ds[j], h = w_h[j];
+            for (;;) {
+                dedup_entry *e = &tab[h];
+                if (e->idx == 0xFFFFFFFFu) {
+                    e->mic = mic;
+                    e->ds = ds;
+                    e->idx = (uint32_t)(base + j);
+                    break;
+                }
+                if (e->mic == mic && e->ds == ds) {
+                    e->idx = (uint32_t)(base + j); /* last write wins */
+                    break;
+                }
+                h = (h + 1) & mask;
+            }
+        }
+    }
+    size_t kept = 0;
+    for (size_t h = 0; h < cap; ++h)
+        if (tab[h].idx != 0xFFFFFFFFu)
+            out_idx[kept++] = tab[h].idx;
+    free(tab);
+    if (radix_sort_u32(out_idx, kept) != 0)
+        return -1;
+    return (int64_t)kept;
 }

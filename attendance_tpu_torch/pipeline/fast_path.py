@@ -20,14 +20,40 @@ host buffers of a frame's copies stay referenced until its event
 completes, so an asynchronous copy never reads a recycled buffer.
 Replays after a crash are harmless: OR/max sketches and the read-time
 dedup store are idempotent.
+
+Checkpoint/restore: with ``snapshot_dir`` set the pipeline restores the
+chain on construction (:meth:`FusedPipeline.restore`) and checkpoints
+every ``snapshot_every_batches`` frames. A checkpoint is an ack
+BARRIER: frames are acknowledged only once a durable snapshot covers
+them, so a crash loses nothing acknowledged and redelivers the rest.
+The barrier captures the state on the compute stream (B9: the dirty
+banks' rows in delta mode, every row in barrier mode, and the counters,
+``models.fused.snapshot_capture_*``): since the steps update the state
+in place, the capture is the consistent point, taken before the next
+frame's step is enqueued. A background writer copies it to the host on
+a side stream that waits on the capture's event, writes the files and
+the fsync'd CHAIN.json whose rename is the durability point, then acks
+the barrier's frames. The files are the JAX package's: each package
+restores the other's chains. The counters are plain sums, not
+idempotent, so a frame is acked only by the snapshot whose counters
+include it; a failed write fails every job staged behind it and owes a
+full base, which acks the failed jobs' frames once it is durable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import errno
+import json
+import logging
+import os
+import threading
 import time
+import weakref
 from collections import deque
-from typing import Dict, Optional, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +65,8 @@ from attendance_tpu_torch.models.bloom import (
 from attendance_tpu_torch.models.fused import (
     bank_wire_dtype, decode_counts, delta_scan, fused_step_bytes,
     fused_step_delta, fused_step_seg, fused_step_words, init_state,
-    pack_bytes, pack_delta, pack_seg, pack_words, pick_delta_width)
+    pack_bytes, pack_delta, pack_seg, pack_words, pick_delta_width,
+    snapshot_capture_base, snapshot_capture_rows, state_from_numpy)
 from attendance_tpu_torch.models.hll import (
     best_histogram, estimate_from_histogram, hll_add)
 from attendance_tpu_torch.native import load as load_native
@@ -50,8 +77,21 @@ from attendance_tpu_torch.temporal.buckets import is_bucket_key
 from attendance_tpu_torch.temporal.plane import TemporalPlane
 from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryClient, ReceiveTimeout)
+from attendance_tpu_torch.utils.integrity import (
+    ChainIntegrityError, file_digest, quarantine_artifact,
+    structural_npz_check, verify_file)
+from attendance_tpu_torch.utils.snapshot import (
+    fsync_write_npz, write_manifest_atomic)
+
+logger = logging.getLogger(__name__)
 
 _INFLIGHT_DEPTH = 8  # dispatched-but-unacked frames before blocking
+DEFAULT_SNAPSHOT_EVERY = 64  # barrier cadence when only snapshot_dir is set
+SKETCH_SNAPSHOT = "fused_sketch.npz"
+EVENTS_SNAPSHOT = "fused_events.npz"  # the JAX package's legacy name
+EVENTS_SEGMENTS = "fused_events_segs"
+CHAIN_MANIFEST = "CHAIN.json"  # fsync'd base+delta chain manifest
+_SNAP_QUEUE_DEPTH = 2  # staged delta captures in flight (double buffer)
 # Host stages of the run loop, in frame order. The native host pack fuses
 # the day map with the pack in one call, charged to "pack"; "bank_map" is
 # the numpy day map (ATP_NATIVE=0, days the dense LUT cannot cover) and
@@ -61,6 +101,182 @@ _INFLIGHT_DEPTH = 8  # dispatched-but-unacked frames before blocking
 # blocked on the card.
 STAGES = ("receive", "decode", "bank_map", "pack", "dispatch", "temporal",
           "store", "ack_wait")
+
+
+def _verify_npz_structure(path, orig_exc) -> None:
+    """Full structural read of an npz (every entry through its zip
+    CRC): what tells a stale recorded digest (the benign crash window)
+    from real storage rot. Re-raises the original classified error when
+    the file does not parse clean."""
+    if structural_npz_check(path) is not None:
+        raise orig_exc from None
+
+
+def read_chain_state(snap_dir, *, expect_m_bits: Optional[int] = None,
+                     expect_precision: Optional[int] = None,
+                     stop_before: Optional[str] = None) -> dict:
+    """Merge-on-read over a snapshot directory: the base npz plus every
+    CHAIN.json-listed delta, applied in order (the JAX package's
+    ``read_chain_state``, without its verified-digest cache).
+
+    Every observable state is self-consistent under the chain's write
+    protocol (delta files are fsync'd before the manifest names them; a
+    full base resets the manifest BEFORE deleting superseded deltas).
+    Every file with a recorded digest is verified before it is trusted;
+    failures raise a classified :class:`ChainIntegrityError`
+    (``digest_mismatch`` / ``missing`` / ``torn_manifest`` /
+    ``unreadable``), the input to restore's repair ladder.
+    ``stop_before`` truncates the applied chain just before the named
+    delta. Raises FileNotFoundError when no base snapshot exists, and
+    ValueError on a geometry mismatch or a bank map inconsistent with
+    the registers."""
+    snap_dir = Path(snap_dir)
+    path = snap_dir / SKETCH_SNAPSHOT
+    if not path.exists():
+        if (snap_dir / CHAIN_MANIFEST).exists():
+            # A manifest with no base is corruption, not a directory
+            # that was never checkpointed.
+            raise ChainIntegrityError(
+                "missing", path,
+                "chain manifest exists but the base snapshot is absent")
+        raise FileNotFoundError(f"no base snapshot at {path}")
+    chain: list = []
+    chain_digests: dict = {}
+    base_digest = ""
+    chain_path = snap_dir / CHAIN_MANIFEST
+    if chain_path.exists():
+        try:
+            chain_doc = json.loads(chain_path.read_text())
+        except ValueError as exc:  # torn JSON or non-UTF8 bytes
+            raise ChainIntegrityError("torn_manifest", chain_path,
+                                      str(exc)) from exc
+        chain = list(chain_doc.get("deltas", []))
+        chain_digests = dict(chain_doc.get("digests", {}))
+        base_digest = chain_doc.get("base_digest", "")
+    if base_digest:
+        try:
+            verify_file(path, base_digest)
+        except ChainIntegrityError as exc:
+            if exc.kind != "digest_mismatch":
+                raise
+            # The one legitimate mismatch: a crash between the base's
+            # in-place replace and the manifest reset leaves CHAIN.json
+            # naming the OLD base's digest. A base that parses clean
+            # is that window, not rot: record the digest of the base on
+            # disk (the chain_seq fence below skips the stale deltas).
+            _verify_npz_structure(path, exc)
+            base_digest = file_digest(path)
+            logger.warning(
+                "base snapshot digest differs from CHAIN.json but the "
+                "file verifies structurally: treating as the "
+                "crash-before-manifest-reset window, not rot")
+    try:
+        base_npz = np.load(path)
+    except Exception as exc:  # noqa: BLE001 — classify, never opaque
+        raise ChainIntegrityError(
+            "unreadable", path, f"{type(exc).__name__}: {exc}") from exc
+    with base_npz as data:
+        try:
+            manifest = json.loads(bytes(data["manifest"]).decode())
+            bits = np.array(data["bloom_words"])
+            regs = np.array(data["hll_regs"], dtype=np.uint8)
+            counts = np.array(data["counts"] if "counts" in data
+                              else np.zeros((2, 2), np.uint32))
+        except Exception as exc:  # noqa: BLE001
+            raise ChainIntegrityError(
+                "unreadable", path, f"{type(exc).__name__}: {exc}") from exc
+        if (expect_m_bits is not None
+                and manifest["m_bits"] != expect_m_bits):
+            raise ValueError(
+                f"snapshot filter is {manifest['m_bits']} bits but "
+                f"config derives {expect_m_bits} — capacity/"
+                "error-rate/layout changed since the snapshot")
+        if (expect_precision is not None
+                and manifest["precision"] != expect_precision):
+            raise ValueError(
+                f"snapshot HLL precision is {manifest['precision']} "
+                f"but config requests {expect_precision} — "
+                "register banks are not convertible across precisions")
+    bank_of_raw = manifest["bank_of"]
+    events = manifest["events"]
+    # Staleness fence: deltas numbered <= the base's chain_seq are older
+    # than the base (the crash window between a base replace and the
+    # manifest reset) and are skipped before verification.
+    base_seq = int(manifest.get("chain_seq", -1))
+    applied: list = []
+    for name in chain:
+        if name == stop_before:
+            break  # repair truncation: the chain is good up to here
+        dpath = snap_dir / name
+        if int(name.split("-")[1].split(".")[0]) <= base_seq:
+            continue
+        if name in chain_digests:
+            verify_file(dpath, chain_digests[name])
+        elif not dpath.exists():
+            raise ChainIntegrityError(
+                "missing", dpath,
+                f"chain manifest names {name} but the delta file is "
+                "absent — snapshot directory is corrupt")
+        try:
+            delta_npz = np.load(dpath)
+        except FileNotFoundError as exc:
+            raise ChainIntegrityError(
+                "missing", dpath,
+                "vanished between manifest read and open") from exc
+        except Exception as exc:  # noqa: BLE001
+            raise ChainIntegrityError(
+                "unreadable", dpath,
+                f"{type(exc).__name__}: {exc}") from exc
+        with delta_npz as d:
+            try:
+                dman = json.loads(bytes(d["manifest"]).decode())
+                d_idx = np.asarray(d["bank_idx"], np.int64)
+                d_rows = np.asarray(d["regs_rows"])
+                d_counts = np.array(d["counts"], np.uint32)
+            except Exception as exc:  # noqa: BLE001
+                raise ChainIntegrityError(
+                    "unreadable", dpath,
+                    f"{type(exc).__name__}: {exc}") from exc
+            nb = int(dman.get("num_banks", regs.shape[0]))
+            if nb > regs.shape[0]:
+                grown = np.zeros((nb, regs.shape[1]), np.uint8)
+                grown[:regs.shape[0]] = regs
+                regs = grown
+            if len(d_idx):
+                if int(d_idx.max()) >= regs.shape[0]:
+                    raise ValueError(
+                        f"delta {name} writes bank {int(d_idx.max())} "
+                        f"but the chain only restored {regs.shape[0]} "
+                        "banks — chain is corrupt")
+                regs[d_idx] = d_rows
+            counts = d_counts
+            bank_of_raw = dman["bank_of"]
+            events = dman["events"]
+        applied.append(name)
+    # The bank map must fit the register banks it routes into: a stale
+    # or hand-edited manifest would silently misroute every PFADD.
+    bank_vals = [int(b) for b in bank_of_raw.values()]
+    if bank_vals:
+        if len(set(bank_vals)) != len(bank_vals):
+            raise ValueError("snapshot manifest maps two days to one HLL "
+                             "bank — manifest is corrupt")
+        if max(bank_vals) >= regs.shape[0]:
+            raise ValueError(
+                f"snapshot manifest references bank {max(bank_vals)} but "
+                f"only {regs.shape[0]} register banks were restored — "
+                "manifest and registers are from different snapshots")
+    return dict(bits=bits, regs=regs, counts=counts, bank_of=bank_of_raw,
+                events=events, applied=applied, manifest=manifest,
+                base_digest=base_digest,
+                digests={n: chain_digests[n] for n in applied
+                         if n in chain_digests})
+
+
+class _StaleBaseError(RuntimeError):
+    """A staged delta with no durable base under it (an earlier write
+    failed): bookkeeping only, no disk was touched, so it does not
+    extend the writer's backoff."""
+
 
 
 class _ScatterValidity:
@@ -101,10 +317,43 @@ class FusedMetrics:
     # Host wall seconds by run-loop stage (STAGES).
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(STAGES, 0.0))
+    # Host wall seconds in process_frame (decode to store append).
+    device_seconds: float = 0.0
+    # Checkpointing: wall seconds of each background snapshot write, and
+    # how long the hot loop was blocked waiting on a busy writer.
+    snapshot_stalls: List[float] = dataclasses.field(default_factory=list)
+    snapshot_blocked_s: float = 0.0
 
     @property
     def events_per_second(self) -> float:
         return self.events / self.wall_seconds if self.wall_seconds else 0.0
+
+    def summary(self, estimated_fpr: Optional[float] = None,
+                include_validity: bool = True,
+                fpr_is_lower_bound: bool = False) -> str:
+        """One metrics line, the text of the JAX package's
+        ``ProcessorMetrics.summary``. ``fpr_is_lower_bound`` prints the
+        estimate as ">=" (the blocked layout's occupancy formula
+        understates its FPR). The port has no poison path (a frame that
+        fails to decode raises), so nothing is nacked or
+        dead-lettered."""
+        mean_batch = self.events / self.batches if self.batches else 0.0
+        bound = ">= " if fpr_is_lower_bound else ""
+        fpr = ("n/a" if estimated_fpr is None
+               else f"{bound}{estimated_fpr:.4%}")
+        validity = (f"{self.valid_events} valid, "
+                    f"{self.invalid_events} invalid"
+                    if include_validity
+                    else "validity in store (async)")
+        wires = ("" if not self.wire_dwell else "; wires " + ",".join(
+            f"{k}:{v}" for k, v in sorted(self.wire_dwell.items())))
+        rate = (f"{self.events_per_second:.0f}"
+                if self.wall_seconds else "n/a")
+        return (f"{self.events} events in {self.batches} batches "
+                f"({rate} ev/s; mean batch "
+                f"{mean_batch:.0f}; device {self.device_seconds:.3f}s; "
+                f"est. bloom FPR {fpr}; {validity}, 0 nacked, 0 "
+                f"dead-lettered{wires})")
 
 
 class FusedPipeline:
@@ -112,13 +361,15 @@ class FusedPipeline:
     _LUT_SIZE = 1 << 14  # covers ~44 years of calendar days from base
 
     def __init__(self, config: Optional[Config] = None, *,
+                 client: Optional[MemoryClient] = None,
                  num_banks: int = 256, device=None):
         self.config = config or Config()
         self.device = resolve_device(device)
         self.metrics = FusedMetrics()
-        # Each pipeline owns an in-process broker; producers reach it
-        # through ``self.client``.
-        self.client = MemoryClient(MemoryBroker())
+        # The broker client (an in-process broker of its own unless one
+        # is passed: a successor pipeline after a crash shares the dead
+        # one's broker); producers reach it through ``self.client``.
+        self.client = client or MemoryClient(MemoryBroker())
         self.consumer = self.client.subscribe(self.config.pulsar_topic,
                                               self.SUBSCRIPTION)
         self.store = ColumnarEventStore()
@@ -162,9 +413,56 @@ class FusedPipeline:
         self._inflight: deque = deque()
         # Pinned host buffers of the frame being dispatched.
         self._frame_pinned: list = []
+        # Checkpoint chain (snapshot_dir "" = off). A set dir with no
+        # cadence still checkpoints, at the default one.
+        self._snap_dir = (Path(self.config.snapshot_dir)
+                          if self.config.snapshot_dir else None)
+        self._snap_every = (self.config.snapshot_every_batches
+                            if self.config.snapshot_every_batches > 0
+                            else DEFAULT_SNAPSHOT_EVERY)
+        self._batches_at_snap = 0
+        # Host copy of the filter for the snapshot path: the run loop
+        # never writes the filter, so one read after the preload serves
+        # every later snapshot.
+        self._bloom_host: Optional[np.ndarray] = None
+        self._snap_mode = self.config.snapshot_mode
+        self._snap_compact_every = self.config.snapshot_compact_every
+        # Delta mode: lecture days (and temporal bucket keys) touched
+        # since the last barrier, resolved to dirty banks at it.
+        self._snap_dirty = (self._snap_dir is not None
+                            and self._snap_mode == "delta")
+        self._dirty_days: set = set()
+        self._base_stale = True     # no durable base for this run yet
+        self._writer_base_ok = False
+        # Chain bookkeeping, owned by the writer thread (and by
+        # snapshot()/restore(), which run with no write in flight).
+        self._snap_chain: list = []  # delta files since the base
+        self._delta_seq = 0
+        self._integrity = self.config.integrity
+        self._snap_digests: Dict[str, str] = {}  # delta name -> sha256
+        self._base_digest = ""
+        # The writer's host copy of the registers: what a compaction
+        # folds into a new base with no device read.
+        self._regs_mirror: Optional[np.ndarray] = None
+        self._events_restored = 0
+        # The background writer: one thread draining staged captures in
+        # barrier order. Frames of a failed job wait in _snap_unacked
+        # for the next durable base, whose counters include them.
+        self._snap_jobs: deque = deque()
+        self._snap_cv = threading.Condition()
+        self._snap_pending = 0
+        self._snap_seq = 0
+        self._snap_unacked: list = []
+        self._snap_fail_streak = 0
+        self._snap_thread: Optional[threading.Thread] = None
+        self._snap_io_lock = threading.Lock()
+        # On the card: the writer's side stream for the captures' D2H,
+        # and two pinned staging buffers, one per staged capture.
+        self._snap_stream = None
+        self._staging: List[Optional[torch.Tensor]] = [None, None]
         # Temporal sketch plane: windowed HLL bucket ring + watermarked
         # reorder + CMS fraud detector; one `is not None` branch per
-        # frame when off.
+        # frame when off. Built before restore(), which re-seeds it.
         self._temporal: Optional[TemporalPlane] = None
         if self.config.temporal_period_s > 0:
             self._temporal = TemporalPlane(
@@ -173,6 +471,8 @@ class FusedPipeline:
                 free_buckets=self._free_temporal_buckets,
                 mark_dirty=self._mark_temporal_dirty,
                 dispatch_add=self._temporal_dispatch)
+        if self._snap_dir is not None:
+            self.restore()
 
     # -- roster -------------------------------------------------------------
     def preload(self, keys) -> None:
@@ -182,9 +482,25 @@ class FusedPipeline:
                          torch.from_numpy(keys.view(np.int32)).to(
                              self.device),
                          self.params)
+        # The filter changed: no base on disk covers it, so the next
+        # barrier writes a full base before deltas (which never carry
+        # the filter) may chain on.
+        self._base_stale = True
+        self._bloom_host = None
         if self._temporal is not None:
             # The window shadow classifies validity by roster membership.
             self._temporal.record_roster(keys)
+        if self.checkpointing:
+            # The snapshot path's host filter, read here, before the run,
+            # where the wait costs least.
+            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
+                np.uint32)
+
+    @property
+    def _events_total(self) -> int:
+        """Events including a restored chain's total: what every durable
+        manifest stamps (``metrics.events`` restarts at 0 on restore)."""
+        return self._events_restored + self.metrics.events
 
     # -- bank mapping -------------------------------------------------------
     def _num_banks(self) -> int:
@@ -285,6 +601,7 @@ class FusedPipeline:
         ``_t_clear`` was."""
         for key in keys:
             self._bank_of.pop(key, None)
+            self._dirty_days.discard(key)
         if not banks:
             return
         rows = torch.tensor(banks, dtype=torch.int64, device=self.device)
@@ -292,8 +609,10 @@ class FusedPipeline:
         self._free_banks.extend(int(b) for b in banks)
 
     def _mark_temporal_dirty(self, keys) -> None:
-        """Dirty-bucket hook of the delta snapshot chain: a no-op, as
-        the port has no snapshots yet."""
+        """Dirty-bucket hook of the delta chain: buckets a frame touched
+        are captured at the next barrier, as days are."""
+        if self._snap_dirty:
+            self._dirty_days.update(keys)
 
     def _temporal_dispatch(self, keys: np.ndarray,
                            banks: np.ndarray) -> None:
@@ -352,12 +671,17 @@ class FusedPipeline:
         """Dispatch one planar frame; returns (valid[:n] on the device, in
         packed order on the seg/delta wires, completion event or None,
         pinned host buffers of its copies)."""
-        t = time.perf_counter()
+        t0 = t = time.perf_counter()
         cols = decode_frame(data, include_truth=False)
         t = self._lap("decode", t)
         n = len(cols["student_id"])
         if n == 0:
             return None, None, []
+        if self._snap_dirty:
+            # Delta checkpointing: the lecture days this frame touches,
+            # seen before the dispatch (native packs never materialize
+            # a host bank array).
+            self._note_dirty(cols["lecture_day"])
         padded = 256
         while padded < n:
             padded *= 2
@@ -381,9 +705,10 @@ class FusedPipeline:
         pinned, self._frame_pinned = self._frame_pinned, []
         t = time.perf_counter()
         self.store.insert_columns({**cols, "is_valid": stored})
-        self._lap("store", t)
+        t = self._lap("store", t)
         self.metrics.batches += 1
         self.metrics.events += n
+        self.metrics.device_seconds += t - t0
         return valid_n, done, pinned
 
     def _pick_kw(self, frame_bits: int, num_banks: int) -> int:
@@ -431,9 +756,11 @@ class FusedPipeline:
         ladder climbs to a narrower wire after 2 such signals; a deque of
         at most one frame means the host is behind, and 6 such signals
         step back down (asymmetric hysteresis). A mid-stream switch is
-        safe: every frame is a self-contained dispatch. (The JAX package
-        also freezes the level while checkpointing; the port has no
-        checkpoints yet.)"""
+        safe: every frame is a self-contained dispatch. Checkpointing
+        holds frames until barriers, so the deque's depth stops meaning
+        backpressure: the level freezes there."""
+        if self.checkpointing:
+            return self._WIRE_LADDER[self._auto_level]
         if self._drain_waited:
             self._auto_pressure = min(self._auto_pressure + 1, 8)
         elif len(self._inflight) <= 1:
@@ -663,10 +990,618 @@ class FusedPipeline:
         self._lap("dispatch", t)
         return valid
 
+    # -- checkpoint: barriers and the background writer ---------------------
+    @property
+    def checkpointing(self) -> bool:
+        return self._snap_dir is not None
+
+    def _record_event(self) -> Optional["torch.cuda.Event"]:
+        """An event recorded now on the compute stream (None on the CPU,
+        where every call has completed when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _note_dirty(self, days: np.ndarray) -> None:
+        """Record the lecture days one frame touches: a min/max pair in
+        the dense LUT window (one bincount over the offsets when the
+        frame spans several days), else an np.unique."""
+        days_u32 = np.ascontiguousarray(days, dtype=np.uint32)
+        base = self._day_base
+        if base is not None:
+            off = (days_u32 - np.uint32(base)).view(np.int32)
+            mn, mx = int(off.min()), int(off.max())
+            if 0 <= mn and mx < self._LUT_SIZE:
+                if mn == mx:
+                    self._dirty_days.add(mn + base)
+                else:
+                    seen = np.bincount(off - mn, minlength=1)
+                    self._dirty_days.update(
+                        (np.nonzero(seen)[0] + (mn + base)).tolist())
+                return
+        self._dirty_days.update(
+            np.unique(days_u32.astype(np.int64)).tolist())
+
+    def _drain_dirty_banks(self) -> np.ndarray:
+        """Swap out the dirty set and resolve it to sorted bank indices
+        (a key with no bank, e.g. an evicted bucket, is not dirty)."""
+        days, self._dirty_days = self._dirty_days, set()
+        return np.asarray(sorted(self._bank_of[d] for d in days
+                                 if d in self._bank_of), dtype=np.int64)
+
+    @staticmethod
+    def _pad_bank_index(banks: np.ndarray) -> np.ndarray:
+        """Dirty-bank indices padded to a power of two (min 8), pad rows
+        gathering bank 0 (sliced off on the host): the JAX capture's
+        shapes, so a capture moves the same bytes in both packages."""
+        padded = 8
+        while padded < len(banks):
+            padded *= 2
+        idx = np.zeros(padded, np.int64)
+        idx[:len(banks)] = banks
+        return idx
+
+    def _checkpoint_async(self, force: bool) -> None:
+        """A barrier (the BGSAVE analogue): capture a consistent point on
+        the compute stream and hand it to the background writer, which
+        acks the captured frames once they are durable.
+
+        Delta mode captures the rows of the banks dirtied since the last
+        barrier (B9), barrier mode (or a base owed) every row; both copy
+        the counters. The capture is enqueued after every step of the
+        frames it covers and before the next frame's, and an event
+        recorded after it tells the writer's side stream when it is
+        complete. Up to _SNAP_QUEUE_DEPTH captures may be staged in
+        delta mode, one in barrier mode; past that a barrier is deferred
+        unless ``force`` (the in-flight bound), which waits for a slot
+        and charges the wait to ``metrics.snapshot_blocked_s``."""
+        depth = _SNAP_QUEUE_DEPTH if self._snap_mode == "delta" else 1
+        if self._snap_pending >= depth:
+            if not force:
+                return  # defer: re-checked on a later frame
+            self._wait_snap_slots(depth - 1)
+        if self._bloom_host is None:
+            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
+                np.uint32)
+        pinned = [p for _, _, ps in self._inflight for p in ps]
+        if self._snap_mode == "delta" and not self._base_stale:
+            banks = self._drain_dirty_banks()
+            idx, idx_pinned = to_device(self._pad_bank_index(banks),
+                                        self.device)
+            if idx_pinned is not None:
+                pinned.append(idx_pinned)
+            rows, counts = snapshot_capture_rows(self.state.hll_regs, idx,
+                                                 self.state.counts)
+            job = dict(kind="delta", banks=banks, regs=rows,
+                       counts=counts, num_banks=self._num_banks())
+        else:
+            regs, counts = snapshot_capture_base(self.state.hll_regs,
+                                                 self.state.counts)
+            # The base covers every bank: the dirty set and the chain
+            # restart from it (a failed write flips _base_stale back).
+            self._dirty_days.clear()
+            self._base_stale = False
+            job = dict(kind="base", regs=regs, counts=counts,
+                       bloom=self._bloom_host)
+        job.update(ready=self._record_event(), upto=self.store.mark(),
+                   msgs=[m for m, _, _ in self._inflight], pinned=pinned,
+                   events=self._events_total, bank_of=dict(self._bank_of),
+                   slot=self._snap_seq % len(self._staging))
+        self._snap_seq += 1
+        self._inflight.clear()
+        self._batches_at_snap = self.metrics.batches
+        self._enqueue_snap(job)
+
+    def _checkpoint_and_ack(self) -> None:
+        """A barrier that waits until its snapshot is durable and its
+        frames acked (idle receive, end of run)."""
+        self._checkpoint_async(force=True)
+        self._flush_snapshots()
+
+    def _flush_snapshots(self) -> None:
+        """Wait out every staged snapshot write."""
+        self._wait_snap_slots(0)
+
+    def _wait_snap_slots(self, below: int) -> None:
+        """Block until at most ``below`` staged writes remain, charging
+        the wait to ``metrics.snapshot_blocked_s``."""
+        with self._snap_cv:
+            if self._snap_pending <= below:
+                return
+            t0 = time.perf_counter()
+            while self._snap_pending > below:
+                self._snap_cv.wait()
+            blocked = time.perf_counter() - t0
+        self.metrics.snapshot_blocked_s += blocked
+
+    def _enqueue_snap(self, job: dict) -> None:
+        with self._snap_cv:
+            if self._snap_thread is None or not self._snap_thread.is_alive():
+                self._snap_thread = threading.Thread(
+                    target=FusedPipeline._snap_writer_main,
+                    args=(weakref.ref(self), self._snap_cv,
+                          self._snap_jobs),
+                    name="snapshot-writer", daemon=True)
+                self._snap_thread.start()
+            self._snap_jobs.append(job)
+            self._snap_pending += 1
+            self._snap_cv.notify_all()
+
+    def _stop_snap_writer(self) -> None:
+        """Shut the writer down (cleanup): a sentinel after the queue,
+        then join."""
+        with self._snap_cv:
+            t = self._snap_thread
+            if t is None or not t.is_alive():
+                return
+            self._snap_jobs.append(None)
+            self._snap_cv.notify_all()
+        t.join(timeout=10.0)
+        self._snap_thread = None
+
+    @staticmethod
+    def _snap_writer_main(pipe_ref, cv, jobs) -> None:
+        """The writer thread: drains staged captures in barrier order and
+        makes each durable (D2H, files, manifest rename), then acks its
+        frames as one group commit. It holds only a weak reference to
+        the pipeline between jobs, so a pipeline dropped without
+        cleanup() is still collected, and the thread then exits."""
+        while True:
+            with cv:
+                while not jobs:
+                    if pipe_ref() is None:
+                        return
+                    cv.wait(timeout=1.0)
+                job = jobs.popleft()
+            if job is None:
+                return  # cleanup sentinel
+            pipe = pipe_ref()
+            if pipe is None:
+                return  # frames stay unacked; the process is ending
+            backoff = pipe._writer_backoff_s()
+            if backoff and (job["kind"] == "base" or pipe._writer_base_ok):
+                # Bounded backoff between attempts after failures; a delta
+                # staged behind a failed write skips it (it fails the
+                # no-durable-base guard without touching the disk).
+                time.sleep(backoff)
+            pipe._run_snap_job_logged(job)
+            del job, pipe
+
+    def _writer_backoff_s(self) -> float:
+        """0 while healthy, exponential from 50 ms after consecutive
+        failures, capped at 5 s."""
+        streak = self._snap_fail_streak
+        if streak <= 0:
+            return 0.0
+        return min(0.05 * 2 ** min(streak - 1, 7), 5.0)
+
+    def _snap_stream_ctx(self, job: dict):
+        """The context a job's device reads run in: on the card, the
+        writer's side stream (device set first, on this thread), made
+        to wait on the capture's event, so the copies see the captured
+        point and the compute stream never waits for them."""
+        if job["ready"] is None:
+            return contextlib.nullcontext()
+        torch.cuda.set_device(self.device)
+        if self._snap_stream is None:
+            self._snap_stream = torch.cuda.Stream(self.device)
+        self._snap_stream.wait_event(job["ready"])
+        return torch.cuda.stream(self._snap_stream)
+
+    def _capture_to_host(self, job: dict
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """(uint8 register rows, uint32[2, 2] counters) of a capture on
+        the host. On the card: a non-blocking copy on the side stream
+        into the job's pinned staging buffer, waited for with the
+        copy's own event (never a device-wide synchronize). The capture
+        tensors stay referenced by the job until the copy completed, so
+        the caching allocator cannot hand their memory to a frame."""
+        regs, counts = job["regs"], job["counts"]
+        if regs.device.type != "cuda":
+            return regs.numpy(), counts.numpy().view(np.uint32)
+        n = regs.numel()
+        slot = self._staging[job["slot"]]
+        if slot is None or slot.numel() < n + 16:
+            slot = torch.empty(n + 16, dtype=torch.uint8, pin_memory=True)
+            self._staging[job["slot"]] = slot
+        slot[:n].view(regs.shape).copy_(regs, non_blocking=True)
+        slot[n:n + 16].view(torch.int32).copy_(counts.view(-1),
+                                               non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        done.synchronize()
+        # Counters are copied off the slot; the rows are a view of it,
+        # read by this job only (the writer runs one job at a time).
+        return (slot[:n].numpy().reshape(tuple(regs.shape)),
+                slot[n:n + 16].numpy().view(np.uint32).reshape(2, 2).copy())
+
+    def _run_snap_job_logged(self, job: dict) -> None:
+        t0 = time.perf_counter()
+        try:
+            with self._snap_stream_ctx(job):
+                self._run_snap_job(job)
+            self._ack(job["msgs"])
+            if job["kind"] == "base":
+                self._ack_unacked()
+            self._snap_fail_streak = 0
+        except Exception as exc:
+            # Every job staged behind a failure fails too (no delta
+            # chains onto a chain missing a write) and the next barrier
+            # writes a full base, which acks these frames as well: its
+            # counters include them, so a crash before it redelivers
+            # them onto a chain whose counters do not.
+            self._base_stale = True
+            self._writer_base_ok = False
+            with self._snap_cv:
+                self._snap_unacked.extend(job["msgs"])
+            disk_full = (isinstance(exc, OSError)
+                         and exc.errno == errno.ENOSPC)
+            if disk_full:
+                self._snap_fail_streak = max(self._snap_fail_streak + 1, 8)
+                logger.error(
+                    "Snapshot disk is FULL (ENOSPC): frames stay unacked, "
+                    "writer retries every %.1fs until space frees",
+                    self._writer_backoff_s())
+            else:
+                if not isinstance(exc, _StaleBaseError):
+                    self._snap_fail_streak += 1
+                logger.exception(
+                    "Background snapshot failed (consecutive failures: "
+                    "%d, next attempt in %.2fs)", self._snap_fail_streak,
+                    self._writer_backoff_s())
+        finally:
+            self.metrics.snapshot_stalls.append(time.perf_counter() - t0)
+            with self._snap_cv:
+                self._snap_pending -= 1
+                self._snap_cv.notify_all()
+
+    def _ack(self, msgs) -> None:
+        for msg in msgs:
+            self.consumer.acknowledge(msg)
+
+    def _ack_unacked(self) -> None:
+        """A durable full base covers every frame before its capture:
+        ack the frames of the jobs that failed before it."""
+        with self._snap_cv:
+            msgs, self._snap_unacked = self._snap_unacked, []
+        self._ack(msgs)
+
+    def _run_snap_job(self, job: dict) -> None:
+        if job["kind"] == "base":
+            regs_h, counts_h = self._capture_to_host(job)
+            with self._snap_io_lock:
+                self._write_snapshot_files(
+                    job["bloom"], regs_h, counts_h, job["bank_of"],
+                    job["events"], job["upto"])
+            self._regs_mirror = np.array(regs_h, dtype=np.uint8, copy=True)
+            self._writer_base_ok = True
+            return
+        if not self._writer_base_ok:
+            raise _StaleBaseError(
+                "delta capture with no durable base (an earlier write "
+                "failed); frames stay unacked and the next barrier "
+                "writes a full base")
+        banks = job["banks"]
+        rows_h, counts_h = self._capture_to_host(job)
+        rows_h = rows_h[:len(banks)]
+        with self._snap_io_lock:
+            nbytes = self._write_delta_files(
+                banks, rows_h, counts_h, job["bank_of"], job["events"],
+                job["num_banks"], job["upto"])
+        self._post_delta_bookkeeping(banks, rows_h, nbytes, counts_h,
+                                     job["bank_of"], job["events"],
+                                     job["num_banks"])
+
+    def snapshot(self) -> None:
+        """Write a full base snapshot now, synchronously, after any
+        staged write (the run loop's barriers use the writer)."""
+        if self._snap_dir is None:
+            return
+        self._flush_snapshots()
+        if self._bloom_host is None:
+            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
+                np.uint32)
+        bits = self._bloom_host
+        regs = self.state.hll_regs.cpu().numpy()
+        counts = self.state.counts.cpu().numpy().view(np.uint32)
+        self._dirty_days.clear()
+        self._regs_mirror = np.array(regs, dtype=np.uint8, copy=True)
+        with self._snap_io_lock:
+            self._write_snapshot_files(bits, regs, counts,
+                                       dict(self._bank_of),
+                                       self._events_total, upto=None)
+        # Only after the write: a raise above leaves the base owed.
+        self._base_stale = False
+        self._writer_base_ok = True
+        self._batches_at_snap = self.metrics.batches
+        self._ack_unacked()
+
+    def _write_snapshot_files(self, bits, regs, counts, bank_of: dict,
+                              events: int, upto) -> None:
+        """The file half of a base snapshot (caller holds _snap_io_lock):
+        event segments, the sketch npz (fsync'd, atomic rename), then the
+        chain manifest reset and the superseded deltas' deletion."""
+        self._snap_dir.mkdir(parents=True, exist_ok=True)
+        manifest = {
+            "bank_of": {str(d): b for d, b in bank_of.items()},
+            "m_bits": self.params.m_bits,
+            "k": self.params.k,
+            "precision": self.config.hll_precision,
+            "events": events,
+            # Staleness fence: deltas numbered <= this are older than
+            # this base (see read_chain_state).
+            "chain_seq": self._delta_seq,
+        }
+        # Event segments first: a crash between the two writes leaves
+        # extra rows of unacked frames, which the replay's dedup folds.
+        self.store.save_segments(self._snap_dir / EVENTS_SEGMENTS,
+                                 upto=upto)
+        path = self._snap_dir / SKETCH_SNAPSHOT
+        tmp = path.with_suffix(".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, bloom_words=bits, hll_regs=regs, counts=counts,
+                     manifest=np.frombuffer(
+                         json.dumps(manifest).encode(), dtype=np.uint8))
+            # fsync before the rename: the manifest reset below unlinks
+            # the deltas this base supersedes.
+            f.flush()
+            os.fsync(f.fileno())
+        self._base_digest = file_digest(tmp) if self._integrity else ""
+        tmp.replace(path)
+        # A full base supersedes the delta chain: reset the manifest
+        # FIRST, then delete the superseded files.
+        old = list(self._snap_chain)
+        self._snap_chain = []
+        self._snap_digests = {}
+        self._write_chain_manifest()
+        for name in old:
+            try:
+                (self._snap_dir / name).unlink()
+            except OSError:
+                pass
+
+    def _write_chain_manifest(self) -> None:
+        """Publish the base+delta chain atomically (caller holds
+        _snap_io_lock): the rename is the snapshot's durability point; a
+        delta file a crash orphaned before it is ignored on restore."""
+        doc = {"base": SKETCH_SNAPSHOT, "deltas": list(self._snap_chain)}
+        if self._integrity:
+            doc["base_digest"] = self._base_digest
+            doc["digests"] = {n: self._snap_digests[n]
+                              for n in self._snap_chain
+                              if n in self._snap_digests}
+        write_manifest_atomic(self._snap_dir, doc, CHAIN_MANIFEST)
+
+    def _write_delta_files(self, banks: np.ndarray, rows: np.ndarray,
+                           counts, bank_of: dict, events: int,
+                           num_banks: int, upto) -> int:
+        """The file half of one delta (caller holds _snap_io_lock): event
+        segments, the fsync'd delta npz, then the manifest rename that
+        makes it part of the chain. Returns the delta file's size."""
+        self._snap_dir.mkdir(parents=True, exist_ok=True)
+        self.store.save_segments(self._snap_dir / EVENTS_SEGMENTS,
+                                 upto=upto)
+        manifest = {"bank_of": {str(d): b for d, b in bank_of.items()},
+                    "events": events, "num_banks": num_banks}
+        self._delta_seq += 1
+        name = f"delta-{self._delta_seq:04d}.npz"
+        path = self._snap_dir / name
+        digest = fsync_write_npz(path, dict(
+            bank_idx=np.asarray(banks, np.int32),
+            regs_rows=np.asarray(rows, np.uint8),
+            counts=np.asarray(counts, np.uint32),
+            manifest=np.frombuffer(json.dumps(manifest).encode(),
+                                   dtype=np.uint8)))
+        if self._integrity:
+            self._snap_digests[name] = digest
+        self._snap_chain.append(name)
+        self._write_chain_manifest()
+        return path.stat().st_size
+
+    def _post_delta_bookkeeping(self, banks, rows, nbytes: int, counts,
+                                bank_of: dict, events: int,
+                                num_banks: int) -> None:
+        """After a durable delta: fold its rows into the host mirror and,
+        at the compaction cadence, fold the chain into a fresh base. (The
+        JAX package also publishes a read epoch and gossips the delta
+        here; the port has no serving or federation yet.)"""
+        mirror = self._regs_mirror
+        if mirror is not None:
+            if num_banks > mirror.shape[0]:
+                grown = np.zeros((num_banks, mirror.shape[1]), np.uint8)
+                grown[:mirror.shape[0]] = mirror
+                self._regs_mirror = mirror = grown
+            if len(banks):
+                mirror[np.asarray(banks, np.int64)] = rows
+        if len(self._snap_chain) >= self._snap_compact_every:
+            self._compact_chain(counts, bank_of, events)
+
+    def _compact_chain(self, counts_h, bank_of: dict, events: int) -> None:
+        """Fold the delta chain into a full base from the host mirror (no
+        device read), in the writer, and merge the event segments."""
+        if self._regs_mirror is None or self._bloom_host is None:
+            return
+        with self._snap_io_lock:
+            self._write_snapshot_files(self._bloom_host, self._regs_mirror,
+                                       counts_h, bank_of, events,
+                                       upto=None)
+            # This thread is the only save_segments caller here.
+            self.store.compact_segments(self._snap_dir / EVENTS_SEGMENTS)
+
+    # -- restore ---------------------------------------------------------------
+    def restore(self) -> bool:
+        """Load the chain in snapshot_dir, if there is one: the base plus
+        every delta CHAIN.json names (:func:`read_chain_state`), then the
+        event segments. Delta files the manifest does not name are crash
+        orphans and are ignored; their frames were never acked. A corrupt
+        chain is repaired (:meth:`_repair_chain`)."""
+        if self._snap_dir is None:
+            return False
+        repaired = False
+        try:
+            chain_state = read_chain_state(
+                self._snap_dir, expect_m_bits=self.params.m_bits,
+                expect_precision=self.config.hll_precision)
+        except FileNotFoundError:
+            return False
+        except ChainIntegrityError as exc:
+            chain_state = self._repair_chain(exc)
+            if chain_state is None:
+                return False
+            repaired = True
+        regs = chain_state["regs"]
+        bank_of_raw = chain_state["bank_of"]
+        events = chain_state["events"]
+        applied = chain_state["applied"]
+        # The allocator: holes left by temporal-ring evictions become the
+        # free list, and their rows are ZEROED (the chain still holds an
+        # evicted bucket's registers: its live zeroing was never
+        # captured), or a key reallocated into a hole would max onto
+        # stale registers.
+        used = set(int(b) for b in bank_of_raw.values())
+        next_bank = (max(used) + 1) if used else 0
+        free_banks = sorted(set(range(next_bank)) - used)
+        if free_banks:
+            regs = np.array(regs, dtype=np.uint8)
+            regs[np.asarray(free_banks, np.int64)] = 0
+        self.state = state_from_numpy(chain_state["bits"], regs,
+                                      chain_state["counts"], self.device)
+        # The chain may hold more banks than this construction (growth
+        # before the crash): the wire's bank dtype follows the restored
+        # count.
+        self._bank_dtype = bank_wire_dtype(regs.shape[0])
+        self._bank_of = {int(d): b for d, b in bank_of_raw.items()}
+        self._next_bank = next_bank
+        self._free_banks = free_banks
+        if self._temporal is not None:
+            self._temporal.restore(self._bank_of)
+        self._day_base = None
+        self._day_lut.fill(-1)
+        self._bloom_host = np.asarray(chain_state["bits"], np.uint32)
+        # Resume the chain where the manifest left it (stale entries
+        # dropped); the delta sequence skips past orphaned files.
+        self._snap_chain = applied
+        self._snap_digests = dict(chain_state["digests"])
+        self._base_digest = chain_state["base_digest"]
+        self._dirty_days.clear()
+        self._regs_mirror = np.array(regs, dtype=np.uint8, copy=True)
+        self._events_restored = int(events)
+        if repaired:
+            # Name only the survivors (unless the base itself was lost)
+            # and owe a fresh base.
+            if (self._snap_dir / SKETCH_SNAPSHOT).exists():
+                with self._snap_io_lock:
+                    self._write_chain_manifest()
+            self._base_stale = True
+            self._writer_base_ok = False
+        else:
+            self._base_stale = False
+            self._writer_base_ok = True
+        self._delta_seq = max(
+            (int(p.stem.split("-")[1])
+             for p in self._snap_dir.glob("delta-*.npz")), default=0)
+        segs_dir = self._snap_dir / EVENTS_SEGMENTS
+        if segs_dir.is_dir():
+            self._load_event_segments(segs_dir)
+        if repaired:
+            # A fresh full base from the repaired state supersedes the
+            # truncated chain now; a failed write leaves the base owed.
+            try:
+                self.snapshot()
+            except Exception:
+                logger.exception("fresh-base write after chain repair "
+                                 "failed; the next barrier retries")
+                self._base_stale = True
+                self._writer_base_ok = False
+        logger.info("Restored snapshot: %d events (%d deltas), %d HLL "
+                    "banks%s", events, len(applied), len(self._bank_of),
+                    " [REPAIRED]" if repaired else "")
+        return True
+
+    def _load_event_segments(self, segs_dir) -> None:
+        """Load the event segments, compacting them first; a segment that
+        fails the structural check is quarantined (its rows are lost
+        locally, loudly) and the load retried over the survivors."""
+        for attempt in range(2):
+            self.store.truncate()
+            try:
+                if attempt == 0:
+                    self.store.compact_segments(segs_dir)
+                self.store.load_segments(segs_dir)
+                return
+            except Exception as exc:  # noqa: BLE001 — classify rot
+                bad = [p for p in sorted(Path(segs_dir).glob(
+                    "segment-*.npz")) if structural_npz_check(p) is not None]
+                if not bad or attempt:
+                    raise
+                logger.error(
+                    "event segment(s) %s failed structural verification "
+                    "(%s: %s) — quarantining; their rows are lost locally",
+                    [p.name for p in bad], type(exc).__name__, exc)
+                for p in bad:
+                    quarantine_artifact(
+                        p, reason="unreadable",
+                        detail="event segment failed the zip-CRC "
+                               "structural check")
+
+    def _repair_chain(self, exc: ChainIntegrityError) -> Optional[dict]:
+        """The repair ladder for a corrupt chain: quarantine the corrupt
+        artifact and re-read the chain truncated to its good prefix (a
+        torn CHAIN.json degrades to the base alone; a corrupt base
+        leaves nothing); restore then owes a fresh base. Returns a
+        ``read_chain_state`` dict, or None when nothing is recoverable.
+        (The JAX ladder's peer re-assert step needs federation, which
+        the port has not yet.)"""
+        state = None
+        for _attempt in range(4):
+            path = exc.path
+            logger.error("snapshot chain at %s is corrupt (%s at %s)%s — "
+                         "quarantining and repairing", self._snap_dir,
+                         exc.kind, path.name,
+                         f": {exc.detail}" if exc.detail else "")
+            quarantine_artifact(path, reason=exc.kind, detail=exc.detail,
+                                expected_digest=exc.expected)
+            if path.name == SKETCH_SNAPSHOT:
+                break  # the base is lost: nothing to restore locally
+            stop = None if path.name == CHAIN_MANIFEST else path.name
+            try:
+                state = read_chain_state(
+                    self._snap_dir, expect_m_bits=self.params.m_bits,
+                    expect_precision=self.config.hll_precision,
+                    stop_before=stop)
+                break
+            except ChainIntegrityError as exc2:
+                exc = exc2
+            except FileNotFoundError:
+                break
+        if state is not None and self._integrity \
+                and not state["base_digest"]:
+            # A torn manifest took the digests with it; the base parsed
+            # clean, so record its digest for the republished manifest.
+            state["base_digest"] = file_digest(
+                self._snap_dir / SKETCH_SNAPSHOT)
+        if state is not None:
+            logger.warning(
+                "chain repaired LOCALLY: state truncated at the corrupt "
+                "artifact — events acked into the lost suffix are not "
+                "locally recoverable")
+        else:
+            logger.error(
+                "chain at %s is unrepairable locally (base corrupt) — "
+                "starting EMPTY; the corrupt bytes are preserved under "
+                "integrity-quarantine/", self._snap_dir)
+        return state
+
     # -- ack draining -------------------------------------------------------
     def _drain_inflight(self, block: int = 0) -> None:
         """Ack completed in-flight frames in dispatch order. ``block`` is
-        how many not-yet-complete head entries to wait for (-1 = all)."""
+        how many not-yet-complete head entries to wait for (-1 = all).
+        With checkpointing on, frames are acked only by the barriers'
+        durable snapshots."""
+        if self.checkpointing:
+            return
         while self._inflight:
             msg, done, _pinned = self._inflight[0]
             if done is not None and not done.query():
@@ -687,7 +1622,8 @@ class FusedPipeline:
     def run(self, max_events: Optional[int] = None,
             idle_timeout_s: float = 1.0) -> None:
         """Consume frames until ``max_events`` or an idle timeout; every
-        consumed frame is acknowledged before this returns."""
+        consumed frame is acknowledged (with checkpointing: is durable)
+        before this returns, unless its snapshot write failed."""
         t_start = time.perf_counter()
         idle_since = time.monotonic()
         while True:
@@ -701,6 +1637,8 @@ class FusedPipeline:
                     # not pin the reorder buffer or final buckets open.
                     self._temporal.maybe_idle_flush()
                     self._lap("temporal", t)
+                if self.checkpointing and self._inflight:
+                    self._checkpoint_and_ack()
                 self._drain_inflight(block=-1)
                 if time.monotonic() - idle_since > idle_timeout_s:
                     break
@@ -709,16 +1647,32 @@ class FusedPipeline:
             idle_since = time.monotonic()
             _valid, done, pinned = self.process_frame(msg.data())
             self._inflight.append((msg, done, pinned))
-            self._drain_inflight(
-                block=1 if len(self._inflight) >= _INFLIGHT_DEPTH else 0)
+            if self.checkpointing:
+                # A barrier on the frame cadence, and on the in-flight
+                # depth (which bounds the frames' pinned buffers).
+                depth_forced = (len(self._inflight)
+                                >= max(_INFLIGHT_DEPTH, self._snap_every))
+                if (self.metrics.batches - self._batches_at_snap
+                        >= self._snap_every or depth_forced):
+                    self._checkpoint_async(force=depth_forced)
+            else:
+                self._drain_inflight(
+                    block=1 if len(self._inflight) >= _INFLIGHT_DEPTH
+                    else 0)
             if max_events is not None and self.metrics.events >= max_events:
                 break
         if self._temporal is not None:
             # End of run: release the reorder buffer, rotate the final
-            # buckets, fold the staged CMS estimates.
+            # buckets, fold the staged CMS estimates (before the final
+            # barrier).
             t = time.perf_counter()
             self._temporal.flush()
             self._lap("temporal", t)
+        if self.checkpointing:
+            if self._inflight or self._snap_unacked:
+                self._checkpoint_and_ack()
+            else:
+                self._flush_snapshots()
         self._drain_inflight(block=-1)
         self.metrics.wall_seconds = time.perf_counter() - t_start
 
@@ -768,6 +1722,19 @@ class FusedPipeline:
         return {day: int(round(estimate_from_histogram(hists[bank], prec)))
                 for day, bank in days.items()}
 
+    def get_attendance_stats(self, lecture_day) -> Dict:
+        """PFCOUNT and partition scan of one lecture day (an int day or a
+        ``"LECTURE_YYYYMMDD"`` id): the reference's stats query."""
+        day = self._resolve_day(lecture_day)
+        records = self.store.scan_lecture(day)
+        return {"unique_attendees": self.count(day),
+                "attendance_records": records,
+                "num_records": len(records["student_id"])}
+
     def cleanup(self) -> None:
+        # Wait out the staged snapshot writes (their acks go through the
+        # consumer), then stop the writer.
+        self._flush_snapshots()
+        self._stop_snap_writer()
         self.client.close()
         self.store.close()

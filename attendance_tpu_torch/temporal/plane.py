@@ -261,6 +261,15 @@ class TemporalPlane:
         self.ring.rotate(self.reorder.effective_watermark_us)
         self._fold_cms()
 
+    def restore(self, bank_of: Dict[int, int]) -> None:
+        """Re-seed after a chain restore: the buckets come back from the
+        chain's bank map; the watermark, CMS, top-K and dwell state are
+        advisory and restart."""
+        n = self.ring.restore(bank_of)
+        if n:
+            logger.info("temporal ring restored %d bucket(s) from the "
+                        "snapshot chain", n)
+
     def stats(self) -> Dict:
         return {
             "events": self.events_total,

@@ -32,7 +32,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 
 from attendance_tpu_torch.temporal.buckets import (
-    bucket_keys, decode_bucket_key)
+    bucket_keys, decode_bucket_key, is_bucket_key)
 
 logger = logging.getLogger(__name__)
 
@@ -134,4 +134,16 @@ class BucketRing:
                    if decode_bucket_key(key)[1] >= self._first_open)
 
     def __len__(self) -> int:
+        return len(self.buckets)
+
+    # -- restore -------------------------------------------------------------
+    def restore(self, bank_of: Dict[int, int]) -> int:
+        """Re-seed the ring from a restored ``bank_of`` map (every bucket
+        key in it). Every restored bucket starts OPEN: the watermark is
+        ephemeral and rebuilds from the redelivered stream, so a restart
+        can only widen the fold window, never misbucket (register-max
+        re-adds are idempotent). Returns the bucket count."""
+        self.buckets = {int(k): int(b) for k, b in bank_of.items()
+                        if is_bucket_key(int(k))}
+        self._first_open = 0
         return len(self.buckets)

@@ -2,9 +2,11 @@
 
 Counterpart of the slice of ``attendance_tpu/transport/memory_broker.py``
 that the fused hot loop uses: producer ``send``, consumer
-``receive(timeout_millis)`` / ``acknowledge``, and ``ReceiveTimeout``.
-A message stays in flight from delivery until it is acknowledged
-(at-least-once). Producers and consumers may live on different threads.
+``receive(timeout_millis)`` / ``acknowledge`` / ``close``, and
+``ReceiveTimeout``. A message stays in flight from delivery until it is
+acknowledged (at-least-once); closing a consumer (a crash takeover)
+returns its unacknowledged messages to the subscription. Producers and
+consumers may live on different threads.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 class ReceiveTimeout(Exception):
@@ -33,11 +35,12 @@ class Message:
 
 
 class _Subscription:
-    """Pending queue plus the delivered-but-unacked messages."""
+    """Pending queue plus the delivered-but-unacked messages, each with
+    the id of the consumer it was delivered to."""
 
     def __init__(self):
         self.pending: deque = deque()
-        self.inflight: Dict[int, bytes] = {}
+        self.inflight: Dict[int, Tuple[bytes, int]] = {}
         self.cond = threading.Condition()
 
     def enqueue(self, message_id: int, data: bytes) -> None:
@@ -45,7 +48,7 @@ class _Subscription:
             self.pending.append((message_id, data))
             self.cond.notify()
 
-    def receive(self, timeout_s: Optional[float]) -> Message:
+    def receive(self, timeout_s: Optional[float], owner: int) -> Message:
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
         with self.cond:
             while not self.pending:
@@ -55,12 +58,28 @@ class _Subscription:
                     raise ReceiveTimeout(f"no message within {timeout_s}s")
                 self.cond.wait(remaining)
             message_id, data = self.pending.popleft()
-            self.inflight[message_id] = data
+            self.inflight[message_id] = (data, owner)
         return Message(data, message_id)
 
     def acknowledge(self, message_id: int) -> None:
         with self.cond:
             self.inflight.pop(message_id, None)
+
+    def requeue_inflight(self, owner: int) -> None:
+        """Crash takeover: return the closing consumer's own unacked
+        messages to the HEAD of the pending queue, in publish order, so
+        a successor replays the dead consumer's window before the
+        undelivered backlog (the order an event-time consumer can bound
+        a lateness budget for); other consumers' deliveries stay
+        theirs."""
+        with self.cond:
+            mine = sorted((mid, data) for mid, (data, o)
+                          in self.inflight.items() if o == owner)
+            for mid, _ in mine:
+                del self.inflight[mid]
+            if mine:
+                self.pending.extendleft(reversed(mine))
+                self.cond.notify_all()
 
     def backlog(self) -> int:
         with self.cond:
@@ -106,13 +125,21 @@ class MemoryProducer:
         return self._topic.publish(bytes(data))
 
 
+_consumer_ids = itertools.count()
+
+
 class MemoryConsumer:
     def __init__(self, sub: _Subscription):
         self._sub = sub
+        self._closed = False
+        self._id = next(_consumer_ids)
 
     def receive(self, timeout_millis: Optional[int] = None) -> Message:
+        if self._closed:
+            raise RuntimeError("consumer closed")
         return self._sub.receive(
-            None if timeout_millis is None else timeout_millis / 1e3)
+            None if timeout_millis is None else timeout_millis / 1e3,
+            self._id)
 
     def acknowledge(self, msg: Message) -> None:
         self._sub.acknowledge(msg.message_id)
@@ -120,6 +147,13 @@ class MemoryConsumer:
     def backlog(self) -> int:
         """Messages not yet acknowledged (pending or in flight)."""
         return self._sub.backlog()
+
+    def close(self) -> None:
+        """Stop consuming; every message delivered to this consumer and
+        not acknowledged goes back to the subscription (redelivery)."""
+        if not self._closed:
+            self._closed = True
+            self._sub.requeue_inflight(self._id)
 
 
 class MemoryClient:

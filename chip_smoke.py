@@ -54,6 +54,21 @@ Phases (any failure exits non-zero):
      plain Count-Min update and the hot keys; ``window_counts()`` timed
      as the PFCOUNT path is; then the same frames with
      the plane off, and with it on but without the exact shadow;
+  5. checkpoint and restore (after 3b): (a) the ``fused`` default run in
+     delta mode (a barrier every frame, a compaction every 2 deltas) and
+     (b) in barrier mode, each restored by a fresh pipeline and held
+     equal to the finished run (counters, PFCOUNTs, registers, bank map,
+     deduped store) and to phase 3's run; (c) a crash: a delta-mode run
+     of 60% of the stream whose disk dies after the first base (a power
+     cut at the second manifest rename), ``consumer.close()``, and a
+     successor on the same broker and directory whose restored counters
+     are the acked prefix's and whose drained state equals the
+     uninterrupted run; (d) the temporal path with delta snapshots,
+     restored equal in ``window_counts()``, ring and state; (e) events/s
+     with checkpointing off, delta and barrier, first and second run,
+     with ``snapshot_stalls`` and ``snapshot_blocked_s``, and B9 on the
+     card: the delta capture of 16 rows and the 256-bank base copy
+     (graph replays) beside their bound in bytes, and one capture's D2H;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
@@ -578,6 +593,293 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     return launches
 
 
+def _pipe_state(pipe):
+    """(counters, PFCOUNTs, registers, bank map, deduped store) of a
+    pipeline, for exact comparison."""
+    return (pipe.validity_counts(),
+            {str(d): n for d, n in sorted(pipe.count_all().items())},
+            pipe.state.hll_regs.clone(), dict(pipe._bank_of),
+            pipe.store.to_columns())
+
+
+def _check_same(what: str, got, want, store: bool = True) -> None:
+    check(got[0] == want[0], f"{what}: counters {got[0]} != {want[0]}")
+    check(got[1] == want[1], f"{what}: PFCOUNTs differ")
+    check(torch.equal(got[2], want[2]), f"{what}: registers differ")
+    check(got[3] == want[3], f"{what}: bank map differs")
+    if store:
+        for name in ("student_id", "lecture_day", "micros", "is_valid"):
+            check(np.array_equal(got[4][name], want[4][name]),
+                  f"{what}: deduped store column {name} differs")
+
+
+def _capture_d2h_ms(side, regs, counts, reps: int = 20) -> float:
+    """Median device ms of one capture's D2H as the writer makes it: a
+    non-blocking copy into a pinned staging buffer on a side stream,
+    waited for by its event."""
+    n = regs.numel()
+    slot = torch.empty(n + 16, dtype=torch.uint8, pin_memory=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        for _ in range(reps + 1):
+            start.record(side)
+            slot[:n].view(regs.shape).copy_(regs, non_blocking=True)
+            slot[n:n + 16].view(torch.int32).copy_(counts.view(-1),
+                                                   non_blocking=True)
+            end.record(side)
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    check(np.array_equal(slot[:n].numpy().reshape(tuple(regs.shape)),
+                         regs.cpu().numpy()), "capture D2H: bytes differ")
+    return float(np.median(times[1:]))
+
+
+def checkpoint_phase(card: str, num_events: int, frame_size: int,
+                     num_lectures: int, ref) -> dict:
+    """Phase 5: checkpoint and restore on the card. Returns the launch
+    counts of its runs (first runs and the crash pair, summed)."""
+    import json as _json
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch.cli import run_fused
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.models import fused
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import (
+        CHAIN_MANIFEST, SKETCH_SNAPSHOT, FusedPipeline)
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    launches = dict.fromkeys(kernels.launches, 0)
+
+    def counted(what, names, fn):
+        kernels.reset_launches()
+        out = fn()
+        got = dict(kernels.launches)
+        for name in names:
+            check(got[name] > 0, f"{what}: kernel {name} not launched")
+        for name, count in got.items():
+            launches[name] += count
+        return out, got
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_snap_"))
+    try:
+        # (a), (b), (e): the fused default run with checkpointing off, in
+        # delta mode and in barrier mode, first and second run each. A
+        # barrier every frame and a compaction every 2 deltas: a busy
+        # writer coalesces deferred barriers, but every run makes a base
+        # (frame 1), a delta (frame 2) and at least one more delta.
+        uninterrupted = None
+        captures = {}
+        for label in ("off", "delta", "barrier"):
+            for run in ("first", "second"):
+                snap = work / f"{label}-{run}"
+                config = Config() if label == "off" else Config(
+                    snapshot_dir=str(snap), snapshot_mode=label,
+                    snapshot_every_batches=1, snapshot_compact_every=2)
+                what = f"checkpoint {label} run={run}"
+                (pipe, summary), got = counted(
+                    what, ("bloom_add", "fused_step", "hll_histogram"),
+                    lambda: run_fused(config, num_events, frame_size,
+                                      num_lectures, seed=0))
+                if run == "second":
+                    for name, count in got.items():
+                        launches[name] -= count
+                try:
+                    m = pipe.metrics
+                    state = _pipe_state(pipe)
+                    check(pipe.consumer.backlog() == 0,
+                          f"{what}: frames left unacked")
+                    check(state[0] == ref[0] and state[1] == ref[1]
+                          and torch.equal(state[2], ref[2]),
+                          f"{what}: differs from the main path's run")
+                    check(np.array_equal(pipe.store.to_columns(
+                        deduplicate=False)["is_valid"], ref[3]),
+                        f"{what}: stored validity differs")
+                    if uninterrupted is None:
+                        uninterrupted = state
+                    if label != "off" and run == "first":
+                        chain = _json.loads((snap / CHAIN_MANIFEST)
+                                            .read_text())
+                        if label == "delta":
+                            check(pipe._delta_seq >= 2
+                                  and len(chain["deltas"]) < 2,
+                                  f"{what}: no compaction ({chain})")
+                        captures[label] = len(m.snapshot_stalls)
+                        back = FusedPipeline(config)
+                        try:
+                            _check_same(f"{what}: restore", _pipe_state(back),
+                                        state)
+                            check(back._events_restored == num_events,
+                                  f"{what}: restored events")
+                        finally:
+                            back.cleanup()
+                finally:
+                    pipe.cleanup()
+                stalls = m.snapshot_stalls
+                print(f"{what}: {m.events_per_second} events/s (wall "
+                      f"{m.wall_seconds} s) on {card}; snapshots "
+                      f"{len(stalls)} snapshot_write_s {sum(stalls)} max "
+                      f"{max(stalls, default=0.0)} snapshot_blocked_s "
+                      f"{m.snapshot_blocked_s}; host stages (s): "
+                      f"{m.stage_seconds}")
+
+        # (c) crash resume: a delta-mode run of 60% of the stream whose
+        # disk dies after the first base (a power cut at the second
+        # manifest rename: that write and every later one fail), then
+        # consumer.close() and a successor on the same broker and
+        # directory drains the rest.
+        roster, frames = generate_frames(
+            num_events, frame_size,
+            roster_size=min(Config().bloom_filter_capacity, num_events),
+            num_lectures=num_lectures, seed=0)
+        snap = work / "crash"
+        config = Config(snapshot_dir=str(snap), snapshot_mode="delta",
+                        snapshot_every_batches=1)
+        broker = MemoryBroker()
+        a = FusedPipeline(config, client=MemoryClient(broker))
+        cut = {"n": 0}
+        manifest = a._write_chain_manifest
+
+        def cut_manifest():
+            cut["n"] += 1
+            if cut["n"] >= 2:
+                raise OSError("simulated power cut before manifest rename")
+            manifest()
+
+        def dead_after_cut(fn):
+            def wrapper(*args, **kwargs):
+                if cut["n"] >= 2:
+                    raise OSError("simulated power cut")
+                return fn(*args, **kwargs)
+            return wrapper
+
+        a._write_chain_manifest = cut_manifest
+        a._write_snapshot_files = dead_after_cut(a._write_snapshot_files)
+        a._write_delta_files = dead_after_cut(a._write_delta_files)
+
+        def crash_run():
+            a.preload(roster)
+            producer = a.client.create_producer(config.pulsar_topic)
+            for f in frames:
+                producer.send(f)
+            a.run(max_events=int(num_events * 0.6), idle_timeout_s=1.0)
+
+        counted("crash run", ("bloom_add", "fused_step"), crash_run)
+        processed = a.metrics.events
+        a.consumer.close()
+        a.cleanup()
+        with np.load(snap / SKETCH_SNAPSHOT) as d:
+            events_at = _json.loads(bytes(d["manifest"]).decode())["events"]
+        check(events_at < processed, f"crash: nothing left unacked "
+              f"({events_at} of {processed})")
+
+        def resume():
+            b = FusedPipeline(config, client=MemoryClient(broker))
+            check(sum(b.validity_counts()) == b._events_restored
+                  == events_at, "crash: restored counters are not the "
+                  "acked prefix's")
+            b.run(idle_timeout_s=1.0)
+            return b
+
+        b, _ = counted("crash resume", ("fused_step",), resume)
+        try:
+            check(b.consumer.backlog() == 0, "crash: frames left unacked")
+            _check_same("crash resume", _pipe_state(b), uninterrupted)
+        finally:
+            b.cleanup()
+        print(f"checkpoint crash resume: {processed} events processed, "
+              f"{events_at} acked before the power cut, "
+              f"{num_events - events_at} replayed or new after restore; "
+              f"counters, PFCOUNTs, registers, bank map and deduped store "
+              f"equal the uninterrupted run on {card}")
+
+        # (d) the temporal path with delta snapshots: a restore gives the
+        # same windows and ring.
+        t_roster, _, t_frames = temporal_frames(num_events, frame_size,
+                                                num_lectures)
+        snap = work / "temporal"
+        config = Config(temporal_period_s=60, allowed_lateness_s=5.0,
+                        temporal_ring_banks=256, cms_depth=4,
+                        cms_width=16384, cms_topk=16,
+                        snapshot_dir=str(snap), snapshot_mode="delta",
+                        snapshot_every_batches=1)
+        pipe, _ = counted(
+            "checkpoint temporal",
+            ("fused_step", "bloom_contains", "hll_add", "cms_step"),
+            lambda: drive(config, t_roster, t_frames, num_events))
+        try:
+            windows = pipe.window_counts()
+            state = _pipe_state(pipe)
+            buckets = dict(pipe._temporal.ring.buckets)
+            evictions = pipe.temporal_stats()["evictions"]
+            back = FusedPipeline(config)
+            try:
+                _check_same("checkpoint temporal: restore",
+                            _pipe_state(back), state)
+                check(back.window_counts() == windows and windows,
+                      "checkpoint temporal: window_counts differ")
+                check(back._temporal.ring.buckets == buckets,
+                      "checkpoint temporal: ring buckets differ")
+                check(back._free_banks == pipe._free_banks,
+                      "checkpoint temporal: free list differs")
+            finally:
+                back.cleanup()
+        finally:
+            pipe.cleanup()
+        check(evictions > 0, "checkpoint temporal: no eviction")
+        print(f"checkpoint temporal: {len(windows)} windows, {len(buckets)} "
+              f"live buckets, {evictions} evictions; restore equal in "
+              f"windows, ring, registers, counters and store on {card}")
+
+        # (e) B9 on the card: the delta capture of the default run's 16
+        # dirty banks (padded to 16) and the barrier-mode base copy of
+        # 256 banks, timed by graph replays beside their bound in bytes,
+        # and the D2H of one capture.
+        regs = ref[2].clone()
+        counts = torch.zeros((2, 2), dtype=torch.int32, device=regs.device)
+        idx = torch.arange(16, dtype=torch.int64, device=regs.device)
+        host = regs.cpu()
+        got_rows, _ = fused.snapshot_capture_rows(regs, idx, counts)
+        got_base, _ = fused.snapshot_capture_base(regs, counts)
+        check(torch.equal(got_rows.cpu(), host[:16]) and torch.equal(
+            got_base.cpu(), host), "B9: capture differs from a host copy")
+        side = torch.cuda.Stream()
+        row_bytes = regs.shape[1]
+        for what, fn, nbytes, tensors in (
+                ("capture rows=16", lambda: fused.snapshot_capture_rows(
+                    regs, idx, counts), 2 * 16 * row_bytes + 16 * 8 + 32,
+                 (got_rows,)),
+                ("base copy banks=256", lambda: fused.snapshot_capture_base(
+                    regs, counts), 2 * regs.numel() + 32, (got_base,))):
+            ms = kernel_ms(fn)
+            b_ms, b_by = bound_ms(nbytes, 0)
+            d2h_ms = _capture_d2h_ms(side, tensors[0], counts)
+            label = "delta" if what.startswith("capture") else "barrier"
+            if label == "delta":
+                # The same capture by index_select, timed beside the kept
+                # advanced indexing.
+                sel_ms = kernel_ms(lambda: (regs.index_select(0, idx),
+                                            counts.clone()))
+                print(f"B9 capture rows=16 by index_select: ms={sel_ms} "
+                      f"on {card}")
+            print(f"B9 {what}: ms={ms} bound_ms={b_ms} ({b_by}, {nbytes} "
+                  f"bytes) times_bound={ms / b_ms} d2h_ms={d2h_ms} "
+                  f"({tensors[0].numel() + 16} bytes into pinned memory "
+                  f"on a side stream) captures_per_default_run="
+                  f"{captures[label]} ({label} mode, a barrier every "
+                  f"frame) on {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -588,6 +890,7 @@ def main() -> int:
     from attendance_tpu_torch.pipeline.events import decode_planar_batch
     from attendance_tpu_torch.pipeline.loadgen import generate_frames
 
+    t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = subprocess.run(CARD_QUERY, capture_output=True, text=True,
@@ -1086,12 +1389,17 @@ def main() -> int:
     t_launches = temporal_path(card, num_events, frame_size, num_lectures,
                                rows)
 
+    # -- 5. checkpoint and restore ---------------------------------------------
+    c_launches = checkpoint_phase(card, num_events, frame_size, num_lectures,
+                                  ref)
+
     # -- 4. summary -----------------------------------------------------------
+    print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,
              replaces=row["replaces"],
-             launches=launches[name] + t_launches[name],
+             launches=launches[name] + t_launches[name] + c_launches[name],
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -15,6 +15,7 @@ import torch
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.models import bloom, cms, fused, hll
 from attendance_tpu_torch.ops import kernels
+from attendance_tpu_torch.pipeline.events import decode_planar_batch
 from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
 
@@ -735,3 +736,76 @@ def test_narrow_step_kernels_back_to_back_and_in_graph_replays(mode, cuda):
     p_v, p_i = fused.decode_counts(twin.counts)
     assert fused.decode_counts(state.counts) == (s_v + 7 * (p_v - s_v),
                                                  s_i + 7 * (p_i - s_i))
+
+
+def test_snapshot_capture_equals_host_copy_after_sync(cuda):
+    """B9 on the card: the delta capture's rows and counters, and the
+    base copy, equal a host copy taken after a device sync, although the
+    next frames' steps update the state in place right after them."""
+    roster, frames = generate_frames(3 * LANES, LANES, roster_size=100_000,
+                                     num_lectures=16, seed=2)
+    params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
+    state, _ = fused.init_state(100_000, 0.01, "blocked", 256, 14, cuda)
+    kernels.bloom_add(state.bloom_bits,
+                      torch.from_numpy(roster.view(np.int32)).to(cuda),
+                      params)
+    words = []
+    for f in frames:
+        c = decode_planar_batch(f)
+        kw = int(c["student_id"].max()).bit_length()
+        words.append((torch.from_numpy(fused.pack_words(
+            c["student_id"], (c["lecture_day"] - 20_260_701).astype(
+                np.int32), kw, LANES).view(np.int32)).to(cuda), kw))
+    fused.fused_step_words(state, words[0][0], params, words[0][1])
+    torch.cuda.synchronize()
+    want_regs = state.hll_regs.cpu()
+    want_counts = state.counts.cpu()
+    idx = torch.tensor([5, 0, 15, 3, 0, 0, 0, 0], dtype=torch.int64,
+                       device=cuda)
+    rows, counts = fused.snapshot_capture_rows(state.hll_regs, idx,
+                                               state.counts)
+    base, base_counts = fused.snapshot_capture_base(state.hll_regs,
+                                                    state.counts)
+    for w, kw in words[1:]:
+        fused.fused_step_words(state, w, params, kw)
+    torch.cuda.synchronize()
+    assert not torch.equal(state.counts.cpu(), want_counts)
+    assert torch.equal(rows.cpu(), want_regs[idx.cpu()])
+    assert torch.equal(base.cpu(), want_regs)
+    assert torch.equal(counts.cpu(), want_counts)
+    assert torch.equal(base_counts.cpu(), want_counts)
+
+
+@pytest.mark.parametrize("mode", ["delta", "barrier"])
+def test_checkpointed_pipeline_on_card_equals_cpu(mode, cuda, tmp_path):
+    """A checkpointed run on the card (the capture's D2H on the writer's
+    side stream) writes a chain that restores, on the card, to the CPU
+    run's state, registers, counters and store alike."""
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        snap = tmp_path / str(device.type)
+        config = Config(bloom_filter_capacity=20_000, snapshot_mode=mode,
+                        snapshot_dir=str(snap), snapshot_every_batches=1,
+                        snapshot_compact_every=3)
+        pipe = FusedPipeline(config, num_banks=8, device=device)
+        roster, frames = generate_frames(80_000, 16_384, roster_size=20_000,
+                                         num_lectures=12, seed=1)
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=80_000, idle_timeout_s=0.3)
+        assert pipe.consumer.backlog() == 0
+        pipe.cleanup()
+        again = FusedPipeline(config, num_banks=8, device=device)
+        results.append((fused.state_to_numpy(pipe.state),
+                        fused.state_to_numpy(again.state),
+                        pipe.store.to_columns(), again.store.to_columns()))
+        again.cleanup()
+    (card, cpu) = results
+    for a, b, c in zip(card[0], card[1], cpu[1]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, c)
+    for name in ("student_id", "lecture_day", "micros", "is_valid"):
+        np.testing.assert_array_equal(card[2][name], card[3][name])
+        np.testing.assert_array_equal(card[3][name], cpu[3][name])

@@ -229,7 +229,10 @@ def test_cli_fused_on_cpu(capsys):
     cli_main(["fused", "--device", "cpu", "--num-events", "20000",
               "--frame-size", "4096", "--num-lectures", "3"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert [ln.split(":")[0] for ln in lines[:3]] == [
+    # The analyzer's insights come first (the JAX verb's order), then
+    # one line per lecture, then the JSON summary.
+    assert lines[0] == "=== Habitual Latecomers ==="
+    assert [ln.split(":")[0] for ln in lines[-4:-1]] == [
         "LECTURE_20260701", "LECTURE_20260702", "LECTURE_20260703"]
     summary = json.loads(lines[-1])
     assert summary["device"] == "cpu"
