@@ -451,15 +451,15 @@ class FusedPipeline:
         self._snap_jobs: deque = deque()
         self._snap_cv = threading.Condition()
         self._snap_pending = 0
-        self._snap_seq = 0
         self._snap_unacked: list = []
         self._snap_fail_streak = 0
         self._snap_thread: Optional[threading.Thread] = None
         self._snap_io_lock = threading.Lock()
         # On the card: the writer's side stream for the captures' D2H,
-        # and two pinned staging buffers, one per staged capture.
+        # and its pinned staging buffer (one: the writer drains one job
+        # at a time), grown to the largest capture on first need.
         self._snap_stream = None
-        self._staging: List[Optional[torch.Tensor]] = [None, None]
+        self._staging: Optional[torch.Tensor] = None
         # Temporal sketch plane: windowed HLL bucket ring + watermarked
         # reorder + CMS fraud detector; one `is not None` branch per
         # frame when off. Built before restore(), which re-seeds it.
@@ -1087,9 +1087,7 @@ class FusedPipeline:
                        bloom=self._bloom_host)
         job.update(ready=self._record_event(), upto=self.store.mark(),
                    msgs=[m for m, _, _ in self._inflight], pinned=pinned,
-                   events=self._events_total, bank_of=dict(self._bank_of),
-                   slot=self._snap_seq % len(self._staging))
-        self._snap_seq += 1
+                   events=self._events_total, bank_of=dict(self._bank_of))
         self._inflight.clear()
         self._batches_at_snap = self.metrics.batches
         self._enqueue_snap(job)
@@ -1194,7 +1192,7 @@ class FusedPipeline:
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """(uint8 register rows, uint32[2, 2] counters) of a capture on
         the host. On the card: a non-blocking copy on the side stream
-        into the job's pinned staging buffer, waited for with the
+        into the writer's pinned staging buffer, waited for with the
         copy's own event (never a device-wide synchronize). The capture
         tensors stay referenced by the job until the copy completed, so
         the caching allocator cannot hand their memory to a frame."""
@@ -1202,17 +1200,17 @@ class FusedPipeline:
         if regs.device.type != "cuda":
             return regs.numpy(), counts.numpy().view(np.uint32)
         n = regs.numel()
-        slot = self._staging[job["slot"]]
+        slot = self._staging
         if slot is None or slot.numel() < n + 16:
             slot = torch.empty(n + 16, dtype=torch.uint8, pin_memory=True)
-            self._staging[job["slot"]] = slot
+            self._staging = slot
         slot[:n].view(regs.shape).copy_(regs, non_blocking=True)
         slot[n:n + 16].view(torch.int32).copy_(counts.view(-1),
                                                non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
         done.synchronize()
-        # Counters are copied off the slot; the rows are a view of it,
+        # Counters are copied off the buffer; the rows are a view of it,
         # read by this job only (the writer runs one job at a time).
         return (slot[:n].numpy().reshape(tuple(regs.shape)),
                 slot[n:n + 16].numpy().view(np.uint32).reshape(2, 2).copy())
@@ -1292,7 +1290,7 @@ class FusedPipeline:
                 job["num_banks"], job["upto"])
         self._post_delta_bookkeeping(banks, rows_h, nbytes, counts_h,
                                      job["bank_of"], job["events"],
-                                     job["num_banks"])
+                                     job["num_banks"], job["upto"])
 
     def snapshot(self) -> None:
         """Write a full base snapshot now, synchronously, after any
@@ -1402,7 +1400,7 @@ class FusedPipeline:
 
     def _post_delta_bookkeeping(self, banks, rows, nbytes: int, counts,
                                 bank_of: dict, events: int,
-                                num_banks: int) -> None:
+                                num_banks: int, upto: int) -> None:
         """After a durable delta: fold its rows into the host mirror and,
         at the compaction cadence, fold the chain into a fresh base. (The
         JAX package also publishes a read epoch and gossips the delta
@@ -1416,17 +1414,21 @@ class FusedPipeline:
             if len(banks):
                 mirror[np.asarray(banks, np.int64)] = rows
         if len(self._snap_chain) >= self._snap_compact_every:
-            self._compact_chain(counts, bank_of, events)
+            self._compact_chain(counts, bank_of, events, upto)
 
-    def _compact_chain(self, counts_h, bank_of: dict, events: int) -> None:
+    def _compact_chain(self, counts_h, bank_of: dict, events: int,
+                       upto: int) -> None:
         """Fold the delta chain into a full base from the host mirror (no
-        device read), in the writer, and merge the event segments."""
+        device read), in the writer, and merge the event segments. The
+        base persists the store's blocks up to the delta's own ``upto``
+        and no further: the side stream is ordered after that barrier's
+        capture only, so a later block's validity may still be being
+        written by a step on the compute stream."""
         if self._regs_mirror is None or self._bloom_host is None:
             return
         with self._snap_io_lock:
             self._write_snapshot_files(self._bloom_host, self._regs_mirror,
-                                       counts_h, bank_of, events,
-                                       upto=None)
+                                       counts_h, bank_of, events, upto)
             # This thread is the only save_segments caller here.
             self.store.compact_segments(self._snap_dir / EVENTS_SEGMENTS)
 
@@ -1499,9 +1501,15 @@ class FusedPipeline:
         else:
             self._base_stale = False
             self._writer_base_ok = True
+        # Number the next delta past every file on disk AND past the
+        # base's fence: a compaction deleted the deltas it folded, and a
+        # delta numbered at or below the base's chain_seq would be
+        # skipped as stale on the next restore (the JAX package numbers
+        # from the files alone).
         self._delta_seq = max(
-            (int(p.stem.split("-")[1])
-             for p in self._snap_dir.glob("delta-*.npz")), default=0)
+            max((int(p.stem.split("-")[1])
+                 for p in self._snap_dir.glob("delta-*.npz")), default=0),
+            int(chain_state["manifest"].get("chain_seq", 0)))
         segs_dir = self._snap_dir / EVENTS_SEGMENTS
         if segs_dir.is_dir():
             self._load_event_segments(segs_dir)

@@ -148,6 +148,9 @@ class ColumnarEventStore:
         reproduces the append stream, and rows of frames replayed after
         a crash fold in through the read-time dedup.
 
+        The file is fsynced before its rename and the directory after
+        it, so the segment is durable before the caller publishes the
+        snapshot that acks its frames (the JAX package fsyncs neither).
         The watermark and the sequence number advance only once the
         file is published, so a failed write leaves its blocks pending
         for the next call (the JAX package advances them first, which
@@ -172,7 +175,12 @@ class ColumnarEventStore:
         tmp = path.with_suffix(".tmp")
         with open(tmp, "wb") as f:
             np.savez(f, **cols)
+            f.flush()
+            os.fsync(f.fileno())
         tmp.replace(path)
+        # The directory too: the caller's manifest rename, fsynced
+        # after this, is what lets the frames be acked.
+        fsync_dir(dir_path)
         with self._lock:
             self._saved_blocks = end
             self._segment_seq = seq

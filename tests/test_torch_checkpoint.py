@@ -13,6 +13,7 @@ replayed onto it would show. Tolerance 0 throughout.
 
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -490,6 +491,80 @@ def test_chain_compaction_folds_into_base(tmp_path):
     pipe2.cleanup()
 
 
+def test_compaction_persists_only_its_own_barriers_blocks(tmp_path):
+    """The writer's compaction saves the event segments up to the
+    delta's barrier, never the blocks appended after it (on the card a
+    later block's validity may still be being written on the compute
+    stream). Every save_segments call off the main thread carries the
+    job's mark."""
+    import threading
+
+    roster, frames = _mkframes(seed=73)
+    snap = tmp_path / "snaps"
+    config = _cfg(str(snap), every=1, snapshot_compact_every=1)
+    pipe = FusedPipeline(config, num_banks=4, device="cpu")
+    calls = []
+    real = pipe.store.save_segments
+
+    def record(dir_path, upto=None):
+        if threading.current_thread() is not threading.main_thread():
+            calls.append(upto)
+        return real(dir_path, upto=upto)
+
+    pipe.store.save_segments = record
+    pipe.preload(roster)
+    producer = pipe.client.create_producer(config.pulsar_topic)
+    for f in frames:
+        producer.send(f)
+    pipe.run(max_events=NUM_EVENTS, idle_timeout_s=0.3)
+    assert pipe._delta_seq >= 2  # compactions ran
+    assert calls and None not in calls
+    pipe2 = FusedPipeline(config, num_banks=4, device="cpu")
+    _assert_same(_state(pipe), _state(pipe2))
+    assert pipe2.validity_counts() == pipe.validity_counts()
+    pipe.cleanup()
+    pipe2.cleanup()
+
+
+def test_restore_numbers_deltas_past_a_compacted_base(tmp_path):
+    """A compaction deletes the deltas it folds and fences the base at
+    their sequence number. A successor restored from it (no preload)
+    numbers its deltas past that fence, so a second restore applies
+    them and equals the uninterrupted run (numbered from the files
+    alone, they would be skipped as stale and acked frames lost)."""
+    roster, frames = _mkframes(seed=79)
+    ref = _run(_cfg(), frames[:4], roster, max_events=4 * BATCH)
+    snap = tmp_path / "snaps"
+    config = _cfg(str(snap), every=1, snapshot_compact_every=2)
+    a = FusedPipeline(config, num_banks=4, device="cpu")
+    a.preload(roster)
+    producer = a.client.create_producer(config.pulsar_topic)
+    for f in frames[:3]:
+        # One frame per run: a base, then two deltas folded by a
+        # compaction.
+        producer.send(f)
+        a.run(max_events=BATCH, idle_timeout_s=0.2)
+    a.cleanup()
+    chain = json.loads((snap / CHAIN_MANIFEST).read_text())
+    with np.load(snap / SKETCH_SNAPSHOT) as data:
+        fence = json.loads(bytes(data["manifest"]).decode())["chain_seq"]
+    assert chain["deltas"] == [] and not list(snap.glob("delta-*.npz"))
+    assert fence >= 2
+    b = FusedPipeline(config, num_banks=4, device="cpu")
+    assert b._delta_seq == fence
+    producer = b.client.create_producer(config.pulsar_topic)
+    producer.send(frames[3])
+    b.run(max_events=BATCH, idle_timeout_s=0.2)
+    assert b.consumer.backlog() == 0
+    assert json.loads((snap / CHAIN_MANIFEST).read_text())["deltas"] == [
+        f"delta-{fence + 1:04d}.npz"]
+    c = FusedPipeline(config, num_banks=4, device="cpu")
+    _assert_same(_state(c), _state(ref))
+    assert c.validity_counts() == ref.validity_counts()
+    for p in (ref, b, c):
+        p.cleanup()
+
+
 def test_stale_deltas_after_base_replace_crash_are_skipped(tmp_path):
     roster, frames = _mkframes(seed=83)
     snap = tmp_path / "snaps"
@@ -793,6 +868,31 @@ def test_failed_segment_write_keeps_its_blocks_pending(tmp_path,
     assert again.load_segments(tmp_path) == 8
     assert [p.name for p in tmp_path.glob("segment-*.npz")] == \
         ["segment-00000001.npz"]
+
+
+def test_save_segments_fsyncs_file_and_directory(tmp_path, monkeypatch):
+    """A segment is durable before the caller's manifest rename acks its
+    frames: the file is fsynced before its rename, the directory after
+    it (the port's departure: the JAX store fsyncs neither)."""
+    from attendance_tpu_torch.storage import columnar_store
+
+    events = []
+    real_fsync, real_replace = columnar_store.os.fsync, Path.replace
+    monkeypatch.setattr(columnar_store.os, "fsync",
+                        lambda fd: (events.append("fsync"), real_fsync(fd)))
+    monkeypatch.setattr(Path, "replace",
+                        lambda self, t: (events.append("rename"),
+                                         real_replace(self, t))[1])
+    monkeypatch.setattr(columnar_store, "fsync_dir",
+                        lambda d: events.append(("dir", Path(d))))
+    store = ColumnarEventStore()
+    store.insert_columns({"student_id": np.arange(4, dtype=np.uint32),
+                          "lecture_day": np.full(4, 20260101, np.uint32),
+                          "micros": np.arange(4, dtype=np.int64),
+                          "is_valid": np.ones(4, bool),
+                          "event_type": np.zeros(4, np.int8)})
+    assert store.save_segments(tmp_path) == 4
+    assert events == ["fsync", "rename", ("dir", tmp_path)]
 
 
 def test_consumer_close_requeues_unacked_in_order():

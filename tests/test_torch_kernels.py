@@ -16,8 +16,10 @@ from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.models import bloom, cms, fused, hll
 from attendance_tpu_torch.ops import kernels
 from attendance_tpu_torch.pipeline.events import decode_planar_batch
-from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+from attendance_tpu_torch.pipeline.fast_path import (EVENTS_SEGMENTS,
+                                                     FusedPipeline)
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
+from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 
 pytestmark = pytest.mark.gpu
 
@@ -809,3 +811,37 @@ def test_checkpointed_pipeline_on_card_equals_cpu(mode, cuda, tmp_path):
     for name in ("student_id", "lecture_day", "micros", "is_valid"):
         np.testing.assert_array_equal(card[2][name], card[3][name])
         np.testing.assert_array_equal(card[3][name], cpu[3][name])
+
+
+def test_compaction_with_frames_in_flight_keeps_stored_validity(cuda,
+                                                                tmp_path):
+    """A compaction every delta while later frames' steps are still
+    queued on the compute stream: the writer persists only the blocks of
+    its own barrier (its side stream is ordered after that capture
+    alone), so the segments and the live store hold the CPU run's
+    validity, block for block."""
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        snap = tmp_path / str(device.type)
+        config = Config(bloom_filter_capacity=20_000, snapshot_mode="delta",
+                        snapshot_dir=str(snap), snapshot_every_batches=1,
+                        snapshot_compact_every=1)
+        pipe = FusedPipeline(config, num_banks=8, device=device)
+        roster, frames = generate_frames(98_304, 2_048, roster_size=20_000,
+                                         num_lectures=12, seed=4)
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=98_304, idle_timeout_s=0.3)
+        assert pipe.consumer.backlog() == 0
+        assert pipe._delta_seq >= 2
+        pipe.cleanup()
+        segs = ColumnarEventStore()
+        segs.load_segments(snap / EVENTS_SEGMENTS)
+        results.append((pipe.store.to_columns(deduplicate=False),
+                        segs.to_columns()))
+    (card, cpu) = results
+    for name in ("student_id", "lecture_day", "micros", "is_valid"):
+        np.testing.assert_array_equal(card[0][name], cpu[0][name])
+        np.testing.assert_array_equal(card[1][name], cpu[1][name])
