@@ -1,15 +1,29 @@
 """Command line of the port: ``python -m attendance_tpu_torch <verb>``.
 
-Counterpart of ``attendance_tpu/cli.py``'s ``fused`` and ``analyze``
-verbs. ``fused`` is a hermetic run of the hot path in one process: bulk
-binary load generator -> in-process broker -> FusedPipeline (roster
-preload, one fused kernel per frame, with ``--temporal-period-s > 0``
-the temporal plane, with ``--snapshot-dir`` checkpoints and a restore
-on start) -> the metrics summary (logged), the analyzer's insights, one
-PFCOUNT line per lecture day, then one JSON line of the run's numbers.
-``analyze`` prints the insights over a saved store (``--events-file``:
-a snapshot directory, its event segments, or a one-shot npz). Runs on
-the CUDA card unless ``--device cpu`` is given.
+Counterpart of ``attendance_tpu/cli.py``'s verbs:
+
+* ``fused``: a hermetic run of the hot path in one process: bulk
+  binary load generator -> in-process broker -> FusedPipeline (roster
+  preload, one fused kernel per frame, with ``--temporal-period-s > 0``
+  the temporal plane, with ``--snapshot-dir`` checkpoints and a restore
+  on start) -> the metrics summary (logged), the analyzer's insights,
+  one PFCOUNT line per lecture day, then one JSON line of the run's
+  numbers;
+* ``generate``, ``process``, ``pipeline``: the reference's generator
+  and processor over the generic sketch store (``--sketch-backend``:
+  ``tpu`` is the card store) and an event store
+  (``--storage-backend``); ``pipeline`` runs generate -> process ->
+  analyze in one process and logs each lecture's PFCOUNT;
+* ``stats``: PFCOUNT and the partition scan of one lecture, or one
+  student's records;
+* ``analyze``: the insights over a saved store (``--events-file``: a
+  snapshot directory, its event segments, a one-shot npz or a row
+  store's JSONL);
+* ``parity``: the card store against an oracle (``--oracle sim``, the
+  hermetic simulation of Redis's algorithms; ``--oracle redis``, a live
+  Redis Stack, exiting 2 when none is reachable).
+
+Runs on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,15 +31,25 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import sys
 from pathlib import Path
 from typing import Optional, Tuple
+
+import numpy as np
 
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.analyzer import AttendanceAnalyzer
 from attendance_tpu_torch.pipeline.fast_path import (
     EVENTS_SEGMENTS, EVENTS_SNAPSHOT, FusedPipeline)
+from attendance_tpu_torch.parity import (
+    RedisUnavailable, run_redis_parity, run_sim_parity)
+from attendance_tpu_torch.pipeline.generator import generate_student_data
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
+from attendance_tpu_torch.pipeline.processor import AttendanceProcessor
+from attendance_tpu_torch.sketch import make_sketch_store
+from attendance_tpu_torch.storage import MemoryEventStore, make_event_store
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
+from attendance_tpu_torch.transport import make_client
 
 logger = logging.getLogger(__name__)
 
@@ -105,11 +129,13 @@ def cmd_fused(args) -> None:
     print(json.dumps(summary))
 
 
-def _store_for_events_file(path: str) -> ColumnarEventStore:
-    """A columnar store loaded from ``path``: the fused pipeline's event
-    segments (a snapshot directory, its segments directory, or the
-    legacy ``fused_events.npz`` beside them, which never shadows them),
-    or a one-shot npz from ``ColumnarEventStore.save``."""
+def _store_for_events_file(config: Config, path: str):
+    """An event store loaded from ``path``, its format sniffed: the
+    fused pipeline's event segments (a snapshot directory, its segments
+    directory, or the legacy ``fused_events.npz`` beside them, which
+    never shadows them) and one-shot npz saves load into a columnar
+    store, a row store's JSONL into a row store; the configured backend
+    is swapped when the file disagrees with it."""
     p = Path(path)
     seg_dir = None
     if p.is_dir():
@@ -121,22 +147,271 @@ def _store_for_events_file(path: str) -> ColumnarEventStore:
             raise FileNotFoundError(f"no event segments in {p}")
     elif p.name == EVENTS_SNAPSHOT and (p.parent / EVENTS_SEGMENTS).is_dir():
         seg_dir = p.parent / EVENTS_SEGMENTS
-    store = ColumnarEventStore()
     if seg_dir is not None:
+        store = ColumnarEventStore()
         store.load_segments(seg_dir)
-    else:
-        store.load(p)
+        return store
+    store = make_event_store(config)
+    with open(p, "rb") as f:
+        is_npz = f.read(2) == b"PK"
+    is_columnar = hasattr(store, "insert_columns")
+    if is_npz and not is_columnar:
+        logger.info("events file is columnar npz; using the columnar "
+                    "store")
+        store = ColumnarEventStore()
+    elif not is_npz and is_columnar:
+        logger.info("events file is row JSONL; using the row store")
+        store = MemoryEventStore()
+    store.load(p)
     return store
 
 
+def _num_records(records) -> int:
+    """Record count of a scan (column dicts or row lists)."""
+    return (len(records["student_id"]) if isinstance(records, dict)
+            else len(records))
+
+
 def cmd_analyze(args) -> None:
-    store = (_store_for_events_file(args.events_file) if args.events_file
-             else ColumnarEventStore())
+    config = _config(args)
+    store = (_store_for_events_file(config, args.events_file)
+             if args.events_file else make_event_store(config))
     analyzer = AttendanceAnalyzer(store)
     try:
         analyzer.print_insights(analyzer.generate_insights())
     finally:
         analyzer.cleanup()
+
+
+def _config(args) -> Config:
+    """The Config of a generic-store verb's flags."""
+    return Config(
+        redis_host=args.redis_host, redis_port=args.redis_port,
+        cassandra_hosts=args.cassandra_hosts.split(","),
+        cassandra_keyspace=args.cassandra_keyspace,
+        bloom_filter_error_rate=args.bloom_error_rate,
+        bloom_filter_capacity=args.bloom_capacity,
+        hll_key_prefix=args.hll_key_prefix,
+        sketch_backend=args.sketch_backend,
+        storage_backend=args.storage_backend,
+        batch_size=args.batch_size, batch_timeout_s=args.batch_timeout_s,
+        bloom_layout=args.bloom_layout, hll_precision=args.hll_precision,
+        invalid_topic=args.invalid_topic,
+        max_redeliveries=args.max_redeliveries,
+        metrics_json=args.metrics_json,
+        snapshot_dir=args.snapshot_dir,
+        snapshot_every_batches=args.snapshot_every_batches,
+        snapshot_mode=args.snapshot_mode,
+        snapshot_compact_every=args.snapshot_compact_every)
+
+
+def cmd_generate(args) -> None:
+    config = _config(args)
+    client = make_client(config)
+    producer = client.create_producer(config.pulsar_topic)
+    sketch = make_sketch_store(config, args.device)
+    logger.info("Starting student attendance data generation...")
+    report = generate_student_data(
+        producer=producer, sketch_store=sketch,
+        bloom_key=config.bloom_filter_key,
+        num_students=args.num_students, num_invalid=args.num_invalid,
+        seed=args.seed, throttle_s=args.throttle_s, keep_events=False,
+        disorder_frac=args.disorder_frac, late_max_s=args.late_max_s)
+    logger.info("Generated %d messages (%d invalid attempts)",
+                report.message_count, report.invalid_attempts)
+    client.close()
+
+
+def cmd_process(args) -> None:
+    processor = AttendanceProcessor(_config(args), device=args.device)
+    try:
+        processor.process_attendance(
+            max_events=args.max_events,
+            idle_timeout_s=args.idle_timeout_s)
+    finally:
+        m = processor.metrics
+        logger.info(
+            "Processed %d events in %d batches (%.0f ev/s; %d valid, "
+            "%d invalid, %d nacked batches)", m.events, m.batches,
+            m.events_per_second, m.valid_events, m.invalid_events,
+            m.nacked_batches)
+        processor.cleanup()
+
+
+def run_pipeline(config: Config, num_students: int, num_invalid: int,
+                 seed: Optional[int] = None, disorder_frac: float = 0.0,
+                 late_max_s: float = 0.0, device=None, now=None):
+    """The pipeline verb's flow up to the analyzer: the processor's
+    Bloom setup, the generator publishing onto the processor's broker
+    (and preloading its store), then the processor draining the topic.
+    Returns (processor, generator report); the caller runs
+    ``cleanup()``."""
+    processor = AttendanceProcessor(config, device=device)
+    processor.setup_bloom_filter()
+    producer = processor.client.create_producer(config.pulsar_topic)
+    report = generate_student_data(
+        producer=producer, sketch_store=processor.sketch,
+        bloom_key=config.bloom_filter_key,
+        num_students=num_students, num_invalid=num_invalid,
+        now=now, seed=seed, keep_events=False,
+        disorder_frac=disorder_frac, late_max_s=late_max_s)
+    processor.process_attendance(max_events=report.message_count,
+                                 idle_timeout_s=1.0)
+    return processor, report
+
+
+def cmd_pipeline(args) -> None:
+    """Hermetic end-to-end run: generate -> process -> analyze in one
+    process."""
+    processor, report = run_pipeline(
+        _config(args), args.num_students, args.num_invalid, args.seed,
+        args.disorder_frac, args.late_max_s, args.device)
+    m = processor.metrics
+    logger.info("Processed %d/%d events (%.0f ev/s)", m.events,
+                report.message_count, m.events_per_second)
+    analyzer = AttendanceAnalyzer(processor.store)
+    analyzer.print_insights(analyzer.generate_insights())
+    for lecture_id in processor.store.distinct_lecture_ids():
+        stats = processor.get_attendance_stats(lecture_id)
+        logger.info("%s: %d unique attendees, %d records", lecture_id,
+                    stats["unique_attendees"],
+                    _num_records(stats["attendance_records"]))
+    processor.cleanup()
+
+
+def cmd_stats(args) -> None:
+    """PFCOUNT and the partition scan of one lecture (the reference's
+    get_attendance_stats) against the configured backends, or with
+    ``--student-id`` one student's records across every lecture."""
+    config = _config(args)
+    if args.student_id is None and not args.lecture_id:
+        # Checked before any backend is opened.
+        logger.error("stats needs a lecture_id or --student-id")
+        sys.exit(2)
+    if args.events_file:
+        store = _store_for_events_file(config, args.events_file)
+    else:
+        store = make_event_store(config)
+    if args.student_id is not None:
+        # The per-student scan never reads the sketch store, so it is
+        # not opened.
+        if args.lecture_id:
+            logger.warning(
+                "--student-id given: lecture_id %r is ignored "
+                "(per-student scan spans all lectures)",
+                args.lecture_id)
+        records = store.scan_student(args.student_id)
+        if isinstance(records, dict):
+            lectures = sorted(set(records["lecture_day"].tolist()))
+            n, nv = (len(records["student_id"]),
+                     int(sum(records["is_valid"])))
+        else:
+            lectures = sorted({r.lecture_id for r in records})
+            n, nv = len(records), sum(1 for r in records if r.is_valid)
+        print(f"Student {args.student_id}: {n} attendance records "
+              f"({nv} valid) across {len(lectures)} lectures")
+        return
+    sketch = make_sketch_store(config, args.device)
+    unique = sketch.pfcount(f"{config.hll_key_prefix}{args.lecture_id}")
+    records = store.scan_lecture(args.lecture_id)
+    num = _num_records(records)
+    source = "HLL estimate"
+    if unique == 0 and num > 0:
+        # The tpu and memory sketch stores hold HLL state only in the
+        # process that made it: answer exactly from the partition scan,
+        # and say so on the line.
+        sids = (records["student_id"] if isinstance(records, dict)
+                else [r.student_id for r in records])
+        unique = len(np.unique(np.asarray(sids)))
+        source = "exact, from stored partition; no HLL state"
+        logger.info("sketch backend holds no HLL state for this key; "
+                    "unique count derived exactly from the stored "
+                    "partition")
+    print(f"Lecture {args.lecture_id}: {unique} unique attendees "
+          f"({source}), {num} attendance records")
+
+
+def cmd_parity(args) -> None:
+    """Differential parity run of the card store against an oracle:
+    ``--oracle sim`` (default, hermetic) or ``--oracle redis`` (exits 2
+    when no Redis Stack is reachable)."""
+    config = _config(args)
+    kwargs = dict(num_events=args.num_events,
+                  roster_size=args.roster_size,
+                  num_lectures=args.num_lectures, seed=args.seed)
+    if args.oracle == "redis":
+        try:
+            report = run_redis_parity(config, args.device, **kwargs)
+        except RedisUnavailable as e:
+            logger.error("parity run needs a Redis Stack server: %s", e)
+            sys.exit(2)
+    else:
+        report = run_sim_parity(config, args.device, **kwargs)
+    print(report.summary())
+    if not report.ok:
+        sys.exit(1)
+
+
+def _add_store_flags(p: argparse.ArgumentParser) -> None:
+    """The flags of the generic-store verbs."""
+    d = Config()
+    p.add_argument("--device", default=None,
+                   help="torch device of the card store (default: the "
+                   "CUDA card; 'cpu' runs the kernels' plain PyTorch "
+                   "versions)")
+    p.add_argument("--sketch-backend",
+                   choices=["redis", "tpu", "memory", "redis-sim"],
+                   default=d.sketch_backend,
+                   help="backend of BF.*/PFADD/PFCOUNT: tpu = the card "
+                   "store; redis-sim = the hermetic simulation of "
+                   "Redis's algorithms, the server-free parity oracle")
+    p.add_argument("--storage-backend",
+                   choices=["memory", "columnar", "cassandra"],
+                   default=d.storage_backend)
+    p.add_argument("--redis-host", default=d.redis_host)
+    p.add_argument("--redis-port", type=int, default=d.redis_port)
+    p.add_argument("--cassandra-hosts", default=",".join(d.cassandra_hosts))
+    p.add_argument("--cassandra-keyspace", default=d.cassandra_keyspace)
+    p.add_argument("--bloom-error-rate", type=float,
+                   default=d.bloom_filter_error_rate)
+    p.add_argument("--bloom-capacity", type=int,
+                   default=d.bloom_filter_capacity)
+    p.add_argument("--bloom-layout", choices=["flat", "blocked"],
+                   default=d.bloom_layout)
+    p.add_argument("--hll-key-prefix", default=d.hll_key_prefix)
+    p.add_argument("--hll-precision", type=int, default=d.hll_precision)
+    p.add_argument("--batch-size", type=int, default=d.batch_size)
+    p.add_argument("--batch-timeout-s", type=float,
+                   default=d.batch_timeout_s)
+    p.add_argument("--snapshot-dir", default=d.snapshot_dir)
+    p.add_argument("--snapshot-every-batches", type=int,
+                   default=d.snapshot_every_batches)
+    p.add_argument("--snapshot-mode", choices=["barrier", "delta"],
+                   default=d.snapshot_mode)
+    p.add_argument("--snapshot-compact-every", type=int,
+                   default=d.snapshot_compact_every)
+    p.add_argument("--invalid-topic", default=d.invalid_topic,
+                   help="side topic the processor republishes computed-"
+                   "invalid events to (empty = off)")
+    p.add_argument("--max-redeliveries", type=int,
+                   default=d.max_redeliveries)
+    p.add_argument("--metrics-json", default=d.metrics_json,
+                   help="append one JSON metrics line per processor run "
+                   "to this file")
+
+
+def _add_generate_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--num-students", type=int, default=1000)
+    p.add_argument("--num-invalid", type=int, default=50)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--throttle-s", type=float, default=0.0,
+                   help="per-record sleep (reference behavior: 0.1-0.5)")
+    p.add_argument("--disorder-frac", type=float, default=0.0,
+                   help="fraction of events emitted out of order (arrival "
+                   "delayed by up to --late-max-s of event time)")
+    p.add_argument("--late-max-s", type=float, default=0.0,
+                   help="max event-time lateness for --disorder-frac "
+                   "events (seconds)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -213,10 +488,49 @@ def build_parser() -> argparse.ArgumentParser:
                    "(verification still runs where digests exist)")
     f.set_defaults(fn=cmd_fused)
     a = sub.add_parser("analyze", help="batch insights over a saved store")
+    _add_store_flags(a)
     a.add_argument("--events-file", default="",
-                   help="snapshot directory, event segments directory or "
-                   "one-shot npz to load first")
+                   help="snapshot directory, event segments directory, "
+                   "one-shot npz or row-store JSONL to load first")
     a.set_defaults(fn=cmd_analyze)
+    g = sub.add_parser("generate", help="produce synthetic swipe events")
+    _add_store_flags(g)
+    _add_generate_flags(g)
+    g.set_defaults(fn=cmd_generate)
+    pr = sub.add_parser("process", help="run the stream processor")
+    _add_store_flags(pr)
+    pr.add_argument("--max-events", type=int, default=None)
+    pr.add_argument("--idle-timeout-s", type=float, default=None)
+    pr.set_defaults(fn=cmd_process)
+    pl = sub.add_parser("pipeline", help="hermetic end-to-end run: "
+                        "generate -> process -> analyze")
+    _add_store_flags(pl)
+    _add_generate_flags(pl)
+    pl.set_defaults(fn=cmd_pipeline)
+    st = sub.add_parser(
+        "stats", help="PFCOUNT + partition scan for one lecture, or a "
+        "per-student record summary with --student-id")
+    _add_store_flags(st)
+    st.add_argument("lecture_id", nargs="?", default="",
+                    help="lecture id, e.g. LECTURE_20260101")
+    st.add_argument("--student-id", type=int, default=None,
+                    help="per-student summary instead of a lecture scan")
+    st.add_argument("--events-file", default="",
+                    help="load events from a saved store file first")
+    st.set_defaults(fn=cmd_stats)
+    pa = sub.add_parser(
+        "parity", help="differential card-store-vs-oracle accuracy check "
+        "(--oracle sim is hermetic; --oracle redis needs a Redis Stack "
+        "and exits 2 when none is reachable)")
+    _add_store_flags(pa)
+    pa.add_argument("--oracle", choices=["sim", "redis"], default="sim",
+                    help="sim = hermetic Redis-algorithm simulation; "
+                    "redis = live Redis Stack")
+    pa.add_argument("--num-events", type=int, default=50_000)
+    pa.add_argument("--roster-size", type=int, default=10_000)
+    pa.add_argument("--num-lectures", type=int, default=4)
+    pa.add_argument("--seed", type=int, default=0)
+    pa.set_defaults(fn=cmd_parity)
     return p
 
 

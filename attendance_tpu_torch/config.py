@@ -1,29 +1,75 @@
-"""Configuration of the port's fused path.
+"""Configuration of the port.
 
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
-path, its checkpoint chain and its temporal plane read, with the JAX
-package's defaults and checks (reference README: a 100k-student roster at a 1% false-positive
-rate; Redis dense HLL precision 14).
+path, its checkpoint chain, its temporal plane, the generic sketch store
+and the processor read, with the JAX package's defaults and checks
+(reference README: a 100k-student roster at a 1% false-positive rate;
+Redis dense HLL precision 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 from attendance_tpu_torch.temporal.buckets import period_micros
 
 PULSAR_TOPIC = "attendance-events"
+REDIS_HOST = "localhost"
+REDIS_PORT = 6379
+CASSANDRA_HOSTS = ["localhost"]
+CASSANDRA_KEYSPACE = "attendance_system"
+BLOOM_FILTER_KEY = "bf:students"
 BLOOM_FILTER_ERROR_RATE = 0.01
 BLOOM_FILTER_CAPACITY = 100_000
+HLL_KEY_PREFIX = "hll:unique:"
 
 
 @dataclasses.dataclass
 class Config:
     pulsar_topic: str = PULSAR_TOPIC
+    redis_host: str = REDIS_HOST
+    redis_port: int = REDIS_PORT
+    cassandra_hosts: List[str] = dataclasses.field(
+        default_factory=lambda: list(CASSANDRA_HOSTS))
+    cassandra_keyspace: str = CASSANDRA_KEYSPACE
+    bloom_filter_key: str = BLOOM_FILTER_KEY
     bloom_filter_error_rate: float = BLOOM_FILTER_ERROR_RATE
     bloom_filter_capacity: int = BLOOM_FILTER_CAPACITY
+    hll_key_prefix: str = HLL_KEY_PREFIX
+    # Backend of the generic sketch store (BF.*/PFADD/PFCOUNT): "tpu" =
+    # the card store (the JAX package's flag value), "memory" = host
+    # numpy sketches, "redis" = Redis Stack (import-gated), "redis-sim" =
+    # the hermetic simulation of Redis's algorithms.
+    sketch_backend: str = "tpu"
+    # Transport of the processor: "memory" (the in-process broker). The
+    # socket and pulsar transports are not ported yet.
+    transport_backend: str = "memory"
+    # Event store of the processor: "memory" (rows), "columnar" or
+    # "cassandra" (import-gated).
+    storage_backend: str = "memory"
+    # Processor micro-batch: at most this many events, or what arrived
+    # when batch_timeout_s expires.
+    batch_size: int = 8192
+    batch_timeout_s: float = 0.05
+    # Bloom layout of the generic store: "flat" (double-hashed over the
+    # whole filter, Redis-parity FPR math) or "blocked" (one 512-bit
+    # block per key). The fused path is blocked-only.
+    bloom_layout: str = "flat"
     # HLL precision: p=14 -> 16384 registers, matching Redis dense HLL.
     hll_precision: int = 14
+    # HLL banks the card store starts with (one per key, doubled on
+    # demand).
+    hll_initial_banks: int = 8
+    # Optional side topic the processor republishes computed-invalid
+    # events to ("" = off); the stored row keeps is_valid=false either
+    # way.
+    invalid_topic: str = ""
+    # A frame that fails to decode is nacked for redelivery at most this
+    # many times, then dead-lettered (acked and counted).
+    max_redeliveries: int = 3
+    # Append one JSON metrics line per processor run to this file.
+    metrics_json: str = ""
     # Host->device wire of the fused step: "auto" starts on the 4-byte
     # word wire and, with the native host pack, climbs to the narrower
     # seg (kb bits/event) and delta (db bits/event) wires while the card
@@ -77,6 +123,25 @@ class Config:
     integrity: bool = True
 
     def __post_init__(self):
+        if self.sketch_backend not in ("tpu", "memory", "redis",
+                                       "redis-sim"):
+            raise ValueError(f"unknown sketch backend: {self.sketch_backend}")
+        if self.transport_backend not in ("memory", "socket", "pulsar"):
+            raise ValueError(
+                f"unknown transport backend: {self.transport_backend}")
+        if self.storage_backend not in ("memory", "columnar", "cassandra"):
+            raise ValueError(
+                f"unknown storage backend: {self.storage_backend}")
+        if self.bloom_layout not in ("flat", "blocked"):
+            raise ValueError(f"unknown bloom layout: {self.bloom_layout}")
+        if self.batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        if self.invalid_topic and self.invalid_topic == self.pulsar_topic:
+            # Republishing invalid events onto the processor's own
+            # input topic would re-consume and republish them forever.
+            raise ValueError(
+                "invalid_topic must differ from pulsar_topic (equal "
+                "topics make an unbounded reprocessing loop)")
         if not (4 <= self.hll_precision <= 18):
             raise ValueError(
                 f"hll precision out of range: {self.hll_precision}")

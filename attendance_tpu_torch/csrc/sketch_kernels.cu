@@ -1,16 +1,25 @@
-// Hand-written Hopper kernels for the fused attendance hot path.
+// Hand-written Hopper kernels for the attendance sketches: the fused hot
+// path and the generic sketch store.
 //
-// Six kernels (K2 in three wire variants), each bound through a plain C
-// entry point (ctypes, see ops/build.py and ops/kernels.py). Every entry
-// point launches on the stream it is given, allocates nothing, and
-// returns cudaGetLastError() so a refused launch is reported to the
-// caller.
+// Eight kernels (K1 in three forms, K2 in three wire variants), each
+// bound through a plain C entry point (ctypes, see ops/build.py and
+// ops/kernels.py). Every entry point launches on the stream it is given,
+// allocates nothing, and returns cudaGetLastError() so a refused launch
+// is reported to the caller.
 //
 //   K1 atp_hll_histogram  register-value histogram per HLL bank, one CTA
 //                         per bank counting into per-thread shared-memory
 //                         counters (replaces the Pallas
 //                         hll_histogram_pallas,
 //                         attendance_tpu/ops/pallas_kernels.py:373-406)
+//      atp_hll_histogram_rows  the same over a list of banks, CTA b
+//                         counting bank rows[b] (replaces the generic
+//                         store's gather + histogram,
+//                         attendance_tpu/sketch/tpu_store.py:102-124)
+//      atp_hll_union_histogram  histogram of the register max over a list
+//                         of banks, a grid over register slices
+//                         (replaces HyperLogLog.count_union,
+//                         attendance_tpu/models/hll.py:363-372)
 //   K2 atp_fused_step     Bloom probe + HLL register max + validity
 //                         counters over one frame, word or bytes wire;
 //                         each key's 64-byte Bloom block is read once,
@@ -44,6 +53,11 @@
 //   K6 atp_cms_step       Count-Min update, then query, two launches
 //                         (replaces the XLA cms_step,
 //                         attendance_tpu/models/cms.py:116)
+//   K7 atp_bloom_add_bytes  BF.ADD into the byte-per-bit filter, flat or
+//                         blocked (replaces the XLA bloom_add,
+//                         attendance_tpu/models/bloom.py:143)
+//   K8 atp_bloom_contains_bytes  BF.EXISTS against it (replaces the XLA
+//                         bloom_contains, attendance_tpu/models/bloom.py:158)
 //
 // The hash is MurmurHash3_x86_32 of each key's 4 little-endian bytes,
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
@@ -207,15 +221,21 @@ __device__ __forceinline__ void hist_load(const uint4* __restrict__ row,
   }
 }
 
+// rows == nullptr: CTA b counts bank b (K1). Else CTA b counts bank
+// rows[b], clamped into [0, num_banks) as a JAX gather clamps (K1-rows).
 __global__ void __launch_bounds__(kThreads)
 hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
+                     const int32_t* __restrict__ rows, int num_banks,
                      int32_t* __restrict__ out) {
   extern __shared__ uint4 hist_smem[];
   uint32_t* counts = reinterpret_cast<uint32_t*>(hist_smem);
   const int tid = static_cast<int>(threadIdx.x);
   const int nvec = m / 16;
+  const int bank = rows == nullptr
+                       ? static_cast<int>(blockIdx.x)
+                       : min(max(__ldg(rows + blockIdx.x), 0), num_banks - 1);
   const uint4* row = reinterpret_cast<const uint4*>(
-      regs + static_cast<size_t>(blockIdx.x) * static_cast<size_t>(m));
+      regs + static_cast<size_t>(bank) * static_cast<size_t>(m));
   uint4 x[kHistVec];
   hist_load(row, tid, nvec, x);  // in flight while the counters clear
   for (int i = tid; i < kHistRows * kThreads / 4; i += kThreads) {
@@ -993,7 +1013,192 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
   est[i] = m;
 }
 
+
+// ---------------------------------------------------------------------------
+// K7 and K8: the byte-per-bit Bloom filter of the generic sketch store,
+// uint8[m_bits] holding 0 or 1 per filter bit (replace the XLA programs
+// bloom_add and bloom_contains, attendance_tpu/models/bloom.py:143,158,
+// jitted in sketch/tpu_store.py:59-76). Probe positions are those of the
+// packed filter: flat (h1 + j*h2) mod m_bits, the sum wrapping mod 2^32
+// before the modulo as jnp.uint32 does (m_bits is not a power of two);
+// blocked (h1 mod num_blocks) * 512 + ((h2 + j*h3) & 511). One thread per
+// key. K7 stores byte 1 at each probe with plain stores: every store
+// writes the same value, so racing stores of duplicate keys or shared
+// positions are benign and no atomic is needed. K8 ANDs the key's k
+// probe bytes; its loads do not wait on each other (no early exit, so the
+// unrolled loads are in flight together). Bound: bytes, 4 B of key per
+// lane and one 32-byte sector per distinct probe (K8: and 1 B out); the
+// 100k-roster filter (958,976 bytes) stays in L2.
+// ---------------------------------------------------------------------------
+constexpr uint32_t kBlockBits = 512;
+
+// The filter byte of probe j of a key, for divisor d (m_bits when flat,
+// num_blocks when blocked) with magic = fastmod_magic(d).
+template <bool kBlocked>
+__device__ __forceinline__ uint32_t byte_probe(uint32_t h1, uint32_t h2,
+                                               uint32_t h3, uint32_t j,
+                                               uint32_t d, uint64_t magic) {
+  if (kBlocked) {
+    return fastmod(h1, magic, d) * kBlockBits + ((h2 + j * h3) & 511u);
+  }
+  return fastmod(h1 + j * h2, magic, d);
+}
+
+template <bool kBlocked>
+__global__ void __launch_bounds__(kThreads)
+bloom_add_bytes_kernel(uint8_t* bits, uint32_t d, uint64_t magic, int k,
+                       const uint32_t* __restrict__ keys,
+                       const uint8_t* __restrict__ mask, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n || (mask != nullptr && mask[i] == 0)) return;
+  const uint32_t key = keys[i];
+  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
+  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
+  const uint32_t h3 = kBlocked ? murmur3_u32(key, kSeedBlock) | 1u : 0u;
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    bits[byte_probe<kBlocked>(h1, h2, h3, static_cast<uint32_t>(j), d,
+                              magic)] = 1u;
+  }
+}
+
+template <bool kBlocked>
+__global__ void __launch_bounds__(kThreads)
+bloom_contains_bytes_kernel(const uint8_t* __restrict__ bits, uint32_t d,
+                            uint64_t magic, int k,
+                            const uint32_t* __restrict__ keys, int n,
+                            uint8_t* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t key = keys[i];
+  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
+  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
+  const uint32_t h3 = kBlocked ? murmur3_u32(key, kSeedBlock) | 1u : 0u;
+  bool hit = true;
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    hit &= __ldg(bits + byte_probe<kBlocked>(h1, h2, h3,
+                                             static_cast<uint32_t>(j), d,
+                                             magic)) == 1u;
+  }
+  out[i] = hit ? 1u : 0u;
+}
+
+// ---------------------------------------------------------------------------
+// K1-union: histogram of the register max over a list of banks (replaces
+// HyperLogLog.count_union's XLA hll_merge chain and histogram,
+// attendance_tpu/models/hll.py:363-372). A grid over register slices of
+// kUnionSlice (128) registers, so a 2^14-register union is 128 CTAs: each
+// thread owns one 16-byte vector of the slice, and the CTA's 32 thread
+// groups split the listed rows between them, each keeping a running
+// per-byte max (__vmaxu4) with its loads issued four rows at a time. The
+// groups' maxima meet in shared memory; each register's value is counted
+// into shared bins, and each CTA adds its nonzero bins to the int32 output
+// (zeroed by the entry point) with global atomics. Rows are staged through
+// shared memory in chunks, clamped into [0, num_banks) as a JAX gather
+// clamps, so the register loads do not wait on a row index load. Bound:
+// bytes, every listed row's 2^p registers read once (1,024 rows at p = 14:
+// 16 MiB, 5 us at 3.35 TB/s); one CTA per union would put all of it
+// through one SM.
+// ---------------------------------------------------------------------------
+constexpr int kUnionLanes = 8;                       // threads per slice
+constexpr int kUnionGroups = kThreads / kUnionLanes;  // row groups per CTA
+constexpr int kUnionSlice = kUnionLanes * 16;         // registers per CTA
+constexpr int kUnionRowChunk = 1024;                  // rows staged at once
+
+__global__ void __launch_bounds__(kThreads)
+hll_union_histogram_kernel(const uint8_t* __restrict__ regs, int num_banks,
+                           int m, const int32_t* __restrict__ rows,
+                           int num_rows, int num_bins,
+                           int32_t* __restrict__ out) {
+  __shared__ uint4 part[kUnionGroups * kUnionLanes];
+  __shared__ int32_t srows[kUnionRowChunk];
+  __shared__ uint32_t bins[kHistRows];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid % kUnionLanes;
+  const int group = tid / kUnionLanes;
+  const int nvec = m / 16;
+  const int vec = static_cast<int>(blockIdx.x) * kUnionLanes + lane;
+  if (tid < kHistRows) bins[tid] = 0u;
+  uint32_t mx[4] = {0u, 0u, 0u, 0u};
+  for (int base = 0; base < num_rows; base += kUnionRowChunk) {
+    const int count = min(kUnionRowChunk, num_rows - base);
+    __syncthreads();  // the previous chunk's rows are read
+    for (int r = tid; r < count; r += kThreads) {
+      srows[r] = min(max(__ldg(rows + base + r), 0), num_banks - 1);
+    }
+    __syncthreads();
+    if (vec < nvec) {
+      int r = group;
+      for (; r + 3 * kUnionGroups < count; r += 4 * kUnionGroups) {
+        uint4 x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          x[u] = __ldg(reinterpret_cast<const uint4*>(
+                           regs + static_cast<size_t>(
+                                      srows[r + u * kUnionGroups]) *
+                                      static_cast<size_t>(m)) +
+                       vec);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          mx[0] = __vmaxu4(mx[0], x[u].x);
+          mx[1] = __vmaxu4(mx[1], x[u].y);
+          mx[2] = __vmaxu4(mx[2], x[u].z);
+          mx[3] = __vmaxu4(mx[3], x[u].w);
+        }
+      }
+      for (; r < count; r += kUnionGroups) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(
+                                  regs + static_cast<size_t>(srows[r]) *
+                                             static_cast<size_t>(m)) +
+                              vec);
+        mx[0] = __vmaxu4(mx[0], x.x);
+        mx[1] = __vmaxu4(mx[1], x.y);
+        mx[2] = __vmaxu4(mx[2], x.z);
+        mx[3] = __vmaxu4(mx[3], x.w);
+      }
+    }
+  }
+  part[group * kUnionLanes + lane] = make_uint4(mx[0], mx[1], mx[2], mx[3]);
+  __syncthreads();
+  if (tid < kUnionSlice) {
+    // Register tid of the slice: byte tid % 16 of lane tid / 16's vector.
+    const int l = tid / 16;
+    const int byte = tid % 16;
+    if (static_cast<int>(blockIdx.x) * kUnionSlice + tid < m) {
+      uint32_t v = 0u;
+#pragma unroll 8
+      for (int g = 0; g < kUnionGroups; ++g) {
+        v = max(v, static_cast<uint32_t>(reinterpret_cast<const uint8_t*>(
+                       &part[g * kUnionLanes + l])[byte]));
+      }
+      if (v < static_cast<uint32_t>(num_bins)) atomicAdd(&bins[v], 1u);
+    }
+  }
+  __syncthreads();
+  if (tid < num_bins && bins[tid] != 0u) {
+    atomicAdd(out + tid, static_cast<int32_t>(bins[tid]));
+  }
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// K1 and K1-rows: one CTA per listed bank (see hll_histogram_kernel).
+int launch_histogram(const void* regs, int num_banks, int m,
+                     const int32_t* rows, int num_out, int num_bins, void* out,
+                     cudaStream_t stream) {
+  if (num_out > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hll_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kHistSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hll_histogram_kernel<<<num_out, kThreads, kHistSmem, stream>>>(
+        static_cast<const uint8_t*>(regs), m, num_bins, rows, num_banks,
+        static_cast<int32_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Dynamic shared memory a kernel takes without opting in (the K2
 // kernels' static shared memory is about 17 KB of the 48 KB default).
@@ -1087,14 +1292,34 @@ extern "C" {
 
 int atp_hll_histogram(const void* regs, void* out, int num_banks, int m,
                       int num_bins, void* stream) {
-  if (num_banks > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hll_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kHistSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hll_histogram_kernel<<<num_banks, kThreads, kHistSmem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(regs), m, num_bins,
+  return launch_histogram(regs, num_banks, m, nullptr, num_banks, num_bins,
+                          out, static_cast<cudaStream_t>(stream));
+}
+
+// K1-rows: out[b] is the histogram of bank rows[b] of regs[num_banks, m].
+int atp_hll_histogram_rows(const void* regs, int num_banks, int m,
+                           const void* rows, int num_rows, int num_bins,
+                           void* out, void* stream) {
+  return launch_histogram(regs, num_banks, m,
+                          static_cast<const int32_t*>(rows), num_rows,
+                          num_bins, out, static_cast<cudaStream_t>(stream));
+}
+
+// K1-union: out[num_bins] (zeroed here, then added to by every CTA) is
+// the histogram of the register max over banks rows[0 .. num_rows).
+int atp_hll_union_histogram(const void* regs, int num_banks, int m,
+                            const void* rows, int num_rows, int num_bins,
+                            void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(int32_t) * static_cast<size_t>(num_bins), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_rows > 0) {
+    const int nvec = m / 16;
+    hll_union_histogram_kernel<<<(nvec + kUnionLanes - 1) / kUnionLanes,
+                                 kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(regs), num_banks, m,
+        static_cast<const int32_t*>(rows), num_rows, num_bins,
         static_cast<int32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
@@ -1165,6 +1390,49 @@ int atp_bloom_add(void* words, const void* keys, int n,
   } else if (n > 0) {
     return launch_bloom_add(w, kk, n, num_blocks, k, log2_bpt, chunk,
                             static_cast<uint32_t*>(scratch), s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: blocked != 0 selects the blocked layout, else flat. mask may be
+// null (every key is added).
+int atp_bloom_add_bytes(void* bits, unsigned int m_bits, int k, int blocked,
+                        const void* keys, const void* mask, int n,
+                        void* stream) {
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    uint8_t* b = static_cast<uint8_t*>(bits);
+    const uint32_t* kk = static_cast<const uint32_t*>(keys);
+    const uint8_t* mm = static_cast<const uint8_t*>(mask);
+    if (blocked) {
+      const uint32_t num_blocks = m_bits / kBlockBits;
+      bloom_add_bytes_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+          b, num_blocks, fastmod_magic(num_blocks), k, kk, mm, n);
+    } else {
+      bloom_add_bytes_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+          b, m_bits, fastmod_magic(m_bits), k, kk, mm, n);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: out[n] is 1 where every probe byte of keys[i] is 1.
+int atp_bloom_contains_bytes(const void* bits, unsigned int m_bits, int k,
+                             int blocked, const void* keys, int n, void* out,
+                             void* stream) {
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint8_t* b = static_cast<const uint8_t*>(bits);
+    const uint32_t* kk = static_cast<const uint32_t*>(keys);
+    uint8_t* o = static_cast<uint8_t*>(out);
+    if (blocked) {
+      const uint32_t num_blocks = m_bits / kBlockBits;
+      bloom_contains_bytes_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+          b, num_blocks, fastmod_magic(num_blocks), k, kk, n, o);
+    } else {
+      bloom_contains_bytes_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+          b, m_bits, fastmod_magic(m_bits), k, kk, n, o);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,8 @@ _U = ctypes.c_uint
 # name -> argtypes of every C entry point (see csrc/sketch_kernels.cu).
 SIGNATURES = {
     "atp_hll_histogram": (_P, _P, _I, _I, _I, _P),
+    "atp_hll_histogram_rows": (_P, _I, _I, _P, _I, _I, _P, _P),
+    "atp_hll_union_histogram": (_P, _I, _I, _P, _I, _I, _P, _P),
     "atp_fused_step": (_P, _I, _I, _I, _P, _U, _I, _P, _I, _I, _P, _P, _P),
     "atp_fused_step_seg": (_P, _I, _I, _I, _P, _U, _I, _P, _I, _I, _P, _P,
                            _P),
@@ -41,6 +43,8 @@ SIGNATURES = {
     "atp_bloom_contains": (_P, _U, _I, _P, _I, _P, _P),
     "atp_hll_add": (_P, _I, _I, _P, _P, _P, _I, _P),
     "atp_cms_step": (_P, _I, _U, _P, _P, _I, _P, _P),
+    "atp_bloom_add_bytes": (_P, _U, _I, _I, _P, _P, _I, _P),
+    "atp_bloom_contains_bytes": (_P, _U, _I, _I, _P, _I, _P, _P),
 }
 
 

@@ -18,7 +18,8 @@ from typing import Optional
 import torch
 
 from attendance_tpu_torch.models.bloom import (
-    BLOCK_BITS, BloomParams, bloom_add_packed_plain, bloom_contains_words)
+    BLOCK_BITS, BloomParams, bloom_add_packed_plain, bloom_add_plain,
+    bloom_contains_plain, bloom_contains_words)
 from attendance_tpu_torch.models import cms, hll
 from attendance_tpu_torch.ops.build import library
 from attendance_tpu_torch.ops.murmur3 import MASK32, as_u32, to_i32
@@ -26,7 +27,9 @@ from attendance_tpu_torch.ops.murmur3 import MASK32, as_u32, to_i32
 # Kernel launches since the last reset_launches(), by wrapper name.
 launches = {"hll_histogram": 0, "fused_step": 0, "fused_step_seg": 0,
             "fused_step_delta": 0, "bloom_add": 0, "bloom_contains": 0,
-            "hll_add": 0, "cms_step": 0}
+            "hll_add": 0, "cms_step": 0, "bloom_add_bytes": 0,
+            "bloom_contains_bytes": 0, "hll_histogram_rows": 0,
+            "hll_union_histogram": 0}
 
 
 def reset_launches() -> None:
@@ -101,6 +104,87 @@ def hll_histogram(regs: torch.Tensor, precision: int = 14) -> torch.Tensor:
             num_bins, _stream(regs))
     _check_launch(rc, "atp_hll_histogram")
     launches["hll_histogram"] += 1
+    return out
+
+
+def _check_rows(regs: torch.Tensor, rows: torch.Tensor,
+                precision: int) -> None:
+    _require(regs.dtype == torch.uint8 and regs.dim() == 2
+             and 4 <= precision <= 18 and regs.shape[1] == 1 << precision,
+             f"regs must be uint8[num_banks, 2^{precision}]")
+    _require(rows.dtype == torch.int32 and rows.dim() == 1,
+             "rows must be int32[R]")
+    _require(rows.shape[0] == 0 or regs.shape[0] >= 1,
+             "rows of an empty bank array")
+
+
+def hll_histogram_rows(regs: torch.Tensor, rows: torch.Tensor,
+                       precision: int = 14) -> torch.Tensor:
+    """int32[R, q+2] register-value histograms of banks ``rows``
+    (int32[R], any order, repeats allowed; a row outside the bank range
+    is clamped into it, as a JAX gather clamps).
+
+    Replaces the generic store's XLA gather and histogram
+    (``TpuSketchStore.pfcount_many``, attendance_tpu/sketch/
+    tpu_store.py:102-124: ``regs[known]`` then ``best_histogram``) and
+    ``HyperLogLog.count``'s row slice (attendance_tpu/models/
+    hll.py:354-361). Bound: bytes, each listed row read once (1,024 rows
+    at p = 14: 16 MiB, 5.0 us at 3.35 TB/s). Design: K1's body (one CTA
+    per listed bank) with CTA b reading bank ``rows[b]``, so no gathered
+    copy of the rows is made: one load of the row index before K1's
+    loads.
+    """
+    _check_rows(regs, rows, precision)
+    if regs.device.type == "cpu" and rows.device.type == "cpu":
+        return hll.hll_histogram_rows_plain(regs, rows, precision)
+    _require_cuda(regs, rows)
+    _require(regs.data_ptr() % 16 == 0, "regs must be 16-byte aligned")
+    num_bins = 64 - precision + 2
+    out = torch.empty((rows.shape[0], num_bins), dtype=torch.int32,
+                      device=regs.device)
+    if rows.shape[0] == 0:
+        return out
+    with torch.cuda.device(regs.device):
+        rc = library().atp_hll_histogram_rows(
+            regs.data_ptr(), regs.shape[0], regs.shape[1], rows.data_ptr(),
+            rows.shape[0], num_bins, out.data_ptr(), _stream(regs))
+    _check_launch(rc, "atp_hll_histogram_rows")
+    launches["hll_histogram_rows"] += 1
+    return out
+
+
+def hll_union_histogram(regs: torch.Tensor, rows: torch.Tensor,
+                        precision: int = 14) -> torch.Tensor:
+    """int32[q+2] register-value histogram of the register max over
+    banks ``rows`` (int32[R], R >= 1, clamped as in
+    :func:`hll_histogram_rows`): the multi-key PFCOUNT's histogram.
+
+    Replaces ``HyperLogLog.count_union``'s XLA ``hll_merge`` chain and
+    histogram (attendance_tpu/models/hll.py:363-372). Bound: bytes, each
+    listed row read once (2 rows: 32 KB; 1,024 rows: 16 MiB, 5.0 us at
+    3.35 TB/s). Design: a grid over slices of 128 registers (128 CTAs at
+    p = 14, never one CTA per union, which would put all rows through
+    one SM); in a CTA each thread owns one 16-byte vector of the slice
+    and 32 thread groups split the rows, keeping per-byte maxima
+    (``__vmaxu4``) with four rows' loads in flight; the maxima meet in
+    shared memory, are counted into shared bins, and each CTA adds its
+    bins to the output with global atomics (the entry point zeroes the
+    output first). One wrapper call is one launch in :data:`launches`.
+    """
+    _check_rows(regs, rows, precision)
+    _require(rows.shape[0] >= 1, "a union of no rows")
+    if regs.device.type == "cpu" and rows.device.type == "cpu":
+        return hll.hll_union_histogram_plain(regs, rows, precision)
+    _require_cuda(regs, rows)
+    _require(regs.data_ptr() % 16 == 0, "regs must be 16-byte aligned")
+    num_bins = 64 - precision + 2
+    out = torch.empty(num_bins, dtype=torch.int32, device=regs.device)
+    with torch.cuda.device(regs.device):
+        rc = library().atp_hll_union_histogram(
+            regs.data_ptr(), regs.shape[0], regs.shape[1], rows.data_ptr(),
+            rows.shape[0], num_bins, out.data_ptr(), _stream(regs))
+    _check_launch(rc, "atp_hll_union_histogram")
+    launches["hll_union_histogram"] += 1
     return out
 
 
@@ -694,3 +778,88 @@ def cms_step(counts: torch.Tensor, keys: torch.Tensor,
     _check_launch(rc, "atp_cms_step")
     launches["cms_step"] += 1
     return est
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the byte-per-bit Bloom filter of the generic sketch store
+# ---------------------------------------------------------------------------
+
+def _check_bytes_filter(bits: torch.Tensor, keys: torch.Tensor,
+                        params: BloomParams) -> None:
+    _require(params.layout in ("flat", "blocked"),
+             f"unknown Bloom layout {params.layout!r}")
+    _require(bits.dtype == torch.uint8 and bits.shape == (params.m_bits,),
+             f"bits must be uint8[{params.m_bits}]")
+    _require(keys.dtype == torch.int32 and keys.dim() == 1,
+             "keys must be int32[B] (uint32 bit patterns)")
+
+
+def bloom_add_bytes(bits: torch.Tensor, keys: torch.Tensor,
+                    params: BloomParams,
+                    mask: Optional[torch.Tensor] = None) -> None:
+    """Set the k probe bytes of every key (every key whose ``mask`` is
+    True) of int32[B] ``keys`` in the byte-per-bit filter
+    uint8[m_bits], in place, flat or blocked layout.
+
+    Replaces the XLA program ``bloom_add`` (attendance_tpu/models/
+    bloom.py:143; jitted in sketch/tpu_store.py:59-66 over batches
+    padded to a power of two, which the port does not pad). Bound: bytes,
+    4 B of key a lane and a 32-byte sector per distinct probe written (the
+    90,000-key roster into the 958,976-byte flat filter: about 0.3 us at
+    3.35 TB/s), or operations, about B x (2 x 20 + 8k) integer ops (3 x
+    20 blocked). Design: one thread per key; the flat probe ``(h1 + j *
+    h2) mod m`` wraps in 32-bit arithmetic before the modulo, which is a
+    multiply-high with a precomputed magic (no division); every probe is
+    a plain byte store of 1, so races between keys are benign and no
+    atomic is used.
+    """
+    _check_bytes_filter(bits, keys, params)
+    _require(mask is None or (mask.dtype == torch.bool
+                              and mask.shape == keys.shape),
+             "mask must be bool[B]")
+    tensors = (bits, keys) + (() if mask is None else (mask,))
+    if all(t.device.type == "cpu" for t in tensors):
+        bloom_add_plain(bits, keys, params, mask)
+        return
+    _require_cuda(*tensors)
+    if keys.shape[0] == 0:
+        return
+    with torch.cuda.device(bits.device):
+        rc = library().atp_bloom_add_bytes(
+            bits.data_ptr(), params.m_bits, params.k,
+            int(params.layout == "blocked"), keys.data_ptr(),
+            None if mask is None else mask.data_ptr(), keys.shape[0],
+            _stream(bits))
+    _check_launch(rc, "atp_bloom_add_bytes")
+    launches["bloom_add_bytes"] += 1
+
+
+def bloom_contains_bytes(bits: torch.Tensor, keys: torch.Tensor,
+                         params: BloomParams) -> torch.Tensor:
+    """BF.EXISTS of int32[B] keys against the byte-per-bit filter:
+    bool[B], True where all k probe bytes are 1, flat or blocked layout.
+
+    Replaces the XLA program ``bloom_contains`` (attendance_tpu/models/
+    bloom.py:158; jitted in sketch/tpu_store.py:68-76). Bound: bytes, 4 B
+    in and 1 B out a key and a 32-byte sector per distinct probe read (the
+    processor's 8,192-key batch: about 0.02 us, under the launch floor of
+    about 1 us), or operations as K7's. Design: one thread per key
+    computes its k positions as K7 does and ANDs the k bytes, loaded
+    through the read-only path with no early exit, so the unrolled loads
+    are in flight together (one trip to the filter, which stays in L2).
+    """
+    _check_bytes_filter(bits, keys, params)
+    if bits.device.type == "cpu" and keys.device.type == "cpu":
+        return bloom_contains_plain(bits, keys, params)
+    _require_cuda(bits, keys)
+    out = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
+    if keys.shape[0] == 0:
+        return out
+    with torch.cuda.device(bits.device):
+        rc = library().atp_bloom_contains_bytes(
+            bits.data_ptr(), params.m_bits, params.k,
+            int(params.layout == "blocked"), keys.data_ptr(), keys.shape[0],
+            out.data_ptr(), _stream(bits))
+    _check_launch(rc, "atp_bloom_contains_bytes")
+    launches["bloom_contains_bytes"] += 1
+    return out

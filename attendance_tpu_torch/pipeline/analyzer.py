@@ -1,7 +1,7 @@
 """Batch analytics: the reference's five insights, computed columnar.
 
-Counterpart of ``attendance_tpu/pipeline/analyzer.py`` over the port's
-columnar store (the row-store branch comes with the generic stores).
+Counterpart of ``attendance_tpu/pipeline/analyzer.py``, over the
+columnar store and the row stores.
 
 The reference materializes every event into a pandas DataFrame and runs
 five row-oriented groupbys (reference attendance_analysis.py:19-118).
@@ -98,23 +98,40 @@ def format_insights(insights: List[Dict]) -> str:
 
 
 class AttendanceAnalyzer:
-    """Five-insight batch report over a columnar event store."""
+    """Five-insight batch report over any event store.
+
+    Columnar stores are read through ``to_columns``; row stores (the
+    Cassandra-semantics ``scan_all``) are transposed into the same
+    vectors once, then share the aggregation path.
+    """
 
     def __init__(self, event_store):
         self.store = event_store
 
     # -- column extraction ---------------------------------------------------
     def _columns(self) -> Optional[Dict[str, np.ndarray]]:
-        """Events as {student_id, lecture_day, micros, is_valid}
-        int64/bool vectors from the store's ``to_columns``."""
-        cols = self.store.to_columns()
-        if len(cols["student_id"]) == 0:
+        """Events as {student_id, micros, is_valid} int64/bool vectors
+        plus a lecture axis: integer ``lecture_day`` codes (columnar
+        store) or string labels (row stores)."""
+        if hasattr(self.store, "to_columns"):
+            cols = self.store.to_columns()
+            if len(cols["student_id"]) == 0:
+                return None
+            return {
+                "student_id": np.asarray(cols["student_id"], np.int64),
+                "lecture_day": np.asarray(cols["lecture_day"], np.int64),
+                "micros": np.asarray(cols["micros"], np.int64),
+                "is_valid": np.asarray(cols["is_valid"], bool),
+            }
+        rows = self.store.scan_all()
+        if not rows:
             return None
+        ts = np.array([r.timestamp for r in rows], dtype="datetime64[us]")
         return {
-            "student_id": np.asarray(cols["student_id"], np.int64),
-            "lecture_day": np.asarray(cols["lecture_day"], np.int64),
-            "micros": np.asarray(cols["micros"], np.int64),
-            "is_valid": np.asarray(cols["is_valid"], bool),
+            "student_id": np.array([r.student_id for r in rows], np.int64),
+            "lecture_id": np.array([r.lecture_id for r in rows]),
+            "micros": ts.astype(np.int64),
+            "is_valid": np.array([r.is_valid for r in rows], bool),
         }
 
     # -- the five insights ---------------------------------------------------
@@ -147,11 +164,16 @@ class AttendanceAnalyzer:
         }
 
     def _lecture_rankings(self, cols) -> Dict:
-        lectures, counts = _group_sizes(cols["lecture_day"])
+        key = (cols["lecture_id"] if "lecture_id" in cols
+               else cols["lecture_day"])
+        lectures, counts = _group_sizes(key)
         # Descending count; ties break toward the smaller key (keys come
         # sorted ascending).
         order = np.lexsort((np.arange(counts.size), -counts))
-        labels = [f"LECTURE_{day}" for day in lectures[order].tolist()]
+        if "lecture_id" in cols:
+            labels = [str(k) for k in lectures[order].tolist()]
+        else:
+            labels = [f"LECTURE_{day}" for day in lectures[order].tolist()]
         ranked = list(zip(labels, counts[order].tolist()))
         return {
             "title": "Lecture Attendance Rankings",

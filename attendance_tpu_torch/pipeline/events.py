@@ -1,8 +1,11 @@
-"""Planar binary event frames (ATB2) and lecture-id day codes.
+"""Event schema, JSON frames, planar binary frames (ATB2) and lecture-id
+day codes.
 
-Counterpart of the planar part of ``attendance_tpu/pipeline/events.py``:
-the same byte layout, so frames written by either package decode in the
-other.
+Counterpart of ``attendance_tpu/pipeline/events.py`` without the 20-byte
+record codec: the same JSON (the reference's ``json.dumps(dict)
+.encode()`` frames of ``{student_id, timestamp, lecture_id, is_valid,
+event_type}``) and the same planar byte layout, so frames written by
+either package decode in the other.
 
 Frame layout: magic ``ATB2`` | u32 n | student_id u32[n] |
 lecture_day u32[n] | micros i64[n] | flags u8[n], all little-endian;
@@ -11,13 +14,103 @@ flags bit0 = is_valid (generator ground truth), bit1 = event_type (exit).
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+from dataclasses import dataclass
+from datetime import datetime, timedelta, timezone
+from typing import Dict, List, Sequence
 
 import numpy as np
 
 from attendance_tpu_torch.ops.murmur3 import murmur3_bytes
 
 PLANAR_MAGIC = b"ATB2"
+EVENT_ENTRY = 0
+EVENT_EXIT = 1
+
+
+@dataclass
+class AttendanceEvent:
+    student_id: int
+    timestamp: str  # ISO-8601, as the reference emits
+    lecture_id: str
+    is_valid: bool
+    event_type: str
+
+    def to_dict(self) -> Dict:
+        return {
+            "student_id": self.student_id,
+            "timestamp": self.timestamp,
+            "lecture_id": self.lecture_id,
+            "is_valid": self.is_valid,
+            "event_type": self.event_type,
+        }
+
+
+def encode_event(event: AttendanceEvent) -> bytes:
+    """The reference's wire format: json.dumps(dict).encode('utf-8')."""
+    return json.dumps(event.to_dict()).encode("utf-8")
+
+
+def decode_event(data: bytes) -> AttendanceEvent:
+    d = json.loads(data.decode("utf-8"))
+    return AttendanceEvent(
+        student_id=int(d["student_id"]),
+        timestamp=str(d["timestamp"]),
+        lecture_id=str(d["lecture_id"]),
+        is_valid=bool(d.get("is_valid", True)),
+        event_type=str(d.get("event_type", "entry")),
+    )
+
+
+def decode_event_batch(frames: Sequence[bytes]) -> List[AttendanceEvent]:
+    return [decode_event(f) for f in frames]
+
+
+_EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
+
+
+def iso_to_micros(ts: str) -> int:
+    """Epoch microseconds of an ISO-8601 timestamp. A naive timestamp is
+    pinned to UTC, so the result is a pure function of the string (the
+    hour written in it is ``micros // 3.6e9 % 24`` on any host); exact
+    integer arithmetic, no float product."""
+    try:
+        dt = datetime.fromisoformat(ts)
+    except ValueError:
+        # Normalize what older fromisoformat refuses: Z -> +00:00, the
+        # fraction padded or cut to exactly 6 digits.
+        norm = ts[:-1] + "+00:00" if ts.endswith("Z") else ts
+        i = norm.find(".")
+        if i != -1:
+            j = i + 1
+            while j < len(norm) and norm[j].isdigit():
+                j += 1
+            frac = norm[i + 1:j][:6].ljust(6, "0")
+            norm = norm[:i + 1] + frac + norm[j:]
+        dt = datetime.fromisoformat(norm)
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=timezone.utc)
+    return (dt - _EPOCH) // timedelta(microseconds=1)
+
+
+def columns_from_events(events: Sequence[AttendanceEvent]
+                        ) -> Dict[str, np.ndarray]:
+    """The column arrays of decoded JSON events (the columnar store's
+    block shape)."""
+    n = len(events)
+    student = np.empty(n, dtype=np.uint32)
+    day = np.empty(n, dtype=np.uint32)
+    micros = np.empty(n, dtype=np.int64)
+    flags_valid = np.empty(n, dtype=bool)
+    etype = np.empty(n, dtype=np.int8)
+    for i, e in enumerate(events):
+        student[i] = e.student_id & 0xFFFFFFFF
+        day[i] = lecture_to_day(e.lecture_id)
+        micros[i] = iso_to_micros(e.timestamp)
+        flags_valid[i] = e.is_valid
+        etype[i] = EVENT_EXIT if e.event_type == "exit" else EVENT_ENTRY
+    return {"student_id": student, "lecture_day": day, "micros": micros,
+            "is_valid": flags_valid, "event_type": etype}
 
 
 def magic_match(data, magic: bytes) -> bool:

@@ -1,8 +1,7 @@
 """Columnar event store: the batched side-output of the fused path.
 
 Counterpart of ``attendance_tpu/storage/columnar_store.py`` without the
-row-store adapters (``insert_batch``, the memoized compaction and the
-DataFrame view). Micro-batches are appended as column blocks with no
+memoized compaction and the DataFrame view. Micro-batches are appended as column blocks with no
 per-event Python. A block's ``is_valid`` may be a device tensor (the
 fused step's output) or, on the seg/delta wires, a lazy view of one in
 packed order, so an insert never waits for the device; it is copied to
@@ -30,7 +29,8 @@ import numpy as np
 import torch
 
 from attendance_tpu_torch.native import load as load_native
-from attendance_tpu_torch.pipeline.events import lecture_to_day
+from attendance_tpu_torch.pipeline.events import (
+    columns_from_events, lecture_to_day)
 from attendance_tpu_torch.utils.snapshot import fsync_dir
 
 _COLS = ("student_id", "lecture_day", "micros", "is_valid", "event_type")
@@ -59,6 +59,10 @@ class ColumnarEventStore:
         # directory.
         self._saved_blocks = 0
         self._segment_seq = 0
+        # The lecture-id strings of day codes inserted through the row
+        # adapter, so distinct_lecture_ids() returns the exact ids other
+        # layers keyed on (the processor's HLL keys).
+        self._lid_of_day: Dict[int, str] = {}
 
     # -- write path ----------------------------------------------------------
     def insert_columns(self, cols: Dict[str, object]) -> int:
@@ -114,9 +118,13 @@ class ColumnarEventStore:
         return np.unique(np.asarray(days, np.int64)).tolist()
 
     def distinct_lecture_ids(self) -> List[str]:
-        """``LECTURE_<day>`` ids of the stored day codes (the planar
-        wire carries day codes only)."""
-        return [f"LECTURE_{day}" for day in self.distinct_lecture_days()]
+        """Lecture ids of the stored day codes: an id inserted through
+        the row adapter comes back exactly (a hashed day code maps back
+        to its string); a planar-wire day reads ``LECTURE_<day>``."""
+        with self._lock:
+            lid_of_day = dict(self._lid_of_day)
+        return [lid_of_day.get(day, f"LECTURE_{day}")
+                for day in self.distinct_lecture_days()]
 
     def scan_lecture(self, lecture_day) -> Dict[str, np.ndarray]:
         """One lecture partition's deduped columns; ``lecture_day`` is an
@@ -132,6 +140,18 @@ class ColumnarEventStore:
         cols = self.to_columns()
         sel = np.asarray(cols["student_id"], np.int64) == int(student_id)
         return {name: arr[sel] for name, arr in cols.items()}
+
+    # -- row-store interface adapters -----------------------------------------
+    # The processor and the CLI speak the row stores' vocabulary
+    # (insert_batch of AttendanceRow, string lecture ids).
+    def insert_batch(self, rows) -> int:
+        """Append AttendanceRow-shaped objects as one column block."""
+        if not rows:
+            return 0
+        with self._lock:
+            for lid in {r.lecture_id for r in rows}:
+                self._lid_of_day.setdefault(lecture_to_day(lid), lid)
+        return self.insert_columns(columns_from_events(rows))
 
     # -- durability ----------------------------------------------------------
     def mark(self) -> int:
@@ -256,6 +276,7 @@ class ColumnarEventStore:
     def truncate(self) -> None:
         with self._lock:
             self._blocks.clear()
+            self._lid_of_day.clear()
             self._saved_blocks = 0  # _segment_seq stays monotonic
 
     def close(self) -> None:

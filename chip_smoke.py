@@ -69,10 +69,32 @@ Phases (any failure exits non-zero):
      with ``snapshot_stalls`` and ``snapshot_blocked_s``, and B9 on the
      card: the delta capture of 16 rows and the 256-bank base copy
      (graph replays) beside their bound in bytes, and one capture's D2H;
+  6. the generic sketch store and the processor loop (after 5): (a) K7
+     (90,000 keys into the 100k-roster filter, flat and blocked) and K8
+     (8,192 and 1,048,576 keys), K1-rows (1, 16 and 1,024 rows, sorted,
+     unsorted and repeated) and K1-union (2, 7 and 1,024 rows) on a
+     1,024-key store filled by ``pfadd_many`` (BASELINE.md config 3),
+     each held against its plain version and timed beside its bound,
+     the launch floor and the library call (``index_fill_``,
+     ``torch.bincount``, ``torch.amax`` + ``torch.bincount``); the fill
+     fraction, K5 at a PFADD's shape and the bank growth timed; (b) the
+     ``pipeline`` flow with the card store at 90,000 students (the
+     generator's whole id range, about 0.97M events, batch 8,192),
+     counters reset just before and read just after the run and its
+     reads (PFCOUNT per lecture, ``pfcount_many``, the week's union,
+     the insights), gated against the generator's ground truth (no
+     false negatives, measured FPR <= 1.5% on 1,048,576 non-roster ids,
+     PFCOUNTs within 3%) and equal to the same flow with the memory
+     store in validity, PFCOUNTs and BF.INFO; (c) ``parity --oracle
+     sim`` at 1,048,576 events, 100k roster, 16 lectures; (d) the
+     processor's delta and barrier checkpoints restored equal; (e) the
+     store's PFCOUNT latency (one key, 1,024 keys batched, a 7-key
+     union);
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
-     wire setting) and phase 3b's temporal run; phase 5 prints its own
-     runs' counts on a line of its own.
+     wire setting), phase 3b's temporal run and phase 6's pipeline run
+     (also printed on a line of its own); phase 5 prints its own runs'
+     counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -572,7 +594,8 @@ def temporal_path(card: str, num_events: int, frame_size: int,
           f"day err {worst_day}, fpr {fpr}, banks {num_banks}, launches "
           f"{launches}")
     print(f"temporal path host stages (s): {m.stage_seconds}")
-    device_ms = sum(launches[k] * rows[k]["ms"] for k in launches)
+    device_ms = sum(launches[k] * rows[k]["ms"] for k in launches
+                    if launches[k])
     print(f"temporal path device share: {device_ms} ms of kernel time "
           f"(launches x the phase-2 times) in {m.wall_seconds * 1e3} ms "
           f"of run() wall")
@@ -884,6 +907,388 @@ def checkpoint_phase(card: str, num_events: int, frame_size: int,
     print(f"checkpoint phase launches (first runs off/delta/barrier, the "
           f"crash run and its resume, the temporal run; not in the "
           f"kernels line): {launches}")
+
+
+# Phase 6: the generic sketch store and the processor loop.
+STORE_KERNELS = ("bloom_add_bytes", "bloom_contains_bytes",
+                 "hll_histogram_rows", "hll_union_histogram", "hll_add")
+PIPELINE_STUDENTS = 90_000  # the generator's whole id range [10000, 99999]
+
+
+def sectors(pos: torch.Tensor) -> int:
+    """Distinct 32-byte sectors of the byte positions ``pos``."""
+    return int(torch.unique(pos.reshape(-1) >> 5).numel())
+
+
+def store_kernels(dev, floor_ms: float, rows: dict, regs: torch.Tensor
+                  ) -> None:
+    """Phase 6a: K7 and K8 on the 100k-roster filter (flat and blocked),
+    K1-rows and K1-union on ``regs`` (the 1024-key store), each held
+    against its plain version and timed beside its bound, the launch
+    floor and, where one exists, the PyTorch library call's time."""
+    from attendance_tpu_torch.models import bloom, hll
+    from attendance_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(6)
+    roster = torch.from_numpy(rng.permutation(np.arange(
+        10_000, 100_000, dtype=np.int32))).to(dev)  # 90,000 keys
+    n = roster.shape[0]
+    for layout in ("flat", "blocked"):
+        params = bloom.derive_bloom_params(100_000, 0.01, layout)
+        hashes = 2 if layout == "flat" else 3
+        bits = bloom.bloom_init(params, dev)
+        kernels.bloom_add_bytes(bits, roster, params)
+        plain = bloom.bloom_init(params, dev)
+        bloom.bloom_add_plain(plain, roster, params)
+        torch.cuda.synchronize()
+        err = int((bits.int() - plain.int()).abs().max())
+        check(err == 0, f"K7 {layout} keys={n}: max abs err {err}")
+        pos = bloom.bloom_positions(roster, params)
+        # Replays store the same bytes again: the same work each time.
+        ms = kernel_ms(lambda: kernels.bloom_add_bytes(bits, roster, params))
+        check(torch.equal(bits, plain), f"K7 {layout}: replays changed it")
+        plain_ms = eager_ms(
+            lambda: bloom.bloom_add_plain(plain, roster, params), 3)
+        flat_pos = pos.reshape(-1)
+        lib_ms = eager_ms(lambda: plain.index_fill_(0, flat_pos, 1), 20)
+        check(torch.equal(bits, plain), f"K7 {layout} != index_fill_")
+        b_ms, b_by = bound_ms(4 * n + 32 * sectors(pos),
+                              n * (20 * hashes + 8 * params.k))
+        print(f"K7 bloom_add_bytes {layout} keys={n} m_bits={params.m_bits} "
+              f"k={params.k} ms={ms} above_floor_ms={ms - floor_ms} "
+              f"plain_ms={plain_ms} index_fill_ms={lib_ms} (positions "
+              f"given) bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
+              f"max_abs_err={err}")
+        if layout == "flat":
+            rows["bloom_add_bytes"] = dict(
+                replaces="attendance_tpu/models/bloom.py:143",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+            # B13c: the fill behind estimated_fpr, one count_nonzero.
+            fill = float(bloom.bloom_fill_fraction(bits))
+            check(fill == float((plain != 0).double().mean()),
+                  f"fill fraction {fill}")
+            fill_ms = kernel_ms(lambda: bloom.bloom_fill_fraction(bits))
+            f_ms, f_by = bound_ms(params.m_bits + 8, params.m_bits)
+            print(f"B13c bloom_fill_fraction (count_nonzero) bytes="
+                  f"{params.m_bits} ms={fill_ms} above_floor_ms="
+                  f"{fill_ms - floor_ms} bound_ms={f_ms} ({f_by}) fill={fill}")
+        for n8 in (8192, 1 << 20):
+            # A processor batch's mix: 93% roster ids, 7% invalid ids.
+            members = roster[torch.randint(0, n, (n8,), device=dev)]
+            others = torch.randint(100_000, 1_000_000, (n8,), device=dev,
+                                   dtype=torch.int32)
+            probe = torch.where(torch.rand(n8, device=dev) < 0.93, members,
+                                others)
+            got = kernels.bloom_contains_bytes(bits, probe, params)
+            want = bloom.bloom_contains_plain(bits, probe, params)
+            torch.cuda.synchronize()
+            err = int((got != want).sum())
+            check(err == 0, f"K8 {layout} keys={n8}: {err} answers differ")
+            ms = kernel_ms(
+                lambda: kernels.bloom_contains_bytes(bits, probe, params))
+            plain_ms = eager_ms(
+                lambda: bloom.bloom_contains_plain(bits, probe, params), 5)
+            # The probes the answer needs: up to a key's first unset byte.
+            pos8 = bloom.bloom_positions(probe, params)
+            hit = bits[pos8] == 1
+            needed = torch.ones_like(hit)
+            needed[:, 1:] = torch.cumprod(hit[:, :-1].int(), dim=1).bool()
+            b_ms, b_by = bound_ms(5 * n8 + 32 * sectors(pos8[needed]),
+                                  n8 * (20 * hashes + 8 * params.k))
+            print(f"K8 bloom_contains_bytes {layout} keys={n8} ms={ms} "
+                  f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+                  f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
+                  f"hits={int(got.sum())} max_abs_err={err}")
+            if layout == "flat" and n8 == 8192:
+                rows["bloom_contains_bytes"] = dict(
+                    replaces="attendance_tpu/models/bloom.py:158",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    num_banks, m = regs.shape
+    bins = 64 - 14 + 2
+    # B14a: K5 at a processor PFADD's shape, the valid share of an
+    # 8,192-event batch for one of its 7 lectures, into one bank.
+    n5 = 1088
+    keys5 = torch.from_numpy(rng.integers(10_000, 100_000, n5).astype(
+        np.int32)).to(dev)
+    bank5 = torch.full((n5,), 5, dtype=torch.int32, device=dev)
+    a, b = regs.clone(), regs.clone()
+    kernels.hll_add(a, bank5, keys5, None, 14)
+    hll.hll_add_plain(b, bank5, keys5, None, 14)
+    torch.cuda.synchronize()
+    err = int((a.int() - b.int()).abs().max())
+    check(err == 0, f"K5 PFADD shape: max abs err {err}")
+    ms = kernel_ms(lambda: kernels.hll_add(a, bank5, keys5, None, 14))
+    plain_ms = eager_ms(lambda: hll.hll_add_plain(b, bank5, keys5, None, 14))
+    bucket, rank = hll.hll_bucket_rank(keys5, 14)
+    flat_idx = 5 * m + bucket
+    lib_regs = regs.clone().view(-1)
+    lib_ms = eager_ms(lambda: lib_regs.scatter_reduce_(
+        0, flat_idx, rank.to(torch.uint8), reduce="amax"), 20)
+    check(torch.equal(lib_regs.view(num_banks, m), a),
+          "K5 PFADD shape disagrees with scatter_reduce_(amax)")
+    distinct = int(torch.unique(flat_idx).numel())
+    b_ms, b_by = bound_ms(8 * n5 + 2 * distinct, n5 * (2 * 20 + 10))
+    print(f"B14a K5 hll_add PFADD keys={n5} banks={num_banks} replayed "
+          f"ms={ms} above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+          f"scatter_reduce_amax_uint8_ms={lib_ms} bound_ms={b_ms} ({b_by}) "
+          f"max_abs_err={err}")
+    # B14d: the bank array's growth by doubling, 512 -> 1,024 banks.
+    half = regs[:512]
+    grow_ms = kernel_ms(lambda: hll.hll_init(1024, 14, dev).__setitem__(
+        slice(0, 512), half))
+    g_ms, g_by = bound_ms(3 * 512 * m, 0)
+    print(f"B14d bank growth 512 -> 1024 banks (zeros + slice copy) "
+          f"ms={grow_ms} bound_ms={g_ms} ({g_by})")
+    cases = {"1": [5], "16": list(range(16)),
+             "16 unsorted repeated": rng.integers(0, 16, 16).tolist(),
+             "1024": rng.permutation(num_banks).tolist(),
+             "1024 repeated": rng.integers(0, num_banks, 1024).tolist()}
+    for what, sel in cases.items():
+        idx = torch.tensor(sel, dtype=torch.int32, device=dev)
+        r = len(sel)
+        got = kernels.hll_histogram_rows(regs, idx, 14)
+        want = hll.hll_histogram_rows_plain(regs, idx, 14)
+        offsets = (regs[idx.long()].to(torch.int64)
+                   + torch.arange(r, device=dev)[:, None] * bins).view(-1)
+        lib = torch.bincount(offsets, minlength=r * bins)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"K1-rows rows={what}: max abs err {err}")
+        check(torch.equal(lib.view(r, bins).to(torch.int32), got),
+              f"K1-rows rows={what} disagrees with torch.bincount")
+        ms = kernel_ms(lambda: kernels.hll_histogram_rows(regs, idx, 14))
+        plain_ms = eager_ms(lambda: hll.hll_histogram_rows_plain(
+            regs, idx, 14))
+        lib_ms = eager_ms(lambda: torch.bincount(
+            offsets, minlength=r * bins), 20)
+        b_ms, b_by = bound_ms(r * m + 4 * r + 4 * r * bins, r * m)
+        print(f"K1-rows hll_histogram_rows rows={what} ms={ms} above_floor_"
+              f"ms={ms - floor_ms} plain_ms={plain_ms} bincount_ms={lib_ms} "
+              f"(offset rows given) bound_ms={b_ms} ({b_by}) times_bound="
+              f"{ms / b_ms} max_abs_err={err}")
+        if what == "1":  # count(key), the main path's PFCOUNT
+            rows["hll_histogram_rows"] = dict(
+                replaces="attendance_tpu/sketch/tpu_store.py:102",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+    for r in (2, 7, 1024):
+        idx = torch.from_numpy(rng.permutation(num_banks)[:r].astype(
+            np.int32)).to(dev)
+        got = kernels.hll_union_histogram(regs, idx, 14)
+        want = hll.hll_union_histogram_plain(regs, idx, 14)
+        lib = torch.bincount(torch.amax(regs[idx.long()], 0).long(),
+                             minlength=bins)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"K1-union rows={r}: max abs err {err}")
+        check(torch.equal(lib.to(torch.int32), got),
+              f"K1-union rows={r} disagrees with amax + bincount")
+        ms = kernel_ms(lambda: kernels.hll_union_histogram(regs, idx, 14))
+        plain_ms = eager_ms(lambda: hll.hll_union_histogram_plain(
+            regs, idx, 14))
+        lib_ms = eager_ms(lambda: torch.bincount(torch.amax(
+            regs[idx.long()], 0).long(), minlength=bins), 20)
+        b_ms, b_by = bound_ms(r * m + 4 * r + 4 * bins, r * m)
+        print(f"K1-union hll_union_histogram rows={r} ms={ms} above_floor_"
+              f"ms={ms - floor_ms} plain_ms={plain_ms} gather_amax_bincount_"
+              f"ms={lib_ms} bound_ms={b_ms} ({b_by}) times_bound="
+              f"{ms / b_ms} max_abs_err={err}")
+        if r == 7:  # the pipeline's week of lectures
+            rows["hll_union_histogram"] = dict(
+                replaces="attendance_tpu/models/hll.py:363",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def _pipeline_result(proc, report):
+    """(validity vector, lecture ids, student ids, {lecture: PFCOUNT},
+    BF.INFO) of a finished processor, in scan order."""
+    rows = proc.store.scan_all()
+    sid = np.fromiter((r.student_id for r in rows), np.int64, len(rows))
+    valid = np.fromiter((r.is_valid for r in rows), bool, len(rows))
+    lecture = np.array([r.lecture_id for r in rows])
+    lids = proc.store.distinct_lecture_ids()
+    counts = {lid: proc.get_attendance_stats(lid)["unique_attendees"]
+              for lid in lids}
+    info = proc.sketch.execute_command("BF.INFO",
+                                       proc.config.bloom_filter_key)
+    return valid, lecture, sid, counts, info
+
+
+def store_phase(card: str, floor_ms: float, rows: dict) -> dict:
+    """Phase 6: the generic sketch store and the processor loop on the
+    card. Returns the launch counts of (b)'s run and its reads."""
+    import shutil
+    import tempfile
+    from datetime import datetime
+    from pathlib import Path
+
+    from attendance_tpu_torch.cli import run_pipeline
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.parity import run_sim_parity
+    from attendance_tpu_torch.pipeline.analyzer import AttendanceAnalyzer
+    from attendance_tpu_torch.pipeline.processor import AttendanceProcessor
+    from attendance_tpu_torch.sketch import TpuSketchStore
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    dev = torch.device("cuda", 0)
+    # The store's HLL at 1024 keys x 2^14 registers (BASELINE config 3),
+    # filled by pfadd_many batches of the processor's size.
+    t0 = time.perf_counter()
+    store = TpuSketchStore(Config(), device=dev)
+    keys = [f"hll:unique:LECTURE_{i:04d}" for i in range(1024)]
+    rng = np.random.default_rng(7)
+    for key in keys:
+        store.pfadd_many(key, rng.integers(10_000, 10_000_000, 8192))
+    torch.cuda.synchronize()
+    check(store.hll.regs.shape == (1024, 1 << 14),
+          f"1024 keys grew the banks to {tuple(store.hll.regs.shape)}")
+    print(f"store: 1024 keys x 8192 members by pfadd_many in "
+          f"{time.perf_counter() - t0} s")
+
+    # -- 6a. the new kernels against their plain versions -----------------
+    store_kernels(dev, floor_ms, rows, store.hll.regs)
+
+    # -- 6b. the pipeline flow, --sketch-backend tpu ----------------------
+    now = datetime.now()
+    MemoryBroker.reset_shared()
+    kernels.reset_launches()  # counts set to 0 just before the run
+    t0 = time.perf_counter()
+    proc, report = run_pipeline(Config(), PIPELINE_STUDENTS, 50, seed=0,
+                                device=dev, now=now)
+    valid, lecture, sid, counts, info = _pipeline_result(proc, report)
+    hll_keys = [f"{proc.config.hll_key_prefix}{lid}" for lid in counts]
+    many = proc.sketch.pfcount_many(hll_keys)
+    week = proc.sketch.pfcount(*hll_keys)
+    insights = AttendanceAnalyzer(proc.store).generate_insights()
+    fpr_est = proc.estimated_fpr()
+    wall = time.perf_counter() - t0
+    p6 = dict(kernels.launches)  # read just after the run and its reads
+    for name in STORE_KERNELS:
+        check(p6[name] > 0, f"pipeline: kernel {name} not launched")
+    m = proc.metrics
+    print(f"pipeline --sketch-backend tpu: {m.events} events in "
+          f"{m.batches} batches, {m.events_per_second} events/s on {card}; "
+          f"processor wall {m.wall_seconds} s, device_seconds "
+          f"{m.device_seconds} s (share {m.device_seconds / m.wall_seconds}"
+          f"); generate + process + reads {wall} s; launches {p6}")
+    check(m.valid_events + m.invalid_events == m.events
+          == report.message_count,
+          f"pipeline: {m.valid_events} + {m.invalid_events} != {m.events}")
+    # Rows are upserted by (lecture, timestamp, student): a repeated
+    # invalid swipe in one minute is one row.
+    check(0 < len(valid) <= m.events, f"pipeline: {len(valid)} rows")
+    is_roster = np.isin(sid, np.fromiter(report.valid_student_ids,
+                                         np.int64))
+    fn = int((is_roster & ~valid).sum())
+    check(fn == 0, f"pipeline: {fn} false negatives")
+    fp_events = int((~is_roster & valid).sum())
+    probe = np.random.default_rng(8).integers(100_000, 1_000_000, 1 << 20)
+    probe_fpr = float(np.mean(proc.sketch.bf_exists_many(
+        proc.config.bloom_filter_key, probe)))
+    check(fpr_est is not None and 0 < fpr_est < 0.015,
+          f"pipeline: estimated FPR {fpr_est}")
+    check(probe_fpr <= 0.015, f"pipeline: measured FPR {probe_fpr}")
+    worst = 0.0
+    for i, lid in enumerate(counts):
+        exact = len(np.unique(sid[(lecture == lid) & valid]))
+        err = abs(counts[lid] - exact) / exact
+        worst = max(worst, err)
+        check(err <= 0.03, f"pipeline: {lid} PFCOUNT {counts[lid]} vs "
+              f"exact {exact}")
+        check(many[i] == counts[lid], f"pfcount_many {lid}")
+    exact_week = len(np.unique(sid[valid]))
+    check(abs(week - exact_week) / exact_week <= 0.03,
+          f"pipeline: week union {week} vs exact {exact_week}")
+    check(len(insights) == 5, "pipeline: analyzer insights")
+    print(f"pipeline checks: {len(valid)} stored rows, "
+          f"{len(counts)} lectures, worst PFCOUNT err "
+          f"{worst}, week union {week} vs exact {exact_week}; false "
+          f"negatives {fn}; {fp_events} invalid events read valid of "
+          f"{m.invalid_events}; measured FPR {probe_fpr} on {len(probe)} "
+          f"non-roster ids; estimated FPR {fpr_est}; BF.INFO {info}")
+    proc.cleanup()
+    del proc
+
+    MemoryBroker.reset_shared()
+    t0 = time.perf_counter()
+    mproc, _ = run_pipeline(Config(sketch_backend="memory"),
+                            PIPELINE_STUDENTS, 50, seed=0, now=now)
+    mvalid, mlecture, msid, mcounts, minfo = _pipeline_result(mproc, report)
+    check(np.array_equal(mvalid, valid) and np.array_equal(msid, sid),
+          "pipeline: the memory backend's validity vector differs")
+    check(mcounts == counts, f"pipeline: memory PFCOUNTs {mcounts} != "
+          f"{counts}")
+    check(minfo == info, f"pipeline: memory BF.INFO {minfo} != {info}")
+    print(f"pipeline --sketch-backend memory, same process: "
+          f"{mproc.metrics.events_per_second} events/s, equal validity, "
+          f"PFCOUNTs and BF.INFO ({time.perf_counter() - t0} s)")
+    mproc.cleanup()
+    del mproc
+    MemoryBroker.reset_shared()
+
+    # -- 6c. parity --oracle sim ------------------------------------------
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    parity = run_sim_parity(Config(), dev, num_events=1 << 20,
+                            roster_size=100_000, num_lectures=16, seed=0)
+    print(parity.summary())
+    check(parity.ok, "parity --oracle sim failed")
+    print(f"parity: {time.perf_counter() - t0} s; launches (not in the "
+          f"kernels line) {dict(kernels.launches)}")
+
+    # -- 6d. processor checkpoint and restore -----------------------------
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_store_"))
+    try:
+        for mode in ("delta", "barrier"):
+            config = Config(snapshot_dir=str(work / mode),
+                            snapshot_mode=mode, snapshot_every_batches=4,
+                            snapshot_compact_every=3)
+            MemoryBroker.reset_shared()
+            proc, _ = run_pipeline(config, 20_000, 20, seed=1, device=dev,
+                                   now=now)
+            back = AttendanceProcessor(config, device=dev,
+                                       client=MemoryClient(MemoryBroker()))
+            a, b = proc.sketch, back.sketch
+            check(a._blooms.keys() == b._blooms.keys(), f"{mode}: keys")
+            for key in a._blooms:
+                fa, fb = a._blooms[key].filters, b._blooms[key].filters
+                check(len(fa) == len(fb) and all(
+                    torch.equal(x, y) for x, y in zip(fa, fb)),
+                    f"{mode}: sub-filter bytes of {key}")
+            check(a.hll._bank_of == b.hll._bank_of, f"{mode}: bank_of")
+            check(torch.equal(a.hll.regs, b.hll.regs), f"{mode}: registers")
+            check(back.store.count() == proc.store.count(), f"{mode}: rows")
+            print(f"processor {mode} checkpoint: {proc.metrics.batches} "
+                  f"batches, restored equal (filters, {len(a.hll._bank_of)} "
+                  f"banks, {back.store.count()} rows)")
+            proc.cleanup()
+            back.cleanup()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        MemoryBroker.reset_shared()
+
+    # -- 6e. store PFCOUNT latency ----------------------------------------
+    for what, fn, reps in (
+            ("pfcount(key)", lambda: store.pfcount(keys[5]), 200),
+            ("pfcount_many(1024 keys)", lambda: store.pfcount_many(keys), 5),
+            ("pfcount(7-key union)", lambda: store.pfcount(*keys[:7]), 200)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        print(f"store PFCOUNT {what}: {(time.perf_counter() - t0) / reps * 1e3}"
+              f" ms a call (host wall, {reps} calls, answers read on the "
+              f"host)")
+    print(f"store phase launches (the pipeline run and its reads; in the "
+          f"kernels line): {p6}")
+    return p6
 
 
 def main() -> int:
@@ -1398,13 +1803,16 @@ def main() -> int:
     # -- 5. checkpoint and restore (its launches on its own line) -------------
     checkpoint_phase(card, num_events, frame_size, num_lectures, ref)
 
+    # -- 6. the generic sketch store and the processor loop --------------------
+    s_launches = store_phase(card, floor_ms, rows)
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,
              replaces=row["replaces"],
-             launches=launches[name] + t_launches[name],
+             launches=launches[name] + t_launches[name] + s_launches[name],
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -845,3 +845,149 @@ def test_compaction_with_frames_in_flight_keeps_stored_validity(cuda,
     for name in ("student_id", "lecture_day", "micros", "is_valid"):
         np.testing.assert_array_equal(card[0][name], cpu[0][name])
         np.testing.assert_array_equal(card[1][name], cpu[1][name])
+
+
+# -- the generic sketch store: K7, K8, K1-rows, K1-union ----------------------
+
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+@pytest.mark.parametrize("n", [0, 1, 8192, 90_000])
+def test_bloom_bytes_kernels_match_plain(layout, n, cuda):
+    """K7 into the 100k-roster filter (958,976 bytes flat: its probes
+    wrap mod 2^32 before the modulo), with and without a mask, then K8
+    on members and non-members."""
+    params = bloom.derive_bloom_params(100_000, 0.01, layout)
+    rng = np.random.default_rng(n)
+    keys = _keys(rng, n)
+    if n:  # key 0's flat probes: h1 + j*h2 passes 2^32 from j = 1
+        keys[0] = 0
+    mask = torch.from_numpy(rng.random(n) < 0.7)
+    for m in (None, mask):
+        bits = bloom.bloom_init(params, cuda)
+        plain = bloom.bloom_init(params, torch.device("cpu"))
+        before = kernels.launches["bloom_add_bytes"]
+        kernels.bloom_add_bytes(bits, keys.to(cuda), params,
+                                None if m is None else m.to(cuda))
+        bloom.bloom_add_plain(plain, keys, params, m)
+        torch.cuda.synchronize()
+        assert kernels.launches["bloom_add_bytes"] == before + (n > 0)
+        assert torch.equal(bits.cpu(), plain)
+    probe = torch.cat([keys, _keys(rng, 8192)])
+    got = kernels.bloom_contains_bytes(bits, probe.to(cuda), params)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), bloom.bloom_contains_plain(
+        plain, probe, params))
+    assert bool(got[:n][mask.to(cuda)].all())
+
+
+def test_bloom_contains_bytes_kernel_at_a_million_keys(cuda):
+    params = bloom.derive_bloom_params(100_000, 0.01, "flat")
+    rng = np.random.default_rng(2)
+    bits = bloom.bloom_init(params, cuda)
+    kernels.bloom_add_bytes(bits, _keys(rng, 90_000).to(cuda), params)
+    probe = _keys(rng, 1 << 20).to(cuda)
+    got = kernels.bloom_contains_bytes(bits, probe, params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bloom.bloom_contains_plain(bits, probe, params))
+
+
+@pytest.mark.parametrize("precision", [4, 14, 18])
+@pytest.mark.parametrize("rows", [[0], [3, 1, 3, 0, 7, 2],
+                                  list(range(16)), "1024"])
+def test_hll_rows_and_union_kernels_match_plain(rows, precision, cuda):
+    """Unsorted, repeated and out-of-range rows (clamped), one row, and
+    1024 rows of a 1024-bank array; K1-union over the same lists."""
+    num_banks = 1024 if rows == "1024" else 16
+    regs = _filled(num_banks, precision, "dense", cuda, seed=len(rows))
+    if rows == "1024":
+        rows = np.random.default_rng(0).integers(0, 1024, 1024).tolist()
+    idx = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    before = dict(kernels.launches)
+    got = kernels.hll_histogram_rows(regs, idx, precision)
+    union = kernels.hll_union_histogram(regs, idx, precision)
+    torch.cuda.synchronize()
+    assert kernels.launches["hll_histogram_rows"] == \
+        before["hll_histogram_rows"] + 1
+    assert kernels.launches["hll_union_histogram"] == \
+        before["hll_union_histogram"] + 1
+    assert torch.equal(got, hll.hll_histogram_rows_plain(regs, idx,
+                                                         precision))
+    assert torch.equal(union, hll.hll_union_histogram_plain(regs, idx,
+                                                            precision))
+    assert int(union.sum()) == 1 << precision
+
+
+def test_hll_union_kernel_replayed_in_a_graph(cuda):
+    """The union's output is zeroed inside its own launch, so a replay
+    gives the same histogram, not a sum of replays."""
+    regs = _filled(7, 14, "dense", cuda)
+    idx = torch.arange(7, dtype=torch.int32, device=cuda)
+    want = hll.hll_union_histogram_plain(regs, idx, 14)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.hll_union_histogram(regs, idx, 14)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.hll_union_histogram(regs, idx, 14)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+def test_sketch_store_on_card_equals_cpu(layout, cuda):
+    from attendance_tpu_torch.sketch import TpuSketchStore
+    stores = [TpuSketchStore(Config(bloom_layout=layout,
+                                    hll_initial_banks=2), device=d)
+              for d in (cuda, "cpu")]
+    rng = np.random.default_rng(3)
+    answers = [[], []]
+    for s, out in zip(stores, answers):
+        rng = np.random.default_rng(3)
+        s.execute_command("BF.RESERVE", "bf", 0.01, 500)
+        for step in range(5):
+            batch = rng.integers(10_000, 12_000, 400)
+            out.append(s.bf_add_many("bf", batch).tolist())
+            out.append(s.bf_exists_many("bf", batch + 7).tolist())
+            key = f"h{step}"
+            out.append(s.pfadd(key, *batch[:10].tolist()))
+            out.append(s.pfadd_many(key, batch, mask=batch % 2 == 0))
+            out.append(s.pfcount_many(["h0", key, "none", "h0"]))
+            out.append(s.pfcount("h0", key))
+        out.append(s.execute_command("BF.INFO", "bf"))
+        out.append(s.estimated_fpr("bf"))
+    assert answers[0][:-1] == answers[1][:-1]
+    assert answers[0][-1] == pytest.approx(answers[1][-1], rel=1e-12)
+    card, cpu = stores
+    assert card.hll._bank_of == cpu.hll._bank_of
+    assert torch.equal(card.hll.regs.cpu(), cpu.hll.regs)
+    for a, b in zip(card._blooms["bf"].filters, cpu._blooms["bf"].filters):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_processor_pipeline_on_card_equals_cpu(cuda):
+    from datetime import datetime
+
+    from attendance_tpu_torch.cli import run_pipeline
+    from attendance_tpu_torch.transport.memory_broker import MemoryBroker
+    runs = []
+    for device in (cuda, "cpu"):
+        MemoryBroker.reset_shared()
+        proc, report = run_pipeline(
+            Config(batch_size=512, batch_timeout_s=0.01), 400, 20, seed=1,
+            device=device, now=datetime(2026, 3, 4, 12))
+        stats = {lid: proc.get_attendance_stats(lid)["unique_attendees"]
+                 for lid in proc.store.distinct_lecture_ids()}
+        m = proc.metrics
+        runs.append(((m.events, m.valid_events, m.invalid_events,
+                      m.batch_sizes), stats,
+                     [(r.student_id, r.timestamp, r.is_valid)
+                      for r in proc.store.scan_all()],
+                     proc.estimated_fpr()))
+        assert m.events == report.message_count
+        proc.cleanup()
+    MemoryBroker.reset_shared()
+    assert runs[0][:3] == runs[1][:3]
+    assert runs[0][3] == pytest.approx(runs[1][3], rel=1e-12)

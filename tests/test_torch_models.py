@@ -352,4 +352,8 @@ def test_kernel_wrappers_validate_inputs():
     assert kernels.launches == {"hll_histogram": 0, "fused_step": 0,
                                 "fused_step_seg": 0, "fused_step_delta": 0,
                                 "bloom_add": 0, "bloom_contains": 0,
-                                "hll_add": 0, "cms_step": 0}
+                                "hll_add": 0, "cms_step": 0,
+                                "bloom_add_bytes": 0,
+                                "bloom_contains_bytes": 0,
+                                "hll_histogram_rows": 0,
+                                "hll_union_histogram": 0}

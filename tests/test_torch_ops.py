@@ -136,7 +136,20 @@ _PORT_MODULES = {
     "attendance_tpu_torch.storage.columnar_store",
     "attendance_tpu_torch.transport.memory_broker",
     "attendance_tpu_torch.utils.integrity",
-    "attendance_tpu_torch.utils.snapshot"}
+    "attendance_tpu_torch.utils.snapshot",
+    "attendance_tpu_torch.parity",
+    "attendance_tpu_torch.pipeline.events",
+    "attendance_tpu_torch.pipeline.generator",
+    "attendance_tpu_torch.pipeline.processor",
+    "attendance_tpu_torch.sketch", "attendance_tpu_torch.sketch.base",
+    "attendance_tpu_torch.sketch.memory_store",
+    "attendance_tpu_torch.sketch.redis_sim",
+    "attendance_tpu_torch.sketch.redis_store",
+    "attendance_tpu_torch.sketch.tpu_store",
+    "attendance_tpu_torch.storage",
+    "attendance_tpu_torch.storage.cassandra_store",
+    "attendance_tpu_torch.storage.memory_store",
+    "attendance_tpu_torch.transport"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
