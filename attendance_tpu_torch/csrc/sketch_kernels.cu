@@ -54,17 +54,27 @@
 //                         (replaces the XLA cms_step,
 //                         attendance_tpu/models/cms.py:116)
 //   K7 atp_bloom_add_bytes  BF.ADD into the byte-per-bit filter, flat or
-//                         blocked (replaces the XLA bloom_add,
+//                         blocked: one thread per key for a small batch,
+//                         else partial packed images set in shared memory,
+//                         then one pass ORing them into the filter's bytes
+//                         (replaces the XLA bloom_add,
 //                         attendance_tpu/models/bloom.py:143)
-//   K8 atp_bloom_contains_bytes  BF.EXISTS against it (replaces the XLA
-//                         bloom_contains, attendance_tpu/models/bloom.py:158)
+//   K8 atp_bloom_contains_bytes  BF.EXISTS against it: one thread per key
+//                         for a small batch, else a pack pass into a packed
+//                         image and a probe of it (in shared memory when
+//                         flat, by K4 when blocked)
+//                         (replaces the XLA bloom_contains,
+//                         attendance_tpu/models/bloom.py:158)
 //
 // The hash is MurmurHash3_x86_32 of each key's 4 little-endian bytes,
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
 // is uint32, so results are bit-identical to the plain PyTorch versions.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -920,6 +930,7 @@ bloom_tile_or_kernel(uint32_t* words, uint32_t num_blocks, int log2_bpt,
 // key's one 64-byte block of the packed words (blocks are contiguous
 // there, so no transposed or row table as on the TPU). Any batch length;
 // no padding (lanes past the batch take part in the warp's loads only).
+// Also K8's probe of a blocked filter's packed image.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 bloom_contains_kernel(const uint32_t* __restrict__ words, uint32_t num_blocks,
@@ -927,8 +938,12 @@ bloom_contains_kernel(const uint32_t* __restrict__ words, uint32_t num_blocks,
                       int n, uint8_t* __restrict__ out) {
   __shared__ uint4 stage[kWarps * 128];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool hit = warp_bloom_probe(words, num_blocks, magic, k,
-                                    i < n ? keys[i] : 0u, i < n,
+  const uint32_t key = i < n ? keys[i] : 0u;
+  // K8's blocked image path launches this kernel as the programmatic
+  // dependent of its pack pass, which writes `words`; launched alone, the
+  // wait returns at once.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const bool hit = warp_bloom_probe(words, num_blocks, magic, k, key, i < n,
                                     stage + (threadIdx.x >> 5) * 128);
   if (i < n) out[i] = hit ? 1 : 0;
 }
@@ -1021,16 +1036,52 @@ cms_query_kernel(const uint32_t* __restrict__ counts, int depth,
 // jitted in sketch/tpu_store.py:59-76). Probe positions are those of the
 // packed filter: flat (h1 + j*h2) mod m_bits, the sum wrapping mod 2^32
 // before the modulo as jnp.uint32 does (m_bits is not a power of two);
-// blocked (h1 mod num_blocks) * 512 + ((h2 + j*h3) & 511). One thread per
-// key. K7 stores byte 1 at each probe with plain stores: every store
-// writes the same value, so racing stores of duplicate keys or shared
-// positions are benign and no atomic is needed. K8 ANDs the key's k
-// probe bytes; its loads do not wait on each other (no early exit, so the
-// unrolled loads are in flight together). Bound: bytes, 4 B of key per
-// lane and one 32-byte sector per distinct probe (K8: and 1 B out); the
-// 100k-roster filter (958,976 bytes) stays in L2.
+// blocked (h1 mod num_blocks) * 512 + ((h2 + j*h3) & 511).
+//
+// Each kernel has two paths, picked by the wrapper from the batch length
+// and the filter's size (ops/kernels.py bloom_bytes_plan):
+//   direct  one thread per key straight on the filter's bytes: K7 stores
+//           byte 1 at each probe (every store writes the same value, so
+//           races are benign), K8 ANDs the k probe bytes, loaded with no
+//           early exit so they are in flight together. Each probe is its
+//           own 32-byte L2 sector: at scale K7's scattered byte stores
+//           and K8's sector reads bind, not the bytes the filter holds.
+//   image   the filter as a packed bit image (bit pos at word pos >> 5,
+//           bit pos & 31: pack_bloom_bits' layout), 8x smaller than its
+//           bytes (the wrapper keeps it under 225 KiB, so a CTA's shared
+//           memory holds it whole; the 100k-roster filter's is 117-135
+//           KiB).
+//           K8: a pack pass reads the bytes once with 16-byte loads into
+//           an image in scratch; then, as its programmatic dependent, the
+//           flat layout's probe copies the image into every CTA with TMA
+//           bulk copies that complete on an mbarrier (each CTA of a
+//           cluster fetches a share and multicasts it to all, so one L2
+//           read feeds several SMs) and grid-strides over the keys,
+//           testing bits in shared memory; the blocked layout's image is
+//           K4's packed layout, and K4 probes it (each key's 64-byte block
+//           read once, by a quad).
+//           K7: pass 1, on up to a few dozen CTAs, sets each CTA's share
+//           of the keys' bits in a zeroed image in shared memory with
+//           shared atomicOr and stores it as a partial image in scratch;
+//           pass 2, its programmatic dependent, ORs the partials of each
+//           128-bit image vector and rewrites the matching 128 filter
+//           bytes with 16-byte loads and stores, new bits to 1 and every
+//           other byte kept. No global atomic, and the filter is read and
+//           written once, coalesced.
 // ---------------------------------------------------------------------------
 constexpr uint32_t kBlockBits = 512;
+constexpr int kImageThreads = 1024;
+// K8's direct path runs CTAs of this many threads (64 CTAs for the
+// processor's 8,192-key batch; 64 and 256 were no faster on an NVIDIA
+// H100 80GB HBM3 at 700 W), and its flat image probe clusters of this
+// many CTAs sharing each image read (1 and 4 were slower; PERF.md).
+constexpr int kDirectThreads = 128;
+constexpr int kImageCluster = 2;
+// The image probe's grid: at least this many keys a CTA, at most one CTA
+// an SM (as many clusters as are resident at once).
+constexpr int kImageMinKeysPerCta = kImageThreads;
+// One bulk copy moves at most this many bytes.
+constexpr uint32_t kBulkChunk = 32u * 1024u;
 
 // The filter byte of probe j of a key, for divisor d (m_bits when flat,
 // num_blocks when blocked) with magic = fastmod_magic(d).
@@ -1044,6 +1095,14 @@ __device__ __forceinline__ uint32_t byte_probe(uint32_t h1, uint32_t h2,
   return fastmod(h1 + j * h2, magic, d);
 }
 
+// A key's three probe hashes (h3 only in the blocked layout).
+template <bool kBlocked>
+__device__ __forceinline__ uint3 byte_hashes(uint32_t key) {
+  return make_uint3(murmur3_u32(key, kSeedBloomA),
+                    murmur3_u32(key, kSeedBloomB) | 1u,
+                    kBlocked ? murmur3_u32(key, kSeedBlock) | 1u : 0u);
+}
+
 template <bool kBlocked>
 __global__ void __launch_bounds__(kThreads)
 bloom_add_bytes_kernel(uint8_t* bits, uint32_t d, uint64_t magic, int k,
@@ -1051,37 +1110,255 @@ bloom_add_bytes_kernel(uint8_t* bits, uint32_t d, uint64_t magic, int k,
                        const uint8_t* __restrict__ mask, int n) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n || (mask != nullptr && mask[i] == 0)) return;
-  const uint32_t key = keys[i];
-  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
-  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
-  const uint32_t h3 = kBlocked ? murmur3_u32(key, kSeedBlock) | 1u : 0u;
+  const uint3 h = byte_hashes<kBlocked>(keys[i]);
 #pragma unroll 4
   for (int j = 0; j < k; ++j) {
-    bits[byte_probe<kBlocked>(h1, h2, h3, static_cast<uint32_t>(j), d,
+    bits[byte_probe<kBlocked>(h.x, h.y, h.z, static_cast<uint32_t>(j), d,
                               magic)] = 1u;
   }
 }
 
 template <bool kBlocked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDirectThreads)
 bloom_contains_bytes_kernel(const uint8_t* __restrict__ bits, uint32_t d,
                             uint64_t magic, int k,
                             const uint32_t* __restrict__ keys, int n,
                             uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kDirectThreads + threadIdx.x;
   if (i >= n) return;
-  const uint32_t key = keys[i];
-  const uint32_t h1 = murmur3_u32(key, kSeedBloomA);
-  const uint32_t h2 = murmur3_u32(key, kSeedBloomB) | 1u;
-  const uint32_t h3 = kBlocked ? murmur3_u32(key, kSeedBlock) | 1u : 0u;
+  const uint3 h = byte_hashes<kBlocked>(keys[i]);
   bool hit = true;
 #pragma unroll 4
   for (int j = 0; j < k; ++j) {
-    hit &= __ldg(bits + byte_probe<kBlocked>(h1, h2, h3,
+    hit &= __ldg(bits + byte_probe<kBlocked>(h.x, h.y, h.z,
                                              static_cast<uint32_t>(j), d,
                                              magic)) == 1u;
   }
   out[i] = hit ? 1u : 0u;
+}
+
+// Bits b of the result: byte b of x equals 1 (b < 4).
+__device__ __forceinline__ uint32_t ones_of4(uint32_t x) {
+  return ((__vcmpeq4(x, 0x01010101u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t ones_of16(uint4 v) {
+  return ones_of4(v.x) | ones_of4(v.y) << 4 | ones_of4(v.z) << 8 |
+         ones_of4(v.w) << 12;
+}
+
+// The pack pass: image word w from filter bytes 32w .. 32w + 31, bit b set
+// where byte 32w + b is 1 (pack_bloom_bits on 0/1 bytes). The probe after
+// it may start at once (programmatic dependent launch).
+__global__ void __launch_bounds__(kThreads)
+bloom_pack_bytes_kernel(const uint4* __restrict__ bits, uint32_t words,
+                        uint32_t* __restrict__ image) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const uint32_t w = blockIdx.x * kThreads + threadIdx.x;
+  if (w >= words) return;
+  const uint4 lo = __ldg(bits + 2u * w);
+  const uint4 hi = __ldg(bits + 2u * w + 1u);
+  image[w] = ones_of16(lo) | ones_of16(hi) << 16;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0u;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Bytes [off, off + len) of the image from global memory into the same
+// offset of the shared image of every CTA in `ctas` (a cluster mask),
+// completing on the barrier at the same offset in each.
+__device__ __forceinline__ void bulk_image_load(uint8_t* smem,
+                                                const uint8_t* image,
+                                                uint32_t off, uint32_t len,
+                                                uint64_t* bar, uint16_t ctas) {
+  for (uint32_t c = 0; c < len; c += kBulkChunk) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1], %2, [%3], %4;"
+        :: "r"(smem_u32(smem + off + c)), "l"(image + off + c),
+           "r"(min(kBulkChunk, len - c)), "r"(smem_u32(bar)), "h"(ctas)
+        : "memory");
+  }
+}
+
+// K8's image path for the flat layout, the probe: each cluster shares the
+// image's reads (every CTA fetches a share and multicasts it); every CTA
+// then probes keys blockIdx.x * 1024 + t, strided by the grid, kKeyUnroll
+// keys a thread in flight. (The blocked layout's image is K4's packed
+// layout: K4 probes it.)
+__global__ void __launch_bounds__(kImageThreads, 1)
+bloom_contains_image_kernel(const uint8_t* __restrict__ image,
+                            uint32_t image_bytes, uint32_t m_bits,
+                            uint64_t magic, int k,
+                            const uint32_t* __restrict__ keys, int n,
+                            uint8_t* __restrict__ out) {
+  extern __shared__ uint4 image_smem[];
+  __shared__ uint64_t full;
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t rank = cluster.block_rank();
+  const uint32_t csize = cluster.num_blocks();
+  uint8_t* smem = reinterpret_cast<uint8_t*>(image_smem);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_u32(&full)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Every CTA's barrier is initialised before any copy may signal it.
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(&full)), "r"(image_bytes) : "memory");
+    // The pack pass, the kernel before this one, wrote the image.
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const uint32_t share = (image_bytes / 16u + csize - 1u) / csize * 16u;
+    const uint32_t off = rank * share;
+    if (off < image_bytes) {
+      bulk_image_load(smem, image, off, min(share, image_bytes - off), &full,
+                      static_cast<uint16_t>((1u << csize) - 1u));
+    }
+  }
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(image_smem);
+  const int stride = static_cast<int>(gridDim.x) * kImageThreads;
+  for (int i0 = static_cast<int>(blockIdx.x * kImageThreads + threadIdx.x);
+       i0 < n; i0 += kKeyUnroll * stride) {
+    uint32_t key[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * stride;
+      key[u] = i < n ? __ldg(keys + i) : 0u;
+    }
+    // The first keys hash while the image is still arriving; later waits
+    // find the phase complete and return at once.
+    uint3 h[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) h[u] = byte_hashes<false>(key[u]);
+    mbar_wait(&full, 0u);
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * stride;
+      if (i >= n) break;
+      uint32_t hit = 1u;
+      for (int j = 0; j < k; ++j) {
+        const uint32_t pos = byte_probe<false>(
+            h[u].x, h[u].y, 0u, static_cast<uint32_t>(j), m_bits, magic);
+        hit &= words[pos >> 5] >> (pos & 31u);
+      }
+      out[i] = static_cast<uint8_t>(hit & 1u);
+    }
+  }
+  // No CTA leaves before every copy into every CTA has landed.
+  mbar_wait(&full, 0u);
+  cluster.sync();
+}
+
+// Filter bytes (4 of a uint32) with byte b set to 1 where bit b of `nib`
+// is, kept elsewhere.
+__device__ __forceinline__ uint32_t set_ones4(uint32_t old, uint32_t nib) {
+  const uint32_t ones = (nib * 0x00204081u) & 0x01010101u;
+  return (old & ~(ones * 0xFFu)) | ones;
+}
+
+// K7's image path, pass 1: CTA c sets the bits of keys c * 1024 + t,
+// strided by the grid, in a zeroed packed image in shared memory with
+// shared atomicOr, and stores the image whole as partial image c.
+template <bool kBlocked>
+__global__ void __launch_bounds__(kImageThreads, 1)
+bloom_add_partial_kernel(uint32_t words, uint32_t d, uint64_t magic, int k,
+                         const uint32_t* __restrict__ keys,
+                         const uint8_t* __restrict__ mask, int n,
+                         uint4* __restrict__ partials) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  extern __shared__ uint4 image_smem[];
+  const int nvec = static_cast<int>(words / 4u);
+  const int tid = static_cast<int>(threadIdx.x);
+  for (int v = tid; v < nvec; v += kImageThreads) {
+    image_smem[v] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  uint32_t* image = reinterpret_cast<uint32_t*>(image_smem);
+  const int stride = static_cast<int>(gridDim.x) * kImageThreads;
+  for (int i0 = static_cast<int>(blockIdx.x) * kImageThreads + tid; i0 < n;
+       i0 += kKeyUnroll * stride) {
+    uint32_t key[kKeyUnroll];
+    bool add[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * stride;
+      add[u] = i < n && (mask == nullptr || mask[i] != 0);
+      key[u] = i < n ? __ldg(keys + i) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      if (!add[u]) continue;
+      const uint3 h = byte_hashes<kBlocked>(key[u]);
+      for (int j = 0; j < k; ++j) {
+        const uint32_t pos = byte_probe<kBlocked>(
+            h.x, h.y, h.z, static_cast<uint32_t>(j), d, magic);
+        atomicOr(image + (pos >> 5), 1u << (pos & 31u));
+      }
+    }
+  }
+  __syncthreads();
+  uint4* mine = partials + static_cast<size_t>(blockIdx.x) * nvec;
+  for (int v = tid; v < nvec; v += kImageThreads) mine[v] = image_smem[v];
+}
+
+// K7's image path, pass 2 (a programmatic dependent of pass 1): eight
+// lanes an image vector v (128 filter bits) OR its `parts` partials, a
+// lane every eighth partial, meet by shuffles, and each lane rewrites one
+// 16-byte vector of the filter's bytes: the new bits' bytes to 1, every
+// other byte kept. Every filter byte is read and written once.
+__global__ void __launch_bounds__(kThreads)
+bloom_merge_partials_kernel(uint8_t* __restrict__ bits, int nvec,
+                            const uint4* __restrict__ partials, int parts) {
+  const int t = static_cast<int>(blockIdx.x * kThreads + threadIdx.x);
+  const int v = t >> 3;
+  const int lane8 = t & 7;
+  uint4 set = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (v < nvec) {
+#pragma unroll 4
+    for (int g = lane8; g < parts; g += 8) {
+      const uint4 x = partials[static_cast<size_t>(g) * nvec + v];
+      set.x |= x.x;
+      set.y |= x.y;
+      set.z |= x.z;
+      set.w |= x.w;
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < 8; s <<= 1) {
+    set.x |= __shfl_xor_sync(0xFFFFFFFFu, set.x, s);
+    set.y |= __shfl_xor_sync(0xFFFFFFFFu, set.y, s);
+    set.z |= __shfl_xor_sync(0xFFFFFFFFu, set.z, s);
+    set.w |= __shfl_xor_sync(0xFFFFFFFFu, set.w, s);
+  }
+  if (v >= nvec) return;
+  // Lane q: filter bytes 128v + 16q .. + 15, bits 16q .. 16q + 15 of v.
+  const uint32_t w = lane8 < 2 ? set.x : lane8 < 4 ? set.y
+                   : lane8 < 6 ? set.z : set.w;
+  const uint32_t bits16 = (w >> (16 * (lane8 & 1))) & 0xFFFFu;
+  uint4* dst = reinterpret_cast<uint4*>(bits) + 8 * static_cast<size_t>(v) +
+               lane8;
+  const uint4 old = *dst;
+  *dst = make_uint4(set_ones4(old.x, bits16 & 0xFu),
+                    set_ones4(old.y, (bits16 >> 4) & 0xFu),
+                    set_ones4(old.z, (bits16 >> 8) & 0xFu),
+                    set_ones4(old.w, (bits16 >> 12) & 0xFu));
 }
 
 // ---------------------------------------------------------------------------
@@ -1286,6 +1563,114 @@ int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A launch of `grid` CTAs of `threads` threads with `smem` bytes of dynamic
+// shared memory, through cudaLaunchKernelEx with up to two attributes.
+struct Launch {
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg;
+
+  Launch(int grid, int threads, size_t smem, cudaStream_t s)
+      : attr{}, cfg{} {
+    cfg.gridDim = dim3(static_cast<unsigned int>(grid));
+    cfg.blockDim = dim3(static_cast<unsigned int>(threads));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 0;
+  }
+
+  // The CTAs in clusters of `size`.
+  void cluster(int size) {
+    cudaLaunchAttribute& a = attr[cfg.numAttrs++];
+    a.id = cudaLaunchAttributeClusterDimension;
+    a.val.clusterDim.x = static_cast<unsigned int>(size);
+    a.val.clusterDim.y = 1;
+    a.val.clusterDim.z = 1;
+  }
+
+  // A programmatic dependent of the kernel before it on the stream: its
+  // CTAs may start while that kernel runs (griddepcontrol.wait orders them).
+  void dependent() {
+    cudaLaunchAttribute& a = attr[cfg.numAttrs++];
+    a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    a.val.programmaticStreamSerializationAllowed = 1;
+  }
+};
+
+// K8's image path: the pack pass into `image`, then, as its programmatic
+// dependent, K4 on the image (blocked) or the shared-memory probe (flat)
+// over as many CTAs as the keys and the resident clusters allow.
+int launch_contains_image(const uint8_t* bits, uint32_t m_bits, bool blocked,
+                          int k, const uint32_t* keys, int n, uint8_t* out,
+                          uint32_t* image, cudaStream_t s) {
+  const uint32_t words = m_bits / 32u;
+  bloom_pack_bytes_kernel<<<(words + kThreads - 1) / kThreads, kThreads, 0,
+                            s>>>(reinterpret_cast<const uint4*>(bits), words,
+                                 image);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocked) {
+    const uint32_t num_blocks = m_bits / kBlockBits;
+    Launch launch(blocks_for(n), kThreads, 0, s);
+    launch.dependent();
+    err = cudaLaunchKernelEx(&launch.cfg, bloom_contains_kernel,
+                             static_cast<const uint32_t*>(image), num_blocks,
+                             fastmod_magic(num_blocks), k, keys, n, out);
+  } else {
+    const size_t smem = sizeof(uint32_t) * words;
+    err = cudaFuncSetAttribute(bloom_contains_image_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    Launch launch(kImageCluster, kImageThreads, smem, s);
+    launch.cluster(kImageCluster);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters,
+                                         bloom_contains_image_kernel,
+                                         &launch.cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int per_cluster = kImageMinKeysPerCta * kImageCluster;
+    const int wanted = (n + per_cluster - 1) / per_cluster;
+    // clusters == 0 (none fits) is left to the launch to refuse.
+    launch.cfg.gridDim = dim3(static_cast<unsigned int>(
+        kImageCluster * max(1, min(wanted, clusters))));
+    launch.dependent();
+    err = cudaLaunchKernelEx(&launch.cfg, bloom_contains_image_kernel,
+                             reinterpret_cast<const uint8_t*>(image),
+                             static_cast<uint32_t>(smem), m_bits,
+                             fastmod_magic(m_bits), k, keys, n, out);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's image path: pass 1 over `parts` CTAs (fewer for a short batch),
+// then the merge as its programmatic dependent.
+template <bool kBlocked>
+int launch_add_image(uint8_t* bits, uint32_t m_bits, uint32_t d, int k,
+                     const uint32_t* keys, const uint8_t* mask, int n,
+                     int parts, uint4* partials, cudaStream_t s) {
+  const uint32_t words = m_bits / 32u;
+  const size_t smem = sizeof(uint32_t) * words;
+  const int grid = max(1, min(parts, (n + kImageMinKeysPerCta - 1) /
+                                         kImageMinKeysPerCta));
+  cudaError_t err = cudaFuncSetAttribute(
+      bloom_add_partial_kernel<kBlocked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bloom_add_partial_kernel<kBlocked><<<grid, kImageThreads, smem, s>>>(
+      words, d, fastmod_magic(d), k, keys, mask, n, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nvec = static_cast<int>(words / 4u);
+  Launch launch(blocks_for(8 * nvec), kThreads, 0, s);
+  launch.dependent();
+  err = cudaLaunchKernelEx(&launch.cfg, bloom_merge_partials_kernel, bits,
+                           nvec, static_cast<const uint4*>(partials), grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1395,44 +1780,70 @@ int atp_bloom_add(void* words, const void* keys, int n,
 }
 
 // K7: blocked != 0 selects the blocked layout, else flat. mask may be
-// null (every key is added).
+// null (every key is added). scratch == null: the direct path (one thread
+// per key); else the image path with scratch uint32[parts * m_bits / 32]
+// for the partial images.
 int atp_bloom_add_bytes(void* bits, unsigned int m_bits, int k, int blocked,
-                        const void* keys, const void* mask, int n,
-                        void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    uint8_t* b = static_cast<uint8_t*>(bits);
-    const uint32_t* kk = static_cast<const uint32_t*>(keys);
-    const uint8_t* mm = static_cast<const uint8_t*>(mask);
-    if (blocked) {
-      const uint32_t num_blocks = m_bits / kBlockBits;
-      bloom_add_bytes_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-          b, num_blocks, fastmod_magic(num_blocks), k, kk, mm, n);
-    } else {
-      bloom_add_bytes_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-          b, m_bits, fastmod_magic(m_bits), k, kk, mm, n);
-    }
+                        const void* keys, const void* mask, int n, int parts,
+                        void* scratch, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* b = static_cast<uint8_t*>(bits);
+  const uint32_t* kk = static_cast<const uint32_t*>(keys);
+  const uint8_t* mm = static_cast<const uint8_t*>(mask);
+  const uint32_t d = blocked ? m_bits / kBlockBits : m_bits;
+  if (scratch != nullptr) {
+    uint4* partials = static_cast<uint4*>(scratch);
+    return blocked ? launch_add_image<true>(b, m_bits, d, k, kk, mm, n,
+                                            parts, partials, s)
+                   : launch_add_image<false>(b, m_bits, d, k, kk, mm, n,
+                                             parts, partials, s);
+  }
+  if (blocked) {
+    bloom_add_bytes_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+        b, d, fastmod_magic(d), k, kk, mm, n);
+  } else {
+    bloom_add_bytes_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+        b, d, fastmod_magic(d), k, kk, mm, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8: out[n] is 1 where every probe byte of keys[i] is 1.
+// K8: out[n] is 1 where every probe byte of keys[i] is 1. image == null:
+// the direct path; else the image path, with image uint32[m_bits / 32] as
+// the pack pass's scratch.
 int atp_bloom_contains_bytes(const void* bits, unsigned int m_bits, int k,
                              int blocked, const void* keys, int n, void* out,
-                             void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const uint8_t* b = static_cast<const uint8_t*>(bits);
-    const uint32_t* kk = static_cast<const uint32_t*>(keys);
-    uint8_t* o = static_cast<uint8_t*>(out);
-    if (blocked) {
-      const uint32_t num_blocks = m_bits / kBlockBits;
-      bloom_contains_bytes_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-          b, num_blocks, fastmod_magic(num_blocks), k, kk, n, o);
-    } else {
-      bloom_contains_bytes_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-          b, m_bits, fastmod_magic(m_bits), k, kk, n, o);
-    }
+                             void* image, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* b = static_cast<const uint8_t*>(bits);
+  const uint32_t* kk = static_cast<const uint32_t*>(keys);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (image != nullptr) {
+    return launch_contains_image(b, m_bits, blocked != 0, k, kk, n, o,
+                                 static_cast<uint32_t*>(image), s);
+  }
+  const uint32_t d = blocked ? m_bits / kBlockBits : m_bits;
+  const int grid = (n + kDirectThreads - 1) / kDirectThreads;
+  if (blocked) {
+    bloom_contains_bytes_kernel<true><<<grid, kDirectThreads, 0, s>>>(
+        b, d, fastmod_magic(d), k, kk, n, o);
+  } else {
+    bloom_contains_bytes_kernel<false><<<grid, kDirectThreads, 0, s>>>(
+        b, d, fastmod_magic(d), k, kk, n, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8's pack pass alone: image[m_bits / 32] from bits[m_bits].
+int atp_bloom_pack_bytes(const void* bits, unsigned int m_bits, void* image,
+                         void* stream) {
+  const uint32_t words = m_bits / 32u;
+  if (words > 0) {
+    bloom_pack_bytes_kernel<<<(words + kThreads - 1) / kThreads, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(bits), words, static_cast<uint32_t*>(image));
   }
   return static_cast<int>(cudaGetLastError());
 }

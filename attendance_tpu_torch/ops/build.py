@@ -43,8 +43,9 @@ SIGNATURES = {
     "atp_bloom_contains": (_P, _U, _I, _P, _I, _P, _P),
     "atp_hll_add": (_P, _I, _I, _P, _P, _P, _I, _P),
     "atp_cms_step": (_P, _I, _U, _P, _P, _I, _P, _P),
-    "atp_bloom_add_bytes": (_P, _U, _I, _I, _P, _P, _I, _P),
-    "atp_bloom_contains_bytes": (_P, _U, _I, _I, _P, _I, _P, _P),
+    "atp_bloom_add_bytes": (_P, _U, _I, _I, _P, _P, _I, _I, _P, _P),
+    "atp_bloom_contains_bytes": (_P, _U, _I, _I, _P, _I, _P, _P, _P),
+    "atp_bloom_pack_bytes": (_P, _U, _P, _P),
 }
 
 

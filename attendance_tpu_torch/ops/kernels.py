@@ -13,13 +13,13 @@ Bounds below are for one H100 SXM (3.35 TB/s device memory).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from attendance_tpu_torch.models.bloom import (
     BLOCK_BITS, BloomParams, bloom_add_packed_plain, bloom_add_plain,
-    bloom_contains_plain, bloom_contains_words)
+    bloom_contains_plain, bloom_contains_words, pack_bloom_bits)
 from attendance_tpu_torch.models import cms, hll
 from attendance_tpu_torch.ops.build import library
 from attendance_tpu_torch.ops.murmur3 import MASK32, as_u32, to_i32
@@ -29,7 +29,7 @@ launches = {"hll_histogram": 0, "fused_step": 0, "fused_step_seg": 0,
             "fused_step_delta": 0, "bloom_add": 0, "bloom_contains": 0,
             "hll_add": 0, "cms_step": 0, "bloom_add_bytes": 0,
             "bloom_contains_bytes": 0, "hll_histogram_rows": 0,
-            "hll_union_histogram": 0}
+            "hll_union_histogram": 0, "bloom_pack_bytes": 0}
 
 
 def reset_launches() -> None:
@@ -784,6 +784,49 @@ def cms_step(counts: torch.Tensor, keys: torch.Tensor,
 # K7 and K8: the byte-per-bit Bloom filter of the generic sketch store
 # ---------------------------------------------------------------------------
 
+# The image paths hold the filter's packed bit image (m_bits / 8 bytes)
+# whole in a CTA's dynamic shared memory (csrc/sketch_kernels.cu).
+BYTES_IMAGE_MAX_BYTES = 225 * 1024
+# From this many keys K8 (by layout) and K7 take their image paths
+# (measured on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); below, one
+# thread per key on the bytes.
+K8_IMAGE_MIN_KEYS = {"flat": 1 << 17, "blocked": 1 << 15}
+K7_IMAGE_MIN_KEYS = 1 << 16
+# K7's image path sets bits in at most this many partial images (16 and
+# 64 were slower at the 90,000-key preload on the same card, PERF.md).
+K7_IMAGE_PARTS = 32
+
+
+class BytesPlan(NamedTuple):
+    """How K7 or K8 runs a batch: through the packed image or directly on
+    the bytes, and the int32 scratch words the wrapper allocates (the
+    image path's: K8's image, ``m_bits / 32`` words, or K7's partial
+    images, ``K7_IMAGE_PARTS`` times that; 0 on the direct path)."""
+    image: bool
+    scratch_words: int
+
+
+def bloom_bytes_plan(n: int, m_bits: int, layout: str, *, add: bool = False,
+                     image: Optional[bool] = None) -> BytesPlan:
+    """The path of K7 (``add``) or K8 for ``n`` keys against a
+    byte-per-bit filter of ``m_bits`` bits in ``layout``: the image path
+    from ``K7_IMAGE_MIN_KEYS`` / ``K8_IMAGE_MIN_KEYS[layout]`` keys when
+    the packed image fits in shared memory, the direct path otherwise.
+    ``image`` forces a path (an image that does not fit raises)."""
+    _require(layout in ("flat", "blocked"), f"unknown Bloom layout {layout!r}")
+    # Whole 16-byte vectors of image (every derived filter is whole
+    # 512-bit blocks).
+    fits = m_bits % 128 == 0 and m_bits // 8 <= BYTES_IMAGE_MAX_BYTES
+    if image is None:
+        image = fits and n >= (K7_IMAGE_MIN_KEYS if add
+                               else K8_IMAGE_MIN_KEYS[layout])
+    _require(fits or not image,
+             f"a {m_bits}-bit filter's image does not fit in shared memory")
+    if not image:
+        return BytesPlan(False, 0)
+    return BytesPlan(True, m_bits // 32 * (K7_IMAGE_PARTS if add else 1))
+
+
 def _check_bytes_filter(bits: torch.Tensor, keys: torch.Tensor,
                         params: BloomParams) -> None:
     _require(params.layout in ("flat", "blocked"),
@@ -796,7 +839,8 @@ def _check_bytes_filter(bits: torch.Tensor, keys: torch.Tensor,
 
 def bloom_add_bytes(bits: torch.Tensor, keys: torch.Tensor,
                     params: BloomParams,
-                    mask: Optional[torch.Tensor] = None) -> None:
+                    mask: Optional[torch.Tensor] = None, *,
+                    image: Optional[bool] = None) -> None:
     """Set the k probe bytes of every key (every key whose ``mask`` is
     True) of int32[B] ``keys`` in the byte-per-bit filter
     uint8[m_bits], in place, flat or blocked layout.
@@ -807,11 +851,25 @@ def bloom_add_bytes(bits: torch.Tensor, keys: torch.Tensor,
     4 B of key a lane and a 32-byte sector per distinct probe written (the
     90,000-key roster into the 958,976-byte flat filter: about 0.3 us at
     3.35 TB/s), or operations, about B x (2 x 20 + 8k) integer ops (3 x
-    20 blocked). Design: one thread per key; the flat probe ``(h1 + j *
-    h2) mod m`` wraps in 32-bit arithmetic before the modulo, which is a
-    multiply-high with a precomputed magic (no division); every probe is
-    a plain byte store of 1, so races between keys are benign and no
-    atomic is used.
+    20 blocked). Two paths (``bloom_bytes_plan``; ``image`` forces one),
+    each one launch in :data:`launches`:
+
+    * direct, for a small batch: one thread per key stores byte 1 at
+      each probe (racing stores write the same value, so no atomic). The
+      flat probe ``(h1 + j * h2) mod m`` wraps in 32-bit arithmetic
+      before the modulo, which is a multiply-high with a precomputed
+      magic. At scale its scattered byte stores, about 21 to a 32-byte
+      sector, bind it in L2.
+    * image: two passes. Up to ``K7_IMAGE_PARTS`` CTAs (one per 1,024
+      keys) each set their share of the keys' bits in a zeroed packed
+      image in shared memory (``m_bits / 8`` bytes) with shared atomics
+      and store it as a partial image in an int32 scratch; the second
+      pass, a programmatic dependent, ORs the partials of each 128-bit
+      image vector and rewrites the matching 128 filter bytes once,
+      coalesced: new bits to byte 1, every other byte kept. A single
+      cluster of 8 or 16 CTAs ORing its images through distributed
+      shared memory was slower (PERF.md). The filter must start 16-byte
+      aligned.
     """
     _check_bytes_filter(bits, keys, params)
     _require(mask is None or (mask.dtype == torch.bool
@@ -822,20 +880,28 @@ def bloom_add_bytes(bits: torch.Tensor, keys: torch.Tensor,
         bloom_add_plain(bits, keys, params, mask)
         return
     _require_cuda(*tensors)
-    if keys.shape[0] == 0:
+    n = keys.shape[0]
+    plan = bloom_bytes_plan(n, params.m_bits, params.layout, add=True,
+                            image=image)
+    _require(not plan.image or bits.data_ptr() % 16 == 0,
+             "bits must be 16-byte aligned")
+    if n == 0:
         return
+    scratch = (torch.empty(plan.scratch_words, dtype=torch.int32,
+                           device=bits.device) if plan.image else None)
     with torch.cuda.device(bits.device):
         rc = library().atp_bloom_add_bytes(
             bits.data_ptr(), params.m_bits, params.k,
             int(params.layout == "blocked"), keys.data_ptr(),
-            None if mask is None else mask.data_ptr(), keys.shape[0],
-            _stream(bits))
+            None if mask is None else mask.data_ptr(), n, K7_IMAGE_PARTS,
+            None if scratch is None else scratch.data_ptr(), _stream(bits))
     _check_launch(rc, "atp_bloom_add_bytes")
     launches["bloom_add_bytes"] += 1
 
 
 def bloom_contains_bytes(bits: torch.Tensor, keys: torch.Tensor,
-                         params: BloomParams) -> torch.Tensor:
+                         params: BloomParams, *,
+                         image: Optional[bool] = None) -> torch.Tensor:
     """BF.EXISTS of int32[B] keys against the byte-per-bit filter:
     bool[B], True where all k probe bytes are 1, flat or blocked layout.
 
@@ -843,23 +909,68 @@ def bloom_contains_bytes(bits: torch.Tensor, keys: torch.Tensor,
     bloom.py:158; jitted in sketch/tpu_store.py:68-76). Bound: bytes, 4 B
     in and 1 B out a key and a 32-byte sector per distinct probe read (the
     processor's 8,192-key batch: about 0.02 us, under the launch floor of
-    about 1 us), or operations as K7's. Design: one thread per key
-    computes its k positions as K7 does and ANDs the k bytes, loaded
-    through the read-only path with no early exit, so the unrolled loads
-    are in flight together (one trip to the filter, which stays in L2).
+    about 1 us), or operations as K7's. Two paths (``bloom_bytes_plan``;
+    ``image`` forces one), either one launch in :data:`launches`:
+
+    * direct, for a small batch or a filter too large for the image: one
+      thread per key, in CTAs of 128 so that a batch spreads over many
+      SMs, ANDs its k probe bytes, loaded with no early exit so they are
+      in flight together. At scale each probe's own 32-byte L2 sector
+      binds it.
+    * image: a pack pass turns the bytes into the packed bit image (the
+      layout of ``models.bloom.pack_bloom_bits``) in an int32 scratch of
+      ``m_bits / 32`` words, reading the filter once with 16-byte loads;
+      then a probe as its programmatic dependent. Flat: the image is
+      copied into each CTA's shared memory by TMA bulk copies (clusters
+      of 2 CTAs, each fetching a share and multicasting it), and the
+      CTAs grid-stride over the keys, testing bits there. Blocked: the
+      image is K4's packed layout, and K4's kernel probes it, each key's
+      64-byte block read once (faster than the shared-memory image up
+      to 262,144 keys and within 2% of it at 1M, PERF.md). The filter
+      must start 16-byte aligned.
     """
     _check_bytes_filter(bits, keys, params)
     if bits.device.type == "cpu" and keys.device.type == "cpu":
         return bloom_contains_plain(bits, keys, params)
     _require_cuda(bits, keys)
-    out = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
-    if keys.shape[0] == 0:
+    n = keys.shape[0]
+    plan = bloom_bytes_plan(n, params.m_bits, params.layout, image=image)
+    _require(not plan.image or bits.data_ptr() % 16 == 0,
+             "bits must be 16-byte aligned")
+    out = torch.empty(n, dtype=torch.bool, device=keys.device)
+    if n == 0:
         return out
+    scratch = (torch.empty(plan.scratch_words, dtype=torch.int32,
+                           device=bits.device) if plan.image else None)
     with torch.cuda.device(bits.device):
         rc = library().atp_bloom_contains_bytes(
             bits.data_ptr(), params.m_bits, params.k,
-            int(params.layout == "blocked"), keys.data_ptr(), keys.shape[0],
-            out.data_ptr(), _stream(bits))
+            int(params.layout == "blocked"), keys.data_ptr(), n,
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            _stream(bits))
     _check_launch(rc, "atp_bloom_contains_bytes")
     launches["bloom_contains_bytes"] += 1
     return out
+
+
+def bloom_pack_bytes(bits: torch.Tensor) -> torch.Tensor:
+    """K8's pack pass alone: the packed int32[m_bits / 32] image of a
+    byte-per-bit filter uint8[m_bits] (``m_bits`` a multiple of 32), bit
+    ``pos`` at word ``pos >> 5``, bit ``pos & 31``, set where the byte is
+    1. Its plain version is ``models.bloom.pack_bloom_bits``. Counted in
+    :data:`launches` as ``bloom_pack_bytes``; K8's image path launches
+    the same kernel and counts it as its own."""
+    _require(bits.dtype == torch.uint8 and bits.dim() == 1
+             and bits.shape[0] % 32 == 0, "bits must be uint8[32 * words]")
+    if bits.device.type == "cpu":
+        return pack_bloom_bits(bits)
+    _require_cuda(bits)
+    _require(bits.data_ptr() % 16 == 0, "bits must be 16-byte aligned")
+    words = torch.empty(bits.shape[0] // 32, dtype=torch.int32,
+                        device=bits.device)
+    with torch.cuda.device(bits.device):
+        rc = library().atp_bloom_pack_bytes(
+            bits.data_ptr(), bits.shape[0], words.data_ptr(), _stream(bits))
+    _check_launch(rc, "atp_bloom_pack_bytes")
+    launches["bloom_pack_bytes"] += 1
+    return words

@@ -70,8 +70,11 @@ Phases (any failure exits non-zero):
      card: the delta capture of 16 rows and the 256-bank base copy
      (graph replays) beside their bound in bytes, and one capture's D2H;
   6. the generic sketch store and the processor loop (after 5): (a) K7
-     (90,000 keys into the 100k-roster filter, flat and blocked) and K8
-     (8,192 and 1,048,576 keys), K1-rows (1, 16 and 1,024 rows, sorted,
+     (1 to 90,000 keys into the 100k-roster filter, flat and blocked,
+     onto a filter already holding other ids, with and without a mask)
+     and K8 (1 to 1,048,576 keys), each on both of its paths, with the
+     plan's crossovers, and K8's pack pass alone, K1-rows (1, 16 and
+     1,024 rows, sorted,
      unsorted and repeated) and K1-union (2, 7 and 1,024 rows) on a
      1,024-key store filled by ``pfadd_many`` (BASELINE.md config 3),
      each held against its plain version and timed beside its bound,
@@ -920,75 +923,108 @@ def sectors(pos: torch.Tensor) -> int:
     return int(torch.unique(pos.reshape(-1) >> 5).numel())
 
 
-def store_kernels(dev, floor_ms: float, rows: dict, regs: torch.Tensor
-                  ) -> None:
-    """Phase 6a: K7 and K8 on the 100k-roster filter (flat and blocked),
-    K1-rows and K1-union on ``regs`` (the 1024-key store), each held
-    against its plain version and timed beside its bound, the launch
-    floor and, where one exists, the PyTorch library call's time."""
-    from attendance_tpu_torch.models import bloom, hll
+# K8's sizes in phase 6a: one key (a scalar BF.EXISTS), the processor's
+# batch, and up to the 1M-id FPR probe of phase 6b.
+K8_SIZES = (1, 8192, 32_768, 65_536, 131_072, 262_144, 1 << 20)
+# K7's: one key (a scalar BF.ADD) up to the roster preload.
+K7_SIZES = (1, 8192, 32_768, 65_536, 90_000)
+
+
+def bytes_bloom_kernels(dev, floor_ms: float, rows: dict) -> None:
+    """Phase 6a, K7 and K8 on the 100k-roster filter, flat and blocked:
+    each path (direct, image) at every size of ``K7_SIZES`` /
+    ``K8_SIZES``, held against its plain version (zero differing bytes
+    or answers) and timed beside its bound, the launch floor and, for
+    K7, ``index_fill_``; and K8's pack pass alone."""
+    from attendance_tpu_torch.models import bloom
     from attendance_tpu_torch.ops import kernels
 
+    print(f"K7/K8 plan: K8 image path from {kernels.K8_IMAGE_MIN_KEYS} "
+          f"keys, K7 image path from {kernels.K7_IMAGE_MIN_KEYS} keys (at "
+          f"most {kernels.K7_IMAGE_PARTS} partial images); images up to "
+          f"{kernels.BYTES_IMAGE_MAX_BYTES} bytes")
     rng = np.random.default_rng(6)
     roster = torch.from_numpy(rng.permutation(np.arange(
         10_000, 100_000, dtype=np.int32))).to(dev)  # 90,000 keys
     n = roster.shape[0]
+    # Ids already enrolled before the preload: an add keeps them.
+    enrolled = torch.arange(201_000, 221_000, dtype=torch.int32, device=dev)
     for layout in ("flat", "blocked"):
         params = bloom.derive_bloom_params(100_000, 0.01, layout)
         hashes = 2 if layout == "flat" else 3
-        bits = bloom.bloom_init(params, dev)
-        kernels.bloom_add_bytes(bits, roster, params)
-        plain = bloom.bloom_init(params, dev)
-        bloom.bloom_add_plain(plain, roster, params)
-        torch.cuda.synchronize()
-        err = int((bits.int() - plain.int()).abs().max())
-        check(err == 0, f"K7 {layout} keys={n}: max abs err {err}")
-        pos = bloom.bloom_positions(roster, params)
-        # Replays store the same bytes again: the same work each time.
-        ms = kernel_ms(lambda: kernels.bloom_add_bytes(bits, roster, params))
-        check(torch.equal(bits, plain), f"K7 {layout}: replays changed it")
-        plain_ms = eager_ms(
-            lambda: bloom.bloom_add_plain(plain, roster, params), 3)
-        flat_pos = pos.reshape(-1)
-        lib_ms = eager_ms(lambda: plain.index_fill_(0, flat_pos, 1), 20)
-        check(torch.equal(bits, plain), f"K7 {layout} != index_fill_")
-        b_ms, b_by = bound_ms(4 * n + 32 * sectors(pos),
-                              n * (20 * hashes + 8 * params.k))
-        print(f"K7 bloom_add_bytes {layout} keys={n} m_bits={params.m_bits} "
-              f"k={params.k} ms={ms} above_floor_ms={ms - floor_ms} "
-              f"plain_ms={plain_ms} index_fill_ms={lib_ms} (positions "
-              f"given) bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
-              f"max_abs_err={err}")
+        start = bloom.bloom_init(params, dev)
+        bloom.bloom_add_plain(start, enrolled, params)
+        full = start.clone()
+        bloom.bloom_add_plain(full, roster, params)
+        for n7 in K7_SIZES:
+            keys = roster[:n7]
+            want = start.clone()
+            bloom.bloom_add_plain(want, keys, params)
+            mask = torch.rand(n7, device=dev) < 0.7
+            masked = start.clone()
+            bloom.bloom_add_plain(masked, keys, params, mask)
+            pos = bloom.bloom_positions(keys, params)
+            b_ms, b_by = bound_ms(4 * n7 + 32 * sectors(pos),
+                                  n7 * (20 * hashes + 8 * params.k))
+            picked = kernels.bloom_bytes_plan(
+                n7, params.m_bits, layout, add=True).image
+            for image in (False, True):
+                got = start.clone()
+                kernels.bloom_add_bytes(got, keys, params, image=image)
+                got_m = start.clone()
+                kernels.bloom_add_bytes(got_m, keys, params, mask,
+                                        image=image)
+                torch.cuda.synchronize()
+                err = int((got != want).sum()) + int((got_m != masked).sum())
+                check(err == 0, f"K7 {layout} keys={n7} image={image}: "
+                      f"{err} bytes differ")
+                # Replays store the same bytes again: the same work.
+                ms = kernel_ms(lambda: kernels.bloom_add_bytes(
+                    got, keys, params, image=image))
+                check(torch.equal(got, want),
+                      f"K7 {layout} keys={n7} image={image}: replays")
+                line = (f"K7 bloom_add_bytes {layout} keys={n7} "
+                        f"path={'image' if image else 'direct'} "
+                        f"picked_by_plan={image == picked} ms={ms} "
+                        f"above_floor_ms={ms - floor_ms} bound_ms={b_ms} "
+                        f"({b_by}) times_bound={ms / b_ms} max_abs_err={err}")
+                if n7 == n and image == picked:
+                    plain_ms = eager_ms(lambda: bloom.bloom_add_plain(
+                        want, keys, params), 3)
+                    flat_pos = pos.reshape(-1)
+                    lib = want.clone()
+                    lib_ms = eager_ms(lambda: lib.index_fill_(0, flat_pos, 1),
+                                      20)
+                    check(torch.equal(lib, want),
+                          f"K7 {layout} != index_fill_")
+                    line += (f" plain_ms={plain_ms} index_fill_ms={lib_ms} "
+                             f"(positions given)")
+                    if layout == "flat":
+                        rows["bloom_add_bytes"] = dict(
+                            replaces="attendance_tpu/models/bloom.py:143",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                print(line)
         if layout == "flat":
-            rows["bloom_add_bytes"] = dict(
-                replaces="attendance_tpu/models/bloom.py:143",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
             # B13c: the fill behind estimated_fpr, one count_nonzero.
-            fill = float(bloom.bloom_fill_fraction(bits))
-            check(fill == float((plain != 0).double().mean()),
+            fill = float(bloom.bloom_fill_fraction(full))
+            check(fill == float((full != 0).double().mean()),
                   f"fill fraction {fill}")
-            fill_ms = kernel_ms(lambda: bloom.bloom_fill_fraction(bits))
+            fill_ms = kernel_ms(lambda: bloom.bloom_fill_fraction(full))
             f_ms, f_by = bound_ms(params.m_bits + 8, params.m_bits)
             print(f"B13c bloom_fill_fraction (count_nonzero) bytes="
                   f"{params.m_bits} ms={fill_ms} above_floor_ms="
                   f"{fill_ms - floor_ms} bound_ms={f_ms} ({f_by}) fill={fill}")
-        for n8 in (8192, 1 << 20):
+
+        bits = full
+        for n8 in K8_SIZES:
             # A processor batch's mix: 93% roster ids, 7% invalid ids.
             members = roster[torch.randint(0, n, (n8,), device=dev)]
             others = torch.randint(100_000, 1_000_000, (n8,), device=dev,
                                    dtype=torch.int32)
             probe = torch.where(torch.rand(n8, device=dev) < 0.93, members,
                                 others)
-            got = kernels.bloom_contains_bytes(bits, probe, params)
             want = bloom.bloom_contains_plain(bits, probe, params)
-            torch.cuda.synchronize()
-            err = int((got != want).sum())
-            check(err == 0, f"K8 {layout} keys={n8}: {err} answers differ")
-            ms = kernel_ms(
-                lambda: kernels.bloom_contains_bytes(bits, probe, params))
-            plain_ms = eager_ms(
-                lambda: bloom.bloom_contains_plain(bits, probe, params), 5)
             # The probes the answer needs: up to a key's first unset byte.
             pos8 = bloom.bloom_positions(probe, params)
             hit = bits[pos8] == 1
@@ -996,16 +1032,55 @@ def store_kernels(dev, floor_ms: float, rows: dict, regs: torch.Tensor
             needed[:, 1:] = torch.cumprod(hit[:, :-1].int(), dim=1).bool()
             b_ms, b_by = bound_ms(5 * n8 + 32 * sectors(pos8[needed]),
                                   n8 * (20 * hashes + 8 * params.k))
-            print(f"K8 bloom_contains_bytes {layout} keys={n8} ms={ms} "
-                  f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
-                  f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
-                  f"hits={int(got.sum())} max_abs_err={err}")
-            if layout == "flat" and n8 == 8192:
-                rows["bloom_contains_bytes"] = dict(
-                    replaces="attendance_tpu/models/bloom.py:158",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            picked = kernels.bloom_bytes_plan(n8, params.m_bits,
+                                              layout).image
+            for image in (False, True):
+                got = kernels.bloom_contains_bytes(bits, probe, params,
+                                                   image=image)
+                torch.cuda.synchronize()
+                err = int((got != want).sum())
+                check(err == 0, f"K8 {layout} keys={n8} image={image}: "
+                      f"{err} answers differ")
+                ms = kernel_ms(lambda: kernels.bloom_contains_bytes(
+                    bits, probe, params, image=image))
+                line = (f"K8 bloom_contains_bytes {layout} keys={n8} "
+                        f"path={'image' if image else 'direct'} "
+                        f"picked_by_plan={image == picked} ms={ms} "
+                        f"above_floor_ms={ms - floor_ms} bound_ms={b_ms} "
+                        f"({b_by}) times_bound={ms / b_ms} "
+                        f"hits={int(got.sum())} max_abs_err={err}")
+                if n8 in (8192, 1 << 20) and image == picked:
+                    plain_ms = eager_ms(lambda: bloom.bloom_contains_plain(
+                        bits, probe, params), 5)
+                    line += f" plain_ms={plain_ms}"
+                    if layout == "flat" and n8 == 8192:
+                        rows["bloom_contains_bytes"] = dict(
+                            replaces="attendance_tpu/models/bloom.py:158",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                print(line)
+        # The pack pass alone, against its plain version.
+        words = kernels.bloom_pack_bytes(bits)
+        torch.cuda.synchronize()
+        check(torch.equal(words, bloom.pack_bloom_bits(bits)),
+              f"K8 {layout}: the pack pass differs from pack_bloom_bits")
+        p_ms = kernel_ms(lambda: kernels.bloom_pack_bytes(bits))
+        pb_ms, pb_by = bound_ms(params.m_bits * 33 // 32, params.m_bits)
+        print(f"K8 pack pass alone {layout} bytes={params.m_bits} ms={p_ms} "
+              f"bound_ms={pb_ms} ({pb_by})")
 
+
+def store_kernels(dev, floor_ms: float, rows: dict, regs: torch.Tensor
+                  ) -> None:
+    """Phase 6a: K7 and K8 (``bytes_bloom_kernels``), then K1-rows and
+    K1-union on ``regs`` (the 1024-key store), each held against its
+    plain version and timed beside its bound, the launch floor and, where
+    one exists, the PyTorch library call's time."""
+    from attendance_tpu_torch.models import hll
+    from attendance_tpu_torch.ops import kernels
+
+    bytes_bloom_kernels(dev, floor_ms, rows)
+    rng = np.random.default_rng(6)
     num_banks, m = regs.shape
     bins = 64 - 14 + 2
     # B14a: K5 at a processor PFADD's shape, the valid share of an

@@ -30,6 +30,7 @@ from attendance_tpu_torch.pipeline.fast_path import (
     FusedMetrics, FusedPipeline)
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
+from attendance_tpu_torch.transport.memory_broker import MemoryBroker
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -121,6 +122,10 @@ def test_fused_verb_prints_what_jax_cmd_fused_does(snapshot, tmp_path,
     if snapshot:
         args += ["--snapshot-every-batches", "2"]
     jobs.disable()
+    # Both verbs subscribe to the process-wide broker, which keeps a
+    # topic's messages for late subscribers: start from empty ones.
+    JaxBroker.reset_shared()
+    MemoryBroker.reset_shared()
     with caplog.at_level(logging.INFO):
         jax_main(args + (["--snapshot-dir", str(tmp_path / "jax")]
                          if snapshot else []))

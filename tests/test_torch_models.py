@@ -122,6 +122,31 @@ def test_pack_unpack_bloom_bits_round_trip():
     assert torch.equal(tbloom.unpack_bloom_bits(words), bits)
 
 
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+def test_pack_bloom_bits_matches_jax_on_the_roster_filters(layout):
+    """The plain version of K8's pack pass at the image path's real
+    shapes: the 100k-roster filters (958,976 bits flat, 1,102,848
+    blocked) holding a seeded 90,000-id roster, built by both packages.
+    The packed image answers every probe as the bytes do."""
+    params = tbloom.derive_bloom_params(100_000, 0.01, layout)
+    jparams = jbloom.BloomParams(*params)
+    rng = np.random.default_rng(10)
+    roster = rng.permutation(np.arange(10_000, 100_000, dtype=np.uint32))
+    jbits = jbloom.bloom_add(jnp.zeros(params.m_bits, jnp.uint8),
+                             jnp.asarray(roster), jparams)
+    bits = tbloom.bloom_init(params, CPU)
+    tbloom.bloom_add_plain(bits, _t(roster), params)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+    want = np.asarray(jbloom.pack_bloom_bits(jbits))
+    words = tbloom.pack_bloom_bits(bits)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    assert torch.equal(kernels.bloom_pack_bytes(bits), words)
+    probe = _t(np.concatenate([roster[:5000], rng.integers(
+        100_000, 1 << 32, 50_000, dtype=np.uint64).astype(np.uint32)]))
+    assert torch.equal(tbloom.bloom_contains_words(words, probe, params),
+                       tbloom.bloom_contains_plain(bits, probe, params))
+
+
 # -- HLL ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("precision", [4, 10, 14, 18])
@@ -356,4 +381,5 @@ def test_kernel_wrappers_validate_inputs():
                                 "bloom_add_bytes": 0,
                                 "bloom_contains_bytes": 0,
                                 "hll_histogram_rows": 0,
-                                "hll_union_histogram": 0}
+                                "hll_union_histogram": 0,
+                                "bloom_pack_bytes": 0}

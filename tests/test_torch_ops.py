@@ -162,3 +162,80 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = set(out.stdout.split())
     assert len(names) >= 25  # every module was imported
     assert _PORT_MODULES <= names, _PORT_MODULES - names
+
+
+# -- the path plan of K7 and K8 (ops/kernels.py bloom_bytes_plan) -------------
+
+def _roster_params(layout, capacity=100_000, error_rate=0.01):
+    from attendance_tpu_torch.models.bloom import derive_bloom_params
+    return derive_bloom_params(capacity, error_rate, layout)
+
+
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+def test_bytes_plan_takes_the_image_for_large_batches(layout):
+    """The 100k-roster filters' images fit (117 and 135 KiB): K8 and K7
+    take the image path at and above their crossovers, with K8's scratch
+    of m_bits / 32 words (the image) and K7's of K7_IMAGE_PARTS times
+    that (its partial images)."""
+    from attendance_tpu_torch.ops import kernels
+    m = _roster_params(layout).m_bits
+    cross = kernels.K8_IMAGE_MIN_KEYS[layout]
+    for n in (cross, cross + 1, 1 << 20):
+        assert kernels.bloom_bytes_plan(n, m, layout) == (True, m // 32)
+    for n in (kernels.K7_IMAGE_MIN_KEYS, kernels.K7_IMAGE_MIN_KEYS + 1,
+              90_000):
+        assert kernels.bloom_bytes_plan(n, m, layout, add=True) == (
+            True, kernels.K7_IMAGE_PARTS * m // 32)
+
+
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+def test_bytes_plan_stays_direct_for_small_batches(layout):
+    from attendance_tpu_torch.ops import kernels
+    m = _roster_params(layout).m_bits
+    for n in (0, 1, 8192, kernels.K8_IMAGE_MIN_KEYS[layout] - 1):
+        assert kernels.bloom_bytes_plan(n, m, layout) == (False, 0)
+    for n in (0, 1, kernels.K7_IMAGE_MIN_KEYS - 1):
+        assert kernels.bloom_bytes_plan(n, m, layout, add=True) == (False, 0)
+    # A forced path wins over the batch length.
+    assert kernels.bloom_bytes_plan(1, m, layout, image=True) == (True,
+                                                                  m // 32)
+    assert kernels.bloom_bytes_plan(1 << 20, m, layout, image=False) == (
+        False, 0)
+
+
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+def test_bytes_plan_keeps_a_filter_too_large_for_the_image_direct(layout):
+    """The scalable chain's second sub-filter (200,000 at 0.5%: 269 KiB
+    packed flat) does not fit in shared memory: direct at any length, and
+    forcing the image raises."""
+    from attendance_tpu_torch.ops import kernels
+    m = _roster_params(layout, 200_000, 0.005).m_bits
+    assert m // 8 > kernels.BYTES_IMAGE_MAX_BYTES
+    for add in (False, True):
+        assert kernels.bloom_bytes_plan(1 << 20, m, layout, add=add) == (
+            False, 0)
+        with pytest.raises(ValueError, match="does not fit"):
+            kernels.bloom_bytes_plan(1 << 20, m, layout, add=add,
+                                     image=True)
+
+
+def test_bytes_wrappers_on_the_cpu_take_the_plain_version_on_any_path():
+    """A forced path changes nothing on the CPU: the plain versions."""
+    from attendance_tpu_torch.models import bloom
+    from attendance_tpu_torch.ops import kernels
+    params = _roster_params("flat", 1000)
+    keys = torch.arange(500, dtype=torch.int32)
+    want = bloom.bloom_init(params, torch.device("cpu"))
+    bloom.bloom_add_plain(want, keys, params)
+    before = dict(kernels.launches)
+    for image in (None, False, True):
+        bits = bloom.bloom_init(params, torch.device("cpu"))
+        kernels.bloom_add_bytes(bits, keys, params, image=image)
+        assert torch.equal(bits, want)
+        probe = torch.arange(1000, dtype=torch.int32)
+        assert torch.equal(
+            kernels.bloom_contains_bytes(bits, probe, params, image=image),
+            bloom.bloom_contains_plain(want, probe, params))
+    assert torch.equal(kernels.bloom_pack_bytes(want),
+                       bloom.pack_bloom_bits(want))
+    assert kernels.launches == before

@@ -300,14 +300,19 @@ def test_pipeline_verb_prints_what_jax_prints(capsys, caplog):
     jobs.disable()
     JBroker.reset_shared()
     MemoryBroker.reset_shared()
-    with caplog.at_level(logging.INFO):
-        jax_main(args)
-    jax_out = capsys.readouterr().out
-    jax_lines = _log_lines(caplog, r"LECTURE_\d+: \d+ unique")
-    caplog.clear()
-    with caplog.at_level(logging.INFO):
-        cli_main(args + ["--device", "cpu"])
-    out = capsys.readouterr().out
+    try:
+        with caplog.at_level(logging.INFO):
+            jax_main(args)
+        jax_out = capsys.readouterr().out
+        jax_lines = _log_lines(caplog, r"LECTURE_\d+: \d+ unique")
+        caplog.clear()
+        with caplog.at_level(logging.INFO):
+            cli_main(args + ["--device", "cpu"])
+        out = capsys.readouterr().out
+    finally:
+        # The verbs leave their events on the process-wide brokers.
+        JBroker.reset_shared()
+        MemoryBroker.reset_shared()
     lines = _log_lines(caplog, r"LECTURE_\d+: \d+ unique")
     assert out == jax_out and "=== Lecture Attendance Rankings ===" in out
     assert lines == jax_lines and len(lines) == 7
