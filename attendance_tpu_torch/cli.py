@@ -21,9 +21,15 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   store's JSONL);
 * ``parity``: the card store against an oracle (``--oracle sim``, the
   hermetic simulation of Redis's algorithms; ``--oracle redis``, a live
-  Redis Stack, exiting 2 when none is reachable).
+  Redis Stack, exiting 2 when none is reachable);
+* ``bridge``: the JSON -> binary ingress bridge: drain the reference's
+  per-event JSON topic, republish micro-batches as planar frames on
+  ``<topic>-binary`` for the fused pipeline, until idle.
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
+BrokerServer at ``--socket-broker``, started with ``python -m
+attendance_tpu_torch.transport.socket_broker``). Runs on the CUDA card
+unless ``--device cpu`` is given (``bridge`` runs on the host only).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.analyzer import AttendanceAnalyzer
+from attendance_tpu_torch.pipeline.bridge import JsonBinaryBridge
 from attendance_tpu_torch.pipeline.fast_path import (
     EVENTS_SEGMENTS, EVENTS_SNAPSHOT, FusedPipeline)
 from attendance_tpu_torch.parity import (
@@ -55,11 +62,12 @@ logger = logging.getLogger(__name__)
 
 
 def run_fused(config: Config, num_events: int, frame_size: int,
-              num_lectures: int, seed: int = 0,
-              device=None) -> Tuple[FusedPipeline, dict]:
-    """The fused verb's flow. Returns the pipeline (for further queries;
-    the caller runs ``cleanup()``) and a summary of the run."""
-    pipe = FusedPipeline(config, device=device)
+              num_lectures: int, seed: int = 0, device=None,
+              client=None) -> Tuple[FusedPipeline, dict]:
+    """The fused verb's flow (on ``client``, else the transport of
+    ``config``). Returns the pipeline (for further queries; the caller
+    runs ``cleanup()``) and a summary of the run."""
+    pipe = FusedPipeline(config, client=client, device=device)
     try:
         roster, frames = generate_frames(
             num_events, frame_size,
@@ -112,7 +120,8 @@ def cmd_fused(args) -> None:
                     snapshot_every_batches=args.snapshot_every_batches,
                     snapshot_mode=args.snapshot_mode,
                     snapshot_compact_every=args.snapshot_compact_every,
-                    integrity=not args.no_integrity)
+                    integrity=not args.no_integrity,
+                    **_transport_config(args))
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
     try:
@@ -183,9 +192,19 @@ def cmd_analyze(args) -> None:
         analyzer.cleanup()
 
 
+def _transport_config(args) -> dict:
+    """Config fields of the transport flags (``_add_transport_flags``)."""
+    return dict(transport_backend=args.transport_backend,
+                socket_broker=args.socket_broker,
+                pulsar_topic=args.pulsar_topic,
+                quarantine_dir=args.quarantine_dir,
+                retry_budget_s=args.retry_budget_s)
+
+
 def _config(args) -> Config:
     """The Config of a generic-store verb's flags."""
     return Config(
+        **_transport_config(args),
         redis_host=args.redis_host, redis_port=args.redis_port,
         cassandra_hosts=args.cassandra_hosts.split(","),
         cassandra_keyspace=args.cassandra_keyspace,
@@ -352,9 +371,49 @@ def cmd_parity(args) -> None:
         sys.exit(1)
 
 
+def cmd_bridge(args) -> None:
+    """Run the JSON -> binary ingress bridge until idle (or max events)."""
+    config = Config(batch_size=args.batch_size,
+                    batch_timeout_s=args.batch_timeout_s,
+                    max_redeliveries=args.max_redeliveries,
+                    metrics_json=args.metrics_json,
+                    **_transport_config(args))
+    bridge = JsonBinaryBridge(config, out_topic=args.out_topic or None)
+    try:
+        bridge.run(max_events=args.max_events,
+                   idle_timeout_s=args.idle_timeout_s)
+        m = bridge.metrics
+        logger.info("Bridged %d events in %d frames (%.0f ev/s; %d "
+                    "dead-lettered)", m.events, m.batches,
+                    m.events_per_second, m.dead_lettered)
+    finally:
+        bridge.cleanup()
+
+
+def _add_transport_flags(p: argparse.ArgumentParser) -> None:
+    d = Config()
+    p.add_argument("--transport-backend", choices=["memory", "socket"],
+                   default=d.transport_backend,
+                   help="socket = a BrokerServer shared by processes "
+                   "(python -m attendance_tpu_torch.transport."
+                   "socket_broker)")
+    p.add_argument("--socket-broker", default=d.socket_broker,
+                   help="BrokerServer address for --transport-backend "
+                   "socket")
+    p.add_argument("--pulsar-topic", default=d.pulsar_topic)
+    p.add_argument("--quarantine-dir", default=d.quarantine_dir,
+                   help="write dead-lettered frames here before the ack "
+                   "(empty = drop)")
+    p.add_argument("--retry-budget-s", type=float,
+                   default=d.retry_budget_s,
+                   help="reconnect and retry window of one broker RPC "
+                   "before BrokerUnavailable")
+
+
 def _add_store_flags(p: argparse.ArgumentParser) -> None:
     """The flags of the generic-store verbs."""
     d = Config()
+    _add_transport_flags(p)
     p.add_argument("--device", default=None,
                    help="torch device of the card store (default: the "
                    "CUDA card; 'cpu' runs the kernels' plain PyTorch "
@@ -424,6 +483,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--frame-size", type=int, default=1 << 17)
     f.add_argument("--num-lectures", type=int, default=16)
     f.add_argument("--seed", type=int, default=0)
+    _add_transport_flags(f)
     f.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                    "the kernels' plain PyTorch versions)")
@@ -531,6 +591,22 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--num-lectures", type=int, default=4)
     pa.add_argument("--seed", type=int, default=0)
     pa.set_defaults(fn=cmd_parity)
+    br = sub.add_parser(
+        "bridge", help="JSON -> binary ingress bridge: drain the "
+        "reference-wire JSON topic, repack micro-batches as planar frames "
+        "on <topic>-binary for the fused pipeline")
+    _add_transport_flags(br)
+    br.add_argument("--out-topic", default="",
+                    help="binary output topic (default <topic>-binary)")
+    br.add_argument("--batch-size", type=int, default=d.batch_size)
+    br.add_argument("--batch-timeout-s", type=float,
+                    default=d.batch_timeout_s)
+    br.add_argument("--max-redeliveries", type=int,
+                    default=d.max_redeliveries)
+    br.add_argument("--metrics-json", default=d.metrics_json)
+    br.add_argument("--max-events", type=int, default=None)
+    br.add_argument("--idle-timeout-s", type=float, default=1.0)
+    br.set_defaults(fn=cmd_bridge)
     return p
 
 

@@ -42,9 +42,14 @@ class Config:
     # numpy sketches, "redis" = Redis Stack (import-gated), "redis-sim" =
     # the hermetic simulation of Redis's algorithms.
     sketch_backend: str = "tpu"
-    # Transport of the processor: "memory" (the in-process broker). The
-    # socket and pulsar transports are not ported yet.
+    # Transport of the processor, the fused pipeline and the bridge:
+    # "memory" (the process's in-process broker) or "socket" (a
+    # BrokerServer at socket_broker: python -m
+    # attendance_tpu_torch.transport.socket_broker). The pulsar transport
+    # is not ported.
     transport_backend: str = "memory"
+    # Address of the BrokerServer of --transport-backend socket.
+    socket_broker: str = "127.0.0.1:6655"
     # Event store of the processor: "memory" (rows), "columnar" or
     # "cassandra" (import-gated).
     storage_backend: str = "memory"
@@ -68,6 +73,12 @@ class Config:
     # A frame that fails to decode is nacked for redelivery at most this
     # many times, then dead-lettered (acked and counted).
     max_redeliveries: int = 3
+    # Dead-lettered frames are written here (bytes + a JSON sidecar)
+    # before the ack; "" drops them on the ack.
+    quarantine_dir: str = ""
+    # Total retry budget of one broker RPC over the socket transport
+    # (reconnects with jittered backoff), then BrokerUnavailable.
+    retry_budget_s: float = 15.0
     # Append one JSON metrics line per processor run to this file.
     metrics_json: str = ""
     # Host->device wire of the fused step: "auto" starts on the 4-byte
@@ -126,6 +137,8 @@ class Config:
         if self.sketch_backend not in ("tpu", "memory", "redis",
                                        "redis-sim"):
             raise ValueError(f"unknown sketch backend: {self.sketch_backend}")
+        if self.retry_budget_s <= 0:
+            raise ValueError("retry_budget_s must be positive")
         if self.transport_backend not in ("memory", "socket", "pulsar"):
             raise ValueError(
                 f"unknown transport backend: {self.transport_backend}")

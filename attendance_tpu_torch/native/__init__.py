@@ -1,7 +1,9 @@
 """ctypes binding of the port's native host pack (``hostpipe.c``).
 
 Counterpart of ``attendance_tpu/native/__init__.py`` cut to the pack
-half and the columnar store's dedup (the JSON scan is not ported yet).
+half, the buffer JSON scan (:meth:`HostPipe.prepare_json_batch`,
+:meth:`HostPipe.parse_json_from`) and the columnar store's dedup; the
+CPython-API list scan is not ported.
 The methods and return codes are the JAX package's: -1 on success, the index of the
 first event whose day missed the LUT, -2 when the native pass cannot run
 (scratch allocation, or more banks than its u16 scratch holds), -3 when
@@ -51,6 +53,10 @@ SIGNATURES = {
     "atp_bitpack": (ctypes.c_int64, (_u32p, _sz, _sz, _u32, _u32p, _sz)),
     "atp_dedup_last": (ctypes.c_int64, (
         _u32p, _u32p, ctypes.POINTER(ctypes.c_int64), _sz, _u32p)),
+    "atp_parse_json_events": (ctypes.c_int64, (
+        _u8p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint32), _sz, _u32p, _u32p,
+        ctypes.POINTER(ctypes.c_int64), _u8p)),
 }
 
 
@@ -78,6 +84,43 @@ def _check_lanes(keys: np.ndarray, days: np.ndarray, lut: np.ndarray,
         raise ValueError("the day LUT must be a contiguous int32 array")
     if padded is not None and len(keys) > padded:
         raise ValueError(f"{len(keys)} events do not fit {padded} lanes")
+
+
+class PreparedJsonBatch:
+    """The joined payload buffer, its offset and length tables and the
+    output columns of one resumable JSON scan
+    (:meth:`HostPipe.parse_json_from`)."""
+
+    __slots__ = ("buf", "offs", "lens", "student", "day", "micros",
+                 "flags")
+
+    def __init__(self, buf, offs, lens, student, day, micros, flags):
+        self.buf = buf
+        self.offs = offs
+        self.lens = lens
+        self.student = student
+        self.day = day
+        self.micros = micros
+        self.flags = flags
+
+    def set_row(self, i: int, cols) -> None:
+        """Fill row ``i`` from a one-event column dict (the Python parse
+        of a payload outside the fast shape)."""
+        self.student[i] = cols["student_id"][0]
+        self.day[i] = cols["lecture_day"][0]
+        self.micros[i] = cols["micros"][0]
+        self.flags[i] = (int(bool(cols["is_valid"][0]))
+                         | (int(cols["event_type"][0]) << 1))
+
+    def columns(self, k: Optional[int] = None) -> dict:
+        k = len(self.student) if k is None else k
+        return {
+            "student_id": self.student[:k],
+            "lecture_day": self.day[:k],
+            "micros": self.micros[:k],
+            "is_valid": (self.flags[:k] & 1).astype(bool),
+            "event_type": ((self.flags[:k] >> 1) & 1).astype(np.int8),
+        }
 
 
 class HostPipe:
@@ -209,6 +252,56 @@ class HostPipe:
         if buf is None:
             return None, None, 0, 0, -2
         return buf, scan[0], db, scan[4], -1
+
+    def prepare_json_batch(self, payloads) -> PreparedJsonBatch:
+        """One O(total bytes) setup for a batch of JSON payloads: the
+        joined buffer and its offset and length tables."""
+        n = len(payloads)
+        lens = np.array(list(map(len, payloads)), np.uint32)
+        buf = np.frombuffer(b"".join(payloads), np.uint8)
+        if int(lens.sum()) != buf.size:
+            # A buffer payload whose items are wider than a byte: len()
+            # counts items, the join copies bytes.
+            payloads = [bytes(p) for p in payloads]
+            lens = np.array(list(map(len, payloads)), np.uint32)
+            buf = np.frombuffer(b"".join(payloads), np.uint8)
+        offs = np.zeros(n, np.uint64)
+        if n > 1:
+            np.cumsum(lens[:-1], out=offs[1:])
+        return PreparedJsonBatch(
+            buf=buf, offs=offs, lens=lens,
+            student=np.empty(n, np.uint32), day=np.empty(n, np.uint32),
+            micros=np.empty(n, np.int64), flags=np.empty(n, np.uint8))
+
+    def parse_json_from(self, b: PreparedJsonBatch, start: int) -> int:
+        """Scan payloads [start, n) into the batch's columns: -1 when all
+        parsed, else the absolute index of the first payload outside the
+        fast shape (rows before it are filled; the caller parses that one
+        in Python and resumes at index + 1)."""
+        n = len(b.offs) - start
+        if n <= 0:
+            return -1
+        rc = self._lib.atp_parse_json_events(
+            _ptr(b.buf, _u8p),
+            b.offs[start:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            b.lens[start:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            n, _ptr(b.student[start:], _u32p), _ptr(b.day[start:], _u32p),
+            b.micros[start:].ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            _ptr(b.flags[start:], _u8p))
+        return -1 if rc == 0 else start + int(rc - 1)
+
+    def parse_json_events(self, payloads) -> Tuple[dict, int]:
+        """One-shot scan: (columns, -1), or (the parsed prefix's columns,
+        the first failed index)."""
+        if len(payloads) == 0:
+            return {"student_id": np.zeros(0, np.uint32),
+                    "lecture_day": np.zeros(0, np.uint32),
+                    "micros": np.zeros(0, np.int64),
+                    "is_valid": np.zeros(0, bool),
+                    "event_type": np.zeros(0, np.int8)}, -1
+        b = self.prepare_json_batch(payloads)
+        miss = self.parse_json_from(b, 0)
+        return b.columns(len(payloads) if miss < 0 else miss), miss
 
     def dedup_last(self, day: np.ndarray, sid: np.ndarray,
                    micros: np.ndarray) -> np.ndarray:

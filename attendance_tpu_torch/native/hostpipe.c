@@ -1,7 +1,7 @@
 /* Native host pack of the port's fused pipeline (ctypes, no Python API).
  *
- * The port's own copy of the pack half of the JAX package's host runtime
- * (attendance_tpu/native/hostpipe.c): each call fuses the per-frame host
+ * The port's own copy of the pack half and the JSON scan of the JAX
+ * package's host runtime (attendance_tpu/native/hostpipe.c): each call fuses the per-frame host
  * work between the frame decode and the device dispatch into one pass
  * over the frame.  It maps lecture days through the dense day->bank LUT
  * and packs the lanes straight into the transfer buffer of one wire:
@@ -14,6 +14,10 @@
  *   atp_delta_scan  delta wire, scan half: counting sort by bank, radix
  *                   sort by key inside each bank, per-lane deltas
  *   atp_bitpack     delta wire, pack half: fixed-width bit-pack
+ *   atp_parse_json_events  the reference's per-event JSON wire into
+ *                   the binary columns (a fixed-layout fast try, then the
+ *                   general grammar; a payload outside the fast shape
+ *                   returns its index and is parsed in Python)
  *   atp_dedup_last  the columnar store's read-time last-wins dedup
  *
  * The numpy equivalent (models/fused.py) is several passes with
@@ -417,6 +421,402 @@ int64_t atp_bitpack(const uint32_t *vals, size_t n, size_t padded,
     return 0;
 }
 
+
+/* ------------------------------------------------------------------ */
+/* Schema-specific JSON event parser (the reference's wire format)     */
+/* ------------------------------------------------------------------ */
+
+/* The reference producer emits one JSON object per message:
+ *   {"student_id": int, "timestamp": "YYYY-MM-DDTHH:MM:SS[.ffffff]",
+ *    "lecture_id": "LECTURE_YYYYMMDD", "is_valid": bool,
+ *    "event_type": "entry"|"exit"}
+ * (reference data_generator.py:112-118,126-132,142-148).  Python
+ * json.loads tops out ~340k events/s/thread; this scanner parses the
+ * fixed schema at tens of millions/s.  It accepts any key order,
+ * inter-token whitespace, unknown extra scalar keys, and both "T" and
+ * " " date separators; anything outside the fast shape (string escape
+ * sequences, timezone suffixes, nested values, non-calendar lecture
+ * ids) aborts with the failing event's index and the caller re-parses
+ * through the Python path — behavior-identical, just slower.
+ */
+
+static inline const uint8_t *skip_ws(const uint8_t *p, const uint8_t *end) {
+    while (p < end && (*p == ' ' || *p == '\t' || *p == '\n' || *p == '\r'))
+        ++p;
+    return p;
+}
+
+/* Parse an unsigned decimal run; returns digits consumed (0 = fail). */
+static inline int parse_uint(const uint8_t *p, const uint8_t *end,
+                             uint64_t *out) {
+    uint64_t v = 0;
+    int n = 0;
+    while (p + n < end && p[n] >= '0' && p[n] <= '9' && n < 19) {
+        v = v * 10 + (uint64_t)(p[n] - '0');
+        ++n;
+    }
+    *out = v;
+    return n;
+}
+
+/* Days since the Unix epoch for a civil date (Howard Hinnant's
+ * days_from_civil, public domain construction). */
+static inline int64_t days_from_civil(int64_t y, int64_t m, int64_t d) {
+    y -= m <= 2;
+    int64_t era = (y >= 0 ? y : y - 399) / 400;
+    int64_t yoe = y - era * 400;                                /* [0,399] */
+    int64_t doy = (153 * (m + (m > 2 ? -3 : 9)) + 2) / 5 + d - 1;
+    int64_t doe = yoe * 365 + yoe / 4 - yoe / 100 + doy;
+    return era * 146097 + doe - 719468;
+}
+
+/* "YYYY-MM-DD[T ]HH:MM:SS[.f{1,6}]" -> unix microseconds (UTC-pinned,
+ * matching pipeline/events.iso_to_micros).  Returns chars consumed, 0 on any
+ * deviation (including timezone suffixes — Python handles those). */
+static int parse_iso_micros(const uint8_t *p, const uint8_t *end,
+                            int64_t *out) {
+    const uint8_t *q = p;
+    uint64_t y, mo, d, h, mi, s, frac = 0;
+    int n;
+    if ((n = parse_uint(q, end, &y)) != 4) return 0;
+    q += 4;
+    if (q >= end || *q != '-') return 0;
+    ++q;
+    if ((n = parse_uint(q, end, &mo)) != 2) return 0;
+    q += 2;
+    if (q >= end || *q != '-') return 0;
+    ++q;
+    if ((n = parse_uint(q, end, &d)) != 2) return 0;
+    q += 2;
+    if (q >= end || (*q != 'T' && *q != ' ')) return 0;
+    ++q;
+    if ((n = parse_uint(q, end, &h)) != 2) return 0;
+    q += 2;
+    if (q >= end || *q != ':') return 0;
+    ++q;
+    if ((n = parse_uint(q, end, &mi)) != 2) return 0;
+    q += 2;
+    if (q >= end || *q != ':') return 0;
+    ++q;
+    if ((n = parse_uint(q, end, &s)) != 2) return 0;
+    q += 2;
+    if (q < end && *q == '.') {
+        ++q;
+        uint64_t scale = 100000;
+        int nd = 0;
+        while (q < end && *q >= '0' && *q <= '9') {
+            if (nd < 6) { frac += (uint64_t)(*q - '0') * scale; scale /= 10; }
+            ++nd; ++q;
+        }
+        /* Digits beyond 6 are ignored — exactly datetime.fromisoformat's
+         * truncation (verified on 3.12). */
+        if (nd == 0) return 0;
+    }
+    if (q < end && (*q == 'Z' || *q == '+' || *q == '-')) return 0;
+    /* Reject everything datetime.fromisoformat rejects: year >= 1
+     * (MINYEAR), month/day ranges per actual calendar (leap-aware),
+     * hour<=23, min/sec<=59. */
+    if (y < 1 || mo < 1 || mo > 12 || d < 1 || h > 23 || mi > 59 || s > 59)
+        return 0;
+    {
+        static const uint8_t mdays[12] =
+            {31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31};
+        uint64_t dim = mdays[mo - 1];
+        if (mo == 2 && (y % 4 == 0 && (y % 100 != 0 || y % 400 == 0)))
+            dim = 29;
+        if (d > dim) return 0;
+    }
+    *out = (days_from_civil((int64_t)y, (int64_t)mo, (int64_t)d) * 86400
+            + (int64_t)h * 3600 + (int64_t)mi * 60 + (int64_t)s) * 1000000
+           + (int64_t)frac;
+    return (int)(q - p);
+}
+
+/* Scan a JSON string (plain printable ASCII only); returns span
+ * excluding the quotes via (start, len), and chars consumed including
+ * quotes.  Escapes, raw control characters (json.loads rejects those),
+ * and non-ASCII bytes (json.loads validates UTF-8; we don't) all bail
+ * to the Python path — the fast path must never accept a payload the
+ * Python codec refuses, nor refuse differently than it would. */
+static int parse_plain_string(const uint8_t *p, const uint8_t *end,
+                              const uint8_t **s, uint32_t *len) {
+    if (p >= end || *p != '"') return 0;
+    const uint8_t *q = p + 1;
+    while (q < end && *q != '"') {
+        if (*q == '\\' || *q < 0x20 || *q >= 0x80) return 0;
+        ++q;
+    }
+    if (q >= end) return 0;
+    *s = p + 1;
+    *len = (uint32_t)(q - p - 1);
+    return (int)(q - p + 1);
+}
+
+/* "LECTURE_YYYYMMDD"-style tail -> day code, mirroring
+ * pipeline/events.lecture_to_day's digit cases (8-digit calendar, 9-digit
+ * hash-range round-trip). Non-digit tails need murmur3 -> bail. */
+static int lecture_day_from_id(const uint8_t *s, uint32_t len,
+                               uint32_t *out) {
+    uint32_t tail_start = 0;
+    for (uint32_t i = 0; i < len; ++i)
+        if (s[i] == '_') tail_start = i + 1;
+    uint32_t tlen = len - tail_start;
+    const uint8_t *t = s + tail_start;
+    uint64_t v = 0;
+    if (tlen == 0 || tlen > 9) return 0;
+    for (uint32_t i = 0; i < tlen; ++i) {
+        if (t[i] < '0' || t[i] > '9') return 0;
+        v = v * 10 + (uint64_t)(t[i] - '0');
+    }
+    if (tlen == 8) { *out = (uint32_t)v; return 1; }
+    if (tlen == 9 && v >= 100000000ull && v < 100000000ull + (1ull << 26)) {
+        *out = (uint32_t)v;
+        return 1;
+    }
+    return 0;
+}
+
+/* Skip one non-string JSON scalar, validating its grammar: null, true,
+ * false, or a number -?(0|[1-9][0-9]*)(.[0-9]+)?([eE][+-]?[0-9]+)?.
+ * Returns chars consumed, 0 on anything json.loads would reject (bare
+ * words, leading-zero numbers) — the fast path must never accept
+ * payloads the Python codec refuses. */
+static int skip_scalar(const uint8_t *p, const uint8_t *end) {
+    const uint8_t *q = p;
+    if (end - q >= 4 && q[0] == 'n' && q[1] == 'u' && q[2] == 'l'
+        && q[3] == 'l') return 4;
+    if (end - q >= 4 && q[0] == 't' && q[1] == 'r' && q[2] == 'u'
+        && q[3] == 'e') return 4;
+    if (end - q >= 5 && q[0] == 'f' && q[1] == 'a' && q[2] == 'l'
+        && q[3] == 's' && q[4] == 'e') return 5;
+    if (q < end && *q == '-') ++q;
+    if (q >= end || *q < '0' || *q > '9') return 0;
+    if (*q == '0') {
+        ++q;
+    } else {
+        while (q < end && *q >= '0' && *q <= '9') ++q;
+    }
+    if (q < end && *q == '.') {
+        ++q;
+        if (q >= end || *q < '0' || *q > '9') return 0;
+        while (q < end && *q >= '0' && *q <= '9') ++q;
+    }
+    if (q < end && (*q == 'e' || *q == 'E')) {
+        ++q;
+        if (q < end && (*q == '+' || *q == '-')) ++q;
+        if (q >= end || *q < '0' || *q > '9') return 0;
+        while (q < end && *q >= '0' && *q <= '9') ++q;
+    }
+    return (int)(q - p);
+}
+
+static inline int key_is(const uint8_t *k, uint32_t klen, const char *name) {
+    uint32_t n = 0;
+    while (name[n]) ++n;
+    if (klen != n) return 0;
+    for (uint32_t i = 0; i < n; ++i)
+        if (k[i] != (uint8_t)name[i]) return 0;
+    return 1;
+}
+
+/* Parse n JSON event payloads (concatenated in buf, event i spanning
+ * [offs[i], offs[i] + lens[i])) into the binary columns.  flags bit0 =
+ * is_valid, bit1 = exit.  Returns 0, or 1 + index of the first payload
+ * that falls outside the fast shape (caller re-parses via Python). */
+/* Fixed-layout fast path: the reference producer emits every event via
+ * json.dumps with default separators, so the overwhelming majority of
+ * payloads match ONE byte layout:
+ *   {"student_id": N, "timestamp": "T", "lecture_id": "L",
+ *    "is_valid": B, "event_type": "E"}
+ * This path memcmp's the literal fragments and parses only the value
+ * spans; any deviation (key order, spacing, escapes, extra keys)
+ * returns nonzero and the caller falls through to the general grammar
+ * — behavior is identical, this is purely a cheaper first try. */
+#define ATP_LIT(lit)                                                   \
+    do {                                                               \
+        size_t L_ = sizeof(lit) - 1;                                   \
+        if ((size_t)(end - p) < L_ || memcmp(p, lit, L_)) return 1;    \
+        p += L_;                                                       \
+    } while (0)
+
+static int parse_fixed_layout(const uint8_t *p, const uint8_t *end,
+                              uint32_t *student, uint32_t *day,
+                              int64_t *micros, uint8_t *flags) {
+    ATP_LIT("{\"student_id\": ");
+    uint64_t v;
+    int d = parse_uint(p, end, &v);
+    if (!d || (d > 1 && *p == '0')) return 1;
+    p += d;
+    ATP_LIT(", \"timestamp\": ");
+    /* String fields go through parse_plain_string — ONE definition of
+     * the acceptance predicate (escapes, control bytes, non-ASCII all
+     * bail to the fallback, which mirrors json.loads). The empty-span
+     * guard closes the 0 == 0 hole: parse_iso_micros returns 0 for
+     * failure AND consumes 0 bytes of an empty string, but Python's
+     * fromisoformat("") raises, so empty must never fast-parse. */
+    const uint8_t *ts;
+    uint32_t tslen;
+    int c1 = parse_plain_string(p, end, &ts, &tslen);
+    if (!c1) return 1;
+    int64_t us;
+    if (tslen == 0 || parse_iso_micros(ts, ts + tslen, &us) != (int)tslen)
+        return 1;
+    p += c1;
+    ATP_LIT(", \"lecture_id\": ");
+    const uint8_t *lid;
+    uint32_t lidlen;
+    int c2 = parse_plain_string(p, end, &lid, &lidlen);
+    if (!c2) return 1;
+    uint32_t day_v;
+    if (!lecture_day_from_id(lid, lidlen, &day_v)) return 1;
+    p += c2;
+    ATP_LIT(", \"is_valid\": ");
+    uint8_t fl;
+    if (end - p >= 4 && !memcmp(p, "true", 4)) { fl = 1; p += 4; }
+    else if (end - p >= 5 && !memcmp(p, "false", 5)) { fl = 0; p += 5; }
+    else return 1;
+    ATP_LIT(", \"event_type\": \"");
+    if (end - p >= 6 && !memcmp(p, "entry\"", 6)) { p += 6; }
+    else if (end - p >= 5 && !memcmp(p, "exit\"", 5)) { fl |= 2; p += 5; }
+    else return 1;
+    if (p >= end || *p != '}') return 1;
+    ++p;
+    if (p != end) return 1;  /* trailing bytes: general path decides */
+    *student = (uint32_t)(v & 0xFFFFFFFFu);
+    *micros = us;
+    *day = day_v;
+    *flags = fl;
+    return 0;
+}
+
+static int parse_one_json_event(const uint8_t *p, const uint8_t *end,
+                                uint32_t *student, uint32_t *day,
+                                int64_t *micros, uint8_t *flags) {
+    if (!parse_fixed_layout(p, end, student, day, micros, flags))
+        return 0;
+    int seen = 0; /* bit per required field */
+    int after_comma = 0;
+    uint8_t fl = 0;
+    p = skip_ws(p, end);
+    if (p >= end || *p != '{') return 1;
+    ++p;
+    for (;;) {
+        p = skip_ws(p, end);
+        if (p < end && *p == '}') {
+            /* json.loads rejects a trailing comma before '}'. */
+            if (after_comma) return 1;
+            ++p;
+            break;
+        }
+        const uint8_t *k;
+        uint32_t klen;
+        int c = parse_plain_string(p, end, &k, &klen);
+        if (!c) return 1;
+        p = skip_ws(p + c, end);
+        if (p >= end || *p != ':') return 1;
+        p = skip_ws(p + 1, end);
+        if (key_is(k, klen, "student_id")) {
+            uint64_t v;
+            int d_ = parse_uint(p, end, &v);
+            /* JSON forbids leading zeros ("007"): json.loads
+             * raises, so the fast path must refuse too. */
+            if (!d_ || (d_ > 1 && *p == '0')) return 1;
+            *student = (uint32_t)(v & 0xFFFFFFFFu);
+            p += d_;
+            seen |= 1;
+        } else if (key_is(k, klen, "timestamp")) {
+            const uint8_t *s;
+            uint32_t slen;
+            int c2 = parse_plain_string(p, end, &s, &slen);
+            if (!c2) return 1;
+            int64_t us;
+            /* slen == 0 guard: parse_iso_micros returns 0 on failure,
+             * which equals the consumed count of an empty string —
+             * but fromisoformat("") raises in the Python codec, so
+             * empty must be refused here too. */
+            if (slen == 0
+                || parse_iso_micros(s, s + slen, &us) != (int)slen)
+                return 1;
+            *micros = us;
+            p += c2;
+            seen |= 2;
+        } else if (key_is(k, klen, "lecture_id")) {
+            const uint8_t *s;
+            uint32_t slen;
+            int c2 = parse_plain_string(p, end, &s, &slen);
+            if (!c2) return 1;
+            if (!lecture_day_from_id(s, slen, day))
+                return 1;
+            p += c2;
+            seen |= 4;
+        } else if (key_is(k, klen, "is_valid")) {
+            /* Duplicate keys: json.loads keeps the LAST value, so
+             * the flag bit is overwritten, never OR-accumulated. */
+            if (end - p >= 4 && p[0] == 't' && p[1] == 'r'
+                && p[2] == 'u' && p[3] == 'e') {
+                fl = (uint8_t)((fl & ~1u) | 1u); p += 4;
+            } else if (end - p >= 5 && p[0] == 'f' && p[1] == 'a'
+                       && p[2] == 'l' && p[3] == 's' && p[4] == 'e') {
+                fl = (uint8_t)(fl & ~1u); p += 5;
+            } else {
+                return 1;
+            }
+            seen |= 8;
+        } else if (key_is(k, klen, "event_type")) {
+            const uint8_t *s;
+            uint32_t slen;
+            int c2 = parse_plain_string(p, end, &s, &slen);
+            if (!c2) return 1;
+            if (slen == 4 && s[0] == 'e' && s[1] == 'x' && s[2] == 'i'
+                && s[3] == 't')
+                fl = (uint8_t)((fl & ~2u) | 2u);  /* last wins */
+            else if (slen == 5 && s[0] == 'e' && s[1] == 'n'
+                     && s[2] == 't' && s[3] == 'r' && s[4] == 'y')
+                fl = (uint8_t)(fl & ~2u);
+            else
+                return 1;
+            p += c2;
+            seen |= 16;
+        } else {
+            /* Unknown key: skip a grammar-checked scalar value
+             * (string without escapes, number, true/false/null);
+             * anything nested or malformed goes to the Python
+             * path. */
+            if (p < end && *p == '"') {
+                const uint8_t *s;
+                uint32_t slen;
+                int c2 = parse_plain_string(p, end, &s, &slen);
+                if (!c2) return 1;
+                p += c2;
+            } else {
+                int c2 = skip_scalar(p, end);
+                if (!c2) return 1;
+                p += c2;
+            }
+        }
+        p = skip_ws(p, end);
+        if (p < end && *p == ',') { ++p; after_comma = 1; continue; }
+        if (p < end && *p == '}') { ++p; break; }
+        return 1;
+    }
+    p = skip_ws(p, end);
+    if (p != end || seen != 31) return 1;
+    *flags = fl;
+    return 0;
+}
+
+int64_t atp_parse_json_events(const uint8_t *buf, const uint64_t *offs,
+                              const uint32_t *lens, size_t n,
+                              uint32_t *student, uint32_t *day,
+                              int64_t *micros, uint8_t *flags) {
+    for (size_t i = 0; i < n; ++i) {
+        const uint8_t *p = buf + offs[i];
+        if (parse_one_json_event(p, p + lens[i], &student[i], &day[i],
+                                 &micros[i], &flags[i]))
+            return 1 + (int64_t)i;
+    }
+    return 0;
+}
 
 /* ------------------------------------------------------------------ */
 /* Columnar-store compaction: last-wins primary-key dedup              */

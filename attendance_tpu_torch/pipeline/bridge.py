@@ -1,0 +1,132 @@
+"""JSON -> binary ingress bridge: the reference's wire in, the fused
+pipeline's wire out.
+
+Counterpart of ``attendance_tpu/pipeline/bridge.py`` without its chaos
+and telemetry hooks. The reference's producers emit one JSON object per
+broker message; the fused pipeline consumes bulk binary frames. The
+bridge drains the JSON topic in micro-batches, decodes a batch through
+the codec seam (the native scan, ``ATP_NATIVE=0``: Python), packs the
+columns into one planar frame, publishes it on ``<topic>-binary`` and
+only then acknowledges the JSON messages (it reads the broker's chunk
+lane, which the memory and socket consumers have), so it is at-least-once end to
+end: a crash replays JSON messages into duplicate frames that the
+idempotent sketches and the last-write-wins store absorb. Several
+bridges on one shared subscription scale the decode across processes.
+
+A batch with a poison payload is converted message by message, so only
+the bad payloads are nacked and, after ``max_redeliveries``,
+dead-lettered (into ``quarantine_dir`` when set).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+
+from attendance_tpu_torch.config import Config
+from attendance_tpu_torch.pipeline.codec import get_codec
+from attendance_tpu_torch.pipeline.events import (
+    columns_from_events, decode_event)
+from attendance_tpu_torch.pipeline.processor import ProcessorMetrics
+from attendance_tpu_torch.transport import (
+    PoisonTracker, collect_chunks, handle_poison, make_client)
+from attendance_tpu_torch.transport.memory_broker import Message
+
+logger = logging.getLogger(__name__)
+
+BINARY_TOPIC_SUFFIX = "-binary"
+
+
+class JsonBinaryBridge:
+    """Competing-consumer JSON->binary repacker."""
+
+    SUBSCRIPTION = "attendance_bridge"
+
+    def __init__(self, config: Optional[Config] = None, *,
+                 client=None, out_topic: Optional[str] = None):
+        self.config = config or Config()
+        self.client = client or make_client(self.config)
+        self.consumer = self.client.subscribe(
+            self.config.pulsar_topic, self.SUBSCRIPTION)
+        self.out_topic = (out_topic
+                          or self.config.pulsar_topic + BINARY_TOPIC_SUFFIX)
+        self.producer = self.client.create_producer(self.out_topic)
+        self._codec = get_codec("json")
+        self.metrics = ProcessorMetrics()
+        self._poison = PoisonTracker()
+
+    def _forward(self, toks, chunks) -> None:
+        """Convert one micro-batch and publish it. ``toks`` are its raw
+        ``(message_id, data, redeliveries, properties)`` tuples and
+        ``chunks`` the broker's ``(chunk_id, tuples)`` handles holding
+        them (a chunk is one in-flight entry, settled at once), exploded
+        into per-message entries only on the poison path."""
+        payloads = [t[1] for t in toks]
+        try:
+            cols = self._codec.decode(payloads)
+        except Exception:
+            # A poison payload somewhere in the batch: convert message
+            # by message (the full conversion: valid JSON with a bad
+            # timestamp is poison too) so only the bad ones dead-letter.
+            for cid, _ in chunks:
+                self.consumer.explode_chunk(cid)
+            good, parts = [], []
+            for tok in toks:
+                try:
+                    parts.append(columns_from_events(
+                        [decode_event(tok[1])]))
+                    good.append(tok)
+                except Exception:
+                    handle_poison(Message(tok[1], tok[0], tok[2], tok[3]),
+                                  self.consumer, self.metrics, self.config,
+                                  logger, count_nack=False,
+                                  tracker=self._poison)
+            if good:
+                cols = {k: np.concatenate([p[k] for p in parts])
+                        for k in parts[0]}
+                self._publish(cols, len(good))
+                self.consumer.acknowledge_ids([t[0] for t in good])
+            return
+        self._publish(cols, len(toks))
+        for cid, _ in chunks:
+            self.consumer.acknowledge_chunk(cid)
+
+    def _publish(self, cols, n: int) -> None:
+        # The caller acks strictly after the binary frame is published:
+        # the bridge never holds the only copy of an acknowledged event.
+        self.producer.send(self._codec.assemble(cols))
+        self.metrics.batches += 1
+        self.metrics.events += n
+        self.metrics.batch_sizes.append(n)
+
+    def run(self, max_events: Optional[int] = None,
+            idle_timeout_s: float = 1.0) -> None:
+        """Bridge until ``max_events`` JSON messages were converted or no
+        message arrived for ``idle_timeout_s``."""
+        t0 = time.perf_counter()
+        idle_since = time.monotonic()
+        while True:
+            chunks = collect_chunks(self.consumer, self.config.batch_size,
+                                    self.config.batch_timeout_s)
+            toks = ([t for _, ts in chunks for t in ts]
+                    if len(chunks) != 1 else chunks[0][1])
+            if not toks:
+                if time.monotonic() - idle_since > idle_timeout_s:
+                    break
+                continue
+            idle_since = time.monotonic()
+            self._forward(toks, chunks)
+            if max_events is not None and self.metrics.events >= max_events:
+                break
+        self.metrics.wall_seconds = time.perf_counter() - t0
+        if logger.isEnabledFor(logging.INFO):
+            logger.info("Bridge metrics: %s",
+                        self.metrics.summary(None, include_validity=False))
+        if self.config.metrics_json:
+            self.metrics.write_json_line(self.config.metrics_json)
+
+    def cleanup(self) -> None:
+        self.client.close()

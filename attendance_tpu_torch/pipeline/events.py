@@ -1,14 +1,14 @@
-"""Event schema, JSON frames, planar binary frames (ATB2) and lecture-id
-day codes.
+"""Event schema, JSON frames, binary record frames (ATB1), planar binary
+frames (ATB2) and lecture-id day codes.
 
-Counterpart of ``attendance_tpu/pipeline/events.py`` without the 20-byte
-record codec: the same JSON (the reference's ``json.dumps(dict)
-.encode()`` frames of ``{student_id, timestamp, lecture_id, is_valid,
-event_type}``) and the same planar byte layout, so frames written by
-either package decode in the other.
+Counterpart of ``attendance_tpu/pipeline/events.py``: the same JSON (the
+reference's ``json.dumps(dict).encode()`` frames of ``{student_id,
+timestamp, lecture_id, is_valid, event_type}``) and the same byte
+layouts, so frames written by either package decode in the other.
 
-Frame layout: magic ``ATB2`` | u32 n | student_id u32[n] |
-lecture_day u32[n] | micros i64[n] | flags u8[n], all little-endian;
+ATB1: magic | records of 20 bytes (u32 student_id | u32 lecture_day |
+i64 micros | u8 flags | 3 pad). ATB2: magic | u32 n | student_id u32[n]
+| lecture_day u32[n] | micros i64[n] | flags u8[n]. All little-endian;
 flags bit0 = is_valid (generator ground truth), bit1 = event_type (exit).
 """
 
@@ -24,6 +24,14 @@ import numpy as np
 from attendance_tpu_torch.ops.murmur3 import murmur3_bytes
 
 PLANAR_MAGIC = b"ATB2"
+BINARY_MAGIC = b"ATB1"
+BINARY_DTYPE = np.dtype([
+    ("student_id", "<u4"),
+    ("lecture_day", "<u4"),
+    ("micros", "<i8"),
+    ("flags", "<u1"),
+    ("pad", "V3"),
+])
 EVENT_ENTRY = 0
 EVENT_EXIT = 1
 
@@ -111,6 +119,73 @@ def columns_from_events(events: Sequence[AttendanceEvent]
         etype[i] = EVENT_EXIT if e.event_type == "exit" else EVENT_ENTRY
     return {"student_id": student, "lecture_day": day, "micros": micros,
             "is_valid": flags_valid, "event_type": etype}
+
+
+def decode_json_batch_columns(payloads: Sequence[bytes]
+                              ) -> Dict[str, np.ndarray]:
+    """Reference-wire JSON payloads -> binary columns, batched.
+
+    With the native host runtime (``native.load``), one joined buffer is
+    scanned by ``atp_parse_json_events``; a payload outside its fast
+    shape (escapes, timezone suffixes, lecture ids that need murmur3) is
+    parsed in Python alone and the scan resumes after it. With
+    ``ATP_NATIVE=0``, every payload is parsed in Python. The results are
+    the same; malformed JSON raises as :func:`decode_event` does."""
+    from attendance_tpu_torch.native import load as load_native
+
+    nat = load_native()
+    if nat is None or not payloads:
+        return columns_from_events(decode_event_batch(payloads))
+    batch = nat.prepare_json_batch(payloads)
+    idx = 0
+    while True:
+        miss = nat.parse_json_from(batch, idx)
+        if miss < 0:
+            return batch.columns()
+        batch.set_row(miss, columns_from_events(
+            [decode_event(bytes(payloads[miss]))]))
+        idx = miss + 1
+
+
+def _record(e: AttendanceEvent, rec: np.ndarray, i: int) -> None:
+    rec["student_id"][i] = e.student_id & 0xFFFFFFFF
+    rec["lecture_day"][i] = lecture_to_day(e.lecture_id)
+    rec["micros"][i] = iso_to_micros(e.timestamp)
+    rec["flags"][i] = ((1 if e.is_valid else 0)
+                       | (2 if e.event_type == "exit" else 0))
+
+
+def encode_event_binary(event: AttendanceEvent) -> bytes:
+    """One event as a one-record ATB1 frame."""
+    return encode_binary_batch([event])
+
+
+def encode_binary_batch(events: Sequence[AttendanceEvent]) -> bytes:
+    """One ATB1 frame holding N records."""
+    rec = np.zeros(len(events), dtype=BINARY_DTYPE)
+    for i, e in enumerate(events):
+        _record(e, rec, i)
+    return BINARY_MAGIC + rec.tobytes()
+
+
+def decode_binary_batch(data: bytes,
+                        include_truth: bool = True) -> Dict[str, np.ndarray]:
+    """Zero-copy decode of an ATB1 record frame (strided column views) or
+    an ATB2 planar frame (contiguous views)."""
+    if magic_match(data, PLANAR_MAGIC):
+        return decode_planar_batch(data, include_truth)
+    if not magic_match(data, BINARY_MAGIC):
+        raise ValueError("not a binary event frame")
+    rec = np.frombuffer(data, dtype=BINARY_DTYPE, offset=len(BINARY_MAGIC))
+    cols = {
+        "student_id": rec["student_id"],
+        "lecture_day": rec["lecture_day"],
+        "micros": rec["micros"],
+        "event_type": ((rec["flags"] >> 1) & 1).astype(np.int8),
+    }
+    if include_truth:
+        cols["is_valid"] = (rec["flags"] & 1).astype(bool)
+    return cols
 
 
 def magic_match(data, magic: bytes) -> bool:

@@ -72,11 +72,13 @@ from attendance_tpu_torch.models.hll import (
 from attendance_tpu_torch.native import load as load_native
 from attendance_tpu_torch.pipeline.codec import decode_frame
 from attendance_tpu_torch.pipeline.events import lecture_to_day
+from attendance_tpu_torch.pipeline.lanes import JsonChunkConsumer
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.temporal.buckets import is_bucket_key
 from attendance_tpu_torch.temporal.plane import TemporalPlane
-from attendance_tpu_torch.transport.memory_broker import (
-    MemoryBroker, MemoryClient, ReceiveTimeout)
+from attendance_tpu_torch.transport import (
+    PoisonTracker, handle_poison, make_client)
+from attendance_tpu_torch.transport.memory_broker import ReceiveTimeout
 from attendance_tpu_torch.utils.integrity import (
     ChainIntegrityError, file_digest, quarantine_artifact,
     structural_npz_check, verify_file)
@@ -101,6 +103,10 @@ _SNAP_QUEUE_DEPTH = 2  # staged delta captures in flight (double buffer)
 # blocked on the card.
 STAGES = ("receive", "decode", "bank_map", "pack", "dispatch", "temporal",
           "store", "ack_wait")
+
+
+class PoisonFrame(ValueError):
+    """A frame that failed to decode (the run loop's poison path)."""
 
 
 def _verify_npz_structure(path, orig_exc) -> None:
@@ -323,6 +329,10 @@ class FusedMetrics:
     # how long the hot loop was blocked waiting on a busy writer.
     snapshot_stalls: List[float] = dataclasses.field(default_factory=list)
     snapshot_blocked_s: float = 0.0
+    # Poison frames: nacks for redelivery, and frames dead-lettered
+    # (acked after max_redeliveries failed decodes).
+    nacked_batches: int = 0
+    dead_lettered: int = 0
 
     @property
     def events_per_second(self) -> float:
@@ -334,9 +344,7 @@ class FusedMetrics:
         """One metrics line, the text of the JAX package's
         ``ProcessorMetrics.summary``. ``fpr_is_lower_bound`` prints the
         estimate as ">=" (the blocked layout's occupancy formula
-        understates its FPR). The port has no poison path (a frame that
-        fails to decode raises), so nothing is nacked or
-        dead-lettered."""
+        understates its FPR)."""
         mean_batch = self.events / self.batches if self.batches else 0.0
         bound = ">= " if fpr_is_lower_bound else ""
         fpr = ("n/a" if estimated_fpr is None
@@ -352,7 +360,8 @@ class FusedMetrics:
         return (f"{self.events} events in {self.batches} batches "
                 f"({rate} ev/s; mean batch "
                 f"{mean_batch:.0f}; device {self.device_seconds:.3f}s; "
-                f"est. bloom FPR {fpr}; {validity}, 0 nacked, 0 "
+                f"est. bloom FPR {fpr}; {validity}, "
+                f"{self.nacked_batches} nacked, {self.dead_lettered} "
                 f"dead-lettered{wires})")
 
 
@@ -360,18 +369,27 @@ class FusedPipeline:
     SUBSCRIPTION = "attendance_fused"
     _LUT_SIZE = 1 << 14  # covers ~44 years of calendar days from base
 
-    def __init__(self, config: Optional[Config] = None, *,
-                 client: Optional[MemoryClient] = None,
+    def __init__(self, config: Optional[Config] = None, *, client=None,
                  num_banks: int = 256, device=None):
         self.config = config or Config()
         self.device = resolve_device(device)
         self.metrics = FusedMetrics()
-        # The broker client (an in-process broker of its own unless one
-        # is passed: a successor pipeline after a crash shares the dead
-        # one's broker); producers reach it through ``self.client``.
-        self.client = client or MemoryClient(MemoryBroker())
+        # The broker client: config.transport_backend's (the process's
+        # shared memory broker, or a socket broker) unless one is passed
+        # (a successor pipeline after a crash shares the dead one's);
+        # producers reach it through ``self.client``.
+        self.client = client or make_client(self.config)
         self.consumer = self.client.subscribe(self.config.pulsar_topic,
                                               self.SUBSCRIPTION)
+        # Per-event JSON coalesces into one decode and one dispatch a
+        # chunk; bulk frames pass through untouched.
+        self.consumer = JsonChunkConsumer(self.consumer, self.config,
+                                          metrics=self.metrics)
+        # Poison retries bounded by the frame's own failure count.
+        self._poison = PoisonTracker()
+        # The chunk consumer's JSON decode seconds already charged to the
+        # decode stage (run() moves them out of the receive stage).
+        self._chunk_decode_s = 0.0
         self.store = ColumnarEventStore()
         # The fused packed step requires the blocked layout (one 512-bit
         # block per key).
@@ -668,11 +686,16 @@ class FusedPipeline:
         return tensor
 
     def process_frame(self, data: bytes):
-        """Dispatch one planar frame; returns (valid[:n] on the device, in
-        packed order on the seg/delta wires, completion event or None,
-        pinned host buffers of its copies)."""
+        """Dispatch one frame of any wire ``codec.decode_frame`` takes;
+        returns (valid[:n] on the device, in packed order on the seg/delta
+        wires, completion event or None, pinned host buffers of its
+        copies). A frame that does not decode raises :class:`PoisonFrame`
+        before any state changes."""
         t0 = t = time.perf_counter()
-        cols = decode_frame(data, include_truth=False)
+        try:
+            cols = decode_frame(data, include_truth=False)
+        except Exception as exc:
+            raise PoisonFrame(f"undecodable frame: {exc!r}") from exc
         t = self._lap("decode", t)
         n = len(cols["student_id"])
         if n == 0:
@@ -1652,8 +1675,24 @@ class FusedPipeline:
                     break
                 continue
             self._lap("receive", t)
+            chunk_s = self.consumer.decode_seconds
+            if chunk_s != self._chunk_decode_s:
+                # The chunk consumer's JSON decode ran inside receive.
+                moved = chunk_s - self._chunk_decode_s
+                self._chunk_decode_s = chunk_s
+                self.metrics.stage_seconds["receive"] -= moved
+                self.metrics.stage_seconds["decode"] += moved
             idle_since = time.monotonic()
-            _valid, done, pinned = self.process_frame(msg.data())
+            try:
+                _valid, done, pinned = self.process_frame(msg.data())
+            except PoisonFrame:
+                # Bounded retry, then dead-letter: a frame nacked
+                # forever livelocks the subscription. Only a failed
+                # decode is poison: a device fault raises.
+                logger.exception("Bad frame")
+                handle_poison(msg, self.consumer, self.metrics,
+                              self.config, logger, tracker=self._poison)
+                continue
             self._inflight.append((msg, done, pinned))
             if self.checkpointing:
                 # A barrier on the frame cadence, and on the in-flight

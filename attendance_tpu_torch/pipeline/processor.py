@@ -346,7 +346,8 @@ class AttendanceProcessor:
                     good_msgs.append(m)
                 except Exception:
                     handle_poison(m, self.consumer, self.metrics,
-                                  self.config, logger, self._poison)
+                                  self.config, logger, count_nack=False,
+                                  tracker=self._poison)
             try:
                 self.process_events(events)
                 consecutive_failures = 0

@@ -75,7 +75,9 @@ Phases (any failure exits non-zero):
      and K8 (1 to 1,048,576 keys), each on both of its paths, with the
      plan's crossovers, and K8's pack pass alone, K1-rows (1, 16 and
      1,024 rows, sorted,
-     unsorted and repeated) and K1-union (2, 7 and 1,024 rows) on a
+     unsorted and repeated) and K1-union (2, 7, 32 and 1,024 rows, also
+     on rows repeated and outside the bank range, and replayed in a
+     CUDA graph) on a
      1,024-key store filled by ``pfadd_many`` (BASELINE.md config 3),
      each held against its plain version and timed beside its bound,
      the launch floor and the library call (``index_fill_``,
@@ -93,11 +95,31 @@ Phases (any failure exits non-zero):
      processor's delta and barrier checkpoints restored equal; (e) the
      store's PFCOUNT latency (one key, 1,024 keys batched, a 7-key
      union);
+  7. the reference's JSON wire into the fused path (after 6), at
+     BASELINE.md config 1's scale (the generator at 90,000 students, 50
+     invalid ids, seed 0: about 969,500 per-event JSON messages): (a)
+     ``FusedPipeline`` on a memory broker through the chunk
+     consumer and the native scan, counters reset just before and read
+     just after the run and ``count_all()``, held to the stream (every
+     event stored in order, no false negatives, measured FPR <= 1.5% on
+     1,048,576 non-roster ids, PFCOUNTs within 3%) and equal to the same
+     events as ATB2 frames in counters, PFCOUNTs, registers, bank map and
+     stored validity; (b) ``JsonBinaryBridge`` -> ``<topic>-binary`` ->
+     ``FusedPipeline``, equal to (a); (c) a port ``BrokerServer`` in this
+     process, two ``python -m attendance_tpu_torch bridge
+     --transport-backend socket`` processes (one intra-op thread each)
+     competing on one subscription, each stopping after half the
+     events, and the card's ``FusedPipeline`` reading the binary topic
+     through a ``SocketClient``, cut to 9,000 students: every message
+     converted once, none dead-lettered, backlog 0, state equal to (b) on
+     the cut stream; (d) events/s of (a), (b) (the bridge's own too) and
+     (c) with the decode and pack stage seconds, and (a)'s K2, K3 and K1
+     launches;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
-     wire setting), phase 3b's temporal run and phase 6's pipeline run
-     (also printed on a line of its own); phase 5 prints its own runs'
-     counts on a line of its own.
+     wire setting), phase 3b's temporal run, phase 6's pipeline run and
+     phase 7(a) (each also printed on a line of its own); phase 5 prints
+     its own runs' counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -364,13 +386,15 @@ def run_with_native(native: bool, config, num_events: int, frame_size: int,
     import os
 
     from attendance_tpu_torch.cli import run_fused
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
 
     before = os.environ.get("ATP_NATIVE")
     if not native:
         os.environ["ATP_NATIVE"] = "0"
     try:
         return run_fused(config, num_events, frame_size, num_lectures,
-                         seed=0)
+                         seed=0, client=MemoryClient(MemoryBroker()))
     finally:
         if before is None:
             os.environ.pop("ATP_NATIVE", None)
@@ -381,8 +405,10 @@ def run_with_native(native: bool, config, num_events: int, frame_size: int,
 def drive(config, roster, frames, num_events: int):
     """One run through the entry points a user calls, on the card."""
     from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
 
-    pipe = FusedPipeline(config)
+    pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()))
     pipe.preload(roster)
     producer = pipe.client.create_producer(config.pulsar_topic)
     for f in frames:
@@ -1149,28 +1175,58 @@ def store_kernels(dev, floor_ms: float, rows: dict, regs: torch.Tensor
                 replaces="attendance_tpu/sketch/tpu_store.py:102",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
-    for r in (2, 7, 1024):
+    union_kernel(dev, floor_ms, rows, regs, rng)
+
+
+def union_kernel(dev, floor_ms: float, rows: dict, regs: torch.Tensor,
+                 rng) -> None:
+    """K1-union at 2, 7, 32 and 1,024 rows of ``regs``: each held equal
+    to its plain version (distinct rows; rows repeated and outside the
+    bank range; a replayed CUDA graph) and to gather + amax + bincount,
+    and timed beside its bound, the launch floor and that library call."""
+    from attendance_tpu_torch.models import hll
+    from attendance_tpu_torch.ops import kernels
+
+    num_banks, m = regs.shape
+    bins = 64 - 14 + 2
+    for r in (2, 7, 32, 1024):
         idx = torch.from_numpy(rng.permutation(num_banks)[:r].astype(
             np.int32)).to(dev)
-        got = kernels.hll_union_histogram(regs, idx, 14)
+        odd = idx.clone()
+        odd[: r // 2] = idx[r - r // 2:]
+        odd[0], odd[-1] = -5, num_banks + 9
         want = hll.hll_union_histogram_plain(regs, idx, 14)
+        want_odd = hll.hll_union_histogram_plain(regs, odd, 14)
         lib = torch.bincount(torch.amax(regs[idx.long()], 0).long(),
                              minlength=bins)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        check(err == 0, f"K1-union rows={r}: max abs err {err}")
-        check(torch.equal(lib.to(torch.int32), got),
-              f"K1-union rows={r} disagrees with amax + bincount")
-        ms = kernel_ms(lambda: kernels.hll_union_histogram(regs, idx, 14))
         plain_ms = eager_ms(lambda: hll.hll_union_histogram_plain(
             regs, idx, 14))
         lib_ms = eager_ms(lambda: torch.bincount(torch.amax(
             regs[idx.long()], 0).long(), minlength=bins), 20)
         b_ms, b_by = bound_ms(r * m + 4 * r + 4 * bins, r * m)
-        print(f"K1-union hll_union_histogram rows={r} ms={ms} above_floor_"
-              f"ms={ms - floor_ms} plain_ms={plain_ms} gather_amax_bincount_"
-              f"ms={lib_ms} bound_ms={b_ms} ({b_by}) times_bound="
-              f"{ms / b_ms} max_abs_err={err}")
+        got = kernels.hll_union_histogram(regs, idx, 14)
+        got_odd = kernels.hll_union_histogram(regs, odd, 14)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"K1-union rows={r}: max abs err {err}")
+        check(torch.equal(got_odd, want_odd),
+              f"K1-union rows={r}: repeated and out-of-range rows disagree "
+              "with the plain version")
+        check(torch.equal(lib.to(torch.int32), got),
+              f"K1-union rows={r} disagrees with amax + bincount")
+        ms = kernel_ms(lambda: kernels.hll_union_histogram(regs, idx, 14))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = kernels.hll_union_histogram(regs, odd, 14)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(replayed, want_odd),
+              f"K1-union rows={r}: a graph replay disagrees")
+        print(f"K1-union hll_union_histogram rows={r} ms={ms} above_floor_ms="
+              f"{ms - floor_ms} plain_ms={plain_ms} gather_amax_bincount_ms="
+              f"{lib_ms} bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
+              f"max_abs_err={err}")
         if r == 7:  # the pipeline's week of lectures
             rows["hll_union_histogram"] = dict(
                 replaces="attendance_tpu/models/hll.py:363",
@@ -1364,6 +1420,311 @@ def store_phase(card: str, floor_ms: float, rows: dict) -> dict:
     print(f"store phase launches (the pipeline run and its reads; in the "
           f"kernels line): {p6}")
     return p6
+
+
+INGRESS_SOCKET_STUDENTS = 9_000  # phase 7(c): the socket run's cut
+INGRESS_NOW = (2026, 3, 2, 9, 0)  # the generator's clock, fixed
+
+
+class _Collect:
+    """A producer that keeps what the generator sends (its JSON wire)."""
+
+    def __init__(self):
+        self.payloads = []
+
+    def send(self, data, properties=None):
+        self.payloads.append(bytes(data))
+
+
+def reference_stream(num_students: int, seed: int = 0):
+    """(roster, JSON payloads, their columns): the reference generator's
+    per-event JSON at ``num_students`` students and 50 invalid ids, the
+    columns decoded by the vectorized numpy scan (not the native scan
+    the pipeline uses)."""
+    from datetime import datetime
+
+    from attendance_tpu_torch.pipeline.codec import scan_json_batch_columns
+    from attendance_tpu_torch.pipeline.generator import generate_student_data
+
+    sink = _Collect()
+    report = generate_student_data(
+        producer=sink, num_students=num_students, num_invalid=50,
+        seed=seed, now=datetime(*INGRESS_NOW), keep_events=False)
+    roster = np.array(sorted(report.valid_student_ids), np.uint32)
+    check(len(sink.payloads) == report.message_count,
+          "reference stream: payload count")
+    return roster, sink.payloads, scan_json_batch_columns(sink.payloads)
+
+
+def _ingress_state(pipe):
+    """Counters, PFCOUNTs, registers by day and the deduped store (rows
+    sorted by day, micros, student), comparable across bank orders."""
+    regs = pipe.state.hll_regs
+    by_day = {d: regs[b].clone() for d, b in pipe._bank_of.items()}
+    cols = pipe.store.to_columns()
+    order = np.lexsort((cols["student_id"], cols["micros"],
+                        cols["lecture_day"]))
+    return (pipe.validity_counts(), pipe.count_all(), by_day,
+            {k: np.asarray(cols[k])[order] for k in
+             ("student_id", "lecture_day", "micros", "is_valid")})
+
+
+def _check_ingress_same(what: str, got, want) -> None:
+    check(got[0] == want[0], f"{what}: counters {got[0]} != {want[0]}")
+    check(got[1] == want[1], f"{what}: PFCOUNTs differ")
+    check(got[2].keys() == want[2].keys() and all(
+        torch.equal(got[2][d], want[2][d]) for d in want[2]),
+        f"{what}: registers differ")
+    for name in want[3]:
+        check(np.array_equal(got[3][name], want[3][name]),
+              f"{what}: store column {name} differs")
+
+
+def _bridge_then_fused(dev, roster, payloads):
+    """(b): JsonBinaryBridge over ``payloads`` on a memory broker of its
+    own, then a FusedPipeline on ``<topic>-binary``."""
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.pipeline.bridge import (
+        BINARY_TOPIC_SUFFIX, JsonBinaryBridge)
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    client = MemoryClient(MemoryBroker())
+    topic = Config().pulsar_topic
+    pipe = FusedPipeline(Config(pulsar_topic=topic + BINARY_TOPIC_SUFFIX),
+                         client=client, device=dev)
+    bridge = JsonBinaryBridge(Config(), client=client)
+    bridge.client.create_producer(topic).send_many(payloads)
+    bridge.run(max_events=len(payloads), idle_timeout_s=1.0)
+    pipe.preload(roster)
+    pipe.run(max_events=len(payloads), idle_timeout_s=1.0)
+    check(bridge.metrics.events == pipe.metrics.events == len(payloads),
+          f"bridge path: {bridge.metrics.events} bridged, "
+          f"{pipe.metrics.events} dispatched of {len(payloads)}")
+    check(bridge.consumer.backlog() == 0 and pipe.consumer.backlog() == 0,
+          "bridge path: backlog left")
+    return bridge, pipe
+
+
+def ingress_phase(card: str, dev) -> dict:
+    """Phase 7: the reference's per-event JSON wire into the fused path
+    on the card. Returns (a)'s launch counts."""
+    import json as _json
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.models import bloom
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.bridge import BINARY_TOPIC_SUFFIX
+    from attendance_tpu_torch.pipeline.events import encode_planar_batch
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.lanes import JsonChunkConsumer
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+    from attendance_tpu_torch.transport.socket_broker import (
+        BrokerServer, SocketClient)
+
+    t0 = time.perf_counter()
+    roster, payloads, truth_cols = reference_stream(PIPELINE_STUDENTS)
+    n = len(payloads)
+    truth = truth_cols["is_valid"]
+    print(f"ingress: the reference generator's JSON at {PIPELINE_STUDENTS} "
+          f"students, 50 invalid ids, seed 0: {n} messages, "
+          f"{sum(map(len, payloads))} bytes, {len(roster)} roster ids "
+          f"({time.perf_counter() - t0} s)")
+
+    # -- 7a. the fused pipeline fed the JSON wire --------------------------
+    config = Config()
+    pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
+                         device=dev)
+    check(isinstance(pipe.consumer, JsonChunkConsumer)
+          and pipe._native is not None,
+          "ingress (a): not the chunk consumer with the native scan")
+    producer = pipe.client.create_producer(config.pulsar_topic)
+    t0 = time.perf_counter()
+    producer.send_many(payloads)
+    publish_s = time.perf_counter() - t0
+    kernels.reset_launches()  # counts set to 0 just before the run
+    pipe.preload(roster)
+    pipe.run(max_events=n, idle_timeout_s=1.0)
+    counts = pipe.count_all()
+    p7 = dict(kernels.launches)  # read just after the run and its reads
+    m = pipe.metrics
+    step = sum(p7[k] for k in set(STEP_OF_WIRE.values()))
+    check(step > 0 and p7["bloom_add"] > 0 and p7["hll_histogram"] > 0,
+          f"ingress (a): K2/K3/K1 launches {p7}")
+    valid_n, invalid_n = pipe.validity_counts()
+    check(valid_n + invalid_n == m.events == n,
+          f"ingress (a): {valid_n} + {invalid_n} != {n}")
+    stored = pipe.store.to_columns(deduplicate=False)
+    check(np.array_equal(stored["student_id"], truth_cols["student_id"])
+          and np.array_equal(stored["micros"], truth_cols["micros"]),
+          "ingress (a): stored rows differ from the stream")
+    valid = np.asarray(stored["is_valid"])
+    fn = int((truth & ~valid).sum())
+    check(fn == 0, f"ingress (a): {fn} false negatives")
+    probe = np.random.default_rng(8).integers(100_000, 1_000_000, 1 << 20)
+    hits = bloom.bloom_contains_packed(
+        pipe.state.bloom_bits,
+        torch.from_numpy(probe.astype(np.uint32).view(np.int32)).to(dev),
+        pipe.params)
+    probe_fpr = float(hits.float().mean())
+    check(probe_fpr <= 0.015, f"ingress (a): measured FPR {probe_fpr}")
+    day, sid = truth_cols["lecture_day"], truth_cols["student_id"]
+    worst = 0.0
+    for d, est in counts.items():
+        exact = len(np.unique(sid[(day == d) & valid]))
+        worst = max(worst, abs(est - exact) / exact)
+    check(worst <= 0.03, f"ingress (a): PFCOUNT relative error {worst}")
+    state_a = _pipe_state(pipe)
+    stored_a = valid.copy()
+    print(f"ingress (a) JSON -> chunk consumer -> fused: {n} events in "
+          f"{m.batches} dispatches, {m.events_per_second} events/s (wall "
+          f"{m.wall_seconds} s; publish {publish_s} s) on {card}; decode "
+          f"{m.stage_seconds['decode']} s, pack {m.stage_seconds['pack']} s "
+          f"(decode share {m.stage_seconds['decode'] / m.wall_seconds}); "
+          f"wires {dict(m.wire_dwell)}; valid {valid_n} invalid {invalid_n}; "
+          f"false negatives {fn}; {int((~truth & valid).sum())} of "
+          f"{int((~truth).sum())} invalid events read valid; measured FPR "
+          f"{probe_fpr} on {len(probe)} non-roster ids; worst PFCOUNT err "
+          f"{worst}; launches K2 {step} K3 {p7['bloom_add']} K1 "
+          f"{p7['hll_histogram']}")
+    print(f"ingress (a) host stages (s): {dict(m.stage_seconds)}")
+    pipe.cleanup()
+    del pipe
+
+    # The same events as ATB2 frames of the fused default size.
+    frames = [encode_planar_batch({k: v[i:i + (1 << 17)]
+                                   for k, v in truth_cols.items()})
+              for i in range(0, n, 1 << 17)]
+    pipe = drive(Config(), roster, frames, n)
+    _check_same("ingress (a) vs the same events as ATB2 frames",
+                _pipe_state(pipe), state_a, store=False)
+    check(np.array_equal(pipe.store.to_columns(deduplicate=False)
+                         ["is_valid"], stored_a),
+          "ingress (a) vs ATB2: stored validity differs")
+    print(f"ingress ATB2 frames: {pipe.metrics.events_per_second} events/s "
+          f"({len(frames)} frames); equal to (a) in counters, PFCOUNTs, "
+          f"registers, bank map and stored validity")
+    pipe.cleanup()
+    del pipe
+
+    # -- 7b. JsonBinaryBridge -> <topic>-binary -> fused -------------------
+    bridge, pipe = _bridge_then_fused(dev, roster, payloads)
+    _check_same("ingress (b) bridge path vs (a)", _pipe_state(pipe),
+                state_a, store=False)
+    check(np.array_equal(pipe.store.to_columns(deduplicate=False)
+                         ["is_valid"], stored_a),
+          "ingress (b): stored validity differs from (a)")
+    bm, m = bridge.metrics, pipe.metrics
+    print(f"ingress (b) JSON -> bridge -> {Config().pulsar_topic}"
+          f"{BINARY_TOPIC_SUFFIX} -> fused: bridge {bm.events} events in "
+          f"{bm.batches} frames, {bm.events_per_second} events/s (wall "
+          f"{bm.wall_seconds} s); fused {m.events_per_second} events/s "
+          f"(wall {m.wall_seconds} s) on {card}; decode "
+          f"{m.stage_seconds['decode']} s, pack {m.stage_seconds['pack']} s;"
+          f" end to end {n / (bm.wall_seconds + m.wall_seconds)} events/s; "
+          f"equal to (a)")
+    bridge.cleanup()
+    pipe.cleanup()
+    del pipe
+
+    # -- 7c. two bridge processes on a socket broker -----------------------
+    cut = INGRESS_SOCKET_STUDENTS
+    roster_c, payloads_c, _ = reference_stream(cut)
+    n_c = len(payloads_c)
+    bridge, pipe = _bridge_then_fused(dev, roster_c, payloads_c)
+    want = _ingress_state(pipe)
+    bridge.cleanup()
+    pipe.cleanup()
+    del pipe
+    topic = Config().pulsar_topic
+    server = BrokerServer().start()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ingress_"))
+    outs = [work / f"bridge{i}.jsonl" for i in range(2)]
+    # One intra-op thread a process; the port from this checkout.
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [repo] + [x for x in [os.environ.get("PYTHONPATH")]
+                             if x]))
+    procs = []
+    client = None
+    pipe = None
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "attendance_tpu_torch", "bridge",
+             "--transport-backend", "socket", "--socket-broker",
+             server.address, "--max-events", str(n_c // 2),
+             "--batch-size", str(min(8192, n_c // 8)),
+             "--idle-timeout-s", "3", "--metrics-json", str(out)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for out in outs]
+        deadline = time.monotonic() + 180
+        while server.consumer_count(topic, "attendance_bridge") < 2:
+            for p in procs:
+                if p.poll() is not None:
+                    check(False, "ingress (c): a bridge process died:\n"
+                          f"{p.communicate()[0][-3000:]}")
+            check(time.monotonic() < deadline,
+                  "ingress (c): bridge processes did not subscribe")
+            time.sleep(0.05)
+        pipe = FusedPipeline(Config(transport_backend="socket",
+                                    socket_broker=server.address,
+                                    pulsar_topic=topic + BINARY_TOPIC_SUFFIX),
+                             device=dev)
+        pipe.preload(roster_c)
+        client = SocketClient(server.address)
+        producer = client.create_producer(topic)
+        for i in range(0, n_c, 8192):
+            producer.send_many(payloads_c[i:i + 8192])
+        pipe.run(max_events=n_c, idle_timeout_s=10.0)
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+        for p, log in zip(procs, logs):
+            check(p.returncode == 0, f"ingress (c): a bridge process "
+                  f"exited {p.returncode}:\n{log[-3000:]}")
+        shares = [_json.loads(o.read_text()) for o in outs]
+        check(sum(a["events"] for a in shares) == n_c == pipe.metrics.events,
+              f"ingress (c): {[a['events'] for a in shares]} bridged, "
+              f"{pipe.metrics.events} dispatched of {n_c}")
+        check(all(a["events"] > 0 for a in shares),
+              f"ingress (c): a bridge did no work {shares}")
+        check(all(a["dead_lettered"] == 0 for a in shares),
+              "ingress (c): dead-lettered messages")
+        backlog = server.broker.topic(topic).subscription(
+            "attendance_bridge").backlog()
+        check(backlog == 0 and pipe.consumer.backlog() == 0,
+              f"ingress (c): backlog {backlog}")
+        _check_ingress_same("ingress (c) socket vs (b) on the cut stream",
+                            _ingress_state(pipe), want)
+        m = pipe.metrics
+        print(f"ingress (c) 2 bridge processes on a socket broker -> fused "
+              f"through a SocketClient, cut to {cut} students ({n_c} "
+              f"events): {m.events_per_second} events/s (wall "
+              f"{m.wall_seconds} s, the bridges' startup excluded) on "
+              f"{card}; bridge shares {[a['events'] for a in shares]} at "
+              f"{[a['events_per_second'] for a in shares]} events/s; "
+              f"decode {m.stage_seconds['decode']} s, pack "
+              f"{m.stage_seconds['pack']} s; converted once, none "
+              f"dead-lettered, backlog 0, equal to (b) on the cut stream")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if pipe is not None:
+            pipe.cleanup()
+        if client is not None:
+            client.close()
+        server.stop()
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"ingress phase launches (a's run and reads; in the kernels "
+          f"line): {p7}")
+    return p7
 
 
 def main() -> int:
@@ -1856,7 +2217,7 @@ def main() -> int:
                 for name, count in run_launches.items():
                     launches[name] += count
             device_ms = sum(run_launches[k] * rows[k]["ms"]
-                            for k in STEP_OF_WIRE.values())
+                            for k in set(STEP_OF_WIRE.values()))
             print(f"{what}: {summary['events_per_second']} events/s "
                   f"({summary['events']} events, {summary['batches']} "
                   f"frames, wall {summary['wall_seconds']} s) on {card}; "
@@ -1881,13 +2242,17 @@ def main() -> int:
     # -- 6. the generic sketch store and the processor loop --------------------
     s_launches = store_phase(card, floor_ms, rows)
 
+    # -- 7. the reference's JSON wire into the fused path ----------------------
+    i_launches = ingress_phase(card, dev)
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,
              replaces=row["replaces"],
-             launches=launches[name] + t_launches[name] + s_launches[name],
+             launches=(launches[name] + t_launches[name]
+                       + s_launches[name] + i_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

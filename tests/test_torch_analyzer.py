@@ -31,6 +31,7 @@ from attendance_tpu_torch.pipeline.fast_path import (
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.transport.memory_broker import MemoryBroker
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -40,6 +40,7 @@ from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryClient)
 from attendance_tpu_torch.utils import integrity
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 NUM_EVENTS, BATCH = 16_384, 2_048
 _COLS = ("student_id", "lecture_day", "micros", "is_valid")

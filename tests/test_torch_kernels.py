@@ -20,6 +20,7 @@ from attendance_tpu_torch.pipeline.fast_path import (EVENTS_SEGMENTS,
                                                      FusedPipeline)
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -1068,6 +1069,53 @@ def test_hll_union_kernel_replayed_in_a_graph(cuda):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("fill", ["sparse", "dense", "saturated"])
+@pytest.mark.parametrize("num_rows", [2, 7, 32, 64, 1024])
+def test_hll_union_matches_plain_at_store_row_counts(num_rows, fill, cuda):
+    """K1-union at the store's row counts, with repeated rows and rows
+    outside [0, num_banks) (clamped), at p = 14, 4 and 18; each call is
+    one launch."""
+    rng = np.random.default_rng(num_rows)
+    for precision in (14, 4, 18):
+        num_banks = 64 if precision == 18 else 1024
+        regs = _filled(num_banks, precision, fill, cuda, seed=num_rows)
+        rows = rng.integers(-3, num_banks + 3, num_rows)
+        rows[: num_rows // 2] = rows[num_rows // 2: 2 * (num_rows // 2)]
+        idx = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+        before = kernels.launches["hll_union_histogram"]
+        got = kernels.hll_union_histogram(regs, idx, precision)
+        torch.cuda.synchronize()
+        assert kernels.launches["hll_union_histogram"] == before + 1
+        assert torch.equal(got, hll.hll_union_histogram_plain(
+            regs, idx, precision))
+
+
+def test_hll_union_replayed_in_a_graph_beside_another_stream(cuda):
+    """A replayed union over repeated and out-of-range rows gives the
+    histogram again (the memset is in the graph), while an eager union
+    runs on another stream."""
+    regs = _filled(64, 14, "dense", cuda, seed=5)
+    idx = torch.tensor([0, 63, 70, -1, 5, 5, 9], dtype=torch.int32,
+                       device=cuda)
+    want = hll.hll_union_histogram_plain(regs, idx, 14)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.hll_union_histogram(regs, idx, 14)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kernels.hll_union_histogram(regs, idx, 14) for _ in range(4)]
+    other = torch.cuda.Stream()
+    for _ in range(3):
+        graph.replay()
+        with torch.cuda.stream(other):
+            eager = kernels.hll_union_histogram(regs, idx, 14)
+    torch.cuda.synchronize()
+    for out in outs + [eager]:
+        assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("layout", ["flat", "blocked"])

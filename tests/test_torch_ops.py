@@ -18,6 +18,7 @@ import torch
 
 from attendance_tpu.ops import murmur3 as jmurmur
 from attendance_tpu_torch.ops import murmur3 as tmurmur
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -149,7 +150,14 @@ _PORT_MODULES = {
     "attendance_tpu_torch.storage",
     "attendance_tpu_torch.storage.cassandra_store",
     "attendance_tpu_torch.storage.memory_store",
-    "attendance_tpu_torch.transport"}
+    "attendance_tpu_torch.transport",
+    "attendance_tpu_torch.pipeline.codec",
+    "attendance_tpu_torch.pipeline.lanes",
+    "attendance_tpu_torch.pipeline.bridge",
+    "attendance_tpu_torch.transport.framing",
+    "attendance_tpu_torch.transport.quarantine",
+    "attendance_tpu_torch.transport.resilience",
+    "attendance_tpu_torch.transport.socket_broker"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():

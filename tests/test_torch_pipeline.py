@@ -31,6 +31,7 @@ from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryClient, ReceiveTimeout)
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -59,8 +60,17 @@ def test_planar_codec_round_trip_matches_jax():
         np.testing.assert_array_equal(ours[name], theirs[name])
     assert encode_planar_batch(ours) == frame
     assert "is_valid" not in decode_frame(frame, include_truth=False)
+    # decode_frame takes every wire of the JAX seam: a one-record ATB1
+    # frame decodes as the JAX package decodes it; a payload of no wire
+    # raises.
+    from attendance_tpu.pipeline.codec import decode_frame as jax_decode
+    record = b"ATB1" + bytes(20)
+    ours, theirs = decode_frame(record), jax_decode(record)
+    assert ours.keys() == theirs.keys()
+    for name in ours:
+        np.testing.assert_array_equal(ours[name], theirs[name])
     with pytest.raises(ValueError):
-        decode_frame(b"ATB1" + bytes(20))
+        decode_frame(b"ATB9" + bytes(20))
 
 
 def test_lecture_to_day():

@@ -45,6 +45,7 @@ from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.temporal import buckets as tbuckets
 from attendance_tpu_torch.temporal.reorder import ReorderStage
 from attendance_tpu_torch.temporal.windows import BucketRing
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 CPU = torch.device("cpu")
 

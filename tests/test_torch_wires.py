@@ -34,6 +34,7 @@ from attendance_tpu_torch.pipeline.fast_path import (
     FusedPipeline, _ScatterValidity)
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
+from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 CPU = torch.device("cpu")
 
