@@ -24,7 +24,15 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   Redis Stack, exiting 2 when none is reachable);
 * ``bridge``: the JSON -> binary ingress bridge: drain the reference's
   per-event JSON topic, republish micro-batches as planar frames on
-  ``<topic>-binary`` for the fused pipeline, until idle.
+  ``<topic>-binary`` for the fused pipeline, until idle;
+* ``serve``: a query-serving reader over a snapshot directory's chain
+  (``serve.chain``), answering BF.EXISTS, PFCOUNT, occupancy, attendance
+  rate and the window verbs on the binary RPC of ``--serve-port``,
+  refreshing as the ingest writer makes new state durable.
+
+``fused`` also takes ``--ingress-lanes N`` (striped ingress lanes),
+``--ingress-wire shm`` (the shared-memory ring under ``--shm-dir``) and
+``--serve-port`` (the in-process query plane over the read mirror).
 
 Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
 BrokerServer at ``--socket-broker``, started with ``python -m
@@ -121,7 +129,8 @@ def cmd_fused(args) -> None:
                     snapshot_mode=args.snapshot_mode,
                     snapshot_compact_every=args.snapshot_compact_every,
                     integrity=not args.no_integrity,
-                    **_transport_config(args))
+                    **_transport_config(args), **_ingress_config(args),
+                    **_serve_config(args))
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
     try:
@@ -199,6 +208,24 @@ def _transport_config(args) -> dict:
                 pulsar_topic=args.pulsar_topic,
                 quarantine_dir=args.quarantine_dir,
                 retry_budget_s=args.retry_budget_s)
+
+
+def _ingress_config(args) -> dict:
+    """Config fields of the ingress flags (``_add_ingress_flags``)."""
+    return dict(batch_size=args.batch_size,
+                batch_timeout_s=args.batch_timeout_s,
+                ingress_lanes=args.ingress_lanes,
+                lane_queue_depth=args.lane_queue_depth,
+                lane_decode=args.lane_decode,
+                ingress_wire=args.ingress_wire, shm_dir=args.shm_dir,
+                shm_slots=args.shm_slots, shm_slot_bytes=args.shm_slot_bytes)
+
+
+def _serve_config(args) -> dict:
+    """Config fields of the query-plane flags (``_add_serve_flags``)."""
+    return dict(serve_port=args.serve_port,
+                query_batch_max=args.query_batch_max,
+                read_staleness_ceiling_s=args.read_staleness_ceiling_s)
 
 
 def _config(args) -> Config:
@@ -390,6 +417,100 @@ def cmd_bridge(args) -> None:
         bridge.cleanup()
 
 
+def cmd_serve(args) -> None:
+    """A query-serving reader: merge-on-read over a snapshot directory's
+    base + delta chain (never joining the ingest process), publishing a
+    fresh epoch whenever the writer made new state durable, and answering
+    the query verbs over the binary batch RPC."""
+    import time
+
+    from attendance_tpu_torch.serve.chain import ChainEpochSource
+    from attendance_tpu_torch.serve.engine import QueryEngine
+    from attendance_tpu_torch.serve.rpc import QueryServer
+
+    config = Config(snapshot_dir=args.snapshot_dir, **_serve_config(args))
+    if not config.snapshot_dir:
+        logger.error("serve needs --snapshot-dir (the chain to read)")
+        sys.exit(2)
+    try:
+        source = ChainEpochSource(config.snapshot_dir,
+                                  refresh_s=args.refresh_s).start()
+    except FileNotFoundError as e:
+        logger.error("no snapshot chain to serve: %s", e)
+        sys.exit(2)
+    engine = QueryEngine(
+        source, batch_max=config.query_batch_max,
+        staleness_ceiling_s=config.read_staleness_ceiling_s or None)
+    port = config.serve_port
+    server = QueryServer(engine, port=0 if port < 0 else port).start()
+    epoch = source.pin()
+    print(f"query plane serving {config.snapshot_dir} on {server.address} "
+          f"(epoch {epoch.seq}, {epoch.events} events)", flush=True)
+    try:
+        if args.serve_seconds is not None:
+            time.sleep(args.serve_seconds)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+        source.stop()
+
+
+def _add_serve_flags(p: argparse.ArgumentParser) -> None:
+    d = Config()
+    p.add_argument("--serve-port", type=int, default=d.serve_port,
+                   help="serve the query plane (BF.EXISTS/PFCOUNT/"
+                   "occupancy/rate/window verbs from the epoch-pinned "
+                   "read mirror) on this binary RPC port (0 = off, -1 = "
+                   "ephemeral)")
+    p.add_argument("--query-batch-max", type=int, default=d.query_batch_max,
+                   help="largest key/day batch one query RPC may carry")
+    p.add_argument("--read-staleness-ceiling-s", type=float,
+                   default=d.read_staleness_ceiling_s,
+                   help="objective on the published read epoch's age, "
+                   "reported by the stats verb (0 = none)")
+
+
+def _add_ingress_flags(p: argparse.ArgumentParser) -> None:
+    d = Config()
+    p.add_argument("--batch-size", type=int, default=d.batch_size)
+    p.add_argument("--batch-timeout-s", type=float,
+                   default=d.batch_timeout_s)
+    p.add_argument("--ingress-lanes", type=int, default=d.ingress_lanes,
+                   help="striped ingress lanes feeding the fused pipeline "
+                   "(0 = one consumer; N >= 1 runs N broker sessions with "
+                   "a decode thread each)")
+    p.add_argument("--lane-queue-depth", type=int,
+                   default=d.lane_queue_depth,
+                   help="decoded blocks buffered per ingress lane before "
+                   "its thread backpressures the broker")
+    p.add_argument("--lane-decode", choices=["auto", "native", "vector"],
+                   default=d.lane_decode,
+                   help="lane JSON decode engine (auto = the native buffer "
+                   "scan, ATP_NATIVE=0 the numpy scan; vector = the numpy "
+                   "scan; native, the JAX package's list scan, is not in "
+                   "the port and raises)")
+    p.add_argument("--ingress-wire",
+                   choices=["auto", "json", "binary", "columnar", "shm"],
+                   default=d.ingress_wire,
+                   help="auto sniffs each broker payload's wire; shm reads "
+                   "the shared-memory ring under --shm-dir instead of a "
+                   "broker (co-located producers)")
+    p.add_argument("--shm-dir", default=d.shm_dir,
+                   help="ring-file directory of --ingress-wire=shm (one "
+                   "ring per ingress lane; /dev/shm for a memory-backed "
+                   "ring)")
+    p.add_argument("--shm-slots", type=int, default=d.shm_slots,
+                   help="slots per shm ring (the published-but-unacked "
+                   "backpressure window)")
+    p.add_argument("--shm-slot-bytes", type=int, default=d.shm_slot_bytes,
+                   help="bytes per shm ring slot (must fit one planar "
+                   "frame: 20 B/event + 8)")
+
+
 def _add_transport_flags(p: argparse.ArgumentParser) -> None:
     d = Config()
     p.add_argument("--transport-backend", choices=["memory", "socket"],
@@ -546,6 +667,8 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--no-integrity", action="store_true",
                    help="skip payload-digest computation at the writer "
                    "(verification still runs where digests exist)")
+    _add_ingress_flags(f)
+    _add_serve_flags(f)
     f.set_defaults(fn=cmd_fused)
     a = sub.add_parser("analyze", help="batch insights over a saved store")
     _add_store_flags(a)
@@ -607,6 +730,22 @@ def build_parser() -> argparse.ArgumentParser:
     br.add_argument("--max-events", type=int, default=None)
     br.add_argument("--idle-timeout-s", type=float, default=1.0)
     br.set_defaults(fn=cmd_bridge)
+    sv = sub.add_parser(
+        "serve", help="query-serving reader over a snapshot directory's "
+        "base + delta chain: BF.EXISTS/PFCOUNT/occupancy/attendance-rate/"
+        "window verbs on the --serve-port binary RPC, refreshing epochs "
+        "as the ingest writer publishes")
+    sv.add_argument("--snapshot-dir", default="",
+                    help="the chain to serve (a fused pipeline's "
+                    "--snapshot-dir)")
+    _add_serve_flags(sv)
+    sv.add_argument("--refresh-s", type=float, default=1.0,
+                    help="chain-manifest poll cadence (read staleness = "
+                    "barrier cadence + this)")
+    sv.add_argument("--serve-seconds", type=float, default=None,
+                    help="exit after this long (default: serve until "
+                    "interrupted)")
+    sv.set_defaults(fn=cmd_serve)
     return p
 
 

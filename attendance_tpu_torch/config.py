@@ -1,8 +1,9 @@
 """Configuration of the port.
 
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
-path, its checkpoint chain, its temporal plane, the generic sketch store
-and the processor read, with the JAX package's defaults and checks
+path, its checkpoint chain, its temporal plane, its ingress lanes and
+shared-memory ring, the query plane, the generic sketch store and the
+processor read, with the JAX package's defaults and checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
 """
@@ -57,6 +58,34 @@ class Config:
     # when batch_timeout_s expires.
     batch_size: int = 8192
     batch_timeout_s: float = 0.05
+    # Striped ingress (pipeline.lanes): 0 = the fused pipeline's one
+    # consumer; N >= 1 = N lane threads, each with its own broker session
+    # (its own TCP connection on the socket backend), decoding off the
+    # dispatch thread, their blocks coalesced into full device batches by
+    # one dispatcher. Acks, the snapshot writer's group commits included,
+    # route back to each frame's lane.
+    ingress_lanes: int = 0
+    # Decoded blocks a lane may park in its bounded queue before its
+    # thread blocks (backpressure toward the broker).
+    lane_queue_depth: int = 4
+    # Lane JSON decode engine: "auto" = the native buffer scan
+    # (ATP_NATIVE=0: the vectorized numpy scan), "vector" = the numpy
+    # scan. "native" names the JAX package's CPython list scan, which the
+    # port does not have: a striped consumer asked for it raises.
+    lane_decode: str = "auto"
+    # Ingress wire: "auto" sniffs each broker payload's codec (json,
+    # binary, columnar; so do "json", "binary" and "columnar", which
+    # document intent); "shm" replaces the event topic's broker with the
+    # shared-memory ring under shm_dir (transport.shm_ring), one ring
+    # file per ingress lane.
+    ingress_wire: str = "auto"
+    # Ring geometry of ingress_wire="shm": a slot holds one planar frame
+    # (20 bytes an event + 8), so shm_slot_bytes must cover a frame (the
+    # producer raises on one that does not fit); shm_slots bounds the
+    # published-but-unacked window.
+    shm_dir: str = ""
+    shm_slots: int = 64
+    shm_slot_bytes: int = 1 << 21
     # Bloom layout of the generic store: "flat" (double-hashed over the
     # whole filter, Redis-parity FPR math) or "blocked" (one 512-bit
     # block per key). The fused path is blocked-only.
@@ -81,6 +110,18 @@ class Config:
     retry_budget_s: float = 15.0
     # Append one JSON metrics line per processor run to this file.
     metrics_json: str = ""
+    # Query serving (attendance_tpu_torch/serve): nonzero = the fused
+    # pipeline answers BF.EXISTS, PFCOUNT, occupancy, attendance rate and
+    # the window verbs from an epoch-pinned host mirror of its sketch
+    # state over a binary batch RPC on this port (-1 = an ephemeral port,
+    # ``pipeline.query_server.port``). Epochs publish at preload, restore
+    # and every snapshot barrier.
+    serve_port: int = 0
+    # Largest key or day batch one query RPC may carry.
+    query_batch_max: int = 1 << 16
+    # Read-staleness objective in seconds, reported by ``stats()`` (0 =
+    # none).
+    read_staleness_ceiling_s: float = 0.0
     # Host->device wire of the fused step: "auto" starts on the 4-byte
     # word wire and, with the native host pack, climbs to the narrower
     # seg (kb bits/event) and delta (db bits/event) wires while the card
@@ -149,6 +190,36 @@ class Config:
             raise ValueError(f"unknown bloom layout: {self.bloom_layout}")
         if self.batch_size <= 0:
             raise ValueError("batch_size must be positive")
+        if self.ingress_lanes < 0:
+            raise ValueError(
+                "ingress_lanes must be >= 0 (0 = one consumer, N = the "
+                "striped plane with N lanes)")
+        if self.lane_queue_depth < 1:
+            raise ValueError("lane_queue_depth must be >= 1")
+        if self.lane_decode not in ("auto", "native", "vector"):
+            raise ValueError(
+                f"unknown lane decode engine: {self.lane_decode}")
+        if self.ingress_wire not in ("auto", "json", "binary", "columnar",
+                                     "shm"):
+            raise ValueError(f"unknown ingress wire: {self.ingress_wire}")
+        if self.ingress_wire == "shm" and not self.shm_dir:
+            raise ValueError(
+                "--ingress-wire=shm needs --shm-dir (the ring-file "
+                "directory both ends map)")
+        if self.shm_slots < 2:
+            raise ValueError("shm_slots must be >= 2 (ring depth)")
+        if self.shm_slot_bytes % 8 or self.shm_slot_bytes < 64:
+            raise ValueError("shm_slot_bytes must be a multiple of 8, >= 64")
+        if not (-1 <= self.serve_port <= 65535):
+            raise ValueError(
+                f"serve_port out of range: {self.serve_port} "
+                "(0 = off, -1 = ephemeral)")
+        if self.query_batch_max < 1:
+            raise ValueError("query_batch_max must be >= 1")
+        if self.read_staleness_ceiling_s < 0:
+            raise ValueError(
+                "read_staleness_ceiling_s must be >= 0 (0 = no staleness "
+                "objective)")
         if self.invalid_topic and self.invalid_topic == self.pulsar_topic:
             # Republishing invalid events onto the processor's own
             # input topic would re-consume and republish them forever.

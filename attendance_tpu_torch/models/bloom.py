@@ -222,6 +222,23 @@ def bloom_contains_words(words: torch.Tensor, keys: torch.Tensor,
     return torch.all(((probes >> (pos & 31)) & 1) == 1, dim=1)
 
 
+def bloom_contains_words_np(words: np.ndarray, keys: np.ndarray,
+                            params: BloomParams) -> np.ndarray:
+    """Numpy twin of :func:`bloom_contains_words`: the same answers
+    against a HOST copy of the packed filter, bool[B]. The query plane's
+    batched BF.EXISTS (``serve/``): one vectorized probe pass over the
+    batch, no device, positions from the shared
+    :func:`bloom_positions_np`."""
+    words = np.asarray(words, dtype=np.uint32)
+    keys = np.asarray(keys, dtype=np.uint32)
+    if len(keys) == 0:
+        return np.zeros(0, dtype=bool)
+    pos = bloom_positions_np(keys, params).astype(np.int64)
+    probes = words[pos >> 5]                       # gather: [B, k]
+    bit = (pos & 31).astype(np.uint32)
+    return np.all((probes >> bit) & np.uint32(1) == np.uint32(1), axis=1)
+
+
 def bloom_contains_packed(words: torch.Tensor, keys: torch.Tensor,
                           params: BloomParams) -> torch.Tensor:
     """Blocked BF.EXISTS against the packed filter, bool[B]: the K4

@@ -36,9 +36,12 @@ class SketchState(NamedTuple):
     counts: torch.Tensor      # int32[2, 2]: 64-bit counters as (lo, hi)
 
 
-def decode_counts(counts: torch.Tensor) -> Tuple[int, int]:
-    """(valid, invalid) Python ints from the two-lane counters."""
-    a = counts.cpu().numpy().view(np.uint32).astype(np.uint64)
+def decode_counts(counts) -> Tuple[int, int]:
+    """(valid, invalid) Python ints from the two-lane counters: a tensor,
+    or their host copy (uint32 or int32 [2, 2])."""
+    if isinstance(counts, torch.Tensor):
+        counts = counts.cpu().numpy()
+    a = np.asarray(counts).view(np.uint32).astype(np.uint64)
     return (int(a[0, 0] + (a[0, 1] << np.uint64(32))),
             int(a[1, 0] + (a[1, 1] << np.uint64(32))))
 

@@ -38,6 +38,16 @@ restores the other's chains. The counters are plain sums, not
 idempotent, so a frame is acked only by the snapshot whose counters
 include it; a failed write fails every job staged behind it and owes a
 full base, which acks the failed jobs' frames once it is durable.
+
+Ingress: one consumer (a JSON wire coalesces into chunks,
+``lanes.JsonChunkConsumer``), or with ``ingress_lanes > 0`` the striped
+lanes (``lanes.StripedConsumer``), whose acks route back to each frame's
+lane; with ``ingress_wire="shm"`` the frames come from the shared-memory
+ring (``transport.shm_ring``) and a frame borrowed from a slot is copied
+out before anything keeps it. Serving: the writer's host register mirror
+is published as read epochs (``serve.mirror``) at preload, restore and
+every barrier, and with ``serve_port`` set an in-process query engine
+answers over the binary RPC (``serve.rpc``) without touching the card.
 """
 
 from __future__ import annotations
@@ -72,7 +82,11 @@ from attendance_tpu_torch.models.hll import (
 from attendance_tpu_torch.native import load as load_native
 from attendance_tpu_torch.pipeline.codec import decode_frame
 from attendance_tpu_torch.pipeline.events import lecture_to_day
-from attendance_tpu_torch.pipeline.lanes import JsonChunkConsumer
+from attendance_tpu_torch.pipeline.lanes import (
+    JsonChunkConsumer, StripedConsumer)
+from attendance_tpu_torch.serve.engine import QueryEngine
+from attendance_tpu_torch.serve.mirror import ReadMirror
+from attendance_tpu_torch.serve.rpc import QueryServer
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.temporal.buckets import is_bucket_key
 from attendance_tpu_torch.temporal.plane import TemporalPlane
@@ -379,12 +393,23 @@ class FusedPipeline:
         # (a successor pipeline after a crash shares the dead one's);
         # producers reach it through ``self.client``.
         self.client = client or make_client(self.config)
-        self.consumer = self.client.subscribe(self.config.pulsar_topic,
-                                              self.SUBSCRIPTION)
-        # Per-event JSON coalesces into one decode and one dispatch a
-        # chunk; bulk frames pass through untouched.
-        self.consumer = JsonChunkConsumer(self.consumer, self.config,
-                                          metrics=self.metrics)
+        if self.config.ingress_lanes > 0:
+            # Striped ingress: N lane sessions decoding off this thread
+            # behind the one-consumer call shape; acks, the writer's
+            # group commits included, route back to each owning lane.
+            # On the shm wire each lane maps its own ring file.
+            self.consumer = StripedConsumer(
+                self.config, self.client, self.config.pulsar_topic,
+                self.SUBSCRIPTION)
+        else:
+            self.consumer = self.client.subscribe(self.config.pulsar_topic,
+                                                  self.SUBSCRIPTION)
+            if self.config.ingress_wire != "shm":
+                # Per-event JSON coalesces into one decode and one
+                # dispatch a chunk; bulk frames pass through untouched.
+                # (A ring slot always holds a planar frame already.)
+                self.consumer = JsonChunkConsumer(
+                    self.consumer, self.config, metrics=self.metrics)
         # Poison retries bounded by the frame's own failure count.
         self._poison = PoisonTracker()
         # The chunk consumer's JSON decode seconds already charged to the
@@ -489,8 +514,26 @@ class FusedPipeline:
                 free_buckets=self._free_temporal_buckets,
                 mark_dirty=self._mark_temporal_dirty,
                 dispatch_add=self._temporal_dispatch)
+        # The epoch-pinned read mirror (serve/): host register state
+        # published as immutable epochs at preload, restore and every
+        # snapshot barrier, from copies the writer already holds, so the
+        # query plane never reads the card mid-run.
+        self.read_mirror = ReadMirror()
+        self._roster_size = 0
+        self.query_engine: Optional[QueryEngine] = None
+        self.query_server: Optional[QueryServer] = None
         if self._snap_dir is not None:
             self.restore()
+        if self.config.serve_port:
+            # The in-process query plane: host numpy over the mirror's
+            # pinned epoch behind a binary batch RPC port.
+            self.query_engine = QueryEngine(
+                self.read_mirror, batch_max=self.config.query_batch_max,
+                staleness_ceiling_s=(
+                    self.config.read_staleness_ceiling_s or None))
+            port = self.config.serve_port
+            self.query_server = QueryServer(
+                self.query_engine, port=0 if port < 0 else port).start()
 
     # -- roster -------------------------------------------------------------
     def preload(self, keys) -> None:
@@ -508,11 +551,11 @@ class FusedPipeline:
         if self._temporal is not None:
             # The window shadow classifies validity by roster membership.
             self._temporal.record_roster(keys)
-        if self.checkpointing:
-            # The snapshot path's host filter, read here, before the run,
-            # where the wait costs least.
-            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
-                np.uint32)
+        self._roster_size = len(keys)
+        if self.checkpointing or self.query_engine is not None:
+            # The snapshot path's host filter and the first read epoch,
+            # read here, before the run, where the wait costs least.
+            self.publish_epoch()
 
     @property
     def _events_total(self) -> int:
@@ -692,6 +735,12 @@ class FusedPipeline:
         copies). A frame that does not decode raises :class:`PoisonFrame`
         before any state changes."""
         t0 = t = time.perf_counter()
+        if isinstance(data, memoryview):
+            # A frame borrowed from a shm ring slot: the slot is recycled
+            # once the frame is acked, while the store (and the temporal
+            # plane's reorder buffer) keep its columns past that, so it
+            # is copied out of the mapping first.
+            data = bytes(data)
         try:
             cols = decode_frame(data, include_truth=False)
         except Exception as exc:
@@ -1297,6 +1346,8 @@ class FusedPipeline:
                     job["bloom"], regs_h, counts_h, job["bank_of"],
                     job["events"], job["upto"])
             self._regs_mirror = np.array(regs_h, dtype=np.uint8, copy=True)
+            self._publish_epoch(self._regs_mirror, counts_h,
+                                bank_of=job["bank_of"], events=job["events"])
             self._writer_base_ok = True
             return
         if not self._writer_base_ok:
@@ -1329,6 +1380,8 @@ class FusedPipeline:
         counts = self.state.counts.cpu().numpy().view(np.uint32)
         self._dirty_days.clear()
         self._regs_mirror = np.array(regs, dtype=np.uint8, copy=True)
+        self._publish_epoch(self._regs_mirror, counts,
+                            bank_of=dict(self._bank_of))
         with self._snap_io_lock:
             self._write_snapshot_files(bits, regs, counts,
                                        dict(self._bank_of),
@@ -1424,10 +1477,10 @@ class FusedPipeline:
     def _post_delta_bookkeeping(self, banks, rows, nbytes: int, counts,
                                 bank_of: dict, events: int,
                                 num_banks: int, upto: int) -> None:
-        """After a durable delta: fold its rows into the host mirror and,
-        at the compaction cadence, fold the chain into a fresh base. (The
-        JAX package also publishes a read epoch and gossips the delta
-        here; the port has no serving or federation yet.)"""
+        """After a durable delta: fold its rows into the host mirror,
+        publish the mirror as the next read epoch and, at the compaction
+        cadence, fold the chain into a fresh base. (The JAX package also
+        gossips the delta here; the port has no federation yet.)"""
         mirror = self._regs_mirror
         if mirror is not None:
             if num_banks > mirror.shape[0]:
@@ -1436,6 +1489,10 @@ class FusedPipeline:
                 self._regs_mirror = mirror = grown
             if len(banks):
                 mirror[np.asarray(banks, np.int64)] = rows
+            # The mirror now holds this delta: the atomic swap readers
+            # pin against.
+            self._publish_epoch(mirror, counts, bank_of=bank_of,
+                                events=events)
         if len(self._snap_chain) >= self._snap_compact_every:
             self._compact_chain(counts, bank_of, events, upto)
 
@@ -1454,6 +1511,34 @@ class FusedPipeline:
                                        counts_h, bank_of, events, upto)
             # This thread is the only save_segments caller here.
             self.store.compact_segments(self._snap_dir / EVENTS_SEGMENTS)
+
+    # -- read epochs (serve/) --------------------------------------------------
+    def _publish_epoch(self, regs_h: np.ndarray, counts_h, *,
+                       bank_of: dict, events: Optional[int] = None) -> None:
+        """Publish one read epoch from host state: the registers, bank
+        map and counters of one moment (cold paths and the snapshot
+        writer only, never the hot loop)."""
+        self.read_mirror.publish(
+            regs=regs_h,
+            events=self._events_total if events is None else events,
+            bank_of=bank_of, params=self.params,
+            precision=self.config.hll_precision,
+            bloom_words=self._bloom_host,
+            counts=None if counts_h is None else np.asarray(counts_h),
+            roster_size=self._roster_size)
+
+    def publish_epoch(self) -> None:
+        """Publish one epoch from the card's CURRENT state, after the
+        staged snapshot writes: the one device read of the query plane,
+        for embedders that serve without checkpointing. A cold path:
+        call it between runs, never mid-stream."""
+        self._flush_snapshots()
+        if self._bloom_host is None:
+            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
+                np.uint32)
+        self._publish_epoch(self.state.hll_regs.cpu().numpy(),
+                            self.state.counts.cpu().numpy().view(np.uint32),
+                            bank_of=dict(self._bank_of))
 
     # -- restore ---------------------------------------------------------------
     def restore(self) -> bool:
@@ -1512,6 +1597,8 @@ class FusedPipeline:
         self._base_digest = chain_state["base_digest"]
         self._dirty_days.clear()
         self._regs_mirror = np.array(regs, dtype=np.uint8, copy=True)
+        self._publish_epoch(self._regs_mirror, chain_state["counts"],
+                            bank_of=self._bank_of, events=events)
         self._events_restored = int(events)
         if repaired:
             # Name only the survivors (unless the base itself was lost)
@@ -1675,7 +1762,9 @@ class FusedPipeline:
                     break
                 continue
             self._lap("receive", t)
-            chunk_s = self.consumer.decode_seconds
+            chunk_s = (self.consumer.decode_seconds
+                       if isinstance(self.consumer, JsonChunkConsumer)
+                       else 0.0)
             if chunk_s != self._chunk_decode_s:
                 # The chunk consumer's JSON decode ran inside receive.
                 moved = chunk_s - self._chunk_decode_s
@@ -1779,9 +1868,15 @@ class FusedPipeline:
                 "num_records": len(records["student_id"])}
 
     def cleanup(self) -> None:
+        if self.query_server is not None:
+            self.query_server.stop()
         # Wait out the staged snapshot writes (their acks go through the
         # consumer), then stop the writer.
         self._flush_snapshots()
         self._stop_snap_writer()
+        if isinstance(self.consumer, StripedConsumer):
+            # Stop the lane threads (which send the queued acks) and
+            # close their sessions before the client goes.
+            self.consumer.close()
         self.client.close()
         self.store.close()

@@ -7,8 +7,10 @@ drives an external Pulsar broker: ``Client(host).create_producer(topic)
 ``acknowledge()`` / ``negative_acknowledge()``. The port serves those
 call shapes from two backends (``--transport-backend``): ``memory``, the
 process's in-process broker, and ``socket``, a memory broker behind a
-TCP front (``transport.socket_broker``) shared by processes. The pulsar
-transport is not ported and raises.
+TCP front (``transport.socket_broker``) shared by processes; with
+``--ingress-wire shm`` the event topic rides the shared-memory ring
+(``transport.shm_ring``) instead. The pulsar transport is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -156,10 +158,15 @@ def acknowledge_all(consumer, msgs) -> None:
 
 
 def make_client(config):
-    """The transport client selected by config.transport_backend: the
+    """The transport client selected by config: with ``ingress_wire
+    shm`` the shared-memory ring client over ``config.shm_dir``
+    (``transport.shm_ring``), else by ``transport_backend`` the
     process's shared memory broker, or a SocketClient of the broker at
     ``config.socket_broker`` (retry budget ``config.retry_budget_s``).
     The pulsar transport is not ported."""
+    if config.ingress_wire == "shm":
+        from attendance_tpu_torch.transport.shm_ring import ShmClient
+        return ShmClient.from_config(config)
     if config.transport_backend == "memory":
         return MemoryClient(MemoryBroker.shared())
     if config.transport_backend == "socket":

@@ -466,7 +466,8 @@ class SocketConsumer:
                  owner: "Optional[SocketClient]" = None,
                  topic: str = "", subscription: str = "",
                  prefetch: int = PREFETCH,
-                 policy: Optional[RetryPolicy] = None):
+                 policy: Optional[RetryPolicy] = None,
+                 lane: Optional[int] = None):
         self._rpc = rpc
         self._handle = handle
         self._owns_rpc = owns_rpc
@@ -477,6 +478,7 @@ class SocketConsumer:
         self._policy = policy or RetryPolicy()
         self._session_gen = rpc.generation
         self._sub_body = _subscribe_body(topic, subscription)
+        self.lane = lane  # striped-ingress lane index (None = unlaned)
         self.resubscribes = 0
 
     def _ensure_session(self) -> None:
@@ -686,14 +688,17 @@ class SocketClient:
         return SocketProducer(self._rpc, topic, policy=self._policy)
 
     def subscribe(self, topic: str, subscription_name: str,
-                  consumer_type=None) -> SocketConsumer:
+                  consumer_type=None, *,
+                  lane: Optional[int] = None) -> SocketConsumer:
         del consumer_type  # shared semantics, like the memory broker
+        site = ("socket.consume" if lane is None
+                else f"socket.consume.lane{lane}")
         rpc = _Rpc(self._address)
         body = _subscribe_body(topic, subscription_name)
         try:
             status, reply = resilient_call(
                 rpc, lambda: (_OP_SUBSCRIBE, body),
-                site="socket.consume", policy=self._policy)
+                site=site, policy=self._policy)
             (handle,) = struct.unpack("<I", _check(status, reply))
         except BaseException:
             rpc.close()
@@ -701,9 +706,18 @@ class SocketClient:
         consumer = SocketConsumer(rpc, handle, owns_rpc=True, owner=self,
                                   topic=topic,
                                   subscription=subscription_name,
-                                  policy=self._policy)
+                                  policy=self._policy, lane=lane)
         self._consumers.add(consumer)
         return consumer
+
+    def subscribe_lane(self, topic: str, subscription_name: str,
+                       lane: int) -> SocketConsumer:
+        """Lane-affine subscribe for the striped ingress plane: the lane
+        gets its OWN TCP connection and session, so reconnect, resume
+        and crash takeover are per lane (one severed lane never stalls
+        its siblings), and its own retry site
+        (``socket.consume.laneN``)."""
+        return self.subscribe(topic, subscription_name, lane=lane)
 
     def close(self) -> None:
         # Fast teardown: sever every consumer's dedicated connection

@@ -7,7 +7,9 @@ for every file CHAIN.json records (``base_digest``, ``digests``), a
 classified :class:`ChainIntegrityError` that restore's repair ladder
 acts on, the structural zip-CRC check of an npz that carries no digest,
 and :func:`quarantine_artifact`, which moves a corrupt file aside with a
-JSON sidecar naming why. The digests are the JAX package's, so each
+JSON sidecar naming why. Every detected corruption is counted by kind in
+:data:`corrupt_counts` (:func:`count_corrupt`; the JAX package counts
+into its telemetry registry). The digests are the JAX package's, so each
 package verifies the other's chains.
 """
 
@@ -17,6 +19,7 @@ import hashlib
 import json
 import logging
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Optional
 
@@ -25,6 +28,15 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 QUARANTINE_SUBDIR = "integrity-quarantine"
+
+# Durable artifacts that failed verification, by kind (quarantined,
+# never served): restore's ladder and the serve chain reader count here.
+corrupt_counts: Counter = Counter()
+
+
+def count_corrupt(kind: str) -> None:
+    """Count one detected corruption of ``kind``."""
+    corrupt_counts[kind] += 1
 
 
 class IntegrityError(ValueError):
@@ -126,6 +138,7 @@ def quarantine_artifact(path, *, reason: str, expected_digest: str = "",
     p.replace(dest)
     sidecar = dest.with_name(dest.name + ".quarantine.json")
     sidecar.write_text(json.dumps(meta, sort_keys=True))
+    count_corrupt(reason)
     logger.error("quarantined corrupt artifact %s -> %s (%s%s)", p, dest,
                  reason, f": {detail}" if detail else "")
     return dest

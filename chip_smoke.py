@@ -115,11 +115,38 @@ Phases (any failure exits non-zero):
      the cut stream; (d) events/s of (a), (b) (the bridge's own too) and
      (c) with the decode and pack stage seconds, and (a)'s K2, K3 and K1
      launches;
+  8. striped ingress, the shared-memory ring and the query plane (after
+     7): (a) phase 7(a)'s 969,500 JSON messages through
+     ``ingress_lanes=4`` on a memory broker, equal to 7(a) in counters,
+     PFCOUNTs, registers and bank map day by day (banks are numbered in
+     dispatch order) and stored validity (rows sorted),
+     ``lane_event_totals()`` summing to every message with every lane
+     working, none dead-lettered, backlog 0, events/s and stage seconds
+     beside 7(a)'s; (b) phase 7(c)'s cut stream (97,220 messages) through
+     2 socket lanes (``subscribe_lane``, one connection each) on a
+     ``BrokerServer``, equal to 7(b) on that stream; (c) the ``fused``
+     default over ``--ingress-wire shm`` (16 slots of 4 MiB under a
+     temporary ``shm_dir``) with one consumer and with two lanes fed by a
+     producer process, both equal to phase 3's default run, then a
+     checkpointing consumer closed with frames unacked and a fresh
+     pipeline resumed at the ring's ``ack_cursor``, equal to phase 3;
+     (d) the ``fused`` default with ``serve_port=-1``, delta snapshots at
+     every frame, a ``QueryClient`` thread issuing stats and PFCOUNT
+     batches during the run (epochs never decrease, no call fails); then
+     BF.EXISTS of the roster all true, of 1,048,576 non-roster ids at
+     FPR <= 1.5% and equal to K4 on the card's filter, PFCOUNT =
+     ``count(day)``, occupancy = ``count_all()``, stats =
+     ``validity_counts()``, queries/s of 65,536-key BF.EXISTS and 16-day
+     PFCOUNT batches over RPC and in process; ``python -m
+     attendance_tpu_torch serve`` on the run's chain answering as the
+     in-process engine's final epoch; and phase 3b's temporal
+     configuration served, its window verbs equal to what
+     ``window_counts()`` implies;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
-     wire setting), phase 3b's temporal run, phase 6's pipeline run and
-     phase 7(a) (each also printed on a line of its own); phase 5 prints
-     its own runs' counts on a line of its own.
+     wire setting), phase 3b's temporal run, phase 6's pipeline run,
+     phase 7(a) and phase 8's runs (each also printed on a line of its
+     own); phase 5 prints its own runs' counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -1509,7 +1536,8 @@ def _bridge_then_fused(dev, roster, payloads):
 
 def ingress_phase(card: str, dev) -> dict:
     """Phase 7: the reference's per-event JSON wire into the fused path
-    on the card. Returns (a)'s launch counts."""
+    on the card. Returns (a)'s launch counts and, for phase 8, the
+    streams, (a)'s state and rate and (b)'s state on the cut stream."""
     import json as _json
     import os
     import tempfile
@@ -1581,6 +1609,7 @@ def ingress_phase(card: str, dev) -> dict:
     check(worst <= 0.03, f"ingress (a): PFCOUNT relative error {worst}")
     state_a = _pipe_state(pipe)
     stored_a = valid.copy()
+    sorted_a = _ingress_state(pipe)
     print(f"ingress (a) JSON -> chunk consumer -> fused: {n} events in "
           f"{m.batches} dispatches, {m.events_per_second} events/s (wall "
           f"{m.wall_seconds} s; publish {publish_s} s) on {card}; decode "
@@ -1593,6 +1622,7 @@ def ingress_phase(card: str, dev) -> dict:
           f"{worst}; launches K2 {step} K3 {p7['bloom_add']} K1 "
           f"{p7['hll_histogram']}")
     print(f"ingress (a) host stages (s): {dict(m.stage_seconds)}")
+    rate_a, stages_a = m.events_per_second, dict(m.stage_seconds)
     pipe.cleanup()
     del pipe
 
@@ -1724,7 +1754,481 @@ def ingress_phase(card: str, dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     print(f"ingress phase launches (a's run and reads; in the kernels "
           f"line): {p7}")
-    return p7
+    return dict(launches=p7, roster=roster, payloads=payloads,
+                state_a=state_a, sorted_a=sorted_a, rate_a=rate_a,
+                stages_a=stages_a, roster_c=roster_c, payloads_c=payloads_c,
+                want_c=want)
+
+
+SHM_SLOT_BYTES = 4 << 20  # phase 8(c): a 131,072-event frame is 2,621,448 B
+SHM_SLOTS = 16
+_SHM_PRODUCER = """
+import sys
+from attendance_tpu_torch.config import Config
+from attendance_tpu_torch.pipeline.loadgen import generate_frames
+from attendance_tpu_torch.transport import make_client
+num_events, frame_size, num_lectures, lanes = map(int, sys.argv[2:6])
+config = Config(ingress_wire="shm", shm_dir=sys.argv[1], ingress_lanes=lanes,
+                shm_slots=%d, shm_slot_bytes=%d)
+_, frames = generate_frames(num_events, frame_size,
+                            roster_size=min(config.bloom_filter_capacity,
+                                            num_events),
+                            num_lectures=num_lectures, seed=0)
+client = make_client(config)
+producer = client.create_producer(config.pulsar_topic)
+for frame in frames:
+    producer.send(frame)
+client.close()
+""" % (SHM_SLOTS, SHM_SLOT_BYTES)
+
+
+class _Counted:
+    """Phase 8's launch counts: each run's counts are set to 0 just
+    before it and read just after it and its reads, then summed."""
+
+    def __init__(self):
+        from attendance_tpu_torch.ops import kernels
+        self.kernels = kernels
+        self.total = dict.fromkeys(kernels.launches, 0)
+
+    def start(self) -> None:
+        self.kernels.reset_launches()
+
+    def stop(self, what: str, need=("bloom_add", "hll_histogram")) -> dict:
+        got = dict(self.kernels.launches)
+        step = sum(got[k] for k in set(STEP_OF_WIRE.values()))
+        check(step > 0, f"{what}: no fused step launched {got}")
+        for name in need:
+            check(got[name] > 0, f"{what}: kernel {name} not launched")
+        for name, count in got.items():
+            self.total[name] += count
+        return got
+
+
+def _ref_equal(what: str, pipe, ref, stored: bool = True) -> None:
+    """A run of the default stream equal to phase 3's default run:
+    counters, PFCOUNTs, registers and stored validity (in stream
+    order)."""
+    got_pf = {str(d): n for d, n in sorted(pipe.count_all().items())}
+    check(pipe.validity_counts() == ref[0], f"{what}: counters differ")
+    check(got_pf == ref[1], f"{what}: PFCOUNTs differ")
+    check(torch.equal(pipe.state.hll_regs, ref[2]),
+          f"{what}: registers differ")
+    if stored:
+        check(np.array_equal(pipe.store.to_columns(deduplicate=False)
+                             ["is_valid"], ref[3]),
+              f"{what}: stored validity differs")
+
+
+def lanes_serve_phase(card: str, dev, ingress: dict, ref, rates_p3: dict,
+                      shape) -> dict:
+    """Phase 8: striped ingress lanes, the shared-memory ring and the
+    query plane on the card. Returns its runs' summed launch counts."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from attendance_tpu_torch.cli import run_fused
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.models import bloom
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.lanes import StripedConsumer
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.serve.rpc import QueryClient
+    from attendance_tpu_torch.temporal.buckets import decode_bucket_key
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+    from attendance_tpu_torch.transport.shm_ring import _Ring, ring_path
+    from attendance_tpu_torch.transport.socket_broker import (
+        BrokerServer, SocketClient)
+
+    t_phase = time.perf_counter()
+    num_events, frame_size, num_lectures = shape
+    counted = _Counted()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lanes_"))
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [repo] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    procs = []
+    try:
+        # -- 8a. the JSON wire through 4 lanes ----------------------------
+        payloads, roster = ingress["payloads"], ingress["roster"]
+        n = len(payloads)
+        broker = MemoryBroker()
+        config = Config(ingress_lanes=4)
+        pipe = FusedPipeline(config, client=MemoryClient(broker), device=dev)
+        check(isinstance(pipe.consumer, StripedConsumer)
+              and len(pipe.consumer.lanes) == 4 and pipe._native is not None,
+              "lanes (a): not 4 lanes with the native scan")
+        pipe.client.create_producer(config.pulsar_topic).send_many(payloads)
+        counted.start()
+        pipe.preload(roster)
+        pipe.run(max_events=n, idle_timeout_s=1.0)
+        got = _ingress_state(pipe)
+        p8a = counted.stop("lanes (a)")
+        # Banks are numbered in dispatch order, which the lanes change:
+        # registers are held day by day, and stored rows sorted.
+        check(set(pipe._bank_of) == set(ingress["state_a"][3]),
+              "lanes (a): the bank map's days differ from ingress (a)'s")
+        _check_ingress_same("lanes (a) vs ingress (a)", got,
+                            ingress["sorted_a"])
+        m = pipe.metrics
+        totals = pipe.consumer.lane_event_totals()
+        lane_decode_s = [lane.decode_seconds for lane in pipe.consumer.lanes]
+        check(sum(totals) == n == m.events and all(totals),
+              f"lanes (a): lane totals {totals} of {n}")
+        check(m.dead_lettered == 0, "lanes (a): dead-lettered messages")
+        pipe.cleanup()
+        backlog = broker.topic(config.pulsar_topic).subscription(
+            pipe.SUBSCRIPTION).backlog()
+        check(backlog == 0, f"lanes (a): backlog {backlog}")
+        print(f"lanes (a) JSON -> 4 lanes -> fused: {n} events in "
+              f"{m.batches} dispatches, {m.events_per_second} events/s (wall "
+              f"{m.wall_seconds} s) on {card}, beside ingress (a)'s "
+              f"{ingress['rate_a']} events/s in this call; lane totals "
+              f"{totals}; lane decode seconds {lane_decode_s} (off the "
+              f"dispatch thread); equal to ingress (a) in counters, "
+              f"PFCOUNTs, registers and bank map day by day and stored "
+              f"validity (rows sorted); none dead-lettered, backlog 0; "
+              f"launches {p8a}")
+        print(f"lanes (a) host stages (s): {dict(m.stage_seconds)}; "
+              f"ingress (a): {ingress['stages_a']}")
+        del pipe
+
+        # -- 8b. the cut stream through 2 socket lanes ---------------------
+        payloads_c, roster_c = ingress["payloads_c"], ingress["roster_c"]
+        n_c = len(payloads_c)
+        server = BrokerServer().start()
+        client = pipe = None
+        try:
+            pipe = FusedPipeline(Config(transport_backend="socket",
+                                        socket_broker=server.address,
+                                        ingress_lanes=2), device=dev)
+            check(server.consumer_count(pipe.config.pulsar_topic,
+                                        pipe.SUBSCRIPTION) == 2,
+                  "lanes (b): not two lane sessions")
+            check(len({lane.consumer._rpc._sock.getsockname()
+                       for lane in pipe.consumer.lanes}) == 2,
+                  "lanes (b): the lanes share a connection")
+            client = SocketClient(server.address)
+            producer = client.create_producer(pipe.config.pulsar_topic)
+            for i in range(0, n_c, 8192):
+                producer.send_many(payloads_c[i:i + 8192])
+            counted.start()
+            pipe.preload(roster_c)
+            pipe.run(max_events=n_c, idle_timeout_s=5.0)
+            got = _ingress_state(pipe)
+            p8b = counted.stop("lanes (b)")
+            _check_ingress_same("lanes (b) socket lanes vs ingress (b) on "
+                                "the cut stream", got, ingress["want_c"])
+            m = pipe.metrics
+            totals = pipe.consumer.lane_event_totals()
+            check(sum(totals) == n_c and all(totals),
+                  f"lanes (b): lane totals {totals} of {n_c}")
+            print(f"lanes (b) {n_c} JSON messages -> 2 socket lanes "
+                  f"(subscribe_lane, one connection each) -> fused: "
+                  f"{m.events_per_second} events/s (wall {m.wall_seconds} "
+                  f"s) on {card}; lane totals {totals}; equal to ingress (b) "
+                  f"on the cut stream; launches {p8b}")
+        finally:
+            if pipe is not None:
+                pipe.cleanup()
+            if client is not None:
+                client.close()
+            server.stop()
+        del pipe
+
+        # -- 8c. the fused default over the shm ring ----------------------
+        shm = dict(ingress_wire="shm", shm_slots=SHM_SLOTS,
+                   shm_slot_bytes=SHM_SLOT_BYTES)
+        counted.start()
+        pipe, summary = run_fused(
+            Config(shm_dir=str(work / "ring1"), **shm), num_events,
+            frame_size, num_lectures, seed=0)
+        try:
+            p8c1 = counted.stop("shm (c) one consumer")
+            _ref_equal("shm (c) one consumer vs phase 3", pipe, ref)
+            single = _ingress_state(pipe)
+            print(f"shm (c) fused default over one ring (16 slots of "
+                  f"{SHM_SLOT_BYTES} B): {summary['events_per_second']} "
+                  f"events/s (wall {summary['wall_seconds']} s) on {card}, "
+                  f"beside phase 3's default {rates_p3[('default', 'first')]}"
+                  f" / {rates_p3[('default', 'second')]} (first / second "
+                  f"run); equal to phase 3; stages "
+                  f"{summary['stage_seconds']}; launches {p8c1}")
+        finally:
+            pipe.cleanup()
+        del pipe
+        config = Config(shm_dir=str(work / "ring2"), ingress_lanes=2, **shm)
+        pipe = FusedPipeline(config, device=dev)
+        try:
+            roster_d, _ = generate_frames(
+                num_events, frame_size,
+                roster_size=min(config.bloom_filter_capacity, num_events),
+                num_lectures=num_lectures, seed=0)
+            counted.start()
+            pipe.preload(roster_d)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _SHM_PRODUCER, config.shm_dir,
+                 str(num_events), str(frame_size), str(num_lectures), "2"],
+                env=env))
+            pipe.run(max_events=num_events, idle_timeout_s=120.0)
+            got = _ingress_state(pipe)
+            p8c2 = counted.stop("shm (c) two lanes")
+            check(procs[-1].wait(timeout=120) == 0,
+                  "shm (c): the producer process failed")
+            _ref_equal("shm (c) two lanes vs phase 3", pipe, ref,
+                       stored=False)
+            _check_ingress_same("shm (c) two lanes vs one consumer", got,
+                                single)
+            totals = pipe.consumer.lane_event_totals()
+            check(sum(totals) == num_events and all(totals),
+                  f"shm (c): lane totals {totals}")
+            m = pipe.metrics
+            print(f"shm (c) two lanes, one ring each, frames from a "
+                  f"producer process: {m.events_per_second} events/s (wall "
+                  f"{m.wall_seconds} s, the producer's startup included) on "
+                  f"{card}; lane totals {totals}; equal to phase 3 and to "
+                  f"the one-consumer run; launches {p8c2}")
+        finally:
+            pipe.cleanup()
+        del pipe
+        # Resume: a checkpointing consumer closed before its last acks.
+        config = Config(shm_dir=str(work / "ring3"),
+                        snapshot_dir=str(work / "snap3"),
+                        snapshot_every_batches=3, **shm)
+        roster_d, frames = generate_frames(
+            num_events, frame_size,
+            roster_size=min(config.bloom_filter_capacity, num_events),
+            num_lectures=num_lectures, seed=0)
+        frames = list(frames)
+        first = FusedPipeline(config, device=dev)
+
+        def disk_died(*args, **kwargs):
+            raise OSError("phase 8(c): the delta writes fail")
+
+        first._write_delta_files = disk_died
+        counted.start()
+        first.preload(roster_d)
+        producer = first.client.create_producer(config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        first.run(max_events=5 * frame_size, idle_timeout_s=1.0)
+        first.consumer.close()  # the crash, frames 3-4 delivered, unacked
+        acked = _Ring(ring_path(config.shm_dir, config.pulsar_topic, 0),
+                      SHM_SLOTS, SHM_SLOT_BYTES).ack_cursor()
+        check(acked == 3, f"shm (c) resume: ack_cursor {acked}, not 3")
+        second = FusedPipeline(config, device=dev)
+        try:
+            check(second._events_restored == 3 * frame_size,
+                  f"shm (c) resume: restored {second._events_restored}")
+            second.run(max_events=num_events - 3 * frame_size,
+                       idle_timeout_s=1.0)
+            second.count_all()
+            p8c3 = counted.stop("shm (c) resume")
+            _ref_equal("shm (c) resumed vs phase 3", second, ref)
+            print(f"shm (c) resume: the first consumer closed with frames "
+                  f"3-4 unacked (ack_cursor 3); a fresh pipeline restored "
+                  f"{3 * frame_size} events, drained the rest and equals "
+                  f"phase 3's run; launches {p8c3}")
+        finally:
+            second.cleanup()
+            first.cleanup()
+        del first, second
+
+        # -- 8d. serving --------------------------------------------------
+        roster_d, frames = generate_frames(
+            num_events, frame_size, roster_size=min(
+                Config().bloom_filter_capacity, num_events),
+            num_lectures=num_lectures, seed=0)
+        snap = work / "snap4"
+        config = Config(serve_port=-1, snapshot_dir=str(snap),
+                        snapshot_every_batches=1, snapshot_mode="delta")
+        pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
+                             device=dev)
+        try:
+            producer = pipe.client.create_producer(config.pulsar_topic)
+            for f in frames:
+                producer.send(f)
+            counted.start()
+            pipe.preload(roster_d)
+            seqs, errors, stop = [], [], threading.Event()
+            qc_live = QueryClient(pipe.query_server.address)
+
+            def query_loop():
+                try:
+                    while not stop.is_set():
+                        seqs.append(qc_live.stats()["epoch"])
+                        qc_live.pfcount(np.arange(20_260_701,
+                                                  20_260_701 + num_lectures))
+                except Exception as exc:  # every call must succeed
+                    errors.append(repr(exc))
+
+            thread = threading.Thread(target=query_loop, daemon=True)
+            thread.start()
+            pipe.run(max_events=num_events, idle_timeout_s=1.0)
+            stop.set()
+            thread.join(timeout=30)
+            qc_live.close()
+            exact = pipe.count_all()
+            days = np.array(sorted(exact), np.int64)
+            p8d = counted.stop("serve (d)")
+            check(not errors, f"serve (d): query errors {errors[:3]}")
+            check(len(seqs) > 1 and all(a <= b for a, b in
+                                        zip(seqs, seqs[1:])),
+                  f"serve (d): epochs {seqs[:20]}")
+            _ref_equal("serve (d) run vs phase 3", pipe, ref)
+            engine = pipe.query_engine
+            qc = QueryClient(pipe.query_server.address, batch_max=1 << 16)
+            check(bool(qc.bf_exists(roster_d).all()),
+                  "serve (d): a roster id reads absent")
+            probe = np.arange(500_000, 500_000 + (1 << 20), dtype=np.uint32)
+            served = qc.bf_exists(probe)
+            fpr = float(served.mean())
+            check(fpr <= 0.015, f"serve (d): measured FPR {fpr}")
+            k4 = bloom.bloom_contains_packed(
+                pipe.state.bloom_bits,
+                torch.from_numpy(probe.view(np.int32)).to(dev), pipe.params)
+            check(np.array_equal(served, k4.cpu().numpy()),
+                  "serve (d): BF.EXISTS answers differ from K4 on the "
+                  "card's filter")
+            check(qc.pfcount(days).tolist() == [pipe.count(int(d))
+                                               for d in days],
+                  "serve (d): pfcount differs from count(day)")
+            check(qc.occupancy() == exact == engine.occupancy(),
+                  "serve (d): occupancy differs from count_all()")
+            st = qc.stats()
+            check((st["valid"], st["invalid"]) == pipe.validity_counts()
+                  and st["events"] == num_events,
+                  f"serve (d): stats {st}")
+            qps = {}
+            batch = probe[:1 << 16]
+            for label, fn, reps in (
+                    ("BF.EXISTS 65,536 keys over RPC",
+                     lambda: qc.bf_exists(batch), 20),
+                    ("BF.EXISTS 65,536 keys in process",
+                     lambda: engine.bf_exists(batch), 20),
+                    ("PFCOUNT 16 days over RPC",
+                     lambda: qc.pfcount(days), 300),
+                    ("PFCOUNT 16 days in process",
+                     lambda: engine.pfcount(days), 300)):
+                fn()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                qps[label] = reps / (time.perf_counter() - t0)
+            qc.close()
+            m = pipe.metrics
+            print(f"serve (d) fused default, delta barrier every frame, "
+                  f"serve_port -1: {m.events_per_second} events/s (wall "
+                  f"{m.wall_seconds} s) on {card}; {len(seqs)} live stats + "
+                  f"pfcount rounds saw epochs {seqs[0]}..{seqs[-1]} (of "
+                  f"{engine.pin().seq} published), never decreasing, no "
+                  f"failed call; roster all present; FPR "
+                  f"{fpr} on {len(probe)} non-roster ids, equal to K4; "
+                  f"pfcount = count(day), occupancy = count_all(), stats = "
+                  f"validity_counts(); launches {p8d}")
+            print(f"serve (d) queries/s (batches/s) on {card}: " + "; ".join(
+                f"{k} {v} ({v * (65536 if 'BF' in k else 16)} answers/s)"
+                for k, v in qps.items()))
+            final = engine.stats()
+            want = dict(pf=engine.pfcount(days).tolist(),
+                        occ=engine.occupancy(),
+                        rate=engine.attendance_rate(100_000),
+                        exists=engine.bf_exists(probe[:4096]).tolist(),
+                        stats=[final[k] for k in ("events", "valid",
+                                                  "invalid")])
+        finally:
+            pipe.cleanup()
+        del pipe
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "attendance_tpu_torch", "serve",
+             "--snapshot-dir", str(snap), "--serve-port", "-1",
+             "--serve-seconds", "120"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+        procs.append(proc)
+        line = ""
+        deadline = time.monotonic() + 120
+        while "serving" not in line:
+            check(time.monotonic() < deadline and proc.poll() is None,
+                  "serve (d): the serve verb did not start")
+            line = proc.stdout.readline()
+        qc = QueryClient(line.split(" on ")[1].split()[0], batch_max=1 << 16)
+        st = qc.stats()
+        got = dict(pf=qc.pfcount(days).tolist(), occ=qc.occupancy(),
+                   rate=qc.attendance_rate(100_000),
+                   exists=qc.bf_exists(probe[:4096]).tolist(),
+                   stats=[st[k] for k in ("events", "valid", "invalid")])
+        qc.close()
+        check(got == want, "serve (d): the serve verb's answers differ "
+              f"from the in-process engine's final epoch: {got['stats']} "
+              f"{want['stats']}")
+        print(f"serve (d) `python -m attendance_tpu_torch serve` over the "
+              f"run's chain ({line.strip()}): pfcount, occupancy, rate, "
+              f"BF.EXISTS and counters equal to the in-process engine's "
+              f"final epoch")
+        proc.kill()
+        proc.wait(timeout=30)
+        # The window verbs on phase 3b's temporal configuration.
+        roster_t, _hot, frames_t = temporal_frames(num_events, frame_size,
+                                                   num_lectures)
+        config = Config(temporal_period_s=60, allowed_lateness_s=5.0,
+                        temporal_ring_banks=256, cms_depth=4,
+                        cms_width=16384, cms_topk=16, audit_sample=1.0,
+                        serve_port=-1)
+        counted.start()
+        pipe = drive(config, roster_t, frames_t, num_events)
+        try:
+            windows = pipe.window_counts()
+            p8t = counted.stop("serve (d) temporal", need=(
+                "bloom_add", "hll_histogram", "bloom_contains", "hll_add",
+                "cms_step"))
+            pipe.publish_epoch()
+            engine = pipe.query_engine
+            qc = QueryClient(pipe.query_server.address)
+            wocc = qc.window_occupancy()
+            check(wocc == {decode_bucket_key(k): v
+                           for k, v in windows.items()}
+                  == engine.window_occupancy() and len(wocc) > 1,
+                  "serve (d) temporal: window_occupancy differs from "
+                  "window_counts()")
+            by_day = {}
+            for (d, p), v in wocc.items():
+                by_day.setdefault(d, {})[p] = v
+                check(qc.window_pfcount(d, p, p) == v,
+                      f"serve (d) temporal: window_pfcount({d}, {p}, {p})")
+            for d, series in by_day.items():
+                rates = qc.rate_series(d, len(roster_t))
+                check(sorted(rates) == sorted(series) and all(
+                    abs(rates[p] * len(roster_t) - v) <= 0.5 + 1e-6
+                    for p, v in series.items()),
+                    f"serve (d) temporal: rate_series({d})")
+                whole = qc.window_pfcount(d)
+                check(max(series.values()) <= whole
+                      <= sum(series.values()),
+                      f"serve (d) temporal: window_pfcount({d}) {whole}")
+            qc.close()
+            print(f"serve (d) temporal (phase 3b's configuration, "
+                  f"publish_epoch() after the run): {len(wocc)} buckets; "
+                  f"window_occupancy = window_counts(), window_pfcount of "
+                  f"each bucket = its count, rate_series x roster = the "
+                  f"counts, each day's window between its largest bucket "
+                  f"and their sum; {pipe.metrics.events_per_second} events/s "
+                  f"on {card}; launches {p8t}")
+        finally:
+            pipe.cleanup()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"lanes/shm/serve phase: {time.perf_counter() - t_phase} s")
+    print(f"lanes/shm/serve phase launches (its runs and reads, summed; in "
+          f"the kernels line): {counted.total}")
+    return counted.total
 
 
 def main() -> int:
@@ -2151,6 +2655,7 @@ def main() -> int:
              for d in np.unique(day).tolist()}
     launches = dict.fromkeys(kernels.launches, 0)
     ref = None  # the default run's (counts, PFCOUNTs, registers, validity)
+    rates_p3 = {}  # (wire setting, run) -> events/s
     for label, wire, native in WIRE_RUNS:
         for run in ("first", "second"):
             # Counts set to 0 just before the run and read just after.
@@ -2216,6 +2721,7 @@ def main() -> int:
             if run == "first":
                 for name, count in run_launches.items():
                     launches[name] += count
+            rates_p3[(label, run)] = summary["events_per_second"]
             device_ms = sum(run_launches[k] * rows[k]["ms"]
                             for k in set(STEP_OF_WIRE.values()))
             print(f"{what}: {summary['events_per_second']} events/s "
@@ -2243,7 +2749,12 @@ def main() -> int:
     s_launches = store_phase(card, floor_ms, rows)
 
     # -- 7. the reference's JSON wire into the fused path ----------------------
-    i_launches = ingress_phase(card, dev)
+    ingress = ingress_phase(card, dev)
+    i_launches = ingress["launches"]
+
+    # -- 8. striped lanes, the shm ring, and the query plane ------------------
+    l_launches = lanes_serve_phase(card, dev, ingress, ref, rates_p3,
+                                   (num_events, frame_size, num_lectures))
 
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
@@ -2252,7 +2763,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=SOURCE,
              replaces=row["replaces"],
              launches=(launches[name] + t_launches[name]
-                       + s_launches[name] + i_launches[name]),
+                       + s_launches[name] + i_launches[name]
+                       + l_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

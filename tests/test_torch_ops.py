@@ -157,7 +157,11 @@ _PORT_MODULES = {
     "attendance_tpu_torch.transport.framing",
     "attendance_tpu_torch.transport.quarantine",
     "attendance_tpu_torch.transport.resilience",
-    "attendance_tpu_torch.transport.socket_broker"}
+    "attendance_tpu_torch.transport.socket_broker",
+    "attendance_tpu_torch.transport.shm_ring",
+    "attendance_tpu_torch.serve", "attendance_tpu_torch.serve.mirror",
+    "attendance_tpu_torch.serve.engine", "attendance_tpu_torch.serve.rpc",
+    "attendance_tpu_torch.serve.chain"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
