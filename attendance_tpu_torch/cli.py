@@ -28,11 +28,18 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
 * ``serve``: a query-serving reader over a snapshot directory's chain
   (``serve.chain``), answering BF.EXISTS, PFCOUNT, occupancy, attendance
   rate and the window verbs on the binary RPC of ``--serve-port``,
-  refreshing as the ingest writer makes new state durable.
+  refreshing as the ingest writer makes new state durable;
+* ``federate``: the federation's aggregator (``federation.gossip``):
+  folds the workers' merge frames from ``--fed-gossip-topic`` into one
+  view, declares peers silent past ``--fed-dead-after-s`` dead
+  (recovering their chains), serves the merged view on the binary RPC
+  of ``--serve-port`` and keeps ``--stats-json`` current. The workers
+  are ``python -m attendance_tpu_torch.federation.worker``.
 
 ``fused`` also takes ``--ingress-lanes N`` (striped ingress lanes),
-``--ingress-wire shm`` (the shared-memory ring under ``--shm-dir``) and
-``--serve-port`` (the in-process query plane over the read mirror).
+``--ingress-wire shm`` (the shared-memory ring under ``--shm-dir``),
+``--serve-port`` (the in-process query plane over the read mirror) and
+the ``--fed-*`` flags (a federated worker gossiping its fences).
 
 Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
 BrokerServer at ``--socket-broker``, started with ``python -m
@@ -130,7 +137,7 @@ def cmd_fused(args) -> None:
                     snapshot_compact_every=args.snapshot_compact_every,
                     integrity=not args.no_integrity,
                     **_transport_config(args), **_ingress_config(args),
-                    **_serve_config(args))
+                    **_serve_config(args), **_fed_config(args))
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
     try:
@@ -226,6 +233,16 @@ def _serve_config(args) -> dict:
     return dict(serve_port=args.serve_port,
                 query_batch_max=args.query_batch_max,
                 read_staleness_ceiling_s=args.read_staleness_ceiling_s)
+
+
+def _fed_config(args) -> dict:
+    """Config fields of the federation flags (``_add_fed_flags``)."""
+    return dict(fed_worker=args.fed_worker, fed_shard=args.fed_shard,
+                fed_shards=args.fed_shards,
+                fed_gossip_topic=args.fed_gossip_topic,
+                fed_gossip_broker=args.fed_gossip_broker,
+                fed_heartbeat_s=args.fed_heartbeat_s,
+                fed_dead_after_s=args.fed_dead_after_s)
 
 
 def _config(args) -> Config:
@@ -459,6 +476,86 @@ def cmd_serve(args) -> None:
         source.stop()
 
 
+def cmd_federate(args) -> None:
+    """The federation's aggregator: fold every worker's merge frames
+    (Bloom word OR, HLL register max) into one view, declare peers
+    silent past --fed-dead-after-s dead (orphaning their shards at a
+    bumped map version and recovering their durable chains), and serve
+    the merged view through the query plane on --serve-port.
+    ``--stats-json PATH`` keeps the aggregator's state (worker ledgers,
+    shard map, fold counters) there, replaced atomically."""
+    import os
+    import time
+
+    from attendance_tpu_torch.federation.gossip import Aggregator
+    from attendance_tpu_torch.serve.engine import QueryEngine
+    from attendance_tpu_torch.serve.rpc import QueryServer
+
+    config = Config(**_transport_config(args), **_serve_config(args),
+                    **_fed_config(args))
+    agg = Aggregator(config).start()
+    engine = QueryEngine(
+        agg.mirror, batch_max=config.query_batch_max,
+        staleness_ceiling_s=config.read_staleness_ceiling_s or None)
+    port = config.serve_port
+    server = QueryServer(engine, port=0 if port < 0 else port).start()
+
+    def write_stats() -> None:
+        if not args.stats_json:
+            return
+        doc = agg.stats()
+        doc["serve_address"] = server.address
+        tmp = args.stats_json + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(doc, fh)
+        os.replace(tmp, args.stats_json)  # readers never see a torn file
+
+    print(f"federation aggregator folding {config.fed_gossip_topic!r} "
+          f"({agg.shard_map.num_shards} shard(s)), serving on "
+          f"{server.address}", flush=True)
+    try:
+        deadline = (time.time() + args.serve_seconds
+                    if args.serve_seconds is not None else None)
+        while deadline is None or time.time() < deadline:
+            time.sleep(args.stats_every_s if deadline is None else
+                       min(args.stats_every_s,
+                           max(0.05, deadline - time.time())))
+            write_stats()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        try:
+            agg.stop()
+            write_stats()
+        finally:
+            server.stop()
+
+
+def _add_fed_flags(p: argparse.ArgumentParser) -> None:
+    d = Config()
+    p.add_argument("--fed-worker", default=d.fed_worker,
+                   help="federated worker id; empty = federation off "
+                   "(attendance_tpu_torch/federation)")
+    p.add_argument("--fed-shard", type=int, default=d.fed_shard,
+                   help="hash shard of the key space this worker owns")
+    p.add_argument("--fed-shards", type=int, default=d.fed_shards,
+                   help="total shards in the federation")
+    p.add_argument("--fed-gossip-topic", default=d.fed_gossip_topic,
+                   help="broker topic carrying the fence-gossip merge "
+                   "frames")
+    p.add_argument("--fed-gossip-broker", default=d.fed_gossip_broker,
+                   help="socket broker HOST:PORT for gossip (empty = "
+                   "ride the configured transport)")
+    p.add_argument("--fed-heartbeat-s", type=float,
+                   default=d.fed_heartbeat_s,
+                   help="gossip heartbeat cadence between fences "
+                   "(0 = none)")
+    p.add_argument("--fed-dead-after-s", type=float,
+                   default=d.fed_dead_after_s,
+                   help="silence budget before the aggregator declares "
+                   "a peer dead and recovers its shard")
+
+
 def _add_serve_flags(p: argparse.ArgumentParser) -> None:
     d = Config()
     p.add_argument("--serve-port", type=int, default=d.serve_port,
@@ -669,6 +766,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "(verification still runs where digests exist)")
     _add_ingress_flags(f)
     _add_serve_flags(f)
+    _add_fed_flags(f)
     f.set_defaults(fn=cmd_fused)
     a = sub.add_parser("analyze", help="batch insights over a saved store")
     _add_store_flags(a)
@@ -746,6 +844,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="exit after this long (default: serve until "
                     "interrupted)")
     sv.set_defaults(fn=cmd_serve)
+    fe = sub.add_parser(
+        "federate", help="federation aggregator: fold the fence-gossip "
+        "merge frames (Bloom OR / HLL max CRDT joins) into one view, fail "
+        "over dead peers' shards, and serve federated BF.EXISTS/PFCOUNT/"
+        "occupancy answers on --serve-port")
+    _add_transport_flags(fe)
+    _add_serve_flags(fe)
+    _add_fed_flags(fe)
+    fe.add_argument("--serve-seconds", type=float, default=None,
+                    help="exit after this long (default: serve until "
+                    "interrupted)")
+    fe.add_argument("--stats-json", default="",
+                    help="atomically publish the aggregator's state "
+                    "(worker ledgers, shard map, fold counters) to this "
+                    "JSON file every --stats-every-s")
+    fe.add_argument("--stats-every-s", type=float, default=0.5,
+                    help="cadence of --stats-json rewrites")
+    fe.set_defaults(fn=cmd_federate)
     return p
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
 path, its checkpoint chain, its temporal plane, its ingress lanes and
 shared-memory ring, the query plane, the generic sketch store and the
-processor read, with the JAX package's defaults and checks
+processor and the federation read, with the JAX package's defaults and
+checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
 """
@@ -173,6 +174,25 @@ class Config:
     # before restore trusts the file). False skips computing digests at
     # the writer; verification still runs where digests exist.
     integrity: bool = True
+    # Federated scale-out (attendance_tpu_torch/federation): fed_worker
+    # names this ingest worker ("" = federation off). A federated worker
+    # owns hash shard fed_shard of fed_shards and, at every snapshot
+    # fence, gossips its dirty-bank delta (full frames at preload,
+    # restore and base fences) as versioned merge frames on
+    # fed_gossip_topic, which an aggregator (the `federate` verb) folds
+    # into one queryable view. fed_gossip_broker points the gossip at a
+    # socket broker of its own ("" = this pipeline's transport);
+    # fed_heartbeat_s keeps liveness observable between fences, and a
+    # peer silent past fed_dead_after_s is declared dead (its shard
+    # orphaned at a bumped map version, its durable chain recovered by
+    # the aggregator).
+    fed_worker: str = ""
+    fed_shard: int = 0
+    fed_shards: int = 1
+    fed_gossip_topic: str = "attendance-fed-gossip"
+    fed_gossip_broker: str = ""
+    fed_heartbeat_s: float = 2.0
+    fed_dead_after_s: float = 10.0
 
     def __post_init__(self):
         if self.sketch_backend not in ("tpu", "memory", "redis",
@@ -206,6 +226,11 @@ class Config:
             raise ValueError(
                 "--ingress-wire=shm needs --shm-dir (the ring-file "
                 "directory both ends map)")
+        if (self.ingress_wire == "shm" and self.fed_worker
+                and not self.fed_gossip_broker):
+            raise ValueError(
+                "a federated worker on shm ingress has no broker "
+                "transport for gossip frames — set --fed-gossip-broker")
         if self.shm_slots < 2:
             raise ValueError("shm_slots must be >= 2 (ring depth)")
         if self.shm_slot_bytes % 8 or self.shm_slot_bytes < 64:
@@ -260,3 +285,16 @@ class Config:
             raise ValueError(
                 "snapshot_compact_every must be positive (delta files "
                 "per chain before the writer folds a full base)")
+        if self.fed_shards < 1:
+            raise ValueError("fed_shards must be >= 1")
+        if not (0 <= self.fed_shard < self.fed_shards):
+            raise ValueError(
+                f"fed_shard {self.fed_shard} out of range "
+                f"[0, {self.fed_shards})")
+        if self.fed_heartbeat_s < 0:
+            raise ValueError(
+                "fed_heartbeat_s must be >= 0 (0 = no heartbeats)")
+        if self.fed_dead_after_s <= 0:
+            raise ValueError("fed_dead_after_s must be positive")
+        if self.fed_worker and not self.fed_gossip_topic:
+            raise ValueError("a federated worker needs a fed_gossip_topic")

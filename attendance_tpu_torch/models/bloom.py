@@ -213,6 +213,33 @@ def bloom_add_packed(words: torch.Tensor, keys: torch.Tensor,
     kernels.bloom_add(words, keys, params)
 
 
+def bloom_or_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Bloom union over packed words: bitwise OR (BF.MERGE). A Bloom
+    filter is a state-based CRDT under OR (commutative, associative,
+    idempotent), which makes the federation's replication convergent.
+    Filters of different word counts raise, as the numpy twin does."""
+    if a.shape != b.shape:
+        raise ValueError(
+            f"packed filter shapes differ ({tuple(a.shape)} vs "
+            f"{tuple(b.shape)}) — capacity/error-rate/layout must match "
+            "across the federation")
+    return torch.bitwise_or(a, b)
+
+
+def bloom_or_words_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Numpy twin of :func:`bloom_or_words` (the federation's host merge
+    core). Filters must share geometry: OR-ing different word counts
+    would break the no-false-negative contract, so it raises."""
+    a = np.asarray(a, dtype=np.uint32)
+    b = np.asarray(b, dtype=np.uint32)
+    if a.shape != b.shape:
+        raise ValueError(
+            f"packed filter shapes differ ({a.shape} vs {b.shape}) — "
+            "capacity/error-rate/layout must match across the "
+            "federation")
+    return a | b
+
+
 def bloom_contains_words(words: torch.Tensor, keys: torch.Tensor,
                          params: BloomParams) -> torch.Tensor:
     """Membership test against a packed filter: bool[B]. Any layout;

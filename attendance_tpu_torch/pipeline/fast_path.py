@@ -48,6 +48,14 @@ out before anything keeps it. Serving: the writer's host register mirror
 is published as read epochs (``serve.mirror``) at preload, restore and
 every barrier, and with ``serve_port`` set an in-process query engine
 answers over the binary RPC (``serve.rpc``) without touching the card.
+
+Federation: with ``fed_worker`` set the pipeline is one shard's worker
+(``federation/``). A full merge frame (the Bloom words and every bank)
+goes to the gossip topic at preload, restore and every base snapshot,
+and every durable delta is gossiped as the same dirty-bank rows the
+writer just made durable, with no new device read. A corrupt chain's
+repair asks the aggregator to re-assert this worker's retained
+contribution before falling back to the local repair.
 """
 
 from __future__ import annotations
@@ -70,8 +78,11 @@ import torch
 
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.device import resolve_device, to_device
+from attendance_tpu_torch.federation.gossip import FenceGossip
+from attendance_tpu_torch.federation.merge import encode_counts
 from attendance_tpu_torch.models.bloom import (
-    bloom_add_packed, bloom_contains_packed, bloom_packed_fill_fraction)
+    bloom_add_packed, bloom_contains_packed, bloom_or_words_np,
+    bloom_packed_fill_fraction)
 from attendance_tpu_torch.models.fused import (
     bank_wire_dtype, decode_counts, delta_scan, fused_step_bytes,
     fused_step_delta, fused_step_seg, fused_step_words, init_state,
@@ -347,6 +358,9 @@ class FusedMetrics:
     # (acked after max_redeliveries failed decodes).
     nacked_batches: int = 0
     dead_lettered: int = 0
+    # Host wall seconds of the restore on construction (chain read,
+    # repair, the state's copy to the device), 0 without a chain.
+    restore_seconds: float = 0.0
 
     @property
     def events_per_second(self) -> float:
@@ -522,8 +536,17 @@ class FusedPipeline:
         self._roster_size = 0
         self.query_engine: Optional[QueryEngine] = None
         self.query_server: Optional[QueryServer] = None
+        # Fence gossip of a federated worker, built before restore() so a
+        # takeover's restored chain reaches the aggregator at once.
+        self._fed: Optional[FenceGossip] = None
+        if self.config.fed_worker:
+            self._fed = FenceGossip(
+                self.config, client=self.client, m_bits=self.params.m_bits,
+                k=self.params.k).start_heartbeat()
         if self._snap_dir is not None:
+            t = time.perf_counter()
             self.restore()
+            self.metrics.restore_seconds = time.perf_counter() - t
         if self.config.serve_port:
             # The in-process query plane: host numpy over the mirror's
             # pinned epoch behind a binary batch RPC port.
@@ -552,10 +575,22 @@ class FusedPipeline:
             # The window shadow classifies validity by roster membership.
             self._temporal.record_roster(keys)
         self._roster_size = len(keys)
-        if self.checkpointing or self.query_engine is not None:
-            # The snapshot path's host filter and the first read epoch,
-            # read here, before the run, where the wait costs least.
-            self.publish_epoch()
+        if (self.checkpointing or self.query_engine is not None
+                or self._fed is not None):
+            # The snapshot path's host filter, the first read epoch and a
+            # federated worker's first full frame, read here, before the
+            # run, where the wait costs least.
+            regs_h, counts_h = self._host_state()
+            self._publish_epoch(regs_h, counts_h, bank_of=dict(self._bank_of))
+            if self._fed is not None:
+                # The filter reaches the aggregator before any delta
+                # (deltas never carry Bloom words): the federation's
+                # zero-false-negative guarantee is the OR of every
+                # shard's preload frame.
+                self._fed.publish_full(self._bloom_host, regs_h, counts_h,
+                                       dict(self._bank_of),
+                                       self._events_total,
+                                       roster_size=self._roster_size)
 
     @property
     def _events_total(self) -> int:
@@ -1348,6 +1383,11 @@ class FusedPipeline:
             self._regs_mirror = np.array(regs_h, dtype=np.uint8, copy=True)
             self._publish_epoch(self._regs_mirror, counts_h,
                                 bank_of=job["bank_of"], events=job["events"])
+            if self._fed is not None:
+                self._fed.publish_full(job["bloom"], self._regs_mirror,
+                                       counts_h, job["bank_of"],
+                                       job["events"],
+                                       roster_size=self._roster_size)
             self._writer_base_ok = True
             return
         if not self._writer_base_ok:
@@ -1371,17 +1411,16 @@ class FusedPipeline:
         staged write (the run loop's barriers use the writer)."""
         if self._snap_dir is None:
             return
-        self._flush_snapshots()
-        if self._bloom_host is None:
-            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
-                np.uint32)
+        regs, counts = self._host_state()
         bits = self._bloom_host
-        regs = self.state.hll_regs.cpu().numpy()
-        counts = self.state.counts.cpu().numpy().view(np.uint32)
         self._dirty_days.clear()
         self._regs_mirror = np.array(regs, dtype=np.uint8, copy=True)
         self._publish_epoch(self._regs_mirror, counts,
                             bank_of=dict(self._bank_of))
+        if self._fed is not None:
+            self._fed.publish_full(bits, self._regs_mirror, counts,
+                                   dict(self._bank_of), self._events_total,
+                                   roster_size=self._roster_size)
         with self._snap_io_lock:
             self._write_snapshot_files(bits, regs, counts,
                                        dict(self._bank_of),
@@ -1478,9 +1517,11 @@ class FusedPipeline:
                                 bank_of: dict, events: int,
                                 num_banks: int, upto: int) -> None:
         """After a durable delta: fold its rows into the host mirror,
-        publish the mirror as the next read epoch and, at the compaction
-        cadence, fold the chain into a fresh base. (The JAX package also
-        gossips the delta here; the port has no federation yet.)"""
+        publish the mirror as the next read epoch, gossip the delta when
+        federated and, at the compaction cadence, fold the chain into a
+        fresh base. Only a durable delta gossips: a failed write raises
+        before this, and the full base owed after it gossips a full
+        frame."""
         mirror = self._regs_mirror
         if mirror is not None:
             if num_banks > mirror.shape[0]:
@@ -1493,6 +1534,19 @@ class FusedPipeline:
             # pin against.
             self._publish_epoch(mirror, counts, bank_of=bank_of,
                                 events=events)
+        if self._fed is not None:
+            # The same rows that just became durable. A publisher that
+            # owes a full frame (an earlier publish failed, so the
+            # aggregator may lack banks) sends one from the host mirror.
+            if self._fed.full_due and mirror is not None \
+                    and self._bloom_host is not None:
+                self._fed.publish_full(self._bloom_host, mirror, counts,
+                                       bank_of, events,
+                                       roster_size=self._roster_size)
+            else:
+                self._fed.publish_delta(banks, rows, counts, bank_of,
+                                        events, num_banks,
+                                        roster_size=self._roster_size)
         if len(self._snap_chain) >= self._snap_compact_every:
             self._compact_chain(counts, bank_of, events, upto)
 
@@ -1527,18 +1581,36 @@ class FusedPipeline:
             counts=None if counts_h is None else np.asarray(counts_h),
             roster_size=self._roster_size)
 
+    def _host_state(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(uint8 registers, uint32[2, 2] counters) of the card's CURRENT
+        state on the host, after the staged snapshot writes; reads the
+        host filter too when none is held. A cold path: between runs."""
+        self._flush_snapshots()
+        if self._bloom_host is None:
+            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
+                np.uint32)
+        return (self.state.hll_regs.cpu().numpy(),
+                self.state.counts.cpu().numpy().view(np.uint32))
+
     def publish_epoch(self) -> None:
         """Publish one epoch from the card's CURRENT state, after the
         staged snapshot writes: the one device read of the query plane,
         for embedders that serve without checkpointing. A cold path:
         call it between runs, never mid-stream."""
-        self._flush_snapshots()
-        if self._bloom_host is None:
-            self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
-                np.uint32)
-        self._publish_epoch(self.state.hll_regs.cpu().numpy(),
-                            self.state.counts.cpu().numpy().view(np.uint32),
-                            bank_of=dict(self._bank_of))
+        regs_h, counts_h = self._host_state()
+        self._publish_epoch(regs_h, counts_h, bank_of=dict(self._bank_of))
+
+    def fed_flush(self) -> None:
+        """Publish one FULL merge frame of the current state: a federated
+        worker's end-of-run handshake (the aggregator holds its whole
+        contribution before the process exits). A cold path: it reads
+        the card, as ``publish_epoch`` does."""
+        if self._fed is None:
+            return
+        regs_h, counts_h = self._host_state()
+        self._fed.publish_full(self._bloom_host, regs_h, counts_h,
+                               dict(self._bank_of), self._events_total,
+                               roster_size=self._roster_size)
 
     # -- restore ---------------------------------------------------------------
     def restore(self) -> bool:
@@ -1600,6 +1672,15 @@ class FusedPipeline:
         self._publish_epoch(self._regs_mirror, chain_state["counts"],
                             bank_of=self._bank_of, events=events)
         self._events_restored = int(events)
+        if self._fed is not None:
+            # A takeover re-asserts everything the dead peer made durable
+            # under this (higher) incarnation, and its event counter
+            # continues from the restored total (_events_total), so the
+            # aggregator's per-worker max never double-counts a replay.
+            self._fed.publish_full(self._bloom_host, self._regs_mirror,
+                                   chain_state["counts"],
+                                   dict(self._bank_of), int(events),
+                                   roster_size=self._roster_size)
         if repaired:
             # Name only the survivors (unless the base itself was lost)
             # and owe a fresh base.
@@ -1665,13 +1746,21 @@ class FusedPipeline:
                                "structural check")
 
     def _repair_chain(self, exc: ChainIntegrityError) -> Optional[dict]:
-        """The repair ladder for a corrupt chain: quarantine the corrupt
-        artifact and re-read the chain truncated to its good prefix (a
-        torn CHAIN.json degrades to the base alone; a corrupt base
-        leaves nothing); restore then owes a fresh base. Returns a
-        ``read_chain_state`` dict, or None when nothing is recoverable.
-        (The JAX ladder's peer re-assert step needs federation, which
-        the port has not yet.)"""
+        """The repair ladder for a corrupt chain:
+
+        1. local quarantine: the corrupt artifact moves into
+           ``integrity-quarantine/`` and the chain is re-read truncated
+           to its good prefix (a torn CHAIN.json degrades to the base
+           alone; a corrupt base leaves nothing);
+        2. peer re-assert, when federated: the aggregator's retained
+           view of this worker holds the banks the lost deltas carried
+           (they were gossiped at their fences), so a full re-assert
+           frame is requested and folded over the surviving state;
+        3. fresh base: restore owes a full base at once.
+
+        Returns a ``read_chain_state`` dict, or None when nothing is
+        recoverable (a corrupt base and no peer): restore then starts
+        empty, loudly, with the corrupt bytes kept for triage."""
         state = None
         for _attempt in range(4):
             path = exc.path
@@ -1700,17 +1789,110 @@ class FusedPipeline:
             # clean, so record its digest for the republished manifest.
             state["base_digest"] = file_digest(
                 self._snap_dir / SKETCH_SNAPSHOT)
+        folded = False
+        if self._fed is not None:
+            reassert = self._fed.request_reassert()
+            if reassert is not None:
+                state, folded = self._fold_reassert_state(state, reassert)
+        if folded:
+            return state  # _fold_reassert_state logged the repair
         if state is not None:
             logger.warning(
-                "chain repaired LOCALLY: state truncated at the corrupt "
+                "chain repaired LOCALLY only (no federation peer to "
+                "re-assert from): state truncated at the corrupt "
                 "artifact — events acked into the lost suffix are not "
                 "locally recoverable")
         else:
             logger.error(
-                "chain at %s is unrepairable locally (base corrupt) — "
-                "starting EMPTY; the corrupt bytes are preserved under "
-                "integrity-quarantine/", self._snap_dir)
+                "chain at %s is unrepairable locally (base corrupt) and "
+                "no peer re-assert is available — starting EMPTY; the "
+                "corrupt bytes are preserved under integrity-quarantine/",
+                self._snap_dir)
         return state
+
+    def _fold_reassert_state(self, state: Optional[dict],
+                             frame) -> Tuple[Optional[dict], bool]:
+        """Fold a peer re-assert full frame (the aggregator's retained
+        view of THIS worker's contribution) over the surviving chain
+        state, or build the state from it when the base was lost. The
+        CRDT joins (Bloom OR, register max, counter max) make the fold
+        safe however much the two overlap. Returns ``(state, folded)``:
+        False when the frame was refused (another geometry, or no
+        filter to rebuild a lost base from)."""
+        prec = self.config.hll_precision
+        if int(frame.m_bits) and int(frame.m_bits) != self.params.m_bits:
+            logger.error(
+                "peer re-assert gossips a %s-bit filter, this worker "
+                "runs %s bits — refusing the repair frame",
+                frame.m_bits, self.params.m_bits)
+            return state, False
+        if int(frame.precision) != prec:
+            logger.error(
+                "peer re-assert gossips precision %s, this worker runs "
+                "%s — refusing the repair frame", frame.precision, prec)
+            return state, False
+        f_regs = np.asarray(frame.arrays.get(
+            "regs", np.zeros((0, 1 << prec), np.uint8)), np.uint8)
+        f_counts = frame.arrays.get("counts")
+        f_bloom = frame.arrays.get("bloom")
+        if state is None:
+            if f_bloom is None:
+                logger.error("peer re-assert carries no Bloom words; "
+                             "cannot rebuild a lost base from it")
+                return None, False
+            bank_of = {str(d): int(b) for d, b in frame.bank_of.items()}
+            manifest = {
+                "bank_of": bank_of,
+                "m_bits": self.params.m_bits, "k": self.params.k,
+                "precision": prec, "events": int(frame.events),
+                "chain_seq": self._delta_seq,
+            }
+            state = dict(
+                bits=np.asarray(f_bloom, np.uint32), regs=f_regs.copy(),
+                counts=(np.asarray(f_counts, np.uint32)
+                        if f_counts is not None
+                        else np.zeros((2, 2), np.uint32)),
+                bank_of=bank_of, events=int(frame.events), applied=[],
+                manifest=manifest, base_digest="", digests={})
+            logger.warning("rebuilt lost base entirely from the peer "
+                           "re-assert (%d events, %d banks)",
+                           state["events"], len(frame.bank_of))
+            return state, True
+        if f_bloom is not None:
+            state["bits"] = bloom_or_words_np(state["bits"], f_bloom)
+        bank_of = {int(d): int(b) for d, b in state["bank_of"].items()}
+        regs = np.asarray(state["regs"], np.uint8)
+        for day, fb in frame.bank_of.items():
+            if fb >= f_regs.shape[0]:
+                continue
+            row = f_regs[fb]
+            sb = bank_of.get(int(day))
+            if sb is None:
+                # Past the highest bank in use, not len(bank_of): a
+                # temporal eviction's hole would otherwise alias a live
+                # bank.
+                sb = max(bank_of.values(), default=-1) + 1
+                if sb >= regs.shape[0]:
+                    grown = np.zeros((max(sb + 1, regs.shape[0] * 2),
+                                      regs.shape[1]), np.uint8)
+                    grown[:regs.shape[0]] = regs
+                    regs = grown
+                bank_of[int(day)] = sb
+                regs[sb] = row
+            else:
+                regs[sb] = np.maximum(regs[sb], row)
+        state["regs"] = regs
+        state["bank_of"] = {str(d): b for d, b in bank_of.items()}
+        lv, li = decode_counts(np.asarray(state["counts"], np.uint32))
+        fv, fi = (decode_counts(np.asarray(f_counts, np.uint32))
+                  if f_counts is not None else (0, 0))
+        state["counts"] = encode_counts(max(lv, fv), max(li, fi))
+        state["events"] = max(int(state["events"]), int(frame.events))
+        logger.warning(
+            "folded peer re-assert over the truncated chain: events %d, "
+            "%d banks (lost deltas recovered from the aggregator's "
+            "retained view)", state["events"], len(bank_of))
+        return state, True
 
     # -- ack draining -------------------------------------------------------
     def _drain_inflight(self, block: int = 0) -> None:
@@ -1874,6 +2056,11 @@ class FusedPipeline:
         # consumer), then stop the writer.
         self._flush_snapshots()
         self._stop_snap_writer()
+        if self._fed is not None:
+            # After the writer drained: the last fence's frame is sent
+            # before the producer closes.
+            self._fed.close()
+            self._fed = None
         if isinstance(self.consumer, StripedConsumer):
             # Stop the lane threads (which send the queued acks) and
             # close their sessions before the client goes.

@@ -46,6 +46,13 @@ def synth_columns(rng: np.random.Generator, batch: int,
     }
 
 
+def frame_from_columns(cols: dict) -> bytes:
+    """One micro-batch of columns as a planar ATB2 frame (the JAX
+    package's ``frame_from_columns`` with its default ``planar=True``;
+    the interleaved ATB1 form is not generated here)."""
+    return encode_planar_batch(cols)
+
+
 def stream_micros(rng: np.random.Generator, n: int, cursor: int,
                   mean_gap_us: int = 1000) -> np.ndarray:
     """Monotone event-time stamps continuing from ``cursor``."""
@@ -101,7 +108,7 @@ def generate_frames(num_events: int, batch: int,
                 cursor = int(micros[-1])
                 cols["micros"] = apply_disorder(
                     micros, rng, disorder_frac, late_max_s)
-            yield encode_planar_batch(cols)
+            yield frame_from_columns(cols)
             left -= n
 
     return roster, frames()

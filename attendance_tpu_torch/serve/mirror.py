@@ -107,13 +107,15 @@ class ReadMirror:
                 bank_of: Dict[int, int], params, precision: int,
                 bloom_words: Optional[np.ndarray] = None,
                 counts: Optional[np.ndarray] = None,
-                roster_size: Optional[int] = None) -> Epoch:
+                roster_size: Optional[int] = None,
+                source: str = "live") -> Epoch:
         """Publish the next epoch from the writer's host state.
 
         ``regs`` is the writer's private mirror, which later deltas
         mutate, so it is copied into a (usually recycled) read buffer.
         ``bloom_words``, ``counts`` and ``roster_size`` default to the
-        previous epoch's."""
+        previous epoch's. ``source`` names the publisher ("live", or
+        "federated" for the federation's aggregator)."""
         regs = np.asarray(regs, dtype=np.uint8)
         with self._lock:
             prev = self._current
@@ -132,7 +134,7 @@ class ReadMirror:
                 counts=None if counts is None else np.array(counts,
                                                             copy=True),
                 bank_of=dict(bank_of), params=params, precision=precision,
-                roster_size=int(roster_size))
+                roster_size=int(roster_size), source=source)
             # Shift the double buffer: current -> previous (the recycle
             # candidate at the NEXT publish), previous dropped.
             self._previous = prev

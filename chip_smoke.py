@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit, then the kernels
      built from ``attendance_tpu_torch/csrc`` with nvcc (time and the
-     compiler's per-kernel resource report);
+     compiler's per-kernel resource report) and the native host pack;
   2. the launch floor (a ``fill_`` of one int32, timed as the kernels
      are), then each kernel against its plain PyTorch version on the
      card, at the main path's shapes, with exact equality (integer
@@ -142,11 +142,38 @@ Phases (any failure exits non-zero):
      in-process engine's final epoch; and phase 3b's temporal
      configuration served, its window verbs equal to what
      ``window_counts()`` implies;
+  9. federation (after 8), the JAX package's bench and failover soak
+     on the one card, a 100k roster, 8,192-event frames, 6 lectures,
+     gossip through a port broker subprocess: (a) scaling rounds of K =
+     1, 2 and 4 workers (``run_worker`` in this process for K = 1,
+     ``python -m attendance_tpu_torch.federation.worker`` processes
+     behind a go-file otherwise), 524,288 events each on the memory data
+     plane with delta snapshots every 4 frames, an aggregator folding
+     live here; each round held against the no-crash federated oracle
+     (one pipeline per shard on the card, merged; the whole roster
+     preloaded once by K3, which must equal the OR of the shard
+     filters): events, Bloom words, registers by day, valid and invalid,
+     served PFCOUNT = the oracle's K1 count, BF.EXISTS true over the
+     roster and equal to K4 over 1,048,576 non-roster ids, no stale
+     frame; per worker events/s and wall, the aggregate rate, merge lag,
+     frames folded, served query rates; (b) failover over the socket
+     data plane: 3 workers, 24 frames a shard, snapshots every 2 frames,
+     a 3 s death budget; w1 SIGKILLed once its chain holds a delta, its
+     newest delta rotted, a ``--takeover`` worker restoring through the
+     peer re-assert; gates: declared dead, map bumped, chain recovered,
+     re-claimed at a higher incarnation, the delta quarantined, the view
+     equal to the oracle (counters at least once, within two group
+     commits); (c) ``python -m attendance_tpu_torch federate`` as the
+     aggregator of a K = 2 round, queried over the RPC and equal to
+     (a)'s oracle; (d) B15, ``bloom_or_words`` on the card equal to its
+     numpy twin and timed; no worker compiles (the build directories are
+     unchanged);
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
-     phase 7(a) and phase 8's runs (each also printed on a line of its
-     own); phase 5 prints its own runs' counts on a line of its own.
+     phase 7(a), phase 8's runs and phase 9(a)'s K = 1 round (the
+     worker's run and the oracle's reads; each also printed on a line of
+     its own); phase 5 prints its own runs' counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -2231,6 +2258,586 @@ def lanes_serve_phase(card: str, dev, ingress: dict, ref, rates_p3: dict,
     return counted.total
 
 
+# -- 9. federation on the card ---------------------------------------------------
+FED_ROSTER = 100_000  # the `fused` default's roster, as in phase 3
+FED_EVENTS = 524_288  # a scaling round's per-worker events: 64 frames
+FED_BATCH = 8_192     # the worker's frame (6 lectures, 10% invalid)
+FED_FAIL_FRAMES = 24  # the failover round's frames a shard
+FED_SEED = 0
+FED_DEVICE = "cuda"   # every worker's --device
+
+
+def _fed_env(repo: str) -> dict:
+    import os
+    return dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [repo] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+
+
+def _spawn_fed_worker(repo: str, env: dict, log, addr: str, work, shard: int,
+                      num_shards: int, topic: str, gossip_topic: str,
+                      events: int, *, data_plane: str, extra=()):
+    """One ``python -m attendance_tpu_torch.federation.worker`` on the card,
+    its output appended to ``log`` (a file, never an undrained pipe)."""
+    cmd = [sys.executable, "-m", "attendance_tpu_torch.federation.worker",
+           "--worker", f"w{shard}", "--shard", str(shard), "--num-shards",
+           str(num_shards), "--broker", addr, "--topic", topic,
+           "--gossip-topic", gossip_topic, "--workdir", str(work),
+           "--data-plane", data_plane, "--num-events", str(events),
+           "--roster-size", str(FED_ROSTER), "--seed", str(FED_SEED),
+           "--device", FED_DEVICE, *extra]
+    with open(log, "a") as fh:
+        return subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                cwd=repo, env=env)
+
+
+def _fed_report(log) -> dict:
+    """The last JSON report line a worker wrote to its log."""
+    lines = [ln for ln in open(log).read().splitlines()
+             if ln.startswith("{")]
+    check(bool(lines), f"no worker report in {log}")
+    return json.loads(lines[-1])
+
+
+def _fed_wait(procs, logs, what: str, timeout_s: float) -> None:
+    deadline = time.time() + timeout_s
+    for p, log in zip(procs, logs):
+        while p.poll() is None:
+            if time.time() > deadline:
+                raise SystemExit(f"chip_smoke: FAILED: {what}: a worker "
+                                 "never finished")
+            time.sleep(0.05)
+        check(p.returncode == 0, f"{what}: worker exited {p.returncode}:\n"
+              + open(log).read()[-3000:])
+
+
+def _fed_drain(agg) -> None:
+    """Fold the gossip tail synchronously (the fold loop paused)."""
+    agg.pause()
+    quiet = 0
+    while quiet < 3:
+        quiet = quiet + 1 if agg.poll(timeout_ms=100) == 0 else 0
+
+
+def _fed_oracle(dev, num_shards: int, events: int) -> dict:
+    """The no-crash federated oracle: one FusedPipeline on the card per
+    shard (its roster slice preloaded, its frames run), merged with the
+    CRDT twins. A single pipeline over the whole roster is not
+    register-equivalent: its denser filter admits other false-positive
+    invalid ids into the day registers."""
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.federation.worker import build_workload
+    from attendance_tpu_torch.models.bloom import bloom_or_words_np
+    from attendance_tpu_torch.models.fused import decode_counts
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    words, regs_by_day, valid, invalid, shard_words = None, {}, 0, 0, []
+    for s in range(num_shards):
+        roster, mine, frames = build_workload(FED_SEED, s, num_shards, events,
+                                              roster_size=FED_ROSTER)
+        pipe = FusedPipeline(Config(), client=MemoryClient(MemoryBroker()),
+                             num_banks=16, device=dev)
+        try:
+            pipe.preload(mine)
+            producer = pipe.client.create_producer(pipe.config.pulsar_topic)
+            for f in frames:
+                producer.send(f)
+            pipe.run(max_events=events, idle_timeout_s=2.0)
+            check(pipe.metrics.events == events,
+                  f"oracle shard {s}/{num_shards}: {pipe.metrics.events} "
+                  "events")
+            w = pipe.state.bloom_bits.cpu().numpy().view(np.uint32).copy()
+            shard_words.append(w)
+            words = w if words is None else bloom_or_words_np(words, w)
+            regs = pipe.state.hll_regs.cpu().numpy()
+            for day, b in pipe._bank_of.items():
+                cur = regs_by_day.get(day)
+                regs_by_day[day] = (regs[b].copy() if cur is None
+                                    else np.maximum(cur, regs[b]))
+            v, i = decode_counts(pipe.state.counts)
+            valid, invalid = valid + v, invalid + i
+            params = pipe.params
+        finally:
+            pipe.cleanup()
+    return dict(roster=roster, words=words, regs_by_day=regs_by_day,
+                valid=valid, invalid=invalid, params=params,
+                shard_words=shard_words)
+
+
+def _fed_oracle_reads(dev, oracle: dict, probe: np.ndarray) -> None:
+    """The oracle's reads on the card: the whole roster preloaded into one
+    filter (K3; it must equal the OR of the shard filters), PFCOUNT of
+    every day through K1, BF.EXISTS of the non-roster probe through K4."""
+    from attendance_tpu_torch.models import bloom, hll
+
+    params = oracle["params"]
+    full = bloom.bloom_packed_init(params, dev)
+    bloom.bloom_add_packed(full, torch.from_numpy(
+        oracle["roster"].view(np.int32)).to(dev), params)
+    check(np.array_equal(full.cpu().numpy().view(np.uint32),
+                         oracle["words"]),
+          "federation oracle: the whole roster's filter differs from the OR "
+          "of the shard filters")
+    days = sorted(oracle["regs_by_day"])
+    regs = torch.from_numpy(np.stack(
+        [oracle["regs_by_day"][d] for d in days])).to(dev)
+    hists = hll.best_histogram(regs, 14).cpu().numpy()
+    oracle["pfcount"] = {d: int(round(hll.estimate_from_histogram(h, 14)))
+                         for d, h in zip(days, hists)}
+    oracle["k4"] = bloom.bloom_contains_packed(
+        full, torch.from_numpy(probe.view(np.int32)).to(dev),
+        params).cpu().numpy()
+
+
+def _fed_gates(what: str, view, engine, oracle: dict, probe: np.ndarray,
+               events: int, *, exact_counters: bool = True) -> int:
+    """Phase 9's gates on a merged view against the oracle; returns the
+    events overcount (0 unless ``exact_counters`` is off)."""
+    from attendance_tpu_torch.models.fused import decode_counts
+
+    check(np.array_equal(view.bloom_words, oracle["words"]),
+          f"{what}: merged Bloom words differ from the oracle's")
+    got = view.regs_by_day()
+    check(set(got) == set(oracle["regs_by_day"]),
+          f"{what}: days {sorted(got)} vs {sorted(oracle['regs_by_day'])}")
+    for day, row in oracle["regs_by_day"].items():
+        check(np.array_equal(got[day], row),
+              f"{what}: registers of day {day} differ from the oracle's")
+    valid, invalid = decode_counts(view.counts_array())
+    over = view.events - events
+    if exact_counters:
+        check(over == 0, f"{what}: merged events {view.events} != {events}")
+        check((valid, invalid) == (oracle["valid"], oracle["invalid"]),
+              f"{what}: valid/invalid ({valid}, {invalid}) vs oracle "
+              f"({oracle['valid']}, {oracle['invalid']})")
+    else:
+        # At least once across a SIGKILL: never below the truth, above
+        # it by at most two group commits, and reconciled.
+        check(0 <= over <= 2 * 2 * FED_BATCH,
+              f"{what}: events overcount {over}")
+        check(valid >= oracle["valid"] and invalid >= oracle["invalid"]
+              and (valid - oracle["valid"]) + (invalid - oracle["invalid"])
+              == over, f"{what}: counters ({valid}, {invalid}) vs oracle "
+              f"({oracle['valid']}, {oracle['invalid']}), overcount {over}")
+    check(bool(engine.bf_exists(oracle["roster"]).all()),
+          f"{what}: a roster id reads absent (a false negative)")
+    if "pfcount" in oracle:
+        days = np.array(sorted(oracle["pfcount"]), np.int64)
+        check(engine.pfcount(days).tolist()
+              == [oracle["pfcount"][int(d)] for d in days],
+              f"{what}: served PFCOUNT differs from the oracle's K1 count")
+        check(np.array_equal(engine.bf_exists(probe), oracle["k4"]),
+              f"{what}: served BF.EXISTS of non-roster ids differs from K4 "
+              "on the oracle's filter")
+    check(view.stale_frames == 0 or not exact_counters,
+          f"{what}: {view.stale_frames} stale frames")
+    return over
+
+
+def _fed_query_rates(engine, roster: np.ndarray) -> tuple:
+    """(point answers/s over 64-key BF.EXISTS batches, occupancy tables/s)
+    against the merged view (the JAX bench's ``_fed_query_rates``, shorter
+    windows)."""
+    rng = np.random.default_rng(1)
+    bufs = [np.where(rng.random(64) < 0.5, rng.choice(roster, 64),
+                     rng.integers(1 << 31, 1 << 32, 64).astype(np.uint32)
+                     ).astype(np.uint32) for _ in range(16)]
+    n, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        engine.bf_exists(bufs[n % len(bufs)])
+        n += 1
+    qps = n * 64 / (time.perf_counter() - t0)
+    n, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        engine.occupancy()
+        n += 1
+    return qps, n / (time.perf_counter() - t0)
+
+
+def _build_files(repo: str) -> list:
+    """(name, size, mtime) of every built library: a worker that compiled
+    would change the list."""
+    from pathlib import Path
+    return sorted((str(p.relative_to(repo)), p.stat().st_size,
+                   p.stat().st_mtime_ns)
+                  for d in ("build/kernels", "build/native")
+                  for p in (Path(repo) / d).glob("*") if p.is_file())
+
+
+def federation_phase(card: str, dev) -> dict:
+    """Phase 9: (a) scaling rounds at K = 1, 2, 4 workers, (b) failover
+    with the peer re-assert, (c) the ``federate`` verb, (d) B15. Returns
+    the launches of (a)'s in-process K = 1 round: its worker's run and
+    the oracle's reads."""
+    import argparse
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch.federation import worker as fed_worker
+    from attendance_tpu_torch.federation.gossip import Aggregator
+    from attendance_tpu_torch.federation.shard import shard_topic
+    from attendance_tpu_torch.models import bloom
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.serve.engine import QueryEngine
+    from attendance_tpu_torch.serve.rpc import QueryClient
+    from attendance_tpu_torch.transport.socket_broker import (
+        SocketClient, spawn_broker)
+
+    t_phase = time.perf_counter()
+    repo = str(Path(__file__).resolve().parent)
+    env = _fed_env(repo)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fed_"))
+    built = _build_files(repo)
+    probe = np.random.default_rng(9).integers(
+        1 << 21, 1 << 31, 1 << 20).astype(np.uint32)
+    launches = dict.fromkeys(kernels.launches, 0)
+    oracles = {}
+    procs = []
+    broker, addr = spawn_broker(cwd=repo)
+    try:
+        # -- 9a. scaling rounds, memory data plane ---------------------------
+        for K in (1, 2, 4):
+            t_round = time.perf_counter()
+            rdir = work / f"k{K}"
+            topic, gossip_topic = f"chip-fed-k{K}", f"chip-fed-gossip-k{K}"
+            agg_client = SocketClient(addr)
+            agg = Aggregator(client=agg_client, topic=gossip_topic,
+                             num_shards=K, dead_after_s=1e9, precision=14)
+            lags = []
+            fold = agg.fold_frame
+
+            def fold_noting_lag(frame, now=None, fold=fold, lags=lags):
+                info = fold(frame, now)
+                if info["lag_s"] is not None:
+                    lags.append(info["lag_s"])
+                return info
+
+            agg.fold_frame = fold_noting_lag
+            agg.start()
+            try:
+                args = ["--broker", addr, "--num-shards", str(K), "--topic",
+                        topic, "--gossip-topic", gossip_topic, "--workdir",
+                        str(rdir), "--data-plane", "memory", "--num-events",
+                        str(FED_EVENTS), "--max-events", str(FED_EVENTS),
+                        "--roster-size", str(FED_ROSTER), "--seed",
+                        str(FED_SEED), "--idle-timeout-s", "10",
+                        "--device", FED_DEVICE]
+                if K == 1:
+                    # In this process: its launches are the phase's.
+                    kernels.reset_launches()
+                    reports = [fed_worker.run_worker(
+                        fed_worker.build_parser().parse_args(
+                            ["--worker", "w0", "--shard", "0", *args]))]
+                    run_launches = dict(kernels.launches)
+                else:
+                    go = rdir / "go"
+                    rdir.mkdir(parents=True)
+                    logs = [rdir / f"worker-{s}.log" for s in range(K)]
+                    round_procs = [
+                        _spawn_fed_worker(
+                            repo, env, logs[s], addr, rdir, s, K, topic,
+                            gossip_topic, FED_EVENTS, data_plane="memory",
+                            extra=("--max-events", str(FED_EVENTS),
+                                   "--idle-timeout-s", "10", "--ready-file",
+                                   str(rdir / f"ready-{s}"), "--go-file",
+                                   str(go)))
+                        for s in range(K)]
+                    procs += round_procs
+                    deadline = time.time() + 300
+                    for s, p in enumerate(round_procs):
+                        while not (rdir / f"ready-{s}").exists():
+                            check(p.poll() is None, f"9a K={K}: worker w{s} "
+                                  "died before ready:\n"
+                                  + open(logs[s]).read()[-3000:])
+                            check(time.time() < deadline,
+                                  f"9a K={K}: worker w{s} never ready")
+                            time.sleep(0.02)
+                    go.touch()
+                    _fed_wait(round_procs, logs, f"9a K={K}", 300)
+                    reports = [_fed_report(log) for log in logs]
+                _fed_drain(agg)
+                if K not in oracles:
+                    oracles[K] = _fed_oracle(dev, K, FED_EVENTS)
+                if K == 1:
+                    kernels.reset_launches()
+                _fed_oracle_reads(dev, oracles[K], probe)
+                if K == 1:
+                    reads = dict(kernels.launches)
+                    for name in launches:
+                        launches[name] = run_launches[name] + reads[name]
+                    step = sum(run_launches[k]
+                               for k in set(STEP_OF_WIRE.values()))
+                    check(step > 0 and run_launches["bloom_add"] > 0,
+                          f"9a K=1: the worker's run launched {run_launches}")
+                    check(reads["hll_histogram"] > 0
+                          and reads["bloom_contains"] > 0,
+                          f"9a K=1: the oracle's reads launched {reads}")
+                engine = QueryEngine(agg.mirror, batch_max=1 << 20)
+                what = f"federation (a) K={K}"
+                check(sum(r["events"] for r in reports) == K * FED_EVENTS,
+                      f"{what}: worker events {reports}")
+                check(all(r["device"].startswith(FED_DEVICE)
+                          for r in reports),
+                      f"{what}: a worker ran off the card {reports}")
+                _fed_gates(what, agg.view, engine, oracles[K], probe,
+                           K * FED_EVENTS)
+                point_qps, table_qps = _fed_query_rates(
+                    engine, oracles[K]["roster"])
+                lag = np.sort(np.asarray(lags)) if lags else np.zeros(1)
+                measured = sum(r["measured_events"] for r in reports)
+                wall = max(r["wall_s"] for r in reports)
+                print(f"{what}: {K} x {FED_EVENTS} events, workers' events/s "
+                      f"{[r['events_per_sec'] for r in reports]} walls "
+                      f"{[r['wall_s'] for r in reports]} s, aggregate "
+                      f"{measured / wall} events/s (sum of measured / max "
+                      f"wall) on {card}; merge lag p50 "
+                      f"{float(np.percentile(lag, 50))} p99 "
+                      f"{float(np.percentile(lag, 99))} max {float(lag[-1])} "
+                      f"s over {len(lags)} folds; frames folded "
+                      f"{agg.view.folded_deltas + agg.view.folded_fulls} "
+                      f"({agg.view.folded_deltas} deltas), stale "
+                      f"{agg.view.stale_frames}; served {point_qps} "
+                      f"BF.EXISTS answers/s (64-key batches), {table_qps} "
+                      f"occupancy tables/s; round wall "
+                      f"{time.perf_counter() - t_round} s")
+            finally:
+                agg.stop()
+                agg_client.close()
+        print(f"federation (a) K=1 launches (the worker's run, then the "
+              f"oracle's reads; in the kernels line): {launches}")
+
+        # -- 9b. failover with the peer re-assert, socket data plane ---------
+        t_b = time.perf_counter()
+        K, killed = 3, 1
+        bdir = work / "failover"
+        bdir.mkdir()
+        topic, gossip_topic = "chip-fed-soak", "chip-fed-soak-gossip"
+        n_events = FED_FAIL_FRAMES * FED_BATCH
+        agg_client = SocketClient(addr)
+        agg = Aggregator(client=agg_client, topic=gossip_topic,
+                         num_shards=K, dead_after_s=3.0).start()
+        try:
+            logs = [bdir / f"worker-{s}.log" for s in range(K)]
+            go = bdir / "go"
+            extra = ("--snapshot-every", "2", "--idle-timeout-s", "4")
+            workers = [_spawn_fed_worker(
+                repo, env, logs[s], addr, bdir, s, K, topic, gossip_topic,
+                n_events, data_plane="socket",
+                extra=extra + ("--ready-file", str(bdir / f"ready-{s}"),
+                               "--go-file", str(go)))
+                for s in range(K)]
+            procs += workers
+            deadline = time.time() + 300
+            for s, p in enumerate(workers):
+                while not (bdir / f"ready-{s}").exists():
+                    check(p.poll() is None, f"9b: w{s} died before ready:\n"
+                          + open(logs[s]).read()[-3000:])
+                    check(time.time() < deadline, f"9b: w{s} never ready")
+                    time.sleep(0.02)
+            client = SocketClient(addr)
+            for s in range(K):
+                _, _, frames = fed_worker.build_workload(
+                    FED_SEED, s, K, n_events, roster_size=FED_ROSTER)
+                producer = client.create_producer(shard_topic(topic, s))
+                for f in frames:
+                    producer.send(f)
+                producer.close()
+            client.close()
+            go.touch()
+            chain = bdir / f"chain-{killed}" / "CHAIN.json"
+            deadline = time.time() + 120
+            while not (chain.exists()
+                       and json.loads(chain.read_text()).get("deltas")):
+                check(workers[killed].poll() is None,
+                      "9b: w1 exited before its chain held a delta")
+                check(time.time() < deadline, "9b: w1 never wrote a delta")
+                time.sleep(0.005)
+            workers[killed].send_signal(signal.SIGKILL)
+            workers[killed].wait()
+            t_kill = time.time()
+            # Gate A: declared dead, shard orphaned, chain recovered.
+            deadline = t_kill + 3.0 + 30
+            while True:
+                stats = agg.stats()
+                w1 = stats["workers"].get(f"w{killed}")
+                if (w1 is not None and not w1["up"]
+                        and f"w{killed}" in stats["recovered_chains"]):
+                    break
+                check(time.time() < deadline, f"9b gate A: w1 never "
+                      f"declared dead and recovered: {stats}")
+                time.sleep(0.02)
+            t_dead = time.time() - t_kill
+            check(stats["shard_map"]["owners"][killed] is None
+                  and stats["shard_map"]["version"] >= 2,
+                  f"9b gate A: shard map {stats['shard_map']}")
+            dead_inc = w1["incarnation"]
+            # Rot on the dead peer's chain: one byte in the middle of its
+            # newest delta, after the aggregator folded the chain.
+            corrupted = json.loads(chain.read_text())["deltas"][-1]
+            victim = chain.parent / corrupted
+            raw = bytearray(victim.read_bytes())
+            raw[len(raw) // 2] ^= 0xFF
+            victim.write_bytes(bytes(raw))
+            takeover = _spawn_fed_worker(
+                repo, env, logs[killed], addr, bdir, killed, K, topic,
+                gossip_topic, n_events, data_plane="socket",
+                extra=extra + ("--takeover",))
+            procs.append(takeover)
+            # Gate B: the takeover re-claims the shard, newer.
+            deadline = time.time() + 120
+            while True:
+                stats = agg.stats()
+                w1 = stats["workers"][f"w{killed}"]
+                if (w1["up"] and w1["incarnation"] > dead_inc
+                        and stats["shard_map"]["owners"][killed]
+                        == f"w{killed}"):
+                    break
+                check(takeover.poll() in (None, 0), "9b: the takeover "
+                      "failed:\n" + open(logs[killed]).read()[-3000:])
+                check(time.time() < deadline,
+                      f"9b gate B: the takeover never re-claimed: {stats}")
+                time.sleep(0.02)
+            _fed_wait([workers[0], workers[2], takeover],
+                      [logs[0], logs[2], logs[killed]], "9b", 300)
+            rep = _fed_report(logs[killed])
+            check(rep["takeover"], f"9b: the takeover's report {rep}")
+            qdir = chain.parent / "integrity-quarantine"
+            check((qdir / corrupted).exists(),
+                  f"9b gate B: {corrupted} was not quarantined")
+            check(corrupted not in json.loads(chain.read_text())["deltas"],
+                  "9b gate B: the manifest still names the corrupt delta")
+            check("folded peer re-assert" in open(logs[killed]).read(),
+                  "9b gate B: the takeover folded no peer re-assert")
+            _fed_drain(agg)
+            oracle_b = _fed_oracle(dev, K, n_events)
+            over = _fed_gates("federation (b) failover", agg.view,
+                              QueryEngine(agg.mirror, batch_max=1 << 20), oracle_b, probe,
+                              K * n_events, exact_counters=False)
+            print(f"federation (b) failover: {K} workers x {n_events} events "
+                  f"over the socket data plane, w1 SIGKILLed once its chain "
+                  f"held a delta, declared dead {t_dead} s after the kill "
+                  f"(budget 3.0 s), map version {stats['shard_map']['version']}"
+                  f", recovered chains {stats['recovered_chains']}; "
+                  f"{corrupted} rotted, quarantined and repaired from the "
+                  f"peer re-assert; takeover restore {rep['restore_s']} s, "
+                  f"incarnation {w1['incarnation']} > {dead_inc}; events "
+                  f"{agg.view.events} (true {K * n_events}, overcount "
+                  f"{over}); Bloom words, registers and zero false "
+                  f"negatives equal to the no-crash oracle; stale frames "
+                  f"{agg.view.stale_frames}; wall {time.perf_counter() - t_b}"
+                  f" s on {card}")
+        finally:
+            agg.stop()
+            agg_client.close()
+
+        # -- 9c. the federate verb as the aggregator of a K = 2 round --------
+        t_c = time.perf_counter()
+        cdir = work / "verb"
+        cdir.mkdir()
+        topic, gossip_topic = "chip-fed-verb", "chip-fed-verb-gossip"
+        stats_file = cdir / "fed.json"
+        verb_log = cdir / "federate.log"
+        with open(verb_log, "w") as fh:
+            verb = subprocess.Popen(
+                [sys.executable, "-m", "attendance_tpu_torch", "federate",
+                 "--transport-backend", "socket", "--socket-broker", addr,
+                 "--fed-shards", "2", "--fed-gossip-topic", gossip_topic,
+                 "--serve-port", "-1", "--serve-seconds", "600",
+                 "--stats-json", str(stats_file), "--stats-every-s", "0.2"],
+                stdout=fh, stderr=subprocess.STDOUT, cwd=repo, env=env)
+        procs.append(verb)
+        deadline = time.time() + 120
+        while "serving on" not in open(verb_log).read():
+            check(verb.poll() is None, "9c: federate exited:\n"
+                  + open(verb_log).read()[-3000:])
+            check(time.time() < deadline, "9c: federate never served")
+            time.sleep(0.05)
+        address = [ln for ln in open(verb_log).read().splitlines()
+                   if "serving on" in ln][0].rsplit(" ", 1)[-1]
+        go = cdir / "go"
+        logs = [cdir / f"worker-{s}.log" for s in range(2)]
+        round_procs = [_spawn_fed_worker(
+            repo, env, logs[s], addr, cdir, s, 2, topic, gossip_topic,
+            FED_EVENTS, data_plane="memory",
+            extra=("--max-events", str(FED_EVENTS), "--idle-timeout-s", "10",
+                   "--go-file", str(go))) for s in range(2)]
+        procs += round_procs
+        go.touch()
+        _fed_wait(round_procs, logs, "9c", 300)
+        deadline = time.time() + 60
+        while True:
+            doc = (json.loads(stats_file.read_text())
+                   if stats_file.exists() else {})
+            if (doc.get("events") == 2 * FED_EVENTS
+                    and sorted(doc.get("workers", {})) == ["w0", "w1"]):
+                break
+            check(time.time() < deadline, f"9c: stats {doc}")
+            time.sleep(0.1)
+        time.sleep(0.5)  # the final full frames' fold and epoch
+        oracle = oracles[2]
+        qc = QueryClient(address, batch_max=1 << 16)
+        try:
+            check(bool(qc.bf_exists(oracle["roster"]).all()),
+                  "9c: a roster id reads absent over the RPC")
+            check(np.array_equal(qc.bf_exists(probe), oracle["k4"]),
+                  "9c: BF.EXISTS of non-roster ids differs from K4 on the "
+                  "K=2 oracle's filter")
+            days = np.array(sorted(oracle["pfcount"]), np.int64)
+            check(qc.pfcount(days).tolist()
+                  == [oracle["pfcount"][int(d)] for d in days],
+                  "9c: PFCOUNT over the RPC differs from the K=2 oracle")
+            st = qc.stats()
+        finally:
+            qc.close()
+        verb.send_signal(signal.SIGINT)
+        check(verb.wait(timeout=60) == 0, "9c: federate exited "
+              f"{verb.returncode}:\n" + open(verb_log).read()[-3000:])
+        doc = json.loads(stats_file.read_text())
+        check(doc["events"] == 2 * FED_EVENTS
+              and sorted(doc["workers"]) == ["w0", "w1"]
+              and doc["shard_map"]["owners"] == ["w0", "w1"],
+              f"9c: final stats {doc}")
+        print(f"federation (c) federate verb: served {address}; stats "
+              f"{doc['events']} events from {sorted(doc['workers'])}, "
+              f"{doc['folded_deltas']} deltas and {doc['folded_fulls']} fulls "
+              f"folded; BF.EXISTS and PFCOUNT over the RPC equal to the K=2 "
+              f"oracle; served stats epoch {st['epoch']}; wall "
+              f"{time.perf_counter() - t_c} s")
+        check(_build_files(repo) == built,
+              "phase 9: a worker rebuilt a library")
+        print(f"federation: no worker compiled ({len(built)} built files "
+              "unchanged)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        broker.kill()
+        broker.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- 9d. B15: bloom_or_words on the card ---------------------------------
+    a_np, b_np = oracles[2]["shard_words"]
+    a = torch.from_numpy(a_np.view(np.int32)).to(dev)
+    b = torch.from_numpy(b_np.view(np.int32)).to(dev)
+    got = bloom.bloom_or_words(a, b).cpu().numpy().view(np.uint32)
+    check(np.array_equal(got, bloom.bloom_or_words_np(a_np, b_np)),
+          "B15: bloom_or_words on the card differs from the numpy twin")
+    ms = kernel_ms(lambda: bloom.bloom_or_words(a, b))
+    b_ms, b_by = bound_ms(3 * a.numel() * 4, a.numel())
+    print(f"B15 bloom_or_words (PyTorch torch.bitwise_or, off the path) of "
+          f"two {a.numel()}-word 100k-roster shard filters ms={ms} "
+          f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} plain_ms={ms} "
+          f"library_ms={ms} (the call is the library call) max_abs_err=0 on "
+          f"{card}")
+    print(f"federation phase: {time.perf_counter() - t_phase} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2254,7 +2861,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = build.build()
     build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    # The native host pack too: phase 9's worker processes load both
+    # libraries from the cache and compile nothing.
+    from attendance_tpu_torch.native import build as native_build
+    native_path = native_build()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}, "
+          f"{native_path.name}")
     log = lib_path.with_suffix(".log")
     if log.exists():
         print(log.read_text().strip())
@@ -2756,6 +3368,9 @@ def main() -> int:
     l_launches = lanes_serve_phase(card, dev, ingress, ref, rates_p3,
                                    (num_events, frame_size, num_lectures))
 
+    # -- 9. federation: workers on the card, gossip, failover ----------------
+    f_launches = federation_phase(card, dev)
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -2764,7 +3379,7 @@ def main() -> int:
              replaces=row["replaces"],
              launches=(launches[name] + t_launches[name]
                        + s_launches[name] + i_launches[name]
-                       + l_launches[name]),
+                       + l_launches[name] + f_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -161,7 +161,13 @@ _PORT_MODULES = {
     "attendance_tpu_torch.transport.shm_ring",
     "attendance_tpu_torch.serve", "attendance_tpu_torch.serve.mirror",
     "attendance_tpu_torch.serve.engine", "attendance_tpu_torch.serve.rpc",
-    "attendance_tpu_torch.serve.chain"}
+    "attendance_tpu_torch.serve.chain",
+    "attendance_tpu_torch.federation",
+    "attendance_tpu_torch.federation.shard",
+    "attendance_tpu_torch.federation.frames",
+    "attendance_tpu_torch.federation.merge",
+    "attendance_tpu_torch.federation.gossip",
+    "attendance_tpu_torch.federation.worker"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
