@@ -36,7 +36,9 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   of ``--serve-port`` and keeps ``--stats-json`` current. The workers
   are ``python -m attendance_tpu_torch.federation.worker``.
 
-``fused`` also takes ``--ingress-lanes N`` (striped ingress lanes),
+``fused`` also takes ``--num-shards``/``--num-replicas`` (a mesh over
+the process's CUDA devices, its dp axis over the processes of a torchrun
+group), ``--replica-sync``, ``--ingress-lanes N`` (striped ingress lanes),
 ``--ingress-wire shm`` (the shared-memory ring under ``--shm-dir``),
 ``--serve-port`` (the in-process query plane over the read mirror) and
 the ``--fed-*`` flags (a federated worker gossiping its fences).
@@ -63,6 +65,7 @@ from attendance_tpu_torch.pipeline.analyzer import AttendanceAnalyzer
 from attendance_tpu_torch.pipeline.bridge import JsonBinaryBridge
 from attendance_tpu_torch.pipeline.fast_path import (
     EVENTS_SEGMENTS, EVENTS_SNAPSHOT, FusedPipeline)
+from attendance_tpu_torch.parallel.multihost import init_distributed
 from attendance_tpu_torch.parity import (
     RedisUnavailable, run_redis_parity, run_sim_parity)
 from attendance_tpu_torch.pipeline.generator import generate_student_data
@@ -136,6 +139,9 @@ def cmd_fused(args) -> None:
                     snapshot_mode=args.snapshot_mode,
                     snapshot_compact_every=args.snapshot_compact_every,
                     integrity=not args.no_integrity,
+                    num_shards=args.num_shards,
+                    num_replicas=args.num_replicas,
+                    replica_sync=args.replica_sync,
                     **_transport_config(args), **_ingress_config(args),
                     **_serve_config(args), **_fed_config(args))
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
@@ -764,6 +770,16 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--no-integrity", action="store_true",
                    help="skip payload-digest computation at the writer "
                    "(verification still runs where digests exist)")
+    f.add_argument("--num-shards", type=int, default=d.num_shards,
+                   help="sketch shards (sp) of the mesh: the filter and "
+                   "the registers split by hash range")
+    f.add_argument("--num-replicas", type=int, default=d.num_replicas,
+                   help="data-parallel replicas (dp) of the mesh; over "
+                   "processes under torchrun")
+    f.add_argument("--replica-sync", choices=["step", "query"],
+                   default=d.replica_sync,
+                   help="HLL replica union cadence: per step, or "
+                   "deferred to query/snapshot (the default)")
     _add_ingress_flags(f)
     _add_serve_flags(f)
     _add_fed_flags(f)
@@ -869,4 +885,8 @@ def main(argv: Optional[list] = None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
+    if getattr(args, "num_shards", 1) * getattr(args, "num_replicas", 1) > 1:
+        # Before any device access: a mesh's dp axis spans the processes
+        # of a torchrun group. A no-op outside one.
+        init_distributed()
     args.fn(args)

@@ -1,9 +1,9 @@
 """Configuration of the port.
 
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
-path, its checkpoint chain, its temporal plane, its ingress lanes and
-shared-memory ring, the query plane, the generic sketch store and the
-processor and the federation read, with the JAX package's defaults and
+path, its mesh, its checkpoint chain, its temporal plane, its ingress
+lanes and shared-memory ring, the query plane, the generic sketch store
+and the processor and the federation read, with the JAX package's defaults and
 checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
@@ -96,6 +96,17 @@ class Config:
     # HLL banks the card store starts with (one per key, doubled on
     # demand).
     hll_initial_banks: int = 8
+    # The fused pipeline's mesh (attendance_tpu_torch/parallel): sketch
+    # shards (sp: the filter's blocks and the registers' columns split
+    # by hash range) and data-parallel replicas (dp: frames split, each
+    # replica with private registers). 1 x 1 = one card.
+    num_shards: int = 1
+    num_replicas: int = 1
+    # Replica register union across dp: "query" (default) defers the max
+    # to PFCOUNT and snapshot reads (no per-step cross-replica
+    # collective, what lets dp span processes cheaply); "step" unites
+    # after every batch. Observationally identical.
+    replica_sync: str = "query"
     # Optional side topic the processor republishes computed-invalid
     # events to ("" = off); the stored row keeps is_valid=false either
     # way.
@@ -257,6 +268,8 @@ class Config:
         if self.wire_format not in ("auto", "delta", "seg", "word",
                                     "bytes"):
             raise ValueError(f"unknown wire format: {self.wire_format}")
+        if self.replica_sync not in ("step", "query"):
+            raise ValueError(f"unknown replica sync: {self.replica_sync}")
         if not (0.0 <= self.audit_sample <= 1.0):
             raise ValueError(
                 f"audit_sample out of range: {self.audit_sample} "
@@ -265,6 +278,11 @@ class Config:
             raise ValueError("temporal_period_s must be >= 0 (0 = off)")
         if self.temporal_period_s:
             period_micros(self.temporal_period_s)  # >= 1s, loud
+            if self.num_shards * self.num_replicas > 1:
+                raise ValueError(
+                    "the temporal plane is single-chip only (the "
+                    "sharded engine has no bank-recycle path): unset "
+                    "--temporal-period-s or run 1 shard x 1 replica")
         if self.allowed_lateness_s < 0:
             raise ValueError("allowed_lateness_s must be >= 0")
         if self.watermark_idle_s < 0:

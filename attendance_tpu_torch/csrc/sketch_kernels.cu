@@ -1,7 +1,7 @@
 // Hand-written Hopper kernels for the attendance sketches: the fused hot
-// path and the generic sketch store.
+// path, the generic sketch store and the mesh engine.
 //
-// Eight kernels (K1 in three forms, K2 in three wire variants), each
+// Eleven kernels (K1 in three forms, K2 in three wire variants), each
 // bound through a plain C entry point (ctypes, see ops/build.py and
 // ops/kernels.py). Every entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError() so a refused launch
@@ -65,6 +65,16 @@
 //                         flat, by K4 when blocked)
 //                         (replaces the XLA bloom_contains,
 //                         attendance_tpu/models/bloom.py:158)
+//   K9 atp_bloom_contains_slice  BF.EXISTS against one mesh cell's slice of
+//                         the filter, a probe outside it counting as set
+//                         (replaces local_contains,
+//                         attendance_tpu/parallel/sharded.py:304)
+//   K10 atp_hll_add_slice K5 on one cell's register slice, with the
+//                         replica's counters (replaces hll_add_local and
+//                         bump_local, sharded.py:342,359)
+//   K11 atp_bloom_add_slice  K3's per-key pass on one cell's filter slice
+//                         (replaces bloom_add_kernel's scatter,
+//                         sharded.py:323)
 //
 // The hash is MurmurHash3_x86_32 of each key's 4 little-endian bytes,
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
@@ -131,13 +141,13 @@ uint64_t fastmod_magic(uint32_t d) { return ~uint64_t{0} / d + 1; }
 // the warp's 32 blocks in ``stage`` (128 uint4 of shared memory, the
 // warp's own), and each lane tests its k bits there. The wrapper checks
 // that the words start 64-byte aligned, so a block is one aligned 64-byte
-// segment.
-__device__ __forceinline__ bool warp_bloom_probe(
-    const uint32_t* __restrict__ words, uint32_t num_blocks, uint64_t magic,
-    int k, uint32_t key, bool present, uint4* stage) {
+// segment. warp_bloom_probe_block is the probe of a block index already
+// computed (K9 probes a slice, whose first block is not the filter's);
+// warp_bloom_probe computes it from the key.
+__device__ __forceinline__ bool warp_bloom_probe_block(
+    const uint32_t* __restrict__ words, uint32_t block, int k, uint32_t key,
+    bool present, uint4* stage) {
   const int lane = static_cast<int>(threadIdx.x & 31);
-  const uint32_t block =
-      present ? fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) : 0u;
   const uint4* words4 = reinterpret_cast<const uint4*>(words);
   uint4 quarter[4];
 #pragma unroll
@@ -159,6 +169,14 @@ __device__ __forceinline__ bool warp_bloom_probe(
     hit &= ((mine[off >> 5] >> (off & 31u)) & 1u) != 0u;
   }
   return hit;
+}
+
+__device__ __forceinline__ bool warp_bloom_probe(
+    const uint32_t* __restrict__ words, uint32_t num_blocks, uint64_t magic,
+    int k, uint32_t key, bool present, uint4* stage) {
+  const uint32_t block =
+      present ? fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) : 0u;
+  return warp_bloom_probe_block(words, block, k, key, present, stage);
 }
 
 // Redis dense-HLL (bucket, rank) of a key: bucket = low p bits of h1,
@@ -667,6 +685,35 @@ struct DeltaDecode {
   }
 };
 
+// Adds the CTA's lanes with `valid_lane` to counts[0] and those with
+// `invalid_lane` to counts[1] (the two-lane counters read as two uint64
+// totals): warp ballots, a sum per CTA in shared memory, one 64-bit atomic
+// per CTA and counter. Called by every thread of the CTA. Shared by K2 and
+// K10.
+__device__ __forceinline__ void cta_add_counts(bool valid_lane,
+                                               bool invalid_lane,
+                                               unsigned long long* counts) {
+  __shared__ unsigned int warp_valid[kWarps];
+  __shared__ unsigned int warp_invalid[kWarps];
+  const unsigned int nv = __popc(__ballot_sync(0xFFFFFFFFu, valid_lane));
+  const unsigned int ni = __popc(__ballot_sync(0xFFFFFFFFu, invalid_lane));
+  if ((threadIdx.x & 31) == 0) {
+    warp_valid[threadIdx.x >> 5] = nv;
+    warp_invalid[threadIdx.x >> 5] = ni;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sv = 0, si = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      sv += warp_valid[w];
+      si += warp_invalid[w];
+    }
+    if (sv) atomicAdd(counts, sv);
+    if (si) atomicAdd(counts + 1, si);
+  }
+}
+
 template <class Decode>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(Decode decode, int lanes,
@@ -691,25 +738,7 @@ fused_step_kernel(Decode decode, int lanes,
                     rank);
     }
   }
-  __shared__ unsigned int warp_valid[kWarps];
-  __shared__ unsigned int warp_invalid[kWarps];
-  const unsigned int nv = __popc(__ballot_sync(0xFFFFFFFFu, hit && real));
-  const unsigned int ni = __popc(__ballot_sync(0xFFFFFFFFu, !hit && real));
-  if ((threadIdx.x & 31) == 0) {
-    warp_valid[threadIdx.x >> 5] = nv;
-    warp_invalid[threadIdx.x >> 5] = ni;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long sv = 0, si = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      sv += warp_valid[w];
-      si += warp_invalid[w];
-    }
-    if (sv) atomicAdd(counts, sv);
-    if (si) atomicAdd(counts + 1, si);
-  }
+  cta_add_counts(hit && real, !hit && real, counts);
 }
 
 // ---------------------------------------------------------------------------
@@ -867,15 +896,24 @@ __device__ __forceinline__ void or_block_probes(uint32_t* blk, uint32_t h2,
 // where the binned passes' fixed cost of chained launches and scans is
 // more than the atomics they save): one thread per key, a division-free
 // block index, and one global atomicOr per distinct word of the key.
+// Also K11, the mesh engine's preload of one slice: `words` then holds
+// blocks [first_block, first_block + slice_blocks) of a filter of
+// num_blocks blocks, and a key whose block lies outside them, or whose
+// mask byte is 0 (mask may be null), is dropped. K3 passes the whole
+// filter and no mask.
 __global__ void __launch_bounds__(kThreads)
 bloom_add_keys_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
-                       int n, uint32_t num_blocks, uint64_t magic, int k) {
+                      const uint8_t* __restrict__ mask, int n,
+                      uint32_t first_block, uint32_t slice_blocks,
+                      uint32_t num_blocks, uint64_t magic, int k) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n || (mask != nullptr && mask[i] == 0)) return;
   const uint32_t key = keys[i];
-  const uint32_t block =
-      fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks);
-  or_block_probes(words + static_cast<size_t>(block) * 16u,
+  // Unsigned: a block below the slice wraps past slice_blocks.
+  const uint32_t rel =
+      fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) - first_block;
+  if (rel >= slice_blocks) return;
+  or_block_probes(words + static_cast<size_t>(rel) * 16u,
                   (murmur3_u32(key, kSeedBloomB) | 1u) & 511u,
                   (murmur3_u32(key, kSeedBlock) | 1u) & 511u, k);
 }
@@ -975,6 +1013,83 @@ hll_add_kernel(uint8_t* regs, int num_banks, int precision,
   hll_bucket_rank(key, precision, &bucket, &rank);
   if (!ok || b < 0 || b >= num_banks) return;
   atomic_max_u8(regs + (static_cast<size_t>(b) << precision) + bucket, rank);
+}
+
+// ---------------------------------------------------------------------------
+// K9 and K10: the mesh engine's step (attendance_tpu_torch/parallel/
+// sharded.py) on one grid cell (r, s), which holds slice s of the filter
+// (whole 512-bit blocks [first_block, first_block + slice_blocks)) and of
+// every bank's registers ([lo, lo + regs_local)). Positions come from the
+// whole filter's block count and the whole register width, never the
+// slice's, so a key's answer and its register are the same on every mesh
+// shape. A lane is keys[i], or with key_bits > 0 the word wire's words[i]
+// (WireDecode: the key in the low key_bits bits, the bank above, all ones
+// on a pad lane).
+//
+// K9: out[i] = 1 when every probe of lane i's key that falls in the slice
+// is set, or when none does. A key's k probes lie in one block, so the
+// slice either holds all of them or none: one test of the block, then
+// K4's warp-wide probe (warp_bloom_probe_block) on the slice. The engine
+// ANDs the cells' answers across sp before any K10 (a fused probe-and-add
+// per cell would count a key that another slice rejects).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+bloom_contains_slice_kernel(const uint32_t* __restrict__ words,
+                            uint32_t first_block, uint32_t slice_blocks,
+                            uint32_t num_blocks, uint64_t magic, int k,
+                            const uint32_t* __restrict__ keys, int key_bits,
+                            int n, uint8_t* __restrict__ out) {
+  __shared__ uint4 stage[kWarps * 128];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t key = i < n ? keys[i] : 0u;
+  if (key_bits > 0) key &= (1u << key_bits) - 1u;
+  // Unsigned: a block below the slice wraps past slice_blocks.
+  const uint32_t rel =
+      fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) - first_block;
+  const bool mine = i < n && rel < slice_blocks;
+  const bool hit = warp_bloom_probe_block(words, mine ? rel : 0u, k, key,
+                                          mine, stage + (threadIdx.x >> 5) * 128);
+  if (i < n) out[i] = (hit || !mine) ? 1 : 0;
+}
+
+// K10: K5 on the cell's register slice. Lane i is real when its word's
+// bank field is not the pad (word wire) or when i < n_real (keys and bank
+// arrays, real lanes first); it is kept when it is real, valid[i] != 0,
+// 0 <= bank < num_banks and its bucket lies in the slice, and its rank is
+// maxed into regs[bank * regs_local + bucket - lo] (atomic_max_u8). With
+// counts non-null (the replica's cell s = 0) the CTA also adds its valid
+// real lanes and its invalid real lanes to the replica's two-lane counters
+// (cta_add_counts, K2's tail).
+__global__ void __launch_bounds__(kThreads)
+hll_add_slice_kernel(uint8_t* regs, int num_banks, int precision, uint32_t lo,
+                     uint32_t regs_local, const uint32_t* __restrict__ keys,
+                     const int32_t* __restrict__ bank, int key_bits,
+                     const uint8_t* __restrict__ valid, int n, int n_real,
+                     unsigned long long* counts) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t key = 0u;
+  int32_t b = -1;
+  bool real = false;
+  bool ok = false;
+  if (i < n) {
+    if (key_bits > 0) {
+      WireDecode{reinterpret_cast<const uint8_t*>(keys), 0, key_bits, n}.lane(
+          i, &key, &b);
+      real = b >= 0;
+    } else {
+      key = keys[i];
+      b = bank[i];
+      real = i < n_real;
+    }
+    ok = valid[i] != 0;
+  }
+  uint32_t bucket, rank;
+  hll_bucket_rank(key, precision, &bucket, &rank);
+  const uint32_t rel = bucket - lo;  // unsigned: below the slice wraps high
+  if (real && ok && b >= 0 && b < num_banks && rel < regs_local) {
+    atomic_max_u8(regs + static_cast<size_t>(b) * regs_local + rel, rank);
+  }
+  if (counts != nullptr) cta_add_counts(real && ok, real && !ok, counts);
 }
 
 // ---------------------------------------------------------------------------
@@ -1771,7 +1886,8 @@ int atp_bloom_add(void* words, const void* keys, int n,
   const uint32_t* kk = static_cast<const uint32_t*>(keys);
   if (n > 0 && scratch == nullptr) {
     bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-        w, kk, n, num_blocks, fastmod_magic(num_blocks), k);
+        w, kk, nullptr, n, 0u, num_blocks, num_blocks,
+        fastmod_magic(num_blocks), k);
   } else if (n > 0) {
     return launch_bloom_add(w, kk, n, num_blocks, k, log2_bpt, chunk,
                             static_cast<uint32_t*>(scratch), s);
@@ -1868,6 +1984,58 @@ int atp_hll_add(void* regs, int num_banks, int precision, const void* bank,
         static_cast<uint8_t*>(regs), num_banks, precision,
         static_cast<const int32_t*>(bank), static_cast<const uint32_t*>(keys),
         static_cast<const uint8_t*>(valid), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9: first_word and slice_words are whole 16-word blocks of a filter of
+// num_blocks blocks; key_bits > 0 reads `keys` as the word wire.
+int atp_bloom_contains_slice(const void* words, unsigned int first_word,
+                             unsigned int slice_words, unsigned int num_blocks,
+                             int k, const void* keys, int key_bits, int n,
+                             void* out, void* stream) {
+  if (n > 0) {
+    bloom_contains_slice_kernel<<<blocks_for(n), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(words), first_word / 16u,
+        slice_words / 16u, num_blocks, fastmod_magic(num_blocks), k,
+        static_cast<const uint32_t*>(keys), key_bits, n,
+        static_cast<uint8_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: regs is uint8[num_banks, regs_local], the registers [lo, lo +
+// regs_local) of every bank; bank is ignored (may be null) when key_bits >
+// 0; counts may be null.
+int atp_hll_add_slice(void* regs, int num_banks, int precision,
+                      unsigned int lo, int regs_local, const void* keys,
+                      const void* bank, int key_bits, const void* valid,
+                      int n, int n_real, void* counts, void* stream) {
+  if (n > 0) {
+    hll_add_slice_kernel<<<blocks_for(n), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint8_t*>(regs), num_banks, precision, lo,
+        static_cast<uint32_t>(regs_local), static_cast<const uint32_t*>(keys),
+        static_cast<const int32_t*>(bank), key_bits,
+        static_cast<const uint8_t*>(valid), n, n_real,
+        static_cast<unsigned long long*>(counts));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11: K3's one-thread-per-key pass on the slice words[slice_words] that
+// starts at word first_word; mask may be null.
+int atp_bloom_add_slice(void* words, unsigned int first_word,
+                        unsigned int slice_words, unsigned int num_blocks,
+                        int k, const void* keys, const void* mask, int n,
+                        void* stream) {
+  if (n > 0) {
+    bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint32_t*>(words), static_cast<const uint32_t*>(keys),
+        static_cast<const uint8_t*>(mask), n, first_word / 16u,
+        slice_words / 16u, num_blocks, fastmod_magic(num_blocks), k);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -281,12 +281,19 @@ _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)],
                           dtype=torch.int64)
 
 
+def bloom_packed_set_bits(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of packed words (int64 scalar tensor on their device):
+    popcount through a byte table, no unpack. The mesh engine sums it
+    over its filter slices."""
+    table = _POPCOUNT8.to(words.device)
+    return table[words.view(torch.uint8).to(torch.int64)].sum()
+
+
 def bloom_packed_fill_fraction(words: torch.Tensor) -> torch.Tensor:
     """Fraction of set bits of a packed filter (float64 scalar tensor on
-    the filter's device): popcount through a byte table, no unpack."""
-    table = _POPCOUNT8.to(words.device)
-    set_bits = table[words.view(torch.uint8).to(torch.int64)].sum()
-    return set_bits.to(torch.float64) / float(words.numel() * 32)
+    the filter's device)."""
+    return (bloom_packed_set_bits(words).to(torch.float64)
+            / float(words.numel() * 32))
 
 
 def keys_tensor(keys, device: torch.device) -> torch.Tensor:

@@ -19,7 +19,8 @@ import torch
 
 from attendance_tpu_torch.models.bloom import (
     BLOCK_BITS, BloomParams, bloom_add_packed_plain, bloom_add_plain,
-    bloom_contains_plain, bloom_contains_words, pack_bloom_bits)
+    bloom_contains_plain, bloom_contains_words, bloom_positions,
+    pack_bloom_bits, unpack_bloom_bits)
 from attendance_tpu_torch.models import cms, hll
 from attendance_tpu_torch.ops.build import library
 from attendance_tpu_torch.ops.murmur3 import MASK32, as_u32, to_i32
@@ -29,7 +30,9 @@ launches = {"hll_histogram": 0, "fused_step": 0, "fused_step_seg": 0,
             "fused_step_delta": 0, "bloom_add": 0, "bloom_contains": 0,
             "hll_add": 0, "cms_step": 0, "bloom_add_bytes": 0,
             "bloom_contains_bytes": 0, "hll_histogram_rows": 0,
-            "hll_union_histogram": 0, "bloom_pack_bytes": 0}
+            "hll_union_histogram": 0, "bloom_pack_bytes": 0,
+            "bloom_contains_slice": 0, "hll_add_slice": 0,
+            "bloom_add_slice": 0}
 
 
 def reset_launches() -> None:
@@ -83,12 +86,21 @@ def hll_histogram(regs: torch.Tensor, precision: int = 14) -> torch.Tensor:
     16-byte-aligned offset, as ``count()`` passes. A bank split over a
     thread-block cluster was slower at every bank count measured
     (PERF.md).
+
+    ``regs`` may also be one mesh cell's register slice,
+    ``uint8[num_banks, 2^precision / sp]`` (``parallel/sharded.py``):
+    any width that divides ``2^precision`` and is a multiple of 16 (the
+    kernel reads a row as 16-byte vectors). The bins stay those of
+    ``precision``, so the slices' histograms sum to the whole banks'.
     """
     _require(regs.dtype == torch.uint8 and regs.dim() == 2,
              f"regs must be uint8[num_banks, m], got {regs.dtype} "
              f"{tuple(regs.shape)}")
-    _require(4 <= precision <= 18 and regs.shape[1] == 1 << precision,
-             f"regs width {regs.shape[1]} != 2^{precision}")
+    width = regs.shape[1]
+    _require(4 <= precision <= 18 and width >= 16 and width % 16 == 0
+             and (1 << precision) % width == 0,
+             f"regs width {width} must be 2^{precision} or a slice of it: "
+             f"a divisor of 2^{precision} that is a multiple of 16")
     if regs.device.type == "cpu":
         return hll.hll_histogram(regs, precision)
     _require_cuda(regs)
@@ -974,3 +986,248 @@ def bloom_pack_bytes(bits: torch.Tensor) -> torch.Tensor:
     _check_launch(rc, "atp_bloom_pack_bytes")
     launches["bloom_pack_bytes"] += 1
     return words
+
+
+# ---------------------------------------------------------------------------
+# K9-K11: one mesh cell's slice of the state (parallel/sharded.py)
+# ---------------------------------------------------------------------------
+#
+# A grid cell (r, s) of the (dp, sp) mesh holds slice s of the packed
+# filter, words [first_word, first_word + words.numel()) (whole 512-bit
+# blocks; the allocation may run past params.m_bits // 32 into padding
+# that no probe addresses), and slice s of every bank's registers,
+# columns [lo, lo + regs.shape[1]). Probe positions and buckets come from
+# ``params.m_bits`` and ``2^precision``, never from the slice.
+
+def _slice_keys(keys: torch.Tensor, key_bits: int) -> torch.Tensor:
+    """int64 uint32 keys of plain keys, or of the word wire's words."""
+    u = as_u32(keys)
+    return u & ((1 << key_bits) - 1) if key_bits else u
+
+
+def _check_filter_slice(words: torch.Tensor, keys: torch.Tensor,
+                        params: BloomParams, first_word: int,
+                        key_bits: int) -> None:
+    _require(params.layout == "blocked",
+             "the slice kernels implement the blocked layout only")
+    _require(words.dtype == torch.int32 and words.dim() == 1
+             and words.shape[0] >= 16 and words.shape[0] % 16 == 0,
+             "a filter slice must be int32[16 * blocks]")
+    _require(first_word >= 0 and first_word % 16 == 0,
+             f"first_word {first_word} must start a 16-word block")
+    _require(keys.dtype == torch.int32 and keys.dim() == 1,
+             "keys must be int32[B] (uint32 bit patterns)")
+    _require(0 <= key_bits <= 31, f"key_bits {key_bits} not in 0..31")
+
+
+def bloom_contains_slice_plain(words: torch.Tensor, keys: torch.Tensor,
+                               params: BloomParams, first_word: int,
+                               key_bits: int = 0) -> torch.Tensor:
+    """Plain version of K9, JAX's per-probe test (``local_contains``,
+    attendance_tpu/parallel/sharded.py:304): uint8[B], 1 where every
+    probe that falls in the slice is set (a probe outside counts as
+    set)."""
+    pos = bloom_positions(_slice_keys(keys, key_bits), params)
+    m_local = words.shape[0] * 32
+    rel = pos - first_word * 32
+    in_range = (rel >= 0) & (rel < m_local)
+    word = as_u32(words[(rel >> 5).clamp(0, words.shape[0] - 1)])
+    bit = rel.clamp(0, m_local - 1) & 31
+    probes = torch.where(in_range, (word >> bit) & 1, 1)
+    return (probes == 1).all(dim=1).to(torch.uint8)
+
+
+def bloom_contains_slice(words: torch.Tensor, keys: torch.Tensor,
+                         params: BloomParams, *, first_word: int,
+                         key_bits: int = 0) -> torch.Tensor:
+    """K9: a mesh cell's partial BF.EXISTS, uint8[B] (1 where every probe
+    of the key that falls in this slice is set, or none falls in it).
+    ``key_bits > 0``: ``keys`` is the word wire (int32[B] of ``bank <<
+    key_bits | key``), whose key is the low ``key_bits`` bits. The mesh
+    ANDs the cells' answers across sp.
+
+    Replaces ``local_contains`` (attendance_tpu/parallel/sharded.py:304),
+    in ``step_kernel`` (:384), ``make_step_words`` (:399) and
+    ``query_kernel`` (:464). Bound: bytes, as K4's (4B in, B out, 64
+    bytes per distinct block in the slice), or operations (the key's
+    block hash for every lane, K4's probe for the lanes of this slice).
+    Design: one thread per key; a key's k probes lie in one block and a
+    slice is whole blocks, so the slice holds all of them or none: one
+    test of the block index, then K4's warp-wide probe on the slice's
+    words (the words must start 64-byte aligned). JAX tests each probe;
+    the plain version does, and the tests hold the two equal.
+    """
+    _check_filter_slice(words, keys, params, first_word, key_bits)
+    if words.device.type == "cpu" and keys.device.type == "cpu":
+        return bloom_contains_slice_plain(words, keys, params, first_word,
+                                          key_bits)
+    _require_cuda(words, keys)
+    _require(words.data_ptr() % 64 == 0, "words must be 64-byte aligned")
+    out = torch.empty(keys.shape[0], dtype=torch.uint8, device=keys.device)
+    if keys.shape[0] == 0:
+        return out
+    with torch.cuda.device(words.device):
+        rc = library().atp_bloom_contains_slice(
+            words.data_ptr(), first_word, words.shape[0],
+            params.m_bits // BLOCK_BITS, params.k, keys.data_ptr(),
+            key_bits, keys.shape[0], out.data_ptr(), _stream(words))
+    _check_launch(rc, "atp_bloom_contains_slice")
+    launches["bloom_contains_slice"] += 1
+    return out
+
+
+def hll_add_slice_plain(regs: torch.Tensor, keys: torch.Tensor,
+                        valid: torch.Tensor, lo: int, precision: int,
+                        bank: Optional[torch.Tensor] = None,
+                        key_bits: int = 0, n_real: int = 0,
+                        counts: Optional[torch.Tensor] = None) -> None:
+    """Plain version of K10 (``hll_add_local`` and ``bump_local``,
+    attendance_tpu/parallel/sharded.py:342,359), in place."""
+    num_banks, regs_local = regs.shape
+    u = as_u32(keys)
+    if key_bits:
+        k = u & ((1 << key_bits) - 1)
+        field = u >> key_bits
+        b = torch.where(field == (1 << (32 - key_bits)) - 1, -1, field)
+        real = b >= 0
+    else:
+        k = u
+        b = bank.to(torch.int64)
+        real = torch.arange(k.shape[0], device=k.device) < n_real
+    ok = valid.to(torch.bool)
+    bucket, rank = hll.hll_bucket_rank(k, precision)
+    rel = bucket - lo
+    keep = (real & ok & (b >= 0) & (b < num_banks) & (rel >= 0)
+            & (rel < regs_local))
+    flat = (b * regs_local + rel)[keep]
+    # uint8 scatter-max is not implemented for every device (as in
+    # hll.hll_add_plain): reduce in int32, then write the bytes back.
+    cur = regs.view(-1).to(torch.int32)
+    cur.scatter_reduce_(0, flat, rank[keep].to(torch.int32), reduce="amax")
+    regs.view(-1).copy_(cur.to(torch.uint8))
+    if counts is not None:
+        nv = (ok & real).sum()
+        _bump_counts(counts, nv, real.sum() - nv)
+
+
+def hll_add_slice(regs: torch.Tensor, keys: torch.Tensor,
+                  valid: torch.Tensor, *, lo: int, precision: int = 14,
+                  bank: Optional[torch.Tensor] = None, key_bits: int = 0,
+                  n_real: int = 0,
+                  counts: Optional[torch.Tensor] = None) -> None:
+    """K10: max each kept lane's HLL rank into a mesh cell's register
+    slice ``regs`` uint8[num_banks, 2^precision / sp] (columns ``[lo, lo
+    + regs.shape[1])`` of every bank), in place; with ``counts``
+    (int32[2, 2], the replica's two-lane counters, given to the cell s =
+    0 only) also add the valid real lanes and the invalid real lanes, as
+    ``_bump_counts`` does. ``valid`` uint8 or bool[B] is the AND of K9's
+    answers across sp. Lanes: ``key_bits > 0`` reads ``keys`` as the word
+    wire (a lane is real unless its bank field is all ones); else
+    ``keys`` and ``bank`` int32[B] with the real lanes first (``n_real``
+    of them). A lane is kept when it is real and valid, its bank is in
+    ``[0, num_banks)`` and its bucket in the slice.
+
+    Replaces ``hll_add_local`` and ``bump_local``
+    (attendance_tpu/parallel/sharded.py:342,359). Bound: bytes, at 9B in
+    (word wire: 5B) plus a read and a write of each distinct register a
+    kept lane touches, or operations (the HLL hash of every lane). Design:
+    K5's (one thread per lane, one trip for its loads, a CAS on the
+    register's 32-bit word only when the rank is higher) on the slice,
+    and K2's counting tail (warp ballots, one 64-bit atomic per CTA and
+    counter).
+    """
+    num_banks, regs_local = (regs.shape if regs.dim() == 2 else (0, 0))
+    _require(regs.dtype == torch.uint8 and regs.dim() == 2
+             and 4 <= precision <= 18 and regs_local >= 1
+             and (1 << precision) % regs_local == 0
+             and lo % regs_local == 0 and lo + regs_local <= 1 << precision,
+             f"regs must be a slice uint8[num_banks, 2^{precision} / sp] "
+             f"at a multiple lo of its width, got {tuple(regs.shape)} lo={lo}")
+    _require(keys.dtype == torch.int32 and keys.dim() == 1,
+             "keys must be int32[B] (uint32 bit patterns)")
+    _require(valid.dtype in (torch.uint8, torch.bool)
+             and valid.shape == keys.shape, "valid must be uint8 or bool[B]")
+    _require(0 <= key_bits <= 31, f"key_bits {key_bits} not in 0..31")
+    _require(key_bits > 0 or (bank is not None and bank.dtype == torch.int32
+                              and bank.shape == keys.shape),
+             "bank must be int32[B] unless the keys are the word wire")
+    _require(counts is None or (counts.dtype == torch.int32
+                                and counts.shape == (2, 2)),
+             "counts must be int32[2, 2]")
+    if key_bits:
+        bank = None
+    tensors = tuple(t for t in (regs, keys, valid, bank, counts)
+                    if t is not None)
+    if all(t.device.type == "cpu" for t in tensors):
+        hll_add_slice_plain(regs, keys, valid, lo, precision, bank,
+                            key_bits, n_real, counts)
+        return
+    _require_cuda(*tensors)
+    _require(regs.data_ptr() % 4 == 0
+             and (counts is None or counts.data_ptr() % 8 == 0),
+             "regs must be 4-byte and counts 8-byte aligned")
+    if keys.shape[0] == 0:
+        return
+    with torch.cuda.device(regs.device):
+        rc = library().atp_hll_add_slice(
+            regs.data_ptr(), num_banks, precision, lo, regs_local,
+            keys.data_ptr(), None if bank is None else bank.data_ptr(),
+            key_bits, valid.data_ptr(), keys.shape[0], n_real,
+            None if counts is None else counts.data_ptr(), _stream(regs))
+    _check_launch(rc, "atp_hll_add_slice")
+    launches["hll_add_slice"] += 1
+
+
+def bloom_add_slice_plain(words: torch.Tensor, keys: torch.Tensor,
+                          params: BloomParams, first_word: int,
+                          mask: Optional[torch.Tensor] = None) -> None:
+    """Plain version of K11 (``bloom_add_kernel``'s scatter,
+    attendance_tpu/parallel/sharded.py:323): set the keys' probe bits
+    that fall in the slice, through a byte-per-bit copy, in place."""
+    rel = bloom_positions(keys, params) - first_word * 32
+    keep = (rel >= 0) & (rel < words.shape[0] * 32)
+    if mask is not None:
+        keep &= mask[:, None]
+    bits = unpack_bloom_bits(words)
+    bits[rel[keep]] = 1
+    words.copy_(pack_bloom_bits(bits))
+
+
+def bloom_add_slice(words: torch.Tensor, keys: torch.Tensor,
+                    params: BloomParams, *, first_word: int,
+                    mask: Optional[torch.Tensor] = None) -> None:
+    """K11: OR the probe bits of int32[B] keys (of those whose ``mask``
+    is True) that fall in a mesh cell's filter slice into it, in place; a
+    key whose block lies elsewhere is dropped. The mesh ORs the replicas'
+    slices across dp after the preload.
+
+    Replaces the scatter of ``bloom_add_kernel``
+    (attendance_tpu/parallel/sharded.py:323, ``packed_or_scatter``,
+    attendance_tpu/models/bloom.py:223). Bound: bytes, as K3's (4B a key
+    and a read and write of each touched word), or operations (the
+    block hash of every key, the probes of this slice's keys). Design:
+    K3's one-thread-per-key kernel (one global ``atomicOr`` per distinct
+    word of the key's block), given the slice's blocks and a mask: a
+    preload chunk (2^14 keys over dp replicas) is below the size where
+    K3's binned passes pay. The words must start 64-byte aligned.
+    """
+    _check_filter_slice(words, keys, params, first_word, 0)
+    _require(mask is None or (mask.dtype == torch.bool
+                              and mask.shape == keys.shape),
+             "mask must be bool[B]")
+    tensors = (words, keys) + (() if mask is None else (mask,))
+    if all(t.device.type == "cpu" for t in tensors):
+        bloom_add_slice_plain(words, keys, params, first_word, mask)
+        return
+    _require_cuda(*tensors)
+    _require(words.data_ptr() % 64 == 0, "words must be 64-byte aligned")
+    if keys.shape[0] == 0:
+        return
+    with torch.cuda.device(words.device):
+        rc = library().atp_bloom_add_slice(
+            words.data_ptr(), first_word, words.shape[0],
+            params.m_bits // BLOCK_BITS, params.k, keys.data_ptr(),
+            None if mask is None else mask.data_ptr(), keys.shape[0],
+            _stream(words))
+    _check_launch(rc, "atp_bloom_add_slice")
+    launches["bloom_add_slice"] += 1

@@ -49,6 +49,16 @@ is published as read epochs (``serve.mirror``) at preload, restore and
 every barrier, and with ``serve_port`` set an in-process query engine
 answers over the binary RPC (``serve.rpc``) without touching the card.
 
+Mesh: with ``num_shards * num_replicas > 1`` the sketch state lives in a
+``parallel.ShardedSketchEngine`` over a (dp, sp) grid of devices (the
+process's CUDA devices, dp spanning the processes of a torchrun group,
+unless a ``mesh`` is passed). A frame goes through the numpy day map
+onto the word wire (or, when key and bank bits do not fit a word, as
+key and bank arrays); the seg and delta wires have no mesh counterpart
+yet. The mesh's barriers run on the hot loop's thread, as JAX's do: its
+state reads are collectives on a multi-process mesh, where only process
+0 writes files and gossips.
+
 Federation: with ``fed_worker`` set the pipeline is one shard's worker
 (``federation/``). A full merge frame (the Bloom words and every bank)
 goes to the gossip topic at preload, restore and every base snapshot,
@@ -75,6 +85,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.device import resolve_device, to_device
@@ -91,6 +102,9 @@ from attendance_tpu_torch.models.fused import (
 from attendance_tpu_torch.models.hll import (
     best_histogram, estimate_from_histogram, hll_add)
 from attendance_tpu_torch.native import load as load_native
+from attendance_tpu_torch.parallel.multihost import (
+    init_distributed, make_multihost_mesh)
+from attendance_tpu_torch.parallel.sharded import ShardedSketchEngine
 from attendance_tpu_torch.pipeline.codec import decode_frame
 from attendance_tpu_torch.pipeline.events import lecture_to_day
 from attendance_tpu_torch.pipeline.lanes import (
@@ -398,9 +412,27 @@ class FusedPipeline:
     _LUT_SIZE = 1 << 14  # covers ~44 years of calendar days from base
 
     def __init__(self, config: Optional[Config] = None, *, client=None,
-                 num_banks: int = 256, device=None):
+                 num_banks: int = 256, device=None, mesh=None):
         self.config = config or Config()
-        self.device = resolve_device(device)
+        # A mesh (num_shards * num_replicas > 1): the sketch state lives
+        # in a ShardedSketchEngine over a (dp, sp) grid of devices (the
+        # process's CUDA devices, over the processes of a torchrun group,
+        # unless ``mesh`` is given); ``device`` is then its first cell's.
+        self.engine: Optional[ShardedSketchEngine] = None
+        if self.config.num_shards * self.config.num_replicas > 1:
+            self.engine = self._make_engine(mesh, num_banks)
+            self.device = self.engine.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"cell {self.device}")
+        else:
+            self.device = resolve_device(device)
+        # On a multi-process mesh every process holds the same state and
+        # runs the same barriers; only process 0 writes files and
+        # gossips.
+        self._primary = (self.engine is None
+                         or not self.engine.mesh.multiprocess
+                         or dist.get_rank() == 0)
         self.metrics = FusedMetrics()
         # The broker client: config.transport_backend's (the process's
         # shared memory broker, or a socket broker) unless one is passed
@@ -432,11 +464,14 @@ class FusedPipeline:
         self.store = ColumnarEventStore()
         # The fused packed step requires the blocked layout (one 512-bit
         # block per key).
-        self.state, self.params = init_state(
-            capacity=self.config.bloom_filter_capacity,
-            error_rate=self.config.bloom_filter_error_rate,
-            layout="blocked", num_banks=num_banks,
-            precision=self.config.hll_precision, device=self.device)
+        if self.engine is None:
+            self.state, self.params = init_state(
+                capacity=self.config.bloom_filter_capacity,
+                error_rate=self.config.bloom_filter_error_rate,
+                layout="blocked", num_banks=num_banks,
+                precision=self.config.hll_precision, device=self.device)
+        else:
+            self.state, self.params = None, self.engine.params
         self._bank_dtype = bank_wire_dtype(num_banks)
         # Native host pack (one fused LUT-map + pack pass per frame), or
         # None with ATP_NATIVE=0; a failed build raises here.
@@ -539,7 +574,7 @@ class FusedPipeline:
         # Fence gossip of a federated worker, built before restore() so a
         # takeover's restored chain reaches the aggregator at once.
         self._fed: Optional[FenceGossip] = None
-        if self.config.fed_worker:
+        if self.config.fed_worker and self._primary:
             self._fed = FenceGossip(
                 self.config, client=self.client, m_bits=self.params.m_bits,
                 k=self.params.k).start_heartbeat()
@@ -558,14 +593,45 @@ class FusedPipeline:
             self.query_server = QueryServer(
                 self.query_engine, port=0 if port < 0 else port).start()
 
+    def _make_engine(self, mesh, num_banks: int) -> ShardedSketchEngine:
+        """The mesh's engine. The seg and delta wires have no mesh
+        counterpart yet (ROADMAP item 10b); ``auto`` stays on the word
+        wire there."""
+        cfg = self.config
+        if cfg.wire_format in ("seg", "delta"):
+            raise ValueError(
+                f"--wire-format {cfg.wire_format} is not ported to a mesh "
+                "yet (ROADMAP item 10b): use word or auto with "
+                "--num-shards/--num-replicas")
+        if cfg.wire_format == "bytes":
+            logger.warning(
+                "--wire-format=bytes has no effect with num_shards/"
+                "num_replicas > 1: the sharded engine carries wide "
+                "frames as separate key/bank arrays instead")
+        if mesh is None:
+            init_distributed()  # a no-op outside a process group
+            mesh = make_multihost_mesh(cfg.num_shards, cfg.num_replicas)
+        if mesh.shape != {"dp": cfg.num_replicas, "sp": cfg.num_shards}:
+            raise ValueError(f"mesh {mesh.shape} is not the config's dp="
+                             f"{cfg.num_replicas} x sp={cfg.num_shards}")
+        return ShardedSketchEngine(
+            mesh, capacity=cfg.bloom_filter_capacity,
+            error_rate=cfg.bloom_filter_error_rate, num_banks=num_banks,
+            precision=cfg.hll_precision, layout="blocked",
+            replica_sync=cfg.replica_sync)
+
     # -- roster -------------------------------------------------------------
     def preload(self, keys) -> None:
-        """Load the roster into the Bloom filter: one K3 launch."""
+        """Load the roster into the Bloom filter: one K3 launch (on a
+        mesh, K11 per cell and chunk, then the OR across dp)."""
         keys = np.ascontiguousarray(keys, dtype=np.uint32)
-        bloom_add_packed(self.state.bloom_bits,
-                         torch.from_numpy(keys.view(np.int32)).to(
-                             self.device),
-                         self.params)
+        if self.engine is not None:
+            self.engine.preload(keys)
+        else:
+            bloom_add_packed(self.state.bloom_bits,
+                             torch.from_numpy(keys.view(np.int32)).to(
+                                 self.device),
+                             self.params)
         # The filter changed: no base on disk covers it, so the next
         # barrier writes a full base before deltas (which never carry
         # the filter) may chain on.
@@ -575,8 +641,11 @@ class FusedPipeline:
             # The window shadow classifies validity by roster membership.
             self._temporal.record_roster(keys)
         self._roster_size = len(keys)
-        if (self.checkpointing or self.query_engine is not None
-                or self._fed is not None):
+        # The mesh publishes its first epoch at its first barrier (on a
+        # multi-process mesh its state reads are collectives), as in JAX.
+        if self.engine is None and (self.checkpointing
+                                    or self.query_engine is not None
+                                    or self._fed is not None):
             # The snapshot path's host filter, the first read epoch and a
             # federated worker's first full frame, read here, before the
             # run, where the wait costs least.
@@ -600,9 +669,14 @@ class FusedPipeline:
 
     # -- bank mapping -------------------------------------------------------
     def _num_banks(self) -> int:
+        if self.engine is not None:
+            return self.engine.num_banks
         return self.state.hll_regs.shape[0]
 
     def _grow_banks(self) -> None:
+        if self.engine is not None:
+            self.engine.grow_banks(self.engine.num_banks * 2)
+            return
         regs = self.state.hll_regs
         grown = torch.zeros((regs.shape[0] * 2, regs.shape[1]),
                             dtype=regs.dtype, device=regs.device)
@@ -698,7 +772,7 @@ class FusedPipeline:
         for key in keys:
             self._bank_of.pop(key, None)
             self._dirty_days.discard(key)
-        if not banks:
+        if self.engine is not None or not banks:
             return
         rows = torch.tensor(banks, dtype=torch.int64, device=self.device)
         self.state.hll_regs.index_fill_(0, rows, 0)
@@ -743,6 +817,9 @@ class FusedPipeline:
         keys = {k: b for k, b in self._bank_of.items() if is_bucket_key(k)}
         if not keys:
             return {}
+        if self.engine is not None:
+            ests = self.engine.count_all()
+            return {k: int(ests[b]) for k, b in keys.items()}
         prec = self.config.hll_precision
         hists = best_histogram(self._live_regs(), prec).cpu().numpy()
         return {k: int(round(estimate_from_histogram(hists[b], prec)))
@@ -789,16 +866,19 @@ class FusedPipeline:
             # seen before the dispatch (native packs never materialize
             # a host bank array).
             self._note_dirty(cols["lecture_day"])
-        padded = 256
-        while padded < n:
-            padded *= 2
-        valid, perm = self._dispatch_single(cols, padded)
-        valid_n = valid[:n]
-        # The seg/delta wires answer in bank-sorted order: the store keeps
-        # rows in original order with a lazy view that scatters the
-        # validity back when read.
-        stored = valid_n if perm is None else _ScatterValidity(valid, perm,
-                                                                n)
+        if self.engine is not None:
+            valid_n = stored = self._dispatch_sharded(cols, n)
+        else:
+            padded = 256
+            while padded < n:
+                padded *= 2
+            valid, perm = self._dispatch_single(cols, padded)
+            valid_n = valid[:n]
+            # The seg/delta wires answer in bank-sorted order: the store
+            # keeps rows in original order with a lazy view that scatters
+            # the validity back when read.
+            stored = (valid_n if perm is None
+                      else _ScatterValidity(valid, perm, n))
         if self._temporal is not None:
             # After the day map and the step, as in the JAX package: days
             # take their banks first, then new buckets take theirs.
@@ -988,6 +1068,31 @@ class FusedPipeline:
                else pack_bytes(sid, banks, self._bank_dtype, padded))
         t = self._lap("pack", t)
         return self._launch_wide(buf, use_words, kw, t), None
+
+    def _dispatch_sharded(self, cols: Dict[str, np.ndarray],
+                          n: int) -> torch.Tensor:
+        """One frame onto the mesh: the numpy day map, then the packed
+        word wire (4 bytes an event) when key and bank bits fit a word,
+        else separate key and bank arrays; returns valid[:n]. The word
+        wire on a mesh is the JAX package's; its narrow wires are item
+        10b, so ``auto`` stays here."""
+        sid, days = cols["student_id"], cols["lecture_day"]
+        t = time.perf_counter()
+        banks = self._banks_for(days)
+        t = self._lap("bank_map", t)
+        num_banks = self._num_banks()
+        kw = self._pick_kw(int(sid.max()).bit_length(), num_banks)
+        if kw + num_banks.bit_length() <= 32:
+            self._kw_hint = kw
+            words = pack_words(sid, banks, kw, self.engine.padded_size(n))
+            t = self._lap("pack", t)
+            self._count_wire("word")
+            valid = self.engine.step_words(words, n, kw)
+        else:
+            self._count_wire("arrays")
+            valid = self.engine.step(sid, banks)
+        self._lap("dispatch", t)
+        return valid
 
     def _launch_wide(self, buf: np.ndarray, use_words: bool, kw: int,
                      t: float) -> torch.Tensor:
@@ -1201,9 +1306,41 @@ class FusedPipeline:
 
     def _checkpoint_and_ack(self) -> None:
         """A barrier that waits until its snapshot is durable and its
-        frames acked (idle receive, end of run)."""
-        self._checkpoint_async(force=True)
+        frames acked (idle receive, end of run, and every barrier on a
+        mesh). The mesh's barrier stays on this thread, as in JAX: on a
+        multi-process mesh its state reads are collectives that every
+        process must run in the same order; in delta mode it reads only
+        the dirty banks' rows."""
+        if self.engine is None:
+            self._checkpoint_async(force=True)
+            self._flush_snapshots()
+            return
+        if self._snap_mode == "delta" and not self._base_stale:
+            self._snapshot_sync_delta()
+        else:
+            self.snapshot()
+        self._ack([m for m, _, _ in self._inflight])
+        self._inflight.clear()
+
+    def _snapshot_sync_delta(self) -> None:
+        """The mesh's delta barrier: the dirty banks' rows merged across
+        dp (only those rows leave the devices) and the counters, written
+        synchronously. Every process reads; only process 0 writes."""
         self._flush_snapshots()
+        banks = self._drain_dirty_banks()
+        rows = self.engine.get_state_rows(
+            self._pad_bank_index(banks))[:len(banks)]
+        counts = self.engine.get_counts()
+        self._batches_at_snap = self.metrics.batches
+        if not self._primary:
+            return
+        bank_of, events = dict(self._bank_of), self._events_total
+        num_banks = self.engine.num_banks
+        with self._snap_io_lock:
+            nbytes = self._write_delta_files(banks, rows, counts, bank_of,
+                                             events, num_banks, upto=None)
+        self._post_delta_bookkeeping(banks, rows, nbytes, counts, bank_of,
+                                     events, num_banks, upto=None)
 
     def _flush_snapshots(self) -> None:
         """Wait out every staged snapshot write."""
@@ -1408,7 +1545,8 @@ class FusedPipeline:
 
     def snapshot(self) -> None:
         """Write a full base snapshot now, synchronously, after any
-        staged write (the run loop's barriers use the writer)."""
+        staged write (the run loop's barriers use the writer; a mesh's
+        base barriers call this)."""
         if self._snap_dir is None:
             return
         regs, counts = self._host_state()
@@ -1421,10 +1559,13 @@ class FusedPipeline:
             self._fed.publish_full(bits, self._regs_mirror, counts,
                                    dict(self._bank_of), self._events_total,
                                    roster_size=self._roster_size)
-        with self._snap_io_lock:
-            self._write_snapshot_files(bits, regs, counts,
-                                       dict(self._bank_of),
-                                       self._events_total, upto=None)
+        if self._primary:
+            # On a multi-process mesh every process holds the same state;
+            # one writes it.
+            with self._snap_io_lock:
+                self._write_snapshot_files(bits, regs, counts,
+                                           dict(self._bank_of),
+                                           self._events_total, upto=None)
         # Only after the write: a raise above leaves the base owed.
         self._base_stale = False
         self._writer_base_ok = True
@@ -1584,8 +1725,14 @@ class FusedPipeline:
     def _host_state(self) -> Tuple[np.ndarray, np.ndarray]:
         """(uint8 registers, uint32[2, 2] counters) of the card's CURRENT
         state on the host, after the staged snapshot writes; reads the
-        host filter too when none is held. A cold path: between runs."""
+        host filter too when none is held (a mesh reads it every time,
+        with its registers merged across dp). A cold path: between
+        runs."""
         self._flush_snapshots()
+        if self.engine is not None:
+            bits, regs = self.engine.get_state()
+            self._bloom_host = bits
+            return regs, self.engine.get_counts()
         if self._bloom_host is None:
             self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
                 np.uint32)
@@ -1648,8 +1795,13 @@ class FusedPipeline:
         if free_banks:
             regs = np.array(regs, dtype=np.uint8)
             regs[np.asarray(free_banks, np.int64)] = 0
-        self.state = state_from_numpy(chain_state["bits"], regs,
-                                      chain_state["counts"], self.device)
+        if self.engine is not None:
+            self.engine.set_state(np.asarray(chain_state["bits"], np.uint32),
+                                  np.asarray(regs, np.uint8))
+            self.engine.set_counts(chain_state["counts"])
+        else:
+            self.state = state_from_numpy(chain_state["bits"], regs,
+                                          chain_state["counts"], self.device)
         # The chain may hold more banks than this construction (growth
         # before the crash): the wire's bank dtype follows the restored
         # count.
@@ -1972,7 +2124,10 @@ class FusedPipeline:
                                 >= max(_INFLIGHT_DEPTH, self._snap_every))
                 if (self.metrics.batches - self._batches_at_snap
                         >= self._snap_every or depth_forced):
-                    self._checkpoint_async(force=depth_forced)
+                    if self.engine is not None:
+                        self._checkpoint_and_ack()
+                    else:
+                        self._checkpoint_async(force=depth_forced)
             else:
                 self._drain_inflight(
                     block=1 if len(self._inflight) >= _INFLIGHT_DEPTH
@@ -2002,13 +2157,18 @@ class FusedPipeline:
 
     def validity_counts(self) -> Tuple[int, int]:
         """(valid, invalid) totals accumulated on the device since
-        construction (waits for the device)."""
+        construction (waits for the device; a mesh sums its replicas')."""
+        if self.engine is not None:
+            return self.engine.validity_counts()
         return decode_counts(self.state.counts)
 
     def estimated_fpr(self) -> float:
         """Occupancy-based FPR estimate of the roster filter: fill^k (a
         slight underestimate for the blocked layout)."""
-        fill = float(bloom_packed_fill_fraction(self.state.bloom_bits))
+        if self.engine is not None:
+            fill = self.engine.fill_fraction()
+        else:
+            fill = float(bloom_packed_fill_fraction(self.state.bloom_bits))
         return fill ** self.params.k
 
     @staticmethod
@@ -2023,6 +2183,8 @@ class FusedPipeline:
         bank = self._bank_of.get(self._resolve_day(lecture_day))
         if bank is None:
             return 0
+        if self.engine is not None:
+            return self.engine.count(bank)
         prec = self.config.hll_precision
         hist = best_histogram(self.state.hll_regs[bank:bank + 1], prec)
         return int(round(estimate_from_histogram(hist.cpu().numpy()[0],
@@ -2035,6 +2197,9 @@ class FusedPipeline:
                 if not is_bucket_key(d)}
         if not days:
             return {}
+        if self.engine is not None:
+            ests = self.engine.count_all()
+            return {day: int(ests[bank]) for day, bank in days.items()}
         prec = self.config.hll_precision
         hists = best_histogram(self._live_regs(), prec).cpu().numpy()
         return {day: int(round(estimate_from_histogram(hists[bank], prec)))

@@ -168,12 +168,40 @@ Phases (any failure exits non-zero):
      (a)'s oracle; (d) B15, ``bloom_or_words`` on the card equal to its
      numpy twin and timed; no worker compiles (the build directories are
      unchanged);
+  10. the mesh engine (``parallel/``, after 9) on virtual meshes whose
+     cells repeat the one card: (a) K9 on keys and on the word wire and
+     K10 (both wires, the counters on slice 0) at 131,072 and 1,048,576
+     lanes on each slice of the 10M roster's filter cut for a (4, 2)
+     mesh, K11 at a preload chunk into each slice, K1 on register slices
+     [256, 2^14 / sp] for sp = 2, 4, 8, each equal to its plain version
+     (and K10's register half to ``scatter_reduce_`` amax, K1 to
+     ``torch.bincount``) and timed; (b) ``ShardedSketchEngine`` on the
+     1 x 1 mesh through ``step_words`` over phase 3's default stream,
+     equal to phase 3's default run, launching only K3, K2 and K1; (c)
+     BASELINE config #4's 10,000,000-student roster and a stream of
+     phase 3's shape drawn from it (1,048,576 events in 131,072-event
+     frames, 16 lectures, seed 0) through ``FusedPipeline`` on one card
+     and with ``mesh=make_mesh(4, 2, [cuda:0] * 8)`` (query and step
+     replica sync, 16 banks: the word wire) and ``make_mesh(8, 1, ...)``
+     (256 banks: the arrays step), counters reset just before and read
+     just after each run, each equal to the one-card run in counters,
+     PFCOUNTs, merged registers, stored validity and bank map, no false
+     negatives of 100,000 members, FPR <= 1.3% on 100,000 outsiders, the
+     fill equal to the host popcount, events/s beside the one card's (a
+     virtual mesh's rate, never a multi-card one); (d) delta snapshots
+     every frame on (4, 2), a crash after 5 of 8 frames, resumed on
+     (2, 4) equal to the uninterrupted run, the chain restored on one
+     card equal; (e) two ``tests/torch_multihost_worker.py`` processes
+     sharing the card (one cell each, dp = 2 over gloo) on
+     tests/multihost_worker.py's workload, each equal to one process's
+     (2, 1) mesh;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
-     phase 7(a), phase 8's runs and phase 9(a)'s K = 1 round (the
-     worker's run and the oracle's reads; each also printed on a line of
-     its own); phase 5 prints its own runs' counts on a line of its own.
+     phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
+     run and the oracle's reads) and phase 10(c)'s three mesh runs (each
+     also printed on a line of its own); phase 5 prints its own runs'
+     counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -2838,6 +2866,522 @@ def federation_phase(card: str, dev) -> dict:
     return launches
 
 
+# Phase 10: the mesh engine (parallel/) on virtual meshes of the one card.
+MESH_ROSTER = 10_000_000  # BASELINE config #4
+MESH_EVENTS, MESH_FRAME = 1 << 20, 1 << 17  # phase 3's stream shape
+MESH_BANKS = 16  # word wire: 26 key bits + 5 bank bits; 256 banks: arrays
+MESH_LANES = (131_072, 1_048_576)  # 10(a)'s lanes a replica
+# (sp, dp, replica_sync, register banks) of phase 10(c)'s pipeline runs.
+MESH_RUNS = ((4, 2, "query", MESH_BANKS), (4, 2, "step", MESH_BANKS),
+             (8, 1, "query", 256))
+MESH_KERNELS = ("bloom_contains_slice", "hll_add_slice", "bloom_add_slice",
+                "hll_histogram")
+
+
+def mesh_slices(words: torch.Tensor, params, sp: int):
+    """The mesh engine's cut of a filter: sp contiguous slices of whole
+    blocks, the allocation padded to sp x 512 bits with zeros; returns
+    (slices, words a slice)."""
+    chunk = sp * 512
+    m_words = -(-params.m_bits // chunk) * chunk // 32
+    padded = torch.zeros(m_words, dtype=torch.int32, device=words.device)
+    padded[:words.shape[0]] = words
+    wl = m_words // sp
+    return [padded[s * wl:(s + 1) * wl].clone() for s in range(sp)], wl
+
+
+def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
+    """Phase 10(a): K9 on keys and on the word wire and K10 at 131,072
+    and 1,048,576 lanes a replica, K11 at a preload chunk of the 10M
+    roster, K1 on register slices [256, 2^14 / sp] (sp = 2, 4, 8); each
+    equal to its plain version, timed beside its bound, the floor, the
+    plain version and (K10's register half, K1) a library call."""
+    from attendance_tpu_torch.models import bloom, fused, hll
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.parallel.sharded import PRELOAD_CHUNK
+
+    sp, dp = 4, 2  # the phase's (4, 2) mesh
+    params = bloom.derive_bloom_params(MESH_ROSTER, 0.01, "blocked")
+    roster = torch.from_numpy(roster_np.view(np.int32)).to(dev)
+    words = bloom.bloom_packed_init(params, dev)
+    kernels.bloom_add(words, roster, params)
+    slices, wl = mesh_slices(words, params, sp)
+    rl = (1 << 14) // sp
+    rng = np.random.default_rng(10)
+
+    # K11: replica 0's share of the first preload chunk (rounded up to a
+    # dp multiple, as the engine rounds it) into each slice.
+    chunk = roster[:-(-PRELOAD_CHUNK // dp)]
+    for s in range(sp):
+        a = torch.zeros_like(slices[s])
+        b = torch.zeros_like(slices[s])
+        kernels.bloom_add_slice(a, chunk, params, first_word=s * wl)
+        kernels.bloom_add_slice_plain(b, chunk, params, s * wl)
+        torch.cuda.synchronize()
+        err = int((a != b).sum())
+        check(err == 0, f"K11 slice {s} of {sp}: {err} words differ")
+        if s == 0:
+            zero_ms = kernel_ms(lambda: a.zero_())
+            both_ms = kernel_ms(lambda: (
+                a.zero_(), kernels.bloom_add_slice(a, chunk, params,
+                                                   first_word=0)))
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), "K11: the timed adds differ")
+            ms = both_ms - zero_ms
+            plain_ms = eager_ms(lambda: kernels.bloom_add_slice_plain(
+                b, chunk, params, 0), 3)
+            pos = bloom.bloom_positions(chunk, params)
+            mine = (pos[:, 0] >> 5) < wl
+            touched = int(torch.unique(pos[mine] >> 5).numel())
+            b_ms, b_by = bound_ms(4 * chunk.numel() + 8 * touched,
+                                  chunk.numel() * 25
+                                  + int(mine.sum()) * (40 + 5 * params.k))
+            print(f"K11 bloom_add_slice keys={chunk.numel()} (replica 0's "
+                  f"share of a {PRELOAD_CHUNK}-key chunk, dp={dp}) slice 0 of "
+                  f"{sp} ({wl} words, roster {MESH_ROSTER}) keys in slice "
+                  f"{int(mine.sum())} into a zeroed slice ms={ms} (zero_ and "
+                  f"K11 {both_ms}, zero_ alone {zero_ms}) above_floor_ms="
+                  f"{ms - floor_ms} plain_ms={plain_ms} bound_ms={b_ms} "
+                  f"({b_by}) times_bound={ms / b_ms} max_abs_err={err}")
+            rows["bloom_add_slice"] = dict(
+                replaces="attendance_tpu/parallel/sharded.py:323",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+    # K9 (plain keys and the word wire) and K10 on both wires.
+    regs = hll.hll_init(MESH_BANKS, 14, dev)
+    hll.hll_add(regs, torch.from_numpy(rng.integers(
+        0, MESH_BANKS, 1 << 20, dtype=np.int32)).to(dev), torch.from_numpy(
+        rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev), precision=14)
+    regs_slices = [regs[:, s * rl:(s + 1) * rl].contiguous()
+                   for s in range(sp)]
+    for lanes in MESH_LANES:
+        keys_np = lanes_np["keys"][:lanes]
+        banks_np = lanes_np["banks"][:lanes]
+        keys = torch.from_numpy(keys_np.view(np.int32)).to(dev)
+        banks = torch.from_numpy(banks_np).to(dev)
+        kw = int(keys_np.max()).bit_length()
+        wire = torch.from_numpy(fused.pack_words(
+            keys_np, banks_np, kw, lanes).view(np.int32)).to(dev)
+        valid = None
+        for s in range(sp):
+            for what, lane_t, bits in (("keys", keys, 0),
+                                       ("words", wire, kw)):
+                got = kernels.bloom_contains_slice(
+                    slices[s], lane_t, params, first_word=s * wl,
+                    key_bits=bits)
+                want = kernels.bloom_contains_slice_plain(
+                    slices[s], lane_t, params, s * wl, bits)
+                torch.cuda.synchronize()
+                err = int((got != want).sum())
+                check(err == 0, f"K9 {what} lanes={lanes} slice {s}: {err} "
+                      "answers differ")
+            valid = got if valid is None else valid & got
+            if s == 0:
+                blocks = bloom.bloom_positions(keys, params)[:, 0] >> 9
+                mine = blocks < wl // 16
+                n_mine = int(mine.sum())
+                b_ms, b_by = bound_ms(
+                    5 * lanes + 64 * int(torch.unique(blocks[mine]).numel()),
+                    lanes * 25 + n_mine * (40 + 5 * params.k))
+                for what, lane_t, bits in (("keys", keys, 0),
+                                           ("words", wire, kw)):
+                    ms = kernel_ms(lambda: kernels.bloom_contains_slice(
+                        slices[0], lane_t, params, first_word=0,
+                        key_bits=bits))
+                    plain_ms = eager_ms(
+                        lambda: kernels.bloom_contains_slice_plain(
+                            slices[0], lane_t, params, 0, bits))
+                    print(f"K9 bloom_contains_slice {what} lanes={lanes} "
+                          f"slice 0 of {sp} (roster {MESH_ROSTER}) keys in "
+                          f"slice {n_mine} ms={ms} above_floor_ms="
+                          f"{ms - floor_ms} plain_ms={plain_ms} bound_ms="
+                          f"{b_ms} ({b_by}) times_bound={ms / b_ms} "
+                          f"library_ms=None max_abs_err=0")
+                    if lanes == MESH_LANES[0] and what == "words":
+                        rows["bloom_contains_slice"] = dict(
+                            replaces="attendance_tpu/parallel/sharded.py:304",
+                            max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        whole = bloom.bloom_contains_words(words, keys, params)
+        check(torch.equal(valid.to(torch.bool), whole),
+              f"K9 lanes={lanes}: the AND across slices is not K4's answer")
+        start = torch.tensor([[0xFFFFFF00 - (1 << 32), 1], [5, 0]],
+                             dtype=torch.int32, device=dev)
+        for s in range(sp):
+            for what, lane_t, bits in (("words", wire, kw),
+                                       ("arrays", keys, 0)):
+                a, b = regs_slices[s].clone(), regs_slices[s].clone()
+                ca, cb = ((start.clone(), start.clone()) if s == 0
+                          else (None, None))
+                kernels.hll_add_slice(a, lane_t, valid, lo=s * rl,
+                                      bank=banks, key_bits=bits,
+                                      n_real=lanes, counts=ca)
+                kernels.hll_add_slice_plain(b, lane_t, valid, s * rl, 14,
+                                            banks, bits, lanes, cb)
+                torch.cuda.synchronize()
+                err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+                check(err == 0 and (ca is None or torch.equal(ca, cb)),
+                      f"K10 {what} lanes={lanes} slice {s}: register max "
+                      f"abs err {err} or counters differ")
+        # Timed on slice 0 with the counters, replayed (the registers
+        # already hold the ranks), and from the starting registers.
+        a, b = regs_slices[0].clone(), regs_slices[0].clone()
+        ca, cb = start.clone(), start.clone()
+        ms = kernel_ms(lambda: kernels.hll_add_slice(
+            a, wire, valid, lo=0, key_bits=kw, counts=ca))
+        restore_ms = kernel_ms(lambda: a.copy_(regs_slices[0]))
+        fresh_ms = kernel_ms(lambda: (
+            a.copy_(regs_slices[0]), kernels.hll_add_slice(
+                a, wire, valid, lo=0, key_bits=kw)))
+        plain_ms = eager_ms(lambda: kernels.hll_add_slice_plain(
+            b, wire, valid, 0, 14, None, kw, lanes, cb))
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"K10 lanes={lanes}: the timed adds differ")
+        bucket, rank = hll.hll_bucket_rank(keys, 14)
+        kept = valid.to(torch.bool) & (bucket < rl)
+        flat = (banks.to(torch.int64) * rl + bucket)[kept]
+        lib = regs_slices[0].clone().view(-1)
+        library_ms = eager_ms(lambda: lib.scatter_reduce_(
+            0, flat, rank[kept].to(torch.uint8), reduce="amax"), 20)
+        check(torch.equal(lib.view_as(a), a),
+              f"K10 lanes={lanes} disagrees with scatter_reduce_(amax)")
+        distinct = int(torch.unique(flat).numel())
+        b_ms, b_by = bound_ms(5 * lanes + 2 * distinct + 32,
+                              lanes * 50 + int(kept.sum()) * 10)
+        print(f"K10 hll_add_slice words lanes={lanes} slice 0 of {sp} "
+              f"[{MESH_BANKS}, {rl}] kept={int(kept.sum())} distinct_"
+              f"registers={distinct} replayed ms={ms} above_floor_ms="
+              f"{ms - floor_ms} from the start ms={fresh_ms - restore_ms} "
+              f"plain_ms={plain_ms} scatter_reduce_amax_uint8_ms={library_ms} "
+              f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
+              "max_abs_err=0")
+        if lanes == MESH_LANES[0]:
+            rows["hll_add_slice"] = dict(
+                replaces="attendance_tpu/parallel/sharded.py:342",
+                max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+    # K1 on register slices of 256 filled banks.
+    big = hll.hll_init(256, 14, dev)
+    hll.hll_add(big, torch.from_numpy(rng.integers(
+        0, 256, 1 << 22, dtype=np.int32)).to(dev), torch.from_numpy(
+        rng.integers(0, 1 << 32, 1 << 22, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev), precision=14)
+    for sps in (2, 4, 8):
+        w = (1 << 14) // sps
+        part = big[:, :w].contiguous()
+        got = kernels.hll_histogram(part, 14)
+        want = hll.hll_histogram(part, 14)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"K1 on a [256, {w}] slice: max abs err {err}")
+        total = sum(kernels.hll_histogram(
+            big[:, s * w:(s + 1) * w].contiguous(), 14) for s in range(sps))
+        check(torch.equal(total, kernels.hll_histogram(big, 14)),
+              f"K1: the {sps} slices' histograms do not sum to the banks'")
+        bins = got.shape[1]
+        offsets = (part.to(torch.int64) + torch.arange(
+            256, device=dev)[:, None] * bins).view(-1)
+        check(torch.equal(torch.bincount(offsets, minlength=256 * bins)
+                          .view(256, bins).to(torch.int32), got),
+              f"K1 slice sp={sps} disagrees with torch.bincount")
+        ms = kernel_ms(lambda: kernels.hll_histogram(part, 14))
+        plain_ms = eager_ms(lambda: hll.hll_histogram(part, 14))
+        library_ms = eager_ms(lambda: torch.bincount(
+            offsets, minlength=256 * bins), 20)
+        b_ms, b_by = bound_ms(part.numel() + got.numel() * 4, part.numel())
+        print(f"K1 hll_histogram on a slice [256, {w}] (sp={sps}) ms={ms} "
+              f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+              f"bincount_ms={library_ms} bound_ms={b_ms} ({b_by}) "
+              f"times_bound={ms / b_ms} max_abs_err={err}")
+
+
+def _mesh_ref_state(pipe, banks: int):
+    """(counters, PFCOUNTs, live registers, stored validity, bank map) of
+    a pipeline on one card or a mesh."""
+    if pipe.engine is not None:
+        regs = pipe.engine.get_state()[1]
+    else:
+        regs = pipe.state.hll_regs.cpu().numpy()
+    return (pipe.validity_counts(),
+            {str(d): n for d, n in sorted(pipe.count_all().items())},
+            regs[:banks], pipe.store.to_columns(deduplicate=False)[
+                "is_valid"], dict(pipe._bank_of))
+
+
+def _mesh_check_same(what: str, got, want) -> None:
+    check(got[0] == want[0], f"{what}: counters {got[0]} != {want[0]}")
+    check(got[1] == want[1], f"{what}: PFCOUNTs differ")
+    check(np.array_equal(got[2], want[2]), f"{what}: registers differ")
+    check(np.array_equal(got[3], want[3]), f"{what}: stored validity "
+          "differs")
+    check(got[4] == want[4], f"{what}: bank map differs")
+
+
+def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
+               default_stream) -> dict:
+    """Phase 10: (a) the mesh kernels; (b) the 1 x 1 mesh equal to phase
+    3's default run; (c) the 10M roster on virtual meshes of the card,
+    equal to one card; (d) a crash on one mesh shape resumed on another
+    and restored on one card; (e) two processes sharing the card over
+    gloo. Returns (c)'s mesh runs' launches."""
+    import os
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.models.bloom import bloom_packed_set_bits
+    from attendance_tpu_torch.models.fused import pack_words
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.parallel import ShardedSketchEngine, make_mesh
+    from attendance_tpu_torch.pipeline.events import decode_planar_batch
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    roster, frames = generate_frames(MESH_EVENTS, MESH_FRAME,
+                                     roster_size=MESH_ROSTER,
+                                     num_lectures=16, seed=0)
+    frames = list(frames)
+    cols = [decode_planar_batch(f) for f in frames]
+    truth = np.concatenate([c["is_valid"] for c in cols])
+    sid = np.concatenate([c["student_id"] for c in cols])
+    day = np.concatenate([c["lecture_day"] for c in cols])
+    exact = {d: len(np.unique(sid[(day == d) & truth]))
+             for d in np.unique(day).tolist()}
+    print(f"mesh phase: the 10M stream made in {time.perf_counter() - t0} s")
+
+    # -- 10a. the kernels ----------------------------------------------------
+    day_bank = {d: i for i, d in enumerate(sorted(exact))}
+    mesh_kernels(dev, floor_ms, rows, roster, dict(
+        keys=sid, banks=np.array([day_bank[d] for d in day.tolist()],
+                                 np.int32)))
+
+    # -- 10b. the 1 x 1 mesh on phase 3's default stream ---------------------
+    d_roster, d_frames = default_stream
+    kernels.reset_launches()
+    eng = ShardedSketchEngine(make_mesh(1, 1, [dev]), capacity=100_000,
+                              error_rate=0.01, num_banks=256)
+    eng.preload(d_roster)
+    bank_of, valid = {}, []
+    for f in d_frames:
+        c = decode_planar_batch(f)
+        for d in np.unique(c["lecture_day"]).tolist():
+            bank_of.setdefault(d, len(bank_of))
+        banks = np.array([bank_of[d] for d in c["lecture_day"].tolist()],
+                         np.int32)
+        n = len(c["student_id"])
+        kw = int(c["student_id"].max()).bit_length()
+        valid.append(eng.step_words(pack_words(
+            c["student_id"], banks, kw, eng.padded_size(n)), n, kw))
+    got = (eng.validity_counts(),
+           {str(d): eng.count(b) for d, b in sorted(bank_of.items())},
+           eng.get_state()[1], torch.cat(valid).cpu().numpy())
+    b_launches = {k: v for k, v in kernels.launches.items() if v}
+    check(got[0] == ref[0], f"10b: counters {got[0]} != phase 3's {ref[0]}")
+    check(got[1] == ref[1], "10b: PFCOUNTs differ from phase 3's")
+    check(np.array_equal(got[2], ref[2].cpu().numpy()),
+          "10b: registers differ from phase 3's")
+    check(np.array_equal(got[3], ref[3]), "10b: validity differs")
+    check(set(b_launches) == {"bloom_add", "fused_step", "hll_histogram"},
+          f"10b: the 1 x 1 mesh launched {b_launches}")
+    print(f"mesh (b) 1 x 1 mesh, phase 3's default stream through "
+          f"ShardedSketchEngine.step_words: counters {got[0]}, PFCOUNTs, "
+          f"registers and validity equal to phase 3's default run; "
+          f"launches {b_launches}")
+
+    # -- 10c. the 10M roster on virtual meshes of the card -------------------
+    def run(sp, dp, sync, banks, **cfg):
+        config = Config(bloom_filter_capacity=MESH_ROSTER, num_shards=sp,
+                        num_replicas=dp, replica_sync=sync, **cfg)
+        mesh = (make_mesh(sp, dp, [dev] * (sp * dp)) if sp * dp > 1
+                else None)
+        kernels.reset_launches()
+        pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
+                             num_banks=banks, mesh=mesh)
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=MESH_EVENTS, idle_timeout_s=1.0)
+        # The run and its reads (counters, PFCOUNTs, state): the counts
+        # are read just after.
+        state = _mesh_ref_state(pipe, MESH_BANKS)
+        torch.cuda.synchronize()
+        return pipe, state, dict(kernels.launches)
+
+    single, want, s_launches = run(1, 1, "query", MESH_BANKS)
+    single_rate = single.metrics.events_per_second
+    single.cleanup()
+    check(not (truth & ~want[3]).any(), "10c one card: false negatives")
+    print(f"mesh (c) one card (the reference), 10M roster: {single_rate} "
+          f"events/s on {card}; wires {single.metrics.wire_dwell}; launches "
+          f"{ {k: v for k, v in s_launches.items() if v} }")
+    launches = dict.fromkeys(kernels.launches, 0)
+    members = roster[np.random.default_rng(1).choice(
+        MESH_ROSTER, 100_000, replace=False)]
+    outsiders = np.random.default_rng(2).integers(
+        1 << 27, 1 << 28, 100_000).astype(np.uint32)
+    for sp, dp, sync, banks in MESH_RUNS:
+        what = f"mesh (c) {dp} x {sp} ({sync} sync, {banks} banks)"
+        pipe, state, run_launches = run(sp, dp, sync, banks)
+        try:
+            eng = pipe.engine
+            fn = int((~eng.contains(members)).sum())
+            fpr = float(eng.contains(outsiders).mean())
+            words, _ = eng.get_state()
+            host = int(bloom_packed_set_bits(torch.from_numpy(
+                words.view(np.int32).copy()))) / eng.params.m_bits
+            fill = eng.fill_fraction()
+            rate = pipe.metrics.events_per_second
+            dwell = dict(pipe.metrics.wire_dwell)
+            stages = dict(pipe.metrics.stage_seconds)
+        finally:
+            pipe.cleanup()
+        check(fn == 0, f"{what}: {fn} false negatives of 100,000 members")
+        check(fpr <= 0.013, f"{what}: FPR {fpr} on 100,000 outsiders")
+        check(abs(fill - host) <= 1e-5 * host, f"{what}: fill {fill} vs the "
+              f"host popcount {host}")
+        word = (int(sid.max()).bit_length() + banks.bit_length()) <= 32
+        check(dwell == {("word" if word else "arrays"): len(frames)},
+              f"{what}: wires {dwell}")
+        _mesh_check_same(f"{what} vs one card", state, want)
+        worst = max(abs(n - exact[int(d)]) / exact[int(d)]
+                    for d, n in state[1].items())
+        check(worst <= 0.03, f"{what}: PFCOUNT relative error {worst}")
+        check(state[0][0] + state[0][1] == MESH_EVENTS, f"{what}: counters")
+        for name in MESH_KERNELS:
+            check(run_launches[name] > 0, f"{what}: kernel {name} not "
+                  "launched")
+        for name in ("bloom_add", "fused_step", "bloom_contains"):
+            check(run_launches[name] == 0, f"{what}: launched {name}")
+        for name, count in run_launches.items():
+            launches[name] += count
+        print(f"{what}: {rate} events/s as {dp} x {sp} virtual slices of one "
+              f"{card} (one card in the same call: {single_rate} events/s; "
+              f"not a multi-card rate); equal to one card in counters "
+              f"{state[0]}, PFCOUNTs, merged registers, stored validity and "
+              f"bank map; no false negatives of 100,000 members, FPR {fpr} "
+              f"on 100,000 outsiders, fill {fill} (host popcount {host}); "
+              f"worst PFCOUNT error {worst}; wires {dwell}; launches "
+              f"{ {k: v for k, v in run_launches.items() if v} }; host "
+              f"stages (s) {stages}")
+
+    # -- 10d. a crash on (4, 2), resumed on (2, 4), restored on one card -----
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        snap = dict(snapshot_dir=str(work / "snaps"),
+                    snapshot_every_batches=1, snapshot_mode="delta")
+        broker = MemoryBroker()
+
+        def pipe_on(sp, dp, **cfg):
+            return FusedPipeline(
+                Config(bloom_filter_capacity=MESH_ROSTER, num_shards=sp,
+                       num_replicas=dp, **cfg),
+                client=MemoryClient(broker), num_banks=MESH_BANKS,
+                mesh=make_mesh(sp, dp, [dev] * (sp * dp)) if sp * dp > 1
+                else None)
+
+        t_d = time.perf_counter()
+        a = pipe_on(4, 2, **snap)
+        a.preload(roster)
+        producer = a.client.create_producer(a.config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        a.run(max_events=5 * MESH_FRAME, idle_timeout_s=1.0)
+        a.consumer.close()  # the crash: unacked frames redeliver
+        acked = a.validity_counts()
+        chain = sorted(p.name for p in (work / "snaps").glob("*.npz"))
+        b = pipe_on(2, 4, **snap)
+        try:
+            check(sum(b.validity_counts()) == sum(acked),
+                  f"10d: restored counters {b.validity_counts()} != the "
+                  f"acked prefix's {acked}")
+            b.run(idle_timeout_s=1.0)
+            check(b.consumer.backlog() == 0, "10d: frames left unacked")
+            resumed = _mesh_ref_state(b, MESH_BANKS)
+            b.snapshot()
+        finally:
+            b.cleanup()
+        check(resumed[0] == want[0] and resumed[1] == want[1]
+              and np.array_equal(resumed[2], want[2])
+              and resumed[4] == want[4],
+              "10d: the resumed run differs from the uninterrupted one")
+        c = pipe_on(1, 1, snapshot_dir=str(work / "snaps"))
+        try:
+            restored = _mesh_ref_state(c, MESH_BANKS)
+        finally:
+            c.cleanup()
+        check(restored[0] == want[0] and restored[1] == want[1]
+              and np.array_equal(restored[2], want[2])
+              and restored[4] == want[4],
+              "10d: the chain restored on one card differs")
+        print(f"mesh (d) delta snapshots every frame on (4, 2), crash after "
+              f"5 of 8 frames (acked {acked}, chain {chain}), resumed on "
+              f"(2, 4): equal to the uninterrupted run; restored on one "
+              f"card: equal; wall {time.perf_counter() - t_d} s")
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- 10e. two processes sharing the card, dp over gloo -------------------
+    t_e = time.perf_counter()
+    repo = str(Path(__file__).resolve().parent)
+    sys.path.insert(0, str(Path(repo) / "tests"))
+    from torch_multihost_worker import run_pipeline_workload, run_workload
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_gloo_"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    outs = [work / f"r{i}.json" for i in range(2)]
+    logs = [open(work / f"w{i}.log", "w") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(repo) / "tests" / "torch_multihost_worker.py"),
+         str(i), "2", str(port), str(outs[i]), "--device", dev.type,
+         "--cells", "1"], env=env, stdout=logs[i], stderr=subprocess.STDOUT)
+        for i in range(2)]
+    try:
+        for i, p in enumerate(procs):
+            rc = p.wait(timeout=300)
+            check(rc == 0, f"10e: worker {i} exited {rc}:\n"
+                  + (work / f"w{i}.log").read_text()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = [json.loads(o.read_text()) for o in outs]
+    one = make_mesh(1, 2, [dev] * 2)
+    want_e = run_workload(one)
+    want_e.update(run_pipeline_workload(one))
+    for r in results:
+        check(r["process_count"] == 2, "10e: not a 2-process group")
+        for key, value in want_e.items():
+            check(r[key] == value, f"10e: process {r['process_id']} {key} "
+                  f"{r[key]} != one process's {value}")
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"mesh (e) two processes sharing {card}, dp = 2 over gloo (one "
+          f"cuda:0 cell each): both processes' facts (PFCOUNTs "
+          f"{want_e['counts']}, validity, bloom and register digests, the "
+          f"pipeline's {want_e['pipe_events']} events) equal one process's "
+          f"(2, 1) virtual mesh; worker workload seconds "
+          f"{[r['seconds'] for r in results]}; wall {time.perf_counter() - t_e} s")
+    print(f"mesh phase: {time.perf_counter() - t_phase} s")
+    print(f"mesh phase launches ((c)'s mesh runs; in the kernels line): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3371,6 +3915,12 @@ def main() -> int:
     # -- 9. federation: workers on the card, gossip, failover ----------------
     f_launches = federation_phase(card, dev)
 
+    # -- 10. the mesh engine on virtual meshes of the card --------------------
+    m_launches = mesh_phase(card, dev, floor_ms, rows, ref, generate_frames(
+        num_events, frame_size,
+        roster_size=min(Config().bloom_filter_capacity, num_events),
+        num_lectures=num_lectures, seed=0))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -3379,7 +3929,8 @@ def main() -> int:
              replaces=row["replaces"],
              launches=(launches[name] + t_launches[name]
                        + s_launches[name] + i_launches[name]
-                       + l_launches[name] + f_launches[name]),
+                       + l_launches[name] + f_launches[name]
+                       + m_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -1173,3 +1173,212 @@ def test_processor_pipeline_on_card_equals_cpu(cuda):
     MemoryBroker.reset_shared()
     assert runs[0][:3] == runs[1][:3]
     assert runs[0][3] == pytest.approx(runs[1][3], rel=1e-12)
+
+
+# -- K9-K11 and K1 on a slice: the mesh engine's kernels -------------------
+
+def _alloc_slices(params, sp, words=None):
+    """The mesh engine's cut of a filter into sp slices of whole blocks
+    (the allocation padded to sp x 512 bits, the padding zero)."""
+    chunk = sp * 512
+    m_words = -(-params.m_bits // chunk) * chunk // 32
+    padded = torch.zeros(m_words, dtype=torch.int32, device=(
+        words.device if words is not None else "cpu"))
+    if words is not None:
+        padded[:words.shape[0]] = words
+    wl = m_words // sp
+    return [padded[s * wl:(s + 1) * wl].clone() for s in range(sp)], wl
+
+
+@pytest.mark.parametrize("key_bits", [0, 21])
+@pytest.mark.parametrize("sp", [1, 2, 3, 4, 8])
+def test_bloom_contains_slice_kernel_matches_plain(sp, key_bits, cuda):
+    """K9 on every slice of a 100k-roster filter, on plain keys and on
+    the word wire (pad lanes included): equal to its plain version, and
+    the AND across slices equal to the whole filter's probe."""
+    params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
+    rng = np.random.default_rng(sp + key_bits)
+    roster = rng.choice(1 << 21, 100_000, replace=False).astype(np.uint32)
+    words = bloom.bloom_packed_init(params, cuda)
+    kernels.bloom_add(words, torch.from_numpy(roster.view(np.int32)).to(
+        cuda), params)
+    keys = np.where(rng.random(LANES) < 0.5, rng.choice(roster, LANES),
+                    rng.integers(0, 1 << 21, LANES)).astype(np.uint32)
+    lanes = keys
+    if key_bits:
+        lanes = fused.pack_words(keys[:-100], rng.integers(
+            0, 16, LANES - 100), key_bits, LANES)
+    lanes_t = torch.from_numpy(lanes.view(np.int32)).to(cuda)
+    slices, wl = _alloc_slices(params, sp, words)
+    before = kernels.launches["bloom_contains_slice"]
+    every = None
+    for s, words_s in enumerate(slices):
+        got = kernels.bloom_contains_slice(words_s, lanes_t, params,
+                                           first_word=s * wl,
+                                           key_bits=key_bits)
+        want = kernels.bloom_contains_slice_plain(words_s, lanes_t, params,
+                                                  s * wl, key_bits)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+        every = got if every is None else every & got
+    assert kernels.launches["bloom_contains_slice"] == before + sp
+    whole = bloom.bloom_contains_words(
+        words, torch.from_numpy(
+            (lanes & ((1 << key_bits) - 1) if key_bits else lanes)
+            .view(np.int32)).to(cuda), params)
+    assert torch.equal(every.to(torch.bool), whole)
+
+
+@pytest.mark.parametrize("wire", ["arrays", "words"])
+@pytest.mark.parametrize("sp", [1, 2, 4, 8])
+def test_hll_add_slice_kernel_matches_plain(sp, wire, cuda):
+    """K10 on every register slice of 16 filled banks: lanes with bank
+    -1, a bank past the array, invalid lanes and padding (the last 1,000
+    lanes), the counters bumped with a carry by the slice s = 0; equal to
+    its plain version, and the slices together equal to K5 on the whole
+    banks."""
+    rng = np.random.default_rng(sp)
+    regs = _regs(16, cuda)
+    keys = rng.integers(0, 1 << 20, LANES).astype(np.uint32)
+    bank = rng.integers(-1, 18, LANES).astype(np.int32)
+    valid = torch.from_numpy(rng.random(LANES) < 0.8).to(cuda)
+    n_real = LANES - 1000
+    if wire == "words":
+        lanes = fused.pack_words(keys[:n_real], np.maximum(bank[:n_real], 0),
+                                 20, LANES)
+        key_bits, bank_t = 20, None
+        bank = np.where(np.arange(LANES) < n_real, np.maximum(bank, 0), -1)
+    else:
+        lanes, key_bits = keys, 0
+        bank_t = torch.from_numpy(bank).to(cuda)
+    lanes_t = torch.from_numpy(lanes.view(np.int32)).to(cuda)
+    start = torch.tensor([[0xFFFFFFF0 - (1 << 32), 3], [7, 0]],
+                         dtype=torch.int32, device=cuda)
+    rl = (1 << 14) // sp
+    before = kernels.launches["hll_add_slice"]
+    out = []
+    for s in range(sp):
+        a = regs[:, s * rl:(s + 1) * rl].contiguous()
+        b = a.clone()
+        ca, cb = (start.clone(), start.clone()) if s == 0 else (None, None)
+        kernels.hll_add_slice(a, lanes_t, valid, lo=s * rl, bank=bank_t,
+                              key_bits=key_bits, n_real=n_real, counts=ca)
+        kernels.hll_add_slice_plain(b, lanes_t, valid, s * rl, 14, bank_t,
+                                    key_bits, n_real, cb)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        if s == 0:
+            assert torch.equal(ca, cb)
+            real = np.arange(LANES) < n_real
+            v = valid.cpu().numpy()
+            nv, ni = fused.decode_counts(ca)
+            assert (nv, ni) == (0xFFFFFFF0 + 3 * (1 << 32)
+                                + int((v & real).sum()),
+                                7 + int((~v & real).sum()))
+        out.append(a)
+    assert kernels.launches["hll_add_slice"] == before + sp
+    whole = regs.clone()
+    kept = torch.from_numpy(np.arange(LANES) < n_real).to(cuda) & valid
+    kernels.hll_add(whole, torch.from_numpy(bank).to(cuda),
+                    torch.from_numpy(keys.view(np.int32)).to(cuda), kept, 14)
+    assert torch.equal(torch.cat(out, dim=1), whole)
+
+
+@pytest.mark.parametrize("capacity", [100_000, 10_000_000])
+@pytest.mark.parametrize("sp", [1, 3, 4, 8])
+def test_bloom_add_slice_kernel_matches_plain(sp, capacity, cuda):
+    """K11 of one preload chunk (2^14 keys, a masked quarter) into every
+    slice of a filter already holding half the roster: equal to its
+    plain version; the slices of the whole roster together equal K3's
+    filter."""
+    params = bloom.derive_bloom_params(capacity, 0.01, "blocked")
+    rng = np.random.default_rng(capacity + sp)
+    roster = rng.choice(4 * capacity, capacity, replace=False).astype(
+        np.uint32)
+    roster_t = torch.from_numpy(roster.view(np.int32)).to(cuda)
+    half = bloom.bloom_packed_init(params, cuda)
+    kernels.bloom_add(half, roster_t[:capacity // 2], params)
+    slices, wl = _alloc_slices(params, sp, half)
+    chunk = roster_t[capacity // 2:capacity // 2 + (1 << 14)]
+    mask = torch.from_numpy(rng.random(1 << 14) < 0.75).to(cuda)
+    before = kernels.launches["bloom_add_slice"]
+    for s, words_s in enumerate(slices):
+        a, b = words_s.clone(), words_s.clone()
+        kernels.bloom_add_slice(a, chunk, params, first_word=s * wl,
+                                mask=mask)
+        kernels.bloom_add_slice_plain(b, chunk, params, s * wl, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    assert kernels.launches["bloom_add_slice"] == before + sp
+    full = bloom.bloom_packed_init(params, cuda)
+    kernels.bloom_add(full, roster_t, params)
+    empty, _ = _alloc_slices(params, sp)
+    for s, words_s in enumerate(empty):
+        words_s = words_s.to(cuda)
+        for i in range(0, capacity, 1 << 20):
+            kernels.bloom_add_slice(words_s, roster_t[i:i + (1 << 20)],
+                                    params, first_word=s * wl)
+        empty[s] = words_s
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(empty)[:full.shape[0]], full)
+    assert not torch.cat(empty)[full.shape[0]:].any()  # the padding
+
+
+@pytest.mark.parametrize("sp", [2, 4, 8, 1024])
+def test_histogram_kernel_on_register_slices(sp, cuda):
+    """K1 on each sp slice [256, 2^14 / sp] of filled registers: equal to
+    its plain version, and the slices' histograms sum to the banks'."""
+    regs = _filled(256, 14, "dense", cuda, seed=sp)
+    rl = (1 << 14) // sp
+    total = torch.zeros((256, 52), dtype=torch.int32, device=cuda)
+    for s in range(sp):
+        part = regs[:, s * rl:(s + 1) * rl].contiguous()
+        got = kernels.hll_histogram(part, 14)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hll.hll_histogram(part, 14))
+        total += got
+    assert torch.equal(total, kernels.hll_histogram(regs, 14))
+
+
+@pytest.mark.parametrize("dp,sp", [(2, 4), (3, 2), (1, 8), (1, 1)])
+def test_mesh_engine_on_card_equals_cpu(dp, sp, cuda):
+    """The engine on a mesh of repeated card cells equals the same mesh
+    of CPU cells (the plain versions) in every answer and state, and its
+    steps launch only the mesh kernels (the 1 x 1 mesh: K3, K2, K4,
+    K1)."""
+    from attendance_tpu_torch.parallel import (ShardedSketchEngine,
+                                               make_mesh)
+
+    rng = np.random.default_rng(dp * 10 + sp)
+    roster = rng.choice(1 << 20, 30_000, replace=False).astype(np.uint32)
+    keys = np.where(rng.random(5000) < 0.7, rng.choice(roster, 5000),
+                    rng.integers(1 << 20, 1 << 21, 5000)).astype(np.uint32)
+    banks = rng.integers(0, 8, 5000).astype(np.int32)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        kernels.reset_launches()
+        eng = ShardedSketchEngine(make_mesh(sp, dp, [dev] * (dp * sp)),
+                                  capacity=40_000, error_rate=0.01,
+                                  num_banks=8, replica_sync="step")
+        eng.preload(roster)
+        v1 = eng.step(keys, banks).cpu().numpy()
+        words = fused.pack_words(keys, banks, 21, eng.padded_size(5000))
+        v2 = eng.step_words(words, 5000, 21).cpu().numpy()
+        probe = np.arange((1 << 20) - 5000, (1 << 20) + 5000,
+                          dtype=np.uint32)
+        results.append((v1, v2, eng.contains(probe), *eng.get_state(),
+                        eng.validity_counts(), eng.count_all().tolist(),
+                        eng.count(3), eng.fill_fraction(),
+                        dict(kernels.launches)))
+    card, cpu = results
+    for a, b in zip(card[:5], cpu[:5]):
+        np.testing.assert_array_equal(a, b)
+    assert card[5:9] == cpu[5:9]
+    used = {k for k, v in card[9].items() if v}
+    if dp * sp == 1:
+        assert used == {"bloom_add", "fused_step", "bloom_contains",
+                        "hll_histogram"}
+    else:
+        assert used == {"bloom_add_slice", "bloom_contains_slice",
+                        "hll_add_slice", "hll_histogram"}
+    assert not any(cpu[9].values())

@@ -382,4 +382,6 @@ def test_kernel_wrappers_validate_inputs():
                                 "bloom_contains_bytes": 0,
                                 "hll_histogram_rows": 0,
                                 "hll_union_histogram": 0,
-                                "bloom_pack_bytes": 0}
+                                "bloom_pack_bytes": 0,
+                                "bloom_contains_slice": 0,
+                                "hll_add_slice": 0, "bloom_add_slice": 0}

@@ -167,7 +167,9 @@ _PORT_MODULES = {
     "attendance_tpu_torch.federation.frames",
     "attendance_tpu_torch.federation.merge",
     "attendance_tpu_torch.federation.gossip",
-    "attendance_tpu_torch.federation.worker"}
+    "attendance_tpu_torch.federation.worker",
+    "attendance_tpu_torch.parallel", "attendance_tpu_torch.parallel.sharded",
+    "attendance_tpu_torch.parallel.multihost"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
