@@ -72,9 +72,11 @@
 //   K10 atp_hll_add_slice K5 on one cell's register slice, with the
 //                         replica's counters (replaces hll_add_local and
 //                         bump_local, sharded.py:342,359)
-//   K11 atp_bloom_add_slice  K3's per-key pass on one cell's filter slice
-//                         (replaces bloom_add_kernel's scatter,
-//                         sharded.py:323)
+//   K11 atp_bloom_add_slice  K3 on one cell's filter slice: the binned
+//                         passes over the slice's tiles for a replica's
+//                         whole share of the roster, one thread per key
+//                         for a small batch (replaces bloom_add_kernel's
+//                         scatter, sharded.py:323)
 //
 // The hash is MurmurHash3_x86_32 of each key's 4 little-endian bytes,
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
@@ -765,15 +767,53 @@ fused_step_kernel(Decode decode, int lanes,
 // whatever the filter already holds.
 // Scratch (uint32): totals[tiles], starts[tiles + 1],
 // counts[ctas * tiles], offsets[ctas * tiles], payload[n].
+//
+// The same passes are K11's, the mesh engine's preload of one grid cell:
+// `words` then holds blocks [first_block, first_block + slice_blocks) of
+// a filter of num_blocks blocks, the tiles cover the slice only, and the
+// count and scatter passes drop a key whose block lies outside it (one
+// unsigned test of the block less first_block, as K9 makes) or whose
+// mask byte is 0 (mask may be null). K3 passes the whole filter
+// (first_block 0, slice_blocks = num_blocks) and no mask. The payload
+// is sized for every key, the case of a mesh with one slice.
 // ---------------------------------------------------------------------------
 constexpr int kPayloadBlockBits = 9;  // log2 of the most blocks in a tile
 
 // Keys a thread loads before it uses any, in the preload's key loops.
 constexpr int kKeyUnroll = 4;
 
+// A preload's keys and the slice they go into: rel() is a key's block
+// less first_block (unsigned, so a block below the slice wraps past
+// slice_blocks), or slice_blocks when the key is dropped.
+struct SliceKeys {
+  const uint32_t* keys;
+  const uint8_t* mask;  // may be null: every key
+  uint32_t first_block, slice_blocks, num_blocks;
+  uint64_t magic;
+
+  __device__ __forceinline__ uint32_t rel(uint32_t key, bool kept) const {
+    const uint32_t r =
+        fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) -
+        first_block;
+    return kept && r < slice_blocks ? r : slice_blocks;
+  }
+};
+
+// Loads keys i0 + u * kThreads (u < kKeyUnroll) below `end`, and their
+// mask bytes, before any is used.
+__device__ __forceinline__ void load_key_batch(const SliceKeys& sk, int i0,
+                                               int end, uint32_t* key,
+                                               bool* kept) {
+#pragma unroll
+  for (int u = 0; u < kKeyUnroll; ++u) {
+    const int i = i0 + u * kThreads;
+    key[u] = i < end ? __ldg(sk.keys + i) : 0u;
+    kept[u] = i < end && (sk.mask == nullptr || __ldg(sk.mask + i) != 0);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-bloom_tile_count_kernel(const uint32_t* __restrict__ keys, int n, int chunk,
-                        uint32_t num_blocks, uint64_t magic, int log2_bpt,
+bloom_tile_count_kernel(SliceKeys sk, int n, int chunk, int log2_bpt,
                         int tiles, uint32_t* totals,
                         uint32_t* __restrict__ counts,
                         uint32_t* __restrict__ offsets) {
@@ -785,18 +825,12 @@ bloom_tile_count_kernel(const uint32_t* __restrict__ keys, int n, int chunk,
   for (int i0 = begin + threadIdx.x; i0 < end;
        i0 += kThreads * kKeyUnroll) {
     uint32_t key[kKeyUnroll];
+    bool kept[kKeyUnroll];
+    load_key_batch(sk, i0, end, key, kept);
 #pragma unroll
     for (int u = 0; u < kKeyUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      key[u] = i < end ? keys[i] : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kKeyUnroll; ++u) {
-      if (i0 + u * kThreads < end) {
-        const uint32_t block =
-            fastmod(murmur3_u32(key[u], kSeedBloomA), magic, num_blocks);
-        atomicAdd(hist + (block >> log2_bpt), 1u);
-      }
+      const uint32_t rel = sk.rel(key[u], kept[u]);
+      if (rel < sk.slice_blocks) atomicAdd(hist + (rel >> log2_bpt), 1u);
     }
   }
   __syncthreads();
@@ -809,9 +843,8 @@ bloom_tile_count_kernel(const uint32_t* __restrict__ keys, int n, int chunk,
 }
 
 __global__ void __launch_bounds__(kThreads)
-bloom_tile_scatter_kernel(const uint32_t* __restrict__ keys, int n,
-                          int chunk, uint32_t num_blocks, uint64_t magic,
-                          int log2_bpt, int tiles,
+bloom_tile_scatter_kernel(SliceKeys sk, int n, int chunk, int log2_bpt,
+                          int tiles,
                           const uint32_t* __restrict__ totals,
                           const uint32_t* __restrict__ counts,
                           const uint32_t* __restrict__ offsets,
@@ -843,20 +876,16 @@ bloom_tile_scatter_kernel(const uint32_t* __restrict__ keys, int n,
   for (int i0 = begin + threadIdx.x; i0 < end;
        i0 += kThreads * kKeyUnroll) {
     uint32_t key[kKeyUnroll];
+    bool kept[kKeyUnroll];
+    load_key_batch(sk, i0, end, key, kept);
 #pragma unroll
     for (int u = 0; u < kKeyUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      key[u] = i < end ? keys[i] : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kKeyUnroll; ++u) {
-      if (i0 + u * kThreads < end) {
-        const uint32_t block =
-            fastmod(murmur3_u32(key[u], kSeedBloomA), magic, num_blocks);
+      const uint32_t rel = sk.rel(key[u], kept[u]);
+      if (rel < sk.slice_blocks) {
         const uint32_t h2 = (murmur3_u32(key[u], kSeedBloomB) | 1u) & 511u;
         const uint32_t h3 = (murmur3_u32(key[u], kSeedBlock) | 1u) & 511u;
-        sorted[atomicAdd(cursor + (block >> log2_bpt), 1u)] =
-            (block & tile_mask) | (h2 << kPayloadBlockBits) |
+        sorted[atomicAdd(cursor + (rel >> log2_bpt), 1u)] =
+            (rel & tile_mask) | (h2 << kPayloadBlockBits) |
             (h3 << (kPayloadBlockBits + 9));
       }
     }
@@ -892,27 +921,19 @@ __device__ __forceinline__ void or_block_probes(uint32_t* blk, uint32_t h2,
   }
 }
 
-// K3 for a small batch (the wrapper picks it below K3_BINNED_MIN_KEYS,
-// where the binned passes' fixed cost of chained launches and scans is
-// more than the atomics they save): one thread per key, a division-free
-// block index, and one global atomicOr per distinct word of the key.
-// Also K11, the mesh engine's preload of one slice: `words` then holds
-// blocks [first_block, first_block + slice_blocks) of a filter of
-// num_blocks blocks, and a key whose block lies outside them, or whose
-// mask byte is 0 (mask may be null), is dropped. K3 passes the whole
-// filter and no mask.
+// K3 and K11 for a small batch (their wrappers pick it below
+// K3_BINNED_MIN_KEYS and K11_BINNED_MIN_KEYS keys, where the binned
+// passes' fixed cost of chained launches and scans is more than the
+// atomics they save): one thread per key, a division-free block index,
+// and one global atomicOr per distinct word of the key. A slice and a
+// mask drop keys as in the binned passes (SliceKeys).
 __global__ void __launch_bounds__(kThreads)
-bloom_add_keys_kernel(uint32_t* words, const uint32_t* __restrict__ keys,
-                      const uint8_t* __restrict__ mask, int n,
-                      uint32_t first_block, uint32_t slice_blocks,
-                      uint32_t num_blocks, uint64_t magic, int k) {
+bloom_add_keys_kernel(uint32_t* words, SliceKeys sk, int n, int k) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n || (mask != nullptr && mask[i] == 0)) return;
-  const uint32_t key = keys[i];
-  // Unsigned: a block below the slice wraps past slice_blocks.
-  const uint32_t rel =
-      fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) - first_block;
-  if (rel >= slice_blocks) return;
+  if (i >= n || (sk.mask != nullptr && __ldg(sk.mask + i) == 0)) return;
+  const uint32_t key = __ldg(sk.keys + i);
+  const uint32_t rel = sk.rel(key, true);
+  if (rel >= sk.slice_blocks) return;
   or_block_probes(words + static_cast<size_t>(rel) * 16u,
                   (murmur3_u32(key, kSeedBloomB) | 1u) & 511u,
                   (murmur3_u32(key, kSeedBlock) | 1u) & 511u, k);
@@ -1059,7 +1080,8 @@ bloom_contains_slice_kernel(const uint32_t* __restrict__ words,
 // maxed into regs[bank * regs_local + bucket - lo] (atomic_max_u8). With
 // counts non-null (the replica's cell s = 0) the CTA also adds its valid
 // real lanes and its invalid real lanes to the replica's two-lane counters
-// (cta_add_counts, K2's tail).
+// (cta_add_counts, K2's tail). PERF.md records the designs measured
+// against it and not kept.
 __global__ void __launch_bounds__(kThreads)
 hll_add_slice_kernel(uint8_t* regs, int num_banks, int precision, uint32_t lo,
                      uint32_t regs_local, const uint32_t* __restrict__ keys,
@@ -1638,26 +1660,31 @@ int launch_fused_step(const Decode& decode, int lanes, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3's binned path: the memset and three kernels on one stream (see
-// above).
-int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
-                     uint32_t num_blocks, int k, int log2_bpt, int chunk,
-                     uint32_t* scratch, cudaStream_t s) {
-  const int tiles =
-      static_cast<int>((num_blocks + (1u << log2_bpt) - 1u) >> log2_bpt);
+// K3 and K11: with scratch null one thread per key, else the binned path
+// (the memset and three kernels on one stream, see above) over tiles of
+// the slice sk names (the whole filter for K3).
+int launch_bloom_add(uint32_t* words, const SliceKeys& sk, int n, int k,
+                     int log2_bpt, int chunk, uint32_t* scratch,
+                     cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (scratch == nullptr) {
+    bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0, s>>>(words, sk, n,
+                                                             k);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int tiles = static_cast<int>(
+      (sk.slice_blocks + (1u << log2_bpt) - 1u) >> log2_bpt);
   const int ctas = (n + chunk - 1) / chunk;
   uint32_t* totals = scratch;
   uint32_t* starts = totals + tiles;
   uint32_t* counts = starts + tiles + 1;
   uint32_t* offsets = counts + static_cast<size_t>(ctas) * tiles;
   uint32_t* payload = offsets + static_cast<size_t>(ctas) * tiles;
-  const uint64_t magic = fastmod_magic(num_blocks);
   const size_t tile_bytes = sizeof(uint32_t) * static_cast<size_t>(tiles);
   cudaError_t err = cudaMemsetAsync(totals, 0, tile_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   bloom_tile_count_kernel<<<ctas, kThreads, tile_bytes, s>>>(
-      keys, n, chunk, num_blocks, magic, log2_bpt, tiles, totals, counts,
-      offsets);
+      sk, n, chunk, log2_bpt, tiles, totals, counts, offsets);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t scatter_bytes =
@@ -1669,12 +1696,12 @@ int launch_bloom_add(uint32_t* words, const uint32_t* keys, int n,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   bloom_tile_scatter_kernel<<<ctas, kThreads, scatter_bytes, s>>>(
-      keys, n, chunk, num_blocks, magic, log2_bpt, tiles, totals, counts,
-      offsets, starts, payload);
+      sk, n, chunk, log2_bpt, tiles, totals, counts, offsets, starts,
+      payload);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bloom_tile_or_kernel<<<tiles, kThreads, size_t{64} << log2_bpt, s>>>(
-      words, num_blocks, log2_bpt, k, starts, payload);
+      words, sk.slice_blocks, log2_bpt, k, starts, payload);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1881,18 +1908,12 @@ int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
 int atp_bloom_add(void* words, const void* keys, int n,
                   unsigned int num_blocks, int k, int log2_bpt, int chunk,
                   void* scratch, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* w = static_cast<uint32_t*>(words);
-  const uint32_t* kk = static_cast<const uint32_t*>(keys);
-  if (n > 0 && scratch == nullptr) {
-    bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-        w, kk, nullptr, n, 0u, num_blocks, num_blocks,
-        fastmod_magic(num_blocks), k);
-  } else if (n > 0) {
-    return launch_bloom_add(w, kk, n, num_blocks, k, log2_bpt, chunk,
-                            static_cast<uint32_t*>(scratch), s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_bloom_add(
+      static_cast<uint32_t*>(words),
+      SliceKeys{static_cast<const uint32_t*>(keys), nullptr, 0u, num_blocks,
+                num_blocks, fastmod_magic(num_blocks)},
+      n, k, log2_bpt, chunk, static_cast<uint32_t*>(scratch),
+      static_cast<cudaStream_t>(stream));
 }
 
 // K7: blocked != 0 selects the blocked layout, else flat. mask may be
@@ -2024,20 +2045,21 @@ int atp_hll_add_slice(void* regs, int num_banks, int precision,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K11: K3's one-thread-per-key pass on the slice words[slice_words] that
-// starts at word first_word; mask may be null.
+// K11: K3 on the slice words[slice_words] that starts at word first_word
+// of a filter of num_blocks blocks; mask may be null. scratch == nullptr:
+// one thread per key; else the binned passes over the slice's tiles.
 int atp_bloom_add_slice(void* words, unsigned int first_word,
                         unsigned int slice_words, unsigned int num_blocks,
                         int k, const void* keys, const void* mask, int n,
+                        int log2_bpt, int chunk, void* scratch,
                         void* stream) {
-  if (n > 0) {
-    bloom_add_keys_kernel<<<blocks_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint32_t*>(words), static_cast<const uint32_t*>(keys),
-        static_cast<const uint8_t*>(mask), n, first_word / 16u,
-        slice_words / 16u, num_blocks, fastmod_magic(num_blocks), k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_bloom_add(
+      static_cast<uint32_t*>(words),
+      SliceKeys{static_cast<const uint32_t*>(keys),
+                static_cast<const uint8_t*>(mask), first_word / 16u,
+                slice_words / 16u, num_blocks, fastmod_magic(num_blocks)},
+      n, k, log2_bpt, chunk, static_cast<uint32_t*>(scratch),
+      static_cast<cudaStream_t>(stream));
 }
 
 int atp_cms_step(void* counts, int depth, unsigned int width,

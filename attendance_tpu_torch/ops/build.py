@@ -49,7 +49,7 @@ SIGNATURES = {
     "atp_bloom_contains_slice": (_P, _U, _U, _U, _I, _P, _I, _I, _P, _P),
     "atp_hll_add_slice": (_P, _I, _I, _U, _I, _P, _P, _I, _P, _I, _I, _P,
                           _P),
-    "atp_bloom_add_slice": (_P, _U, _U, _U, _I, _P, _P, _I, _P),
+    "atp_bloom_add_slice": (_P, _U, _U, _U, _I, _P, _P, _I, _I, _I, _P, _P),
 }
 
 

@@ -219,7 +219,9 @@ K3_BINNED_MIN_KEYS = 1 << 18
 
 def bloom_add_plan(n: int, num_blocks: int):
     """(log2 blocks per tile, keys per CTA, scratch int32 words) of K3
-    for ``n`` keys into ``num_blocks`` 64-byte blocks."""
+    for ``n`` keys into ``num_blocks`` 64-byte blocks, and of K11 for
+    ``n`` keys into a slice of ``num_blocks`` blocks (its tiles cover the
+    slice; the payload holds every key, as when all lie in the slice)."""
     per_tile = -(-num_blocks // _K3_TILES)
     log2_bpt = min(_K3_MAX_LOG2_BLOCKS, (per_tile - 1).bit_length())
     tiles = -(-num_blocks // (1 << log2_bpt))
@@ -1134,7 +1136,9 @@ def hll_add_slice(regs: torch.Tensor, keys: torch.Tensor,
     K5's (one thread per lane, one trip for its loads, a CAS on the
     register's 32-bit word only when the rank is higher) on the slice,
     and K2's counting tail (warp ballots, one 64-bit atomic per CTA and
-    counter).
+    counter). PERF.md records the designs measured against it and not
+    kept (several lanes a thread with 16-byte loads, a grid of one wave,
+    CTAs of 1024).
     """
     num_banks, regs_local = (regs.shape if regs.dim() == 2 else (0, 0))
     _require(regs.dtype == torch.uint8 and regs.dim() == 2
@@ -1193,23 +1197,36 @@ def bloom_add_slice_plain(words: torch.Tensor, keys: torch.Tensor,
     words.copy_(pack_bloom_bits(bits))
 
 
+# Below this many keys K11 runs one thread per key (see bloom_add_slice).
+K11_BINNED_MIN_KEYS = 1 << 21
+
+
 def bloom_add_slice(words: torch.Tensor, keys: torch.Tensor,
                     params: BloomParams, *, first_word: int,
-                    mask: Optional[torch.Tensor] = None) -> None:
+                    mask: Optional[torch.Tensor] = None,
+                    binned: Optional[bool] = None) -> None:
     """K11: OR the probe bits of int32[B] keys (of those whose ``mask``
     is True) that fall in a mesh cell's filter slice into it, in place; a
-    key whose block lies elsewhere is dropped. The mesh ORs the replicas'
-    slices across dp after the preload.
+    key whose block lies elsewhere is dropped. The mesh engine gives each
+    cell its replica's whole share of the roster in one call and ORs the
+    replicas' slices across dp after the preload.
 
     Replaces the scatter of ``bloom_add_kernel``
     (attendance_tpu/parallel/sharded.py:323, ``packed_or_scatter``,
     attendance_tpu/models/bloom.py:223). Bound: bytes, as K3's (4B a key
-    and a read and write of each touched word), or operations (the
-    block hash of every key, the probes of this slice's keys). Design:
-    K3's one-thread-per-key kernel (one global ``atomicOr`` per distinct
-    word of the key's block), given the slice's blocks and a mask: a
-    preload chunk (2^14 keys over dp replicas) is below the size where
-    K3's binned passes pay. The words must start 64-byte aligned.
+    and a read and write of each touched word of the slice), or
+    operations (the block hash of every key, the probes of this slice's
+    keys). Design: K3's on the slice. A replica's share of a large roster
+    (5,000,000 keys of 10,000,000 at dp = 2) goes through K3's binned
+    passes (``bloom_add_plan(n, slice blocks)``: tiles over the slice's
+    blocks only, the count and scatter passes dropping keys outside the
+    slice or masked off, one CTA per tile ORing in shared memory). Those
+    cost a fixed chain of launches and scans and hash every key twice,
+    so a batch below ``K11_BINNED_MIN_KEYS`` keys (the crossover measured
+    on slices of 4 and 8, PERF.md) takes one thread per key, which issues
+    one global ``atomicOr`` per distinct word of the key's block.
+    ``binned`` forces one path. Either is one launch in
+    :data:`launches`. The words must start 64-byte aligned.
     """
     _check_filter_slice(words, keys, params, first_word, 0)
     _require(mask is None or (mask.dtype == torch.bool
@@ -1221,13 +1238,19 @@ def bloom_add_slice(words: torch.Tensor, keys: torch.Tensor,
         return
     _require_cuda(*tensors)
     _require(words.data_ptr() % 64 == 0, "words must be 64-byte aligned")
-    if keys.shape[0] == 0:
+    n = keys.shape[0]
+    if n == 0:
         return
+    if binned is None:
+        binned = n >= K11_BINNED_MIN_KEYS
+    log2_bpt, chunk, scratch_words = bloom_add_plan(n, words.shape[0] // 16)
+    scratch = (torch.empty(scratch_words, dtype=torch.int32,
+                           device=words.device) if binned else None)
     with torch.cuda.device(words.device):
         rc = library().atp_bloom_add_slice(
             words.data_ptr(), first_word, words.shape[0],
             params.m_bits // BLOCK_BITS, params.k, keys.data_ptr(),
-            None if mask is None else mask.data_ptr(), keys.shape[0],
-            _stream(words))
+            None if mask is None else mask.data_ptr(), n, log2_bpt, chunk,
+            None if scratch is None else scratch.data_ptr(), _stream(words))
     _check_launch(rc, "atp_bloom_add_slice")
     launches["bloom_add_slice"] += 1

@@ -17,9 +17,9 @@ Per step, each cell answers for the probes its slice holds (K9, a probe
 outside counting as set), the replica ANDs its cells' answers, and only
 then does each cell max the valid lanes' ranks into its slice (K10; the
 cell s = 0 also bumps the replica's counters). Preload adds each
-replica's share of a chunk into every slice (K11) and ORs the slices
-across dp. PFCOUNT takes the register max across dp, then K1 on each
-slice, summed across sp.
+replica's whole share of the roster into every slice, one K11 call a
+cell, and ORs the slices across dp. PFCOUNT takes the register max
+across dp, then K1 on each slice, summed across sp.
 
 JAX's collectives are XLA's; here they are host orchestration across
 the grid: a min (AND) across sp inside a process, and across dp the OR
@@ -54,9 +54,6 @@ from attendance_tpu_torch.models.fused import (
     pack_bytes)
 from attendance_tpu_torch.models.hll import estimate_from_histogram
 from attendance_tpu_torch.ops import kernels
-
-# The JAX package's preload chunk (models/bloom.py PRELOAD_CHUNK).
-PRELOAD_CHUNK = 1 << 14
 
 
 class Mesh:
@@ -210,34 +207,32 @@ class ShardedSketchEngine:
 
     # -- preload ------------------------------------------------------------
     def preload(self, keys) -> None:
-        """Batched BF.ADD of the roster, in chunks of PRELOAD_CHUNK rounded
-        up to a dp multiple (pad lanes repeat a real key: OR is
-        idempotent). Replica r adds its share of each chunk into each of
-        its slices (K11); the slices are ORed across dp at the end (OR is
-        associative, so once equals after every chunk). The 1 x 1 mesh
-        runs K3 per chunk."""
+        """Batched BF.ADD of the roster: global replica g adds its
+        contiguous share ``keys[g * n // dp:(g + 1) * n // dp]`` into each
+        of its slices with one K11 call a cell, then the slices are ORed
+        across dp. The 1 x 1 mesh makes one K3 call over the whole
+        roster, as one card does.
+
+        The words equal the JAX engine's, which adds fixed chunks of
+        2^14 keys (padded with a repeat of a key) and ORs across dp after
+        each: OR is commutative, associative and idempotent, so neither
+        the split into shares nor the padding changes the union, onto
+        whatever the filter already holds; and no caller sees a
+        replica's partial words, as preload returns only after the OR."""
         keys = np.asarray(keys, dtype=np.uint32)
-        if len(keys) == 0:
+        n = len(keys)
+        if n == 0:
             return
-        chunk = -(-PRELOAD_CHUNK // self.dp) * self.dp
-        pad = (-len(keys)) % chunk
-        if pad:
-            keys = np.concatenate([keys, np.full(pad, keys[0], np.uint32)])
         on = self._on_cells(keys.view(np.int32))
         if self.single:
-            words = self.bits[0][0]
-            for i in range(0, len(keys), chunk):
-                kernels.bloom_add(words, on[self.device][i:i + chunk],
-                                  self.params)
+            kernels.bloom_add(self.bits[0][0], on[self.device], self.params)
             return
-        local = chunk // self.dp
-        for i in range(0, len(keys), chunk):
-            for r, g, row in self._rows():
-                lo = i + g * local
-                for s, d in enumerate(row):
-                    kernels.bloom_add_slice(
-                        self.bits[r][s], on[d][lo:lo + local], self.params,
-                        first_word=s * self.words_local)
+        for r, g, row in self._rows():
+            lo, hi = g * n // self.dp, (g + 1) * n // self.dp
+            for s, d in enumerate(row):
+                kernels.bloom_add_slice(
+                    self.bits[r][s], on[d][lo:hi], self.params,
+                    first_word=s * self.words_local)
         self._or_replicas()
 
     def _or_replicas(self) -> None:

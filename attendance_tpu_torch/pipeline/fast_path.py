@@ -623,7 +623,8 @@ class FusedPipeline:
     # -- roster -------------------------------------------------------------
     def preload(self, keys) -> None:
         """Load the roster into the Bloom filter: one K3 launch (on a
-        mesh, K11 per cell and chunk, then the OR across dp)."""
+        mesh, one K11 launch per cell over its replica's share of the
+        roster, then the OR across dp)."""
         keys = np.ascontiguousarray(keys, dtype=np.uint32)
         if self.engine is not None:
             self.engine.preload(keys)

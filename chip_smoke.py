@@ -169,17 +169,26 @@ Phases (any failure exits non-zero):
      numpy twin and timed; no worker compiles (the build directories are
      unchanged);
   10. the mesh engine (``parallel/``, after 9) on virtual meshes whose
-     cells repeat the one card: (a) K9 on keys and on the word wire and
-     K10 (both wires, the counters on slice 0) at 131,072 and 1,048,576
-     lanes on each slice of the 10M roster's filter cut for a (4, 2)
-     mesh, K11 at a preload chunk into each slice, K1 on register slices
-     [256, 2^14 / sp] for sp = 2, 4, 8, each equal to its plain version
-     (and K10's register half to ``scatter_reduce_`` amax, K1 to
+     cells repeat the one card: (a) K11 at the shapes the engine sends,
+     a replica's whole share of the 10M roster into each slice
+     (5,000,000 keys into 4 slices at dp = 2, 10,000,000 into 8 at dp =
+     1), binned and one thread per key, each equal to its plain version
+     on every slice and the replicas' OR to K3's filter, the preload's
+     device time (8 launches), on (4, 2) beside the route of one launch
+     a 2^14-key chunk and cell (4,888), and both paths at 2^20 and 2^22
+     keys into slices of 4 and 8, either side of the cut-over; K9 on
+     keys and on the word wire at 131,072 and 1,048,576 lanes and K10
+     (both wires, with and without the counters, replayed and from the
+     starting registers, each held against the plain version) at
+     65,536, 131,072 and 1,048,576 lanes on the slices of the 10M
+     roster's filter cut for a (4, 2) mesh; K1 on register slices [256,
+     2^14 / sp] for sp = 2, 4, 8; each equal to its plain version (and
+     K10's register half to ``scatter_reduce_`` amax, K1 to
      ``torch.bincount``) and timed; (b) ``ShardedSketchEngine`` on the
      1 x 1 mesh through ``step_words`` over phase 3's default stream,
-     equal to phase 3's default run, launching only K3, K2 and K1; (c)
-     BASELINE config #4's 10,000,000-student roster and a stream of
-     phase 3's shape drawn from it (1,048,576 events in 131,072-event
+     equal to phase 3's default run, launching only K3 (once), K2 and
+     K1; (c) BASELINE config #4's 10,000,000-student roster and a stream
+     of phase 3's shape drawn from it (1,048,576 events in 131,072-event
      frames, 16 lectures, seed 0) through ``FusedPipeline`` on one card
      and with ``mesh=make_mesh(4, 2, [cuda:0] * 8)`` (query and step
      replica sync, 16 banks: the word wire) and ``make_mesh(8, 1, ...)``
@@ -187,14 +196,15 @@ Phases (any failure exits non-zero):
      just after each run, each equal to the one-card run in counters,
      PFCOUNTs, merged registers, stored validity and bank map, no false
      negatives of 100,000 members, FPR <= 1.3% on 100,000 outsiders, the
-     fill equal to the host popcount, events/s beside the one card's (a
-     virtual mesh's rate, never a multi-card one); (d) delta snapshots
-     every frame on (4, 2), a crash after 5 of 8 frames, resumed on
-     (2, 4) equal to the uninterrupted run, the chain restored on one
-     card equal; (e) two ``tests/torch_multihost_worker.py`` processes
-     sharing the card (one cell each, dp = 2 over gloo) on
-     tests/multihost_worker.py's workload, each equal to one process's
-     (2, 1) mesh;
+     fill equal to the host popcount, K11 launched once a cell (8
+     times), the wall of ``pipe.preload(roster)`` and events/s beside
+     the one card's (a virtual mesh's rate, never a multi-card one); (d)
+     delta snapshots every frame on (4, 2), a crash after 5 of 8
+     frames, resumed on (2, 4) equal to the uninterrupted run, the chain
+     restored on one card equal; (e) two
+     ``tests/torch_multihost_worker.py`` processes sharing the card (one
+     cell each, dp = 2 over gloo) on tests/multihost_worker.py's
+     workload, each equal to one process's (2, 1) mesh;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
@@ -2870,7 +2880,15 @@ def federation_phase(card: str, dev) -> dict:
 MESH_ROSTER = 10_000_000  # BASELINE config #4
 MESH_EVENTS, MESH_FRAME = 1 << 20, 1 << 17  # phase 3's stream shape
 MESH_BANKS = 16  # word wire: 26 key bits + 5 bank bits; 256 banks: arrays
-MESH_LANES = (131_072, 1_048_576)  # 10(a)'s lanes a replica
+# 10(a)'s lanes a replica: (4, 2)'s share of a frame, a frame, 8 frames.
+MESH_LANES = (65_536, 131_072, 1_048_576)
+# 10(a)'s K11 preloads, (sp, dp); the JAX package's preload chunk, whose
+# route (one launch a chunk and cell) 10(a) times beside the engine's on
+# (4, 2); and the batch sizes, one either side of
+# ``kernels.K11_BINNED_MIN_KEYS``, at which both K11 paths are timed.
+MESH_PRELOADS = ((4, 2), (8, 1))
+JAX_PRELOAD_CHUNK = 1 << 14
+K11_CUTOVER_KEYS = (1 << 20, 1 << 22)
 # (sp, dp, replica_sync, register banks) of phase 10(c)'s pipeline runs.
 MESH_RUNS = ((4, 2, "query", MESH_BANKS), (4, 2, "step", MESH_BANKS),
              (8, 1, "query", 256))
@@ -2890,15 +2908,278 @@ def mesh_slices(words: torch.Tensor, params, sp: int):
     return [padded[s * wl:(s + 1) * wl].clone() for s in range(sp)], wl
 
 
+def _k11_bound(params, keys: torch.Tensor, first_word: int, wl: int):
+    """(bound ms, by) of K11 for ``keys`` into the slice of ``wl`` words
+    at ``first_word``: 4 bytes a key and a read and a write of every word
+    its keys touch; the block hash of every key, the probes of its
+    own."""
+    from attendance_tpu_torch.models import bloom
+    rel = bloom.bloom_positions(keys, params) - first_word * 32
+    mine = (rel[:, 0] >= 0) & (rel[:, 0] < wl * 32)
+    touched = int(torch.unique(rel[mine] >> 5).numel())
+    return bound_ms(4 * keys.numel() + 8 * touched,
+                    keys.numel() * 25 + int(mine.sum()) * (40 + 5 * params.k))
+
+
+def mesh_k11(floor_ms: float, rows: dict, params, roster: torch.Tensor,
+             words: torch.Tensor) -> None:
+    """10(a)'s K11: replica g's whole share ``roster[g * n // dp:(g + 1) *
+    n // dp]`` into each slice, as the engine sends it, at (4, 2) and
+    (8, 1): both paths equal to the plain version on every slice, the
+    replicas' OR equal to K3's filter cut; then the preload's device time
+    (every cell) by the engine's route, one launch a cell, on (4, 2)
+    beside the route of one per-key launch a 2^14-key chunk and cell,
+    and one cell's time by each path beside its bound; then both paths
+    on slice 0 of 4 and of 8 either side of the cut-over."""
+    from attendance_tpu_torch.ops import kernels
+
+    n = roster.numel()
+    for sp, dp in MESH_PRELOADS:
+        cut, wl = mesh_slices(words, params, sp)
+        shares = [roster[g * n // dp:(g + 1) * n // dp] for g in range(dp)]
+        cells = [(g, s) for g in range(dp) for s in range(sp)]
+        for s in range(sp):
+            union = {True: torch.zeros_like(cut[s]),
+                     False: torch.zeros_like(cut[s])}
+            for g in range(dp):
+                want = torch.zeros_like(cut[s])
+                kernels.bloom_add_slice_plain(want, shares[g], params, s * wl)
+                for binned in (True, False):
+                    got = torch.zeros_like(cut[s])
+                    kernels.bloom_add_slice(got, shares[g], params,
+                                            first_word=s * wl, binned=binned)
+                    torch.cuda.synchronize()
+                    err = int((got != want).sum())
+                    check(err == 0, f"K11 binned={binned} ({sp}, {dp}) "
+                          f"replica {g}'s share, slice {s}: {err} words "
+                          "differ")
+                    union[binned] |= got
+            for binned, got in union.items():
+                check(torch.equal(got, cut[s]), f"K11 binned={binned} "
+                      f"({sp}, {dp}) slice {s}: the OR across dp is not "
+                      "K3's filter")
+        # The whole preload's device time: the engine's route (one launch
+        # a cell), and on (4, 2) the chunk route (the roster padded with
+        # its first key to whole chunks rounded up to dp; replica g adds
+        # the g-th dp-th of each chunk, one per-key launch a chunk and
+        # cell).
+        chunk = -(-JAX_PRELOAD_CHUNK // dp) * dp
+        local = chunk // dp
+        pieces = torch.cat([roster, roster[:1].expand((-n) % chunk)]
+                           ).view(-1, chunk)
+        chunk_launches = pieces.shape[0] * len(cells)
+        bufs = [torch.zeros_like(cut[0]) for _ in cells]
+
+        def zero():
+            for b in bufs:
+                b.zero_()
+
+        def engine_route(binned=None):
+            zero()
+            for (g, s), b in zip(cells, bufs):
+                kernels.bloom_add_slice(b, shares[g], params,
+                                        first_word=s * wl, binned=binned)
+
+        def chunk_route():
+            zero()
+            for c in range(pieces.shape[0]):
+                for (g, s), b in zip(cells, bufs):
+                    kernels.bloom_add_slice(
+                        b, pieces[c, g * local:(g + 1) * local], params,
+                        first_word=s * wl, binned=False)
+
+        def held(what):
+            torch.cuda.synchronize()
+            for s in range(sp):
+                got = bufs[s].clone()
+                for g in range(1, dp):
+                    got |= bufs[g * sp + s]
+                check(torch.equal(got, cut[s]), f"K11 ({sp}, {dp}) {what}: "
+                      f"slice {s}'s OR across dp is not K3's filter")
+
+        zero_ms = kernel_ms(zero, reps=1)
+        engine_ms = kernel_ms(engine_route, reps=1) - zero_ms
+        held("engine")
+        kernels.reset_launches()
+        engine_route()
+        one_launches = kernels.launches["bloom_add_slice"]
+        held("engine")
+        b_ms = sum(_k11_bound(params, shares[g], s * wl, wl)[0]
+                   for g, s in cells)
+        print(f"K11 bloom_add_slice ({sp}, {dp}) preload of the "
+              f"{MESH_ROSTER}-key roster, device time of every cell: one "
+              f"launch a cell over its replica's share ({one_launches} "
+              f"launches) ms={engine_ms}; bound_ms={b_ms} (bytes, the "
+              f"cells' sum); launch floor x launches "
+              f"{floor_ms * one_launches}; equal to K3's filter cut")
+        if (sp, dp) == (4, 2):
+            chunks_ms = kernel_ms(chunk_route, reps=1) - zero_ms
+            held("chunks")
+            print(f"K11 bloom_add_slice ({sp}, {dp}) the chunk route "
+                  f"({chunk_launches} launches of {local} keys) ms="
+                  f"{chunks_ms}; launch floor x launches "
+                  f"{floor_ms * chunk_launches}; equal to K3's filter cut")
+        # One cell, (0, 0), by each path, into a zeroed slice.
+        a = torch.zeros_like(cut[0])
+        want = torch.zeros_like(cut[0])
+        kernels.bloom_add_slice_plain(want, shares[0], params, 0)
+        one_zero_ms = kernel_ms(lambda: a.zero_())
+        b_ms, b_by = _k11_bound(params, shares[0], 0, wl)
+        picked = shares[0].numel() >= kernels.K11_BINNED_MIN_KEYS
+        for binned in (True, False):
+            ms = kernel_ms(lambda: (a.zero_(), kernels.bloom_add_slice(
+                a, shares[0], params, first_word=0, binned=binned))
+            ) - one_zero_ms
+            torch.cuda.synchronize()
+            check(torch.equal(a, want), f"K11 binned={binned} ({sp}, {dp}): "
+                  "the timed adds differ")
+            plain_ms = eager_ms(lambda: kernels.bloom_add_slice_plain(
+                a, shares[0], params, 0), 3)
+            print(f"K11 bloom_add_slice binned={binned} (picked: "
+                  f"{binned == picked}) ({sp}, {dp}) keys="
+                  f"{shares[0].numel()} (replica 0's share) slice 0 of {sp} "
+                  f"({wl // 16} blocks) into a zeroed slice ms={ms} "
+                  f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+                  f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
+                  "max_abs_err=0")
+            if (sp, dp) == (4, 2) and binned == picked:
+                rows["bloom_add_slice"] = dict(
+                    replaces="attendance_tpu/parallel/sharded.py:323",
+                    max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+    # Both paths on slice 0 of 4 and of 8, either side of the cut-over.
+    for sp in (4, 8):
+        cut, wl = mesh_slices(words, params, sp)
+        a = torch.zeros_like(cut[0])
+        one_zero_ms = kernel_ms(lambda: a.zero_())
+        line = []
+        for keys_n in K11_CUTOVER_KEYS:
+            keys = roster[:keys_n]
+            want = torch.zeros_like(a)
+            kernels.bloom_add_slice_plain(want, keys, params, 0)
+            ms = {}
+            for binned in (True, False):
+                ms[binned] = kernel_ms(lambda: (
+                    a.zero_(), kernels.bloom_add_slice(
+                        a, keys, params, first_word=0, binned=binned))
+                ) - one_zero_ms
+                torch.cuda.synchronize()
+                check(torch.equal(a, want), f"K11 binned={binned} at "
+                      f"{keys_n} keys into slice 0 of {sp} differs from the "
+                      "plain version")
+            line.append(f"{keys_n} ({keys_n // sp} in the slice): binned "
+                        f"{ms[True]} per-key {ms[False]}")
+        print(f"K11 cut-over, slice 0 of {sp} of the {MESH_ROSTER}-key "
+              f"filter, into a zeroed slice, ms by keys: {'; '.join(line)}; "
+              f"the wrapper bins from {kernels.K11_BINNED_MIN_KEYS} keys")
+
+
+def mesh_k10(floor_ms: float, rows: dict, keys, banks, wire, kw: int,
+             valid, regs_slices, lanes: int) -> None:
+    """10(a)'s K10 at ``lanes`` lanes: K10 on every slice and both
+    wires, equal to its plain version (the counters on slice 0, started
+    just under the 2^32 wrap of their low lane); then K10 timed on both
+    wires, with the counters (slice 0) and without (slice 1), replayed
+    (the registers already hold the ranks) and from the starting
+    registers, each held after its replays (registers equal to one plain
+    add, counters to the start plus one add's counts per run)."""
+    from attendance_tpu_torch.models import fused, hll
+    from attendance_tpu_torch.ops import kernels
+
+    sp = len(regs_slices)
+    rl = regs_slices[0].shape[1]
+    dev = keys.device
+    start = torch.tensor([[0xFFFFFF00 - (1 << 32), 1], [5, 0]],
+                         dtype=torch.int32, device=dev)
+    for s in range(sp):
+        for what, lane_t, bits in (("words", wire, kw), ("arrays", keys, 0)):
+            a, b = regs_slices[s].clone(), regs_slices[s].clone()
+            ca, cb = ((start.clone(), start.clone()) if s == 0
+                      else (None, None))
+            kernels.hll_add_slice(a, lane_t, valid, lo=s * rl, bank=banks,
+                                  key_bits=bits, n_real=lanes, counts=ca)
+            kernels.hll_add_slice_plain(b, lane_t, valid, s * rl, 14, banks,
+                                        bits, lanes, cb)
+            torch.cuda.synchronize()
+            err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+            check(err == 0 and (ca is None or torch.equal(ca, cb)),
+                  f"K10 {what} lanes={lanes} slice {s}: register max abs "
+                  f"err {err} or counters differ")
+    bucket, rank = hll.hll_bucket_rank(keys, 14)
+    base = fused.decode_counts(start)
+    for s in (0, 1):
+        lo = s * rl
+        kept = valid.to(torch.bool) & (bucket >= lo) & (bucket < lo + rl)
+        flat = (banks.to(torch.int64) * rl + bucket - lo)[kept]
+        distinct = int(torch.unique(flat).numel())
+        for what, lane_t, bits, lane_bytes in (("words", wire, kw, 5),
+                                               ("arrays", keys, 0, 9)):
+            b_ms, b_by = bound_ms(lane_bytes * lanes + 2 * distinct
+                                  + (32 if s == 0 else 0),
+                                  lanes * 50 + int(kept.sum()) * 10)
+            want = regs_slices[s].clone()
+            cw = start.clone() if s == 0 else None
+            kernels.hll_add_slice_plain(want, lane_t, valid, lo, 14, banks,
+                                        bits, lanes, cw)
+            one = (None if cw is None else [w - b0 for w, b0 in zip(
+                fused.decode_counts(cw), base)])
+            a = regs_slices[s].clone()
+            ca = None if cw is None else start.clone()
+
+            def add():
+                kernels.hll_add_slice(a, lane_t, valid, lo=lo, bank=banks,
+                                      key_bits=bits, n_real=lanes, counts=ca)
+
+            replayed = kernel_ms(add)
+            restore_ms = kernel_ms(lambda: a.copy_(regs_slices[s]))
+            fresh = kernel_ms(lambda: (
+                a.copy_(regs_slices[s]), add())) - restore_ms
+            torch.cuda.synchronize()
+            runs = 2 * graph_runs()
+            check(torch.equal(a, want) and (ca is None or list(
+                fused.decode_counts(ca)) == [b0 + runs * d for b0, d
+                                             in zip(base, one)]),
+                  f"K10 {what} lanes={lanes} slice {s}: the timed adds "
+                  "differ from the plain version")
+            if s == 0 and what == "words" and lanes == 131_072:
+                plain_ms = eager_ms(lambda: kernels.hll_add_slice_plain(
+                    want.clone(), lane_t, valid, 0, 14, None, bits, lanes,
+                    start.clone()))
+                lib = regs_slices[0].clone().view(-1)
+                library_ms = eager_ms(lambda: lib.scatter_reduce_(
+                    0, flat, rank[kept].to(torch.uint8), reduce="amax"), 20)
+                check(torch.equal(lib.view_as(a), a), f"K10 lanes={lanes} "
+                      "disagrees with scatter_reduce_(amax)")
+                rows["hll_add_slice"] = dict(
+                    replaces="attendance_tpu/parallel/sharded.py:342",
+                    max_abs_err=0, ms=replayed, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                print(f"K10 lanes={lanes} plain_ms={plain_ms} "
+                      f"scatter_reduce_amax_uint8_ms={library_ms} (the "
+                      "register half)")
+            print(f"K10 hll_add_slice {what} lanes={lanes} slice {s} of {sp} "
+                  f"[{regs_slices[s].shape[0]}, {rl}] "
+                  f"{'with' if s == 0 else 'without'} the counters "
+                  f"kept={int(kept.sum())} distinct_registers={distinct} "
+                  f"ms replayed={replayed} from_the_start={fresh} "
+                  f"bound_ms={b_ms} ({b_by}) floor_ms={floor_ms} "
+                  "max_abs_err=0")
+
+
 def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
-    """Phase 10(a): K9 on keys and on the word wire and K10 at 131,072
-    and 1,048,576 lanes a replica, K11 at a preload chunk of the 10M
-    roster, K1 on register slices [256, 2^14 / sp] (sp = 2, 4, 8); each
-    equal to its plain version, timed beside its bound, the floor, the
-    plain version and (K10's register half, K1) a library call."""
+    """Phase 10(a): K11 at the shapes the engine sends (a replica's whole
+    share of the 10M roster into each slice, (4, 2) and (8, 1)), binned
+    and one thread per key, on (4, 2) beside the route of one launch per
+    2^14-key chunk, and both paths either side of the cut-over; K9 on
+    keys and on the word wire and K10 (both wires, with and without the
+    counters, replayed and from the starting registers) at 65,536,
+    131,072 and 1,048,576 lanes a replica; K1 on register slices [256,
+    2^14 / sp] (sp = 2, 4, 8); each equal to its plain version, timed
+    beside its bound, the floor, the plain version and (K10's register
+    half, K1) a library call."""
     from attendance_tpu_torch.models import bloom, fused, hll
     from attendance_tpu_torch.ops import kernels
-    from attendance_tpu_torch.parallel.sharded import PRELOAD_CHUNK
 
     sp, dp = 4, 2  # the phase's (4, 2) mesh
     params = bloom.derive_bloom_params(MESH_ROSTER, 0.01, "blocked")
@@ -2908,45 +3189,7 @@ def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
     slices, wl = mesh_slices(words, params, sp)
     rl = (1 << 14) // sp
     rng = np.random.default_rng(10)
-
-    # K11: replica 0's share of the first preload chunk (rounded up to a
-    # dp multiple, as the engine rounds it) into each slice.
-    chunk = roster[:-(-PRELOAD_CHUNK // dp)]
-    for s in range(sp):
-        a = torch.zeros_like(slices[s])
-        b = torch.zeros_like(slices[s])
-        kernels.bloom_add_slice(a, chunk, params, first_word=s * wl)
-        kernels.bloom_add_slice_plain(b, chunk, params, s * wl)
-        torch.cuda.synchronize()
-        err = int((a != b).sum())
-        check(err == 0, f"K11 slice {s} of {sp}: {err} words differ")
-        if s == 0:
-            zero_ms = kernel_ms(lambda: a.zero_())
-            both_ms = kernel_ms(lambda: (
-                a.zero_(), kernels.bloom_add_slice(a, chunk, params,
-                                                   first_word=0)))
-            torch.cuda.synchronize()
-            check(torch.equal(a, b), "K11: the timed adds differ")
-            ms = both_ms - zero_ms
-            plain_ms = eager_ms(lambda: kernels.bloom_add_slice_plain(
-                b, chunk, params, 0), 3)
-            pos = bloom.bloom_positions(chunk, params)
-            mine = (pos[:, 0] >> 5) < wl
-            touched = int(torch.unique(pos[mine] >> 5).numel())
-            b_ms, b_by = bound_ms(4 * chunk.numel() + 8 * touched,
-                                  chunk.numel() * 25
-                                  + int(mine.sum()) * (40 + 5 * params.k))
-            print(f"K11 bloom_add_slice keys={chunk.numel()} (replica 0's "
-                  f"share of a {PRELOAD_CHUNK}-key chunk, dp={dp}) slice 0 of "
-                  f"{sp} ({wl} words, roster {MESH_ROSTER}) keys in slice "
-                  f"{int(mine.sum())} into a zeroed slice ms={ms} (zero_ and "
-                  f"K11 {both_ms}, zero_ alone {zero_ms}) above_floor_ms="
-                  f"{ms - floor_ms} plain_ms={plain_ms} bound_ms={b_ms} "
-                  f"({b_by}) times_bound={ms / b_ms} max_abs_err={err}")
-            rows["bloom_add_slice"] = dict(
-                replaces="attendance_tpu/parallel/sharded.py:323",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    mesh_k11(floor_ms, rows, params, roster, words)
 
     # K9 (plain keys and the word wire) and K10 on both wires.
     regs = hll.hll_init(MESH_BANKS, 14, dev)
@@ -2978,7 +3221,7 @@ def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
                 check(err == 0, f"K9 {what} lanes={lanes} slice {s}: {err} "
                       "answers differ")
             valid = got if valid is None else valid & got
-            if s == 0:
+            if s == 0 and lanes != MESH_LANES[0]:
                 blocks = bloom.bloom_positions(keys, params)[:, 0] >> 9
                 mine = blocks < wl // 16
                 n_mine = int(mine.sum())
@@ -2999,7 +3242,7 @@ def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
                           f"{ms - floor_ms} plain_ms={plain_ms} bound_ms="
                           f"{b_ms} ({b_by}) times_bound={ms / b_ms} "
                           f"library_ms=None max_abs_err=0")
-                    if lanes == MESH_LANES[0] and what == "words":
+                    if lanes == 131_072 and what == "words":
                         rows["bloom_contains_slice"] = dict(
                             replaces="attendance_tpu/parallel/sharded.py:304",
                             max_abs_err=0, ms=ms, plain_ms=plain_ms,
@@ -3007,61 +3250,8 @@ def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
         whole = bloom.bloom_contains_words(words, keys, params)
         check(torch.equal(valid.to(torch.bool), whole),
               f"K9 lanes={lanes}: the AND across slices is not K4's answer")
-        start = torch.tensor([[0xFFFFFF00 - (1 << 32), 1], [5, 0]],
-                             dtype=torch.int32, device=dev)
-        for s in range(sp):
-            for what, lane_t, bits in (("words", wire, kw),
-                                       ("arrays", keys, 0)):
-                a, b = regs_slices[s].clone(), regs_slices[s].clone()
-                ca, cb = ((start.clone(), start.clone()) if s == 0
-                          else (None, None))
-                kernels.hll_add_slice(a, lane_t, valid, lo=s * rl,
-                                      bank=banks, key_bits=bits,
-                                      n_real=lanes, counts=ca)
-                kernels.hll_add_slice_plain(b, lane_t, valid, s * rl, 14,
-                                            banks, bits, lanes, cb)
-                torch.cuda.synchronize()
-                err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-                check(err == 0 and (ca is None or torch.equal(ca, cb)),
-                      f"K10 {what} lanes={lanes} slice {s}: register max "
-                      f"abs err {err} or counters differ")
-        # Timed on slice 0 with the counters, replayed (the registers
-        # already hold the ranks), and from the starting registers.
-        a, b = regs_slices[0].clone(), regs_slices[0].clone()
-        ca, cb = start.clone(), start.clone()
-        ms = kernel_ms(lambda: kernels.hll_add_slice(
-            a, wire, valid, lo=0, key_bits=kw, counts=ca))
-        restore_ms = kernel_ms(lambda: a.copy_(regs_slices[0]))
-        fresh_ms = kernel_ms(lambda: (
-            a.copy_(regs_slices[0]), kernels.hll_add_slice(
-                a, wire, valid, lo=0, key_bits=kw)))
-        plain_ms = eager_ms(lambda: kernels.hll_add_slice_plain(
-            b, wire, valid, 0, 14, None, kw, lanes, cb))
-        torch.cuda.synchronize()
-        check(torch.equal(a, b), f"K10 lanes={lanes}: the timed adds differ")
-        bucket, rank = hll.hll_bucket_rank(keys, 14)
-        kept = valid.to(torch.bool) & (bucket < rl)
-        flat = (banks.to(torch.int64) * rl + bucket)[kept]
-        lib = regs_slices[0].clone().view(-1)
-        library_ms = eager_ms(lambda: lib.scatter_reduce_(
-            0, flat, rank[kept].to(torch.uint8), reduce="amax"), 20)
-        check(torch.equal(lib.view_as(a), a),
-              f"K10 lanes={lanes} disagrees with scatter_reduce_(amax)")
-        distinct = int(torch.unique(flat).numel())
-        b_ms, b_by = bound_ms(5 * lanes + 2 * distinct + 32,
-                              lanes * 50 + int(kept.sum()) * 10)
-        print(f"K10 hll_add_slice words lanes={lanes} slice 0 of {sp} "
-              f"[{MESH_BANKS}, {rl}] kept={int(kept.sum())} distinct_"
-              f"registers={distinct} replayed ms={ms} above_floor_ms="
-              f"{ms - floor_ms} from the start ms={fresh_ms - restore_ms} "
-              f"plain_ms={plain_ms} scatter_reduce_amax_uint8_ms={library_ms} "
-              f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
-              "max_abs_err=0")
-        if lanes == MESH_LANES[0]:
-            rows["hll_add_slice"] = dict(
-                replaces="attendance_tpu/parallel/sharded.py:342",
-                max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+        mesh_k10(floor_ms, rows, keys, banks, wire, kw, valid, regs_slices,
+                 lanes)
 
     # K1 on register slices of 256 filled banks.
     big = hll.hll_init(256, 14, dev)
@@ -3189,14 +3379,18 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
     check(np.array_equal(got[2], ref[2].cpu().numpy()),
           "10b: registers differ from phase 3's")
     check(np.array_equal(got[3], ref[3]), "10b: validity differs")
-    check(set(b_launches) == {"bloom_add", "fused_step", "hll_histogram"},
-          f"10b: the 1 x 1 mesh launched {b_launches}")
+    check(set(b_launches) == {"bloom_add", "fused_step", "hll_histogram"}
+          and b_launches["bloom_add"] == 1,
+          f"10b: the 1 x 1 mesh launched {b_launches} (K3 once: one call "
+          "over the whole roster)")
     print(f"mesh (b) 1 x 1 mesh, phase 3's default stream through "
           f"ShardedSketchEngine.step_words: counters {got[0]}, PFCOUNTs, "
           f"registers and validity equal to phase 3's default run; "
           f"launches {b_launches}")
 
     # -- 10c. the 10M roster on virtual meshes of the card -------------------
+    preload_s = {}  # (sp, dp, sync) -> wall of pipe.preload(roster), s
+
     def run(sp, dp, sync, banks, **cfg):
         config = Config(bloom_filter_capacity=MESH_ROSTER, num_shards=sp,
                         num_replicas=dp, replica_sync=sync, **cfg)
@@ -3205,7 +3399,11 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
         kernels.reset_launches()
         pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
                              num_banks=banks, mesh=mesh)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter()
         pipe.preload(roster)
+        torch.cuda.synchronize()
+        preload_s[(sp, dp, sync)] = time.perf_counter() - t_pre
         producer = pipe.client.create_producer(config.pulsar_topic)
         for f in frames:
             producer.send(f)
@@ -3220,8 +3418,12 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
     single_rate = single.metrics.events_per_second
     single.cleanup()
     check(not (truth & ~want[3]).any(), "10c one card: false negatives")
+    check(s_launches["bloom_add"] == 1, "10c one card: the preload "
+          f"launched K3 {s_launches['bloom_add']} times")
     print(f"mesh (c) one card (the reference), 10M roster: {single_rate} "
-          f"events/s on {card}; wires {single.metrics.wire_dwell}; launches "
+          f"events/s on {card}; preload wall "
+          f"{preload_s[(1, 1, 'query')]} s; wires "
+          f"{single.metrics.wire_dwell}; launches "
           f"{ {k: v for k, v in s_launches.items() if v} }")
     launches = dict.fromkeys(kernels.launches, 0)
     members = roster[np.random.default_rng(1).choice(
@@ -3259,13 +3461,19 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
         for name in MESH_KERNELS:
             check(run_launches[name] > 0, f"{what}: kernel {name} not "
                   "launched")
+        check(run_launches["bloom_add_slice"] == sp * dp, f"{what}: the "
+              f"preload launched K11 {run_launches['bloom_add_slice']} "
+              f"times, not once a cell ({sp * dp})")
         for name in ("bloom_add", "fused_step", "bloom_contains"):
             check(run_launches[name] == 0, f"{what}: launched {name}")
         for name, count in run_launches.items():
             launches[name] += count
         print(f"{what}: {rate} events/s as {dp} x {sp} virtual slices of one "
               f"{card} (one card in the same call: {single_rate} events/s; "
-              f"not a multi-card rate); equal to one card in counters "
+              f"not a multi-card rate); preload wall "
+              f"{preload_s[(sp, dp, sync)]} s (one card "
+              f"{preload_s[(1, 1, 'query')]} s); equal to one card in "
+              f"counters "
               f"{state[0]}, PFCOUNTs, merged registers, stored validity and "
               f"bank map; no false negatives of 100,000 members, FPR {fpr} "
               f"on 100,000 outsiders, fill {fill} (host popcount {host}); "

@@ -1324,6 +1324,91 @@ def test_bloom_add_slice_kernel_matches_plain(sp, capacity, cuda):
     assert not torch.cat(empty)[full.shape[0]:].any()  # the padding
 
 
+@pytest.mark.parametrize("binned", [False, True])
+@pytest.mark.parametrize("share", [(1 << 18) + 1, 3_000_001])
+@pytest.mark.parametrize("sp", [1, 3, 4, 8])
+def test_bloom_add_slice_each_path_matches_plain(sp, share, binned, cuda):
+    """K11 on either path (binned over the slice's tiles, or one thread
+    per key) of a replica's whole share (2^18 + 1 keys and several
+    million) into every slice of a 10M filter that already holds other
+    keys, a quarter of the share masked off: equal to its plain version;
+    unmasked, the slices together equal K3 of the share onto the same
+    filter."""
+    params = bloom.derive_bloom_params(10_000_000, 0.01, "blocked")
+    rng = np.random.default_rng(share + sp)
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, share, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(cuda)
+    held = bloom.bloom_packed_init(params, cuda)
+    kernels.bloom_add(held, _keys(rng, 1_000_000).to(cuda), params)
+    slices, wl = _alloc_slices(params, sp, held)
+    mask = torch.from_numpy(rng.random(share) < 0.75).to(cuda)
+    before = kernels.launches["bloom_add_slice"]
+    whole = []
+    for s, words_s in enumerate(slices):
+        a, b = words_s.clone(), words_s.clone()
+        kernels.bloom_add_slice(a, keys, params, first_word=s * wl,
+                                mask=mask, binned=binned)
+        kernels.bloom_add_slice_plain(b, keys, params, s * wl, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        kernels.bloom_add_slice(words_s, keys, params, first_word=s * wl,
+                                binned=binned)
+        whole.append(words_s)
+    assert kernels.launches["bloom_add_slice"] == before + 2 * sp
+    kernels.bloom_add(held, keys, params)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(whole)[:held.shape[0]], held)
+    assert not torch.cat(whole)[held.shape[0]:].any()  # the padding
+
+
+def _k10_case(lanes, wire, seed, cuda):
+    """(lanes, bank or None, key_bits, valid, n_real) of a K10 input on
+    ``wire``: banks -1 to 17 of 16, 80% valid, the last tenth of the
+    lanes padding (at least one lane real)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 20, lanes).astype(np.uint32)
+    bank = rng.integers(-1, 18, lanes).astype(np.int32)
+    valid = torch.from_numpy(rng.random(lanes) < 0.8).to(cuda)
+    n_real = max(1, lanes - lanes // 10)
+    if wire == "words":
+        words = fused.pack_words(keys[:n_real], np.maximum(bank[:n_real], 0),
+                                 20, lanes)
+        return (torch.from_numpy(words.view(np.int32)).to(cuda), None, 20,
+                valid, n_real)
+    return (torch.from_numpy(keys.view(np.int32)).to(cuda),
+            torch.from_numpy(bank).to(cuda), 0, valid, n_real)
+
+
+@pytest.mark.parametrize("counted", [True, False])
+@pytest.mark.parametrize("wire", ["arrays", "words"])
+@pytest.mark.parametrize("lanes", [1, 255, 65_536, 1_048_576])
+def test_hll_add_slice_lane_counts_match_plain(lanes, wire, counted, cuda):
+    """K10 at 1 to 1,048,576 lanes on both wires, on slice 0 of 4 with
+    the counters (started just under the 2^32 wrap of their low lane, so
+    the add carries) and on slice 1 without: registers and counters equal
+    to the plain version's."""
+    lanes_t, bank_t, key_bits, valid, n_real = _k10_case(lanes, wire,
+                                                         lanes, cuda)
+    regs = _regs(16, cuda)
+    s = 0 if counted else 1
+    rl = (1 << 14) // 4
+    a = regs[:, s * rl:(s + 1) * rl].contiguous()
+    b = a.clone()
+    start = torch.tensor([[0xFFFFFF00 - (1 << 32), 1], [5, 0]],
+                         dtype=torch.int32, device=cuda)
+    ca, cb = (start.clone(), start.clone()) if counted else (None, None)
+    before = kernels.launches["hll_add_slice"]
+    kernels.hll_add_slice(a, lanes_t, valid, lo=s * rl, bank=bank_t,
+                          key_bits=key_bits, n_real=n_real, counts=ca)
+    kernels.hll_add_slice_plain(b, lanes_t, valid, s * rl, 14, bank_t,
+                                key_bits, n_real, cb)
+    torch.cuda.synchronize()
+    assert kernels.launches["hll_add_slice"] == before + 1
+    assert torch.equal(a, b)
+    if counted:
+        assert torch.equal(ca, cb)
+
+
 @pytest.mark.parametrize("sp", [2, 4, 8, 1024])
 def test_histogram_kernel_on_register_slices(sp, cuda):
     """K1 on each sp slice [256, 2^14 / sp] of filled registers: equal to
@@ -1343,7 +1428,8 @@ def test_histogram_kernel_on_register_slices(sp, cuda):
 @pytest.mark.parametrize("dp,sp", [(2, 4), (3, 2), (1, 8), (1, 1)])
 def test_mesh_engine_on_card_equals_cpu(dp, sp, cuda):
     """The engine on a mesh of repeated card cells equals the same mesh
-    of CPU cells (the plain versions) in every answer and state, and its
+    of CPU cells (the plain versions) in every answer and state, its
+    preload launches K11 once a cell (the 1 x 1 mesh: K3 once), and its
     steps launch only the mesh kernels (the 1 x 1 mesh: K3, K2, K4,
     K1)."""
     from attendance_tpu_torch.parallel import (ShardedSketchEngine,
@@ -1361,6 +1447,11 @@ def test_mesh_engine_on_card_equals_cpu(dp, sp, cuda):
                                   capacity=40_000, error_rate=0.01,
                                   num_banks=8, replica_sync="step")
         eng.preload(roster)
+        if dev == cuda:
+            # One K11 launch a cell over its share; one K3 on 1 x 1.
+            preload = {k: v for k, v in kernels.launches.items() if v}
+            assert preload == ({"bloom_add": 1} if dp * sp == 1
+                               else {"bloom_add_slice": dp * sp})
         v1 = eng.step(keys, banks).cpu().numpy()
         words = fused.pack_words(keys, banks, 21, eng.padded_size(5000))
         v2 = eng.step_words(words, 5000, 21).cpu().numpy()

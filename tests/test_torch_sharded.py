@@ -21,10 +21,10 @@ from attendance_tpu.models.hll import (
     estimate_from_histogram, hll_bucket_rank_np)
 from attendance_tpu.parallel.sharded import (
     ShardedSketchEngine as JaxEngine, make_mesh as jax_mesh)
+from attendance_tpu_torch.models.bloom import derive_bloom_params
 from attendance_tpu_torch.ops import kernels
 from attendance_tpu_torch.parallel import (
     Mesh, ShardedSketchEngine, make_mesh)
-from attendance_tpu_torch.parallel.sharded import PRELOAD_CHUNK
 
 # tests/test_sharded.py's shapes; (3, 2): dp divides neither the preload
 # chunk nor a power-of-two batch.
@@ -108,9 +108,7 @@ def test_slice_plain_versions_equal_jax_per_shard(dp, sp):
 
     for (first,), data in _shards(jax_eng.bits):
         words = torch.zeros(wl, dtype=torch.int32)
-        for i in range(0, len(roster), PRELOAD_CHUNK):
-            kernels.bloom_add_slice_plain(
-                words, _t(roster[i:i + PRELOAD_CHUNK]), params, first)
+        kernels.bloom_add_slice_plain(words, _t(roster), params, first)
         np.testing.assert_array_equal(words.numpy().view(np.uint32), data)
 
     probe = np.concatenate([rng.choice(roster, 1500),
@@ -161,6 +159,85 @@ def test_slice_plain_versions_equal_jax_per_shard(dp, sp):
                                           after[(r, 0, lo)][0])
             np.testing.assert_array_equal(counts.numpy().view(np.uint32),
                                           counts_after[r][0])
+
+
+@pytest.mark.parametrize("dp,sp", MESH_SHAPES + [(1, 1)])
+def test_one_call_preload_equals_jax_chunked_preload(dp, sp):
+    """The port's preload (one K11 call a cell over its replica's whole
+    share, or one K3 call on the 1 x 1 mesh) gives the JAX engine's
+    words, which it builds from 2^14-key chunks padded with a repeat of
+    a key: a 40,000-key roster is more than two chunks and no multiple
+    of one."""
+    jax_eng, port = engines(dp, sp, capacity=50_000)
+    rng = np.random.default_rng(100 + dp * 10 + sp)
+    roster = rng.choice(1 << 24, 40_000, replace=False).astype(np.uint32)
+    jax_eng.preload(roster)
+    port.preload(roster)
+    np.testing.assert_array_equal(port.get_state()[0],
+                                  jax_eng.get_state()[0])
+    # Every replica holds the union, not its own share.
+    for s in range(port.sp):
+        for r in range(1, port.dp):
+            assert torch.equal(port.bits[r][s], port.bits[0][s])
+    assert port.contains(roster).all()
+    assert_same_engine(jax_eng, port, rng.integers(
+        1 << 24, 1 << 25, 5_000).astype(np.uint32))
+
+
+@pytest.mark.parametrize("dp,sp", MESH_SHAPES + [(1, 1)])
+def test_preload_onto_a_filled_filter_equals_jax(dp, sp):
+    """A second roster preloaded onto a filter that already holds the
+    first (overlapping it, and of another length) gives the JAX
+    engine's words: the OR keeps what the filter held."""
+    jax_eng, port = engines(dp, sp, capacity=50_000)
+    rng = np.random.default_rng(200 + dp * 10 + sp)
+    first = rng.choice(1 << 24, 40_000, replace=False).astype(np.uint32)
+    second = np.concatenate([
+        first[:5_000], rng.integers(1 << 24, 1 << 25, 20_001)
+    ]).astype(np.uint32)
+    for eng in (jax_eng, port):
+        eng.preload(first)
+    held = port.get_state()[0]
+    for eng in (jax_eng, port):
+        eng.preload(second)
+    words = port.get_state()[0]
+    np.testing.assert_array_equal(words, jax_eng.get_state()[0])
+    assert not (held & ~words).any()
+    assert port.contains(first).all() and port.contains(second).all()
+    assert_same_engine(jax_eng, port)
+
+
+def _k11_slices(capacity: int, sp: int):
+    """(filter blocks, a slice's blocks) of the mesh engine's cut."""
+    params = derive_bloom_params(capacity, 0.01, "blocked")
+    chunk = sp * 512
+    m_alloc = -(-params.m_bits // chunk) * chunk
+    return params.m_bits // 512, m_alloc // 512 // sp
+
+
+@pytest.mark.parametrize("capacity,sp,share", [
+    (10_000_000, 4, 5_000_000), (10_000_000, 8, 10_000_000),
+    (10_000_000, 1, 10_000_000), (100_000, 4, 50_000),
+    (40_000, 3, 13_334), ((1 << 18) + 1, 8, (1 << 18) + 1),
+    (1_000, 8, 1)])
+def test_k11_binned_plan_covers_the_slice(capacity, sp, share):
+    """K11's binned plan for a replica's share into one slice: its tiles
+    (at most 2^9 blocks, 32 KB of shared memory in the OR pass) cover the
+    slice's blocks and no more tiles than that; its CTAs cover the
+    share; its scratch holds the per-tile and per-(CTA, tile) arrays and
+    a payload for a share that lies wholly in the slice (sp = 1); the
+    scatter pass's shared memory fits a CTA."""
+    num_blocks, slice_blocks = _k11_slices(capacity, sp)
+    assert slice_blocks * sp >= num_blocks
+    log2_bpt, chunk, scratch = kernels.bloom_add_plan(share, slice_blocks)
+    per_tile = 1 << log2_bpt
+    tiles = -(-slice_blocks // per_tile)
+    ctas = -(-share // chunk)
+    assert 0 <= log2_bpt <= 9 and 64 * per_tile <= 32 * 1024
+    assert tiles * per_tile >= slice_blocks > (tiles - 1) * per_tile
+    assert ctas * chunk >= share > (ctas - 1) * chunk
+    assert scratch == 2 * tiles + 1 + 2 * ctas * tiles + share
+    assert 4 * (3 * tiles + 2 + chunk) <= 227 * 1024
 
 
 @pytest.mark.parametrize("dp,sp", MESH_SHAPES)
