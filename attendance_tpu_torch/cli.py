@@ -720,11 +720,13 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--wire-format", default=d.wire_format,
                    choices=("auto", "delta", "seg", "word", "bytes"),
                    help="host->device wire of the fused step: auto adapts "
-                   "per frame (word -> seg -> delta on backpressure, with "
-                   "the native host pack); delta (db bits/event) and seg "
-                   "(kb bits/event) are the narrow wires; word packs the "
-                   "bank into the key's high bits; bytes is the (4 + w) "
-                   "byte wire. ATP_NATIVE=0 selects the numpy host pack")
+                   "per frame (word -> seg -> delta on backpressure; on "
+                   "one card with the native host pack); delta (db "
+                   "bits/event) and seg (kb bits/event) are the narrow "
+                   "wires, on a mesh one packed buffer a replica; word "
+                   "packs the bank into the key's high bits; bytes is the "
+                   "(4 + w) byte wire (no effect on a mesh). ATP_NATIVE=0 "
+                   "selects the numpy host pack")
     f.add_argument("--temporal-period-s", type=float,
                    default=d.temporal_period_s,
                    help="bucket width of the temporal sketch plane in "

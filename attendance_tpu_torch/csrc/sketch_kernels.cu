@@ -1,7 +1,7 @@
 // Hand-written Hopper kernels for the attendance sketches: the fused hot
 // path, the generic sketch store and the mesh engine.
 //
-// Eleven kernels (K1 in three forms, K2 in three wire variants), each
+// Twelve kernels (K1 in three forms, K2 in three wire variants), each
 // bound through a plain C entry point (ctypes, see ops/build.py and
 // ops/kernels.py). Every entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError() so a refused launch
@@ -66,8 +66,10 @@
 //                         (replaces the XLA bloom_contains,
 //                         attendance_tpu/models/bloom.py:158)
 //   K9 atp_bloom_contains_slice  BF.EXISTS against one mesh cell's slice of
-//                         the filter, a probe outside it counting as set
-//                         (replaces local_contains,
+//                         the filter, a probe outside it counting as set;
+//                         on a slice of under half the filter each CTA
+//                         first compacts its in-slice lanes, so fewer
+//                         warps probe (replaces local_contains,
 //                         attendance_tpu/parallel/sharded.py:304)
 //   K10 atp_hll_add_slice K5 on one cell's register slice, with the
 //                         replica's counters (replaces hll_add_local and
@@ -77,6 +79,12 @@
 //                         whole share of the roster, one thread per key
 //                         for a small batch (replaces bloom_add_kernel's
 //                         scatter, sharded.py:323)
+//   K12 atp_decode_seg, atp_decode_delta  a narrow wire's lanes alone, as
+//                         key and bank arrays, for the mesh engine's K9
+//                         and K10: K2-seg's and K2-delta's decode
+//                         (replaces decode_seg_lanes / decode_delta_lanes,
+//                         attendance_tpu/models/fused.py:292,416, in
+//                         make_step_narrow, parallel/sharded.py:446)
 //
 // The hash is MurmurHash3_x86_32 of each key's 4 little-endian bytes,
 // with the seeds of attendance_tpu_torch/ops/murmur3.py; all arithmetic
@@ -743,6 +751,28 @@ fused_step_kernel(Decode decode, int lanes,
   cta_add_counts(hit && real, !hit && real, counts);
 }
 
+// K12: a narrow wire's lanes alone, keys[i] and bank[i] (-1 on padding,
+// the real lanes first, as packed), for the mesh engine: K2's decode
+// (SegDecode or DeltaDecode, unchanged) without the probe and the add, so
+// that a replica's frame is decoded once on each device that holds its
+// cells and K9 and K10 run on the arrays (a decode templated into K9 and
+// K10 decodes it 2 sp times: 1.2-1.9x slower a replica on an NVIDIA H100
+// 80GB HBM3 at 700 W, PERF.md). Bound:
+// bytes, the wire's header and kb or db bits a lane read, 8 bytes a lane
+// written.
+template <class Decode>
+__global__ void __launch_bounds__(kThreads)
+decode_lanes_kernel(Decode decode, int lanes, uint32_t* __restrict__ keys,
+                    int32_t* __restrict__ bank) {
+  uint32_t key = 0u;
+  int32_t b = -1;
+  const int i = decode(&key, &b);
+  if (i < lanes) {
+    keys[i] = key;
+    bank[i] = b;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K3: the roster preload, binned by filter tile. The filter is cut into
 // tiles of 2^log2_bpt whole 64-byte blocks (at most 512: 32 KB of shared
@@ -1053,7 +1083,44 @@ hll_add_kernel(uint8_t* regs, int num_banks, int precision,
 // K4's warp-wide probe (warp_bloom_probe_block) on the slice. The engine
 // ANDs the cells' answers across sp before any K10 (a fused probe-and-add
 // per cell would count a key that another slice rejects).
+//
+// Two paths, picked by the wrapper from the slice's share of the filter
+// (ops/kernels.py bloom_contains_slice):
+//   direct   every lane of a warp takes part in the probe, a lane outside
+//            the slice on block 0 (it answers 1 whatever it reads). For a
+//            slice of half the filter or more, where most lanes are in it.
+//   compact  keys hash uniformly over the blocks, so on a slice of 1/sp of
+//            the filter only about 256 / sp lanes of a CTA are in it. Each
+//            warp puts its in-slice lanes' (key, block, thread) into its
+//            own 32 slots of shared memory (a ballot, ranks by popcount)
+//            and a lane outside the slice writes its 1 at once; after one
+//            __syncthreads the first ceil(m / 32) warps of the CTA run the
+//            probe on its m compacted lanes (each slot finds its source
+//            from the warps' counts) and write the answers straight to
+//            out. The hash of h2 and h3, the staged loads and the k-bit
+//            test are issued for about a quarter of the warps at sp = 4.
+//            On an NVIDIA H100 80GB HBM3 at 700 W it was 4-9% faster
+//            than direct at 131,072 lanes on sp = 4 and 8, 23-29% at
+//            1,048,576, even at 65,536, and 4-13% slower on sp = 2 at
+//            65,536 (PERF.md). A warp vote that skips the probe of a warp
+//            with no in-slice lane, a compaction within each warp, a
+//            compaction with a CTA-wide scan and three barriers, and K9
+//            and K10 each decoding a narrow wire themselves were measured
+//            and not kept (PERF.md).
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t slice_rel(const uint32_t* __restrict__ keys,
+                                              int key_bits, int n, int i,
+                                              uint32_t first_block,
+                                              uint32_t num_blocks,
+                                              uint64_t magic, uint32_t* key) {
+  uint32_t k = i < n ? keys[i] : 0u;
+  if (key_bits > 0) k &= (1u << key_bits) - 1u;
+  *key = k;
+  // Unsigned: a block below the slice wraps past slice_blocks.
+  return fastmod(murmur3_u32(k, kSeedBloomA), magic, num_blocks) -
+         first_block;
+}
+
 __global__ void __launch_bounds__(kThreads)
 bloom_contains_slice_kernel(const uint32_t* __restrict__ words,
                             uint32_t first_block, uint32_t slice_blocks,
@@ -1062,15 +1129,63 @@ bloom_contains_slice_kernel(const uint32_t* __restrict__ words,
                             int n, uint8_t* __restrict__ out) {
   __shared__ uint4 stage[kWarps * 128];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  uint32_t key = i < n ? keys[i] : 0u;
-  if (key_bits > 0) key &= (1u << key_bits) - 1u;
-  // Unsigned: a block below the slice wraps past slice_blocks.
+  uint32_t key;
   const uint32_t rel =
-      fastmod(murmur3_u32(key, kSeedBloomA), magic, num_blocks) - first_block;
+      slice_rel(keys, key_bits, n, i, first_block, num_blocks, magic, &key);
   const bool mine = i < n && rel < slice_blocks;
   const bool hit = warp_bloom_probe_block(words, mine ? rel : 0u, k, key,
                                           mine, stage + (threadIdx.x >> 5) * 128);
   if (i < n) out[i] = (hit || !mine) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_contains_slice_compact_kernel(const uint32_t* __restrict__ words,
+                                    uint32_t first_block,
+                                    uint32_t slice_blocks, uint32_t num_blocks,
+                                    uint64_t magic, int k,
+                                    const uint32_t* __restrict__ keys,
+                                    int key_bits, int n,
+                                    uint8_t* __restrict__ out) {
+  __shared__ uint4 stage[kWarps * 128];
+  __shared__ uint2 slot_key_block[kThreads];
+  __shared__ uint8_t slot_thread[kThreads];
+  __shared__ int warp_count[kWarps];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int i = blockIdx.x * kThreads + tid;
+  uint32_t key;
+  const uint32_t rel =
+      slice_rel(keys, key_bits, n, i, first_block, num_blocks, magic, &key);
+  const bool mine = i < n && rel < slice_blocks;
+  const uint32_t mask = __ballot_sync(0xFFFFFFFFu, mine);
+  if (lane == 0) warp_count[warp] = __popc(mask);
+  if (mine) {
+    uint32_t below;  // the lanes of this warp below this one
+    asm("mov.u32 %0, %%lanemask_lt;" : "=r"(below));
+    const int at = warp * 32 + __popc(mask & below);
+    slot_key_block[at] = make_uint2(key, rel);
+    slot_thread[at] = static_cast<uint8_t>(tid);
+  }
+  if (i < n && !mine) out[i] = 1;
+  __syncthreads();
+  // Compacted slot `tid` is the (tid - total)-th in-slice lane of the warp
+  // whose counts' prefix `total` is the last at or below tid.
+  int total = 0;
+  int src = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_count[w];
+    if (tid >= total && tid < total + c) src = w * 32 + (tid - total);
+    total += c;
+  }
+  if (warp * 32 < total) {  // warp-uniform: the probe is warp-wide
+    const bool present = tid < total;
+    const uint2 kb = present ? slot_key_block[src] : make_uint2(0u, 0u);
+    const bool hit = warp_bloom_probe_block(words, kb.y, k, kb.x, present,
+                                            stage + warp * 128);
+    if (present) out[blockIdx.x * kThreads + slot_thread[src]] = hit ? 1 : 0;
+  }
 }
 
 // K10: K5 on the cell's register slice. Lane i is real when its word's
@@ -1623,19 +1738,17 @@ inline size_t counts_smem(int wire_banks) {
   return sizeof(uint32_t) * (static_cast<size_t>(wire_banks) + 1);
 }
 
-// K2 over one frame with the wire's decode, which takes `smem` bytes of
-// dynamic shared memory. `dependent`: launched as a programmatic
-// dependent of the kernel before it on the stream (K2-delta's step after
-// pass 1), so that its CTAs may start while that kernel runs.
-template <class Decode>
-int launch_fused_step(const Decode& decode, int lanes, size_t smem,
-                      bool dependent, const void* bloom,
-                      unsigned int num_blocks, int k, void* regs,
-                      int num_banks, int precision, void* counts,
-                      void* valid, cudaStream_t s) {
+// A kernel of one thread a lane over `lanes` lanes, with `smem` bytes of
+// dynamic shared memory (a narrow wire's decode). `dependent`: launched
+// as a programmatic dependent of the kernel before it on the stream
+// (K2-delta's step and K12-delta after pass 1), so that its CTAs may
+// start while that kernel runs.
+template <class... Params, class... Args>
+int launch_lanes(void (*kernel)(Params...), int lanes, size_t smem,
+                 bool dependent, cudaStream_t s, Args... args) {
   cudaError_t err = cudaSuccess;
   if (smem > kSmemNoOptIn) {
-    err = cudaFuncSetAttribute(fused_step_kernel<Decode>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1650,13 +1763,40 @@ int launch_fused_step(const Decode& decode, int lanes, size_t smem,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = dependent ? 1 : 0;
-  err = cudaLaunchKernelEx(
-      &cfg, fused_step_kernel<Decode>, decode, lanes,
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 over one frame with the wire's decode, which takes `smem` bytes of
+// dynamic shared memory.
+template <class Decode>
+int launch_fused_step(const Decode& decode, int lanes, size_t smem,
+                      bool dependent, const void* bloom,
+                      unsigned int num_blocks, int k, void* regs,
+                      int num_banks, int precision, void* counts,
+                      void* valid, cudaStream_t s) {
+  return launch_lanes(
+      fused_step_kernel<Decode>, lanes, smem, dependent, s, decode, lanes,
       static_cast<const uint32_t*>(bloom), static_cast<uint32_t>(num_blocks),
       fastmod_magic(num_blocks), k, static_cast<uint8_t*>(regs), num_banks,
       precision, static_cast<unsigned long long*>(counts),
       static_cast<uint8_t*>(valid));
-  if (err != cudaSuccess) return static_cast<int>(err);
+}
+
+// K2-delta's pass 1 (delta_sums_kernel) into scratch: uint32
+// tile_sums[tiles] then group_sums[ceil(tiles / 8)], tiles = ceil(lanes /
+// 256); returns the DeltaDecode that reads them.
+int launch_delta_sums(const uint32_t* buf, int db, int lanes,
+                      int wire_banks, void* scratch, cudaStream_t s,
+                      DeltaDecode* decode) {
+  const int tiles = blocks_for(lanes);
+  uint32_t* tile_sums = static_cast<uint32_t*>(scratch);
+  uint32_t* group_sums = tile_sums + tiles;
+  delta_sums_kernel<<<(tiles + kGroupTiles - 1) / kGroupTiles, kThreads, 0,
+                      s>>>(buf + 2 * static_cast<size_t>(wire_banks), db,
+                           lanes, tiles, tile_sums, group_sums);
+  *decode = DeltaDecode{buf, wire_banks, db, lanes, tile_sums, group_sums};
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1889,19 +2029,40 @@ int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
                          int num_banks, int precision, void* counts,
                          void* valid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* b = static_cast<const uint32_t*>(buf);
-  const int tiles = blocks_for(lanes);
-  uint32_t* tile_sums = static_cast<uint32_t*>(scratch);
-  uint32_t* group_sums = tile_sums + tiles;
-  delta_sums_kernel<<<(tiles + kGroupTiles - 1) / kGroupTiles, kThreads, 0,
-                      s>>>(b + 2 * static_cast<size_t>(wire_banks), db, lanes,
-                           tiles, tile_sums, group_sums);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_fused_step(
-      DeltaDecode{b, wire_banks, db, lanes, tile_sums, group_sums}, lanes,
-      counts_smem(wire_banks), true, bloom, num_blocks, k, regs, num_banks,
-      precision, counts, valid, s);
+  DeltaDecode decode;
+  const int err = launch_delta_sums(static_cast<const uint32_t*>(buf), db,
+                                    lanes, wire_banks, scratch, s, &decode);
+  if (err != 0) return err;
+  return launch_fused_step(decode, lanes, counts_smem(wire_banks), true,
+                           bloom, num_blocks, k, regs, num_banks, precision,
+                           counts, valid, s);
+}
+
+// K12-seg: keys and bank int32[lanes] of the seg wire (K2-seg's buf), in
+// one launch.
+int atp_decode_seg(const void* buf, int kb, int lanes, int wire_banks,
+                   void* keys, void* bank, void* stream) {
+  return launch_lanes(
+      decode_lanes_kernel<SegDecode>, lanes, counts_smem(wire_banks), false,
+      static_cast<cudaStream_t>(stream),
+      SegDecode{static_cast<const uint32_t*>(buf), wire_banks, kb, lanes},
+      lanes, static_cast<uint32_t*>(keys), static_cast<int32_t*>(bank));
+}
+
+// K12-delta: the same for the delta wire (K2-delta's buf and scratch), in
+// K2-delta's two launches: pass 1, then the decode as its programmatic
+// dependent.
+int atp_decode_delta(const void* buf, int db, int lanes, int wire_banks,
+                     void* scratch, void* keys, void* bank, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DeltaDecode decode;
+  const int err = launch_delta_sums(static_cast<const uint32_t*>(buf), db,
+                                    lanes, wire_banks, scratch, s, &decode);
+  if (err != 0) return err;
+  return launch_lanes(decode_lanes_kernel<DeltaDecode>, lanes,
+                      counts_smem(wire_banks), true, s, decode, lanes,
+                      static_cast<uint32_t*>(keys),
+                      static_cast<int32_t*>(bank));
 }
 
 // scratch == nullptr: one thread per key; else the binned passes.
@@ -2010,18 +2171,26 @@ int atp_hll_add(void* regs, int num_banks, int precision, const void* bank,
 }
 
 // K9: first_word and slice_words are whole 16-word blocks of a filter of
-// num_blocks blocks; key_bits > 0 reads `keys` as the word wire.
+// num_blocks blocks; key_bits > 0 reads `keys` as the word wire; compact
+// != 0 takes the compact path, else the direct one.
 int atp_bloom_contains_slice(const void* words, unsigned int first_word,
                              unsigned int slice_words, unsigned int num_blocks,
                              int k, const void* keys, int key_bits, int n,
-                             void* out, void* stream) {
-  if (n > 0) {
-    bloom_contains_slice_kernel<<<blocks_for(n), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(words), first_word / 16u,
-        slice_words / 16u, num_blocks, fastmod_magic(num_blocks), k,
-        static_cast<const uint32_t*>(keys), key_bits, n,
-        static_cast<uint8_t*>(out));
+                             void* out, int compact, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* w = static_cast<const uint32_t*>(words);
+  const uint32_t* kk = static_cast<const uint32_t*>(keys);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const uint64_t magic = fastmod_magic(num_blocks);
+  if (compact) {
+    bloom_contains_slice_compact_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        w, first_word / 16u, slice_words / 16u, num_blocks, magic, k, kk,
+        key_bits, n, o);
+  } else {
+    bloom_contains_slice_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        w, first_word / 16u, slice_words / 16u, num_blocks, magic, k, kk,
+        key_bits, n, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

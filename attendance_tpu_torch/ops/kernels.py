@@ -32,7 +32,7 @@ launches = {"hll_histogram": 0, "fused_step": 0, "fused_step_seg": 0,
             "bloom_contains_bytes": 0, "hll_histogram_rows": 0,
             "hll_union_histogram": 0, "bloom_pack_bytes": 0,
             "bloom_contains_slice": 0, "hll_add_slice": 0,
-            "bloom_add_slice": 0}
+            "bloom_add_slice": 0, "decode_seg": 0, "decode_delta": 0}
 
 
 def reset_launches() -> None:
@@ -529,11 +529,9 @@ def delta_scratch_words(padded: int) -> int:
     return tiles + -(-tiles // 8)
 
 
-def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
-                 counts: torch.Tensor, buf: torch.Tensor,
-                 params: BloomParams, width: int, padded: int,
-                 num_banks: int, precision: int) -> torch.Tensor:
-    """The shared wrapper of K2-seg (``name`` "seg") and K2-delta."""
+def _check_narrow_wire(name: str, buf: torch.Tensor, width: int,
+                       padded: int, num_banks: int) -> None:
+    """The checks of a seg (``name`` "seg") or delta wire buffer."""
     # Imported here: models.fused builds its steps on this module.
     from attendance_tpu_torch.models.fused import (
         delta_buf_words, seg_buf_words)
@@ -546,6 +544,14 @@ def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
     _require(buf.dtype == torch.int32 and buf.dim() == 1
              and buf.shape[0] == words,
              f"{name} wire must be int32[{words}] (uint32 words)")
+
+
+def _narrow_step(name: str, bloom: torch.Tensor, regs: torch.Tensor,
+                 counts: torch.Tensor, buf: torch.Tensor,
+                 params: BloomParams, width: int, padded: int,
+                 num_banks: int, precision: int) -> torch.Tensor:
+    """The shared wrapper of K2-seg (``name`` "seg") and K2-delta."""
+    _check_narrow_wire(name, buf, width, padded, num_banks)
     _check_step_state(bloom, regs, counts, params, precision)
     tensors = (buf, bloom, regs, counts)
     if all(t.device.type == "cpu" for t in tensors):
@@ -636,6 +642,75 @@ def fused_step_delta(bloom: torch.Tensor, regs: torch.Tensor,
     """
     return _narrow_step("delta", bloom, regs, counts, buf, params, db,
                         padded, num_banks, precision)
+
+
+# ---------------------------------------------------------------------------
+# K12: a narrow wire's lanes alone, for the mesh engine
+# ---------------------------------------------------------------------------
+
+def _decode_lanes(name: str, buf: torch.Tensor, width: int, padded: int,
+                  num_banks: int):
+    """The shared wrapper of K12-seg (``name`` "seg") and K12-delta."""
+    _check_narrow_wire(name, buf, width, padded, num_banks)
+    if buf.device.type == "cpu":
+        plain = (decode_seg_lanes_plain if name == "seg"
+                 else decode_delta_lanes_plain)
+        keys, bank = plain(buf, width, padded, num_banks)
+        return to_i32(keys), bank.to(torch.int32)
+    _require_cuda(buf)
+    _require(num_banks <= NARROW_MAX_BANKS,
+             f"{name} kernel takes at most {NARROW_MAX_BANKS} header banks")
+    keys = torch.empty(padded, dtype=torch.int32, device=buf.device)
+    bank = torch.empty(padded, dtype=torch.int32, device=buf.device)
+    with torch.cuda.device(buf.device):
+        if name == "seg":
+            rc = library().atp_decode_seg(
+                buf.data_ptr(), width, padded, num_banks, keys.data_ptr(),
+                bank.data_ptr(), _stream(buf))
+        else:
+            sums = torch.empty(delta_scratch_words(padded),
+                               dtype=torch.int32, device=buf.device)
+            rc = library().atp_decode_delta(
+                buf.data_ptr(), width, padded, num_banks, sums.data_ptr(),
+                keys.data_ptr(), bank.data_ptr(), _stream(buf))
+    _check_launch(rc, f"atp_decode_{name}")
+    launches[f"decode_{name}"] += 1
+    return keys, bank
+
+
+def decode_seg(buf: torch.Tensor, *, kb: int, padded: int,
+               num_banks: int):
+    """K12-seg: (keys, bank) int32[padded] of the seg wire ``buf`` (K2-seg's
+    buffer): the real lanes first, in packed (bank-sorted) order; a
+    padding lane has the key its bits hold (0 as packed) and bank -1.
+
+    Replaces ``decode_seg_lanes`` (attendance_tpu/models/fused.py:292) in
+    B12's ``make_step_narrow`` (attendance_tpu/parallel/sharded.py:446),
+    where each mesh device decodes its replica's buffer. Bound: bytes, the
+    wire (the header and kb bits a lane) read once and 8 bytes a lane
+    written. Design: K2-seg's decode alone, one launch of one thread a
+    lane (each CTA scans the header's counts in shared memory, at most
+    ``NARROW_MAX_BANKS`` banks), so the mesh decodes a replica once on
+    each device of its cells and runs K9 and K10 on the arrays.
+    """
+    return _decode_lanes("seg", buf, kb, padded, num_banks)
+
+
+def decode_delta(buf: torch.Tensor, *, db: int, padded: int,
+                 num_banks: int):
+    """K12-delta: (keys, bank) int32[padded] of the delta wire ``buf``
+    (K2-delta's buffer), as :func:`decode_seg`; a padding lane's key is
+    bank 0's base plus the frame's delta prefix, as in the JAX decode.
+
+    Replaces ``decode_delta_lanes`` (attendance_tpu/models/fused.py:416)
+    in ``make_step_narrow`` (attendance_tpu/parallel/sharded.py:446).
+    Bound: bytes, the wire (two header words a bank and db bits a lane)
+    read once and 8 bytes a lane written. Design: K2-delta's decode
+    alone, in its two launches (the tile and group delta sums into an
+    int32 scratch, then the decode as their programmatic dependent); one
+    launch in :data:`launches`.
+    """
+    return _decode_lanes("delta", buf, db, padded, num_banks)
 
 
 # ---------------------------------------------------------------------------
@@ -1041,7 +1116,8 @@ def bloom_contains_slice_plain(words: torch.Tensor, keys: torch.Tensor,
 
 def bloom_contains_slice(words: torch.Tensor, keys: torch.Tensor,
                          params: BloomParams, *, first_word: int,
-                         key_bits: int = 0) -> torch.Tensor:
+                         key_bits: int = 0,
+                         compact: Optional[bool] = None) -> torch.Tensor:
     """K9: a mesh cell's partial BF.EXISTS, uint8[B] (1 where every probe
     of the key that falls in this slice is set, or none falls in it).
     ``key_bits > 0``: ``keys`` is the word wire (int32[B] of ``bank <<
@@ -1049,15 +1125,22 @@ def bloom_contains_slice(words: torch.Tensor, keys: torch.Tensor,
     ANDs the cells' answers across sp.
 
     Replaces ``local_contains`` (attendance_tpu/parallel/sharded.py:304),
-    in ``step_kernel`` (:384), ``make_step_words`` (:399) and
-    ``query_kernel`` (:464). Bound: bytes, as K4's (4B in, B out, 64
-    bytes per distinct block in the slice), or operations (the key's
-    block hash for every lane, K4's probe for the lanes of this slice).
-    Design: one thread per key; a key's k probes lie in one block and a
-    slice is whole blocks, so the slice holds all of them or none: one
-    test of the block index, then K4's warp-wide probe on the slice's
-    words (the words must start 64-byte aligned). JAX tests each probe;
-    the plain version does, and the tests hold the two equal.
+    in ``step_kernel`` (:384), ``make_step_words`` (:399),
+    ``make_step_narrow`` (:446) and ``query_kernel`` (:464). Bound: bytes,
+    as K4's (4B in, B out, 64 bytes per distinct block in the slice), or
+    operations (the key's block hash for every lane, K4's probe for the
+    lanes of this slice). Design: one thread per key; a key's k probes
+    lie in one block and a slice is whole blocks, so the slice holds all
+    of them or none: one test of the block index, then K4's warp-wide
+    probe on the slice's words (the words must start 64-byte aligned).
+    Keys hash uniformly over the blocks, so a slice of 1/sp of the filter
+    holds about 1/sp of the lanes: on a slice of less than half the
+    filter (sp >= 3) each CTA first compacts its in-slice lanes into
+    shared memory and only the warps that hold them probe (one
+    ``__syncthreads``); on a larger slice every warp probes directly, as
+    the compaction lost there at 65,536 lanes (PERF.md). ``compact``
+    forces a path. JAX tests each probe; the plain version does, and the
+    tests hold the two equal.
     """
     _check_filter_slice(words, keys, params, first_word, key_bits)
     if words.device.type == "cpu" and keys.device.type == "cpu":
@@ -1068,11 +1151,14 @@ def bloom_contains_slice(words: torch.Tensor, keys: torch.Tensor,
     out = torch.empty(keys.shape[0], dtype=torch.uint8, device=keys.device)
     if keys.shape[0] == 0:
         return out
+    num_blocks = params.m_bits // BLOCK_BITS
+    if compact is None:
+        compact = 2 * (words.shape[0] // 16) < num_blocks
     with torch.cuda.device(words.device):
         rc = library().atp_bloom_contains_slice(
-            words.data_ptr(), first_word, words.shape[0],
-            params.m_bits // BLOCK_BITS, params.k, keys.data_ptr(),
-            key_bits, keys.shape[0], out.data_ptr(), _stream(words))
+            words.data_ptr(), first_word, words.shape[0], num_blocks,
+            params.k, keys.data_ptr(), key_bits, keys.shape[0],
+            out.data_ptr(), int(compact), _stream(words))
     _check_launch(rc, "atp_bloom_contains_slice")
     launches["bloom_contains_slice"] += 1
     return out

@@ -16,7 +16,10 @@ Counterpart of ``attendance_tpu/parallel/sharded.py``. State layout:
 Per step, each cell answers for the probes its slice holds (K9, a probe
 outside counting as set), the replica ANDs its cells' answers, and only
 then does each cell max the valid lanes' ranks into its slice (K10; the
-cell s = 0 also bumps the replica's counters). Preload adds each
+cell s = 0 also bumps the replica's counters). On the seg and delta
+wires (``step_narrow``) each replica's own packed buffer is first
+decoded into key and bank arrays (K12), once on each device of its
+cells. Preload adds each
 replica's whole share of the roster into every slice, one K11 call a
 cell, and ORs the slices across dp. PFCOUNT takes the register max
 across dp, then K1 on each slice, summed across sp.
@@ -35,8 +38,8 @@ A mesh whose devices repeat one card (``make_mesh(..., devices=[cuda:0]
 * 8)``, as the tests' ``["cpu"] * 8``) runs every slice program on 1/sp
 of the state and every collective across those cells: the counterpart of
 JAX's virtual CPU devices. The 1 x 1 mesh runs the single-card kernels
-(K3, K2, K4, K1) on the single-card state layout, as JAX's
-``_build_single_kernels`` does.
+(K3, K2 and K2-seg/-delta, K4, K1) on the single-card state layout, as
+JAX's ``_build_single_kernels`` does.
 """
 
 from __future__ import annotations
@@ -50,8 +53,8 @@ import torch.distributed as dist
 from attendance_tpu_torch.models.bloom import (
     BLOCK_BITS, BloomParams, bloom_packed_set_bits, derive_bloom_params)
 from attendance_tpu_torch.models.fused import (
-    SketchState, decode_counts, fused_step_bytes, fused_step_words,
-    pack_bytes)
+    SketchState, decode_counts, fused_step_bytes, fused_step_delta,
+    fused_step_seg, fused_step_words, pack_bytes)
 from attendance_tpu_torch.models.hll import estimate_from_histogram
 from attendance_tpu_torch.ops import kernels
 
@@ -284,6 +287,66 @@ class ShardedSketchEngine:
         bbuf, _ = self._pad(bank_idx, -1, np.int32)
         return self._step(kbuf.view(np.int32), bbuf, n, 0)
 
+    def step_narrow(self, bufs: np.ndarray, mode: str, width: int,
+                    padded_local: int) -> torch.Tensor:
+        """Fused validate+count over the seg or delta wire (``mode``):
+        ``bufs`` uint32[dp, words] holds one independently packed buffer
+        per replica, each ``padded_local`` lanes of its contiguous slice
+        of the frame, with a header of ``num_banks`` banks. Returns the
+        validity of every lane (bool[dp * padded_local]) in packed
+        per-slice order; the caller holds the pack permutations.
+
+        The 1 x 1 mesh runs K2-seg or K2-delta on the single-card state.
+        A larger mesh decodes replica g's buffer once on each distinct
+        device of its cells (K12), then runs K9 on each cell and the AND
+        across sp, and K10 with the decoded banks, its real lanes the
+        header's total (cell s = 0 bumps the replica's counters)."""
+        bufs = np.ascontiguousarray(bufs, dtype=np.uint32)
+        if mode not in ("seg", "delta"):
+            raise ValueError(f"narrow wire must be seg or delta, got {mode!r}")
+        if bufs.ndim != 2 or bufs.shape[0] != self.dp:
+            raise ValueError(f"bufs must be uint32[dp={self.dp}, words], "
+                             f"got {bufs.shape}")
+        nb = self.num_banks
+        if self.single:
+            step = fused_step_seg if mode == "seg" else fused_step_delta
+            buf = torch.from_numpy(bufs[0].view(np.int32)).to(self.device)
+            return step(self._state(), buf, self.params, width, padded_local,
+                        nb, self.precision)
+        decode = kernels.decode_seg if mode == "seg" else kernels.decode_delta
+        wkey = "kb" if mode == "seg" else "db"
+        answers = []
+        for r, g, row in self._rows():
+            host = torch.from_numpy(bufs[g].view(np.int32))
+            keys, banks = {}, {}
+            for d in row:
+                if d not in keys:
+                    keys[d], banks[d] = decode(
+                        host.to(d), padded=padded_local, num_banks=nb,
+                        **{wkey: width})
+            # The header's total: the slice's real lanes, packed first.
+            n_real = min(int(bufs[g, :nb].sum(dtype=np.int64)), padded_local)
+            valid = self._partial_and(r, row, keys, slice(None), 0)
+            for s, d in enumerate(row):
+                kernels.hll_add_slice(
+                    self.regs[r][s], keys[d], valid.to(d),
+                    lo=s * self.regs_local, precision=self.precision,
+                    bank=banks[d], n_real=n_real,
+                    counts=self.counts[r] if s == 0 else None)
+            answers.append(valid)
+        return self._gather_valid(answers).to(torch.bool)
+
+    def _gather_valid(self, answers: List[torch.Tensor]) -> torch.Tensor:
+        """After a step: ``replica_sync="step"``'s register max, then the
+        replicas' validity concatenated in replica order (across the
+        processes of a multi-process mesh)."""
+        if self.replica_sync == "step":
+            self._sync_replicas()
+        valid = torch.cat([a.to(self.device) for a in answers])
+        if self.mesh.multiprocess:
+            valid = self._all_gather(valid)
+        return valid
+
     def _partial_and(self, r: int, row, lanes, sl: slice,
                      kw: int) -> torch.Tensor:
         """Replica row r's validity of lanes[sl]: K9 on each of its cells,
@@ -316,12 +379,7 @@ class ShardedSketchEngine:
                     key_bits=kw, n_real=n_real,
                     counts=self.counts[r] if s == 0 else None)
             answers.append(valid)
-        if self.replica_sync == "step":
-            self._sync_replicas()
-        valid = torch.cat([a.to(self.device) for a in answers])
-        if self.mesh.multiprocess:
-            valid = self._all_gather(valid)
-        return valid[:n].to(torch.bool)
+        return self._gather_valid(answers)[:n].to(torch.bool)
 
     def _sync_replicas(self) -> None:
         """``replica_sync="step"``: every replica's registers := their max

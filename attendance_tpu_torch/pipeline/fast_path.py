@@ -54,8 +54,9 @@ Mesh: with ``num_shards * num_replicas > 1`` the sketch state lives in a
 process's CUDA devices, dp spanning the processes of a torchrun group,
 unless a ``mesh`` is passed). A frame goes through the numpy day map
 onto the word wire (or, when key and bank bits do not fit a word, as
-key and bank arrays); the seg and delta wires have no mesh counterpart
-yet. The mesh's barriers run on the hot loop's thread, as JAX's do: its
+key and bank arrays), or onto the seg or delta wire with one packed
+buffer a replica (forced, or picked by the ``auto`` ladder). The mesh's
+barriers run on the hot loop's thread, as JAX's do: its
 state reads are collectives on a multi-process mesh, where only process
 0 writes files and gossips.
 
@@ -330,18 +331,28 @@ class _ScatterValidity:
     lane -> original index permutation. ``out[perm] = valid[:n]`` is
     made only when a reader asks (``np.asarray``, as
     ``ColumnarEventStore.to_columns`` does), so the hot loop neither
-    waits on the card nor scatters."""
+    waits on the card nor scatters.
 
-    __slots__ = ("_valid", "_perm", "_n")
+    One card's pack puts all n real lanes first (``lanes=None``); a
+    mesh's per-replica packs leave them at the front of each replica's
+    slice, so the mesh passes their positions ``lanes`` (len n, aligned
+    with ``perm``)."""
 
-    def __init__(self, valid: torch.Tensor, perm: np.ndarray, n: int):
+    __slots__ = ("_valid", "_perm", "_n", "_lanes")
+
+    def __init__(self, valid: torch.Tensor, perm: np.ndarray, n: int,
+                 lanes: Optional[np.ndarray] = None):
         self._valid, self._perm, self._n = valid, perm, n
+        self._lanes = lanes
 
     def __len__(self) -> int:
         return self._n
 
     def __array__(self, dtype=None, copy=None):
-        v = self._valid[:self._n].cpu().numpy()
+        if self._lanes is None:
+            v = self._valid[:self._n].cpu().numpy()
+        else:
+            v = self._valid.cpu().numpy()[self._lanes]
         out = np.empty(self._n, v.dtype)
         out[self._perm] = v
         if dtype is not None and np.dtype(dtype) != out.dtype:
@@ -594,15 +605,8 @@ class FusedPipeline:
                 self.query_engine, port=0 if port < 0 else port).start()
 
     def _make_engine(self, mesh, num_banks: int) -> ShardedSketchEngine:
-        """The mesh's engine. The seg and delta wires have no mesh
-        counterpart yet (ROADMAP item 10b); ``auto`` stays on the word
-        wire there."""
+        """The mesh's engine."""
         cfg = self.config
-        if cfg.wire_format in ("seg", "delta"):
-            raise ValueError(
-                f"--wire-format {cfg.wire_format} is not ported to a mesh "
-                "yet (ROADMAP item 10b): use word or auto with "
-                "--num-shards/--num-replicas")
         if cfg.wire_format == "bytes":
             logger.warning(
                 "--wire-format=bytes has no effect with num_shards/"
@@ -868,7 +872,7 @@ class FusedPipeline:
             # a host bank array).
             self._note_dirty(cols["lecture_day"])
         if self.engine is not None:
-            valid_n = stored = self._dispatch_sharded(cols, n)
+            valid_n, stored = self._dispatch_sharded(cols, n)
         else:
             padded = 256
             while padded < n:
@@ -1070,17 +1074,26 @@ class FusedPipeline:
         t = self._lap("pack", t)
         return self._launch_wide(buf, use_words, kw, t), None
 
-    def _dispatch_sharded(self, cols: Dict[str, np.ndarray],
-                          n: int) -> torch.Tensor:
-        """One frame onto the mesh: the numpy day map, then the packed
-        word wire (4 bytes an event) when key and bank bits fit a word,
-        else separate key and bank arrays; returns valid[:n]. The word
-        wire on a mesh is the JAX package's; its narrow wires are item
-        10b, so ``auto`` stays here."""
+    def _dispatch_sharded(self, cols: Dict[str, np.ndarray], n: int):
+        """One frame onto the mesh: the numpy day map, then the seg or
+        delta wire (``--wire-format``, or the ``auto`` ladder's pick,
+        which on a mesh climbs with or without the native pack, as in
+        JAX), else the packed word wire (4 bytes an event) when key and
+        bank bits fit a word, else separate key and bank arrays. Returns
+        (the device validity, what the store keeps): valid[:n] on the
+        wide wires; on the narrow ones the packed per-slice vector and
+        its lazy original-order view."""
         sid, days = cols["student_id"], cols["lecture_day"]
         t = time.perf_counter()
         banks = self._banks_for(days)
         t = self._lap("bank_map", t)
+        wire = self.config.wire_format
+        if wire == "auto":
+            wire = self._auto_wire()
+        if wire in ("seg", "delta"):
+            valid, lanes, orig = self._dispatch_sharded_narrow(
+                sid, banks, days, n, wire, t)
+            return valid, _ScatterValidity(valid, orig, n, lanes=lanes)
         num_banks = self._num_banks()
         kw = self._pick_kw(int(sid.max()).bit_length(), num_banks)
         if kw + num_banks.bit_length() <= 32:
@@ -1093,7 +1106,94 @@ class FusedPipeline:
             self._count_wire("arrays")
             valid = self.engine.step(sid, banks)
         self._lap("dispatch", t)
-        return valid
+        return valid, valid
+
+    def _dispatch_sharded_narrow(self, sid: np.ndarray, banks: np.ndarray,
+                                 days: np.ndarray, n: int, mode: str,
+                                 t: float):
+        """The seg or delta wire onto the mesh: the frame split into dp
+        contiguous slices of ``padded_local`` lanes, each packed on its
+        own (one uint32[dp, words] array, a replica's row for its
+        cells), the JAX package's protocol. Returns (valid, lanes,
+        orig): the device validity in packed per-slice order, and the
+        positions of the real lanes in it with their original indices.
+
+        A slice packs natively (the single card's passes) where it can.
+        ``banks`` is resolved already, so a native LUT miss is a day
+        outside the LUT window: that slice takes the numpy pack with the
+        resolved banks, and the native pack is skipped for the next 32
+        frames. The replicas share one seg width (the key-width hint) and
+        one delta width (from every slice's scan, then the decayed
+        hint)."""
+        engine = self.engine
+        dp = engine.dp
+        num_banks = engine.num_banks
+        padded_local = engine.padded_size(n) // dp
+        bounds = [min(n, r * padded_local) for r in range(dp + 1)]
+        slices = [(sid[bounds[r]:bounds[r + 1]],
+                   banks[bounds[r]:bounds[r + 1]],
+                   days[bounds[r]:bounds[r + 1]]) for r in range(dp)]
+        nat = self._native
+        if nat is not None and self._native_skip > 0:
+            self._native_skip -= 1
+            nat = None
+        if nat is not None and self._day_base is None:
+            self._rebuild_lut(int(days.min()))
+        if mode == "seg":
+            width = min(max(int(sid.max()).bit_length(), 1,
+                            self._kw_hint), 32)
+            self._kw_hint = width
+        else:
+            scans = []
+            for ks, bs, ds in slices:
+                scan = None
+                if nat is not None and len(ks):
+                    scan, miss = nat.delta_scan(
+                        ks, ds, self._day_lut, self._day_base, num_banks)
+                    if scan is None and miss >= 0:
+                        self._native_skip = 32
+                if scan is None:
+                    scan = delta_scan(ks, bs, num_banks)
+                scans.append(scan)
+            needed = max(scan[-1] for scan in scans)
+            width = pick_delta_width(self._db_hint, needed)
+            self._db_hint = self._decayed_db(width, needed)
+        bufs = None
+        lanes = np.empty(n, np.int64)
+        orig = np.empty(n, np.int64)
+        pos = 0
+        for r, (ks, bs, ds) in enumerate(slices):
+            buf = perm = None
+            if mode == "seg":
+                if nat is not None and len(ks):
+                    buf, perm, miss = nat.pack_seg(
+                        ks, ds, self._day_lut, self._day_base, width,
+                        padded_local, num_banks)
+                    if buf is None and miss >= 0:
+                        self._native_skip = 32
+                if buf is None:
+                    buf, perm = pack_seg(ks, bs, width, padded_local,
+                                         num_banks)
+            else:
+                perm = scans[r][0]
+                if nat is not None:
+                    buf = nat.bitpack_delta(scans[r], width, padded_local,
+                                            num_banks)
+                if buf is None:
+                    buf, perm = pack_delta(ks, bs, width, padded_local,
+                                           num_banks, scan=scans[r])
+            if bufs is None:
+                bufs = np.empty((dp, len(buf)), np.uint32)
+            bufs[r] = buf
+            m = len(ks)
+            lanes[pos:pos + m] = r * padded_local + np.arange(m)
+            orig[pos:pos + m] = bounds[r] + perm
+            pos += m
+        t = self._lap("pack", t)
+        self._count_wire(mode)
+        valid = engine.step_narrow(bufs, mode, width, padded_local)
+        self._lap("dispatch", t)
+        return valid, lanes, orig
 
     def _launch_wide(self, buf: np.ndarray, use_words: bool, kw: int,
                      t: float) -> torch.Tensor:

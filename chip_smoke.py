@@ -176,24 +176,31 @@ Phases (any failure exits non-zero):
      on every slice and the replicas' OR to K3's filter, the preload's
      device time (8 launches), on (4, 2) beside the route of one launch
      a 2^14-key chunk and cell (4,888), and both paths at 2^20 and 2^22
-     keys into slices of 4 and 8, either side of the cut-over; K9 on
-     keys and on the word wire at 131,072 and 1,048,576 lanes and K10
+     keys into slices of 4 and 8, either side of the cut-over; K10
      (both wires, with and without the counters, replayed and from the
      starting registers, each held against the plain version) at
      65,536, 131,072 and 1,048,576 lanes on the slices of the 10M
-     roster's filter cut for a (4, 2) mesh; K1 on register slices [256,
-     2^14 / sp] for sp = 2, 4, 8; each equal to its plain version (and
-     K10's register half to ``scatter_reduce_`` amax, K1 to
-     ``torch.bincount``) and timed; (b) ``ShardedSketchEngine`` on the
-     1 x 1 mesh through ``step_words`` over phase 3's default stream,
-     equal to phase 3's default run, launching only K3 (once), K2 and
+     roster's filter cut for a (4, 2) mesh; K9 on keys and on the word
+     wire at the same lanes on every slice of sp = 2, 4 and 8, by both
+     paths and the wrapper's pick (the AND across slices equal to K4),
+     both paths timed on slice 0; K12 (seg and delta)
+     at the same lanes; K1 on register slices [256, 2^14 / sp] for sp =
+     2, 4, 8; each equal to its plain version (and K10's register half
+     to ``scatter_reduce_`` amax, K1 to ``torch.bincount``) and timed;
+     (b) ``ShardedSketchEngine`` on the 1 x 1 mesh through
+     ``step_words``, then ``step_narrow`` on the seg and on the delta
+     wire, over phase 3's default stream, each equal to phase 3's
+     default run, launching only K3 (once), K2 (or K2-seg, K2-delta) and
      K1; (c) BASELINE config #4's 10,000,000-student roster and a stream
      of phase 3's shape drawn from it (1,048,576 events in 131,072-event
      frames, 16 lectures, seed 0) through ``FusedPipeline`` on one card
      and with ``mesh=make_mesh(4, 2, [cuda:0] * 8)`` (query and step
-     replica sync, 16 banks: the word wire) and ``make_mesh(8, 1, ...)``
-     (256 banks: the arrays step), counters reset just before and read
-     just after each run, each equal to the one-card run in counters,
+     replica sync, 16 banks: the word wire; query sync on the seg and on
+     the delta wire, each also equal to the query word run and
+     launching K12 once a frame and replica) and ``make_mesh(8, 1,
+     ...)`` (256 banks: the arrays step), counters reset just before
+     and read just after each run, each equal to the one-card run in
+     counters,
      PFCOUNTs, merged registers, stored validity and bank map, no false
      negatives of 100,000 members, FPR <= 1.3% on 100,000 outsiders, the
      fill equal to the host popcount, K11 launched once a cell (8
@@ -209,7 +216,7 @@ Phases (any failure exits non-zero):
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
-     run and the oracle's reads) and phase 10(c)'s three mesh runs (each
+     run and the oracle's reads) and phase 10(c)'s five mesh runs (each
      also printed on a line of its own); phase 5 prints its own runs'
      counts on a line of its own.
 
@@ -2889,9 +2896,16 @@ MESH_LANES = (65_536, 131_072, 1_048_576)
 MESH_PRELOADS = ((4, 2), (8, 1))
 JAX_PRELOAD_CHUNK = 1 << 14
 K11_CUTOVER_KEYS = (1 << 20, 1 << 22)
-# (sp, dp, replica_sync, register banks) of phase 10(c)'s pipeline runs.
-MESH_RUNS = ((4, 2, "query", MESH_BANKS), (4, 2, "step", MESH_BANKS),
-             (8, 1, "query", 256))
+# (sp, dp, replica_sync, register banks, wire_format) of phase 10(c)'s
+# pipeline runs: the default wire (auto, which stays on the word wire or
+# the arrays step over 8 frames), then the (4, 2) query mesh on the seg
+# and delta wires, each held against the (4, 2) query run on the word
+# wire.
+MESH_RUNS = ((4, 2, "query", MESH_BANKS, "auto"),
+             (4, 2, "step", MESH_BANKS, "auto"),
+             (8, 1, "query", 256, "auto"),
+             (4, 2, "query", MESH_BANKS, "seg"),
+             (4, 2, "query", MESH_BANKS, "delta"))
 MESH_KERNELS = ("bloom_contains_slice", "hll_add_slice", "bloom_add_slice",
                 "hll_histogram")
 
@@ -3167,17 +3181,162 @@ def mesh_k10(floor_ms: float, rows: dict, keys, banks, wire, kw: int,
                   "max_abs_err=0")
 
 
+# 10(a)'s K9 shapes: slice 0 of sp = 2 (the direct path), 4 and 8 (the
+# compact path).
+K9_SPS = (2, 4, 8)
+
+
+def mesh_k9(floor_ms: float, rows: dict, params, words, lanes_np) -> None:
+    """10(a)'s K9 on sp = 2, 4 and 8 slices of the 10M filter, at 65,536,
+    131,072 and 1,048,576 lanes, on keys and on the word wire: both paths
+    (direct, compact) and the wrapper's pick equal to the plain version on
+    every slice, the AND across the slices equal to K4 on the whole
+    filter; then on slice 0 both paths timed (replayed, the picked path
+    twice: the in-call spread) beside the bound, the floor and the plain
+    version."""
+    from attendance_tpu_torch.models import bloom, fused
+    from attendance_tpu_torch.ops import kernels
+
+    dev = words.device
+    for sp in K9_SPS:
+        slices, wl = mesh_slices(words, params, sp)
+        for lanes in MESH_LANES:
+            keys_np = lanes_np["keys"][:lanes]
+            keys = torch.from_numpy(keys_np.view(np.int32)).to(dev)
+            kw = int(keys_np.max()).bit_length()
+            wire = torch.from_numpy(fused.pack_words(
+                keys_np, lanes_np["banks"][:lanes], kw, lanes).view(
+                    np.int32)).to(dev)
+            blocks = bloom.bloom_positions(keys, params)[:, 0] >> 9
+            mine = blocks < wl // 16
+            n_mine = int(mine.sum())
+            b_ms, b_by = bound_ms(
+                5 * lanes + 64 * int(torch.unique(blocks[mine]).numel()),
+                lanes * 25 + n_mine * (40 + 5 * params.k))
+            whole = bloom.bloom_contains_words(words, keys, params)
+            for what, lane_t, bits in (("keys", keys, 0),
+                                       ("words", wire, kw)):
+                every = None
+                for s in range(sp):
+                    want = kernels.bloom_contains_slice_plain(
+                        slices[s], lane_t, params, s * wl, bits)
+                    for compact in (None, False, True):
+                        got = kernels.bloom_contains_slice(
+                            slices[s], lane_t, params, first_word=s * wl,
+                            key_bits=bits, compact=compact)
+                        torch.cuda.synchronize()
+                        err = int((got != want).sum())
+                        check(err == 0, f"K9 {what} lanes={lanes} sp={sp} "
+                              f"slice {s} compact={compact}: {err} answers "
+                              "differ")
+                        if compact is None:
+                            every = got if every is None else every & got
+                check(torch.equal(every.to(torch.bool), whole),
+                      f"K9 {what} lanes={lanes} sp={sp}: the AND across "
+                      "slices is not K4's answer")
+                picked = 2 * (wl // 16) < params.m_bits // 512
+                times = {}
+                for compact in (picked, not picked, picked):
+                    times.setdefault(compact, []).append(kernel_ms(
+                        lambda c=compact: kernels.bloom_contains_slice(
+                            slices[0], lane_t, params, first_word=0,
+                            key_bits=bits, compact=c)))
+                ms = times[picked][0]
+                plain_ms = eager_ms(
+                    lambda: kernels.bloom_contains_slice_plain(
+                        slices[0], lane_t, params, 0, bits))
+                direct, compact_ms = times[False][0], times[True][0]
+                print(f"K9 bloom_contains_slice {what} lanes={lanes} slice 0 "
+                      f"of {sp} (roster {MESH_ROSTER}) keys in slice "
+                      f"{n_mine} picked={'compact' if picked else 'direct'} "
+                      f"ms={ms} again_ms={times[picked][1]} direct_ms="
+                      f"{direct} compact_ms={compact_ms} compact_vs_direct="
+                      f"{compact_ms / direct} above_floor_ms={ms - floor_ms} "
+                      f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
+                      f"times_bound={ms / b_ms} floor_ms={floor_ms} "
+                      f"library_ms=None max_abs_err=0")
+                if sp == 4 and lanes == 131_072 and what == "words":
+                    rows["bloom_contains_slice"] = dict(
+                        replaces="attendance_tpu/parallel/sharded.py:304",
+                        max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def mesh_k12(floor_ms: float, rows: dict, lanes_np, dev) -> None:
+    """10(a)'s K12: a replica's lanes of the mesh stream (16 banks) on the
+    seg and on the delta wire at 65,536 (what a (4, 2) replica takes of a
+    131,072-event frame, phase 10(c)), 131,072 and 1,048,576 lanes: keys
+    and banks equal to the plain decode; timed beside the bound (the
+    wire read once, 8 bytes a lane written), the floor, the plain
+    version and phase 2c's decode yardsticks (``torch.searchsorted``,
+    ``torch.cumsum``: not K12's function, so no library time)."""
+    from attendance_tpu_torch.models import fused
+    from attendance_tpu_torch.ops import kernels
+
+    nb = MESH_BANKS
+    for lanes in MESH_LANES:
+        keys_np = np.asarray(lanes_np["keys"][:lanes], np.uint32)
+        banks_np = lanes_np["banks"][:lanes]
+        for mode in ("seg", "delta"):
+            if mode == "seg":
+                width = int(keys_np.max()).bit_length()
+                buf, perm = fused.pack_seg(keys_np, banks_np, width, lanes,
+                                           nb)
+            else:
+                scan = fused.delta_scan(keys_np, banks_np, nb)
+                width = fused.pick_delta_width(1, scan[4])
+                buf, perm = fused.pack_delta(keys_np, banks_np, width, lanes,
+                                             nb, scan=scan)
+            wire = torch.from_numpy(buf.view(np.int32)).to(dev)
+            decode = kernels.decode_seg if mode == "seg" else \
+                kernels.decode_delta
+            plain = kernels.decode_seg_lanes_plain if mode == "seg" else \
+                kernels.decode_delta_lanes_plain
+            kw = {"kb" if mode == "seg" else "db": width}
+            got_k, got_b = decode(wire, padded=lanes, num_banks=nb, **kw)
+            want_k, want_b = plain(wire, width, lanes, nb)
+            torch.cuda.synchronize()
+            check(torch.equal(got_k.to(torch.int64) & 0xFFFFFFFF, want_k)
+                  and torch.equal(got_b.to(torch.int64), want_b),
+                  f"K12-{mode} lanes={lanes}: differs from the plain decode")
+            check(np.array_equal(got_k.cpu().numpy().view(np.uint32),
+                                 keys_np[perm])
+                  and np.array_equal(got_b.cpu().numpy(), banks_np[perm]),
+                  f"K12-{mode} lanes={lanes}: lanes are not the frame's")
+            ms = kernel_ms(lambda: decode(wire, padded=lanes, num_banks=nb,
+                                          **kw))
+            plain_ms = eager_ms(lambda: plain(wire, width, lanes, nb))
+            yard = decode_yardstick(wire, mode, width, lanes, nb)
+            # About 10 integer operations a lane (a field's funnel shift
+            # and mask, the bank, the stores): the bytes bind.
+            b_ms, b_by = bound_ms(4 * wire.numel() + 8 * lanes, lanes * 10)
+            print(f"K12 decode_{mode} lanes={lanes} banks={nb} width={width} "
+                  f"ms={ms} above_floor_ms={ms - floor_ms} plain_ms="
+                  f"{plain_ms} bound_ms={b_ms} ({b_by}) times_bound="
+                  f"{ms / b_ms} floor_ms={floor_ms} yardsticks: {yard} "
+                  f"library_ms=None max_abs_err=0")
+            if lanes == MESH_LANES[0]:
+                rows[f"decode_{mode}"] = dict(
+                    replaces=("attendance_tpu/models/fused.py:292"
+                              if mode == "seg" else
+                              "attendance_tpu/models/fused.py:416")
+                    + " (in attendance_tpu/parallel/sharded.py:446)",
+                    max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+
 def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
     """Phase 10(a): K11 at the shapes the engine sends (a replica's whole
     share of the 10M roster into each slice, (4, 2) and (8, 1)), binned
     and one thread per key, on (4, 2) beside the route of one launch per
-    2^14-key chunk, and both paths either side of the cut-over; K9 on
-    keys and on the word wire and K10 (both wires, with and without the
-    counters, replayed and from the starting registers) at 65,536,
-    131,072 and 1,048,576 lanes a replica; K1 on register slices [256,
-    2^14 / sp] (sp = 2, 4, 8); each equal to its plain version, timed
-    beside its bound, the floor, the plain version and (K10's register
-    half, K1) a library call."""
+    2^14-key chunk, and both paths either side of the cut-over; K10
+    (both wires, with and without the counters, replayed and from the
+    starting registers), K9 (both paths, on slices of sp = 2, 4 and 8,
+    keys and the word wire) and K12 (seg and delta) at 65,536, 131,072
+    and 1,048,576 lanes a replica; K1 on register slices [256, 2^14 /
+    sp] (sp = 2, 4, 8); each equal to its plain version, timed beside
+    its bound, the floor, the plain version and (K10's register half,
+    K1) a library call or (K12) the decode's yardsticks."""
     from attendance_tpu_torch.models import bloom, fused, hll
     from attendance_tpu_torch.ops import kernels
 
@@ -3221,37 +3380,13 @@ def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
                 check(err == 0, f"K9 {what} lanes={lanes} slice {s}: {err} "
                       "answers differ")
             valid = got if valid is None else valid & got
-            if s == 0 and lanes != MESH_LANES[0]:
-                blocks = bloom.bloom_positions(keys, params)[:, 0] >> 9
-                mine = blocks < wl // 16
-                n_mine = int(mine.sum())
-                b_ms, b_by = bound_ms(
-                    5 * lanes + 64 * int(torch.unique(blocks[mine]).numel()),
-                    lanes * 25 + n_mine * (40 + 5 * params.k))
-                for what, lane_t, bits in (("keys", keys, 0),
-                                           ("words", wire, kw)):
-                    ms = kernel_ms(lambda: kernels.bloom_contains_slice(
-                        slices[0], lane_t, params, first_word=0,
-                        key_bits=bits))
-                    plain_ms = eager_ms(
-                        lambda: kernels.bloom_contains_slice_plain(
-                            slices[0], lane_t, params, 0, bits))
-                    print(f"K9 bloom_contains_slice {what} lanes={lanes} "
-                          f"slice 0 of {sp} (roster {MESH_ROSTER}) keys in "
-                          f"slice {n_mine} ms={ms} above_floor_ms="
-                          f"{ms - floor_ms} plain_ms={plain_ms} bound_ms="
-                          f"{b_ms} ({b_by}) times_bound={ms / b_ms} "
-                          f"library_ms=None max_abs_err=0")
-                    if lanes == 131_072 and what == "words":
-                        rows["bloom_contains_slice"] = dict(
-                            replaces="attendance_tpu/parallel/sharded.py:304",
-                            max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
         whole = bloom.bloom_contains_words(words, keys, params)
         check(torch.equal(valid.to(torch.bool), whole),
               f"K9 lanes={lanes}: the AND across slices is not K4's answer")
         mesh_k10(floor_ms, rows, keys, banks, wire, kw, valid, regs_slices,
                  lanes)
+    mesh_k9(floor_ms, rows, params, words, lanes_np)
+    mesh_k12(floor_ms, rows, lanes_np, dev)
 
     # K1 on register slices of 256 filled banks.
     big = hll.hll_init(256, 14, dev)
@@ -3324,7 +3459,8 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
 
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.models.bloom import bloom_packed_set_bits
-    from attendance_tpu_torch.models.fused import pack_words
+    from attendance_tpu_torch.models.fused import (
+        delta_scan, pack_delta, pack_seg, pack_words, pick_delta_width)
     from attendance_tpu_torch.ops import kernels
     from attendance_tpu_torch.parallel import ShardedSketchEngine, make_mesh
     from attendance_tpu_torch.pipeline.events import decode_planar_batch
@@ -3355,6 +3491,7 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
 
     # -- 10b. the 1 x 1 mesh on phase 3's default stream ---------------------
     d_roster, d_frames = default_stream
+    d_frames = list(d_frames)
     kernels.reset_launches()
     eng = ShardedSketchEngine(make_mesh(1, 1, [dev]), capacity=100_000,
                               error_rate=0.01, num_banks=256)
@@ -3387,9 +3524,54 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
           f"ShardedSketchEngine.step_words: counters {got[0]}, PFCOUNTs, "
           f"registers and validity equal to phase 3's default run; "
           f"launches {b_launches}")
+    # The same through step_narrow on the seg and delta wires (K2-seg,
+    # K2-delta on the 1 x 1 mesh), validity scattered back to original
+    # order by each frame's pack permutation.
+    for mode in ("seg", "delta"):
+        kernels.reset_launches()
+        eng = ShardedSketchEngine(make_mesh(1, 1, [dev]), capacity=100_000,
+                                  error_rate=0.01, num_banks=256)
+        eng.preload(d_roster)
+        valid = []
+        for f in d_frames:
+            c = decode_planar_batch(f)
+            sid_f = np.asarray(c["student_id"], np.uint32)
+            banks = np.array([bank_of[d] for d in c["lecture_day"].tolist()],
+                             np.int32)
+            n = len(sid_f)
+            padded = eng.padded_size(n)
+            if mode == "seg":
+                width = int(sid_f.max()).bit_length()
+                buf, perm = pack_seg(sid_f, banks, width, padded, 256)
+            else:
+                scan = delta_scan(sid_f, banks, 256)
+                width = pick_delta_width(1, scan[4])
+                buf, perm = pack_delta(sid_f, banks, width, padded, 256,
+                                       scan=scan)
+            v = eng.step_narrow(buf[None], mode, width, padded).cpu().numpy()
+            out = np.empty(n, bool)
+            out[perm] = v[:n]
+            valid.append(out)
+        got_n = (eng.validity_counts(),
+                 {str(d): eng.count(b) for d, b in sorted(bank_of.items())},
+                 eng.get_state()[1], np.concatenate(valid))
+        n_launches = {k: v for k, v in kernels.launches.items() if v}
+        check(got_n[0] == ref[0] and got_n[1] == ref[1]
+              and np.array_equal(got_n[2], ref[2].cpu().numpy())
+              and np.array_equal(got_n[3], ref[3]),
+              f"10b {mode}: the 1 x 1 mesh's step_narrow differs from phase "
+              "3's default run")
+        check(set(n_launches) == {"bloom_add", f"fused_step_{mode}",
+                                  "hll_histogram"}
+              and n_launches[f"fused_step_{mode}"] == len(d_frames),
+              f"10b {mode}: the 1 x 1 mesh launched {n_launches}")
+        print(f"mesh (b) 1 x 1 mesh, phase 3's default stream through "
+              f"ShardedSketchEngine.step_narrow on the {mode} wire: "
+              f"counters {got_n[0]}, PFCOUNTs, registers and validity equal "
+              f"to phase 3's default run; launches {n_launches}")
 
     # -- 10c. the 10M roster on virtual meshes of the card -------------------
-    preload_s = {}  # (sp, dp, sync) -> wall of pipe.preload(roster), s
+    preload_s = {}  # (sp, dp, sync, wire) -> wall of pipe.preload, s
 
     def run(sp, dp, sync, banks, **cfg):
         config = Config(bloom_filter_capacity=MESH_ROSTER, num_shards=sp,
@@ -3403,7 +3585,8 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
         t_pre = time.perf_counter()
         pipe.preload(roster)
         torch.cuda.synchronize()
-        preload_s[(sp, dp, sync)] = time.perf_counter() - t_pre
+        preload_s[(sp, dp, sync, config.wire_format)] = (
+            time.perf_counter() - t_pre)
         producer = pipe.client.create_producer(config.pulsar_topic)
         for f in frames:
             producer.send(f)
@@ -3422,7 +3605,7 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
           f"launched K3 {s_launches['bloom_add']} times")
     print(f"mesh (c) one card (the reference), 10M roster: {single_rate} "
           f"events/s on {card}; preload wall "
-          f"{preload_s[(1, 1, 'query')]} s; wires "
+          f"{preload_s[(1, 1, 'query', 'auto')]} s; wires "
           f"{single.metrics.wire_dwell}; launches "
           f"{ {k: v for k, v in s_launches.items() if v} }")
     launches = dict.fromkeys(kernels.launches, 0)
@@ -3430,9 +3613,12 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
         MESH_ROSTER, 100_000, replace=False)]
     outsiders = np.random.default_rng(2).integers(
         1 << 27, 1 << 28, 100_000).astype(np.uint32)
-    for sp, dp, sync, banks in MESH_RUNS:
-        what = f"mesh (c) {dp} x {sp} ({sync} sync, {banks} banks)"
-        pipe, state, run_launches = run(sp, dp, sync, banks)
+    word_state = {}  # (sp, dp, sync) -> the word wire run's state
+    for sp, dp, sync, banks, wire in MESH_RUNS:
+        what = (f"mesh (c) {dp} x {sp} ({sync} sync, {banks} banks, "
+                f"--wire-format {wire})")
+        pipe, state, run_launches = run(sp, dp, sync, banks,
+                                        wire_format=wire)
         try:
             eng = pipe.engine
             fn = int((~eng.contains(members)).sum())
@@ -3451,9 +3637,15 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
         check(abs(fill - host) <= 1e-5 * host, f"{what}: fill {fill} vs the "
               f"host popcount {host}")
         word = (int(sid.max()).bit_length() + banks.bit_length()) <= 32
-        check(dwell == {("word" if word else "arrays"): len(frames)},
-              f"{what}: wires {dwell}")
+        carried = (wire if wire in ("seg", "delta")
+                   else "word" if word else "arrays")
+        check(dwell == {carried: len(frames)}, f"{what}: wires {dwell}")
         _mesh_check_same(f"{what} vs one card", state, want)
+        if wire in ("seg", "delta"):
+            _mesh_check_same(f"{what} vs the word wire run",
+                             state, word_state[(sp, dp, sync)])
+        else:
+            word_state[(sp, dp, sync)] = state
         worst = max(abs(n - exact[int(d)]) / exact[int(d)]
                     for d, n in state[1].items())
         check(worst <= 0.03, f"{what}: PFCOUNT relative error {worst}")
@@ -3464,16 +3656,24 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
         check(run_launches["bloom_add_slice"] == sp * dp, f"{what}: the "
               f"preload launched K11 {run_launches['bloom_add_slice']} "
               f"times, not once a cell ({sp * dp})")
-        for name in ("bloom_add", "fused_step", "bloom_contains"):
+        for name in ("bloom_add", "fused_step", "bloom_contains",
+                     "fused_step_seg", "fused_step_delta"):
             check(run_launches[name] == 0, f"{what}: launched {name}")
+        for mode in ("seg", "delta"):
+            # K12 once a frame and replica: a replica's cells share cuda:0.
+            n_dec = dp * len(frames) if carried == mode else 0
+            check(run_launches[f"decode_{mode}"] == n_dec, f"{what}: "
+                  f"K12-{mode} launched {run_launches[f'decode_{mode}']} "
+                  f"times, not {n_dec}")
         for name, count in run_launches.items():
             launches[name] += count
         print(f"{what}: {rate} events/s as {dp} x {sp} virtual slices of one "
               f"{card} (one card in the same call: {single_rate} events/s; "
               f"not a multi-card rate); preload wall "
-              f"{preload_s[(sp, dp, sync)]} s (one card "
-              f"{preload_s[(1, 1, 'query')]} s); equal to one card in "
-              f"counters "
+              f"{preload_s[(sp, dp, sync, wire)]} s (one card "
+              f"{preload_s[(1, 1, 'query', 'auto')]} s); equal to one card"
+              f"{' and to its word wire run' if wire != 'auto' else ''} "
+              f"in counters "
               f"{state[0]}, PFCOUNTs, merged registers, stored validity and "
               f"bank map; no false negatives of 100,000 members, FPR {fpr} "
               f"on 100,000 outsiders, fill {fill} (host popcount {host}); "

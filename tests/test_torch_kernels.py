@@ -737,6 +737,40 @@ def test_narrow_step_kernels_back_to_back_and_in_graph_replays(mode, cuda):
                                                  s_i + 7 * (p_i - s_i))
 
 
+@pytest.mark.parametrize("nb", [1, 4096])
+@pytest.mark.parametrize("lanes", [65_536, 131_072, 1_048_576])
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+def test_decode_kernels_match_plain(mode, lanes, nb, cuda):
+    """K12-seg and K12-delta at the mesh's lanes a replica, on a header of
+    one bank and of 4,096 (many banks a tile, some empty), with padding
+    lanes: keys and banks equal to the plain decode, one launch each."""
+    rng = np.random.default_rng(lanes + nb + len(mode))
+    n = lanes - lanes // 7
+    keys = rng.integers(0, 1 << 26, n).astype(np.uint32)
+    banks = rng.integers(0, nb, n).astype(np.int32)
+    if mode == "seg":
+        width = 26
+        buf, _ = fused.pack_seg(keys, banks, width, lanes, nb)
+    else:
+        scan = fused.delta_scan(keys, banks, nb)
+        width = fused.pick_delta_width(1, scan[4])
+        buf, _ = fused.pack_delta(keys, banks, width, lanes, nb, scan=scan)
+    buf = torch.from_numpy(buf.view(np.int32)).to(cuda)
+    decode = kernels.decode_seg if mode == "seg" else kernels.decode_delta
+    plain = kernels.decode_seg_lanes_plain if mode == "seg" else \
+        kernels.decode_delta_lanes_plain
+    before = kernels.launches[f"decode_{mode}"]
+    got_keys, got_bank = decode(buf, padded=lanes, num_banks=nb,
+                                **{"kb" if mode == "seg" else "db": width})
+    want_keys, want_bank = plain(buf, width, lanes, nb)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"decode_{mode}"] == before + 1
+    assert got_keys.dtype == got_bank.dtype == torch.int32
+    assert torch.equal(got_keys.to(torch.int64) & 0xFFFFFFFF, want_keys)
+    assert torch.equal(got_bank.to(torch.int64), want_bank)
+    assert int((got_bank >= 0).sum()) == n
+
+
 def test_snapshot_capture_equals_host_copy_after_sync(cuda):
     """B9 on the card: the delta capture's rows and counters, and the
     base copy, equal a host copy taken after a device sync, although the
@@ -1194,8 +1228,9 @@ def _alloc_slices(params, sp, words=None):
 @pytest.mark.parametrize("sp", [1, 2, 3, 4, 8])
 def test_bloom_contains_slice_kernel_matches_plain(sp, key_bits, cuda):
     """K9 on every slice of a 100k-roster filter, on plain keys and on
-    the word wire (pad lanes included): equal to its plain version, and
-    the AND across slices equal to the whole filter's probe."""
+    the word wire (pad lanes included), by the wrapper's pick and by each
+    path (direct, compact): equal to its plain version, and the AND
+    across slices equal to the whole filter's probe."""
     params = bloom.derive_bloom_params(100_000, 0.01, "blocked")
     rng = np.random.default_rng(sp + key_bits)
     roster = rng.choice(1 << 21, 100_000, replace=False).astype(np.uint32)
@@ -1213,15 +1248,17 @@ def test_bloom_contains_slice_kernel_matches_plain(sp, key_bits, cuda):
     before = kernels.launches["bloom_contains_slice"]
     every = None
     for s, words_s in enumerate(slices):
-        got = kernels.bloom_contains_slice(words_s, lanes_t, params,
-                                           first_word=s * wl,
-                                           key_bits=key_bits)
         want = kernels.bloom_contains_slice_plain(words_s, lanes_t, params,
                                                   s * wl, key_bits)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.uint8 and torch.equal(got, want)
+        for compact in (False, True, None):
+            got = kernels.bloom_contains_slice(words_s, lanes_t, params,
+                                               first_word=s * wl,
+                                               key_bits=key_bits,
+                                               compact=compact)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.uint8 and torch.equal(got, want)
         every = got if every is None else every & got
-    assert kernels.launches["bloom_contains_slice"] == before + sp
+    assert kernels.launches["bloom_contains_slice"] == before + 3 * sp
     whole = bloom.bloom_contains_words(
         words, torch.from_numpy(
             (lanes & ((1 << key_bits) - 1) if key_bits else lanes)
@@ -1473,3 +1510,62 @@ def test_mesh_engine_on_card_equals_cpu(dp, sp, cuda):
         assert used == {"bloom_add_slice", "bloom_contains_slice",
                         "hll_add_slice", "hll_histogram"}
     assert not any(cpu[9].values())
+
+
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+@pytest.mark.parametrize("dp,sp", [(2, 4), (3, 2), (1, 8), (1, 1)])
+def test_mesh_narrow_step_on_card_equals_cpu(dp, sp, mode, cuda):
+    """``step_narrow`` on a mesh of repeated card cells equals the same
+    mesh of CPU cells: validity in packed per-slice order, state,
+    counters and PFCOUNTs, over two frames (one with padding lanes in
+    the last replica's slice). A mesh launches K12 once a replica (its
+    cells share one card), K9 and K10 once a cell; the 1 x 1 mesh
+    K2-seg or K2-delta."""
+    from attendance_tpu_torch.parallel import (ShardedSketchEngine,
+                                               make_mesh)
+
+    rng = np.random.default_rng(dp * 10 + sp + len(mode))
+    roster = rng.choice(1 << 20, 30_000, replace=False).astype(np.uint32)
+    frames = []
+    for n in (5_000, 8_192):
+        keys = np.where(rng.random(n) < 0.7, rng.choice(roster, n),
+                        rng.integers(1 << 20, 1 << 21, n)).astype(np.uint32)
+        frames.append((keys, rng.integers(0, 8, n).astype(np.int32)))
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = ShardedSketchEngine(make_mesh(sp, dp, [dev] * (dp * sp)),
+                                  capacity=40_000, error_rate=0.01,
+                                  num_banks=8)
+        eng.preload(roster)
+        kernels.reset_launches()
+        valid = []
+        for keys, banks in frames:
+            local = eng.padded_size(len(keys)) // dp
+            bufs, width = [], 21
+            for r in range(dp):
+                ks = keys[r * local:(r + 1) * local]
+                bs = banks[r * local:(r + 1) * local]
+                if mode == "seg":
+                    bufs.append(fused.pack_seg(ks, bs, width, local, 8)[0])
+                else:
+                    width = 32  # every slice's gaps fit, one shared width
+                    bufs.append(fused.pack_delta(ks, bs, width, local,
+                                                 8)[0])
+            valid.append(eng.step_narrow(np.stack(bufs), mode, width,
+                                         local).cpu().numpy())
+        results.append((np.concatenate(valid), *eng.get_state(),
+                        eng.validity_counts(), eng.count_all().tolist(),
+                        {k: v for k, v in kernels.launches.items() if v}))
+    card, cpu = results
+    for a, b in zip(card[:3], cpu[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert card[3:5] == cpu[3:5]
+    assert sum(card[3]) == 5_000 + 8_192
+    steps = {"hll_histogram": sp}  # count_all: K1 on each slice
+    if dp * sp == 1:
+        steps[f"fused_step_{mode}"] = 2
+    else:
+        steps.update({f"decode_{mode}": 2 * dp,
+                      "bloom_contains_slice": 2 * dp * sp,
+                      "hll_add_slice": 2 * dp * sp})
+    assert card[5] == steps and cpu[5] == {}

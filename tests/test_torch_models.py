@@ -384,4 +384,5 @@ def test_kernel_wrappers_validate_inputs():
                                 "hll_union_histogram": 0,
                                 "bloom_pack_bytes": 0,
                                 "bloom_contains_slice": 0,
-                                "hll_add_slice": 0, "bloom_add_slice": 0}
+                                "hll_add_slice": 0, "bloom_add_slice": 0,
+                                "decode_seg": 0, "decode_delta": 0}

@@ -124,6 +124,36 @@ def test_two_process_gloo_cluster_matches_single_process_and_jax(tmp_path):
         assert abs(est - exact) / exact < 0.02
 
 
+def test_two_process_gloo_cluster_on_the_seg_wire(tmp_path):
+    """The same two-process run with the pipeline on the seg wire (one
+    packed buffer a replica, each process packing every replica's slice
+    and stepping its own): each process's facts equal the port's
+    single-process (2, 2) mesh on the seg wire."""
+    outs = [tmp_path / f"s{i}.json" for i in range(2)]
+    procs = _spawn(_free_port(), outs, "--wire", "seg")
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed:\n{log[-4000:]}"
+    results = [json.loads(o.read_text()) for o in outs]
+    from torch_multihost_worker import run_pipeline_workload, run_workload
+
+    ref = run_workload(make_mesh(2, 2, ["cpu"] * 4))
+    ref.update(run_pipeline_workload(make_mesh(2, 2, ["cpu"] * 4), "seg"))
+    for r in results:
+        assert r["process_count"] == 2
+        for key in FACTS:
+            assert r[key] == ref[key], (key, r[key], ref[key])
+        assert r["pipe_wire_dwell"] == {"seg": 4}
+    assert ref["pipe_events"] == 8_192
+
+
 def test_two_process_crash_snapshot_restore(tmp_path):
     """Barriers mid-run on the 2-process mesh (process 0 writes), both
     processes SIGKILLed, then a restore on one process on a (2, 4) mesh

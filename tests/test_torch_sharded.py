@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from attendance_tpu.models import fused as jfused
 from attendance_tpu.models.bloom import bloom_positions as jax_positions
 from attendance_tpu.models.fused import pack_words
 from attendance_tpu.models.hll import (
@@ -477,6 +478,93 @@ def test_grow_banks_keeps_state_and_counts_new_banks():
                for row in port.regs for r in row)
     assert port.count(6) > 0
     assert_same_engine(jax_eng, port)
+
+
+def _narrow_frame(eng, keys, banks, mode):
+    """(bufs uint32[dp, words], width, padded_local): the frame cut into
+    dp contiguous slices of ``padded_local`` lanes, each packed on its own
+    with the JAX packers and a header of the engine's banks, one shared
+    width (the pipeline's ``_dispatch_sharded_narrow``)."""
+    n, dp, nb = len(keys), eng.dp, eng.num_banks
+    padded_local = eng.padded_size(n) // dp
+    bounds = [min(n, r * padded_local) for r in range(dp + 1)]
+    parts = [(keys[bounds[r]:bounds[r + 1]], banks[bounds[r]:bounds[r + 1]])
+             for r in range(dp)]
+    if mode == "seg":
+        width = max(int(keys.max()).bit_length(), 1)
+        bufs = [jfused.pack_seg(k, b, width, padded_local, nb)[0]
+                for k, b in parts]
+    else:
+        scans = [jfused.delta_scan(k, b, nb) for k, b in parts]
+        width = jfused.pick_delta_width(1, max(sc[-1] for sc in scans))
+        bufs = [jfused.pack_delta(k, b, width, padded_local, nb, scan=sc)[0]
+                for (k, b), sc in zip(parts, scans)]
+    return np.stack([np.asarray(b, np.uint32) for b in bufs]), width, \
+        padded_local
+
+
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+@pytest.mark.parametrize("dp,sp", [(1, 1), (2, 2), (2, 4), (1, 8)])
+def test_step_narrow_equals_jax(dp, sp, mode):
+    """``step_narrow`` against JAX's on the same per-replica buffers, in
+    both sync modes' default ("query"): validity of every lane in packed
+    per-slice order, merged registers, counters and PFCOUNTs equal.
+    Frames: 3,000 lanes (the padding fills the last replica's slice, or
+    most of it), lanes only in the header's last bank after seven empty
+    ones, and a full frame over banks 0-5 (the header's last two
+    empty)."""
+    jax_eng, port = engines(dp, sp)
+    rng = np.random.default_rng(300 + dp * 10 + sp)
+    roster = rng.choice(1 << 20, 6_000, replace=False).astype(np.uint32)
+    for eng in (jax_eng, port):
+        eng.preload(roster)
+    for n, bank_set in ((3_000, np.arange(8)), (2_500, np.array([7])),
+                        (4_096, np.arange(6))):
+        keys = np.where(rng.random(n) < 0.7, rng.choice(roster, n),
+                        rng.integers(1 << 20, 1 << 21, n)).astype(np.uint32)
+        banks = rng.choice(bank_set, n).astype(np.int32)
+        bufs, width, padded_local = _narrow_frame(port, keys, banks, mode)
+        got = port.step_narrow(bufs, mode, width, padded_local)
+        want = np.asarray(jax_eng.step_narrow(bufs, mode, width,
+                                              padded_local))
+        assert got.dtype == torch.bool
+        assert got.shape == (dp * padded_local,)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert sum(port.validity_counts()) == 3_000 + 2_500 + 4_096
+    assert_same_engine(jax_eng, port, roster[:500])
+
+
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+def test_decode_wrappers_cpu_route_equals_jax_decode(mode):
+    """K12's wrappers on a CPU tensor (their plain versions) give JAX's
+    ``decode_seg_lanes`` / ``decode_delta_lanes``: keys, and banks with -1
+    on padding, on a frame with padding lanes, empty banks and a delta
+    sum past 2^32."""
+    rng = np.random.default_rng(11)
+    n, padded, nb = 3_001, 4_096, 12
+    keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    banks = rng.choice([1, 2, 5, 6, 7, 8, 9, 10], n).astype(np.int32)
+    if mode == "seg":
+        width = 32
+        buf, _ = jfused.pack_seg(keys, banks, width, padded, nb)
+        want = jfused.decode_seg_lanes(jnp.asarray(buf), width, padded, nb)
+        decode = kernels.decode_seg
+    else:
+        scan = jfused.delta_scan(keys, banks, nb)
+        width = jfused.pick_delta_width(1, scan[-1])
+        buf, _ = jfused.pack_delta(keys, banks, width, padded, nb, scan=scan)
+        want = jfused.decode_delta_lanes(jnp.asarray(buf), width, padded, nb)
+        decode = kernels.decode_delta
+    before = dict(kernels.launches)
+    got_keys, got_bank = decode(_t(buf), padded=padded, num_banks=nb,
+                                **{"kb" if mode == "seg" else "db": width})
+    assert kernels.launches == before  # the plain version launches nothing
+    assert got_keys.dtype == got_bank.dtype == torch.int32
+    np.testing.assert_array_equal(got_keys.numpy().view(np.uint32),
+                                  np.asarray(want[0]))
+    np.testing.assert_array_equal(got_bank.numpy(), np.asarray(want[1]))
+    assert (got_bank.numpy()[:n] >= 0).all()
+    assert (got_bank.numpy()[n:] == -1).all()
 
 
 def test_make_mesh_refuses_too_few_devices():

@@ -315,16 +315,143 @@ def test_sharded_crash_replay_resume_matches_uninterrupted(tmp_path):
                 p.cleanup()
 
 
+@pytest.mark.parametrize("wire", ["seg", "delta"])
+def test_sharded_narrow_wires_match_word_wire(wire):
+    """tests/test_sharded_pipeline.py:151 on the port: a forced narrow
+    wire on a (2, 2) mesh lands on the word wire's stored rows, PFCOUNTs
+    and counters, every frame on that wire, and equals the JAX mesh
+    pipeline on the same wire (state, counters, stored validity)."""
+    num_events, batch = 8_192, 2_048
+    roster, frames = generate_frames(num_events, batch, roster_size=5_000,
+                                     num_lectures=6, seed=29)
+    frames = list(frames)
+    cfg = dict(bloom_filter_capacity=20_000)
+    pipes = [port_pipe(2, 2, wire_format="auto", **cfg),
+             port_pipe(2, 2, wire_format=wire, **cfg),
+             jax_pipe(2, 2, wire_format=wire, **cfg)]
+    try:
+        for pipe in pipes:
+            feed(pipe, frames, roster, num_events)
+        word, narrow, ref = pipes
+        assert word.metrics.wire_dwell == {"word": 4}
+        assert narrow.metrics.wire_dwell == ref.metrics.wire_dwell == {
+            wire: 4}
+        assert narrow.consumer.backlog() == 0
+        assert sum(narrow.validity_counts()) == num_events
+        assert_same_pipeline(word, narrow)
+        assert_same_pipeline(narrow, ref)
+    finally:
+        for pipe in pipes:
+            pipe.cleanup()
+
+
+@pytest.mark.parametrize("wire", ["seg", "delta"])
+def test_sharded_narrow_native_pack_matches_numpy(wire, monkeypatch):
+    """tests/test_sharded_pipeline.py:196 on the port: the mesh's
+    per-replica packs by the native host pack and by numpy send
+    identical buffers (mode, width, lanes and every word) and store the
+    same rows."""
+    monkeypatch.delenv("ATP_NATIVE")
+    num_events, batch = 8_192, 2_048
+    roster, frames = generate_frames(num_events, batch, roster_size=5_000,
+                                     num_lectures=6, seed=37)
+    frames = list(frames)
+    results = []
+    for force_numpy in (False, True):
+        pipe = port_pipe(2, 2, bloom_filter_capacity=20_000,
+                         wire_format=wire)
+        if force_numpy:
+            pipe._native = None
+        else:
+            assert pipe._native is not None
+        sent = []
+        step_narrow = pipe.engine.step_narrow
+
+        def spy(bufs, mode, width, padded_local, _orig=step_narrow):
+            sent.append((bufs.copy(), mode, width, padded_local))
+            return _orig(bufs, mode, width, padded_local)
+
+        pipe.engine.step_narrow = spy
+        try:
+            feed(pipe, frames, roster, num_events)
+            results.append((sent, stored(pipe), pipe.validity_counts()))
+        finally:
+            pipe.cleanup()
+    (sent_nat, rows_nat, vc_nat), (sent_np, rows_np, vc_np) = results
+    assert len(sent_nat) == len(sent_np) == 4
+    for (b_nat, *geo_nat), (b_np, *geo_np) in zip(sent_nat, sent_np):
+        assert geo_nat == geo_np and geo_nat[0] == wire
+        np.testing.assert_array_equal(b_nat, b_np)
+    for k in rows_nat:
+        np.testing.assert_array_equal(rows_nat[k], rows_np[k])
+    assert vc_nat == vc_np
+
+
+@pytest.mark.parametrize("level,wire", [(1, "seg"), (2, "delta")])
+def test_sharded_auto_ladder_dispatches_narrow_under_pressure(level, wire):
+    """tests/test_sharded_pipeline.py:308 on the port: ``auto`` on a mesh
+    climbs the ladder as one card does (here set to its level, as if the
+    climb signal fired) and dispatches the narrow wire, native pack or
+    not; the state equals the word wire's run and the JAX mesh
+    pipeline's on the same stream (whose ladder follows its own
+    deque)."""
+    num_events, batch = 4_096, 1_024
+    roster, frames = generate_frames(num_events, batch, roster_size=4_000,
+                                     num_lectures=4, seed=47)
+    frames = list(frames)
+    cfg = dict(bloom_filter_capacity=10_000, wire_format="auto")
+    pipe, ref = port_pipe(2, 2, **cfg), port_pipe(2, 2, **cfg)
+    jax_ref = jax_pipe(2, 2, **cfg)
+    try:
+        pipe.preload(roster)
+        pipe._auto_level, pipe._auto_pressure = level, 0
+        feed(pipe, frames, None, num_events)
+        assert pipe.metrics.wire_dwell == {wire: 4}
+        assert sum(pipe.validity_counts()) == num_events
+        for other in (ref, jax_ref):
+            feed(other, frames, roster, num_events)
+            assert_same_pipeline(pipe, other)
+        assert ref.metrics.wire_dwell == {"word": 4}
+    finally:
+        for p in (pipe, ref, jax_ref):
+            p.cleanup()
+
+
+def test_mesh_checkpoint_on_the_delta_wire_restores_equal(tmp_path):
+    """A (2, 2) mesh run on the delta wire with delta snapshots every 2
+    frames restores on a (4, 1) mesh, on one card and in the JAX mesh to
+    the run's state, counters and stored rows: the state does not depend
+    on the wire."""
+    num_events, batch = 8_192, 1_024
+    roster, frames = generate_frames(num_events, batch, roster_size=4_000,
+                                     num_lectures=5, seed=53)
+    cfg = dict(bloom_filter_capacity=10_000, snapshot_dir=str(tmp_path))
+    src = port_pipe(2, 2, wire_format="delta", snapshot_every_batches=2,
+                    **cfg)
+    opened = [src]
+    try:
+        feed(src, frames, roster, num_events)
+        assert src.metrics.wire_dwell == {"delta": 8}
+        assert any(p.name.startswith("delta-") for p in tmp_path.iterdir())
+        src.snapshot()
+        for dst in (port_pipe(4, 1, **cfg), port_pipe(1, 1, **cfg),
+                    jax_pipe(2, 2, **cfg)):
+            opened.append(dst)
+            assert_same_pipeline(src, dst, rows=False)
+            a = stored(src, deduplicate=True)
+            b = stored(dst, deduplicate=True)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+    finally:
+        for p in opened:
+            p.cleanup()
+
+
 def test_mesh_refusals():
-    """seg and delta have no mesh counterpart yet (ROADMAP item 10b), the
-    temporal plane is single-card (as the JAX config says), a mesh must
-    match the config, and a mesh config with no card and no mesh
+    """The temporal plane is single-card (as the JAX config says), a mesh
+    must match the config, and a mesh config with no card and no mesh
     raises (the port never drops to the CPU)."""
     mesh = make_mesh(2, 1, ["cpu"] * 2)
-    for wire in ("seg", "delta"):
-        with pytest.raises(ValueError, match="10b"):
-            FusedPipeline(Config(num_shards=2, wire_format=wire),
-                          mesh=mesh)
     with pytest.raises(ValueError, match="single-chip only"):
         Config(num_shards=2, temporal_period_s=60)
     with pytest.raises(ValueError, match="single-chip only"):

@@ -5,7 +5,8 @@ chip_smoke.py's phase 10 (never collected by pytest: the name has no
 ``test_`` prefix):
 
     python tests/torch_multihost_worker.py <process_id> <num_processes> \\
-        <port> <out_json> [<snap_dir>] [--device cpu|cuda] [--cells N]
+        <port> <out_json> [<snap_dir>] [--device cpu|cuda] [--cells N] \\
+        [--wire word|seg|delta]
 
 Each process joins a gloo group over localhost TCP
 (``parallel.multihost.init_distributed``), holds ``--cells`` grid cells
@@ -83,13 +84,13 @@ def run_workload(mesh) -> dict:
     }
 
 
-def _pipeline(mesh, **cfg):
+def _pipeline(mesh, wire="word", **cfg):
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
     from attendance_tpu_torch.transport.memory_broker import (
         MemoryBroker, MemoryClient)
 
-    config = Config(bloom_filter_capacity=20_000, wire_format="word",
+    config = Config(bloom_filter_capacity=20_000, wire_format=wire,
                     num_shards=mesh.shape["sp"],
                     num_replicas=mesh.shape["dp"], **cfg)
     return FusedPipeline(config, client=MemoryClient(MemoryBroker()),
@@ -108,15 +109,16 @@ def _feed(pipe, num_events, batch, seed):
         producer.send(f)
 
 
-def run_pipeline_workload(mesh) -> dict:
+def run_pipeline_workload(mesh, wire="word") -> dict:
     """tests/multihost_worker.py ``run_pipeline_workload`` on the port:
     the FusedPipeline on the mesh, broker frames in, stored validity out
     (the per-step validity gather is what makes it host-readable on a
-    multi-process mesh). The wire is pinned: every process must run the
+    multi-process mesh). The wire is pinned (``wire``: word, or seg or
+    delta with one packed buffer a replica): every process must run the
     same steps."""
     import numpy as np
 
-    pipe = _pipeline(mesh)
+    pipe = _pipeline(mesh, wire)
     try:
         _feed(pipe, 8_192, 2_048, seed=71)
         pipe.run(max_events=8_192, idle_timeout_s=1.0)
@@ -130,6 +132,7 @@ def run_pipeline_workload(mesh) -> dict:
             "pipe_counts": {str(d): int(pipe.count(d))
                             for d in pipe.lecture_days()},
             "pipe_validity_counts": list(pipe.validity_counts()),
+            "pipe_wire_dwell": dict(pipe.metrics.wire_dwell),
         }
     finally:
         pipe.cleanup()
@@ -156,6 +159,8 @@ def main() -> None:
     p.add_argument("snap_dir", nargs="?", default=None)
     p.add_argument("--device", default="cpu")
     p.add_argument("--cells", type=int, default=2)
+    p.add_argument("--wire", default="word",
+                   choices=("word", "seg", "delta"))
     args = p.parse_args()
 
     import torch
@@ -194,7 +199,7 @@ def main() -> None:
         return
     t0 = time.perf_counter()
     result.update(run_workload(mesh))
-    result.update(run_pipeline_workload(mesh))
+    result.update(run_pipeline_workload(mesh, args.wire))
     result["seconds"] = time.perf_counter() - t0
     with open(args.out_json, "w") as f:
         json.dump(result, f)
