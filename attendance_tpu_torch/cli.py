@@ -34,7 +34,12 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   view, declares peers silent past ``--fed-dead-after-s`` dead
   (recovering their chains), serves the merged view on the binary RPC
   of ``--serve-port`` and keeps ``--stats-json`` current. The workers
-  are ``python -m attendance_tpu_torch.federation.worker``.
+  are ``python -m attendance_tpu_torch.federation.worker``;
+* ``telemetry``: pretty-print a telemetry artifact (a flight-recorder
+  dump, a ``--metrics-prom`` exposition file, or a ``--trace-out`` span
+  trace, the format sniffed from the content; ``--follow`` tails a live
+  one). The artifacts are the JAX package's formats: either package's
+  verb reads either package's files.
 
 ``fused`` also takes ``--num-shards``/``--num-replicas`` (a mesh over
 the process's CUDA devices, its dp axis over the processes of a torchrun
@@ -42,6 +47,12 @@ group), ``--replica-sync``, ``--ingress-lanes N`` (striped ingress lanes),
 ``--ingress-wire shm`` (the shared-memory ring under ``--shm-dir``),
 ``--serve-port`` (the in-process query plane over the read mirror) and
 the ``--fed-*`` flags (a federated worker gossiping its fences).
+
+``fused``, ``process``, ``pipeline``, ``bridge``, ``serve`` and
+``federate`` take the telemetry flags: ``--metrics-prom FILE``,
+``--metrics-port N`` (-1 = ephemeral; ``GET /metrics``),
+``--metrics-interval-s``, ``--flight-recorder N`` and ``--flight-path``,
+``--trace-out FILE`` and ``--metric-series-max``.
 
 Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
 BrokerServer at ``--socket-broker``, started with ``python -m
@@ -60,6 +71,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from attendance_tpu_torch import obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.analyzer import AttendanceAnalyzer
 from attendance_tpu_torch.pipeline.bridge import JsonBinaryBridge
@@ -143,7 +155,8 @@ def cmd_fused(args) -> None:
                     num_replicas=args.num_replicas,
                     replica_sync=args.replica_sync,
                     **_transport_config(args), **_ingress_config(args),
-                    **_serve_config(args), **_fed_config(args))
+                    **_serve_config(args), **_fed_config(args),
+                    **_telemetry_config(args))
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
     try:
@@ -251,6 +264,19 @@ def _fed_config(args) -> dict:
                 fed_dead_after_s=args.fed_dead_after_s)
 
 
+def _telemetry_config(args) -> dict:
+    """Config fields of the telemetry flags (``_add_telemetry_flags``);
+    none for a verb without them."""
+    if not hasattr(args, "metrics_prom"):
+        return {}
+    return dict(metrics_prom=args.metrics_prom,
+                metrics_port=args.metrics_port,
+                metrics_interval_s=args.metrics_interval_s,
+                flight_recorder=args.flight_recorder,
+                flight_path=args.flight_path, trace_out=args.trace_out,
+                metric_series_max=args.metric_series_max)
+
+
 def _config(args) -> Config:
     """The Config of a generic-store verb's flags."""
     return Config(
@@ -271,7 +297,8 @@ def _config(args) -> Config:
         snapshot_dir=args.snapshot_dir,
         snapshot_every_batches=args.snapshot_every_batches,
         snapshot_mode=args.snapshot_mode,
-        snapshot_compact_every=args.snapshot_compact_every)
+        snapshot_compact_every=args.snapshot_compact_every,
+        **_telemetry_config(args))
 
 
 def cmd_generate(args) -> None:
@@ -427,7 +454,7 @@ def cmd_bridge(args) -> None:
                     batch_timeout_s=args.batch_timeout_s,
                     max_redeliveries=args.max_redeliveries,
                     metrics_json=args.metrics_json,
-                    **_transport_config(args))
+                    **_transport_config(args), **_telemetry_config(args))
     bridge = JsonBinaryBridge(config, out_topic=args.out_topic or None)
     try:
         bridge.run(max_events=args.max_events,
@@ -451,10 +478,12 @@ def cmd_serve(args) -> None:
     from attendance_tpu_torch.serve.engine import QueryEngine
     from attendance_tpu_torch.serve.rpc import QueryServer
 
-    config = Config(snapshot_dir=args.snapshot_dir, **_serve_config(args))
+    config = Config(snapshot_dir=args.snapshot_dir, **_serve_config(args),
+                    **_telemetry_config(args))
     if not config.snapshot_dir:
         logger.error("serve needs --snapshot-dir (the chain to read)")
         sys.exit(2)
+    telemetry = obs.ensure(config)
     try:
         source = ChainEpochSource(config.snapshot_dir,
                                   refresh_s=args.refresh_s).start()
@@ -462,7 +491,7 @@ def cmd_serve(args) -> None:
         logger.error("no snapshot chain to serve: %s", e)
         sys.exit(2)
     engine = QueryEngine(
-        source, batch_max=config.query_batch_max,
+        source, obs=telemetry, batch_max=config.query_batch_max,
         staleness_ceiling_s=config.read_staleness_ceiling_s or None)
     port = config.serve_port
     server = QueryServer(engine, port=0 if port < 0 else port).start()
@@ -498,10 +527,11 @@ def cmd_federate(args) -> None:
     from attendance_tpu_torch.serve.rpc import QueryServer
 
     config = Config(**_transport_config(args), **_serve_config(args),
-                    **_fed_config(args))
-    agg = Aggregator(config).start()
+                    **_fed_config(args), **_telemetry_config(args))
+    telemetry = obs.ensure(config)
+    agg = Aggregator(config, obs=telemetry).start()
     engine = QueryEngine(
-        agg.mirror, batch_max=config.query_batch_max,
+        agg.mirror, obs=telemetry, batch_max=config.query_batch_max,
         staleness_ceiling_s=config.read_staleness_ceiling_s or None)
     port = config.serve_port
     server = QueryServer(engine, port=0 if port < 0 else port).start()
@@ -534,7 +564,102 @@ def cmd_federate(args) -> None:
             agg.stop()
             write_stats()
         finally:
+            obs.disable()
             server.stop()
+
+
+def cmd_telemetry(args) -> None:
+    """Pretty-print a telemetry artifact: a flight-recorder JSON dump,
+    a Prometheus exposition file (the last scrape block), or a
+    Chrome-trace export (per-trace span trees with durations), the
+    format sniffed from the content. ``--follow`` re-renders whenever
+    the file grows or is replaced, until interrupted."""
+    from attendance_tpu_torch.obs.exposition import format_file
+
+    if args.attribution:
+        # The sampling profiler's attribution table lives with the
+        # profiler, which the port does not have.
+        raise NotImplementedError(
+            "telemetry --attribution needs the sampling profiler, which "
+            "attendance_tpu_torch does not port yet")
+    if args.follow:
+        try:
+            _follow_file(args.path, args.last, args.interval_s)
+        except KeyboardInterrupt:
+            pass
+        return
+    try:
+        print(format_file(args.path, last=args.last))
+    except FileNotFoundError:
+        logger.error("no such telemetry artifact: %s", args.path)
+        sys.exit(2)
+    except Exception as e:
+        # A truncated or hand-edited artifact gets a diagnostic, not a
+        # traceback.
+        logger.error("unreadable telemetry artifact %s: %s", args.path, e)
+        sys.exit(2)
+
+
+def _follow_file(path: str, last: int, interval_s: float,
+                 max_rounds=None) -> int:
+    """Tail a telemetry artifact: re-render whenever the file grows or
+    is atomically replaced (size and mtime change). Returns the number
+    of renders; ``max_rounds`` bounds the loop (tests)."""
+    import os
+    import time
+
+    from attendance_tpu_torch.obs.exposition import format_file
+
+    renders = 0
+    last_sig = None
+    rounds = 0
+    while max_rounds is None or rounds < max_rounds:
+        rounds += 1
+        try:
+            st = os.stat(path)
+            sig = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            sig = None
+        if sig is not None and sig != last_sig:
+            last_sig = sig
+            try:
+                body = format_file(path, last=last)
+            except Exception as e:
+                body = f"(unreadable mid-write: {e})"
+            # Clear and home, then the fresh table: a live prom file
+            # appends a block per interval, so this reads like `top`.
+            print("\x1b[2J\x1b[H" + f"== {path} @ "
+                  f"{time.strftime('%H:%M:%S')} ==\n" + body, flush=True)
+            renders += 1
+        if max_rounds is None or rounds < max_rounds:
+            time.sleep(interval_s)
+    return renders
+
+
+def _add_telemetry_flags(p: argparse.ArgumentParser) -> None:
+    d = Config()
+    p.add_argument("--metrics-prom", default=d.metrics_prom,
+                   help="append a Prometheus text-exposition block "
+                   "per interval to this file (live telemetry)")
+    p.add_argument("--metrics-port", type=int, default=d.metrics_port,
+                   help="serve GET /metrics on this port "
+                   "(0 = off, -1 = ephemeral)")
+    p.add_argument("--metrics-interval-s", type=float,
+                   default=d.metrics_interval_s,
+                   help="reporter cadence for --metrics-prom")
+    p.add_argument("--flight-recorder", type=int,
+                   default=d.flight_recorder,
+                   help="ring size of per-batch flight records "
+                   "(0 = off); dumped on SIGUSR1 or run-loop crash")
+    p.add_argument("--flight-path", default=d.flight_path,
+                   help="JSON dump path for the flight recorder")
+    p.add_argument("--trace-out", default=d.trace_out,
+                   help="write per-batch spans as Chrome-trace/"
+                   "Perfetto JSON here (empty = tracing off)")
+    p.add_argument("--metric-series-max", type=int,
+                   default=d.metric_series_max,
+                   help="label-cardinality cap per metric name "
+                   "(<= 0 = no cap)")
 
 
 def _add_fed_flags(p: argparse.ArgumentParser) -> None:
@@ -785,6 +910,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_ingress_flags(f)
     _add_serve_flags(f)
     _add_fed_flags(f)
+    _add_telemetry_flags(f)
     f.set_defaults(fn=cmd_fused)
     a = sub.add_parser("analyze", help="batch insights over a saved store")
     _add_store_flags(a)
@@ -800,11 +926,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_store_flags(pr)
     pr.add_argument("--max-events", type=int, default=None)
     pr.add_argument("--idle-timeout-s", type=float, default=None)
+    _add_telemetry_flags(pr)
     pr.set_defaults(fn=cmd_process)
     pl = sub.add_parser("pipeline", help="hermetic end-to-end run: "
                         "generate -> process -> analyze")
     _add_store_flags(pl)
     _add_generate_flags(pl)
+    _add_telemetry_flags(pl)
     pl.set_defaults(fn=cmd_pipeline)
     st = sub.add_parser(
         "stats", help="PFCOUNT + partition scan for one lecture, or a "
@@ -845,6 +973,7 @@ def build_parser() -> argparse.ArgumentParser:
     br.add_argument("--metrics-json", default=d.metrics_json)
     br.add_argument("--max-events", type=int, default=None)
     br.add_argument("--idle-timeout-s", type=float, default=1.0)
+    _add_telemetry_flags(br)
     br.set_defaults(fn=cmd_bridge)
     sv = sub.add_parser(
         "serve", help="query-serving reader over a snapshot directory's "
@@ -861,6 +990,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--serve-seconds", type=float, default=None,
                     help="exit after this long (default: serve until "
                     "interrupted)")
+    _add_telemetry_flags(sv)
     sv.set_defaults(fn=cmd_serve)
     fe = sub.add_parser(
         "federate", help="federation aggregator: fold the fence-gossip "
@@ -879,7 +1009,26 @@ def build_parser() -> argparse.ArgumentParser:
                     "JSON file every --stats-every-s")
     fe.add_argument("--stats-every-s", type=float, default=0.5,
                     help="cadence of --stats-json rewrites")
+    _add_telemetry_flags(fe)
     fe.set_defaults(fn=cmd_federate)
+    tel = sub.add_parser(
+        "telemetry", help="pretty-print a flight-recorder dump, a "
+        "--metrics-prom exposition file, or a --trace-out span trace "
+        "as a live-style table / span tree")
+    tel.add_argument("path", help="flight dump JSON, prom text, or "
+                     "Chrome-trace JSON file")
+    tel.add_argument("--last", type=int, default=32,
+                     help="flight records / traces shown (most recent)")
+    tel.add_argument("--attribution", action="store_true",
+                     help="a sampling-profiler attribution document "
+                     "(not ported: raises)")
+    tel.add_argument("--follow", action="store_true",
+                     help="tail a LIVE artifact: re-render the table "
+                     "every time the file grows or is replaced, until "
+                     "interrupted")
+    tel.add_argument("--interval-s", type=float, default=0.5,
+                     help="poll cadence for --follow")
+    tel.set_defaults(fn=cmd_telemetry)
     return p
 
 

@@ -122,6 +122,26 @@ class Config:
     retry_budget_s: float = 15.0
     # Append one JSON metrics line per processor run to this file.
     metrics_json: str = ""
+    # Live telemetry (attendance_tpu_torch/obs): all default OFF, and
+    # with every flag unset the instrumented paths pay one branch per
+    # event. metrics_prom appends a Prometheus text-exposition block per
+    # interval to a file; metrics_port serves GET /metrics from a stdlib
+    # HTTP endpoint (-1 = an ephemeral port); flight_recorder keeps a
+    # ring of the last N per-batch records, dumped as JSON to
+    # flight_path on SIGUSR1, a run-loop crash or an explicit dump;
+    # trace_out collects per-batch spans (publish -> dequeue -> decode
+    # -> dispatch -> device_wait, the context carried in the broker
+    # message property ``traceparent``) and writes them there as
+    # Chrome-trace JSON at the end of each run.
+    metrics_prom: str = ""
+    metrics_port: int = 0
+    metrics_interval_s: float = 1.0
+    flight_recorder: int = 0
+    flight_path: str = "flight_recorder.json"
+    trace_out: str = ""
+    # Label-cardinality guard: distinct label sets per metric name
+    # before new sets fold into an unexported sink (<= 0 = no guard).
+    metric_series_max: int = 1024
     # Query serving (attendance_tpu_torch/serve): nonzero = the fused
     # pipeline answers BF.EXISTS, PFCOUNT, occupancy, attendance rate and
     # the window verbs from an epoch-pinned host mirror of its sketch
@@ -252,6 +272,14 @@ class Config:
                 "(0 = off, -1 = ephemeral)")
         if self.query_batch_max < 1:
             raise ValueError("query_batch_max must be >= 1")
+        if not (-1 <= self.metrics_port <= 65535):
+            raise ValueError(
+                f"metrics_port out of range: {self.metrics_port} "
+                "(0 = off, -1 = ephemeral)")
+        if self.metrics_interval_s <= 0:
+            raise ValueError("metrics_interval_s must be positive")
+        if self.flight_recorder < 0:
+            raise ValueError("flight_recorder must be >= 0 (ring size)")
         if self.read_staleness_ceiling_s < 0:
             raise ValueError(
                 "read_staleness_ceiling_s must be >= 0 (0 = no staleness "

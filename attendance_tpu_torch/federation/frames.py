@@ -29,8 +29,10 @@ the owned ``shard``, the fence's wall clock ``fence_ts`` (the merge-lag
 clock), the cumulative ``events`` / ``roster_size`` counters, the sketch
 geometry (``m_bits`` / ``k`` / ``precision``, so mismatched
 configurations fail loudly), and the worker's ``bank_of`` map for the
-rows carried. The ``traceparent`` field is always present; the port
-writes ``""`` there (it does not trace yet).
+rows carried. The ``traceparent`` field is always present: a worker
+that traces writes its ``fence_publish`` span's context there (from the
+tracer, ``obs.tracing.format_ctx``), and a worker without tracing
+writes ``""``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,13 @@
 """Fence gossip: workers publish merge frames, an aggregator folds them.
 
 Counterpart of ``attendance_tpu/federation/gossip.py`` (its path with
-telemetry and fault injection off: the port has neither yet).
+fault injection off: the port has none yet). With telemetry (``obs``)
+the publisher counts frames and failures and, when tracing, opens a
+``fence_publish`` span whose context rides the frame's ``traceparent``;
+the aggregator counts wire rejects, merged deltas, stale frames,
+takeovers and geometry rejects, keeps the merge-lag histogram and the
+map-version and per-peer liveness gauges, and nests its ``fed_merge``
+span under the worker's fence.
 
 Worker side (:class:`FenceGossip`), hooked onto the fused pipeline's
 snapshot fences: every durable delta barrier publishes the SAME
@@ -44,6 +50,7 @@ from attendance_tpu_torch.federation.frames import (
 from attendance_tpu_torch.federation.merge import (
     GeometryMismatch, MergedView, encode_counts)
 from attendance_tpu_torch.federation.shard import ShardMap
+from attendance_tpu_torch.obs.tracing import format_ctx, parse_ctx
 from attendance_tpu_torch.serve.mirror import ReadMirror
 from attendance_tpu_torch.transport import PoisonTracker, make_client
 from attendance_tpu_torch.transport.framing import (
@@ -106,7 +113,7 @@ class FenceGossip:
     """Worker-side merge-frame publisher (one per fused pipeline)."""
 
     def __init__(self, config, *, client=None, m_bits: int = 0,
-                 k: int = 0):
+                 k: int = 0, obs=None):
         self.worker = config.fed_worker or "w0"
         self.shard = int(config.fed_shard)
         self.topic = config.fed_gossip_topic or DEFAULT_GOSSIP_TOPIC
@@ -124,6 +131,21 @@ class FenceGossip:
         self._hb_stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
         self._last_events = 0
+        self._c_frames = self._c_failures = None
+        self._tracer = obs.tracer if obs is not None else None
+        if obs is not None:
+            self._c_frames = {
+                kind: obs.registry.counter(
+                    "attendance_fed_gossip_frames_total",
+                    help="Merge frames published to the gossip topic",
+                    kind=kind, worker=self.worker)
+                for kind in ("full", "delta", "heartbeat",
+                             "repair_request")}
+            self._c_failures = obs.registry.counter(
+                "attendance_fed_gossip_failures_total",
+                help="Gossip publishes that failed (the next "
+                "successful publish upgrades to a full frame)",
+                worker=self.worker)
 
     def start_heartbeat(self) -> "FenceGossip":
         if self._hb_s > 0 and self._hb_thread is None:
@@ -148,24 +170,43 @@ class FenceGossip:
                     return False
                 self._producer.send(enc_checksummed(encode()))
         except Exception:  # noqa: BLE001 — gossip never fails a fence
+            if self._c_failures is not None:
+                self._c_failures.inc()
             self.full_due = kind != "heartbeat" or self.full_due
             logger.warning("fed gossip %s publish failed (deferred to "
                            "next fence)", kind, exc_info=True)
             return False
+        if self._c_frames is not None:
+            self._c_frames[kind].inc()
         return True
 
     def _encode(self, kind: str, events: int, *, bank_of=None,
                 roster_size: int = 0, num_banks: int = 0,
                 arrays=None) -> bytes:
-        return encode_frame(
+        seq = next(self._seq)
+        tp = ""
+        span = None
+        if self._tracer is not None and kind != "heartbeat":
+            # The fence-publish span is the cross-process parent: its
+            # context ships in the frame header, so the aggregator's
+            # fed_merge span nests under it.
+            span = self._tracer.start_span(
+                "fence_publish",
+                args={"kind": kind, "worker": self.worker,
+                      "shard": self.shard, "seq": seq})
+            tp = format_ctx(span.context(seq))
+        data = encode_frame(
             worker=self.worker, kind=kind,
-            incarnation=self.incarnation, seq=next(self._seq),
+            incarnation=self.incarnation, seq=seq,
             shard=self.shard, fence_ts=time.time(),
             events=int(events),
             bank_of=bank_of, m_bits=self.m_bits, k=self.k,
             precision=self.precision, num_banks=num_banks,
             roster_size=roster_size, snapshot_dir=self.snapshot_dir,
-            traceparent="", arrays=arrays)
+            traceparent=tp, arrays=arrays)
+        if span is not None:
+            self._tracer.end_span(span)
+        return data
 
     def publish_full(self, bloom_words, regs, counts,
                      bank_of: Dict[int, int], events: int,
@@ -274,11 +315,13 @@ class FenceGossip:
 class Aggregator:
     """Fold the gossip stream into a queryable global view."""
 
+    _TRACE_ROLE = "fed-aggregator"
+
     def __init__(self, config=None, *, client=None,
                  topic: Optional[str] = None,
                  num_shards: Optional[int] = None,
                  dead_after_s: Optional[float] = None,
-                 precision: Optional[int] = None):
+                 precision: Optional[int] = None, obs=None):
         cfg = config if config is not None else Config()
         self.topic = topic or cfg.fed_gossip_topic or DEFAULT_GOSSIP_TOPIC
         self.dead_after_s = (dead_after_s if dead_after_s is not None
@@ -301,12 +344,72 @@ class Aggregator:
         self.geometry_rejects = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._no_traceparent_warned: set = set()
+        self._obs = obs
+        self._tracer = obs.tracer if obs is not None else None
+        self._h_lag = self._c_deltas = self._c_stale = None
+        self._c_takeovers = self._g_peers = self._c_geom = None
+        self._c_wire = None
+        if obs is not None:
+            self._c_wire = obs.registry.counter(
+                "attendance_integrity_wire_rejects_total",
+                help="Frames rejected for a failed payload checksum "
+                     "(in-flight rot, never folded)",
+                site="fed.gossip")
+            self._h_lag = obs.registry.histogram(
+                "attendance_fed_merge_lag_seconds",
+                help="Fence -> folded-into-global-view latency per "
+                "merge frame", scale=1e3)
+            self._c_deltas = obs.registry.counter(
+                "attendance_fed_merged_deltas_total",
+                help="State-carrying merge frames folded into the "
+                "global view")
+            self._c_stale = obs.registry.counter(
+                "attendance_fed_stale_frames_total",
+                help="Frames from a superseded incarnation/sequence "
+                "(sketch folded idempotently, counters ignored)")
+            self._c_takeovers = obs.registry.counter(
+                "attendance_fed_takeovers_total",
+                help="Dead-peer shard reassignments (failover events)")
+            self._c_geom = obs.registry.counter(
+                "attendance_fed_geometry_rejects_total",
+                help="Gossip frames rejected for incompatible sketch "
+                "geometry (a misconfigured peer; doctor fails on any)")
+            obs.registry.gauge(
+                "attendance_fed_map_version",
+                help="Version of the federation shard map (bumps on "
+                "every reassignment)").set_function(
+                    lambda: float(self.shard_map.version))
+            self._g_peers = {}
 
     # -- folding -------------------------------------------------------------
+    def _peer_gauge(self, worker: str):
+        if self._obs is None:
+            return None
+        g = self._g_peers.get(worker)
+        if g is None:
+            g = self._g_peers[worker] = self._obs.registry.gauge(
+                "attendance_fed_peer_up",
+                help="1 while the peer's gossip is fresh, 0 once it "
+                "is declared dead", peer=worker)
+        return g
+
     def fold_frame(self, frame: MergeFrame,
                    now: Optional[float] = None) -> Dict:
+        t0 = time.perf_counter()
         info = self.view.fold(frame, now=now)
         worker = frame.worker
+        if ("traceparent" not in frame.header
+                and frame.kind != "heartbeat"
+                and worker not in self._no_traceparent_warned):
+            # A worker predating trace stitching: fold its state, and
+            # say once that its fences cannot parent fed_merge spans.
+            self._no_traceparent_warned.add(worker)
+            logger.warning(
+                "gossip frames from %s carry no traceparent field "
+                "(older worker build?) — folding normally, but its "
+                "fences cannot parent fed_merge spans in the "
+                "stitched trace", worker)
         ledger = self.view.workers[worker]
         # The aggregator's own chain-recovery fold (header "recovered")
         # re-asserts a dead peer's STATE, never its liveness or its
@@ -322,6 +425,28 @@ class Aggregator:
         if ledger.shard >= 0 and not info["stale"] \
                 and worker not in self._down:
             self.shard_map.claim(ledger.shard, worker)
+        g = self._peer_gauge(worker)
+        if g is not None:
+            g.set(0.0 if worker in self._down else 1.0)
+        if info["lag_s"] is not None:
+            if self._h_lag is not None:
+                self._h_lag.observe(info["lag_s"])
+                self._c_deltas.inc()
+            if self._tracer is not None:
+                # Continue the trace the worker's fence_publish span
+                # started (its context rode the frame header); an
+                # untraced worker's frame roots a fresh trace.
+                ctx = parse_ctx(frame.header.get("traceparent"))
+                self._tracer.add_span(
+                    "fed_merge", t0, time.perf_counter(),
+                    trace_id=(ctx.trace_id if ctx is not None
+                              else self._tracer.new_id()),
+                    parent_id=ctx.span_id if ctx is not None else None,
+                    role=self._TRACE_ROLE,
+                    args={"worker": worker, "kind": frame.kind,
+                          "lag_s": round(info["lag_s"], 6)})
+        if info["stale"] and self._c_stale is not None:
+            self._c_stale.inc()
         return info
 
     def publish_epoch(self) -> None:
@@ -344,6 +469,8 @@ class Aggregator:
             try:
                 body, verified = dec_checksummed(raw)
             except FrameChecksumError:
+                if self._c_wire is not None:
+                    self._c_wire.inc()
                 # In-flight rot, rejected at the fold: the broker still
                 # holds the original bytes, so a bounded nack
                 # redelivers them clean; past the bound the frame is
@@ -399,6 +526,8 @@ class Aggregator:
                 # Loud and attributed, but bounded: one misconfigured
                 # peer must not stop the federation's serving.
                 self.geometry_rejects += 1
+                if self._c_geom is not None:
+                    self._c_geom.inc()
                 logger.error("gossip frame from %s REJECTED: %s",
                              frame.worker, exc)
             except Exception:  # noqa: BLE001
@@ -450,6 +579,12 @@ class Aggregator:
                 producer.close()
             except Exception:  # noqa: BLE001
                 pass
+        if self._obs is not None:
+            self._obs.registry.counter(
+                "attendance_fed_reasserts_total",
+                help="Peer-assisted chain repairs served (full-frame "
+                     "re-asserts of a worker's retained contribution)"
+            ).inc()
         logger.warning(
             "served re-assert to %s: %d events, %d banks (chain "
             "repair in progress on the worker)", worker,
@@ -470,7 +605,12 @@ class Aggregator:
 
     def _on_dead(self, worker: str) -> None:
         self._down.add(worker)
+        g = self._peer_gauge(worker)
+        if g is not None:
+            g.set(0.0)
         moved = self.shard_map.reassign(worker, None)
+        if self._c_takeovers is not None:
+            self._c_takeovers.inc()
         logger.warning(
             "fed peer %s declared dead (silent > %.1fs): shards %s "
             "orphaned at map version %d, recovering its chain",

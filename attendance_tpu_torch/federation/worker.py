@@ -2,7 +2,8 @@
 
     python -m attendance_tpu_torch.federation.worker \
         --worker w0 --shard 0 --num-shards 3 --broker HOST:PORT \
-        --workdir DIR --num-events N --seed S [--takeover] [--device cpu]
+        --workdir DIR --num-events N --seed S [--takeover] [--device cpu] \
+        [--metrics-prom FILE] [--trace-out FILE]
 
 Counterpart of ``attendance_tpu/federation/worker.py``. One worker is one
 fused pipeline on the card (``--device``, by default the CUDA card; with
@@ -87,7 +88,8 @@ def make_worker_config(worker: str, shard: int, num_shards: int,
                        broker: str, workdir, *, base_topic: str,
                        data_plane: str = "socket",
                        snapshot_every: int = 4,
-                       gossip_topic: str = "") -> Config:
+                       gossip_topic: str = "", metrics_prom: str = "",
+                       trace_out: str = "") -> Config:
     workdir = Path(workdir)
     kw = {"fed_gossip_topic": gossip_topic} if gossip_topic else {}
     return Config(
@@ -100,7 +102,8 @@ def make_worker_config(worker: str, shard: int, num_shards: int,
         snapshot_mode="delta",
         quarantine_dir=str(workdir / f"quarantine-{shard}"),
         fed_worker=worker, fed_shard=shard, fed_shards=num_shards,
-        fed_gossip_broker=broker, **kw)
+        fed_gossip_broker=broker, metrics_prom=metrics_prom,
+        trace_out=trace_out, **kw)
 
 
 def run_worker(args) -> dict:
@@ -109,7 +112,8 @@ def run_worker(args) -> dict:
         args.workdir, base_topic=args.topic,
         data_plane=args.data_plane,
         snapshot_every=args.snapshot_every,
-        gossip_topic=args.gossip_topic)
+        gossip_topic=args.gossip_topic, metrics_prom=args.metrics_prom,
+        trace_out=args.trace_out)
     full, mine, frames = build_workload(
         args.seed, args.shard, args.num_shards, args.num_events,
         roster_size=args.roster_size, batch=args.batch)
@@ -178,6 +182,14 @@ def run_worker(args) -> dict:
         pipe.cleanup()
 
 
+class _NotPorted(argparse.Action):
+    """A JAX worker flag whose plane the port does not have yet: refused
+    at parse time, naming the ROADMAP item that ports it."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported yet ({self.help})")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="federation ingest worker")
     p.add_argument("--worker", required=True)
@@ -215,6 +227,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' "
                    "runs the kernels' plain PyTorch versions)")
+    p.add_argument("--metrics-prom", default="",
+                   help="append Prometheus exposition blocks of this "
+                   "worker's telemetry here")
+    p.add_argument("--trace-out", default="",
+                   help="write this worker's spans here as Chrome-trace "
+                   "JSON; its gossip frames then carry the fence span's "
+                   "traceparent")
+    p.add_argument("--fleet-push", action=_NotPorted,
+                   help="the fleet pusher: ROADMAP item 11d")
+    p.add_argument("--chaos", action=_NotPorted,
+                   help="fault injection: ROADMAP item 11c")
+    p.add_argument("--chaos-seed", action=_NotPorted,
+                   help="fault injection: ROADMAP item 11c")
     return p
 
 

@@ -1,0 +1,261 @@
+"""Live telemetry: registry + exposition + flight recorder + span tracing.
+
+Counterpart of ``attendance_tpu/obs/__init__.py``, its telemetry core.
+One process-wide :class:`Telemetry` instance (module global), enabled
+iff a telemetry flag is set (``--metrics-prom``, ``--metrics-port``,
+``--flight-recorder``, ``--trace-out``). Instrumented call sites capture
+the global ONCE at construction and pay one ``is not None`` branch per
+hot-path event when telemetry is off: nothing is timed or allocated,
+and the reporter, server and exporter load only when a flag asks for
+them.
+
+Wiring: pipeline constructors call :func:`ensure` with their config;
+the first caller with a telemetry-enabled config creates and starts the
+subsystem, everyone after (brokers, engines, sibling pipelines in the
+same process) picks it up via :func:`get`. Tests drive
+:func:`enable`/:func:`disable` directly.
+
+Every metric is a host number. A hook times with ``time.perf_counter``
+and never synchronizes the card or reads a CUDA tensor: ``device_wait``
+is the wait on a frame's own completion event, which the run loop
+already makes, and no gauge callback touches the device at scrape time.
+
+The metric names, labels, help strings and bucket bounds are the JAX
+package's (the scrape contract). Its auditor, SLO engine, sampling
+profiler, recompile tracker, incident and control planes and fleet
+pusher are not ported yet: the port's ``Config`` has none of their
+fields, ``Telemetry.recompiles`` is None, and :meth:`finalize_slo` and
+:meth:`flush_profile` do nothing.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Dict, Optional
+
+from attendance_tpu_torch.obs.recorder import (  # noqa: F401
+    _NOT_INSTALLED, DEFAULT_RING, FlightRecorder, install_sigusr1,
+    uninstall_sigusr1)
+from attendance_tpu_torch.obs.registry import (  # noqa: F401
+    Counter, Gauge, Histogram, Registry)
+from attendance_tpu_torch.obs.tracing import (  # noqa: F401
+    TRACEPARENT, SpanContext, Tracer, format_ctx, parse_ctx)
+
+logger = logging.getLogger(__name__)
+
+# THE process-wide telemetry handle. None = disabled (the common case):
+# every instrumented call site short-circuits on it.
+TELEMETRY: Optional["Telemetry"] = None
+_lock = threading.Lock()
+
+DEFAULT_FLIGHT_PATH = "flight_recorder.json"
+
+_atexit_installed = False
+
+
+def _atexit_flush() -> None:
+    t = TELEMETRY
+    if t is None:
+        return
+    if t._reporter is not None:
+        t._reporter._write_block()
+    t.flush_trace("atexit")
+
+
+def _install_atexit_flush() -> None:
+    """Register the exit-time flush once per process; it reads the
+    CURRENT global, so stopped instances are neither pinned nor
+    flushed. A CLI run shorter than the reporter interval would
+    otherwise exit with an empty --metrics-prom file."""
+    global _atexit_installed
+    if _atexit_installed:
+        return
+    _atexit_installed = True
+    import atexit
+
+    atexit.register(_atexit_flush)
+
+
+def enabled_in(config) -> bool:
+    """Does this config ask for live telemetry at all?"""
+    return bool(getattr(config, "metrics_prom", "")
+                or getattr(config, "metrics_port", 0)
+                or getattr(config, "flight_recorder", 0)
+                or getattr(config, "trace_out", ""))
+
+
+class Telemetry:
+    """Registry + optional reporter/server/flight-recorder/tracer."""
+
+    def __init__(self, *, metrics_prom: str = "", metrics_port: int = 0,
+                 metrics_interval_s: float = 1.0,
+                 flight_recorder: int = 0,
+                 flight_path: str = DEFAULT_FLIGHT_PATH,
+                 trace_out: str = "", metric_series_max: int = 1024):
+        self.registry = Registry(max_series=metric_series_max)
+        self.flight: Optional[FlightRecorder] = (
+            FlightRecorder(flight_recorder) if flight_recorder > 0
+            else None)
+        self.flight_path = flight_path or DEFAULT_FLIGHT_PATH
+        # Span tracer: instrumented sites capture `telemetry.tracer`
+        # once and branch on `is not None`, so a metrics-only run pays
+        # nothing for tracing.
+        self.tracer: Optional[Tracer] = Tracer() if trace_out else None
+        self.trace_path = trace_out
+        # The JAX bundle's XLA recompile tracker: no counterpart until
+        # the profiler slice.
+        self.recompiles = None
+        self._reporter = None
+        self._server = None
+        self._prev_sigusr1 = _NOT_INSTALLED
+        self._metrics_prom = metrics_prom
+        self._metrics_port = metrics_port
+        self._interval = metrics_interval_s
+        self._stage_cache: Dict[str, Histogram] = {}
+        self._wire_cache: Dict[str, Counter] = {}
+        # The shared top-line counters both processors bump.
+        self.events = self.registry.counter(
+            "attendance_events_total", help="Events processed")
+        self.frames = self.registry.counter(
+            "attendance_frames_total", help="Frames/batches processed")
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "Telemetry":
+        if self._metrics_prom or self._metrics_port:
+            from attendance_tpu_torch.obs.exposition import (
+                FileReporter, MetricsServer)
+            if self._metrics_prom:
+                self._reporter = FileReporter(
+                    self.registry, self._metrics_prom,
+                    self._interval).start()
+            if self._metrics_port:
+                # -1 selects an ephemeral port; the bound port is on
+                # server.port either way.
+                port = 0 if self._metrics_port < 0 else self._metrics_port
+                self._server = MetricsServer(self.registry, port).start()
+        if self.flight is not None:
+            self._prev_sigusr1 = install_sigusr1(self.flight,
+                                                 self.flight_path)
+        if self.tracer is not None or self._reporter is not None:
+            # Backstop for runs that never reach a run-loop flush; every
+            # flush is idempotent.
+            _install_atexit_flush()
+        return self
+
+    def stop(self) -> None:
+        self.flush_trace("telemetry-stop")
+        if self._reporter is not None:
+            self._reporter.stop()
+            self._reporter = None
+        if self._server is not None:
+            self._server.stop()
+            self._server = None
+        if self._prev_sigusr1 is not _NOT_INSTALLED:
+            # Restore the displaced handler: a leaked one would keep
+            # dumping this (now stale) ring to this (now stale) path.
+            uninstall_sigusr1(self._prev_sigusr1)
+            self._prev_sigusr1 = _NOT_INSTALLED
+
+    @property
+    def http_port(self) -> Optional[int]:
+        return self._server.port if self._server is not None else None
+
+    # -- cached handles (hot paths fetch these once at construction) ---------
+    def stage(self, name: str) -> Histogram:
+        h = self._stage_cache.get(name)
+        if h is None:
+            h = self._stage_cache[name] = self.registry.histogram(
+                "attendance_stage_latency_seconds",
+                help="Per-stage latency (power-of-2 buckets)",
+                stage=name)
+        return h
+
+    def wire(self, name: str) -> Counter:
+        c = self._wire_cache.get(name)
+        if c is None:
+            c = self._wire_cache[name] = self.registry.counter(
+                "attendance_wire_frames_total",
+                help="Frames dispatched per host->device wire",
+                wire=name)
+        return c
+
+    # -- flight recorder -----------------------------------------------------
+    def record_batch(self, **fields) -> None:
+        if self.flight is not None:
+            self.flight.record(fields)
+
+    def dump_flight(self, reason: str) -> None:
+        if self.flight is None:
+            return
+        p = self.flight.dump(self.flight_path, reason=reason)
+        logger.info("Flight recorder dumped to %s (%s)", p, reason)
+
+    # -- planes not ported yet -----------------------------------------------
+    def finalize_slo(self, reason: str) -> None:
+        """The SLO engine's end-of-run tick: nothing to do without it."""
+
+    def flush_profile(self, reason: str = "flush") -> None:
+        """The sampling profiler's artifacts: nothing to do without it."""
+
+    # -- tracing -------------------------------------------------------------
+    def flush_trace(self, reason: str = "flush") -> None:
+        """Write the span buffer to ``--trace-out`` (atomic; no-op
+        without a tracer or with nothing recorded). Called at the end of
+        every run loop, on stop(), and at process exit."""
+        if self.tracer is None or not self.trace_path:
+            return
+        if not len(self.tracer):
+            return
+        p = self.tracer.flush(self.trace_path)
+        logger.info("Trace (%d spans) written to %s (%s)",
+                    len(self.tracer), p, reason)
+
+    def render(self) -> str:
+        from attendance_tpu_torch.obs.exposition import render
+        return render(self.registry)
+
+
+def enable(config) -> Telemetry:
+    """Create, start, and install the global Telemetry from config."""
+    global TELEMETRY
+    with _lock:
+        if TELEMETRY is not None:
+            return TELEMETRY
+        t = Telemetry(
+            metrics_prom=getattr(config, "metrics_prom", ""),
+            metrics_port=getattr(config, "metrics_port", 0),
+            metrics_interval_s=getattr(config, "metrics_interval_s", 1.0),
+            flight_recorder=getattr(config, "flight_recorder", 0),
+            flight_path=getattr(config, "flight_path",
+                                DEFAULT_FLIGHT_PATH),
+            trace_out=getattr(config, "trace_out", ""),
+            metric_series_max=getattr(config, "metric_series_max",
+                                      1024))
+        t.start()
+        TELEMETRY = t
+        return t
+
+
+def ensure(config) -> Optional[Telemetry]:
+    """The constructor chokepoint: returns the live global telemetry,
+    creating it iff this config enables any telemetry surface. With all
+    flags unset this is one global read: the disabled path."""
+    if TELEMETRY is not None:
+        return TELEMETRY
+    if config is not None and enabled_in(config):
+        return enable(config)
+    return None
+
+
+def get() -> Optional[Telemetry]:
+    return TELEMETRY
+
+
+def disable() -> None:
+    """Stop and clear the global (tests; symmetric with enable)."""
+    global TELEMETRY
+    with _lock:
+        if TELEMETRY is not None:
+            TELEMETRY.stop()
+            TELEMETRY = None

@@ -40,10 +40,18 @@ of the state and every collective across those cells: the counterpart of
 JAX's virtual CPU devices. The 1 x 1 mesh runs the single-card kernels
 (K3, K2 and K2-seg/-delta, K4, K1) on the single-card state layout, as
 JAX's ``_build_single_kernels`` does.
+
+Telemetry (on when ``obs`` is live at construction): each replica's
+events are a host counter (``attendance_shard_events{replica=}``, summed
+over the live engines at scrape time), and with tracing each step adds
+replica-labelled ``replica_dispatch`` spans under the active batch span.
+Neither reads the card.
 """
 
 from __future__ import annotations
 
+import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,6 +65,12 @@ from attendance_tpu_torch.models.fused import (
     fused_step_seg, fused_step_words, pack_bytes)
 from attendance_tpu_torch.models.hll import estimate_from_histogram
 from attendance_tpu_torch.ops import kernels
+
+
+# Live engines the shard-event gauges sum over: sibling engines in one
+# process add up per replica, and a dead engine is neither pinned by a
+# gauge's closure nor reported.
+_LIVE_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
 
 
 class Mesh:
@@ -153,6 +167,25 @@ class ShardedSketchEngine:
                      for row in mesh.devices]
         self.counts = [torch.zeros((2, 2), dtype=torch.int32, device=row[0])
                        for row in mesh.devices]
+        # Per-replica event counters on the host: one numpy add a step,
+        # read by callback gauges only when a scrape renders them, and
+        # only kept while telemetry is live at construction.
+        self.shard_events = np.zeros(self.dp, np.int64)
+        from attendance_tpu_torch import obs
+        t = obs.get()
+        self._tracer = t.tracer if t is not None else None
+        self._obs_enabled = t is not None
+        if t is not None:
+            _LIVE_ENGINES.add(self)
+            for r in range(self.dp):
+                t.registry.gauge(
+                    "attendance_shard_events",
+                    help="Events dispatched to each dp replica slice "
+                    "(summed over live engines)",
+                    replica=str(r)).set_function(
+                        lambda r=r: sum(
+                            int(e.shard_events[r])
+                            for e in list(_LIVE_ENGINES) if r < e.dp))
 
     def _zero_regs(self, banks: int, device) -> torch.Tensor:
         return torch.zeros((banks, self.regs_local), dtype=torch.uint8,
@@ -253,6 +286,50 @@ class ShardedSketchEngine:
             for c in cells:
                 c.copy_(out.to(c.device))
 
+    # -- telemetry ----------------------------------------------------------
+    def _note_events(self, n: int, padded: int) -> None:
+        """Attribute a batch's n real events to the contiguous dp slices
+        that carry them."""
+        if not self._obs_enabled:
+            return
+        local = padded // self.dp
+        for r in range(self.dp):
+            c = n - r * local
+            if c <= 0:
+                break
+            self.shard_events[r] += min(c, local)
+
+    def note_shard_events(self, lane_counts) -> None:
+        """Attribute per-replica event counts packed outside the engine
+        (the narrow wires pack each slice in the pipeline)."""
+        if self._obs_enabled:
+            self.shard_events += np.asarray(lane_counts, np.int64)
+
+    def _trace_dispatch(self, wire: str, t0: float, n: Optional[int],
+                        padded: int) -> None:
+        """One ``replica_dispatch`` span per dp slice that carries real
+        events (the launches are asynchronous: the span covers the host
+        side). ``n`` None (the narrow wires) gives every replica a span
+        with no events argument."""
+        tr = self._tracer
+        if tr is None:
+            return
+        t1 = time.perf_counter()
+        cur = tr.current()
+        trace_id = cur.trace_id if cur is not None else tr.new_id()
+        parent = cur.span_id if cur is not None else None
+        local = max(padded // self.dp, 1)
+        for r in range(self.dp):
+            args = {"replica": r, "wire": wire}
+            if n is not None:
+                c = n - r * local
+                if c <= 0:
+                    break
+                args["events"] = min(c, local)
+            tr.add_span("replica_dispatch", t0, t1, trace_id=trace_id,
+                        parent_id=parent, role="sharded-engine",
+                        args=args)
+
     # -- steps --------------------------------------------------------------
     def step_words(self, words: np.ndarray, n: int, kw: int) -> torch.Tensor:
         """Fused validate+count over the packed word wire: ``words``
@@ -262,11 +339,16 @@ class ShardedSketchEngine:
         if len(words) % self.dp:
             raise ValueError(f"{len(words)} words do not split over "
                              f"dp={self.dp}")
+        self._note_events(n, len(words))
+        t0 = time.perf_counter() if self._tracer is not None else 0.0
         if self.single:
             wire = torch.from_numpy(words.view(np.int32)).to(self.device)
-            return fused_step_words(self._state(), wire, self.params, kw,
-                                    self.precision)[:n]
-        return self._step(words.view(np.int32), None, n, kw)
+            valid = fused_step_words(self._state(), wire, self.params, kw,
+                                     self.precision)[:n]
+        else:
+            valid = self._step(words.view(np.int32), None, n, kw)
+        self._trace_dispatch("word", t0, n, len(words))
+        return valid
 
     def step(self, keys, bank_idx) -> torch.Tensor:
         """Fused validate+count for one batch of keys and bank ids (>= 0);
@@ -277,15 +359,21 @@ class ShardedSketchEngine:
         bank_idx = np.asarray(bank_idx, dtype=np.int32)
         if len(bank_idx) and int(bank_idx.min()) < 0:
             raise ValueError("bank ids of real lanes must be >= 0")
+        n = len(keys)
+        padded = self.padded_size(n)
+        self._note_events(n, padded)
+        t0 = time.perf_counter() if self._tracer is not None else 0.0
         if self.single:
-            n = len(keys)
-            buf = pack_bytes(keys, bank_idx, np.uint32, self.padded_size(n))
+            buf = pack_bytes(keys, bank_idx, np.uint32, padded)
             wire = torch.from_numpy(buf).to(self.device)
-            return fused_step_bytes(self._state(), wire, self.params, 4,
-                                    self.precision)[:n]
-        kbuf, n = self._pad(keys, 0, np.uint32)
-        bbuf, _ = self._pad(bank_idx, -1, np.int32)
-        return self._step(kbuf.view(np.int32), bbuf, n, 0)
+            valid = fused_step_bytes(self._state(), wire, self.params, 4,
+                                     self.precision)[:n]
+        else:
+            kbuf, n = self._pad(keys, 0, np.uint32)
+            bbuf, _ = self._pad(bank_idx, -1, np.int32)
+            valid = self._step(kbuf.view(np.int32), bbuf, n, 0)
+        self._trace_dispatch("arrays", t0, n, padded)
+        return valid
 
     def step_narrow(self, bufs: np.ndarray, mode: str, width: int,
                     padded_local: int) -> torch.Tensor:
@@ -308,11 +396,14 @@ class ShardedSketchEngine:
             raise ValueError(f"bufs must be uint32[dp={self.dp}, words], "
                              f"got {bufs.shape}")
         nb = self.num_banks
+        t0 = time.perf_counter() if self._tracer is not None else 0.0
         if self.single:
             step = fused_step_seg if mode == "seg" else fused_step_delta
             buf = torch.from_numpy(bufs[0].view(np.int32)).to(self.device)
-            return step(self._state(), buf, self.params, width, padded_local,
-                        nb, self.precision)
+            valid = step(self._state(), buf, self.params, width,
+                         padded_local, nb, self.precision)
+            self._trace_dispatch(mode, t0, None, self.dp * padded_local)
+            return valid
         decode = kernels.decode_seg if mode == "seg" else kernels.decode_delta
         wkey = "kb" if mode == "seg" else "db"
         answers = []
@@ -334,7 +425,9 @@ class ShardedSketchEngine:
                     bank=banks[d], n_real=n_real,
                     counts=self.counts[r] if s == 0 else None)
             answers.append(valid)
-        return self._gather_valid(answers).to(torch.bool)
+        valid = self._gather_valid(answers).to(torch.bool)
+        self._trace_dispatch(mode, t0, None, self.dp * padded_local)
+        return valid
 
     def _gather_valid(self, answers: List[torch.Tensor]) -> torch.Tensor:
         """After a step: ``replica_sync="step"``'s register max, then the

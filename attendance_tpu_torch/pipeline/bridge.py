@@ -2,7 +2,7 @@
 pipeline's wire out.
 
 Counterpart of ``attendance_tpu/pipeline/bridge.py`` without its chaos
-and telemetry hooks. The reference's producers emit one JSON object per
+hooks. The reference's producers emit one JSON object per
 broker message; the fused pipeline consumes bulk binary frames. The
 bridge drains the JSON topic in micro-batches, decodes a batch through
 the codec seam (the native scan, ``ATP_NATIVE=0``: Python), packs the
@@ -16,6 +16,11 @@ bridges on one shared subscription scale the decode across processes.
 A batch with a poison payload is converted message by message, so only
 the bad payloads are nacked and, after ``max_redeliveries``,
 dead-lettered (into ``quarantine_dir`` when set).
+
+With tracing on the bridge is a trace relay: each forwarded frame's
+``bridge_forward`` span continues the trace of the first JSON message it
+folded in, and the frame carries that span's context, so generator ->
+bridge -> fused pipeline reads as one tree.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 
+from attendance_tpu_torch import obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.codec import get_codec
 from attendance_tpu_torch.pipeline.events import (
@@ -48,6 +54,11 @@ class JsonBinaryBridge:
     def __init__(self, config: Optional[Config] = None, *,
                  client=None, out_topic: Optional[str] = None):
         self.config = config or Config()
+        # Telemetry before the transport (broker queues register their
+        # depth gauges); one branch a batch when off.
+        self._obs = obs.ensure(self.config)
+        self._tracer = (self._obs.tracer if self._obs is not None
+                        else None)
         self.client = client or make_client(self.config)
         self.consumer = self.client.subscribe(
             self.config.pulsar_topic, self.SUBSCRIPTION)
@@ -65,6 +76,9 @@ class JsonBinaryBridge:
         them (a chunk is one in-flight entry, settled at once), exploded
         into per-message entries only on the poison path."""
         payloads = [t[1] for t in toks]
+        span = out_props = None
+        if self._tracer is not None:
+            span, out_props = self._begin_forward_span(toks[0], len(toks))
         try:
             cols = self._codec.decode(payloads)
         except Exception:
@@ -87,17 +101,41 @@ class JsonBinaryBridge:
             if good:
                 cols = {k: np.concatenate([p[k] for p in parts])
                         for k in parts[0]}
-                self._publish(cols, len(good))
+                self._publish(cols, len(good), out_props)
                 self.consumer.acknowledge_ids([t[0] for t in good])
+            if span is not None:
+                if good:
+                    self._tracer.end_span(span, messages=len(good))
+                else:  # the whole batch dead-lettered
+                    self._tracer.end_span(span, error="all-poison")
             return
-        self._publish(cols, len(toks))
+        self._publish(cols, len(toks), out_props)
         for cid, _ in chunks:
             self.consumer.acknowledge_chunk(cid)
+        if span is not None:
+            self._tracer.end_span(span, messages=len(toks))
 
-    def _publish(self, cols, n: int) -> None:
+    def _begin_forward_span(self, tok, n: int):
+        """Open the ``bridge_forward`` span continuing the first
+        message's trace, and the outgoing frame's properties naming it
+        as the parent."""
+        from attendance_tpu_torch.obs.tracing import (
+            TRACEPARENT, format_ctx, parse_ctx)
+
+        ctx = parse_ctx((tok[3] or {}).get(TRACEPARENT))
+        span = self._tracer.start_span(
+            "bridge_forward",
+            trace_id=ctx.trace_id if ctx is not None else None,
+            parent_id=ctx.span_id if ctx is not None else None,
+            role="bridge", args={"messages": n})
+        return span, {TRACEPARENT: format_ctx(
+            span.context(ctx.seq if ctx is not None else 0))}
+
+    def _publish(self, cols, n: int, properties=None) -> None:
         # The caller acks strictly after the binary frame is published:
         # the bridge never holds the only copy of an acknowledged event.
-        self.producer.send(self._codec.assemble(cols))
+        self.producer.send(self._codec.assemble(cols),
+                           properties=properties)
         self.metrics.batches += 1
         self.metrics.events += n
         self.metrics.batch_sizes.append(n)
@@ -127,6 +165,8 @@ class JsonBinaryBridge:
                         self.metrics.summary(None, include_validity=False))
         if self.config.metrics_json:
             self.metrics.write_json_line(self.config.metrics_json)
+        if self._obs is not None:
+            self._obs.flush_trace("run-end")
 
     def cleanup(self) -> None:
         self.client.close()

@@ -60,6 +60,15 @@ barriers run on the hot loop's thread, as JAX's do: its
 state reads are collectives on a multi-process mesh, where only process
 0 writes files and gossips.
 
+Telemetry (``obs/``, on when a telemetry flag is set): per-stage latency
+histograms (dequeue_wait, decode, dispatch, device_wait, snapshot_write,
+snapshot_blocked), the host gap between consecutive dispatches, the
+dispatch thread's busy fractions, events, frames and wire frames, the
+bytes each frame's wire carries to the card, per-batch spans under the
+trace the producer started, and one flight record a frame. Every hook
+reads host clocks only: ``device_wait`` times the wait on a frame's own
+completion event at its drain, which the run loop makes anyway.
+
 Federation: with ``fed_worker`` set the pipeline is one shard's worker
 (``federation/``). A full merge frame (the Bloom words and every bank)
 goes to the gossip topic at preload, restore and every base snapshot,
@@ -88,6 +97,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from attendance_tpu_torch import obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.device import resolve_device, to_device
 from attendance_tpu_torch.federation.gossip import FenceGossip
@@ -117,7 +127,7 @@ from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.temporal.buckets import is_bucket_key
 from attendance_tpu_torch.temporal.plane import TemporalPlane
 from attendance_tpu_torch.transport import (
-    PoisonTracker, handle_poison, make_client)
+    PoisonTracker, handle_poison, make_client, redelivery_count)
 from attendance_tpu_torch.transport.memory_broker import ReceiveTimeout
 from attendance_tpu_torch.utils.integrity import (
     ChainIntegrityError, file_digest, quarantine_artifact,
@@ -421,10 +431,27 @@ class FusedMetrics:
 class FusedPipeline:
     SUBSCRIPTION = "attendance_fused"
     _LUT_SIZE = 1 << 14  # covers ~44 years of calendar days from base
+    _TRACE_ROLE = "fused-pipeline"
 
     def __init__(self, config: Optional[Config] = None, *, client=None,
                  num_banks: int = 256, device=None, mesh=None):
         self.config = config or Config()
+        # Live telemetry: created here iff a telemetry flag is set,
+        # BEFORE the engine and the transport below so the mesh and the
+        # broker queues register their gauges. With the flags unset
+        # every hook in this class is one `is not None` branch and every
+        # handle below is None.
+        self._obs = obs.ensure(self.config)
+        self._tracer = (self._obs.tracer if self._obs is not None
+                        else None)
+        self._h_dequeue = self._h_decode = self._h_dispatch = None
+        self._h_device = self._h_snap_write = self._h_snap_blocked = None
+        self._h_gap = None
+        self._busy: Optional[Dict[str, float]] = None
+        self._c_xfer: Optional[dict] = None
+        self._last_wire = ""
+        if self._obs is not None:
+            self._init_telemetry()
         # A mesh (num_shards * num_replicas > 1): the sketch state lives
         # in a ShardedSketchEngine over a (dp, sp) grid of devices (the
         # process's CUDA devices, over the processes of a torchrun group,
@@ -457,7 +484,7 @@ class FusedPipeline:
             # On the shm wire each lane maps its own ring file.
             self.consumer = StripedConsumer(
                 self.config, self.client, self.config.pulsar_topic,
-                self.SUBSCRIPTION)
+                self.SUBSCRIPTION, obs=self._obs)
         else:
             self.consumer = self.client.subscribe(self.config.pulsar_topic,
                                                   self.SUBSCRIPTION)
@@ -466,7 +493,8 @@ class FusedPipeline:
                 # dispatch a chunk; bulk frames pass through untouched.
                 # (A ring slot always holds a planar frame already.)
                 self.consumer = JsonChunkConsumer(
-                    self.consumer, self.config, metrics=self.metrics)
+                    self.consumer, self.config, obs=self._obs,
+                    metrics=self.metrics)
         # Poison retries bounded by the frame's own failure count.
         self._poison = PoisonTracker()
         # The chunk consumer's JSON decode seconds already charged to the
@@ -563,6 +591,14 @@ class FusedPipeline:
         # at a time), grown to the largest capture on first need.
         self._snap_stream = None
         self._staging: Optional[torch.Tensor] = None
+        self._g_delta_bytes = self._g_chain_len = None
+        if self._obs is not None and self._snap_dir is not None:
+            self._g_delta_bytes = self._obs.registry.gauge(
+                "attendance_snapshot_delta_bytes",
+                help="Bytes of the last incremental snapshot delta")
+            self._g_chain_len = self._obs.registry.gauge(
+                "attendance_snapshot_chain_length",
+                help="Delta files since the last full base snapshot")
         # Temporal sketch plane: windowed HLL bucket ring + watermarked
         # reorder + CMS fraud detector; one `is not None` branch per
         # frame when off. Built before restore(), which re-seeds it.
@@ -588,7 +624,7 @@ class FusedPipeline:
         if self.config.fed_worker and self._primary:
             self._fed = FenceGossip(
                 self.config, client=self.client, m_bits=self.params.m_bits,
-                k=self.params.k).start_heartbeat()
+                k=self.params.k, obs=self._obs).start_heartbeat()
         if self._snap_dir is not None:
             t = time.perf_counter()
             self.restore()
@@ -597,12 +633,82 @@ class FusedPipeline:
             # The in-process query plane: host numpy over the mirror's
             # pinned epoch behind a binary batch RPC port.
             self.query_engine = QueryEngine(
-                self.read_mirror, batch_max=self.config.query_batch_max,
+                self.read_mirror, obs=self._obs,
+                batch_max=self.config.query_batch_max,
                 staleness_ceiling_s=(
                     self.config.read_staleness_ceiling_s or None))
             port = self.config.serve_port
             self.query_server = QueryServer(
                 self.query_engine, port=0 if port < 0 else port).start()
+
+    def _init_telemetry(self) -> None:
+        """The hot loop's telemetry handles: the stage histograms, the
+        dispatch-gap histogram and the dispatch thread's busy-fraction
+        callback gauges (host seconds over host wall, divided at scrape
+        time; nothing in them reads the card)."""
+        t = self._obs
+        self._h_dequeue = t.stage("dequeue_wait")
+        self._h_decode = t.stage("decode")
+        self._h_dispatch = t.stage("dispatch")
+        self._h_device = t.stage("device_wait")
+        self._h_snap_write = t.stage("snapshot_write")
+        self._h_snap_blocked = t.stage("snapshot_blocked")
+        # Wall seconds this thread spent in decode / dispatch / the
+        # temporal host passes / the drain's waits since run() started.
+        self._busy = {"decode": 0.0, "device_dispatch": 0.0,
+                      "temporal": 0.0, "device_wait": 0.0}
+        self._busy_anchor = time.perf_counter()
+        self._last_dispatch_t = 0.0
+        self._last_dequeue_s = 0.0  # run-loop receive wait, per batch
+        self._dw_accum = 0.0  # device_wait since the last flight record
+        self._c_xfer = {}
+        self._h_gap = t.registry.histogram(
+            "attendance_dispatch_gap_seconds",
+            help="Host-side gap between consecutive device "
+            "dispatch enqueues (device idle opportunity: the "
+            "transport/host side is what fills it)")
+        ref = weakref.ref(self)
+
+        def _busy_reader(component: str):
+            def read() -> float:
+                pipe = ref()
+                if pipe is None:
+                    return float("nan")
+                wall = time.perf_counter() - pipe._busy_anchor
+                return pipe._busy[component] / wall if wall > 0 else 0.0
+            return read
+
+        components = ("decode", "device_dispatch", "device_wait")
+        if self.config.temporal_period_s > 0:
+            components += ("temporal",)
+        for component in components:
+            t.registry.gauge(
+                "attendance_dispatch_thread_busy_fraction",
+                help="Dispatch-thread occupancy split since the "
+                "current run started (the measurement behind the "
+                "lane-style temporal-worker decision)",
+                component=component).set_function(
+                    _busy_reader(component))
+
+    def _count_xfer(self, site: str, direction: str, nbytes: int,
+                    wire: Optional[str] = None) -> None:
+        """Count host<->device bytes: the gather seams the JAX package
+        counts (roster preload H2D, snapshot capture and mirror gather
+        D2H, ``{site, direction}``), and each frame's wire buffer
+        (``site="frame"``, labelled by ``wire``)."""
+        if self._obs is None or nbytes <= 0:
+            return
+        key = (site, direction, wire)
+        c = self._c_xfer.get(key)
+        if c is None:
+            labels = dict(site=site, direction=direction)
+            if wire is not None:
+                labels["wire"] = wire
+            c = self._c_xfer[key] = self._obs.registry.counter(
+                "attendance_device_transfer_bytes_total",
+                help="Host<->device bytes moved at the snapshot/"
+                "mirror gather seams", **labels)
+        c.inc(int(nbytes))
 
     def _make_engine(self, mesh, num_banks: int) -> ShardedSketchEngine:
         """The mesh's engine."""
@@ -630,6 +736,7 @@ class FusedPipeline:
         mesh, one K11 launch per cell over its replica's share of the
         roster, then the OR across dp)."""
         keys = np.ascontiguousarray(keys, dtype=np.uint32)
+        self._count_xfer("preload", "h2d", keys.nbytes)
         if self.engine is not None:
             self.engine.preload(keys)
         else:
@@ -851,6 +958,7 @@ class FusedPipeline:
         wires, completion event or None, pinned host buffers of its
         copies). A frame that does not decode raises :class:`PoisonFrame`
         before any state changes."""
+        obs_t = self._obs
         t0 = t = time.perf_counter()
         if isinstance(data, memoryview):
             # A frame borrowed from a shm ring slot: the slot is recycled
@@ -862,10 +970,17 @@ class FusedPipeline:
             cols = decode_frame(data, include_truth=False)
         except Exception as exc:
             raise PoisonFrame(f"undecodable frame: {exc!r}") from exc
-        t = self._lap("decode", t)
+        t = t_dec = self._lap("decode", t)
         n = len(cols["student_id"])
         if n == 0:
             return None, None, []
+        if obs_t is not None and self._last_dispatch_t:
+            # Gap since the previous dispatch enqueue completed: the
+            # window the card could have been starving in (launches are
+            # asynchronous, so the host's feed gaps are the ceiling).
+            # After the empty-frame return: an empty frame dispatches
+            # nothing.
+            self._h_gap.observe(max(t_dec - self._last_dispatch_t, 0.0))
         if self._snap_dirty:
             # Delta checkpointing: the lecture days this frame touches,
             # seen before the dispatch (native packs never materialize
@@ -884,12 +999,13 @@ class FusedPipeline:
             # the validity back when read.
             stored = (valid_n if perm is None
                       else _ScatterValidity(valid, perm, n))
+        t_tmp = 0.0
         if self._temporal is not None:
             # After the day map and the step, as in the JAX package: days
             # take their banks first, then new buckets take theirs.
             t = time.perf_counter()
             self._temporal.observe_frame(cols)
-            self._lap("temporal", t)
+            t_tmp = self._lap("temporal", t) - t
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -897,11 +1013,65 @@ class FusedPipeline:
         pinned, self._frame_pinned = self._frame_pinned, []
         t = time.perf_counter()
         self.store.insert_columns({**cols, "is_valid": stored})
-        t = self._lap("store", t)
+        t_end = t = self._lap("store", t)
         self.metrics.batches += 1
         self.metrics.events += n
         self.metrics.device_seconds += t - t0
+        if obs_t is not None:
+            self._observe_frame(obs_t, n, t0, t_dec, t_tmp, t_end)
         return valid_n, done, pinned
+
+    def _observe_frame(self, obs_t, n: int, t0: float, t_dec: float,
+                       t_tmp: float, t_end: float) -> None:
+        """One dispatched frame's telemetry: the busy split, events and
+        frames, the decode and dispatch spans under the batch span the
+        run loop activated, the stage histograms (the trace id as their
+        exemplar) and the flight record."""
+        self._last_dispatch_t = t_end
+        # The temporal host passes are carved out of the dispatch phase
+        # they ride inside.
+        self._busy["decode"] += t_dec - t0
+        self._busy["temporal"] += t_tmp
+        self._busy["device_dispatch"] += (t_end - t_dec) - t_tmp
+        obs_t.events.inc(n)
+        obs_t.frames.inc()
+        trace_hex = ""
+        tr = self._tracer
+        if tr is not None:
+            # The batch span run() activated; process_frame called
+            # directly (tests, embedding) roots fresh spans.
+            cur = tr.current()
+            tid = cur.trace_id if cur is not None else tr.new_id()
+            parent = cur.span_id if cur is not None else None
+            tr.add_span("decode", t0, t_dec, trace_id=tid,
+                        parent_id=parent, role=self._TRACE_ROLE,
+                        args={"events": n})
+            tr.add_span("dispatch", t_dec, t_end, trace_id=tid,
+                        parent_id=parent, role=self._TRACE_ROLE,
+                        args={"wire": self._last_wire})
+            trace_hex = f"{tid:016x}"
+        self._h_decode.observe(t_dec - t0, trace_hex)
+        self._h_dispatch.observe(t_end - t_dec, trace_hex)
+        dw, self._dw_accum = self._dw_accum, 0.0
+        if obs_t.flight is None:
+            return
+        stages = {
+            "dequeue_wait": round(self._last_dequeue_s, 6),
+            "decode": round(t_dec - t0, 6),
+            "dispatch": round((t_end - t_dec) - t_tmp, 6),
+            "device_wait": round(dw, 6),
+        }
+        if self._temporal is not None:
+            stages["temporal"] = round(t_tmp, 6)
+        rec = dict(
+            ts=round(time.time(), 6), events=n, wire=self._last_wire,
+            decode_s=round(t_dec - t0, 6),
+            dispatch_s=round(t_end - t_dec, 6),
+            inflight=len(self._inflight), stages=stages)
+        if trace_hex:
+            # A dump names the trace each batch record belongs to.
+            rec["trace"] = trace_hex
+        obs_t.record_batch(**rec)
 
     def _pick_kw(self, frame_bits: int, num_banks: int) -> int:
         """Key width of the word wire: the frame's own max-key bits
@@ -966,12 +1136,16 @@ class FusedPipeline:
             self._auto_pressure = 0
         return self._WIRE_LADDER[self._auto_level]
 
-    def _count_wire(self, key: str) -> None:
-        """One frame dispatched over ``key``: counted where the step is
-        launched, so a fallback frame counts for the wire that carried
-        it."""
+    def _count_wire(self, key: str, nbytes: int) -> None:
+        """One frame dispatched over ``key``, ``nbytes`` of wire buffer
+        to the card: counted where the step is launched, so a fallback
+        frame counts for the wire that carried it."""
         dwell = self.metrics.wire_dwell
         dwell[key] = dwell.get(key, 0) + 1
+        self._last_wire = key
+        if self._obs is not None:
+            self._obs.wire(key).inc()
+            self._count_xfer("frame", "h2d", nbytes, wire=key)
 
     def _lut_covers(self, day) -> bool:
         off = int(day) - self._day_base
@@ -1100,10 +1274,11 @@ class FusedPipeline:
             self._kw_hint = kw
             words = pack_words(sid, banks, kw, self.engine.padded_size(n))
             t = self._lap("pack", t)
-            self._count_wire("word")
+            self._count_wire("word", words.nbytes)
             valid = self.engine.step_words(words, n, kw)
         else:
-            self._count_wire("arrays")
+            # Keys and bank ids: 8 bytes a padded lane.
+            self._count_wire("arrays", 8 * self.engine.padded_size(n))
             valid = self.engine.step(sid, banks)
         self._lap("dispatch", t)
         return valid, valid
@@ -1162,7 +1337,9 @@ class FusedPipeline:
         lanes = np.empty(n, np.int64)
         orig = np.empty(n, np.int64)
         pos = 0
+        tr = self._tracer
         for r, (ks, bs, ds) in enumerate(slices):
+            t_pack = time.perf_counter() if tr is not None else 0.0
             buf = perm = None
             if mode == "seg":
                 if nat is not None and len(ks):
@@ -1182,6 +1359,17 @@ class FusedPipeline:
                 if buf is None:
                     buf, perm = pack_delta(ks, bs, width, padded_local,
                                            num_banks, scan=scans[r])
+            if tr is not None:
+                # Replica-labelled host-pack spans: which dp slice's pack
+                # dominates the mesh batch (under the batch span).
+                cur = tr.current()
+                tr.add_span("pack", t_pack, time.perf_counter(),
+                            trace_id=(cur.trace_id if cur is not None
+                                      else tr.new_id()),
+                            parent_id=cur.span_id if cur is not None
+                            else None, role=self._TRACE_ROLE,
+                            args={"replica": r, "wire": mode,
+                                  "events": len(ks)})
             if bufs is None:
                 bufs = np.empty((dp, len(buf)), np.uint32)
             bufs[r] = buf
@@ -1190,7 +1378,10 @@ class FusedPipeline:
             orig[pos:pos + m] = bounds[r] + perm
             pos += m
         t = self._lap("pack", t)
-        self._count_wire(mode)
+        self._count_wire(mode, bufs.nbytes)
+        if self._obs is not None:
+            engine.note_shard_events(
+                [bounds[r + 1] - bounds[r] for r in range(dp)])
         valid = engine.step_narrow(bufs, mode, width, padded_local)
         self._lap("dispatch", t)
         return valid, lanes, orig
@@ -1201,12 +1392,12 @@ class FusedPipeline:
         prec = self.config.hll_precision
         if use_words:
             self._kw_hint = kw
-            self._count_wire("word")
+            self._count_wire("word", buf.nbytes)
             valid = fused_step_words(self.state,
                                      self._to_device(buf.view(np.int32)),
                                      self.params, kw, prec)
         else:
-            self._count_wire("bytes")
+            self._count_wire("bytes", buf.nbytes)
             valid = fused_step_bytes(self.state, self._to_device(buf),
                                      self.params,
                                      np.dtype(self._bank_dtype).itemsize,
@@ -1295,7 +1486,7 @@ class FusedPipeline:
                        padded: int, num_banks: int, t: float
                        ) -> torch.Tensor:
         """K2-seg or K2-delta over a packed buffer."""
-        self._count_wire(mode)
+        self._count_wire(mode, buf.nbytes)
         step = fused_step_seg if mode == "seg" else fused_step_delta
         valid = step(self.state, self._to_device(buf.view(np.int32)),
                      self.params, width, padded, num_banks,
@@ -1378,7 +1569,7 @@ class FusedPipeline:
         if self._bloom_host is None:
             self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
                 np.uint32)
-        pinned = [p for _, _, ps in self._inflight for p in ps]
+        pinned = [p for _, _, ps, _ in self._inflight for p in ps]
         if self._snap_mode == "delta" and not self._base_stale:
             banks = self._drain_dirty_banks()
             idx, idx_pinned = to_device(self._pad_bank_index(banks),
@@ -1399,7 +1590,7 @@ class FusedPipeline:
             job = dict(kind="base", regs=regs, counts=counts,
                        bloom=self._bloom_host)
         job.update(ready=self._record_event(), upto=self.store.mark(),
-                   msgs=[m for m, _, _ in self._inflight], pinned=pinned,
+                   msgs=[m for m, *_ in self._inflight], pinned=pinned,
                    events=self._events_total, bank_of=dict(self._bank_of))
         self._inflight.clear()
         self._batches_at_snap = self.metrics.batches
@@ -1420,7 +1611,7 @@ class FusedPipeline:
             self._snapshot_sync_delta()
         else:
             self.snapshot()
-        self._ack([m for m, _, _ in self._inflight])
+        self._ack([m for m, *_ in self._inflight])
         self._inflight.clear()
 
     def _snapshot_sync_delta(self) -> None:
@@ -1432,6 +1623,7 @@ class FusedPipeline:
         rows = self.engine.get_state_rows(
             self._pad_bank_index(banks))[:len(banks)]
         counts = self.engine.get_counts()
+        self._count_xfer("snapshot_capture", "d2h", rows.nbytes)
         self._batches_at_snap = self.metrics.batches
         if not self._primary:
             return
@@ -1458,6 +1650,8 @@ class FusedPipeline:
                 self._snap_cv.wait()
             blocked = time.perf_counter() - t0
         self.metrics.snapshot_blocked_s += blocked
+        if self._obs is not None:
+            self._h_snap_blocked.observe(blocked)
 
     def _enqueue_snap(self, job: dict) -> None:
         with self._snap_cv:
@@ -1542,6 +1736,8 @@ class FusedPipeline:
         tensors stay referenced by the job until the copy completed, so
         the caching allocator cannot hand their memory to a frame."""
         regs, counts = job["regs"], job["counts"]
+        self._count_xfer("snapshot_capture", "d2h",
+                         regs.numel() + 4 * counts.numel())
         if regs.device.type != "cuda":
             return regs.numpy(), counts.numpy().view(np.uint32)
         n = regs.numel()
@@ -1581,6 +1777,18 @@ class FusedPipeline:
                 self._snap_unacked.extend(job["msgs"])
             disk_full = (isinstance(exc, OSError)
                          and exc.errno == errno.ENOSPC)
+            if self._obs is not None:
+                self._obs.registry.counter(
+                    "attendance_snapshot_write_failures_total",
+                    help="Background snapshot writes that failed "
+                    "(frames stay unacked; next barrier forces a "
+                    "full base)").inc()
+                if disk_full:
+                    self._obs.registry.counter(
+                        "attendance_snapshot_disk_full_total",
+                        help="Snapshot writes refused with ENOSPC "
+                        "(writer backs off at the capped cadence "
+                        "until space frees; frames stay unacked)").inc()
             if disk_full:
                 self._snap_fail_streak = max(self._snap_fail_streak + 1, 8)
                 logger.error(
@@ -1595,7 +1803,17 @@ class FusedPipeline:
                     "%d, next attempt in %.2fs)", self._snap_fail_streak,
                     self._writer_backoff_s())
         finally:
-            self.metrics.snapshot_stalls.append(time.perf_counter() - t0)
+            t_done = time.perf_counter()
+            self.metrics.snapshot_stalls.append(t_done - t0)
+            if self._obs is not None:
+                self._h_snap_write.observe(t_done - t0)
+                if self._tracer is not None:
+                    self._tracer.add_span(
+                        "snapshot_write", t0, t_done,
+                        trace_id=self._tracer.new_id(),
+                        role=self._TRACE_ROLE,
+                        args={"events_at": job["events"],
+                              "kind": job["kind"]})
             with self._snap_cv:
                 self._snap_pending -= 1
                 self._snap_cv.notify_all()
@@ -1711,6 +1929,8 @@ class FusedPipeline:
         self._snap_chain = []
         self._snap_digests = {}
         self._write_chain_manifest()
+        if self._g_chain_len is not None:
+            self._g_chain_len.set(0.0)
         for name in old:
             try:
                 (self._snap_dir / name).unlink()
@@ -1764,6 +1984,9 @@ class FusedPipeline:
         fresh base. Only a durable delta gossips: a failed write raises
         before this, and the full base owed after it gossips a full
         frame."""
+        if self._g_delta_bytes is not None:
+            self._g_delta_bytes.set(float(nbytes))
+            self._g_chain_len.set(float(len(self._snap_chain)))
         mirror = self._regs_mirror
         if mirror is not None:
             if num_banks > mirror.shape[0]:
@@ -1833,12 +2056,17 @@ class FusedPipeline:
         if self.engine is not None:
             bits, regs = self.engine.get_state()
             self._bloom_host = bits
+            self._count_xfer("mirror_gather", "d2h",
+                             bits.nbytes + regs.nbytes)
             return regs, self.engine.get_counts()
         if self._bloom_host is None:
             self._bloom_host = self.state.bloom_bits.cpu().numpy().view(
                 np.uint32)
-        return (self.state.hll_regs.cpu().numpy(),
-                self.state.counts.cpu().numpy().view(np.uint32))
+            self._count_xfer("mirror_gather", "d2h",
+                             self._bloom_host.nbytes)
+        regs_h = self.state.hll_regs.cpu().numpy()
+        self._count_xfer("mirror_gather", "d2h", regs_h.nbytes)
+        return regs_h, self.state.counts.cpu().numpy().view(np.uint32)
 
     def publish_epoch(self) -> None:
         """Publish one epoch from the card's CURRENT state, after the
@@ -2048,8 +2276,10 @@ class FusedPipeline:
             if reassert is not None:
                 state, folded = self._fold_reassert_state(state, reassert)
         if folded:
+            self._count_repair("peer")
             return state  # _fold_reassert_state logged the repair
         if state is not None:
+            self._count_repair("local")
             logger.warning(
                 "chain repaired LOCALLY only (no federation peer to "
                 "re-assert from): state truncated at the corrupt "
@@ -2062,6 +2292,13 @@ class FusedPipeline:
                 "corrupt bytes are preserved under integrity-quarantine/",
                 self._snap_dir)
         return state
+
+    def _count_repair(self, source: str) -> None:
+        if self._obs is not None:
+            self._obs.registry.counter(
+                "attendance_chain_repairs_total",
+                help="Corrupt-chain repairs (local truncation or "
+                     "peer-assisted re-assert)", source=source).inc()
 
     def _fold_reassert_state(self, state: Optional[dict],
                              frame) -> Tuple[Optional[dict], bool]:
@@ -2152,25 +2389,49 @@ class FusedPipeline:
         """Ack completed in-flight frames in dispatch order. ``block`` is
         how many not-yet-complete head entries to wait for (-1 = all).
         With checkpointing on, frames are acked only by the barriers'
-        durable snapshots."""
+        durable snapshots.
+
+        With telemetry on, every frame drained on the card records its
+        ``device_wait``: the host time from the query of its completion
+        event to the end of the wait on it (0 when the card was done),
+        a host clock around the wait the drain makes anyway."""
         if self.checkpointing:
             return
         while self._inflight:
-            msg, done, _pinned = self._inflight[0]
-            if done is not None and not done.query():
-                if block == 0:
-                    break
-                if block > 0:
-                    # The hot loop stalls on a full deque: the card or
-                    # the link is behind (_auto_wire's climb signal).
-                    self._drain_waited = True
-                t = time.perf_counter()
-                done.synchronize()
-                self._lap("ack_wait", t)
-                if block > 0:
-                    block -= 1
+            msg, done, _pinned, span = self._inflight[0]
+            if done is not None:
+                t_w = time.perf_counter() if self._obs is not None else 0.0
+                if not done.query():
+                    if block == 0:
+                        break
+                    if block > 0:
+                        # The hot loop stalls on a full deque: the card
+                        # or the link is behind (_auto_wire's climb
+                        # signal).
+                        self._drain_waited = True
+                    t = time.perf_counter()
+                    done.synchronize()
+                    self._lap("ack_wait", t)
+                    if block > 0:
+                        block -= 1
+                if self._obs is not None:
+                    self._observe_device_wait(t_w, time.perf_counter(),
+                                              span)
             self.consumer.acknowledge(msg)
             self._inflight.popleft()
+
+    def _observe_device_wait(self, t_w: float, t_done: float,
+                             span) -> None:
+        self._h_device.observe(t_done - t_w)
+        self._busy["device_wait"] += t_done - t_w
+        self._dw_accum += t_done - t_w
+        if self._tracer is not None and span is not None:
+            # device_wait lands after its batch span closed (the frames
+            # are pipelined): committed with explicit timestamps under
+            # the same trace.
+            self._tracer.add_span(
+                "device_wait", t_w, t_done, trace_id=span.trace_id,
+                parent_id=span.span_id, role=self._TRACE_ROLE)
 
     def run(self, max_events: Optional[int] = None,
             idle_timeout_s: float = 1.0) -> None:
@@ -2178,6 +2439,55 @@ class FusedPipeline:
         consumed frame is acknowledged (with checkpointing: is durable)
         before this returns, unless its snapshot write failed."""
         t_start = time.perf_counter()
+        if self._obs is not None:
+            # The busy fractions and the dispatch gap describe the
+            # CURRENT run: an idle gap between runs dilutes neither.
+            self._busy_anchor = t_start
+            for k in self._busy:
+                self._busy[k] = 0.0
+            self._last_dispatch_t = 0.0
+            self._last_dequeue_s = 0.0
+        try:
+            self._run_loop(max_events, idle_timeout_s)
+        except Exception:
+            # The crash forensics: the ring holds the last N per-batch
+            # records leading up to this exception.
+            if self._obs is not None:
+                self._obs.dump_flight("run-loop-exception")
+            raise
+        if self._temporal is not None:
+            # End of run: release the reorder buffer, rotate the final
+            # buckets, fold the staged CMS estimates (before the final
+            # barrier).
+            t = time.perf_counter()
+            self._temporal.flush()
+            self._lap("temporal", t)
+        if self.checkpointing:
+            if self._inflight or self._snap_unacked:
+                self._checkpoint_and_ack()
+            else:
+                self._flush_snapshots()
+        self._drain_inflight(block=-1)
+        self.metrics.wall_seconds = time.perf_counter() - t_start
+        if self._obs is not None:
+            self._obs.finalize_slo("run-end")
+            self._obs.flush_trace("run-end")
+            self._obs.flush_profile("run-end")
+
+    def _begin_batch_span(self, msg, t_rx: float, t_got: float):
+        """The per-batch span continuing the trace the producer put in
+        the message properties (a fresh one when the producer did not
+        trace); a redelivered frame becomes a ``retry`` span under the
+        same publish span."""
+        props = (msg.properties() if hasattr(msg, "properties")
+                 else None)
+        return self._tracer.begin_consume(
+            props, redelivery_count(msg), role=self._TRACE_ROLE,
+            start=t_rx, got=t_got, wait_name="dequeue_wait",
+            args={"bytes": len(msg.data())})
+
+    def _run_loop(self, max_events: Optional[int],
+                  idle_timeout_s: float) -> None:
         idle_since = time.monotonic()
         while True:
             t = time.perf_counter()
@@ -2196,7 +2506,10 @@ class FusedPipeline:
                 if time.monotonic() - idle_since > idle_timeout_s:
                     break
                 continue
-            self._lap("receive", t)
+            t_got = self._lap("receive", t)
+            if self._obs is not None:
+                self._h_dequeue.observe(t_got - t)
+                self._last_dequeue_s = t_got - t
             chunk_s = (self.consumer.decode_seconds
                        if isinstance(self.consumer, JsonChunkConsumer)
                        else 0.0)
@@ -2207,17 +2520,30 @@ class FusedPipeline:
                 self.metrics.stage_seconds["receive"] -= moved
                 self.metrics.stage_seconds["decode"] += moved
             idle_since = time.monotonic()
+            span = (self._begin_batch_span(msg, t, t_got)
+                    if self._tracer is not None else None)
             try:
-                _valid, done, pinned = self.process_frame(msg.data())
+                if span is None:
+                    _valid, done, pinned = self.process_frame(msg.data())
+                else:
+                    # Activated: the decode/dispatch spans and the mesh's
+                    # replica spans nest under the batch span.
+                    with self._tracer.activate(span):
+                        _valid, done, pinned = self.process_frame(
+                            msg.data())
             except PoisonFrame:
                 # Bounded retry, then dead-letter: a frame nacked
                 # forever livelocks the subscription. Only a failed
                 # decode is poison: a device fault raises.
+                if span is not None:
+                    self._tracer.end_span(span, error=True)
                 logger.exception("Bad frame")
                 handle_poison(msg, self.consumer, self.metrics,
                               self.config, logger, tracker=self._poison)
                 continue
-            self._inflight.append((msg, done, pinned))
+            if span is not None:
+                self._tracer.end_span(span)
+            self._inflight.append((msg, done, pinned, span))
             if self.checkpointing:
                 # A barrier on the frame cadence, and on the in-flight
                 # depth (which bounds the frames' pinned buffers).
@@ -2235,20 +2561,6 @@ class FusedPipeline:
                     else 0)
             if max_events is not None and self.metrics.events >= max_events:
                 break
-        if self._temporal is not None:
-            # End of run: release the reorder buffer, rotate the final
-            # buckets, fold the staged CMS estimates (before the final
-            # barrier).
-            t = time.perf_counter()
-            self._temporal.flush()
-            self._lap("temporal", t)
-        if self.checkpointing:
-            if self._inflight or self._snap_unacked:
-                self._checkpoint_and_ack()
-            else:
-                self._flush_snapshots()
-        self._drain_inflight(block=-1)
-        self.metrics.wall_seconds = time.perf_counter() - t_start
 
     # -- queries ------------------------------------------------------------
     def lecture_days(self):

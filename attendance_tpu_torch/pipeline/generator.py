@@ -76,6 +76,16 @@ def generate_student_data(
     rng = random.Random(seed)
     now = now or datetime.now()
     report = GeneratorReport()
+    # With tracing on: one "generate" root span over the whole run; each
+    # message's own trace roots at its producer's publish span (the
+    # producers inject the traceparent property).
+    from attendance_tpu_torch import obs
+    _t = obs.get()
+    tracer = _t.tracer if _t is not None else None
+    gen_span = (tracer.start_span(
+        "generate", role="generator",
+        args={"num_students": num_students}) if tracer is not None
+        else None)
     logger.info("Generating valid student IDs...")
     report.valid_student_ids = _sample_unique_ids(
         rng, 10_000, 99_999, num_students)
@@ -163,4 +173,6 @@ def generate_student_data(
 
     logger.info("Total messages sent: %d (%d invalid attempts)",
                 report.message_count, report.invalid_attempts)
+    if gen_span is not None:
+        tracer.end_span(gen_span, messages=report.message_count)
     return report

@@ -30,8 +30,13 @@ copies and launches stay on the dispatch thread and its stream.
 
 The port's lanes read only the chunk lane, which every port consumer
 (memory, socket, shm) has; the JAX package's raw and ``Message``
-fallbacks, and its obs counters, gauges and profiler marks, are not
-ported.
+fallbacks and its profiler marks are not ported.
+
+Telemetry (``obs``): the chunk consumer records the ``decode`` stage of
+its JSON chunks; each lane counts its events
+(``attendance_ingress_lane_events_total{lane=}``), exports its queue
+depth as a callback gauge, adds a flight record a block and, with
+tracing, a ``lane_decode`` span under the producer's trace.
 """
 
 from __future__ import annotations
@@ -63,11 +68,14 @@ def _native_prefers_vector() -> bool:
     return load_native() is None
 
 
-def _decode_each(toks, consumer, config, metrics, tracker, count_nack):
+def _decode_each(toks, consumer, config, metrics, tracker, count_nack,
+                 tracer=None):
     """A chunk whose batch decode failed, decoded message by message so
     only the bad payloads take the poison path (nack, then dead-letter
     after ``max_redeliveries``). Returns (merged columns of the good
-    messages or None, their tuples)."""
+    messages or None, their tuples). With a ``tracer`` each poison
+    attempt is a batch (or retry) span continuing the publisher's trace,
+    closed with an error."""
     from attendance_tpu_torch.pipeline.events import (
         columns_from_events, decode_event)
     good, parts = [], []
@@ -83,9 +91,18 @@ def _decode_each(toks, consumer, config, metrics, tracker, count_nack):
                     [decode_event(bytes(payload))]))
             good.append(tok)
         except Exception:
+            span = None
+            if tracer is not None:
+                now = time.perf_counter()
+                span = tracer.begin_consume(
+                    tok[3], tok[2], role="fused-pipeline", start=now,
+                    got=now, wait_name="dequeue_wait",
+                    args={"bytes": len(tok[1])})
             handle_poison(Message(tok[1], tok[0], tok[2], tok[3]),
                           consumer, metrics, config, logger,
                           count_nack=count_nack, tracker=tracker)
+            if span is not None:
+                tracer.end_span(span, error=True)
     if not good:
         return None, ()
     return codec_mod.merge_columns(parts), good
@@ -136,9 +153,11 @@ class JsonChunkConsumer:
 
     _BULK_WANT = 16  # bulk-frame prefetch depth (SocketConsumer's)
 
-    def __init__(self, consumer, config, metrics=None):
+    def __init__(self, consumer, config, obs=None, metrics=None):
         self.consumer = consumer
         self.config = config
+        self._h_decode = obs.stage("decode") if obs is not None else None
+        self._tracer = obs.tracer if obs is not None else None
         self._buf: deque = deque()
         self._want = 1  # learn the wire from the first delivery
         # The owning pipeline's metrics: poison payloads settled inside
@@ -188,7 +207,10 @@ class JsonChunkConsumer:
                 toks.append(self._buf.popleft())
             t0 = time.perf_counter()
             block = self._decode(toks)
-            self.decode_seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.decode_seconds += dt
+            if self._h_decode is not None:
+                self._h_decode.observe(dt)
             if block is not None:
                 return block
             # Every payload in the chunk was poison (each settled
@@ -216,7 +238,8 @@ class JsonChunkConsumer:
         """Mixed/poison chunk: only the bad payloads dead-letter; on the
         one consumer the unit of nacking is one message."""
         return _decode_each(toks, self.consumer, self.config,
-                            self._metrics, self._poison, count_nack=True)
+                            self._metrics, self._poison, count_nack=True,
+                            tracer=self._tracer)
 
     # -- settlement ---------------------------------------------------------
     def acknowledge(self, msg) -> None:
@@ -349,7 +372,7 @@ class IngressLane:
 
     def __init__(self, index: int, consumer, config, queue_depth: int,
                  batch_size: int, stop: threading.Event,
-                 prefer_vector: bool, wake: threading.Event):
+                 prefer_vector: bool, wake: threading.Event, obs=None):
         self.index = index
         self.consumer = consumer
         self.config = config
@@ -375,6 +398,19 @@ class IngressLane:
         # Host seconds this lane spent decoding (off the dispatch
         # thread, so not in the run loop's stages).
         self.decode_seconds = 0.0
+        self._obs = obs
+        self._tracer = obs.tracer if obs is not None else None
+        self._c_events = None
+        if obs is not None:
+            lane = str(index)
+            self._c_events = obs.registry.counter(
+                "attendance_ingress_lane_events_total",
+                help="Events ingested per ingress lane", lane=lane)
+            q = self.queue
+            obs.registry.gauge(
+                "attendance_ingress_lane_queue_depth",
+                help="Decoded blocks parked in each lane's SPSC queue",
+                lane=lane).set_function(lambda q=q: float(len(q)))
         self.thread = threading.Thread(
             target=self._run, name=f"ingress-lane-{index}", daemon=True)
 
@@ -480,8 +516,28 @@ class IngressLane:
             if block is None or block.n == 0:
                 continue
             self.metrics_events += block.n
+            if self._obs is not None:
+                self._observe_block(block, t0)
             if not self.queue.put(block, stop=self._stop):
                 return
+
+    def _observe_block(self, block: "_Block", t0: float) -> None:
+        """One block's lane events, flight record (a dump shows which
+        lane each block came through) and ``lane_decode`` span."""
+        self._c_events.inc(block.n)
+        self._obs.record_batch(ts=round(time.time(), 6), lane=self.index,
+                               events=block.n, queued=len(self.queue))
+        tr = self._tracer
+        if tr is not None:
+            from attendance_tpu_torch.obs.tracing import (
+                TRACEPARENT, parse_ctx)
+            ctx = parse_ctx((block.props or {}).get(TRACEPARENT))
+            tr.add_span(
+                "lane_decode", t0, time.perf_counter(),
+                trace_id=ctx.trace_id if ctx is not None else tr.new_id(),
+                parent_id=ctx.span_id if ctx is not None else None,
+                role=f"ingress-lane-{self.index}",
+                args={"lane": self.index, "events": block.n})
 
     def _block_key(self, toks) -> tuple:
         return (self.index, toks[0][0], toks[-1][0], len(toks))
@@ -554,7 +610,8 @@ class StripedConsumer:
     up to ``dispatch_size`` events; a lone raw binary block passes
     through without a repack."""
 
-    def __init__(self, config, client, topic: str, subscription: str):
+    def __init__(self, config, client, topic: str, subscription: str,
+                 obs=None):
         self.config = config
         num_lanes = max(1, config.ingress_lanes)
         if config.lane_decode == "native":
@@ -579,7 +636,8 @@ class StripedConsumer:
                         else client.subscribe(topic, subscription))
             self.lanes.append(IngressLane(
                 i, consumer, config, config.lane_queue_depth,
-                self._dispatch_size, self._stop, prefer_vector, self._wake))
+                self._dispatch_size, self._stop, prefer_vector, self._wake,
+                obs=obs))
         for lane in self.lanes:
             lane.thread.start()
 

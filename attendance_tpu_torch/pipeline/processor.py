@@ -1,7 +1,10 @@
 """Micro-batched stream processor: the reference's own loop, rebuilt.
 
 Counterpart of ``attendance_tpu/pipeline/processor.py`` (without its
-telemetry, tracing, fault injection, profiling and persist-spill hooks).
+fault injection, profiling and persist-spill hooks). With telemetry on
+it records the ``batch_assembly``, ``sketch`` and ``persist`` stages,
+events and batches, a flight record a batch and, with tracing, a batch
+span with ``bf_exists``, ``persist`` and ``pfadd`` children.
 The reference costs three service round trips an event:
 ``receive()`` -> ``BF.EXISTS`` -> Cassandra INSERT -> ``PFADD`` -> ack.
 This processor keeps its observable semantics (validity from the Bloom
@@ -31,6 +34,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from attendance_tpu_torch import obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.events import (
     AttendanceEvent, decode_event, encode_event)
@@ -40,7 +44,7 @@ from attendance_tpu_torch.storage import make_event_store
 from attendance_tpu_torch.storage.memory_store import AttendanceRow
 from attendance_tpu_torch.transport import (
     PoisonTracker, acknowledge_all, collect_batch, handle_poison,
-    make_client)
+    make_client, redelivery_count)
 from attendance_tpu_torch.utils.snapshot import (
     fsync_dir, restore_sketch_store, snapshot_sketch_store,
     snapshot_sketch_store_chain)
@@ -155,6 +159,16 @@ class AttendanceProcessor:
                  client=None, sketch_store=None, event_store=None,
                  device=None):
         self.config = config or Config()
+        # Live telemetry, created before the transport so broker queues
+        # register their depth gauges; every handle is None when off.
+        self._obs = obs.ensure(self.config)
+        self._tracer = (self._obs.tracer if self._obs is not None
+                        else None)
+        self._h_assembly = self._h_sketch = self._h_persist = None
+        if self._obs is not None:
+            self._h_assembly = self._obs.stage("batch_assembly")
+            self._h_sketch = self._obs.stage("sketch")
+            self._h_persist = self._obs.stage("persist")
         self.client = client or make_client(self.config)
         self.consumer = self.client.subscribe(
             self.config.pulsar_topic, self.SUBSCRIPTION)
@@ -278,7 +292,8 @@ class AttendanceProcessor:
         #    ground-truth flag is ignored.
         is_valid = np.asarray(self.sketch.bf_exists_many(
             self.config.bloom_filter_key, student_ids))
-        self.metrics.device_seconds += time.perf_counter() - t0
+        d_bf = time.perf_counter() - t0
+        self.metrics.device_seconds += d_bf
 
         # 2. Persist every event with its computed validity (valid and
         #    invalid alike).
@@ -288,7 +303,10 @@ class AttendanceProcessor:
                               is_valid=bool(v),
                               event_type=e.event_type)
                 for e, v in zip(events, is_valid)]
+        t_persist = time.perf_counter()
         self.store.insert_batch(rows)
+        if self._obs is not None:
+            self._h_persist.observe(time.perf_counter() - t_persist)
 
         # 3. Valid events only -> HLL, one PFADD per distinct lecture key.
         t1 = time.perf_counter()
@@ -300,7 +318,10 @@ class AttendanceProcessor:
             self.sketch.pfadd_many(
                 f"{self.config.hll_key_prefix}{lecture_id}",
                 np.array(members, dtype=np.int64))
-        self.metrics.device_seconds += time.perf_counter() - t1
+        d_pf = time.perf_counter() - t1
+        self.metrics.device_seconds += d_pf
+        if self._obs is not None:
+            self._h_sketch.observe(d_bf + d_pf)
 
         # 4. Optional invalid routing: each computed-invalid event
         #    republished on the side topic in the reference's JSON wire.
@@ -318,15 +339,58 @@ class AttendanceProcessor:
         self.metrics.valid_events += nv
         self.metrics.invalid_events += len(events) - nv
         self.metrics.batch_sizes.append(len(events))
+        if self._obs is not None:
+            self._observe_batch(len(events), nv, t0, d_bf, t_persist, t1,
+                                d_pf, len(by_lecture))
         return is_valid
 
+    def _observe_batch(self, n: int, nv: int, t0: float, d_bf: float,
+                       t_persist: float, t1: float, d_pf: float,
+                       lectures: int) -> None:
+        """One batch's events, frame count, spans and flight record."""
+        self._obs.events.inc(n)
+        self._obs.frames.inc()
+        rec = dict(ts=round(time.time(), 6), events=n, valid=nv,
+                   invalid=n - nv, sketch_s=round(d_bf + d_pf, 6))
+        tr = self._tracer
+        if tr is not None:
+            cur = tr.current()
+            tid = cur.trace_id if cur is not None else tr.new_id()
+            parent = cur.span_id if cur is not None else None
+            role = "processor"
+            tr.add_span("bf_exists", t0, t0 + d_bf, trace_id=tid,
+                        parent_id=parent, role=role, args={"events": n})
+            tr.add_span("persist", t_persist, t1, trace_id=tid,
+                        parent_id=parent, role=role)
+            tr.add_span("pfadd", t1, t1 + d_pf, trace_id=tid,
+                        parent_id=parent, role=role,
+                        args={"lectures": lectures})
+            rec["trace"] = f"{tid:016x}"
+        self._obs.record_batch(**rec)
+
     # -- streaming loop -----------------------------------------------------
+    def _begin_batch_span(self, msg, t_asm: float, t_got: float,
+                          n_msgs: int):
+        """The batch span: a batch mixes many per-event traces and joins
+        the first message's (a redelivered head becomes a ``retry``
+        span under its original publish span)."""
+        props = (msg.properties() if hasattr(msg, "properties")
+                 else None)
+        return self._tracer.begin_consume(
+            props, redelivery_count(msg), role="processor",
+            start=t_asm, got=t_got, wait_name="batch_assembly",
+            args={"messages": n_msgs})
+
     def _consume_loop(self, max_events, idle_timeout_s, idle_since,
                       checkpoint_and_ack, pending_acks) -> None:
         consecutive_failures = 0
         while True:
+            t_asm = time.perf_counter()
             msgs = collect_batch(self.consumer, self.config.batch_size,
                                  self.config.batch_timeout_s)
+            t_got = time.perf_counter()
+            if self._obs is not None:
+                self._h_assembly.observe(t_got - t_asm)
             if not msgs:
                 if pending_acks:
                     checkpoint_and_ack()
@@ -348,10 +412,21 @@ class AttendanceProcessor:
                     handle_poison(m, self.consumer, self.metrics,
                                   self.config, logger, count_nack=False,
                                   tracker=self._poison)
+            span = None
+            if self._tracer is not None and good_msgs:
+                span = self._begin_batch_span(good_msgs[0], t_asm, t_got,
+                                              len(good_msgs))
             try:
-                self.process_events(events)
+                if span is None:
+                    self.process_events(events)
+                else:
+                    with self._tracer.activate(span):
+                        self.process_events(events)
+                    self._tracer.end_span(span)
                 consecutive_failures = 0
             except Exception:
+                if span is not None:
+                    self._tracer.end_span(span, error=True)
                 # Whole-batch nack -> redelivery; the idempotent sinks
                 # make the replay safe. Processing failures are usually
                 # transient backend faults, so: exponential backoff
@@ -402,6 +477,11 @@ class AttendanceProcessor:
                                checkpoint_and_ack, pending_acks)
         except KeyboardInterrupt:
             logger.info("Stopping attendance processing...")
+        except Exception:
+            # Crash forensics: dump the per-batch ring before unwinding.
+            if self._obs is not None:
+                self._obs.dump_flight("run-loop-exception")
+            raise
         finally:
             if pending_acks:
                 checkpoint_and_ack()
@@ -415,6 +495,9 @@ class AttendanceProcessor:
                     self.config.metrics_json,
                     estimated_fpr=self.estimated_fpr(),
                     fpr_is_lower_bound=blocked)
+            if self._obs is not None:
+                self._obs.finalize_slo("run-end")
+                self._obs.flush_trace("run-end")
 
     def estimated_fpr(self) -> Optional[float]:
         """Occupancy-based Bloom FPR estimate of the roster filter (None

@@ -1,7 +1,7 @@
 """Vectorized query executor over a pinned epoch.
 
-Counterpart of ``attendance_tpu/serve/engine.py`` (its telemetry,
-tracing and read audit are not ported). One :class:`QueryEngine`
+Counterpart of ``attendance_tpu/serve/engine.py`` (its read audit is
+not ported). One :class:`QueryEngine`
 answers whole request batches from whatever epoch source it was built
 over: the live pipeline's :class:`serve.mirror.ReadMirror` or a
 :class:`serve.chain.ChainEpochSource`. Every verb pins ONE epoch up
@@ -20,10 +20,20 @@ stream.
 * ``window_pfcount``, ``window_occupancy``, ``rate_series``: the
   temporal plane's buckets, decoded from the epoch's bank map;
 * ``stats()``: the epoch's metadata and validity counters.
+
+With telemetry (``obs``) each answered batch counts a request and its
+keys per verb (``attendance_query_requests_total``, ``_keys_total``,
+the ``attendance_query_batch_size`` histogram), its latency in the
+``query`` stage and the age of the epoch it was answered from
+(``attendance_query_epoch_age_seconds``), and with tracing adds a
+``query`` span.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -41,13 +51,45 @@ class NoEpoch(RuntimeError):
     """No epoch has been published yet (nothing to answer from)."""
 
 
+def _noted(verb: str, size=len):
+    """Count one answered batch of ``verb`` (of ``size(answer)`` keys)
+    when telemetry is on; the batch's epoch is the one its ``pin()``
+    took on this thread."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            if self._obs is None:
+                return fn(self, *args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            self._note(verb, size(out), self._pinned.epoch, t0)
+            return out
+        return wrapper
+    return deco
+
+
 class QueryEngine:
-    def __init__(self, source, *, batch_max: int = 1 << 16,
+    _TRACE_ROLE = "query-engine"
+
+    def __init__(self, source, *, obs=None, batch_max: int = 1 << 16,
                  staleness_ceiling_s: Optional[float] = None):
         """``source`` is anything with ``pin() -> Epoch | None``."""
         self._source = source
         self.batch_max = max(1, batch_max)
         self.staleness_ceiling_s = staleness_ceiling_s
+        self._obs = obs
+        self._tracer = obs.tracer if obs is not None else None
+        self._pinned = threading.local()
+        self._counters: Dict[str, object] = {}
+        self._key_counters: Dict[str, object] = {}
+        self._h_batch: Dict[str, object] = {}
+        self._h_latency = self._h_epoch_age = None
+        if obs is not None:
+            self._h_latency = obs.stage("query")
+            self._h_epoch_age = obs.registry.histogram(
+                "attendance_query_epoch_age_seconds",
+                help="Age of the epoch each query batch was answered "
+                "from", scale=1e3)
 
     # -- epoch access ------------------------------------------------------------
     def pin(self) -> Epoch:
@@ -55,7 +97,41 @@ class QueryEngine:
         if epoch is None:
             raise NoEpoch("no epoch published yet: preload, restore or a "
                           "snapshot barrier publishes the first")
+        if self._obs is not None:
+            self._pinned.epoch = epoch
         return epoch
+
+    def _note(self, verb: str, n: int, epoch: Epoch, t0: float) -> None:
+        """One answered batch: request and key counters, batch size,
+        latency, epoch age and, with tracing, a ``query`` span."""
+        obs = self._obs
+        t1 = time.perf_counter()
+        c = self._counters.get(verb)
+        if c is None:
+            c = self._counters[verb] = obs.registry.counter(
+                "attendance_query_requests_total",
+                help="Query batches answered, per verb", verb=verb)
+            self._key_counters[verb] = obs.registry.counter(
+                "attendance_query_keys_total",
+                help="Point answers produced (keys/days per batch "
+                "summed), per verb", verb=verb)
+            self._h_batch[verb] = obs.registry.histogram(
+                "attendance_query_batch_size",
+                help="Keys/days per query batch", scale=1.0, verb=verb)
+        c.inc()
+        self._key_counters[verb].inc(max(n, 1))
+        self._h_batch[verb].observe(float(max(n, 1)))
+        self._h_latency.observe(t1 - t0)
+        self._h_epoch_age.observe(max(epoch.age_s(), 0.0))
+        tr = self._tracer
+        if tr is not None:
+            cur = tr.current()
+            tr.add_span(
+                "query", t0, t1,
+                trace_id=cur.trace_id if cur is not None else tr.new_id(),
+                parent_id=cur.span_id if cur is not None else None,
+                role=self._TRACE_ROLE,
+                args={"verb": verb, "n": n, "epoch": epoch.seq})
 
     def staleness_s(self) -> float:
         epoch = self._source.pin()
@@ -67,6 +143,7 @@ class QueryEngine:
                              f"{self.batch_max}")
 
     # -- verbs -------------------------------------------------------------------
+    @_noted("exists")
     def bf_exists(self, keys) -> np.ndarray:
         """BF.EXISTS for a batch of uint32 keys: bool[B] from the pinned
         epoch's packed filter words."""
@@ -98,6 +175,7 @@ class QueryEngine:
                     out[i] = lut[b]
         return out
 
+    @_noted("pfcount")
     def pfcount(self, days) -> np.ndarray:
         """Per-lecture-day unique-attendee estimates: int64[B]."""
         days = np.atleast_1d(np.asarray(days, dtype=np.int64))
@@ -129,6 +207,7 @@ class QueryEngine:
         return days, estimates_from_rows(epoch.hll_regs[banks],
                                          epoch.precision)
 
+    @_noted("occupancy")
     def occupancy(self) -> Dict[int, int]:
         """{day: unique} over every registered day, one histogram pass."""
         epoch = self.pin()
@@ -139,6 +218,7 @@ class QueryEngine:
         return {int(d): int(e)
                 for d, e in zip(days, np.rint(ests).astype(np.int64))}
 
+    @_noted("rate")
     def attendance_rate(self, roster_size: int = 0) -> Dict[int, float]:
         """{day: unique / roster}; ``roster_size`` 0 = the epoch's
         preload size."""
@@ -166,14 +246,19 @@ class QueryEngine:
         """Unique valid students across every bucket of ``day`` (None =
         every day) in the inclusive period range: one register-max fold
         over the selected rows, then one estimate."""
+        t0 = time.perf_counter()
         epoch = self.pin()
         rows = [bank for (d, p), bank in self._bucket_map(epoch).items()
                 if (day is None or d == int(day))
                 and (period_lo is None or p >= int(period_lo))
                 and (period_hi is None or p <= int(period_hi))]
-        return (int(round(self._merged_estimate(epoch, rows)))
-                if rows else 0)
+        out = (int(round(self._merged_estimate(epoch, rows)))
+               if rows else 0)
+        if self._obs is not None:
+            self._note("window_pfcount", len(rows), epoch, t0)
+        return out
 
+    @_noted("window_occupancy")
     def window_occupancy(self) -> Dict[tuple, int]:
         """{(day, period): unique} over every retained bucket, one
         histogram pass."""
@@ -187,6 +272,7 @@ class QueryEngine:
             epoch.hll_regs[banks], epoch.precision)).astype(np.int64)
         return {dp: int(e) for (dp, _), e in zip(pairs, ests)}
 
+    @_noted("rate_series")
     def rate_series(self, day: Optional[int] = None,
                     roster_size: int = 0) -> Dict[int, float]:
         """{period: unique / roster}: ``day``'s series, or with no day
@@ -203,6 +289,7 @@ class QueryEngine:
                 out[p] = self._merged_estimate(epoch, banks) / denom
         return out
 
+    @_noted("stats", size=lambda out: 1)
     def stats(self) -> Dict:
         """The epoch's metadata and validity counters."""
         epoch = self.pin()

@@ -1,7 +1,6 @@
 """Hermetic in-process broker with Pulsar's shared-subscription delivery.
 
-Counterpart of ``attendance_tpu/transport/memory_broker.py`` without its
-telemetry: producer ``send`` / ``send_many``, consumer
+Counterpart of ``attendance_tpu/transport/memory_broker.py``: producer ``send`` / ``send_many``, consumer
 ``receive(timeout_millis)`` / ``receive_many`` / ``acknowledge`` /
 ``acknowledge_many`` / ``negative_acknowledge`` / ``close``, the raw lane
 (``receive_many_raw`` + ``acknowledge_ids``: ``(message_id, data,
@@ -20,6 +19,13 @@ subscription starts at the earliest of them (a generator may publish
 before the processor subscribes). A bulk enqueue wakes as many waiting
 consumers as it can feed. Producers and consumers may live on different
 threads.
+
+Telemetry, when ``obs`` is live as a subscription or producer is made:
+the ``attendance_queue_depth`` callback gauge (read at scrape time, so
+the queue paths pay nothing for it), received, redelivered and sent
+message and byte counters, and with tracing a ``publish`` span a send
+whose context travels in the message property ``traceparent`` (kept
+across nacks, redelivery and takeover like the payload).
 """
 
 from __future__ import annotations
@@ -73,6 +79,32 @@ class _Subscription:
 
     def __init__(self, name: str, topic: str = ""):
         self.name = name
+        # Telemetry handles, resolved once: with telemetry off every
+        # hook below is one `is not None` branch.
+        from attendance_tpu_torch import obs
+        t = obs.get()
+        self._obs_redelivered = self._obs_recv_msgs = None
+        self._obs_recv_bytes = None
+        if t is not None:
+            import weakref
+            labels = dict(topic=topic, subscription=name)
+            ref = weakref.ref(self)  # a dead subscription is not pinned
+            t.registry.gauge(
+                "attendance_queue_depth",
+                help="Pending messages on a broker subscription",
+                **labels).set_function(
+                    lambda ref=ref: s._count
+                    if (s := ref()) is not None else 0)
+            self._obs_redelivered = t.registry.counter(
+                "attendance_broker_redeliveries_total",
+                help="Messages requeued by nack or consumer crash",
+                **labels)
+            self._obs_recv_msgs = t.registry.counter(
+                "attendance_broker_received_messages_total",
+                help="Messages delivered to consumers", **labels)
+            self._obs_recv_bytes = t.registry.counter(
+                "attendance_broker_received_bytes_total",
+                help="Payload bytes delivered to consumers", **labels)
         # Pending messages, block-structured: sealed blocks are
         # [entries_list, consumed_offset] pairs; _tail is the open
         # block single-message enqueues append to (sealed lazily).
@@ -217,6 +249,9 @@ class _Subscription:
             popped = self._pop_entries(max_n)
             if register is not None:
                 register(popped)
+            if self._obs_recv_msgs is not None:
+                self._obs_recv_msgs.inc(len(popped))
+                self._obs_recv_bytes.inc(sum(len(t[1]) for t in popped))
             return popped
 
     def receive_chunk(self, max_n: int, timeout_s: Optional[float],
@@ -252,6 +287,8 @@ class _Subscription:
                             for mid, data, red, props in entry[0]]
                 self._append_block(requeued)
                 self._notify_if_waiting(len(requeued))
+                if self._obs_redelivered is not None:
+                    self._obs_redelivered.inc(len(requeued))
 
     def explode_chunk(self, chunk_id: int) -> None:
         """Convert a chunk's messages into ordinary per-message
@@ -290,6 +327,8 @@ class _Subscription:
                 self._append_one((message_id, data, redeliveries + 1,
                                   props))
                 self._notify_if_waiting()
+                if self._obs_redelivered is not None:
+                    self._obs_redelivered.inc()
 
     def requeue_inflight(self, owner: int) -> None:
         """Crash takeover: return the closing consumer's own unacked
@@ -321,6 +360,8 @@ class _Subscription:
                 self._blocks.appendleft([mine, 0])
                 self._count += len(mine)
                 self.cond.notify_all()
+                if self._obs_redelivered is not None:
+                    self._obs_redelivered.inc(len(mine))
 
     def backlog(self) -> int:
         with self.cond:
@@ -418,10 +459,36 @@ class MemoryProducer:
     def __init__(self, topic: _Topic):
         self._topic = topic
         self._closed = False
+        self._seq = itertools.count()
+        from attendance_tpu_torch import obs
+        t = obs.get()
+        # Captured once: with telemetry off (or metrics only) every send
+        # below pays one branch.
+        self._tracer = t.tracer if t is not None else None
+        self._obs_msgs = self._obs_bytes = None
+        if t is not None:
+            self._obs_msgs = t.registry.counter(
+                "attendance_broker_sent_messages_total",
+                help="Messages published", topic=topic.name)
+            self._obs_bytes = t.registry.counter(
+                "attendance_broker_sent_bytes_total",
+                help="Payload bytes published", topic=topic.name)
 
     def send(self, data: bytes, properties: Optional[dict] = None) -> int:
         if self._closed:
             raise RuntimeError("producer closed")
+        if self._obs_msgs is not None:
+            self._obs_msgs.inc()
+            self._obs_bytes.inc(len(data))
+        if self._tracer is not None:
+            # Root (or continue) the message's trace and carry its
+            # context in the message properties.
+            span, properties = self._tracer.begin_publish(
+                self._topic.name, next(self._seq), properties)
+            try:
+                return self._topic.publish(bytes(data), properties)
+            finally:
+                self._tracer.end_span(span)
         return self._topic.publish(bytes(data), properties)
 
     def send_many(self, datas, properties=None) -> int:
@@ -430,6 +497,17 @@ class MemoryProducer:
         optional per-message list. Returns the first id."""
         if self._closed:
             raise RuntimeError("producer closed")
+        if self._obs_msgs is not None:
+            datas = [bytes(d) for d in datas]
+            self._obs_msgs.inc(len(datas))
+            self._obs_bytes.inc(sum(len(d) for d in datas))
+        if self._tracer is not None and properties is None:
+            span, properties = self._tracer.begin_publish_many(
+                self._topic.name, next(self._seq), len(datas))
+            try:
+                return self._topic.publish_many(datas, properties)
+            finally:
+                self._tracer.end_span(span)
         return self._topic.publish_many(datas, properties)
 
     def flush(self) -> None:

@@ -101,6 +101,13 @@ class Quarantine:
             meta["properties"] = dict(properties)
         _fsync_write(self.dir / (stem + _META_SUFFIX),
                      json.dumps(meta, sort_keys=True).encode())
+        from attendance_tpu_torch import obs
+        t = obs.get()
+        if t is not None:
+            t.registry.counter(
+                "attendance_quarantined_frames_total",
+                help="Frames dead-lettered into the on-disk quarantine",
+                reason=reason or "unknown").inc()
         logger.error("Quarantined %d-byte frame after %d redeliveries "
                      "-> %s (%s)", len(data), redeliveries, frame,
                      reason or "unspecified")

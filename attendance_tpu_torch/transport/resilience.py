@@ -1,7 +1,7 @@
 """Deadline + exponential-backoff-with-jitter retry for broker RPCs.
 
 Counterpart of ``attendance_tpu/transport/resilience.py`` without its
-chaos and telemetry hooks. Every socket RPC routes through
+chaos hooks. Every socket RPC routes through
 :func:`resilient_call`: a transient transport failure reconnects and
 retries with jittered backoff, and a broker that stays unreachable fails
 with one :class:`BrokerUnavailable` after the configured budget (a
@@ -54,6 +54,44 @@ class RetryPolicy:
         return random.random() * ceiling or 1e-4
 
 
+def _note_retry(site: str, attempt: int, exc: BaseException,
+                t0: float) -> None:
+    """One retry's telemetry: a counter and, with tracing, an
+    ``rpc_retry`` span. Resolved on each call: retries are rare, so the
+    hot path carries no handle."""
+    from attendance_tpu_torch import obs
+
+    t = obs.get()
+    if t is None:
+        return
+    t.registry.counter(
+        "attendance_retry_attempts_total",
+        help="Broker RPC retries after a transient failure",
+        site=site).inc()
+    tracer = t.tracer
+    if tracer is not None:
+        cur = tracer.current()
+        tracer.add_span(
+            "rpc_retry", t0, time.perf_counter(),
+            trace_id=cur.trace_id if cur is not None else tracer.new_id(),
+            parent_id=cur.span_id if cur is not None else None,
+            role="transport",
+            args={"site": site, "attempt": attempt,
+                  "error": type(exc).__name__})
+
+
+def note_reconnect(site: str = "socket") -> None:
+    """Count one transport reconnect (cold path)."""
+    from attendance_tpu_torch import obs
+
+    t = obs.get()
+    if t is not None:
+        t.registry.counter(
+            "attendance_reconnects_total",
+            help="Broker transport reconnects (incl. session resume)",
+        ).inc()
+
+
 def resilient_call(rpc, op_body: Callable[[], Tuple[int, bytes]], *,
                    site: str, policy: RetryPolicy,
                    ensure_session: Optional[Callable[[], None]] = None,
@@ -81,6 +119,7 @@ def resilient_call(rpc, op_body: Callable[[], Tuple[int, bytes]], *,
             return rpc.call(*op_body())
         except TRANSIENT_ERRORS as exc:
             attempt += 1
+            t0 = time.perf_counter()
             if aborted is not None and aborted():
                 raise
             now = time.monotonic()
@@ -93,3 +132,4 @@ def resilient_call(rpc, op_body: Callable[[], Tuple[int, bytes]], *,
                 logger.debug("transient broker failure at %s: %r "
                              "(retrying)", site, exc)
             time.sleep(min(policy.backoff_s(attempt), deadline - now))
+            _note_retry(site, attempt, exc, t0)

@@ -275,7 +275,7 @@ class ShmRingConsumer:
     the cursor and the redelivery region."""
 
     def __init__(self, path, *, nslots: int = DEFAULT_SLOTS,
-                 slot_bytes: int = DEFAULT_SLOT_BYTES):
+                 slot_bytes: int = DEFAULT_SLOT_BYTES, lane: int = 0):
         self._ring = _Ring(path, nslots, slot_bytes)
         # Resume at the durable cursor: everything below it was acked;
         # the unacked tail redelivers.
@@ -287,6 +287,28 @@ class ShmRingConsumer:
         self._next_chunk = 1
         self._lock = threading.Lock()
         self.torn_reads = 0
+        self._c_torn = None
+        from attendance_tpu_torch import obs
+        t = obs.get()
+        if t is not None:
+            lane_l = str(lane)
+            self._c_torn = t.registry.counter(
+                "attendance_shm_torn_reads_total",
+                help="Seqlock-retried torn slot reads", lane=lane_l)
+            ring = self._ring
+
+            def _depth(r=ring) -> float:
+                try:
+                    return float(r.head() - r.ack_cursor())
+                except ValueError:
+                    # A scrape after cleanup unmapped the ring: NaN
+                    # (rendered per the text format), never a lying 0.
+                    return float("nan")
+
+            t.registry.gauge(
+                "attendance_shm_ring_depth",
+                help="Published-but-unacked frames in the shm ring",
+                lane=lane_l).set_function(_depth)
 
     # -- receive -----------------------------------------------------------------
     def _next_raw(self) -> Optional[Tuple[int, object, int, None]]:
@@ -305,6 +327,8 @@ class ShmRingConsumer:
                         # writer is mid-payload. Observed and retried,
                         # never delivered.
                         self.torn_reads += 1
+                        if self._c_torn is not None:
+                            self._c_torn.inc()
                     return None
                 self._cursor = seq + 1
                 red = self._ring.delivery_count(seq)
@@ -480,7 +504,7 @@ class ShmClient:
         del subscription_name  # one consumer per ring; no registry
         return self._track(ShmRingConsumer(
             ring_path(self.directory, topic, lane), nslots=self.nslots,
-            slot_bytes=self.slot_bytes))
+            slot_bytes=self.slot_bytes, lane=lane))
 
     def close(self) -> None:
         for obj in self._owned:

@@ -1,7 +1,7 @@
 """Cross-process broker transport: the memory broker behind a TCP front.
 
 Counterpart of ``attendance_tpu/transport/socket_broker.py`` without its
-chaos and telemetry hooks, and the same wire byte for byte, so a port
+chaos hooks, and the same wire byte for byte, so a port
 client talks to a JAX :class:`BrokerServer` and the other way round. A
 :class:`BrokerServer` hosts a :class:`MemoryBroker` (shared
 subscriptions, ack/nack, redelivery, crash takeover) behind a
@@ -27,6 +27,7 @@ ephemeral port, printed on startup).
 
 from __future__ import annotations
 
+import itertools
 import logging
 import socket
 import struct
@@ -43,7 +44,7 @@ from attendance_tpu_torch.transport.framing import (
 from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryConsumer, Message, ReceiveTimeout)
 from attendance_tpu_torch.transport.resilience import (  # noqa: F401
-    BrokerUnavailable, RetryPolicy, resilient_call)
+    BrokerUnavailable, RetryPolicy, note_reconnect, resilient_call)
 
 logger = logging.getLogger(__name__)
 
@@ -320,6 +321,7 @@ class _Rpc:
             self._connect_locked()
             self.generation += 1
             self.reconnects += 1
+        note_reconnect()
 
     def call(self, op: int, body: bytes) -> Tuple[int, bytes]:
         """ONE attempt; transport failures sever the channel and
@@ -391,17 +393,44 @@ class SocketProducer:
         self._policy = policy or RetryPolicy()
         self._prefix = enc_str(topic)
         self._closed = False
+        self._seq = itertools.count()
+        # Client-side telemetry: wire traffic as seen by this process
+        # (the server's own broker carries the queue gauges).
+        from attendance_tpu_torch import obs
+        tel = obs.get()
+        self._tracer = tel.tracer if tel is not None else None
+        self._obs_msgs = self._obs_bytes = None
+        if tel is not None:
+            self._obs_msgs = tel.registry.counter(
+                "attendance_socket_sent_messages_total",
+                help="Messages sent to the socket broker", topic=topic)
+            self._obs_bytes = tel.registry.counter(
+                "attendance_socket_sent_bytes_total",
+                help="Payload bytes sent to the socket broker",
+                topic=topic)
 
     def send(self, data: bytes, properties=None) -> int:
         if self._closed:
             raise RuntimeError("producer closed")
+        if self._obs_msgs is not None:
+            self._obs_msgs.inc()
+            self._obs_bytes.inc(len(data))
+        span = None
+        if self._tracer is not None:
+            span, properties = self._tracer.begin_publish(
+                self._topic, next(self._seq), properties)
         body = self._prefix + _enc_props(properties) + bytes(data)
-        # A retried publish whose first attempt did execute (reply lost)
-        # duplicates the message; every downstream sink is idempotent.
-        status, reply = resilient_call(
-            self._rpc, lambda: (_OP_PRODUCE, body),
-            site="socket.produce", policy=self._policy,
-            aborted=lambda: self._closed)
+        try:
+            # A retried publish whose first attempt did execute (reply
+            # lost) duplicates the message; every downstream sink is
+            # idempotent.
+            status, reply = resilient_call(
+                self._rpc, lambda: (_OP_PRODUCE, body),
+                site="socket.produce", policy=self._policy,
+                aborted=lambda: self._closed)
+        finally:
+            if span is not None:
+                self._tracer.end_span(span)
         (mid,) = struct.unpack("<Q", _check(status, reply))
         return mid
 
@@ -412,6 +441,13 @@ class SocketProducer:
         if self._closed:
             raise RuntimeError("producer closed")
         datas = [bytes(d) for d in datas]
+        if self._obs_msgs is not None:
+            self._obs_msgs.inc(len(datas))
+            self._obs_bytes.inc(sum(len(d) for d in datas))
+        span = None
+        if self._tracer is not None and properties is None:
+            span, properties = self._tracer.begin_publish_many(
+                self._topic, next(self._seq), len(datas))
         if properties is None:
             properties = [None] * len(datas)
         parts = [self._prefix, struct.pack("<I", len(datas))]
@@ -420,10 +456,14 @@ class SocketProducer:
             parts.append(struct.pack("<I", len(d)))
             parts.append(d)
         body = b"".join(parts)
-        status, reply = resilient_call(
-            self._rpc, lambda: (_OP_PRODUCE_MANY, body),
-            site="socket.produce", policy=self._policy,
-            aborted=lambda: self._closed)
+        try:
+            status, reply = resilient_call(
+                self._rpc, lambda: (_OP_PRODUCE_MANY, body),
+                site="socket.produce", policy=self._policy,
+                aborted=lambda: self._closed)
+        finally:
+            if span is not None:
+                self._tracer.end_span(span)
         (first,) = struct.unpack("<q", _check(status, reply))
         return first
 
@@ -480,6 +520,24 @@ class SocketConsumer:
         self._sub_body = _subscribe_body(topic, subscription)
         self.lane = lane  # striped-ingress lane index (None = unlaned)
         self.resubscribes = 0
+        from attendance_tpu_torch import obs
+        tel = obs.get()
+        self._obs_msgs = self._obs_bytes = self._obs_nacks = None
+        if tel is not None:
+            labels = dict(topic=topic, subscription=subscription)
+            if lane is not None:
+                labels["lane"] = str(lane)
+            self._obs_msgs = tel.registry.counter(
+                "attendance_socket_received_messages_total",
+                help="Messages received from the socket broker",
+                **labels)
+            self._obs_bytes = tel.registry.counter(
+                "attendance_socket_received_bytes_total",
+                help="Payload bytes received from the socket broker",
+                **labels)
+            self._obs_nacks = tel.registry.counter(
+                "attendance_socket_nacks_total",
+                help="Negative acknowledgements sent", **labels)
 
     def _ensure_session(self) -> None:
         """Re-subscribe after a transport reconnect: the server-side
@@ -535,7 +593,11 @@ class SocketConsumer:
                                         int(wait)))
             if status == _ST_TIMEOUT:
                 continue  # deadline not reached yet: wait again
-            return dec_message_batch(_check(status, reply))
+            cid, out = dec_message_batch(_check(status, reply))
+            if self._obs_msgs is not None:
+                self._obs_msgs.inc(len(out))
+                self._obs_bytes.inc(sum(len(t[1]) for t in out))
+            return cid, out
 
     def receive_many_raw(self, max_n: int,
                          timeout_millis: Optional[int] = None) -> list:
@@ -619,6 +681,8 @@ class SocketConsumer:
     def negative_acknowledge(self, msg: Message) -> None:
         # Only the id crosses the wire: the subscription re-derives the
         # redelivery count from its own in-flight state on requeue.
+        if self._obs_nacks is not None:
+            self._obs_nacks.inc()
         _check(*self._call(
             _OP_NACK,
             lambda: struct.pack("<IQ", self._handle, msg.message_id)))
@@ -762,7 +826,19 @@ def main(argv=None) -> None:
         description="attendance_tpu_torch socket broker")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=DEFAULT_PORT)
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="serve GET /metrics for this broker's queues "
+                   "(0 = off, -1 = ephemeral)")
+    p.add_argument("--metrics-prom", default="",
+                   help="append Prometheus exposition blocks here")
     args = p.parse_args(argv)
+    if args.metrics_port or args.metrics_prom:
+        # Enabled before the broker exists, so its subscriptions
+        # register queue-depth gauges as clients subscribe.
+        from attendance_tpu_torch import obs
+        from attendance_tpu_torch.config import Config
+        obs.enable(Config(metrics_port=args.metrics_port,
+                          metrics_prom=args.metrics_prom))
     server = BrokerServer(host=args.host, port=args.port).start()
     print(f"broker listening on {server.address}", flush=True)
     try:

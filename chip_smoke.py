@@ -212,13 +212,34 @@ Phases (any failure exits non-zero):
      ``tests/torch_multihost_worker.py`` processes sharing the card (one
      cell each, dp = 2 over gloo) on tests/multihost_worker.py's
      workload, each equal to one process's (2, 1) mesh;
+  11. the telemetry core on the card (after 10): (a) the ``fused``
+     default on the word wire three times with telemetry off and three
+     times with ``metrics_port=-1``, ``metrics_prom``, ``flight_recorder``
+     and ``trace_out`` on, interleaved (each rate and the on/off ratio of
+     the medians), then once more on with a scrape started mid-run from
+     inside its receive; per on run, the scrape after it: events,
+     frames, wire frames, the dispatch and ``device_wait`` counts, the
+     frame wire's bytes, the dispatch-gap quantiles and busy fractions,
+     the run equal to phase 3's, the trace (a batch span a frame with
+     dequeue_wait, decode, dispatch and device_wait children) and the
+     flight dump; (b) the processor on the card store over phase 6b's
+     generator cut to 9,000 students (97,220 JSON events) with
+     ``metrics_prom``: its stage counts equal its batches; (c) a virtual
+     (4, 2) mesh of the card (query sync, word wire) over phase 3's
+     stream with telemetry on: shard events per replica, replica
+     dispatch spans under the batch spans, equal to one card; (d) a
+     K = 2 federation round, the workers with ``--metrics-prom`` and
+     ``--trace-out``, the aggregator with telemetry: the merge-lag count
+     equals the frames folded, both peers up, every folded
+     ``traceparent`` parses, the view equal to its oracle; (e) ``python
+     -m attendance_tpu_torch telemetry`` on (a)'s three artifacts;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
-     run and the oracle's reads) and phase 10(c)'s five mesh runs (each
-     also printed on a line of its own); phase 5 prints its own runs'
-     counts on a line of its own.
+     run and the oracle's reads), phase 10(c)'s five mesh runs and
+     phase 11's runs (each also printed on a line of its own); phase 5
+     prints its own runs' counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -478,10 +499,11 @@ def decode_yardstick(wire, mode: str, width: int, lanes: int,
 
 
 def run_with_native(native: bool, config, num_events: int, frame_size: int,
-                    num_lectures: int):
+                    num_lectures: int, client=None):
     """``run_fused`` on the card at seed 0, with the native host pack or,
     with ``native`` False, the numpy pack (``ATP_NATIVE=0`` while the
-    pipeline is built, as a user would set it)."""
+    pipeline is built, as a user would set it), on ``client`` or a fresh
+    broker's."""
     import os
 
     from attendance_tpu_torch.cli import run_fused
@@ -493,7 +515,7 @@ def run_with_native(native: bool, config, num_events: int, frame_size: int,
         os.environ["ATP_NATIVE"] = "0"
     try:
         return run_fused(config, num_events, frame_size, num_lectures,
-                         seed=0, client=MemoryClient(MemoryBroker()))
+                         seed=0, client=client or MemoryClient(MemoryBroker()))
     finally:
         if before is None:
             os.environ.pop("ATP_NATIVE", None)
@@ -3790,6 +3812,494 @@ def mesh_phase(card: str, dev, floor_ms: float, rows: dict, ref,
     return launches
 
 
+TEL_RUNS = 3  # telemetry-off and -on runs of 11(a), interleaved
+TEL_PROC_STUDENTS = 9_000  # 11(b): phase 6b's generator cut to ~97k events
+TEL_FED_EVENTS = 65_536  # 11(d): a worker's events, 8 of its frames
+
+
+def _prom_samples(text: str) -> dict:
+    from attendance_tpu_torch.obs.exposition import parse_prom
+    return {(n, l): float(v) for n, l, v in parse_prom(text)}
+
+
+def _scrape(port: int) -> str:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        check(r.status == 200, f"scrape answered {r.status}")
+        return r.read().decode()
+
+
+def _scraping_client(t, out: dict):
+    """A fresh memory broker's client whose consumers start one scrape of
+    ``/metrics`` from inside the run loop's receive, as soon as a frame
+    was dispatched: a scrape that starts mid-run by construction. It runs
+    on a thread of its own (``out["thread"]``), as a scraper in another
+    process would, so the run loop never waits for it."""
+    import threading
+
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    def scrape() -> None:
+        out["text"] = _scrape(t.http_port)
+
+    client = MemoryClient(MemoryBroker())
+    subscribe = client.subscribe
+
+    def subscribe_scraping(topic, subscription):
+        consumer = subscribe(topic, subscription)
+        raw = consumer.receive_many_raw
+
+        def receive_many_raw(max_n, timeout_millis=None):
+            got = raw(max_n, timeout_millis=timeout_millis)
+            if "thread" not in out and t.frames.value >= 1:
+                out["frames"] = t.frames.value
+                out["thread"] = threading.Thread(target=scrape, daemon=True)
+                out["thread"].start()
+            return got
+
+        consumer.receive_many_raw = receive_many_raw
+        return consumer
+
+    client.subscribe = subscribe_scraping
+    return client
+
+
+def _span_children(doc) -> dict:
+    """{batch span id: [child names]} of a trace export."""
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    batches = {e["args"]["span_id"] for e in evs if e["name"] == "batch"}
+    kids = {b: [] for b in batches}
+    for e in evs:
+        parent = e["args"].get("parent_span_id")
+        if parent in kids:
+            kids[parent].append(e["name"])
+    return kids
+
+
+def _telemetry_fused(card: str, ref, stream, work) -> dict:
+    """11(a): the ``fused`` default at full width on the word wire, with
+    telemetry off and on, interleaved; returns the on runs' launches."""
+    import urllib.request  # noqa: F401 (imported before the timed runs)
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.obs.registry import quantile_from_buckets
+    from attendance_tpu_torch.ops import kernels
+
+    num_events, frame_size, num_lectures = stream
+    n_frames = num_events // frame_size
+    launches = dict.fromkeys(kernels.launches, 0)
+    rates = {"off": [], "on": []}
+    artifacts = {}
+    # Three off and three on runs, interleaved and timed; then one more on
+    # run that a scrape hits mid-run, its rate reported apart (a scrape's
+    # render takes the run loop's interpreter lock for a while).
+    order = [(i, mode) for i in range(TEL_RUNS) for mode in ("off", "on")]
+    for i, mode in order + [(TEL_RUNS, "scrape")]:
+        tel = {}
+        if mode != "off":
+            tel = dict(metrics_port=-1,
+                       metrics_prom=str(work / f"a{i}.prom"),
+                       flight_recorder=64,
+                       flight_path=str(work / f"a{i}-flight.json"),
+                       trace_out=str(work / f"a{i}-trace.json"))
+        config = Config(wire_format="word", **tel)
+        t = obs.enable(config) if mode != "off" else None
+        mid = {}
+        # The scrape run: a scrape starts from inside its receive,
+        # once a frame was dispatched.
+        client = _scraping_client(t, mid) if mode == "scrape" else None
+        kernels.reset_launches()
+        pipe, summary = run_with_native(True, config, num_events,
+                                        frame_size, num_lectures,
+                                        client=client)
+        run_launches = dict(kernels.launches)
+        try:
+            stored = pipe.store.to_columns(deduplicate=False)["is_valid"]
+            regs = pipe.state.hll_regs.clone()
+        finally:
+            pipe.cleanup()
+        what = f"telemetry (a) run {i} telemetry {mode}"
+        got = ((summary["valid"], summary["invalid"]),
+               summary["unique_attendees"], regs, stored)
+        check(got[:2] == ref[:2], f"{what}: counters or PFCOUNTs differ "
+              "from phase 3's default run")
+        check(torch.equal(got[2], ref[2]), f"{what}: registers differ")
+        check(np.array_equal(got[3], ref[3]),
+              f"{what}: stored validity differs")
+        check(summary["wire_dwell"] == {"word": n_frames},
+              f"{what}: wires {summary['wire_dwell']}")
+        for name in ("bloom_add", "fused_step", "hll_histogram"):
+            check(run_launches[name] > 0, f"{what}: {name} not launched")
+        if mode != "scrape":
+            rates[mode].append(summary["events_per_second"])
+        if t is None:
+            continue
+        for name, count in run_launches.items():
+            launches[name] += count
+        after = _scrape(t.http_port)
+        s = _prom_samples(after)
+        wire_bytes = {k: v for k, v in s.items()
+                      if k[0] == "attendance_device_transfer_bytes_total"
+                      and 'site="frame"' in k[1]}
+        stage = {k[1]: v for k, v in s.items()
+                 if k[0] == "attendance_stage_latency_seconds_count"}
+        check(s[("attendance_events_total", "")] == num_events,
+              f"{what}: events_total {s[('attendance_events_total', '')]}")
+        check(s[("attendance_frames_total", "")] == n_frames,
+              f"{what}: frames_total")
+        check(sum(v for k, v in s.items()
+                  if k[0] == "attendance_wire_frames_total") == n_frames,
+              f"{what}: wire frames")
+        for name in ("dispatch", "device_wait", "decode", "dequeue_wait"):
+            count = stage['stage="%s"' % name]
+            check(count == n_frames, f"{what}: {name} count {count}")
+        # The word wire carries 4 bytes a lane of each padded frame.
+        check(wire_bytes == {
+            ("attendance_device_transfer_bytes_total",
+             'direction="h2d",site="frame",wire="word"'):
+                4 * frame_size * n_frames},
+              f"{what}: frame bytes {wire_bytes}")
+        h_gap = t.registry.histogram("attendance_dispatch_gap_seconds")
+        h_wait = t.stage("device_wait")
+        busy = {k[1].split('"')[1]: v for k, v in s.items()
+                if k[0] == "attendance_dispatch_thread_busy_fraction"}
+        gap_b, _, gap_n = h_gap.snapshot()
+        wait_b, wait_sum, wait_n = h_wait.snapshot()
+        gap_q = [quantile_from_buckets(gap_b, gap_n, q)
+                 for q in (0.5, 0.99)]
+        wait_q = [quantile_from_buckets(wait_b, wait_n, q)
+                  for q in (0.5, 0.99)]
+        if mode == "scrape":
+            check("thread" in mid and 1 <= mid["frames"] < n_frames,
+                  f"{what}: no scrape started during the run")
+            mid["thread"].join(timeout=30)
+            check("text" in mid, f"{what}: the mid-run scrape failed")
+            seen = _prom_samples(mid["text"])[
+                ("attendance_frames_total", "")]
+            print(f"{what}: a scrape started after {mid['frames']} of "
+                  f"{n_frames} frames and rendered {seen} frames, "
+                  f"{len(mid['text'])} bytes")
+        t.dump_flight("chip_smoke")
+        obs.disable()  # writes the final prom block and the trace
+        flight = json.loads(open(config.flight_path).read())
+        check(flight["reason"] == "chip_smoke"
+              and flight["total_records"] == n_frames
+              and flight["records"][-1]["events"] == frame_size
+              and set(flight["records"][-1]["stages"]) == {
+                  "dequeue_wait", "decode", "dispatch", "device_wait"},
+              f"{what}: flight dump {flight['records'][-1:]}")
+        trace = json.loads(open(config.trace_out).read())
+        kids = _span_children(trace)
+        check(len(kids) == n_frames, f"{what}: {len(kids)} batch spans")
+        for names in kids.values():
+            check({"dequeue_wait", "decode", "dispatch",
+                   "device_wait"} <= set(names),
+                  f"{what}: batch span children {names}")
+        prom_text = open(config.metrics_prom).read()
+        check(_prom_samples(prom_text)[("attendance_events_total", "")]
+              == num_events, f"{what}: the prom file's last block")
+        artifacts = dict(prom=config.metrics_prom,
+                         trace=config.trace_out,
+                         flight=config.flight_path)
+        print(f"{what}: {summary['events_per_second']} events/s on "
+              f"{card}; dispatch gap p50 {gap_q[0]} s p99 {gap_q[1]} s "
+              f"over {gap_n} gaps; device_wait p50 {wait_q[0]} s p99 "
+              f"{wait_q[1]} s sum {wait_sum} s over {wait_n} frames; "
+              f"dispatch-thread busy fractions {busy}; "
+              f"{len(trace['traceEvents'])} trace events, "
+              f"{len(prom_text)} prom bytes; scrape after the run "
+              f"{len(after)} bytes")
+    off = float(np.median(rates["off"]))
+    on = float(np.median(rates["on"]))
+    print(f"telemetry (a) fused default, word wire, on {card}: events/s "
+          f"off {rates['off']} on {rates['on']}; medians off {off} on {on}; "
+          f"on/off {on / off}")
+    print(f"telemetry (a) launches (the telemetry-on runs; in the kernels "
+          f"line): { {k: v for k, v in launches.items() if v} }")
+    return launches, artifacts
+
+
+def _telemetry_processor(card: str, dev, work) -> dict:
+    """11(b): the processor on the card store over ~97k JSON events with
+    ``--metrics-prom``; its stage counts equal its batches."""
+    from datetime import datetime
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.cli import run_pipeline
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.transport.memory_broker import MemoryBroker
+
+    MemoryBroker.reset_shared()
+    prom = work / "b.prom"
+    config = Config(metrics_prom=str(prom))
+    kernels.reset_launches()
+    proc, report = run_pipeline(config, TEL_PROC_STUDENTS, 50, seed=0,
+                                device=dev, now=datetime(*INGRESS_NOW))
+    run_launches = dict(kernels.launches)
+    m = proc.metrics
+    proc.cleanup()
+    obs.disable()
+    s = _prom_samples(prom.read_text())
+    stage = {k[1]: v for k, v in s.items()
+             if k[0] == "attendance_stage_latency_seconds_count"}
+    what = "telemetry (b) processor"
+    check(m.events == report.message_count, f"{what}: {m.events} events")
+    check(s[("attendance_events_total", "")] == m.events,
+          f"{what}: events_total")
+    check(s[("attendance_frames_total", "")] == m.batches,
+          f"{what}: frames_total")
+    for name in ("batch_assembly", "sketch", "persist"):
+        count = stage['stage="%s"' % name]
+        check(count == m.batches,
+              f"{what}: {name} count {count} != {m.batches} batches")
+    # The run's kernels (the roster add, BF.EXISTS, PFADD); the store's
+    # PFCOUNT kernels run only on reads, which phase 6b times.
+    for name in ("bloom_add_bytes", "bloom_contains_bytes", "hll_add"):
+        check(run_launches[name] > 0, f"{what}: {name} not launched")
+    print(f"{what}: {m.events} JSON events in {m.batches} batches, "
+          f"{m.events_per_second} events/s on {card}; stage counts "
+          f"{ {k: v for k, v in stage.items()} }; launches "
+          f"{ {k: v for k, v in run_launches.items() if v} }")
+    return run_launches
+
+
+def _telemetry_mesh(card: str, dev, ref, stream, work) -> dict:
+    """11(c): a virtual (4, 2) mesh of the card, query sync, word wire,
+    over phase 3's stream with telemetry on."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.parallel import make_mesh
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    num_events, frame_size, num_lectures = stream
+    n_frames = num_events // frame_size
+    trace_path = work / "c-trace.json"
+    config = Config(num_shards=4, num_replicas=2, replica_sync="query",
+                    wire_format="word", metrics_port=-1,
+                    trace_out=str(trace_path))
+    t = obs.enable(config)
+    roster, frames = generate_frames(
+        num_events, frame_size,
+        roster_size=min(config.bloom_filter_capacity, num_events),
+        num_lectures=num_lectures, seed=0)
+    kernels.reset_launches()
+    pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
+                         mesh=make_mesh(4, 2, [dev] * 8))
+    try:
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=num_events, idle_timeout_s=1.0)
+        counts = pipe.validity_counts()
+        pfc = {str(d): n for d, n in sorted(pipe.count_all().items())}
+        regs = pipe.engine.get_state()[1]
+        stored = pipe.store.to_columns(deduplicate=False)["is_valid"]
+        engine_events = pipe.engine.shard_events.tolist()
+        rate = pipe.metrics.events_per_second
+        dwell = dict(pipe.metrics.wire_dwell)
+        run_launches = dict(kernels.launches)
+        s = _prom_samples(_scrape(t.http_port))
+    finally:
+        pipe.cleanup()
+    obs.disable()
+    what = "telemetry (c) (4, 2) mesh"
+    check(counts == ref[0], f"{what}: counters {counts} != {ref[0]}")
+    check(pfc == ref[1], f"{what}: PFCOUNTs differ from one card's")
+    check(np.array_equal(regs, ref[2].cpu().numpy()),
+          f"{what}: merged registers differ from one card's")
+    check(np.array_equal(stored, ref[3]), f"{what}: stored validity")
+    check(dwell == {"word": n_frames}, f"{what}: wires {dwell}")
+    shard = [s[("attendance_shard_events", f'replica="{r}"')]
+             for r in range(2)]
+    check(shard == engine_events and sum(shard) == num_events,
+          f"{what}: shard events {shard} vs the engine's {engine_events}")
+    for name in MESH_KERNELS:
+        check(run_launches[name] > 0, f"{what}: {name} not launched")
+    trace = json.loads(trace_path.read_text())
+    kids = _span_children(trace)
+    check(len(kids) == n_frames, f"{what}: {len(kids)} batch spans")
+    for names in kids.values():
+        check(names.count("replica_dispatch") == 2,
+              f"{what}: batch span children {names}")
+    print(f"{what} of {card}, query sync, word wire: {rate} events/s "
+          f"(virtual slices of one card); equal to one card in counters, "
+          f"PFCOUNTs, merged registers and stored validity; shard events "
+          f"{shard}; two replica_dispatch spans under each of the "
+          f"{n_frames} batch spans; launches "
+          f"{ {k: v for k, v in run_launches.items() if v} }")
+    return run_launches
+
+
+def _telemetry_federation(card: str, dev, work) -> dict:
+    """11(d): one K = 2 round: workers with ``--metrics-prom`` and
+    ``--trace-out``, an aggregator with telemetry."""
+    from pathlib import Path
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.federation.gossip import Aggregator
+    from attendance_tpu_torch.obs.tracing import parse_ctx
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.serve.engine import QueryEngine
+    from attendance_tpu_torch.transport.socket_broker import (
+        SocketClient, spawn_broker)
+
+    K = 2
+    repo = str(Path(__file__).resolve().parent)
+    env = _fed_env(repo)
+    rdir = work / "fed"
+    rdir.mkdir()
+    topic, gossip_topic = "chip-tel-fed", "chip-tel-fed-gossip"
+    t = obs.enable(Config(metrics_port=-1,
+                          trace_out=str(work / "d-agg-trace.json")))
+    broker, addr = spawn_broker(cwd=repo)
+    procs = []
+    what = "telemetry (d) federation K=2"
+    try:
+        agg_client = SocketClient(addr)
+        agg = Aggregator(client=agg_client, topic=gossip_topic,
+                         num_shards=K, dead_after_s=1e9, precision=14,
+                         obs=t)
+        folded = []
+        fold = agg.fold_frame
+
+        def fold_noting(frame, now=None):
+            info = fold(frame, now)
+            if info["lag_s"] is not None:
+                folded.append(frame.traceparent)
+            return info
+
+        agg.fold_frame = fold_noting
+        agg.start()
+        try:
+            logs = [rdir / f"worker-{s}.log" for s in range(K)]
+            procs = [_spawn_fed_worker(
+                repo, env, logs[s], addr, rdir, s, K, topic, gossip_topic,
+                TEL_FED_EVENTS, data_plane="memory",
+                extra=("--max-events", str(TEL_FED_EVENTS),
+                       "--idle-timeout-s", "10",
+                       "--metrics-prom", str(rdir / f"w{s}.prom"),
+                       "--trace-out", str(rdir / f"w{s}-trace.json")))
+                for s in range(K)]
+            _fed_wait(procs, logs, what, 300)
+            reports = [_fed_report(log) for log in logs]
+            _fed_drain(agg)
+            kernels.reset_launches()
+            oracle = _fed_oracle(dev, K, TEL_FED_EVENTS)
+            oracle_launches = dict(kernels.launches)
+            engine = QueryEngine(agg.mirror, batch_max=1 << 20)
+            probe = np.random.default_rng(9).integers(
+                1 << 21, 1 << 31, 1 << 16).astype(np.uint32)
+            _fed_gates(what, agg.view, engine, oracle, probe,
+                       K * TEL_FED_EVENTS)
+            s = _prom_samples(t.render())
+        finally:
+            agg.stop()
+            agg_client.close()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        broker.kill()
+        broker.wait()
+        obs.disable()
+    check(s[("attendance_fed_merge_lag_seconds_count", "")] == len(folded),
+          f"{what}: merge-lag count vs {len(folded)} frames folded")
+    check(all(s[("attendance_fed_peer_up", f'peer="w{w}"')] == 1
+              for w in range(K)), f"{what}: peer-up gauges")
+    ctxs = [parse_ctx(tp) for tp in folded]
+    check(folded and all(c is not None for c in ctxs),
+          f"{what}: folded frames' traceparents {folded[:4]}")
+    for w in range(K):
+        ws = _prom_samples((rdir / f"w{w}.prom").read_text())
+        check(ws[("attendance_events_total", "")] == TEL_FED_EVENTS,
+              f"{what}: worker w{w}'s prom file")
+    merges = [e for e in json.loads(
+        (work / "d-agg-trace.json").read_text())["traceEvents"]
+        if e.get("name") == "fed_merge"]
+    check(len(merges) == len(folded), f"{what}: {len(merges)} fed_merge "
+          f"spans for {len(folded)} folds")
+    print(f"{what} on {card}: workers' events/s "
+          f"{[r['events_per_sec'] for r in reports]}; {len(folded)} state "
+          f"frames folded, merge-lag count "
+          f"{s[('attendance_fed_merge_lag_seconds_count', '')]}, every "
+          f"traceparent parsed; both peers up; merged view equal to the "
+          f"oracle; oracle launches "
+          f"{ {k: v for k, v in oracle_launches.items() if v} }")
+    return oracle_launches
+
+
+def telemetry_phase(card: str, dev, ref, stream) -> dict:
+    """Phase 11: the telemetry core on the card. (a) the ``fused`` default
+    with telemetry off and on, (b) the processor, (c) a (4, 2) mesh,
+    (d) a federation round, (e) the ``telemetry`` verb on (a)'s
+    artifacts. Returns the launches of its runs."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tel_"))
+    launches = dict.fromkeys(kernels.launches, 0)
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        a_launches, artifacts = _telemetry_fused(card, ref, stream, work)
+        print(f"telemetry (a): {time.perf_counter() - t0} s")
+        # (e) the verb on (a)'s artifacts: the three processes start now
+        # and run beside (b)-(d); their output files are read at the end.
+        repo = str(Path(__file__).resolve().parent)
+        for kind, path in artifacts.items():
+            procs[kind] = subprocess.Popen(
+                [sys.executable, "-m", "attendance_tpu_torch", "telemetry",
+                 path], cwd=repo, env=_fed_env(repo),
+                stdout=open(work / f"e-{kind}.out", "w"),
+                stderr=subprocess.STDOUT)
+        parts = [a_launches]
+        for sub, run in (
+                ("b", lambda: _telemetry_processor(card, dev, work)),
+                ("c", lambda: _telemetry_mesh(card, dev, ref, stream, work)),
+                ("d", lambda: _telemetry_federation(card, dev, work))):
+            t0 = time.perf_counter()
+            parts.append(run())
+            print(f"telemetry ({sub}): {time.perf_counter() - t0} s")
+        for part in parts:
+            for name, count in part.items():
+                launches[name] += count
+        for kind, p in procs.items():
+            p.wait(timeout=120)
+            out = (work / f"e-{kind}.out").read_text()
+            check(p.returncode == 0, f"telemetry (e) verb on the {kind} "
+                  f"artifact exited {p.returncode}:\n{out[-2000:]}")
+            first = out.splitlines()[0] if out else ""
+            print(f"telemetry (e) verb on the {kind} artifact: exit 0, "
+                  f"{len(out.splitlines())} lines; first: {first[:160]}")
+    finally:
+        obs.disable()  # a failed gate leaves no reporter on a removed path
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"telemetry phase: {time.perf_counter() - t_phase} s")
+    print(f"telemetry phase launches (its runs; in the kernels line): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4329,6 +4839,10 @@ def main() -> int:
         roster_size=min(Config().bloom_filter_capacity, num_events),
         num_lectures=num_lectures, seed=0))
 
+    # -- 11. the telemetry core on the card -----------------------------------
+    tel_launches = telemetry_phase(card, dev, ref,
+                                   (num_events, frame_size, num_lectures))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -4338,7 +4852,7 @@ def main() -> int:
              launches=(launches[name] + t_launches[name]
                        + s_launches[name] + i_launches[name]
                        + l_launches[name] + f_launches[name]
-                       + m_launches[name]),
+                       + m_launches[name] + tel_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -1072,11 +1072,15 @@ def test_worker_without_a_device_raises_on_a_host_without_a_card(tmp_path):
                      "--broker", "127.0.0.1:1", "--workdir", str(tmp_path),
                      "--data-plane", "memory", "--num-events", "1024",
                      "--roster-size", "1000"])
-    for flag in ("--metrics-prom", "--fleet-push", "--chaos"):
+    base = ["--worker", "w0", "--shard", "0", "--num-shards", "1",
+            "--broker", "b", "--workdir", "d"]
+    # The telemetry flags are ported; the fleet pusher and fault
+    # injection are refused at parse time.
+    args = worker.build_parser().parse_args(base + ["--metrics-prom", "x"])
+    assert args.metrics_prom == "x"
+    for flag in ("--fleet-push", "--chaos", "--chaos-seed"):
         with pytest.raises(SystemExit):
-            worker.build_parser().parse_args(
-                ["--worker", "w0", "--shard", "0", "--num-shards", "1",
-                 "--broker", "b", "--workdir", "d", flag, "x"])
+            worker.build_parser().parse_args(base + [flag, "x"])
 
 
 def test_worker_subprocess_gossips_to_an_aggregator(tmp_path):

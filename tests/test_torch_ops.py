@@ -169,7 +169,10 @@ _PORT_MODULES = {
     "attendance_tpu_torch.federation.gossip",
     "attendance_tpu_torch.federation.worker",
     "attendance_tpu_torch.parallel", "attendance_tpu_torch.parallel.sharded",
-    "attendance_tpu_torch.parallel.multihost"}
+    "attendance_tpu_torch.parallel.multihost",
+    "attendance_tpu_torch.obs", "attendance_tpu_torch.obs.registry",
+    "attendance_tpu_torch.obs.tracing", "attendance_tpu_torch.obs.recorder",
+    "attendance_tpu_torch.obs.exposition"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
