@@ -52,7 +52,11 @@ the ``--fed-*`` flags (a federated worker gossiping its fences).
 ``federate`` take the telemetry flags: ``--metrics-prom FILE``,
 ``--metrics-port N`` (-1 = ephemeral; ``GET /metrics``),
 ``--metrics-interval-s``, ``--flight-recorder N`` and ``--flight-path``,
-``--trace-out FILE`` and ``--metric-series-max``.
+``--trace-out FILE``, ``--audit-sample F`` (the exact-shadow accuracy
+audit over a hash-sampled fraction of the key space) and
+``--metric-series-max``. With ``--metrics-port``, ``serve`` and a
+``fused`` run with ``--serve-port`` also answer the query verbs as JSON
+under ``/query/*`` (``serve/http.py``).
 
 Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
 BrokerServer at ``--socket-broker``, started with ``python -m
@@ -157,6 +161,7 @@ def cmd_fused(args) -> None:
                     **_transport_config(args), **_ingress_config(args),
                     **_serve_config(args), **_fed_config(args),
                     **_telemetry_config(args))
+    own_telemetry = obs.get() is None
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
     try:
@@ -168,6 +173,12 @@ def cmd_fused(args) -> None:
         analyzer.print_insights(analyzer.generate_insights())
     finally:
         pipe.cleanup()
+        if own_telemetry:
+            # Stop the verb's telemetry while the pipeline is alive: the
+            # last prom block then carries the health and audit gauges,
+            # which read the pipeline through a weak reference (a run
+            # shorter than the reporter's interval has no other block).
+            obs.disable()
     for day, n in summary.pop("unique_attendees").items():
         print(f"LECTURE_{day}: {n} unique attendees")
     print(json.dumps(summary))
@@ -274,6 +285,7 @@ def _telemetry_config(args) -> dict:
                 metrics_interval_s=args.metrics_interval_s,
                 flight_recorder=args.flight_recorder,
                 flight_path=args.flight_path, trace_out=args.trace_out,
+                audit_sample=args.audit_sample,
                 metric_series_max=args.metric_series_max)
 
 
@@ -486,7 +498,8 @@ def cmd_serve(args) -> None:
     telemetry = obs.ensure(config)
     try:
         source = ChainEpochSource(config.snapshot_dir,
-                                  refresh_s=args.refresh_s).start()
+                                  refresh_s=args.refresh_s,
+                                  obs=telemetry).start()
     except FileNotFoundError as e:
         logger.error("no snapshot chain to serve: %s", e)
         sys.exit(2)
@@ -495,6 +508,10 @@ def cmd_serve(args) -> None:
         staleness_ceiling_s=config.read_staleness_ceiling_s or None)
     port = config.serve_port
     server = QueryServer(engine, port=0 if port < 0 else port).start()
+    if telemetry is not None and telemetry._server is not None:
+        # The query verbs as JSON routes beside GET /metrics.
+        from attendance_tpu_torch.serve import http as serve_http
+        serve_http.attach(telemetry._server, engine)
     epoch = source.pin()
     print(f"query plane serving {config.snapshot_dir} on {server.address} "
           f"(epoch {epoch.seq}, {epoch.events} events)", flush=True)
@@ -656,6 +673,10 @@ def _add_telemetry_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--trace-out", default=d.trace_out,
                    help="write per-batch spans as Chrome-trace/"
                    "Perfetto JSON here (empty = tracing off)")
+    p.add_argument("--audit-sample", type=float, default=d.audit_sample,
+                   help="exact-shadow accuracy audit over this hash-"
+                   "sampled fraction of the key space (0 = off); "
+                   "exports measured FPR / HLL-error gauges")
     p.add_argument("--metric-series-max", type=int,
                    default=d.metric_series_max,
                    help="label-cardinality cap per metric name "

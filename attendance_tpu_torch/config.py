@@ -161,9 +161,14 @@ class Config:
     # carries frames whose key and bank bits do not fit one word.
     # "word", "bytes", "seg" and "delta" force one.
     wire_format: str = "auto"
-    # Full-population exact shadow of the temporal plane's windows
-    # (>= 1.0 keeps per-bucket sets of valid students: the window audit
-    # oracle); the JAX package's telemetry auditor is not ported.
+    # Accuracy audit (> 0 turns telemetry on): keep an exact shadow of
+    # this hash-sampled fraction of the key space, cross-check every
+    # sampled BF.EXISTS/PFADD/PFCOUNT answer against it, and export
+    # MEASURED accuracy gauges (attendance_bloom_measured_fpr,
+    # attendance_bloom_false_negatives_total,
+    # attendance_hll_measured_rel_error) beside the occupancy-based
+    # estimators: obs/audit.py. At >= 1.0 the temporal plane also keeps
+    # per-bucket sets of valid students (the window audit oracle).
     audit_sample: float = 0.0
     # Temporal sketch plane (attendance_tpu_torch/temporal): when
     # temporal_period_s > 0 the fused pipeline grows a windowed-HLL

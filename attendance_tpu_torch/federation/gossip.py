@@ -381,6 +381,7 @@ class Aggregator:
                 "every reassignment)").set_function(
                     lambda: float(self.shard_map.version))
             self._g_peers = {}
+            self.mirror.register_gauges(obs)
 
     # -- folding -------------------------------------------------------------
     def _peer_gauge(self, worker: str):

@@ -296,6 +296,22 @@ def bloom_packed_fill_fraction(words: torch.Tensor) -> torch.Tensor:
             / float(words.numel() * 32))
 
 
+# The same byte table on the host (uint16: sums over multi-MB filters
+# must not wrap a uint8 accumulator lane).
+_POPCOUNT8_NP = _POPCOUNT8.numpy().astype(np.uint16)
+
+
+def bloom_packed_fill_fraction_np(words: np.ndarray) -> float:
+    """Host popcount twin of :func:`bloom_packed_fill_fraction` for
+    mirrored (numpy) filter words: the scrape and query paths read the
+    fill from the epoch mirror instead of reading the card."""
+    words = np.asarray(words, dtype=np.uint32)
+    if words.size == 0:
+        return 0.0
+    set_bits = int(_POPCOUNT8_NP[words.view(np.uint8)].sum(dtype=np.int64))
+    return set_bits / float(words.size * 32)
+
+
 def keys_tensor(keys, device: torch.device) -> torch.Tensor:
     """int32[B] tensor (uint32 bit patterns) on ``device`` of host keys
     (a sequence or array of uint32 values) or of an integer tensor."""

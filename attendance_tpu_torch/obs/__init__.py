@@ -3,11 +3,11 @@
 Counterpart of ``attendance_tpu/obs/__init__.py``, its telemetry core.
 One process-wide :class:`Telemetry` instance (module global), enabled
 iff a telemetry flag is set (``--metrics-prom``, ``--metrics-port``,
-``--flight-recorder``, ``--trace-out``). Instrumented call sites capture
-the global ONCE at construction and pay one ``is not None`` branch per
-hot-path event when telemetry is off: nothing is timed or allocated,
-and the reporter, server and exporter load only when a flag asks for
-them.
+``--flight-recorder``, ``--trace-out``, ``--audit-sample``).
+Instrumented call sites capture the global ONCE at construction and pay
+one ``is not None`` branch per hot-path event when telemetry is off:
+nothing is timed or allocated, and the reporter, server, exporter and
+auditor load only when a flag asks for them.
 
 Wiring: pipeline constructors call :func:`ensure` with their config;
 the first caller with a telemetry-enabled config creates and starts the
@@ -15,16 +15,20 @@ subsystem, everyone after (brokers, engines, sibling pipelines in the
 same process) picks it up via :func:`get`. Tests drive
 :func:`enable`/:func:`disable` directly.
 
-Every metric is a host number. A hook times with ``time.perf_counter``
-and never synchronizes the card or reads a CUDA tensor: ``device_wait``
-is the wait on a frame's own completion event, which the run loop
-already makes, and no gauge callback touches the device at scrape time.
+A hot-path hook times with ``time.perf_counter`` and never
+synchronizes the card or reads a CUDA tensor: ``device_wait`` is the
+wait on a frame's own completion event, which the run loop already
+makes. The sketch-health and measured-accuracy gauges (``obs/health.py``,
+``obs/audit.py``) are callbacks that read the sketches when a scrape
+renders the registry: from the pinned read epoch when there is one, else
+from the card, on the default stream behind the run loop's steps (a
+scrape waits for that stream, never for the whole device).
 
 The metric names, labels, help strings and bucket bounds are the JAX
-package's (the scrape contract). Its auditor, SLO engine, sampling
-profiler, recompile tracker, incident and control planes and fleet
-pusher are not ported yet: the port's ``Config`` has none of their
-fields, ``Telemetry.recompiles`` is None, and :meth:`finalize_slo` and
+package's (the scrape contract). Its SLO engine, sampling profiler,
+recompile tracker, incident and control planes and fleet pusher are not
+ported yet: the port's ``Config`` has none of their fields,
+``Telemetry.recompiles`` is None, and :meth:`finalize_slo` and
 :meth:`flush_profile` do nothing.
 """
 
@@ -82,7 +86,8 @@ def enabled_in(config) -> bool:
     return bool(getattr(config, "metrics_prom", "")
                 or getattr(config, "metrics_port", 0)
                 or getattr(config, "flight_recorder", 0)
-                or getattr(config, "trace_out", ""))
+                or getattr(config, "trace_out", "")
+                or getattr(config, "audit_sample", 0.0))
 
 
 class Telemetry:
@@ -92,7 +97,8 @@ class Telemetry:
                  metrics_interval_s: float = 1.0,
                  flight_recorder: int = 0,
                  flight_path: str = DEFAULT_FLIGHT_PATH,
-                 trace_out: str = "", metric_series_max: int = 1024):
+                 trace_out: str = "", audit_sample: float = 0.0,
+                 metric_series_max: int = 1024):
         self.registry = Registry(max_series=metric_series_max)
         self.flight: Optional[FlightRecorder] = (
             FlightRecorder(flight_recorder) if flight_recorder > 0
@@ -103,6 +109,13 @@ class Telemetry:
         # nothing for tracing.
         self.tracer: Optional[Tracer] = Tracer() if trace_out else None
         self.trace_path = trace_out
+        # Accuracy auditor (obs/audit.py): the same capture-once handle
+        # discipline; sketch stores and the fused pipeline hold
+        # `telemetry.auditor` and branch on `is not None`.
+        self.auditor = None
+        if audit_sample > 0:
+            from attendance_tpu_torch.obs.audit import ShadowAuditor
+            self.auditor = ShadowAuditor(self.registry, audit_sample)
         # The JAX bundle's XLA recompile tracker: no counterpart until
         # the profiler slice.
         self.recompiles = None
@@ -230,6 +243,7 @@ def enable(config) -> Telemetry:
             flight_path=getattr(config, "flight_path",
                                 DEFAULT_FLIGHT_PATH),
             trace_out=getattr(config, "trace_out", ""),
+            audit_sample=getattr(config, "audit_sample", 0.0),
             metric_series_max=getattr(config, "metric_series_max",
                                       1024))
         t.start()

@@ -120,6 +120,9 @@ from attendance_tpu_torch.pipeline.codec import decode_frame
 from attendance_tpu_torch.pipeline.events import lecture_to_day
 from attendance_tpu_torch.pipeline.lanes import (
     JsonChunkConsumer, StripedConsumer)
+from attendance_tpu_torch.obs import health
+from attendance_tpu_torch.obs.audit import register_fused_audit
+from attendance_tpu_torch.serve import http as serve_http
 from attendance_tpu_torch.serve.engine import QueryEngine
 from attendance_tpu_torch.serve.mirror import ReadMirror
 from attendance_tpu_torch.serve.rpc import QueryServer
@@ -530,6 +533,7 @@ class FusedPipeline:
         self._auto_level = 0
         self._auto_pressure = 0
         self._drain_waited = False
+        self._warned_word_degrade = False
         # Bank allocation: days AND temporal buckets share one map and
         # one register tensor. The allocator is a monotonic counter plus
         # a free list: the temporal ring's evictions recycle bank rows.
@@ -618,6 +622,11 @@ class FusedPipeline:
         self._roster_size = 0
         self.query_engine: Optional[QueryEngine] = None
         self.query_server: Optional[QueryServer] = None
+        if self._obs is not None:
+            self.read_mirror.register_gauges(self._obs)
+        # The accuracy auditor, taken from the telemetry bundle after
+        # restore() (whose epoch carries no audit truth, as in JAX).
+        self._auditor = None
         # Fence gossip of a federated worker, built before restore() so a
         # takeover's restored chain reaches the aggregator at once.
         self._fed: Optional[FenceGossip] = None
@@ -629,6 +638,15 @@ class FusedPipeline:
             t = time.perf_counter()
             self.restore()
             self.metrics.restore_seconds = time.perf_counter() - t
+        if self._obs is not None:
+            # The hot loop only RECORDS sampled shadow truth (one
+            # vectorized hash and a small set update a frame); the
+            # sketch-health and measured-accuracy gauges are scrape-time
+            # callbacks that read the filter and registers then.
+            self._auditor = self._obs.auditor
+            health.register_fused(self._obs, self)
+            if self._auditor is not None:
+                register_fused_audit(self._obs, self)
         if self.config.serve_port:
             # The in-process query plane: host numpy over the mirror's
             # pinned epoch behind a binary batch RPC port.
@@ -640,6 +658,9 @@ class FusedPipeline:
             port = self.config.serve_port
             self.query_server = QueryServer(
                 self.query_engine, port=0 if port < 0 else port).start()
+            if self._obs is not None and self._obs._server is not None:
+                # The query verbs as JSON routes beside GET /metrics.
+                serve_http.attach(self._obs._server, self.query_engine)
 
     def _init_telemetry(self) -> None:
         """The hot loop's telemetry handles: the stage histograms, the
@@ -749,6 +770,15 @@ class FusedPipeline:
         # the filter) may chain on.
         self._base_stale = True
         self._bloom_host = None
+        if self._auditor is not None:
+            # The roster IS the filter's whole membership (the hot loop
+            # never adds to it): its sampled subset is the shadow's
+            # ground truth for the false-negative probe and the
+            # measured-FPR classification. Recorded after the preload:
+            # the scrape thread re-queries the filter, and shadowing
+            # keys the filter does not hold yet reads them as false
+            # negatives.
+            self._auditor.record_roster(keys)
         if self._temporal is not None:
             # The window shadow classifies validity by roster membership.
             self._temporal.record_roster(keys)
@@ -986,6 +1016,14 @@ class FusedPipeline:
             # seen before the dispatch (native packs never materialize
             # a host bank array).
             self._note_dirty(cols["lecture_day"])
+        if self._auditor is not None:
+            # Shadow recording only (no read of the card): the sampled
+            # lanes feed the scrape-time measured FPR and HLL error
+            # (obs/audit.register_fused_audit). Every frame: JAX's
+            # control plane thins this to every Nth frame under load,
+            # and the port has no control plane yet.
+            self._auditor.observe_fused_frame(cols["student_id"],
+                                              cols["lecture_day"])
         if self.engine is not None:
             valid_n, stored = self._dispatch_sharded(cols, n)
         else:
@@ -1136,6 +1174,21 @@ class FusedPipeline:
             self._auto_pressure = 0
         return self._WIRE_LADDER[self._auto_level]
 
+    def _note_word_degrade(self) -> None:
+        """Log ONCE when ``--wire-format word`` was asked for but a
+        frame's key and bank bits exceed 32, so it rides the wide wire
+        (bytes on one card, arrays on a mesh): without it the forced
+        format would go unhonoured silently (only wire_dwell would show
+        it)."""
+        if (self.config.wire_format == "word"
+                and not self._warned_word_degrade):
+            self._warned_word_degrade = True
+            logger.warning(
+                "--wire-format=word cannot be honored: key bits + bank "
+                "bits exceed one 32-bit word; frames fall back to the "
+                "%s wire (see metrics wire_dwell for the split)",
+                "arrays" if self.engine is not None else "bytes")
+
     def _count_wire(self, key: str, nbytes: int) -> None:
         """One frame dispatched over ``key``, ``nbytes`` of wire buffer
         to the card: counted where the step is launched, so a fallback
@@ -1220,6 +1273,7 @@ class FusedPipeline:
                                 sid, days, self._day_lut, self._day_base,
                                 kw, padded)
                 if not use_words:
+                    self._note_word_degrade()
                     buf, miss = nat.pack_bytes(
                         sid, days, self._day_lut, self._day_base,
                         np.dtype(self._bank_dtype).itemsize, padded)
@@ -1243,6 +1297,8 @@ class FusedPipeline:
             t = self._lap("bank_map", t)
         kw = self._pick_kw(int(sid.max()).bit_length(), num_banks)
         use_words = kw + num_banks.bit_length() <= 32 and wire != "bytes"
+        if not use_words:
+            self._note_word_degrade()
         buf = (pack_words(sid, banks, kw, padded) if use_words
                else pack_bytes(sid, banks, self._bank_dtype, padded))
         t = self._lap("pack", t)
@@ -1278,6 +1334,7 @@ class FusedPipeline:
             valid = self.engine.step_words(words, n, kw)
         else:
             # Keys and bank ids: 8 bytes a padded lane.
+            self._note_word_degrade()
             self._count_wire("arrays", 8 * self.engine.padded_size(n))
             valid = self.engine.step(sid, banks)
         self._lap("dispatch", t)
@@ -2036,7 +2093,11 @@ class FusedPipeline:
                        bank_of: dict, events: Optional[int] = None) -> None:
         """Publish one read epoch from host state: the registers, bank
         map and counters of one moment (cold paths and the snapshot
-        writer only, never the hot loop)."""
+        writer only, never the hot loop). The audit shadow's per-day
+        truth is taken WITH the epoch, so the read path's HLL audit
+        compares estimate and truth of the same moment instead of
+        charging barrier staleness to the sketch."""
+        auditor = self._auditor
         self.read_mirror.publish(
             regs=regs_h,
             events=self._events_total if events is None else events,
@@ -2044,7 +2105,9 @@ class FusedPipeline:
             precision=self.config.hll_precision,
             bloom_words=self._bloom_host,
             counts=None if counts_h is None else np.asarray(counts_h),
-            roster_size=self._roster_size)
+            roster_size=self._roster_size,
+            day_truth=(auditor.fused_day_truth() if auditor is not None
+                       else None))
 
     def _host_state(self) -> Tuple[np.ndarray, np.ndarray]:
         """(uint8 registers, uint32[2, 2] counters) of the card's CURRENT
@@ -2630,6 +2693,11 @@ class FusedPipeline:
     def cleanup(self) -> None:
         if self.query_server is not None:
             self.query_server.stop()
+            if self._obs is not None and self._obs._server is not None:
+                # The metrics server is process-global and outlives this
+                # pipeline: leaked routes would serve (and pin) its last
+                # epoch as live data.
+                serve_http.detach(self._obs._server)
         # Wait out the staged snapshot writes (their acks go through the
         # consumer), then stop the writer.
         self._flush_snapshots()

@@ -14,15 +14,20 @@ Counterpart of ``attendance_tpu/serve/``, its core:
   and the temporal window verbs.
 * :mod:`serve.rpc`: the length-prefixed binary batch RPC, byte-compatible
   with the JAX package's, on the socket broker's framing and retry seam.
+* :mod:`serve.http`: the same verbs as JSON routes behind the
+  ``--metrics-port`` HTTP endpoint.
 * :mod:`serve.chain`: merge-on-read over the on-disk snapshot chain, so
   a separate reader process serves without joining the ingest process
   (the ``serve`` verb).
+* :mod:`serve.audit`: sampled read answers cross-checked against the
+  exact shadow (``obs/audit``), the read path's measured FPR, false
+  negatives and HLL error beside the write path's.
 
 An epoch is published at preload, restore and every snapshot barrier,
 so read staleness is bounded by the barrier cadence; answers always come
-from one consistent epoch, never a mix. The JAX package's HTTP routes,
-read audit and staleness gauges attach to its telemetry plane and are
-not ported.
+from one consistent epoch, never a mix; the
+``attendance_read_staleness_seconds`` gauge exposes the current epoch's
+age.
 """
 
 from attendance_tpu_torch.serve.engine import NoEpoch, QueryEngine  # noqa: F401

@@ -1,7 +1,7 @@
 """Merge-on-read epoch source over the on-disk snapshot chain.
 
-Counterpart of ``attendance_tpu/serve/chain.py`` (its telemetry gauges
-are not ported). A separate READER process serves queries without ever
+Counterpart of ``attendance_tpu/serve/chain.py``. A separate READER
+process serves queries without ever
 joining the ingest process: it loads the base snapshot and every
 manifest-listed delta (``fast_path.read_chain_state``, as restore does)
 and publishes the merged state as an epoch. A background thread
@@ -18,7 +18,9 @@ open, and the loader then reads the manifest again. A reader serves the
 old epoch or the new one, never a mix. A chain that is corrupt (a digest
 mismatch, a torn manifest, an unreadable file) never kills the reader:
 the offending file is quarantined, counted (``utils.integrity``), and
-the last good epoch keeps being served.
+the last good epoch keeps being served. With telemetry (``obs``) the
+reader exports its epoch's staleness and sequence gauges
+(``serve.mirror.register_staleness_gauges``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ _SWAP_RETRIES = 8
 class ChainEpochSource:
     """A ``pin()`` epoch source over a snapshot directory."""
 
-    def __init__(self, snapshot_dir, *, refresh_s: float = 1.0):
+    def __init__(self, snapshot_dir, *, refresh_s: float = 1.0,
+                 obs=None):
         self._dir = Path(snapshot_dir)
         self._manifest = self._dir / CHAIN_MANIFEST
         self.refresh_s = refresh_s
@@ -56,6 +59,10 @@ class ChainEpochSource:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.reload()  # fail fast on an unreadable or absent chain
+        if obs is not None:
+            from attendance_tpu_torch.serve.mirror import (
+                register_staleness_gauges)
+            register_staleness_gauges(obs, self)
 
     # -- the epoch-source surface ---------------------------------------------------
     def pin(self) -> Optional[Epoch]:

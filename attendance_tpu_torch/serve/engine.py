@@ -1,12 +1,12 @@
 """Vectorized query executor over a pinned epoch.
 
-Counterpart of ``attendance_tpu/serve/engine.py`` (its read audit is
-not ported). One :class:`QueryEngine`
-answers whole request batches from whatever epoch source it was built
-over: the live pipeline's :class:`serve.mirror.ReadMirror` or a
-:class:`serve.chain.ChainEpochSource`. Every verb pins ONE epoch up
-front and answers the whole batch from it, so a barrier publishing
-mid-batch changes nothing the batch sees. Everything here is host numpy
+Counterpart of ``attendance_tpu/serve/engine.py``. One
+:class:`QueryEngine` answers whole request batches from whatever epoch
+source it was built over: the live pipeline's
+:class:`serve.mirror.ReadMirror` or a
+:class:`serve.chain.ChainEpochSource`. Every verb pins ONE epoch up front
+and answers the whole batch from it, so a barrier publishing mid-batch
+changes nothing the batch sees. Everything here is host numpy
 over the epoch's arrays: no device, no locks, nothing on the hot loop's
 stream.
 
@@ -26,7 +26,10 @@ keys per verb (``attendance_query_requests_total``, ``_keys_total``,
 the ``attendance_query_batch_size`` histogram), its latency in the
 ``query`` stage and the age of the epoch it was answered from
 (``attendance_query_epoch_age_seconds``), and with tracing adds a
-``query`` span.
+``query`` span. With the accuracy audit on (``obs.auditor``), a
+:class:`serve.audit.ReadAuditor` cross-checks the sampled lanes of each
+BF.EXISTS batch and each PFCOUNT and occupancy answer against the shared
+exact shadow.
 """
 
 from __future__ import annotations
@@ -84,12 +87,16 @@ class QueryEngine:
         self._key_counters: Dict[str, object] = {}
         self._h_batch: Dict[str, object] = {}
         self._h_latency = self._h_epoch_age = None
+        self._auditor = None
         if obs is not None:
             self._h_latency = obs.stage("query")
             self._h_epoch_age = obs.registry.histogram(
                 "attendance_query_epoch_age_seconds",
                 help="Age of the epoch each query batch was answered "
                 "from", scale=1e3)
+            if obs.auditor is not None:
+                from attendance_tpu_torch.serve.audit import ReadAuditor
+                self._auditor = ReadAuditor(obs.registry, obs.auditor)
 
     # -- epoch access ------------------------------------------------------------
     def pin(self) -> Epoch:
@@ -153,8 +160,11 @@ class QueryEngine:
         if epoch.bloom_words is None:
             raise NoEpoch("epoch carries no filter words (no preload "
                           "reached the mirror yet)")
-        return bloom_contains_words_np(epoch.bloom_words, keys,
-                                       epoch.params)
+        out = bloom_contains_words_np(epoch.bloom_words, keys,
+                                      epoch.params)
+        if self._auditor is not None:
+            self._auditor.check_bf(keys, out)
+        return out
 
     @staticmethod
     def _estimates(epoch: Epoch, days: np.ndarray) -> np.ndarray:
@@ -180,7 +190,11 @@ class QueryEngine:
         """Per-lecture-day unique-attendee estimates: int64[B]."""
         days = np.atleast_1d(np.asarray(days, dtype=np.int64))
         self._check_batch(len(days))
-        return self._estimates(self.pin(), days)
+        epoch = self.pin()
+        out = self._estimates(epoch, days)
+        if self._auditor is not None:
+            self._auditor.check_pfcount(epoch, days, out)
+        return out
 
     @staticmethod
     def _day_map(epoch: Epoch) -> Dict[int, int]:
@@ -215,8 +229,10 @@ class QueryEngine:
         if not day_map:
             return {}
         days, ests = self._day_estimates(epoch, day_map)
-        return {int(d): int(e)
-                for d, e in zip(days, np.rint(ests).astype(np.int64))}
+        ests = np.rint(ests).astype(np.int64)
+        if self._auditor is not None:
+            self._auditor.check_pfcount(epoch, days, ests)
+        return {int(d): int(e) for d, e in zip(days, ests)}
 
     @_noted("rate")
     def attendance_rate(self, roster_size: int = 0) -> Dict[int, float]:

@@ -1,11 +1,12 @@
 """Epoch-pinned read mirror: lock-free snapshot isolation for reads.
 
-Counterpart of ``attendance_tpu/serve/mirror.py`` (its telemetry gauges
-are not ported). One :class:`ReadMirror` sits between the writer and
-every reader. The writer publishes immutable :class:`Epoch` objects; the
-publish is one attribute assignment (atomic under the GIL), and a reader
-pins an epoch by holding the reference ``pin()`` returned: no unpin
-call, no reader registration, nothing for the hot loop to wait on.
+Counterpart of ``attendance_tpu/serve/mirror.py``. One
+:class:`ReadMirror` sits between the writer and every reader (query
+executors, the scrape-time health and audit gauges). The writer
+publishes immutable :class:`Epoch` objects; the publish is one attribute
+assignment (atomic under the GIL), and a reader pins an epoch by holding
+the reference ``pin()`` returned: no unpin call, no reader registration,
+nothing for the hot loop to wait on.
 
 Register buffers are double-buffered: ``publish`` recycles the register
 array of the previous-previous epoch when no reader still references
@@ -17,6 +18,10 @@ The Bloom words are fixed between preloads (the fused hot loop never
 adds to the filter), so epochs share one host words array by reference;
 a new preload publishes a new array, and old epochs keep answering from
 the roster they were published under.
+
+With telemetry on, :func:`register_staleness_gauges` exports the current
+epoch's age (``attendance_read_staleness_seconds``) and sequence number
+(``attendance_read_epoch_seq``) for any epoch source.
 """
 
 from __future__ import annotations
@@ -35,13 +40,14 @@ class Epoch:
     reader references anymore."""
 
     __slots__ = ("seq", "published_at", "events", "bloom_words",
-                 "hll_regs", "counts", "bank_of", "roster_size", "params",
-                 "precision", "source")
+                 "hll_regs", "counts", "bank_of", "day_truth",
+                 "roster_size", "params", "precision", "source")
 
     def __init__(self, *, seq: int, events: int,
                  bloom_words: Optional[np.ndarray], hll_regs: np.ndarray,
                  counts: Optional[np.ndarray], bank_of: Dict[int, int],
                  params, precision: int, roster_size: int = 0,
+                 day_truth: Optional[Dict[int, float]] = None,
                  source: str = "live",
                  published_at: Optional[float] = None):
         self.seq = seq
@@ -52,6 +58,10 @@ class Epoch:
         self.hll_regs = hll_regs
         self.counts = counts
         self.bank_of = bank_of
+        # The audit shadow's per-day truth at publish (None without an
+        # auditor): the read audit compares an epoch's estimates with
+        # the truth of the same moment. In memory only.
+        self.day_truth = day_truth
         self.roster_size = roster_size
         self.params = params
         self.precision = precision
@@ -108,14 +118,17 @@ class ReadMirror:
                 bloom_words: Optional[np.ndarray] = None,
                 counts: Optional[np.ndarray] = None,
                 roster_size: Optional[int] = None,
+                day_truth: Optional[Dict[int, float]] = None,
                 source: str = "live") -> Epoch:
         """Publish the next epoch from the writer's host state.
 
         ``regs`` is the writer's private mirror, which later deltas
         mutate, so it is copied into a (usually recycled) read buffer.
         ``bloom_words``, ``counts`` and ``roster_size`` default to the
-        previous epoch's. ``source`` names the publisher ("live", or
-        "federated" for the federation's aggregator)."""
+        previous epoch's; ``day_truth`` is the audit shadow's per-day
+        truth of this moment (None without an auditor). ``source`` names
+        the publisher ("live", or "federated" for the federation's
+        aggregator)."""
         regs = np.asarray(regs, dtype=np.uint8)
         with self._lock:
             prev = self._current
@@ -134,9 +147,35 @@ class ReadMirror:
                 counts=None if counts is None else np.array(counts,
                                                             copy=True),
                 bank_of=dict(bank_of), params=params, precision=precision,
-                roster_size=int(roster_size), source=source)
+                roster_size=int(roster_size),
+                day_truth=None if day_truth is None else dict(day_truth),
+                source=source)
             # Shift the double buffer: current -> previous (the recycle
             # candidate at the NEXT publish), previous dropped.
             self._previous = prev
             self._current = epoch  # the atomic pointer swap
             return epoch
+
+    def register_gauges(self, telemetry) -> None:
+        register_staleness_gauges(telemetry, self)
+
+
+def register_staleness_gauges(telemetry, source) -> None:
+    """Export ``attendance_read_staleness_seconds`` (the current epoch's
+    age; NaN before the first publish) and the epoch sequence gauge for
+    any epoch source (a ReadMirror or a chain reader). Idempotent:
+    set_function replaces the callback."""
+    telemetry.registry.gauge(
+        "attendance_read_staleness_seconds",
+        help="Age of the published read epoch (bounded by the "
+        "snapshot barrier cadence; NaN before the first publish)"
+    ).set_function(source.staleness_s)
+
+    def seq() -> float:
+        e = source.pin()
+        return float(e.seq) if e is not None else 0.0
+
+    telemetry.registry.gauge(
+        "attendance_read_epoch_seq",
+        help="Monotonic sequence number of the published read "
+        "epoch").set_function(seq)

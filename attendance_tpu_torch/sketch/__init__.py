@@ -24,15 +24,30 @@ from attendance_tpu_torch.sketch.tpu_store import TpuSketchStore  # noqa: F401
 
 def make_sketch_store(config, device=None) -> SketchStore:
     """Build the sketch store selected by config.sketch_backend. Only
-    the card store reads ``device`` (default: the CUDA card)."""
+    the card store reads ``device`` (default: the CUDA card).
+
+    With live telemetry on, the inspectable backends (all but the real
+    Redis server, whose filters live remotely) also register the
+    sketch-health gauges (obs/health.register_store; weakref'd, read at
+    scrape time only, refreshed on snapshot restore)."""
     if config.sketch_backend == "tpu":
-        return TpuSketchStore(config, device=device)
-    if config.sketch_backend == "memory":
-        return MemorySketchStore(config)
-    if config.sketch_backend == "redis":
+        store = TpuSketchStore(config, device=device)
+    elif config.sketch_backend == "memory":
+        store = MemorySketchStore(config)
+    elif config.sketch_backend == "redis":
         from attendance_tpu_torch.sketch.redis_store import RedisSketchStore
-        return RedisSketchStore(config)
-    if config.sketch_backend == "redis-sim":
+        return RedisSketchStore(config)  # no inspectable local state
+    elif config.sketch_backend == "redis-sim":
         from attendance_tpu_torch.sketch.redis_sim import RedisSimSketchStore
-        return RedisSimSketchStore(config)
-    raise ValueError(f"unknown sketch backend {config.sketch_backend!r}")
+        store = RedisSimSketchStore(config)
+    else:
+        raise ValueError(
+            f"unknown sketch backend {config.sketch_backend!r}")
+    from attendance_tpu_torch import obs
+    t = obs.ensure(config)
+    if t is not None:
+        from attendance_tpu_torch.obs import health
+        health.register_store(
+            t, store, getattr(config, "bloom_filter_key", "bf"),
+            backend=config.sketch_backend)
+    return store

@@ -1,8 +1,7 @@
 """SketchStore interface, member normalization, and scalable-Bloom logic.
 
-Counterpart of ``attendance_tpu/sketch/base.py`` (without the accuracy
-auditor's hooks). Semantics contract, as Redis Stack behaves at the
-reference's call sites:
+Counterpart of ``attendance_tpu/sketch/base.py``. Semantics contract,
+as Redis Stack behaves at the reference's call sites:
   * BF.EXISTS on a missing key returns 0 (no error).
   * BF.ADD on a missing key auto-creates a filter with RedisBloom defaults
     (capacity 100, error 0.01) and auto-scales by chaining sub-filters
@@ -161,6 +160,16 @@ class SketchStore(abc.ABC):
         self._dirty_blooms: set = set()
         self._dirty_hll: set = set()
         self._dirty_all = True
+        # Accuracy auditor (obs/audit.py): captured ONCE here, one
+        # `is not None` branch per public command when auditing is off.
+        # The hooks live on the PUBLIC command surface (not the
+        # _filter_*/_hll_* primitives), so internal membership probes
+        # (ScalableBloom.add_many's dedup contains) never enter the
+        # measured-FPR denominator, and every backend routed through
+        # this dispatch (memory / tpu / redis-sim) is audited alike.
+        from attendance_tpu_torch import obs
+        t = obs.ensure(config) if config is not None else None
+        self._auditor = t.auditor if t is not None else None
 
     # -- backend primitives -------------------------------------------------
     @abc.abstractmethod
@@ -209,15 +218,23 @@ class SketchStore(abc.ABC):
         return bloom
 
     def bf_add_many(self, key: str, members) -> np.ndarray:
-        out = self._bf_add_u32(key, members_to_u32(members))
+        u32 = members_to_u32(members)
+        out = self._bf_add_u32(key, u32)
         self._dirty_blooms.add(key)
+        if self._auditor is not None:
+            self._auditor.record_bf_add(key, u32)
         return out
 
     def bf_exists_many(self, key: str, members) -> np.ndarray:
-        return self._bf_exists_u32(key, members_to_u32(members))
+        u32 = members_to_u32(members)
+        out = self._bf_exists_u32(key, u32)
+        if self._auditor is not None:
+            self._auditor.check_bf_exists(key, u32, out)
+        return out
 
-    # Backend chokepoints: subclasses that reimplement the command
-    # semantics wholesale (redis_sim) override these.
+    # Backend chokepoints under the audited surface: subclasses that
+    # reimplement the command semantics wholesale (redis_sim) override
+    # these, so the audit above still sees their answers.
     def _bf_add_u32(self, key: str, u32: np.ndarray) -> np.ndarray:
         return self._bloom_or_create(key).add_many(u32)
 
@@ -232,23 +249,33 @@ class SketchStore(abc.ABC):
         self._dirty_hll.add(key)
         if not members:
             return self._pf_create(key)
-        return self._pfadd_u32(key, members_to_u32(members), None, True)
+        u32 = members_to_u32(members)
+        out = self._pfadd_u32(key, u32, None, True)
+        if self._auditor is not None:
+            self._auditor.record_pfadd(key, u32)
+        return out
 
     def pfadd_many(self, key: str, members,
                    mask: Optional[np.ndarray] = None,
                    want_changed: bool = False) -> int:
         self._dirty_hll.add(key)
-        return self._pfadd_u32(key, members_to_u32(members), mask,
-                               want_changed)
+        u32 = members_to_u32(members)
+        out = self._pfadd_u32(key, u32, mask, want_changed)
+        if self._auditor is not None:
+            self._auditor.record_pfadd(key, u32, mask)
+        return out
 
     def pfcount(self, *keys: str) -> int:
-        return self._pfcount_keys(keys)
+        out = self._pfcount_keys(keys)
+        if self._auditor is not None:
+            self._auditor.check_pfcount(keys, out)
+        return out
 
     def pfcount_many(self, keys: Sequence[str]) -> List[int]:
         """Batched per-key PFCOUNT: one estimate per key (NOT the union
-        ``pfcount(*keys)`` computes). The default loops :meth:`pfcount`;
-        banked backends override it with one histogram pass
-        (TpuSketchStore)."""
+        ``pfcount(*keys)`` computes). The default loops :meth:`pfcount`,
+        so every answer crosses the audit chokepoint; banked backends
+        override it with one histogram pass (TpuSketchStore)."""
         return [self.pfcount(k) for k in keys]
 
     def _pf_create(self, key: str) -> int:

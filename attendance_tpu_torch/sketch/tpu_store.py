@@ -80,7 +80,8 @@ class TpuSketchStore(SketchStore):
 
     def pfcount_many(self, keys: Sequence[str]):
         """Batched per-key PFCOUNT: one K1-rows launch over every
-        requested bank instead of a launch per key."""
+        requested bank instead of a launch per key. Each answer is still
+        cross-checked per key by the auditor, as the scalar path's."""
         idxs = [self._hll.bank_index(k, create=False) for k in keys]
         known = sorted({i for i in idxs if i >= 0})
         by_bank = {}
@@ -89,7 +90,11 @@ class TpuSketchStore(SketchStore):
             by_bank = {b: int(round(estimate_from_histogram(
                 h, self._hll.precision)))
                 for b, h in zip(known, hists)}
-        return [by_bank.get(idx, 0) for idx in idxs]
+        out = [by_bank.get(idx, 0) for idx in idxs]
+        if self._auditor is not None:
+            for key, v in zip(keys, out):
+                self._auditor.check_pfcount((key,), v)
+        return out
 
     def _hll_count(self, keys: Sequence[str]) -> int:
         known = [k for k in keys if self._hll.bank_index(k, create=False) >= 0]

@@ -364,6 +364,12 @@ def restore_sketch_store(store, path) -> None:
         # Disk now equals memory: the next chain snapshot appends a delta
         # of new writes instead of a spurious base.
         store.mark_clean()
+    # Restore REPLACES the store's filter handles and HLL registers:
+    # re-register its health gauges so they read the restored
+    # generation (a no-op when the store was never registered or
+    # telemetry is down).
+    from attendance_tpu_torch.obs.health import reregister_store
+    reregister_store(store)
 
 
 def _restore_npz(store, path) -> None:

@@ -233,13 +233,37 @@ Phases (any failure exits non-zero):
      equals the frames folded, both peers up, every folded
      ``traceparent`` parses, the view equal to its oracle; (e) ``python
      -m attendance_tpu_torch telemetry`` on (a)'s three artifacts;
+  12. live accuracy on the card (after 11): (a) the ``fused`` default
+     with ``metrics_port=-1``, three runs with ``audit_sample`` 0.01 and
+     three without, interleaved (each rate, the medians' ratio), and
+     ``observe_fused_frame`` timed alone on the stream's frames; (b)
+     audited runs at the 100k roster (sample 0.01 and 1.0) and at
+     BASELINE config #4's 10M roster, each with a scrape started from
+     inside its receive after the first frame and one after it (the
+     render's wall, the K4 and K1 calls the mid-run scrape made off the
+     run loop's thread, exactly two K4 and two K1 launches a scrape
+     after), gated: no false negative, the measured FPR <= 1.5% and
+     equal to a host recount over the shadow's probe sets, the HLL
+     estimate equal to ``sum(count_all())``, the fill equal to the host
+     popcount and raised to k equal to ``estimated_fpr()``, at sample
+     1.0 the measured HLL error <= 3%; (c) a virtual (4, 2) query mesh
+     over the 100k stream: the same gates, its measured FPR, fill and
+     counters equal to one card's; (d) the processor on the card store
+     with the audit on: its audit counters, PFCOUNTs and HLL-error
+     gauges equal to the same run's on the CPU, its health gauges equal
+     after a snapshot restore into a fresh store; (e) a checkpointed
+     ``fused`` default that serves with the audit on: every ``/query/*``
+     route equal to the RPC on the same epoch, no read-path false
+     negative over the sampled roster, a finite staleness; then the
+     ``serve`` verb over its chain with ``--metrics-port``: the same;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
      run and the oracle's reads), phase 10(c)'s five mesh runs and
-     phase 11's runs (each also printed on a line of its own); phase 5
-     prints its own runs' counts on a line of its own.
+     phases 11's and 12's runs (each also printed on a line of its own;
+     12's count the scrapes' K4, K9 and K1 launches); phase 5 prints its
+     own runs' counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -649,6 +673,7 @@ def histogram_phase(dev, floor_ms: float, live: torch.Tensor,
 def temporal_path(card: str, num_events: int, frame_size: int,
                   num_lectures: int, rows: dict) -> dict:
     """Phase 3b; returns the run's launch counts."""
+    from attendance_tpu_torch import obs
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.models import cms
     from attendance_tpu_torch.ops import kernels
@@ -684,6 +709,9 @@ def temporal_path(card: str, num_events: int, frame_size: int,
             reps=10)
     finally:
         pipe.cleanup()
+        # audit_sample 1.0 (the window oracle) turned the process's
+        # telemetry and its auditor on: the runs below are bare.
+        obs.disable()
 
     cols = [decode_planar_batch(f) for f in frames]
     sid = np.concatenate([c["student_id"] for c in cols])
@@ -1924,6 +1952,7 @@ def lanes_serve_phase(card: str, dev, ingress: dict, ref, rates_p3: dict,
     import threading
     from pathlib import Path
 
+    from attendance_tpu_torch import obs
     from attendance_tpu_torch.cli import run_fused
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.models import bloom
@@ -2313,6 +2342,7 @@ def lanes_serve_phase(card: str, dev, ingress: dict, ref, rates_p3: dict,
                   f"on {card}; launches {p8t}")
         finally:
             pipe.cleanup()
+            obs.disable()  # audit_sample 1.0 turned telemetry on
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2325,7 +2355,7 @@ def lanes_serve_phase(card: str, dev, ingress: dict, ref, rates_p3: dict,
     return counted.total
 
 
-# -- 9. federation on the card ---------------------------------------------------
+# -- 9. federation on the card ------------------------------------------------
 FED_ROSTER = 100_000  # the `fused` default's roster, as in phase 3
 FED_EVENTS = 524_288  # a scaling round's per-worker events: 64 frames
 FED_BATCH = 8_192     # the worker's frame (6 lectures, 10% invalid)
@@ -4300,6 +4330,530 @@ def telemetry_phase(card: str, dev, ref, stream) -> dict:
     return launches
 
 
+ACC_SAMPLE = 0.01     # 12: the --audit-sample of its runs (the JAX default)
+ACC_RUNS = 3          # 12(a): audit-off and -on runs, interleaved
+ACC_BIG_ROSTER = 10_000_000  # 12(b): BASELINE config #4's roster
+ACC_PROC_STUDENTS = 3_000    # 12(d): the processor's generator, cut
+ACC_SERVE_SECONDS = 6.0      # 12(e): the serve verb's lifetime
+
+
+class _KernelCallers:
+    """Which threads called the K4 and K1 wrappers while installed:
+    {wrapper name: [thread name per call]}. The wrappers still count
+    their launches themselves; this only attributes them (a scrape's
+    callbacks run on the metrics server's request thread)."""
+
+    NAMES = ("bloom_contains", "hll_histogram")
+
+    def __init__(self):
+        from attendance_tpu_torch.ops import kernels
+        self._kernels = kernels
+        self.calls = {name: [] for name in self.NAMES}
+        self._real = {}
+
+    def __enter__(self):
+        import threading
+        for name in self.NAMES:
+            real = self._real[name] = getattr(self._kernels, name)
+
+            def spy(*args, _real=real, _seen=self.calls[name], **kwargs):
+                _seen.append(threading.current_thread().name)
+                return _real(*args, **kwargs)
+
+            setattr(self._kernels, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self._kernels, name, real)
+
+    def off(self, thread_name: str) -> dict:
+        """Calls made by threads other than ``thread_name``."""
+        return {name: sum(c != thread_name for c in calls)
+                for name, calls in self.calls.items()}
+
+
+def _timed_scrape(port: int):
+    """(text, wall seconds) of one scrape of /metrics."""
+    t0 = time.perf_counter()
+    text = _scrape(port)
+    return text, time.perf_counter() - t0
+
+
+def _accuracy_gates(what: str, t, pipe, s: dict):
+    """12(b)'s gates on one scrape ``s`` of a finished run: no false
+    negative, the measured FPR within 1.5% and equal to a host recount
+    over the shadow's probe sets, the estimate equal to the pipeline's
+    PFCOUNTs, the fill gauge the one ``estimated_fpr`` raises to k.
+    Returns (measured FPR, fill, sampled roster keys, sampled
+    outsiders)."""
+    from attendance_tpu_torch.models.bloom import (
+        bloom_contains_words_np, bloom_packed_fill_fraction_np)
+
+    check(s[("attendance_bloom_false_negatives_total", "")] == 0,
+          f"{what}: false negatives "
+          f"{s[('attendance_bloom_false_negatives_total', '')]}")
+    fpr = s[("attendance_bloom_measured_fpr", 'surface="fused"')]
+    if pipe.engine is not None:
+        words, _ = pipe.engine.get_state()
+    else:
+        words = pipe.state.bloom_bits.cpu().numpy().view(np.uint32)
+    roster, negatives = t.auditor.fused_probe_sets()
+    host = bloom_contains_words_np(words, negatives, pipe.params)
+    check(len(negatives) > 0 and fpr == host.sum() / len(negatives),
+          f"{what}: measured FPR {fpr} != host recount "
+          f"{host.sum()} / {len(negatives)}")
+    check(bool(bloom_contains_words_np(words, roster, pipe.params).all()),
+          f"{what}: a sampled roster key reads absent on the host")
+    check(fpr <= 0.015, f"{what}: measured FPR {fpr}")
+    est = s[("attendance_hll_estimate", "")]
+    check(est == sum(pipe.count_all().values()),
+          f"{what}: hll estimate {est} != sum(count_all())")
+    fill = s[("attendance_bloom_fill_fraction", "")]
+    check(fill == bloom_packed_fill_fraction_np(words),
+          f"{what}: fill {fill} != the host popcount")
+    check(fill ** pipe.params.k == pipe.estimated_fpr()
+          == s[("attendance_bloom_estimated_fpr", "")],
+          f"{what}: fill ** k {fill ** pipe.params.k} != estimated_fpr() "
+          f"{pipe.estimated_fpr()}")
+    return fpr, fill, len(roster), len(negatives)
+
+
+def _accuracy_run(card: str, what: str, config, roster, frames,
+                  num_events: int, launches: dict, mesh=None):
+    """One audited run with a scrape started from inside its receive
+    after the first frame and one after it; the gates on the scrape
+    after, the K4 and K1 calls of each scrape, the render walls. Returns
+    (pipe, samples after, the auditor's bundle)."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+
+    import threading
+
+    t = obs.enable(config)
+    mid = {}
+    kernels.reset_launches()
+    with _KernelCallers() as callers:
+        pipe = FusedPipeline(config, client=_scraping_client(t, mid),
+                             mesh=mesh)
+        t0 = time.perf_counter()
+        pipe.preload(roster)
+        preload_s = time.perf_counter() - t0
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        for f in frames:
+            producer.send(f)
+        pipe.run(max_events=num_events, idle_timeout_s=1.0)
+        check("thread" in mid, f"{what}: no scrape started during the run")
+        mid["thread"].join(timeout=120)
+        check("text" in mid, f"{what}: the mid-run scrape failed")
+        # Every call off the run loop's thread before the run ended came
+        # from the mid-run scrape.
+        mid_calls = callers.off(threading.current_thread().name)
+        before = dict(kernels.launches)
+        after, wall = _timed_scrape(t.http_port)
+        one = {k: kernels.launches[k] - before[k] for k in before
+               if kernels.launches[k] != before[k]}
+    for name, count in kernels.launches.items():
+        launches[name] += count
+    s = _prom_samples(after)
+    m = _prom_samples(mid["text"])
+    check(m[("attendance_bloom_false_negatives_total", "")] == 0,
+          f"{what}: false negatives in the mid-run scrape")
+    print(f"{what} on {card}: {pipe.metrics.events_per_second} events/s, "
+          f"preload {preload_s} s; the mid-run scrape (after "
+          f"{mid['frames']} frames, render of "
+          f"{m[('attendance_frames_total', '')]} frames) called "
+          f"{mid_calls} off the run loop's thread; the scrape after the "
+          f"run took "
+          f"{wall} s and launched {one}")
+    return pipe, s, t, mid_calls, one
+
+
+def _accuracy_fused(card: str, ref, stream, launches: dict) -> dict:
+    """12(a): the ``fused`` default with telemetry on, audit off and on
+    (``--audit-sample`` 0.01), interleaved; the auditor's own per-frame
+    cost on one frame. Returns {mode: [events/s]}."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.obs.audit import ShadowAuditor
+    from attendance_tpu_torch.obs.registry import Registry
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.events import decode_planar_batch
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+
+    num_events, frame_size, num_lectures = stream
+    rates = {"off": [], "on": []}
+    for i in range(ACC_RUNS):
+        for mode in ("off", "on"):
+            config = Config(metrics_port=-1, audit_sample=(
+                ACC_SAMPLE if mode == "on" else 0.0))
+            t = obs.enable(config)
+            kernels.reset_launches()
+            pipe, summary = run_with_native(True, config, num_events,
+                                            frame_size, num_lectures)
+            for name, count in kernels.launches.items():
+                launches[name] += count
+            try:
+                what = f"accuracy (a) run {i} audit {mode}"
+                check(((summary["valid"], summary["invalid"]),
+                       summary["unique_attendees"]) == ref[:2],
+                      f"{what}: counters or PFCOUNTs differ from phase 3's")
+                check((t.auditor is None) == (mode == "off")
+                      and (pipe._auditor is t.auditor),
+                      f"{what}: auditor {t.auditor}")
+                if mode == "on":
+                    members = t.auditor._shadow_size()
+                    check(members > 0, f"{what}: an empty shadow")
+                rates[mode].append(summary["events_per_second"])
+            finally:
+                pipe.cleanup()
+                obs.disable()
+            print(f"{what}: {summary['events_per_second']} events/s "
+                  f"on {card}; wires {summary['wire_dwell']}")
+    off = float(np.median(rates["off"]))
+    on = float(np.median(rates["on"]))
+    print(f"accuracy (a) fused default, telemetry on, on {card}: events/s "
+          f"audit off {rates['off']} on {rates['on']}; medians off {off} "
+          f"on {on}; on/off {on / off}")
+    # The shadow's per-frame host cost alone, on one decoded frame.
+    roster, frames = generate_frames(num_events, frame_size,
+                                     roster_size=100_000,
+                                     num_lectures=num_lectures, seed=0)
+    aud = ShadowAuditor(Registry(), ACC_SAMPLE)
+    aud.record_roster(roster)
+    cols = [decode_planar_batch(f) for f in frames]
+    t0 = time.perf_counter()
+    for c in cols:
+        aud.observe_fused_frame(c["student_id"], c["lecture_day"])
+    per_frame = (time.perf_counter() - t0) / len(cols)
+    print(f"accuracy (a) observe_fused_frame at sample {ACC_SAMPLE}: "
+          f"{per_frame * 1e3} ms a {frame_size}-event frame (host, the "
+          f"dispatch thread's cost), {aud._shadow_size()} shadow members")
+    return rates
+
+
+def _accuracy_processor(card: str, dev, launches: dict) -> None:
+    """12(d): the processor on the card store with the audit on: its
+    audit counters equal the CPU reference's on the same stream, and its
+    health gauges report after a snapshot restore."""
+    import tempfile
+    from datetime import datetime
+    from pathlib import Path
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.cli import run_pipeline
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.sketch import make_sketch_store
+    from attendance_tpu_torch.transport.memory_broker import MemoryBroker
+    from attendance_tpu_torch.utils.snapshot import (
+        restore_sketch_store, snapshot_sketch_store)
+
+    what = "accuracy (d) processor, card store"
+    got = {}
+    for device in (dev, "cpu"):
+        MemoryBroker.reset_shared()
+        config = Config(metrics_port=-1, audit_sample=ACC_SAMPLE)
+        t = obs.enable(config)
+        kernels.reset_launches()
+        try:
+            proc, report = run_pipeline(config, ACC_PROC_STUDENTS, 50,
+                                        seed=0, device=device,
+                                        now=datetime(*INGRESS_NOW))
+            counts = _pipeline_result(proc, report)[3]
+            aud = t.auditor
+            got[str(device)] = dict(
+                checks=aud._checks.value, fp=aud._fp.value,
+                fn=aud._fn.value, negatives=aud._negatives.value,
+                members=aud._shadow_size(), counts=counts,
+                errors={k: v for k, v in _prom_samples(t.render()).items()
+                        if k[0] == "attendance_hll_measured_rel_error"})
+            if device == dev:
+                for name, count in kernels.launches.items():
+                    launches[name] += count
+                run_launches = {k: v for k, v in kernels.launches.items()
+                                if v}
+                before = _prom_samples(t.render())
+                with tempfile.TemporaryDirectory() as d:
+                    path = Path(d) / "sketch.npz"
+                    snapshot_sketch_store(proc.sketch, path)
+                    fresh = make_sketch_store(config, device=dev)
+                    restore_sketch_store(fresh, path)
+                    proc.cleanup()
+                    del proc
+                    after = _prom_samples(t.render())
+                    health = [k for k in before
+                              if k[0] in ("attendance_hll_estimate",
+                                          "attendance_bloom_fill_fraction",
+                                          "attendance_bloom_estimated_fpr")]
+                    check(health and all(after.get(k) == before[k]
+                                         for k in health),
+                          f"{what}: health gauges after the restore "
+                          f"{ {k: after.get(k) for k in health} } != "
+                          f"{ {k: before[k] for k in health} }")
+            else:
+                proc.cleanup()
+        finally:
+            obs.disable()
+    card_side, cpu_side = got[str(dev)], got["cpu"]
+    check(card_side == cpu_side, f"{what}: audit counters {card_side} != "
+          f"the CPU reference's {cpu_side}")
+    check(card_side["fn"] == 0 and card_side["checks"] > 0,
+          f"{what}: {card_side}")
+    print(f"{what} on {card}: audit counters equal to the CPU reference's "
+          f"(checks {card_side['checks']}, negatives "
+          f"{card_side['negatives']}, false positives {card_side['fp']}, "
+          f"false negatives 0, {card_side['members']} shadow members, "
+          f"{len(card_side['errors'])} HLL error gauges); the health "
+          f"gauges equal after a snapshot restore; launches {run_launches}")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _route_answers(base: str, roster, days) -> dict:
+    """The /query/* routes' JSON, keyed like ``_rpc_route_answers``."""
+    import urllib.request
+
+    def get(path, data=None):
+        req = urllib.request.Request(base + path, data=data,
+                                     method="POST" if data else "GET")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    keys = ",".join(str(int(k)) for k in roster)
+    stats = get("/query/stats")
+    return dict(
+        occupancy={int(k): v for k, v in get("/query/occupancy").items()},
+        exists=get(f"/query/exists?keys={keys}"),
+        pfcount=get("/query/pfcount?days="
+                    + ",".join(str(d) for d in days)),
+        post_pfcount=get("/query", json.dumps(
+            {"verb": "pfcount", "days": list(days)}).encode())["result"],
+        rate={int(k): v for k, v in get("/query/rate").items()},
+        stats={k: stats[k] for k in ("epoch", "events", "valid",
+                                     "invalid", "roster_size")})
+
+
+def _rpc_route_answers(client, roster, days) -> dict:
+    stats = client.stats()
+    return dict(
+        occupancy={int(k): int(v) for k, v in client.occupancy().items()},
+        exists=[bool(v) for v in client.bf_exists(roster)],
+        pfcount=[int(v) for v in client.pfcount(days)],
+        post_pfcount=[int(v) for v in client.pfcount(days)],
+        rate={int(k): v for k, v in client.attendance_rate().items()},
+        stats={k: stats[k] for k in ("epoch", "events", "valid",
+                                     "invalid", "roster_size")})
+
+
+def _accuracy_serve(card: str, stream, launches: dict) -> None:
+    """12(e): a checkpointed ``fused`` default that serves, with the
+    audit and a metrics port on: every route answers what the RPC does
+    for the same epoch, the read audit counts no false negative over the
+    sampled roster; then the ``serve`` verb over its chain with
+    ``--metrics-port``: the same, and a finite staleness gauge."""
+    import shutil
+    import tempfile
+    import threading
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.cli import main as cli_main
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.serve.rpc import QueryClient
+
+    num_events, frame_size, num_lectures = stream
+    work = tempfile.mkdtemp(prefix="chip_smoke_acc_")
+    try:
+        config = Config(snapshot_dir=work, snapshot_every_batches=2,
+                        serve_port=-1, metrics_port=-1,
+                        audit_sample=ACC_SAMPLE)
+        t = obs.enable(config)
+        kernels.reset_launches()
+        pipe, summary = run_with_native(True, config, num_events,
+                                        frame_size, num_lectures)
+        for name, count in kernels.launches.items():
+            launches[name] += count
+        what = "accuracy (e) fused, checkpointed, serving"
+        try:
+            roster = t.auditor.fused_probe_sets()[0]
+            days = [int(d) for d in pipe.lecture_days()] + [123]
+            base = f"http://127.0.0.1:{t.http_port}"
+            client = QueryClient(pipe.query_server.address)
+            want = _rpc_route_answers(client, roster, days)
+            got = _route_answers(base, roster, days)
+            client.close()
+            check(got == want, f"{what}: the routes' answers differ from "
+                  "the RPC's")
+            check(all(got["exists"]), f"{what}: a sampled roster key reads "
+                  "absent")
+            s = _prom_samples(_scrape(t.http_port))
+            fn = s[("attendance_query_false_negatives_total", "")]
+            audited = s[("attendance_query_audited_total", "")]
+            check(fn == 0 and audited >= len(roster),
+                  f"{what}: read audit false negatives {fn}, audited "
+                  f"{audited}")
+            stale = s[("attendance_read_staleness_seconds", "")]
+            check(np.isfinite(stale) and stale >= 0,
+                  f"{what}: staleness {stale}")
+            print(f"{what} on {card}: {summary['events_per_second']} "
+                  f"events/s; {len(got)} route answers equal to the RPC's "
+                  f"on epoch {got['stats']['epoch']}; read audit "
+                  f"{audited} answers, 0 false negatives, measured read "
+                  f"FPR {s[('attendance_query_measured_fpr', '')]}; "
+                  f"staleness {stale} s")
+        finally:
+            pipe.cleanup()
+            obs.disable()
+        serve_port, metrics_port = _free_port(), _free_port()
+        thread = threading.Thread(target=cli_main, args=([
+            "serve", "--snapshot-dir", work, "--serve-port",
+            str(serve_port), "--metrics-port", str(metrics_port),
+            "--serve-seconds", str(ACC_SERVE_SECONDS)],), daemon=True)
+        thread.start()
+        what = "accuracy (e) the serve verb over the chain"
+        deadline = time.monotonic() + 30
+        while True:
+            t = obs.get()
+            if (t is not None and t._server is not None
+                    and "/query/stats" in t._server.routes):
+                break
+            check(time.monotonic() < deadline and thread.is_alive(),
+                  f"{what}: its routes never mounted")
+            time.sleep(0.01)
+        client = QueryClient(f"127.0.0.1:{serve_port}")
+        want = _rpc_route_answers(client, roster, days)
+        client.close()
+        got = _route_answers(f"http://127.0.0.1:{metrics_port}", roster,
+                             days)
+        check(got == want, f"{what}: the routes' answers differ from the "
+              "RPC's")
+        s = _prom_samples(_scrape(metrics_port))
+        stale = s[("attendance_read_staleness_seconds", "")]
+        check(np.isfinite(stale) and stale >= 0,
+              f"{what}: staleness {stale}")
+        check(s[("attendance_read_epoch_seq", "")] >= 1,
+              f"{what}: epoch seq")
+        thread.join(timeout=ACC_SERVE_SECONDS + 30)
+        check(not thread.is_alive(), f"{what}: the verb did not end")
+        print(f"{what}: {len(got)} route answers equal to the RPC's on "
+              f"epoch {got['stats']['epoch']} ({got['stats']['events']} "
+              f"events); staleness {stale} s")
+    finally:
+        obs.disable()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def accuracy_phase(card: str, dev, ref, stream) -> dict:
+    """Phase 12: live accuracy on the card. (a) the audit's cost on the
+    ``fused`` default, (b) scrapes during and after audited runs at the
+    100k and 10M rosters and at sample 1.0, (c) a (4, 2) virtual mesh
+    equal to one card, (d) the processor on the card store, (e) the
+    query routes and the ``serve`` verb. Returns the launches of its
+    runs."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.parallel import make_mesh
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+
+    t_phase = time.perf_counter()
+    num_events, frame_size, num_lectures = stream
+    launches = dict.fromkeys(kernels.launches, 0)
+    try:
+        t0 = time.perf_counter()
+        _accuracy_fused(card, ref, stream, launches)
+        print(f"accuracy (a): {time.perf_counter() - t0} s")
+
+        # (b) at the default 100k roster (phase 3's stream), at sample
+        # 1.0 for the measured HLL error, and at the 10M roster.
+        t0 = time.perf_counter()
+        one = {}
+        for label, capacity, sample in (("100k", 100_000, ACC_SAMPLE),
+                                        ("100k", 100_000, 1.0),
+                                        ("10M", ACC_BIG_ROSTER, ACC_SAMPLE)):
+            what = f"accuracy (b) roster {label} sample {sample}"
+            roster, frames = generate_frames(
+                num_events, frame_size, roster_size=capacity,
+                num_lectures=num_lectures, seed=0)
+            config = Config(bloom_filter_capacity=capacity,
+                            metrics_port=-1, audit_sample=sample)
+            pipe, s, t, mid_calls, scrape_launches = _accuracy_run(
+                card, what, config, roster, frames, num_events, launches)
+            try:
+                check(mid_calls["bloom_contains"] >= 2
+                      and mid_calls["hll_histogram"] >= 1,
+                      f"{what}: the mid-run scrape made {mid_calls}")
+                check(scrape_launches.get("bloom_contains") == 2
+                      and scrape_launches.get("hll_histogram") == 2,
+                      f"{what}: one scrape launched {scrape_launches}")
+                fpr, fill, n_roster, n_neg = _accuracy_gates(what, t, pipe,
+                                                             s)
+                err = s[("attendance_hll_measured_rel_error",
+                         'key="fused"')]
+                if sample >= 1.0:
+                    check(err <= 0.03, f"{what}: HLL error {err}")
+                if capacity == 100_000 and sample == ACC_SAMPLE:
+                    one = dict(fpr=fpr, fill=fill,
+                               counts=pipe.validity_counts())
+                print(f"{what}: measured FPR {fpr} over {n_neg} sampled "
+                      f"outsiders (equal to the host recount), 0 false "
+                      f"negatives over {n_roster} sampled roster keys, fill "
+                      f"{fill}, estimated FPR {pipe.estimated_fpr()}, HLL "
+                      f"estimate {s[('attendance_hll_estimate', '')]}, "
+                      f"measured HLL error {err}, saturated registers "
+                      f"{s[('attendance_hll_saturated_registers', '')]}")
+            finally:
+                pipe.cleanup()
+                obs.disable()
+        print(f"accuracy (b): {time.perf_counter() - t0} s")
+
+        # (c) the (4, 2) query mesh over (b)'s first stream.
+        t0 = time.perf_counter()
+        what = "accuracy (c) (4, 2) mesh"
+        roster, frames = generate_frames(num_events, frame_size,
+                                         roster_size=100_000,
+                                         num_lectures=num_lectures, seed=0)
+        config = Config(num_shards=4, num_replicas=2, replica_sync="query",
+                        wire_format="word", metrics_port=-1,
+                        audit_sample=ACC_SAMPLE)
+        pipe, s, t, _, scrape_launches = _accuracy_run(
+            card, what, config, roster, frames, num_events, launches,
+            mesh=make_mesh(4, 2, [dev] * 8))
+        try:
+            check(scrape_launches.get("bloom_contains_slice", 0) > 0,
+                  f"{what}: one scrape launched {scrape_launches}")
+            fpr, fill, _, _ = _accuracy_gates(what, t, pipe, s)
+            check(fpr == one["fpr"] and fill == one["fill"]
+                  and pipe.validity_counts() == one["counts"],
+                  f"{what}: FPR {fpr} fill {fill} != one card's {one}")
+            print(f"{what}: measured FPR {fpr} and fill {fill} equal to "
+                  f"one card's")
+        finally:
+            pipe.cleanup()
+            obs.disable()
+        print(f"accuracy (c): {time.perf_counter() - t0} s")
+
+        t0 = time.perf_counter()
+        _accuracy_processor(card, dev, launches)
+        print(f"accuracy (d): {time.perf_counter() - t0} s")
+        t0 = time.perf_counter()
+        _accuracy_serve(card, stream, launches)
+        print(f"accuracy (e): {time.perf_counter() - t0} s")
+    finally:
+        obs.disable()
+    print(f"accuracy phase: {time.perf_counter() - t_phase} s")
+    print(f"accuracy phase launches (its runs; in the kernels line): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4819,10 +5373,10 @@ def main() -> int:
     # -- 5. checkpoint and restore (its launches on its own line) -------------
     checkpoint_phase(card, num_events, frame_size, num_lectures, ref)
 
-    # -- 6. the generic sketch store and the processor loop --------------------
+    # -- 6. the generic sketch store and the processor loop -------------------
     s_launches = store_phase(card, floor_ms, rows)
 
-    # -- 7. the reference's JSON wire into the fused path ----------------------
+    # -- 7. the reference's JSON wire into the fused path ---------------------
     ingress = ingress_phase(card, dev)
     i_launches = ingress["launches"]
 
@@ -4843,6 +5397,10 @@ def main() -> int:
     tel_launches = telemetry_phase(card, dev, ref,
                                    (num_events, frame_size, num_lectures))
 
+    # -- 12. live accuracy on the card ----------------------------------------
+    acc_launches = accuracy_phase(card, dev, ref,
+                                  (num_events, frame_size, num_lectures))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -4852,7 +5410,8 @@ def main() -> int:
              launches=(launches[name] + t_launches[name]
                        + s_launches[name] + i_launches[name]
                        + l_launches[name] + f_launches[name]
-                       + m_launches[name] + tel_launches[name]),
+                       + m_launches[name] + tel_launches[name]
+                       + acc_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

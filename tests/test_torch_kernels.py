@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from attendance_tpu_torch import obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.models import bloom, cms, fused, hll
 from attendance_tpu_torch.ops import kernels
@@ -434,6 +435,7 @@ def test_temporal_pipeline_on_card_equals_cpu(cuda):
                         dict(pipe._bank_of), list(pipe._free_banks),
                         dict(kernels.launches)))
         pipe.cleanup()
+        obs.disable()  # audit_sample > 0 turned telemetry on
     card, cpu = results
     for a, b in zip(card[0], cpu[0]):
         np.testing.assert_array_equal(a, b)

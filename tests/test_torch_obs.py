@@ -45,13 +45,9 @@ from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "data" / "obs_exposition.golden"
 
-# Series the JAX package's fused run emits through planes the port does
-# not have yet: the sketch-health and read-mirror gauges, and the XLA
-# recompile tracker.
+# Series the JAX package's fused run emits through a plane the port does
+# not have yet: the XLA recompile tracker.
 JAX_ONLY = {
-    "attendance_bloom_estimated_fpr", "attendance_bloom_fill_fraction",
-    "attendance_hll_estimate", "attendance_hll_saturated_registers",
-    "attendance_read_epoch_seq", "attendance_read_staleness_seconds",
     "attendance_recompiles_steady_total", "attendance_recompiles_total",
 }
 
@@ -454,11 +450,15 @@ def test_disabled_flags_leave_hot_paths_bare():
                                client=MemoryClient(MemoryBroker()),
                                device="cpu")
     assert obs.get() is None
-    # The port's audit_sample is the temporal window shadow: it turns no
-    # telemetry on (JAX's enables its auditor).
-    assert not obs.enabled_in(Config(audit_sample=1.0))
+    # As in JAX, the accuracy audit is a telemetry flag: a sample above 0
+    # turns telemetry on (and builds the auditor); 0 does not.
+    assert obs.enabled_in(Config(audit_sample=1.0))
+    assert obs.enabled_in(Config(audit_sample=0.01))
+    assert not obs.enabled_in(Config(audit_sample=0.0))
+    assert jobs.enabled_in(JaxConfig(audit_sample=0.01))
     assert pipe._obs is None and proc._obs is None
     assert pipe._tracer is None and proc._tracer is None
+    assert pipe._auditor is None and proc.sketch._auditor is None
     for name in ("_h_dequeue", "_h_decode", "_h_dispatch", "_h_device",
                  "_h_snap_write", "_h_snap_blocked", "_h_gap", "_busy",
                  "_c_xfer", "_g_delta_bytes", "_g_chain_len"):

@@ -161,7 +161,8 @@ _PORT_MODULES = {
     "attendance_tpu_torch.transport.shm_ring",
     "attendance_tpu_torch.serve", "attendance_tpu_torch.serve.mirror",
     "attendance_tpu_torch.serve.engine", "attendance_tpu_torch.serve.rpc",
-    "attendance_tpu_torch.serve.chain",
+    "attendance_tpu_torch.serve.chain", "attendance_tpu_torch.serve.audit",
+    "attendance_tpu_torch.serve.http",
     "attendance_tpu_torch.federation",
     "attendance_tpu_torch.federation.shard",
     "attendance_tpu_torch.federation.frames",
@@ -172,7 +173,8 @@ _PORT_MODULES = {
     "attendance_tpu_torch.parallel.multihost",
     "attendance_tpu_torch.obs", "attendance_tpu_torch.obs.registry",
     "attendance_tpu_torch.obs.tracing", "attendance_tpu_torch.obs.recorder",
-    "attendance_tpu_torch.obs.exposition"}
+    "attendance_tpu_torch.obs.exposition", "attendance_tpu_torch.obs.health",
+    "attendance_tpu_torch.obs.audit"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():

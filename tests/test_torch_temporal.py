@@ -45,7 +45,17 @@ from attendance_tpu_torch.pipeline.loadgen import generate_frames
 from attendance_tpu_torch.temporal import buckets as tbuckets
 from attendance_tpu_torch.temporal.reorder import ReorderStage
 from attendance_tpu_torch.temporal.windows import BucketRing
+from attendance_tpu_torch import obs
 from torch_port_fixtures import fresh_shared_broker  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _clean_telemetry():
+    """``audit_sample`` > 0 turns on each package's process-global
+    telemetry (and its auditor): every test here leaves both off."""
+    yield
+    obs.disable()
+    jobs.disable()
 
 CPU = torch.device("cpu")
 
