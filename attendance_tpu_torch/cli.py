@@ -39,7 +39,11 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   dump, a ``--metrics-prom`` exposition file, or a ``--trace-out`` span
   trace, the format sniffed from the content; ``--follow`` tails a live
   one). The artifacts are the JAX package's formats: either package's
-  verb reads either package's files.
+  verb reads either package's files;
+* ``scrub``: the offline integrity scrub of snapshot chains, spill,
+  quarantine and event directories (``utils.integrity.scrub_report``):
+  a verdict table, exit 0 when nothing is corrupt, 1 when something is,
+  2 when a path is unreadable.
 
 ``fused`` also takes ``--num-shards``/``--num-replicas`` (a mesh over
 the process's CUDA devices, its dp axis over the processes of a torchrun
@@ -60,7 +64,13 @@ under ``/query/*`` (``serve/http.py``).
 
 Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
 BrokerServer at ``--socket-broker``, started with ``python -m
-attendance_tpu_torch.transport.socket_broker``). Runs on the CUDA card
+attendance_tpu_torch.transport.socket_broker``). The verbs that open a
+broker client (``fused``, ``generate``, ``process``, ``pipeline``,
+``bridge``, ``federate``) take the fault plane's ``--chaos SPEC`` and
+``--chaos-seed N`` (``chaos/``); those with a persist sink (``fused``,
+``process``, ``pipeline``) take ``--persist-spill-dir`` with
+``--persist-breaker-failures`` and ``--persist-breaker-cooldown-s`` (the
+sink's circuit breaker, ``storage/resilient.py``). Runs on the CUDA card
 unless ``--device cpu`` is given (``bridge`` runs on the host only).
 """
 
@@ -239,12 +249,32 @@ def cmd_analyze(args) -> None:
 
 
 def _transport_config(args) -> dict:
-    """Config fields of the transport flags (``_add_transport_flags``)."""
+    """Config fields of the transport flags (``_add_transport_flags``),
+    with the fault plane's of a verb that has them."""
     return dict(transport_backend=args.transport_backend,
                 socket_broker=args.socket_broker,
                 pulsar_topic=args.pulsar_topic,
                 quarantine_dir=args.quarantine_dir,
-                retry_budget_s=args.retry_budget_s)
+                retry_budget_s=args.retry_budget_s, **_chaos_config(args),
+                **_persist_config(args))
+
+
+def _chaos_config(args) -> dict:
+    """Config fields of the chaos flags (``_add_chaos_flags``); none for
+    a verb without them."""
+    if not hasattr(args, "chaos"):
+        return {}
+    return dict(chaos=args.chaos, chaos_seed=args.chaos_seed)
+
+
+def _persist_config(args) -> dict:
+    """Config fields of the persist sink's flags (``_add_persist_flags``);
+    none for a verb without them."""
+    if not hasattr(args, "persist_spill_dir"):
+        return {}
+    return dict(persist_spill_dir=args.persist_spill_dir,
+                persist_breaker_failures=args.persist_breaker_failures,
+                persist_breaker_cooldown_s=args.persist_breaker_cooldown_s)
 
 
 def _ingress_config(args) -> dict:
@@ -617,6 +647,24 @@ def cmd_telemetry(args) -> None:
         sys.exit(2)
 
 
+def cmd_scrub(args) -> None:
+    """Offline integrity scrub: verify every durable artifact under the
+    given directories against its recorded digest (structurally where
+    none is recorded) and print the verdict table. Exit codes: 0 nothing
+    corrupt (legacy and orphan rows are tolerated, as restore tolerates
+    them), 1 at least one CORRUPT artifact, 2 an unreadable path."""
+    from attendance_tpu_torch.utils.integrity import scrub_report
+
+    try:
+        text, ok = scrub_report(args.dirs)
+    except FileNotFoundError as e:
+        logger.error("no such scrub target: %s", e)
+        sys.exit(2)
+    print(text)
+    if not ok:
+        sys.exit(1)
+
+
 def _follow_file(path: str, last: int, interval_s: float,
                  max_rounds=None) -> int:
     """Tail a telemetry artifact: re-render whenever the file grows or
@@ -780,6 +828,36 @@ def _add_transport_flags(p: argparse.ArgumentParser) -> None:
                    "before BrokerUnavailable")
 
 
+def _add_chaos_flags(p: argparse.ArgumentParser) -> None:
+    """The fault plane's flags, on a verb that opens a broker client."""
+    d = Config()
+    p.add_argument("--chaos", default=d.chaos,
+                   help="deterministic fault-injection spec, e.g. "
+                   "'drop=0.01,delay=5ms:0.05,conn_reset=0.002,"
+                   "persist_fail=0.01,writer_stall=200ms:0.01,"
+                   "corrupt=0.001' ('off' = plane installed, never "
+                   "fires; empty = no plane)")
+    p.add_argument("--chaos-seed", type=int, default=d.chaos_seed,
+                   help="master seed of the per-(site, fault) fault "
+                   "streams: a failing chaos run replays from its seed")
+
+
+def _add_persist_flags(p: argparse.ArgumentParser) -> None:
+    """The persist sink's circuit breaker, on a verb with a sink."""
+    d = Config()
+    p.add_argument("--persist-spill-dir", default=d.persist_spill_dir,
+                   help="enable the persist sink's circuit breaker and "
+                   "spill degraded writes to fsync'd files here")
+    p.add_argument("--persist-breaker-failures", type=int,
+                   default=d.persist_breaker_failures,
+                   help="consecutive persist failures that open the "
+                   "circuit")
+    p.add_argument("--persist-breaker-cooldown-s", type=float,
+                   default=d.persist_breaker_cooldown_s,
+                   help="seconds an open circuit waits before the "
+                   "half-open probe")
+
+
 def _add_store_flags(p: argparse.ArgumentParser) -> None:
     """The flags of the generic-store verbs."""
     d = Config()
@@ -854,6 +932,8 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--num-lectures", type=int, default=16)
     f.add_argument("--seed", type=int, default=0)
     _add_transport_flags(f)
+    _add_chaos_flags(f)
+    _add_persist_flags(f)
     f.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                    "the kernels' plain PyTorch versions)")
@@ -941,10 +1021,13 @@ def build_parser() -> argparse.ArgumentParser:
     a.set_defaults(fn=cmd_analyze)
     g = sub.add_parser("generate", help="produce synthetic swipe events")
     _add_store_flags(g)
+    _add_chaos_flags(g)
     _add_generate_flags(g)
     g.set_defaults(fn=cmd_generate)
     pr = sub.add_parser("process", help="run the stream processor")
     _add_store_flags(pr)
+    _add_chaos_flags(pr)
+    _add_persist_flags(pr)
     pr.add_argument("--max-events", type=int, default=None)
     pr.add_argument("--idle-timeout-s", type=float, default=None)
     _add_telemetry_flags(pr)
@@ -952,6 +1035,8 @@ def build_parser() -> argparse.ArgumentParser:
     pl = sub.add_parser("pipeline", help="hermetic end-to-end run: "
                         "generate -> process -> analyze")
     _add_store_flags(pl)
+    _add_chaos_flags(pl)
+    _add_persist_flags(pl)
     _add_generate_flags(pl)
     _add_telemetry_flags(pl)
     pl.set_defaults(fn=cmd_pipeline)
@@ -984,6 +1069,7 @@ def build_parser() -> argparse.ArgumentParser:
         "reference-wire JSON topic, repack micro-batches as planar frames "
         "on <topic>-binary for the fused pipeline")
     _add_transport_flags(br)
+    _add_chaos_flags(br)
     br.add_argument("--out-topic", default="",
                     help="binary output topic (default <topic>-binary)")
     br.add_argument("--batch-size", type=int, default=d.batch_size)
@@ -1019,6 +1105,7 @@ def build_parser() -> argparse.ArgumentParser:
         "over dead peers' shards, and serve federated BF.EXISTS/PFCOUNT/"
         "occupancy answers on --serve-port")
     _add_transport_flags(fe)
+    _add_chaos_flags(fe)
     _add_serve_flags(fe)
     _add_fed_flags(fe)
     fe.add_argument("--serve-seconds", type=float, default=None,
@@ -1050,6 +1137,17 @@ def build_parser() -> argparse.ArgumentParser:
     tel.add_argument("--interval-s", type=float, default=0.5,
                      help="poll cadence for --follow")
     tel.set_defaults(fn=cmd_telemetry)
+    scr = sub.add_parser(
+        "scrub", help="offline integrity scrub: walk snapshot-chain, "
+        "spill, quarantine and event directories, verify every artifact "
+        "against its recorded digest, and print a verdict table (exit 1 "
+        "on any corruption, 2 on unreadable paths)")
+    scr.add_argument("dirs", nargs="+", metavar="DIR",
+                     help="directories to scrub (chain, spill, quarantine "
+                     "or event directories, or workdirs holding several: "
+                     "the artifact families are detected, subdirectories "
+                     "included)")
+    scr.set_defaults(fn=cmd_scrub)
     return p
 
 

@@ -3,8 +3,8 @@
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
 path, its mesh, its checkpoint chain, its temporal plane, its ingress
 lanes and shared-memory ring, the query plane, the generic sketch store
-and the processor and the federation read, with the JAX package's defaults and
-checks
+and the processor, the federation, the fault plane and the persist
+sink's circuit breaker read, with the JAX package's defaults and checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
 """
@@ -120,6 +120,24 @@ class Config:
     # Total retry budget of one broker RPC over the socket transport
     # (reconnects with jittered backoff), then BrokerUnavailable.
     retry_budget_s: float = 15.0
+    # Deterministic fault injection ("" = no fault plane; "off" = the
+    # plane installed with every probability zero, its own cost). Spec
+    # grammar (chaos/__init__.py): comma-separated fault=prob tokens,
+    # timed faults fault=dur:prob, e.g. "drop=0.01,delay=5ms:0.05,
+    # dup=0.005,conn_reset=0.002,persist_fail=0.01,
+    # writer_stall=200ms:0.01,corrupt=0.001". Every draw comes from a
+    # per-(site, fault) stream derived from chaos_seed, so a failing run
+    # replays from its seed.
+    chaos: str = ""
+    chaos_seed: int = 0
+    # Circuit breaker of the persist sink ("" = the raw sink):
+    # persist_breaker_failures consecutive insert failures open the
+    # circuit, writes then go to fsync'd spill files in this directory,
+    # and after persist_breaker_cooldown_s a half-open probe drains them
+    # back in order once the sink heals (storage/resilient.py).
+    persist_spill_dir: str = ""
+    persist_breaker_failures: int = 3
+    persist_breaker_cooldown_s: float = 1.0
     # Append one JSON metrics line per processor run to this file.
     metrics_json: str = ""
     # Live telemetry (attendance_tpu_torch/obs): all default OFF, and
@@ -236,6 +254,16 @@ class Config:
             raise ValueError(f"unknown sketch backend: {self.sketch_backend}")
         if self.retry_budget_s <= 0:
             raise ValueError("retry_budget_s must be positive")
+        if self.chaos:
+            # Parsed here: a bad spec fails at flag time with the
+            # grammar's message, not mid-run at the first roll.
+            from attendance_tpu_torch.chaos import ChaosSpec
+            ChaosSpec.parse(self.chaos)
+        if self.persist_breaker_failures <= 0:
+            raise ValueError("persist_breaker_failures must be positive")
+        if self.persist_breaker_cooldown_s <= 0:
+            raise ValueError(
+                "persist_breaker_cooldown_s must be positive")
         if self.transport_backend not in ("memory", "socket", "pulsar"):
             raise ValueError(
                 f"unknown transport backend: {self.transport_backend}")

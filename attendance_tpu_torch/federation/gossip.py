@@ -1,7 +1,7 @@
 """Fence gossip: workers publish merge frames, an aggregator folds them.
 
-Counterpart of ``attendance_tpu/federation/gossip.py`` (its path with
-fault injection off: the port has none yet). With telemetry (``obs``)
+Counterpart of ``attendance_tpu/federation/gossip.py``. With telemetry
+(``obs``)
 the publisher counts frames and failures and, when tracing, opens a
 ``fence_publish`` span whose context rides the frame's ``traceparent``;
 the aggregator counts wire rejects, merged deltas, stale frames,
@@ -19,7 +19,9 @@ gaps. Gossip rides the configured broker (a socket client of its own
 when ``fed_gossip_broker`` names one). A failed publish never fails the
 snapshot barrier: durability is local; the publisher marks itself
 ``full_due`` and upgrades its next publish to a full frame, so a dropped
-delta costs freshness, not convergence.
+delta costs freshness, not convergence. A chaos ``partition`` window at
+``fed.gossip`` swallows frames silently (the publisher believes the
+send): the next full frame converges the view.
 
 Aggregator side (:class:`Aggregator`): one consumer loop decoding frames
 into a :class:`federation.merge.MergedView` and publishing the merged
@@ -44,6 +46,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from attendance_tpu_torch import chaos
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.federation.frames import (
     MergeFrame, decode_frame, encode_frame)
@@ -68,9 +71,12 @@ def _gossip_client(config, fallback_client=None):
     """(client, owned): a SocketClient of its own when
     ``fed_gossip_broker`` names an address (never the data plane's
     client, which another thread drives), else the caller's client (the
-    gossip shares the data plane's broker), else one from ``config``."""
+    gossip shares the data plane's broker), else one from ``config``.
+    Either way ``config.chaos`` installs the fault plane (``make_client``
+    does for the last)."""
     if config.fed_gossip_broker:
-        return SocketClient(config.fed_gossip_broker), True
+        return SocketClient(config.fed_gossip_broker,
+                            chaos=chaos.ensure(config)), True
     if fallback_client is not None:
         return fallback_client, False
     return make_client(config), True
@@ -163,12 +169,17 @@ class FenceGossip:
         its seq, UNDER the send lock: seq order must equal wire order,
         or a heartbeat racing a fence would make the aggregator call the
         real delta stale. Every frame ships checksummed, so the
-        aggregator rejects in-flight rot at the fold."""
+        aggregator rejects in-flight rot at the fold. A chaos
+        ``partition`` window swallows the frame silently: gossip is
+        fire-and-forget, and the next full frame converges."""
         try:
             with self._lock:
                 if self._closed:
                     return False
-                self._producer.send(enc_checksummed(encode()))
+                data = enc_checksummed(encode())
+                inj = chaos.get()
+                if inj is None or not inj.blackhole("fed.gossip"):
+                    self._producer.send(data)
         except Exception:  # noqa: BLE001 — gossip never fails a fence
             if self._c_failures is not None:
                 self._c_failures.inc()

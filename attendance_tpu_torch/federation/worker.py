@@ -3,7 +3,8 @@
     python -m attendance_tpu_torch.federation.worker \
         --worker w0 --shard 0 --num-shards 3 --broker HOST:PORT \
         --workdir DIR --num-events N --seed S [--takeover] [--device cpu] \
-        [--metrics-prom FILE] [--trace-out FILE]
+        [--metrics-prom FILE] [--trace-out FILE] [--chaos SPEC]
+        [--chaos-seed N]
 
 Counterpart of ``attendance_tpu/federation/worker.py``. One worker is one
 fused pipeline on the card (``--device``, by default the CUDA card; with
@@ -34,6 +35,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from attendance_tpu_torch import chaos as chaos_mod
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.federation.shard import shard_of_keys, shard_topic
 from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
@@ -89,7 +91,8 @@ def make_worker_config(worker: str, shard: int, num_shards: int,
                        data_plane: str = "socket",
                        snapshot_every: int = 4,
                        gossip_topic: str = "", metrics_prom: str = "",
-                       trace_out: str = "") -> Config:
+                       trace_out: str = "", chaos: str = "",
+                       chaos_seed: int = 0) -> Config:
     workdir = Path(workdir)
     kw = {"fed_gossip_topic": gossip_topic} if gossip_topic else {}
     return Config(
@@ -102,8 +105,26 @@ def make_worker_config(worker: str, shard: int, num_shards: int,
         snapshot_mode="delta",
         quarantine_dir=str(workdir / f"quarantine-{shard}"),
         fed_worker=worker, fed_shard=shard, fed_shards=num_shards,
-        fed_gossip_broker=broker, metrics_prom=metrics_prom,
-        trace_out=trace_out, **kw)
+        fed_gossip_broker=broker,
+        # Each worker process gets its own seeded injector.
+        chaos=chaos, chaos_seed=chaos_seed,
+        metrics_prom=metrics_prom, trace_out=trace_out, **kw)
+
+
+def final_full_frame(pipe) -> None:
+    """The worker's end-of-run full frame, the federation's convergence
+    anchor. A chaos ``partition`` at ``fed.gossip`` swallows frames
+    silently: while a window is open, wait it out and re-assert (full
+    frames are idempotent joins)."""
+    pipe.fed_flush()
+    inj = chaos_mod.get()
+    if inj is None or inj.spec.partition <= 0:
+        return
+    for _ in range(20):
+        if not inj.in_blackhole("fed.gossip"):
+            return
+        time.sleep(inj.spec.partition_s + 0.05)
+        pipe.fed_flush()
 
 
 def run_worker(args) -> dict:
@@ -113,7 +134,8 @@ def run_worker(args) -> dict:
         data_plane=args.data_plane,
         snapshot_every=args.snapshot_every,
         gossip_topic=args.gossip_topic, metrics_prom=args.metrics_prom,
-        trace_out=args.trace_out)
+        trace_out=args.trace_out, chaos=args.chaos,
+        chaos_seed=args.chaos_seed)
     full, mine, frames = build_workload(
         args.seed, args.shard, args.num_shards, args.num_events,
         roster_size=args.roster_size, batch=args.batch)
@@ -165,7 +187,7 @@ def run_worker(args) -> dict:
         # released), then one full frame, so the aggregator holds this
         # worker's final state before the process exits.
         pipe.snapshot()
-        pipe.fed_flush()
+        final_full_frame(pipe)
         measured = pipe.metrics.events - warmup
         return {
             "worker": args.worker, "shard": args.shard,
@@ -236,10 +258,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "traceparent")
     p.add_argument("--fleet-push", action=_NotPorted,
                    help="the fleet pusher: ROADMAP item 11d")
-    p.add_argument("--chaos", action=_NotPorted,
-                   help="fault injection: ROADMAP item 11c")
-    p.add_argument("--chaos-seed", action=_NotPorted,
-                   help="fault injection: ROADMAP item 11c")
+    p.add_argument("--chaos", default="",
+                   help="chaos spec for this worker process (e.g. "
+                   "'partition=1500ms:0.05')")
+    p.add_argument("--chaos-seed", type=int, default=0)
     return p
 
 

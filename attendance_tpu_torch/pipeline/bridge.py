@@ -1,17 +1,17 @@
 """JSON -> binary ingress bridge: the reference's wire in, the fused
 pipeline's wire out.
 
-Counterpart of ``attendance_tpu/pipeline/bridge.py`` without its chaos
-hooks. The reference's producers emit one JSON object per
-broker message; the fused pipeline consumes bulk binary frames. The
-bridge drains the JSON topic in micro-batches, decodes a batch through
-the codec seam (the native scan, ``ATP_NATIVE=0``: Python), packs the
-columns into one planar frame, publishes it on ``<topic>-binary`` and
-only then acknowledges the JSON messages (it reads the broker's chunk
-lane, which the memory and socket consumers have), so it is at-least-once end to
-end: a crash replays JSON messages into duplicate frames that the
-idempotent sketches and the last-write-wins store absorb. Several
-bridges on one shared subscription scale the decode across processes.
+Counterpart of ``attendance_tpu/pipeline/bridge.py``. The reference's
+producers emit one JSON object per broker message; the fused pipeline
+consumes bulk binary frames. The bridge drains the JSON topic in
+micro-batches, decodes a batch through the codec seam (the native scan,
+``ATP_NATIVE=0``: Python), packs the columns into one planar frame,
+publishes it on ``<topic>-binary`` and only then acknowledges the JSON
+messages (it reads the broker's chunk lane, which the memory and socket
+consumers have), so it is at-least-once end to end: a crash replays JSON
+messages into duplicate frames that the idempotent sketches and the
+last-write-wins store absorb. Several bridges on one shared subscription
+scale the decode across processes.
 
 A batch with a poison payload is converted message by message, so only
 the bad payloads are nacked and, after ``max_redeliveries``,
@@ -21,6 +21,9 @@ With tracing on the bridge is a trace relay: each forwarded frame's
 ``bridge_forward`` span continues the trace of the first JSON message it
 folded in, and the frame carries that span's context, so generator ->
 bridge -> fused pipeline reads as one tree.
+
+The bridge's own fault point is ``bridge.forward`` (an injected delay
+before a republish); its transport faults ride the chaos-wrapped client.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Optional
 
 import numpy as np
 
-from attendance_tpu_torch import obs
+from attendance_tpu_torch import chaos, obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.codec import get_codec
 from attendance_tpu_torch.pipeline.events import (
@@ -59,6 +62,8 @@ class JsonBinaryBridge:
         self._obs = obs.ensure(self.config)
         self._tracer = (self._obs.tracer if self._obs is not None
                         else None)
+        # The fault plane before the transport, whose seams take it.
+        self._chaos = chaos.ensure(self.config)
         self.client = client or make_client(self.config)
         self.consumer = self.client.subscribe(
             self.config.pulsar_topic, self.SUBSCRIPTION)
@@ -75,6 +80,10 @@ class JsonBinaryBridge:
         ``chunks`` the broker's ``(chunk_id, tuples)`` handles holding
         them (a chunk is one in-flight entry, settled at once), exploded
         into per-message entries only on the poison path."""
+        if self._chaos is not None:
+            d = self._chaos.delay_s("bridge.forward")
+            if d:
+                time.sleep(d)
         payloads = [t[1] for t in toks]
         span = out_props = None
         if self._tracer is not None:

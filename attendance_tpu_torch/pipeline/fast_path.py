@@ -76,6 +76,16 @@ and every durable delta is gossiped as the same dirty-bank rows the
 writer just made durable, with no new device read. A corrupt chain's
 repair asks the aggregator to re-assert this worker's retained
 contribution before falling back to the local repair.
+
+Faults (``chaos/``, on with ``config.chaos``): the injector is installed
+before the transport and the store, whose seams take it. The store is
+wrapped by ``storage.wrap_store`` (``persist_fail``; the circuit breaker
+and its spill with ``persist_spill_dir``). The writer rolls
+``writer_stall`` and ``snap_fail`` at ``snapshot.writer``, and the base
+write carries the ``disk.chain`` hooks (ENOSPC before, rot after the
+publish). A persist failure that reaches the run loop (no spill dir) is
+handled as JAX handles it: the frame is nacked, then dead-lettered
+after ``max_redeliveries``.
 """
 
 from __future__ import annotations
@@ -97,7 +107,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from attendance_tpu_torch import obs
+from attendance_tpu_torch import chaos, obs
+from attendance_tpu_torch.chaos import ChaosFault, PersistFault
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.device import resolve_device, to_device
 from attendance_tpu_torch.federation.gossip import FenceGossip
@@ -126,6 +137,7 @@ from attendance_tpu_torch.serve import http as serve_http
 from attendance_tpu_torch.serve.engine import QueryEngine
 from attendance_tpu_torch.serve.mirror import ReadMirror
 from attendance_tpu_torch.serve.rpc import QueryServer
+from attendance_tpu_torch.storage import wrap_store
 from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.temporal.buckets import is_bucket_key
 from attendance_tpu_torch.temporal.plane import TemporalPlane
@@ -133,8 +145,8 @@ from attendance_tpu_torch.transport import (
     PoisonTracker, handle_poison, make_client, redelivery_count)
 from attendance_tpu_torch.transport.memory_broker import ReceiveTimeout
 from attendance_tpu_torch.utils.integrity import (
-    ChainIntegrityError, file_digest, quarantine_artifact,
-    structural_npz_check, verify_file)
+    ChainIntegrityError, chaos_post_publish, chaos_pre_write, file_digest,
+    quarantine_artifact, structural_npz_check, verify_file)
 from attendance_tpu_torch.utils.snapshot import (
     fsync_write_npz, write_manifest_atomic)
 
@@ -475,6 +487,9 @@ class FusedPipeline:
                          or not self.engine.mesh.multiprocess
                          or dist.get_rank() == 0)
         self.metrics = FusedMetrics()
+        # The fault plane before the transport and the store, whose seams
+        # take it; None (the default) keeps every hook at one branch.
+        self._chaos = chaos.ensure(self.config)
         # The broker client: config.transport_backend's (the process's
         # shared memory broker, or a socket broker) unless one is passed
         # (a successor pipeline after a crash shares the dead one's);
@@ -503,7 +518,8 @@ class FusedPipeline:
         # The chunk consumer's JSON decode seconds already charged to the
         # decode stage (run() moves them out of the receive stage).
         self._chunk_decode_s = 0.0
-        self.store = ColumnarEventStore()
+        self.store = wrap_store(ColumnarEventStore(), self.config,
+                                sink="columnar")
         # The fused packed step requires the blocked layout (one 512-bit
         # block per key).
         if self.engine is None:
@@ -1050,7 +1066,14 @@ class FusedPipeline:
             done.record(torch.cuda.current_stream(self.device))
         pinned, self._frame_pinned = self._frame_pinned, []
         t = time.perf_counter()
-        self.store.insert_columns({**cols, "is_valid": stored})
+        try:
+            self.store.insert_columns({**cols, "is_valid": stored})
+        except PersistFault:
+            # The run loop nacks the frame and drops its pinned buffers:
+            # wait for the copies that read them first.
+            if done is not None:
+                done.synchronize()
+            raise
         t_end = t = self._lap("store", t)
         self.metrics.batches += 1
         self.metrics.events += n
@@ -1815,7 +1838,14 @@ class FusedPipeline:
 
     def _run_snap_job_logged(self, job: dict) -> None:
         t0 = time.perf_counter()
+        inj = self._chaos
         try:
+            if inj is not None:
+                stall = inj.stall_s("snapshot.writer")
+                if stall:
+                    time.sleep(stall)  # an injected writer stall
+                if inj.roll("snapshot.writer", "snap_fail"):
+                    raise ChaosFault("chaos snap_fail at snapshot.writer")
             with self._snap_stream_ctx(job):
                 self._run_snap_job(job)
             self._ack(job["msgs"])
@@ -1968,6 +1998,7 @@ class FusedPipeline:
         # extra rows of unacked frames, which the replay's dedup folds.
         self.store.save_segments(self._snap_dir / EVENTS_SEGMENTS,
                                  upto=upto)
+        chaos_pre_write("disk.chain")
         path = self._snap_dir / SKETCH_SNAPSHOT
         tmp = path.with_suffix(".tmp")
         with open(tmp, "wb") as f:
@@ -1978,8 +2009,11 @@ class FusedPipeline:
             # the deltas this base supersedes.
             f.flush()
             os.fsync(f.fileno())
+        # The digest of the clean bytes, before the chaos rot hook can
+        # touch the published copy.
         self._base_digest = file_digest(tmp) if self._integrity else ""
         tmp.replace(path)
+        chaos_post_publish("disk.chain", path)
         # A full base supersedes the delta chain: reset the manifest
         # FIRST, then delete the superseded files.
         old = list(self._snap_chain)
@@ -2594,10 +2628,11 @@ class FusedPipeline:
                     with self._tracer.activate(span):
                         _valid, done, pinned = self.process_frame(
                             msg.data())
-            except PoisonFrame:
+            except (PoisonFrame, PersistFault):
                 # Bounded retry, then dead-letter: a frame nacked
-                # forever livelocks the subscription. Only a failed
-                # decode is poison: a device fault raises.
+                # forever livelocks the subscription. A failed decode is
+                # poison, and so, as in JAX, is a persist failure that no
+                # spill absorbed; a device fault raises.
                 if span is not None:
                     self._tracer.end_span(span, error=True)
                 logger.exception("Bad frame")

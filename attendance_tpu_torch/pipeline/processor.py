@@ -1,7 +1,8 @@
 """Micro-batched stream processor: the reference's own loop, rebuilt.
 
 Counterpart of ``attendance_tpu/pipeline/processor.py`` (without its
-fault injection, profiling and persist-spill hooks). With telemetry on
+profiling hooks). The fault plane and the persist sink's circuit
+breaker wrap its store (``storage.wrap_store``). With telemetry on
 it records the ``batch_assembly``, ``sketch`` and ``persist`` stages,
 events and batches, a flight record a batch and, with tracing, a batch
 span with ``bf_exists``, ``persist`` and ``pfadd`` children.
@@ -34,13 +35,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from attendance_tpu_torch import obs
+from attendance_tpu_torch import chaos, obs
 from attendance_tpu_torch.config import Config
 from attendance_tpu_torch.pipeline.events import (
     AttendanceEvent, decode_event, encode_event)
 from attendance_tpu_torch.sketch import make_sketch_store
 from attendance_tpu_torch.sketch.base import ResponseError
-from attendance_tpu_torch.storage import make_event_store
+from attendance_tpu_torch.storage import make_event_store, wrap_store
 from attendance_tpu_torch.storage.memory_store import AttendanceRow
 from attendance_tpu_torch.transport import (
     PoisonTracker, acknowledge_all, collect_batch, handle_poison,
@@ -169,11 +170,16 @@ class AttendanceProcessor:
             self._h_assembly = self._obs.stage("batch_assembly")
             self._h_sketch = self._obs.stage("sketch")
             self._h_persist = self._obs.stage("persist")
+        # The fault plane before the transport and the store, whose
+        # seams take it; one branch each when absent.
+        chaos.ensure(self.config)
         self.client = client or make_client(self.config)
         self.consumer = self.client.subscribe(
             self.config.pulsar_topic, self.SUBSCRIPTION)
         self.sketch = sketch_store or make_sketch_store(self.config, device)
-        self.store = event_store or make_event_store(self.config)
+        self.store = wrap_store(
+            event_store or make_event_store(self.config), self.config,
+            sink=self.config.storage_backend)
         self.metrics = ProcessorMetrics()
         # Client-side poison-attempt bound (transport.PoisonTracker).
         self._poison = PoisonTracker()

@@ -7,7 +7,8 @@ opcode, u32 body_len, body``; reply ``u8 status, u32 body_len, body``,
 the shared ``transport.framing`` helpers), one thread per client
 connection, one request in flight per connection. Client RPCs ride the
 broker's retry seam (``resilience.resilient_call`` over a reconnectable
-``socket_broker._Rpc``).
+``socket_broker._Rpc``), chaos sites included (``chaos=``: ``drop``,
+``conn_reset`` and ``delay`` at ``serve.query``).
 
 Ops (bodies little-endian):
 
@@ -177,10 +178,11 @@ class QueryClient:
     in order. One connection a client (a reader wanting parallelism
     opens more clients)."""
 
-    def __init__(self, address: str, *, batch_max: int = DEFAULT_BATCH):
+    def __init__(self, address: str, *, chaos=None,
+                 batch_max: int = DEFAULT_BATCH):
         from attendance_tpu_torch.transport.socket_broker import _Rpc
 
-        self._rpc = _Rpc(address)
+        self._rpc = _Rpc(address, chaos=chaos, site="serve.query")
         self._policy = RetryPolicy()
         self.batch_max = max(1, batch_max)
         self._closed = False

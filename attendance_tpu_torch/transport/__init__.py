@@ -163,20 +163,33 @@ def make_client(config):
     (``transport.shm_ring``), else by ``transport_backend`` the
     process's shared memory broker, or a SocketClient of the broker at
     ``config.socket_broker`` (retry budget ``config.retry_budget_s``).
-    The pulsar transport is not ported."""
+    The pulsar transport is not ported.
+
+    The chaos chokepoint: with ``config.chaos`` set, the socket client
+    gets the injector at its RPC seams (drop, conn_reset and delay on
+    real TCP connections) and every broker client is wrapped in the
+    backend-agnostic proxies (dup, delay, corrupt, partition), so one
+    spec drives the memory broker's soak and the socket broker's. The
+    shm ring carries its faults (torn_slot, writer_stall) in its
+    producer and is not wrapped: its seqlock owns torn delivery."""
+    from attendance_tpu_torch import chaos
+
+    inj = chaos.ensure(config)
     if config.ingress_wire == "shm":
         from attendance_tpu_torch.transport.shm_ring import ShmClient
         return ShmClient.from_config(config)
     if config.transport_backend == "memory":
-        return MemoryClient(MemoryBroker.shared())
-    if config.transport_backend == "socket":
+        client = MemoryClient(MemoryBroker.shared())
+    elif config.transport_backend == "socket":
         from attendance_tpu_torch.transport.socket_broker import (
             SocketClient)
-        return SocketClient(config.socket_broker,
-                            policy=RetryPolicy.from_config(config))
-    if config.transport_backend == "pulsar":
+        client = SocketClient(config.socket_broker, chaos=inj,
+                              policy=RetryPolicy.from_config(config))
+    elif config.transport_backend == "pulsar":
         raise NotImplementedError(
             "transport backend 'pulsar' is not in the port; use 'memory' "
             "or 'socket'")
-    raise ValueError(
-        f"unknown transport backend {config.transport_backend!r}")
+    else:
+        raise ValueError(
+            f"unknown transport backend {config.transport_backend!r}")
+    return chaos.maybe_wrap(client)

@@ -15,7 +15,6 @@ body.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import socket
 import struct
@@ -106,7 +105,6 @@ def dec_str(body: bytes, off: int) -> Tuple[str, int]:
 
 
 CK_MAGIC = b"CKF1"
-_CK_DIGEST_LEN = 32
 
 
 class FrameChecksumError(ValueError):
@@ -115,26 +113,27 @@ class FrameChecksumError(ValueError):
 
 
 def enc_checksummed(body: bytes) -> bytes:
-    """The checksummed frame: magic + raw sha256(body) + body."""
-    body = bytes(body)
-    return CK_MAGIC + hashlib.sha256(body).digest() + body
+    """The checksummed frame: magic + raw sha256(body) + body (the
+    spill record's ``utils.integrity.wrap_record`` with its own
+    magic)."""
+    from attendance_tpu_torch.utils.integrity import wrap_record
+
+    return wrap_record(body, magic=CK_MAGIC)
 
 
 def dec_checksummed(data: bytes):
     """-> (body, verified). A frame without the magic is a legacy frame
     and passes through unverified (``verified=False``); a wrapped frame
     whose digest no longer matches raises :class:`FrameChecksumError`."""
-    data = bytes(data)
-    if not data.startswith(CK_MAGIC):
-        return data, False
-    digest = data[len(CK_MAGIC):len(CK_MAGIC) + _CK_DIGEST_LEN]
-    body = data[len(CK_MAGIC) + _CK_DIGEST_LEN:]
-    if hashlib.sha256(body).digest() != digest:
+    from attendance_tpu_torch.utils.integrity import (
+        IntegrityError, unwrap_record)
+
+    try:
+        return unwrap_record(data, magic=CK_MAGIC)
+    except IntegrityError as exc:
         raise FrameChecksumError(
-            "checksummed frame failed verification (checksummed record "
-            "failed verification (payload digest mismatch) — in-flight "
-            "corruption)")
-    return body, True
+            f"checksummed frame failed verification ({exc} — "
+            "in-flight corruption)") from None
 
 
 def enc_array(arr) -> bytes:

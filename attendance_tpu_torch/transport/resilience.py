@@ -1,7 +1,7 @@
 """Deadline + exponential-backoff-with-jitter retry for broker RPCs.
 
-Counterpart of ``attendance_tpu/transport/resilience.py`` without its
-chaos hooks. Every socket RPC routes through
+Counterpart of ``attendance_tpu/transport/resilience.py``. Every socket
+RPC routes through
 :func:`resilient_call`: a transient transport failure reconnects and
 retries with jittered backoff, and a broker that stays unreachable fails
 with one :class:`BrokerUnavailable` after the configured budget (a
@@ -20,6 +20,11 @@ logger = logging.getLogger(__name__)
 
 class BrokerUnavailable(ConnectionError):
     """The broker stayed unreachable for the whole retry budget."""
+
+
+class ChaosDrop(ConnectionError):
+    """Injected request loss (``drop``): the request was never sent, so
+    a plain retry is always safe."""
 
 
 # What a retry may safely swallow: transport-level failures (the request

@@ -38,9 +38,13 @@ from 64), then ``nslots`` slots of ``slot_bytes``: u64 sequence word,
 u32 payload length, payload. One producer process and one consumer
 process per ring file (striped ingress maps one ring per lane).
 Ordering relies on x86-TSO store order: the word is written after the
-payload on publish and read on both sides of it on consume. The JAX
-package's chaos sites (``torn_slot``, ``writer_stall``) and ring gauges
-are not ported.
+payload on publish and read on both sides of it on consume.
+
+Chaos sites (site ``shm.slot``, on the producer): ``torn_slot`` leaves
+the slot mid-write (odd word, half the payload) for a beat before it
+completes the publish, which a concurrent reader must retry and never
+deliver; ``writer_stall`` parks the producer mid-write for its
+duration (readers wait, they do not tear).
 """
 
 from __future__ import annotations
@@ -203,8 +207,9 @@ class ShmRingProducer:
     """The single writer of one ring."""
 
     def __init__(self, path, *, nslots: int = DEFAULT_SLOTS,
-                 slot_bytes: int = DEFAULT_SLOT_BYTES):
+                 slot_bytes: int = DEFAULT_SLOT_BYTES, chaos=None):
         self._ring = _Ring(path, nslots, slot_bytes)
+        self._chaos = chaos
         self._head = self._ring.head()  # resume where the file says
         # A producer killed between the stable stamp (the publish point)
         # and the head bump left a PUBLISHED slot the header does not
@@ -244,6 +249,19 @@ class ShmRingProducer:
                 time.sleep(0.0002)
             off = ring.slot_off(seq)
             ring.set_seqword(seq, _Ring.stable_word(seq) | 1)  # busy
+            inj = self._chaos
+            if inj is not None and inj.roll("shm.slot", "torn_slot"):
+                # The slot left visibly torn mid-payload for a beat: a
+                # concurrent reader must see the odd word and retry,
+                # never deliver half a frame.
+                half = n // 2
+                ring._mm[off + _SLOT_HDR: off + _SLOT_HDR + half] = bytes(
+                    data[:half])
+                time.sleep(0.001)
+            if inj is not None:
+                stall = inj.stall_s("shm.slot")
+                if stall:
+                    time.sleep(stall)
             ring._mm[off + _SLOT_HDR: off + _SLOT_HDR + n] = (
                 data if isinstance(data, (bytes, bytearray))
                 else bytes(data))
@@ -466,7 +484,7 @@ class ShmClient:
 
     def __init__(self, directory, *, lanes: int = 1,
                  nslots: int = DEFAULT_SLOTS,
-                 slot_bytes: int = DEFAULT_SLOT_BYTES):
+                 slot_bytes: int = DEFAULT_SLOT_BYTES, chaos=None):
         if not directory:
             raise ValueError(
                 "--ingress-wire=shm needs --shm-dir (the directory holding "
@@ -475,12 +493,15 @@ class ShmClient:
         self.lanes = max(1, lanes)
         self.nslots = nslots
         self.slot_bytes = slot_bytes
+        self._chaos = chaos
         self._owned: list = []
 
     @classmethod
     def from_config(cls, config) -> "ShmClient":
+        from attendance_tpu_torch import chaos
         return cls(config.shm_dir, lanes=max(1, config.ingress_lanes),
-                   nslots=config.shm_slots, slot_bytes=config.shm_slot_bytes)
+                   nslots=config.shm_slots, slot_bytes=config.shm_slot_bytes,
+                   chaos=chaos.ensure(config))
 
     def _track(self, obj):
         self._owned.append(obj)
@@ -489,7 +510,8 @@ class ShmClient:
     def create_producer(self, topic: str):
         rings = [ShmRingProducer(ring_path(self.directory, topic, i),
                                  nslots=self.nslots,
-                                 slot_bytes=self.slot_bytes)
+                                 slot_bytes=self.slot_bytes,
+                                 chaos=self._chaos)
                  for i in range(self.lanes)]
         if len(rings) == 1:
             return self._track(rings[0])

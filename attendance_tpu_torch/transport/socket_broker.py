@@ -1,8 +1,8 @@
 """Cross-process broker transport: the memory broker behind a TCP front.
 
-Counterpart of ``attendance_tpu/transport/socket_broker.py`` without its
-chaos hooks, and the same wire byte for byte, so a port
-client talks to a JAX :class:`BrokerServer` and the other way round. A
+Counterpart of ``attendance_tpu/transport/socket_broker.py``, the same
+wire byte for byte, so a port client talks to a JAX
+:class:`BrokerServer` and the other way round. A
 :class:`BrokerServer` hosts a :class:`MemoryBroker` (shared
 subscriptions, ack/nack, redelivery, crash takeover) behind a
 length-prefixed TCP protocol, and :class:`SocketClient` speaks the
@@ -12,7 +12,10 @@ across processes by pointing at a broker address.
 
 When a client connection drops (crash, kill), the server closes that
 connection's consumers, requeueing their unacked messages for the
-surviving competitors.
+surviving competitors. With a chaos injector (``chaos=``) every RPC
+channel rolls ``delay``, ``drop`` and ``conn_reset`` at its site
+(``socket.produce``, ``socket.consume``, ``socket.consume.laneN``), so
+the remediation exercised is the reconnect path a real reset takes.
 
 Protocol (little-endian, ``transport.framing``): request = u8 opcode,
 u32 body_len, body; reply = u8 status (0 ok / 1 timeout / 2 error), u32
@@ -44,7 +47,8 @@ from attendance_tpu_torch.transport.framing import (
 from attendance_tpu_torch.transport.memory_broker import (
     MemoryBroker, MemoryConsumer, Message, ReceiveTimeout)
 from attendance_tpu_torch.transport.resilience import (  # noqa: F401
-    BrokerUnavailable, RetryPolicy, note_reconnect, resilient_call)
+    BrokerUnavailable, ChaosDrop, RetryPolicy, note_reconnect,
+    resilient_call)
 
 logger = logging.getLogger(__name__)
 
@@ -279,10 +283,19 @@ class _Rpc:
     fresh connection and bumps ``generation`` so session-holding
     callers (consumers) know their server-side handle died with the old
     connection and must re-subscribe. The retry loop around both lives
-    in transport/resilience.resilient_call."""
+    in transport/resilience.resilient_call.
 
-    def __init__(self, address: str):
+    With a chaos injector attached, each call rolls the transport faults
+    at this channel's site: ``delay`` sleeps before the send, ``drop``
+    loses the request before it is sent (a pure retry), ``conn_reset``
+    severs the real socket before or after the send (a coin flip:
+    request lost or reply lost, the two wire directions)."""
+
+    def __init__(self, address: str, *, chaos=None,
+                 site: str = "socket"):
         self._address = address
+        self._chaos = chaos
+        self._site = site
         self._lock = threading.Lock()
         self._sock: Optional[socket.socket] = None
         self.generation = 0
@@ -321,7 +334,7 @@ class _Rpc:
             self._connect_locked()
             self.generation += 1
             self.reconnects += 1
-        note_reconnect()
+        note_reconnect(self._site)
 
     def call(self, op: int, body: bytes) -> Tuple[int, bytes]:
         """ONE attempt; transport failures sever the channel and
@@ -335,8 +348,29 @@ class _Rpc:
             sock = self._sock
             if sock is None:
                 raise ConnectionError("broker connection is down")
+            c = self._chaos
+            sever_after = False
+            if c is not None:
+                d = c.delay_s(self._site)
+                if d:
+                    time.sleep(d)
+                if c.roll(self._site, "drop"):
+                    raise ChaosDrop(
+                        f"chaos drop at {self._site} (request lost)")
+                if c.roll(self._site, "conn_reset"):
+                    if c.coin(self._site, "conn_reset"):
+                        self._sever_locked()
+                        raise ConnectionError(
+                            f"chaos conn_reset at {self._site} "
+                            "(request direction)")
+                    sever_after = True  # reply direction: the send runs
             try:
                 _send_frame(sock, op, body)
+                if sever_after:
+                    self._sever_locked()
+                    raise ConnectionError(
+                        f"chaos conn_reset at {self._site} "
+                        "(reply direction)")
                 return _recv_frame(sock)
             except (ConnectionError, OSError):
                 self._sever_locked()
@@ -738,14 +772,16 @@ class SocketClient:
     Producers share the client's channel; every consumer gets its own
     TCP connection (see _Rpc), so threaded producer+consumer use works
     like the memory broker's. Consumer connections are closed by
-    consumer.close() and swept by client.close(). ``policy`` shapes the
-    retry budget all its RPCs share."""
+    consumer.close() and swept by client.close(). ``chaos`` attaches the
+    fault injector to every channel this client opens; ``policy`` shapes
+    the retry budget all its RPCs share."""
 
-    def __init__(self, address: str, *,
+    def __init__(self, address: str, *, chaos=None,
                  policy: Optional[RetryPolicy] = None):
         self._address = address
+        self._chaos = chaos
         self._policy = policy or RetryPolicy()
-        self._rpc = _Rpc(address)
+        self._rpc = _Rpc(address, chaos=chaos, site="socket.produce")
         self._consumers: set = set()
 
     def create_producer(self, topic: str) -> SocketProducer:
@@ -757,7 +793,7 @@ class SocketClient:
         del consumer_type  # shared semantics, like the memory broker
         site = ("socket.consume" if lane is None
                 else f"socket.consume.lane{lane}")
-        rpc = _Rpc(self._address)
+        rpc = _Rpc(self._address, chaos=self._chaos, site=site)
         body = _subscribe_body(topic, subscription_name)
         try:
             status, reply = resilient_call(
@@ -779,7 +815,7 @@ class SocketClient:
         """Lane-affine subscribe for the striped ingress plane: the lane
         gets its OWN TCP connection and session, so reconnect, resume
         and crash takeover are per lane (one severed lane never stalls
-        its siblings), and its own retry site
+        its siblings), and its own chaos and retry site
         (``socket.consume.laneN``)."""
         return self.subscribe(topic, subscription_name, lane=lane)
 

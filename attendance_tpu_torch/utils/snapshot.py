@@ -1,12 +1,14 @@
 """Snapshots of the generic sketch store, and the durable writes of
 every snapshot chain.
 
-Counterpart of ``attendance_tpu/utils/snapshot.py`` (without its chaos
-hooks and health re-registration). The durable writes: an npz published
-by tmp write + fsync + atomic rename (returning the digest of its clean
-bytes), a directory fsync, and the manifest write whose rename is a
-chain snapshot's durability point; the fused pipeline's chain uses them
-too. The generic store's two layouts, byte-compatible with the JAX
+Counterpart of ``attendance_tpu/utils/snapshot.py``. The durable writes:
+an npz published by tmp write + fsync + atomic rename (returning the
+digest of its clean bytes), a directory fsync, and the manifest write
+whose rename is a chain snapshot's durability point; the fused
+pipeline's chain uses them too. Each carries the chaos plane's disk
+hooks (``utils.integrity.chaos_pre_write`` before it, ``chaos_post_publish``
+after the publish; the digest is always taken from the clean tmp file
+first). The generic store's two layouts, byte-compatible with the JAX
 package's (each package restores the other's files):
 
 * **One-shot npz** (:func:`snapshot_sketch_store`, and
@@ -36,7 +38,8 @@ import torch
 
 from attendance_tpu_torch.models.bloom import BloomParams
 from attendance_tpu_torch.utils.integrity import (
-    ChainIntegrityError, file_digest, quarantine_artifact, verify_file)
+    ChainIntegrityError, chaos_post_publish, chaos_pre_write, file_digest,
+    quarantine_artifact, verify_file)
 
 CHAIN_MANIFEST = "MANIFEST.json"  # the generic store chain's manifest
 
@@ -48,10 +51,13 @@ def _host(arr) -> np.ndarray:
     return np.asarray(arr)
 
 
-def fsync_write_npz(path, arrays: Dict) -> str:
+def fsync_write_npz(path, arrays: Dict, site: str = "disk.chain") -> str:
     """Durably publish one npz: tmp write + fsync + atomic rename.
     Returns the hex sha256 of the published bytes, computed off the tmp
-    file before the rename."""
+    file before the rename (and before the chaos rot hook at ``site``
+    can mangle the published copy: the recorded digest describes clean
+    bytes, so verification notices the rot)."""
+    chaos_pre_write(site)
     path = Path(path)
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
@@ -60,6 +66,7 @@ def fsync_write_npz(path, arrays: Dict) -> str:
         os.fsync(f.fileno())
     digest = file_digest(tmp)
     tmp.replace(path)
+    chaos_post_publish(site, path)
     return digest
 
 
@@ -77,6 +84,7 @@ def write_manifest_atomic(dir_path, doc: Dict,
                           name: str = CHAIN_MANIFEST) -> None:
     """tmp + fsync + rename + directory fsync of a JSON manifest: the
     rename IS a chain snapshot's durability point."""
+    chaos_pre_write("disk.manifest")
     dir_path = Path(dir_path)
     path = dir_path / name
     tmp = path.with_suffix(".tmp")
@@ -86,6 +94,7 @@ def write_manifest_atomic(dir_path, doc: Dict,
         os.fsync(f.fileno())
     tmp.replace(path)
     fsync_dir(dir_path)
+    chaos_post_publish("disk.manifest", path)
 
 
 def _bloom_manifest_entry(chain, key: str, arrays: Dict, tag: str) -> Dict:
@@ -198,6 +207,7 @@ def snapshot_sketch_store(store, path) -> Dict:
 
     arrays["__manifest__"] = np.frombuffer(
         json.dumps(manifest).encode(), dtype=np.uint8)
+    chaos_pre_write("disk.chain")
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
         np.savez_compressed(f, **arrays)
@@ -207,6 +217,7 @@ def snapshot_sketch_store(store, path) -> Dict:
         os.fsync(f.fileno())
     manifest["__digest__"] = file_digest(tmp)
     tmp.replace(path)
+    chaos_post_publish("disk.chain", path)
     return manifest
 
 

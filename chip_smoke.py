@@ -256,14 +256,47 @@ Phases (any failure exits non-zero):
      route equal to the RPC on the same epoch, no read-path false
      negative over the sampled roster, a finite staleness; then the
      ``serve`` verb over its chain with ``--metrics-port``: the same;
+  13. the chaos soak on the card (after 12; ``chaos.soak.run_soak``):
+     the ``fused`` default's roster and lectures (100,000 students, 16
+     lectures), 524,288 events in 4,096-event frames with 2 poison
+     frames mid-backlog, through an in-process socket broker into a
+     checkpointing (a delta every 4 frames), fully audited pipeline with
+     a spill and a quarantine directory on the card, under (a) the JAX
+     soak's ``DEFAULT_SPEC`` and (b) its ``ROT_SPEC``, then (b2)
+     ``soak.SCRUB_SPEC`` (every chain write rotted, so rot always
+     survives the run), each at its seed of ``chaos.soak.SEEDS`` (101,
+     389, 389), failing if a fault its gates read (``soak.GATED``:
+     persist_fail and conn_reset in (a), enospc, a torn manifest and
+     partition in (b), the rot in (b2)) did not fire; each gated: inside
+     its deadline,
+     per-day PFCOUNTs, deduped
+     and valid rows, filter words and register rows equal to the same
+     frames' no-fault run, no Bloom false negative (the scrape's counter
+     and K4 over the audit's roster), reconnects where ``conn_reset``
+     fired, the circuit opened and closed with no spill left where
+     ``persist_fail`` fired, exactly the poison frames quarantined; in
+     (b) and (b2) scrub flags every surviving disk fault (in (b2) at
+     least one survives), the disk-full counter fired where ``enospc``
+     did, a partition window opened in (b), and a fresh pipeline
+     restored onto the card from the chain through the repair ladder
+     (the peer rung: the run gossips as federated worker ``w0``; in (b2)
+     the ladder quarantines rotted chain files) equals the no-fault
+     state after draining the unacked frames; the
+     faults injected per site and each soak's wall printed; K3 and K2
+     launched in each fault run (counted from 0 just before it, read just
+     after it), K1 and K4 by its gates' reads and the restore; (c) the
+     ``fused`` default with
+     ``--chaos off`` (the injector installed, never firing) and with no
+     injector, three runs a side interleaved (reported, not gated);
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
      run and the oracle's reads), phase 10(c)'s five mesh runs and
-     phases 11's and 12's runs (each also printed on a line of its own;
-     12's count the scrapes' K4, K9 and K1 launches); phase 5 prints its
-     own runs' counts on a line of its own.
+     phases 11's, 12's and 13's runs (each also printed on a line of its
+     own; 12's count the scrapes' K4, K9 and K1 launches, 13's its fault
+     runs and the restore); phase 5 prints its own runs' counts on a
+     line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -4854,6 +4887,141 @@ def accuracy_phase(card: str, dev, ref, stream) -> dict:
     return launches
 
 
+# -- 13. the chaos soak on the card -------------------------------------------
+SOAK_EVENTS = 524_288   # 128 frames: at least 128, as the soak is sized
+SOAK_FRAME = 4_096
+SOAK_ROSTER = 100_000   # the `fused` default's roster and lectures
+SOAK_LECTURES = 16
+SOAK_DEADLINE_S = 300.0  # each soak's bounded-termination gate
+# (label, spec name, restore check): the JAX soak's two specs, then
+# soak.SCRUB_SPEC (every chain write rotted, so rot always survives for
+# scrub and the repair ladder), each at its fixed seed of soak.SEEDS.
+SOAK_RUNS = (("a", "DEFAULT_SPEC", False), ("b", "ROT_SPEC", True),
+             ("b2", "SCRUB_SPEC", True))
+SOAK_OFF_RUNS = 3  # 13(c): --chaos off and no injector, interleaved
+# The kernels a soak's fault run drives: K3 (the preload) and K2 (the
+# step on the default auto wire). The gates' reads and the restore then
+# launch K1 (each day's PFCOUNT) and K4 (the false-negative probe).
+SOAK_RUN_KERNELS = ("bloom_add", "fused_step")
+SOAK_READ_KERNELS = ("hll_histogram", "bloom_contains")
+
+
+def chaos_phase(card: str, dev, stream) -> dict:
+    """Phase 13: the chaos soak on the card. (a) the JAX soak's
+    ``DEFAULT_SPEC`` and (b) its ``ROT_SPEC`` through an in-process
+    socket broker into the fused pipeline on ``dev``
+    (``chaos.soak.run_soak``: state equal to the no-fault run's, zero
+    false negatives, reconnects, the circuit, the quarantine, scrub, the
+    disk-full counter, partitions; (b) also restored onto the card
+    through the repair ladder), (b2) ``soak.SCRUB_SPEC``, whose rot
+    always survives the run, so that scrub and the repair ladder always
+    have rot to find (under ``ROT_SPEC`` a later base may heal it all),
+    each at its seed of ``soak.SEEDS``, and failing if a fault of
+    ``soak.GATED`` did not fire, so that no gate passes with nothing to
+    check; (c) the ``fused`` default with
+    ``--chaos off`` over no injector. The fault run launches K3 and K2
+    (counted from 0 just before it and read just after); the gates'
+    reads and the restore launch K1 and K4. Returns the soak runs'
+    launches, all of them."""
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch import chaos, obs
+    from attendance_tpu_torch.chaos import soak
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_"))
+    launches = dict.fromkeys(kernels.launches, 0)
+    shape = dict(num_events=SOAK_EVENTS, batch=SOAK_FRAME,
+                 roster_size=SOAK_ROSTER, lectures=SOAK_LECTURES)
+    wants = {}  # the no-fault state of each seed, run once
+    try:
+        for label, spec_name, restore in SOAK_RUNS:
+            seed = soak.SEEDS[spec_name]
+            what = f"chaos ({label}) {spec_name} seed {seed}"
+            if seed not in wants:
+                wants[seed] = soak.no_fault_state(seed, device=dev, **shape)
+            want = wants[seed]
+            # Counts set to 0 just before the fault run (and the restore)
+            # and read just after.
+            kernels.reset_launches()
+            report = soak.run_soak(
+                seed, spec=getattr(soak, spec_name), workdir=work / label,
+                device=dev, max_seconds=SOAK_DEADLINE_S,
+                restore_check=restore, want=want, **shape)
+            all_launches = dict(kernels.launches)
+            run_launches = report.get("run_launches", {})
+            reads = {k: all_launches[k] - run_launches.get(k, 0)
+                     for k in all_launches}
+            print(f"{what}: wall {report['wall_s']} s (the fault run "
+                  f"{report.get('run_s')} s, the restore "
+                  f"{report.get('restore_s')} s) on {card}")
+            print(f"{what}: faults injected per site "
+                  f"{json.dumps(report.get('injected'))}")
+            print(f"{what}: " + json.dumps(
+                {k: v for k, v in report.items()
+                 if k not in ("injected", "failures", "seed", "spec")},
+                default=str))
+            print(f"{what} launches (in the kernels line): the fault "
+                  f"run { {k: v for k, v in run_launches.items() if v} }, "
+                  f"the gates' reads and the restore "
+                  f"{ {k: v for k, v in reads.items() if v} }")
+            check(report["ok"], f"{what}: {report['failures']}")
+            for name in SOAK_RUN_KERNELS:
+                check(run_launches.get(name, 0) > 0,
+                      f"{what}: kernel {name} not launched in the fault run")
+            for name in SOAK_READ_KERNELS:
+                check(reads[name] > 0, f"{what}: kernel {name} not "
+                      "launched by the gates' reads")
+            injected = report.get("injected") or {}
+            for site, fault, _run, _draws in soak.GATED[spec_name]:
+                fired = sum(n for key, n in injected.items()
+                            if key.endswith(f"/{fault}"))
+                check(fired > 0, f"{what}: {fault} never fired, so its "
+                      "gate checked nothing")
+            if spec_name == "SCRUB_SPEC":
+                check(report.get("disk_rot_surviving", 0) > 0,
+                      f"{what}: no disk rot survived for scrub to find")
+                check(report.get("chain_files_quarantined", 0) > 0,
+                      f"{what}: the repair ladder quarantined nothing")
+            for name, count in all_launches.items():
+                launches[name] += count
+
+        # (c) the injector installed and never firing, against none.
+        rates = {"none": [], "off": []}
+        for _ in range(SOAK_OFF_RUNS):
+            for mode in ("none", "off"):
+                chaos.disable()
+                pipe, summary = run_with_native(
+                    True, Config(chaos="" if mode == "none" else mode),
+                    *stream)
+                try:
+                    inj = chaos.get()
+                    check((inj is None) == (mode == "none"),
+                          f"chaos (c) {mode}: injector {inj}")
+                    check(inj is None or inj.injected_total() == 0,
+                          f"chaos (c) {mode}: a fault fired")
+                    check(summary["valid"] + summary["invalid"]
+                          == stream[0], f"chaos (c) {mode}: event count")
+                    rates[mode].append(summary["events_per_second"])
+                finally:
+                    pipe.cleanup()
+                    chaos.disable()
+        ratio = np.median(rates["off"]) / np.median(rates["none"])
+        print(f"chaos (c) fused default, events/s, no injector "
+              f"{rates['none']}, --chaos off {rates['off']}; off/none of "
+              f"the medians {ratio} on {card}")
+    finally:
+        chaos.disable()
+        obs.disable()
+    print(f"chaos phase: {time.perf_counter() - t_phase} s")
+    print(f"chaos phase launches (its fault runs and restore; in the "
+          f"kernels line): { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5401,6 +5569,10 @@ def main() -> int:
     acc_launches = accuracy_phase(card, dev, ref,
                                   (num_events, frame_size, num_lectures))
 
+    # -- 13. the chaos soak on the card ---------------------------------------
+    chaos_launches = chaos_phase(card, dev,
+                                 (num_events, frame_size, num_lectures))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -5411,7 +5583,7 @@ def main() -> int:
                        + s_launches[name] + i_launches[name]
                        + l_launches[name] + f_launches[name]
                        + m_launches[name] + tel_launches[name]
-                       + acc_launches[name]),
+                       + acc_launches[name] + chaos_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

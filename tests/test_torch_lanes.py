@@ -92,13 +92,18 @@ def _assert_same(got, want):
 
 
 def _feed(pipe, roster, payloads=(), frames=(), max_events=None):
+    """Preload, publish, run. A run bounded by ``max_events`` ends when
+    they are in, so its idle clock only guards a hang: it gets 10 s, as
+    lane threads under a loaded host can take more than 0.5 s to hand
+    over their first decoded block."""
     pipe.preload(roster)
     producer = pipe.client.create_producer(pipe.config.pulsar_topic)
     if payloads:
         producer.send_many(payloads)
     for f in frames:
         producer.send(f)
-    pipe.run(max_events=max_events, idle_timeout_s=0.5)
+    pipe.run(max_events=max_events,
+             idle_timeout_s=0.5 if max_events is None else 10.0)
     return pipe
 
 

@@ -174,7 +174,9 @@ _PORT_MODULES = {
     "attendance_tpu_torch.obs", "attendance_tpu_torch.obs.registry",
     "attendance_tpu_torch.obs.tracing", "attendance_tpu_torch.obs.recorder",
     "attendance_tpu_torch.obs.exposition", "attendance_tpu_torch.obs.health",
-    "attendance_tpu_torch.obs.audit"}
+    "attendance_tpu_torch.obs.audit",
+    "attendance_tpu_torch.chaos", "attendance_tpu_torch.chaos.soak",
+    "attendance_tpu_torch.storage.resilient"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():

@@ -275,7 +275,11 @@ def test_two_process_bridge_scaleout(tmp_path):
     the port only) compete on one subscription of a port BrokerServer.
     Each stops after half the stream's events, so neither can take it
     all: both do work, every JSON message is converted exactly once,
-    none is dead-lettered and the subscription drains."""
+    none is dead-lettered and the subscription drains.
+
+    The subscription exists and holds the whole stream before either
+    process starts, so neither's idle clock can run out while the other
+    is still importing torch: each finds its half waiting."""
     server = tsock.BrokerServer().start()
     topic = Config().pulsar_topic
     n, batch = 1200, 50
@@ -286,22 +290,17 @@ def test_two_process_bridge_scaleout(tmp_path):
     try:
         probe = MemoryClient(server.broker).subscribe(topic + "-binary",
                                                       "probe")
+        server.broker.topic(topic).subscription("attendance_bridge")
+        payloads = _payloads(n, seed=41)
+        server.broker.topic(topic).publish_many(payloads)
         procs = [subprocess.Popen(
             [sys.executable, "-m", "attendance_tpu_torch", "bridge",
              "--transport-backend", "socket", "--socket-broker",
              server.address, "--batch-size", str(batch),
-             "--max-events", str(n // 2), "--idle-timeout-s", "2",
+             "--max-events", str(n // 2), "--idle-timeout-s", "10",
              "--metrics-json", str(out)],
             cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for out in outs]
-        deadline = time.monotonic() + 120
-        while server.consumer_count(topic, "attendance_bridge") < 2:
-            assert time.monotonic() < deadline, "workers did not subscribe"
-            for p in procs:
-                assert p.poll() is None, p.communicate()[0][-4000:]
-            time.sleep(0.05)
-        payloads = _payloads(n, seed=41)
-        server.broker.topic(topic).publish_many(payloads)
         for p in procs:
             log = p.communicate(timeout=120)[0]
             assert p.returncode == 0, log[-4000:]
