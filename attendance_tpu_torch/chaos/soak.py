@@ -1,9 +1,8 @@
 """Chaos soak: producer -> socket broker -> fused pipeline under a seeded
 fault schedule, judged against a run of the same frames with no faults.
 
-Counterpart of ``run_soak`` in the JAX package's ``tools/chaos_soak.py``
-(its step 4, the ``doctor`` replay of the run's telemetry, waits for the
-port's SLO slice). One soak:
+Counterpart of ``run_soak`` in the JAX package's ``tools/chaos_soak.py``.
+One soak:
 
 1. the **no-fault run**: a memory broker, no injector, the frame backlog
    once; its per-day PFCOUNTs, deduplicated rows, valid rows, filter
@@ -31,7 +30,12 @@ port's SLO slice). One soak:
    * with ``restore_check``, a fresh pipeline restored from the fault
      run's chain, through the repair ladder (its peer rung: the fault run
      gossips as federated worker ``w0`` to an aggregator), then draining
-     the frames the fault run left unacked, equals the no-fault state.
+     the frames the fault run left unacked, equals the no-fault state;
+
+4. the ``doctor`` replay of the fault run's own telemetry: one last SLO
+   tick, the reporter's last exposition block, then
+   ``obs.slo.doctor_report`` over the prom file and the alert log, with
+   the quarantine listed, must pass (``report["doctor_ok"]``).
 
 The injector and the telemetry are process-global: the soak disables
 both before it starts and in a ``finally``, so a later run finds
@@ -56,6 +60,7 @@ from attendance_tpu_torch.federation.gossip import Aggregator
 from attendance_tpu_torch.federation.worker import final_full_frame
 from attendance_tpu_torch.models.bloom import (
     bloom_contains_packed, keys_tensor)
+from attendance_tpu_torch.obs.slo import doctor_report
 from attendance_tpu_torch.ops import kernels
 from attendance_tpu_torch.pipeline.fast_path import (
     CHAIN_MANIFEST, FusedPipeline)
@@ -268,6 +273,8 @@ def run_soak(seed: int, *, spec: str = DEFAULT_SPEC, workdir, device,
     work.mkdir(parents=True, exist_ok=True)
     qdir = work / "quarantine"
     snaps = work / "snaps"
+    prom = work / "metrics.prom"
+    alerts = work / "alerts.jsonl"
     report: Dict = {"seed": seed, "spec": spec,
                     "no_fault": summary(want)}
     server = BrokerServer().start()
@@ -286,7 +293,7 @@ def run_soak(seed: int, *, spec: str = DEFAULT_SPEC, workdir, device,
             snapshot_dir=str(snaps), snapshot_mode="delta",
             snapshot_every_batches=4, max_redeliveries=3,
             retry_budget_s=10.0, audit_sample=1.0,
-            metrics_prom=str(work / "metrics.prom"),
+            metrics_prom=str(prom), alert_log=str(alerts),
             metrics_interval_s=0.2, **fed)
         # Telemetry from this thread, before any client exists (broker
         # queues register their gauges); the run thread only records.
@@ -422,6 +429,19 @@ def run_soak(seed: int, *, spec: str = DEFAULT_SPEC, workdir, device,
             check(disk_full > 0, "enospc injected but the disk-full "
                                  "counter never fired")
             report["enospc_hits"] = disk_full
+
+        # Doctor over the run's own artifacts: the SLOs judged once more,
+        # the gauges that judgement set written in a last block.
+        t.finalize_slo("soak-end")
+        if t._reporter is not None:
+            t._reporter._write_block()
+        try:
+            text, ok = doctor_report([str(prom), str(alerts)],
+                                     quarantine_dir=str(qdir))
+            report["doctor_ok"] = ok
+            check(ok, "doctor verdict FAIL:\n" + text)
+        except Exception as exc:  # noqa: BLE001
+            check(False, f"doctor raised: {exc!r}")
 
         if restore_check:
             _restore_gate(report, check, agg, config, want, device,

@@ -38,8 +38,17 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
 * ``telemetry``: pretty-print a telemetry artifact (a flight-recorder
   dump, a ``--metrics-prom`` exposition file, or a ``--trace-out`` span
   trace, the format sniffed from the content; ``--follow`` tails a live
-  one). The artifacts are the JAX package's formats: either package's
-  verb reads either package's files;
+  one; ``--attribution`` renders the sampling profiler's
+  ``attribution.json``, or a ``--profile-out`` directory holding one).
+  The artifacts are the JAX package's formats: either package's verb
+  reads either package's files;
+* ``doctor``: the offline SLO verdict over run artifacts (a prom file,
+  an alert log, a flight dump, a span trace; ``--fleet DIR`` of
+  ``<role>@<instance>.prom`` files; ``--scrub DIR``; ``--quarantine
+  DIR``, ``--replay-quarantine``, ``--purge-replayed``): a verdict
+  table, exit 0 when every check passes, 1 on a breach, 2 when an
+  artifact is unreadable. ``--incident`` and ``--actuations`` are
+  refused at parse time (their planes are not ported);
 * ``scrub``: the offline integrity scrub of snapshot chains, spill,
   quarantine and event directories (``utils.integrity.scrub_report``):
   a verdict table, exit 0 when nothing is corrupt, 1 when something is,
@@ -57,8 +66,14 @@ the ``--fed-*`` flags (a federated worker gossiping its fences).
 ``--metrics-port N`` (-1 = ephemeral; ``GET /metrics``),
 ``--metrics-interval-s``, ``--flight-recorder N`` and ``--flight-path``,
 ``--trace-out FILE``, ``--audit-sample F`` (the exact-shadow accuracy
-audit over a hash-sampled fraction of the key space) and
-``--metric-series-max``. With ``--metrics-port``, ``serve`` and a
+audit over a hash-sampled fraction of the key space),
+``--metric-series-max``, the SLO engine's ``--alert-log FILE``, ``--slo
+SPEC`` (repeatable), ``--slo-fast-s`` and ``--slo-slow-s``, the host
+sampling profiler's ``--profile-hz`` and ``--profile-out DIR``.
+``fused``, ``process`` and ``pipeline``, whose runs read it, also take
+``--profile-dir DIR`` (a ``torch.profiler`` trace of the fused or the
+processor run, ``utils/profiling.TRACE_FILE`` under the directory).
+With ``--metrics-port``, ``serve`` and a
 ``fused`` run with ``--serve-port`` also answer the query verbs as JSON
 under ``/query/*`` (``serve/http.py``).
 
@@ -316,7 +331,12 @@ def _telemetry_config(args) -> dict:
                 flight_recorder=args.flight_recorder,
                 flight_path=args.flight_path, trace_out=args.trace_out,
                 audit_sample=args.audit_sample,
-                metric_series_max=args.metric_series_max)
+                metric_series_max=args.metric_series_max,
+                profile_dir=getattr(args, "profile_dir", ""),
+                profile_hz=args.profile_hz,
+                profile_out=args.profile_out, alert_log=args.alert_log,
+                slo=list(args.slo or []), slo_fast_s=args.slo_fast_s,
+                slo_slow_s=args.slo_slow_s)
 
 
 def _config(args) -> Config:
@@ -620,15 +640,40 @@ def cmd_telemetry(args) -> None:
     a Prometheus exposition file (the last scrape block), or a
     Chrome-trace export (per-trace span trees with durations), the
     format sniffed from the content. ``--follow`` re-renders whenever
-    the file grows or is replaced, until interrupted."""
+    the file grows or is replaced, until interrupted. ``--attribution``
+    renders a sampling-profiler attribution document (or a
+    ``--profile-out`` directory holding one) as the per-stage self-time
+    table, with the launch-shape fingerprint ledger."""
+    import os
+
     from attendance_tpu_torch.obs.exposition import format_file
 
     if args.attribution:
-        # The sampling profiler's attribution table lives with the
-        # profiler, which the port does not have.
-        raise NotImplementedError(
-            "telemetry --attribution needs the sampling profiler, which "
-            "attendance_tpu_torch does not port yet")
+        from attendance_tpu_torch.obs.profiler import (
+            ATTRIBUTION_FILE, format_attribution_table)
+
+        path = args.path
+        if os.path.isdir(path):
+            path = os.path.join(path, ATTRIBUTION_FILE)
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+            if doc.get("kind") != "attribution":
+                raise ValueError(
+                    "not an attribution document (expected "
+                    '"kind": "attribution" — the sampling '
+                    "profiler's attribution.json)")
+            print(format_attribution_table(doc))
+        except FileNotFoundError:
+            logger.error("no attribution artifact at %s (was the run "
+                         "profiled with --profile-hz/--profile-out?)",
+                         path)
+            sys.exit(2)
+        except Exception as e:
+            logger.error("unreadable attribution artifact %s: %s",
+                         path, e)
+            sys.exit(2)
+        return
     if args.follow:
         try:
             _follow_file(args.path, args.last, args.interval_s)
@@ -645,6 +690,108 @@ def cmd_telemetry(args) -> None:
         # traceback.
         logger.error("unreadable telemetry artifact %s: %s", args.path, e)
         sys.exit(2)
+
+
+def cmd_doctor(args) -> None:
+    """Offline SLO verdict over run artifacts: replay a --metrics-prom
+    exposition file, an --alert-log JSONL, a flight-recorder dump and/or
+    a --trace-out export, print a pass/fail verdict table, and exit
+    non-zero on a breach: a run's own telemetry artifacts become a CI
+    gate without rerunning anything. ``--fleet DIR`` judges a directory
+    of ``<role>@<instance>.prom`` files (per-role rows, then fleet-wide
+    rows over the merged data); ``--scrub DIR`` folds the offline
+    integrity scrub into the verdict; ``--quarantine DIR`` lists the
+    on-disk dead-letter quarantine, ``--replay-quarantine`` republishes
+    its frames through the configured transport. Exit codes: 0 every
+    check passes, 1 at least one breach, 2 unreadable artifacts."""
+    from attendance_tpu_torch.obs.slo import doctor_report
+
+    if args.replay_quarantine:
+        if not args.quarantine:
+            logger.error("--replay-quarantine needs --quarantine DIR")
+            sys.exit(2)
+        from attendance_tpu_torch.transport.quarantine import replay
+
+        config = Config(**_transport_config(args))
+        client = make_client(config)
+        try:
+            producer = client.create_producer(config.pulsar_topic)
+            n = replay(args.quarantine, producer,
+                       remove=args.purge_replayed)
+        finally:
+            client.close()
+        print(f"replayed {n} quarantined frame(s) onto "
+              f"{config.pulsar_topic}"
+              + (" (entries purged)" if args.purge_replayed else ""))
+        if not args.artifacts:
+            return
+    failed = False
+    if args.fleet:
+        # Every per-role artifact of the directory merged into ONE verdict
+        # table; positional artifacts ride along in the report below.
+        from attendance_tpu_torch.obs.slo import doctor_fleet_report
+
+        try:
+            text, ok = doctor_fleet_report(
+                args.fleet, fpr_ceiling=args.fpr_ceiling,
+                hll_error_ceiling=args.hll_error_ceiling,
+                snapshot_stall_ceiling=args.snapshot_stall_ceiling,
+                max_reconnects=args.max_reconnects,
+                lane_skew_ceiling=args.lane_skew_ceiling,
+                query_p99_ceiling=args.query_p99_ceiling,
+                staleness_ceiling=args.staleness_ceiling,
+                merge_lag_ceiling=args.merge_lag_ceiling,
+                watermark_lag_ceiling=args.watermark_lag_ceiling,
+                recompile_ceiling=args.recompile_ceiling)
+        except FileNotFoundError as e:
+            logger.error("no such fleet artifact dir: %s", e)
+            sys.exit(2)
+        except Exception as e:
+            logger.error("unreadable fleet artifacts: %s", e)
+            sys.exit(2)
+        print(text)
+        if not args.artifacts and not args.quarantine and not args.scrub:
+            sys.exit(0 if ok else 1)
+        failed = failed or not ok
+    if args.scrub:
+        # The run's own durable artifacts (chains, spill, quarantine)
+        # must verify.
+        from attendance_tpu_torch.utils.integrity import scrub_report
+
+        try:
+            text, ok = scrub_report(args.scrub)
+        except FileNotFoundError as e:
+            logger.error("no such scrub target: %s", e)
+            sys.exit(2)
+        print(text)
+        if not args.artifacts and not args.quarantine:
+            sys.exit(0 if ok and not failed else 1)
+        failed = failed or not ok
+    if not args.artifacts and not args.quarantine:
+        logger.error("doctor needs artifacts and/or --quarantine DIR")
+        sys.exit(2)
+    try:
+        text, ok = doctor_report(
+            args.artifacts, fpr_ceiling=args.fpr_ceiling,
+            hll_error_ceiling=args.hll_error_ceiling,
+            snapshot_stall_ceiling=args.snapshot_stall_ceiling,
+            max_reconnects=args.max_reconnects,
+            lane_skew_ceiling=args.lane_skew_ceiling,
+            query_p99_ceiling=args.query_p99_ceiling,
+            staleness_ceiling=args.staleness_ceiling,
+            merge_lag_ceiling=args.merge_lag_ceiling,
+            watermark_lag_ceiling=args.watermark_lag_ceiling,
+            recompile_ceiling=args.recompile_ceiling,
+            quarantine_dir=args.quarantine)
+    except FileNotFoundError as e:
+        logger.error("no such artifact: %s", e)
+        sys.exit(2)
+    except Exception as e:
+        logger.error("unreadable artifacts: %s", e)
+        sys.exit(2)
+    print(text)
+    if not ok or failed:
+        sys.exit(1)
 
 
 def cmd_scrub(args) -> None:
@@ -729,6 +876,36 @@ def _add_telemetry_flags(p: argparse.ArgumentParser) -> None:
                    default=d.metric_series_max,
                    help="label-cardinality cap per metric name "
                    "(<= 0 = no cap)")
+    p.add_argument("--alert-log", default=d.alert_log,
+                   help="enable the SLO burn-rate engine and append "
+                   "one JSON line per alert transition here")
+    p.add_argument("--slo", action="append", default=None,
+                   metavar="SPEC",
+                   help="extra/override SLO spec, repeatable (e.g. "
+                   "'fpr<=0.01', 'throughput>=1e6', "
+                   "'dequeue_p99<=0.05')")
+    p.add_argument("--slo-fast-s", type=float, default=d.slo_fast_s,
+                   help="fast burn-rate window (seconds)")
+    p.add_argument("--slo-slow-s", type=float, default=d.slo_slow_s,
+                   help="slow burn-rate window (seconds)")
+    p.add_argument("--profile-hz", type=float, default=d.profile_hz,
+                   help="host sampling-profiler rate (0 = off): "
+                   "per-stage self-time attribution, collapsed-stack "
+                   "flamegraph + Perfetto stage timeline under "
+                   "--profile-out")
+    p.add_argument("--profile-out", default=d.profile_out,
+                   help="artifact dir for the sampling profiler "
+                   "(profile.folded, profile_trace.json, "
+                   "attribution.json)")
+
+
+def _add_profile_dir_flag(p: argparse.ArgumentParser) -> None:
+    """``--profile-dir``, only on the verbs whose run reads it: ``fused``
+    and the processor's ``process`` and ``pipeline``."""
+    p.add_argument("--profile-dir", default=Config().profile_dir,
+                   help="write a torch.profiler trace of the run here "
+                   "(CUDA activity included on a card): "
+                   "torch_trace.json")
 
 
 def _add_fed_flags(p: argparse.ArgumentParser) -> None:
@@ -1012,6 +1189,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_serve_flags(f)
     _add_fed_flags(f)
     _add_telemetry_flags(f)
+    _add_profile_dir_flag(f)
     f.set_defaults(fn=cmd_fused)
     a = sub.add_parser("analyze", help="batch insights over a saved store")
     _add_store_flags(a)
@@ -1031,6 +1209,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--max-events", type=int, default=None)
     pr.add_argument("--idle-timeout-s", type=float, default=None)
     _add_telemetry_flags(pr)
+    _add_profile_dir_flag(pr)
     pr.set_defaults(fn=cmd_process)
     pl = sub.add_parser("pipeline", help="hermetic end-to-end run: "
                         "generate -> process -> analyze")
@@ -1039,6 +1218,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_persist_flags(pl)
     _add_generate_flags(pl)
     _add_telemetry_flags(pl)
+    _add_profile_dir_flag(pl)
     pl.set_defaults(fn=cmd_pipeline)
     st = sub.add_parser(
         "stats", help="PFCOUNT + partition scan for one lecture, or a "
@@ -1128,8 +1308,9 @@ def build_parser() -> argparse.ArgumentParser:
     tel.add_argument("--last", type=int, default=32,
                      help="flight records / traces shown (most recent)")
     tel.add_argument("--attribution", action="store_true",
-                     help="a sampling-profiler attribution document "
-                     "(not ported: raises)")
+                     help="render a sampling-profiler attribution.json "
+                     "(or a --profile-out dir) as the per-stage "
+                     "self-time table")
     tel.add_argument("--follow", action="store_true",
                      help="tail a LIVE artifact: re-render the table "
                      "every time the file grows or is replaced, until "
@@ -1137,6 +1318,7 @@ def build_parser() -> argparse.ArgumentParser:
     tel.add_argument("--interval-s", type=float, default=0.5,
                      help="poll cadence for --follow")
     tel.set_defaults(fn=cmd_telemetry)
+    _add_doctor_parser(sub)
     scr = sub.add_parser(
         "scrub", help="offline integrity scrub: walk snapshot-chain, "
         "spill, quarantine and event directories, verify every artifact "
@@ -1149,6 +1331,88 @@ def build_parser() -> argparse.ArgumentParser:
                      "included)")
     scr.set_defaults(fn=cmd_scrub)
     return p
+
+
+def _add_doctor_parser(sub) -> None:
+    """The ``doctor`` verb: the JAX package's parser, with the planes the
+    port does not have refused at parse time."""
+    from attendance_tpu_torch.federation.worker import _NotPorted
+
+    doc = sub.add_parser(
+        "doctor", help="offline SLO verdict over run artifacts "
+        "(prom exposition / alert log / flight dump / trace export); "
+        "lists/replays the dead-letter quarantine; "
+        "exits 1 on breach, 2 on unreadable artifacts")
+    _add_transport_flags(doc)  # they drive --replay-quarantine
+    doc.add_argument("artifacts", nargs="*",
+                     help="any mix of --metrics-prom, --alert-log, "
+                     "flight-recorder, and --trace-out files")
+    doc.add_argument("--fpr-ceiling", type=float, default=0.01,
+                     help="measured Bloom FPR ceiling")
+    doc.add_argument("--hll-error-ceiling", type=float, default=0.02,
+                     help="measured HLL relative-error ceiling")
+    doc.add_argument("--snapshot-stall-ceiling", type=float, default=None,
+                     help="gate the snapshot_write/snapshot_blocked stage "
+                     "p99 (seconds) recovered from the prom histograms; "
+                     "omitted = informational only")
+    doc.add_argument("--max-reconnects", type=int, default=None,
+                     help="gate the broker-reconnect total from the prom "
+                     "artifact; omitted = informational row")
+    doc.add_argument("--lane-skew-ceiling", type=float, default=None,
+                     help="gate the striped-ingress lane skew (worst lane "
+                     "events / median lane events): 0.5 flags a lane "
+                     "running under half the median; omitted = "
+                     "informational row")
+    doc.add_argument("--query-p99-ceiling", type=float, default=None,
+                     help="gate the query-stage latency p99 (seconds) "
+                     "recovered from the prom histograms; omitted = "
+                     "informational row")
+    doc.add_argument("--staleness-ceiling", type=float, default=None,
+                     help="gate attendance_read_staleness_seconds (the "
+                     "published read epoch's age at the last scrape); "
+                     "omitted = informational row")
+    doc.add_argument("--watermark-lag-ceiling-s", type=float, default=None,
+                     dest="watermark_lag_ceiling",
+                     help="gate attendance_watermark_lag_seconds; set only "
+                     "for runs that ran the temporal plane (an absent "
+                     "gauge fails loudly, never vacuously); omitted = "
+                     "informational row")
+    doc.add_argument("--recompile-ceiling", type=int, default=None,
+                     help="gate attendance_recompiles_steady_total (new "
+                     "kernel launch shapes AFTER the first completed run "
+                     "loop: steady state must hold 0, a nonzero count "
+                     "means unpadded shapes reach a kernel). Set only for "
+                     "runs whose telemetry was on (an absent counter "
+                     "fails loudly); omitted = informational row")
+    doc.add_argument("--merge-lag-ceiling", type=float, default=None,
+                     help="gate the federation merge-lag p99 (fence -> "
+                     "folded-into-global-view seconds) recovered from the "
+                     "prom histogram; omitted = informational row")
+    doc.add_argument("--fleet", default="", metavar="DIR",
+                     help="judge a directory of <role>@<instance>.prom "
+                     "artifacts: per-role rows, plus fleet-wide merge-lag/"
+                     "staleness gates over the merged data")
+    doc.add_argument("--incident", action=_NotPorted, metavar="DIR",
+                     help="incident bundles: ROADMAP item 11d2")
+    doc.add_argument("--actuations", action=_NotPorted, metavar="FILE",
+                     help="the control plane's actuation log: ROADMAP "
+                     "item 11e")
+    doc.add_argument("--scrub", action="append", default=None,
+                     metavar="DIR",
+                     help="also run the offline integrity scrub over DIR "
+                     "(repeatable) and fold its verdict into the exit "
+                     "code: any CORRUPT artifact fails the run")
+    doc.add_argument("--quarantine", default="",
+                     help="list this on-disk dead-letter quarantine in the "
+                     "verdict table")
+    doc.add_argument("--replay-quarantine", action="store_true",
+                     help="republish every quarantined frame onto the "
+                     "configured --pulsar-topic via the configured "
+                     "transport")
+    doc.add_argument("--purge-replayed", action="store_true",
+                     help="delete quarantine entries after a successful "
+                     "replay publish")
+    doc.set_defaults(fn=cmd_doctor)
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -3,8 +3,8 @@
 Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
 path, its mesh, its checkpoint chain, its temporal plane, its ingress
 lanes and shared-memory ring, the query plane, the generic sketch store
-and the processor, the federation, the fault plane and the persist
-sink's circuit breaker read, with the JAX package's defaults and checks
+and the processor, the federation, the fault plane, the persist sink's
+circuit breaker, the SLO engine and the profilers read, with the JAX package's defaults and checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
 """
@@ -160,6 +160,42 @@ class Config:
     # Label-cardinality guard: distinct label sets per metric name
     # before new sets fold into an unexported sink (<= 0 = no guard).
     metric_series_max: int = 1024
+    # Profiling ("" = disabled): directory for a torch.profiler trace of
+    # the processing run (one Chrome-trace JSON, utils/profiling.py; CUDA
+    # activity included on a card). Device dispatches are
+    # record_function-labelled so kernel time attributes to stages.
+    profile_dir: str = ""
+    # Continuous host sampling profiler (obs/profiler.py; 0 = off): a
+    # background thread samples sys._current_frames() at this rate,
+    # folds per-thread collapsed stacks, and attributes every sample to
+    # the thread's current pipeline stage (dequeue/decode/dispatch/
+    # device_wait/temporal/snapshot/serve/...): the per-stage SELF-TIME
+    # table `telemetry --attribution` renders. Stage fractions export
+    # live as attendance_profile_stage_fraction{stage=} gauges. Hot
+    # threads pay only the stage-mark dict writes; sampling runs on its
+    # own thread. 29-97 Hz are good prime choices (avoid aliasing the
+    # snapshot cadence).
+    profile_hz: float = 0.0
+    # Artifact directory for the sampling profiler ("" = in-memory
+    # only: live gauges still export): profile.folded (flamegraph
+    # collapsed stacks), profile_trace.json (Perfetto stage timeline),
+    # attribution.json (the offline attribution table, incl. the
+    # launch-shape fingerprint ledger).
+    profile_out: str = ""
+    # SLO engine ("" = disabled): evaluate declarative objectives
+    # (accuracy ceilings, throughput floor, latency quantiles) over fast
+    # and slow burn-rate windows and append one JSON line per alert
+    # transition (firing/resolved) here: obs/slo.py.
+    alert_log: str = ""
+    # Extra/override SLO specs, e.g. "fpr<=0.01", "throughput>=1e6",
+    # "dequeue_p99<=0.05" (obs.slo.parse_slo has the alias table). The
+    # accuracy defaults are always installed when the engine is on.
+    slo: List[str] = dataclasses.field(default_factory=list)
+    # Burn-rate windows (seconds): the fast window gates alert freshness
+    # and hysteresis clearing, the slow window rejects single-window
+    # spikes (SRE multi-window multi-burn-rate).
+    slo_fast_s: float = 60.0
+    slo_slow_s: float = 300.0
     # Query serving (attendance_tpu_torch/serve): nonzero = the fused
     # pipeline answers BF.EXISTS, PFCOUNT, occupancy, attendance rate and
     # the window verbs from an epoch-pinned host mirror of its sketch
@@ -313,6 +349,29 @@ class Config:
             raise ValueError("metrics_interval_s must be positive")
         if self.flight_recorder < 0:
             raise ValueError("flight_recorder must be >= 0 (ring size)")
+        if self.profile_hz < 0:
+            raise ValueError("profile_hz must be >= 0 (0 = off)")
+        if self.profile_hz > 1000:
+            raise ValueError(
+                "profile_hz above 1000 would make the sampler itself "
+                "the hot path — pick something in 10-250")
+        if self.profile_out and not self.profile_hz:
+            raise ValueError(
+                "--profile-out without --profile-hz writes nothing "
+                "(the sampler is off) — set a rate, e.g. "
+                "--profile-hz 29")
+        if self.slo_fast_s <= 0 or self.slo_slow_s <= 0:
+            raise ValueError("SLO windows must be positive")
+        if self.slo_fast_s > self.slo_slow_s:
+            raise ValueError(
+                "slo_fast_s must not exceed slo_slow_s (the slow "
+                "window is what rejects single-window spikes)")
+        if self.slo:
+            # Parsed here: a spec naming an unknown stage would sit in
+            # the registry and never fire.
+            from attendance_tpu_torch.obs.slo import parse_slo
+            for spec in self.slo:
+                parse_slo(spec)
         if self.read_staleness_ceiling_s < 0:
             raise ValueError(
                 "read_staleness_ceiling_s must be >= 0 (0 = no staleness "

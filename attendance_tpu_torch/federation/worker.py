@@ -257,7 +257,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "JSON; its gossip frames then carry the fence span's "
                    "traceparent")
     p.add_argument("--fleet-push", action=_NotPorted,
-                   help="the fleet pusher: ROADMAP item 11d")
+                   help="the fleet pusher: ROADMAP item 11d2")
     p.add_argument("--chaos", default="",
                    help="chaos spec for this worker process (e.g. "
                    "'partition=1500ms:0.05')")

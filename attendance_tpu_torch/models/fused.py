@@ -136,6 +136,15 @@ def fused_step_words(state: SketchState, words: torch.Tensor,
                               key_bits=key_bits, precision=precision)
 
 
+def padded_lanes(n: int) -> int:
+    """The lanes a batch of ``n`` keys is padded to: the next power of
+    two, at least 256 (the JAX package's compiled shapes)."""
+    padded = 256
+    while padded < n:
+        padded *= 2
+    return padded
+
+
 def pack_words(keys, banks, key_bits: int, padded: int) -> np.ndarray:
     """Host-side pack: uint32[padded] of ``bank << key_bits | key`` with
     all-ones words on the padding lanes. A real bank id equal to the

@@ -1,9 +1,11 @@
 """Live telemetry: registry + exposition + flight recorder + span tracing.
 
-Counterpart of ``attendance_tpu/obs/__init__.py``, its telemetry core.
-One process-wide :class:`Telemetry` instance (module global), enabled
-iff a telemetry flag is set (``--metrics-prom``, ``--metrics-port``,
-``--flight-recorder``, ``--trace-out``, ``--audit-sample``).
+Counterpart of ``attendance_tpu/obs/__init__.py``: its telemetry core,
+the SLO engine and the profiler planes. One process-wide
+:class:`Telemetry` instance (module global), enabled iff a telemetry
+flag is set (``--metrics-prom``, ``--metrics-port``,
+``--flight-recorder``, ``--trace-out``, ``--audit-sample``,
+``--alert-log``, ``--slo``, ``--profile-hz``).
 Instrumented call sites capture the global ONCE at construction and pay
 one ``is not None`` branch per hot-path event when telemetry is off:
 nothing is timed or allocated, and the reporter, server, exporter and
@@ -24,12 +26,17 @@ renders the registry: from the pinned read epoch when there is one, else
 from the card, on the default stream behind the run loop's steps (a
 scrape waits for that stream, never for the whole device).
 
+The SLO engine (``obs/slo.py``) ticks on its own thread; its accuracy
+objectives read the same callback gauges, so a tick on a pipeline with
+no read epoch launches K4 and K1 from that thread, on the default
+stream, and never synchronizes the whole device. The launch-shape
+tracker (``obs/profiler.RecompileTracker``) is always on with telemetry;
+the host sampling profiler runs at ``--profile-hz > 0``.
+
 The metric names, labels, help strings and bucket bounds are the JAX
-package's (the scrape contract). Its SLO engine, sampling profiler,
-recompile tracker, incident and control planes and fleet pusher are not
-ported yet: the port's ``Config`` has none of their fields,
-``Telemetry.recompiles`` is None, and :meth:`finalize_slo` and
-:meth:`flush_profile` do nothing.
+package's (the scrape contract). Its incident and control planes and
+its fleet pusher are not ported yet: the port's ``Config`` has none of
+their fields.
 """
 
 from __future__ import annotations
@@ -62,9 +69,14 @@ def _atexit_flush() -> None:
     t = TELEMETRY
     if t is None:
         return
+    # Order matters: classify the SLOs first (a last-moment breach must
+    # land in the alert log AND in the gauges), then write the final
+    # exposition block carrying those gauges, then the trace.
+    t.finalize_slo("atexit")
     if t._reporter is not None:
         t._reporter._write_block()
     t.flush_trace("atexit")
+    t.flush_profile("atexit")
 
 
 def _install_atexit_flush() -> None:
@@ -87,18 +99,25 @@ def enabled_in(config) -> bool:
                 or getattr(config, "metrics_port", 0)
                 or getattr(config, "flight_recorder", 0)
                 or getattr(config, "trace_out", "")
-                or getattr(config, "audit_sample", 0.0))
+                or getattr(config, "audit_sample", 0.0)
+                or getattr(config, "alert_log", "")
+                or getattr(config, "slo", None)
+                or getattr(config, "profile_hz", 0.0))
 
 
 class Telemetry:
-    """Registry + optional reporter/server/flight-recorder/tracer."""
+    """Registry + optional reporter/server/flight-recorder/tracer, SLO
+    engine and profiler planes, one bundle."""
 
     def __init__(self, *, metrics_prom: str = "", metrics_port: int = 0,
                  metrics_interval_s: float = 1.0,
                  flight_recorder: int = 0,
                  flight_path: str = DEFAULT_FLIGHT_PATH,
                  trace_out: str = "", audit_sample: float = 0.0,
-                 metric_series_max: int = 1024):
+                 alert_log: str = "", slo_specs=(),
+                 slo_fast_s: float = 60.0, slo_slow_s: float = 300.0,
+                 metric_series_max: int = 1024,
+                 profile_hz: float = 0.0, profile_out: str = ""):
         self.registry = Registry(max_series=metric_series_max)
         self.flight: Optional[FlightRecorder] = (
             FlightRecorder(flight_recorder) if flight_recorder > 0
@@ -116,9 +135,27 @@ class Telemetry:
         if audit_sample > 0:
             from attendance_tpu_torch.obs.audit import ShadowAuditor
             self.auditor = ShadowAuditor(self.registry, audit_sample)
-        # The JAX bundle's XLA recompile tracker: no counterpart until
-        # the profiler slice.
-        self.recompiles = None
+        # SLO burn-rate engine (obs/slo.py): evaluates declarative
+        # objectives over the registry on its own thread; alert
+        # transitions land in the JSONL log and the flight ring.
+        self.slo = None
+        if alert_log or slo_specs:
+            from attendance_tpu_torch.obs.slo import SloEngine
+            self.slo = SloEngine(self, slo_specs, slo_fast_s, slo_slow_s,
+                                 alert_log,
+                                 interval_s=min(metrics_interval_s,
+                                                max(slo_fast_s / 4, 0.05)))
+        # Attribution plane (obs/profiler.py): the launch-shape tracker
+        # is always on with telemetry (one set lookup a dispatch); the
+        # host sampling profiler only at --profile-hz > 0 (its stage
+        # tracker is what the hot-path marks write into).
+        from attendance_tpu_torch.obs.profiler import RecompileTracker
+        self.recompiles = RecompileTracker(self.registry)
+        self.profiler = None
+        if profile_hz > 0:
+            from attendance_tpu_torch.obs.profiler import SamplingProfiler
+            self.profiler = SamplingProfiler(
+                profile_hz, registry=self.registry, out_dir=profile_out)
         self._reporter = None
         self._server = None
         self._prev_sigusr1 = _NOT_INSTALLED
@@ -150,7 +187,12 @@ class Telemetry:
         if self.flight is not None:
             self._prev_sigusr1 = install_sigusr1(self.flight,
                                                  self.flight_path)
-        if self.tracer is not None or self._reporter is not None:
+        if self.slo is not None:
+            self.slo.start()
+        if self.profiler is not None:
+            self.profiler.start()
+        if (self.tracer is not None or self._reporter is not None
+                or self.slo is not None or self.profiler is not None):
             # Backstop for runs that never reach a run-loop flush; every
             # flush is idempotent.
             _install_atexit_flush()
@@ -158,6 +200,15 @@ class Telemetry:
 
     def stop(self) -> None:
         self.flush_trace("telemetry-stop")
+        if self.profiler is not None:
+            # The sampler thread joined first, then its artifacts
+            # written (with the launch-shape ledger).
+            self.profiler.stop()
+            self.flush_profile("telemetry-stop")
+        if self.slo is not None:
+            # Final tick before the reporter's last block: a firing
+            # alert reaches the log, the flight ring and the gauges.
+            self.slo.stop()
         if self._reporter is not None:
             self._reporter.stop()
             self._reporter = None
@@ -204,12 +255,27 @@ class Telemetry:
         p = self.flight.dump(self.flight_path, reason=reason)
         logger.info("Flight recorder dumped to %s (%s)", p, reason)
 
-    # -- planes not ported yet -----------------------------------------------
+    # -- SLO engine ----------------------------------------------------------
     def finalize_slo(self, reason: str) -> None:
-        """The SLO engine's end-of-run tick: nothing to do without it."""
+        """End-of-run SLO evaluation (no-op without the engine): one last
+        classification tick, so runs shorter than the tick interval still
+        judge their objectives and log any firing alert. The engine keeps
+        running, as the tracer does after flush_trace."""
+        if self.slo is not None:
+            self.slo.finalize(reason)
 
+    # -- profiling -----------------------------------------------------------
     def flush_profile(self, reason: str = "flush") -> None:
-        """The sampling profiler's artifacts: nothing to do without it."""
+        """Write the profile artifacts (collapsed stacks, stage timeline,
+        attribution.json with the launch-shape ledger) to --profile-out:
+        idempotent, a no-op without a profiler, an out dir or a
+        sample."""
+        p = self.profiler
+        if p is None or not p.out_dir or not p.samples:
+            return
+        path = p.write(p.out_dir, recompiles=self.recompiles)
+        logger.info("Profile (%d samples) written under %s (%s)",
+                    p.samples, path.parent, reason)
 
     # -- tracing -------------------------------------------------------------
     def flush_trace(self, reason: str = "flush") -> None:
@@ -229,6 +295,19 @@ class Telemetry:
         return render(self.registry)
 
 
+def _slo_specs_from(config) -> tuple:
+    """The config's SLO specs plus the derived ones: a set
+    ``read_staleness_ceiling_s`` is a staleness SLO (one number, one
+    spelling), derived where the specs are consumed so a Config built
+    in code gets it as the CLI does."""
+    specs = list(getattr(config, "slo", ()) or ())
+    ceiling = getattr(config, "read_staleness_ceiling_s", 0.0)
+    if ceiling and not any(
+            s.replace(" ", "").startswith("read_staleness") for s in specs):
+        specs.append(f"read_staleness<={ceiling}")
+    return tuple(specs)
+
+
 def enable(config) -> Telemetry:
     """Create, start, and install the global Telemetry from config."""
     global TELEMETRY
@@ -244,8 +323,14 @@ def enable(config) -> Telemetry:
                                 DEFAULT_FLIGHT_PATH),
             trace_out=getattr(config, "trace_out", ""),
             audit_sample=getattr(config, "audit_sample", 0.0),
+            alert_log=getattr(config, "alert_log", ""),
+            slo_specs=_slo_specs_from(config),
+            slo_fast_s=getattr(config, "slo_fast_s", 60.0),
+            slo_slow_s=getattr(config, "slo_slow_s", 300.0),
             metric_series_max=getattr(config, "metric_series_max",
-                                      1024))
+                                      1024),
+            profile_hz=getattr(config, "profile_hz", 0.0),
+            profile_out=getattr(config, "profile_out", ""))
         t.start()
         TELEMETRY = t
         return t

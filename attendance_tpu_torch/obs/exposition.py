@@ -570,11 +570,9 @@ def format_file(path: str, last: int = 32) -> str:
     if stripped.startswith("{"):
         doc = json.loads(text)
         if doc.get("kind") == "attribution":
-            # The sampling profiler's attribution document: its table
-            # lives with the profiler, which the port does not have.
-            raise NotImplementedError(
-                "attribution documents need the sampling profiler, "
-                "which attendance_tpu_torch does not port yet")
+            from attendance_tpu_torch.obs.profiler import (
+                format_attribution_table)
+            return format_attribution_table(doc)
         if "traceEvents" in doc:
             return format_trace_tree(doc, last=last)
         return format_flight_table(doc, last=last)

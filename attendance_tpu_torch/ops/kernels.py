@@ -35,6 +35,38 @@ launches = {"hll_histogram": 0, "fused_step": 0, "fused_step_seg": 0,
             "bloom_add_slice": 0, "decode_seg": 0, "decode_delta": 0}
 
 
+# The __global__ functions of csrc/sketch_kernels.cu that one call of each
+# wrapper of :data:`launches` may launch (a path a plan picks, a pass of
+# two): what a profiler trace's device kernel events are named after.
+_BLOOM_ADD_KERNELS = ("bloom_add_keys_kernel", "bloom_tile_count_kernel",
+                      "bloom_tile_scatter_kernel", "bloom_tile_or_kernel")
+KERNEL_FUNCTIONS = {
+    "hll_histogram": ("hll_histogram_kernel",),
+    "hll_histogram_rows": ("hll_histogram_kernel",),
+    "hll_union_histogram": ("hll_union_histogram_kernel",),
+    "fused_step": ("fused_step_kernel",),
+    "fused_step_seg": ("fused_step_kernel",),
+    "fused_step_delta": ("fused_step_kernel", "delta_sums_kernel"),
+    "decode_seg": ("decode_lanes_kernel",),
+    "decode_delta": ("decode_lanes_kernel", "delta_sums_kernel"),
+    "bloom_add": _BLOOM_ADD_KERNELS,
+    "bloom_add_slice": _BLOOM_ADD_KERNELS,
+    "bloom_contains": ("bloom_contains_kernel",),
+    "hll_add": ("hll_add_kernel",),
+    "cms_step": ("cms_update_kernel", "cms_query_kernel"),
+    "bloom_add_bytes": ("bloom_add_bytes_kernel", "bloom_add_partial_kernel",
+                        "bloom_merge_partials_kernel"),
+    "bloom_contains_bytes": ("bloom_contains_bytes_kernel",
+                             "bloom_pack_bytes_kernel",
+                             "bloom_contains_image_kernel",
+                             "bloom_contains_kernel"),
+    "bloom_pack_bytes": ("bloom_pack_bytes_kernel",),
+    "bloom_contains_slice": ("bloom_contains_slice_kernel",
+                             "bloom_contains_slice_compact_kernel"),
+    "hll_add_slice": ("hll_add_slice_kernel",),
+}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0

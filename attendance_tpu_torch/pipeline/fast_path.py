@@ -69,6 +69,17 @@ trace the producer started, and one flight record a frame. Every hook
 reads host clocks only: ``device_wait`` times the wait on a frame's own
 completion event at its drain, which the run loop makes anyway.
 
+Attribution (``obs/profiler.py``): with ``--profile-hz`` the hot loop
+marks its stage (dequeue, decode, dispatch, temporal, device_wait; the
+writer thread snapshot) at the transitions the stage histograms time,
+for the host sampler; every dispatch site reports the JAX package's
+``fn`` name and shape fingerprint to the launch-shape tracker (always on
+with telemetry), which turns warm after the first completed run. With
+``--profile-dir`` each run is a ``torch.profiler`` trace
+(``utils/profiling.py``), the single-card dispatch a
+``fused_step_dispatch`` range, the mesh's ``sharded_fused_step`` or
+``sharded_narrow_step``, and a traced batch a ``trace:<id>`` range.
+
 Federation: with ``fed_worker`` set the pipeline is one shard's worker
 (``federation/``). A full merge frame (the Bloom words and every bank)
 goes to the gossip topic at preload, restore and every base snapshot,
@@ -119,7 +130,8 @@ from attendance_tpu_torch.models.bloom import (
 from attendance_tpu_torch.models.fused import (
     bank_wire_dtype, decode_counts, delta_scan, fused_step_bytes,
     fused_step_delta, fused_step_seg, fused_step_words, init_state,
-    pack_bytes, pack_delta, pack_seg, pack_words, pick_delta_width,
+    pack_bytes, pack_delta, pack_seg, pack_words, padded_lanes,
+    pick_delta_width,
     snapshot_capture_base, snapshot_capture_rows, state_from_numpy)
 from attendance_tpu_torch.models.hll import (
     best_histogram, estimate_from_histogram, hll_add)
@@ -147,6 +159,8 @@ from attendance_tpu_torch.transport.memory_broker import ReceiveTimeout
 from attendance_tpu_torch.utils.integrity import (
     ChainIntegrityError, chaos_post_publish, chaos_pre_write, file_digest,
     quarantine_artifact, structural_npz_check, verify_file)
+from attendance_tpu_torch.utils.profiling import (
+    annotate_trace, maybe_annotate, maybe_trace)
 from attendance_tpu_torch.utils.snapshot import (
     fsync_write_npz, write_manifest_atomic)
 
@@ -465,6 +479,14 @@ class FusedPipeline:
         self._busy: Optional[Dict[str, float]] = None
         self._c_xfer: Optional[dict] = None
         self._last_wire = ""
+        # Attribution plane: the launch-shape tracker and the sampling
+        # profiler's stage marks, one `is not None` branch each when off;
+        # the torch.profiler ranges only with --profile-dir.
+        self._recomp = (self._obs.recompiles if self._obs is not None
+                        else None)
+        prof = self._obs.profiler if self._obs is not None else None
+        self._stage_mark = prof.stages if prof is not None else None
+        self._profiling = bool(self.config.profile_dir)
         if self._obs is not None:
             self._init_telemetry()
         # A mesh (num_shards * num_replicas > 1): the sketch state lives
@@ -629,7 +651,7 @@ class FusedPipeline:
                 alloc_bank=self._register_temporal_bucket,
                 free_buckets=self._free_temporal_buckets,
                 mark_dirty=self._mark_temporal_dirty,
-                dispatch_add=self._temporal_dispatch)
+                dispatch_add=self._temporal_dispatch, obs=self._obs)
         # The epoch-pinned read mirror (serve/): host register state
         # published as immutable epochs at preload, restore and every
         # snapshot barrier, from copies the writer already holds, so the
@@ -949,6 +971,13 @@ class FusedPipeline:
         into their bucket rows (bank -1 lanes drop). Launched on the
         current ``state.hll_regs`` after the frame's step, so it is
         acknowledged with the frame."""
+        if self._recomp is not None:
+            # The JAX package's fingerprint: its compiled add takes the
+            # keys padded to a power of two. The port launches K4/K5 at
+            # the frame's own length, so this site's steady count says
+            # nothing of the launch shape.
+            self._note_compile("temporal_window_add",
+                               padded_lanes(len(keys)))
         keys_t = self._to_device(
             np.ascontiguousarray(keys, np.uint32).view(np.int32))
         banks_t = self._to_device(np.ascontiguousarray(banks, np.int32))
@@ -1005,6 +1034,9 @@ class FusedPipeline:
         copies). A frame that does not decode raises :class:`PoisonFrame`
         before any state changes."""
         obs_t = self._obs
+        st = self._stage_mark
+        if st is not None:
+            st.set("decode")
         t0 = t = time.perf_counter()
         if isinstance(data, memoryview):
             # A frame borrowed from a shm ring slot: the slot is recycled
@@ -1017,6 +1049,8 @@ class FusedPipeline:
         except Exception as exc:
             raise PoisonFrame(f"undecodable frame: {exc!r}") from exc
         t = t_dec = self._lap("decode", t)
+        if st is not None:
+            st.set("dispatch")
         n = len(cols["student_id"])
         if n == 0:
             return None, None, []
@@ -1043,10 +1077,9 @@ class FusedPipeline:
         if self.engine is not None:
             valid_n, stored = self._dispatch_sharded(cols, n)
         else:
-            padded = 256
-            while padded < n:
-                padded *= 2
-            valid, perm = self._dispatch_single(cols, padded)
+            padded = padded_lanes(n)
+            with maybe_annotate(self._profiling, "fused_step_dispatch"):
+                valid, perm = self._dispatch_single(cols, padded)
             valid_n = valid[:n]
             # The seg/delta wires answer in bank-sorted order: the store
             # keeps rows in original order with a lazy view that scatters
@@ -1058,8 +1091,12 @@ class FusedPipeline:
             # After the day map and the step, as in the JAX package: days
             # take their banks first, then new buckets take theirs.
             t = time.perf_counter()
+            if st is not None:
+                st.set("temporal")
             self._temporal.observe_frame(cols)
             t_tmp = self._lap("temporal", t) - t
+            if st is not None:
+                st.set("dispatch")
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -1223,6 +1260,15 @@ class FusedPipeline:
             self._obs.wire(key).inc()
             self._count_xfer("frame", "h2d", nbytes, wire=key)
 
+    def _note_compile(self, fn: str, *fingerprint) -> None:
+        """Report one dispatch's shape fingerprint to the launch-shape
+        tracker (``obs/profiler.RecompileTracker``), at the dispatch
+        sites themselves, like _count_wire, with the JAX package's ``fn``
+        names and fingerprints. One set lookup a frame."""
+        rc = self._recomp
+        if rc is not None:
+            rc.observe(fn, fingerprint)
+
     def _lut_covers(self, day) -> bool:
         off = int(day) - self._day_base
         return 0 <= off < self._LUT_SIZE and self._day_lut[off] >= 0
@@ -1344,22 +1390,28 @@ class FusedPipeline:
         if wire == "auto":
             wire = self._auto_wire()
         if wire in ("seg", "delta"):
-            valid, lanes, orig = self._dispatch_sharded_narrow(
-                sid, banks, days, n, wire, t)
+            with maybe_annotate(self._profiling, "sharded_narrow_step"):
+                valid, lanes, orig = self._dispatch_sharded_narrow(
+                    sid, banks, days, n, wire, t)
             return valid, _ScatterValidity(valid, orig, n, lanes=lanes)
         num_banks = self._num_banks()
         kw = self._pick_kw(int(sid.max()).bit_length(), num_banks)
-        if kw + num_banks.bit_length() <= 32:
-            self._kw_hint = kw
-            words = pack_words(sid, banks, kw, self.engine.padded_size(n))
-            t = self._lap("pack", t)
-            self._count_wire("word", words.nbytes)
-            valid = self.engine.step_words(words, n, kw)
-        else:
-            # Keys and bank ids: 8 bytes a padded lane.
-            self._note_word_degrade()
-            self._count_wire("arrays", 8 * self.engine.padded_size(n))
-            valid = self.engine.step(sid, banks)
+        with maybe_annotate(self._profiling, "sharded_fused_step"):
+            if kw + num_banks.bit_length() <= 32:
+                self._kw_hint = kw
+                words = pack_words(sid, banks, kw,
+                                   self.engine.padded_size(n))
+                t = self._lap("pack", t)
+                self._count_wire("word", words.nbytes)
+                self._note_compile("sharded_step_words", kw, len(words))
+                valid = self.engine.step_words(words, n, kw)
+            else:
+                # Keys and bank ids: 8 bytes a padded lane.
+                self._note_word_degrade()
+                self._count_wire("arrays", 8 * self.engine.padded_size(n))
+                self._note_compile("sharded_step_arrays",
+                                   self.engine.padded_size(n))
+                valid = self.engine.step(sid, banks)
         self._lap("dispatch", t)
         return valid, valid
 
@@ -1462,6 +1514,7 @@ class FusedPipeline:
         if self._obs is not None:
             engine.note_shard_events(
                 [bounds[r + 1] - bounds[r] for r in range(dp)])
+        self._note_compile(f"sharded_step_{mode}", width, padded_local)
         valid = engine.step_narrow(bufs, mode, width, padded_local)
         self._lap("dispatch", t)
         return valid, lanes, orig
@@ -1473,11 +1526,13 @@ class FusedPipeline:
         if use_words:
             self._kw_hint = kw
             self._count_wire("word", buf.nbytes)
+            self._note_compile("step_words", kw, len(buf))
             valid = fused_step_words(self.state,
                                      self._to_device(buf.view(np.int32)),
                                      self.params, kw, prec)
         else:
             self._count_wire("bytes", buf.nbytes)
+            self._note_compile("step_bytes", len(buf))
             valid = fused_step_bytes(self.state, self._to_device(buf),
                                      self.params,
                                      np.dtype(self._bank_dtype).itemsize,
@@ -1567,6 +1622,7 @@ class FusedPipeline:
                        ) -> torch.Tensor:
         """K2-seg or K2-delta over a packed buffer."""
         self._count_wire(mode, buf.nbytes)
+        self._note_compile(f"step_{mode}", width, padded, num_banks)
         step = fused_step_seg if mode == "seg" else fused_step_delta
         valid = step(self.state, self._to_device(buf.view(np.int32)),
                      self.params, width, padded, num_banks,
@@ -1652,8 +1708,9 @@ class FusedPipeline:
         pinned = [p for _, _, ps, _ in self._inflight for p in ps]
         if self._snap_mode == "delta" and not self._base_stale:
             banks = self._drain_dirty_banks()
-            idx, idx_pinned = to_device(self._pad_bank_index(banks),
-                                        self.device)
+            idx_h = self._pad_bank_index(banks)
+            self._note_compile("snapshot_capture", len(idx_h))
+            idx, idx_pinned = to_device(idx_h, self.device)
             if idx_pinned is not None:
                 pinned.append(idx_pinned)
             rows, counts = snapshot_capture_rows(self.state.hll_regs, idx,
@@ -1839,6 +1896,8 @@ class FusedPipeline:
     def _run_snap_job_logged(self, job: dict) -> None:
         t0 = time.perf_counter()
         inj = self._chaos
+        st = self._stage_mark
+        prev_stage = st.set("snapshot") if st is not None else None
         try:
             if inj is not None:
                 stall = inj.stall_s("snapshot.writer")
@@ -1890,6 +1949,8 @@ class FusedPipeline:
                     "%d, next attempt in %.2fs)", self._snap_fail_streak,
                     self._writer_backoff_s())
         finally:
+            if st is not None:
+                st.restore(prev_stage)
             t_done = time.perf_counter()
             self.metrics.snapshot_stalls.append(t_done - t0)
             if self._obs is not None:
@@ -2491,15 +2552,21 @@ class FusedPipeline:
         With telemetry on, every frame drained on the card records its
         ``device_wait``: the host time from the query of its completion
         event to the end of the wait on it (0 when the card was done),
-        a host clock around the wait the drain makes anyway."""
+        a host clock around the wait the drain makes anyway. The
+        profiler's ``device_wait`` stage mark spans the same interval."""
         if self.checkpointing:
             return
+        st = self._stage_mark
         while self._inflight:
             msg, done, _pinned, span = self._inflight[0]
             if done is not None:
                 t_w = time.perf_counter() if self._obs is not None else 0.0
+                prev_stage = (st.set("device_wait") if st is not None
+                              else None)
                 if not done.query():
                     if block == 0:
+                        if st is not None:
+                            st.restore(prev_stage)
                         break
                     if block > 0:
                         # The hot loop stalls on a full deque: the card
@@ -2514,6 +2581,8 @@ class FusedPipeline:
                 if self._obs is not None:
                     self._observe_device_wait(t_w, time.perf_counter(),
                                               span)
+                if st is not None:
+                    st.restore(prev_stage)
             self.consumer.acknowledge(msg)
             self._inflight.popleft()
 
@@ -2545,7 +2614,8 @@ class FusedPipeline:
             self._last_dispatch_t = 0.0
             self._last_dequeue_s = 0.0
         try:
-            self._run_loop(max_events, idle_timeout_s)
+            with maybe_trace(self.config.profile_dir, self.device):
+                self._run_loop(max_events, idle_timeout_s)
         except Exception:
             # The crash forensics: the ring holds the last N per-batch
             # records leading up to this exception.
@@ -2570,6 +2640,11 @@ class FusedPipeline:
             self._obs.finalize_slo("run-end")
             self._obs.flush_trace("run-end")
             self._obs.flush_profile("run-end")
+            if self._recomp is not None:
+                # Steady-state contract: warm-up shapes end with the
+                # first completed run; a new fingerprint after this is a
+                # shape leak doctor's --recompile-ceiling gates at 0.
+                self._recomp.mark_warm()
 
     def _begin_batch_span(self, msg, t_rx: float, t_got: float):
         """The per-batch span continuing the trace the producer put in
@@ -2586,7 +2661,10 @@ class FusedPipeline:
     def _run_loop(self, max_events: Optional[int],
                   idle_timeout_s: float) -> None:
         idle_since = time.monotonic()
+        st = self._stage_mark
         while True:
+            if st is not None:
+                st.set("dequeue")
             t = time.perf_counter()
             try:
                 msg = self.consumer.receive(timeout_millis=50)
@@ -2624,8 +2702,10 @@ class FusedPipeline:
                     _valid, done, pinned = self.process_frame(msg.data())
                 else:
                     # Activated: the decode/dispatch spans and the mesh's
-                    # replica spans nest under the batch span.
-                    with self._tracer.activate(span):
+                    # replica spans nest under the batch span; a profile
+                    # trace names the batch's range after its trace id.
+                    with self._tracer.activate(span), annotate_trace(
+                            self._profiling, span):
                         _valid, done, pinned = self.process_frame(
                             msg.data())
             except (PoisonFrame, PersistFault):

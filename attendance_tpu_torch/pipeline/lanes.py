@@ -30,7 +30,9 @@ copies and launches stay on the dispatch thread and its stream.
 
 The port's lanes read only the chunk lane, which every port consumer
 (memory, socket, shm) has; the JAX package's raw and ``Message``
-fallbacks and its profiler marks are not ported.
+fallbacks are not ported. With the sampling profiler on, a lane thread
+marks its stage ``lane_decode`` once (sticky: the thread does nothing
+else).
 
 Telemetry (``obs``): the chunk consumer records the ``decode`` stage of
 its JSON chunks; each lane counts its events
@@ -411,6 +413,10 @@ class IngressLane:
                 "attendance_ingress_lane_queue_depth",
                 help="Decoded blocks parked in each lane's SPSC queue",
                 lane=lane).set_function(lambda q=q: float(len(q)))
+        # Sampling-profiler stage mark (obs/profiler.py): a lane thread
+        # is single-purpose, so _run marks it once (sticky).
+        prof = obs.profiler if obs is not None else None
+        self._stage_mark = prof.stages if prof is not None else None
         self.thread = threading.Thread(
             target=self._run, name=f"ingress-lane-{index}", daemon=True)
 
@@ -490,6 +496,8 @@ class IngressLane:
         return self._paused.is_set()
 
     def _run(self) -> None:
+        if self._stage_mark is not None:
+            self._stage_mark.set("lane_decode")
         while not self._stop.is_set():
             self._drain_settlements()
             if self._paused.is_set():

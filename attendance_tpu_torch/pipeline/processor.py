@@ -1,11 +1,13 @@
 """Micro-batched stream processor: the reference's own loop, rebuilt.
 
-Counterpart of ``attendance_tpu/pipeline/processor.py`` (without its
-profiling hooks). The fault plane and the persist sink's circuit
+Counterpart of ``attendance_tpu/pipeline/processor.py``. The fault plane and the persist sink's circuit
 breaker wrap its store (``storage.wrap_store``). With telemetry on
 it records the ``batch_assembly``, ``sketch`` and ``persist`` stages,
 events and batches, a flight record a batch and, with tracing, a batch
-span with ``bf_exists``, ``persist`` and ``pfadd`` children.
+span with ``bf_exists``, ``persist`` and ``pfadd`` children. With
+``--profile-dir`` each run is a ``torch.profiler`` trace (CUDA activity
+on the card store's device) whose sketch calls are ``bf_exists_batch``
+and ``pfadd_batch`` ranges.
 The reference costs three service round trips an event:
 ``receive()`` -> ``BF.EXISTS`` -> Cassandra INSERT -> ``PFADD`` -> ack.
 This processor keeps its observable semantics (validity from the Bloom
@@ -46,6 +48,7 @@ from attendance_tpu_torch.storage.memory_store import AttendanceRow
 from attendance_tpu_torch.transport import (
     PoisonTracker, acknowledge_all, collect_batch, handle_poison,
     make_client, redelivery_count)
+from attendance_tpu_torch.utils.profiling import maybe_annotate, maybe_trace
 from attendance_tpu_torch.utils.snapshot import (
     fsync_dir, restore_sketch_store, snapshot_sketch_store,
     snapshot_sketch_store_chain)
@@ -183,6 +186,9 @@ class AttendanceProcessor:
         self.metrics = ProcessorMetrics()
         # Client-side poison-attempt bound (transport.PoisonTracker).
         self._poison = PoisonTracker()
+        # --profile-dir: a torch.profiler trace of each run, with the
+        # sketch calls as bf_exists_batch / pfadd_batch ranges.
+        self._profiling = bool(self.config.profile_dir)
         # Optional side topic for computed-invalid events (the stored
         # row keeps is_valid=false either way).
         self._invalid_producer = (
@@ -296,8 +302,9 @@ class AttendanceProcessor:
 
         # 1. Batched BF.EXISTS: validity is recomputed, the event's
         #    ground-truth flag is ignored.
-        is_valid = np.asarray(self.sketch.bf_exists_many(
-            self.config.bloom_filter_key, student_ids))
+        with maybe_annotate(self._profiling, "bf_exists_batch"):
+            is_valid = np.asarray(self.sketch.bf_exists_many(
+                self.config.bloom_filter_key, student_ids))
         d_bf = time.perf_counter() - t0
         self.metrics.device_seconds += d_bf
 
@@ -320,10 +327,11 @@ class AttendanceProcessor:
         for e, v in zip(events, is_valid):
             if v:
                 by_lecture.setdefault(e.lecture_id, []).append(e.student_id)
-        for lecture_id, members in by_lecture.items():
-            self.sketch.pfadd_many(
-                f"{self.config.hll_key_prefix}{lecture_id}",
-                np.array(members, dtype=np.int64))
+        with maybe_annotate(self._profiling, "pfadd_batch"):
+            for lecture_id, members in by_lecture.items():
+                self.sketch.pfadd_many(
+                    f"{self.config.hll_key_prefix}{lecture_id}",
+                    np.array(members, dtype=np.int64))
         d_pf = time.perf_counter() - t1
         self.metrics.device_seconds += d_pf
         if self._obs is not None:
@@ -479,8 +487,10 @@ class AttendanceProcessor:
             pending_acks.clear()
 
         try:
-            self._consume_loop(max_events, idle_timeout_s, idle_since,
-                               checkpoint_and_ack, pending_acks)
+            with maybe_trace(self.config.profile_dir,
+                             getattr(self.sketch, "device", None)):
+                self._consume_loop(max_events, idle_timeout_s, idle_since,
+                                   checkpoint_and_ack, pending_acks)
         except KeyboardInterrupt:
             logger.info("Stopping attendance processing...")
         except Exception:

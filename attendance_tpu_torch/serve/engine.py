@@ -82,6 +82,10 @@ class QueryEngine:
         self.staleness_ceiling_s = staleness_ceiling_s
         self._obs = obs
         self._tracer = obs.tracer if obs is not None else None
+        # Sampling-profiler stage mark (obs/profiler.py): serve threads
+        # are single-purpose, so pin() marks them "serve" once (sticky).
+        prof = obs.profiler if obs is not None else None
+        self._stage_mark = prof.stages if prof is not None else None
         self._pinned = threading.local()
         self._counters: Dict[str, object] = {}
         self._key_counters: Dict[str, object] = {}
@@ -100,6 +104,8 @@ class QueryEngine:
 
     # -- epoch access ------------------------------------------------------------
     def pin(self) -> Epoch:
+        if self._stage_mark is not None:
+            self._stage_mark.set("serve")
         epoch = self._source.pin()
         if epoch is None:
             raise NoEpoch("no epoch published yet: preload, restore or a "

@@ -41,6 +41,7 @@ import torch
 
 from attendance_tpu_torch.device import to_device
 from attendance_tpu_torch.models.cms import TopK, cms_init, cms_step
+from attendance_tpu_torch.models.fused import padded_lanes
 from attendance_tpu_torch.temporal.buckets import bucket_keys, period_micros
 from attendance_tpu_torch.temporal.reorder import ReorderStage
 from attendance_tpu_torch.temporal.windows import BucketRing
@@ -53,8 +54,11 @@ _CMS_FOLD_BLOCKS = 64  # staged (keys, est) blocks before an early fold
 
 class TemporalPlane:
     def __init__(self, config, *, device: torch.device, alloc_bank,
-                 free_buckets, mark_dirty, dispatch_add):
+                 free_buckets, mark_dirty, dispatch_add, obs=None):
         self.device = device
+        # Attribution plane (obs/profiler.py): the CMS step reports its
+        # fingerprint to the launch-shape tracker, as the fused steps do.
+        self._recomp = obs.recompiles if obs is not None else None
         self.period_us = period_micros(config.temporal_period_s)
         self.reorder = ReorderStage(
             int(round(config.allowed_lateness_s * 1e6)),
@@ -158,6 +162,12 @@ class TemporalPlane:
             return
         # CMS: one update+query step; the estimates stay on the device
         # until the fold. No padding: the card has no compile cache.
+        if self._recomp is not None:
+            # The JAX package's fingerprint: the power-of-two padded
+            # lanes its compiled step takes. K6 launches at the batch's
+            # own length, so this site's steady count says nothing of
+            # the launch shape.
+            self._recomp.observe("cms_step", (padded_lanes(len(sids)),))
         keys, pinned = to_device(sids.view(np.int32), self.device)
         est = cms_step(self.cms_counts, keys)
         self._cms_staged.append((sids, est, pinned))

@@ -287,16 +287,41 @@ Phases (any failure exits non-zero):
      after it), K1 and K4 by its gates' reads and the restore; (c) the
      ``fused`` default with
      ``--chaos off`` (the injector installed, never firing) and with no
-     injector, three runs a side interleaved (reported, not gated);
+     injector, three runs a side interleaved (reported, not gated); each
+     soak's step 4, ``doctor`` over its prom file and alert log, must
+     pass;
+  14. SLOs, the profilers and ``doctor`` on the card (after 13): (a) the
+     ``fused`` default with telemetry off and with ``--metrics-prom``,
+     ``--alert-log``, ``--profile-hz 97``, ``--profile-out``,
+     ``--audit-sample 0.01`` and ``--slo throughput>=1e6 --slo
+     dispatch_p99<=0.05 --slo fpr<=0.015``, three sessions a side
+     interleaved, each one pipeline run twice on the same seed's frames
+     (rates, the on/off ratio of the medians): launch shapes counted in
+     run 1 and none new in run 2, an attribution with a ``dispatch``
+     stage, no firing line, ``doctor --recompile-ceiling 0 --fpr-ceiling
+     0.015`` exit 0, the state phase 3's; the SLO ticks a session and the
+     K4/K1 launches one tick adds; (b) ``--slo fpr<=0.0001`` at 0.4/1.6 s
+     windows fires from the engine's thread (its K4 counted) before a
+     10 s deadline, then ``doctor`` exits 1 naming
+     ``bloom_measured_fpr``; (c) ``--profile-dir`` on the ``fused``
+     default (a cold and a warm trace) and on the processor over the
+     card store (about 20,000 events): a ``fused_step_dispatch`` range a
+     frame, ``bf_exists_batch`` and ``pfadd_batch``, and for every
+     launch inside a trace at least one CUDA kernel event of the
+     functions it launches (keys that share a function counted as one
+     group); the kernel share and the busy share (kernels, copies and
+     memsets as a union of intervals) of the traced window, the rate
+     over off and the trace's size. No "SLO tick failed" record, and no engine or
+     sampler thread left after it;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
      run and the oracle's reads), phase 10(c)'s five mesh runs and
-     phases 11's, 12's and 13's runs (each also printed on a line of its
-     own; 12's count the scrapes' K4, K9 and K1 launches, 13's its fault
-     runs and the restore); phase 5 prints its own runs' counts on a
-     line of its own.
+     phases 11's, 12's, 13's and 14's runs (each also printed on a line
+     of its own; 12's count the scrapes' K4, K9 and K1 launches, 13's its
+     fault runs and the restore, 14's its SLO ticks); phase 5 prints its
+     own runs' counts on a line of its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -306,6 +331,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -4969,6 +4995,9 @@ def chaos_phase(card: str, dev, stream) -> dict:
                   f"the gates' reads and the restore "
                   f"{ {k: v for k, v in reads.items() if v} }")
             check(report["ok"], f"{what}: {report['failures']}")
+            # Step 4: doctor over the fault run's prom file and alert log.
+            check(report.get("doctor_ok") is True,
+                  f"{what}: doctor verdict {report.get('doctor_ok')}")
             for name in SOAK_RUN_KERNELS:
                 check(run_launches.get(name, 0) > 0,
                       f"{what}: kernel {name} not launched in the fault run")
@@ -5019,6 +5048,468 @@ def chaos_phase(card: str, dev, stream) -> dict:
     print(f"chaos phase: {time.perf_counter() - t_phase} s")
     print(f"chaos phase launches (its fault runs and restore; in the "
           f"kernels line): { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+# -- 14. SLOs, the sampling profiler and --profile-dir on the card ----------
+SLO_RUNS = 3  # 14(a): telemetry-off and -on sessions, interleaved
+# 14(a)'s objectives: the 1.5% FPR ceiling of PERF.md section 2 (the 1%
+# default sits 6% above the measured 0.94%), a throughput floor and a
+# dispatch-stage p99 ceiling.
+SLO_SPECS = ("throughput>=1e6", "dispatch_p99<=0.05", "fpr<=0.015")
+SLO_ALERT_DEADLINE_S = 10.0  # 14(b): the wait for a firing line
+PROFILE_HZ = 97
+PROFILE_PROC_STUDENTS = 1_850  # 14(c): about 20,000 generator events
+
+
+class _ErrorRecords(logging.Handler):
+    """The ERROR records of one logger, kept."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+class _LaunchThreads:
+    """The thread names that called the K4 and K1 wrappers, by wrapper,
+    while installed (the callers reach them through the module)."""
+
+    NAMES = ("bloom_contains", "hll_histogram")
+
+    def __init__(self):
+        from attendance_tpu_torch.ops import kernels
+        self._kernels = kernels
+        self.callers = {name: [] for name in self.NAMES}
+        self._real = {}
+
+    def __enter__(self):
+        import threading
+        for name in self.NAMES:
+            real = self._real[name] = getattr(self._kernels, name)
+
+            def spy(*args, _real=real, _seen=self.callers[name], **kw):
+                _seen.append(threading.current_thread().name)
+                return _real(*args, **kw)
+
+            setattr(self._kernels, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self._kernels, name, real)
+
+    def on(self, thread: str, name: str) -> int:
+        return sum(c == thread for c in self.callers[name])
+
+
+def _two_runs(config, stream, checks, after=None):
+    """One pipeline on the card, the default stream twice through it (the
+    same seed's frames; the second run is on a warm pipeline); returns
+    the two runs' events/s and the launches of both, counted from 0 just
+    before the first and read just after the second. ``checks(pipe,
+    run)`` runs after each run, ``after(pipe)`` after both, before the
+    pipeline's cleanup."""
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    num_events, frame_size, num_lectures = stream
+    pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()))
+    rates = []
+    try:
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        kernels.reset_launches()
+        for run in (1, 2):
+            roster, frames = generate_frames(
+                num_events, frame_size,
+                roster_size=min(config.bloom_filter_capacity, num_events),
+                num_lectures=num_lectures, seed=0)
+            if run == 1:
+                pipe.preload(roster)
+            for f in frames:
+                producer.send(f)
+            pipe.run(max_events=num_events * run, idle_timeout_s=1.0)
+            rates.append(num_events / pipe.metrics.wall_seconds)
+            checks(pipe, run)
+        run_launches = dict(kernels.launches)
+        if after is not None:
+            after(pipe)
+        return rates, run_launches
+    finally:
+        pipe.cleanup()
+
+
+def _doctor_cli(argv) -> tuple:
+    """``python -m attendance_tpu_torch doctor`` in this process: (exit
+    code, its printed verdict)."""
+    import contextlib
+    import io
+
+    from attendance_tpu_torch import cli
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(["doctor"] + argv)
+        except SystemExit as e:
+            code = e.code
+    return code, out.getvalue()
+
+
+def _slo_sessions(card: str, ref, stream, work, launches: dict) -> list:
+    """14(a): the ``fused`` default with telemetry off and with the SLO
+    engine, the sampler, the audit and a prom file on, SLO_RUNS sessions
+    a side interleaved, each one pipeline run twice on the same seed's
+    frames; the gates on every on session. Returns the off rates (first
+    runs), for 14(c)."""
+    import threading
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.obs.profiler import ATTRIBUTION_FILE
+    from attendance_tpu_torch.ops import kernels
+
+    num_events, frame_size, num_lectures = stream
+    rates = {"off": ([], []), "on": ([], [])}
+    for i in range(SLO_RUNS):
+        for mode in ("off", "on"):
+            what = f"slo (a) session {i} telemetry {mode}"
+            tel = {}
+            if mode == "on":
+                tel = dict(metrics_prom=str(work / f"a{i}.prom"),
+                           alert_log=str(work / f"a{i}-alerts.jsonl"),
+                           profile_hz=PROFILE_HZ,
+                           profile_out=str(work / f"a{i}-profile"),
+                           audit_sample=0.01, slo=list(SLO_SPECS))
+            config = Config(**tel)
+            t = obs.enable(config) if mode == "on" else None
+            seen = {}
+
+            def checks(pipe, run, t=t, seen=seen, what=what):
+                check(pipe.validity_counts() == tuple(
+                    run * x for x in ref[0]),
+                      f"{what} run {run}: counters differ from phase 3's "
+                      "default run (times the runs)")
+                check({str(d): n for d, n in sorted(
+                    pipe.count_all().items())} == ref[1],
+                      f"{what} run {run}: PFCOUNTs differ")
+                check(torch.equal(pipe.state.hll_regs, ref[2]),
+                      f"{what} run {run}: registers differ")
+                if run == 1:
+                    check(np.array_equal(pipe.store.to_columns(
+                        deduplicate=False)["is_valid"], ref[3]),
+                          f"{what}: stored validity differs")
+                if t is None:
+                    return
+                seen[run] = (t.recompiles.total, t.recompiles.steady,
+                             len(t.slo._state["throughput"].samples))
+
+            def after(pipe, t=t, seen=seen):
+                if t is None:
+                    return
+                # The engine's thread stopped, then one tick on this
+                # thread with nothing in flight: the launches a tick adds.
+                t.slo._stop.set()
+                t.slo._thread.join(timeout=10.0)
+                t.slo._thread = None
+                kernels.reset_launches()
+                t.slo.tick()
+                seen["tick"] = dict(kernels.launches)
+                # Telemetry stopped while the pipeline is alive: the last
+                # prom block carries the health and audit gauges.
+                obs.disable()
+
+            try:
+                (r1, r2), run_launches = _two_runs(config, stream, checks,
+                                                   after)
+                rates[mode][0].append(r1)
+                rates[mode][1].append(r2)
+                if t is None:
+                    continue
+                per_tick = {k: v for k, v in seen["tick"].items() if v}
+                for name, count in run_launches.items():
+                    launches[name] += count + seen["tick"][name]
+                check(seen[1][0] > 0, f"{what}: no launch shape counted "
+                      "in run 1")
+                check(seen[2][1] == 0, f"{what}: {seen[2][1]} steady "
+                      f"launch shapes after run 2 "
+                      f"{t.recompiles.snapshot()['fingerprints']}")
+                check(seen[2][0] == seen[1][0],
+                      f"{what}: run 2 counted new shapes")
+            finally:
+                obs.disable()
+            if t is None:
+                continue
+            for name in ("bloom_contains", "hll_histogram"):
+                check(per_tick.get(name, 0) > 0,
+                      f"{what}: a tick launched no {name} ({per_tick})")
+            doc = json.loads((work / f"a{i}-profile"
+                              / ATTRIBUTION_FILE).read_text())
+            check(doc["samples_total"] > 0 and "dispatch" in doc["stages"],
+                  f"{what}: attribution {doc['stages']}")
+            alerts = (work / f"a{i}-alerts.jsonl").read_text()
+            check('"firing"' not in alerts, f"{what}: alert log {alerts}")
+            code, verdict = _doctor_cli(
+                [config.metrics_prom, config.alert_log,
+                 "--recompile-ceiling", "0", "--fpr-ceiling", "0.015"])
+            print(f"{what}: doctor exit {code}\n{verdict.rstrip()}")
+            check(code == 0, f"{what}: doctor exit {code}")
+            print(f"{what}: events/s run 1 {rates['on'][0][-1]} run 2 "
+                  f"{rates['on'][1][-1]} on {card}; launch shapes "
+                  f"{seen[1][0]} after run 1, steady {seen[2][1]} after "
+                  f"run 2; SLO ticks {seen[2][2]} in the session; a "
+                  f"tick's launches {per_tick}; profile "
+                  f"{doc['samples_total']} samples, top {doc['top']}")
+    for k, label in ((0, "first"), (1, "second")):
+        off = float(np.median(rates["off"][k]))
+        on = float(np.median(rates["on"][k]))
+        print(f"slo (a) fused default {label} runs, events/s off "
+              f"{rates['off'][k]} on {rates['on'][k]}; medians off {off} "
+              f"on {on}; on/off {on / off} on {card}")
+    check(not [th for th in threading.enumerate()
+               if th.name in ("slo-engine", "attendance-profiler")],
+          "slo (a): an engine or sampler thread outlived its telemetry")
+    return rates["off"][0]
+
+
+def _firing(alerts, slo_name: str):
+    """The alert log's first ``firing`` line of ``slo_name``, or None."""
+    for line in alerts.read_text().splitlines():
+        event = json.loads(line)
+        if event["slo"] == slo_name and event["state"] == "firing":
+            return event
+    return None
+
+
+def _slo_alert(card: str, stream, work, launches: dict) -> None:
+    """14(b): the FPR objective at 0.0001 over the default run's filter:
+    the engine, at a 0.1 s tick, fires from its own thread (K4 each
+    tick); doctor over the prom file and alert log exits 1 and names the
+    objective."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+
+    what = "slo (b) alert"
+    alerts = work / "b-alerts.jsonl"
+    config = Config(metrics_prom=str(work / "b.prom"),
+                    alert_log=str(alerts), audit_sample=0.01,
+                    slo=["fpr<=0.0001"], slo_fast_s=0.4, slo_slow_s=1.6)
+    t = obs.enable(config)
+    try:
+        check(t.slo.interval_s == 0.1, f"{what}: tick {t.slo.interval_s}")
+        pipe, _summary = run_with_native(True, config, *stream)
+        try:
+            kernels.reset_launches()
+            ticks0 = len(t.slo._state["bloom_measured_fpr"].samples)
+            t0 = time.perf_counter()
+            with _LaunchThreads() as spy:
+                while (not _firing(alerts, "bloom_measured_fpr")
+                       and time.perf_counter() - t0 < SLO_ALERT_DEADLINE_S):
+                    time.sleep(0.02)
+            waited = time.perf_counter() - t0
+            check(_firing(alerts, "bloom_measured_fpr") is not None,
+                  f"{what}: no firing line in {SLO_ALERT_DEADLINE_S} s")
+            ticks = len(t.slo._state["bloom_measured_fpr"].samples) - ticks0
+            wait_launches = {k: v for k, v in kernels.launches.items() if v}
+            for name, count in kernels.launches.items():
+                launches[name] += count
+            k4 = spy.on("slo-engine", "bloom_contains")
+            check(k4 > 0, f"{what}: no K4 launched from the SLO thread "
+                  f"({spy.callers})")
+            obs.disable()  # the final tick and prom block
+        finally:
+            pipe.cleanup()
+    finally:
+        obs.disable()
+    line = _firing(alerts, "bloom_measured_fpr")
+    code, verdict = _doctor_cli([config.metrics_prom, str(alerts)])
+    print(f"{what}: doctor exit {code}\n{verdict.rstrip()}")
+    check(code == 1, f"{what}: doctor exit {code}, not 1")
+    check("bloom_measured_fpr" in verdict, f"{what}: verdict names no "
+          "bloom_measured_fpr")
+    print(f"{what}: firing after {waited} s, {ticks} ticks, K4 from the "
+          f"SLO thread {k4} times, launches in the wait {wait_launches}; "
+          f"the line {line} on {card}")
+
+
+def _trace_reading(doc: dict, what: str) -> tuple:
+    """Check one card trace against the launches made inside it (the
+    trace JSON's ``utils.profiling.LAUNCHES_KEY``); returns (those
+    launches, its kernel events by function, the union of its kernel
+    intervals and that of its kernel, copy and memset intervals, in
+    seconds, and the traced window in seconds: the first host range's
+    start to the last device event's end)."""
+    from attendance_tpu_torch.utils.profiling import (
+        busy_seconds, device_events, kernel_events, kernel_function,
+        kernel_launch_shortfall, trace_launches)
+
+    launched = trace_launches(doc)
+    kev = kernel_events(doc)
+    dev = device_events(doc)
+    by_fn = {}
+    for e in kev:
+        fn = kernel_function(e.get("name", ""))
+        by_fn[fn] = by_fn.get(fn, 0) + 1
+    short = kernel_launch_shortfall(doc, launched)
+    check(not short, f"profile (c) {what}: launches the trace lacks "
+          f"(launches, kernel events) {short}")
+    starts = [e["ts"] for e in doc["traceEvents"]
+              if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    ends = [e["ts"] + e.get("dur", 0.0) for e in dev]
+    check(starts and kev, f"profile (c) {what}: no range or no kernel "
+          "event in the trace")
+    return (launched, by_fn, busy_seconds(kev), busy_seconds(dev),
+            (max(ends) - min(starts)) / 1e6)
+
+
+def _busy_line(by_fn: dict, kernel_s: float, busy: float, window: float,
+               wall: float) -> str:
+    return (f"kernel events {by_fn}; {kernel_s} s of kernel time, "
+            f"{busy} s busy with copies and memsets; kernel share "
+            f"{kernel_s / window}, busy share {busy / window} (idle "
+            f"{1 - busy / window}) of the traced window {window} s; busy "
+            f"over the run's wall {wall} s {busy / wall}")
+
+
+def _profile_dir(card: str, dev, stream, work, off_rates: list,
+                 launches: dict) -> None:
+    """14(c): ``--profile-dir`` on the ``fused`` default (two traced runs
+    of one pipeline: the first starts the profiler's CUDA tracing in
+    this process, the second finds it warm) and on the processor over the
+    card store; each trace held against the launches made inside it
+    (``utils.profiling.trace_launches``)."""
+    from datetime import datetime
+
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.generator import (
+        generate_student_data)
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.pipeline.processor import AttendanceProcessor
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+    from attendance_tpu_torch.utils.profiling import TRACE_FILE, range_count
+
+    num_events, frame_size, num_lectures = stream
+    frames_n = num_events // frame_size
+    pdir = work / "c-fused"
+    config = Config(profile_dir=str(pdir))
+    pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()))
+    try:
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        kernels.reset_launches()
+        for run in (1, 2):
+            roster, frames = generate_frames(
+                num_events, frame_size,
+                roster_size=min(config.bloom_filter_capacity, num_events),
+                num_lectures=num_lectures, seed=0)
+            if run == 1:
+                pipe.preload(roster)
+            for f in frames:
+                producer.send(f)
+            pipe.run(max_events=num_events * run, idle_timeout_s=1.0)
+            wall = pipe.metrics.wall_seconds
+            doc = json.loads((pdir / TRACE_FILE).read_text())
+            what = f"fused run {run}"
+            ranges = range_count(doc, "fused_step_dispatch")
+            check(ranges == frames_n, f"profile (c) {what}: {ranges} "
+                  f"fused_step_dispatch ranges for {frames_n} frames")
+            traced, by_fn, kernel_s, busy, window = _trace_reading(doc, what)
+            check(traced.get("fused_step", 0) == frames_n,
+                  f"profile (c) {what}: launches in the trace {traced}")
+            rate = num_events / wall
+            print(f"profile (c) {what}: "
+                  f"{_busy_line(by_fn, kernel_s, busy, window, wall)} (the "
+                  f"profiler's start and export included); events/s {rate}, "
+                  f"on/off {rate / float(np.median(off_rates))} (off: 14(a)'s "
+                  f"first runs); trace {(pdir / TRACE_FILE).stat().st_size} "
+                  f"bytes on {card}")
+        for name, count in kernels.launches.items():
+            launches[name] += count
+    finally:
+        pipe.cleanup()
+
+    MemoryBroker.reset_shared()
+    pdir = work / "c-processor"
+    config = Config(sketch_backend="tpu", profile_dir=str(pdir))
+    proc = AttendanceProcessor(config, device=dev)
+    try:
+        proc.setup_bloom_filter()
+        report = generate_student_data(
+            producer=proc.client.create_producer(config.pulsar_topic),
+            sketch_store=proc.sketch, bloom_key=config.bloom_filter_key,
+            num_students=PROFILE_PROC_STUDENTS, num_invalid=50,
+            now=datetime(*INGRESS_NOW), seed=0, keep_events=False)
+        kernels.reset_launches()
+        proc.process_attendance(max_events=report.message_count,
+                                idle_timeout_s=1.0)
+        for name, count in kernels.launches.items():
+            launches[name] += count
+        wall, events = proc.metrics.wall_seconds, proc.metrics.events
+    finally:
+        proc.cleanup()
+    check(events == report.message_count, f"profile (c) processor: "
+          f"{events} events of {report.message_count}")
+    doc = json.loads((pdir / TRACE_FILE).read_text())
+    for name in ("bf_exists_batch", "pfadd_batch"):
+        check(range_count(doc, name) > 0, f"profile (c) processor: no {name}")
+    traced, by_fn, kernel_s, busy, window = _trace_reading(doc, "processor")
+    print(f"profile (c) processor: {events} events; launches in the trace "
+          f"{ {k: v for k, v in traced.items() if v} }, "
+          f"{_busy_line(by_fn, kernel_s, busy, window, wall)}; trace "
+          f"{(pdir / TRACE_FILE).stat().st_size} bytes on {card}")
+
+
+def slo_profiler_phase(card: str, dev, ref, stream) -> dict:
+    """Phase 14: the SLO engine, the sampling profiler, the launch-shape
+    tracker and ``--profile-dir`` on the card. (a) the ``fused`` default
+    with telemetry off and with ``--metrics-prom``, ``--alert-log``,
+    ``--profile-hz 97``, ``--profile-out``, ``--audit-sample 0.01`` and
+    SLO_SPECS, each session one pipeline run twice on the same frames:
+    launch shapes counted in run 1 and none new in run 2, an attribution
+    with a ``dispatch`` stage, no firing line, doctor with
+    ``--recompile-ceiling 0 --fpr-ceiling 0.015`` exits 0, the state
+    phase 3's; (b) an alert fired by the engine's own thread, doctor
+    exits 1; (c) ``--profile-dir`` traces holding every launch. Fails on
+    an "SLO tick failed" record and on an engine or sampler thread that
+    outlives the phase. Returns the launches of its runs and ticks."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.obs import slo
+    from attendance_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_slo_"))
+    launches = dict.fromkeys(kernels.launches, 0)
+    failed_ticks = _ErrorRecords()
+    slo.logger.addHandler(failed_ticks)
+    try:
+        off_rates = _slo_sessions(card, ref, stream, work, launches)
+        _slo_alert(card, stream, work, launches)
+        _profile_dir(card, dev, stream, work, off_rates, launches)
+    finally:
+        obs.disable()
+        slo.logger.removeHandler(failed_ticks)
+        shutil.rmtree(work, ignore_errors=True)
+    check(not failed_ticks.records, "slo: " + "; ".join(
+        r.getMessage() for r in failed_ticks.records))
+    check(not [th for th in threading.enumerate()
+               if th.name in ("slo-engine", "attendance-profiler")],
+          "slo: an engine or sampler thread outlived the phase")
+    print(f"slo phase: {time.perf_counter() - t_phase} s")
+    print(f"slo phase launches (its runs and ticks; in the kernels line): "
+          f"{ {k: v for k, v in launches.items() if v} }")
     return launches
 
 
@@ -5573,6 +6064,10 @@ def main() -> int:
     chaos_launches = chaos_phase(card, dev,
                                  (num_events, frame_size, num_lectures))
 
+    # -- 14. SLOs, the sampling profiler and --profile-dir ---------------------
+    slo_launches = slo_profiler_phase(card, dev, ref,
+                                      (num_events, frame_size, num_lectures))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -5583,7 +6078,8 @@ def main() -> int:
                        + s_launches[name] + i_launches[name]
                        + l_launches[name] + f_launches[name]
                        + m_launches[name] + tel_launches[name]
-                       + acc_launches[name] + chaos_launches[name]),
+                       + acc_launches[name] + chaos_launches[name]
+                       + slo_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -4,7 +4,7 @@ breaker, on the CPU, held against the JAX package.
 The spec grammar accepts and rejects what JAX's does; one spec and seed
 give both injectors the same schedule draw for draw, and the same
 ``corrupt_transform`` bytes. Then the cases of ``tests/test_chaos.py``
-that need no SLO or doctor slice, on the port: the socket transport
+on the port: the socket transport
 heals injected and real severs (reconnect, session resume, requeued
 in-flight, ``BrokerUnavailable`` after the budget), the breaker's state
 machine and its durable spill (in order, adopted across a restart,
@@ -12,8 +12,9 @@ drained by ``close``), ``wrap_store``'s layers, the shm ring's
 ``torn_slot`` and ``writer_stall``, the snapshot writer's bounded backoff
 under ``snap_fail``, a persist failure with no spill (nacked, then
 dead-lettered, as in JAX), the chaos chokepoints of ``make_client``, the
-bridge, the processor and the federation worker, and a small soak under
-each JAX soak spec. Tolerance 0 throughout.
+bridge, the processor and the federation worker, the doctor's quarantine,
+reconnect and circuit rows, and a small soak under each JAX soak spec,
+its doctor step included. Tolerance 0 throughout.
 """
 
 import dataclasses
@@ -26,6 +27,7 @@ import pytest
 from attendance_tpu import chaos as jchaos
 from attendance_tpu import obs as jobs
 from attendance_tpu.config import Config as JaxConfig
+from attendance_tpu.obs import slo as jslo
 from attendance_tpu.pipeline.fast_path import FusedPipeline as JaxPipeline
 from attendance_tpu.storage import resilient as jresilient
 from attendance_tpu.transport.memory_broker import (
@@ -33,6 +35,7 @@ from attendance_tpu.transport.memory_broker import (
 from attendance_tpu_torch import chaos, obs
 from attendance_tpu_torch.chaos import soak
 from attendance_tpu_torch.config import Config
+from attendance_tpu_torch.obs.slo import doctor_report, parse_slo
 from attendance_tpu_torch.pipeline.events import decode_binary_batch
 from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
 from attendance_tpu_torch.pipeline.loadgen import generate_frames
@@ -927,6 +930,7 @@ def test_small_soak_ends_in_the_no_fault_state(tmp_path, spec, seed,
         capacity=5000, max_seconds=90.0, restore_check=restore, want=want,
         **shape)
     assert report["ok"], report["failures"]
+    assert report["doctor_ok"] is True  # step 4: the run's own artifacts
     assert report["fault_run"] == report["no_fault"] == soak.summary(want)
     assert report["bloom_false_negatives"] == 0
     assert report["quarantined"] >= soak.POISON_FRAMES
@@ -963,10 +967,68 @@ def test_small_soak_rot_always_survives(tmp_path):
         capacity=5000, max_seconds=90.0, idle_s=1.0, restore_check=True,
         want=want, **shape)
     assert report["ok"], report["failures"]
+    assert report["doctor_ok"] is True
     assert report["fault_run"] == report["restored"] == soak.summary(want)
     assert report["disk_rot_surviving"] == report["scrub_accounted"] > 0
     assert report["chain_files_quarantined"] > 0
     assert chaos.get() is None and obs.get() is None
+
+
+# -- the doctor over the fault plane's artifacts --------------------------------
+
+def test_doctor_lists_and_replays_quarantine(tmp_path, capsys):
+    """tests/test_chaos.py's quarantine listing and replay through the
+    doctor verb, on the port: the same listing as JAX's verb, and the
+    replayed frame on the memory transport's topic."""
+    from attendance_tpu.cli import main as jax_main
+    from attendance_tpu_torch import cli
+    from attendance_tpu_torch.transport.quarantine import Quarantine
+
+    qdir = tmp_path / "q"
+    Quarantine(qdir).put(b"bad-frame", reason="poison-frame")
+    cli.main(["doctor", "--quarantine", str(qdir)])
+    out = capsys.readouterr().out
+    assert "quarantined frames" in out and "poison-frame" in out
+    jax_main(["doctor", "--quarantine", str(qdir)])
+    assert capsys.readouterr().out == out
+    MemoryBroker.reset_shared()
+    cli.main(["doctor", "--quarantine", str(qdir), "--replay-quarantine",
+              "--transport-backend", "memory", "--pulsar-topic",
+              "replay-topic", "--purge-replayed"])
+    assert "replayed 1 quarantined frame" in capsys.readouterr().out
+    consumer = MemoryClient(MemoryBroker.shared()).subscribe(
+        "replay-topic", "v")
+    assert consumer.receive(timeout_millis=1000).data() == b"bad-frame"
+    assert not list(qdir.glob("*.frame"))  # purged after the publish
+    with pytest.raises(SystemExit) as e:
+        cli.main(["doctor", "--replay-quarantine"])
+    assert e.value.code == 2
+
+
+def test_slo_alias_snapshot_failures():
+    s = parse_slo("snapshot_failures<=0")
+    assert s.metric == "attendance_snapshot_write_failures_total"
+    assert s.kind == "counter" and s.threshold == 0.0
+    assert s.__dict__ == jslo.parse_slo("snapshot_failures<=0").__dict__
+
+
+def test_doctor_reconnect_and_circuit_rows(tmp_path):
+    prom = tmp_path / "m.prom"
+    prom.write_text(
+        "# TYPE attendance_reconnects_total counter\n"
+        "attendance_reconnects_total 4\n"
+        "# TYPE attendance_circuit_state gauge\n"
+        'attendance_circuit_state{sink="columnar"} 0\n')
+    text, ok = doctor_report([str(prom)])
+    assert (text, ok) == jslo.doctor_report([str(prom)])
+    assert ok and "broker reconnects" in text and "info" in text
+    assert "persist circuit state" in text
+    # Gated: 4 reconnects > 2 fails.
+    assert not doctor_report([str(prom)], max_reconnects=2)[1]
+    # An open circuit at the last scrape is a breach.
+    prom.write_text('attendance_circuit_state{sink="columnar"} 1\n')
+    text, ok = doctor_report([str(prom)])
+    assert not ok and (text, ok) == jslo.doctor_report([str(prom)])
 
 
 @pytest.mark.parametrize("verb,chaos_flags,persist_flags", [
@@ -1021,3 +1083,26 @@ def test_fused_verb_under_chaos_with_a_spill(tmp_path, capsys):
     assert summary["valid"] + summary["invalid"] == 32768
     assert not list(spill.glob("spill-*.pkl"))
     assert chaos.get() is not None  # the verb's process-global injector
+
+
+@pytest.mark.parametrize("verb,accepted", [
+    ("fused", True), ("process", True), ("pipeline", True),
+    ("bridge", False), ("serve", False), ("federate", False),
+    ("generate", False), ("analyze", False)])
+def test_profile_dir_only_on_verbs_that_read_it(verb, accepted):
+    """``--profile-dir`` on the verbs whose run is traced (the fused
+    pipeline and the processor); elsewhere argparse refuses it, though
+    those verbs take the other telemetry flags."""
+    from attendance_tpu_torch import cli
+
+    parser = cli.build_parser()
+    flags = ["--profile-dir", "pd"]
+    if accepted:
+        args = parser.parse_args([verb] + flags)
+        assert cli._telemetry_config(args)["profile_dir"] == "pd"
+    else:
+        with pytest.raises(SystemExit):
+            parser.parse_args([verb] + flags)
+    if verb in ("bridge", "serve", "federate"):
+        args = parser.parse_args([verb, "--profile-hz", "97"])
+        assert cli._telemetry_config(args)["profile_dir"] == ""

@@ -6,8 +6,8 @@ The registry, the exposition text and the flight recorder are held equal
 to JAX's on the same operations (tolerance 0: the text byte for byte, and
 the golden file the JAX tests pin); a fused run on the CPU goes through
 both packages on the same frames and their deterministic samples are
-equal, apart from the series JAX's planes that the port has not ported
-emit and the one series the port adds. Every test leaves both packages'
+equal (the launch-shape tracker's counts among them), apart from the one
+series the port adds. Every test leaves both packages'
 process-global telemetry disabled.
 """
 
@@ -46,10 +46,9 @@ from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 GOLDEN = Path(__file__).parent / "data" / "obs_exposition.golden"
 
 # Series the JAX package's fused run emits through a plane the port does
-# not have yet: the XLA recompile tracker.
-JAX_ONLY = {
-    "attendance_recompiles_steady_total", "attendance_recompiles_total",
-}
+# not have yet: none (the port's launch-shape tracker emits the JAX
+# recompile tracker's two series).
+JAX_ONLY = set()
 
 
 @pytest.fixture(autouse=True)
@@ -534,7 +533,9 @@ def test_fused_run_samples_equal_jax(tmp_path, monkeypatch):
          'subscription="attendance_fused",topic="attendance-events"'),
         ("attendance_broker_sent_messages_total",
          'topic="attendance-events"'),
-        ("attendance_dispatch_gap_seconds_count", "")]
+        ("attendance_dispatch_gap_seconds_count", ""),
+        ("attendance_recompiles_total", 'fn="step_words"'),
+        ("attendance_recompiles_steady_total", 'fn="step_words"')]
     for stage in ("dequeue_wait", "decode", "dispatch", "snapshot_write",
                   "snapshot_blocked"):
         deterministic.append(("attendance_stage_latency_seconds_count",
@@ -638,8 +639,11 @@ def test_cli_telemetry_verb_prints_the_same_text_as_jax(tmp_path, capsys):
         jax_main(["telemetry", str(path)])
         theirs = capsys.readouterr().out
         assert ours == theirs and ours
-    with pytest.raises(NotImplementedError, match="profiler"):
-        port_main(["telemetry", str(dump), "--attribution"])
+    # A flight dump is not an attribution document: both verbs exit 2.
+    for main in (port_main, jax_main):
+        with pytest.raises(SystemExit) as exc:
+            main(["telemetry", str(dump), "--attribution"])
+        assert exc.value.code == 2
     from attendance_tpu_torch.cli import _follow_file
     assert _follow_file(str(prom), 32, 0.01, max_rounds=2) == 1
     capsys.readouterr()

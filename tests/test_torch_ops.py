@@ -176,7 +176,9 @@ _PORT_MODULES = {
     "attendance_tpu_torch.obs.exposition", "attendance_tpu_torch.obs.health",
     "attendance_tpu_torch.obs.audit",
     "attendance_tpu_torch.chaos", "attendance_tpu_torch.chaos.soak",
-    "attendance_tpu_torch.storage.resilient"}
+    "attendance_tpu_torch.storage.resilient",
+    "attendance_tpu_torch.obs.slo", "attendance_tpu_torch.obs.profiler",
+    "attendance_tpu_torch.utils.profiling"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
