@@ -42,13 +42,18 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   ``attribution.json``, or a ``--profile-out`` directory holding one).
   The artifacts are the JAX package's formats: either package's verb
   reads either package's files;
+* ``fleet``: the fleet dashboard, one row per pushing role@instance,
+  live from a collector's ``/fleet/status`` (``--http HOST:PORT``) or
+  offline from a collected ``--fleet-dir`` (``--dir``); ``--once``
+  prints one table, ``--snapshot-json PATH`` writes the status document;
 * ``doctor``: the offline SLO verdict over run artifacts (a prom file,
   an alert log, a flight dump, a span trace; ``--fleet DIR`` of
-  ``<role>@<instance>.prom`` files; ``--scrub DIR``; ``--quarantine
+  ``<role>@<instance>.prom`` files; ``--scrub DIR``; ``--incident DIR``,
+  incident evidence bundles, digest-verified and judged; ``--quarantine
   DIR``, ``--replay-quarantine``, ``--purge-replayed``): a verdict
   table, exit 0 when every check passes, 1 on a breach, 2 when an
-  artifact is unreadable. ``--incident`` and ``--actuations`` are
-  refused at parse time (their planes are not ported);
+  artifact is unreadable. ``--actuations`` is refused at parse time
+  (the control plane is not ported);
 * ``scrub``: the offline integrity scrub of snapshot chains, spill,
   quarantine and event directories (``utils.integrity.scrub_report``):
   a verdict table, exit 0 when nothing is corrupt, 1 when something is,
@@ -69,7 +74,13 @@ the ``--fed-*`` flags (a federated worker gossiping its fences).
 audit over a hash-sampled fraction of the key space),
 ``--metric-series-max``, the SLO engine's ``--alert-log FILE``, ``--slo
 SPEC`` (repeatable), ``--slo-fast-s`` and ``--slo-slow-s``, the host
-sampling profiler's ``--profile-hz`` and ``--profile-out DIR``.
+sampling profiler's ``--profile-hz`` and ``--profile-out DIR``, the
+incident engine's ``--incident-dir DIR`` and ``--incident-clear-ticks``,
+and the fleet pusher's ``--fleet-push HOST:PORT``, ``--fleet-role``,
+``--fleet-instance`` and ``--fleet-push-interval-s``. ``federate`` also
+takes ``--fleet-port N`` (a fleet collector in the aggregator's process,
+-1 = ephemeral, its views under ``/fleet/*`` on ``--metrics-port``) and
+``--fleet-dir DIR`` (the collected artifacts).
 ``fused``, ``process`` and ``pipeline``, whose runs read it, also take
 ``--profile-dir DIR`` (a ``torch.profiler`` trace of the fused or the
 processor run, ``utils/profiling.TRACE_FILE`` under the directory).
@@ -82,7 +93,8 @@ BrokerServer at ``--socket-broker``, started with ``python -m
 attendance_tpu_torch.transport.socket_broker``). The verbs that open a
 broker client (``fused``, ``generate``, ``process``, ``pipeline``,
 ``bridge``, ``federate``) take the fault plane's ``--chaos SPEC`` and
-``--chaos-seed N`` (``chaos/``); those with a persist sink (``fused``,
+``--chaos-seed N`` (``chaos/``); ``generate``, ``process`` and
+``pipeline`` take ``--bloom-filter-key``; those with a persist sink (``fused``,
 ``process``, ``pipeline``) take ``--persist-spill-dir`` with
 ``--persist-breaker-failures`` and ``--persist-breaker-cooldown-s`` (the
 sink's circuit breaker, ``storage/resilient.py``). Runs on the CUDA card
@@ -336,7 +348,19 @@ def _telemetry_config(args) -> dict:
                 profile_hz=args.profile_hz,
                 profile_out=args.profile_out, alert_log=args.alert_log,
                 slo=list(args.slo or []), slo_fast_s=args.slo_fast_s,
-                slo_slow_s=args.slo_slow_s)
+                slo_slow_s=args.slo_slow_s, incident_dir=args.incident_dir,
+                incident_clear_ticks=args.incident_clear_ticks,
+                fleet_push=args.fleet_push, fleet_role=args.fleet_role,
+                fleet_instance=args.fleet_instance,
+                fleet_push_interval_s=args.fleet_push_interval_s,
+                **_fleet_collector_config(args))
+
+
+def _fleet_collector_config(args) -> dict:
+    """Config fields of the collector's flags (``federate`` only)."""
+    if not hasattr(args, "fleet_port"):
+        return {}
+    return dict(fleet_port=args.fleet_port, fleet_dir=args.fleet_dir)
 
 
 def _config(args) -> Config:
@@ -360,7 +384,15 @@ def _config(args) -> Config:
         snapshot_every_batches=args.snapshot_every_batches,
         snapshot_mode=args.snapshot_mode,
         snapshot_compact_every=args.snapshot_compact_every,
-        **_telemetry_config(args))
+        **_bloom_key_config(args), **_telemetry_config(args))
+
+
+def _bloom_key_config(args) -> dict:
+    """The roster filter's key (``_add_bloom_key_flag``); none for a verb
+    without the flag."""
+    if not hasattr(args, "bloom_filter_key"):
+        return {}
+    return dict(bloom_filter_key=args.bloom_filter_key)
 
 
 def cmd_generate(args) -> None:
@@ -545,6 +577,8 @@ def cmd_serve(args) -> None:
     if not config.snapshot_dir:
         logger.error("serve needs --snapshot-dir (the chain to read)")
         sys.exit(2)
+    if config.fleet_push and not config.fleet_role:
+        config.fleet_role = "serve"
     telemetry = obs.ensure(config)
     try:
         source = ChainEpochSource(config.snapshot_dir,
@@ -595,7 +629,33 @@ def cmd_federate(args) -> None:
 
     config = Config(**_transport_config(args), **_serve_config(args),
                     **_fed_config(args), **_telemetry_config(args))
+    collector = None
+    if config.fleet_port:
+        # The aggregator hosts the fleet collector: it outlives the
+        # workers. Made before the telemetry bundle, so the aggregator's
+        # own pusher defaults to it and the pane of glass holds the
+        # aggregator's row too.
+        from attendance_tpu_torch.obs.fleet import FleetCollector
+
+        collector = FleetCollector(
+            directory=config.fleet_dir,
+            port=0 if config.fleet_port < 0 else config.fleet_port,
+            ).start()
+        config.fleet_push = config.fleet_push or collector.address
+        print(f"fleet collector on {collector.address}"
+              + (f" (artifacts -> {config.fleet_dir})"
+                 if config.fleet_dir else ""), flush=True)
+    if config.fleet_push and not config.fleet_role:
+        config.fleet_role = "aggregator"
     telemetry = obs.ensure(config)
+    if collector is not None and telemetry is not None:
+        collector.bind_obs(telemetry)
+        if telemetry._server is not None:
+            collector.attach(telemetry._server)
+        if telemetry.incidents is not None:
+            # The aggregator's bundles carry the fleet-wide status: a
+            # dead worker's diagnosis needs the per-peer rows.
+            telemetry.incidents.bind_collector(collector)
     agg = Aggregator(config, obs=telemetry).start()
     engine = QueryEngine(
         agg.mirror, obs=telemetry, batch_max=config.query_batch_max,
@@ -631,7 +691,16 @@ def cmd_federate(args) -> None:
             agg.stop()
             write_stats()
         finally:
+            if (collector is not None and telemetry is not None
+                    and telemetry._server is not None):
+                collector.detach(telemetry._server)
+            # Telemetry stops before the collector: its pusher's final
+            # drain lands while the collector still accepts, so FLEET.json
+            # holds the aggregator's own row even for a run shorter than
+            # the push interval.
             obs.disable()
+            if collector is not None:
+                collector.stop()  # flushes the fleet artifacts
             server.stop()
 
 
@@ -692,6 +761,95 @@ def cmd_telemetry(args) -> None:
         sys.exit(2)
 
 
+def _fleet_status(args) -> dict:
+    """One status snapshot: live from the collector's /fleet/status
+    route (--http), or offline from a collected directory's FLEET.json
+    (--dir)."""
+    import urllib.request
+
+    if args.dir:
+        from attendance_tpu_torch.obs.fleet import STATUS_FILE
+
+        return json.loads((Path(args.dir) / STATUS_FILE).read_text())
+    url = f"http://{args.http}/fleet/status"
+    with urllib.request.urlopen(url, timeout=5) as resp:
+        return json.loads(resp.read())
+
+
+def _fleet_table(doc: dict) -> str:
+    from attendance_tpu_torch.obs.exposition import _table
+
+    rows = []
+    for key in sorted(doc.get("instances", {})):
+        inst = doc["instances"][key]
+        rows.append([
+            key,
+            f"{inst.get('age_s', 0.0):.1f}s",
+            str(inst.get("pushes", 0)),
+            str(inst.get("spans", 0)),
+            str(inst.get("events", "-")),
+            str(inst.get("series", "-")),
+            str(inst.get("top_stage", "-")),
+            str(inst.get("merge_lag_p99_s", "-")),
+            str(inst.get("read_staleness_s", "-")),
+            str(inst.get("slo_firing", 0)),
+            str(inst.get("incidents", "-")),
+        ])
+    return _table(rows, ["role@instance", "age", "pushes", "spans",
+                         "events", "series", "top_stage", "lag_p99",
+                         "staleness", "firing", "incidents"])
+
+
+def cmd_fleet(args) -> None:
+    """Fleet dashboard over a live collector (or a collected artifact
+    directory): one row per pushing role@instance, with push liveness,
+    span and series volume, headline counters, merge lag, staleness and
+    firing alerts. By default a top-style live loop; ``--once`` prints
+    one table; ``--snapshot-json PATH`` writes the raw status document
+    (``-`` = stdout) and exits."""
+    import time
+
+    if not args.http and not args.dir:
+        logger.error("fleet needs --http HOST:PORT (live collector) "
+                     "or --dir FLEET_DIR (collected artifacts)")
+        sys.exit(2)
+    try:
+        doc = _fleet_status(args)
+    except Exception as e:
+        logger.error("no fleet status from %s: %s",
+                     args.http or args.dir, e)
+        sys.exit(2)
+    if args.snapshot_json:
+        out = json.dumps(doc, indent=2)
+        if args.snapshot_json == "-":
+            print(out)
+        else:
+            with open(args.snapshot_json, "w") as f:
+                f.write(out + "\n")
+            print(f"fleet snapshot -> {args.snapshot_json}")
+        return
+    if args.once or args.dir:
+        print(_fleet_table(doc))
+        return
+    stale = ""
+    try:
+        while True:
+            print("\x1b[2J\x1b[H"
+                  + f"fleet @ {time.strftime('%H:%M:%S')} "
+                  f"({args.http}){stale}\n" + _fleet_table(doc),
+                  flush=True)
+            time.sleep(args.interval_s)
+            try:
+                doc = _fleet_status(args)
+                stale = ""
+            except Exception as e:
+                # A restarting collector or one slow scrape keeps the
+                # last good snapshot on screen, marked stale.
+                stale = f"  [stale: {e}]"
+    except KeyboardInterrupt:
+        pass
+
+
 def cmd_doctor(args) -> None:
     """Offline SLO verdict over run artifacts: replay a --metrics-prom
     exposition file, an --alert-log JSONL, a flight-recorder dump and/or
@@ -700,7 +858,9 @@ def cmd_doctor(args) -> None:
     gate without rerunning anything. ``--fleet DIR`` judges a directory
     of ``<role>@<instance>.prom`` files (per-role rows, then fleet-wide
     rows over the merged data); ``--scrub DIR`` folds the offline
-    integrity scrub into the verdict; ``--quarantine DIR`` lists the
+    integrity scrub into the verdict; ``--incident DIR`` replays incident
+    evidence bundles (every part digest-verified against incident.json,
+    an undiagnosed open incident a breach); ``--quarantine DIR`` lists the
     on-disk dead-letter quarantine, ``--replay-quarantine`` republishes
     its frames through the configured transport. Exit codes: 0 every
     check passes, 1 at least one breach, 2 unreadable artifacts."""
@@ -750,7 +910,8 @@ def cmd_doctor(args) -> None:
             logger.error("unreadable fleet artifacts: %s", e)
             sys.exit(2)
         print(text)
-        if not args.artifacts and not args.quarantine and not args.scrub:
+        if (not args.artifacts and not args.quarantine and not args.scrub
+                and not args.incident):
             sys.exit(0 if ok else 1)
         failed = failed or not ok
     if args.scrub:
@@ -762,6 +923,22 @@ def cmd_doctor(args) -> None:
             text, ok = scrub_report(args.scrub)
         except FileNotFoundError as e:
             logger.error("no such scrub target: %s", e)
+            sys.exit(2)
+        print(text)
+        if not args.artifacts and not args.quarantine and not args.incident:
+            sys.exit(0 if ok and not failed else 1)
+        failed = failed or not ok
+    if args.incident:
+        # The bundle must be complete, digest-verified and diagnosed.
+        from attendance_tpu_torch.obs.incident import incident_report
+
+        try:
+            text, ok = incident_report(args.incident)
+        except FileNotFoundError as e:
+            logger.error("no such incident bundle: %s", e)
+            sys.exit(2)
+        except Exception as e:
+            logger.error("unreadable incident bundle: %s", e)
             sys.exit(2)
         print(text)
         if not args.artifacts and not args.quarantine:
@@ -897,6 +1074,42 @@ def _add_telemetry_flags(p: argparse.ArgumentParser) -> None:
                    help="artifact dir for the sampling profiler "
                    "(profile.folded, profile_trace.json, "
                    "attribution.json)")
+    p.add_argument("--incident-dir", default=d.incident_dir,
+                   help="enable the incident engine and write one "
+                   "checksummed evidence bundle per correlated breach "
+                   "under this directory (empty = off)")
+    p.add_argument("--incident-clear-ticks", type=int,
+                   default=d.incident_clear_ticks,
+                   help="consecutive clean ticks before an open "
+                   "incident clears (hysteresis)")
+    p.add_argument("--fleet-push", default=d.fleet_push,
+                   help="push this process's telemetry (registry "
+                   "snapshot + span batches) to a fleet collector at "
+                   "HOST:PORT every --fleet-push-interval-s "
+                   "(empty = off)")
+    p.add_argument("--fleet-role", default=d.fleet_role,
+                   help="role label for fleet pushes (default: the "
+                   "CLI verb's role, else 'process')")
+    p.add_argument("--fleet-instance", default=d.fleet_instance,
+                   help="instance label for fleet pushes (default: "
+                   "--fed-worker or pid<PID>)")
+    p.add_argument("--fleet-push-interval-s", type=float,
+                   default=d.fleet_push_interval_s,
+                   help="fleet push cadence (seconds)")
+
+
+def _add_fleet_collector_flags(p: argparse.ArgumentParser) -> None:
+    """The collector's flags, only on ``federate`` (the verb that hosts
+    one)."""
+    d = Config()
+    p.add_argument("--fleet-port", type=int, default=d.fleet_port,
+                   help="run a fleet collector in this process on "
+                   "this TCP port (0 = off, -1 = ephemeral); merged "
+                   "views mount under /fleet/* on --metrics-port")
+    p.add_argument("--fleet-dir", default=d.fleet_dir,
+                   help="persist collected fleet artifacts (per-role "
+                   "prom files, stitched trace, status snapshot) "
+                   "here — the `doctor --fleet` input")
 
 
 def _add_profile_dir_flag(p: argparse.ArgumentParser) -> None:
@@ -1084,6 +1297,14 @@ def _add_store_flags(p: argparse.ArgumentParser) -> None:
                    "to this file")
 
 
+def _add_bloom_key_flag(p: argparse.ArgumentParser) -> None:
+    """``--bloom-filter-key``, on the verbs whose runs read it: the
+    generator preloads the roster under it, the processor validates
+    against it."""
+    p.add_argument("--bloom-filter-key", default=Config().bloom_filter_key,
+                   help="sketch-store key of the roster's Bloom filter")
+
+
 def _add_generate_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--num-students", type=int, default=1000)
     p.add_argument("--num-invalid", type=int, default=50)
@@ -1199,11 +1420,13 @@ def build_parser() -> argparse.ArgumentParser:
     a.set_defaults(fn=cmd_analyze)
     g = sub.add_parser("generate", help="produce synthetic swipe events")
     _add_store_flags(g)
+    _add_bloom_key_flag(g)
     _add_chaos_flags(g)
     _add_generate_flags(g)
     g.set_defaults(fn=cmd_generate)
     pr = sub.add_parser("process", help="run the stream processor")
     _add_store_flags(pr)
+    _add_bloom_key_flag(pr)
     _add_chaos_flags(pr)
     _add_persist_flags(pr)
     pr.add_argument("--max-events", type=int, default=None)
@@ -1214,6 +1437,7 @@ def build_parser() -> argparse.ArgumentParser:
     pl = sub.add_parser("pipeline", help="hermetic end-to-end run: "
                         "generate -> process -> analyze")
     _add_store_flags(pl)
+    _add_bloom_key_flag(pl)
     _add_chaos_flags(pl)
     _add_persist_flags(pl)
     _add_generate_flags(pl)
@@ -1298,6 +1522,7 @@ def build_parser() -> argparse.ArgumentParser:
     fe.add_argument("--stats-every-s", type=float, default=0.5,
                     help="cadence of --stats-json rewrites")
     _add_telemetry_flags(fe)
+    _add_fleet_collector_flags(fe)
     fe.set_defaults(fn=cmd_federate)
     tel = sub.add_parser(
         "telemetry", help="pretty-print a flight-recorder dump, a "
@@ -1318,6 +1543,26 @@ def build_parser() -> argparse.ArgumentParser:
     tel.add_argument("--interval-s", type=float, default=0.5,
                      help="poll cadence for --follow")
     tel.set_defaults(fn=cmd_telemetry)
+    fl = sub.add_parser(
+        "fleet", help="fleet dashboard: per-role push liveness, "
+        "headline counters, merge lag, staleness, firing alerts — "
+        "live from a collector's /fleet/status (--http) or offline "
+        "from a collected artifact dir (--dir); --snapshot-json "
+        "writes the raw status document")
+    fl.add_argument("--http", default="",
+                    help="HOST:PORT of the collector process's "
+                    "--metrics-port endpoint (the /fleet/* routes)")
+    fl.add_argument("--dir", default="",
+                    help="read a collected --fleet-dir offline instead "
+                    "(FLEET.json)")
+    fl.add_argument("--interval-s", type=float, default=2.0,
+                    help="live refresh cadence")
+    fl.add_argument("--once", action="store_true",
+                    help="print one table and exit")
+    fl.add_argument("--snapshot-json", default="", metavar="PATH",
+                    help="write one raw status JSON snapshot ('-' = "
+                    "stdout) and exit")
+    fl.set_defaults(fn=cmd_fleet)
     _add_doctor_parser(sub)
     scr = sub.add_parser(
         "scrub", help="offline integrity scrub: walk snapshot-chain, "
@@ -1334,8 +1579,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_doctor_parser(sub) -> None:
-    """The ``doctor`` verb: the JAX package's parser, with the planes the
-    port does not have refused at parse time."""
+    """The ``doctor`` verb: the JAX package's parser, with the plane the
+    port does not have (``--actuations``) refused at parse time."""
     from attendance_tpu_torch.federation.worker import _NotPorted
 
     doc = sub.add_parser(
@@ -1392,8 +1637,13 @@ def _add_doctor_parser(sub) -> None:
                      help="judge a directory of <role>@<instance>.prom "
                      "artifacts: per-role rows, plus fleet-wide merge-lag/"
                      "staleness gates over the merged data")
-    doc.add_argument("--incident", action=_NotPorted, metavar="DIR",
-                     help="incident bundles: ROADMAP item 11d2")
+    doc.add_argument("--incident", default="", metavar="DIR",
+                     help="replay an incident evidence bundle (or a "
+                     "--incident-dir root of bundles) offline: verify "
+                     "every evidence part against the digests in "
+                     "incident.json and judge the diagnosis; exits 1 on "
+                     "an undiagnosed open incident or a corrupt or "
+                     "incomplete bundle")
     doc.add_argument("--actuations", action=_NotPorted, metavar="FILE",
                      help="the control plane's actuation log: ROADMAP "
                      "item 11e")

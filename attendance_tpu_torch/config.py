@@ -4,7 +4,8 @@ Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
 path, its mesh, its checkpoint chain, its temporal plane, its ingress
 lanes and shared-memory ring, the query plane, the generic sketch store
 and the processor, the federation, the fault plane, the persist sink's
-circuit breaker, the SLO engine and the profilers read, with the JAX package's defaults and checks
+circuit breaker, the SLO engine, the profilers, the incident engine and
+the fleet plane read, with the JAX package's defaults and checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
 """
@@ -196,6 +197,15 @@ class Config:
     # spikes (SRE multi-window multi-burn-rate).
     slo_fast_s: float = 60.0
     slo_slow_s: float = 300.0
+    # Incident plane ("" = disabled): correlate live breach conditions
+    # (SLO firings, circuit opens, spill growth, steady launch shapes,
+    # merge-lag/staleness/watermark breaches, dead peers, lane stalls,
+    # integrity rejects) into incident records and write a checksummed
+    # evidence bundle per incident under this directory: obs/incident.py.
+    incident_dir: str = ""
+    # Hysteresis: consecutive clean evaluation ticks before an open
+    # incident clears.
+    incident_clear_ticks: int = 3
     # Query serving (attendance_tpu_torch/serve): nonzero = the fused
     # pipeline answers BF.EXISTS, PFCOUNT, occupancy, attendance rate and
     # the window verbs from an epoch-pinned host mirror of its sketch
@@ -283,6 +293,26 @@ class Config:
     fed_gossip_broker: str = ""
     fed_heartbeat_s: float = 2.0
     fed_dead_after_s: float = 10.0
+    # Fleet plane (obs/fleet.py). fleet_push names a FleetCollector
+    # HOST:PORT ("" = off): this process's telemetry bundle then starts
+    # a pusher shipping its registry snapshot and bounded span batches
+    # there every fleet_push_interval_s (through the transport's
+    # retry/reconnect/chaos seams at site "fleet.push"; a dead collector
+    # costs log lines, never throughput or correctness).
+    # fleet_role/fleet_instance label this process in the merged
+    # registry and the stitched trace ("" = derived: the verbs set their
+    # role, the instance falls back to fed_worker or the pid).
+    fleet_push: str = ""
+    fleet_role: str = ""
+    fleet_instance: str = ""
+    fleet_push_interval_s: float = 2.0
+    # Collector side: fleet_port != 0 runs a FleetCollector in this
+    # process (-1 = ephemeral; the `federate` verb hosts it), its merged
+    # views mounted under /fleet/* on the --metrics-port endpoint;
+    # fleet_dir keeps the collected per-role prom files, the stitched
+    # trace and the status snapshot for `doctor --fleet`.
+    fleet_port: int = 0
+    fleet_dir: str = ""
 
     def __post_init__(self):
         if self.sketch_backend not in ("tpu", "memory", "redis",
@@ -376,6 +406,15 @@ class Config:
             raise ValueError(
                 "read_staleness_ceiling_s must be >= 0 (0 = no staleness "
                 "objective)")
+        if self.fleet_push_interval_s <= 0:
+            raise ValueError("fleet_push_interval_s must be positive")
+        if not (-1 <= self.fleet_port <= 65535):
+            raise ValueError(
+                f"fleet_port out of range: {self.fleet_port} "
+                "(0 = off, -1 = ephemeral)")
+        if self.incident_clear_ticks <= 0:
+            raise ValueError("incident_clear_ticks must be positive "
+                             "(clear hysteresis)")
         if self.invalid_topic and self.invalid_topic == self.pulsar_topic:
             # Republishing invalid events onto the processor's own
             # input topic would re-consume and republish them forever.

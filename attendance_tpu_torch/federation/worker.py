@@ -3,8 +3,8 @@
     python -m attendance_tpu_torch.federation.worker \
         --worker w0 --shard 0 --num-shards 3 --broker HOST:PORT \
         --workdir DIR --num-events N --seed S [--takeover] [--device cpu] \
-        [--metrics-prom FILE] [--trace-out FILE] [--chaos SPEC]
-        [--chaos-seed N]
+        [--metrics-prom FILE] [--trace-out FILE] [--fleet-push HOST:PORT]
+        [--chaos SPEC] [--chaos-seed N]
 
 Counterpart of ``attendance_tpu/federation/worker.py``. One worker is one
 fused pipeline on the card (``--device``, by default the CUDA card; with
@@ -91,8 +91,8 @@ def make_worker_config(worker: str, shard: int, num_shards: int,
                        data_plane: str = "socket",
                        snapshot_every: int = 4,
                        gossip_topic: str = "", metrics_prom: str = "",
-                       trace_out: str = "", chaos: str = "",
-                       chaos_seed: int = 0) -> Config:
+                       trace_out: str = "", fleet_push: str = "",
+                       chaos: str = "", chaos_seed: int = 0) -> Config:
     workdir = Path(workdir)
     kw = {"fed_gossip_topic": gossip_topic} if gossip_topic else {}
     return Config(
@@ -108,7 +108,12 @@ def make_worker_config(worker: str, shard: int, num_shards: int,
         fed_gossip_broker=broker,
         # Each worker process gets its own seeded injector.
         chaos=chaos, chaos_seed=chaos_seed,
-        metrics_prom=metrics_prom, trace_out=trace_out, **kw)
+        metrics_prom=metrics_prom, trace_out=trace_out,
+        # The worker pushes its registry and spans to the fleet
+        # collector, so the aggregator's pane of glass and doctor --fleet
+        # see every shard.
+        fleet_push=fleet_push, fleet_role="worker", fleet_instance=worker,
+        **kw)
 
 
 def final_full_frame(pipe) -> None:
@@ -134,7 +139,8 @@ def run_worker(args) -> dict:
         data_plane=args.data_plane,
         snapshot_every=args.snapshot_every,
         gossip_topic=args.gossip_topic, metrics_prom=args.metrics_prom,
-        trace_out=args.trace_out, chaos=args.chaos,
+        trace_out=args.trace_out, fleet_push=args.fleet_push,
+        chaos=args.chaos,
         chaos_seed=args.chaos_seed)
     full, mine, frames = build_workload(
         args.seed, args.shard, args.num_shards, args.num_events,
@@ -205,8 +211,9 @@ def run_worker(args) -> dict:
 
 
 class _NotPorted(argparse.Action):
-    """A JAX worker flag whose plane the port does not have yet: refused
-    at parse time, naming the ROADMAP item that ports it."""
+    """A JAX flag whose plane the port does not have yet: refused at
+    parse time, naming the ROADMAP item that ports it (the ``doctor``
+    verb's ``--actuations``)."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet ({self.help})")
@@ -256,8 +263,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write this worker's spans here as Chrome-trace "
                    "JSON; its gossip frames then carry the fence span's "
                    "traceparent")
-    p.add_argument("--fleet-push", action=_NotPorted,
-                   help="the fleet pusher: ROADMAP item 11d2")
+    p.add_argument("--fleet-push", default="",
+                   help="fleet collector HOST:PORT to push telemetry "
+                   "to (role=worker, instance=--worker)")
     p.add_argument("--chaos", default="",
                    help="chaos spec for this worker process (e.g. "
                    "'partition=1500ms:0.05')")

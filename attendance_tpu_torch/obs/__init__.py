@@ -1,11 +1,12 @@
 """Live telemetry: registry + exposition + flight recorder + span tracing.
 
 Counterpart of ``attendance_tpu/obs/__init__.py``: its telemetry core,
-the SLO engine and the profiler planes. One process-wide
-:class:`Telemetry` instance (module global), enabled iff a telemetry
-flag is set (``--metrics-prom``, ``--metrics-port``,
-``--flight-recorder``, ``--trace-out``, ``--audit-sample``,
-``--alert-log``, ``--slo``, ``--profile-hz``).
+the SLO engine, the profiler planes, the incident engine and the fleet
+pusher. One process-wide :class:`Telemetry` instance (module global),
+enabled iff a telemetry flag is set (``--metrics-prom``,
+``--metrics-port``, ``--flight-recorder``, ``--trace-out``,
+``--audit-sample``, ``--alert-log``, ``--slo``, ``--profile-hz``,
+``--fleet-push``, ``--incident-dir``).
 Instrumented call sites capture the global ONCE at construction and pay
 one ``is not None`` branch per hot-path event when telemetry is off:
 nothing is timed or allocated, and the reporter, server, exporter and
@@ -33,10 +34,15 @@ stream, and never synchronizes the whole device. The launch-shape
 tracker (``obs/profiler.RecompileTracker``) is always on with telemetry;
 the host sampling profiler runs at ``--profile-hz > 0``.
 
+The incident engine (``obs/incident.py``, thread ``incident-engine``)
+and the fleet pusher (``obs/fleet.py``, thread ``fleet-pusher``) render
+the registry, into each evidence bundle's ``metrics.prom`` and at every
+push: the same callback gauges, so with no read epoch they launch K4 and
+K1 from their threads too, on the default stream.
+
 The metric names, labels, help strings and bucket bounds are the JAX
-package's (the scrape contract). Its incident and control planes and
-its fleet pusher are not ported yet: the port's ``Config`` has none of
-their fields.
+package's (the scrape contract). Its control plane is not ported yet
+(ROADMAP item 11e): the port's ``Config`` has none of its fields.
 """
 
 from __future__ import annotations
@@ -70,13 +76,18 @@ def _atexit_flush() -> None:
     if t is None:
         return
     # Order matters: classify the SLOs first (a last-moment breach must
-    # land in the alert log AND in the gauges), then write the final
-    # exposition block carrying those gauges, then the trace.
+    # land in the alert log AND in the gauges), persist a still-open
+    # incident, then write the final exposition block carrying those
+    # gauges, then the trace, the profile and the last push.
     t.finalize_slo("atexit")
+    if t.incidents is not None:
+        t.incidents.finalize("atexit")
     if t._reporter is not None:
         t._reporter._write_block()
     t.flush_trace("atexit")
     t.flush_profile("atexit")
+    if t._fleet is not None:
+        t._fleet.push_now()  # the last snapshot reaches the collector
 
 
 def _install_atexit_flush() -> None:
@@ -102,12 +113,15 @@ def enabled_in(config) -> bool:
                 or getattr(config, "audit_sample", 0.0)
                 or getattr(config, "alert_log", "")
                 or getattr(config, "slo", None)
-                or getattr(config, "profile_hz", 0.0))
+                or getattr(config, "fleet_push", "")
+                or getattr(config, "profile_hz", 0.0)
+                or getattr(config, "incident_dir", ""))
 
 
 class Telemetry:
     """Registry + optional reporter/server/flight-recorder/tracer, SLO
-    engine and profiler planes, one bundle."""
+    engine, profiler planes, incident engine and fleet pusher, one
+    bundle."""
 
     def __init__(self, *, metrics_prom: str = "", metrics_port: int = 0,
                  metrics_interval_s: float = 1.0,
@@ -116,8 +130,13 @@ class Telemetry:
                  trace_out: str = "", audit_sample: float = 0.0,
                  alert_log: str = "", slo_specs=(),
                  slo_fast_s: float = 60.0, slo_slow_s: float = 300.0,
+                 fleet_push: str = "", fleet_role: str = "",
+                 fleet_instance: str = "",
+                 fleet_push_interval_s: float = 2.0,
                  metric_series_max: int = 1024,
-                 profile_hz: float = 0.0, profile_out: str = ""):
+                 profile_hz: float = 0.0, profile_out: str = "",
+                 incident_dir: str = "",
+                 incident_clear_ticks: int = 3):
         self.registry = Registry(max_series=metric_series_max)
         self.flight: Optional[FlightRecorder] = (
             FlightRecorder(flight_recorder) if flight_recorder > 0
@@ -125,9 +144,17 @@ class Telemetry:
         self.flight_path = flight_path or DEFAULT_FLIGHT_PATH
         # Span tracer: instrumented sites capture `telemetry.tracer`
         # once and branch on `is not None`, so a metrics-only run pays
-        # nothing for tracing.
-        self.tracer: Optional[Tracer] = Tracer() if trace_out else None
+        # nothing for tracing. A fleet-pushing process traces even
+        # without --trace-out: its spans ship to the collector's
+        # stitched export.
+        self.tracer: Optional[Tracer] = (
+            Tracer() if (trace_out or fleet_push) else None)
         self.trace_path = trace_out
+        self._fleet_push = fleet_push
+        self._fleet_role = fleet_role or "process"
+        self._fleet_instance = fleet_instance
+        self._fleet_interval = fleet_push_interval_s
+        self._fleet = None
         # Accuracy auditor (obs/audit.py): the same capture-once handle
         # discipline; sketch stores and the fused pipeline hold
         # `telemetry.auditor` and branch on `is not None`.
@@ -156,6 +183,18 @@ class Telemetry:
             from attendance_tpu_torch.obs.profiler import SamplingProfiler
             self.profiler = SamplingProfiler(
                 profile_hz, registry=self.registry, out_dir=profile_out)
+        # Incident plane (obs/incident.py): correlates live breach
+        # conditions into incident records with checksummed evidence
+        # bundles under --incident-dir. Created after the sources it
+        # reads.
+        self.incidents = None
+        if incident_dir:
+            from attendance_tpu_torch.obs.incident import IncidentEngine
+            self.incidents = IncidentEngine(
+                self, incident_dir, role=self._fleet_role,
+                instance=fleet_instance,
+                clear_ticks=incident_clear_ticks,
+                interval_s=min(metrics_interval_s, 1.0))
         self._reporter = None
         self._server = None
         self._prev_sigusr1 = _NOT_INSTALLED
@@ -189,10 +228,23 @@ class Telemetry:
                                                  self.flight_path)
         if self.slo is not None:
             self.slo.start()
+        if self.incidents is not None:
+            # After the SLO engine: the first incident tick sees engine
+            # state, not a half-built firing map.
+            self.incidents.start()
         if self.profiler is not None:
             self.profiler.start()
+        if self._fleet_push:
+            from attendance_tpu_torch.obs.fleet import (
+                FleetPusher, default_instance)
+            self._fleet = FleetPusher(
+                self.registry, self.tracer, self._fleet_push,
+                role=self._fleet_role,
+                instance=self._fleet_instance or default_instance(),
+                interval_s=self._fleet_interval).start()
         if (self.tracer is not None or self._reporter is not None
-                or self.slo is not None or self.profiler is not None):
+                or self.slo is not None or self.profiler is not None
+                or self.incidents is not None):
             # Backstop for runs that never reach a run-loop flush; every
             # flush is idempotent.
             _install_atexit_flush()
@@ -200,11 +252,22 @@ class Telemetry:
 
     def stop(self) -> None:
         self.flush_trace("telemetry-stop")
+        if self.incidents is not None:
+            # Persist a still-open incident while every evidence source
+            # below is alive, then stop the tick thread.
+            self.incidents.finalize("telemetry-stop")
+            self.incidents.stop()
         if self.profiler is not None:
-            # The sampler thread joined first, then its artifacts
-            # written (with the launch-shape ledger).
+            # The sampler thread joined before the fleet drain below (the
+            # final push carries its last stage fractions), then its
+            # artifacts written (with the launch-shape ledger).
             self.profiler.stop()
             self.flush_profile("telemetry-stop")
+        if self._fleet is not None:
+            # Final push (the spans recorded above included), so a run
+            # shorter than the push interval still reaches the collector.
+            self._fleet.stop()
+            self._fleet = None
         if self.slo is not None:
             # Final tick before the reporter's last block: a firing
             # alert reaches the log, the flight ring and the gauges.
@@ -327,10 +390,19 @@ def enable(config) -> Telemetry:
             slo_specs=_slo_specs_from(config),
             slo_fast_s=getattr(config, "slo_fast_s", 60.0),
             slo_slow_s=getattr(config, "slo_slow_s", 300.0),
+            fleet_push=getattr(config, "fleet_push", ""),
+            fleet_role=getattr(config, "fleet_role", ""),
+            fleet_instance=(getattr(config, "fleet_instance", "")
+                            or getattr(config, "fed_worker", "")),
+            fleet_push_interval_s=getattr(config,
+                                          "fleet_push_interval_s", 2.0),
             metric_series_max=getattr(config, "metric_series_max",
                                       1024),
             profile_hz=getattr(config, "profile_hz", 0.0),
-            profile_out=getattr(config, "profile_out", ""))
+            profile_out=getattr(config, "profile_out", ""),
+            incident_dir=getattr(config, "incident_dir", ""),
+            incident_clear_ticks=getattr(config, "incident_clear_ticks",
+                                         3))
         t.start()
         TELEMETRY = t
         return t

@@ -413,7 +413,10 @@ def register_fused_audit(telemetry, pipe, **labels) -> None:
     # counter: the counter also carries store-path increments, so the
     # fused surface reconciles against its OWN baseline; diffing against
     # the shared total would let a store-path FN mask a fused kernel bug.
+    # The lock makes the high-water mark one step: the scrape, SLO,
+    # incident and fleet threads may read at once.
     fn_reported = [0]
+    fn_lock = threading.Lock()
 
     def measured_fpr() -> float:
         p = _deref()
@@ -424,9 +427,10 @@ def register_fused_audit(telemetry, pipe, **labels) -> None:
                 # Filter bits only get set, so the fused miss count can
                 # only shrink between scrapes; report the high-water
                 # mark once.
-                if misses > fn_reported[0]:
-                    auditor._fn.inc(misses - fn_reported[0])
-                    fn_reported[0] = misses
+                with fn_lock:
+                    if misses > fn_reported[0]:
+                        auditor._fn.inc(misses - fn_reported[0])
+                        fn_reported[0] = misses
                 logger.error(
                     "Fused Bloom FALSE NEGATIVE: %d sampled roster "
                     "keys answered absent", misses)

@@ -1001,7 +1001,8 @@ class FusedPipeline:
         """PFCOUNT of every live temporal bucket from ONE histogram
         launch over the live rows: {bucket key: unique-valid-student
         estimate}."""
-        keys = {k: b for k, b in self._bank_of.items() if is_bucket_key(k)}
+        keys = {k: b for k, b in dict(self._bank_of).items()
+                if is_bucket_key(k)}
         if not keys:
             return {}
         if self.engine is not None:
@@ -2783,8 +2784,10 @@ class FusedPipeline:
 
     def count_all(self) -> Dict[int, int]:
         """PFCOUNT of every registered lecture day from ONE histogram
-        launch over the live rows."""
-        days = {d: b for d, b in self._bank_of.items()
+        launch over the live rows. Safe beside the run loop: the day map
+        is copied in one step (a scrape, an SLO or incident tick and a
+        fleet push call this from their own threads)."""
+        days = {d: b for d, b in dict(self._bank_of).items()
                 if not is_bucket_key(d)}
         if not days:
             return {}

@@ -2474,12 +2474,13 @@ def _fed_drain(agg) -> None:
         quiet = quiet + 1 if agg.poll(timeout_ms=100) == 0 else 0
 
 
-def _fed_oracle(dev, num_shards: int, events: int) -> dict:
+def _fed_oracle(dev, num_shards: int, events: int, run_shards=None) -> dict:
     """The no-crash federated oracle: one FusedPipeline on the card per
-    shard (its roster slice preloaded, its frames run), merged with the
-    CRDT twins. A single pipeline over the whole roster is not
-    register-equivalent: its denser filter admits other false-positive
-    invalid ids into the day registers."""
+    shard (its roster slice preloaded, its frames run; with
+    ``run_shards``, only those shards' frames run and the others are
+    preloaded alone), merged with the CRDT twins. A single pipeline over
+    the whole roster is not register-equivalent: its denser filter admits
+    other false-positive invalid ids into the day registers."""
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.federation.worker import build_workload
     from attendance_tpu_torch.models.bloom import bloom_or_words_np
@@ -2496,13 +2497,15 @@ def _fed_oracle(dev, num_shards: int, events: int) -> dict:
                              num_banks=16, device=dev)
         try:
             pipe.preload(mine)
-            producer = pipe.client.create_producer(pipe.config.pulsar_topic)
-            for f in frames:
-                producer.send(f)
-            pipe.run(max_events=events, idle_timeout_s=2.0)
-            check(pipe.metrics.events == events,
-                  f"oracle shard {s}/{num_shards}: {pipe.metrics.events} "
-                  "events")
+            if run_shards is None or s in run_shards:
+                producer = pipe.client.create_producer(
+                    pipe.config.pulsar_topic)
+                for f in frames:
+                    producer.send(f)
+                pipe.run(max_events=events, idle_timeout_s=2.0)
+                check(pipe.metrics.events == events,
+                      f"oracle shard {s}/{num_shards}: "
+                      f"{pipe.metrics.events} events")
             w = pipe.state.bloom_bits.cpu().numpy().view(np.uint32).copy()
             shard_words.append(w)
             words = w if words is None else bloom_or_words_np(words, w)
@@ -5513,6 +5516,467 @@ def slo_profiler_phase(card: str, dev, ref, stream) -> dict:
     return launches
 
 
+# Phase 15: the fleet plane and incidents on the card.
+INCIDENT_DEADLINE_S = 10.0  # 15(a): the wait for the incident and its reads
+FLEET_W0_EVENTS = 65_536    # 15(b): w0's events, 8 of its frames
+FLEET_DEAD_AFTER_S = 2.0    # 15(b): the aggregator's silence budget
+FLEET_RUNS = 3              # 15(c): push-on and telemetry-off sessions
+
+
+def _bundle_digests_hold(what: str, bundle) -> dict:
+    """Every evidence part is present and its sha256 is the one
+    ``incident.json`` records; returns the record."""
+    import hashlib
+
+    from attendance_tpu_torch.obs.incident import (
+        DIAGNOSIS_FILE, EVIDENCE_PARTS, INCIDENT_FILE)
+
+    rec = json.loads((bundle / INCIDENT_FILE).read_text())
+    for name in EVIDENCE_PARTS + (DIAGNOSIS_FILE,):
+        part = bundle / name
+        check(part.is_file(), f"{what}: bundle part {name} missing")
+        check(hashlib.sha256(part.read_bytes()).hexdigest()
+              == rec["evidence"].get(name),
+              f"{what}: {name}'s digest differs from incident.json's")
+    return rec
+
+
+def _incident_fused(card: str, ref, stream, work, launches: dict) -> None:
+    """15(a): the ``fused`` default with the 1% audit, ``fpr<=0.0001`` at
+    0.4 / 1.6 s windows, the flight ring, the tracer, the 97 Hz sampler,
+    a prom file and ``--incident-dir``: the incident engine opens an
+    ``slo_burn`` incident from its own thread, whose bundle's render
+    launches K4 and K1 there; ``doctor --incident`` exits 0, 1 on a
+    flipped byte, 2 on a missing directory."""
+    import shutil
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.obs.incident import find_bundles
+    from attendance_tpu_torch.ops import kernels
+
+    what = "incident (a) fused default"
+    inc_dir = work / "a-incidents"
+    config = Config(metrics_prom=str(work / "a.prom"), flight_recorder=256,
+                    trace_out=str(work / "a-trace.json"),
+                    profile_hz=PROFILE_HZ, audit_sample=0.01,
+                    slo=["fpr<=0.0001"], slo_fast_s=0.4, slo_slow_s=1.6,
+                    incident_dir=str(inc_dir))
+    t = obs.enable(config)
+    try:
+        check(t.incidents is not None
+              and t.incidents._thread.name == "incident-engine",
+              f"{what}: no incident engine thread")
+        kernels.reset_launches()
+        with _LaunchThreads() as spy:
+            pipe, _summary = run_with_native(True, config, *stream)
+            run_end = time.time()
+            t0 = time.perf_counter()
+            try:
+                while not (t.incidents.total_opened
+                           and spy.on("incident-engine", "bloom_contains")
+                           and spy.on("incident-engine", "hll_histogram")):
+                    check(time.perf_counter() - t0 < INCIDENT_DEADLINE_S,
+                          f"{what}: no incident with K4 and K1 from the "
+                          f"incident-engine thread in {INCIDENT_DEADLINE_S}"
+                          f" s ({t.incidents.total_opened} opened, "
+                          f"callers {spy.callers})")
+                    time.sleep(0.02)
+                waited = time.perf_counter() - t0
+                wait_launches = {k: v for k, v in kernels.launches.items()
+                                 if v}
+                for name, count in kernels.launches.items():
+                    launches[name] += count
+                on_thread = {name: spy.on("incident-engine", name)
+                             for name in spy.NAMES}
+                check(pipe.validity_counts() == ref[0],
+                      f"{what}: counters differ from phase 3's")
+                check({str(d): n for d, n in sorted(
+                    pipe.count_all().items())} == ref[1],
+                      f"{what}: PFCOUNTs differ from phase 3's")
+                check(torch.equal(pipe.state.hll_regs, ref[2]),
+                      f"{what}: registers differ from phase 3's")
+                # Telemetry stops while the pipeline is alive: the
+                # incident's finalize and the last prom block read it.
+                obs.disable()
+            finally:
+                pipe.cleanup()
+    finally:
+        obs.disable()
+    bundles = find_bundles(inc_dir)
+    check(len(bundles) == 1, f"{what}: bundles {bundles}")
+    bundle = bundles[0]
+    rec = _bundle_digests_hold(what, bundle)
+    check(rec["diagnosis_top"] == "slo_burn",
+          f"{what}: top rule {rec['diagnosis_top']} {rec['conditions']}")
+    check(rec["detail"].get("finalized") == "telemetry-stop",
+          f"{what}: incident.json lacks the finalize: {rec['detail']}")
+    code, verdict = _doctor_cli(["--incident", str(inc_dir)])
+    print(f"{what}: doctor --incident exit {code}\n{verdict.rstrip()}")
+    check(code == 0, f"{what}: doctor --incident exit {code} on the bundle")
+    bad = work / "a-corrupt"
+    shutil.copytree(bundle, bad / bundle.name)
+    part = bad / bundle.name / "flight.json"
+    raw = bytearray(part.read_bytes())
+    raw[len(raw) // 2] ^= 0x01
+    part.write_bytes(bytes(raw))
+    code_bad, _ = _doctor_cli(["--incident", str(bad)])
+    code_gone, _ = _doctor_cli(["--incident", str(work / "no-such-dir")])
+    check((code_bad, code_gone) == (1, 2),
+          f"{what}: doctor --incident exits {code_bad} on a flipped byte "
+          f"and {code_gone} on a missing directory, not 1 and 2")
+    print(f"{what}: incident {rec['id']} top rule {rec['diagnosis_top']} "
+          f"conditions {rec['conditions']}, opened "
+          f"{rec['opened_unix'] - run_end} s after the run's end; K4 and K1 "
+          f"from incident-engine {on_thread} within {waited} s; launches "
+          f"in the run and the wait {wait_launches}; bundle parts "
+          f"{sorted(rec['evidence'])} verified; doctor exits 0 / "
+          f"{code_bad} / {code_gone} (bundle / flipped byte / missing) on "
+          f"{card}")
+
+
+def _http_json(port: int, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as resp:
+        return json.loads(resp.read())
+
+
+def _fence_spans(trace_doc: dict) -> dict:
+    """{process name: fence_publish spans} of a stitched fleet trace."""
+    names = {e["pid"]: e["args"]["name"] for e in trace_doc["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    out: dict = {}
+    for e in trace_doc["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] == "fence_publish":
+            out.setdefault(names[e["pid"]], []).append(e)
+    return out
+
+
+def _fleet_federation(card: str, dev, work, launches: dict) -> None:
+    """15(b): ``federate`` with a collector (``--fleet-port -1``), its
+    own pusher and the incident engine, two workers on the card pushing
+    to it; w1 SIGKILLed once its fence span reached the collector: the
+    aggregator opens a ``dead_worker`` incident whose bundle holds the
+    fleet status; the fleet artifacts hold every role; the merged view
+    equals the oracle of w0's run beside w1's preload."""
+    import re
+    import signal
+    from pathlib import Path
+
+    from attendance_tpu_torch import cli
+    from attendance_tpu_torch.obs.fleet import STATUS_FILE, TRACE_FILE
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.serve.rpc import QueryClient
+    from attendance_tpu_torch.transport.socket_broker import spawn_broker
+
+    what = "fleet (b) federation"
+    t_b = time.perf_counter()
+    repo = str(Path(__file__).resolve().parent)
+    env = _fed_env(repo)
+    bdir = work / "b"
+    bdir.mkdir()
+    fdir, inc_dir = bdir / "fleet", bdir / "incidents"
+    stats_file, verb_log = bdir / "fed.json", bdir / "federate.log"
+    topic, gossip_topic = "chip-fleet", "chip-fleet-gossip"
+    probe = np.random.default_rng(9).integers(
+        1 << 21, 1 << 31, 1 << 20).astype(np.uint32)
+    procs = []
+    broker, addr = spawn_broker(cwd=repo)
+    try:
+        with open(verb_log, "w") as fh:
+            verb = subprocess.Popen(
+                [sys.executable, "-m", "attendance_tpu_torch", "federate",
+                 "--transport-backend", "socket", "--socket-broker", addr,
+                 "--fed-shards", "2", "--fed-gossip-topic", gossip_topic,
+                 "--fed-dead-after-s", str(FLEET_DEAD_AFTER_S),
+                 "--serve-port", "-1", "--serve-seconds", "600",
+                 "--stats-json", str(stats_file), "--stats-every-s", "0.2",
+                 "--metrics-port", "-1", "--metrics-interval-s", "0.25",
+                 "--fleet-port", "-1", "--fleet-dir", str(fdir),
+                 "--fleet-push-interval-s", "0.25",
+                 "--incident-dir", str(inc_dir)],
+                stdout=fh, stderr=subprocess.STDOUT, cwd=repo, env=env)
+        procs.append(verb)
+        deadline = time.time() + 120
+        while "serving on" not in open(verb_log).read():
+            check(verb.poll() is None, f"{what}: federate exited:\n"
+                  + open(verb_log).read()[-3000:])
+            check(time.time() < deadline, f"{what}: federate never served")
+            time.sleep(0.05)
+        log = open(verb_log).read()
+        collector = re.search(r"fleet collector on (\S+)", log).group(1)
+        mport = int(re.search(r"Serving Prometheus metrics on :(\d+)",
+                              log).group(1))
+        address = [ln for ln in log.splitlines()
+                   if "serving on" in ln][0].rsplit(" ", 1)[-1]
+        logs = [bdir / f"worker-{s}.log" for s in range(2)]
+        gos = [bdir / f"go-{s}" for s in range(2)]
+        workers = [_spawn_fed_worker(
+            repo, env, logs[s], addr, bdir, s, 2, topic, gossip_topic,
+            (FLEET_W0_EVENTS, FED_BATCH)[s], data_plane="memory",
+            extra=("--max-events", str((FLEET_W0_EVENTS, FED_BATCH)[s]),
+                   "--idle-timeout-s", "10", "--fleet-push", collector,
+                   "--ready-file", str(bdir / f"ready-{s}"),
+                   "--go-file", str(gos[s])))
+            for s in range(2)]
+        procs += workers
+        # Both workers ready, and each one's preload fence span in the
+        # collector's stitched trace.
+        deadline = time.time() + 120
+        while True:
+            for s, p in enumerate(workers):
+                check(p.poll() is None, f"{what}: w{s} died:\n"
+                      + open(logs[s]).read()[-3000:])
+            fences = _fence_spans(_http_json(mport, "/fleet/trace"))
+            if (all((bdir / f"ready-{s}").exists() for s in range(2))
+                    and "worker:w0" in fences and "worker:w1" in fences):
+                break
+            check(time.time() < deadline, f"{what}: workers never ready "
+                  f"with their fence spans pushed ({sorted(fences)})")
+            time.sleep(0.05)
+        gos[0].touch()
+        workers[1].send_signal(signal.SIGKILL)
+        workers[1].wait()
+        t_kill = time.time()
+        deadline = t_kill + FLEET_DEAD_AFTER_S + 30
+        dead = None
+        while dead is None:
+            for bundle in (sorted(inc_dir.iterdir())
+                           if inc_dir.is_dir() else []):
+                try:
+                    rec = json.loads((bundle / "incident.json").read_text())
+                except (FileNotFoundError, json.JSONDecodeError):
+                    continue
+                if (rec["diagnosis_top"] == "dead_worker"
+                        and "peer_down" in rec["conditions"]):
+                    dead = (bundle, rec, time.time() - t_kill)
+            check(dead is not None or time.time() < deadline,
+                  f"{what}: no dead_worker incident at the aggregator")
+            time.sleep(0.02)
+        _fed_wait([workers[0]], [logs[0]], what, 120)
+        deadline = time.time() + 60
+        while True:
+            doc = (json.loads(stats_file.read_text())
+                   if stats_file.exists() else {})
+            if doc.get("events") == FLEET_W0_EVENTS:
+                break
+            check(time.time() < deadline, f"{what}: stats {doc}")
+            time.sleep(0.1)
+        time.sleep(0.5)  # w0's final full frame folded and published
+        kernels.reset_launches()
+        oracle = _fed_oracle(dev, 2, FLEET_W0_EVENTS, run_shards=(0,))
+        _fed_oracle_reads(dev, oracle, probe)
+        for name, count in kernels.launches.items():
+            launches[name] += count
+        qc = QueryClient(address, batch_max=1 << 16)
+        try:
+            check(bool(qc.bf_exists(oracle["roster"]).all()),
+                  f"{what}: a roster id reads absent from the merged view")
+            check(np.array_equal(qc.bf_exists(probe), oracle["k4"]),
+                  f"{what}: BF.EXISTS of non-roster ids differs from K4 on "
+                  "the oracle's filter")
+            days = np.array(sorted(oracle["pfcount"]), np.int64)
+            check(qc.pfcount(days).tolist()
+                  == [oracle["pfcount"][int(d)] for d in days],
+                  f"{what}: PFCOUNT of the merged view differs from the "
+                  "oracle's")
+            st = qc.stats()
+        finally:
+            qc.close()
+        check((st["valid"], st["invalid"]) == (oracle["valid"],
+                                                oracle["invalid"]),
+              f"{what}: merged counters ({st['valid']}, {st['invalid']}) vs "
+              f"the oracle's ({oracle['valid']}, {oracle['invalid']})")
+        verb.send_signal(signal.SIGINT)
+        check(verb.wait(timeout=60) == 0, f"{what}: federate exited "
+              f"{verb.returncode}:\n" + open(verb_log).read()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        broker.kill()
+        broker.wait()
+    log = open(verb_log).read()
+    check("tick failed" not in log, f"{what}: a failed tick at the "
+          "aggregator:\n" + log[-3000:])
+    status = json.loads((fdir / STATUS_FILE).read_text())
+    keys = sorted(status["instances"])
+    check("worker@w0" in keys and "worker@w1" in keys
+          and any(k.startswith("aggregator@") for k in keys),
+          f"{what}: FLEET.json holds {keys}")
+    for w in ("w0", "w1"):
+        check((fdir / f"worker@{w}.prom").is_file(),
+              f"{what}: no worker@{w}.prom")
+    fences = _fence_spans(json.loads((fdir / TRACE_FILE).read_text()))
+    check("worker:w0" in fences and "worker:w1" in fences,
+          f"{what}: fleet_trace.json's fence spans {sorted(fences)}")
+    bundle, rec, detected = dead
+    fleet_doc = json.loads((bundle / "fleet_status.json").read_text())
+    check(fleet_doc.get("collected") is True,
+          f"{what}: the bundle's fleet_status.json {fleet_doc}")
+    _bundle_digests_hold(what, bundle)
+    code_inc, verdict = _doctor_cli(["--incident", str(bundle)])
+    check(code_inc == 0, f"{what}: doctor --incident exit {code_inc}:\n"
+          + verdict)
+    snap = bdir / "fleet-snapshot.json"
+    code = 0
+    try:
+        cli.main(["fleet", "--dir", str(fdir), "--once", "--snapshot-json",
+                  str(snap)])
+    except SystemExit as e:
+        code = e.code
+    check(code == 0 and json.loads(snap.read_text())["instances"],
+          f"{what}: fleet --dir --once --snapshot-json exit {code}")
+    code_fleet, verdict = _doctor_cli(["--fleet", str(fdir)])
+    check(code_fleet in (0, 1) and "worker@w0:" in verdict
+          and "worker@w1:" in verdict,
+          f"{what}: doctor --fleet exit {code_fleet}:\n{verdict}")
+    print(f"{what}: doctor --fleet exit {code_fleet}\n{verdict.rstrip()}")
+    incidents = [json.loads((b / "incident.json").read_text())
+                 for b in sorted(inc_dir.iterdir())
+                 if (b / "incident.json").is_file()]
+    print(f"{what}: FLEET.json roles {keys}; pushes "
+          f"{ {k: v['pushes'] for k, v in status['instances'].items()} }; "
+          f"fence spans in fleet_trace.json "
+          f"{ {k: len(v) for k, v in fences.items()} }; w1 SIGKILLed after "
+          f"its fence reached the collector, dead_worker incident "
+          f"{rec['id']} seen {detected} s after the kill (opened "
+          f"{rec['opened_unix'] - t_kill} s after, silence budget "
+          f"{FLEET_DEAD_AFTER_S} s), conditions {rec['conditions']}, its "
+          f"fleet_status.json collected with "
+          f"{sorted(fleet_doc.get('instances', {}))}; incidents at the "
+          f"aggregator {[(i['diagnosis_top'], i['conditions']) for i in incidents]}"
+          f"; doctor --incident exit {code_inc}; merged view equal to the "
+          f"oracle of w0's {FLEET_W0_EVENTS} events beside w1's preload "
+          f"({st['valid']} valid, {st['invalid']} invalid); wall "
+          f"{time.perf_counter() - t_b} s on {card}")
+
+
+def _fleet_overhead(card: str, ref, stream, work, launches: dict) -> None:
+    """15(c): the ``fused`` default with a 0.5 s pusher into an
+    in-process collector and ``--incident-dir``, against telemetry off,
+    FLEET_RUNS sessions a side interleaved, each one pipeline run twice;
+    reported, not gated: the on/off ratio of the medians, the pushes and
+    the K4/K1 launched from ``fleet-pusher``."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.obs.fleet import FleetCollector
+
+    collector = FleetCollector().start()
+    rates = {"off": ([], []), "on": ([], [])}
+    pushes, on_pusher = [], []
+    try:
+        for i in range(FLEET_RUNS):
+            for mode in ("off", "on"):
+                what = f"fleet (c) session {i} {mode}"
+                tel = {}
+                if mode == "on":
+                    tel = dict(fleet_push=collector.address,
+                               fleet_push_interval_s=0.5,
+                               incident_dir=str(work / f"c{i}-incidents"))
+                config = Config(**tel)
+                t = obs.enable(config) if mode == "on" else None
+
+                def checks(pipe, run, what=what):
+                    check(pipe.validity_counts() == tuple(
+                        run * x for x in ref[0]),
+                          f"{what} run {run}: counters differ from phase 3's")
+                    check(torch.equal(pipe.state.hll_regs, ref[2]),
+                          f"{what} run {run}: registers differ")
+
+                before = sum(v["pushes"] for v in
+                             collector.status()["instances"].values())
+                with _LaunchThreads() as spy:
+                    try:
+                        (r1, r2), run_launches = _two_runs(
+                            config, stream, checks,
+                            after=lambda pipe: obs.disable())
+                    finally:
+                        obs.disable()
+                rates[mode][0].append(r1)
+                rates[mode][1].append(r2)
+                if t is None:
+                    continue
+                for name, count in run_launches.items():
+                    launches[name] += count
+                pushes.append(sum(v["pushes"] for v in collector.status()[
+                    "instances"].values()) - before)
+                on_pusher.append({name: spy.on("fleet-pusher", name)
+                                  for name in spy.NAMES})
+                check(pushes[-1] > 0, f"{what}: no push reached the "
+                      "collector (the final push at stop)")
+    finally:
+        obs.disable()
+        collector.stop()
+    for k, label in ((0, "first"), (1, "second")):
+        off = float(np.median(rates["off"][k]))
+        on = float(np.median(rates["on"][k]))
+        print(f"fleet (c) fused default {label} runs, events/s off "
+              f"{rates['off'][k]} on {rates['on'][k]}; medians off {off} "
+              f"on {on}; on/off {on / off} on {card}")
+    print(f"fleet (c): push frames a session {pushes}; K4/K1 launched "
+          f"from fleet-pusher a session {on_pusher} on {card}")
+
+
+def fleet_incident_phase(card: str, dev, ref, stream) -> dict:
+    """Phase 15: the fleet plane and incidents on the card. (a) an
+    ``slo_burn`` incident opened by the engine's thread on the ``fused``
+    default, its bundle's K4 and K1 launched there, ``doctor
+    --incident`` 0 / 1 / 2; (b) ``federate`` with a collector and two
+    card workers pushing to it, a ``dead_worker`` incident when w1 is
+    SIGKILLed, the fleet artifacts and the merged view against its
+    oracle; (c) the pusher's and the incident engine's cost. Fails on a
+    failed incident or SLO tick and on an engine, pusher or collector
+    thread left after the phase. Returns the launches of its runs,
+    waits and oracle."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.obs import fleet, incident, slo
+    from attendance_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    launches = dict.fromkeys(kernels.launches, 0)
+    failed = _ErrorRecords()
+    for mod in (incident, slo, fleet):
+        mod.logger.addHandler(failed)
+    try:
+        _incident_fused(card, ref, stream, work, launches)
+        # (c) before (b): a CPU rehearsal ran the plain PyTorch versions
+        # of telemetry-off runs several times slower after (b)'s
+        # processes, which would skew the on/off ratio.
+        _fleet_overhead(card, ref, stream, work, launches)
+        _fleet_federation(card, dev, work, launches)
+    finally:
+        obs.disable()
+        for mod in (incident, slo, fleet):
+            mod.logger.removeHandler(failed)
+        shutil.rmtree(work, ignore_errors=True)
+    check(not failed.records, "fleet: " + "; ".join(
+        r.getMessage() for r in failed.records))
+    deadline = time.perf_counter() + 5.0
+    while True:
+        left = [th.name for th in threading.enumerate()
+                if th.name in ("incident-engine", "fleet-pusher",
+                               "fleet-collector", "slo-engine")
+                or th.name.startswith("fleet-conn")]
+        if not left:
+            break
+        check(time.perf_counter() < deadline,
+              f"fleet: threads left after the phase {left}")
+        time.sleep(0.02)
+    print(f"fleet phase: {time.perf_counter() - t_phase} s")
+    print(f"fleet phase launches (its runs, waits and oracle; in the "
+          f"kernels line): { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6068,6 +6532,10 @@ def main() -> int:
     slo_launches = slo_profiler_phase(card, dev, ref,
                                       (num_events, frame_size, num_lectures))
 
+    # -- 15. the fleet plane and incidents ------------------------------------
+    fleet_launches = fleet_incident_phase(
+        card, dev, ref, (num_events, frame_size, num_lectures))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -6079,7 +6547,7 @@ def main() -> int:
                        + l_launches[name] + f_launches[name]
                        + m_launches[name] + tel_launches[name]
                        + acc_launches[name] + chaos_launches[name]
-                       + slo_launches[name]),
+                       + slo_launches[name] + fleet_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -826,10 +826,11 @@ def test_worker_takes_chaos_flags():
                                     base_topic="t", chaos=args.chaos,
                                     chaos_seed=args.chaos_seed)
     assert (cfg.chaos, cfg.chaos_seed) == (args.chaos, 9)
-    with pytest.raises(SystemExit):
-        worker.build_parser().parse_args(
-            ["--worker", "w0", "--shard", "0", "--num-shards", "1",
-             "--broker", "b", "--workdir", "w", "--fleet-push", "x"])
+    # The fleet pusher is ported too (it was refused before item 11d2).
+    args = worker.build_parser().parse_args(
+        ["--worker", "w0", "--shard", "0", "--num-shards", "1",
+         "--broker", "b", "--workdir", "w", "--fleet-push", "x"])
+    assert args.fleet_push == "x"
 
 
 def test_gossip_blackhole_is_silent_and_the_full_frame_converges():

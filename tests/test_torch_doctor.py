@@ -6,8 +6,8 @@ The same artifacts give the same verdict text, byte for byte, and the
 same exit codes (0 pass, 1 breach, 2 unreadable): the golden table, a
 row of every kind the verdict has, a fleet directory, and each package's
 doctor over the other package's artifacts from a real audited fused run
-with the SLO engine on. The planes the port does not have are refused at
-parse time. Every test leaves both packages' process-global telemetry
+with the SLO engine on. The plane the port does not have yet (the control
+plane's ``--actuations``) is refused at parse time. Every test leaves both packages' process-global telemetry
 disabled.
 """
 
@@ -327,8 +327,7 @@ def test_doctor_folds_the_scrub_into_its_exit_code(tmp_path, capsys):
     assert rc == 2
 
 
-@pytest.mark.parametrize("flag,item", [("--incident", "11d2"),
-                                       ("--actuations", "11e")])
+@pytest.mark.parametrize("flag,item", [("--actuations", "11e")])
 def test_unported_planes_refused_at_parse_time(tmp_path, capsys, flag,
                                                item):
     paths = _doctor_artifacts(tmp_path, breached=False)

@@ -1074,15 +1074,12 @@ def test_worker_without_a_device_raises_on_a_host_without_a_card(tmp_path):
                      "--roster-size", "1000"])
     base = ["--worker", "w0", "--shard", "0", "--num-shards", "1",
             "--broker", "b", "--workdir", "d"]
-    # The telemetry and fault-injection flags are ported; the fleet
-    # pusher is refused at parse time.
+    # The telemetry, fault-injection and fleet flags are ported.
     args = worker.build_parser().parse_args(
         base + ["--metrics-prom", "x", "--chaos", "drop=0.1",
-                "--chaos-seed", "3"])
-    assert (args.metrics_prom, args.chaos, args.chaos_seed) == (
-        "x", "drop=0.1", 3)
-    with pytest.raises(SystemExit):
-        worker.build_parser().parse_args(base + ["--fleet-push", "x"])
+                "--chaos-seed", "3", "--fleet-push", "h:1"])
+    assert (args.metrics_prom, args.chaos, args.chaos_seed,
+            args.fleet_push) == ("x", "drop=0.1", 3, "h:1")
 
 
 def test_worker_subprocess_gossips_to_an_aggregator(tmp_path):

@@ -178,7 +178,8 @@ _PORT_MODULES = {
     "attendance_tpu_torch.chaos", "attendance_tpu_torch.chaos.soak",
     "attendance_tpu_torch.storage.resilient",
     "attendance_tpu_torch.obs.slo", "attendance_tpu_torch.obs.profiler",
-    "attendance_tpu_torch.utils.profiling"}
+    "attendance_tpu_torch.utils.profiling",
+    "attendance_tpu_torch.obs.fleet", "attendance_tpu_torch.obs.incident"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():

@@ -375,3 +375,84 @@ def test_generate_then_process_verbs_share_the_process_broker(caplog):
         assert done and not done[0].startswith("Processed 0 ")
     finally:
         MemoryBroker.reset_shared()
+
+
+@pytest.mark.parametrize("verbs", ["pipeline", "generate+process"])
+def test_bloom_filter_key_flag_equals_jax(monkeypatch, verbs):
+    """``--bloom-filter-key roster:x`` on the generic-store verbs: the
+    port's run equals JAX's in stats and stored rows, its processor's
+    filter is the named key (not the default), and in ``pipeline`` the
+    named key holds the generated roster."""
+    import attendance_tpu.pipeline.generator as jgen_mod
+    import attendance_tpu.pipeline.processor as jproc_mod
+    import attendance_tpu_torch.cli as tcli
+    import attendance_tpu_torch.pipeline.generator as gen_mod
+    import attendance_tpu_torch.pipeline.processor as proc_mod
+
+    class FixedNow(datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return NOW
+
+    reports, seen = {}, {}
+    for name, gmod, pmod in (("jax", jgen_mod, jproc_mod),
+                             ("port", gen_mod, proc_mod)):
+        monkeypatch.setattr(gmod, "datetime", FixedNow)
+
+        def generate(*a, _real=gmod.generate_student_data, _name=name,
+                     **kw):
+            reports[_name] = _real(*a, **kw)
+            return reports[_name]
+
+        def cleanup(self, _real=pmod.AttendanceProcessor.cleanup,
+                    _name=name):
+            roster = np.asarray(sorted(reports[_name].valid_student_ids),
+                                np.uint32)
+            seen[_name] = (_rows(self.store), _metrics(self.metrics),
+                           sorted(self.sketch._blooms),
+                           bool(self.sketch.bf_exists_many(
+                               "roster:x", roster).all()))
+            _real(self)
+
+        monkeypatch.setattr(gmod, "generate_student_data", generate)
+        monkeypatch.setattr(pmod.AttendanceProcessor, "cleanup", cleanup)
+    # The port's CLI holds the generator by name.
+    monkeypatch.setattr(tcli, "generate_student_data",
+                        gen_mod.generate_student_data)
+    common = ["--sketch-backend", "memory", "--bloom-filter-key",
+              "roster:x", "--batch-size", "64"]
+    jobs.disable()
+    for main, extra, broker in ((jax_main, [], JBroker),
+                                (cli_main, ["--device", "cpu"],
+                                 MemoryBroker)):
+        broker.reset_shared()
+        try:
+            if verbs == "pipeline":
+                main(["pipeline", "--num-students", "60", "--seed", "3"]
+                     + common + extra)
+            else:
+                main(["generate", "--num-students", "60", "--seed", "3"]
+                     + common + extra)
+                main(["process", "--idle-timeout-s", "0.3"] + common
+                     + extra)
+        finally:
+            broker.reset_shared()
+    assert seen["port"] == seen["jax"]
+    rows, metrics, keys, holds_roster = seen["port"]
+    assert rows and metrics[1] == len(rows)
+    assert keys == ["roster:x"]
+    # The generate verb preloads its own store, which a separate process
+    # verb does not share; in pipeline the processor's store is that store.
+    assert holds_roster == (verbs == "pipeline")
+
+
+def test_bloom_filter_key_only_on_verbs_that_read_it():
+    from attendance_tpu_torch.cli import build_parser
+
+    parser = build_parser()
+    for verb in ("generate", "process", "pipeline"):
+        args = parser.parse_args([verb, "--bloom-filter-key", "roster:x"])
+        assert args.bloom_filter_key == "roster:x"
+    for verb in ("analyze", "stats", "parity", "fused"):
+        with pytest.raises(SystemExit):
+            parser.parse_args([verb, "--bloom-filter-key", "roster:x"])
