@@ -52,8 +52,9 @@ Counterpart of ``attendance_tpu/cli.py``'s verbs:
   incident evidence bundles, digest-verified and judged; ``--quarantine
   DIR``, ``--replay-quarantine``, ``--purge-replayed``): a verdict
   table, exit 0 when every check passes, 1 on a breach, 2 when an
-  artifact is unreadable. ``--actuations`` is refused at parse time
-  (the control plane is not ported);
+  artifact is unreadable; ``--actuations FILE`` replays a control-plane
+  actuation log (exit 1 on a schema or sequence problem, 2 when the file
+  is missing);
 * ``scrub``: the offline integrity scrub of snapshot chains, spill,
   quarantine and event directories (``utils.integrity.scrub_report``):
   a verdict table, exit 0 when nothing is corrupt, 1 when something is,
@@ -81,8 +82,12 @@ and the fleet pusher's ``--fleet-push HOST:PORT``, ``--fleet-role``,
 takes ``--fleet-port N`` (a fleet collector in the aggregator's process,
 -1 = ephemeral, its views under ``/fleet/*`` on ``--metrics-port``) and
 ``--fleet-dir DIR`` (the collected artifacts).
-``fused``, ``process`` and ``pipeline``, whose runs read it, also take
-``--profile-dir DIR`` (a ``torch.profiler`` trace of the fused or the
+``fused`` alone, whose run builds the fused pipeline a controller
+attaches to, takes the control plane's ``--control-log FILE`` (the
+actuation log; it turns telemetry on), ``--control-spill-dir DIR``,
+``--control-dwell-s``, ``--control-clear-ticks`` and
+``--control-flap-limit``. ``fused``, ``process`` and ``pipeline``, whose
+runs read it, also take ``--profile-dir DIR`` (a ``torch.profiler`` trace of the fused or the
 processor run, ``utils/profiling.TRACE_FILE`` under the directory).
 With ``--metrics-port``, ``serve`` and a
 ``fused`` run with ``--serve-port`` also answer the query verbs as JSON
@@ -197,7 +202,7 @@ def cmd_fused(args) -> None:
                     replica_sync=args.replica_sync,
                     **_transport_config(args), **_ingress_config(args),
                     **_serve_config(args), **_fed_config(args),
-                    **_telemetry_config(args))
+                    **_telemetry_config(args), **_control_config(args))
     own_telemetry = obs.get() is None
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
@@ -860,7 +865,10 @@ def cmd_doctor(args) -> None:
     rows over the merged data); ``--scrub DIR`` folds the offline
     integrity scrub into the verdict; ``--incident DIR`` replays incident
     evidence bundles (every part digest-verified against incident.json,
-    an undiagnosed open incident a breach); ``--quarantine DIR`` lists the
+    an undiagnosed open incident a breach; with ``--actuations`` each
+    diagnosed bundle says whether the controller's recorded actuation
+    matched its top rule); ``--actuations FILE`` replays a control-plane
+    actuation log (schema, sequence); ``--quarantine DIR`` lists the
     on-disk dead-letter quarantine, ``--replay-quarantine`` republishes
     its frames through the configured transport. Exit codes: 0 every
     check passes, 1 at least one breach, 2 unreadable artifacts."""
@@ -911,7 +919,7 @@ def cmd_doctor(args) -> None:
             sys.exit(2)
         print(text)
         if (not args.artifacts and not args.quarantine and not args.scrub
-                and not args.incident):
+                and not args.incident and not args.actuations):
             sys.exit(0 if ok else 1)
         failed = failed or not ok
     if args.scrub:
@@ -925,7 +933,8 @@ def cmd_doctor(args) -> None:
             logger.error("no such scrub target: %s", e)
             sys.exit(2)
         print(text)
-        if not args.artifacts and not args.quarantine and not args.incident:
+        if (not args.artifacts and not args.quarantine and not args.incident
+                and not args.actuations):
             sys.exit(0 if ok and not failed else 1)
         failed = failed or not ok
     if args.incident:
@@ -933,13 +942,31 @@ def cmd_doctor(args) -> None:
         from attendance_tpu_torch.obs.incident import incident_report
 
         try:
-            text, ok = incident_report(args.incident)
+            # With --actuations alongside, each diagnosed bundle also
+            # reports whether the controller's recorded actuation matched
+            # the top-ranked rule's action id.
+            text, ok = incident_report(
+                args.incident, actuation_log=args.actuations or None)
         except FileNotFoundError as e:
             logger.error("no such incident bundle: %s", e)
             sys.exit(2)
         except Exception as e:
             logger.error("unreadable incident bundle: %s", e)
             sys.exit(2)
+        print(text)
+        if not args.artifacts and not args.quarantine and not args.actuations:
+            sys.exit(0 if ok and not failed else 1)
+        failed = failed or not ok
+    if args.actuations:
+        # Every control-plane actuation must be schema-valid with
+        # monotonic sequencing: a log that cannot be replayed cannot
+        # explain the run.
+        from attendance_tpu_torch.control.actuation import actuation_report
+
+        if not Path(args.actuations).is_file():
+            logger.error("no such actuation log: %s", args.actuations)
+            sys.exit(2)
+        text, ok = actuation_report(args.actuations)
         print(text)
         if not args.artifacts and not args.quarantine:
             sys.exit(0 if ok and not failed else 1)
@@ -1110,6 +1137,45 @@ def _add_fleet_collector_flags(p: argparse.ArgumentParser) -> None:
                    help="persist collected fleet artifacts (per-role "
                    "prom files, stitched trace, status snapshot) "
                    "here — the `doctor --fleet` input")
+
+
+def _add_control_flags(p: argparse.ArgumentParser) -> None:
+    """The control plane's flags, only on ``fused``: a controller
+    attaches only to a fused pipeline built under the telemetry bundle,
+    and ``fused`` is the one verb whose run builds one."""
+    d = Config()
+    p.add_argument("--control-log", default=d.control_log,
+                   help="enable the self-driving control plane and "
+                   "append its schema'd JSONL actuation log here "
+                   "(replay with `doctor --actuations`)")
+    p.add_argument("--control-spill-dir", default=d.control_spill_dir,
+                   help="shed-rung admission spills raw ingress frames "
+                   "durably here and acks them (empty = nack back to "
+                   "the broker)")
+    p.add_argument("--control-dwell-s", type=float,
+                   default=d.control_dwell_s,
+                   help="minimum seconds between controller moves on "
+                   "the same knob / ladder rung")
+    p.add_argument("--control-clear-ticks", type=int,
+                   default=d.control_clear_ticks,
+                   help="consecutive clean controller ticks before "
+                   "de-escalation")
+    p.add_argument("--control-flap-limit", type=int,
+                   default=d.control_flap_limit,
+                   help="max degradation-ladder transitions per "
+                   "rolling minute before the controller holds")
+
+
+def _control_config(args) -> dict:
+    """Config fields of the control flags (``_add_control_flags``); none
+    for a verb without them."""
+    if not hasattr(args, "control_log"):
+        return {}
+    return dict(control_log=args.control_log,
+                control_spill_dir=args.control_spill_dir,
+                control_dwell_s=args.control_dwell_s,
+                control_clear_ticks=args.control_clear_ticks,
+                control_flap_limit=args.control_flap_limit)
 
 
 def _add_profile_dir_flag(p: argparse.ArgumentParser) -> None:
@@ -1411,6 +1477,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_fed_flags(f)
     _add_telemetry_flags(f)
     _add_profile_dir_flag(f)
+    _add_control_flags(f)
     f.set_defaults(fn=cmd_fused)
     a = sub.add_parser("analyze", help="batch insights over a saved store")
     _add_store_flags(a)
@@ -1579,10 +1646,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_doctor_parser(sub) -> None:
-    """The ``doctor`` verb: the JAX package's parser, with the plane the
-    port does not have (``--actuations``) refused at parse time."""
-    from attendance_tpu_torch.federation.worker import _NotPorted
-
+    """The ``doctor`` verb: the JAX package's parser."""
     doc = sub.add_parser(
         "doctor", help="offline SLO verdict over run artifacts "
         "(prom exposition / alert log / flight dump / trace export); "
@@ -1644,9 +1708,14 @@ def _add_doctor_parser(sub) -> None:
                      "incident.json and judge the diagnosis; exits 1 on "
                      "an undiagnosed open incident or a corrupt or "
                      "incomplete bundle")
-    doc.add_argument("--actuations", action=_NotPorted, metavar="FILE",
-                     help="the control plane's actuation log: ROADMAP "
-                     "item 11e")
+    doc.add_argument("--actuations", default="", metavar="FILE",
+                     help="replay a control-plane actuation log "
+                     "(--control-log JSONL) offline: validate the schema "
+                     "and sequencing of every recorded knob move and "
+                     "print the actuation timeline; with --incident "
+                     "alongside, also report whether the recorded "
+                     "actuations matched each bundle's top-ranked "
+                     "diagnosis action")
     doc.add_argument("--scrub", action="append", default=None,
                      metavar="DIR",
                      help="also run the offline integrity scrub over DIR "

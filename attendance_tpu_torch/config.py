@@ -4,8 +4,8 @@ Counterpart of ``attendance_tpu/config.py``, cut to the fields the fused
 path, its mesh, its checkpoint chain, its temporal plane, its ingress
 lanes and shared-memory ring, the query plane, the generic sketch store
 and the processor, the federation, the fault plane, the persist sink's
-circuit breaker, the SLO engine, the profilers, the incident engine and
-the fleet plane read, with the JAX package's defaults and checks
+circuit breaker, the SLO engine, the profilers, the incident engine, the
+fleet plane and the control plane read, with the JAX package's defaults and checks
 (reference README: a 100k-student roster at a 1% false-positive rate;
 Redis dense HLL precision 14).
 """
@@ -313,6 +313,25 @@ class Config:
     # trace and the status snapshot for `doctor --fleet`.
     fleet_port: int = 0
     fleet_dir: str = ""
+    # Self-driving control plane (attendance_tpu_torch/control): a
+    # controller thread that actuates bounded knobs (ingress admission,
+    # the degradation ladder, lane scaling, snapshot cadence, watermark/
+    # ring sizing) off the signals the obs plane already measures.
+    # Enabled by control_log: the schema'd JSONL actuation log is the
+    # plane's defining artifact (`doctor --actuations` replays it).
+    control_log: str = ""
+    # When set, shed-rung admission spills raw ingress frames durably
+    # here (checksummed + fsync'd) and acks them; empty = nack back to
+    # the broker (retention is the backpressure).
+    control_spill_dir: str = ""
+    # Minimum seconds between controller moves on the same knob (and
+    # between degradation-ladder rung changes).
+    control_dwell_s: float = 2.0
+    # Consecutive clean controller ticks before de-escalation.
+    control_clear_ticks: int = 3
+    # Max ladder transitions per rolling minute before the controller
+    # holds (anti-flap backstop).
+    control_flap_limit: int = 8
 
     def __post_init__(self):
         if self.sketch_backend not in ("tpu", "memory", "redis",
@@ -415,6 +434,20 @@ class Config:
         if self.incident_clear_ticks <= 0:
             raise ValueError("incident_clear_ticks must be positive "
                              "(clear hysteresis)")
+        if self.control_dwell_s <= 0:
+            raise ValueError("control_dwell_s must be positive "
+                             "(per-knob/per-rung dwell minimum)")
+        if self.control_clear_ticks <= 0:
+            raise ValueError("control_clear_ticks must be positive "
+                             "(de-escalation hysteresis)")
+        if self.control_flap_limit <= 0:
+            raise ValueError("control_flap_limit must be positive "
+                             "(transitions per minute cap)")
+        if self.control_spill_dir and not self.control_log:
+            raise ValueError(
+                "control_spill_dir without control_log: the ingress "
+                "spill is an actuation target — enable the control "
+                "plane (and its actuation log) to use it")
         if self.invalid_topic and self.invalid_topic == self.pulsar_topic:
             # Republishing invalid events onto the processor's own
             # input topic would re-consume and republish them forever.

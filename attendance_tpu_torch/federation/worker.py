@@ -210,15 +210,6 @@ def run_worker(args) -> dict:
         pipe.cleanup()
 
 
-class _NotPorted(argparse.Action):
-    """A JAX flag whose plane the port does not have yet: refused at
-    parse time, naming the ROADMAP item that ports it (the ``doctor``
-    verb's ``--actuations``)."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet ({self.help})")
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="federation ingest worker")
     p.add_argument("--worker", required=True)

@@ -2,8 +2,12 @@
 
 Counterpart of ``attendance_tpu/native/__init__.py`` cut to the pack
 half, the buffer JSON scan (:meth:`HostPipe.prepare_json_batch`,
-:meth:`HostPipe.parse_json_from`) and the columnar store's dedup; the
-CPython-API list scan is not ported.
+:meth:`HostPipe.parse_json_from`), the CPython list scan
+(:meth:`HostPipe.parse_json_list`, in the library when ``Python.h`` was
+there to build it: :attr:`HostPipe.has_list_scan`) and the columnar
+store's dedup. The list scan reads Python objects, so it is bound
+through ``ctypes.PyDLL`` (the GIL held); every other entry keeps its
+``CDLL`` binding, which releases the GIL.
 The methods and return codes are the JAX package's: -1 on success, the index of the
 first event whose day missed the LUT, -2 when the native pass cannot run
 (scratch allocation, or more banks than its u16 scratch holds), -3 when
@@ -26,7 +30,7 @@ import numpy as np
 
 from attendance_tpu_torch.models.fused import (
     delta_buf_words, pick_delta_width, seg_buf_words)
-from attendance_tpu_torch.native.build import build
+from attendance_tpu_torch.native.build import build, python_include
 
 _lock = threading.Lock()
 _cached: Optional["HostPipe"] = None
@@ -124,14 +128,28 @@ class PreparedJsonBatch:
 
 
 class HostPipe:
-    """Typed wrapper over the host pack library."""
+    """Typed wrapper over the host pack library. ``list_lib`` is the same
+    library loaded through ``ctypes.PyDLL`` when it was built with the
+    list scan."""
 
-    def __init__(self, lib: ctypes.CDLL):
+    def __init__(self, lib: ctypes.CDLL,
+                 list_lib: Optional[ctypes.PyDLL] = None):
         self._lib = lib
         for name, (restype, argtypes) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.restype = restype
             fn.argtypes = argtypes
+        self._parse_list = None
+        if list_lib is not None:
+            fn = list_lib.atp_parse_json_list
+            fn.restype = ctypes.c_int64
+            fn.argtypes = (ctypes.py_object, _sz, _sz, _u32p, _u32p,
+                           ctypes.POINTER(ctypes.c_int64), _u8p)
+            self._parse_list = fn
+
+    @property
+    def has_list_scan(self) -> bool:
+        return self._parse_list is not None
 
     def max_key(self, keys: np.ndarray) -> int:
         base, stride = _strided(keys)
@@ -290,6 +308,41 @@ class HostPipe:
             _ptr(b.flags[start:], _u8p))
         return -1 if rc == 0 else start + int(rc - 1)
 
+    @staticmethod
+    def empty_json_outputs(n: int) -> PreparedJsonBatch:
+        """The output columns of a list scan (the ``set_row`` and
+        ``columns`` of a prepared batch, with no joined buffer or tables:
+        the list scan reads each payload in place)."""
+        return PreparedJsonBatch(
+            buf=None, offs=None, lens=None,
+            student=np.empty(n, np.uint32), day=np.empty(n, np.uint32),
+            micros=np.empty(n, np.int64), flags=np.empty(n, np.uint8))
+
+    def parse_json_list(self, payloads: list, b: PreparedJsonBatch,
+                        start: int) -> int:
+        """Scan ``payloads[start:]`` (a list) in place into ``b``'s
+        columns: -1 when all parsed, else the absolute index of the first
+        entry that is not ``bytes`` or falls outside the fast shape (the
+        caller parses that one in Python and resumes at index + 1, as
+        with :meth:`parse_json_from`). Raises when the library has no
+        list scan."""
+        if self._parse_list is None:
+            raise RuntimeError("the native host pack was built without "
+                               "the list scan (no Python.h)")
+        if not isinstance(payloads, list):
+            raise TypeError("the list scan reads a list of payloads")
+        n = len(payloads)
+        if len(b.student) < n:
+            raise ValueError(f"{n} payloads do not fit {len(b.student)} "
+                             "output rows")
+        if start >= n:
+            return -1
+        rc = self._parse_list(
+            payloads, start, n, _ptr(b.student, _u32p), _ptr(b.day, _u32p),
+            b.micros.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            _ptr(b.flags, _u8p))
+        return -1 if rc == 0 else int(rc - 1)
+
     def parse_json_events(self, payloads) -> Tuple[dict, int]:
         """One-shot scan: (columns, -1), or (the parsed prefix's columns,
         the first failed index)."""
@@ -333,5 +386,9 @@ def load() -> Optional[HostPipe]:
         return None
     with _lock:
         if _cached is None:
-            _cached = HostPipe(ctypes.CDLL(str(build())))
+            path = str(build())
+            _cached = HostPipe(
+                ctypes.CDLL(path),
+                ctypes.PyDLL(path) if python_include() is not None
+                else None)
         return _cached

@@ -1,12 +1,13 @@
 """Live telemetry: registry + exposition + flight recorder + span tracing.
 
 Counterpart of ``attendance_tpu/obs/__init__.py``: its telemetry core,
-the SLO engine, the profiler planes, the incident engine and the fleet
-pusher. One process-wide :class:`Telemetry` instance (module global),
-enabled iff a telemetry flag is set (``--metrics-prom``,
-``--metrics-port``, ``--flight-recorder``, ``--trace-out``,
-``--audit-sample``, ``--alert-log``, ``--slo``, ``--profile-hz``,
-``--fleet-push``, ``--incident-dir``).
+the SLO engine, the profiler planes, the incident engine, the fleet
+pusher and the control plane. One process-wide :class:`Telemetry`
+instance (module global), enabled iff a telemetry flag is set
+(``--metrics-prom``, ``--metrics-port``, ``--flight-recorder``,
+``--trace-out``, ``--audit-sample``, ``--alert-log``, ``--slo``,
+``--profile-hz``, ``--fleet-push``, ``--incident-dir``,
+``--control-log``).
 Instrumented call sites capture the global ONCE at construction and pay
 one ``is not None`` branch per hot-path event when telemetry is off:
 nothing is timed or allocated, and the reporter, server, exporter and
@@ -40,9 +41,13 @@ the registry, into each evidence bundle's ``metrics.prom`` and at every
 push: the same callback gauges, so with no read epoch they launch K4 and
 K1 from their threads too, on the default stream.
 
+The control engine (``control/engine.py``, thread ``control-engine``)
+reads the same registry and the sub-engines above, and moves only the
+knobs a fused pipeline binds at construction; it is created last,
+started after the incident engine and stopped first.
+
 The metric names, labels, help strings and bucket bounds are the JAX
-package's (the scrape contract). Its control plane is not ported yet
-(ROADMAP item 11e): the port's ``Config`` has none of its fields.
+package's (the scrape contract).
 """
 
 from __future__ import annotations
@@ -115,13 +120,14 @@ def enabled_in(config) -> bool:
                 or getattr(config, "slo", None)
                 or getattr(config, "fleet_push", "")
                 or getattr(config, "profile_hz", 0.0)
-                or getattr(config, "incident_dir", ""))
+                or getattr(config, "incident_dir", "")
+                or getattr(config, "control_log", ""))
 
 
 class Telemetry:
     """Registry + optional reporter/server/flight-recorder/tracer, SLO
-    engine, profiler planes, incident engine and fleet pusher, one
-    bundle."""
+    engine, profiler planes, incident engine, fleet pusher and control
+    engine, one bundle."""
 
     def __init__(self, *, metrics_prom: str = "", metrics_port: int = 0,
                  metrics_interval_s: float = 1.0,
@@ -136,7 +142,12 @@ class Telemetry:
                  metric_series_max: int = 1024,
                  profile_hz: float = 0.0, profile_out: str = "",
                  incident_dir: str = "",
-                 incident_clear_ticks: int = 3):
+                 incident_clear_ticks: int = 3,
+                 control_log: str = "",
+                 control_spill_dir: str = "",
+                 control_dwell_s: float = 2.0,
+                 control_clear_ticks: int = 3,
+                 control_flap_limit: int = 8):
         self.registry = Registry(max_series=metric_series_max)
         self.flight: Optional[FlightRecorder] = (
             FlightRecorder(flight_recorder) if flight_recorder > 0
@@ -195,6 +206,18 @@ class Telemetry:
                 instance=fleet_instance,
                 clear_ticks=incident_clear_ticks,
                 interval_s=min(metrics_interval_s, 1.0))
+        # Control plane (control/): the actuation engine reads every
+        # signal constructed above (slo, recompiles, incidents) and
+        # moves only bounded knobs a pipeline binds at attach() time.
+        # Created last, so its first tick sees the whole bundle.
+        self.control = None
+        if control_log:
+            from attendance_tpu_torch.control.engine import ControlEngine
+            self.control = ControlEngine(
+                self, control_log, spill_dir=control_spill_dir,
+                dwell_s=control_dwell_s, clear_ticks=control_clear_ticks,
+                flap_limit=control_flap_limit,
+                interval_s=min(metrics_interval_s, 1.0))
         self._reporter = None
         self._server = None
         self._prev_sigusr1 = _NOT_INSTALLED
@@ -234,6 +257,10 @@ class Telemetry:
             self.incidents.start()
         if self.profiler is not None:
             self.profiler.start()
+        if self.control is not None:
+            # After the incident engine: an actuation's incident id
+            # comes from a tick that already saw the conditions.
+            self.control.start()
         if self._fleet_push:
             from attendance_tpu_torch.obs.fleet import (
                 FleetPusher, default_instance)
@@ -244,7 +271,8 @@ class Telemetry:
                 interval_s=self._fleet_interval).start()
         if (self.tracer is not None or self._reporter is not None
                 or self.slo is not None or self.profiler is not None
-                or self.incidents is not None):
+                or self.incidents is not None
+                or self.control is not None):
             # Backstop for runs that never reach a run-loop flush; every
             # flush is idempotent.
             _install_atexit_flush()
@@ -252,6 +280,10 @@ class Telemetry:
 
     def stop(self) -> None:
         self.flush_trace("telemetry-stop")
+        if self.control is not None:
+            # The controller stops first: it must not actuate against
+            # signal sources that the teardown below is dismantling.
+            self.control.stop()
         if self.incidents is not None:
             # Persist a still-open incident while every evidence source
             # below is alive, then stop the tick thread.
@@ -402,7 +434,12 @@ def enable(config) -> Telemetry:
             profile_out=getattr(config, "profile_out", ""),
             incident_dir=getattr(config, "incident_dir", ""),
             incident_clear_ticks=getattr(config, "incident_clear_ticks",
-                                         3))
+                                         3),
+            control_log=getattr(config, "control_log", ""),
+            control_spill_dir=getattr(config, "control_spill_dir", ""),
+            control_dwell_s=getattr(config, "control_dwell_s", 2.0),
+            control_clear_ticks=getattr(config, "control_clear_ticks", 3),
+            control_flap_limit=getattr(config, "control_flap_limit", 8))
         t.start()
         TELEMETRY = t
         return t

@@ -50,10 +50,6 @@ Departures from the JAX engine, where JAX passes over any exception:
 * an evidence part whose collection raises is logged and left out of the
   bundle, and a failed record write is logged; the incident stays open,
   as in JAX, and ``doctor --incident`` reports the missing part.
-
-``incident_report`` has no actuation rows yet: the control plane that
-writes the actuation log is ROADMAP item 11e, and ``doctor
---actuations`` is refused at parse time.
 """
 
 from __future__ import annotations
@@ -955,16 +951,29 @@ def _actuation_matches(action: str, rec: Dict[str, Any]) -> bool:
     )
 
 
-def incident_report(path) -> Tuple[str, bool]:
+def incident_report(path, actuation_log=None) -> Tuple[str, bool]:
     """Replay bundles offline into the doctor verdict table.
 
     Returns ``(text, ok)``. ``ok`` is False when any bundle is incomplete,
     fails digest verification, or holds an *undiagnosed open* incident.
     Raises ``FileNotFoundError``/``ValueError`` for unreadable input so the
     CLI can exit 2 rather than report a false verdict.
+
+    ``actuation_log`` (a control-plane JSONL path) adds a row per
+    diagnosed bundle saying whether the controller's recorded actuation
+    matched the top-ranked rule's ``action`` id (advisory actions have
+    no knob by design and report as such). Mismatches are warnings, not
+    failures: a bundle may predate the controller, or the controller
+    may legitimately have acted on a lower-ranked rule first.
     """
 
     from attendance_tpu_torch.obs.exposition import _table
+
+    actuations: List[Dict[str, Any]] = []
+    if actuation_log is not None:
+        from attendance_tpu_torch.control.actuation import read_actuations
+
+        actuations, _problems = read_actuations(str(actuation_log))
 
     bundles = find_bundles(path)
     rows: List[List[str]] = []
@@ -1024,6 +1033,41 @@ def incident_report(path) -> Tuple[str, bool]:
                         "info",
                     ]
                 )
+                action = str(first.get("action") or "")
+                if actuation_log is not None and action:
+                    from attendance_tpu_torch.control.engine import (
+                        ADVISORY_ACTIONS,
+                    )
+
+                    mine = [a for a in actuations if a.get("incident") == iid]
+                    if action in ADVISORY_ACTIONS:
+                        rows.append(
+                            [
+                                f"{iid} actuation",
+                                f"{action}: advisory (no knob)",
+                                "-",
+                                "info",
+                            ]
+                        )
+                    elif any(_actuation_matches(action, a) for a in mine):
+                        rows.append(
+                            [
+                                f"{iid} actuation",
+                                f"matched top rule ({action})",
+                                action,
+                                "PASS",
+                            ]
+                        )
+                    else:
+                        rows.append(
+                            [
+                                f"{iid} actuation",
+                                f"no recorded actuation for {action} "
+                                f"({len(mine)} record(s) for incident)",
+                                action,
+                                "warn",
+                            ]
+                        )
     ok = breached == 0
     lines = [
         f"incident replay: {len(bundles)} bundle(s) under {path}",

@@ -125,17 +125,31 @@ def decode_json_batch_columns(payloads: Sequence[bytes]
                               ) -> Dict[str, np.ndarray]:
     """Reference-wire JSON payloads -> binary columns, batched.
 
-    With the native host runtime (``native.load``), one joined buffer is
-    scanned by ``atp_parse_json_events``; a payload outside its fast
-    shape (escapes, timezone suffixes, lecture ids that need murmur3) is
-    parsed in Python alone and the scan resumes after it. With
-    ``ATP_NATIVE=0``, every payload is parsed in Python. The results are
-    the same; malformed JSON raises as :func:`decode_event` does."""
+    With the native host runtime (``native.load``) and a list of
+    payloads, the CPython list scan (``atp_parse_json_list``) reads each
+    ``bytes`` payload in place when the library has it; otherwise one
+    joined buffer is scanned by ``atp_parse_json_events``. Either way a
+    payload outside the fast shape (escapes, timezone suffixes, lecture
+    ids that need murmur3, and for the list scan any entry that is not
+    ``bytes``) is parsed in Python alone and the scan resumes after it.
+    With ``ATP_NATIVE=0``, every payload is parsed in Python. The
+    results are the same; malformed JSON raises as :func:`decode_event`
+    does."""
     from attendance_tpu_torch.native import load as load_native
 
     nat = load_native()
     if nat is None or not payloads:
         return columns_from_events(decode_event_batch(payloads))
+    if nat.has_list_scan and isinstance(payloads, list):
+        batch = nat.empty_json_outputs(len(payloads))
+        idx = 0
+        while True:
+            miss = nat.parse_json_list(payloads, batch, idx)
+            if miss < 0:
+                return batch.columns()
+            batch.set_row(miss, columns_from_events(
+                [decode_event(bytes(payloads[miss]))]))
+            idx = miss + 1
     batch = nat.prepare_json_batch(payloads)
     idx = 0
     while True:

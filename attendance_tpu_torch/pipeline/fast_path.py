@@ -97,6 +97,19 @@ write carries the ``disk.chain`` hooks (ENOSPC before, rot after the
 publish). A persist failure that reaches the run loop (no spill dir) is
 handled as JAX handles it: the frame is nacked, then dead-lettered
 after ``max_redeliveries``.
+
+Control (``control/``, on with ``config.control_log``): the telemetry
+bundle's controller binds its knobs here at construction. They are
+plain attributes the run loop reads: ``_audit_every`` (the audit shadow
+records every Nth frame by ``metrics.batches``), ``_snap_every``,
+``_temporal_paused`` (no K4/K5 window add and no K6 step is enqueued for
+a paused frame) and the ingress admission valve at the run loop's edge:
+``spill`` writes the frame durably and acks it, ``shed`` nacks it. A
+spilled frame drains through :meth:`FusedPipeline.process_frame` once
+admission reopens (one K2 step each) and at the end of the run, and its
+file is deleted only once a durable snapshot covers it: by the writer
+thread after the write that holds the drained frames' results, not at
+the capture.
 """
 
 from __future__ import annotations
@@ -121,6 +134,7 @@ import torch.distributed as dist
 from attendance_tpu_torch import chaos, obs
 from attendance_tpu_torch.chaos import ChaosFault, PersistFault
 from attendance_tpu_torch.config import Config
+from attendance_tpu_torch.control.engine import IngressAdmission
 from attendance_tpu_torch.device import resolve_device, to_device
 from attendance_tpu_torch.federation.gossip import FenceGossip
 from attendance_tpu_torch.federation.merge import encode_counts
@@ -625,6 +639,8 @@ class FusedPipeline:
         self._snap_cv = threading.Condition()
         self._snap_pending = 0
         self._snap_unacked: list = []
+        # Drained spill files of failed jobs, retired with their frames.
+        self._snap_unretired: list = []
         self._snap_fail_streak = 0
         self._snap_thread: Optional[threading.Thread] = None
         self._snap_io_lock = threading.Lock()
@@ -699,6 +715,22 @@ class FusedPipeline:
             if self._obs is not None and self._obs._server is not None:
                 # The query verbs as JSON routes beside GET /metrics.
                 serve_http.attach(self._obs._server, self.query_engine)
+        # Control-plane knobs (control/). The attributes exist with or
+        # without a controller: without one they are the configured
+        # constants the hot path reads. `_audit_every` thins the audit
+        # shadow under ladder rung >= 1, `_temporal_paused` gates the
+        # temporal sidecar under rung >= 3; `_admission` is the ingress
+        # valve of rung 4, and `_admission_retire` the drained spill
+        # files the next durable snapshot retires.
+        self._audit_every = 1
+        self._temporal_paused = False
+        self._admission = None
+        self._admission_retire: list = []
+        self._control = (self._obs.control if self._obs is not None
+                         else None)
+        if self._control is not None:
+            self._control.attach(self)
+            self._admission = self._control.admission
 
     def _init_telemetry(self) -> None:
         """The hot loop's telemetry handles: the stage histograms, the
@@ -1067,12 +1099,15 @@ class FusedPipeline:
             # seen before the dispatch (native packs never materialize
             # a host bank array).
             self._note_dirty(cols["lecture_day"])
-        if self._auditor is not None:
+        if self._auditor is not None and (
+                self._audit_every <= 1
+                or self.metrics.batches % self._audit_every == 0):
             # Shadow recording only (no read of the card): the sampled
             # lanes feed the scrape-time measured FPR and HLL error
-            # (obs/audit.register_fused_audit). Every frame: JAX's
-            # control plane thins this to every Nth frame under load,
-            # and the port has no control plane yet.
+            # (obs/audit.register_fused_audit). Under ladder rung >= 1
+            # the controller widens `_audit_every`, so the shadow thins
+            # to every Nth frame: the measured gauges stay live over a
+            # sparser sample.
             self._auditor.observe_fused_frame(cols["student_id"],
                                               cols["lecture_day"])
         if self.engine is not None:
@@ -1088,9 +1123,11 @@ class FusedPipeline:
             stored = (valid_n if perm is None
                       else _ScatterValidity(valid, perm, n))
         t_tmp = 0.0
-        if self._temporal is not None:
+        if self._temporal is not None and not self._temporal_paused:
             # After the day map and the step, as in the JAX package: days
-            # take their banks first, then new buckets take theirs.
+            # take their banks first, then new buckets take theirs. A
+            # paused frame (ladder rung >= 3) skips the sidecar: windowed
+            # analytics go stale, the core state does not.
             t = time.perf_counter()
             if st is not None:
                 st.set("temporal")
@@ -1728,9 +1765,11 @@ class FusedPipeline:
             job = dict(kind="base", regs=regs, counts=counts,
                        bloom=self._bloom_host)
         job.update(ready=self._record_event(), upto=self.store.mark(),
-                   msgs=[m for m, *_ in self._inflight], pinned=pinned,
+                   msgs=[m for m, *_ in self._inflight if m is not None],
+                   retire=self._admission_retire, pinned=pinned,
                    events=self._events_total, bank_of=dict(self._bank_of))
         self._inflight.clear()
+        self._admission_retire = []
         self._batches_at_snap = self.metrics.batches
         self._enqueue_snap(job)
 
@@ -1749,8 +1788,9 @@ class FusedPipeline:
             self._snapshot_sync_delta()
         else:
             self.snapshot()
-        self._ack([m for m, *_ in self._inflight])
+        self._ack([m for m, *_ in self._inflight if m is not None])
         self._inflight.clear()
+        self._retire_spilled()
 
     def _snapshot_sync_delta(self) -> None:
         """The mesh's delta barrier: the dirty banks' rows merged across
@@ -1909,6 +1949,9 @@ class FusedPipeline:
             with self._snap_stream_ctx(job):
                 self._run_snap_job(job)
             self._ack(job["msgs"])
+            # The write holding the drained spill frames' results is
+            # durable: their files go now, not at the capture.
+            IngressAdmission.retire(job.get("retire", ()))
             if job["kind"] == "base":
                 self._ack_unacked()
             self._snap_fail_streak = 0
@@ -1922,6 +1965,7 @@ class FusedPipeline:
             self._writer_base_ok = False
             with self._snap_cv:
                 self._snap_unacked.extend(job["msgs"])
+                self._snap_unretired.extend(job.get("retire", ()))
             disk_full = (isinstance(exc, OSError)
                          and exc.errno == errno.ENOSPC)
             if self._obs is not None:
@@ -1973,10 +2017,13 @@ class FusedPipeline:
 
     def _ack_unacked(self) -> None:
         """A durable full base covers every frame before its capture:
-        ack the frames of the jobs that failed before it."""
+        ack the frames of the jobs that failed before it and retire
+        their drained spill files."""
         with self._snap_cv:
             msgs, self._snap_unacked = self._snap_unacked, []
+            paths, self._snap_unretired = self._snap_unretired, []
         self._ack(msgs)
+        IngressAdmission.retire(paths)
 
     def _run_snap_job(self, job: dict) -> None:
         if job["kind"] == "base":
@@ -2584,7 +2631,8 @@ class FusedPipeline:
                                               span)
                 if st is not None:
                     st.restore(prev_stage)
-            self.consumer.acknowledge(msg)
+            if msg is not None:  # a drained spill frame has no message
+                self.consumer.acknowledge(msg)
             self._inflight.popleft()
 
     def _observe_device_wait(self, t_w: float, t_done: float,
@@ -2623,6 +2671,12 @@ class FusedPipeline:
             if self._obs is not None:
                 self._obs.dump_flight("run-loop-exception")
             raise
+        if self._admission is not None and self._admission.pending_count:
+            # Every spilled frame was acked against its spill file's
+            # durability: it reaches the sketch state (and the final
+            # barrier below) before this run ends.
+            while self._drain_admission(limit=64):
+                pass
         if self._temporal is not None:
             # End of run: release the reorder buffer, rotate the final
             # buckets, fold the staged CMS estimates (before the final
@@ -2631,7 +2685,11 @@ class FusedPipeline:
             self._temporal.flush()
             self._lap("temporal", t)
         if self.checkpointing:
-            if self._inflight or self._snap_unacked:
+            if self._inflight or self._snap_unacked \
+                    or self._admission_retire:
+                # Drained spill frames force a barrier even with no
+                # broker frame in flight: their files retire only once a
+                # snapshot covers their events.
                 self._checkpoint_and_ack()
             else:
                 self._flush_snapshots()
@@ -2679,6 +2737,16 @@ class FusedPipeline:
                 if self.checkpointing and self._inflight:
                     self._checkpoint_and_ack()
                 self._drain_inflight(block=-1)
+                if (self._admission is not None
+                        and not self._admission.active
+                        and self._admission.pending_count):
+                    # Pressure cleared with frames parked in the ingress
+                    # spill: replay them on this thread (process_frame is
+                    # the dispatch thread's). Their files retire once a
+                    # durable snapshot covers them.
+                    if self._drain_admission(limit=16):
+                        idle_since = time.monotonic()  # progress
+                    continue
                 if time.monotonic() - idle_since > idle_timeout_s:
                     break
                 continue
@@ -2696,6 +2764,22 @@ class FusedPipeline:
                 self.metrics.stage_seconds["receive"] -= moved
                 self.metrics.stage_seconds["decode"] += moved
             idle_since = time.monotonic()
+            adm = self._admission
+            if adm is not None and adm.active:
+                # Admission control (the ladder's shed rung), at the
+                # producer-facing edge: "spill" wrote the raw frame
+                # durably, which is what justifies the ack; "shed" nacks,
+                # so the broker's retention is the backpressure. Either
+                # way the frame skips decode and dispatch.
+                decision = adm.admit(msg.data())
+                if decision == "spill":
+                    self.consumer.acknowledge(msg)
+                    continue
+                if decision == "shed":
+                    self.consumer.negative_acknowledge(msg)
+                    continue
+                # "pass": the controller reopened between the check and
+                # the admit.
             span = (self._begin_batch_span(msg, t, t_got)
                     if self._tracer is not None else None)
             try:
@@ -2723,23 +2807,64 @@ class FusedPipeline:
             if span is not None:
                 self._tracer.end_span(span)
             self._inflight.append((msg, done, pinned, span))
-            if self.checkpointing:
-                # A barrier on the frame cadence, and on the in-flight
-                # depth (which bounds the frames' pinned buffers).
-                depth_forced = (len(self._inflight)
-                                >= max(_INFLIGHT_DEPTH, self._snap_every))
-                if (self.metrics.batches - self._batches_at_snap
-                        >= self._snap_every or depth_forced):
-                    if self.engine is not None:
-                        self._checkpoint_and_ack()
-                    else:
-                        self._checkpoint_async(force=depth_forced)
-            else:
-                self._drain_inflight(
-                    block=1 if len(self._inflight) >= _INFLIGHT_DEPTH
-                    else 0)
+            self._settle()
             if max_events is not None and self.metrics.events >= max_events:
                 break
+
+    def _settle(self) -> None:
+        """After a frame joined the in-flight deque: with checkpointing a
+        barrier on the frame cadence and on the in-flight depth (which
+        bounds the frames' pinned buffers), else the acks of the frames
+        whose steps completed."""
+        if self.checkpointing:
+            depth_forced = (len(self._inflight)
+                            >= max(_INFLIGHT_DEPTH, self._snap_every))
+            if (self.metrics.batches - self._batches_at_snap
+                    >= self._snap_every or depth_forced):
+                if self.engine is not None:
+                    self._checkpoint_and_ack()
+                else:
+                    self._checkpoint_async(force=depth_forced)
+        else:
+            self._drain_inflight(
+                block=1 if len(self._inflight) >= _INFLIGHT_DEPTH else 0)
+
+    # -- ingress-spill draining (control plane) -----------------------------
+    def _drain_admission(self, limit: int = 16) -> int:
+        """Replay up to ``limit`` admission-spilled frames through the
+        frame path (dispatch thread only): one K2 step each, in the
+        in-flight deque with no broker message to ack. Their files are
+        retired once a durable snapshot covers them (at-least-once: a
+        crash before re-adopts them). Only a frame that fails to decode
+        is parked as ``.poison``; any other exception leaves the run, as
+        for a broker frame."""
+        adm = self._admission
+        if adm is None:
+            return 0
+        batch = adm.drain_batch(limit)
+        for path, payload in batch:
+            try:
+                _valid, done, pinned = self.process_frame(payload)
+            except PoisonFrame:
+                logger.exception("Bad spilled frame %s", path)
+                path.rename(path.with_suffix(".poison"))
+                continue
+            self._inflight.append((None, done, pinned, None))
+            self._admission_retire.append(path)
+            self._settle()
+        if not self.checkpointing and self._admission_retire:
+            # No barriers in this mode: processed is as durable as the
+            # pipeline ever gets.
+            adm.retire(self._admission_retire)
+            self._admission_retire.clear()
+        return len(batch)
+
+    def _retire_spilled(self) -> None:
+        """Delete the drained spill files of a barrier this thread just
+        made durable (the mesh's synchronous barrier)."""
+        if self._admission is not None and self._admission_retire:
+            self._admission.retire(self._admission_retire)
+            self._admission_retire.clear()
 
     # -- queries ------------------------------------------------------------
     def lecture_days(self):

@@ -8,8 +8,10 @@ memory and socket consumers; the shm ring's frames are planar already
 and go unwrapped): bulk frames (ATB1, ATB2, COLW) pass through one at a
 time, untouched, while a per-event JSON payload makes it drain a whole
 chunk of up to ``config.batch_size`` messages, decode them at once
-through the codec seam (the native scan, or the vectorized numpy scan
-with ``ATP_NATIVE=0``) and hand the run loop one planar frame, one
+through the codec seam (the native scan: the CPython list scan when
+the library was built with ``Python.h``, else the buffer scan; or the
+vectorized numpy scan with ``ATP_NATIVE=0``) and hand the run loop one
+planar frame, one
 device dispatch, whose acks and nacks fan back to every message in it.
 
 :class:`StripedConsumer` (``--ingress-lanes N``) stripes ingress over N
@@ -17,7 +19,9 @@ device dispatch, whose acks and nacks fan back to every message in it.
 socket backend its own TCP connection, ``SocketClient.subscribe_lane``;
 on the shm wire its own ring file), drains it on the chunk lane in
 micro-batches and decodes off the dispatch thread: a lone binary frame
-passes through raw, JSON goes through the batch scan. Lanes hand blocks
+passes through raw, JSON goes through the batch scan picked by
+``--lane-decode``: ``auto`` the native scan as above, ``native`` the list
+scan alone (raising when the library has none), ``vector`` numpy. Lanes hand blocks
 to the dispatcher through a bounded queue each (a deque and two
 semaphores; no lock is held across a wait); the dispatcher, the
 consumer call shape the run loop speaks, coalesces blocks across lanes
@@ -64,10 +68,32 @@ _POLL_S = 0.02  # dispatcher wait slice while every lane queue is empty
 
 
 def _native_prefers_vector() -> bool:
-    """The ``auto`` decode engine: the native buffer scan when it is
-    loaded, the vectorized numpy scan with ``ATP_NATIVE=0``."""
+    """The ``auto`` decode engine: the native scan when it is loaded
+    (the CPython list scan when the library has it, else the buffer
+    scan), the vectorized numpy scan with ``ATP_NATIVE=0``."""
     from attendance_tpu_torch.native import load as load_native
     return load_native() is None
+
+
+def _require_list_scan() -> None:
+    """The ``native`` decode engine is the CPython list scan, and only
+    that: raises when the native library is off or was built without
+    it (no ``Python.h``)."""
+    import sysconfig
+
+    from attendance_tpu_torch.native import load as load_native
+    nat = load_native()
+    if nat is None:
+        raise RuntimeError(
+            "lane_decode='native' is the native CPython list scan, and "
+            "ATP_NATIVE=0 turns the native library off; use 'vector'")
+    if not nat.has_list_scan:
+        inc = sysconfig.get_paths().get("include")
+        raise RuntimeError(
+            "lane_decode='native' needs the CPython list scan, which is "
+            f"built only with the interpreter's headers ({inc}/Python.h "
+            "is missing); use 'auto' (the native buffer scan) or "
+            "'vector'")
 
 
 def _decode_each(toks, consumer, config, metrics, tracker, count_nack,
@@ -173,7 +199,8 @@ class JsonChunkConsumer:
         self.decode_seconds = 0.0
 
     def _prefer_vector(self) -> bool:
-        """The vectorized numpy scan when the native scan is off."""
+        """The vectorized numpy scan when the native scan is off (the
+        native scan is the list scan when the library has it)."""
         if self._engine is None:
             self._engine = _native_prefers_vector()
         return self._engine
@@ -623,13 +650,9 @@ class StripedConsumer:
         self.config = config
         num_lanes = max(1, config.ingress_lanes)
         if config.lane_decode == "native":
-            # JAX's "native" engine is its CPython list scan
-            # (native/hostpipe_py.c), which the port does not have; no
-            # other engine stands in for it.
-            raise NotImplementedError(
-                "lane_decode='native' needs the CPython list scan, which "
-                "the port does not have; use 'auto' (the native buffer "
-                "scan) or 'vector'")
+            # The CPython list scan (native/hostpipe_py.c); no other
+            # engine stands in for it.
+            _require_list_scan()
         prefer_vector = (config.lane_decode == "vector"
                          or _native_prefers_vector())
         self._dispatch_size = config.batch_size

@@ -1,8 +1,9 @@
 """TemporalPlane: the fused pipeline's temporal sidecar.
 
-Counterpart of ``attendance_tpu/temporal/plane.py`` as it runs without
-telemetry. One instance per FusedPipeline when ``temporal_period_s`` >
-0. Per frame it does three things:
+Counterpart of ``attendance_tpu/temporal/plane.py``, its telemetry
+series included (late outcomes, rotations, evictions, dwell pairs, the
+watermark lag and the buffer gauges). One instance per FusedPipeline
+when ``temporal_period_s`` > 0. Per frame it does three things:
 
 1. **Windowed HLL adds, at arrival.** Every event's bucket is a pure
    function of its own timestamp and the register update is an
@@ -92,6 +93,51 @@ class TemporalPlane:
         self._shadow: Optional[Dict[int, set]] = (
             {} if config.audit_sample >= 1.0 else None)
         self._roster: Optional[np.ndarray] = None
+        # The plane's series (JAX's names, help and labels): the late
+        # outcomes the control plane's watermark adaptation reads, the
+        # rotations and evictions, and scrape-time callback gauges over
+        # host state.
+        self._evictions_seen = 0
+        self._c_late = {}
+        if obs is not None:
+            reg = obs.registry
+            for outcome in ("folded", "dropped"):
+                self._c_late[outcome] = reg.counter(
+                    "attendance_late_events_total",
+                    help="Late events per outcome: folded = landed in "
+                    "the correct still-open bucket; dropped = bucket "
+                    "already rotated, event side-channeled",
+                    outcome=outcome)
+            self._c_rotations = reg.counter(
+                "attendance_window_rotations_total",
+                help="Bucket rotations (open -> closed) at watermark "
+                "boundaries")
+            self._c_evictions = reg.counter(
+                "attendance_window_evictions_total",
+                help="Closed buckets evicted by ring pressure (bank "
+                "row zeroed and recycled)")
+            reg.gauge(
+                "attendance_watermark_lag_seconds",
+                help="Event-time lag between the stream head and the "
+                "watermark (steady state = allowed lateness; NaN "
+                "before the first event)").set_function(
+                    self.reorder.watermark_lag_s)
+            reg.gauge(
+                "attendance_window_open_buckets",
+                help="Temporal buckets not yet rotated").set_function(
+                    lambda: float(self.ring.open_buckets))
+            reg.gauge(
+                "attendance_temporal_reorder_buffered",
+                help="Events held by the watermark reorder buffer"
+            ).set_function(lambda: float(self.reorder.buffered))
+            reg.gauge(
+                "attendance_cms_topk_size",
+                help="Heavy-hitter candidates currently tracked"
+            ).set_function(lambda: float(len(self.topk)))
+            self._c_dwell = reg.counter(
+                "attendance_dwell_pairs_total",
+                help="Entry/exit pairs folded into the dwell-time "
+                "histogram")
 
     # -- roster / shadow -----------------------------------------------------
     def record_roster(self, keys: np.ndarray) -> None:
@@ -125,11 +171,17 @@ class TemporalPlane:
         banks, dropped, touched = self.ring.assign(days, micros)
         if dropped:
             self.late_dropped_total += dropped
+            if self._c_late:
+                self._c_late["dropped"].inc(dropped)
             drop_idx = np.flatnonzero(banks < 0)[:_DROP_SAMPLE]
             for i in drop_idx.tolist():
                 self.dropped_sample.append(
                     (int(sids[i]), int(days[i]), int(micros[i])))
-        self.late_folded_total += int(((banks >= 0) & arrival_late).sum())
+        folded = int(((banks >= 0) & arrival_late).sum())
+        if folded:
+            self.late_folded_total += folded
+            if self._c_late:
+                self._c_late["folded"].inc(folded)
         keep = banks >= 0
         if keep.any():
             self._mark_dirty(touched)
@@ -138,10 +190,24 @@ class TemporalPlane:
                 and len(self._roster):
             self._record_shadow(sids[keep], days[keep], micros[keep])
         # Rotation AFTER the adds; eviction and the top-K fold ride it.
-        if self.ring.rotate(wm):
+        if self._rotate(wm):
             self._fold_cms()
         if released is not None:
             self._consume_released(released)
+
+    def _rotate(self, watermark_us: int) -> int:
+        """Advance the ring's frontier and sync the rotation and eviction
+        counters: the one rotate path for per-frame advances, idle
+        flushes and end-of-run flushes alike."""
+        rotated = self.ring.rotate(watermark_us)
+        if self._c_late:
+            if rotated:
+                self._c_rotations.inc(rotated)
+            ev = self.ring.evictions_total
+            if ev > self._evictions_seen:
+                self._c_evictions.inc(ev - self._evictions_seen)
+                self._evictions_seen = ev
+        return rotated
 
     def _record_shadow(self, sids, days, micros) -> None:
         valid_pos = np.searchsorted(self._roster, sids)
@@ -251,6 +317,29 @@ class TemporalPlane:
         b = np.log2(np.maximum(dwell_us, 1)).astype(np.int64)
         np.add.at(self.dwell_hist, np.clip(b, 0, 39), 1)
         self.dwell_pairs_total += len(dwell_us)
+        if self._c_late:
+            self._c_dwell.inc(len(dwell_us))
+
+    # -- control-plane knobs -------------------------------------------------
+    def widen_lateness(self, lateness_us: int) -> None:
+        """GROW the allowed-lateness budget (the controller's late-drop
+        adaptation, from its own thread). Widening is safe mid-stream:
+        the watermark only trails further, so no event that would have
+        been released on time can now drop. A smaller value could jump
+        the watermark over buffered events and is ignored (the knob's
+        lower bound is the configured value for the same reason)."""
+        lateness_us = int(lateness_us)
+        if lateness_us > self.reorder.lateness_us:
+            self.reorder.lateness_us = lateness_us
+
+    def grow_ring(self, capacity: int) -> None:
+        """GROW the bucket ring's capacity (the controller's late-drop
+        adaptation). Eviction triggers on len >= capacity, so a larger
+        one only delays the next eviction; a smaller one would strand
+        allocated buckets past the bound and is ignored."""
+        capacity = int(capacity)
+        if capacity > self.ring.capacity:
+            self.ring.capacity = capacity
 
     # -- liveness ------------------------------------------------------------
     def maybe_idle_flush(self) -> bool:
@@ -268,7 +357,7 @@ class TemporalPlane:
         released = self.reorder.flush()
         if released is not None:
             self._consume_released(released)
-        self.ring.rotate(self.reorder.effective_watermark_us)
+        self._rotate(self.reorder.effective_watermark_us)
         self._fold_cms()
 
     def restore(self, bank_of: Dict[int, int]) -> None:

@@ -313,15 +313,44 @@ Phases (any failure exits non-zero):
      memsets as a union of intervals) of the traced window, the rate
      over off and the trace's size. No "SLO tick failed" record, and no engine or
      sampler thread left after it;
+  15. the fleet plane and incidents (``fleet_incident_phase``, after 14);
+  16. the control plane and the list scan (``control_phase``, after 15):
+     (a) the ``fused`` default (delta checkpoints every 2 frames,
+     ``--audit-sample 0.01``, ``--control-log``, ``--control-spill-dir``,
+     an incident directory) under a controller ticked on an injected
+     clock, after a warm-up run of the same configuration: the sink's
+     circuit, opened by ``persist_fail`` through the chaos plane, walks
+     the ladder to ``shed`` (knobs at rung 4: ``audit_every`` 8, the
+     snapshot cadence 4x, admission ``spill``), 2 frames are spilled and
+     acked with no K2, the fault window closes, the cooldown passes and
+     the clear drains them with one K2 each; the final state equals phase
+     3's (counters, PFCOUNTs, registers day by day, stored rows), the
+     spill directory is empty, no steady launch shape, ``doctor
+     --actuations`` exits 0 (1 on a copy with a repeated ``seq``) and
+     ``doctor --incident ... --actuations`` prints its cross-reference;
+     (a2) phase 3b's configuration (with ``watermark_idle_s`` 0) paused at
+     rung 3 over 3 frames and back: K5 and K6 launch exactly 3 fewer times
+     than in 3b, the core state equals 3b's; (b) the engine's own thread
+     at a 50 ms tick and a 0.1 s dwell over a paced producer (the default
+     stream 4 times, a frame every 75 ms) with a fault window: every rung
+     and ``normal`` again, the seconds to rung 4 and back, the spilled
+     and drained frames and the drain's wall, the state equal to an
+     uncontrolled run over the same frames; (c) reported, not gated: the
+     audit at ``audit_every`` 1 and 8, three runs a side interleaved, and
+     phase 7(a)'s JSON wire through 4 lanes per ``--lane-decode``
+     engine, with whether this interpreter has ``Python.h``. No "control
+     tick failed" or "incident tick failed" record, and no engine thread
+     left after it;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
      run and the oracle's reads), phase 10(c)'s five mesh runs and
-     phases 11's, 12's, 13's and 14's runs (each also printed on a line
-     of its own; 12's count the scrapes' K4, K9 and K1 launches, 13's its
-     fault runs and the restore, 14's its SLO ticks); phase 5 prints its
-     own runs' counts on a line of its own.
+     phases 11's to 16's runs (each also printed on a line of its own;
+     12's count the scrapes' K4, K9 and K1 launches, 13's its fault runs
+     and the restore, 14's its SLO ticks, 16's its warm-up and
+     controlled runs); phase 5 prints its own runs' counts on a line of
+     its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
 of the repository beside it.
@@ -731,7 +760,9 @@ def histogram_phase(dev, floor_ms: float, live: torch.Tensor,
 
 def temporal_path(card: str, num_events: int, frame_size: int,
                   num_lectures: int, rows: dict) -> dict:
-    """Phase 3b; returns the run's launch counts."""
+    """Phase 3b; returns the run's launch counts and its core state
+    (counters, registers, bank map, stored rows: phase 16(a2)'s
+    reference)."""
     from attendance_tpu_torch import obs
     from attendance_tpu_torch.config import Config
     from attendance_tpu_torch.models import cms
@@ -758,7 +789,14 @@ def temporal_path(card: str, num_events: int, frame_size: int,
     try:
         m = pipe.metrics
         valid_n, invalid_n = pipe.validity_counts()
-        stored = pipe.store.to_columns(deduplicate=False)["is_valid"]
+        stored_cols = pipe.store.to_columns(deduplicate=False)
+        stored = stored_cols["is_valid"]
+        # The core state phase 16(a2) is held to: counters, the day
+        # banks' registers, stored rows.
+        core = dict(counts=(valid_n, invalid_n),
+                    regs=pipe.state.hll_regs.clone(),
+                    bank_of=dict(pipe._bank_of),
+                    rows=_sorted_rows(stored_cols))
         shadow = pipe._temporal.shadow_truth()
         cms_counts = pipe._temporal.cms_counts.clone()
         num_banks = pipe.state.hll_regs.shape[0]
@@ -853,7 +891,7 @@ def temporal_path(card: str, num_events: int, frame_size: int,
           f"{lean.metrics.wall_seconds} s) on {card}; host stages (s): "
           f"{lean.metrics.stage_seconds}")
     lean.cleanup()
-    return launches
+    return launches, core
 
 
 def _pipe_state(pipe):
@@ -863,6 +901,16 @@ def _pipe_state(pipe):
             {str(d): n for d, n in sorted(pipe.count_all().items())},
             pipe.state.hll_regs.clone(), dict(pipe._bank_of),
             pipe.store.to_columns())
+
+
+def _sorted_rows(cols) -> dict:
+    """A store's rows (student, day, micros, validity) in one canonical
+    order: stored validity compared as rows, not as block order."""
+    cols = {k: np.asarray(cols[k]) for k in
+            ("student_id", "lecture_day", "micros", "is_valid")}
+    order = np.lexsort((cols["student_id"], cols["micros"],
+                        cols["lecture_day"]))
+    return {k: v[order] for k, v in cols.items()}
 
 
 def _check_same(what: str, got, want, store: bool = True) -> None:
@@ -5977,6 +6025,683 @@ def fleet_incident_phase(card: str, dev, ref, stream) -> dict:
     return launches
 
 
+CONTROL_DWELL_S = 2.0       # 16(a), (a2): the engine's dwell (its default)
+CONTROL_COOLDOWN_S = 3.0    # 16(a), (a2): the breaker's cooldown, which
+# outlasts the driven walk up the ladder (ticks on an injected clock)
+CONTROL_PACE_S = 0.075      # 16(b): one frame every 75 ms
+CONTROL_REPEATS = 4         # 16(b): the default stream sent 4 times
+CONTROL_WINDOW = (4, 10)    # 16(b): the frames sent while inserts fail
+CONTROL_B_COOLDOWN_S = 1.0  # 16(b): the breaker's cooldown
+CONTROL_DEADLINE_S = 20.0   # 16(b): normal must come back by then
+CONTROL_AUDIT_RUNS = 3      # 16(c): audit_every 1 and 8, interleaved
+CONTROL_RUNGS = ["audit_wide", "snap_stretch", "temporal_pause", "shed",
+                 "temporal_pause", "snap_stretch", "audit_wide", "normal"]
+
+
+class _Clock:
+    """The control engine's injected clock (16(a), (a2))."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _wait_for(cond, what: str, timeout_s: float = 60.0) -> None:
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        check(time.perf_counter() < deadline, f"control: no {what} within "
+              f"{timeout_s} s")
+        time.sleep(0.002)
+
+
+def _clocked_control(config, clk):
+    """The telemetry bundle of ``config`` with its controller replaced by
+    one on ``clk`` (its thread never started: the phase ticks it, as
+    JAX's tests do) and its incident engine's thread stopped (ticked with
+    the controller)."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.control import ControlEngine
+
+    t = obs.enable(config)
+    t.control.stop()
+    t.control = ControlEngine(
+        t, config.control_log, spill_dir=config.control_spill_dir,
+        dwell_s=config.control_dwell_s,
+        clear_ticks=config.control_clear_ticks,
+        flap_limit=config.control_flap_limit, _clock=clk)
+    if t.incidents is not None:
+        t.incidents.stop()
+    return t, t.control
+
+
+def _tick_to(t, eng, clk, rung: int, what: str) -> int:
+    """Tick (the incident engine, then the controller) one dwell apart on
+    the injected clock until the ladder is at ``rung``; returns the
+    ticks."""
+    for n in range(1, 64):
+        clk.t += CONTROL_DWELL_S + 0.1
+        if t.incidents is not None:
+            t.incidents.tick()
+        eng.tick(clk.t)
+        if eng.ladder.rung == rung:
+            return n
+    check(False, f"{what}: ladder stuck at rung {eng.ladder.rung}, want "
+          f"{rung}")
+    return 0
+
+
+def _run_thread(pipe, dev, **run_kw):
+    """``pipe.run(**run_kw)`` on a thread of its own (the producer and
+    the ticks stay on this one); returns (thread, its error box)."""
+    import threading
+
+    box = {}
+
+    def target():
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        try:
+            pipe.run(**run_kw)
+        except BaseException as exc:  # re-raised by the phase's check
+            box["error"] = exc
+
+    th = threading.Thread(target=target, name="control-phase-run",
+                          daemon=True)
+    th.start()
+    return th, box
+
+
+def _join_run(th, box, what: str) -> None:
+    th.join(timeout=120.0)
+    check(not th.is_alive(), f"{what}: run() did not end")
+    check("error" not in box, f"{what}: run() raised {box.get('error')!r}")
+
+
+def _step_launches(launches: dict) -> int:
+    return sum(launches[k] for k in set(STEP_OF_WIRE.values()))
+
+
+def _ladder_moves(log_path) -> list:
+    from attendance_tpu_torch.control import read_actuations
+
+    records, problems = read_actuations(str(log_path))
+    check(not problems, f"control: actuation log problems {problems}")
+    return [r["to"] for r in records if r["knob"] == "ladder.rung"], records
+
+
+def _day_regs_equal(what: str, regs, bank_of, ref_regs, ref_bank_of) -> None:
+    """Registers held day by day through each run's bank map (a frame
+    replayed later may give a day another bank index)."""
+    from attendance_tpu_torch.temporal.buckets import is_bucket_key
+
+    days = {d for d in ref_bank_of if not is_bucket_key(d)}
+    check(days == {d for d in bank_of if not is_bucket_key(d)},
+          f"{what}: lecture days differ")
+    for d in days:
+        check(torch.equal(regs[bank_of[d]].cpu(),
+                          ref_regs[ref_bank_of[d]].cpu()),
+              f"{what}: registers of day {d} differ")
+
+
+def _rows_equal(what: str, rows, ref_rows) -> None:
+    for k in ("student_id", "lecture_day", "micros", "is_valid"):
+        check(np.array_equal(rows[k], ref_rows[k]),
+              f"{what}: stored rows differ in {k}")
+
+
+def _control_driven(card: str, dev, ref, stream, work, launches,
+                    failed) -> None:
+    """16(a): the ``fused`` default at full width under a controller
+    ticked on an injected clock, pressure from the real sink circuit
+    opened by ``persist_fail`` through the chaos plane; the ladder walked
+    to ``shed`` and back; frames spilled at rung 4 and drained on the
+    clear; the final state equal to phase 3's default run."""
+    from attendance_tpu_torch import chaos
+    from attendance_tpu_torch.chaos import ChaosSpec
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    num_events, frame_size, num_lectures = stream
+    roster, frames = generate_frames(
+        num_events, frame_size,
+        roster_size=min(Config().bloom_filter_capacity, num_events),
+        num_lectures=num_lectures, seed=0)
+    frames = list(frames)
+    log = work / "a-act.jsonl"
+    spill = work / "a-spill"
+    kw = dict(snapshot_dir=str(work / "a-warm"), snapshot_mode="delta",
+              snapshot_every_batches=2, audit_sample=0.01,
+              control_log=str(log), control_spill_dir=str(spill),
+              incident_dir=str(work / "a-inc"),
+              persist_spill_dir=str(work / "a-persist"),
+              persist_breaker_failures=2,
+              persist_breaker_cooldown_s=CONTROL_COOLDOWN_S)
+    clk = _Clock()
+    t, eng = _clocked_control(Config(**kw), clk)
+    # Warm-up: the same configuration with no fault on a chain of its
+    # own, whose end marks the launch shapes warm.
+    kernels.reset_launches()
+    warm = FusedPipeline(Config(**kw), client=MemoryClient(MemoryBroker()),
+                         device=dev)
+    warm.preload(roster)
+    producer = warm.client.create_producer(warm.config.pulsar_topic)
+    for f in frames:
+        producer.send(f)
+    warm.run(max_events=num_events, idle_timeout_s=1.0)
+    warm.cleanup()
+    _add_launches(launches, kernels.launches)
+    check(_ladder_moves(log)[0] == [], "16(a): the warm-up actuated")
+
+    cfg = Config(**dict(kw, snapshot_dir=str(work / "a-snap"),
+                        chaos="persist_fail=1.0"))
+    pipe = FusedPipeline(cfg, client=MemoryClient(MemoryBroker()),
+                         device=dev)
+    try:
+        check(pipe._control is eng and pipe._admission is eng.admission,
+              "16(a): the controller is not attached")
+        inj, breaker = chaos.get(), pipe.store.breaker
+        kernels.reset_launches()  # counts to 0 just before the main path
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(cfg.pulsar_topic)
+        th, box = _run_thread(pipe, dev, max_events=num_events,
+                              idle_timeout_s=60.0)
+        for f in frames[:2]:
+            producer.send(f)
+        _wait_for(lambda: pipe.metrics.batches == 2
+                  and breaker.state == "open", "open circuit after 2 frames")
+        t_open = time.perf_counter()
+        knobs = {}
+        for rung in (1, 2, 3, 4):
+            _tick_to(t, eng, clk, rung, "16(a) escalation")
+            knobs[rung] = (pipe._audit_every, pipe._snap_every,
+                           eng.admission.mode)
+        walk_s = time.perf_counter() - t_open
+        check(walk_s < CONTROL_COOLDOWN_S, f"16(a): the walk took {walk_s}"
+              " s, past the breaker's cooldown")
+        check(knobs[4] == (8, 4 * 2, "spill"), f"16(a): knobs at rung 4 "
+              f"{knobs[4]} (audit_every 8, snap_every 4x2, spill)")
+        k2 = _step_launches(kernels.launches)
+        for f in frames[2:4]:
+            producer.send(f)
+        _wait_for(lambda: eng.admission.spilled_total == 2,
+                  "2 spilled frames")
+        spilled_files = sorted(p.name for p in spill.iterdir())
+        check(len(spilled_files) == 2 and pipe.metrics.batches == 2
+              and _step_launches(kernels.launches) == k2,
+              f"16(a): rung 4 dispatched a frame (files {spilled_files}, "
+              f"frames {pipe.metrics.batches})")
+        # The clear: the fault window closes, the cooldown passes, the
+        # controller's nudge half-opens the breaker.
+        inj.spec = ChaosSpec.parse("off")
+        time.sleep(max(0.0, CONTROL_COOLDOWN_S + 0.05
+                       - (time.perf_counter() - t_open)))
+        _tick_to(t, eng, clk, 3, "16(a) clear")
+        t_drain = time.perf_counter()
+        _wait_for(lambda: eng.admission.drained_total == 2
+                  and pipe.metrics.batches == 4, "the drain of 2 frames")
+        drain_s = time.perf_counter() - t_drain
+        drained_k2 = _step_launches(kernels.launches) - k2
+        check(drained_k2 == 2, f"16(a): the drain made {drained_k2} K2 "
+              "launches for 2 frames")
+        _tick_to(t, eng, clk, 0, "16(a) de-escalation")
+        for f in frames[4:]:
+            producer.send(f)
+        _join_run(th, box, "16(a)")
+        m = pipe.metrics
+        check(m.events == num_events and m.batches == len(frames),
+              f"16(a): {m.events} events in {m.batches} frames")
+        check(not list(spill.iterdir()), "16(a): the spill directory is "
+              "not empty after the final barrier")
+        valid_n, invalid_n = pipe.validity_counts()
+        check((valid_n, invalid_n) == ref[0] and valid_n + invalid_n
+              == num_events, f"16(a): counters {(valid_n, invalid_n)} != "
+              f"phase 3's {ref[0]}")
+        pf = {str(d): n for d, n in sorted(pipe.count_all().items())}
+        check(pf == ref[1], "16(a): PFCOUNTs differ from phase 3's")
+        _day_regs_equal("16(a)", pipe.state.hll_regs, pipe._bank_of,
+                        ref[2], ref[4])
+        rows = _sorted_rows(pipe.store.to_columns(deduplicate=False))
+        _rows_equal("16(a)", rows, ref[5])
+        truth = np.isin(rows["student_id"], roster)
+        check(int((truth & ~rows["is_valid"]).sum()) == 0,
+              "16(a): false negatives")
+        # Read after the run and its PFCOUNTs: K3, K2 and K1 each ran.
+        run_launches = dict(kernels.launches)
+        _add_launches(launches, run_launches)
+        check(_step_launches(run_launches) == len(frames)
+              and run_launches["bloom_add"] > 0
+              and run_launches["hll_histogram"] > 0,
+              f"16(a): launches {run_launches}")
+    finally:
+        pipe.cleanup()
+    moves, records = _ladder_moves(log)
+    check(moves == CONTROL_RUNGS, f"16(a): ladder moves {moves}")
+    steady = [line for line in t.render().splitlines()
+              if line.startswith("attendance_recompiles_steady_total")]
+    check(steady and all(line.endswith(" 0") for line in steady),
+          f"16(a): steady launch shapes after warm-up {steady}")
+    rc, out = _doctor_cli(["--actuations", str(log)])
+    check(rc == 0 and "actuation replay: ok" in out,
+          f"16(a): doctor --actuations exit {rc}")
+    lines = log.read_text().splitlines()
+    tampered = work / "a-tampered.jsonl"
+    tampered.write_text("\n".join(lines + [lines[1]]) + "\n")
+    rc_t, _ = _doctor_cli(["--actuations", str(tampered)])
+    check(rc_t == 1, f"16(a): doctor on a repeated seq exit {rc_t}")
+    rc_i, out_i = _doctor_cli(["--incident", str(work / "a-inc"),
+                               "--actuations", str(log)])
+    xref = [line.strip() for line in out_i.splitlines()
+            if " actuation " in line]
+    check(xref, f"16(a): doctor --incident --actuations printed no "
+          f"cross-reference row (exit {rc_i})")
+    print(f"control (a) driven ticks on {card}: rungs {moves}; knobs by "
+          f"rung {knobs}; walk {walk_s} s of wall for 8 ticks; 2 frames "
+          f"spilled at rung 4 with no K2, drained in {drain_s} s with "
+          f"{drained_k2} K2; {len(records)} actuation records, "
+          f"{eng.actuations_total} actuations; final state equal to phase "
+          f"3 (counters, PFCOUNTs, registers day by day, stored rows); "
+          f"spill dir empty; steady shapes {steady}; doctor --actuations "
+          f"0, tampered {rc_t}; incident cross-reference {xref}; "
+          f"launches {run_launches}")
+
+
+def _control_temporal(card: str, dev, t_ref, stream, work, launches) -> None:
+    """16(a2): phase 3b's temporal configuration driven to rung 3 and back:
+    the paused frames launch no K4/K5 window add and no K6 step, exactly
+    that many fewer than phase 3b's run, and the core state equals 3b's."""
+    from attendance_tpu_torch import chaos
+    from attendance_tpu_torch.chaos import ChaosSpec
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    ref_launches, core = t_ref
+    num_events, frame_size, num_lectures = stream
+    roster, _hot, frames = temporal_frames(num_events, frame_size,
+                                           num_lectures)
+    paused = (2, 5)  # frames sent at rung 3
+    log = work / "a2-act.jsonl"
+    # Phase 3b's configuration but for watermark_idle_s 0: the phase
+    # waits out the breaker's cooldown with frames buffered, and an idle
+    # flush there would add a K6 release no pause predicts.
+    cfg = Config(temporal_period_s=60, allowed_lateness_s=5.0,
+                 temporal_ring_banks=256, cms_depth=4, cms_width=16384,
+                 cms_topk=16, audit_sample=1.0, watermark_idle_s=0.0,
+                 control_log=str(log),
+                 persist_spill_dir=str(work / "a2-persist"),
+                 persist_breaker_failures=2,
+                 persist_breaker_cooldown_s=CONTROL_COOLDOWN_S,
+                 chaos="persist_fail=1.0")
+    clk = _Clock()
+    t, eng = _clocked_control(cfg, clk)
+    pipe = FusedPipeline(cfg, client=MemoryClient(MemoryBroker()),
+                         device=dev)
+    try:
+        inj, breaker = chaos.get(), pipe.store.breaker
+        plane = pipe._temporal
+        calls = {"add": 0, "step": 0}
+        add, consume = plane._dispatch_add, plane._consume_released
+
+        def counted_add(*a, **k):
+            calls["add"] += 1
+            return add(*a, **k)
+
+        def counted_consume(rel):
+            calls["step"] += int(len(rel["student_id"]) > 0)
+            return consume(rel)
+
+        plane._dispatch_add, plane._consume_released = (counted_add,
+                                                        counted_consume)
+        kernels.reset_launches()
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(cfg.pulsar_topic)
+        th, box = _run_thread(pipe, dev, max_events=num_events,
+                              idle_timeout_s=60.0)
+        for f in frames[:paused[0]]:
+            producer.send(f)
+        _wait_for(lambda: pipe.metrics.batches == paused[0]
+                  and breaker.state == "open", "open circuit")
+        t_open = time.perf_counter()
+        _tick_to(t, eng, clk, 3, "16(a2) escalation")
+        check(pipe._temporal_paused and eng.admission.mode == "pass",
+              "16(a2): rung 3 did not pause the sidecar")
+        before = dict(calls)
+        for f in frames[paused[0]:paused[1]]:
+            producer.send(f)
+        _wait_for(lambda: pipe.metrics.batches == paused[1],
+                  "the paused frames")
+        check(calls == before, f"16(a2): the sidecar ran while paused "
+              f"{before} -> {calls}")
+        inj.spec = ChaosSpec.parse("off")
+        time.sleep(max(0.0, CONTROL_COOLDOWN_S + 0.05
+                       - (time.perf_counter() - t_open)))
+        _tick_to(t, eng, clk, 0, "16(a2) clear")
+        check(not pipe._temporal_paused, "16(a2): still paused at rung 0")
+        for f in frames[paused[1]:]:
+            producer.send(f)
+        _join_run(th, box, "16(a2)")
+        run_launches = dict(kernels.launches)
+        _add_launches(launches, run_launches)
+        n_paused = paused[1] - paused[0]
+        deficit = {k: ref_launches[k] - run_launches[k]
+                   for k in ("hll_add", "cms_step")}
+        check(deficit == {"hll_add": n_paused, "cms_step": n_paused},
+              f"16(a2): K5/K6 launches {run_launches['hll_add']}/"
+              f"{run_launches['cms_step']} against phase 3b's "
+              f"{ref_launches['hll_add']}/{ref_launches['cms_step']}: "
+              f"deficit {deficit}, predicted {n_paused} each")
+        check(run_launches["hll_add"] == calls["add"]
+              and run_launches["cms_step"] == calls["step"]
+              and run_launches["bloom_contains"] >= calls["add"]
+              and _step_launches(run_launches) == len(frames)
+              and run_launches["bloom_add"] > 0,
+              f"16(a2): launches {run_launches} against sidecar calls "
+              f"{calls}")
+        counts = pipe.validity_counts()
+        check(counts == core["counts"], f"16(a2): counters {counts} != "
+              f"phase 3b's {core['counts']}")
+        _day_regs_equal("16(a2)", pipe.state.hll_regs, pipe._bank_of,
+                        core["regs"], core["bank_of"])
+        _rows_equal("16(a2)", _sorted_rows(
+            pipe.store.to_columns(deduplicate=False)), core["rows"])
+        stats = pipe.temporal_stats()
+    finally:
+        pipe.cleanup()
+    moves, _records = _ladder_moves(log)
+    check(moves == ["audit_wide", "snap_stretch", "temporal_pause",
+                    "snap_stretch", "audit_wide", "normal"],
+          f"16(a2): ladder moves {moves}")
+    print(f"control (a2) temporal, rung 3 and back on {card}: {n_paused} "
+          f"paused frames; K5 {run_launches['hll_add']} and K6 "
+          f"{run_launches['cms_step']} launches against phase 3b's "
+          f"{ref_launches['hll_add']} and {ref_launches['cms_step']} "
+          f"(deficit {deficit}, predicted {n_paused} each); windows saw "
+          f"{stats['events']} of {num_events} events; core state equal to "
+          f"phase 3b's (counters, day registers, stored rows); rungs "
+          f"{moves}")
+
+
+def _control_thread(card: str, dev, stream, work, launches) -> None:
+    """16(b): the engine's own thread at a 50 ms tick and a 0.1 s dwell
+    over a paced producer, a fault window opening and closing the sink's
+    circuit: every rung reached and normal back before a deadline, the
+    state equal to an uncontrolled run over the same frames."""
+    from attendance_tpu_torch import chaos, obs
+    from attendance_tpu_torch.chaos import ChaosSpec
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.models.fused import state_to_numpy
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    num_events, frame_size, num_lectures = stream
+    roster, frames = generate_frames(
+        num_events, frame_size,
+        roster_size=min(Config().bloom_filter_capacity, num_events),
+        num_lectures=num_lectures, seed=0)
+    stream_frames = list(frames) * CONTROL_REPEATS
+    total = num_events * CONTROL_REPEATS
+    log = work / "b-act.jsonl"
+    cfg = Config(metrics_interval_s=0.05, control_dwell_s=0.1,
+                 control_log=str(log),
+                 control_spill_dir=str(work / "b-spill"),
+                 snapshot_dir=str(work / "b-snap"),
+                 snapshot_every_batches=2,
+                 persist_spill_dir=str(work / "b-persist"),
+                 persist_breaker_failures=2,
+                 persist_breaker_cooldown_s=CONTROL_B_COOLDOWN_S,
+                 chaos="persist_fail=1.0")
+    pipe = FusedPipeline(cfg, client=MemoryClient(MemoryBroker()),
+                         device=dev)
+    try:
+        eng = obs.get().control
+        check(eng._thread is not None and eng._thread.is_alive()
+              and eng.interval_s == 0.05, "16(b): no control-engine thread")
+        inj = chaos.get()
+        inj.spec = ChaosSpec.parse("off")  # the window opens mid-stream
+        timeline = []
+        tick = eng.tick
+
+        def timed_tick(now=None):
+            out = tick(now)
+            timeline.append((time.perf_counter(),
+                             eng._g_pressure.value == 1.0, eng.ladder.rung))
+            return out
+
+        eng.tick = timed_tick
+        drains = []
+        drain = pipe._drain_admission
+
+        def timed_drain(limit=16):
+            t0 = time.perf_counter()
+            n = drain(limit)
+            if n:
+                drains.append((t0, time.perf_counter(), n))
+            return n
+
+        pipe._drain_admission = timed_drain
+        kernels.reset_launches()
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(cfg.pulsar_topic)
+        th, box = _run_thread(pipe, dev, max_events=total,
+                              idle_timeout_s=60.0)
+        t_start = time.perf_counter()
+        for i, f in enumerate(stream_frames):
+            if i == CONTROL_WINDOW[0]:
+                inj.spec = ChaosSpec.parse("persist_fail=1.0")
+            elif i == CONTROL_WINDOW[1]:
+                inj.spec = ChaosSpec.parse("off")
+            time.sleep(max(0.0, t_start + i * CONTROL_PACE_S
+                           - time.perf_counter()))
+            producer.send(f)
+        t_sent = time.perf_counter()
+        _join_run(th, box, "16(b)")
+        _wait_for(lambda: eng.ladder.rung == 0, "normal after the stream",
+                  timeout_s=CONTROL_DEADLINE_S)
+        run_launches = dict(kernels.launches)
+        _add_launches(launches, run_launches)
+        m = pipe.metrics
+        check(m.events == total and not list((work / "b-spill").iterdir()),
+              f"16(b): {m.events} of {total} events, spill left")
+        check(_step_launches(run_launches) == len(stream_frames)
+              and run_launches["bloom_add"] > 0,
+              f"16(b): launches {run_launches}")
+        _, regs, counts = state_to_numpy(pipe.state)
+        got = (pipe.validity_counts(), regs, dict(pipe._bank_of),
+               _sorted_rows(pipe.store.to_columns(deduplicate=False)))
+        adm = eng.admission
+        spilled, drained, acts = (adm.spilled_total, adm.drained_total,
+                                  eng.actuations_total)
+    finally:
+        pipe.cleanup()
+        obs.disable()
+        chaos.disable()
+    moves, _records = _ladder_moves(log)
+    check(max(r for _t, _p, r in timeline) == 4 and moves[:4]
+          == CONTROL_RUNGS[:4] and moves[-1] == "normal",
+          f"16(b): ladder moves {moves}")
+    first_p = next(t0 for t0, p, _r in timeline if p)
+    at4 = next(t0 for t0, _p, r in timeline if r == 4 and t0 >= first_p)
+    clear = next(t0 for t0, p, _r in timeline if t0 > at4 and not p)
+    at0 = next(t0 for t0, _p, r in timeline if t0 > clear and r == 0)
+    drain_s = (drains[-1][1] - drains[0][0]) if drains else 0.0
+    check(spilled > 0 and drained == spilled, f"16(b): {spilled} spilled, "
+          f"{drained} drained")
+    # The oracle: the same frames with no controller, no fault.
+    oracle = FusedPipeline(Config(), client=MemoryClient(MemoryBroker()),
+                           device=dev)
+    try:
+        oracle.preload(roster)
+        producer = oracle.client.create_producer(oracle.config.pulsar_topic)
+        for f in stream_frames:
+            producer.send(f)
+        oracle.run(max_events=total, idle_timeout_s=1.0)
+        _, oregs, _ = state_to_numpy(oracle.state)
+        check(got[0] == oracle.validity_counts(), f"16(b): counters "
+              f"{got[0]} != {oracle.validity_counts()}")
+        _day_regs_equal("16(b)", torch.from_numpy(got[1]), got[2],
+                        torch.from_numpy(oregs), oracle._bank_of)
+        _rows_equal("16(b)", got[3], _sorted_rows(
+            oracle.store.to_columns(deduplicate=False)))
+    finally:
+        oracle.cleanup()
+    print(f"control (b) engine thread (50 ms tick, 0.1 s dwell) on {card}: "
+          f"{len(stream_frames)} frames one per {CONTROL_PACE_S} s, inserts "
+          f"failing for frames {CONTROL_WINDOW[0]}-{CONTROL_WINDOW[1] - 1}; "
+          f"first pressure tick to rung 4 {at4 - first_p} s; clear to rung "
+          f"0 {at0 - clear} s; {acts} actuations; {spilled} frames spilled "
+          f"and {drained} drained, the drain's wall {drain_s} s over "
+          f"{len(drains)} drain calls; stream sent in {t_sent - t_start} s; "
+          f"{len(timeline)} ticks; rungs {moves}; state equal to the "
+          f"uncontrolled run over the same frames; launches {run_launches}")
+
+
+def _control_reported(card: str, dev, ref, stream, ingress) -> None:
+    """16(c), reported, not gated: the ``fused`` default with the 1% audit
+    at ``audit_every`` 1 and 8 (three runs a side, interleaved), and
+    phase 7(a)'s JSON wire through 4 lanes per ``--lane-decode``
+    engine."""
+    from attendance_tpu_torch import obs
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.native import load as load_native
+    from attendance_tpu_torch.native.build import python_include
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    num_events, frame_size, num_lectures = stream
+    roster, frames = generate_frames(
+        num_events, frame_size,
+        roster_size=min(Config().bloom_filter_capacity, num_events),
+        num_lectures=num_lectures, seed=0)
+    frames = list(frames)
+    rates = {1: [], 8: []}
+    for _ in range(CONTROL_AUDIT_RUNS):
+        for every in (1, 8):
+            config = Config(audit_sample=0.01)
+            pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
+                                 device=dev)
+            try:
+                pipe._audit_every = every  # the knob rung 1 sets
+                pipe.preload(roster)
+                producer = pipe.client.create_producer(config.pulsar_topic)
+                for f in frames:
+                    producer.send(f)
+                pipe.run(max_events=num_events, idle_timeout_s=1.0)
+                check(pipe.validity_counts() == ref[0],
+                      f"16(c): audit_every {every} counters")
+                rates[every].append(pipe.metrics.events_per_second)
+            finally:
+                pipe.cleanup()
+                obs.disable()
+    print(f"control (c) fused default with the 1% audit on {card}: "
+          f"audit_every 1 {rates[1]} events/s, audit_every 8 {rates[8]} "
+          f"events/s (interleaved, each a first run in its pipeline)")
+    header = python_include()
+    print(f"control (c) this interpreter's Python.h: {header is not None} "
+          f"({header}); the native library has the list scan: "
+          f"{load_native().has_list_scan}")
+    payloads, jroster = ingress["payloads"], ingress["roster"]
+    n = len(payloads)
+    for engine in ("auto", "native", "vector"):
+        if engine == "native" and header is None:
+            print("control (c) --lane-decode native: refused here (no "
+                  "Python.h, so no list scan)")
+            continue
+        config = Config(ingress_lanes=4, lane_decode=engine)
+        pipe = FusedPipeline(config, client=MemoryClient(MemoryBroker()),
+                             device=dev)
+        try:
+            pipe.client.create_producer(config.pulsar_topic).send_many(
+                payloads)
+            pipe.preload(jroster)
+            pipe.run(max_events=n, idle_timeout_s=1.0)
+            _check_ingress_same(f"16(c) lane decode {engine}",
+                                _ingress_state(pipe), ingress["sorted_a"])
+            m = pipe.metrics
+            print(f"control (c) JSON -> 4 lanes --lane-decode {engine} on "
+                  f"{card}: {m.events} events, {m.events_per_second} "
+                  f"events/s (wall {m.wall_seconds} s); lane decode "
+                  f"seconds {[lane.decode_seconds for lane in pipe.consumer.lanes]}"
+                  f"; equal to ingress (a)")
+        finally:
+            pipe.cleanup()
+
+
+def _add_launches(into: dict, more: dict) -> None:
+    for k, v in more.items():
+        into[k] = into.get(k, 0) + v
+
+
+def control_phase(card: str, dev, ref, t_ref, stream, ingress) -> dict:
+    """Phase 16: the control plane on the card. (a) the ``fused`` default
+    under a controller ticked on an injected clock, walked to ``shed`` by
+    the real sink circuit and back, spilled frames drained on the clear,
+    the state equal to phase 3's; (a2) phase 3b's configuration paused at
+    rung 3 and back, its K5/K6 deficit exactly the paused frames; (b) the
+    engine's own thread over a paced producer with a fault window; (c)
+    the audit at ``audit_every`` 1 and 8, and the JSON wire per lane
+    decode engine, reported. Fails on a failed control tick and on a
+    ``control-engine`` thread left after the phase. Returns the launches
+    of its runs."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from attendance_tpu_torch import chaos, obs
+    from attendance_tpu_torch.control import engine as control_engine
+    from attendance_tpu_torch.obs import incident
+    from attendance_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_control_"))
+    launches = dict.fromkeys(kernels.launches, 0)
+    failed = _ErrorRecords()
+    for mod in (control_engine, incident):
+        mod.logger.addHandler(failed)
+    try:
+        for part in (
+                lambda: _control_driven(card, dev, ref, stream, work,
+                                        launches, failed),
+                lambda: _control_temporal(card, dev, t_ref, stream, work,
+                                          launches),
+                lambda: _control_thread(card, dev, stream, work, launches),
+                lambda: _control_reported(card, dev, ref, stream, ingress)):
+            t0 = time.perf_counter()
+            try:
+                part()
+            finally:
+                obs.disable()
+                chaos.disable()
+            print(f"control part: {time.perf_counter() - t0} s")
+    finally:
+        for mod in (control_engine, incident):
+            mod.logger.removeHandler(failed)
+        shutil.rmtree(work, ignore_errors=True)
+    check(not failed.records, "control: " + "; ".join(
+        r.getMessage() for r in failed.records))
+    left = [th.name for th in threading.enumerate()
+            if th.name in ("control-engine", "incident-engine",
+                           "control-phase-run")]
+    check(not left, f"control: threads left after the phase {left}")
+    print(f"control phase: {time.perf_counter() - t_phase} s")
+    print(f"control phase launches (its runs; in the kernels line): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6416,8 +7141,10 @@ def main() -> int:
                 num_lectures)
             run_launches = dict(kernels.launches)
             try:
-                stored = pipe.store.to_columns(deduplicate=False)["is_valid"]
+                stored_cols = pipe.store.to_columns(deduplicate=False)
+                stored = stored_cols["is_valid"]
                 regs = pipe.state.hll_regs.clone()
+                bank_of = dict(pipe._bank_of)
                 loaded = pipe._native is not None
                 if label == "default" and run == "first":
                     live = pipe._live_regs().clone()
@@ -6461,7 +7188,8 @@ def main() -> int:
             got = ((summary["valid"], summary["invalid"]),
                    summary["unique_attendees"], regs, stored)
             if ref is None:
-                ref = got
+                # Phase 16 also holds the bank map and the stored rows.
+                ref = got + (bank_of, _sorted_rows(stored_cols))
             # Every wire, and every run, equals the default run exactly.
             check(got[:2] == ref[:2], f"{what}: counters or PFCOUNTs differ "
                   "from the default run's")
@@ -6490,8 +7218,8 @@ def main() -> int:
     histogram_phase(dev, floor_ms, live, rows)
 
     # -- 3b. temporal path ----------------------------------------------------
-    t_launches = temporal_path(card, num_events, frame_size, num_lectures,
-                               rows)
+    t_launches, t_core = temporal_path(card, num_events, frame_size,
+                                       num_lectures, rows)
 
     # -- 5. checkpoint and restore (its launches on its own line) -------------
     checkpoint_phase(card, num_events, frame_size, num_lectures, ref)
@@ -6536,6 +7264,11 @@ def main() -> int:
     fleet_launches = fleet_incident_phase(
         card, dev, ref, (num_events, frame_size, num_lectures))
 
+    # -- 16. the control plane and the list scan -------------------------------
+    control_launches = control_phase(
+        card, dev, ref, (t_launches, t_core),
+        (num_events, frame_size, num_lectures), ingress)
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -6547,7 +7280,8 @@ def main() -> int:
                        + l_launches[name] + f_launches[name]
                        + m_launches[name] + tel_launches[name]
                        + acc_launches[name] + chaos_launches[name]
-                       + slo_launches[name] + fleet_launches[name]),
+                       + slo_launches[name] + fleet_launches[name]
+                       + control_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

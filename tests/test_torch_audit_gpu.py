@@ -10,8 +10,15 @@ registers for ``count_all``) from the metrics server's request thread,
 off the run loop's, while
 ``torch.cuda.synchronize`` is patched to raise for the whole run and
 the scrape. Skips inside the test without a card.
+
+The scrape after the first frame measures the FPR over the few sampled
+outsiders seen by then (about 62 at a 1% audit), where one false
+positive reads 1/62: it is held to a binomial bound for its own sample
+count (at p = 0.015, a one-in-a-million tail). The read after the run,
+over the whole run's outsiders, is held at 0.015.
 """
 
+import math
 import threading
 import urllib.request
 
@@ -60,6 +67,17 @@ def _scraping_client(t, out: dict) -> MemoryClient:
     return client
 
 
+def _binomial_bound(n: int, p: float = 0.015, tail: float = 1e-6) -> int:
+    """The smallest k with P(Bin(n, p) > k) <= tail: the false positives
+    a filter at FPR p exceeds once in a million scrapes of n outsiders."""
+    cdf = 0.0
+    for k in range(n + 1):
+        cdf += math.comb(n, k) * p ** k * (1.0 - p) ** (n - k)
+        if 1.0 - cdf <= tail:
+            return k
+    return n
+
+
 def test_mid_run_scrape_reads_the_card_from_its_thread(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -76,6 +94,16 @@ def test_mid_run_scrape_reads_the_card_from_its_thread(monkeypatch):
             return _real(*args, **kwargs)
 
         monkeypatch.setattr(kernels, name, spy)
+    # The outsiders each measured-FPR read re-queries, by thread.
+    outsiders = []
+    real_sets = t.auditor.fused_probe_sets
+
+    def probe_sets():
+        sets = real_sets()
+        outsiders.append((threading.current_thread().name, len(sets[1])))
+        return sets
+
+    monkeypatch.setattr(t.auditor, "fused_probe_sets", probe_sets)
     try:
         pipe = fast_path.FusedPipeline(config,
                                        client=_scraping_client(t, out))
@@ -104,12 +132,23 @@ def test_mid_run_scrape_reads_the_card_from_its_thread(monkeypatch):
         assert launches["hll_histogram"] >= 2  # estimate and HLL error
         assert s[("attendance_bloom_false_negatives_total", "")] == 0
         fpr = s[("attendance_bloom_measured_fpr", 'surface="fused"')]
-        assert 0.0 <= fpr <= 0.015
+        # The scrape's own sample: the outsider count of a read off the
+        # loop's thread that gives the scraped ratio.
+        counts = {c for name, c in outsiders if name != loop and c}
+        fits = [n for n in counts
+                if abs(fpr * n - round(fpr * n)) < 1e-9]
+        assert fits, (fpr, counts)
+        n = min(fits)
+        assert 0 <= round(fpr * n) <= _binomial_bound(n), (fpr, n)
         assert 0.0 < s[("attendance_bloom_fill_fraction", "")] < 1.0
         assert s[("attendance_hll_estimate", "")] > 0
         # After the run, with nothing in flight: the gauges equal the
         # pipeline's own reads.
         reg = t.registry
+        post = reg.gauge("attendance_bloom_measured_fpr",
+                         surface="fused").read()
+        assert 0.0 <= post <= 0.015, post
+        assert outsiders[-1][1] >= n  # the whole run's outsiders
         assert reg.gauge("attendance_hll_estimate").read() == sum(
             pipe.count_all().values())
         assert reg.gauge("attendance_bloom_estimated_fpr").read() == (

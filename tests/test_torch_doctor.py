@@ -6,9 +6,9 @@ The same artifacts give the same verdict text, byte for byte, and the
 same exit codes (0 pass, 1 breach, 2 unreadable): the golden table, a
 row of every kind the verdict has, a fleet directory, and each package's
 doctor over the other package's artifacts from a real audited fused run
-with the SLO engine on. The plane the port does not have yet (the control
-plane's ``--actuations``) is refused at parse time. Every test leaves both packages' process-global telemetry
-disabled.
+with the SLO engine on. ``--actuations`` (the control plane's log) is
+held in ``tests/test_torch_control.py``. Every test leaves both packages'
+process-global telemetry disabled.
 """
 
 import json
@@ -328,13 +328,17 @@ def test_doctor_folds_the_scrub_into_its_exit_code(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [("--actuations", "11e")])
-def test_unported_planes_refused_at_parse_time(tmp_path, capsys, flag,
-                                               item):
+def test_unported_planes_refused_at_parse_time(tmp_path, capsys, caplog,
+                                               flag, item):
+    """Item 11e ported the plane: ``--actuations`` parses now, and a path
+    that is no actuation log (a directory) still exits 2, as JAX's verb
+    does, with the artifacts' verdict never printed."""
     paths = _doctor_artifacts(tmp_path, breached=False)
-    with pytest.raises(SystemExit) as e:
-        port_main(["doctor", flag, str(tmp_path)] + paths)
-    assert e.value.code == 2
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+    rc, out = _cli_both(["doctor", flag, str(tmp_path)] + paths, capsys)
+    assert rc == 2
+    assert "verdict" not in out
+    assert "no such actuation log" in caplog.text
+    assert f"ROADMAP item {item}" not in capsys.readouterr().err
 
 
 # -- each package's doctor over the other's real run ----------------------------

@@ -513,11 +513,24 @@ def test_doctor_incident_rides_with_artifacts(tmp_path, capsys):
     assert rc == 1 == _exit_code(jax_main, argv)
 
 
-def test_doctor_still_refuses_actuations(tmp_path, capsys):
+def test_doctor_still_refuses_actuations(tmp_path, capsys, caplog):
+    """``--actuations`` is ported (item 11e): a missing log is refused
+    with exit 2 as JAX's verb refuses it, and a present one replays."""
     with pytest.raises(SystemExit) as e:
         port_main(["doctor", "--actuations", str(tmp_path / "a.jsonl")])
     assert e.value.code == 2
-    assert "ROADMAP item 11e" in capsys.readouterr().err
+    assert "no such actuation log" in caplog.text
+    assert "ROADMAP item 11e" not in capsys.readouterr().err
+    from attendance_tpu_torch.control import ActuationLog
+    log = ActuationLog(str(tmp_path / "a.jsonl"))
+    log.record(knob="audit_every", frm=1, to=8, outcome="applied",
+               policy="degradation_ladder", action="widen_audit",
+               direction="escalate", rung=1, conditions=["circuit_open"])
+    log.close()
+    with pytest.raises(SystemExit) as e:
+        port_main(["doctor", "--actuations", str(tmp_path / "a.jsonl")])
+    assert e.value.code == 0
+    assert "actuation replay: ok" in capsys.readouterr().out
 
 
 # -- the port's departures -----------------------------------------------------

@@ -286,18 +286,33 @@ def test_striped_consumer_timeout_knobs_and_close():
 
 
 def test_lane_decode_engines(monkeypatch):
-    """``vector`` (the numpy scan) lands on the same state as ``auto``
-    (the native buffer scan); ``native`` names the JAX package's CPython
-    list scan, which the port lacks, and raises instead of taking
-    another engine."""
+    """``vector`` (the numpy scan) and ``native`` (the CPython list scan,
+    item 4) land on the JAX oracle's state, as ``auto`` does. ``native``
+    is the list scan and nothing else: with a library built without it
+    (no ``Python.h``) or with ``ATP_NATIVE=0`` it raises instead of
+    taking another engine, and ``auto`` is then the buffer scan."""
+    import importlib
+
+    from attendance_tpu_torch import native as tnative
+    # The package exports the function `build`; the module by name.
+    tbuild = importlib.import_module("attendance_tpu_torch.native.build")
     want = _jax_oracle_json()
-    pipe = _port(batch_size=512, ingress_lanes=2, lane_decode="vector")
-    try:
-        _feed(pipe, ROSTER, PAYLOADS, max_events=NJSON)
-        _assert_same(_state(pipe), want)
-    finally:
-        pipe.cleanup()
-    with pytest.raises(NotImplementedError, match="list scan"):
+    for engine in ("vector", "native"):
+        pipe = _port(batch_size=512, ingress_lanes=2, lane_decode=engine)
+        try:
+            _feed(pipe, ROSTER, PAYLOADS, max_events=NJSON)
+            _assert_same(_state(pipe), want)
+        finally:
+            pipe.cleanup()
+    assert tnative.load().has_list_scan
+    monkeypatch.setattr(tnative, "_cached", None)
+    monkeypatch.setattr(tnative, "python_include", lambda: None)
+    monkeypatch.setattr(tbuild, "python_include", lambda: None)
+    assert not tnative.load().has_list_scan
+    with pytest.raises(RuntimeError, match="Python.h"):
+        _port(ingress_lanes=2, lane_decode="native")
+    monkeypatch.setenv("ATP_NATIVE", "0")
+    with pytest.raises(RuntimeError, match="ATP_NATIVE=0"):
         _port(ingress_lanes=2, lane_decode="native")
     with pytest.raises(ValueError, match="lane decode"):
         Config(lane_decode="python")

@@ -179,7 +179,11 @@ _PORT_MODULES = {
     "attendance_tpu_torch.storage.resilient",
     "attendance_tpu_torch.obs.slo", "attendance_tpu_torch.obs.profiler",
     "attendance_tpu_torch.utils.profiling",
-    "attendance_tpu_torch.obs.fleet", "attendance_tpu_torch.obs.incident"}
+    "attendance_tpu_torch.obs.fleet", "attendance_tpu_torch.obs.incident",
+    "attendance_tpu_torch.control", "attendance_tpu_torch.control.knobs",
+    "attendance_tpu_torch.control.ladder",
+    "attendance_tpu_torch.control.actuation",
+    "attendance_tpu_torch.control.engine"}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
