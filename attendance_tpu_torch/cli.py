@@ -181,28 +181,35 @@ def run_fused(config: Config, num_events: int, frame_size: int,
     return pipe, summary
 
 
+def _fused_config(args) -> Config:
+    """The Config of the ``fused`` verb's flags."""
+    return Config(bloom_filter_capacity=args.bloom_capacity,
+                  bloom_filter_error_rate=args.bloom_error_rate,
+                  hll_precision=args.hll_precision,
+                  wire_format=args.wire_format,
+                  temporal_period_s=args.temporal_period_s,
+                  allowed_lateness_s=args.allowed_lateness_s,
+                  watermark_idle_s=args.watermark_idle_s,
+                  temporal_ring_banks=args.temporal_ring_banks,
+                  cms_depth=args.cms_depth, cms_width=args.cms_width,
+                  cms_topk=args.cms_topk,
+                  snapshot_dir=args.snapshot_dir,
+                  snapshot_every_batches=args.snapshot_every_batches,
+                  snapshot_mode=args.snapshot_mode,
+                  snapshot_compact_every=args.snapshot_compact_every,
+                  integrity=not args.no_integrity,
+                  num_shards=args.num_shards,
+                  num_replicas=args.num_replicas,
+                  replica_sync=args.replica_sync,
+                  max_redeliveries=args.max_redeliveries,
+                  metrics_json=args.metrics_json,
+                  **_transport_config(args), **_ingress_config(args),
+                  **_serve_config(args), **_fed_config(args),
+                  **_telemetry_config(args), **_control_config(args))
+
+
 def cmd_fused(args) -> None:
-    config = Config(bloom_filter_capacity=args.bloom_capacity,
-                    bloom_filter_error_rate=args.bloom_error_rate,
-                    hll_precision=args.hll_precision,
-                    wire_format=args.wire_format,
-                    temporal_period_s=args.temporal_period_s,
-                    allowed_lateness_s=args.allowed_lateness_s,
-                    watermark_idle_s=args.watermark_idle_s,
-                    temporal_ring_banks=args.temporal_ring_banks,
-                    cms_depth=args.cms_depth, cms_width=args.cms_width,
-                    cms_topk=args.cms_topk,
-                    snapshot_dir=args.snapshot_dir,
-                    snapshot_every_batches=args.snapshot_every_batches,
-                    snapshot_mode=args.snapshot_mode,
-                    snapshot_compact_every=args.snapshot_compact_every,
-                    integrity=not args.no_integrity,
-                    num_shards=args.num_shards,
-                    num_replicas=args.num_replicas,
-                    replica_sync=args.replica_sync,
-                    **_transport_config(args), **_ingress_config(args),
-                    **_serve_config(args), **_fed_config(args),
-                    **_telemetry_config(args), **_control_config(args))
+    config = _fused_config(args)
     own_telemetry = obs.get() is None
     pipe, summary = run_fused(config, args.num_events, args.frame_size,
                               args.num_lectures, args.seed, args.device)
@@ -632,7 +639,8 @@ def cmd_federate(args) -> None:
     from attendance_tpu_torch.serve.engine import QueryEngine
     from attendance_tpu_torch.serve.rpc import QueryServer
 
-    config = Config(**_transport_config(args), **_serve_config(args),
+    config = Config(hll_precision=args.hll_precision,
+                    **_transport_config(args), **_serve_config(args),
                     **_fed_config(args), **_telemetry_config(args))
     collector = None
     if config.fleet_port:
@@ -1242,10 +1250,11 @@ def _add_ingress_flags(p: argparse.ArgumentParser) -> None:
                    "its thread backpressures the broker")
     p.add_argument("--lane-decode", choices=["auto", "native", "vector"],
                    default=d.lane_decode,
-                   help="lane JSON decode engine (auto = the native buffer "
-                   "scan, ATP_NATIVE=0 the numpy scan; vector = the numpy "
-                   "scan; native, the JAX package's list scan, is not in "
-                   "the port and raises)")
+                   help="lane JSON decode engine (auto = the CPython list "
+                   "scan, or the native buffer scan where the interpreter "
+                   "has no Python.h, ATP_NATIVE=0 the numpy scan; native = "
+                   "the list scan alone, which raises without Python.h; "
+                   "vector = the numpy scan)")
     p.add_argument("--ingress-wire",
                    choices=["auto", "json", "binary", "columnar", "shm"],
                    default=d.ingress_wire,
@@ -1472,6 +1481,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.replica_sync,
                    help="HLL replica union cadence: per step, or "
                    "deferred to query/snapshot (the default)")
+    f.add_argument("--max-redeliveries", type=int,
+                   default=d.max_redeliveries)
+    f.add_argument("--metrics-json", default=d.metrics_json,
+                   help="append one JSON metrics line per run here")
     _add_ingress_flags(f)
     _add_serve_flags(f)
     _add_fed_flags(f)
@@ -1579,6 +1592,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_chaos_flags(fe)
     _add_serve_flags(fe)
     _add_fed_flags(fe)
+    # The merged view's register width: the gossip of workers run with
+    # the same --hll-precision.
+    fe.add_argument("--hll-precision", type=int,
+                    default=Config().hll_precision)
     fe.add_argument("--serve-seconds", type=float, default=None,
                     help="exit after this long (default: serve until "
                     "interrupted)")

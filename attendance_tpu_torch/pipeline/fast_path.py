@@ -444,6 +444,45 @@ class FusedMetrics:
     def events_per_second(self) -> float:
         return self.events / self.wall_seconds if self.wall_seconds else 0.0
 
+    @property
+    def mean_batch(self) -> float:
+        """Events a frame: every counted frame adds its events and one
+        batch, so this is the mean of the per-frame sizes."""
+        return self.events / self.batches if self.batches else 0.0
+
+    def to_dict(self, estimated_fpr: Optional[float] = None,
+                fpr_is_lower_bound: bool = False) -> Dict:
+        """The metrics line as one flat JSON-serializable dict, for the
+        JSON-lines sink (``config.metrics_json``): the JAX package's
+        ``ProcessorMetrics.to_dict`` keys, order and rounding. The
+        port's ``stage_seconds`` and ``restore_seconds`` stay out."""
+        return {
+            "events": self.events,
+            "batches": self.batches,
+            # null, not 0.0, when no wall clock was measured: a zero
+            # rate reads as a dead run.
+            "events_per_second": round(self.events_per_second, 1)
+            if self.wall_seconds else None,
+            "mean_batch": round(self.mean_batch, 1),
+            "device_seconds": round(self.device_seconds, 6),
+            "wall_seconds": round(self.wall_seconds, 6),
+            "valid_events": self.valid_events,
+            "invalid_events": self.invalid_events,
+            "nacked_batches": self.nacked_batches,
+            "dead_lettered": self.dead_lettered,
+            "estimated_fpr": estimated_fpr,
+            "fpr_is_lower_bound": fpr_is_lower_bound,
+            "wire_dwell": dict(self.wire_dwell),
+            "snapshots": len(self.snapshot_stalls),
+            "snapshot_write_s": round(sum(self.snapshot_stalls), 4),
+            "snapshot_blocked_s": round(self.snapshot_blocked_s, 4),
+        }
+
+    def write_json_line(self, path: str, **to_dict_kwargs) -> None:
+        """Append one JSON metrics line (:meth:`to_dict`) to ``path``."""
+        with open(path, "a") as f:
+            f.write(json.dumps(self.to_dict(**to_dict_kwargs)) + "\n")
+
     def summary(self, estimated_fpr: Optional[float] = None,
                 include_validity: bool = True,
                 fpr_is_lower_bound: bool = False) -> str:
@@ -451,7 +490,7 @@ class FusedMetrics:
         ``ProcessorMetrics.summary``. ``fpr_is_lower_bound`` prints the
         estimate as ">=" (the blocked layout's occupancy formula
         understates its FPR)."""
-        mean_batch = self.events / self.batches if self.batches else 0.0
+        mean_batch = self.mean_batch
         bound = ">= " if fpr_is_lower_bound else ""
         fpr = ("n/a" if estimated_fpr is None
                else f"{bound}{estimated_fpr:.4%}")
@@ -2695,6 +2734,15 @@ class FusedPipeline:
                 self._flush_snapshots()
         self._drain_inflight(block=-1)
         self.metrics.wall_seconds = time.perf_counter() - t_start
+        # No device read here: validity and the FPR estimate stay on the
+        # device until a caller asks (validity_counts, estimated_fpr), so
+        # the metrics line defers both.
+        if logger.isEnabledFor(logging.INFO):
+            logger.info("Fused metrics: %s",
+                        self.metrics.summary(None, include_validity=False))
+        if self.config.metrics_json:
+            self.metrics.write_json_line(self.config.metrics_json,
+                                         fpr_is_lower_bound=True)
         if self._obs is not None:
             self._obs.finalize_slo("run-end")
             self._obs.flush_trace("run-end")

@@ -831,15 +831,18 @@ class SocketClient:
         self._rpc.close()
 
 
-def spawn_broker(*, cwd=None):
+def spawn_broker(*, cwd=None, fleet_push: str = ""):
     """Spawn a standalone broker subprocess on an ephemeral port and
     return ``(proc, addr)`` once its startup line names the address.
-    The caller owns teardown (``proc.kill()``)."""
+    The caller owns teardown (``proc.kill()``). ``fleet_push`` points
+    the broker's telemetry at a fleet collector (role=broker)."""
     import subprocess
     import sys
 
     cmd = [sys.executable, "-m",
            "attendance_tpu_torch.transport.socket_broker", "--port", "0"]
+    if fleet_push:
+        cmd += ["--fleet-push", fleet_push]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, text=True,
         cwd=None if cwd is None else str(cwd))
@@ -867,21 +870,34 @@ def main(argv=None) -> None:
                    "(0 = off, -1 = ephemeral)")
     p.add_argument("--metrics-prom", default="",
                    help="append Prometheus exposition blocks here")
+    p.add_argument("--fleet-push", default="",
+                   help="push this broker's telemetry (queue depths, "
+                   "traffic counters) to a fleet collector at "
+                   "HOST:PORT")
     args = p.parse_args(argv)
-    if args.metrics_port or args.metrics_prom:
+    telemetry = bool(args.metrics_port or args.metrics_prom
+                     or args.fleet_push)
+    if telemetry:
         # Enabled before the broker exists, so its subscriptions
         # register queue-depth gauges as clients subscribe.
         from attendance_tpu_torch import obs
         from attendance_tpu_torch.config import Config
         obs.enable(Config(metrics_port=args.metrics_port,
-                          metrics_prom=args.metrics_prom))
+                          metrics_prom=args.metrics_prom,
+                          fleet_push=args.fleet_push,
+                          fleet_role="broker"))
     server = BrokerServer(host=args.host, port=args.port).start()
     print(f"broker listening on {server.address}", flush=True)
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
+        pass
+    finally:
         server.stop()
+        if telemetry:
+            # Joins the fleet pusher and the metrics server's threads.
+            obs.disable()
 
 
 if __name__ == "__main__":

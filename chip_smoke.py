@@ -41,6 +41,13 @@ Phases (any failure exits non-zero):
      default run the PFCOUNT path is timed (``count(day)`` per lecture
      and ``count_all()``: host wall per call, and apart the K1 launch,
      the D2H copy and the host estimator);
+  3c. (after 3's timed runs) one more default run with ``metrics_json``
+     set: the one JSON metrics line it appends is printed and held
+     (the JAX package's keys in order, 1,048,576 events in 8 frames,
+     ``wire_dwell`` the run's own, ``fpr_is_lower_bound`` true,
+     ``estimated_fpr`` null, a positive rate), its state equal to phase
+     3's default run, and its launches those of one default run: a step
+     launch a frame, one K3, the PFCOUNT's K1;
   2b. (after 3, whose registers it takes) K1 at 1, 16, 256, 512 and 1024
      banks on two fills, 2^20 uniform keys over the banks and the main
      path's 16 live rows repeated to the bank count, held equal to its
@@ -648,6 +655,81 @@ def drive(config, roster, frames, num_events: int):
         producer.send(f)
     pipe.run(max_events=num_events, idle_timeout_s=1.0)
     return pipe
+
+
+# The JSON metrics line's keys, in order: the JAX package's
+# ``ProcessorMetrics.to_dict``.
+METRICS_LINE_KEYS = (
+    "events", "batches", "events_per_second", "mean_batch",
+    "device_seconds", "wall_seconds", "valid_events", "invalid_events",
+    "nacked_batches", "dead_lettered", "estimated_fpr", "fpr_is_lower_bound",
+    "wire_dwell", "snapshots", "snapshot_write_s", "snapshot_blocked_s")
+
+
+def metrics_line_phase(card: str, num_events: int, frame_size: int,
+                       num_lectures: int, ref) -> dict:
+    """Phase 3c: a default run with ``metrics_json`` set in a fresh
+    directory; the line it appends is printed and held, the run's state
+    is held equal to ``ref`` (phase 3's default run). Returns the run's
+    launch counts."""
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_") as work:
+        path = Path(work) / "metrics.jsonl"
+        kernels.reset_launches()
+        pipe, summary = run_with_native(
+            True, Config(metrics_json=str(path)), num_events, frame_size,
+            num_lectures)
+        run_launches = dict(kernels.launches)
+        try:
+            regs = pipe.state.hll_regs.clone()
+            stored = pipe.store.to_columns(deduplicate=False)["is_valid"]
+            wire_dwell = dict(pipe.metrics.wire_dwell)
+        finally:
+            pipe.cleanup()
+        lines = path.read_text().splitlines()
+    check(len(lines) == 1, f"3c: {len(lines)} metrics lines, not 1")
+    line = json.loads(lines[0]) if lines else {}
+    print(f"metrics line (3c): {json.dumps(line)}")
+    frames = num_events // frame_size
+    check(tuple(line) == METRICS_LINE_KEYS,
+          f"3c: keys {list(line)} are not the JAX package's")
+    check(line.get("events") == num_events and line.get("batches") == frames,
+          f"3c: events {line.get('events')} batches {line.get('batches')}")
+    check(line.get("wire_dwell") == wire_dwell
+          and sum(wire_dwell.values()) == frames,
+          f"3c: wire_dwell {line.get('wire_dwell')} vs the run's "
+          f"{wire_dwell}")
+    check(line.get("fpr_is_lower_bound") is True
+          and line.get("estimated_fpr") is None,
+          "3c: the FPR fields are not JAX's deferred pair")
+    rate = line.get("events_per_second")
+    check(isinstance(rate, float) and rate > 0, f"3c: rate {rate}")
+    check(line.get("mean_batch") == round(num_events / frames, 1),
+          f"3c: mean_batch {line.get('mean_batch')}")
+    got = ((summary["valid"], summary["invalid"]),
+           summary["unique_attendees"], regs, stored)
+    check(got[:2] == ref[:2] and torch.equal(got[2], ref[2])
+          and np.array_equal(got[3], ref[3]),
+          "3c: the run differs from phase 3's default run")
+    step_kernels = {STEP_OF_WIRE[w] for w in wire_dwell}
+    steps = sum(run_launches[k] for k in step_kernels)
+    check(steps == frames, f"3c: {steps} step launches for {frames} frames")
+    check(run_launches["bloom_add"] == 1
+          and run_launches["hll_histogram"] == 1,
+          f"3c: K3 {run_launches['bloom_add']} K1 "
+          f"{run_launches['hll_histogram']}, not one each")
+    others = {k: n for k, n in run_launches.items() if n and k not in
+              step_kernels | {"bloom_add", "hll_histogram"}}
+    check(not others, f"3c: launches beyond one default run's: {others}")
+    print(f"metrics line (3c) run: {summary['events_per_second']} events/s "
+          f"(wall {summary['wall_seconds']} s) on {card}; equal to phase "
+          f"3's default run; launches {run_launches}")
+    return run_launches
 
 
 def pfcount_timing(card: str, what: str, cases, reps: int) -> None:
@@ -7211,6 +7293,9 @@ def main() -> int:
                   f"wires {summary['wire_dwell']} launches {run_launches}; "
                   f"step kernel time {device_ms} ms (launches x phase 2c)")
             print(f"{what} host stages (s): {summary['stage_seconds']}")
+
+    # -- 3c. the JSON metrics line of one more default run -------------------
+    metrics_line_phase(card, num_events, frame_size, num_lectures, ref)
 
     # -- 2b. K1 at the PFCOUNT path's bank counts, on two fills (the main
     # path's registers among them, so after phase 3) --------------------------

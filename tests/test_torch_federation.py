@@ -1064,6 +1064,52 @@ def test_federate_cli_smoke(tmp_path, capsys):
     assert "federation aggregator folding" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("precision", [12, 14])
+def test_federate_hll_precision_equals_jax(precision, tmp_path):
+    """``federate --hll-precision P`` folds the gossip of a ``fused
+    --hll-precision 12 --fed-worker`` run: at 12 every frame folds, at
+    the default 14 every frame is a geometry reject, in both packages
+    (JAX's Aggregator reads the field, ``federation/gossip.py:342``)."""
+    from attendance_tpu.cli import main as jax_main
+
+    stats = {}
+    for pkg, main, broker in (("jax", jax_main, jbroker.MemoryBroker),
+                              ("port", cli.main, MemoryBroker)):
+        broker.reset_shared()
+        main(["fused", "--num-events", "8192", "--frame-size", "2048",
+              "--num-lectures", "2", "--bloom-capacity", "8192",
+              "--hll-precision", "12", "--snapshot-dir",
+              str(tmp_path / f"{pkg}-snap"), "--snapshot-every-batches",
+              "1", "--fed-worker", "w5", "--fed-shard", "0",
+              "--fed-shards", "1", "--fed-gossip-topic", "pg",
+              "--fed-heartbeat-s", "0"]
+             + (["--device", "cpu"] if pkg == "port" else []))
+        path = tmp_path / f"{pkg}.json"
+        main(["federate", "--transport-backend", "memory",
+              "--fed-gossip-topic", "pg", "--fed-shards", "1",
+              "--hll-precision", str(precision), "--serve-seconds", "1.0",
+              "--stats-json", str(path), "--stats-every-s", "0.1"])
+        doc = json.loads(path.read_text())
+        doc.pop("serve_address")
+        for w in doc["workers"].values():
+            w.pop("incarnation")
+        stats[pkg] = doc
+        broker.reset_shared()
+    # How many deltas gossip depends on the writer's group commits: the
+    # folded state is compared, not the frame counts.
+    for key in ("events", "workers", "shard_map", "banks", "stale_frames",
+                "recovered_chains"):
+        assert stats["port"][key] == stats["jax"][key], key
+    assert (stats["port"]["geometry_rejects"] > 0) == (
+        stats["jax"]["geometry_rejects"] > 0)
+    if precision == 12:
+        assert stats["port"]["events"] == 8192
+        assert stats["port"]["geometry_rejects"] == 0
+    else:
+        assert stats["port"]["events"] == 0
+        assert stats["port"]["geometry_rejects"] > 0
+
+
 def test_worker_without_a_device_raises_on_a_host_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device exists")

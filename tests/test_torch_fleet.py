@@ -23,6 +23,7 @@ import threading
 import time
 import types
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,6 +43,7 @@ from attendance_tpu_torch.obs.registry import Registry
 from attendance_tpu_torch.obs.tracing import Tracer
 from torch_port_fixtures import fresh_shared_broker  # noqa: F401
 
+REPO = Path(__file__).resolve().parents[1]
 SIDES = {"port": (Registry, Tracer, FleetPusher, FleetCollector),
          "jax": (JRegistry, JTracer, jfleet.FleetPusher,
                  jfleet.FleetCollector)}
@@ -497,3 +499,103 @@ def test_the_pusher_thread_logs_a_failed_render(collector, caplog):
             time.sleep(0.02)
     p._stop.set()
     p._thread.join(timeout=5)
+
+
+# -- the standalone broker's push ---------------------------------------------
+
+def _broker_series(collector):
+    """{(family, labels without role/instance): value} of the samples the
+    collector holds for role="broker"."""
+    from attendance_tpu_torch.obs.exposition import parse_prom
+
+    out = {}
+    for name, labels, value in parse_prom(collector.merged_exposition()):
+        if 'role="broker"' not in labels:
+            continue
+        rest = ",".join(p for p in labels.split(",")
+                        if not p.startswith(("role=", "instance=")))
+        out[(name, rest)] = float(value)
+    return out
+
+
+def _broker_push(side, tmp_path):
+    """A standalone broker process of ``side`` run with ``--fleet-push``
+    at a collector of the same side; 5 messages published, received and
+    acked through that side's socket client. Returns the broker series
+    once the traffic counts have landed."""
+    from attendance_tpu.transport import socket_broker as jsock
+    from attendance_tpu_torch.transport import socket_broker as tsock
+
+    sock = tsock if side == "port" else jsock
+    col = SIDES[side][3](directory=str(tmp_path / side), port=0).start()
+    proc, addr = sock.spawn_broker(cwd=REPO, fleet_push=col.address)
+    try:
+        client = sock.SocketClient(addr)
+        consumer = client.subscribe("t", "s")
+        producer = client.create_producer("t")
+        for i in range(5):
+            producer.send(b"m%d" % i)
+        got = 0
+        deadline = time.monotonic() + 20
+        while got < 5:
+            assert time.monotonic() < deadline
+            consumer.acknowledge(consumer.receive(timeout_millis=5000))
+            got += 1
+        client.close()
+        key = ("attendance_broker_received_messages_total",
+               'subscription="s",topic="t"')
+        deadline = time.monotonic() + 30  # a push every 2 s
+        while _broker_series(col).get(key) != 5:
+            assert time.monotonic() < deadline, _broker_series(col)
+            time.sleep(0.1)
+        series = _broker_series(col)
+        assert col.status()["instances"][
+            f"broker@pid{proc.pid}"]["role"] == "broker"
+        return series
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+        col.stop()
+
+
+def test_broker_fleet_push_equals_jax(tmp_path):
+    """``python -m attendance_tpu_torch.transport.socket_broker --port 0
+    --fleet-push HOST:PORT`` ships the broker's queue-depth and traffic
+    series under role="broker", as JAX's broker does to JAX's
+    collector over the same publishes: the same families and traffic
+    counts."""
+    port = _broker_push("port", tmp_path)
+    jax = _broker_push("jax", tmp_path)
+    # Every sample is a count here: the whole set is equal.
+    assert port == jax
+    labels = 'subscription="s",topic="t"'
+    assert port[("attendance_broker_received_bytes_total", labels)] == 10
+    assert port[("attendance_queue_depth", labels)] == 0
+
+
+def test_broker_stop_leaves_no_pusher_thread(collector, monkeypatch, capsys):
+    """The broker's main, run in-process and stopped by KeyboardInterrupt,
+    stops its server and its telemetry: the final push lands and no
+    ``fleet-pusher`` thread is left."""
+    from attendance_tpu_torch.transport import socket_broker as tsock
+
+    class _Clock:
+        """The module's clock, whose long idle sleep is interrupted."""
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        @staticmethod
+        def sleep(s):
+            if s >= 3600:
+                raise KeyboardInterrupt
+            time.sleep(s)
+
+    monkeypatch.setattr(tsock, "time", _Clock())
+    tsock.main(["--port", "0", "--fleet-push", collector.address])
+    assert "broker listening on" in capsys.readouterr().out
+    assert obs.get() is None
+    assert not [t for t in threading.enumerate()
+                if t.name == "fleet-pusher"]
+    roles = {v["role"] for v in collector.status()["instances"].values()}
+    assert roles == {"broker"}

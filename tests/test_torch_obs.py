@@ -647,3 +647,154 @@ def test_cli_telemetry_verb_prints_the_same_text_as_jax(tmp_path, capsys):
     from attendance_tpu_torch.cli import _follow_file
     assert _follow_file(str(prom), 32, 0.01, max_rounds=2) == 1
     capsys.readouterr()
+
+
+# -- the fused run's metrics line ---------------------------------------------
+
+# The metrics line's timed values (type-checked only); every other value
+# is counted and held equal to JAX's.
+TIMED_KEYS = {"events_per_second", "device_seconds", "wall_seconds",
+              "snapshot_write_s", "snapshot_blocked_s"}
+POISON = b"\x07 not a frame"
+
+
+def _two_runs_with_metrics_json(pkg, tmp_path, case):
+    """Two runs of one package's fused pipeline with ``metrics_json`` set
+    (the first bounded by the stream's events, the second until idle);
+    returns the file's lines."""
+    path = tmp_path / f"{pkg}.jsonl"
+    kw = dict(bloom_filter_capacity=5_000, metrics_json=str(path))
+    if case == "snapshots":
+        kw.update(snapshot_dir=str(tmp_path / f"{pkg}-snap"),
+                  snapshot_every_batches=2)
+    if case == "poison":
+        kw.update(max_redeliveries=1)
+    if pkg == "jax":
+        pipe = _jax_fused(JaxConfig(transport_backend="memory", **kw))
+    else:
+        pipe = _port_fused(Config(**kw))
+    if case == "poison":
+        # Behind the stream: the second run nacks it once, then
+        # dead-letters it on its redelivery.
+        pipe.client.create_producer(pipe.config.pulsar_topic).send(POISON)
+    try:
+        pipe.run(max_events=4_096, idle_timeout_s=0.3)
+        pipe.run(idle_timeout_s=0.3)
+    finally:
+        pipe.cleanup()
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+@pytest.mark.parametrize("case", ["plain", "snapshots", "poison"])
+def test_fused_metrics_json_line_equals_jax(case, tmp_path, monkeypatch,
+                                            caplog):
+    """The counterpart of JAX's
+    ``test_metrics_json_sink_appends_one_line_per_run``: the same frames
+    and two runs through both packages give two lines each, with JAX's
+    keys in JAX's order and equal counted values (tolerance 0); the
+    ``Fused metrics:`` INFO text is JAX's but for the rate and the
+    device seconds."""
+    monkeypatch.setenv("ATP_NATIVE", "0")
+    with caplog.at_level(logging.INFO):
+        jlines = _two_runs_with_metrics_json("jax", tmp_path, case)
+        plines = _two_runs_with_metrics_json("port", tmp_path, case)
+    assert len(jlines) == len(plines) == 2
+    for j, p in zip(jlines, plines):
+        assert list(p) == list(j)
+        for key in j:
+            if key in TIMED_KEYS:
+                assert type(p[key]) is type(j[key]), key
+            else:
+                assert p[key] == j[key], key
+    first = plines[0]
+    assert first["events"] == 4_096 and first["batches"] == 4
+    assert first["events_per_second"] > 0
+    assert first["wire_dwell"] == {"word": 4}
+    assert first["fpr_is_lower_bound"] is True
+    assert first["estimated_fpr"] is None
+    # Validity stays on the device: the line carries the host counters.
+    assert first["valid_events"] == first["invalid_events"] == 0
+    if case == "snapshots":
+        assert plines[1]["snapshots"] > 0
+    if case == "poison":
+        assert [(x["nacked_batches"], x["dead_lettered"])
+                for x in plines] == [(0, 0), (1, 1)]
+    texts = {pkg: [r.getMessage() for r in caplog.records
+                   if r.name == f"{pkg}.pipeline.fast_path"
+                   and r.getMessage().startswith("Fused metrics: ")]
+             for pkg in ("attendance_tpu", "attendance_tpu_torch")}
+    jt, pt = texts["attendance_tpu"], texts["attendance_tpu_torch"]
+    assert len(jt) == len(pt) == 2
+    for a, b in zip(jt, pt):
+        assert b.split("(")[0] == a.split("(")[0]
+        assert b.split("est. bloom FPR")[1] == a.split("est. bloom FPR")[1]
+        assert "validity in store (async)" in b
+
+
+def test_metrics_line_rate_is_null_without_a_wall_clock():
+    """``to_dict`` of counters no run timed equals JAX's: a null rate,
+    the mean of the frame sizes rounded to one place."""
+    from attendance_tpu.pipeline.processor import ProcessorMetrics
+    from attendance_tpu_torch.pipeline.fast_path import FusedMetrics
+
+    ours, theirs = FusedMetrics(events=10, batches=3), ProcessorMetrics(
+        events=10, batches=3, batch_sizes=[4, 3, 3])
+    assert ours.to_dict() == theirs.to_dict()
+    assert ours.to_dict()["events_per_second"] is None
+    assert ours.to_dict()["mean_batch"] == 3.3
+    assert FusedMetrics().to_dict() == ProcessorMetrics().to_dict()
+
+
+def test_failed_metrics_line_append_raises(tmp_path):
+    """A metrics line that cannot be appended fails the run (as the
+    processor's sink does), after the run's frames were handled."""
+    config = Config(bloom_filter_capacity=5_000,
+                    metrics_json=str(tmp_path / "no-such-dir" / "m.jsonl"))
+    pipe = _port_fused(config)
+    try:
+        with pytest.raises(OSError):
+            pipe.run(max_events=4_096, idle_timeout_s=0.3)
+        assert pipe.metrics.events == 4_096
+    finally:
+        pipe.cleanup()
+
+
+@pytest.mark.parametrize("redeliveries", [0, 1])
+def test_fused_verb_max_redeliveries_and_metrics_json_equal_jax(
+        redeliveries, tmp_path, monkeypatch):
+    """``fused --max-redeliveries N --metrics-json F`` with one
+    undecodable frame published ahead of the verb's stream: both
+    packages nack it N times in the run (its redelivery waits behind the
+    stream) or, at 0, dead-letter it at once, and write equal lines."""
+    from attendance_tpu.transport.memory_broker import (
+        MemoryBroker as JaxBroker, MemoryClient as JaxClient)
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    monkeypatch.setenv("ATP_NATIVE", "0")
+    args = ["fused", "--num-events", "8192", "--frame-size", "2048",
+            "--num-lectures", "2", "--bloom-capacity", "8192",
+            "--max-redeliveries", str(redeliveries)]
+    lines = {}
+    for pkg, main, broker, client in (
+            ("jax", jax_main, JaxBroker, JaxClient),
+            ("port", port_main, MemoryBroker, MemoryClient)):
+        broker.reset_shared()
+        client(broker.shared()).create_producer(
+            Config().pulsar_topic).send(POISON)
+        path = tmp_path / f"{pkg}.jsonl"
+        main(args + ["--metrics-json", str(path)]
+             + (["--device", "cpu"] if pkg == "port" else []))
+        lines[pkg] = [json.loads(x) for x in path.read_text().splitlines()]
+        broker.reset_shared()
+    assert len(lines["jax"]) == len(lines["port"]) == 1
+    j, p = lines["jax"][0], lines["port"][0]
+    assert list(p) == list(j)
+    for key in j:
+        if key in TIMED_KEYS:
+            assert type(p[key]) is type(j[key]), key
+        else:
+            assert p[key] == j[key], key
+    assert p["events"] == 8192
+    assert (p["nacked_batches"], p["dead_lettered"]) == (
+        (1, 0) if redeliveries else (0, 1))
