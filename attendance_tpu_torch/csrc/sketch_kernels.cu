@@ -81,7 +81,10 @@
 //                         scatter, sharded.py:323)
 //   K12 atp_decode_seg, atp_decode_delta  a narrow wire's lanes alone, as
 //                         key and bank arrays, for the mesh engine's K9
-//                         and K10: K2-seg's and K2-delta's decode
+//                         and K10: several lanes a thread, a short header
+//                         searched in registers; the delta wire in one
+//                         launch with a decoupled look-back, or K2-delta's
+//                         two-pass decode where that is faster
 //                         (replaces decode_seg_lanes / decode_delta_lanes,
 //                         attendance_tpu/models/fused.py:292,416, in
 //                         make_step_narrow, parallel/sharded.py:446)
@@ -95,6 +98,7 @@
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
+
 
 namespace {
 
@@ -339,14 +343,14 @@ hll_histogram_kernel(const uint8_t* __restrict__ regs, int m, int num_bins,
 // ---------------------------------------------------------------------------
 
 // Exclusive prefix sum over t in [0, count) of in(t) into out[0, count)
-// (shared memory), and the total into out[count], by one whole CTA; each
-// thread reads its in(t) once.
-template <typename In>
+// (shared memory), and the total into out[count], by one whole CTA of
+// Threads threads; each thread reads its in(t) once.
+template <int Threads = kThreads, typename In>
 __device__ void cta_exclusive_scan(In in, int count, uint32_t* out) {
-  __shared__ uint32_t warp_sums[kWarps];
+  __shared__ uint32_t warp_sums[Threads / 32];
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int warp = static_cast<int>(threadIdx.x >> 5);
-  const int per = (count + kThreads - 1) / kThreads;
+  const int per = (count + Threads - 1) / Threads;
   const int lo = min(count, static_cast<int>(threadIdx.x) * per);
   const int hi = min(count, lo + per);
   uint32_t sum = 0u;
@@ -370,7 +374,7 @@ __device__ void cta_exclusive_scan(In in, int count, uint32_t* out) {
     out[t] = run;
     run += v;
   }
-  if (threadIdx.x == kThreads - 1) out[count] = base + incl;
+  if (threadIdx.x == Threads - 1) out[count] = base + incl;
   __syncthreads();  // out is whole and warp_sums free for the next scan
 }
 
@@ -461,24 +465,25 @@ __device__ __forceinline__ int32_t upper_bank(const uint32_t* starts, int lo,
   return lo;
 }
 
-// The narrow wires' bank decode, by the whole CTA: scan the wire's
-// per-bank counts into starts[0..num_banks] (dynamic shared memory;
-// starts[num_banks] is the frame's total), then threads 0 and 32 search
-// the banks of the tile's first and last real lane. Lanes are sorted by
-// bank, so the tile's lanes t0 .. t0 + 255 cover a contiguous run of
-// banks, usually one (the main path's frame holds about 8,192 lanes a
-// bank), and a lane's own search between the two makes no compare when
-// they are equal. Returns (first bank, last bank); (0, 0) for a tile with
-// no real lane.
+// The narrow wires' bank decode, by the whole CTA of Threads threads:
+// scan the wire's per-bank counts into starts[0..num_banks] (dynamic
+// shared memory; starts[num_banks] is the frame's total), then threads 0
+// and 32 search the banks of the tile's first and last real lane. Lanes
+// are sorted by bank, so the tile's lanes t0 .. t0 + Tile - 1 cover a
+// contiguous run of banks, usually one (the main path's frame holds about
+// 8,192 lanes a bank), and a lane's own search between the two makes no
+// compare when they are equal. Returns (first bank, last bank); (0, 0)
+// for a tile with no real lane.
+template <int Threads = kThreads, int Tile = kThreads>
 __device__ __forceinline__ int2 tile_banks(const uint32_t* __restrict__ counts,
                                            int num_banks, uint32_t t0,
                                            uint32_t* starts) {
   __shared__ int range[2];
-  cta_exclusive_scan([=](int t) { return __ldg(counts + t); }, num_banks,
-                     starts);
+  cta_exclusive_scan<Threads>([=](int t) { return __ldg(counts + t); },
+                              num_banks, starts);
   const uint32_t total = starts[num_banks];
   if (threadIdx.x == 0 || threadIdx.x == 32) {
-    const uint32_t at = threadIdx.x == 0 ? t0 : min(t0 + kThreads, total) - 1u;
+    const uint32_t at = threadIdx.x == 0 ? t0 : min(t0 + Tile, total) - 1u;
     range[threadIdx.x >> 5] =
         t0 < total ? upper_bank(starts, 0, num_banks, at) : 0;
   }
@@ -751,15 +756,8 @@ fused_step_kernel(Decode decode, int lanes,
   cta_add_counts(hit && real, !hit && real, counts);
 }
 
-// K12: a narrow wire's lanes alone, keys[i] and bank[i] (-1 on padding,
-// the real lanes first, as packed), for the mesh engine: K2's decode
-// (SegDecode or DeltaDecode, unchanged) without the probe and the add, so
-// that a replica's frame is decoded once on each device that holds its
-// cells and K9 and K10 run on the arrays (a decode templated into K9 and
-// K10 decodes it 2 sp times: 1.2-1.9x slower a replica on an NVIDIA H100
-// 80GB HBM3 at 700 W, PERF.md). Bound:
-// bytes, the wire's header and kb or db bits a lane read, 8 bytes a lane
-// written.
+// K12-delta's two-pass design: K2-delta's decode (DeltaDecode, unchanged)
+// alone, after K2-delta's pass 1 (see atp_decode_delta).
 template <class Decode>
 __global__ void __launch_bounds__(kThreads)
 decode_lanes_kernel(Decode decode, int lanes, uint32_t* __restrict__ keys,
@@ -771,6 +769,588 @@ decode_lanes_kernel(Decode decode, int lanes, uint32_t* __restrict__ keys,
     keys[i] = key;
     bank[i] = b;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K12: a narrow wire's lanes alone, keys[i] and bank[i] (-1 on padding, the
+// real lanes first, as packed), for the mesh engine: a replica's frame is
+// decoded once on each device that holds its cells, and K9 and K10 run on
+// the arrays (a decode templated into K9 and K10 decodes it 2 sp times:
+// 1.2-1.9x slower a replica on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md). Bound: bytes, the wire's header and kb or db bits a lane read
+// once, 8 bytes a lane written: about 0.2 us at a (4, 2) replica's 65,536
+// lanes, 3 us at 1,048,576. At the mesh's shapes what costs is the chain
+// before the first store: the launch, the header's load and search, and
+// for K12-delta the carry from the tiles before. So each thread decodes 2
+// or 4 consecutive lanes (their fields from at most 3 or 5 words, one bank
+// search, 8- or 16-byte stores), a header of up to 32 banks is searched in
+// registers (SmallHeader), and K12-delta runs in one launch with a
+// decoupled look-back (LookbackCarry) wherever that beats K2-delta's
+// two-pass decode (decode_delta_plan, ops/kernels.py). Measured and not
+// kept (PERF.md): a single thread-block cluster of up to 16 CTAs exchanging
+// tile sums in distributed shared memory (its 16 SMs do all the work), and
+// CTAs that re-sum the deltas before their tile (the work grows with a
+// bank's length).
+// ---------------------------------------------------------------------------
+
+// Lanes i .. i + n - 1 (n <= 4) of a little-endian bitstream of `width`-bit
+// fields (1 <= width <= 32): four fields from any bit offset lie in at most
+// 5 words, loaded once (through the last present lane's second word only,
+// so the wire's guard words cover the tail) and cut with funnel shifts.
+// Fields at or past n are undefined.
+__device__ __forceinline__ void fields4(const uint32_t* __restrict__ stream,
+                                        int i, int width, int n,
+                                        uint32_t (&out)[4]) {
+  const uint64_t bit = static_cast<uint64_t>(i) * static_cast<uint64_t>(width);
+  const uint32_t* p = stream + (bit >> 5);
+  const uint32_t sh = static_cast<uint32_t>(bit & 31u);
+  const int nw =
+      n > 0 ? static_cast<int>(
+                  (sh + static_cast<uint32_t>((n - 1) * width)) >> 5) + 2
+            : 0;
+  uint32_t w[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) w[j] = j < nw ? __ldg(p + j) : 0u;
+  const uint32_t mask = width >= 32 ? 0xFFFFFFFFu : (1u << width) - 1u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t b = sh + static_cast<uint32_t>(j * width);  // < 128
+    uint32_t lo = w[0];
+    uint32_t hi = w[1];
+#pragma unroll
+    for (int x = 1; x < 4; ++x) {
+      if ((b >> 5) == static_cast<uint32_t>(x)) {
+        lo = w[x];
+        hi = w[x + 1];
+      }
+    }
+    out[j] = __funnelshift_r(lo, hi, b) & mask;
+  }
+}
+
+// The fields of lanes i0 .. i0 + L - 1, of which the first n are present;
+// 0 for the others.
+template <int L>
+__device__ __forceinline__ void load_fields(const uint32_t* __restrict__ stream,
+                                            int i0, int width, int n,
+                                            uint32_t (&out)[L]) {
+  constexpr int kG = L < 4 ? L : 4;
+#pragma unroll
+  for (int g = 0; g < L; g += kG) {
+    uint32_t f[4];
+    fields4(stream, i0 + g, width, max(0, min(kG, n - g)), f);
+#pragma unroll
+    for (int j = 0; j < kG; ++j) out[g + j] = g + j < n ? f[j] : 0u;
+  }
+}
+
+// Lane i's bank from the bank b of an earlier real lane of its tile (or
+// the tile's first bank): b while i stays below b's end, else the search
+// from b + 1 to the tile's last bank hi.
+__device__ __forceinline__ int32_t next_bank(const uint32_t* starts, int32_t b,
+                                             int hi, uint32_t i) {
+  return starts[b + 1] > i ? b : upper_bank(starts, b + 1, hi, i);
+}
+
+// The wire's header (per-bank counts, and on the delta wire per-bank
+// bases) as the K12 kernels read it. Every method is called by all threads
+// of the CTA, with any lane index i (the bank of a lane at or past the
+// total is not used).
+//
+// SmallHeader, at most 32 banks (the mesh's 16): each warp loads the
+// counts, a bank a lane, scans them with shuffles and finds a lane's bank
+// by a five-step binary search over shuffles; bases likewise, a bank a
+// lane. No shared memory and no barrier: the header costs one load and a
+// few shuffles, where a CTA-wide scan costs two barriers and a search
+// behind a third, on the path of every lane.
+struct SmallHeader {
+  uint32_t end_, start_, total_, base_;
+
+  template <int T, int Tile>
+  __device__ __forceinline__ void init(const uint32_t* __restrict__ counts,
+                                       int num_banks, uint32_t, uint32_t*) {
+    const int lane = static_cast<int>(threadIdx.x & 31);
+    const uint32_t c = lane < num_banks ? __ldg(counts + lane) : 0u;
+    uint32_t e = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, e, off);
+      if (lane >= off) e += y;
+    }
+    end_ = e;
+    start_ = e - c;
+    total_ = __shfl_sync(0xFFFFFFFFu, e, 31);
+    base_ = 0u;
+  }
+  __device__ __forceinline__ uint32_t total() const { return total_; }
+  __device__ __forceinline__ int32_t first() const { return 0; }
+  // The number of banks that end at or before i (a real lane's bank); a
+  // lane's search does not wait on the lane before it.
+  __device__ __forceinline__ int32_t bank(uint32_t i, int32_t) const {
+    int b = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(0xFFFFFFFFu, end_, b + step - 1) <= i) b += step;
+    }
+    return min(b, 31);
+  }
+  __device__ __forceinline__ uint32_t start_of(int32_t b) const {
+    return __shfl_sync(0xFFFFFFFFu, start_, b);
+  }
+  __device__ __forceinline__ void load_bases(const uint32_t* __restrict__ bases,
+                                             int num_banks) {
+    const int lane = static_cast<int>(threadIdx.x & 31);
+    base_ = lane < num_banks ? __ldg(bases + lane) : 0u;
+  }
+  __device__ __forceinline__ uint32_t base_of(int32_t b) const {
+    return __shfl_sync(0xFFFFFFFFu, base_, b);
+  }
+  __device__ __forceinline__ uint32_t base0() const { return base_of(0); }
+};
+
+// SharedHeader, any number of banks up to NARROW_MAX_BANKS: the CTA scans
+// the counts into shared memory (tile_banks) and each lane walks its
+// banks there from one search (next_bank); the tile's first and last
+// banks' bases are loaded once, others as a lane meets them.
+struct SharedHeader {
+  const uint32_t* starts_;
+  const uint32_t* bases_;
+  int2 r_;
+  uint32_t total_, base_x_, base_y_, base0_;
+
+  template <int T, int Tile>
+  __device__ __forceinline__ void init(const uint32_t* __restrict__ counts,
+                                       int num_banks, uint32_t t0,
+                                       uint32_t* starts) {
+    r_ = tile_banks<T, Tile>(counts, num_banks, t0, starts);
+    starts_ = starts;
+    total_ = starts[num_banks];
+  }
+  __device__ __forceinline__ uint32_t total() const { return total_; }
+  __device__ __forceinline__ int32_t first() const { return r_.x; }
+  __device__ __forceinline__ int32_t bank(uint32_t i, int32_t hint) const {
+    return i < total_ ? next_bank(starts_, hint, r_.y, i) : hint;
+  }
+  __device__ __forceinline__ uint32_t start_of(int32_t b) const {
+    return starts_[b];
+  }
+  __device__ __forceinline__ void load_bases(const uint32_t* __restrict__ bases,
+                                             int) {
+    bases_ = bases;
+    base_x_ = __ldg(bases + r_.x);
+    base_y_ = __ldg(bases + r_.y);
+    base0_ = __ldg(bases);
+  }
+  __device__ __forceinline__ uint32_t base_of(int32_t b) const {
+    return b == r_.x ? base_x_ : b == r_.y ? base_y_ : __ldg(bases_ + b);
+  }
+  __device__ __forceinline__ uint32_t base0() const { return base0_; }
+};
+
+// keys[i0 + j] and bank[i0 + j] for the lanes j < L below `lanes` (rem =
+// lanes - i0, any int): 16-byte stores (8-byte at L = 2) when all L are.
+// (rem is tested as it comes: a count clamped to [0, L] and compared
+// with L was compiled by nvcc 12.9 into a vector store for every count.)
+template <int L>
+__device__ __forceinline__ void store_lanes(uint32_t* __restrict__ keys,
+                                            int32_t* __restrict__ bank,
+                                            int i0, int rem,
+                                            const uint32_t (&k)[L],
+                                            const int32_t (&b)[L]) {
+  if (rem >= L) {
+    if constexpr (L == 2) {
+      *reinterpret_cast<uint2*>(keys + i0) = make_uint2(k[0], k[1]);
+      *reinterpret_cast<int2*>(bank + i0) = make_int2(b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int g = 0; g < L; g += 4) {
+        *reinterpret_cast<uint4*>(keys + i0 + g) =
+            make_uint4(k[g], k[g + 1], k[g + 2], k[g + 3]);
+        *reinterpret_cast<int4*>(bank + i0 + g) =
+            make_int4(b[g], b[g + 1], b[g + 2], b[g + 3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (j < rem) {
+        keys[i0 + j] = k[j];
+        bank[i0 + j] = b[j];
+      }
+    }
+  }
+}
+
+// K12-seg: one launch of CTAs of T threads, L lanes a thread. Each thread
+// issues its lanes' word loads, reads the header (Header) and walks its
+// lanes' banks from one search. A padding lane keeps the key its bits hold
+// and bank -1.
+template <int T, int L, class Header>
+__global__ void __launch_bounds__(T)
+decode_seg_kernel(const uint32_t* __restrict__ buf, int num_banks, int kb,
+                  int lanes, uint32_t* __restrict__ keys,
+                  int32_t* __restrict__ bank) {
+  extern __shared__ uint32_t starts[];
+  constexpr int kTile = T * L;
+  const uint32_t t0 = blockIdx.x * static_cast<uint32_t>(kTile);
+  const int i0 = static_cast<int>(t0) + static_cast<int>(threadIdx.x) * L;
+  const int n = max(0, min(L, lanes - i0));
+  uint32_t k[L];
+  load_fields<L>(buf + num_banks, i0, kb, n, k);  // in flight
+  Header hdr;
+  hdr.template init<T, kTile>(buf, num_banks, t0, starts);
+  const uint32_t total = hdr.total();
+  int32_t b[L];
+  int32_t cur = hdr.first();
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const uint32_t i = static_cast<uint32_t>(i0 + j);
+    cur = hdr.bank(i, cur);
+    b[j] = j < n && i < total ? cur : -1;
+  }
+  store_lanes<L>(keys, bank, i0, lanes - i0, k, b);
+}
+
+// K12-delta's scan element: v the delta sum since the last head (a
+// bank's first lane) of a run of lanes, f whether the run holds a head,
+// p its plain delta sum. a before b: a + b = (b.f ? b.v : a.v + b.v,
+// a.f | b.f, a.p + b.p).
+struct ScanPart {
+  uint32_t v, f, p;
+};
+
+__device__ __forceinline__ ScanPart scan_combine(ScanPart a, ScanPart b) {
+  return {b.f ? b.v : a.v + b.v, a.f | b.f, a.p + b.p};
+}
+
+// Inclusive scan of x over the warp's lanes in lane order.
+__device__ __forceinline__ ScanPart warp_scan(ScanPart x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    ScanPart y;
+    y.v = __shfl_up_sync(0xFFFFFFFFu, x.v, off);
+    y.f = __shfl_up_sync(0xFFFFFFFFu, x.f, off);
+    y.p = __shfl_up_sync(0xFFFFFFFFu, x.p, off);
+    if (lane >= off) x = scan_combine(y, x);
+  }
+  return x;
+}
+
+// The carry between K12-delta's tiles: a single-pass decoupled
+// look-back over status words in a scratch that the wrapper
+// keeps per device. state[0] is the epoch of the last finished call; the
+// call's epoch is the next one (1 .. 2^30 - 1, so a zeroed scratch holds
+// none). Each tile has 32 bytes of status, 64-bit words of value | epoch
+// << 34 | head << 33: its aggregate, segmented then plain (written once,
+// in one 16-byte store), then its inclusive segmented prefix (written
+// once, later); a word of another epoch is not yet written. Tiles are
+// taken in blockIdx order. state[1] counts the CTAs that have read the
+// epoch; the last of them advances state[0] and resets the count as it
+// exits. No memset runs between calls, CUDA graph replays included.
+constexpr uint64_t kStatusHead = 1ull << 33;
+constexpr uint32_t kEpochs = (1u << 30) - 1u;
+
+__device__ __forceinline__ uint64_t status_word(uint32_t value, uint32_t epoch,
+                                                bool head) {
+  return value | (static_cast<uint64_t>(epoch) << 34) |
+         (head ? kStatusHead : 0ull);
+}
+
+__device__ __forceinline__ bool status_of(uint64_t w, uint32_t epoch) {
+  return static_cast<uint32_t>(w >> 34) == epoch;
+}
+
+// A tile's status: its aggregate words (one load) and its inclusive word.
+struct TileStatus {
+  uint64_t seg, plain, incl;
+};
+
+__device__ __forceinline__ void load_status(const uint64_t* p, TileStatus* s) {
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(s->seg), "=l"(s->plain) : "l"(p) : "memory");
+  asm volatile("ld.volatile.global.u64 %0, [%1];"
+               : "=l"(s->incl) : "l"(p + 2) : "memory");
+}
+
+// Spins until tile p's aggregate is of this epoch (its inclusive word may
+// still be missing); traps (a launch fault the wrapper's caller sees)
+// rather than spin for ever on a word that is never written.
+__device__ __forceinline__ void await_status(const uint64_t* p, uint32_t epoch,
+                                             TileStatus* s) {
+  uint32_t spins = 0u;
+  while (!status_of(s->seg, epoch) || !status_of(s->plain, epoch)) {
+    if (++spins == (1u << 26)) __trap();
+    load_status(p, s);
+  }
+}
+
+// Whether the segmented sum stops at this tile (it holds a head, or its
+// inclusive prefix is written), and what the tile adds to it.
+__device__ __forceinline__ bool seg_stop(const TileStatus& s, uint32_t epoch) {
+  return (s.seg & kStatusHead) != 0ull || status_of(s.incl, epoch);
+}
+
+__device__ __forceinline__ uint32_t seg_value(const TileStatus& s,
+                                              uint32_t epoch) {
+  return static_cast<uint32_t>((s.seg & kStatusHead) != 0ull ||
+                                       !status_of(s.incl, epoch)
+                                   ? s.seg
+                                   : s.incl);
+}
+
+// The sum (the max) of every thread's x across the CTA, to every thread;
+// red: 32 words of shared memory, free again on return.
+__device__ __forceinline__ uint32_t cta_sum(uint32_t x, uint32_t* red) {
+  x = __reduce_add_sync(0xFFFFFFFFu, x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = 0u;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) x += red[w];
+  __syncthreads();
+  return x;
+}
+
+__device__ __forceinline__ int cta_max(int x, uint32_t* red) {
+  x = __reduce_max_sync(0xFFFFFFFFu, x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = static_cast<uint32_t>(x);
+  __syncthreads();
+  x = -1;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    x = max(x, static_cast<int>(red[w]));
+  }
+  __syncthreads();
+  return x;
+}
+
+struct LookbackCarry {
+  uint32_t* state;
+
+  // Thread 0 reads the epoch, then counts its CTA among the readers (its
+  // value is stored before the count, so it has been read).
+  __device__ __forceinline__ uint32_t begin(uint32_t* epoch) const {
+    uint32_t ticket = 0u;
+    if (threadIdx.x == 0) {
+      *epoch = *reinterpret_cast<const volatile uint32_t*>(state) % kEpochs + 1u;
+      ticket = atomicAdd(state + 1, 1u);
+    }
+    return ticket;
+  }
+
+  // The segmented sum stops at the first tile back that holds a head or
+  // whose inclusive prefix is written. Warp 0 reads the 32 tiles before
+  // this one, a lane each (enough at the mesh's 16 banks: a head a few
+  // tiles back); past them (a bank over many tiles) the whole CTA reads
+  // every earlier tile at once, a few each, finds the latest stop and
+  // adds the aggregates after it (written once, so the two reads agree),
+  // two trips to L2 and not one each 32 tiles. A tile that holds a
+  // padding lane also needs the plain sum of every tile before it, read
+  // the same way.
+  __device__ __forceinline__ ScanPart exchange(ScanPart total, int tile,
+                                               const uint32_t* epoch_s,
+                                               bool pads) const {
+    constexpr int kBatch = 4;  // tiles a thread has in flight
+    __shared__ uint32_t seg_in, more;
+    __shared__ uint32_t red[32];
+    uint64_t* status = reinterpret_cast<uint64_t*>(state + 4);
+    const uint32_t epoch = *epoch_s;
+    const int tid = static_cast<int>(threadIdx.x);
+    const int lane = tid & 31;
+    const int nt = static_cast<int>(blockDim.x);
+    if (tid == 0) {
+      asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(
+                       status + 4 * tile),
+                   "l"(status_word(total.v, epoch, total.f != 0u)),
+                   "l"(status_word(total.p, epoch, false))
+                   : "memory");
+    }
+    if (tid < 32) {
+      uint32_t sv = 0u;
+      unsigned m = 1u;
+      if (tile > 0) {
+        const int j = tile - 1 - lane;
+        TileStatus st{kStatusHead, 0ull, 0ull};  // before tile 0: a stop
+        if (j >= 0) {
+          load_status(status + 4 * j, &st);
+          await_status(status + 4 * j, epoch, &st);
+        }
+        m = __ballot_sync(0xFFFFFFFFu, seg_stop(st, epoch));
+        const int last = m ? __ffs(m) - 1 : 31;
+        sv = __reduce_add_sync(0xFFFFFFFFu,
+                               lane <= last ? seg_value(st, epoch) : 0u);
+      }
+      if (lane == 0) {
+        seg_in = sv;
+        more = m == 0u;
+      }
+    }
+    __syncthreads();
+    if (more) {  // no stop in the 32 tiles before: tiles [0, top)
+      const int top = tile - 32;
+      int stop = -1;
+      for (int j0 = top - 1 - tid; j0 >= 0; j0 -= kBatch * nt) {
+        TileStatus st[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          if (j0 - q * nt >= 0) load_status(status + 4 * (j0 - q * nt), &st[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int j = j0 - q * nt;
+          if (j >= 0) {
+            await_status(status + 4 * j, epoch, &st[q]);
+            if (seg_stop(st[q], epoch)) stop = max(stop, j);
+          }
+        }
+      }
+      // No stop (-1): the sum runs from tile 0, whose aggregate is its
+      // inclusive prefix.
+      stop = cta_max(stop, red);
+      uint32_t add = 0u;
+      for (int j = top - 1 - tid; j >= max(stop, 0); j -= nt) {
+        TileStatus st;
+        load_status(status + 4 * j, &st);  // written
+        // The stop tile's inclusive word, when it holds no head, was
+        // written before the first read saw it.
+        add += j == stop ? seg_value(st, epoch)
+                         : static_cast<uint32_t>(st.seg);
+      }
+      add = cta_sum(add, red);
+      if (tid == 0) seg_in += add;
+      __syncthreads();
+    }
+    const uint32_t sv = seg_in;
+    if (tid == 0) {
+      asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(status + 4 * tile +
+                                                              2),
+                   "l"(status_word(total.f ? total.v : sv + total.v, epoch,
+                                   false))
+                   : "memory");
+    }
+    uint32_t pv = 0u;
+    if (pads) {
+      for (int j0 = tid; j0 < tile; j0 += kBatch * nt) {
+        TileStatus st[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          if (j0 + q * nt < tile) load_status(status + 4 * (j0 + q * nt), &st[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int j = j0 + q * nt;
+          if (j < tile) {
+            await_status(status + 4 * j, epoch, &st[q]);
+            pv += static_cast<uint32_t>(st[q].plain);
+          }
+        }
+      }
+      pv = cta_sum(pv, red);
+    }
+    return ScanPart{sv, tile > 0 ? 1u : 0u, pv};
+  }
+
+  // The last CTA to read the epoch makes it the last finished call's.
+  __device__ __forceinline__ void end(uint32_t ticket,
+                                      const uint32_t* epoch_s) const {
+    if (threadIdx.x == 0 && ticket == gridDim.x - 1u) {
+      state[1] = 0u;
+      state[0] = *epoch_s;
+    }
+  }
+};
+
+// K12-delta in one launch: CTAs of T threads, L consecutive lanes a
+// thread, a tile of T x L lanes a CTA. Each thread loads its lanes'
+// deltas and finds their banks and heads (Header), then scans them
+// serially in registers (segmented: restarted at each bank's first lane;
+// and plain); the thread totals are scanned across the warp with shuffles
+// and across the CTA's warps from shared memory; the look-back brings the
+// tile's carry from the tiles before it. A real lane's key is its bank's
+// base plus its segmented prefix; a padding lane's bank 0's base plus its
+// plain prefix (as DeltaDecode).
+template <int T, int L, class Header>
+__global__ void __launch_bounds__(T)
+decode_delta_scan_kernel(const uint32_t* __restrict__ buf, int num_banks,
+                         int db, int lanes, uint32_t* __restrict__ keys,
+                         int32_t* __restrict__ bank, LookbackCarry carry) {
+  constexpr int kW = T / 32;
+  constexpr int kTile = T * L;
+  extern __shared__ uint32_t starts[];
+  __shared__ ScanPart warp_part[kW];
+  __shared__ uint32_t epoch;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile = static_cast<int>(blockIdx.x);
+  const uint32_t t0 = static_cast<uint32_t>(tile) * kTile;
+  const int i0 = static_cast<int>(t0) + tid * L;
+  const int n = max(0, min(L, lanes - i0));
+  const uint32_t ticket = carry.begin(&epoch);
+  uint32_t d[L];
+  load_fields<L>(buf + 2 * num_banks, i0, db, n, d);  // in flight
+  Header hdr;
+  hdr.template init<T, kTile>(buf, num_banks, t0, starts);
+  hdr.load_bases(buf + num_banks, num_banks);  // in flight
+  const uint32_t total = hdr.total();
+
+  // Each lane's bank (-1 past the real lanes) and head bit, and the
+  // thread's totals.
+  ScanPart mine{0u, 0u, 0u};
+  int32_t b[L];
+  uint32_t heads = 0u;
+  int32_t cur = hdr.first();
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const uint32_t i = static_cast<uint32_t>(i0 + j);
+    const bool real = j < n && i < total;
+    cur = hdr.bank(i, cur);
+    const uint32_t start = hdr.start_of(cur);  // every lane: a shuffle
+    const bool head = real && start == i;
+    b[j] = real ? cur : -1;
+    heads |= head ? 1u << j : 0u;
+    mine.v = head ? d[j] : mine.v + d[j];
+    mine.f |= head ? 1u : 0u;
+    mine.p += d[j];
+  }
+  const ScanPart incl = warp_scan(mine, lane);
+  if (lane == 31) warp_part[warp] = incl;
+  __syncthreads();
+  // The warps before this one, and the tile's total.
+  ScanPart before{0u, 0u, 0u};
+  ScanPart tile_total{0u, 0u, 0u};
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const ScanPart y = warp_part[w];
+    if (w < warp) before = scan_combine(before, y);
+    tile_total = scan_combine(tile_total, y);
+  }
+  const bool pads = min(t0 + kTile, static_cast<uint32_t>(lanes)) > total;
+  const ScanPart in = carry.exchange(tile_total, tile, &epoch, pads);
+
+  // The thread's exclusive prefix: the tile's carry, the warps before its
+  // own, the lanes of its warp before it.
+  ScanPart x = scan_combine(in, before);
+  ScanPart lane_in;
+  lane_in.v = __shfl_up_sync(0xFFFFFFFFu, incl.v, 1);
+  lane_in.f = __shfl_up_sync(0xFFFFFFFFu, incl.f, 1);
+  lane_in.p = __shfl_up_sync(0xFFFFFFFFu, incl.p, 1);
+  if (lane > 0) x = scan_combine(x, lane_in);
+
+  // The keys: a real lane's its bank's base plus its segmented prefix, a
+  // padding lane's bank 0's base plus its plain prefix.
+  const uint32_t base0 = hdr.base0();
+  uint32_t v = x.v;
+  uint32_t p = x.p;
+  uint32_t k[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const uint32_t dj = d[j];
+    const uint32_t base = hdr.base_of(b[j] < 0 ? 0 : b[j]);
+    v = (heads >> j) & 1u ? dj : v + dj;
+    k[j] = b[j] >= 0 ? base + v : base0 + p + dj;
+    p += dj;
+  }
+  store_lanes<L>(keys, bank, i0, lanes - i0, k, b);
+  carry.end(ticket, &epoch);
 }
 
 // ---------------------------------------------------------------------------
@@ -1738,14 +2318,14 @@ inline size_t counts_smem(int wire_banks) {
   return sizeof(uint32_t) * (static_cast<size_t>(wire_banks) + 1);
 }
 
-// A kernel of one thread a lane over `lanes` lanes, with `smem` bytes of
-// dynamic shared memory (a narrow wire's decode). `dependent`: launched
-// as a programmatic dependent of the kernel before it on the stream
-// (K2-delta's step and K12-delta after pass 1), so that its CTAs may
-// start while that kernel runs.
+// A kernel of `ctas` CTAs of `threads` threads with `smem` bytes of
+// dynamic shared memory (a narrow wire's decode). `dependent`: launched as
+// a programmatic dependent of the kernel before it on the stream
+// (K2-delta's step and K12-delta's two-pass decode after pass 1), so that
+// its CTAs may start while that kernel runs.
 template <class... Params, class... Args>
-int launch_lanes(void (*kernel)(Params...), int lanes, size_t smem,
-                 bool dependent, cudaStream_t s, Args... args) {
+int launch_grid(void (*kernel)(Params...), int ctas, int threads, size_t smem,
+                bool dependent, cudaStream_t s, Args... args) {
   cudaError_t err = cudaSuccess;
   if (smem > kSmemNoOptIn) {
     err = cudaFuncSetAttribute(kernel,
@@ -1757,8 +2337,8 @@ int launch_lanes(void (*kernel)(Params...), int lanes, size_t smem,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(blocks_for(lanes)));
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3(static_cast<unsigned int>(ctas));
+  cfg.blockDim = dim3(static_cast<unsigned int>(threads));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = attr;
@@ -1766,6 +2346,14 @@ int launch_lanes(void (*kernel)(Params...), int lanes, size_t smem,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A kernel of one thread a lane over `lanes` lanes (K2's kernels).
+template <class... Params, class... Args>
+int launch_lanes(void (*kernel)(Params...), int lanes, size_t smem,
+                 bool dependent, cudaStream_t s, Args... args) {
+  return launch_grid(kernel, blocks_for(lanes), kThreads, smem, dependent, s,
+                     args...);
 }
 
 // K2 over one frame with the wire's decode, which takes `smem` bytes of
@@ -1955,6 +2543,41 @@ int launch_add_image(uint8_t* bits, uint32_t m_bits, uint32_t d, int k,
 
 }  // namespace
 
+// The K12 kernels read a header of at most kSmallHeader banks from
+// registers (SmallHeader), a longer one from shared memory.
+constexpr int kSmallHeader = 32;
+
+// K12-seg over `lanes` lanes in CTAs of T threads, L lanes a thread, the
+// header read as its length allows.
+template <int T, int L>
+int launch_decode_seg(const uint32_t* buf, int kb, int lanes, int wire_banks,
+                      uint32_t* keys, int32_t* bank, cudaStream_t s) {
+  const int ctas = (lanes + T * L - 1) / (T * L);
+  if (wire_banks <= kSmallHeader) {
+    return launch_grid(decode_seg_kernel<T, L, SmallHeader>, ctas, T, 0,
+                       false, s, buf, wire_banks, kb, lanes, keys, bank);
+  }
+  return launch_grid(decode_seg_kernel<T, L, SharedHeader>, ctas, T,
+                     counts_smem(wire_banks), false, s, buf, wire_banks, kb,
+                     lanes, keys, bank);
+}
+
+// K12-delta's look-back, likewise.
+template <int T, int L>
+int launch_decode_delta(const uint32_t* buf, int db, int lanes,
+                        int wire_banks, uint32_t* state, uint32_t* keys,
+                        int32_t* bank, cudaStream_t s) {
+  const int ctas = (lanes + T * L - 1) / (T * L);
+  if (wire_banks <= kSmallHeader) {
+    return launch_grid(decode_delta_scan_kernel<T, L, SmallHeader>, ctas, T,
+                       0, false, s, buf, wire_banks, db, lanes, keys, bank,
+                       LookbackCarry{state});
+  }
+  return launch_grid(decode_delta_scan_kernel<T, L, SharedHeader>, ctas, T,
+                     counts_smem(wire_banks), false, s, buf, wire_banks, db,
+                     lanes, keys, bank, LookbackCarry{state});
+}
+
 extern "C" {
 
 int atp_hll_histogram(const void* regs, void* out, int num_banks, int m,
@@ -2039,30 +2662,46 @@ int atp_fused_step_delta(const void* buf, int db, int lanes, int wire_banks,
 }
 
 // K12-seg: keys and bank int32[lanes] of the seg wire (K2-seg's buf), in
-// one launch.
+// one launch of CTAs of 256 threads, `lpt` (2 or 4) lanes a thread.
 int atp_decode_seg(const void* buf, int kb, int lanes, int wire_banks,
-                   void* keys, void* bank, void* stream) {
-  return launch_lanes(
-      decode_lanes_kernel<SegDecode>, lanes, counts_smem(wire_banks), false,
-      static_cast<cudaStream_t>(stream),
-      SegDecode{static_cast<const uint32_t*>(buf), wire_banks, kb, lanes},
-      lanes, static_cast<uint32_t*>(keys), static_cast<int32_t*>(bank));
+                   int lpt, void* keys, void* bank, void* stream) {
+  const uint32_t* b = static_cast<const uint32_t*>(buf);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* k = static_cast<uint32_t*>(keys);
+  int32_t* bk = static_cast<int32_t*>(bank);
+  if (lpt == 2) {
+    return launch_decode_seg<256, 2>(b, kb, lanes, wire_banks, k, bk, s);
+  }
+  if (lpt == 4) {
+    return launch_decode_seg<256, 4>(b, kb, lanes, wire_banks, k, bk, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K12-delta: the same for the delta wire (K2-delta's buf and scratch), in
-// K2-delta's two launches: pass 1, then the decode as its programmatic
-// dependent.
+// K12-delta: the same for the delta wire (K2-delta's buf). lookback == 0,
+// the two-pass design: K2-delta's pass 1 into scratch (its sums), then the
+// decode as its programmatic dependent. lookback != 0: one launch of CTAs
+// of 256 threads, 4 lanes a thread, over the look-back's scratch (uint32
+// state[4], then 32 bytes of status a CTA), which the caller zeroes once
+// and keeps (no memset between calls).
 int atp_decode_delta(const void* buf, int db, int lanes, int wire_banks,
-                     void* scratch, void* keys, void* bank, void* stream) {
+                     int lookback, void* scratch, void* keys, void* bank,
+                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* b = static_cast<const uint32_t*>(buf);
+  uint32_t* k = static_cast<uint32_t*>(keys);
+  int32_t* bk = static_cast<int32_t*>(bank);
+  if (lookback) {
+    return launch_decode_delta<256, 4>(b, db, lanes, wire_banks,
+                                       static_cast<uint32_t*>(scratch), k, bk,
+                                       s);
+  }
   DeltaDecode decode;
-  const int err = launch_delta_sums(static_cast<const uint32_t*>(buf), db,
-                                    lanes, wire_banks, scratch, s, &decode);
+  const int err =
+      launch_delta_sums(b, db, lanes, wire_banks, scratch, s, &decode);
   if (err != 0) return err;
   return launch_lanes(decode_lanes_kernel<DeltaDecode>, lanes,
-                      counts_smem(wire_banks), true, s, decode, lanes,
-                      static_cast<uint32_t*>(keys),
-                      static_cast<int32_t*>(bank));
+                      counts_smem(wire_banks), true, s, decode, lanes, k, bk);
 }
 
 // scratch == nullptr: one thread per key; else the binned passes.

@@ -51,8 +51,8 @@ SIGNATURES = {
     "atp_hll_add_slice": (_P, _I, _I, _U, _I, _P, _P, _I, _P, _I, _I, _P,
                           _P),
     "atp_bloom_add_slice": (_P, _U, _U, _U, _I, _P, _P, _I, _I, _I, _P, _P),
-    "atp_decode_seg": (_P, _I, _I, _I, _P, _P, _P),
-    "atp_decode_delta": (_P, _I, _I, _I, _P, _P, _P, _P),
+    "atp_decode_seg": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "atp_decode_delta": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 

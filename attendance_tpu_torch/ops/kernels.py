@@ -47,8 +47,9 @@ KERNEL_FUNCTIONS = {
     "fused_step": ("fused_step_kernel",),
     "fused_step_seg": ("fused_step_kernel",),
     "fused_step_delta": ("fused_step_kernel", "delta_sums_kernel"),
-    "decode_seg": ("decode_lanes_kernel",),
-    "decode_delta": ("decode_lanes_kernel", "delta_sums_kernel"),
+    "decode_seg": ("decode_seg_kernel",),
+    "decode_delta": ("decode_delta_scan_kernel", "decode_lanes_kernel",
+                     "delta_sums_kernel"),
     "bloom_add": _BLOOM_ADD_KERNELS,
     "bloom_add_slice": _BLOOM_ADD_KERNELS,
     "bloom_contains": ("bloom_contains_kernel",),
@@ -680,10 +681,95 @@ def fused_step_delta(bloom: torch.Tensor, regs: torch.Tensor,
 # K12: a narrow wire's lanes alone, for the mesh engine
 # ---------------------------------------------------------------------------
 
+# The K12 kernels read a header of at most this many banks from registers,
+# a longer one from shared memory (csrc/sketch_kernels.cu, SmallHeader).
+K12_SMALL_HEADER = 32
+# K12-seg's CTA is 256 threads of 2 consecutive lanes each below this many
+# lanes, of 4 from it (measured on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md).
+K12_SEG_WIDE_MIN_LANES = 3 << 17
+# K12-delta's designs (see decode_delta_plan), and where the look-back
+# takes over from the two-pass design under a header of one bank or of
+# K12_SMALL_HEADER + 1 to K12_TWO_PASS_MAX_BANKS banks (PERF.md).
+K12_DELTA_DESIGNS = ("two_pass", "lookback")
+K12_LOOKBACK_MIN_LANES = 1 << 18
+K12_TWO_PASS_MAX_BANKS = 256
+# The look-back's CTA: 256 threads of 4 consecutive lanes each; its
+# scratch: 4 int32 state words, then 32 bytes of status a CTA.
+K12_LOOKBACK_THREADS = 256
+K12_LOOKBACK_LANES_PER_THREAD = 4
+_LOOKBACK_STATE_WORDS = 4
+
+
+class DeltaDecodePlan(NamedTuple):
+    """How K12-delta decodes a frame: ``design`` "lookback" (one launch)
+    or "two_pass" (K2-delta's sums pass, then the decode as its
+    dependent); its CTAs; and the int32 scratch words it reads (the
+    two-pass's sums, made anew each call; the look-back's state and
+    status, kept per device)."""
+    design: str
+    ctas: int
+    scratch_words: int
+
+
+def k12_seg_lanes_per_thread(lanes: int) -> int:
+    """K12-seg's lanes a thread for a frame of ``lanes`` lanes."""
+    return 4 if lanes >= K12_SEG_WIDE_MIN_LANES else 2
+
+
+def decode_delta_plan(lanes: int, num_banks: int, *,
+                      design: Optional[str] = None) -> DeltaDecodePlan:
+    """K12-delta's design for ``lanes`` (padded) lanes under a header of
+    ``num_banks`` banks: the look-back, except below
+    ``K12_LOOKBACK_MIN_LANES`` lanes under a header of one bank (every
+    tile's segment runs back to lane 0) or of ``K12_SMALL_HEADER`` + 1
+    to ``K12_TWO_PASS_MAX_BANKS`` banks (each CTA scans the header in
+    shared memory), where the two-pass design is faster when the frame
+    holds padding lanes (PERF.md). ``design`` forces one. Raises on a
+    shape the kernels do not take: no lanes, 2^31 lanes or more, or a
+    header of no banks or of more than ``NARROW_MAX_BANKS``."""
+    _require(1 <= lanes < 1 << 31,
+             f"K12-delta takes 1 <= lanes < 2^31, got {lanes}")
+    _require(1 <= num_banks <= NARROW_MAX_BANKS,
+             f"K12-delta takes 1 to {NARROW_MAX_BANKS} header banks, got "
+             f"{num_banks}")
+    if design is None:
+        two_pass = lanes < K12_LOOKBACK_MIN_LANES and (
+            num_banks == 1
+            or K12_SMALL_HEADER < num_banks <= K12_TWO_PASS_MAX_BANKS)
+        design = "two_pass" if two_pass else "lookback"
+    _require(design in K12_DELTA_DESIGNS,
+             f"unknown K12-delta design {design!r}")
+    if design == "two_pass":
+        return DeltaDecodePlan("two_pass", -(-lanes // 256),
+                               delta_scratch_words(lanes))
+    ctas = -(-lanes // (K12_LOOKBACK_THREADS
+                        * K12_LOOKBACK_LANES_PER_THREAD))
+    return DeltaDecodePlan("lookback", ctas,
+                           _LOOKBACK_STATE_WORDS + 8 * ctas)
+
+
+# The look-back's scratch, kept per device: its status words carry the
+# call's epoch, so it is zeroed only when it is made or grown. Calls on
+# one device share it, so they run one at a time (one stream's order, as
+# the mesh engine calls them).
+_lookback_scratch: dict = {}
+
+
+def _lookback_state(device: torch.device, words: int) -> torch.Tensor:
+    have = _lookback_scratch.get(device)
+    if have is None or have.numel() < words:
+        have = torch.zeros(words, dtype=torch.int32, device=device)
+        _lookback_scratch[device] = have
+    return have
+
+
 def _decode_lanes(name: str, buf: torch.Tensor, width: int, padded: int,
-                  num_banks: int):
+                  num_banks: int, design: Optional[str] = None):
     """The shared wrapper of K12-seg (``name`` "seg") and K12-delta."""
     _check_narrow_wire(name, buf, width, padded, num_banks)
+    plan = (decode_delta_plan(padded, num_banks, design=design)
+            if name == "delta" else None)
     if buf.device.type == "cpu":
         plain = (decode_seg_lanes_plain if name == "seg"
                  else decode_delta_lanes_plain)
@@ -697,14 +783,19 @@ def _decode_lanes(name: str, buf: torch.Tensor, width: int, padded: int,
     with torch.cuda.device(buf.device):
         if name == "seg":
             rc = library().atp_decode_seg(
-                buf.data_ptr(), width, padded, num_banks, keys.data_ptr(),
+                buf.data_ptr(), width, padded, num_banks,
+                k12_seg_lanes_per_thread(padded), keys.data_ptr(),
                 bank.data_ptr(), _stream(buf))
         else:
-            sums = torch.empty(delta_scratch_words(padded),
-                               dtype=torch.int32, device=buf.device)
+            lookback = plan.design == "lookback"
+            scratch = (_lookback_state(buf.device, plan.scratch_words)
+                       if lookback else
+                       torch.empty(plan.scratch_words, dtype=torch.int32,
+                                   device=buf.device))
             rc = library().atp_decode_delta(
-                buf.data_ptr(), width, padded, num_banks, sums.data_ptr(),
-                keys.data_ptr(), bank.data_ptr(), _stream(buf))
+                buf.data_ptr(), width, padded, num_banks, int(lookback),
+                scratch.data_ptr(), keys.data_ptr(), bank.data_ptr(),
+                _stream(buf))
     _check_launch(rc, f"atp_decode_{name}")
     launches[f"decode_{name}"] += 1
     return keys, bank
@@ -720,16 +811,22 @@ def decode_seg(buf: torch.Tensor, *, kb: int, padded: int,
     B12's ``make_step_narrow`` (attendance_tpu/parallel/sharded.py:446),
     where each mesh device decodes its replica's buffer. Bound: bytes, the
     wire (the header and kb bits a lane) read once and 8 bytes a lane
-    written. Design: K2-seg's decode alone, one launch of one thread a
-    lane (each CTA scans the header's counts in shared memory, at most
-    ``NARROW_MAX_BANKS`` banks), so the mesh decodes a replica once on
-    each device of its cells and runs K9 and K10 on the arrays.
+    written (0.22 us at a (4, 2) replica's 65,536 lanes; what costs there
+    is a launch and one trip to memory). Design: one launch of CTAs of
+    256 threads, each decoding 2 consecutive lanes (4 from
+    ``K12_SEG_WIDE_MIN_LANES``): their fields from at most 3 (5) words,
+    their keys and banks stored as one 8-byte (16-byte) vector each. A
+    header of at most ``K12_SMALL_HEADER`` banks is read by every warp
+    into registers and searched with shuffles (no shared memory, no
+    barrier); a longer one, up to ``NARROW_MAX_BANKS``, is scanned by
+    each CTA into shared memory. The lanes a thread trade the header's
+    cost, paid once a CTA, against each thread's serial work (PERF.md).
     """
     return _decode_lanes("seg", buf, kb, padded, num_banks)
 
 
 def decode_delta(buf: torch.Tensor, *, db: int, padded: int,
-                 num_banks: int):
+                 num_banks: int, design: Optional[str] = None):
     """K12-delta: (keys, bank) int32[padded] of the delta wire ``buf``
     (K2-delta's buffer), as :func:`decode_seg`; a padding lane's key is
     bank 0's base plus the frame's delta prefix, as in the JAX decode.
@@ -737,12 +834,21 @@ def decode_delta(buf: torch.Tensor, *, db: int, padded: int,
     Replaces ``decode_delta_lanes`` (attendance_tpu/models/fused.py:416)
     in ``make_step_narrow`` (attendance_tpu/parallel/sharded.py:446).
     Bound: bytes, the wire (two header words a bank and db bits a lane)
-    read once and 8 bytes a lane written. Design: K2-delta's decode
-    alone, in its two launches (the tile and group delta sums into an
-    int32 scratch, then the decode as their programmatic dependent); one
-    launch in :data:`launches`.
+    read once and 8 bytes a lane written (0.20 us at 65,536 lanes); a key
+    is its bank's base plus a segmented prefix sum of the deltas, so the
+    cost is the chain that carries each tile's sum to the next. Design
+    (:func:`decode_delta_plan`; ``design`` forces one): the look-back, one
+    launch of CTAs of 256 threads of 4 consecutive lanes: each CTA scans
+    its tile in registers, with shuffles and across its warps, publishes
+    the tile's sums in a scratch kept per device (status words tagged
+    with the call's epoch, so nothing is zeroed between calls), then
+    sums the tiles back to the nearest bank head (warp 0, 32 tiles a
+    trip; the whole CTA past that) and, for a tile with padding lanes,
+    every earlier tile's plain sum; or K2-delta's two-pass decode (a sums
+    pass, then the decode as its programmatic dependent). One launch in
+    :data:`launches` either way.
     """
-    return _decode_lanes("delta", buf, db, padded, num_banks)
+    return _decode_lanes("delta", buf, db, padded, num_banks, design)
 
 
 # ---------------------------------------------------------------------------

@@ -190,8 +190,10 @@ Phases (any failure exits non-zero):
      roster's filter cut for a (4, 2) mesh; K9 on keys and on the word
      wire at the same lanes on every slice of sp = 2, 4 and 8, by both
      paths and the wrapper's pick (the AND across slices equal to K4),
-     both paths timed on slice 0; K12 (seg and delta)
-     at the same lanes; K1 on register slices [256, 2^14 / sp] for sp =
+     both paths timed on slice 0; K12 (seg and delta; the delta wire's
+     look-back and two-pass designs) at the same lanes and either side of
+     its plans' cut-overs, one kernel event a K12-delta call in a
+     profiler trace; K1 on register slices [256, 2^14 / sp] for sp =
      2, 4, 8; each equal to its plain version (and K10's register half
      to ``scatter_reduce_`` amax, K1 to ``torch.bincount``) and timed;
      (b) ``ShardedSketchEngine`` on the 1 x 1 mesh through
@@ -3506,21 +3508,104 @@ def mesh_k9(floor_ms: float, rows: dict, params, words, lanes_np) -> None:
                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def k12_shapes():
+    """10(a)'s K12 shapes, (lanes, header banks, real lanes): the mesh's
+    lanes a replica under its 16-bank header, all real; either side of
+    K12-seg's cut-over (``kernels.K12_SEG_WIDE_MIN_LANES``); and either
+    side of K12-delta's (``kernels.K12_LOOKBACK_MIN_LANES``) under the
+    headers where the plan keeps the two-pass design below it (256 banks:
+    the (8, 1) run's register rows; one bank), a seventh of the lanes
+    padding, the frames for which it keeps it."""
+    from attendance_tpu_torch.ops import kernels
+
+    seg_cut = kernels.K12_SEG_WIDE_MIN_LANES
+    cut = kernels.K12_LOOKBACK_MIN_LANES
+    out = [(lanes, MESH_BANKS, lanes)
+           for lanes in (*MESH_LANES, seg_cut - 1, seg_cut)]
+    for nb in (256, 1):
+        out += [(lanes, nb, lanes - lanes // 7)
+                for lanes in (MESH_LANES[0], cut - 1, cut)]
+    return out
+
+
+def k12_variants(mode: str):
+    """The K12 designs built for ``mode``, as the keyword arguments that
+    force each: K12-seg has one (its lanes a thread follow the frame's
+    lanes), K12-delta the look-back and the two-pass."""
+    from attendance_tpu_torch.ops import kernels
+
+    if mode == "seg":
+        return [{}]
+    return [dict(design=d) for d in kernels.K12_DELTA_DESIGNS]
+
+
+# 10(a): K12-delta's calls traced in a process of their own (a profiler
+# started here would be this process's first, which phase 14(c) expects
+# to start itself). argv: the wire's int32 file, db, lanes,
+# header banks, calls; prints {kernel function: device kernel events}.
+_K12_TRACE = """
+import json, sys, tempfile
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from attendance_tpu_torch.ops import kernels
+from attendance_tpu_torch.utils.profiling import kernel_events, kernel_function
+db, lanes, nb, calls = map(int, sys.argv[2:6])
+wire = torch.from_numpy(np.fromfile(sys.argv[1], np.int32)).cuda()
+run = lambda: kernels.decode_delta(wire, db=db, padded=lanes, num_banks=nb)
+run()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    for _ in range(calls):
+        run()
+    torch.cuda.synchronize()
+with tempfile.TemporaryDirectory() as tmp:
+    p.export_chrome_trace(tmp + "/trace.json")
+    doc = json.load(open(tmp + "/trace.json"))
+seen = {}
+for e in kernel_events(doc):
+    fn = kernel_function(e.get("name", ""))
+    seen[fn] = seen.get(fn, 0) + 1
+print(json.dumps(seen))
+"""
+
+
+def k12_trace_events(wire, db: int, lanes: int, nb: int,
+                     calls: int = 8) -> dict:
+    """{kernel function: device kernel events} of ``calls`` K12-delta calls
+    on ``wire`` in a torch.profiler trace, taken in a child process."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wire.i32")
+        wire.cpu().numpy().tofile(path)
+        out = subprocess.run(
+            [sys.executable, "-c", _K12_TRACE, path, str(db), str(lanes),
+             str(nb), str(calls)], capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    check(out.returncode == 0, f"K12 trace: the child failed: "
+          f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def mesh_k12(floor_ms: float, rows: dict, lanes_np, dev) -> None:
-    """10(a)'s K12: a replica's lanes of the mesh stream (16 banks) on the
-    seg and on the delta wire at 65,536 (what a (4, 2) replica takes of a
-    131,072-event frame, phase 10(c)), 131,072 and 1,048,576 lanes: keys
-    and banks equal to the plain decode; timed beside the bound (the
-    wire read once, 8 bytes a lane written), the floor, the plain
-    version and phase 2c's decode yardsticks (``torch.searchsorted``,
-    ``torch.cumsum``: not K12's function, so no library time)."""
+    """10(a)'s K12: a replica's lanes of the mesh stream on the seg and on
+    the delta wire at the shapes of ``k12_shapes`` (65,536 lanes is what a
+    (4, 2) replica takes of a 131,072-event frame, phase 10(c)): each
+    design built (K12-delta's look-back and two-pass; the plan's pick
+    marked) equal to the plain decode and to the frame's lanes, timed
+    beside the bound (the wire read once, 8 bytes a lane written), the
+    floor, the plain version and phase 2c's decode yardsticks
+    (``torch.searchsorted``, ``torch.cumsum``: not K12's function, so no
+    library time); then K12-delta's kernel events a call in a
+    torch.profiler trace at 65,536 lanes (one: a single launch)."""
     from attendance_tpu_torch.models import fused
     from attendance_tpu_torch.ops import kernels
 
-    nb = MESH_BANKS
-    for lanes in MESH_LANES:
-        keys_np = np.asarray(lanes_np["keys"][:lanes], np.uint32)
-        banks_np = lanes_np["banks"][:lanes]
+    for lanes, nb, real in k12_shapes():
+        keys_np = np.asarray(lanes_np["keys"][:real], np.uint32)
+        banks_np = (lanes_np["banks"][:real] if nb > 1
+                    else np.zeros(real, np.int32))  # one bank: every day
         for mode in ("seg", "delta"):
             if mode == "seg":
                 width = int(keys_np.max()).bit_length()
@@ -3537,36 +3622,72 @@ def mesh_k12(floor_ms: float, rows: dict, lanes_np, dev) -> None:
             plain = kernels.decode_seg_lanes_plain if mode == "seg" else \
                 kernels.decode_delta_lanes_plain
             kw = {"kb" if mode == "seg" else "db": width}
-            got_k, got_b = decode(wire, padded=lanes, num_banks=nb, **kw)
             want_k, want_b = plain(wire, width, lanes, nb)
-            torch.cuda.synchronize()
-            check(torch.equal(got_k.to(torch.int64) & 0xFFFFFFFF, want_k)
-                  and torch.equal(got_b.to(torch.int64), want_b),
-                  f"K12-{mode} lanes={lanes}: differs from the plain decode")
-            check(np.array_equal(got_k.cpu().numpy().view(np.uint32),
-                                 keys_np[perm])
-                  and np.array_equal(got_b.cpu().numpy(), banks_np[perm]),
-                  f"K12-{mode} lanes={lanes}: lanes are not the frame's")
-            ms = kernel_ms(lambda: decode(wire, padded=lanes, num_banks=nb,
-                                          **kw))
+            if mode == "seg":
+                pick = dict(lanes_per_thread=kernels.
+                            k12_seg_lanes_per_thread(lanes))
+            else:
+                pick = dict(design=kernels.decode_delta_plan(
+                    lanes, nb).design)
+            print(f"K12 decode_{mode} lanes={lanes} banks={nb} real={real}: "
+                  f"the plan picks {pick}")
             plain_ms = eager_ms(lambda: plain(wire, width, lanes, nb))
             yard = decode_yardstick(wire, mode, width, lanes, nb)
             # About 10 integer operations a lane (a field's funnel shift
             # and mask, the bank, the stores): the bytes bind.
             b_ms, b_by = bound_ms(4 * wire.numel() + 8 * lanes, lanes * 10)
-            print(f"K12 decode_{mode} lanes={lanes} banks={nb} width={width} "
-                  f"ms={ms} above_floor_ms={ms - floor_ms} plain_ms="
-                  f"{plain_ms} bound_ms={b_ms} ({b_by}) times_bound="
-                  f"{ms / b_ms} floor_ms={floor_ms} yardsticks: {yard} "
-                  f"library_ms=None max_abs_err=0")
-            if lanes == MESH_LANES[0]:
-                rows[f"decode_{mode}"] = dict(
-                    replaces=("attendance_tpu/models/fused.py:292"
-                              if mode == "seg" else
-                              "attendance_tpu/models/fused.py:416")
-                    + " (in attendance_tpu/parallel/sharded.py:446)",
-                    max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None)
+            for shape in k12_variants(mode):
+                got_k, got_b = decode(wire, padded=lanes, num_banks=nb,
+                                      **kw, **shape)
+                torch.cuda.synchronize()
+                what = " ".join(f"{k}={v}" for k, v in {**pick, **shape}
+                                .items())
+                check(torch.equal(got_k.to(torch.int64) & 0xFFFFFFFF, want_k)
+                      and torch.equal(got_b.to(torch.int64), want_b),
+                      f"K12-{mode} {what} lanes={lanes}: differs from the "
+                      "plain decode")
+                check(np.array_equal(got_k[:real].cpu().numpy().view(
+                          np.uint32), keys_np[perm])
+                      and np.array_equal(got_b[:real].cpu().numpy(),
+                                         banks_np[perm])
+                      and bool((got_b[real:] == -1).all()),
+                      f"K12-{mode} {what} lanes={lanes}: lanes are not the "
+                      "frame's")
+                ms = kernel_ms(lambda: decode(wire, padded=lanes,
+                                              num_banks=nb, **kw, **shape))
+                picked = mode == "seg" or shape == pick
+                print(f"K12 decode_{mode} {what}{' (plan)' if picked else ''}"
+                      f" lanes={lanes} banks={nb} real={real} width={width} "
+                      f"ms={ms} "
+                      f"above_floor_ms={ms - floor_ms} plain_ms={plain_ms} "
+                      f"bound_ms={b_ms} ({b_by}) times_bound={ms / b_ms} "
+                      f"floor_ms={floor_ms} yardsticks: {yard} "
+                      f"library_ms=None max_abs_err=0")
+                if lanes == MESH_LANES[0] and nb == MESH_BANKS and picked:
+                    rows[f"decode_{mode}"] = dict(
+                        replaces=("attendance_tpu/models/fused.py:292"
+                                  if mode == "seg" else
+                                  "attendance_tpu/models/fused.py:416")
+                        + " (in attendance_tpu/parallel/sharded.py:446)",
+                        max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            if mode == "delta" and lanes == MESH_LANES[0] and \
+                    nb == MESH_BANKS:
+                calls = 8
+                seen = k12_trace_events(wire, width, lanes, nb, calls)
+                mine = {fn: n for fn, n in seen.items()
+                        if fn in kernels.KERNEL_FUNCTIONS["decode_delta"]}
+                print(f"K12 decode_delta lanes={lanes} plan={pick}: kernel "
+                      f"events in a torch.profiler trace of {calls} calls: "
+                      f"{mine}")
+                if seen:
+                    check(sum(mine.values()) == calls,
+                          f"K12-delta at {lanes} lanes: {mine} kernel events "
+                          f"for {calls} calls, not one a call")
+    for mode in ("seg", "delta"):
+        check(f"decode_{mode}" in rows,
+              f"K12-{mode}: the plan's pick was not timed at "
+              f"{MESH_LANES[0]} lanes")
 
 
 def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
@@ -3576,8 +3697,9 @@ def mesh_kernels(dev, floor_ms: float, rows: dict, roster_np, lanes_np):
     2^14-key chunk, and both paths either side of the cut-over; K10
     (both wires, with and without the counters, replayed and from the
     starting registers), K9 (both paths, on slices of sp = 2, 4 and 8,
-    keys and the word wire) and K12 (seg and delta) at 65,536, 131,072
-    and 1,048,576 lanes a replica; K1 on register slices [256, 2^14 /
+    keys and the word wire) at 65,536, 131,072 and 1,048,576 lanes a
+    replica and K12 (seg and delta) there and either side of its plans'
+    cut-overs; K1 on register slices [256, 2^14 /
     sp] (sp = 2, 4, 8); each equal to its plain version, timed beside
     its bound, the floor, the plain version and (K10's register half,
     K1) a library call or (K12) the decode's yardsticks."""

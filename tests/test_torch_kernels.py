@@ -739,38 +739,208 @@ def test_narrow_step_kernels_back_to_back_and_in_graph_replays(mode, cuda):
                                                  s_i + 7 * (p_i - s_i))
 
 
-@pytest.mark.parametrize("nb", [1, 4096])
-@pytest.mark.parametrize("lanes", [65_536, 131_072, 1_048_576])
-@pytest.mark.parametrize("mode", ["seg", "delta"])
-def test_decode_kernels_match_plain(mode, lanes, nb, cuda):
-    """K12-seg and K12-delta at the mesh's lanes a replica, on a header of
-    one bank and of 4,096 (many banks a tile, some empty), with padding
-    lanes: keys and banks equal to the plain decode, one launch each."""
-    rng = np.random.default_rng(lanes + nb + len(mode))
-    n = lanes - lanes // 7
-    keys = rng.integers(0, 1 << 26, n).astype(np.uint32)
-    banks = rng.integers(0, nb, n).astype(np.int32)
+def _k12_cutovers():
+    """Lane counts either side of every cut-over of the K12 plans (K12-seg's
+    lanes a thread, K12-delta's design)."""
+    out = set()
+    for cut in (kernels.K12_SEG_WIDE_MIN_LANES,
+                kernels.K12_LOOKBACK_MIN_LANES):
+        out |= {cut - 1, cut}
+    return sorted(out)
+
+
+# The mesh's lanes a replica (chip_smoke.py MESH_LANES), the plans'
+# cut-overs, lanes that are not multiples of 4 or 256, and one lane.
+K12_LANES = sorted({1, 3, 257, 1_023, 4_097, 65_536, 131_072, 1_048_576,
+                    1_048_573, *_k12_cutovers()})
+# Headers of one bank, the mesh's 16, the two-pass design's range (33 to
+# 256) and either side of it, and the largest.
+K12_BANKS = (1, 16, 32, 33, 256, 257, 4096, kernels.NARROW_MAX_BANKS)
+
+
+def _noisy_padding(buf, base, width, n, lanes, rng):
+    """Sets random bits in the fields of padding lanes n .. lanes - 1 of
+    the bitstream at word ``base`` (the kernels take whatever bits a
+    padding lane holds: its key on seg, its delta on delta)."""
+    lo, hi = n * width, lanes * width
+    if lo >= hi:
+        return
+    w0, w1 = lo // 32, (hi - 1) // 32
+    mask = np.full(w1 - w0 + 1, 0xFFFFFFFF, np.uint64)
+    mask[0] &= (0xFFFFFFFF << (lo % 32)) & 0xFFFFFFFF
+    if hi % 32:
+        mask[-1] &= (1 << (hi % 32)) - 1
+    bits = rng.integers(0, 1 << 32, w1 - w0 + 1, dtype=np.uint64) & mask
+    buf[base + w0:base + w1 + 1] |= bits.astype(np.uint32)
+
+
+def _k12_wire(mode, lanes, n, nb, *, width=None, banks_used=None, seed=0):
+    """(uint32 wire, width) of n real lanes in ``lanes``: banks drawn from
+    ``banks_used`` (default all nb), noisy padding. Seg keys take
+    ``width`` bits (default 26); delta keys climb in each bank by gaps
+    that fit ``width`` bits (default: the pack's own pick)."""
+    rng = np.random.default_rng(seed)
+    pool = np.arange(nb) if banks_used is None else np.asarray(banks_used)
+    banks = rng.choice(pool, n).astype(np.int32)
     if mode == "seg":
-        width = 26
-        buf, _ = fused.pack_seg(keys, banks, width, lanes, nb)
-    else:
-        scan = fused.delta_scan(keys, banks, nb)
-        width = fused.pick_delta_width(1, scan[4])
-        buf, _ = fused.pack_delta(keys, banks, width, lanes, nb, scan=scan)
-    buf = torch.from_numpy(buf.view(np.int32)).to(cuda)
+        kb = width or 26
+        keys = rng.integers(0, 1 << kb, n, dtype=np.uint64).astype(np.uint32)
+        buf, _ = fused.pack_seg(keys, banks, kb, lanes, nb)
+        _noisy_padding(buf, nb, kb, n, lanes, rng)
+        return buf, kb
+    if width is None or width >= 27:
+        keys = rng.integers(0, 1 << 32 if width else 1 << 26, n,
+                            dtype=np.uint64).astype(np.uint32)
+    else:  # climbing in lane order, banks sorted: a gap a lane
+        banks = np.sort(banks)
+        gap = max(1, min(1 << width, (1 << 32) // (n + 1)))
+        keys = (np.cumsum(rng.integers(0, gap, n, dtype=np.uint64))
+                % (1 << 32)).astype(np.uint32)
+    scan = fused.delta_scan(keys, banks, nb)
+    db = width or fused.pick_delta_width(1, scan[4])
+    buf, _ = fused.pack_delta(keys, banks, db, lanes, nb, scan=scan)
+    assert buf is not None
+    _noisy_padding(buf, 2 * nb, db, n, lanes, rng)
+    return buf, db
+
+
+def _check_decode(mode, buf, width, lanes, nb, cuda, n=None, **shape):
+    """One K12 call against the plain decode: keys and banks equal, int32,
+    one launch counted, ``n`` real lanes (when given)."""
+    wire = torch.from_numpy(buf.view(np.int32)).to(cuda)
     decode = kernels.decode_seg if mode == "seg" else kernels.decode_delta
     plain = kernels.decode_seg_lanes_plain if mode == "seg" else \
         kernels.decode_delta_lanes_plain
     before = kernels.launches[f"decode_{mode}"]
-    got_keys, got_bank = decode(buf, padded=lanes, num_banks=nb,
-                                **{"kb" if mode == "seg" else "db": width})
-    want_keys, want_bank = plain(buf, width, lanes, nb)
+    got_keys, got_bank = decode(wire, padded=lanes, num_banks=nb,
+                                **{"kb" if mode == "seg" else "db": width},
+                                **shape)
+    want_keys, want_bank = plain(wire, width, lanes, nb)
     torch.cuda.synchronize()
     assert kernels.launches[f"decode_{mode}"] == before + 1
     assert got_keys.dtype == got_bank.dtype == torch.int32
     assert torch.equal(got_keys.to(torch.int64) & 0xFFFFFFFF, want_keys)
     assert torch.equal(got_bank.to(torch.int64), want_bank)
-    assert int((got_bank >= 0).sum()) == n
+    if n is not None:
+        assert int((got_bank >= 0).sum()) == n
+
+
+@pytest.mark.parametrize("nb", K12_BANKS)
+@pytest.mark.parametrize("lanes", K12_LANES)
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+def test_decode_kernels_match_plain(mode, lanes, nb, cuda):
+    """K12-seg and K12-delta (the plan's design) at the mesh's lanes a
+    replica, either side of each cut-over of the plan and at lane counts
+    that are not multiples of 4 or 256, on headers of 1, 16, 4,096 and
+    NARROW_MAX_BANKS banks (many banks a tile, most empty), with noisy
+    padding lanes: keys and banks equal to the plain decode, one launch
+    each."""
+    n = lanes - lanes // 7
+    buf, width = _k12_wire(mode, lanes, n, nb, seed=lanes + nb + len(mode))
+    _check_decode(mode, buf, width, lanes, nb, cuda, n=n)
+
+
+@pytest.mark.parametrize("mode,width", [("seg", 1), ("seg", 32)]
+                         + [("delta", w) for w in range(1, 33)])
+def test_decode_kernels_widths(mode, width, cuda):
+    """Seg widths 1 and 32, delta widths 1 to 32, at a lane count past a
+    cluster of 4 lanes a thread and not a multiple of 4."""
+    lanes = 65_539
+    buf, width = _k12_wire(mode, lanes, lanes - 1_000, 16, width=width,
+                           seed=width)
+    _check_decode(mode, buf, width, lanes, 16, cuda, n=lanes - 1_000)
+
+
+K12_FRAMES = {
+    # (real lanes, header banks, banks used)
+    "one_real_lane": (1, 16, None),
+    "all_padding": (0, 16, None),
+    "no_padding": (None, 16, None),
+    # one bank over every tile, empty banks before and after it
+    "one_bank_spans_all": (None, 16, (7,)),
+    # a few banks of a large header: each spans many CTAs
+    "sparse_banks": (None, 4096, (0, 5, 4095)),
+}
+
+
+@pytest.mark.parametrize("lanes", [65_536, 131_075, 1_048_576])
+@pytest.mark.parametrize("frame", list(K12_FRAMES))
+@pytest.mark.parametrize("mode", ["seg", "delta"])
+def test_decode_kernels_edge_frames(mode, frame, lanes, cuda):
+    """One real lane, an all-padding frame, a frame with no padding, a bank
+    that spans a whole cluster with empty banks around it, a few banks
+    of a 4,096-bank header that each span many CTAs."""
+    n, nb, used = K12_FRAMES[frame]
+    n = lanes if n is None else n
+    buf, width = _k12_wire(mode, lanes, n, nb, banks_used=used, seed=n)
+    _check_decode(mode, buf, width, lanes, nb, cuda, n=n)
+
+
+@pytest.mark.parametrize("nb", [1, 16, 256, 4096])
+@pytest.mark.parametrize("lanes", [1, 4_097, 65_535, 131_072, 262_144,
+                                   1_048_573])
+@pytest.mark.parametrize("design", kernels.K12_DELTA_DESIGNS)
+def test_decode_delta_designs_match_plain(design, lanes, nb, cuda):
+    """Each K12-delta design, forced, at lane counts the plan gives to the
+    other too, with padding lanes: equal to the plain decode."""
+    n = lanes - lanes // 5
+    buf, width = _k12_wire("delta", lanes, n, nb, seed=lanes + nb)
+    _check_decode("delta", buf, width, lanes, nb, cuda, n=n, design=design)
+
+
+@pytest.mark.parametrize("design", [None, *kernels.K12_DELTA_DESIGNS])
+def test_decode_delta_back_to_back_on_two_streams(design, cuda):
+    """K12-delta called back to back at changing lane counts on the
+    default stream, then on a second stream, then replayed from a CUDA
+    graph over changing wire contents: each call's keys and banks equal
+    the plain decode's (whatever scratch the design keeps is not
+    reset between calls)."""
+    cases = []
+    for i, lanes in enumerate([65_536, 1_000, 131_072, 1_048_576, 3,
+                               262_144, 65_536]):
+        n = lanes - lanes // 9
+        buf, width = _k12_wire("delta", lanes, n, 16, seed=i)
+        cases.append((torch.from_numpy(buf.view(np.int32)).to(cuda), width,
+                      lanes))
+    want = [kernels.decode_delta_lanes_plain(w, db, lanes, 16)
+            for w, db, lanes in cases]
+
+    def run_all():
+        got = [kernels.decode_delta(w, db=db, padded=lanes, num_banks=16,
+                                    design=design)
+               for w, db, lanes in cases]
+        torch.cuda.synchronize()
+        for (k, b), (wk, wb) in zip(got, want):
+            assert torch.equal(k.to(torch.int64) & 0xFFFFFFFF, wk)
+            assert torch.equal(b.to(torch.int64), wb)
+
+    for _ in range(3):
+        run_all()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            run_all()
+    torch.cuda.current_stream().wait_stream(side)
+
+    lanes = 65_536
+    wires = [_k12_wire("delta", lanes, lanes - 500 * i, 16, width=20,
+                       seed=100 + i)[0] for i in range(3)]
+    wire = torch.from_numpy(wires[0].view(np.int32)).to(cuda)
+    kernels.decode_delta(wire, db=20, padded=lanes, num_banks=16,
+                         design=design)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_k, out_b = kernels.decode_delta(wire, db=20, padded=lanes,
+                                            num_banks=16, design=design)
+    for buf in wires * 2:
+        wire.copy_(torch.from_numpy(buf.view(np.int32)).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        wk, wb = kernels.decode_delta_lanes_plain(wire, 20, lanes, 16)
+        assert torch.equal(out_k.to(torch.int64) & 0xFFFFFFFF, wk)
+        assert torch.equal(out_b.to(torch.int64), wb)
 
 
 def test_snapshot_capture_equals_host_copy_after_sync(cuda):
