@@ -350,15 +350,30 @@ Phases (any failure exits non-zero):
      engine, with whether this interpreter has ``Python.h``. No "control
      tick failed" or "incident tick failed" record, and no engine thread
      left after it;
+  17. the repo's crash soaks (``crash_soak_phase``, after 16), the JAX
+     ``tools/`` gates at each tool's constants: (a) the fault soak on the
+     COLW wire, the rotted frame dead-lettered; (b) the shm ring's
+     consumer process SIGKILLed and resumed from the ring's cursor; (c)
+     the temporal worker process SIGKILLed and restored, its windows
+     equal to the no-crash run's; (d) the delta-crash worker process
+     SIGKILLed and restored, ``doctor --snapshot-stall-ceiling`` over its
+     artifacts; (e) the control soak, whose static baseline must breach
+     and whose controlled run must not; then (b2), (c2), (d2) at phase 3's
+     1,048,576 events in 64 frames. Each SIGKILL must leave an unacked
+     tail, and each restored run a step launch for every frame it drained;
+     one line a soak with its wall, the events folded at the kill, the
+     backlog, the faults by site and the restored and oracle runs'
+     launches;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
      run and the oracle's reads), phase 10(c)'s five mesh runs and
-     phases 11's to 16's runs (each also printed on a line of its own;
+     phases 11's to 17's runs (each also printed on a line of its own;
      12's count the scrapes' K4, K9 and K1 launches, 13's its fault runs
      and the restore, 14's its SLO ticks, 16's its warm-up and
-     controlled runs); phase 5 prints its own runs' counts on a line of
+     controlled runs, 17's its soaks' parent processes: the killed
+     workers' launches are not counted); phase 5 prints its own runs' counts on a line of
      its own.
 
 Needs one CUDA card; exits non-zero without one, and without the rest
@@ -6906,6 +6921,207 @@ def control_phase(card: str, dev, ref, t_ref, stream, ingress) -> dict:
     return launches
 
 
+# -- 17. the repo's crash soaks on the card ------------------------------------
+# Phase 3's stream cut into 64 frames of 16,384 events (327,688 bytes a
+# planar frame, inside the default ring's 64 slots of 2 MiB): the shm,
+# temporal and delta-crash soaks run once more at this size.
+CRASH_BIG = dict(num_events=1 << 20, batch=1 << 14, roster_size=100_000,
+                 lectures=16)
+# The temporal soak's ring at that size: the stream's 4,208 buckets (16
+# lectures x 263 periods of 4 s) and room. A restore re-opens every bucket
+# of the chain, so a ring the stream fills over-commits after it and keeps
+# buckets the no-crash run evicted; with no eviction the windows compare,
+# as in the tool's run (8 lectures x 9 periods in 128 buckets).
+CRASH_TEMPORAL_RING = 4_352
+CRASH_DEADLINE_S = 240.0  # each soak's deadline (process starts included)
+STEP_KERNELS = ("fused_step", "fused_step_seg", "fused_step_delta")
+TEMPORAL_KERNELS = ("bloom_contains", "hll_add", "cms_step")
+
+
+def _crash_line(card: str, what: str, report: dict, extra: str = "") -> None:
+    print(f"crash {what} on {card}: wall {report.get('wall_s')} s; the "
+          f"worker had folded {report.get('killed_at_events')} events at the "
+          f"kill ({report.get('kill_after_s')} s after it was fed); resume "
+          f"backlog {report.get('resume_backlog')} frames, "
+          f"{report.get('restored_frames')} frames drained in "
+          f"{report.get('resume_s')} s; faults injected per site "
+          f"{json.dumps(report.get('injected'))}; launches: restored run "
+          f"{report.get('restored_launches')}, oracle "
+          f"{report.get('oracle_launches')}{extra}; ok {report.get('ok')}")
+
+
+def _crash_gates(what: str, report: dict, temporal: bool = False) -> None:
+    """A killed-worker soak: ``ok``, an unacked tail at the kill, and the
+    restored run's launches: a step launch for every frame it drained,
+    K1 at its counts, and with the temporal plane K4-K6 too."""
+    check(report["ok"], f"{what}: {report['failures']}")
+    check(report.get("resume_backlog", 0) > 0,
+          f"{what}: the kill left no unacked tail")
+    got = report.get("restored_launches", {})
+    steps = sum(got.get(k, 0) for k in STEP_KERNELS)
+    check(steps >= report.get("restored_frames", 1) > 0,
+          f"{what}: {steps} step launches for "
+          f"{report.get('restored_frames')} frames drained")
+    need = ("hll_histogram",) + (TEMPORAL_KERNELS if temporal else ())
+    for name in need:
+        check(got.get(name, 0) > 0, f"{what}: kernel {name} not launched "
+              "by the restored run")
+    check(report.get("oracle_launches", {}).get("bloom_add", 0) > 0,
+          f"{what}: the oracle's preload launched no K3")
+
+
+def crash_soak_phase(card: str, dev) -> dict:
+    """Phase 17: the repo's crash soaks on the card, each at its JAX
+    tool's constants (``tools/chaos_soak.py``'s 32,768 events in 512-event
+    frames, 10,000 keys, 8 lectures, capacity 50,000, seed 1;
+    ``tools/delta_crash_smoke.py``'s 65,536 in 2,048-event frames;
+    ``tools/control_soak.py``'s 32,768 in 512-event frames, 4 lectures,
+    seed 20), then the shm, temporal and delta-crash soaks again at
+    phase 3's 1,048,576 events (100,000 keys at the default capacity, 16
+    lectures, 64 frames): (a) the fault soak on the COLW wire, the rotted
+    frame dead-lettered; (b) the shm ring's consumer process SIGKILLed and
+    resumed from the ring's cursor; (c) the temporal worker process
+    SIGKILLed and restored; (d) the delta-crash worker process SIGKILLed,
+    restored, and ``doctor --snapshot-stall-ceiling`` over its artifacts;
+    (e) the control soak: the static baseline must breach and the
+    controlled run not. The worker processes run on ``cuda:0``. Counts are
+    set to 0 before each soak and read after it; each soak reports its
+    restored and oracle runs' launches apart. Returns the phase's
+    launches, all of them."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from attendance_tpu_torch import chaos, obs
+    from attendance_tpu_torch.chaos import delta_crash, soak
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.control import soak as control_soak
+    from attendance_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_crash_"))
+    launches = dict.fromkeys(kernels.launches, 0)
+    tool = dict(capacity=soak.TOOL_CAPACITY, **soak.TOOL_SHAPE)
+    seed = soak.TOOL_SEED
+
+    def counted(fn):
+        kernels.reset_launches()
+        try:
+            return fn()
+        finally:
+            _add_launches(launches, kernels.launches)
+            chaos.disable()
+            obs.disable()
+
+    try:
+        # (a) the COLW wire.
+        what = "(a) columnar wire, DEFAULT_SPEC seed 1, 32,768 events"
+        r = counted(lambda: soak.run_soak(
+            seed, wire="columnar", workdir=work / "a", device=dev,
+            max_seconds=CRASH_DEADLINE_S, **tool))
+        print(f"crash {what} on {card}: wall {r['wall_s']} s (the fault run "
+              f"{r.get('run_s')} s); faults injected per site "
+              f"{json.dumps(r.get('injected'))}; quarantined "
+              f"{r.get('quarantined')}, dead-lettered "
+              f"{r.get('dead_lettered')} of "
+              f"{len(soak.poison_frames(seed, 'columnar'))} poison frames; "
+              f"launches: the fault run "
+              f"{ {k: v for k, v in r.get('run_launches', {}).items() if v} }"
+              f"; ok {r['ok']}")
+        check(r["ok"], f"crash {what}: {r['failures']}")
+        check(r.get("doctor_ok") is True, f"crash {what}: doctor")
+        for _site, fault, _run, _draws in soak.GATED["DEFAULT_SPEC"]:
+            check(any(k.endswith(f"/{fault}") for k in r.get("injected", {})),
+                  f"crash {what}: {fault} never fired")
+        steps = sum(r.get("run_launches", {}).get(k, 0) for k in STEP_KERNELS)
+        frames = soak.TOOL_SHAPE["num_events"] // soak.TOOL_SHAPE["batch"]
+        check(steps >= frames, f"crash {what}: {steps} step launches for "
+              f"{frames} frames")
+
+        for label, shape, rest in (
+                ("(b)", tool, dict(shm_slots=soak.SHM_SLOTS,
+                                   shm_slot_bytes=soak.SHM_SLOT_BYTES)),
+                ("(b2)", CRASH_BIG, dict(
+                    shm_slots=Config().shm_slots,
+                    shm_slot_bytes=Config().shm_slot_bytes))):
+            what = (f"{label} shm ring, SHM_SPEC seed 1, "
+                    f"{shape['num_events']} events")
+            r = counted(lambda: soak.run_shm_soak(
+                seed, workdir=work / label, device=dev,
+                max_seconds=CRASH_DEADLINE_S, **shape, **rest))
+            _crash_line(card, what, r)
+            _crash_gates(f"crash {what}", r)
+            for fault in ("torn_slot", "writer_stall"):
+                check(r.get("injected", {}).get(f"shm.slot/{fault}", 0) > 0,
+                      f"crash {what}: {fault} never fired")
+
+        for label, shape, ring in (
+                ("(c)", tool, soak.TEMPORAL_RING_BANKS),
+                ("(c2)", CRASH_BIG, CRASH_TEMPORAL_RING)):
+            what = (f"{label} temporal, TEMPORAL_SPEC seed 1, "
+                    f"{shape['num_events']} events, a ring of {ring}")
+            r = counted(lambda: soak.run_temporal_soak(
+                seed, workdir=work / label, device=dev, ring_banks=ring,
+                max_seconds=CRASH_DEADLINE_S, **shape))
+            _crash_line(card, what, r, extra=(
+                f"; windows {r.get('windows')}; late dropped "
+                f"{r.get('stats', {}).get('late_dropped')} (oracle "
+                f"{r.get('oracle_stats', {}).get('late_dropped')}), "
+                f"rotations {r.get('stats', {}).get('rotations')}, "
+                f"evictions {r.get('stats', {}).get('evictions')}"))
+            _crash_gates(f"crash {what}", r, temporal=True)
+            check(r.get("doctor_ok") is True, f"crash {what}: doctor")
+            check(r.get("stats", {}).get("evictions") == 0
+                  == r.get("oracle_stats", {}).get("evictions"),
+                  f"crash {what}: the ring evicted")
+
+        for label, shape in (
+                ("(d)", {}),
+                ("(d2)", dict(num_events=CRASH_BIG["num_events"],
+                              batch=CRASH_BIG["batch"],
+                              roster_size=CRASH_BIG["roster_size"],
+                              lectures=CRASH_BIG["lectures"],
+                              capacity=100_000))):
+            what = (f"{label} delta crash, "
+                    f"{shape.get('num_events', delta_crash.NUM_EVENTS)} "
+                    f"events")
+            r = counted(lambda: delta_crash.run_delta_crash(
+                workdir=work / label, device=dev,
+                max_seconds=CRASH_DEADLINE_S, **shape))
+            _crash_line(card, what, r, extra=(
+                f"; doctor --snapshot-stall-ceiling "
+                f"{delta_crash.STALL_CEILING_S} exit {r.get('doctor_rc')}"))
+            _crash_gates(f"crash {what}", r)
+
+        what = "(e) control soak, seed 20, 32,768 events"
+        r = counted(lambda: control_soak.run_control_soak(
+            control_soak.SEED, workdir=work / "e", device=dev,
+            max_seconds=CRASH_DEADLINE_S))
+        base, ctl = r.get("baseline", {}), r.get("controlled", {})
+        print(f"crash {what} on {card}: wall {r['wall_s']} s; static "
+              f"baseline: dead-lettered {base.get('dead_lettered')}, differs "
+              f"from the no-fault run in {base.get('differs_in')}, faults "
+              f"{json.dumps(base.get('injected'))}; controlled: "
+              f"{json.dumps({k: v for k, v in ctl.items()})}; doctor "
+              f"--actuations exit {r.get('doctor_actuations_rc')}, "
+              f"--recompile-ceiling 0 exit {r.get('doctor_recompile_rc')}; "
+              f"launches {json.dumps(r['launches'])}; ok {r['ok']}")
+        check(r["ok"], f"crash {what}: {r['failures']}")
+        for run in ("no_fault", "baseline", "controlled"):
+            got = r["launches"].get(run, {})
+            check(sum(got.get(k, 0) for k in STEP_KERNELS) > 0
+                  and got.get("bloom_add", 0) > 0,
+                  f"crash {what}: the {run} run launched {got}")
+    finally:
+        chaos.disable()
+        obs.disable()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"crash phase: {time.perf_counter() - t_phase} s")
+    print(f"crash phase launches (its soaks' runs, oracles and reads; in the "
+          f"kernels line): { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7476,6 +7692,9 @@ def main() -> int:
         card, dev, ref, (t_launches, t_core),
         (num_events, frame_size, num_lectures), ingress)
 
+    # -- 17. the repo's crash soaks ---------------------------------------------
+    crash_launches = crash_soak_phase(card, dev)
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -7488,7 +7707,7 @@ def main() -> int:
                        + m_launches[name] + tel_launches[name]
                        + acc_launches[name] + chaos_launches[name]
                        + slo_launches[name] + fleet_launches[name]
-                       + control_launches[name]),
+                       + control_launches[name] + crash_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -176,6 +176,8 @@ _PORT_MODULES = {
     "attendance_tpu_torch.obs.exposition", "attendance_tpu_torch.obs.health",
     "attendance_tpu_torch.obs.audit",
     "attendance_tpu_torch.chaos", "attendance_tpu_torch.chaos.soak",
+    "attendance_tpu_torch.chaos.delta_crash",
+    "attendance_tpu_torch.control.soak",
     "attendance_tpu_torch.storage.resilient",
     "attendance_tpu_torch.obs.slo", "attendance_tpu_torch.obs.profiler",
     "attendance_tpu_torch.utils.profiling",

@@ -20,6 +20,12 @@ the same set. The CLI modules (``cli.py``, ``config.py``) build their
 the reads are compared. Modules with no port file and fields the port's
 ``Config`` lacks are named, each with its reason.
 
+(c) The repo's CI gates. Every script in ``tools/`` maps to its port
+counterpart (a module function, or the ``chip_smoke.py`` phase function
+that runs it on the card) or to a recorded reason it has none; every
+``--spec`` word and ``--wire`` choice of ``tools/chaos_soak.py`` maps to
+the port's soak function that runs it, with the tool's spec strings.
+
 Nothing here runs a pipeline but the one check that the ring departure
 rests on; the rest is parsing and reading source.
 """
@@ -504,3 +510,100 @@ def test_jax_processor_over_the_ring_dead_letters_every_event(tmp_path):
         assert proc.metrics.dead_lettered == report.message_count
     finally:
         proc.cleanup()
+
+
+# -- (c) the repo's CI gates in tools/ -----------------------------------------
+
+TOOLS = REPO / "tools"
+# Every JAX tool's counterpart: (a port module, its function), or
+# ("chip_smoke", the phase function that runs it on the card).
+TOOL_COUNTERPARTS = {
+    "chaos_soak.py": ("attendance_tpu_torch.chaos.soak", "run_soak"),
+    "delta_crash_smoke.py": ("attendance_tpu_torch.chaos.delta_crash",
+                             "run_delta_crash"),
+    "control_soak.py": ("attendance_tpu_torch.control.soak",
+                        "run_control_soak"),
+    "federation_soak.py": ("chip_smoke", "federation_phase"),  # 9(b)
+    "incident_smoke.py": ("chip_smoke", "fleet_incident_phase"),  # 15
+    "profile_smoke.py": ("chip_smoke", "slo_profiler_phase"),  # 14
+    # Serving from a live ingest run (8(d)) and the read audit (12).
+    "query_smoke.py": ("chip_smoke", "lanes_serve_phase"),
+}
+# The tools with no counterpart, each with its reason.
+TOOLS_NOT_PORTED = {
+    "collapse_probe.py": "forensics of the TPU's SPMD executables (the "
+                         "mesh dispatch collapse), with nothing to run on "
+                         "the card",
+    "bench_trend.py": "the trend gate over the BENCH_*.json files; it goes "
+                      "with the port's benchmark (ROADMAP item 3)",
+}
+# tools/chaos_soak.py's --spec words (and its default spec) and --wire
+# choices: each the port's soak function that runs it.
+SPEC_COUNTERPARTS = {"default": "run_soak", "rot": "run_soak",
+                     "shm": "run_shm_soak", "temporal": "run_temporal_soak"}
+WIRE_COUNTERPARTS = {"binary": "run_soak", "columnar": "run_soak"}
+
+
+def _tool_module(name: str):
+    import importlib
+    import sys
+    if str(TOOLS) not in sys.path:
+        sys.path.insert(0, str(TOOLS))
+    return importlib.import_module(name)
+
+
+def _chip_smoke_phases() -> set:
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    return {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+def test_every_tool_maps_to_a_counterpart_or_a_reason():
+    import importlib
+    tools = {p.name for p in TOOLS.glob("*.py")}
+    assert not set(TOOL_COUNTERPARTS) & set(TOOLS_NOT_PORTED)
+    assert tools == set(TOOL_COUNTERPARTS) | set(TOOLS_NOT_PORTED)
+    phases = _chip_smoke_phases()
+    for tool, (module, fn) in TOOL_COUNTERPARTS.items():
+        if module == "chip_smoke":
+            assert fn in phases, (tool, fn)
+        else:
+            assert callable(getattr(importlib.import_module(module), fn)), \
+                (tool, module, fn)
+    assert all(reason for reason in TOOLS_NOT_PORTED.values())
+
+
+def _spec_words(tool_main) -> set:
+    """The strings the tool's ``main`` compares ``args.spec`` with."""
+    import inspect
+    words = set()
+    for node in ast.walk(ast.parse(inspect.getsource(tool_main))):
+        if (isinstance(node, ast.Compare)
+                and ast.unparse(node.left) == "args.spec"):
+            words |= {c.value for c in node.comparators
+                      if isinstance(c, ast.Constant)}
+    return words
+
+
+def test_every_chaos_soak_spec_and_wire_maps_to_the_port():
+    from attendance_tpu_torch.chaos import soak
+    cs = _tool_module("chaos_soak")
+    parser = _capture_parser(lambda _argv: cs.main(), [])
+    actions = {a.dest: a for a in _options(parser)}
+    assert actions["spec"].default == cs.DEFAULT_SPEC
+    words = _spec_words(cs.main) | {"default"}
+    assert words == set(SPEC_COUNTERPARTS) == set(soak.SPEC_WORDS)
+    tool_specs = {"default": cs.DEFAULT_SPEC, "rot": cs.ROT_SPEC,
+                  "shm": cs.SHM_SPEC, "temporal": cs.TEMPORAL_SPEC}
+    assert soak.SPEC_WORDS == tool_specs
+    assert set(actions["wire"].choices) == set(WIRE_COUNTERPARTS) \
+        == set(soak.WIRES)
+    port_parser = _capture_parser(soak.main, [])
+    port_actions = {a.dest: a for a in _options(port_parser)}
+    assert set(port_actions["wire"].choices) == set(actions["wire"].choices)
+    for fn in {*SPEC_COUNTERPARTS.values(), *WIRE_COUNTERPARTS.values()}:
+        assert callable(getattr(soak, fn)), fn
+    # The wire reaches each function that builds the stream.
+    import inspect
+    for fn in (soak.run_soak, soak.soak_frames, soak.poison_frames,
+               soak.no_fault_state):
+        assert "wire" in inspect.signature(fn).parameters, fn.__name__
