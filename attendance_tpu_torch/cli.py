@@ -93,9 +93,12 @@ With ``--metrics-port``, ``serve`` and a
 ``fused`` run with ``--serve-port`` also answer the query verbs as JSON
 under ``/query/*`` (``serve/http.py``).
 
-Every verb takes ``--transport-backend {memory,socket}`` (``socket``: a
-BrokerServer at ``--socket-broker``, started with ``python -m
-attendance_tpu_torch.transport.socket_broker``). The verbs that open a
+Every verb but ``serve`` takes ``--transport-backend
+{memory,socket,pulsar}`` (``socket``: a BrokerServer at
+``--socket-broker``, started with ``python -m
+attendance_tpu_torch.transport.socket_broker``; ``pulsar``: a Pulsar
+service at ``--pulsar-host`` through pulsar-client, which is
+import-gated and raises when absent). The verbs that open a
 broker client (``fused``, ``generate``, ``process``, ``pipeline``,
 ``bridge``, ``federate``) take the fault plane's ``--chaos SPEC`` and
 ``--chaos-seed N`` (``chaos/``); ``generate``, ``process`` and
@@ -292,6 +295,7 @@ def _transport_config(args) -> dict:
     with the fault plane's of a verb that has them."""
     return dict(transport_backend=args.transport_backend,
                 socket_broker=args.socket_broker,
+                pulsar_host=args.pulsar_host,
                 pulsar_topic=args.pulsar_topic,
                 quarantine_dir=args.quarantine_dir,
                 retry_budget_s=args.retry_budget_s, **_chaos_config(args),
@@ -1275,14 +1279,17 @@ def _add_ingress_flags(p: argparse.ArgumentParser) -> None:
 
 def _add_transport_flags(p: argparse.ArgumentParser) -> None:
     d = Config()
-    p.add_argument("--transport-backend", choices=["memory", "socket"],
+    p.add_argument("--transport-backend",
+                   choices=["memory", "socket", "pulsar"],
                    default=d.transport_backend,
                    help="socket = a BrokerServer shared by processes "
                    "(python -m attendance_tpu_torch.transport."
-                   "socket_broker)")
+                   "socket_broker); pulsar = a Pulsar service at "
+                   "--pulsar-host (needs pulsar-client)")
     p.add_argument("--socket-broker", default=d.socket_broker,
                    help="BrokerServer address for --transport-backend "
                    "socket")
+    p.add_argument("--pulsar-host", default=d.pulsar_host)
     p.add_argument("--pulsar-topic", default=d.pulsar_topic)
     p.add_argument("--quarantine-dir", default=d.quarantine_dir,
                    help="write dead-lettered frames here before the ack "

@@ -17,6 +17,7 @@ from typing import List
 
 from attendance_tpu_torch.temporal.buckets import period_micros
 
+PULSAR_HOST = "pulsar://localhost:6650"
 PULSAR_TOPIC = "attendance-events"
 REDIS_HOST = "localhost"
 REDIS_PORT = 6379
@@ -30,6 +31,7 @@ HLL_KEY_PREFIX = "hll:unique:"
 
 @dataclasses.dataclass
 class Config:
+    pulsar_host: str = PULSAR_HOST
     pulsar_topic: str = PULSAR_TOPIC
     redis_host: str = REDIS_HOST
     redis_port: int = REDIS_PORT
@@ -46,10 +48,10 @@ class Config:
     # the hermetic simulation of Redis's algorithms.
     sketch_backend: str = "tpu"
     # Transport of the processor, the fused pipeline and the bridge:
-    # "memory" (the process's in-process broker) or "socket" (a
+    # "memory" (the process's in-process broker), "socket" (a
     # BrokerServer at socket_broker: python -m
-    # attendance_tpu_torch.transport.socket_broker). The pulsar transport
-    # is not ported.
+    # attendance_tpu_torch.transport.socket_broker) or "pulsar" (a
+    # Pulsar service at pulsar_host through pulsar-client, import-gated).
     transport_backend: str = "memory"
     # Address of the BrokerServer of --transport-backend socket.
     socket_broker: str = "127.0.0.1:6655"
@@ -352,6 +354,15 @@ class Config:
         if self.transport_backend not in ("memory", "socket", "pulsar"):
             raise ValueError(
                 f"unknown transport backend: {self.transport_backend}")
+        if (self.chaos and self.transport_backend == "pulsar"
+                and self.ingress_wire != "shm"):
+            # The chaos proxies rebuild messages with the memory broker's
+            # call shapes, which pulsar-client's consumers do not take:
+            # the fault plane cannot ride this transport, and a soak with
+            # it quietly off would pass without a fault.
+            raise ValueError(
+                "chaos is not supported on the pulsar transport (the fault "
+                "plane rides the memory, socket and shm transports)")
         if self.storage_backend not in ("memory", "columnar", "cassandra"):
             raise ValueError(
                 f"unknown storage backend: {self.storage_backend}")

@@ -55,7 +55,8 @@ from attendance_tpu_torch.federation.merge import (
 from attendance_tpu_torch.federation.shard import ShardMap
 from attendance_tpu_torch.obs.tracing import format_ctx, parse_ctx
 from attendance_tpu_torch.serve.mirror import ReadMirror
-from attendance_tpu_torch.transport import PoisonTracker, make_client
+from attendance_tpu_torch.transport import (
+    PoisonTracker, collect_batch, make_client, message_id)
 from attendance_tpu_torch.transport.framing import (
     FrameChecksumError, dec_checksummed, enc_checksummed)
 from attendance_tpu_torch.transport.memory_broker import ReceiveTimeout
@@ -470,11 +471,16 @@ class Aggregator:
     def poll(self, timeout_ms: int = 200) -> int:
         """Drain one receive round; returns the state frames folded (and
         publishes a fresh epoch when any was)."""
-        try:
-            msgs = self.consumer.receive_many(64,
-                                              timeout_millis=timeout_ms)
-        except ReceiveTimeout:
-            return 0
+        if not hasattr(self.consumer, "receive_many"):
+            # A consumer without the batch receive (pulsar-client's):
+            # per-message receives within the same window.
+            msgs = collect_batch(self.consumer, 64, timeout_ms / 1e3)
+        else:
+            try:
+                msgs = self.consumer.receive_many(
+                    64, timeout_millis=timeout_ms)
+            except ReceiveTimeout:
+                return 0
         folded = 0
         for msg in msgs:
             raw = bytes(msg.data())
@@ -487,8 +493,7 @@ class Aggregator:
                 # holds the original bytes, so a bounded nack
                 # redelivers them clean; past the bound the frame is
                 # dropped rather than folded mangled.
-                mid = msg.message_id
-                mid = mid() if callable(mid) else mid
+                mid = message_id(msg)
                 failures = self._poison.bump(mid)
                 if failures <= 3:
                     logger.error(

@@ -7,11 +7,13 @@ consumes bulk binary frames. The bridge drains the JSON topic in
 micro-batches, decodes a batch through the codec seam (the native scan,
 ``ATP_NATIVE=0``: Python), packs the columns into one planar frame,
 publishes it on ``<topic>-binary`` and only then acknowledges the JSON
-messages (it reads the broker's chunk lane, which the memory and socket
-consumers have), so it is at-least-once end to end: a crash replays JSON
+messages, so it is at-least-once end to end: a crash replays JSON
 messages into duplicate frames that the idempotent sketches and the
-last-write-wins store absorb. Several bridges on one shared subscription
-scale the decode across processes.
+last-write-wins store absorb. It reads the broker's chunk lane where the
+consumer has one (memory, socket), else the Message path: per-message
+receives (``collect_batch``), payloads by ``data()``, acks message by
+message (pulsar-client's consumer). Several bridges on one shared
+subscription scale the decode across processes.
 
 A batch with a poison payload is converted message by message, so only
 the bad payloads are nacked and, after ``max_redeliveries``,
@@ -41,7 +43,8 @@ from attendance_tpu_torch.pipeline.events import (
     columns_from_events, decode_event)
 from attendance_tpu_torch.pipeline.processor import ProcessorMetrics
 from attendance_tpu_torch.transport import (
-    PoisonTracker, collect_chunks, handle_poison, make_client)
+    PoisonTracker, acknowledge_all, collect_batch, collect_chunks,
+    handle_poison, make_client)
 from attendance_tpu_torch.transport.memory_broker import Message
 
 logger = logging.getLogger(__name__)
@@ -73,45 +76,58 @@ class JsonBinaryBridge:
         self._codec = get_codec("json")
         self.metrics = ProcessorMetrics()
         self._poison = PoisonTracker()
+        # The chunk lane where the consumer has it, else the Message
+        # path; fixed with the consumer.
+        self._chunk = hasattr(self.consumer, "receive_chunk")
 
     def _forward(self, toks, chunks) -> None:
-        """Convert one micro-batch and publish it. ``toks`` are its raw
-        ``(message_id, data, redeliveries, properties)`` tuples and
-        ``chunks`` the broker's ``(chunk_id, tuples)`` handles holding
-        them (a chunk is one in-flight entry, settled at once), exploded
-        into per-message entries only on the poison path."""
+        """Convert one micro-batch and publish it. On the chunk lane
+        ``toks`` are its raw ``(message_id, data, redeliveries,
+        properties)`` tuples and ``chunks`` the broker's ``(chunk_id,
+        tuples)`` handles holding them (a chunk is one in-flight entry,
+        settled at once), exploded into per-message entries only on the
+        poison path; on the Message path ``toks`` are the consumer's
+        Messages and ``chunks`` is None."""
         if self._chaos is not None:
             d = self._chaos.delay_s("bridge.forward")
             if d:
                 time.sleep(d)
-        payloads = [t[1] for t in toks]
+        raw = self._chunk
+        payloads = ([t[1] for t in toks] if raw
+                    else [m.data() for m in toks])
         span = out_props = None
         if self._tracer is not None:
-            span, out_props = self._begin_forward_span(toks[0], len(toks))
+            props = (toks[0][3] if raw else toks[0].properties()
+                     if hasattr(toks[0], "properties") else None)
+            span, out_props = self._begin_forward_span(props, len(toks))
         try:
             cols = self._codec.decode(payloads)
         except Exception:
             # A poison payload somewhere in the batch: convert message
             # by message (the full conversion: valid JSON with a bad
             # timestamp is poison too) so only the bad ones dead-letter.
-            for cid, _ in chunks:
+            for cid, _ in chunks or ():
                 self.consumer.explode_chunk(cid)
             good, parts = [], []
-            for tok in toks:
+            for payload, tok in zip(payloads, toks):
                 try:
                     parts.append(columns_from_events(
-                        [decode_event(tok[1])]))
+                        [decode_event(payload)]))
                     good.append(tok)
                 except Exception:
-                    handle_poison(Message(tok[1], tok[0], tok[2], tok[3]),
-                                  self.consumer, self.metrics, self.config,
-                                  logger, count_nack=False,
+                    msg = (Message(tok[1], tok[0], tok[2], tok[3]) if raw
+                           else tok)
+                    handle_poison(msg, self.consumer, self.metrics,
+                                  self.config, logger, count_nack=False,
                                   tracker=self._poison)
             if good:
                 cols = {k: np.concatenate([p[k] for p in parts])
                         for k in parts[0]}
                 self._publish(cols, len(good), out_props)
-                self.consumer.acknowledge_ids([t[0] for t in good])
+                if raw:
+                    self.consumer.acknowledge_ids([t[0] for t in good])
+                else:
+                    acknowledge_all(self.consumer, good)
             if span is not None:
                 if good:
                     self._tracer.end_span(span, messages=len(good))
@@ -119,19 +135,22 @@ class JsonBinaryBridge:
                     self._tracer.end_span(span, error="all-poison")
             return
         self._publish(cols, len(toks), out_props)
-        for cid, _ in chunks:
-            self.consumer.acknowledge_chunk(cid)
+        if raw:
+            for cid, _ in chunks:
+                self.consumer.acknowledge_chunk(cid)
+        else:
+            acknowledge_all(self.consumer, toks)
         if span is not None:
             self._tracer.end_span(span, messages=len(toks))
 
-    def _begin_forward_span(self, tok, n: int):
-        """Open the ``bridge_forward`` span continuing the first
-        message's trace, and the outgoing frame's properties naming it
-        as the parent."""
+    def _begin_forward_span(self, props, n: int):
+        """Open the ``bridge_forward`` span continuing the trace in the
+        first message's properties, and the outgoing frame's properties
+        naming it as the parent."""
         from attendance_tpu_torch.obs.tracing import (
             TRACEPARENT, format_ctx, parse_ctx)
 
-        ctx = parse_ctx((tok[3] or {}).get(TRACEPARENT))
+        ctx = parse_ctx((props or {}).get(TRACEPARENT))
         span = self._tracer.start_span(
             "bridge_forward",
             trace_id=ctx.trace_id if ctx is not None else None,
@@ -156,10 +175,16 @@ class JsonBinaryBridge:
         t0 = time.perf_counter()
         idle_since = time.monotonic()
         while True:
-            chunks = collect_chunks(self.consumer, self.config.batch_size,
-                                    self.config.batch_timeout_s)
-            toks = ([t for _, ts in chunks for t in ts]
-                    if len(chunks) != 1 else chunks[0][1])
+            if self._chunk:
+                chunks = collect_chunks(self.consumer,
+                                        self.config.batch_size,
+                                        self.config.batch_timeout_s)
+                toks = ([t for _, ts in chunks for t in ts]
+                        if len(chunks) != 1 else chunks[0][1])
+            else:
+                chunks = None
+                toks = collect_batch(self.consumer, self.config.batch_size,
+                                     self.config.batch_timeout_s)
             if not toks:
                 if time.monotonic() - idle_since > idle_timeout_s:
                     break

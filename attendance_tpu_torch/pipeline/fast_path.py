@@ -168,7 +168,8 @@ from attendance_tpu_torch.storage.columnar_store import ColumnarEventStore
 from attendance_tpu_torch.temporal.buckets import is_bucket_key
 from attendance_tpu_torch.temporal.plane import TemporalPlane
 from attendance_tpu_torch.transport import (
-    PoisonTracker, handle_poison, make_client, redelivery_count)
+    PoisonTracker, acknowledge_all, handle_poison, make_client,
+    redelivery_count)
 from attendance_tpu_torch.transport.memory_broker import ReceiveTimeout
 from attendance_tpu_torch.utils.integrity import (
     ChainIntegrityError, chaos_post_publish, chaos_pre_write, file_digest,
@@ -581,10 +582,13 @@ class FusedPipeline:
         else:
             self.consumer = self.client.subscribe(self.config.pulsar_topic,
                                                   self.SUBSCRIPTION)
-            if self.config.ingress_wire != "shm":
+            if (self.config.ingress_wire != "shm"
+                    and hasattr(self.consumer, "receive_many_raw")):
                 # Per-event JSON coalesces into one decode and one
                 # dispatch a chunk; bulk frames pass through untouched.
-                # (A ring slot always holds a planar frame already.)
+                # (A ring slot always holds a planar frame already.) A
+                # consumer without the raw lane (pulsar-client's) serves
+                # the run loop message by message.
                 self.consumer = JsonChunkConsumer(
                     self.consumer, self.config, obs=self._obs,
                     metrics=self.metrics)
@@ -2051,8 +2055,7 @@ class FusedPipeline:
                 self._snap_cv.notify_all()
 
     def _ack(self, msgs) -> None:
-        for msg in msgs:
-            self.consumer.acknowledge(msg)
+        acknowledge_all(self.consumer, msgs)
 
     def _ack_unacked(self) -> None:
         """A durable full base covers every frame before its capture:

@@ -32,9 +32,12 @@ receives, so a frame is never acked before its barrier is durable,
 whichever lane carried it. Lane threads never touch torch: the H2D
 copies and launches stay on the dispatch thread and its stream.
 
-The port's lanes read only the chunk lane, which every port consumer
-(memory, socket, shm) has; the JAX package's raw and ``Message``
-fallbacks are not ported. With the sampling profiler on, a lane thread
+A lane reads the chunk lane where its consumer has one (memory,
+socket, shm); a consumer without it (pulsar-client's) takes the
+``Message`` path: ``collect_batch`` of per-message receives, payloads by
+``data()``, acks and nacks message by message. The JAX package's raw
+lane without chunks is not ported: no port consumer has the raw lane
+and not the chunk lane. With the sampling profiler on, a lane thread
 marks its stage ``lane_decode`` once (sticky: the thread does nothing
 else).
 
@@ -58,7 +61,8 @@ import numpy as np
 
 from attendance_tpu_torch.pipeline import codec as codec_mod
 from attendance_tpu_torch.transport import (
-    PoisonTracker, acknowledge_all, handle_poison)
+    PoisonTracker, acknowledge_all, collect_batch, handle_poison,
+    message_id, redelivery_count)
 from attendance_tpu_torch.transport.memory_broker import (
     Message, ReceiveTimeout)
 
@@ -96,19 +100,53 @@ def _require_list_scan() -> None:
             "'vector'")
 
 
+def _tok_payload(tok, raw: bool):
+    """A token's payload: a raw ``(message_id, data, redeliveries,
+    properties)`` tuple's, or a Message's ``data()``."""
+    return tok[1] if raw else tok.data()
+
+
+def _tok_props(tok, raw: bool):
+    if raw:
+        return tok[3]
+    return tok.properties() if hasattr(tok, "properties") else None
+
+
+def _tok_redeliveries(tok, raw: bool) -> int:
+    return tok[2] if raw else redelivery_count(tok)
+
+
+def _events_in(payloads) -> int:
+    """Events in received payloads, sniffed from the first: one a JSON
+    message, a whole frame a bulk one (a payload that looks binary but
+    does not parse counts one: the poison path owns it). A topic mixes
+    wires only in tests, and a mixed batch only makes the next request's
+    size approximate."""
+    if codec_mod.codec_for_frame(payloads[0]).name == "json":
+        return len(payloads)
+    total = 0
+    for payload in payloads:
+        try:
+            total += codec_mod.frame_event_count(payload)
+        except ValueError:
+            total += 1
+    return total
+
+
 def _decode_each(toks, consumer, config, metrics, tracker, count_nack,
-                 tracer=None):
+                 tracer=None, raw: bool = True):
     """A chunk whose batch decode failed, decoded message by message so
     only the bad payloads take the poison path (nack, then dead-letter
-    after ``max_redeliveries``). Returns (merged columns of the good
-    messages or None, their tuples). With a ``tracer`` each poison
+    after ``max_redeliveries``). ``toks`` are raw tuples, or with ``raw``
+    False the consumer's Messages. Returns (merged columns of the good
+    messages or None, their tokens). With a ``tracer`` each poison
     attempt is a batch (or retry) span continuing the publisher's trace,
     closed with an error."""
     from attendance_tpu_torch.pipeline.events import (
         columns_from_events, decode_event)
     good, parts = [], []
     for tok in toks:
-        payload = tok[1]
+        payload = _tok_payload(tok, raw)
         try:
             if codec_mod.codec_for_frame(payload).name != "json":
                 # Binary and COLW frames: decode_frame raises on a
@@ -123,11 +161,11 @@ def _decode_each(toks, consumer, config, metrics, tracker, count_nack,
             if tracer is not None:
                 now = time.perf_counter()
                 span = tracer.begin_consume(
-                    tok[3], tok[2], role="fused-pipeline", start=now,
-                    got=now, wait_name="dequeue_wait",
-                    args={"bytes": len(tok[1])})
-            handle_poison(Message(tok[1], tok[0], tok[2], tok[3]),
-                          consumer, metrics, config, logger,
+                    _tok_props(tok, raw), _tok_redeliveries(tok, raw),
+                    role="fused-pipeline", start=now, got=now,
+                    wait_name="dequeue_wait", args={"bytes": len(payload)})
+            msg = Message(tok[1], tok[0], tok[2], tok[3]) if raw else tok
+            handle_poison(msg, consumer, metrics, config, logger,
                           count_nack=count_nack, tracker=tracker)
             if span is not None:
                 tracer.end_span(span, error=True)
@@ -346,8 +384,9 @@ class _LaneQueue:
 class _Block:
     """One lane micro-batch: decoded columns, or one raw binary frame
     passed through; ``chunks`` are the broker's (chunk_id, tuples)
-    handles that settle it (None once the poison path exploded them:
-    then ``acks``, its message tuples, settle it by id)."""
+    handles that settle it (None once the poison path exploded them, and
+    on the Message path: then ``acks``, its message tuples or Messages,
+    settle it message by message)."""
 
     __slots__ = ("lane", "cols", "raw", "n", "acks", "chunks", "props",
                  "redeliveries", "key")
@@ -410,6 +449,10 @@ class IngressLane:
         self._batch = batch_size
         self._stop = stop
         self._prefer_vector = prefer_vector
+        # The chunk lane (a batch is one broker in-flight entry, settled
+        # at once) where the consumer has it; else the Message path,
+        # whose tokens are the consumer's Messages.
+        self._chunk_lane = hasattr(consumer, "receive_chunk")
         # Events per message, learnt from the last block: 1 on the JSON
         # wire, a whole frame on the bulk wires. 0 = unknown: the first
         # request asks for one message, so a bulk backlog never arrives
@@ -493,21 +536,27 @@ class IngressLane:
                 # settlement, instead of many.
                 time.sleep(0.002)
             total_msgs += len(toks)
-            # Sizing sniffs the chunk's first payload only: a topic mixes
-            # wires only in tests, and a mixed chunk only makes the next
-            # request's size approximate. A payload that looks binary but
-            # does not parse counts one event (the poison path owns it).
-            if codec_mod.codec_for_frame(toks[0][1]).name != "json":
-                for tok in toks:
-                    try:
-                        total_events += codec_mod.frame_event_count(tok[1])
-                    except ValueError:
-                        total_events += 1
-            else:
-                total_events += len(toks)
+            total_events += _events_in([t[1] for t in toks])
         if total_msgs:
             self._ev_per_msg = max(1, total_events // total_msgs)
         return chunks
+
+    def _collect_messages(self) -> list:
+        """The Message path: ``collect_batch`` of as many messages as
+        make ``batch_size`` events at the last block's events per message
+        (one while that is unknown, as on the chunk lane), or what
+        arrived when ``batch_timeout_s`` expired with at least one. An
+        idle round drains settlements."""
+        want = (1 if self._ev_per_msg == 0
+                else max(1, self._batch // self._ev_per_msg))
+        msgs = collect_batch(self.consumer, want,
+                             self.config.batch_timeout_s)
+        if not msgs:
+            self._drain_settlements()  # idle: settle promptly
+            return msgs
+        self._ev_per_msg = max(
+            1, _events_in([m.data() for m in msgs]) // len(msgs))
+        return msgs
 
     def pause(self) -> None:
         """Park this lane: it stops receiving but keeps settling (acks of
@@ -530,8 +579,13 @@ class IngressLane:
             if self._paused.is_set():
                 time.sleep(0.05)
                 continue
+            chunks = None
             try:
-                chunks = self._collect_chunks()
+                if self._chunk_lane:
+                    chunks = self._collect_chunks()
+                    toks = [t for _, ts in chunks for t in ts]
+                else:
+                    toks = self._collect_messages()
             except Exception:
                 if self._stop.is_set():
                     return  # teardown severed the session
@@ -539,7 +593,6 @@ class IngressLane:
                                  "retrying", self.index)
                 time.sleep(0.05)
                 continue
-            toks = [t for _, ts in chunks for t in ts]
             if not toks:
                 continue
             t0 = time.perf_counter()
@@ -575,41 +628,46 @@ class IngressLane:
                 args={"lane": self.index, "events": block.n})
 
     def _block_key(self, toks) -> tuple:
-        return (self.index, toks[0][0], toks[-1][0], len(toks))
+        if self._chunk_lane:
+            return (self.index, toks[0][0], toks[-1][0], len(toks))
+        return (self.index, message_id(toks[0]), message_id(toks[-1]),
+                len(toks))
+
+    def _block(self, toks, chunks, **kw) -> _Block:
+        raw = self._chunk_lane
+        return _Block(self.index, acks=toks, chunks=chunks,
+                      props=_tok_props(toks[0], raw),
+                      redeliveries=max(_tok_redeliveries(t, raw)
+                                       for t in toks),
+                      key=self._block_key(toks), **kw)
 
     def _decode(self, toks, chunks) -> _Block:
-        payloads = [t[1] for t in toks]
+        payloads = [_tok_payload(t, self._chunk_lane) for t in toks]
         first = payloads[0]
-        red = max(t[2] for t in toks)
         if (len(payloads) == 1
                 and codec_mod.codec_for_frame(first).name == "binary"):
             # One bulk binary frame: passed through raw, never repacked.
-            return _Block(self.index, raw=first,
-                          n=codec_mod.frame_event_count(first), acks=toks,
-                          chunks=chunks, props=toks[0][3],
-                          redeliveries=red, key=self._block_key(toks))
+            return self._block(toks, chunks, raw=first,
+                               n=codec_mod.frame_event_count(first))
         cols = codec_mod.codec_for_frame(first).decode(
             payloads, prefer_gil_release=self._prefer_vector)
-        return _Block(self.index, cols=cols, n=len(cols["student_id"]),
-                      acks=toks, chunks=chunks, props=toks[0][3],
-                      redeliveries=red, key=self._block_key(toks))
+        return self._block(toks, chunks, cols=cols,
+                           n=len(cols["student_id"]))
 
     def _decode_poison(self, toks, chunks) -> Optional[_Block]:
         """The batch decode failed: per message, so only the poison
-        payloads dead-letter. The chunk handles are exploded into
-        per-message in-flight entries first (per-message ack and nack
-        need them); the good messages then settle by id."""
-        for cid, _ in chunks:
+        payloads dead-letter. On the chunk lane the chunk handles are
+        exploded into per-message in-flight entries first (per-message
+        ack and nack need them); the good messages then settle by id."""
+        for cid, _ in chunks or ():
             self.consumer.explode_chunk(cid)
         cols, good = _decode_each(toks, self.consumer, self.config,
                                   _NullMetrics(), self._poison,
-                                  count_nack=False)
+                                  count_nack=False, raw=self._chunk_lane)
         if cols is None:
             return None
-        return _Block(self.index, cols=cols, n=len(cols["student_id"]),
-                      acks=list(good), chunks=None, props=good[0][3],
-                      redeliveries=max(t[2] for t in good),
-                      key=self._block_key(good))
+        return self._block(list(good), None, cols=cols,
+                           n=len(cols["student_id"]))
 
     # -- settlement: queued by the dispatcher and the writer, performed by
     # -- the lane thread (see _settle_q) -----------------------------------
@@ -620,20 +678,23 @@ class IngressLane:
         self._settle_q.append(("nack", block))
 
     def _ack_now(self, block: _Block) -> None:
-        if block.chunks is None:  # exploded by the poison path
+        if not self._chunk_lane:  # the Message path
+            acknowledge_all(self.consumer, block.acks)
+        elif block.chunks is None:  # exploded by the poison path
             self.consumer.acknowledge_ids([t[0] for t in block.acks])
-            return
-        for cid, _ in block.chunks:
-            self.consumer.acknowledge_chunk(cid)
+        else:
+            for cid, _ in block.chunks:
+                self.consumer.acknowledge_chunk(cid)
 
     def _nack_now(self, block: _Block) -> None:
-        if block.chunks is None:
-            for mid, data, red, props in block.acks:
-                self.consumer.negative_acknowledge(
-                    Message(data, mid, red, props))
+        if block.chunks is not None:
+            for cid, _ in block.chunks:
+                self.consumer.nack_chunk(cid)
             return
-        for cid, _ in block.chunks:
-            self.consumer.nack_chunk(cid)
+        for tok in block.acks:
+            self.consumer.negative_acknowledge(
+                tok if not self._chunk_lane
+                else Message(tok[1], tok[0], tok[2], tok[3]))
 
 
 class StripedConsumer:
@@ -761,6 +822,13 @@ class StripedConsumer:
             self.lanes[lane_idx].nack(block)
 
     def backlog(self) -> int:
+        """Messages the lanes' subscription still holds. A consumer
+        without ``backlog`` (pulsar-client's: Pulsar reports a backlog
+        through its admin API, not its client) raises, as no number is
+        known."""
+        if not all(hasattr(lane.consumer, "backlog") for lane in self.lanes):
+            raise NotImplementedError(
+                "the ingress lanes' consumers report no backlog")
         return sum(lane.consumer.backlog() for lane in self.lanes)
 
     def lane_event_totals(self) -> List[int]:

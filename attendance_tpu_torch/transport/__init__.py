@@ -7,10 +7,17 @@ drives an external Pulsar broker: ``Client(host).create_producer(topic)
 ``acknowledge()`` / ``negative_acknowledge()``. The port serves those
 call shapes from two backends (``--transport-backend``): ``memory``, the
 process's in-process broker, and ``socket``, a memory broker behind a
-TCP front (``transport.socket_broker``) shared by processes; with
-``--ingress-wire shm`` the event topic rides the shared-memory ring
-(``transport.shm_ring``) instead. The pulsar transport is not ported and
-raises.
+TCP front (``transport.socket_broker``) shared by processes, and
+``pulsar``, a Pulsar service through pulsar-client
+(``transport.pulsar_client``, import-gated); with ``--ingress-wire shm``
+the event topic rides the shared-memory ring (``transport.shm_ring``)
+instead.
+
+The memory and socket consumers add batch calls (``receive_many``,
+``acknowledge_many``, the raw and chunk lanes); a pulsar-client consumer
+has only the per-message ones, and its messages give their id and
+redelivery count as methods. The helpers here detect each batch call
+and fall back to the per-message call without it.
 """
 
 from __future__ import annotations
@@ -29,6 +36,20 @@ def redelivery_count(msg) -> int:
     the memory broker's messages, a method on ``pulsar.Message``."""
     rc = msg.redelivery_count
     return rc() if callable(rc) else rc
+
+
+def message_id(msg):
+    """A hashable id of a received message that is the same on every
+    redelivery: the memory broker's attribute, or the value of
+    ``pulsar.Message.message_id()``, keyed by its ``serialize()`` bytes
+    (a ``MessageId`` is a new object on each delivery, and its
+    hashability is not part of pulsar-client's surface)."""
+    mid = msg.message_id
+    if not callable(mid):
+        return mid
+    mid = mid()
+    serialize = getattr(mid, "serialize", None)
+    return serialize() if serialize is not None else mid
 
 
 class PoisonTracker:
@@ -72,7 +93,8 @@ def handle_poison(msg, consumer, metrics, config, logger, *,
     failures (the broker's count grows with every requeue).
     """
     # Completed nacks so far for this frame's own failures.
-    attempts = tracker.bump(msg.message_id) - 1
+    mid = message_id(msg)
+    attempts = tracker.bump(mid) - 1
     # Backstop: the tracker's LRU forgets under a poison burst wider than
     # its cap; the broker's count grows regardless, so past a generous
     # multiple of the bound the frame dead-letters anyway.
@@ -80,7 +102,7 @@ def handle_poison(msg, consumer, metrics, config, logger, *,
     attempts = max(attempts, redelivery_count(msg) - backstop
                    + config.max_redeliveries)
     if attempts >= config.max_redeliveries:
-        tracker.forget(msg.message_id)
+        tracker.forget(mid)
         if config.quarantine_dir:
             try:
                 from attendance_tpu_torch.transport.quarantine import (
@@ -125,11 +147,17 @@ def _fill_until(batch_size: int, timeout_s: float, step) -> None:
 def collect_batch(consumer, batch_size: int, timeout_s: float) -> list:
     """Fill a micro-batch from a consumer: up to ``batch_size`` messages,
     or whatever arrived when ``timeout_s`` expires with at least one
-    (partial batch)."""
+    (partial batch). The consumer's ``receive_many`` drains under one
+    lock (one RPC on the socket transport); a consumer without it (a
+    pulsar-client one) receives message by message."""
+    batch_recv = getattr(consumer, "receive_many", None)
     msgs: list = []
 
     def step(n, timeout_ms):
-        got = consumer.receive_many(n, timeout_millis=timeout_ms)
+        if batch_recv is None:
+            msgs.append(consumer.receive(timeout_millis=timeout_ms))
+            return 1
+        got = batch_recv(n, timeout_millis=timeout_ms)
         msgs.extend(got)
         return len(got)
 
@@ -153,17 +181,24 @@ def collect_chunks(consumer, batch_size: int, timeout_s: float) -> list:
 
 
 def acknowledge_all(consumer, msgs) -> None:
-    """Ack a batch in one broker call."""
-    consumer.acknowledge_many(msgs)
+    """Ack a batch in one broker call when the consumer has
+    ``acknowledge_many``, else message by message."""
+    batch_ack = getattr(consumer, "acknowledge_many", None)
+    if batch_ack is not None:
+        batch_ack(msgs)
+        return
+    for m in msgs:
+        consumer.acknowledge(m)
 
 
 def make_client(config):
     """The transport client selected by config: with ``ingress_wire
     shm`` the shared-memory ring client over ``config.shm_dir``
     (``transport.shm_ring``), else by ``transport_backend`` the
-    process's shared memory broker, or a SocketClient of the broker at
-    ``config.socket_broker`` (retry budget ``config.retry_budget_s``).
-    The pulsar transport is not ported.
+    process's shared memory broker, a SocketClient of the broker at
+    ``config.socket_broker`` (retry budget ``config.retry_budget_s``),
+    or a PulsarClient of ``config.pulsar_host`` (raises without
+    pulsar-client).
 
     The chaos chokepoint: with ``config.chaos`` set, the socket client
     gets the injector at its RPC seams (drop, conn_reset and delay on
@@ -171,7 +206,10 @@ def make_client(config):
     backend-agnostic proxies (dup, delay, corrupt, partition), so one
     spec drives the memory broker's soak and the socket broker's. The
     shm ring carries its faults (torn_slot, writer_stall) in its
-    producer and is not wrapped: its seqlock owns torn delivery."""
+    producer and is not wrapped: its seqlock owns torn delivery. The
+    pulsar client carries none: ``Config`` refuses ``chaos`` with it,
+    and an injector another config installed in this process raises
+    here."""
     from attendance_tpu_torch import chaos
 
     inj = chaos.ensure(config)
@@ -186,9 +224,13 @@ def make_client(config):
         client = SocketClient(config.socket_broker, chaos=inj,
                               policy=RetryPolicy.from_config(config))
     elif config.transport_backend == "pulsar":
-        raise NotImplementedError(
-            "transport backend 'pulsar' is not in the port; use 'memory' "
-            "or 'socket'")
+        if inj is not None:
+            raise RuntimeError(
+                "the fault plane is on in this process, and the pulsar "
+                "transport does not carry it")
+        from attendance_tpu_torch.transport.pulsar_client import (
+            PulsarClient)
+        return PulsarClient(config.pulsar_host)
     else:
         raise ValueError(
             f"unknown transport backend {config.transport_backend!r}")

@@ -364,12 +364,26 @@ Phases (any failure exits non-zero):
      one line a soak with its wall, the events folded at the kill, the
      backlog, the faults by site and the restored and oracle runs'
      launches;
+  18. the Pulsar transport (``pulsar_phase``, after 17), through
+     ``PulsarClient`` over ``tests/torch_fake_pulsar.py`` installed as the
+     ``pulsar`` module (pulsar-client's per-message surface; the card's
+     machine has no pulsar-client): (a) phase 3's ``fused`` default and
+     (b) the same stream through ``--ingress-lanes 2`` (the lanes'
+     Message path), each equal to phase 3's default run in counters,
+     PFCOUNTs, registers by day and stored rows, with its K3, K2 and K1
+     launches; (c) ``process`` with the card store (BASELINE.md config
+     1's 100k roster filter at 1%) over 65,738 generator events, equal
+     to the same stream over the memory broker in rows, PFCOUNTs,
+     BF.INFO, filters and registers, K7/K8/K5/K1-rows launched; (d) a
+     stream that goes quiet ends by ``idle_timeout_s``, and a poison
+     frame is dead-lettered after exactly 2 nacks, both equal to the
+     memory broker's run of the good frames;
   4. a ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
      A kernel's ``launches`` there sums phase 3's first runs (one per
      wire setting), phase 3b's temporal run, phase 6's pipeline run,
      phase 7(a), phase 8's runs, phase 9(a)'s K = 1 round (the worker's
      run and the oracle's reads), phase 10(c)'s five mesh runs and
-     phases 11's to 17's runs (each also printed on a line of its own;
+     phases 11's to 18's runs (each also printed on a line of its own;
      12's count the scrapes' K4, K9 and K1 launches, 13's its fault runs
      and the restore, 14's its SLO ticks, 16's its warm-up and
      controlled runs, 17's its soaks' parent processes: the killed
@@ -7122,6 +7136,265 @@ def crash_soak_phase(card: str, dev) -> dict:
     return launches
 
 
+# Phase 18: the Pulsar transport on the card, over tests/torch_fake_pulsar.py
+# (pulsar-client is not installed on the card's machine).
+PULSAR_URL = "pulsar://chip-smoke:6650"
+PULSAR_PROC_STUDENTS = 6_100  # 18(c): the generator cut to 65,738 events
+PULSAR_NACK_DELAY_MS = 20     # 18(d): the fake's nack redelivery delay
+PULSAR_QUIET_FRAMES = 2       # 18(d): the quiet stream's frames
+PULSAR_POISON = b"\x00 not a frame"
+# 18(c)'s kernels: K7 (the roster preload), K8, K5, K1-rows.
+PULSAR_PROC_KERNELS = ("bloom_add_bytes", "bloom_contains_bytes", "hll_add",
+                       "hll_histogram_rows")
+
+
+def install_fake_pulsar():
+    """``tests/torch_fake_pulsar.py`` (the pulsar-client 3.x surface over
+    a queue of its own) as the ``pulsar`` module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_fake_pulsar.py"
+    spec = importlib.util.spec_from_file_location("torch_fake_pulsar", path)
+    fake = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake)
+    sys.modules["pulsar"] = fake
+    return fake
+
+
+def _step_count(launches: dict) -> int:
+    return sum(launches.get(k, 0) for k in STEP_KERNELS)
+
+
+def _pulsar_fused(card: str, fake, what: str, config, stream, ref,
+                  ref_launches, launches: dict) -> None:
+    """18(a)/(b): the ``fused`` verb's flow over ``PulsarClient`` (through
+    ``make_client``), held to phase 3's default run: counters, PFCOUNTs,
+    registers by day, stored rows, and K3/K2/K1 launches."""
+    from attendance_tpu_torch.cli import run_fused
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.pipeline.lanes import StripedConsumer
+    from attendance_tpu_torch.transport.pulsar_client import PulsarConsumer
+
+    num_events, frame_size, num_lectures = stream
+    kernels.reset_launches()  # counts set to 0 just before the run
+    pipe, summary = run_fused(config, num_events, frame_size, num_lectures,
+                              seed=0)
+    run = dict(kernels.launches)  # read just after the run
+    try:
+        kind = (StripedConsumer if config.ingress_lanes
+                else PulsarConsumer)
+        check(isinstance(pipe.consumer, kind),
+              f"{what}: consumer {type(pipe.consumer).__name__}")
+        counts = (summary["valid"], summary["invalid"])
+        regs = pipe.state.hll_regs
+        by_day = {d: regs[b] for d, b in pipe._bank_of.items()}
+        rows = _sorted_rows(pipe.store.to_columns(deduplicate=False))
+        lanes = (pipe.consumer.lane_event_totals() if config.ingress_lanes
+                 else None)
+    finally:
+        pipe.cleanup()
+    ref_days = {d: ref[2][b] for d, b in ref[4].items()}
+    check(counts == ref[0], f"{what}: counters {counts} != {ref[0]}")
+    check(summary["unique_attendees"] == ref[1], f"{what}: PFCOUNTs differ")
+    check(by_day.keys() == ref_days.keys() and all(
+        torch.equal(by_day[d], ref_days[d]) for d in ref_days),
+        f"{what}: registers differ from phase 3's default run")
+    for name in rows:
+        check(np.array_equal(rows[name], ref[5][name]),
+              f"{what}: stored column {name} differs")
+    check(fake.pending(config.pulsar_topic, FusedPipeline.SUBSCRIPTION,
+                       config.pulsar_host) == 0, f"{what}: frames unacked")
+    for name in ("bloom_add", "hll_histogram"):
+        check(run[name] == ref_launches[name],
+              f"{what}: {name} launched {run[name]} times, phase 3 "
+              f"{ref_launches[name]}")
+    check(_step_count(run) == _step_count(ref_launches),
+          f"{what}: step launches {_step_count(run)} != "
+          f"{_step_count(ref_launches)}")
+    _add_launches(launches, run)
+    print(f"pulsar {what} on {card}: {summary['events_per_second']} "
+          f"events/s ({summary['events']} events, {summary['batches']} "
+          f"frames, wall {summary['wall_seconds']} s); wires "
+          f"{summary['wire_dwell']}; lane events {lanes}; equal to phase "
+          f"3's default run; launches { {k: v for k, v in run.items() if v} }")
+
+
+def _pulsar_process(card: str, dev, fake, launches: dict) -> None:
+    """18(c): ``process`` with the card store (BASELINE.md config 1's
+    100k-student filter at 1%) over ``PulsarClient``, equal to the same
+    stream over the memory broker."""
+    from datetime import datetime
+
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.generator import generate_student_data
+    from attendance_tpu_torch.pipeline.processor import AttendanceProcessor
+    from attendance_tpu_torch.transport import make_client
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    out = {}
+    for label in ("pulsar", "memory"):
+        config = (Config(transport_backend="pulsar", pulsar_host=PULSAR_URL)
+                  if label == "pulsar" else Config())
+        client = (make_client(config) if label == "pulsar"
+                  else MemoryClient(MemoryBroker()))
+        kernels.reset_launches()  # counts set to 0 just before the flow
+        t0 = time.perf_counter()
+        proc = AttendanceProcessor(config, device=dev, client=client)
+        try:
+            proc.setup_bloom_filter()
+            report = generate_student_data(
+                producer=client.create_producer(config.pulsar_topic),
+                sketch_store=proc.sketch, bloom_key=config.bloom_filter_key,
+                num_students=PULSAR_PROC_STUDENTS, num_invalid=50, seed=0,
+                now=datetime(*INGRESS_NOW), keep_events=False)
+            proc.process_attendance(max_events=report.message_count,
+                                    idle_timeout_s=1.0)
+            wall = time.perf_counter() - t0
+            valid, lecture, sid, counts, info = _pipeline_result(proc,
+                                                                 report)
+            run = dict(kernels.launches)  # the flow and its PFCOUNT reads
+            hll = proc.sketch.hll
+            regs = {k: hll.regs[b].clone() for k, b in hll._bank_of.items()}
+            blooms = {k: [f.clone() for f in c.filters]
+                      for k, c in proc.sketch._blooms.items()}
+            m = proc.metrics
+            out[label] = ((m.events, m.valid_events, m.invalid_events),
+                          valid, lecture, sid, counts, info, regs, blooms)
+        finally:
+            proc.cleanup()
+        for name in PULSAR_PROC_KERNELS:
+            check(run[name] > 0, f"pulsar process {label}: kernel {name} "
+                  "not launched")
+        if label == "pulsar":
+            _add_launches(launches, run)
+            check(fake.pending(config.pulsar_topic,
+                               AttendanceProcessor.SUBSCRIPTION,
+                               PULSAR_URL) == 0,
+                  "pulsar process: events unacked")
+        print(f"pulsar process --sketch-backend tpu ({label}) on {card}: "
+              f"{m.events} events in {m.batches} batches, "
+              f"{m.events_per_second} events/s; generate + process wall "
+              f"{wall} s; "
+              f"launches { {k: v for k, v in run.items() if v} }")
+    a, b = out["pulsar"], out["memory"]
+    check(a[0] == b[0] and a[0][0] == report.message_count,
+          f"pulsar process: metrics {a[0]} != {b[0]}")
+    for i, name in ((1, "validity"), (2, "lecture ids"), (3, "student ids")):
+        check(np.array_equal(a[i], b[i]), f"pulsar process: {name} differ")
+    check(a[4] == b[4], "pulsar process: PFCOUNTs differ")
+    check(a[5] == b[5], f"pulsar process: BF.INFO {a[5]} != {b[5]}")
+    check(a[6].keys() == b[6].keys() and all(
+        torch.equal(a[6][k], b[6][k]) for k in b[6]),
+        "pulsar process: registers differ")
+    check(a[7].keys() == b[7].keys() and all(
+        len(a[7][k]) == len(b[7][k]) and all(
+            torch.equal(x, y) for x, y in zip(a[7][k], b[7][k]))
+        for k in b[7]), "pulsar process: filters differ")
+
+
+def _pulsar_departures(card: str, dev, fake, roster, frames,
+                       launches: dict) -> None:
+    """18(d): a stream that goes quiet ends by ``idle_timeout_s``, and a
+    poison frame among good ones is dead-lettered after exactly
+    ``max_redeliveries`` (2) nacks; both equal the memory broker's run of
+    the good frames."""
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.fast_path import FusedPipeline
+    from attendance_tpu_torch.transport.memory_broker import (
+        MemoryBroker, MemoryClient)
+
+    from attendance_tpu_torch.pipeline.codec import frame_event_count
+
+    n = sum(frame_event_count(f) for f in frames)
+
+    def run(config, payloads, client=None, **run_kw):
+        pipe = FusedPipeline(config, client=client, device=dev)
+        pipe.preload(roster)
+        producer = pipe.client.create_producer(config.pulsar_topic)
+        for p in payloads:
+            producer.send(p)
+        kernels.reset_launches()  # counts set to 0 just before the run
+        t0 = time.perf_counter()
+        pipe.run(**run_kw)
+        wall = time.perf_counter() - t0
+        got = dict(kernels.launches)
+        return pipe, _pipe_state(pipe), wall, got
+
+    ref_pipe, ref, _, _ = run(Config(), frames,
+                              client=MemoryClient(MemoryBroker()),
+                              max_events=n, idle_timeout_s=1.0)
+    ref_pipe.cleanup()
+    for what, payloads in (
+            ("quiet stream", frames),
+            ("poison frame", frames[:1] + [PULSAR_POISON] + frames[1:])):
+        config = Config(transport_backend="pulsar", pulsar_host=PULSAR_URL,
+                        pulsar_topic=f"pulsar-{what.split()[0]}",
+                        max_redeliveries=2)
+        pipe, got, wall, run_l = run(config, payloads, idle_timeout_s=0.5)
+        m = pipe.metrics
+        pending = fake.pending(config.pulsar_topic,
+                               FusedPipeline.SUBSCRIPTION, PULSAR_URL)
+        pipe.cleanup()
+        _check_same(f"pulsar {what}", got, ref)
+        check(m.events == n, f"pulsar {what}: {m.events} events of {n}")
+        check(pending == 0, f"pulsar {what}: {pending} left unacked")
+        check(_step_count(run_l) == PULSAR_QUIET_FRAMES,
+              f"pulsar {what}: step launches {run_l}")
+        want = (2, 1) if what == "poison frame" else (0, 0)
+        check((m.nacked_batches, m.dead_lettered) == want,
+              f"pulsar {what}: nacked {m.nacked_batches}, dead-lettered "
+              f"{m.dead_lettered}, want {want}")
+        _add_launches(launches, run_l)
+        print(f"pulsar {what} on {card}: ended by idle_timeout_s 0.5 after "
+              f"{m.events} events, run wall {wall} s (idle window included), "
+              f"nacked {m.nacked_batches}, dead-lettered {m.dead_lettered}; "
+              f"equal to the memory broker's run of the good frames; "
+              f"launches { {k: v for k, v in run_l.items() if v} }")
+
+
+def pulsar_phase(card: str, dev, ref, ref_launches, stream) -> dict:
+    """Phase 18: the Pulsar transport on the card through ``PulsarClient``
+    over the fake: (a) phase 3's ``fused`` default and (b) the same stream
+    through ``--ingress-lanes 2`` (the lanes' Message path), each equal to
+    phase 3's default run with its K3/K2/K1 launches; (c) ``process`` on
+    the card store over 65,738 generator events, equal to the memory
+    broker's run with K7/K8/K5/K1-rows launched; (d) the quiet-stream
+    idle end and the poison dead-letter. Returns the phase's launches."""
+    from attendance_tpu_torch.config import Config
+    from attendance_tpu_torch.ops import kernels
+    from attendance_tpu_torch.pipeline.loadgen import generate_frames
+
+    t_phase = time.perf_counter()
+    fake = install_fake_pulsar()
+    fake.NACK_DELAY_MS = PULSAR_NACK_DELAY_MS
+    launches = dict.fromkeys(kernels.launches, 0)
+    try:
+        for what, lanes in (("fused (a)", 0), ("fused --ingress-lanes 2 (b)",
+                                                2)):
+            _pulsar_fused(card, fake, what, Config(
+                transport_backend="pulsar", pulsar_host=PULSAR_URL,
+                ingress_lanes=lanes), stream, ref, ref_launches, launches)
+        _pulsar_process(card, dev, fake, launches)
+        num_events, frame_size, num_lectures = stream
+        roster, frames = generate_frames(
+            num_events, frame_size,
+            roster_size=min(Config().bloom_filter_capacity, num_events),
+            num_lectures=num_lectures, seed=0)
+        quiet = [next(frames) for _ in range(PULSAR_QUIET_FRAMES)]
+        _pulsar_departures(card, dev, fake, roster, quiet, launches)
+    finally:
+        sys.modules.pop("pulsar", None)
+    print(f"pulsar phase: {time.perf_counter() - t_phase} s on {card}")
+    print(f"pulsar phase launches (its runs; in the kernels line): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7551,6 +7824,7 @@ def main() -> int:
              for d in np.unique(day).tolist()}
     launches = dict.fromkeys(kernels.launches, 0)
     ref = None  # the default run's (counts, PFCOUNTs, registers, validity)
+    ref_launches = None  # the default first run's, for phase 18
     rates_p3 = {}  # (wire setting, run) -> events/s
     for label, wire, native in WIRE_RUNS:
         for run in ("first", "second"):
@@ -7620,6 +7894,8 @@ def main() -> int:
             if run == "first":
                 for name, count in run_launches.items():
                     launches[name] += count
+                if label == "default":
+                    ref_launches = run_launches
             rates_p3[(label, run)] = summary["events_per_second"]
             device_ms = sum(run_launches[k] * rows[k]["ms"]
                             for k in set(STEP_OF_WIRE.values()))
@@ -7695,6 +7971,10 @@ def main() -> int:
     # -- 17. the repo's crash soaks ---------------------------------------------
     crash_launches = crash_soak_phase(card, dev)
 
+    # -- 18. the Pulsar transport -----------------------------------------------
+    pulsar_launches = pulsar_phase(card, dev, ref, ref_launches,
+                                   (num_events, frame_size, num_lectures))
+
     # -- 4. summary -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_main} s in all")
     print(card)
@@ -7707,7 +7987,8 @@ def main() -> int:
                        + m_launches[name] + tel_launches[name]
                        + acc_launches[name] + chaos_launches[name]
                        + slo_launches[name] + fleet_launches[name]
-                       + control_launches[name] + crash_launches[name]),
+                       + control_launches[name] + crash_launches[name]
+                       + pulsar_launches[name]),
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

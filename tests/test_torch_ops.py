@@ -159,6 +159,7 @@ _PORT_MODULES = {
     "attendance_tpu_torch.transport.resilience",
     "attendance_tpu_torch.transport.socket_broker",
     "attendance_tpu_torch.transport.shm_ring",
+    "attendance_tpu_torch.transport.pulsar_client",
     "attendance_tpu_torch.serve", "attendance_tpu_torch.serve.mirror",
     "attendance_tpu_torch.serve.engine", "attendance_tpu_torch.serve.rpc",
     "attendance_tpu_torch.serve.chain", "attendance_tpu_torch.serve.audit",

@@ -128,10 +128,8 @@ def _f(*flags):
 
 MISSING = [
     Family("recorded departures",
-           _f("--pulsar-host", "--no-json-chunk-decode"), CONFIG_VERBS,
-           "ROADMAP departures: Pulsar stays import-gated and "
-           "transport/pulsar_client.py is not ported; 'No json_chunk_decode "
-           "switch'."),
+           _f("--no-json-chunk-decode"), CONFIG_VERBS,
+           "ROADMAP departure 'No json_chunk_decode switch'."),
     Family("store key", _f("--bloom-filter-key"),
            CONFIG_VERBS - {"generate", "process", "pipeline"},
            "ROADMAP Queue C, the --bloom-filter-key repair: read by the "
@@ -250,8 +248,9 @@ MISSING = [
            "lanes (handle_poison's callers: pipeline/processor.py:480, "
            "bridge.py:143, fast_path.py:3148, lanes.py:461)."),
     Family("transport", _f("--transport-backend", "--socket-broker",
-                            "--pulsar-topic", "--retry-budget-s",
-                            "--quarantine-dir"), _f("serve"),
+                            "--pulsar-host", "--pulsar-topic",
+                            "--retry-budget-s", "--quarantine-dir"),
+           _f("serve"),
            "cmd_serve opens no broker client "
            "(attendance_tpu/cli.py:323-376)."),
 ]
@@ -265,9 +264,9 @@ PORT_EXTRAS = {
     "pipeline": _DEVICE, "process": _DEVICE, "stats": _DEVICE,
     "fused": _DEVICE | {"--allowed-lateness-s"},
 }
-# JAX's choices the port refuses: the Pulsar transport (recorded
-# departure).
-CHOICE_DEPARTURES = {"--transport-backend": {"pulsar"}}
+# JAX's choices the port refuses (none since the Pulsar transport was
+# ported).
+CHOICE_DEPARTURES = {}
 
 
 def _jax_cli_parser():
@@ -368,10 +367,6 @@ def test_repaired_flags_carry_jax_help():
 
 # Modules of the JAX package with no port file, each with its reason.
 NO_PORT_FILE = {
-    "transport/pulsar_client.py":
-        "not ported: Pulsar stays import-gated; the port's make_client "
-        "raises NotImplementedError for transport_backend='pulsar', and "
-        "the module itself reads no field",
     "utils/cache.py": "the XLA compile cache, with no PyTorch meaning",
     "ops/pallas_kernels.py": "the Pallas kernels, ported as K1 and K4 "
                              "(ops/kernels.py and csrc/)",
@@ -381,8 +376,6 @@ NO_PORT_FILE = {
 FIELD_DEPARTURES = {
     "json_chunk_decode": ("pipeline/fast_path.py",
                           "ROADMAP departure 'No json_chunk_decode switch'"),
-    "pulsar_host": ("transport/__init__.py",
-                    "the Pulsar client is not ported (NO_PORT_FILE)"),
 }
 # Where the Config is built from the flag namespace: (a) holds those.
 FLAG_BUILDERS = {"cli.py", "config.py"}
