@@ -1,0 +1,12 @@
+"""Ingress decode of each frame, host nanoseconds an event over the window.
+
+From ``FusedMetrics.stage_seconds`` (the program's own host clock around
+each stage of the run loop): stage ``decode`` (``pipeline/codec.py``)."""
+
+
+def read(src):
+    stages = src.get("stages")
+    if not stages or not src.get("events"):
+        return None
+    seconds = sum(stages.get(s, 0.0) for s in ("decode",))
+    return seconds / src["events"] * 1e9
